@@ -1,0 +1,227 @@
+"""Plan-based FFT scheduler (torch port of ``fft_wgpu_tpu.plan.plan``).
+
+A :class:`Plan` is constructed once per transform length and replayed by
+calling its methods.  PyTorch runs eagerly, so there is nothing to compile:
+the kernel library and the constant tables are built once per process and
+cached by the modules that use them.
+
+Executors keep the JAX package's names:
+  * ``"pallas"`` and its schedules ``"pallas:classic"``, ``"pallas:dit"``,
+    ``"pallas:balanced"`` — the Hopper row kernel (``ops/cuda_fft.py``);
+    the TPU schedules collapse into that one kernel
+  * ``"xla"``    — the plain-torch mixed-radix path (``ops/stockham.py``)
+  * ``"direct"`` — one direct DFT matmul
+  * ``"fourstep"``, ``"bigfft"`` — not ported yet (ROADMAP queue A, slice 3)
+
+With ``executor="auto"`` a CUDA tensor of pow2 length 128..16384 always
+goes through the row kernel, whatever its row count; any other length runs
+the mixed-radix path on the same device; pow2 lengths above 16384 raise
+:class:`NotImplementedError`.  A CPU tensor always takes the mixed-radix
+path, as the JAX package does off the TPU.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..core.complex_utils import merge, promote_to_split
+from ..core.twiddle import FORWARD, INVERSE
+from ..ops import cuda_fft, stockham
+from ..ops.cuda_fft import FUSED_MAX_N, FUSED_MIN_N
+
+__all__ = ["Plan", "plan", "get_plan"]
+
+_KERNEL = ("pallas", "pallas:classic", "pallas:dit", "pallas:balanced")
+_EXECUTORS = ("auto", "xla", "direct", "fourstep", "bigfft") + _KERNEL
+
+
+def _is_pow2(n: int) -> bool:
+    return n > 0 and (n & (n - 1)) == 0
+
+
+def _is_complex64(dtype) -> bool:
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.complex64
+    try:
+        return np.dtype(dtype) == np.complex64
+    except TypeError:
+        return False
+
+
+def _into(out, yr, yi):
+    if out is None:
+        return yr, yi
+    out[0].copy_(yr)
+    out[1].copy_(yi)
+    return out
+
+
+class Plan:
+    """FFT plan for 1-D transforms of length ``n``.
+
+    API parity with the reference plan objects:
+      forward                -> Forward::proc
+      inverse                -> Inverse::proc        (fused 1/N)
+      inverse_unnormalized   -> Onlyinverse::proc
+      normalize              -> Normalize::proc
+
+    ``donate=True`` makes the ``*_split`` forms write their result into the
+    input planes, in place: on the row kernel directly (each block holds its
+    whole row in shared memory before it stores), elsewhere by a copy.
+    ``autotune=True`` raises :class:`NotImplementedError` on a CUDA tensor
+    until ``plan/autotune.py`` is ported; on a CPU tensor it does nothing,
+    as in the JAX package off the TPU.
+    """
+
+    def __init__(self, n: int, *, executor: str = "auto",
+                 dtype=torch.complex64, donate: bool = False,
+                 autotune: bool = False):
+        if n < 1:
+            raise ValueError(f"fft length must be >= 1, got {n}")
+        self.n = int(n)
+        if not _is_complex64(dtype):
+            raise ValueError(
+                f"unsupported dtype {dtype!r}: plans compute in split-f32 and "
+                "return complex64 (use dtype=torch.complex64)")
+        self.dtype = torch.complex64
+        if executor not in _EXECUTORS:
+            raise ValueError(f"unknown executor {executor!r}")
+        self.executor = executor
+        self.autotune = bool(autotune)
+        self.donate = bool(donate)
+
+    def _resolve_executor(self, device) -> str:
+        if self.executor != "auto":
+            return self.executor
+        n = self.n
+        if device.type == "cuda" and _is_pow2(n):
+            if FUSED_MIN_N <= n <= FUSED_MAX_N:
+                return "pallas"
+            if n > FUSED_MAX_N:
+                return "fourstep"
+        return "xla"
+
+    def _check_autotune(self, device):
+        if self.autotune and self.executor == "auto" and device.type == "cuda":
+            raise NotImplementedError(
+                "autotune=True is not ported yet (plan/autotune.py, ROADMAP "
+                "queue A, slice 10)")
+
+    # ------------------------------------------------------------------ #
+    # split-domain executors (re/im pairs)
+    # ------------------------------------------------------------------ #
+    def _execute_split(self, re, im, sign: int, scale, out=None):
+        """Transform along the last axis; ``out`` receives the result."""
+        if re.shape[-1] != self.n:
+            raise ValueError(
+                f"plan built for n={self.n}, input last axis is {re.shape[-1]}")
+        ex = self._resolve_executor(re.device)
+        if ex in _KERNEL:
+            if out is not None and re.is_contiguous() and im.is_contiguous():
+                return cuda_fft.fft_batched_split(re, im, sign, scale, out=out)
+            return _into(out, *cuda_fft.fft_batched_split(re, im, sign, scale))
+        if ex in ("fourstep", "bigfft"):
+            raise NotImplementedError(
+                f"executor {ex!r} (n={self.n}) is not ported yet (four-step "
+                "and whole-row large-N kernels, ROADMAP queue A, slice 3)")
+        if ex == "direct":
+            yr, yi = stockham._dft_direct(re, im, sign)
+        else:
+            yr, yi = stockham.fft_last_axis(re, im, sign)
+        return _into(out, *stockham.apply_scale(yr, yi, scale))
+
+    def _execute_split_axis(self, re, im, sign: int, scale, axis: int,
+                            out=None):
+        """Transform along ``axis``: any axis but the last moves to the back
+        around the row path (the axis(-2)/(-3) kernels are ROADMAP slice 4)."""
+        ax = axis % re.ndim
+        if ax == re.ndim - 1:
+            return self._execute_split(re, im, sign, scale, out)
+        yr, yi = self._execute_split(re.movedim(ax, -1), im.movedim(ax, -1),
+                                     sign, scale)
+        return _into(out, yr.movedim(-1, ax), yi.movedim(-1, ax))
+
+    def _split(self, re, im, axis: int, sign: int, scale):
+        re, im = promote_to_split((re, im))
+        self._check_autotune(re.device)
+        if not self.donate:
+            return self._execute_split_axis(re, im, sign, scale, axis)
+        if torch.is_grad_enabled() and (re.requires_grad or im.requires_grad):
+            raise ValueError("donate=True writes the result into the input "
+                             "planes and cannot record a gradient")
+        return self._execute_split_axis(re, im, sign, scale, axis, out=(re, im))
+
+    def forward_split(self, re, im, axis: int = -1):
+        """Forward FFT on a split (re, im) float32 pair -> split pair.
+        With donate=True the result is written into (re, im) in place."""
+        return self._split(re, im, axis, FORWARD, None)
+
+    def inverse_split(self, re, im, axis: int = -1):
+        """Inverse FFT with fused 1/N on a split pair -> split pair."""
+        return self._split(re, im, axis, INVERSE, 1.0 / self.n)
+
+    def inverse_unnormalized_split(self, re, im, axis: int = -1):
+        """Unnormalized inverse on a split pair -> split pair."""
+        return self._split(re, im, axis, INVERSE, None)
+
+    # ------------------------------------------------------------------ #
+    # public complex-facade methods
+    # ------------------------------------------------------------------ #
+    def _run(self, x, axis: int, sign: int, scale):
+        re, im = promote_to_split(x)
+        if re.shape[axis] != self.n:
+            raise ValueError(
+                f"plan built for n={self.n}, input axis {axis} has length "
+                f"{re.shape[axis]}")
+        self._check_autotune(re.device)
+        return merge(*self._execute_split_axis(re, im, sign, scale, axis))
+
+    def forward(self, x, axis: int = -1):
+        """Forward FFT, unscaled (reference Forward)."""
+        return self._run(x, axis, FORWARD, None)
+
+    def inverse(self, x, axis: int = -1):
+        """Inverse FFT with the 1/N scale folded into the last pass
+        (reference Inverse)."""
+        return self._run(x, axis, INVERSE, 1.0 / self.n)
+
+    def inverse_unnormalized(self, x, axis: int = -1):
+        """Inverse FFT without the 1/N scale (reference Onlyinverse)."""
+        return self._run(x, axis, INVERSE, None)
+
+    def normalize(self, x, axis: int = -1):
+        """Standalone 1/N scaling pass (reference Normalize)."""
+        del axis  # elementwise — axis kept for API symmetry
+        re, im = promote_to_split(x)
+        s = float(np.float32(1.0 / self.n))
+        return merge(re * s, im * s)
+
+    def warmup(self, batch_shape=(), axis: int = -1, device=None):
+        """Run every mode once on zeros of ``batch_shape + (n,)`` on
+        ``device`` (CPU by default): on a CUDA device this builds the row
+        kernel and uploads its tables before the first real call.
+        Returns self for chaining."""
+        shape = tuple(batch_shape) + (self.n,)
+        for sign, scale in ((FORWARD, None), (INVERSE, 1.0 / self.n),
+                            (INVERSE, None)):
+            re = torch.zeros(shape, device=device)
+            self._check_autotune(re.device)
+            self._execute_split_axis(re, torch.zeros_like(re), sign, scale, axis)
+        return self
+
+    def __repr__(self):
+        return f"Plan(n={self.n}, executor={self.executor!r})"
+
+
+def plan(n: int, **kw) -> Plan:
+    """Construct an FFT plan (``Forward::new`` analogue)."""
+    return Plan(n, **kw)
+
+
+@functools.lru_cache(maxsize=512)
+def get_plan(n: int, executor: str = "auto") -> Plan:
+    """Module-level plan cache used by the functional API (fft/ifft/...)."""
+    return Plan(n, executor=executor)
