@@ -1,10 +1,13 @@
 """fft_wgpu_tpu_torch — the PyTorch + CUDA port of fft_wgpu_tpu.
 
 Batched 1-D complex-to-complex FFTs along the last axis through the same
-plan API as the JAX package.  On a CUDA tensor, power-of-two lengths
-128..16384 run a hand-written Hopper kernel (``csrc/rows_fft.cu``, built
-with nvcc at first use); other lengths, and every CPU tensor, run the plain
-torch mixed-radix path.  This package imports torch and never jax.
+plan API as the JAX package.  On a CUDA tensor, power-of-two lengths run
+hand-written Hopper kernels built with nvcc at first use: 128..16384 the
+row kernel (``csrc/rows_fft.cu``); above that the four-step, as the
+whole-row cluster kernel (``csrc/big_fft.cu``, 2^15..2^18) or the axis(-2)
+and transposed-rows kernels (``csrc/ax0_fft.cu``, ``csrc/rows_t_fft.cu``).
+Other lengths, and every CPU tensor, run the plain torch mixed-radix path.
+This package imports torch and never jax.
 """
 
 from .core.reference import naive_dft, naive_idft

@@ -11,13 +11,20 @@ Executors keep the JAX package's names:
     the TPU schedules collapse into that one kernel
   * ``"xla"``    — the plain-torch mixed-radix path (``ops/stockham.py``)
   * ``"direct"`` — one direct DFT matmul
-  * ``"fourstep"``, ``"bigfft"`` — not ported yet (ROADMAP queue A, slice 3)
+  * ``"fourstep"`` — the four-step decomposition (``ops/fourstep.py``):
+    on a CUDA tensor the whole-row kernel where its envelope allows, else
+    the axis(-2) kernel then the transposed-rows kernel
+  * ``"bigfft"`` — the whole-row kernel (``ops/bigfft.py``); a shape
+    outside its envelope raises :class:`~..ops.bigfft.Unsupported`.  On a
+    CPU tensor it runs the kernel's plain version (the JAX package's
+    ``"bigfft"`` cannot run on the CPU at all outside interpret mode).
 
 With ``executor="auto"`` a CUDA tensor of pow2 length 128..16384 always
-goes through the row kernel, whatever its row count; any other length runs
-the mixed-radix path on the same device; pow2 lengths above 16384 raise
-:class:`NotImplementedError`.  A CPU tensor always takes the mixed-radix
-path, as the JAX package does off the TPU.
+goes through the row kernel, whatever its row count; pow2 lengths above
+16384 go through ``"fourstep"``; any other length runs the mixed-radix path
+on the same device.  Axis -2 of a CUDA tensor, for pow2 n in 128..16384,
+goes through the axis(-2) kernel with no transpose.  A CPU tensor always
+takes the mixed-radix path, as the JAX package does off the TPU.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import torch
 
 from ..core.complex_utils import merge, promote_to_split
 from ..core.twiddle import FORWARD, INVERSE
-from ..ops import cuda_fft, stockham
+from ..ops import bigfft, cuda_fft, fourstep, stockham
 from ..ops.cuda_fft import FUSED_MAX_N, FUSED_MIN_N
 
 __all__ = ["Plan", "plan", "get_plan"]
@@ -123,10 +130,10 @@ class Plan:
             if out is not None and re.is_contiguous() and im.is_contiguous():
                 return cuda_fft.fft_batched_split(re, im, sign, scale, out=out)
             return _into(out, *cuda_fft.fft_batched_split(re, im, sign, scale))
-        if ex in ("fourstep", "bigfft"):
-            raise NotImplementedError(
-                f"executor {ex!r} (n={self.n}) is not ported yet (four-step "
-                "and whole-row large-N kernels, ROADMAP queue A, slice 3)")
+        if ex == "bigfft":
+            return _into(out, *bigfft.fft_big_split(re, im, sign, scale))
+        if ex == "fourstep":
+            return _into(out, *fourstep.fft_last_axis(re, im, sign, scale))
         if ex == "direct":
             yr, yi = stockham._dft_direct(re, im, sign)
         else:
@@ -135,11 +142,19 @@ class Plan:
 
     def _execute_split_axis(self, re, im, sign: int, scale, axis: int,
                             out=None):
-        """Transform along ``axis``: any axis but the last moves to the back
-        around the row path (the axis(-2)/(-3) kernels are ROADMAP slice 4)."""
+        """Transform along ``axis``.  Axis -2 of a CUDA tensor runs the
+        axis(-2) kernel with no transpose; any other axis moves to the back
+        around the row path (the axis(-3) kernel is ROADMAP slice 4)."""
         ax = axis % re.ndim
         if ax == re.ndim - 1:
             return self._execute_split(re, im, sign, scale, out)
+        if (ax == re.ndim - 2 and re.device.type == "cuda"
+                and self.executor in ("auto",) + _KERNEL
+                and cuda_fft._ax0_supported(self.n)):
+            if re.shape[ax] != self.n:
+                raise ValueError(f"plan built for n={self.n}, input axis "
+                                 f"{axis} has length {re.shape[ax]}")
+            return _into(out, *cuda_fft.fft_axis0_split(re, im, sign, scale))
         yr, yi = self._execute_split(re.movedim(ax, -1), im.movedim(ax, -1),
                                      sign, scale)
         return _into(out, yr.movedim(-1, ax), yi.movedim(-1, ax))
@@ -201,8 +216,9 @@ class Plan:
 
     def warmup(self, batch_shape=(), axis: int = -1, device=None):
         """Run every mode once on zeros of ``batch_shape + (n,)`` on
-        ``device`` (CPU by default): on a CUDA device this builds the row
-        kernel and uploads its tables before the first real call.
+        ``device`` (CPU by default): on a CUDA device this builds the
+        kernels of its route and uploads their tables before the first real
+        call.
         Returns self for chaining."""
         shape = tuple(batch_shape) + (self.n,)
         for sign, scale in ((FORWARD, None), (INVERSE, 1.0 / self.n),

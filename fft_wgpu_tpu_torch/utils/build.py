@@ -6,10 +6,11 @@ compiled for Hopper into ``_build/`` inside the package (listed in
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
-The library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded.  nvcc's
-output, with ``-Xptxas -v``'s register and shared-memory report, is kept
-beside the library as ``<library>.log``.
+The library's file name carries a hash of the source, of every ``csrc``
+header it includes (``#include "<header>.cuh"``, followed into headers) and
+of the flags, so an edited source or header is rebuilt and a stale library
+is never loaded.  nvcc's output, with ``-Xptxas -v``'s register and
+shared-memory report, is kept beside the library as ``<library>.log``.
 """
 
 from __future__ import annotations
@@ -17,11 +18,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CompileError", "BUILD_DIR", "build", "load"]
+__all__ = ["CompileError", "BUILD_DIR", "library_path", "build", "load",
+           "function", "check"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -48,11 +51,37 @@ def _nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src: Path) -> list[Path]:
+    """``src`` and every file of its directory that it includes, transitively."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives, named by the hash of
+    its sources and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(CSRC / f"{name}.cu"):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
@@ -74,3 +103,23 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
     return lib
+
+
+def function(name: str, fn: str, argtypes: list):
+    """The C function ``fn`` of ``csrc/<name>.cu``, typed: it takes
+    ``argtypes`` and returns a CUDA error code (0 = ok)."""
+    f = getattr(load(name), fn)
+    if f.argtypes is None:
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return f
+
+
+def check(name: str, err: int, what: str) -> None:
+    """Raise if a launch of ``csrc/<name>.cu`` returned an error; the
+    library's ``<name>_error_string`` names it."""
+    if err:
+        describe = getattr(load(name), f"{name}_error_string")
+        describe.argtypes = [ctypes.c_int]
+        describe.restype = ctypes.c_char_p
+        raise RuntimeError(f"{what}: {describe(err).decode()}")

@@ -1,0 +1,178 @@
+"""Torch port, the four-step's two kernel entry points (ops/cuda_fft.py) on
+the CPU: the axis(-2) FFT and the transposed-rows FFT with the outer twiddle.
+
+On a CPU tensor ``fft_axis0_split`` and ``fft_rows_transposed_split`` run
+their plain versions.  They are held against the JAX package's Pallas
+kernels run in interpret mode, as ``tests/test_pallas.py`` and
+``tests/test_ad.py`` run them, values and gradients.  The kernels
+themselves need the card: ``tests/test_torch_cuda.py``.  Tolerance: 1e-5
+relative L2.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fft_wgpu_tpu.ops import pallas_fft as j_pf
+from fft_wgpu_tpu_torch.ops import cuda_fft
+
+torch.set_num_threads(1)
+
+
+def planes(rng, *shape):
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+def cplx(pair):
+    return np.asarray(pair[0]) + 1j * np.asarray(pair[1])
+
+
+def torch_pair(re, im):
+    return torch.from_numpy(re), torch.from_numpy(im)
+
+
+def assert_no_launches():
+    assert (cuda_fft.launches, cuda_fft.ax0_launches, cuda_fft.rows_t_launches) \
+        == (0, 0, 0)  # CPU tensors never reach a kernel
+
+
+@pytest.mark.parametrize("shape", [(512, 100), (3, 1024, 130), (2, 256, 256)])
+def test_axis0_matches_jax_kernel(shape, rng, assert_close):
+    re, im = planes(rng, *shape)
+    n = shape[-2]
+    for sign, scale in ((-1, None), (1, 1.0 / n)):
+        want = cplx(j_pf.fft_axis0_split(re, im, sign, scale, interpret=True))
+        got = cuda_fft.fft_axis0_split(*torch_pair(re, im), sign, scale)
+        assert got[0].shape == shape and got[0].dtype == torch.float32
+        assert_close(cplx(got), want, what=f"sign={sign}")
+        assert_close(cplx(got), (np.fft.fft if sign < 0 else np.fft.ifft)(
+            re + 1j * im, axis=-2))
+    assert_no_launches()
+
+
+@pytest.mark.parametrize("shape,outer", [((3, 200, 512), None),
+                                         ((64, 512), (64, 1 << 15))])
+def test_rows_transposed_matches_jax_kernel(shape, outer, rng, assert_close):
+    re, im = planes(rng, *shape)
+    rows, n = shape[-2:]
+    for sign, scale in ((-1, None), (1, 1.0 / n)):
+        want = cplx(j_pf.fft_rows_transposed_split(re, im, sign, scale, outer=outer,
+                                                   interpret=True))
+        got = cuda_fft.fft_rows_transposed_split(*torch_pair(re, im), sign, scale,
+                                                 outer=outer)
+        assert got[0].shape == shape[:-2] + (n, rows)
+        assert_close(cplx(got), want, what=f"sign={sign}")
+    assert_no_launches()
+
+
+def test_rows_transposed_outer_twiddle_is_exact_index(rng, assert_close):
+    # the four-step identity: rows of n2 with outer=(n1, n1*n2), stored
+    # transposed, after an axis(-2) pass, give the flat length-n1*n2 FFT
+    n1, n2 = 128, 256
+    re, im = planes(rng, 2, n1 * n2)
+    br, bi = cuda_fft.fft_axis0_split(torch.from_numpy(re).reshape(2, n1, n2),
+                                      torch.from_numpy(im).reshape(2, n1, n2), -1)
+    dr, di = cuda_fft.fft_rows_transposed_split(br, bi, -1, outer=(n1, n1 * n2))
+    got = cplx((dr.reshape(2, -1), di.reshape(2, -1)))
+    assert_close(got, np.fft.fft(re + 1j * im, axis=-1))
+
+
+@pytest.mark.parametrize("entry", ["axis0", "rows_t"])
+def test_reference_is_the_cpu_route(entry, rng):
+    re, im = torch_pair(*planes(rng, 2, 256, 128))
+    if entry == "axis0":
+        a = cuda_fft.fft_axis0_split(re, im, 1, 0.5)
+        b = cuda_fft.fft_axis0_split_reference(re, im, 1, 0.5)
+    else:
+        a = cuda_fft.fft_rows_transposed_split(re, im, 1, 0.5, outer=(256, 1 << 15))
+        b = cuda_fft.fft_rows_transposed_split_reference(re, im, 1, 0.5,
+                                                         outer=(256, 1 << 15))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n", [64, 1000, 32768])
+def test_envelopes_raise(n):
+    z = torch.zeros(n, 4)
+    with pytest.raises(cuda_fft.Unsupported):
+        cuda_fft.fft_axis0_split(z, z, -1)
+    with pytest.raises(cuda_fft.Unsupported):
+        cuda_fft.fft_axis0_split_reference(z, z, -1)
+    zt = torch.zeros(4, n)
+    with pytest.raises(cuda_fft.Unsupported):
+        cuda_fft.fft_rows_transposed_split(zt, zt, -1)
+    with pytest.raises(cuda_fft.Unsupported):
+        cuda_fft.fft_rows_transposed_split_reference(zt, zt, -1)
+
+
+def test_ax0_envelope_is_the_pow2_part_of_jax():
+    # pow2 n match the JAX kernel; its composite n (slice 6) are not ported
+    for e in range(20):
+        assert cuda_fft._ax0_supported(1 << e) == j_pf._ax0_supported(1 << e)
+    assert j_pf._ax0_supported(1000) and not cuda_fft._ax0_supported(1000)
+
+
+def test_bad_arguments_raise():
+    z = torch.zeros(256, 4)
+    with pytest.raises(ValueError, match="sign"):
+        cuda_fft.fft_axis0_split(z, z, 0)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_fft.fft_axis0_split(z, z.double(), -1)
+    with pytest.raises(ValueError, match=r"\[\.\.\., n, m\]"):
+        cuda_fft.fft_axis0_split(torch.zeros(256), torch.zeros(256), -1)
+    zt = torch.zeros(4, 256)
+    with pytest.raises(ValueError, match="sign"):
+        cuda_fft.fft_rows_transposed_split(zt, zt, 2)
+    with pytest.raises(ValueError, match="outer_n"):
+        cuda_fft.fft_rows_transposed_split(zt, zt, -1, outer=(4, 0))
+    with pytest.raises(ValueError, match=r"\[\.\.\., R, n\]"):
+        cuda_fft.fft_rows_transposed_split(torch.zeros(256), torch.zeros(256), -1)
+
+
+def test_grad_axis0_matches_jax(rng, assert_close):
+    # tests/test_ad.py's loss: sum(Xr * wr + Xi * wi) through the kernel
+    re, im, wr, wi = (rng.standard_normal((2, 256, 256)).astype(np.float32)
+                      for _ in range(4))
+
+    def jloss(a, b):
+        xr, xi = j_pf.fft_axis0_split(a, b, -1, interpret=True)
+        return jnp.sum(xr * wr + xi * wi)
+
+    jg = jax.grad(jloss, argnums=(0, 1))(re, im)
+    tre = torch.from_numpy(re).requires_grad_()
+    tim = torch.from_numpy(im).requires_grad_()
+    xr, xi = cuda_fft.fft_axis0_split(tre, tim, -1)
+    (xr * torch.from_numpy(wr) + xi * torch.from_numpy(wi)).sum().backward()
+    assert_close(tre.grad.numpy(), np.asarray(jg[0]), what="d/dre")
+    assert_close(tim.grad.numpy(), np.asarray(jg[1]), what="d/dim")
+    assert_no_launches()
+
+
+@pytest.mark.parametrize("outer", [None, (2, 2 * 256), (8, 1 << 15)])
+def test_grad_rows_transposed_matches_jax(outer, rng, assert_close):
+    rows = 2 if outer is None else outer[0]
+    re, im = planes(rng, rows, 256)
+    wr, wi = planes(rng, 256, rows)
+
+    def jloss(a, b):
+        xr, xi = j_pf.fft_rows_transposed_split(a, b, -1, 1.0 / 256, outer=outer,
+                                                interpret=True)
+        return jnp.sum(xr * wr + xi * wi)
+
+    jg = jax.grad(jloss, argnums=(0, 1))(re, im)
+    tre = torch.from_numpy(re).requires_grad_()
+    tim = torch.from_numpy(im).requires_grad_()
+    xr, xi = cuda_fft.fft_rows_transposed_split(tre, tim, -1, 1.0 / 256, outer=outer)
+    (xr * torch.from_numpy(wr) + xi * torch.from_numpy(wi)).sum().backward()
+    assert_close(tre.grad.numpy(), np.asarray(jg[0]), what="d/dre")
+    assert_close(tim.grad.numpy(), np.asarray(jg[1]), what="d/dim")
+    assert_no_launches()
+
+
+def test_empty_batch():
+    z = torch.zeros(0, 256, 4)
+    assert cuda_fft.fft_axis0_split(z, z, -1)[0].shape == (0, 256, 4)
+    zt = torch.zeros(0, 4, 256)
+    assert cuda_fft.fft_rows_transposed_split(zt, zt, -1)[0].shape == (0, 256, 4)

@@ -166,12 +166,6 @@ def test_value_errors_match_jax():
     assert ft.plan(128, dtype=np.complex64).dtype == torch.complex64
 
 
-@pytest.mark.parametrize("ex", ["fourstep", "bigfft"])
-def test_large_n_executors_not_ported(ex):
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        ft.plan(1 << 15, executor=ex).forward(np.zeros((1, 1 << 15), np.complex64))
-
-
 def test_routing_on_cuda_tensors():
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
     for e in range(7, 15):
@@ -180,8 +174,13 @@ def test_routing_on_cuda_tensors():
         assert ft.plan(1 << e)._resolve_executor(cpu) == "xla"
     for n in (1, 64, 120, 1000, 4095, 4097):
         assert ft.plan(n)._resolve_executor(cuda) == "xla"
-    assert ft.plan(1 << 15)._resolve_executor(cuda) == "fourstep"
+    for e in (15, 18, 20, 22, 27):
+        # four-step above the row kernel, on the card only (ops/fourstep.py)
+        assert ft.plan(1 << e)._resolve_executor(cuda) == "fourstep"
+        assert ft.plan(1 << e)._resolve_executor(cpu) == "xla"
     assert ft.plan(512, executor="direct")._resolve_executor(cuda) == "direct"
+    for ex in ("fourstep", "bigfft"):
+        assert ft.plan(1 << 15, executor=ex)._resolve_executor(cpu) == ex
 
 
 def test_autotune_not_hidden_on_cuda(rng, assert_close):
