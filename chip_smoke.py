@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the torch port's C2C paths once on one CUDA card: the batched 1-D
-main path (n = 128..16384) and the large-N path (four-step and whole-row).
+"""Drive the torch port's paths once on one CUDA card: the batched 1-D
+main path (n = 128..16384), the large-N path (four-step and whole-row), and
+BASELINE config 4 (2-D 4096 x 4096, R2C/C2R, 3-D 256^3).
 
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
-the CUDA toolkit.  It builds the four kernels from
+the CUDA toolkit.  It builds the seven kernel libraries from
 ``fft_wgpu_tpu_torch/csrc`` (one nvcc each, all at once) and runs five
 phases, one line each or more; any failure raises and the script exits
 non-zero without a result line:
@@ -16,19 +17,30 @@ non-zero without a result line:
              both signs, scale None and 1/n (rel-L2 <= 1e-5 each):
              rows_fft for every n in 128..16384 at rows 1 and 1000 and at
              4096 x 4096 and 2500 x 512; ax0_fft for every n at m = 7 and
-             m = 1000 (a leading batch of 2) and at the 2^22 pass-1 shape
-             1024 x 4096; rows_t_fft for every n at R = 1 and 200, without
+             m = 1000 (a leading batch of 2), at the 2^22 pass-1 shape
+             1024 x 4096 and at config 4's 4096 x 4096 and ragged
+             4096 x 2049; rows_t_fft for every n at R = 1 and 200, without
              and with the outer twiddle, and at the 2^22 pass-2 shape;
              big_fft for every n of its envelope at rows 1 and 3, and at
-             256 x 2^16;
-3. main    — plan / fft / ifft / Forward at the sizes users call, with the
-             launch counts showing each call went through its kernels
-             (row kernel; axis(-2) then transposed rows; whole row);
-4. grad    — gradients through fft against the plain versions' (row
-             kernel; the four-step at 2 x 2^20; the whole row at 4 x 2^16);
+             256 x 2^16; the axis(-3) pass (ax0_fft on a free view) at
+             [2, n, 7, 130] and 256^3; fft2f_fft at every plane of its
+             envelope, single and batched; r2c_fft and c2r_fft for every n
+             at rows 3 and 1000, ragged and padded, and at 4096 x 4096;
+3. main    — two paths, the launch counts set to 0 just before each and
+             read just after: plan / fft / ifft / Forward at the 1-D sizes
+             users call (row kernel; axis(-2) then transposed rows; whole
+             row), then config 4: fft2 / ifft2 and the rfft2 / irfft2 round
+             trip at 4096 x 4096, fftn / ifftn at 256^3 (fused plane, then
+             axis(-3)); each call's launches are checked; small N-D and
+             real inputs against float64 numpy after config 4's window;
+4. grad    — gradients against the plain versions' (CPU for the N-D and
+             real ones): fft (row kernel; the four-step at 2 x 2^20; the
+             whole row at 4 x 2^16), rfft2 and batched fft2;
 5. times   — CUDA-event medians of each kernel, its plain version,
              torch.fft and plan.forward at the main shapes, beside a plane
-             copy of the same bytes.
+             copy of the same bytes; fft2 at 4096 x 4096 by both routes
+             (transposed rows twice, row then axis(-2)) and the fused plane
+             at 256^3 against row then axis(-2); fftn at 512^3.
 
 torch.fft is an oracle and a baseline here, never the implementation.  The
 last two lines are a JSON object describing the kernels, then
@@ -46,9 +58,16 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 TOL = 1e-5  # relative L2, the JAX package's oracle bar
 SEED = 0
-LIBS = ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft")
+LIBS = ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft", "fft2f_fft", "r2c_fft",
+        "c2r_fft")
+# Kernels as the launch counters name them: the axis(-3) pass is ax0_fft's
+# library on a free view, with its own entry point and counter.
+KERNELS = ("rows_fft", "ax0_fft", "ax3_fft", "rows_t_fft", "fft2f_fft", "r2c_fft",
+           "c2r_fft", "big_fft")
 
 
 def rel_l2(got, want) -> float:
@@ -163,7 +182,7 @@ def main() -> int:
           flush=True)
 
     # ---- 2. each kernel vs plain version vs torch.fft ---------------------
-    max_abs = dict.fromkeys(LIBS, 0.0)
+    max_abs = dict.fromkeys(KERNELS, 0.0)
 
     def compare(name, got, plain, want, what):
         err_p = check_close(got, plain, f"{name} vs plain {what}")
@@ -171,12 +190,12 @@ def main() -> int:
         max_abs[name] = max(max_abs[name], float((got - plain).abs().max()))
         return max(err_p, err_o)
 
-    def sweep(name, shapes, run, plain, want):
+    def sweep(name, shapes, run, plain, want, dim=-1):
         worst, cases = 0.0, 0
         for shape, extra in shapes:
             x = crand(*shape)
             re, im = planes(x)
-            n = shape[-1] if name != "ax0_fft" else shape[-2]
+            n = math.prod(shape[-2:]) if dim is None else shape[dim]
             for sign in (-1, 1):
                 for scale in (None, 1.0 / n):
                     got = torch.complex(*run(re, im, sign, scale, extra))
@@ -198,10 +217,10 @@ def main() -> int:
           lambda x, s, sc, _: oracle(x, s, sc))
     sweep("ax0_fft",
           [((2, n, m), None) for n in pow2 for m in (7, 1000)]
-          + [((1024, 4096), None)],
+          + [((1024, 4096), None), ((4096, 4096), None), ((4096, 2049), None)],
           lambda re, im, s, sc, _: cuda_fft._ax0_launch(re, im, s, sc),
           lambda re, im, s, sc, _: cuda_fft.fft_axis0_split_reference(re, im, s, sc),
-          lambda x, s, sc, _: oracle(x, s, sc, dim=-2))
+          lambda x, s, sc, _: oracle(x, s, sc, dim=-2), dim=-2)
     sweep("rows_t_fft",
           [((rows, n), outer) for n in pow2 for rows in (1, 200)
            for outer in (None, (rows, rows * n))]
@@ -217,13 +236,81 @@ def main() -> int:
           lambda re, im, s, sc, _: bigfft._launch(re, im, s, sc),
           lambda re, im, s, sc, _: bigfft.fft_big_split_reference(re, im, s, sc),
           lambda x, s, sc, _: oracle(x, s, sc))
+    sweep("ax3_fft",
+          [((2, n, 7, 130), None) for n in (128, 1024, 16384)] + [((256, 256, 256), None)],
+          lambda re, im, s, sc, _: cuda_fft._ax3_launch(re, im, s, sc),
+          lambda re, im, s, sc, _: cuda_fft.fft_axis3_split_reference(re, im, s, sc),
+          lambda x, s, sc, _: oracle(x, s, sc, dim=-3), dim=-3)
+
+    def oracle2(x, sign, scale):
+        y = torch.fft.fft2(x) if sign < 0 else torch.fft.ifft2(x, norm="forward")
+        return y * (1.0 if scale is None else scale)
+
+    sweep("fft2f_fft",
+          [((*lead, a, b), None) for a, b in ((128, 128), (128, 256), (256, 128),
+                                              (128, 512), (512, 128), (256, 256))
+           for lead in ((), (5,))] + [((256, 256, 256), None)],
+          lambda re, im, s, sc, _: cuda_fft._fft2f_launch(re, im, s, sc),
+          lambda re, im, s, sc, _: cuda_fft.fft2_fused_split_reference(re, im, s, sc),
+          lambda x, s, sc, _: oracle2(x, s, sc), dim=None)
+
+    def real_sweep():
+        """R2C and C2R against their plain versions and torch.fft: ragged and
+        padded, scale None and 1/n; C2R also gets nonzero imaginary DC and
+        Nyquist parts and, padded, garbage pad columns, which it must not read."""
+        worst, cases = 0.0, 0
+        for rows, n in [(rows, 1 << e) for e in range(7, 15) for rows in (3, 1000)] \
+                + [(4096, 4096)]:
+            x = torch.randn(rows, n, device=dev, generator=gen)
+            mp = n // 2 + 1
+            for pad in (False, True):
+                for scale in (None, 1.0 / n):
+                    s = 1.0 if scale is None else scale
+                    what = f"{rows}x{n} pad={pad} scale={scale}"
+                    kr, ki = cuda_fft._r2c_launch(x, scale, pad)
+                    pr, pi = cuda_fft.rfft_rows_split_reference(x, scale, pad_out=pad)
+                    got = torch.complex(kr, ki)
+                    err = check_close(got, torch.complex(pr, pi), f"r2c_fft vs plain {what}")
+                    X = torch.fft.rfft(x)
+                    err = max(err, check_close(got[:, :mp], X * s,
+                                               f"r2c_fft vs torch.fft {what}"))
+                    check(not kr[:, mp:].any() and not ki[:, mp:].any(),
+                          f"r2c_fft pad columns not zero {what}")
+                    max_abs["r2c_fft"] = max(max_abs["r2c_fft"], float(
+                        (got - torch.complex(pr, pi)).abs().max()))
+                    Xr, Xi = kr.clone(), ki.clone()
+                    Xi[:, 0] += 3.0
+                    Xi[:, mp - 1] -= 2.0
+                    Xr[:, mp:], Xi[:, mp:] = 1e6, -1e6
+                    y = cuda_fft._c2r_launch(Xr, Xi, n, scale)
+                    yp = cuda_fft.irfft_rows_split_reference(Xr, Xi, n, scale, padded_in=pad)
+                    err = max(err, check_close(y, yp, f"c2r_fft vs plain {what}"))
+                    err = max(err, check_close(
+                        y, torch.fft.irfft(X, n=n, norm="forward") * s * s,
+                        f"c2r_fft vs torch.fft {what}"))
+                    max_abs["c2r_fft"] = max(max_abs["c2r_fft"], float((y - yp).abs().max()))
+                    worst = max(worst, err)
+                    cases += 2
+        torch.cuda.synchronize()
+        print(f"kernel r2c_fft, c2r_fft: {cases} cases ok | worst rel-L2 {worst:.3e} | "
+              f"max abs err vs plain {max_abs['r2c_fft']:.3e}, {max_abs['c2r_fft']:.3e}",
+              flush=True)
+
+    real_sweep()
 
     # ---- 3. main path at users' sizes ------------------------------------
     errs = {}
 
     def counts():
         return {"rows_fft": cuda_fft.launches, "ax0_fft": cuda_fft.ax0_launches,
-                "rows_t_fft": cuda_fft.rows_t_launches, "big_fft": bigfft.launches}
+                "ax3_fft": cuda_fft.ax3_launches, "rows_t_fft": cuda_fft.rows_t_launches,
+                "fft2f_fft": cuda_fft.fft2f_launches, "r2c_fft": cuda_fft.r2c_launches,
+                "c2r_fft": cuda_fft.c2r_launches, "big_fft": bigfft.launches}
+
+    def reset_counts():
+        cuda_fft.launches = cuda_fft.ax0_launches = cuda_fft.ax3_launches = 0
+        cuda_fft.rows_t_launches = cuda_fft.fft2f_launches = 0
+        cuda_fft.r2c_launches = cuda_fft.c2r_launches = bigfft.launches = 0
 
     def through(what, fn, **want):
         """Run fn(); the launch counts must rise by exactly ``want``
@@ -237,8 +324,7 @@ def main() -> int:
         return out
 
     two_pass = {"ax0_fft": 1, "rows_t_fft": 1}
-    cuda_fft.launches = cuda_fft.ax0_launches = cuda_fft.rows_t_launches = 0
-    bigfft.launches = 0
+    reset_counts()  # path 1: the 1-D main path and large N
 
     x = crand(4096, 4096)  # BASELINE config 2: 128 MiB of complex64
     p = ft.plan(4096)
@@ -297,11 +383,56 @@ def main() -> int:
     else:
         raise RuntimeError("check failed: executor='bigfft' beyond its envelope "
                            "did not raise Unsupported")
-    main_launches = counts()
-    for name, k in main_launches.items():
-        check(k > 0, f"main path launched no {name} kernel")
-    print(f"main: {len(errs)} checks ok, launches {main_launches} | "
+    path1 = counts()
+    for name in ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft"):
+        check(path1[name] > 0, f"1-D main path launched no {name} kernel")
+    print(f"main: 1-D path, {len(errs)} checks ok, launches {path1} | "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+
+    # path 2: BASELINE config 4, 2-D 4096 x 4096 + R2C/C2R, and 3-D 256^3
+    errs = {}
+    reset_counts()
+    x = crand(4096, 4096)  # 128 MiB of complex64
+    X = through("fft2 4096^2", lambda: ft.fft2(x), rows_fft=1, ax0_fft=1)
+    errs["fft2_4096"] = check_close(X, torch.fft.fft2(x), "fft2 4096^2")
+    errs["ifft2_4096"] = check_close(
+        through("ifft2 4096^2", lambda: ft.ifft2(X), rows_fft=1, ax0_fft=1), x,
+        "ifft2 4096^2 round trip")
+    del x, X
+    r = torch.randn(4096, 4096, device=dev, generator=gen)
+    R = through("rfft2 4096^2", lambda: ft.rfft2(r), r2c_fft=1, ax0_fft=1)
+    errs["rfft2_4096"] = check_close(R, torch.fft.rfft2(r), "rfft2 4096^2")
+    back = through("irfft2 4096^2", lambda: ft.irfft2(R, s=r.shape), ax0_fft=1, c2r_fft=1)
+    errs["irfft2_4096"] = check_close(back, r, "irfft2(rfft2) 4096^2 round trip")
+    del r, R, back
+    x = crand(256, 256, 256)  # 128 MiB: fused plane over axes 1-2, then axis 0
+    X = through("fftn 256^3", lambda: ft.fftn(x), fft2f_fft=1, ax3_fft=1)
+    errs["fftn_256^3"] = check_close(X, torch.fft.fftn(x), "fftn 256^3")
+    errs["ifftn_256^3"] = check_close(
+        through("ifftn 256^3", lambda: ft.ifftn(X), fft2f_fft=1, ax3_fft=1), x,
+        "ifftn 256^3 round trip")
+    del x, X
+    path2 = counts()
+    for name in ("rows_fft", "ax0_fft", "ax3_fft", "fft2f_fft", "r2c_fft", "c2r_fft"):
+        check(path2[name] > 0, f"config 4 path launched no {name} kernel")
+    # small inputs against float64 numpy on the host, through the same
+    # kernels, outside config 4's count window
+    xs = crand(8, 128, 256)
+    want = np.fft.fftn(xs.cpu().numpy().astype(np.complex128), axes=(1, 2))
+    got = through("fftn 8x128x256", lambda: ft.fftn(xs, axes=(1, 2)), fft2f_fft=1)
+    errs["fftn_small_np"] = check_close(got.cpu(), torch.from_numpy(want), "fftn vs numpy")
+    rs = torch.randn(128, 128, 256, device=dev, generator=gen)
+    want = np.fft.rfftn(rs.cpu().numpy().astype(np.float64))
+    got = through("rfftn 128x128x256", lambda: ft.rfftn(rs), r2c_fft=1, ax3_fft=1,
+                  ax0_fft=1)
+    errs["rfftn_small_np"] = check_close(got.cpu(), torch.from_numpy(want), "rfftn vs numpy")
+    print(f"main: config 4 path, {len(errs)} checks ok, launches {path2} | "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+    # The kernels line gives each kernel the launches of the path it was
+    # ported for (the 1-D path for B1, B2, B4 and B15, config 4 for the
+    # rest); both paths' counts are on the two lines above.
+    main_launches = {k: (path1 if k in ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft")
+                         else path2)[k] for k in KERNELS}
 
     # ---- 4. autograd on the card -----------------------------------------
     def grads(transform, shape, seed):
@@ -328,6 +459,27 @@ def main() -> int:
         gp = grads(plain, shape, SEED + 1)
         gerrs[f"{shape[0]}x{shape[1]}"] = check_close(
             gk, gp, f"grad of sum(w*|fft(x)|^2) {shape} kernels vs plain")
+
+    def grads_nd(fn, shape, seed, device):
+        """d/dx of sum(w*|fn(x)|^2) for a real (rfft2) or complex input x."""
+        g = torch.Generator().manual_seed(seed)
+        a = torch.randn(shape, generator=g).to(device).requires_grad_()
+        b = torch.randn(shape, generator=g).to(device).requires_grad_()
+        y = fn(a) if fn is ft.rfft2 else fn(torch.complex(a, b))
+        w = torch.rand(y.shape, generator=g).to(device)
+        (w * y.abs() ** 2).sum().backward()
+        return a.grad if b.grad is None else torch.complex(a.grad, b.grad)
+
+    # rfft2: R2C, axis(-2); back: axis(-2), the row kernel.  Batched fft2
+    # (16 planes): the fused plane forward and back.
+    for fn, shape, kernels in ((ft.rfft2, (256, 1024), {"r2c_fft": 1, "ax0_fft": 2,
+                                                       "rows_fft": 1}),
+                               (ft.fft2, (16, 256, 256), {"fft2f_fft": 2})):
+        gk = through(f"grad {fn.__name__} {shape}",
+                     lambda: grads_nd(fn, shape, SEED + 2, dev), **kernels)
+        gp = grads_nd(fn, shape, SEED + 2, torch.device("cpu"))  # the plain path
+        gerrs[f"{fn.__name__} {shape}"] = check_close(
+            gk.cpu(), gp, f"grad of sum(w*|{fn.__name__}(x)|^2) {shape} kernels vs plain")
     print("grad: rel-L2 vs plain " + ", ".join(f"{k} {v:.3e}" for k, v in gerrs.items()),
           flush=True)
 
@@ -389,8 +541,64 @@ def main() -> int:
             "copy": plane_copy(re, im),
         }, reps=20)
         del x, re, im
+    x = crand(256, 256, 256)  # config 4's 3-D passes
+    re, im = planes(x)
+    times["fft2f_fft 256x256x256"] = time_in_turns({
+        "kernel": lambda: cuda_fft._fft2f_launch(re, im, -1, None),
+        "rows_fft + ax0_fft": lambda: cuda_fft._ax0_launch(
+            *cuda_fft._launch(re, im, -1, None), -1, None),
+        "plain": lambda: cuda_fft.fft2_fused_split_reference(re, im, -1),
+        "torch.fft": lambda: torch.fft.fft2(x),
+        "copy": plane_copy(re, im),
+    }, reps=10)
+    times["ax3_fft 256^3"] = time_in_turns({
+        "kernel": lambda: cuda_fft._ax3_launch(re, im, -1, None),
+        "plain": lambda: cuda_fft.fft_axis3_split_reference(re, im, -1),
+        "torch.fft": lambda: torch.fft.fft(x, dim=0),
+        "copy": plane_copy(re, im),
+    }, reps=10)
+    del x, re, im
+
+    r = torch.randn(4096, 4096, device=dev, generator=gen)  # config 4's R2C/C2R
+    Rr, Ri = cuda_fft._r2c_launch(r, None, False)
+    R = torch.fft.rfft(r)
+    out = torch.empty_like(r)
+    times["r2c_fft 4096x4096"] = time_in_turns({
+        "kernel": lambda: cuda_fft._r2c_launch(r, None, False),
+        "kernel_padded": lambda: cuda_fft._r2c_launch(r, None, True),
+        "plain": lambda: cuda_fft.rfft_rows_split_reference(r),
+        "torch.fft": lambda: torch.fft.rfft(r),
+        "copy": lambda: out.copy_(r),
+    }, reps=20)
+    times["c2r_fft 4096x4096"] = time_in_turns({
+        "kernel": lambda: cuda_fft._c2r_launch(Rr, Ri, 4096, 1.0 / 4096),
+        "plain": lambda: cuda_fft.irfft_rows_split_reference(Rr, Ri, 4096, 1.0 / 4096),
+        "torch.fft": lambda: torch.fft.irfft(R, n=4096),
+        "copy": lambda: out.copy_(r),
+    }, reps=20)
+    del r, Rr, Ri, R, out
+
+    x = crand(4096, 4096)  # config 4's plane by both routes
+    re, im = planes(x)
+    times["fft2 4096x4096"] = time_in_turns({
+        "rows_t_fft x2": lambda: cuda_fft._rows_t_launch(
+            *cuda_fft._rows_t_launch(re, im, -1, None, None), -1, None, None),
+        "rows_fft + ax0_fft": lambda: cuda_fft._ax0_launch(
+            *cuda_fft._launch(re, im, -1, None), -1, None),
+        "fft2": lambda: ft.fft2(x),
+        "torch.fft": lambda: torch.fft.fft2(x),
+        "copy": plane_copy(re, im),
+    }, reps=20)
+    del x, re, im
+
+    x = crand(512, 512, 512)  # 1 GiB: axis(-3), axis(-2), row kernel
+    times["fftn 512^3"] = {"fftn": time_ms(lambda: ft.fftn(x), reps=5, warmup=1),
+                           "torch.fft": time_ms(lambda: torch.fft.fftn(x), reps=5,
+                                                warmup=1)}
+    del x
     for shape, t in times.items():
-        print(f"times: {smi} | {shape} | median ms (CUDA events, 2 rounds) | "
+        rounds = "1 round" if shape == "fftn 512^3" else "2 rounds"
+        print(f"times: {smi} | {shape} | median ms (CUDA events, {rounds}) | "
               + ", ".join(f"{k} {v:.4f}" for k, v in t.items()), flush=True)
 
     def entry(name, source, replaces, shape):
@@ -405,8 +613,16 @@ def main() -> int:
               "rows_fft 4096x4096"),
         entry("ax0_fft", "ax0_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1180",
               "ax0_fft 1024x4096"),
+        entry("ax3_fft", "ax0_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1342",
+              "ax3_fft 256^3"),
         entry("rows_t_fft", "rows_t_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1494",
               "rows_t_fft 1024x4096"),
+        entry("fft2f_fft", "fft2f_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2274",
+              "fft2f_fft 256x256x256"),
+        entry("r2c_fft", "r2c_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1801",
+              "r2c_fft 4096x4096"),
+        entry("c2r_fft", "c2r_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2076",
+              "c2r_fft 4096x4096"),
         entry("big_fft", "big_fft.cu", "fft_wgpu_tpu/ops/bigfft.py:139",
               "big_fft 256x2^16"),
     ]}))

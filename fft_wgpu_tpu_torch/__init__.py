@@ -1,17 +1,25 @@
 """fft_wgpu_tpu_torch — the PyTorch + CUDA port of fft_wgpu_tpu.
 
-Batched 1-D complex-to-complex FFTs along the last axis through the same
-plan API as the JAX package.  On a CUDA tensor, power-of-two lengths run
-hand-written Hopper kernels built with nvcc at first use: 128..16384 the
-row kernel (``csrc/rows_fft.cu``); above that the four-step, as the
-whole-row cluster kernel (``csrc/big_fft.cu``, 2^15..2^18) or the axis(-2)
-and transposed-rows kernels (``csrc/ax0_fft.cu``, ``csrc/rows_t_fft.cu``).
-Other lengths, and every CPU tensor, run the plain torch mixed-radix path.
-This package imports torch and never jax.
+Batched 1-D complex-to-complex FFTs through the same plan API as the JAX
+package, and the N-D and real transforms on top of them (``fft2``,
+``fftn``, ``rfft``, ``irfft``, ``rfftn``, the Hermitian family).  On a CUDA
+tensor, power-of-two lengths run hand-written Hopper kernels built with
+nvcc at first use: 128..16384 the row kernel (``csrc/rows_fft.cu``), the
+axis(-2) kernel (``csrc/ax0_fft.cu``, also axes before it through a free
+view) and the R2C / C2R kernels (``csrc/r2c_fft.cu``, ``csrc/c2r_fft.cu``);
+2-D planes the fused-plane kernel (``csrc/fft2f_fft.cu``) or the
+transposed-rows kernel twice (``csrc/rows_t_fft.cu``); above 16384 the
+four-step, as the whole-row cluster kernel (``csrc/big_fft.cu``,
+2^15..2^18) or the axis(-2) and transposed-rows kernels.  Other lengths,
+and every CPU tensor, run the plain torch mixed-radix path.  This package
+imports torch and never jax.
 """
 
 from .core.reference import naive_dft, naive_idft
 from .core.twiddle import FORWARD, INVERSE
+from .ops.nd import fft2, fftn, ifft2, ifftn
+from .ops.rfft import (hfft, hfft2, hfftn, ihfft, ihfft2, ihfftn, irfft, irfft2,
+                       irfftn, rfft, rfft2, rfftn)
 from .ops.transforms import fft, ifft, ifft_unnormalized, normalize
 from .plan.parity import Forward, Inverse, Normalize, Onlyinverse
 from .plan.plan import Plan, get_plan, plan
@@ -23,6 +31,22 @@ __all__ = [
     "ifft",
     "ifft_unnormalized",
     "normalize",
+    "fft2",
+    "ifft2",
+    "fftn",
+    "ifftn",
+    "rfft",
+    "irfft",
+    "rfft2",
+    "irfft2",
+    "rfftn",
+    "irfftn",
+    "hfft",
+    "ihfft",
+    "hfft2",
+    "ihfft2",
+    "hfftn",
+    "ihfftn",
     "Plan",
     "plan",
     "get_plan",

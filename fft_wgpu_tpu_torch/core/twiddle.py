@@ -20,7 +20,8 @@ import functools
 
 import numpy as np
 
-__all__ = ["dft_matrix_np", "twiddle_np", "roots_np", "FORWARD", "INVERSE"]
+__all__ = ["dft_matrix_np", "twiddle_np", "roots_np", "halfcomplex_twiddle_np",
+           "FORWARD", "INVERSE"]
 
 FORWARD = -1
 INVERSE = +1
@@ -64,3 +65,12 @@ def roots_np(n: int, sign: int, dtype=np.float32):
     """
     theta = (sign * 2.0 * np.pi / n) * np.arange(n, dtype=np.float64)
     return np.cos(theta).astype(dtype), np.sin(theta).astype(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def halfcomplex_twiddle_np(n: int, sign: int, dtype=np.float32):
+    """Twiddles exp(sign*2pi*i*k/n) for k = 0..n/2 (R2C/C2R recombination)."""
+    m = n // 2
+    k = np.arange(m + 1, dtype=np.float64)
+    theta = (sign * 2.0 * np.pi / n) * k
+    return (np.cos(theta).astype(dtype), np.sin(theta).astype(dtype))

@@ -1,0 +1,137 @@
+"""Multi-dimensional C2C transforms (torch port of ``fft_wgpu_tpu.ops.nd``).
+
+N-D is the separable application of the 1-D executor along each axis; the
+per-axis route (row, axis(-2) or axis(-3) kernel, or the mixed-radix path)
+is the plan's.  On a CUDA tensor a transform over the two trailing axes of
+at least 8 planes in the fused-plane envelope, or of planes with further
+axes to transform, first runs the fused-plane kernel
+(``cuda_fft.fft2_fused_split``, both axes in one pass over device memory);
+the remaining axes then go through the per-axis loop.
+
+The JAX package sends other trailing planes in the row kernel's envelope
+to two transposed-rows passes (``fft2_split``, kept as an entry point
+here).  On the H100 the per-axis loop, the row kernel then the axis(-2)
+kernel, measured faster at 4096 x 4096 (0.60 against 0.67 ms, PERF.md),
+so those planes take the per-axis loop.
+
+Routes are picked by envelope predicates (:func:`_fused_plane`), never by
+catching an error.  A CPU tensor takes the per-axis loop, as the JAX
+package does off the TPU.
+"""
+
+from __future__ import annotations
+
+import math
+
+from ..core.complex_utils import merge, promote_to_split
+from ..core.twiddle import FORWARD, INVERSE
+from . import cuda_fft
+from .transforms import _pad_or_trim
+
+__all__ = ["fft2", "ifft2", "fftn", "ifftn", "fftn_split"]
+
+
+def _norm_axes(ndim, s, axes):
+    if axes is None:
+        if s is not None and len(s) > ndim:
+            # numpy maps s to the LAST len(s) axes; more entries than
+            # dims is an out-of-range axis there, not a silent wrap
+            raise ValueError(
+                f"shape requires {len(s)} axes but input has {ndim} "
+                f"dimensions")
+        axes = list(range(ndim)) if s is None else list(range(ndim - len(s), ndim))
+    for a in axes:
+        if not -ndim <= a < ndim:
+            raise ValueError(
+                f"axis {a} is out of bounds for array of dimension {ndim}")
+    axes = [a % ndim for a in axes]
+    if s is None:
+        s = [None] * len(axes)
+    if len(s) != len(axes):
+        raise ValueError("s and axes must have the same length")
+    return list(s), axes
+
+
+def _fused_plane(shape, axes, device, executor="auto") -> bool:
+    """Whether a transform over ``axes`` of ``shape`` starts with the
+    fused-plane kernel over the trailing plane (else: the per-axis loop)."""
+    nd = len(shape)
+    ax_sorted = sorted(a % nd for a in axes)
+    if (executor not in ("auto", "pallas") or device.type != "cuda"
+            or len(axes) < 2 or ax_sorted[-2:] != [nd - 2, nd - 1]):
+        return False
+    rest = ax_sorted[:-2]
+    return bool((math.prod(shape[:-2]) >= 8 or rest)
+                and cuda_fft._fft2f_supported(*shape[-2:]))
+
+
+def fftn_split(re, im, axes, sign, scale, executor="auto"):
+    """Apply the 1-D executor along each axis; the scale is folded into the
+    last axis's pass (the JAX package multiplies once at the end).
+
+    On a CUDA tensor the trailing plane may first go through the
+    fused-plane kernel (:func:`_fused_plane`); the remaining axes then take
+    the per-axis loop."""
+    from ..plan.plan import get_plan
+
+    if _fused_plane(re.shape, axes, re.device, executor):
+        rest = sorted(a % re.ndim for a in axes)[:-2]
+        re, im = cuda_fft.fft2_fused_split(re, im, sign, None if rest else scale)
+        if not rest:
+            return re, im
+        axes = rest
+
+    for i, ax in enumerate(axes):
+        # the plan layer picks the route per axis: the row kernel for the
+        # last axis, the axis(-2) / axis(-3) kernels with no transpose
+        p = get_plan(re.shape[ax], executor)
+        re, im = p._execute_split_axis(re, im, sign,
+                                       scale if i == len(axes) - 1 else None, ax)
+    return re, im
+
+
+def _run_nd_split(x, s, axes, sign, norm, executor):
+    """The N-D transform of ``x`` (tensor, array or (re, im) pair) as a
+    planar pair, so that chained stages pass planes without a merge and a
+    split in between."""
+    re, im = promote_to_split(x)
+    s, axes = _norm_axes(re.ndim, s, axes)
+    # numpy semantics: s trims/pads each axis
+    for size, ax in zip(s, axes):
+        if size is not None and re.shape[ax] != size:
+            re, im = _pad_or_trim(re, im, size, ax)
+
+    total = math.prod(re.shape[a] for a in axes)
+    if norm in (None, "backward"):
+        scale = None if sign == FORWARD else 1.0 / total
+    elif norm == "ortho":
+        scale = total**-0.5
+    elif norm == "forward":
+        scale = 1.0 / total if sign == FORWARD else None
+    else:
+        raise ValueError(f"invalid norm {norm!r}")
+    return fftn_split(re, im, tuple(axes), sign, scale, executor)
+
+
+def _run_nd(x, s, axes, sign, norm, executor):
+    return merge(*_run_nd_split(x, s, axes, sign, norm, executor))
+
+
+def fftn(x, s=None, axes=None, norm=None, *, executor: str = "auto"):
+    """N-D forward C2C FFT (numpy.fft.fftn semantics)."""
+    return _run_nd(x, s, axes, FORWARD, norm, executor)
+
+
+def ifftn(x, s=None, axes=None, norm=None, *, executor: str = "auto"):
+    """N-D inverse C2C FFT (numpy.fft.ifftn semantics)."""
+    return _run_nd(x, s, axes, INVERSE, norm, executor)
+
+
+def fft2(x, s=None, axes=(-2, -1), norm=None, *, executor: str = "auto"):
+    """2-D forward FFT over `axes` (default last two)."""
+    return _run_nd(x, s, list(axes), FORWARD, norm, executor)
+
+
+def ifft2(x, s=None, axes=(-2, -1), norm=None, *, executor: str = "auto"):
+    """2-D inverse FFT over `axes` (default last two)."""
+    return _run_nd(x, s, list(axes), INVERSE, norm, executor)

@@ -1,0 +1,273 @@
+"""Real transforms: R2C / C2R (torch port of ``fft_wgpu_tpu.ops.rfft``).
+
+Even lengths use the half-size packing trick: one complex FFT of length
+n/2 plus an O(n) recombination, about half the flops and bytes of a full
+C2C.  On a CUDA tensor, pow2 n in 128..16384 runs that in one pass per row
+through the R2C / C2R kernels (``cuda_fft.rfft_rows_split`` and
+``cuda_fft.irfft_rows_split``); other even n take the packed path through
+the plan; odd n a zero-imaginary C2C (the composite R2C kernel of the JAX
+package, and its ``FFT_WGPU_TPU_R2C_GENERAL_OFF`` switch, come with the
+other non-pow2 kernels).  A CPU tensor takes the packed path, as the JAX
+package does off the TPU.
+
+All recombination twiddles are f64-generated (core/twiddle.py).  Chained
+stages (the C2C axes of ``rfftn`` / ``irfftn``, the Hermitian family)
+pass planar (re, im) pairs and merge to complex64 once, at the end.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.complex_utils import merge, promote_to_split
+from ..core.twiddle import FORWARD, INVERSE
+from . import cuda_fft
+from .cuda_fft import pad_bins
+from .nd import _norm_axes, _run_nd_split, fftn_split
+from .transforms import _pad_or_trim, _resize_axis
+
+__all__ = ["rfft", "irfft", "rfft2", "irfft2", "rfftn", "irfftn", "hfft",
+           "ihfft", "hfft2", "ihfft2", "hfftn", "ihfftn"]
+
+
+def _scales(n, norm, inverse):
+    if norm in (None, "backward"):
+        return None if not inverse else 1.0 / n
+    if norm == "ortho":
+        return n**-0.5
+    if norm == "forward":
+        return 1.0 / n if not inverse else None
+    raise ValueError(f"invalid norm {norm!r}")
+
+
+def rfft_last_split(xr, sign_scale, *, pad_out=False):
+    """R2C over the last axis, split output.
+
+    On a CUDA tensor, pow2 n in the kernel's envelope runs the one-pass
+    R2C kernel; everything else uses the packed half-size path.
+    pad_out=True returns the padded serving form [..., pad_bins(n)]
+    (exact zeros past bin n//2).
+    """
+    n = xr.shape[-1]
+    if xr.device.type == "cuda" and cuda_fft._supported(n):  # the R2C envelope
+        return cuda_fft.rfft_rows_split(xr, sign_scale, pad_out=pad_out)
+    Xr, Xi = _rfft_even_split(xr, sign_scale)
+    if pad_out:
+        pad = (0, pad_bins(n) - Xr.shape[-1])
+        Xr = torch.nn.functional.pad(Xr, pad)
+        Xi = torch.nn.functional.pad(Xi, pad)
+    return Xr, Xi
+
+
+def _rfft_even_split(xr, sign_scale):
+    """R2C over the last axis (even n) via half-size packing.
+
+    x real [..., n] -> X split pair [..., n//2 + 1].
+    """
+    from ..plan.plan import get_plan
+
+    n = xr.shape[-1]
+    m = n // 2
+    z = xr.reshape(*xr.shape[:-1], m, 2)
+    Zr, Zi = get_plan(m, "auto")._execute_split(z[..., 0], z[..., 1], FORWARD, None)
+    return cuda_fft._r2c_unpack(Zr, Zi, n, sign_scale)
+
+
+def irfft_last_split(Xr, Xi, n, total_scale, *, padded_in=False):
+    """C2R over the last axis with explicit TOTAL output scale
+    (numpy backward norm == 1/n).
+
+    On a CUDA tensor, pow2 n in the kernel's envelope runs the one-pass C2R
+    kernel; otherwise the packed half-size path.  padded_in=True consumes
+    the padded serving form [..., pad_bins(n)]; its pad columns are never
+    read."""
+    T = 1.0 if total_scale is None else float(total_scale)
+    if Xr.device.type == "cuda" and cuda_fft._supported(n):  # the C2R envelope
+        return cuda_fft.irfft_rows_split(Xr, Xi, n, T, padded_in=padded_in)
+    if padded_in:
+        Xr = Xr[..., : n // 2 + 1]
+        Xi = Xi[..., : n // 2 + 1]
+    # the packed path applies 1/n itself; pass the remainder on top
+    net = T * n
+    return _irfft_even_split(Xr, Xi, n, None if abs(net - 1.0) < 1e-12 else net)
+
+
+def _irfft_even_split(Xr, Xi, n, scale):
+    """C2R over the last axis (even n): X [..., n//2+1] -> real [..., n].
+
+    `scale` multiplies the result; numpy's irfft backward norm (1/n) is the
+    1/m of the packed inverse FFT plus the factor absorbed in recombination.
+    """
+    from ..plan.plan import get_plan
+
+    m = n // 2
+    Zr, Zi = cuda_fft._c2r_pack(Xr, Xi, n)
+    zr, zi = get_plan(m, "auto")._execute_split(Zr, Zi, INVERSE, 1.0 / m)
+    x = torch.stack([zr, zi], dim=-1).reshape(*zr.shape[:-1], n)
+    if scale is not None:
+        x = x * float(np.float32(scale))
+    return x
+
+
+def _float_tensor(x):
+    """float32 tensor of x; like the JAX package's rfftn, a complex input
+    keeps its real part."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return torch.from_numpy(np.asarray(x).astype(np.float32))
+
+
+def _real_tensor(x):
+    is_complex = x.is_complex() if isinstance(x, torch.Tensor) else np.iscomplexobj(x)
+    if is_complex:
+        raise TypeError("rfft requires real input; use fft for complex")
+    return _float_tensor(x)
+
+
+def rfft(x, n=None, axis: int = -1, norm=None):
+    """1-D R2C FFT: real input -> n//2+1 complex bins (numpy.fft.rfft)."""
+    return merge(*_rfft_split(x, n, axis, norm))
+
+
+def _rfft_split(x, n, axis, norm):
+    xr = _real_tensor(x)
+    if n is not None and xr.shape[axis] != n:
+        xr = _resize_axis(xr, n, axis)
+    length = xr.shape[axis]
+    scale = _scales(length, norm, inverse=False)
+    v = xr.movedim(axis, -1)
+    if length % 2 == 0 and length >= 2:
+        Xr, Xi = rfft_last_split(v, scale)
+    else:  # odd length: zero-imaginary C2C, half spectrum kept
+        re, im = fftn_split(v, torch.zeros_like(v), (v.ndim - 1,), FORWARD, scale)
+        Xr = re[..., : length // 2 + 1]
+        Xi = im[..., : length // 2 + 1]
+    return Xr.movedim(-1, axis), Xi.movedim(-1, axis)
+
+
+def irfft(x, n=None, axis: int = -1, norm=None):
+    """1-D C2R inverse: n//2+1 bins -> real length-n signal (numpy.fft.irfft)."""
+    Xr, Xi = promote_to_split(x)
+    length = n if n is not None else 2 * (Xr.shape[axis] - 1)
+    bins = length // 2 + 1
+    if Xr.shape[axis] != bins:
+        Xr, Xi = _pad_or_trim(Xr, Xi, bins, axis)
+    norm_scale = _scales(length, norm, inverse=True)
+    r, i = Xr.movedim(axis, -1), Xi.movedim(axis, -1)
+    if length % 2 == 0 and length >= 2:
+        out = irfft_last_split(r, i, length, norm_scale)
+    else:
+        fr, fi = _hermitian_extend(r, i, length)
+        out, _ = fftn_split(fr, fi, (fr.ndim - 1,), INVERSE, norm_scale)
+    return out.movedim(-1, axis)
+
+
+def _hermitian_extend(Xr, Xi, n):
+    """[..., n//2+1] half spectrum -> full [..., n] hermitian spectrum."""
+    k = n // 2 + 1
+    tail_r = Xr[..., 1: n - k + 1].flip(-1)
+    tail_i = -Xi[..., 1: n - k + 1].flip(-1)
+    return torch.cat([Xr, tail_r], dim=-1), torch.cat([Xi, tail_i], dim=-1)
+
+
+def rfftn(x, s=None, axes=None, norm=None):
+    """N-D R2C: rfft over the last transform axis, C2C over the rest."""
+    xr = _float_tensor(x)
+    return merge(*_rfftn_split(xr, s, axes, norm))
+
+
+def _rfftn_split(xr, s, axes, norm):
+    s_, axes_ = _norm_axes(xr.ndim, s, axes)
+    y = _rfft_split(xr, s_[-1], axes_[-1], norm)
+    rest = axes_[:-1]
+    if rest:
+        y = _run_nd_split(y, list(s_[:-1]), rest, FORWARD, norm, "auto")
+    return y
+
+
+def irfftn(x, s=None, axes=None, norm=None):
+    """N-D C2R: inverse C2C over the leading axes, irfft over the last."""
+    Xr, Xi = promote_to_split(x)
+    s_, axes_ = _norm_axes(Xr.ndim, s, axes)
+    n_last = s_[-1] if s_[-1] is not None else 2 * (Xr.shape[axes_[-1]] - 1)
+    rest = axes_[:-1]
+    if rest:
+        Xr, Xi = _run_nd_split((Xr, Xi), list(s_[:-1]), rest, INVERSE, norm, "auto")
+    return irfft((Xr, Xi), n=n_last, axis=axes_[-1], norm=norm)
+
+
+def rfft2(x, s=None, axes=(-2, -1), norm=None):
+    return rfftn(x, s=s, axes=list(axes), norm=norm)
+
+
+def irfft2(x, s=None, axes=(-2, -1), norm=None):
+    return irfftn(x, s=s, axes=list(axes), norm=norm)
+
+
+def hfft(x, n=None, axis: int = -1, norm=None):
+    """FFT of a signal with Hermitian symmetry -> real output
+    (numpy.fft.hfft semantics): hfft(x, n) == irfft(conj(x), n) * n."""
+    Xr, Xi = promote_to_split(x)
+    length = n if n is not None else 2 * (Xr.shape[axis] - 1)
+    y = irfft((Xr, -Xi), n=length, axis=axis, norm=None)
+    if norm in (None, "backward"):
+        return y * float(np.float32(length))
+    if norm == "ortho":
+        return y * float(np.float32(length**0.5))
+    if norm == "forward":
+        return y
+    raise ValueError(f"invalid norm {norm!r}")
+
+
+def ihfft(x, n=None, axis: int = -1, norm=None):
+    """Inverse of hfft: real input -> half-spectrum with conjugate flip."""
+    Xr, Xi = _rfft_split(x, n, axis, None)
+    length = n if n is not None else np.shape(x)[axis]
+    if norm in (None, "backward"):
+        s = 1.0 / length
+    elif norm == "ortho":
+        s = length**-0.5
+    elif norm == "forward":
+        s = 1.0
+    else:
+        raise ValueError(f"invalid norm {norm!r}")
+    s = float(np.float32(s))
+    return merge(Xr * s, -Xi * s)
+
+
+# Hermitian N-D transforms (scipy.fft.hfftn/ihfftn): symmetry lives on the
+# LAST transform axis only; the rest are ordinary C2C passes.  The whole
+# family reduces to the real transforms through the conjugation identity
+# hfftn(x, norm) == irfftn(conj(x), norm'), ihfftn(x, norm) ==
+# conj(rfftn(x, norm')) with backward <-> forward swapped (the Hermitian
+# transforms are normalized as FORWARD transforms while c2r/r2c inverses
+# are normalized as inverses).
+_NORM_SWAP = {None: "forward", "backward": "forward",
+              "forward": "backward", "ortho": "ortho"}
+
+
+def hfftn(x, s=None, axes=None, norm=None):
+    """N-D FFT of a signal Hermitian-symmetric in its last transform axis
+    (real spectrum), real output — scipy.fft.hfftn semantics."""
+    if norm not in _NORM_SWAP:
+        raise ValueError(f"invalid norm {norm!r}")
+    Xr, Xi = promote_to_split(x)
+    return irfftn((Xr, -Xi), s=s, axes=axes, norm=_NORM_SWAP[norm])
+
+
+def ihfftn(x, s=None, axes=None, norm=None):
+    """Inverse of hfftn: real input -> half-spectrum, conjugate-flipped
+    (scipy.fft.ihfftn semantics)."""
+    if norm not in _NORM_SWAP:
+        raise ValueError(f"invalid norm {norm!r}")
+    Xr, Xi = _rfftn_split(_float_tensor(x), s, axes, _NORM_SWAP[norm])
+    return merge(Xr, -Xi)
+
+
+def hfft2(x, s=None, axes=(-2, -1), norm=None):
+    return hfftn(x, s=s, axes=None if axes is None else list(axes), norm=norm)
+
+
+def ihfft2(x, s=None, axes=(-2, -1), norm=None):
+    return ihfftn(x, s=s, axes=None if axes is None else list(axes), norm=norm)

@@ -45,14 +45,18 @@ def _run_1d(x, n, axis, sign, scale, executor):
     return merge(*p._execute_split_axis(re, im, sign, scale, axis))
 
 
-def _pad_or_trim(re, im, n, axis):
-    cur = re.shape[axis]
+def _resize_axis(a, n, axis):
+    """``a`` trimmed or zero-padded to length n along ``axis``."""
+    cur = a.shape[axis]
     if cur > n:
-        return re.narrow(axis, 0, n), im.narrow(axis, 0, n)
-    shape = list(re.shape)
+        return a.narrow(axis, 0, n)
+    shape = list(a.shape)
     shape[axis] = n - cur
-    return (torch.cat([re, re.new_zeros(shape)], dim=axis),
-            torch.cat([im, im.new_zeros(shape)], dim=axis))
+    return torch.cat([a, a.new_zeros(shape)], dim=axis)
+
+
+def _pad_or_trim(re, im, n, axis):
+    return _resize_axis(re, n, axis), _resize_axis(im, n, axis)
 
 
 def fft(x, n=None, axis: int = -1, norm=None, *, executor: str = "auto"):

@@ -23,13 +23,16 @@ With ``executor="auto"`` a CUDA tensor of pow2 length 128..16384 always
 goes through the row kernel, whatever its row count; pow2 lengths above
 16384 go through ``"fourstep"``; any other length runs the mixed-radix path
 on the same device.  Axis -2 of a CUDA tensor, for pow2 n in 128..16384,
-goes through the axis(-2) kernel with no transpose.  A CPU tensor always
-takes the mixed-radix path, as the JAX package does off the TPU.
+goes through the axis(-2) kernel with no transpose, and any axis before it
+through the axis(-3) kernel on ``[..., n, mid, Z]``, again with no
+transpose.  A CPU tensor always takes the mixed-radix path, as the JAX
+package does off the TPU.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -142,19 +145,26 @@ class Plan:
 
     def _execute_split_axis(self, re, im, sign: int, scale, axis: int,
                             out=None):
-        """Transform along ``axis``.  Axis -2 of a CUDA tensor runs the
-        axis(-2) kernel with no transpose; any other axis moves to the back
-        around the row path (the axis(-3) kernel is ROADMAP slice 4)."""
+        """Transform along ``axis``.  On a CUDA tensor with pow2 n in
+        128..16384, axis -2 runs the axis(-2) kernel and any axis before it
+        the axis(-3) kernel on the free view ``[..., n, mid, Z]`` (the axes
+        between it and the last merged into mid), both with no transpose;
+        otherwise the axis moves to the back around the row path."""
         ax = axis % re.ndim
         if ax == re.ndim - 1:
             return self._execute_split(re, im, sign, scale, out)
-        if (ax == re.ndim - 2 and re.device.type == "cuda"
-                and self.executor in ("auto",) + _KERNEL
+        if (re.device.type == "cuda" and self.executor in ("auto",) + _KERNEL
                 and cuda_fft._ax0_supported(self.n)):
-            if re.shape[ax] != self.n:
+            shape = re.shape
+            if shape[ax] != self.n:
                 raise ValueError(f"plan built for n={self.n}, input axis "
-                                 f"{axis} has length {re.shape[ax]}")
-            return _into(out, *cuda_fft.fft_axis0_split(re, im, sign, scale))
+                                 f"{axis} has length {shape[ax]}")
+            if ax == re.ndim - 2:
+                return _into(out, *cuda_fft.fft_axis0_split(re, im, sign, scale))
+            view = (*shape[:ax + 1], math.prod(shape[ax + 1:-1]), shape[-1])
+            yr, yi = cuda_fft.fft_axis3_split(re.reshape(view), im.reshape(view),
+                                              sign, scale)
+            return _into(out, yr.view(shape), yi.view(shape))
         yr, yi = self._execute_split(re.movedim(ax, -1), im.movedim(ax, -1),
                                      sign, scale)
         return _into(out, yr.movedim(-1, ax), yi.movedim(-1, ax))

@@ -1,7 +1,9 @@
 """Torch port on the card: each CUDA kernel against its plain version.
 
-rows_fft (B1), ax0_fft (B2), rows_t_fft (B4) and big_fft (B15), values,
-launch counts and gradients, and the plan's routes through them.
+rows_fft (B1), ax0_fft (B2, and B3 on the axis(-3) view), rows_t_fft (B4),
+fft2f_fft (B5), r2c_fft (B6), c2r_fft (B7) and big_fft (B15): values,
+launch counts and gradients, and the routes of the plan, the N-D and the
+real transforms through them.
 
 Every test here needs a CUDA device and skips without one.  The card's
 machine has no jax, so run them without the suite's conftest:
@@ -246,3 +248,178 @@ def test_grad_through_fourstep_matches_plain(dev):
     gk = run(lambda r, i: (lambda y: (y.real, y.imag))(ft.fft(torch.complex(r, i))))
     gp = run(lambda r, i: stockham.fft_last_axis(r, i, -1))
     assert rel_l2(gk, gp) < TOL
+
+
+# ---------------------------------------------------------------------- #
+# N-D and real transforms: B3, B5, B6, B7 and their routes
+# ---------------------------------------------------------------------- #
+def _counts():
+    return {"rows_fft": cuda_fft.launches, "ax0_fft": cuda_fft.ax0_launches,
+            "ax3": cuda_fft.ax3_launches, "rows_t_fft": cuda_fft.rows_t_launches,
+            "fft2f_fft": cuda_fft.fft2f_launches, "r2c_fft": cuda_fft.r2c_launches,
+            "c2r_fft": cuda_fft.c2r_launches, "big_fft": bigfft.launches}
+
+
+def _through(fn, **want):
+    """fn()'s result; the launch counts must rise by exactly ``want``."""
+    before = _counts()
+    out = fn()
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in _counts().items()}
+    assert delta == {k: want.get(k, 0) for k in delta}
+    return out
+
+
+def rrand(dev, *shape, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("shape", [(2, n, 7, 130) for n in (1 << e for e in range(7, 15))]
+                         + [(256, 256, 256)])
+def test_axis3_kernel_matches_plain_and_torch_fft(dev, shape):
+    x = crand(dev, *shape)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    n = shape[-3]
+    for sign, scale in ((-1, None), (1, 1.0 / n)):
+        k = torch.complex(*_through(lambda: cuda_fft.fft_axis3_split(re, im, sign, scale),
+                                    ax3=1))
+        p = torch.complex(*cuda_fft.fft_axis3_split_reference(re, im, sign, scale))
+        o = torch.fft.fft(x, dim=-3) if sign < 0 else torch.fft.ifft(x, dim=-3)
+        assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, (sign, scale)
+
+
+PLANES = [(128, 128), (128, 256), (256, 128), (128, 512), (512, 128), (256, 256)]
+
+
+@pytest.mark.parametrize("A,B", PLANES)
+@pytest.mark.parametrize("lead", [(), (3,), (2, 5)])
+def test_fft2_fused_kernel_matches_plain_and_torch_fft(dev, A, B, lead):
+    x = crand(dev, *lead, A, B)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    for sign, scale in ((-1, None), (1, 1.0 / (A * B)), (-1, 1.0 / (A * B))):
+        k = torch.complex(*_through(lambda: cuda_fft.fft2_fused_split(re, im, sign, scale),
+                                    fft2f_fft=1))
+        p = torch.complex(*cuda_fft.fft2_fused_split_reference(re, im, sign, scale))
+        o = torch.fft.fft2(x) if sign < 0 else torch.fft.ifft2(x, norm="forward")
+        o = o * (1.0 if scale is None else scale)
+        assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, (sign, scale)
+
+
+def test_fft2_fused_kernel_refused_shape_raises(dev):
+    z = torch.zeros(2, 512, 256, device=dev)
+    with pytest.raises(cuda_fft.Unsupported):
+        cuda_fft.fft2_fused_split(z, z, -1)
+
+
+@pytest.mark.parametrize("n", [1 << e for e in range(7, 15)])
+@pytest.mark.parametrize("pad", [False, True])
+def test_real_kernels_match_plain_and_torch_fft(dev, n, pad):
+    x = rrand(dev, 37, n)
+    mp = n // 2 + 1
+    for scale in (None, 1.0 / n):
+        kr, ki = _through(lambda: cuda_fft.rfft_rows_split(x, scale, pad_out=pad), r2c_fft=1)
+        pr, pi = cuda_fft.rfft_rows_split_reference(x, scale, pad_out=pad)
+        o = torch.fft.rfft(x) * (1.0 if scale is None else scale)
+        assert kr.shape[-1] == (cuda_fft.pad_bins(n) if pad else mp)
+        assert rel_l2(torch.complex(kr, ki), torch.complex(pr, pi)) < TOL
+        assert rel_l2(torch.complex(kr[:, :mp], ki[:, :mp]), o) < TOL
+        assert not kr[:, mp:].any() and not ki[:, mp:].any()  # exact zeros
+        # C2R: imaginary DC and Nyquist parts and pad columns are not read
+        Xr, Xi = kr.clone(), ki.clone()
+        Xi[:, 0] += 3.0
+        Xi[:, mp - 1] -= 2.0
+        Xr[:, mp:] = 1e6
+        Xi[:, mp:] = -1e6
+        y = _through(lambda: cuda_fft.irfft_rows_split(Xr, Xi, n, scale, padded_in=pad),
+                     c2r_fft=1)
+        yp = cuda_fft.irfft_rows_split_reference(Xr, Xi, n, scale, padded_in=pad)
+        yo = torch.fft.irfft(torch.complex(kr[:, :mp], ki[:, :mp]), n=n, norm="forward")
+        yo = yo * (1.0 if scale is None else scale)
+        assert rel_l2(y, yp) < TOL and rel_l2(y, yo) < TOL, scale
+
+
+@pytest.mark.parametrize("entry", ["axis3", "fused", "r2c", "r2c_pad", "c2r", "c2r_pad"])
+def test_grad_new_kernels_match_plain(dev, entry):
+    if entry in ("axis3", "fused"):
+        shape, kernel = ((2, 256, 8, 130), "ax3") if entry == "axis3" else ((3, 256, 128), "fft2f_fft")
+        run = _grad(*shape)
+        fn, ref = {"axis3": (cuda_fft.fft_axis3_split, cuda_fft.fft_axis3_split_reference),
+                   "fused": (cuda_fft.fft2_fused_split, cuda_fft.fft2_fused_split_reference)}[entry]
+        gk = _through(lambda: run(lambda r, i: fn(r, i, 1, 0.5)), **{kernel: 2})
+        gp = run(lambda r, i: ref(r, i, 1, 0.5))
+        assert rel_l2(gk, gp) < TOL
+        return
+    pad = entry.endswith("_pad")
+    n = 2048
+    if entry.startswith("r2c"):
+        x = rrand(dev, 8, n, seed=2)
+        w = torch.linspace(0.5, 1.5, 8 * cuda_fft.pad_bins(n), device=dev)
+
+        def grad(f):
+            t = x.clone().requires_grad_()
+            yr, yi = f(t)
+            ww = w[:yr.numel()].reshape(yr.shape)
+            (ww * (yr * yr + yi * yi)).sum().backward()
+            return t.grad
+
+        # the backward is the row kernel with the + sign
+        gk = _through(lambda: grad(lambda t: cuda_fft.rfft_rows_split(t, n ** -0.5,
+                                                                     pad_out=pad)),
+                      r2c_fft=1, rows_fft=1)
+        gp = grad(lambda t: cuda_fft.rfft_rows_split_reference(t, n ** -0.5, pad_out=pad))
+    else:
+        bins = cuda_fft.pad_bins(n) if pad else n // 2 + 1
+        Xr, Xi = rrand(dev, 8, bins, seed=3), rrand(dev, 8, bins, seed=4)
+        if pad:
+            Xr[:, n // 2 + 1:] = 0
+            Xi[:, n // 2 + 1:] = 0
+        w = torch.linspace(0.5, 1.5, 8 * n, device=dev).reshape(8, n)
+
+        def grad(f):
+            a, b = Xr.clone().requires_grad_(), Xi.clone().requires_grad_()
+            y = f(a, b)
+            (w * y * y).sum().backward()
+            return torch.complex(a.grad, b.grad)
+
+        # the backward is the R2C kernel
+        gk = _through(lambda: grad(lambda a, b: cuda_fft.irfft_rows_split(
+            a, b, n, 1.0 / n, padded_in=pad)), c2r_fft=1, r2c_fft=1)
+        gp = grad(lambda a, b: cuda_fft.irfft_rows_split_reference(a, b, n, 1.0 / n,
+                                                                   padded_in=pad))
+    assert rel_l2(gk, gp) < TOL
+
+
+def test_config4_routes(dev):
+    # BASELINE config 4: 2-D 4096 x 4096 and R2C/C2R on the card
+    x = crand(dev, 4096, 4096)
+    X = _through(lambda: ft.fft2(x), rows_fft=1, ax0_fft=1)
+    assert rel_l2(X, torch.fft.fft2(x)) < TOL
+    assert rel_l2(_through(lambda: ft.ifft2(X), rows_fft=1, ax0_fft=1), x) < TOL
+    r = rrand(dev, 4096, 4096)
+    R = _through(lambda: ft.rfft2(r), r2c_fft=1, ax0_fft=1)
+    assert R.shape == (4096, 2049) and rel_l2(R, torch.fft.rfft2(r)) < TOL
+    back = _through(lambda: ft.irfft2(R, s=(4096, 4096)), ax0_fft=1, c2r_fft=1)
+    assert rel_l2(back, r) < TOL
+
+
+def test_fftn_3d_routes(dev):
+    x = crand(dev, 256, 256, 256)
+    X = _through(lambda: ft.fftn(x), fft2f_fft=1, ax3=1)
+    assert rel_l2(X, torch.fft.fftn(x)) < TOL
+    assert rel_l2(_through(lambda: ft.ifftn(X), fft2f_fft=1, ax3=1), x) < TOL
+    y = crand(dev, 2, 128, 3, 64)  # the plan's axis(-3) route, any trailing shape
+    Y = _through(lambda: ft.fft(y, axis=1), ax3=1)
+    assert rel_l2(Y, torch.fft.fft(y, dim=1)) < TOL
+    r = rrand(dev, 128, 128, 256)  # rfftn: R2C, then axes 0 and 1 by the plan
+    R = _through(lambda: ft.rfftn(r), r2c_fft=1, ax3=1, ax0_fft=1)
+    assert rel_l2(R, torch.fft.rfftn(r)) < TOL
+    assert rel_l2(ft.irfftn(R, s=r.shape), r) < TOL
+
+
+def test_real_routes_outside_the_kernels(dev):
+    r = rrand(dev, 4, 32768)  # even n beyond R2C: packed, half on the row kernel
+    R = _through(lambda: ft.rfft(r), rows_fft=1)
+    assert rel_l2(R, torch.fft.rfft(r)) < TOL
+    r = rrand(dev, 4, 255)  # odd n: zero-imaginary C2C, mixed radix
+    assert rel_l2(_through(lambda: ft.rfft(r)), torch.fft.rfft(r)) < TOL
