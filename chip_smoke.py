@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the torch port's paths once on one CUDA card: the batched 1-D
-main path (n = 128..16384), the large-N path (four-step and whole-row), and
-BASELINE config 4 (2-D 4096 x 4096, R2C/C2R, 3-D 256^3).
+main path (n = 128..16384), the large-N path (four-step and whole-row),
+BASELINE config 4 (2-D 4096 x 4096, R2C/C2R, 3-D 256^3), and the
+non-pow2 path (composite, Bluestein and chirp-z transforms).
 
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
-the CUDA toolkit.  It builds the seven kernel libraries from
+the CUDA toolkit.  It builds the ten kernel libraries from
 ``fft_wgpu_tpu_torch/csrc`` (one nvcc each, all at once) and runs five
 phases, one line each or more; any failure raises and the script exits
 non-zero without a result line:
@@ -26,25 +27,41 @@ non-zero without a result line:
              [2, n, 7, 130] and 256^3; fft2f_fft at every plane of its
              envelope, single and batched; r2c_fft and c2r_fft for every n
              at rows 3 and 1000, ragged and padded, and at 4096 x 4096;
-3. main    — two paths, the launch counts set to 0 just before each and
+             gen_fft and r2c_gen_fft (ragged and padded) at nine composite
+             n from 640 to 16383, rows 1 and 1000, and at the non-pow2
+             path's 1024 x 4095, 1024 x 4097 and 2048 x 1000 (R2C: 1024 x
+             4095 and 1024 x 1000); chirp_fwd and chirp_inv at every pow2 m
+             of 128..16384 with signal and output lengths that are not
+             multiples of 128, rows 3 and 1000, and at that path's own
+             calls (Bluestein 4093 and 4097, the ZoomFFT) with its tables;
+3. main    — three paths, the launch counts set to 0 just before each and
              read just after: plan / fft / ifft / Forward at the 1-D sizes
              users call (row kernel; axis(-2) then transposed rows; whole
              row), then config 4: fft2 / ifft2 and the rfft2 / irfft2 round
              trip at 4096 x 4096, fftn / ifftn at 256^3 (fused plane, then
-             axis(-3)); each call's launches are checked; small N-D and
-             real inputs against float64 numpy after config 4's window;
-4. grad    — gradients against the plain versions' (CPU for the N-D and
-             real ones): fft (row kernel; the four-step at 2 x 2^20; the
-             whole row at 4 x 2^16), rfft2 and batched fft2;
+             axis(-3)), then the non-pow2 path: fft / ifft / plan at the
+             JAX package's benchmark sizes (4095, 4097 and 1000 composite;
+             4093 prime), a direct Bluestein call at 4097 (m = 16384),
+             rfft at 4095 and 1000, irfft at 4095, czt and ZoomFFT over
+             1024 signals of 4096 samples; each call's launches are
+             checked; small inputs against float64 numpy after each
+             window, and numpy input, which must run on the card;
+4. grad    — gradients against the plain versions' (CPU for the N-D,
+             real and non-pow2 ones): fft (row kernel; the four-step at
+             2 x 2^20; the whole row at 4 x 2^16; composite 4095 and prime
+             4093 at 64 rows), rfft at 1005, rfft2 and batched fft2;
 5. times   — CUDA-event medians of each kernel, its plain version,
              torch.fft and plan.forward at the main shapes, beside a plane
              copy of the same bytes; fft2 at 4096 x 4096 by both routes
              (transposed rows twice, row then axis(-2)) and the fused plane
-             at 256^3 against row then axis(-2); fftn at 512^3.
+             at 256^3 against row then axis(-2); fftn at 512^3; a
+             torch.profiler breakdown of the non-pow2 path's calls.
 
 torch.fft is an oracle and a baseline here, never the implementation.  The
-last two lines are a JSON object describing the kernels, then
-``{"ok": true, "device": {...}}``.
+last two lines are a JSON object describing the kernels (each with its
+main-path launches, times, the torch.fft time and its bound: the larger of
+its bytes at 3.35 TB/s and 5*n*log2(n) flops per row at 67 TFLOP/s, the
+H100 SXM's data-sheet rates), then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -53,6 +70,7 @@ import concurrent.futures
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -63,11 +81,17 @@ import numpy as np
 TOL = 1e-5  # relative L2, the JAX package's oracle bar
 SEED = 0
 LIBS = ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft", "fft2f_fft", "r2c_fft",
-        "c2r_fft")
+        "c2r_fft", "gen_fft", "r2c_gen_fft", "chirp_fft")
 # Kernels as the launch counters name them: the axis(-3) pass is ax0_fft's
-# library on a free view, with its own entry point and counter.
+# library on a free view, with its own entry point and counter; chirp_fft
+# holds two kernels, each with its own.
 KERNELS = ("rows_fft", "ax0_fft", "ax3_fft", "rows_t_fft", "fft2f_fft", "r2c_fft",
-           "c2r_fft", "big_fft")
+           "c2r_fft", "big_fft", "gen_fft", "r2c_gen_fft", "chirp_fwd", "chirp_inv")
+# Composite lengths of phase 2's sweep: factors (20, 32), (25, 40), (15, 67),
+# (23, 89), (63, 65), (17, 241), (81, 81), (100, 100), (127, 129).
+GEN_NS = (640, 1000, 1005, 2047, 4095, 4097, 6561, 10000, 16383)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
+F32_FLOPS_PER_S = 67e12    # H100 SXM float32 on the CUDA cores (data sheet)
 
 
 def rel_l2(got, want) -> float:
@@ -93,6 +117,24 @@ def check_close(got, want, what: str) -> float:
     err = rel_l2(got, want)
     check(err <= TOL, f"{what}: rel-L2 {err:.3e} > {TOL:.0e}")
     return err
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time in ms the card could take for work that must move
+    ``nbytes`` and do ``flops``, and which of the two sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def fft_flops(n: int, rows: int) -> float:
+    """The nominal 5*n*log2(n) flops of an n-point FFT, times rows."""
+    return 5.0 * n * math.log2(n) * rows
+
+
+def kernel_part(event_name: str, names) -> str:
+    """Which of ``names`` a profiled device event is (``<name>_kernel`` as a
+    whole word of its demangled name), else "other"."""
+    return next((k for k in names if re.search(rf"\b{k}_kernel\b", event_name)), "other")
 
 
 def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
@@ -132,7 +174,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import fft_wgpu_tpu_torch as ft
-    from fft_wgpu_tpu_torch.ops import bigfft, cuda_fft, stockham
+    from fft_wgpu_tpu_torch.ops import bigfft, bluestein, cuda_fft, czt, stockham
     from fft_wgpu_tpu_torch.utils import build
 
     dev = torch.device("cuda", 0)
@@ -298,6 +340,111 @@ def main() -> int:
 
     real_sweep()
 
+    sweep("gen_fft", [((rows, n), None) for n in GEN_NS for rows in (1, 1000)]
+          + [((1024, 4095), None), ((1024, 4097), None), ((2048, 1000), None)],
+          lambda re, im, s, sc, _: cuda_fft._gen_launch(re, im, s, sc),
+          lambda re, im, s, sc, _: cuda_fft.fft_rows_general_split_reference(re, im, s, sc),
+          lambda x, s, sc, _: oracle(x, s, sc))
+
+    def r2c_gen_sweep():
+        """Composite R2C against its plain version and torch.fft, ragged and
+        padded, scale None and 1/n; the pad columns must be exact zeros."""
+        worst, cases = 0.0, 0
+        for rows, n in [(rows, n) for n in GEN_NS for rows in (1, 1000)] \
+                + [(1024, 4095), (1024, 1000)]:
+            x = torch.randn(rows, n, device=dev, generator=gen)
+            mp = n // 2 + 1
+            for pad in (False, True):
+                for scale in (None, 1.0 / n):
+                    what = f"{rows}x{n} pad={pad} scale={scale}"
+                    kr, ki = cuda_fft._r2c_gen_launch(x, scale, pad)
+                    got = torch.complex(kr, ki)
+                    plain = torch.complex(*cuda_fft.rfft_rows_general_split_reference(
+                        x, scale, pad_out=pad))
+                    err = check_close(got, plain, f"r2c_gen_fft vs plain {what}")
+                    want = torch.fft.rfft(x) * (1.0 if scale is None else scale)
+                    err = max(err, check_close(got[:, :mp], want,
+                                               f"r2c_gen_fft vs torch.fft {what}"))
+                    check(not kr[:, mp:].any() and not ki[:, mp:].any(),
+                          f"r2c_gen_fft pad columns not zero {what}")
+                    max_abs["r2c_gen_fft"] = max(max_abs["r2c_gen_fft"],
+                                                 float((got - plain).abs().max()))
+                    worst = max(worst, err)
+                    cases += 1
+        torch.cuda.synchronize()
+        print(f"kernel r2c_gen_fft: {cases} cases ok | worst rel-L2 {worst:.3e} | "
+              f"max abs err vs plain {max_abs['r2c_gen_fft']:.3e}", flush=True)
+
+    r2c_gen_sweep()
+
+    def chirp_sweep():
+        """The two chirp passes against their plain versions and torch.fft at
+        every pow2 m, with signal and output lengths that are not multiples
+        of 128: chirp_fwd y = FFT_m(pad(h x)), chirp_inv y = g (s FFT_m(H x))[:n_out].
+        Then at the non-pow2 path's own calls: Bluestein at 4093 (m = 8192)
+        and 4097 (m = 16384), both signs, and the ZoomFFT of 1024 x 4096 to
+        1024 bins (L = 8192), 1024 rows each, with the chirp, filter and
+        output tables those calls use and chirp_inv fed chirp_fwd's output."""
+        worst, cases = 0.0, 0
+        for m in pow2:
+            n_in, n_out = m // 2 + 3, 3 * m // 4 + 1
+            h, H, g = crand(n_in), crand(m), crand(n_out)
+            for rows in (3, 1000):
+                x, X = crand(rows, n_in), crand(rows, m)
+                for sign in (-1, 1):
+                    what = f"m={m} rows={rows} n_in={n_in} sign={sign}"
+                    got = torch.complex(*cuda_fft._chirp_fwd_launch(
+                        *planes(x), *planes(h), m, sign))
+                    worst = max(worst, compare(
+                        "chirp_fwd", got, torch.complex(*cuda_fft.fft_chirp_forward_split_reference(
+                            *planes(x), *planes(h), m, sign)),
+                        oracle(torch.nn.functional.pad(x * h, (0, m - n_in)), sign, None),
+                        what))
+                    for scale in (None, 1.0 / m):
+                        what = f"m={m} rows={rows} n_out={n_out} sign={sign} scale={scale}"
+                        got = torch.complex(*cuda_fft._chirp_inv_launch(
+                            *planes(X), *planes(H), *planes(g), n_out, sign, scale))
+                        plain = torch.complex(*cuda_fft.fft_chirp_inverse_split_reference(
+                            *planes(X), *planes(H), *planes(g), n_out, sign, scale))
+                        want = g * oracle(X * H, sign, scale)[:, :n_out]
+                        worst = max(worst, compare("chirp_inv", got, plain, want, what))
+                        cases += 1
+                    cases += 1
+        zf = ft.ZoomFFT(4096, [0.1, 0.35], m=1024)
+        ((ar, ai), (wr, wi), (vr, vi)), L = czt._device_tables(4096, 1024, zf.w, zf.a, dev)
+        calls = [(f"ZoomFFT 1024x4096 m=1024 L={L}", (ar, ai), (vr, vi), (wr, wi), L, 1024,
+                  (1.0 / L,))]
+        for n in (4093, 4097):
+            for sign in (-1, 1):
+                (cr, ci, bfr, bfi), m = bluestein._chirp_tables(n, sign, dev)
+                calls.append((f"Bluestein 1024x{n} m={m} sign={sign}", (cr, ci), (bfr, bfi),
+                              (cr, ci), m, n, (1.0 / m, 1.0 / (m * n))))
+        for what, h, H, g, m, n_out, scales in calls:
+            x = crand(1024, h[0].shape[0])
+            re, im = planes(x)
+            fr, fi = cuda_fft._chirp_fwd_launch(re, im, *h, m, -1)
+            worst = max(worst, compare(
+                "chirp_fwd", torch.complex(fr, fi),
+                torch.complex(*cuda_fft.fft_chirp_forward_split_reference(re, im, *h, m, -1)),
+                oracle(torch.nn.functional.pad(x * torch.complex(*h), (0, m - x.shape[-1])),
+                       -1, None), what))
+            for scale in scales:
+                got = torch.complex(*cuda_fft._chirp_inv_launch(fr, fi, *H, *g, n_out, 1, scale))
+                plain = torch.complex(*cuda_fft.fft_chirp_inverse_split_reference(
+                    fr, fi, *H, *g, n_out, 1, scale))
+                want = torch.complex(*g) * oracle(torch.complex(fr, fi) * torch.complex(*H), 1,
+                                                  scale)[:, :n_out]
+                worst = max(worst, compare("chirp_inv", got, plain, want,
+                                           f"{what} scale={scale}"))
+                cases += 1
+            cases += 1
+        torch.cuda.synchronize()
+        print(f"kernel chirp_fwd, chirp_inv: {cases} cases ok | worst rel-L2 {worst:.3e} | "
+              f"max abs err vs plain {max_abs['chirp_fwd']:.3e}, {max_abs['chirp_inv']:.3e}",
+              flush=True)
+
+    chirp_sweep()
+
     # ---- 3. main path at users' sizes ------------------------------------
     errs = {}
 
@@ -305,12 +452,17 @@ def main() -> int:
         return {"rows_fft": cuda_fft.launches, "ax0_fft": cuda_fft.ax0_launches,
                 "ax3_fft": cuda_fft.ax3_launches, "rows_t_fft": cuda_fft.rows_t_launches,
                 "fft2f_fft": cuda_fft.fft2f_launches, "r2c_fft": cuda_fft.r2c_launches,
-                "c2r_fft": cuda_fft.c2r_launches, "big_fft": bigfft.launches}
+                "c2r_fft": cuda_fft.c2r_launches, "big_fft": bigfft.launches,
+                "gen_fft": cuda_fft.gen_launches, "r2c_gen_fft": cuda_fft.r2c_gen_launches,
+                "chirp_fwd": cuda_fft.chirp_fwd_launches,
+                "chirp_inv": cuda_fft.chirp_inv_launches}
 
     def reset_counts():
         cuda_fft.launches = cuda_fft.ax0_launches = cuda_fft.ax3_launches = 0
         cuda_fft.rows_t_launches = cuda_fft.fft2f_launches = 0
         cuda_fft.r2c_launches = cuda_fft.c2r_launches = bigfft.launches = 0
+        cuda_fft.gen_launches = cuda_fft.r2c_gen_launches = 0
+        cuda_fft.chirp_fwd_launches = cuda_fft.chirp_inv_launches = 0
 
     def through(what, fn, **want):
         """Run fn(); the launch counts must rise by exactly ``want``
@@ -428,11 +580,87 @@ def main() -> int:
     errs["rfftn_small_np"] = check_close(got.cpu(), torch.from_numpy(want), "rfftn vs numpy")
     print(f"main: config 4 path, {len(errs)} checks ok, launches {path2} | "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+
+    # path 3: non-pow2 lengths at the sizes of the JAX package's benchmark
+    # rows (bench.py: composite 4095, 4097 and 1000, Bluestein 4093 and 4097)
+    errs = {}
+    reset_counts()
+    gen1, chirp = {"gen_fft": 1}, {"chirp_fwd": 1, "chirp_inv": 1}
+    for rows, n in ((1024, 4095), (1024, 4097), (2048, 1000)):
+        x = crand(rows, n)
+        X = through(f"fft {rows}x{n}", lambda: ft.fft(x), **gen1)
+        errs[f"fft_{n}"] = check_close(X, torch.fft.fft(x), f"fft {rows}x{n}")
+        errs[f"ifft_{n}"] = check_close(through(f"ifft {rows}x{n}", lambda: ft.ifft(X), **gen1),
+                                        x, f"ifft {rows}x{n} round trip")
+        p = ft.plan(n)
+        errs[f"plan_fwd_{n}"] = check_close(
+            through(f"plan({n}).forward", lambda: p.forward(x), **gen1), torch.fft.fft(x),
+            f"plan({n}).forward")
+        errs[f"plan_inv_{n}"] = check_close(
+            through(f"plan({n}).inverse", lambda: p.inverse(X), **gen1), x,
+            f"plan({n}).inverse")
+        xu = through(f"plan({n}).inverse_unnormalized", lambda: p.inverse_unnormalized(X),
+                     **gen1)
+        errs[f"plan_onlyinv_{n}"] = check_close(p.normalize(xu), x,
+                                                f"plan({n}) inverse_unnormalized + normalize")
+        del x, X, xu
+    x = crand(1024, 4093)  # prime: Bluestein, m = 8192
+    X = through("fft 1024x4093", lambda: ft.fft(x), **chirp)
+    errs["fft_4093"] = check_close(X, torch.fft.fft(x), "fft 1024x4093")
+    errs["ifft_4093"] = check_close(through("ifft 1024x4093", lambda: ft.ifft(X), **chirp),
+                                    x, "ifft 1024x4093 round trip")
+    x = crand(1024, 4097)  # a direct call: m = 16384
+    Y = through("fft_bluestein_split 1024x4097",
+                lambda: torch.complex(*bluestein.fft_bluestein_split(*planes(x), -1)), **chirp)
+    errs["bluestein_4097"] = check_close(Y, torch.fft.fft(x), "fft_bluestein_split 1024x4097")
+    del x, X, Y
+    for rows, n in ((1024, 1000), (1024, 4095)):  # even composite, and odd
+        r = torch.randn(rows, n, device=dev, generator=gen)
+        R = through(f"rfft {rows}x{n}", lambda: ft.rfft(r), r2c_gen_fft=1)
+        errs[f"rfft_{n}"] = check_close(R, torch.fft.rfft(r), f"rfft {rows}x{n}")
+    # odd n: the Hermitian extension, then the composite C2C
+    back = through("irfft 1024x4095", lambda: ft.irfft(R, n=4095), **gen1)
+    errs["irfft_4095"] = check_close(back, r, "irfft(rfft) 1024x4095 round trip")
+    del r, R, back
+    x = crand(1024, 4096)  # 1024 bins of a band of 1024 signals: L = 8192
+    zf = ft.ZoomFFT(4096, [0.1, 0.35], m=1024)
+    Z = through("ZoomFFT 1024x4096 m=1024", lambda: zf(x), **chirp)
+    w, a = zf.w, zf.a
+    Zc = through("czt 1024x4096 m=1024", lambda: ft.czt(x, m=1024, w=w, a=a), **chirp)
+    # the direct sum in float64: X[k] = sum_j x[j] a^-j w^(jk)
+    j = torch.arange(4096, device=dev, dtype=torch.float64)
+    k = torch.arange(1024, device=dev, dtype=torch.float64)
+    E = torch.exp(-j[:, None] * complex(np.log(a)) + (j[:, None] * k[None, :]) * complex(np.log(w)))
+    want = x.to(torch.complex128) @ E
+    errs["zoomfft_4096"] = check_close(Z, want, "ZoomFFT 1024x4096 vs float64 direct sum")
+    errs["czt_4096"] = check_close(Zc, want, "czt 1024x4096 vs float64 direct sum")
+    del x, Z, Zc, E, want
+    path3 = counts()
+    for name in ("gen_fft", "r2c_gen_fft", "chirp_fwd", "chirp_inv"):
+        check(path3[name] > 0, f"non-pow2 path launched no {name} kernel")
+    # outside the window: small inputs against float64 numpy, numpy input
+    xs = crand(5, 1031)
+    want = np.fft.fft(xs.cpu().numpy().astype(np.complex128))
+    got = through("fft 5x1031", lambda: ft.fft(xs), **chirp)
+    errs["fft_1031_np"] = check_close(got.cpu(), torch.from_numpy(want), "fft 5x1031 vs numpy")
+    rs = torch.randn(5, 1005, device=dev, generator=gen)
+    want = np.fft.rfft(rs.cpu().numpy().astype(np.float64))
+    got = through("rfft 5x1005", lambda: ft.rfft(rs), r2c_gen_fft=1)
+    errs["rfft_1005_np"] = check_close(got.cpu(), torch.from_numpy(want), "rfft 5x1005 vs numpy")
+    xn = crand(64, 4096).cpu().numpy()
+    got = through("fft of a numpy array 64x4096", lambda: ft.fft(xn), rows_fft=1)
+    check(got.device.type == "cuda", f"numpy input ran on {got.device}, not the card")
+    errs["fft_numpy_in"] = check_close(got.cpu(), torch.from_numpy(np.fft.fft(xn)),
+                                       "fft of a numpy array vs numpy")
+    print(f"main: non-pow2 path, {len(errs)} checks ok, launches {path3} | "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
     # The kernels line gives each kernel the launches of the path it was
-    # ported for (the 1-D path for B1, B2, B4 and B15, config 4 for the
-    # rest); both paths' counts are on the two lines above.
-    main_launches = {k: (path1 if k in ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft")
-                         else path2)[k] for k in KERNELS}
+    # ported for (the 1-D path for B1, B2, B4 and B15, the non-pow2 path for
+    # B11-B14, config 4 for the rest); each path's counts are on its line.
+    path_of = {"rows_fft": path1, "ax0_fft": path1, "rows_t_fft": path1, "big_fft": path1,
+               "gen_fft": path3, "r2c_gen_fft": path3, "chirp_fwd": path3,
+               "chirp_inv": path3}
+    main_launches = {k: path_of.get(k, path2)[k] for k in KERNELS}
 
     # ---- 4. autograd on the card -----------------------------------------
     def grads(transform, shape, seed):
@@ -461,20 +689,27 @@ def main() -> int:
             gk, gp, f"grad of sum(w*|fft(x)|^2) {shape} kernels vs plain")
 
     def grads_nd(fn, shape, seed, device):
-        """d/dx of sum(w*|fn(x)|^2) for a real (rfft2) or complex input x."""
+        """d/dx of sum(w*|fn(x)|^2) for a real (rfft2, rfft) or complex input x."""
         g = torch.Generator().manual_seed(seed)
         a = torch.randn(shape, generator=g).to(device).requires_grad_()
         b = torch.randn(shape, generator=g).to(device).requires_grad_()
-        y = fn(a) if fn is ft.rfft2 else fn(torch.complex(a, b))
+        y = fn(a) if fn in (ft.rfft2, ft.rfft) else fn(torch.complex(a, b))
         w = torch.rand(y.shape, generator=g).to(device)
         (w * y.abs() ** 2).sum().backward()
         return a.grad if b.grad is None else torch.complex(a.grad, b.grad)
 
     # rfft2: R2C, axis(-2); back: axis(-2), the row kernel.  Batched fft2
-    # (16 planes): the fused plane forward and back.
+    # (16 planes): the fused plane forward and back.  Non-pow2 fft: the
+    # composite kernel forward and back (4095); the chirp passes forward,
+    # the row kernel back for each (prime 4093).  rfft at 1005: the
+    # composite R2C forward, the composite C2C back.
     for fn, shape, kernels in ((ft.rfft2, (256, 1024), {"r2c_fft": 1, "ax0_fft": 2,
                                                        "rows_fft": 1}),
-                               (ft.fft2, (16, 256, 256), {"fft2f_fft": 2})):
+                               (ft.fft2, (16, 256, 256), {"fft2f_fft": 2}),
+                               (ft.fft, (64, 4095), {"gen_fft": 2}),
+                               (ft.fft, (64, 4093), {"chirp_fwd": 1, "chirp_inv": 1,
+                                                     "rows_fft": 2}),
+                               (ft.rfft, (64, 1005), {"r2c_gen_fft": 1, "gen_fft": 1})):
         gk = through(f"grad {fn.__name__} {shape}",
                      lambda: grads_nd(fn, shape, SEED + 2, dev), **kernels)
         gp = grads_nd(fn, shape, SEED + 2, torch.device("cpu"))  # the plain path
@@ -591,6 +826,87 @@ def main() -> int:
     }, reps=20)
     del x, re, im
 
+    x = crand(1024, 4095)  # the non-pow2 path's shapes
+    re, im = planes(x)
+    times["gen_fft 1024x4095"] = time_in_turns({
+        "kernel": lambda: cuda_fft._gen_launch(re, im, -1, None),
+        "plain": lambda: cuda_fft.fft_rows_general_split_reference(re, im, -1),
+        "torch.fft": lambda: torch.fft.fft(x),
+        "fft": lambda: ft.fft(x),
+        "copy": plane_copy(re, im),
+    }, reps=20)
+    times["r2c_gen_fft 1024x4095"] = time_in_turns({
+        "kernel": lambda: cuda_fft._r2c_gen_launch(re, None, False),
+        "kernel_padded": lambda: cuda_fft._r2c_gen_launch(re, None, True),
+        "plain": lambda: cuda_fft.rfft_rows_general_split_reference(re),
+        "torch.fft": lambda: torch.fft.rfft(re),
+        "rfft": lambda: ft.rfft(re),
+        "copy": lambda: torch.empty_like(re).copy_(re),
+    }, reps=20)
+    del x, re, im
+    for rows, n in ((1024, 4097), (2048, 1000)):
+        x = crand(rows, n)
+        re, im = planes(x)
+        times[f"gen_fft {rows}x{n}"] = time_in_turns({
+            "kernel": lambda: cuda_fft._gen_launch(re, im, -1, None),
+            "plain": lambda: cuda_fft.fft_rows_general_split_reference(re, im, -1),
+            "torch.fft": lambda: torch.fft.fft(x),
+        }, reps=20)
+        del x, re, im
+    x = crand(1024, 4093)  # Bluestein, m = 8192: the two passes on their own data
+    re, im = planes(x)
+    (cr, ci, bfr, bfi), m = bluestein._chirp_tables(4093, -1, dev)
+    Ar, Ai = cuda_fft._chirp_fwd_launch(re, im, cr, ci, m, -1)
+    times["chirp 1024x4093"] = time_in_turns({
+        "chirp_fwd": lambda: cuda_fft._chirp_fwd_launch(re, im, cr, ci, m, -1),
+        "chirp_inv": lambda: cuda_fft._chirp_inv_launch(Ar, Ai, bfr, bfi, cr, ci, 4093, 1,
+                                                        1.0 / m),
+        "chirp_fwd_plain": lambda: cuda_fft.fft_chirp_forward_split_reference(
+            re, im, cr, ci, m, -1),
+        "chirp_inv_plain": lambda: cuda_fft.fft_chirp_inverse_split_reference(
+            Ar, Ai, bfr, bfi, cr, ci, 4093, 1, 1.0 / m),
+        "bluestein": lambda: bluestein.fft_bluestein_split(re, im, -1),
+        "torch.fft": lambda: torch.fft.fft(x),
+        "fft": lambda: ft.fft(x),
+        "copy": plane_copy(Ar, Ai),
+    }, reps=20)
+    del x, re, im, Ar, Ai
+
+    def breakdown(fn, names, reps=20):
+        """Device ms per call of each kernel in ``names`` and of the rest
+        (the facade's split and merge, pads), from a torch.profiler window;
+        idle is 1 - device busy / the CUDA-event median of a call."""
+        from torch.profiler import ProfilerActivity, profile
+
+        event_ms = time_ms(fn, reps)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        parts = dict.fromkeys(names + ("other",), 0.0)
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            parts[kernel_part(e.name, names)] += e.time_range.elapsed_us() / 1e3 / reps
+        busy = sum(parts.values())
+        check(busy > 0, "the profiler saw no device time")
+        return {"events": event_ms, **parts, "idle": 1.0 - busy / event_ms}
+
+    profiles = {}
+    for rows, n in ((1024, 4095), (1024, 4097), (2048, 1000)):
+        x = crand(rows, n)
+        profiles[f"fft {rows}x{n}"] = breakdown(lambda: ft.fft(x), ("gen_fft",))
+    x = crand(1024, 4093)
+    profiles["fft 1024x4093"] = breakdown(lambda: ft.fft(x), ("chirp_fwd", "chirp_inv"))
+    r = torch.randn(1024, 4095, device=dev, generator=gen)
+    profiles["rfft 1024x4095"] = breakdown(lambda: ft.rfft(r), ("r2c_gen_fft",))
+    R = torch.fft.rfft(r)
+    profiles["irfft 1024x4095"] = breakdown(lambda: ft.irfft(R, n=4095), ("gen_fft",))
+    x = crand(1024, 4096)
+    zf = ft.ZoomFFT(4096, [0.1, 0.35], m=1024)
+    profiles["ZoomFFT 1024x4096 m=1024"] = breakdown(lambda: zf(x), ("chirp_fwd", "chirp_inv"))
+    del x, r, R
+
     x = crand(512, 512, 512)  # 1 GiB: axis(-3), axis(-2), row kernel
     times["fftn 512^3"] = {"fftn": time_ms(lambda: ft.fftn(x), reps=5, warmup=1),
                            "torch.fft": time_ms(lambda: torch.fft.fftn(x), reps=5,
@@ -600,31 +916,54 @@ def main() -> int:
         rounds = "1 round" if shape == "fftn 512^3" else "2 rounds"
         print(f"times: {smi} | {shape} | median ms (CUDA events, {rounds}) | "
               + ", ".join(f"{k} {v:.4f}" for k, v in t.items()), flush=True)
+    for call, parts in profiles.items():
+        print(f"profile: {smi} | {call} | device ms per call (torch.profiler, 20 calls) | "
+              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
 
-    def entry(name, source, replaces, shape):
+    def entry(name, source, replaces, shape, nbytes, flops, ms="kernel", plain="plain"):
+        """One kernel's record: its times at ``shape`` (``ms``/``plain`` name
+        the timed versions), torch.fft's time there and its bound for
+        ``nbytes`` moved (each input read once, each output written once)
+        and ``flops`` done."""
+        bound_ms, bound_by = bound(nbytes, flops)
         return {"name": name, "route": "cuda",
                 "source": f"fft_wgpu_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": main_launches[name],
-                "max_abs_err": max_abs[name], "ms": times[shape]["kernel"],
-                "plain_ms": times[shape]["plain"]}
+                "max_abs_err": max_abs[name], "ms": times[shape][ms],
+                "plain_ms": times[shape][plain], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": times[shape]["torch.fft"]}
 
+    c2c = 16  # bytes per point of a planar complex64 row, read and written
+    r2c = lambda n, rows: (4 * n + 8 * (n // 2 + 1)) * rows  # noqa: E731
     print(json.dumps({"kernels": [
         entry("rows_fft", "rows_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:946",
-              "rows_fft 4096x4096"),
+              "rows_fft 4096x4096", c2c * 4096 * 4096, fft_flops(4096, 4096)),
         entry("ax0_fft", "ax0_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1180",
-              "ax0_fft 1024x4096"),
+              "ax0_fft 1024x4096", c2c * 1024 * 4096, fft_flops(1024, 4096)),
         entry("ax3_fft", "ax0_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1342",
-              "ax3_fft 256^3"),
+              "ax3_fft 256^3", c2c * 256 ** 3, fft_flops(256, 256 * 256)),
         entry("rows_t_fft", "rows_t_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1494",
-              "rows_t_fft 1024x4096"),
+              "rows_t_fft 1024x4096", c2c * 1024 * 4096, fft_flops(4096, 1024)),
         entry("fft2f_fft", "fft2f_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2274",
-              "fft2f_fft 256x256x256"),
+              "fft2f_fft 256x256x256", c2c * 256 ** 3, fft_flops(256 * 256, 256)),
         entry("r2c_fft", "r2c_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1801",
-              "r2c_fft 4096x4096"),
+              "r2c_fft 4096x4096", r2c(4096, 4096), fft_flops(4096, 4096)),
         entry("c2r_fft", "c2r_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2076",
-              "c2r_fft 4096x4096"),
+              "c2r_fft 4096x4096", r2c(4096, 4096), fft_flops(4096, 4096)),
         entry("big_fft", "big_fft.cu", "fft_wgpu_tpu/ops/bigfft.py:139",
-              "big_fft 256x2^16"),
+              "big_fft 256x2^16", c2c * 256 * 65536, fft_flops(65536, 256)),
+        entry("gen_fft", "gen_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2865",
+              "gen_fft 1024x4095", c2c * 1024 * 4095, fft_flops(4095, 1024)),
+        entry("r2c_gen_fft", "r2c_gen_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2970",
+              "r2c_gen_fft 1024x4095", r2c(4095, 1024), fft_flops(4095, 1024)),
+        # the two Bluestein passes of a 4093-point transform, m = 8192;
+        # library_ms is torch.fft's whole 4093-point transform
+        entry("chirp_fwd", "chirp_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2613",
+              "chirp 1024x4093", 8 * (4093 + 8192) * 1024 + 8 * 4093,
+              fft_flops(8192, 1024), ms="chirp_fwd", plain="chirp_fwd_plain"),
+        entry("chirp_inv", "chirp_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2672",
+              "chirp 1024x4093", 8 * (8192 + 4093) * 1024 + 8 * (8192 + 4093),
+              fft_flops(8192, 1024), ms="chirp_inv", plain="chirp_inv_plain"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,13 +10,21 @@ view) and the R2C / C2R kernels (``csrc/r2c_fft.cu``, ``csrc/c2r_fft.cu``);
 2-D planes the fused-plane kernel (``csrc/fft2f_fft.cu``) or the
 transposed-rows kernel twice (``csrc/rows_t_fft.cu``); above 16384 the
 four-step, as the whole-row cluster kernel (``csrc/big_fft.cu``,
-2^15..2^18) or the axis(-2) and transposed-rows kernels.  Other lengths,
-and every CPU tensor, run the plain torch mixed-radix path.  This package
+2^15..2^18) or the axis(-2) and transposed-rows kernels.  Composite
+non-pow2 lengths of 512..16384 (factors <= 256) run the composite-row
+kernels (``csrc/gen_fft.cu``, ``csrc/r2c_gen_fft.cu``); lengths with a
+large prime factor, and the chirp-z transform (``czt``, ``zoom_fft``,
+``CZT``, ``ZoomFFT``), run Bluestein's two chirp passes
+(``csrc/chirp_fft.cu``) up to a padded length of 16384.  Other lengths,
+and every CPU tensor, run the plain torch mixed-radix path.  A tensor is
+transformed on the device it lies on; other input (numpy arrays) goes to
+the current CUDA device, and raises if there is none.  This package
 imports torch and never jax.
 """
 
 from .core.reference import naive_dft, naive_idft
 from .core.twiddle import FORWARD, INVERSE
+from .ops.czt import CZT, ZoomFFT, czt, czt_points, zoom_fft
 from .ops.nd import fft2, fftn, ifft2, ifftn
 from .ops.rfft import (hfft, hfft2, hfftn, ihfft, ihfft2, ihfftn, irfft, irfft2,
                        irfftn, rfft, rfft2, rfftn)
@@ -47,6 +55,11 @@ __all__ = [
     "ihfft2",
     "hfftn",
     "ihfftn",
+    "czt",
+    "zoom_fft",
+    "czt_points",
+    "CZT",
+    "ZoomFFT",
     "Plan",
     "plan",
     "get_plan",

@@ -1,9 +1,12 @@
 """Split real/imag complex representation helpers (torch).
 
 Complex data is carried as a planar pair of float32 tensors ``(re, im)``
-through the compute path; ``complex64`` is the public facade.  Numpy input
-is placed on an explicit ``device`` (CPU by default); tensors stay on the
-device they lie on.
+through the compute path; ``complex64`` is the public facade.  A tensor
+stays on the device it lies on: a CPU tensor is how a caller asks for the
+CPU.  Any other input (numpy arrays, lists, scalars) goes to ``device`` if
+one is given, else to the current CUDA device, as the JAX package puts
+numpy input on its default device; with no CUDA device that raises rather
+than computing on the CPU unasked.
 """
 
 from __future__ import annotations
@@ -11,7 +14,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["split", "merge", "promote_to_split"]
+__all__ = ["split", "merge", "promote_to_split", "default_device", "to_device"]
+
+
+def default_device() -> torch.device:
+    """The current CUDA device; raises if there is none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: non-tensor input runs on the current CUDA device; "
+            "pass a CPU tensor (torch.from_numpy) to compute on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def to_device(x, device=None) -> torch.Tensor:
+    """``x`` as a float32 tensor: a tensor on its own device (or on
+    ``device`` if given), anything else on ``device`` or the current CUDA
+    device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=torch.float32, device=device)
+    arr = np.ascontiguousarray(x, dtype=np.float32)
+    return torch.from_numpy(arr).to(device or default_device())
 
 
 def split(x, device=None):
@@ -19,10 +41,10 @@ def split(x, device=None):
     if not isinstance(x, torch.Tensor):
         x = np.asarray(x)
         if np.iscomplexobj(x):
-            re = torch.from_numpy(np.ascontiguousarray(x.real, np.float32))
-            im = torch.from_numpy(np.ascontiguousarray(x.imag, np.float32))
-            return re.to(device or "cpu"), im.to(device or "cpu")
-        x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device or "cpu")
+            return to_device(x.real, device=device), to_device(x.imag, device=device)
+        x = to_device(x, device=device)
+    elif device is not None:
+        x = x.to(device)
     if x.is_complex():
         return (x.real.to(torch.float32).contiguous(),
                 x.imag.to(torch.float32).contiguous())
@@ -40,6 +62,5 @@ def promote_to_split(x, device=None):
     return an (re, im) float32 tensor pair."""
     if isinstance(x, (tuple, list)) and len(x) == 2:
         re, im = x
-        return (torch.as_tensor(re, dtype=torch.float32, device=device),
-                torch.as_tensor(im, dtype=torch.float32, device=device))
+        return to_device(re, device=device), to_device(im, device=device)
     return split(x, device)

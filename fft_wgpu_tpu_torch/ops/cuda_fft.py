@@ -1,5 +1,5 @@
 """FFT kernels on Hopper: the port's counterpart of ``ops/pallas_fft.py``
-for seven of its entry points.
+for eleven of its entry points.
 
 * ``fft_batched_split`` — rows along the last axis, ``csrc/rows_fft.cu``
   (one thread block per row, the whole row in shared memory);
@@ -13,7 +13,14 @@ for seven of its entry points.
 * ``fft2_fused_split`` — both trailing axes of ``[..., A, B]`` planes in one
   pass over device memory, ``csrc/fft2f_fft.cu``;
 * ``rfft_rows_split`` / ``irfft_rows_split`` — R2C and C2R rows through a
-  half-length complex FFT, ``csrc/r2c_fft.cu`` and ``csrc/c2r_fft.cu``.
+  half-length complex FFT, ``csrc/r2c_fft.cu`` and ``csrc/c2r_fft.cu``;
+* ``fft_rows_general_split`` / ``rfft_rows_general_split`` — C2C and R2C
+  rows of composite non-pow2 length n = n1*n2 (factors <= 256) as two
+  direct-DFT stages in one pass, ``csrc/gen_fft.cu`` and
+  ``csrc/r2c_gen_fft.cu``;
+* ``fft_chirp_forward_split`` / ``fft_chirp_inverse_split`` — the two
+  m-point passes of Bluestein and the chirp-z transform, with the chirp
+  multiplies at load and store, ``csrc/chirp_fft.cu``.
 
 A CUDA tensor goes through the hand-written kernel, a CPU tensor through
 its plain version (``*_reference``).  There is no fallback between the two:
@@ -35,21 +42,26 @@ from ..utils import build
 from . import stockham
 
 __all__ = ["Unsupported", "FUSED_MIN_N", "FUSED_MAX_N", "FFT2F_MAX_ELEMS",
+           "GEN_MIN_N", "GEN_MAX_FACTOR",
            "fft_batched_split", "fft_batched_split_reference",
            "fft_axis0_split", "fft_axis0_split_reference", "fft_axis3_split",
            "fft_axis3_split_reference", "fft_rows_transposed_split",
            "fft_rows_transposed_split_reference", "fft2_fused_split",
            "fft2_fused_split_reference", "fft2_split", "pad_bins",
            "rfft_rows_split", "rfft_rows_split_reference", "irfft_rows_split",
-           "irfft_rows_split_reference"]
+           "irfft_rows_split_reference", "fft_rows_general_split",
+           "fft_rows_general_split_reference", "rfft_rows_general_split",
+           "rfft_rows_general_split_reference", "fft_chirp_forward_split",
+           "fft_chirp_forward_split_reference", "fft_chirp_inverse_split",
+           "fft_chirp_inverse_split_reference"]
 
 FUSED_MIN_N = 128
 FUSED_MAX_N = 16384
 FFT2F_MAX_ELEMS = 1 << 16  # points of one fused 2-D plane (the JAX envelope)
 
 # Launches of each entry point's kernel (rows_fft, ax0_fft, ax0_fft on the
-# axis(-3) view, rows_t_fft, fft2f_fft, r2c_fft, c2r_fft); callers may
-# reset them to 0.
+# axis(-3) view, rows_t_fft, fft2f_fft, r2c_fft, c2r_fft, gen_fft,
+# r2c_gen_fft, and chirp_fft's two kernels); callers may reset them to 0.
 launches = 0
 ax0_launches = 0
 ax3_launches = 0
@@ -57,6 +69,10 @@ rows_t_launches = 0
 fft2f_launches = 0
 r2c_launches = 0
 c2r_launches = 0
+gen_launches = 0
+r2c_gen_launches = 0
+chirp_fwd_launches = 0
+chirp_inv_launches = 0
 
 # Device copies of the f64-generated (n, sign) tables, [rows, 2] float32.
 _TWIDDLES: dict = {}
@@ -753,3 +769,381 @@ def irfft_rows_split_reference(Xr, Xi, n, scale=None, *, padded_in=False):
     # the packed inverse with 1/m is numpy's irfft (scale 1/n): n/m = 2
     zr, zi = stockham.apply_scale(zr, zi, 2.0 * _scale_arg(scale))
     return torch.stack([zr, zi], dim=-1).reshape(*zr.shape[:-1], n)
+
+
+# ---------------------------------------------------------------------- #
+# composite non-pow2 rows: C2C (pallas_fft.fft_rows_general_split) and R2C
+# (pallas_fft.rfft_rows_general_split), one pass of two direct-DFT stages
+# ---------------------------------------------------------------------- #
+GEN_MIN_N = 512
+GEN_MAX_FACTOR = 256
+
+
+def _choose_general_split(n: int):
+    """Least-MAC divisor pair (n1, n2), n1 <= n2 <= 256, n1*n2 = n; None if
+    n has no such factorization (a copy of the JAX package's)."""
+    best = None
+    d = 2
+    while d * d <= n:
+        if n % d == 0:
+            pair = (d, n // d)
+            if pair[1] <= GEN_MAX_FACTOR and (best is None or sum(pair) < sum(best)):
+                best = pair
+        d += 1
+    return best
+
+
+def _gen_supported(n: int) -> bool:
+    """Composite-row envelope, the JAX kernel's: non-pow2 n in
+    512..16384 with a split of factors <= 256."""
+    return (GEN_MIN_N <= n <= FUSED_MAX_N and n & (n - 1) != 0
+            and _choose_general_split(n) is not None)
+
+
+def _check_gen(n: int) -> None:
+    if not _gen_supported(n):
+        raise Unsupported(f"n={n} outside the composite-row kernel envelope "
+                          f"(non-pow2 {GEN_MIN_N}..{FUSED_MAX_N} with factors "
+                          f"<= {GEN_MAX_FACTOR})")
+
+
+def _gen_launch(re, im, sign, scale):
+    """Run the gen_fft kernel on CUDA tensors."""
+    global gen_launches
+    n = re.shape[-1]
+    n1, n2 = _choose_general_split(n)
+    re, im = re.contiguous(), im.contiguous()
+    out = (torch.empty_like(re), torch.empty_like(im))
+    if re.numel() == 0:
+        return out
+    rows = re.numel() // n
+    fn = build.function("gen_fft", "gen_fft_f32",
+                        [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P])
+    err = fn(re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+             _twiddle_table(n, sign, re.device).data_ptr(), rows, n1, n2,
+             _scale_arg(scale), re.device.index, _stream(re))
+    build.check("gen_fft", err, f"gen_fft launch failed (n={n}, rows={rows})")
+    gen_launches += 1
+    return out
+
+
+def _gen(re, im, sign, scale):
+    if re.device.type == "cuda":
+        return _gen_launch(re, im, sign, scale)
+    if re.device.type != "cpu":
+        raise ValueError(f"no composite-row FFT for device {re.device}")
+    return fft_rows_general_split_reference(re, im, sign, scale)
+
+
+def fft_rows_general_split(re, im, sign, scale=None):
+    """Batched FFT over the last axis of planar float32 ``[..., n]`` for
+    composite non-pow2 n in 512..16384 (factors <= 256), one pass over
+    device memory.  sign: -1 forward / +1 inverse; scale folded into the
+    store.  Differentiable (the backward is the sign-flipped kernel)."""
+    _check_gen(re.shape[-1])
+    _check_sign(sign)
+    _check_planes(re, im)
+    return _SignFlipped.apply(_gen, re, im, sign, scale)
+
+
+def _two_factor(re, im, sign, scale):
+    """The two-factor transform of the kernel in plain torch: an n1-point
+    DFT matrix product down the columns of [..., n1, n2], the twiddle
+    w_n^(k1*j2), an n2-point DFT matrix product along the rows, out at
+    k1 + n1*k2, then the scale; all tables f64-generated."""
+    n = re.shape[-1]
+    n1, n2 = _choose_general_split(n)
+    lead = re.shape[:-1]
+    # stage 1 on the transposed view [..., j2, j1]: B^T = A^T @ W1
+    ar = re.reshape(*lead, n1, n2).transpose(-1, -2)
+    ai = im.reshape(*lead, n1, n2).transpose(-1, -2)
+    w1r, w1i = stockham._const("dft_matrix_np", (n1, sign), re.device)
+    br, bi = stockham._cmatmul(ar, ai, w1r, w1i)
+    twr, twi = stockham._const("twiddle_np", (n1, n2, sign, True), re.device)
+    cr, ci = br * twr - bi * twi, br * twi + bi * twr
+    # stage 2: D[k1, k2] = C[k1, :] @ W2, stored at k1 + n1*k2
+    w2r, w2i = stockham._const("dft_matrix_np", (n2, sign), re.device)
+    dr, di = stockham._cmatmul(cr.transpose(-1, -2), ci.transpose(-1, -2), w2r, w2i)
+    yr = dr.transpose(-1, -2).reshape(*lead, n)
+    yi = di.transpose(-1, -2).reshape(*lead, n)
+    return stockham.apply_scale(yr, yi, scale)
+
+
+def fft_rows_general_split_reference(re, im, sign, scale=None):
+    """Plain torch version of :func:`fft_rows_general_split`: the kernel's
+    two-factor math (:func:`_two_factor`).  Raises :class:`Unsupported`
+    for the same n as the kernel."""
+    _check_gen(re.shape[-1])
+    return _two_factor(re, im, sign, scale)
+
+
+def _r2c_gen_launch(xr, scale, pad_out):
+    """Run the r2c_gen_fft kernel on a CUDA tensor."""
+    global r2c_gen_launches
+    n = xr.shape[-1]
+    n1, n2 = _choose_general_split(n)
+    bins = pad_bins(n) if pad_out else n // 2 + 1
+    xr = xr.contiguous()
+    shape = (*xr.shape[:-1], bins)
+    out = (xr.new_empty(shape), xr.new_empty(shape))
+    if xr.numel() == 0:
+        return out
+    rows = xr.numel() // n
+    fn = build.function("r2c_gen_fft", "r2c_gen_fft_f32",
+                        [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _I, _P])
+    err = fn(xr.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+             _twiddle_table(n, FORWARD, xr.device).data_ptr(), rows, n1, n2, bins,
+             _scale_arg(scale), xr.device.index, _stream(xr))
+    build.check("r2c_gen_fft", err, f"r2c_gen_fft launch failed (n={n}, rows={rows})")
+    r2c_gen_launches += 1
+    return out
+
+
+def _r2c_gen(xr, scale, pad_out):
+    if xr.device.type == "cuda":
+        return _r2c_gen_launch(xr, scale, pad_out)
+    if xr.device.type != "cpu":
+        raise ValueError(f"no composite R2C FFT for device {xr.device}")
+    return rfft_rows_general_split_reference(xr, scale, pad_out=pad_out)
+
+
+class _R2CGen(torch.autograd.Function):
+    """Composite R2C with scale k, X[b] = k sum_m x[m] exp(-2 pi i b m/n),
+    b <= n/2.  Its adjoint is the cotangent bins zero-padded to n through
+    the +sign composite C2C (the gen_fft kernel on the card), real part;
+    the padded form's pad columns are written as zeros, so their
+    cotangents are discarded."""
+
+    @staticmethod
+    def forward(ctx, xr, scale, pad_out):
+        ctx.n, ctx.scale = xr.shape[-1], scale
+        return _r2c_gen(xr, scale, pad_out)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        n, mp = ctx.n, ctx.n // 2 + 1
+        pad = (0, n - mp)
+        gr = torch.nn.functional.pad(gr[..., :mp], pad)
+        gi = torch.nn.functional.pad(gi[..., :mp], pad)
+        yr, _ = _gen(gr, gi, INVERSE, ctx.scale)
+        return yr, None, None
+
+
+def rfft_rows_general_split(xr, scale=None, *, pad_out=False):
+    """Batched R2C over the last axis for composite non-pow2 n (odd or
+    even) in the envelope of :func:`fft_rows_general_split`: real float32
+    ``[..., n]`` -> planar ``[..., n//2 + 1]``, or ``[..., pad_bins(n)]``
+    with exact zeros past bin n//2 when ``pad_out=True``.  Forward sign;
+    scale folded into the store.  Differentiable (backward: the +sign
+    composite C2C on the zero-padded cotangent, real part)."""
+    if xr.dtype != torch.float32:
+        raise ValueError("rfft_rows_general_split takes a float32 tensor")
+    _check_gen(xr.shape[-1])
+    return _R2CGen.apply(xr, scale, bool(pad_out))
+
+
+def rfft_rows_general_split_reference(xr, scale=None, *, pad_out=False):
+    """Plain torch version of :func:`rfft_rows_general_split`: the
+    two-factor math on the real row, bins 0..n//2.  Raises
+    :class:`Unsupported` for the same n as the kernel."""
+    n = xr.shape[-1]
+    _check_gen(n)
+    Xr, Xi = _two_factor(xr, torch.zeros_like(xr), FORWARD, scale)
+    mp = n // 2 + 1
+    bins = pad_bins(n) if pad_out else mp
+    pad = (0, bins - mp)
+    return (torch.nn.functional.pad(Xr[..., :mp], pad),
+            torch.nn.functional.pad(Xi[..., :mp], pad))
+
+
+# ---------------------------------------------------------------------- #
+# the Bluestein / chirp-z passes (pallas_fft.fft_chirp_forward_split and
+# fft_chirp_inverse_split), m-point row FFTs with the chirp multiplies at
+# load and store
+# ---------------------------------------------------------------------- #
+def _chirp_supported(m: int, n: int) -> bool:
+    """Chirp-pass envelope: m pow2 in 128..16384 (the row kernel's) and a
+    signal or output length 1 <= n <= m, any n (the TPU kernels needed
+    multiples of 128)."""
+    return _supported(m) and 1 <= n <= m
+
+
+def _check_chirp(m: int, n: int, what: str) -> None:
+    if not _chirp_supported(m, n):
+        raise Unsupported(f"m={m}, {what}={n} outside the chirp-pass envelope "
+                          f"(pow2 m in {FUSED_MIN_N}..{FUSED_MAX_N}, {what} <= m)")
+
+
+def _table(t, n: int, device, what: str) -> torch.Tensor:
+    """A constant table (numpy array or tensor) of n floats on ``device``."""
+    t = torch.as_tensor(t, dtype=torch.float32, device=device).contiguous()
+    if t.shape != (n,):
+        raise ValueError(f"{what} must have shape ({n},), got {tuple(t.shape)}")
+    return t
+
+
+def _cmul(ar, ai, br, bi):
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def _chirp_fwd_launch(re, im, hr, hi, m, sign):
+    """Run the chirp_fwd kernel on CUDA tensors: [..., n_in] -> [..., m]."""
+    global chirp_fwd_launches
+    n_in = re.shape[-1]
+    re, im = re.contiguous(), im.contiguous()
+    shape = (*re.shape[:-1], m)
+    out = (re.new_empty(shape), re.new_empty(shape))
+    if re.numel() == 0:
+        return out
+    rows = re.numel() // n_in
+    fn = build.function("chirp_fft", "chirp_fwd_f32",
+                        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P])
+    err = fn(re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+             out[0].data_ptr(), out[1].data_ptr(),
+             _twiddle_table(m, sign, re.device).data_ptr(), rows, n_in,
+             m.bit_length() - 1, sign, re.device.index, _stream(re))
+    build.check("chirp_fft", err,
+                f"chirp_fwd launch failed (n_in={n_in}, m={m}, rows={rows})")
+    chirp_fwd_launches += 1
+    return out
+
+
+def _chirp_fwd(re, im, hr, hi, m, sign):
+    if re.device.type == "cuda":
+        return _chirp_fwd_launch(re, im, hr, hi, m, sign)
+    if re.device.type != "cpu":
+        raise ValueError(f"no chirp pass for device {re.device}")
+    return fft_chirp_forward_split_reference(re, im, hr, hi, m, sign)
+
+
+class _ChirpFwd(torch.autograd.Function):
+    """y = FFT_m(zero_pad(h * x)), linear in x with h constant.  Adjoint:
+    conj(h) * FFT_{-sign}(ct)[..., :n_in], with the row kernel as its FFT
+    on the card (the JAX package's transpose rule)."""
+
+    @staticmethod
+    def forward(ctx, re, im, hr, hi, m, sign):
+        ctx.save_for_backward(hr, hi)
+        ctx.sign = sign
+        return _chirp_fwd(re, im, hr, hi, m, sign)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        hr, hi = ctx.saved_tensors
+        n_in = hr.shape[0]
+        ar, ai = _transform(gr.contiguous(), gi.contiguous(), -ctx.sign, None)
+        ar, ai = ar[..., :n_in], ai[..., :n_in]
+        return ar * hr + ai * hi, ai * hr - ar * hi, None, None, None, None
+
+
+def fft_chirp_forward_split(re, im, hr, hi, m, sign):
+    """The Bluestein / chirp-z forward pass over the last axis:
+    ``FFT_m(zero_pad_m(h * x))``, planar float32 ``[..., n_in]`` ->
+    ``[..., m]``, with h ``[n_in]`` (a numpy array or tensor) multiplied in
+    and the zero-pad made at load.  m pow2 in 128..16384, any n_in <= m.
+    Differentiable in (re, im); h is a constant."""
+    _check_chirp(m, re.shape[-1], "n_in")
+    _check_sign(sign)
+    _check_planes(re, im)
+    hr = _table(hr, re.shape[-1], re.device, "hr")
+    hi = _table(hi, re.shape[-1], re.device, "hi")
+    return _ChirpFwd.apply(re, im, hr, hi, m, sign)
+
+
+def fft_chirp_forward_split_reference(re, im, hr, hi, m, sign):
+    """Plain torch version of :func:`fft_chirp_forward_split`: the chirp
+    multiply, the zero-pad and the mixed-radix m-point FFT."""
+    n_in = re.shape[-1]
+    _check_chirp(m, n_in, "n_in")
+    hr = _table(hr, n_in, re.device, "hr")
+    hi = _table(hi, n_in, re.device, "hi")
+    ar, ai = _cmul(re, im, hr, hi)
+    pad = (0, m - n_in)
+    return stockham.fft_last_axis(torch.nn.functional.pad(ar, pad),
+                                  torch.nn.functional.pad(ai, pad), sign)
+
+
+def _chirp_inv_launch(re, im, hr, hi, gr, gi, n_out, sign, scale):
+    """Run the chirp_inv kernel on CUDA tensors: [..., m] -> [..., n_out]."""
+    global chirp_inv_launches
+    m = re.shape[-1]
+    re, im = re.contiguous(), im.contiguous()
+    shape = (*re.shape[:-1], n_out)
+    out = (re.new_empty(shape), re.new_empty(shape))
+    if re.numel() == 0:
+        return out
+    rows = re.numel() // m
+    fn = build.function("chirp_fft", "chirp_inv_f32",
+                        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F,
+                         _I, _P])
+    err = fn(re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+             gr.data_ptr(), gi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+             _twiddle_table(m, sign, re.device).data_ptr(), rows, n_out,
+             m.bit_length() - 1, sign, _scale_arg(scale), re.device.index,
+             _stream(re))
+    build.check("chirp_fft", err,
+                f"chirp_inv launch failed (m={m}, n_out={n_out}, rows={rows})")
+    chirp_inv_launches += 1
+    return out
+
+
+def _chirp_inv(re, im, hr, hi, gr, gi, n_out, sign, scale):
+    if re.device.type == "cuda":
+        return _chirp_inv_launch(re, im, hr, hi, gr, gi, n_out, sign, scale)
+    if re.device.type != "cpu":
+        raise ValueError(f"no chirp pass for device {re.device}")
+    return fft_chirp_inverse_split_reference(re, im, hr, hi, gr, gi, n_out, sign,
+                                             scale)
+
+
+class _ChirpInv(torch.autograd.Function):
+    """y = g * (scale * FFT_sign(h * x))[..., :n_out], linear in x with h
+    and g constant.  Adjoint: conj(h) * (scale * FFT_{-sign}(zero_pad_m(
+    conj(g) * ct))), with the row kernel as its FFT on the card (the JAX
+    package's transpose rule)."""
+
+    @staticmethod
+    def forward(ctx, re, im, hr, hi, gr, gi, n_out, sign, scale):
+        ctx.save_for_backward(hr, hi, gr, gi)
+        ctx.sign, ctx.scale = sign, scale
+        return _chirp_inv(re, im, hr, hi, gr, gi, n_out, sign, scale)
+
+    @staticmethod
+    def backward(ctx, ctr, cti):
+        hr, hi, gr, gi = ctx.saved_tensors
+        cr, ci = ctr * gr + cti * gi, cti * gr - ctr * gi
+        pad = (0, hr.shape[0] - gr.shape[0])
+        ar, ai = _transform(torch.nn.functional.pad(cr, pad).contiguous(),
+                            torch.nn.functional.pad(ci, pad).contiguous(),
+                            -ctx.sign, ctx.scale)
+        return (ar * hr + ai * hi, ai * hr - ar * hi,
+                None, None, None, None, None, None, None)
+
+
+def fft_chirp_inverse_split(re, im, hr, hi, gr, gi, n_out, sign, scale=None):
+    """The Bluestein / chirp-z inverse pass over the last axis:
+    ``g * (scale * FFT_sign(h * x))[..., :n_out]``, planar float32
+    ``[..., m]`` -> ``[..., n_out]``, with h ``[m]`` multiplied in at load
+    and g ``[n_out]`` at the store.  m pow2 in 128..16384, any n_out <= m.
+    Differentiable in (re, im); h and g are constants."""
+    m = re.shape[-1]
+    _check_chirp(m, n_out, "n_out")
+    _check_sign(sign)
+    _check_planes(re, im)
+    hr, hi = (_table(t, m, re.device, w) for t, w in ((hr, "hr"), (hi, "hi")))
+    gr, gi = (_table(t, n_out, re.device, w) for t, w in ((gr, "gr"), (gi, "gi")))
+    return _ChirpInv.apply(re, im, hr, hi, gr, gi, n_out, sign, scale)
+
+
+def fft_chirp_inverse_split_reference(re, im, hr, hi, gr, gi, n_out, sign,
+                                      scale=None):
+    """Plain torch version of :func:`fft_chirp_inverse_split`: the filter
+    multiply, the mixed-radix m-point FFT, the slice, the scale and the
+    post-chirp multiply."""
+    m = re.shape[-1]
+    _check_chirp(m, n_out, "n_out")
+    hr, hi = (_table(t, m, re.device, w) for t, w in ((hr, "hr"), (hi, "hi")))
+    gr, gi = (_table(t, n_out, re.device, w) for t, w in ((gr, "gr"), (gi, "gi")))
+    yr, yi = stockham.fft_last_axis(*_cmul(re, im, hr, hi), sign)
+    yr, yi = stockham.apply_scale(yr[..., :n_out], yi[..., :n_out], scale)
+    return _cmul(yr, yi, gr, gi)

@@ -11,8 +11,9 @@ the remaining axes then go through the per-axis loop.
 The JAX package sends other trailing planes in the row kernel's envelope
 to two transposed-rows passes (``fft2_split``, kept as an entry point
 here).  On the H100 the per-axis loop, the row kernel then the axis(-2)
-kernel, measured faster at 4096 x 4096 (0.60 against 0.67 ms, PERF.md),
-so those planes take the per-axis loop.
+kernel, measured faster at 4096 x 4096 (0.60 against 0.67 ms on an NVIDIA
+H100 80GB HBM3 at its 700 W power limit, PERF.md), so those planes take
+the per-axis loop.
 
 Routes are picked by envelope predicates (:func:`_fused_plane`), never by
 catching an error.  A CPU tensor takes the per-axis loop, as the JAX

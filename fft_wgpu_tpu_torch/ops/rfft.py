@@ -4,11 +4,11 @@ Even lengths use the half-size packing trick: one complex FFT of length
 n/2 plus an O(n) recombination, about half the flops and bytes of a full
 C2C.  On a CUDA tensor, pow2 n in 128..16384 runs that in one pass per row
 through the R2C / C2R kernels (``cuda_fft.rfft_rows_split`` and
-``cuda_fft.irfft_rows_split``); other even n take the packed path through
-the plan; odd n a zero-imaginary C2C (the composite R2C kernel of the JAX
-package, and its ``FFT_WGPU_TPU_R2C_GENERAL_OFF`` switch, come with the
-other non-pow2 kernels).  A CPU tensor takes the packed path, as the JAX
-package does off the TPU.
+``cuda_fft.irfft_rows_split``); an R2C of composite non-pow2 n in the
+composite-row envelope, odd or even, runs the composite R2C kernel
+(``cuda_fft.rfft_rows_general_split``); other even n take the packed
+path through the plan, other odd n a zero-imaginary C2C.  A CPU tensor takes
+the packed path, as the JAX package does off the TPU.
 
 All recombination twiddles are f64-generated (core/twiddle.py).  Chained
 stages (the C2C axes of ``rfftn`` / ``irfftn``, the Hermitian family)
@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.complex_utils import merge, promote_to_split
+from ..core.complex_utils import merge, promote_to_split, to_device
 from ..core.twiddle import FORWARD, INVERSE
 from . import cuda_fft
 from .cuda_fft import pad_bins
@@ -29,6 +29,11 @@ from .transforms import _pad_or_trim, _resize_axis
 
 __all__ = ["rfft", "irfft", "rfft2", "irfft2", "rfftn", "irfftn", "hfft",
            "ihfft", "hfft2", "ihfft2", "hfftn", "ihfftn"]
+
+
+def _r2c_general(xr) -> bool:
+    """Whether the R2C of ``xr``'s last axis runs the composite R2C kernel."""
+    return xr.device.type == "cuda" and cuda_fft._gen_supported(xr.shape[-1])
 
 
 def _scales(n, norm, inverse):
@@ -45,13 +50,16 @@ def rfft_last_split(xr, sign_scale, *, pad_out=False):
     """R2C over the last axis, split output.
 
     On a CUDA tensor, pow2 n in the kernel's envelope runs the one-pass
-    R2C kernel; everything else uses the packed half-size path.
+    R2C kernel, composite n in its envelope the composite R2C kernel;
+    everything else uses the packed half-size path.
     pad_out=True returns the padded serving form [..., pad_bins(n)]
     (exact zeros past bin n//2).
     """
     n = xr.shape[-1]
     if xr.device.type == "cuda" and cuda_fft._supported(n):  # the R2C envelope
         return cuda_fft.rfft_rows_split(xr, sign_scale, pad_out=pad_out)
+    if _r2c_general(xr):
+        return cuda_fft.rfft_rows_general_split(xr, sign_scale, pad_out=pad_out)
     Xr, Xi = _rfft_even_split(xr, sign_scale)
     if pad_out:
         pad = (0, pad_bins(n) - Xr.shape[-1])
@@ -111,11 +119,12 @@ def _irfft_even_split(Xr, Xi, n, scale):
 
 
 def _float_tensor(x):
-    """float32 tensor of x; like the JAX package's rfftn, a complex input
-    keeps its real part."""
+    """float32 tensor of x (a tensor stays on its device, anything else goes
+    to the current CUDA device); like the JAX package's rfftn, a complex
+    input keeps its real part."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.float32)
-    return torch.from_numpy(np.asarray(x).astype(np.float32))
+    return to_device(np.real(np.asarray(x)))
 
 
 def _real_tensor(x):
@@ -139,6 +148,8 @@ def _rfft_split(x, n, axis, norm):
     v = xr.movedim(axis, -1)
     if length % 2 == 0 and length >= 2:
         Xr, Xi = rfft_last_split(v, scale)
+    elif _r2c_general(v):  # odd composite length on the card
+        Xr, Xi = cuda_fft.rfft_rows_general_split(v, scale)
     else:  # odd length: zero-imaginary C2C, half spectrum kept
         re, im = fftn_split(v, torch.zeros_like(v), (v.ndim - 1,), FORWARD, scale)
         Xr = re[..., : length // 2 + 1]

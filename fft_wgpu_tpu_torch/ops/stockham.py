@@ -27,7 +27,7 @@ from ..core import twiddle as _tw
 
 __all__ = ["fft_last_axis", "apply_scale", "BLUESTEIN_MIN"]
 
-# Non-smooth lengths from this size on need Bluestein (as
+# Non-smooth lengths from this size on take Bluestein (as
 # fft_wgpu_tpu.ops.bluestein.BLUESTEIN_MIN); below it the direct DFT serves.
 BLUESTEIN_MIN = 512
 
@@ -60,18 +60,30 @@ def _dft_direct(re, im, sign):
     return _cmatmul(re, im, wr, wi)
 
 
-def fft_last_axis(re, im, sign):
-    """Mixed-radix DFT over the last axis of a split (re, im) pair."""
+def fft_last_axis(re, im, sign, scale=None):
+    """DFT over the last axis of a split (re, im) pair, times ``scale``.
+
+    A length with a prime factor above ``MAX_DIRECT`` from ``BLUESTEIN_MIN``
+    on goes to Bluestein, which folds the scale into its last pass (on a
+    CUDA tensor the chirp passes); any other length runs the mixed-radix
+    recursion."""
+    n = re.shape[-1]
+    if n >= BLUESTEIN_MIN and not _factor.is_smooth(n):
+        # imported here: bluestein's kernels import this module
+        from . import bluestein
+
+        return bluestein.fft_bluestein_split(re, im, sign, scale)
+    return apply_scale(*_mixed_radix(re, im, sign), scale)
+
+
+def _mixed_radix(re, im, sign):
+    """Mixed-radix DFT over the last axis of a split (re, im) pair: the
+    two-factor recursion for a smooth length, one direct DFT matmul at its
+    leaves and for a non-smooth length below BLUESTEIN_MIN."""
     n = re.shape[-1]
     if n == 1:
         return re, im
-    if n <= _factor.MAX_DIRECT:
-        return _dft_direct(re, im, sign)
-    if not _factor.is_smooth(n):
-        if n >= BLUESTEIN_MIN:
-            raise NotImplementedError(
-                f"n={n} has a prime factor > {_factor.MAX_DIRECT} and needs "
-                "Bluestein, which is not ported yet (ROADMAP queue A, slice 6)")
+    if n <= _factor.MAX_DIRECT or not _factor.is_smooth(n):
         return _dft_direct(re, im, sign)
 
     n1, n2 = _factor.balanced_split(n)
@@ -80,7 +92,7 @@ def fft_last_axis(re, im, sign):
     im = im.reshape(*lead, n1, n2)
 
     # DFT over n1 (axis -2): transpose so it becomes the last axis.
-    br, bi = fft_last_axis(re.transpose(-1, -2), im.transpose(-1, -2), sign)
+    br, bi = _mixed_radix(re.transpose(-1, -2), im.transpose(-1, -2), sign)
 
     # Twiddle in the transposed layout: tw^T[n2, k1].
     twr, twi = _const("twiddle_np", (n1, n2, sign, True), re.device)
@@ -88,7 +100,7 @@ def fft_last_axis(re, im, sign):
     ci = br * twi + bi * twr
 
     # Back to [..., k1, n2]; DFT over n2 (last axis).
-    dr, di = fft_last_axis(cr.transpose(-1, -2), ci.transpose(-1, -2), sign)
+    dr, di = _mixed_radix(cr.transpose(-1, -2), ci.transpose(-1, -2), sign)
 
     # Natural-order output: X viewed as [k2, k1] and flattened.
     return (dr.transpose(-1, -2).reshape(*lead, n),

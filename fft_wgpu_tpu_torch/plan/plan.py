@@ -21,12 +21,18 @@ Executors keep the JAX package's names:
 
 With ``executor="auto"`` a CUDA tensor of pow2 length 128..16384 always
 goes through the row kernel, whatever its row count; pow2 lengths above
-16384 go through ``"fourstep"``; any other length runs the mixed-radix path
-on the same device.  Axis -2 of a CUDA tensor, for pow2 n in 128..16384,
-goes through the axis(-2) kernel with no transpose, and any axis before it
-through the axis(-3) kernel on ``[..., n, mid, Z]``, again with no
-transpose.  A CPU tensor always takes the mixed-radix path, as the JAX
-package does off the TPU.
+16384 go through ``"fourstep"``; composite lengths in the composite-row
+kernel's envelope (non-pow2 512..16384, factors <= 256) through that
+kernel (``cuda_fft.fft_rows_general_split``); any other length runs the
+mixed-radix path on the same device, which sends a length with a prime
+factor above 128 from 512 on to Bluestein (``bluestein.fft_bluestein_split``:
+the two chirp passes while its m is at most 16384, the ifft scale folded
+into the second).  Axis -2 of a CUDA tensor,
+for pow2 n in 128..16384, goes through the axis(-2) kernel with no
+transpose, and any axis before it through the axis(-3) kernel on
+``[..., n, mid, Z]``, again with no transpose; other lengths move to the
+back around the row route.  A CPU tensor always takes the mixed-radix
+path, as the JAX package does off the TPU.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import math
 import numpy as np
 import torch
 
-from ..core.complex_utils import merge, promote_to_split
+from ..core.complex_utils import default_device, merge, promote_to_split
 from ..core.twiddle import FORWARD, INVERSE
 from ..ops import bigfft, cuda_fft, fourstep, stockham
 from ..ops.cuda_fft import FUSED_MAX_N, FUSED_MIN_N
@@ -107,11 +113,15 @@ class Plan:
         if self.executor != "auto":
             return self.executor
         n = self.n
-        if device.type == "cuda" and _is_pow2(n):
+        if device.type != "cuda":
+            return "xla"
+        if _is_pow2(n):
             if FUSED_MIN_N <= n <= FUSED_MAX_N:
                 return "pallas"
             if n > FUSED_MAX_N:
                 return "fourstep"
+        if cuda_fft._gen_supported(n):
+            return "general"  # an internal route of "auto", not an executor name
         return "xla"
 
     def _check_autotune(self, device):
@@ -135,13 +145,14 @@ class Plan:
             return _into(out, *cuda_fft.fft_batched_split(re, im, sign, scale))
         if ex == "bigfft":
             return _into(out, *bigfft.fft_big_split(re, im, sign, scale))
+        if ex == "general":
+            return _into(out, *cuda_fft.fft_rows_general_split(re, im, sign, scale))
         if ex == "fourstep":
             return _into(out, *fourstep.fft_last_axis(re, im, sign, scale))
         if ex == "direct":
-            yr, yi = stockham._dft_direct(re, im, sign)
-        else:
-            yr, yi = stockham.fft_last_axis(re, im, sign)
-        return _into(out, *stockham.apply_scale(yr, yi, scale))
+            yr, yi = stockham.apply_scale(*stockham._dft_direct(re, im, sign), scale)
+            return _into(out, yr, yi)
+        return _into(out, *stockham.fft_last_axis(re, im, sign, scale))
 
     def _execute_split_axis(self, re, im, sign: int, scale, axis: int,
                             out=None):
@@ -226,11 +237,13 @@ class Plan:
 
     def warmup(self, batch_shape=(), axis: int = -1, device=None):
         """Run every mode once on zeros of ``batch_shape + (n,)`` on
-        ``device`` (CPU by default): on a CUDA device this builds the
-        kernels of its route and uploads their tables before the first real
-        call.
+        ``device`` (the current CUDA device by default, which raises if
+        there is none; pass ``"cpu"`` for the CPU): on a CUDA device this
+        builds the kernels of its route and uploads their tables before the
+        first real call.
         Returns self for chaining."""
         shape = tuple(batch_shape) + (self.n,)
+        device = device if device is not None else default_device()
         for sign, scale in ((FORWARD, None), (INVERSE, 1.0 / self.n),
                             (INVERSE, None)):
             re = torch.zeros(shape, device=device)

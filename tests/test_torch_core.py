@@ -87,7 +87,7 @@ def test_naive_dft_equals_jax(shape, rng):
 def test_split_matches_jax_and_merge_round_trips(rng):
     x = (rng.standard_normal((3, 8)) + 1j * rng.standard_normal((3, 8))
          ).astype(np.complex64)
-    tre, tim = t_cu.split(x)
+    tre, tim = t_cu.split(torch.from_numpy(x))
     jre, jim = j_cu.split(x)
     assert tre.dtype == tim.dtype == torch.float32 and tre.device.type == "cpu"
     np.testing.assert_array_equal(tre.numpy(), np.asarray(jre))
@@ -101,12 +101,12 @@ def test_split_matches_jax_and_merge_round_trips(rng):
 def test_promote_to_split_inputs(rng):
     xr = rng.standard_normal((4, 6))
     for x in (xr, torch.from_numpy(xr), xr.tolist()):
-        re, im = t_cu.promote_to_split(x)
+        re, im = t_cu.promote_to_split(x, device="cpu")
         jre, jim = j_cu.promote_to_split(np.asarray(xr))
         assert re.dtype == torch.float32
         np.testing.assert_array_equal(re.numpy(), np.asarray(jre))
         np.testing.assert_array_equal(im.numpy(), np.asarray(jim))
-    re, im = t_cu.promote_to_split((xr, 2 * xr))
+    re, im = t_cu.promote_to_split((torch.from_numpy(xr), 2 * xr), device="cpu")
     np.testing.assert_array_equal(im.numpy(), (2 * xr).astype(np.float32))
     # numpy goes to the device asked for; a tensor stays where it lies
     z = torch.zeros(3, dtype=torch.complex64)
@@ -115,3 +115,26 @@ def test_promote_to_split_inputs(rng):
     c128 = torch.from_numpy(xr + 1j * xr)
     assert t_cu.split(c128)[0].dtype == torch.float32
 
+
+
+def test_numpy_input_needs_a_card(rng, monkeypatch):
+    """Non-tensor input goes to the current CUDA device, as the JAX package
+    puts numpy input on its default device; with no card it raises and
+    never computes on the CPU by itself.  A CPU tensor still runs the plain
+    path on the CPU."""
+    import fft_wgpu_tpu_torch as ft
+    from fft_wgpu_tpu_torch.ops import cuda_fft
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = (rng.standard_normal((4, 1024)) + 1j * rng.standard_normal((4, 1024))
+         ).astype(np.complex64)
+    for call in (lambda v: ft.fft(v), lambda v: ft.plan(1024).forward(v),
+                 lambda v: ft.rfft(v.real), lambda v: ft.fft2(v),
+                 lambda v: t_cu.promote_to_split((v.real, v.imag))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(x)
+    before = cuda_fft.launches
+    y = ft.fft(torch.from_numpy(x))
+    assert y.device.type == "cpu" and cuda_fft.launches == before
+    np.testing.assert_allclose(y.numpy(), np.fft.fft(x), rtol=0,
+                               atol=1e-5 * np.abs(np.fft.fft(x)).max())

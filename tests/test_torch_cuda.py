@@ -1,9 +1,10 @@
 """Torch port on the card: each CUDA kernel against its plain version.
 
 rows_fft (B1), ax0_fft (B2, and B3 on the axis(-3) view), rows_t_fft (B4),
-fft2f_fft (B5), r2c_fft (B6), c2r_fft (B7) and big_fft (B15): values,
-launch counts and gradients, and the routes of the plan, the N-D and the
-real transforms through them.
+fft2f_fft (B5), r2c_fft (B6), c2r_fft (B7), big_fft (B15), gen_fft (B13),
+r2c_gen_fft (B14) and chirp_fft (B11, B12): values, launch counts and
+gradients, and the routes of the plan, the N-D, the real and the
+non-pow2 transforms through them.
 
 Every test here needs a CUDA device and skips without one.  The card's
 machine has no jax, so run them without the suite's conftest:
@@ -257,7 +258,10 @@ def _counts():
     return {"rows_fft": cuda_fft.launches, "ax0_fft": cuda_fft.ax0_launches,
             "ax3": cuda_fft.ax3_launches, "rows_t_fft": cuda_fft.rows_t_launches,
             "fft2f_fft": cuda_fft.fft2f_launches, "r2c_fft": cuda_fft.r2c_launches,
-            "c2r_fft": cuda_fft.c2r_launches, "big_fft": bigfft.launches}
+            "c2r_fft": cuda_fft.c2r_launches, "big_fft": bigfft.launches,
+            "gen_fft": cuda_fft.gen_launches, "r2c_gen_fft": cuda_fft.r2c_gen_launches,
+            "chirp_fwd": cuda_fft.chirp_fwd_launches,
+            "chirp_inv": cuda_fft.chirp_inv_launches}
 
 
 def _through(fn, **want):
@@ -423,3 +427,173 @@ def test_real_routes_outside_the_kernels(dev):
     assert rel_l2(R, torch.fft.rfft(r)) < TOL
     r = rrand(dev, 4, 255)  # odd n: zero-imaginary C2C, mixed radix
     assert rel_l2(_through(lambda: ft.rfft(r)), torch.fft.rfft(r)) < TOL
+
+
+# ---------------------------------------------------------------------- #
+# non-pow2 lengths: B13 (gen_fft), B14 (r2c_gen_fft), B11 and B12
+# (chirp_fft) and their routes
+# ---------------------------------------------------------------------- #
+GEN_NS = [640, 1000, 1005, 2047, 4095, 4097, 6561, 10000, 16383]
+
+
+@pytest.mark.parametrize("n", GEN_NS)
+@pytest.mark.parametrize("rows", [(1,), (2, 37)])
+def test_gen_kernel_matches_plain_and_torch_fft(dev, n, rows):
+    x = crand(dev, *rows, n)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    for sign, scale in ((-1, None), (1, 1.0 / n), (-1, n ** -0.5)):
+        k = torch.complex(*_through(
+            lambda: cuda_fft.fft_rows_general_split(re, im, sign, scale), gen_fft=1))
+        p = torch.complex(*cuda_fft.fft_rows_general_split_reference(re, im, sign, scale))
+        o = torch.fft.fft(x) if sign < 0 else torch.fft.ifft(x, norm="forward")
+        o = o * (1.0 if scale is None else scale)
+        assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, (sign, scale)
+
+
+@pytest.mark.parametrize("n", GEN_NS)
+@pytest.mark.parametrize("pad", [False, True])
+def test_r2c_gen_kernel_matches_plain_and_torch_fft(dev, n, pad):
+    x = rrand(dev, 37, n)
+    mp = n // 2 + 1
+    for scale in (None, 1.0 / n):
+        kr, ki = _through(lambda: cuda_fft.rfft_rows_general_split(x, scale, pad_out=pad),
+                           r2c_gen_fft=1)
+        assert kr.shape[-1] == (cuda_fft.pad_bins(n) if pad else mp)
+        pr, pi = cuda_fft.rfft_rows_general_split_reference(x, scale, pad_out=pad)
+        o = torch.fft.rfft(x) * (1.0 if scale is None else scale)
+        assert rel_l2(torch.complex(kr, ki), torch.complex(pr, pi)) < TOL
+        assert rel_l2(torch.complex(kr[:, :mp], ki[:, :mp]), o) < TOL
+        assert not kr[:, mp:].any() and not ki[:, mp:].any()  # exact zeros
+
+
+@pytest.mark.parametrize("e", list(range(7, 15)))
+@pytest.mark.parametrize("rows", [3, 300])
+def test_chirp_kernels_match_plain_and_torch_fft(dev, e, rows):
+    m = 1 << e
+    n_in, n_out = m // 2 + 3, 3 * m // 4 + 1  # not multiples of 128
+    x, h = crand(dev, rows, n_in, seed=1), crand(dev, n_in, seed=2)
+    X, H, g = crand(dev, rows, m, seed=3), crand(dev, m, seed=4), crand(dev, n_out, seed=5)
+    for sign in (-1, 1):
+        k = torch.complex(*_through(lambda: cuda_fft.fft_chirp_forward_split(
+            x.real.contiguous(), x.imag.contiguous(), h.real, h.imag, m, sign), chirp_fwd=1))
+        p = torch.complex(*cuda_fft.fft_chirp_forward_split_reference(
+            x.real, x.imag, h.real, h.imag, m, sign))
+        o = torch.fft.fft(x * h, n=m) if sign < 0 else torch.fft.ifft(x * h, n=m) * m
+        assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, sign
+        for scale in (None, 1.0 / m):
+            k = torch.complex(*_through(lambda: cuda_fft.fft_chirp_inverse_split(
+                X.real.contiguous(), X.imag.contiguous(), H.real, H.imag, g.real, g.imag,
+                n_out, sign, scale), chirp_inv=1))
+            p = torch.complex(*cuda_fft.fft_chirp_inverse_split_reference(
+                X.real, X.imag, H.real, H.imag, g.real, g.imag, n_out, sign, scale))
+            y = torch.fft.fft(X * H) if sign < 0 else torch.fft.ifft(X * H) * m
+            o = g * y[:, :n_out] * (1.0 if scale is None else scale)
+            assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, (sign, scale)
+
+
+@pytest.mark.parametrize("entry", ["gen", "r2c_gen", "r2c_gen_pad", "chirp_fwd", "chirp_inv"])
+def test_grad_nonpow2_kernels_match_plain(dev, entry):
+    if entry == "gen":  # forward and backward: the composite kernel
+        run = _grad(8, 4095)
+        gk = _through(lambda: run(lambda r, i: cuda_fft.fft_rows_general_split(r, i, 1, 0.5)),
+                       gen_fft=2)
+        gp = run(lambda r, i: cuda_fft.fft_rows_general_split_reference(r, i, 1, 0.5))
+    elif entry.startswith("r2c_gen"):  # backward: the +sign composite C2C
+        pad, n = entry.endswith("_pad"), 1005
+        x = rrand(dev, 8, n, seed=2)
+        w = torch.linspace(0.5, 1.5, 8 * cuda_fft.pad_bins(n), device=dev)
+
+        def grad(f):
+            t = x.clone().requires_grad_()
+            yr, yi = f(t)
+            ww = w[:yr.numel()].reshape(yr.shape)
+            (ww * (yr * yr + yi * yi)).sum().backward()
+            return t.grad
+
+        gk = _through(lambda: grad(lambda t: cuda_fft.rfft_rows_general_split(
+            t, n ** -0.5, pad_out=pad)), r2c_gen_fft=1, gen_fft=1)
+        gp = grad(lambda t: cuda_fft.rfft_rows_general_split_reference(
+            t, n ** -0.5, pad_out=pad))
+    else:  # backward: the row kernel
+        m, n = 8192, 4093
+        h, g = crand(dev, n if entry == "chirp_fwd" else m, seed=6), crand(dev, n, seed=7)
+        if entry == "chirp_fwd":
+            run = _grad(4, n)
+            fn = lambda r, i: cuda_fft.fft_chirp_forward_split(r, i, h.real, h.imag, m, -1)  # noqa: E731
+            ref = lambda r, i: cuda_fft.fft_chirp_forward_split_reference(  # noqa: E731
+                r, i, h.real, h.imag, m, -1)
+        else:
+            run = _grad(4, m)
+            fn = lambda r, i: cuda_fft.fft_chirp_inverse_split(  # noqa: E731
+                r, i, h.real, h.imag, g.real, g.imag, n, 1, 1.0 / m)
+            ref = lambda r, i: cuda_fft.fft_chirp_inverse_split_reference(  # noqa: E731
+                r, i, h.real, h.imag, g.real, g.imag, n, 1, 1.0 / m)
+        gk = _through(lambda: run(fn), **{entry: 1, "rows_fft": 1})
+        gp = run(ref)
+    assert rel_l2(gk, gp) < TOL
+
+
+NONPOW2_ROUTES = [  # (call, shape, launches), the slice's main path
+    ("fft", (1024, 4095), {"gen_fft": 1}), ("ifft", (1024, 4097), {"gen_fft": 1}),
+    ("plan", (2048, 1000), {"gen_fft": 1}),
+    ("fft", (1024, 4093), {"chirp_fwd": 1, "chirp_inv": 1}),
+    ("ifft", (64, 1031), {"chirp_fwd": 1, "chirp_inv": 1}),
+    ("fft", (4, 526), {"chirp_fwd": 1, "chirp_inv": 1}),
+]
+
+
+@pytest.mark.parametrize("call,shape,want", NONPOW2_ROUTES)
+def test_nonpow2_routes(dev, call, shape, want):
+    x = crand(dev, *shape)
+    n = shape[-1]
+    if call == "plan":
+        p = ft.plan(n)
+        X = _through(lambda: p.forward(x), **want)
+        assert rel_l2(X, torch.fft.fft(x)) < TOL
+        assert rel_l2(_through(lambda: p.inverse(X), **want), x) < TOL
+        xu = _through(lambda: p.inverse_unnormalized(X), **want)
+        assert rel_l2(p.normalize(xu), x) < TOL
+        return
+    y = _through(lambda: getattr(ft, call)(x), **want)
+    assert rel_l2(y, getattr(torch.fft, call)(x)) < TOL
+
+
+def test_bluestein_and_czt_routes(dev):
+    from fft_wgpu_tpu_torch.ops import bluestein
+
+    x = crand(dev, 64, 4097)  # a direct call: m = 16384
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    y = torch.complex(*_through(lambda: bluestein.fft_bluestein_split(re, im, -1),
+                                 chirp_fwd=1, chirp_inv=1))
+    assert rel_l2(y, torch.fft.fft(x)) < TOL
+    x = crand(dev, 64, 4096)  # 1024 bins of a band: L = 8192
+    w, a = np.exp(-2j * np.pi * 0.25 / 1024), np.exp(2j * np.pi * 0.1)
+    got = _through(lambda: ft.czt(x, m=1024, w=w, a=a), chirp_fwd=1, chirp_inv=1)
+    want = ft.czt(x.cpu(), m=1024, w=w, a=a)  # the composed path on the CPU
+    assert got.device.type == "cuda" and rel_l2(got.cpu(), want) < TOL
+    zf = ft.ZoomFFT(4096, [0.1, 0.35], m=1024)
+    got = _through(lambda: zf(x), chirp_fwd=1, chirp_inv=1)
+    assert rel_l2(got.cpu(), zf(x.cpu())) < TOL
+    # prime 8209 needs m = 32768: the composed path, its FFTs the whole-row kernel
+    y = crand(dev, 2, 8209)
+    assert rel_l2(_through(lambda: ft.fft(y), big_fft=2), torch.fft.fft(y)) < TOL
+
+
+def test_real_nonpow2_routes(dev):
+    for n in (4095, 1000):  # odd, and even composite: the composite R2C kernel
+        r = rrand(dev, 1024, n)
+        R = _through(lambda: ft.rfft(r), r2c_gen_fft=1)
+        assert rel_l2(R, torch.fft.rfft(r)) < TOL
+    r = rrand(dev, 1024, 4095)
+    R = torch.fft.rfft(r)
+    back = _through(lambda: ft.irfft(R, n=4095), gen_fft=1)  # Hermitian extension, C2C
+    assert rel_l2(back, r) < TOL
+
+
+def test_numpy_input_runs_on_the_card(dev):
+    x = (np.random.default_rng(0).standard_normal((64, 4096))).astype(np.complex64)
+    y = _through(lambda: ft.fft(x), rows_fft=1)
+    assert y.device.type == "cuda"
+    assert rel_l2(y.cpu(), torch.fft.fft(torch.from_numpy(x))) < TOL
+    assert ft.rfft(x.real).device.type == "cuda"
+    assert ft.plan(4096).warmup((2,)) is not None

@@ -29,6 +29,11 @@ def _np(z):
     return z.numpy() if isinstance(z, torch.Tensor) else np.asarray(z)
 
 
+def _t(x):
+    # a CPU tensor asks the port for the CPU; numpy input goes to the card
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
 def assert_no_launches():
     assert (cuda_fft.launches, cuda_fft.ax0_launches, cuda_fft.rows_t_launches,
             bigfft.launches) == (0, 0, 0, 0)
@@ -42,7 +47,7 @@ def test_choose_factors_match_jax(n):
 @pytest.mark.parametrize("rows,n", [(2, 4096), (2, 32768), (1, 1 << 20)])
 def test_fourstep_matches_jax(rows, n, rng, assert_close):
     x = crand(rng, rows, n)
-    got = ft.fft(x, executor="fourstep")
+    got = ft.fft(_t(x), executor="fourstep")
     assert got.shape == x.shape and got.dtype == torch.complex64
     assert_close(_np(got), _np(ftt.fft(x, executor="fourstep")))
     assert_close(_np(got), np.fft.fft(x, axis=-1))
@@ -53,23 +58,23 @@ def test_fourstep_matches_jax(rows, n, rng, assert_close):
 def test_fourstep_plan_modes_match_jax(mode, rng, assert_close):
     n = 1 << 16
     x = crand(rng, 2, n)
-    got = getattr(ft.plan(n, executor="fourstep"), mode)(x)
+    got = getattr(ft.plan(n, executor="fourstep"), mode)(_t(x))
     assert_close(_np(got), _np(getattr(ftt.plan(n, executor="fourstep"), mode)(x)))
     # executor="auto" on a CPU tensor takes the mixed-radix path, as in JAX
-    assert_close(_np(getattr(ft.plan(n), mode)(x)), _np(got))
+    assert_close(_np(getattr(ft.plan(n), mode)(_t(x))), _np(got))
 
 
 def test_fourstep_roundtrip(rng, assert_close):
     n = 65536
     x = crand(rng, n)
-    y = ft.ifft(ft.fft(x, executor="fourstep"), executor="fourstep")
+    y = ft.ifft(ft.fft(_t(x), executor="fourstep"), executor="fourstep")
     assert_close(_np(y), x)
     assert_no_launches()
 
 
 def test_fourstep_composite_n(rng, assert_close):
     x = crand(rng, 3, 120)
-    assert_close(_np(ft.fft(x, executor="fourstep")),
+    assert_close(_np(ft.fft(_t(x), executor="fourstep")),
                  _np(ftt.fft(x, executor="fourstep")))
 
 
@@ -78,7 +83,7 @@ def test_bigfft_executor_matches_jax_kernel(sign, rng, assert_close):
     n = 1 << 15
     x = crand(rng, 2, n)
     fn = ft.fft if sign < 0 else ft.ifft
-    got = fn(x, executor="bigfft")
+    got = fn(_t(x), executor="bigfft")
     jr, ji = j_big.fft_big_split(x.real.copy(), x.imag.copy(), sign,
                                  None if sign < 0 else 1.0 / n, interpret=True)
     assert_close(_np(got), np.asarray(jr) + 1j * np.asarray(ji))
@@ -87,9 +92,9 @@ def test_bigfft_executor_matches_jax_kernel(sign, rng, assert_close):
 
 def test_bigfft_executor_outside_envelope_raises():
     with pytest.raises(bigfft.Unsupported):
-        ft.plan(1 << 14, executor="bigfft").forward(np.zeros((1, 1 << 14), np.complex64))
+        ft.plan(1 << 14, executor="bigfft").forward(torch.zeros(1, 1 << 14))
     with pytest.raises(bigfft.Unsupported):
-        ft.fft(np.zeros((1, 1 << 19), np.complex64), executor="bigfft")
+        ft.fft(torch.zeros(1, 1 << 19), executor="bigfft")
 
 
 def test_routing_on_the_card():

@@ -49,6 +49,11 @@ def _np(z):
     return z.numpy() if isinstance(z, torch.Tensor) else np.asarray(z)
 
 
+def _t(x):
+    # a CPU tensor asks the port for the CPU; numpy input goes to the card
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
 def assert_no_launches():
     # CPU tensors never reach a kernel
     assert (cuda_fft.launches, cuda_fft.ax0_launches, cuda_fft.ax3_launches,
@@ -208,7 +213,7 @@ def test_grad_matches_jax(entry, rng, assert_close):
 @pytest.mark.parametrize("fn", ["fft2", "ifft2", "fftn", "ifftn"])
 def test_public_matches_jax(fn, norm, rng, assert_close):
     x = crand(rng, 3, 16, 128)
-    got = getattr(ft, fn)(x, norm=norm)
+    got = getattr(ft, fn)(_t(x), norm=norm)
     assert got.dtype == torch.complex64 and got.shape == x.shape
     assert_close(_np(got), _np(getattr(ftt, fn)(x, norm=norm)), what=f"{fn} {norm}")
     assert_close(_np(got), getattr(np.fft, fn)(x, norm=norm))
@@ -227,7 +232,7 @@ def test_public_matches_jax(fn, norm, rng, assert_close):
 @pytest.mark.parametrize("fn", ["fftn", "ifftn"])
 def test_fftn_s_and_axes_match_jax(fn, s, axes, rng, assert_close):
     x = crand(rng, 6, 12, 128)
-    got = getattr(ft, fn)(x, s=s, axes=axes)
+    got = getattr(ft, fn)(_t(x), s=s, axes=axes)
     want = getattr(ftt, fn)(x, s=s, axes=axes)
     assert tuple(got.shape) == np.shape(want)
     assert_close(_np(got), _np(want), what=f"{fn} s={s} axes={axes}")
@@ -237,8 +242,8 @@ def test_fftn_s_and_axes_match_jax(fn, s, axes, rng, assert_close):
 @pytest.mark.parametrize("shape", [(5, 7, 9), (3, 27, 15)])
 def test_fftn_odd_sizes_match_jax(shape, rng, assert_close):
     x = crand(rng, *shape)
-    assert_close(_np(ft.fftn(x)), _np(ftt.fftn(x)))
-    assert_close(_np(ft.ifft2(x, axes=(0, 2))), _np(ftt.ifft2(x, axes=(0, 2))))
+    assert_close(_np(ft.fftn(_t(x))), _np(ftt.fftn(x)))
+    assert_close(_np(ft.ifft2(_t(x), axes=(0, 2))), _np(ftt.ifft2(x, axes=(0, 2))))
 
 
 def test_fft2_of_a_tensor_and_executors(rng, assert_close):
@@ -253,8 +258,8 @@ def test_fft2_of_a_tensor_and_executors(rng, assert_close):
 
 
 def test_nd_errors_match_jax():
-    x = np.zeros((4, 8, 8), np.complex64)
-    for pkg in (ft, ftt):
+    for pkg, arr in ((ft, _t), (ftt, np.asarray)):
+        x = arr(np.zeros((4, 8, 8), np.complex64))
         with pytest.raises(ValueError):
             pkg.fftn(x, axes=(0, 3))
         with pytest.raises(ValueError):

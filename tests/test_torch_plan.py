@@ -31,16 +31,23 @@ def _np(z):
     return z.numpy() if isinstance(z, torch.Tensor) else np.asarray(z)
 
 
+def _t(x):
+    # a CPU tensor asks the port for the CPU; numpy input goes to the card
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
 @pytest.mark.parametrize("n", [128, 1000, 4096])
-def test_plan_modes_match_jax(n, rng, assert_close):
+def test_plan_modes_match_jax(n, rng, assert_close, monkeypatch):
     x = crand(rng, 3, n)
     tp, jp = ft.plan(n), ftt.plan(n)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for mode in ("forward", "inverse", "inverse_unnormalized", "normalize"):
-        got = getattr(tp, mode)(x)
+        got = getattr(tp, mode)(_t(x))
         assert got.dtype == torch.complex64 and got.shape == x.shape
         assert_close(_np(got), _np(getattr(jp, mode)(x)), what=mode)
-        # a tensor input gives the same result as its numpy twin
-        assert_close(_np(getattr(tp, mode)(torch.from_numpy(x))), _np(got))
+        # numpy input asks for the card, and never runs on the CPU unasked
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            getattr(tp, mode)(x)
     assert cuda_fft.launches == 0
 
 
@@ -77,9 +84,9 @@ def test_axis0_on_2d_input(rng, assert_close):
     n = 256
     x = crand(rng, n, 6)
     for mode in ("forward", "inverse", "inverse_unnormalized"):
-        got = getattr(ft.plan(n), mode)(x, axis=0)
+        got = getattr(ft.plan(n), mode)(_t(x), axis=0)
         assert_close(_np(got), _np(getattr(ftt.plan(n), mode)(x, axis=0)), what=mode)
-    assert_close(_np(ft.fft(x, axis=0)), np.fft.fft(x, axis=0))
+    assert_close(_np(ft.fft(_t(x), axis=0)), np.fft.fft(x, axis=0))
     tr, ti = ft.plan(n).forward_split(torch.from_numpy(x.real.copy()),
                                       torch.from_numpy(x.imag.copy()), axis=0)
     assert_close(_np(tr) + 1j * _np(ti), np.fft.fft(x, axis=0))
@@ -89,20 +96,20 @@ def test_axis0_on_2d_input(rng, assert_close):
 @pytest.mark.parametrize("fn", ["fft", "ifft", "ifft_unnormalized"])
 def test_n_pads_or_trims(n_arg, fn, rng, assert_close):
     x = crand(rng, 3, 128)
-    got = getattr(ft, fn)(x, n=n_arg)
+    got = getattr(ft, fn)(_t(x), n=n_arg)
     assert got.shape == (3, n_arg)
     assert_close(_np(got), _np(getattr(ftt, fn)(x, n=n_arg)))
     x0 = crand(rng, 128, 2)
-    assert_close(_np(getattr(ft, fn)(x0, n=n_arg, axis=0)),
+    assert_close(_np(getattr(ft, fn)(_t(x0), n=n_arg, axis=0)),
                  _np(getattr(ftt, fn)(x0, n=n_arg, axis=0)))
 
 
 @pytest.mark.parametrize("norm", [None, "backward", "ortho", "forward"])
 def test_norm_modes_match_jax(norm, rng, assert_close):
     x = crand(rng, 2, 512)
-    assert_close(_np(ft.fft(x, norm=norm)), _np(ftt.fft(x, norm=norm)))
-    assert_close(_np(ft.ifft(x, norm=norm)), _np(ftt.ifft(x, norm=norm)))
-    assert_close(_np(ft.fft(x, norm=norm)), np.fft.fft(x, norm=norm))
+    assert_close(_np(ft.fft(_t(x), norm=norm)), _np(ftt.fft(x, norm=norm)))
+    assert_close(_np(ft.ifft(_t(x), norm=norm)), _np(ftt.ifft(x, norm=norm)))
+    assert_close(_np(ft.fft(_t(x), norm=norm)), np.fft.fft(x, norm=norm))
 
 
 def test_invalid_norm_raises():
@@ -115,19 +122,19 @@ def test_invalid_norm_raises():
 def test_functional_and_normalize_match_jax(rng, assert_close):
     x = crand(rng, 5, 1024)
     for fn in ("fft", "ifft", "ifft_unnormalized", "normalize"):
-        assert_close(_np(getattr(ft, fn)(x)), _np(getattr(ftt, fn)(x)), what=fn)
-    assert_close(_np(ft.normalize(x, n=4096)), _np(ftt.normalize(x, n=4096)))
-    y = ft.normalize(ft.ifft_unnormalized(ft.fft(x)))
+        assert_close(_np(getattr(ft, fn)(_t(x))), _np(getattr(ftt, fn)(x)), what=fn)
+    assert_close(_np(ft.normalize(_t(x), n=4096)), _np(ftt.normalize(x, n=4096)))
+    y = ft.normalize(ft.ifft_unnormalized(ft.fft(_t(x))))
     assert_close(_np(y), x)
-    assert_close(_np(ft.fft(x[0])), ft.naive_dft(x[0]))
+    assert_close(_np(ft.fft(_t(x[0]))), ft.naive_dft(x[0]))
 
 
 @pytest.mark.parametrize("cls", ["Forward", "Inverse", "Onlyinverse", "Normalize"])
 def test_parity_classes_match_jax(cls, rng, assert_close):
     x = crand(rng, 4, 512)
     tp, jp = getattr(ft, cls)(512), getattr(ftt, cls)(512)
-    assert_close(_np(tp.proc(x)), _np(jp.proc(x)))
-    assert_close(_np(tp(x)), _np(jp(x)))
+    assert_close(_np(tp.proc(_t(x))), _np(jp.proc(x)))
+    assert_close(_np(tp(_t(x))), _np(jp(x)))
     assert repr(tp) == repr(jp) == f"{cls}(fft_len=512)"
 
 
@@ -136,20 +143,20 @@ def test_executors_match_jax(rng, assert_close, monkeypatch):
     monkeypatch.setattr(j_pf, "_FORCE_INTERPRET", True)
     x = crand(rng, 5, 512)
     for ex in ("xla", "direct", "pallas"):
-        got = ft.plan(512, executor=ex).forward(x)
+        got = ft.plan(512, executor=ex).forward(_t(x))
         assert_close(_np(got), _np(ftt.plan(512, executor=ex).forward(x)), what=ex)
-    want = _np(ft.plan(512, executor="pallas").inverse(x))
+    want = _np(ft.plan(512, executor="pallas").inverse(_t(x)))
     for ex in ("pallas:classic", "pallas:dit", "pallas:balanced"):
         # the TPU schedules collapse into the one row kernel
-        np.testing.assert_array_equal(_np(ft.plan(512, executor=ex).inverse(x)), want)
+        np.testing.assert_array_equal(_np(ft.plan(512, executor=ex).inverse(_t(x))), want)
     with pytest.raises(cuda_fft.Unsupported):
-        ft.plan(1000, executor="pallas").forward(crand(rng, 2, 1000))
+        ft.plan(1000, executor="pallas").forward(_t(crand(rng, 2, 1000)))
 
 
 def test_value_errors_match_jax():
-    x = np.zeros((2, 64), np.complex64)
-    z = np.zeros((2, 64), np.float32)
-    for pkg, c128 in ((ft, torch.complex128), (ftt, jnp.complex128)):
+    for pkg, c128, arr in ((ft, torch.complex128, _t), (ftt, jnp.complex128, np.asarray)):
+        x = arr(np.zeros((2, 64), np.complex64))
+        z = arr(np.zeros((2, 64), np.float32))
         p = pkg.plan(128)
         with pytest.raises(ValueError, match="n=128"):
             p.forward(x)
@@ -172,8 +179,15 @@ def test_routing_on_cuda_tensors():
         # the kernel for every pow2 n in its envelope; the row count plays no part
         assert ft.plan(1 << e)._resolve_executor(cuda) == "pallas"
         assert ft.plan(1 << e)._resolve_executor(cpu) == "xla"
-    for n in (1, 64, 120, 1000, 4095, 4097):
+    for n in (1, 64, 120, 500, 511, 1 << 14 | 1, 3 * 5 * 1093):
         assert ft.plan(n)._resolve_executor(cuda) == "xla"
+    for n in (640, 1000, 4095, 4097, 16383):  # the composite-row kernel
+        assert ft.plan(n)._resolve_executor(cuda) == "general"
+        assert ft.plan(n)._resolve_executor(cpu) == "xla"
+    for n in (526, 1031, 1538, 4093, 8191):
+        # the mixed-radix path, whose Bluestein branch runs the chirp passes
+        assert ft.plan(n)._resolve_executor(cuda) == "xla"
+        assert ft.plan(n)._resolve_executor(cpu) == "xla"
     for e in (15, 18, 20, 22, 27):
         # four-step above the row kernel, on the card only (ops/fourstep.py)
         assert ft.plan(1 << e)._resolve_executor(cuda) == "fourstep"
@@ -189,7 +203,7 @@ def test_autotune_not_hidden_on_cuda(rng, assert_close):
         p._check_autotune(torch.device("cuda", 0))
     # on the CPU it changes nothing, as in the JAX package off the TPU
     x = crand(rng, 2, 256)
-    assert_close(_np(p.forward(x)), _np(ftt.plan(256, autotune=True).forward(x)))
+    assert_close(_np(p.forward(_t(x))), _np(ftt.plan(256, autotune=True).forward(x)))
 
 
 def test_grad_through_fft_matches_jax(rng, assert_close):
@@ -210,9 +224,13 @@ def test_grad_through_fft_matches_jax(rng, assert_close):
         assert_close(tim.grad.numpy(), np.asarray(jg[1]), what=ex)
 
 
-def test_warmup_and_plan_cache():
+def test_warmup_and_plan_cache(monkeypatch):
     p = ft.plan(256)
-    assert p.warmup((3,)) is p
+    assert p.warmup((3,), device="cpu") is p
+    # with no device named, warmup asks for the card and never falls to the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        p.warmup((3,))
     assert ft.get_plan(256) is ft.get_plan(256)
     assert repr(p) == repr(ftt.plan(256)) == "Plan(n=256, executor='auto')"
 

@@ -33,6 +33,11 @@ def _np(z):
     return z.detach().numpy() if isinstance(z, torch.Tensor) else np.asarray(z)
 
 
+def _t(x):
+    # a CPU tensor asks the port for the CPU; numpy input goes to the card
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
 def spectrum(rng, *shape):
     return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
             ).astype(np.complex64)
@@ -208,7 +213,7 @@ NORMS = [None, "backward", "ortho", "forward"]
 @pytest.mark.parametrize("n", [None, 256, 200, 255, 300, 7])
 def test_rfft_matches_jax(n, norm, rng, assert_close):
     x = rng.standard_normal((3, 256)).astype(np.float32)
-    got = ft.rfft(x, n=n, norm=norm)
+    got = ft.rfft(_t(x), n=n, norm=norm)
     want = ftt.rfft(x, n=n, norm=norm)
     assert got.dtype == torch.complex64 and tuple(got.shape) == np.shape(want)
     assert_close(_np(got), _np(want), what=f"n={n} {norm}")
@@ -220,7 +225,7 @@ def test_rfft_matches_jax(n, norm, rng, assert_close):
 def test_irfft_matches_jax(n, norm, rng, assert_close):
     X = spectrum(rng, 3, 129)
     X[:, 0] += 1j  # ignored imaginary DC part
-    got = ft.irfft(X, n=n, norm=norm)
+    got = ft.irfft(_t(X), n=n, norm=norm)
     want = ftt.irfft(X, n=n, norm=norm)
     assert got.dtype == torch.float32 and tuple(got.shape) == np.shape(want)
     assert_close(_np(got), _np(want), what=f"n={n} {norm}")
@@ -230,7 +235,7 @@ def test_irfft_matches_jax(n, norm, rng, assert_close):
 @pytest.mark.parametrize("axis", [0, 1, -3])
 def test_rfft_irfft_along_an_axis(axis, rng, assert_close):
     x = rng.standard_normal((64, 10, 8)).astype(np.float32)
-    got = ft.rfft(x, axis=axis)
+    got = ft.rfft(_t(x), axis=axis)
     assert_close(_np(got), _np(ftt.rfft(x, axis=axis)))
     assert_close(_np(ft.irfft(got, n=x.shape[axis], axis=axis)),
                  _np(ftt.irfft(np.asarray(_np(got)), n=x.shape[axis], axis=axis)))
@@ -248,12 +253,12 @@ def test_rfft_irfft_along_an_axis(axis, rng, assert_close):
 ])
 def test_rfftn_irfftn_match_jax(s, axes, norm, rng, assert_close):
     x = rng.standard_normal((6, 12, 64)).astype(np.float32)
-    got = ft.rfftn(x, s=s, axes=axes, norm=norm)
+    got = ft.rfftn(_t(x), s=s, axes=axes, norm=norm)
     want = ftt.rfftn(x, s=s, axes=axes, norm=norm)
     assert tuple(got.shape) == np.shape(want)
     assert_close(_np(got), _np(want), what=f"rfftn s={s} axes={axes}")
     X = np.asarray(want)
-    back = ft.irfftn(X, s=s, axes=axes, norm=norm)
+    back = ft.irfftn(_t(X), s=s, axes=axes, norm=norm)
     jback = ftt.irfftn(X, s=s, axes=axes, norm=norm)
     assert tuple(back.shape) == np.shape(jback)
     assert_close(_np(back), _np(jback), what=f"irfftn s={s} axes={axes}")
@@ -262,7 +267,7 @@ def test_rfftn_irfftn_match_jax(s, axes, norm, rng, assert_close):
 @pytest.mark.parametrize("norm", NORMS)
 def test_rfft2_irfft2_match_jax(norm, rng, assert_close):
     x = rng.standard_normal((2, 128, 128)).astype(np.float32)
-    X = ft.rfft2(x, norm=norm)
+    X = ft.rfft2(_t(x), norm=norm)
     assert_close(_np(X), _np(ftt.rfft2(x, norm=norm)))
     assert_close(_np(X), np.fft.rfft2(x, norm=norm))
     back = ft.irfft2(X, s=(128, 128), norm=norm)
@@ -274,11 +279,11 @@ def test_rfft2_irfft2_match_jax(norm, rng, assert_close):
 @pytest.mark.parametrize("n", [None, 256, 255])
 def test_hfft_ihfft_match_jax(n, norm, rng, assert_close):
     X = spectrum(rng, 2, 129)
-    assert_close(_np(ft.hfft(X, n=n, norm=norm)), _np(ftt.hfft(X, n=n, norm=norm)))
-    assert_close(_np(ft.hfft(X, n=n, norm=norm)), np.fft.hfft(X, n=n, norm=norm))
+    assert_close(_np(ft.hfft(_t(X), n=n, norm=norm)), _np(ftt.hfft(X, n=n, norm=norm)))
+    assert_close(_np(ft.hfft(_t(X), n=n, norm=norm)), np.fft.hfft(X, n=n, norm=norm))
     x = rng.standard_normal((2, 256)).astype(np.float32)
-    assert_close(_np(ft.ihfft(x, n=n, norm=norm)), _np(ftt.ihfft(x, n=n, norm=norm)))
-    assert_close(_np(ft.ihfft(x, n=n, norm=norm)), np.fft.ihfft(x, n=n, norm=norm))
+    assert_close(_np(ft.ihfft(_t(x), n=n, norm=norm)), _np(ftt.ihfft(x, n=n, norm=norm)))
+    assert_close(_np(ft.ihfft(_t(x), n=n, norm=norm)), np.fft.ihfft(x, n=n, norm=norm))
 
 
 @pytest.mark.parametrize("norm", NORMS)
@@ -288,7 +293,7 @@ def test_hermitian_nd_match_jax(fn, norm, rng, assert_close):
         x = rng.standard_normal((4, 16, 32)).astype(np.float32)
     else:
         x = spectrum(rng, 4, 16, 17)
-    got = getattr(ft, fn)(x, norm=norm)
+    got = getattr(ft, fn)(_t(x), norm=norm)
     want = getattr(ftt, fn)(x, norm=norm)
     assert tuple(got.shape) == np.shape(want)
     assert_close(_np(got), _np(want), what=f"{fn} {norm}")
@@ -304,10 +309,10 @@ def test_tensor_input_and_round_trip(rng, assert_close):
 
 
 def test_errors_match_jax():
-    x = np.zeros((4, 8), np.float32)
-    for pkg in (ft, ftt):
+    for pkg, arr in ((ft, _t), (ftt, np.asarray)):
+        x = arr(np.zeros((4, 8), np.float32))
         with pytest.raises(TypeError):
-            pkg.rfft(x.astype(np.complex64))
+            pkg.rfft(arr(np.zeros((4, 8), np.complex64)))
         with pytest.raises(ValueError):
             pkg.rfft(x, norm="bogus")
         with pytest.raises(ValueError):

@@ -5,6 +5,7 @@ CPU) and the port.  Tolerance: 1e-5 relative L2 (the ``assert_close``
 fixture), the repo's oracle bar.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -65,12 +66,16 @@ def test_non_contiguous_rows(rng, assert_close):
 
 
 @pytest.mark.parametrize("n", [514, 1031, 2 * 131 * 3])
-def test_bluestein_lengths_raise(n):
-    # a prime factor > MAX_DIRECT at n >= BLUESTEIN_MIN needs Bluestein
+def test_bluestein_lengths_raise(n, rng, assert_close):
+    # a prime factor > MAX_DIRECT at n >= BLUESTEIN_MIN needs Bluestein:
+    # these lengths raised NotImplementedError until Bluestein was ported;
+    # now they raise nothing and match the JAX package's Bluestein
     assert n >= t_st.BLUESTEIN_MIN
-    z = torch.zeros(2, n)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        t_st.fft_last_axis(z, z, -1)
+    re, im = (rng.standard_normal((2, n)).astype(np.float32) for _ in range(2))
+    for sign in (-1, 1):
+        tr, ti = t_st.fft_last_axis(torch.from_numpy(re), torch.from_numpy(im), sign)
+        jr, ji = j_st.fft_last_axis(jnp.asarray(re), jnp.asarray(im), sign)
+        assert_close(tr.numpy() + 1j * ti.numpy(), np.asarray(jr) + 1j * np.asarray(ji))
 
 
 def test_bluestein_min_matches_jax():
