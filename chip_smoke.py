@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the torch port's paths once on one CUDA card: the batched 1-D
 main path (n = 128..16384), the large-N path (four-step and whole-row),
-BASELINE config 4 (2-D 4096 x 4096, R2C/C2R, 3-D 256^3), and the
-non-pow2 path (composite, Bluestein and chirp-z transforms).
+BASELINE config 4 (2-D 4096 x 4096, R2C/C2R, 3-D 256^3), the non-pow2
+path (composite, Bluestein and chirp-z transforms), and the fused
+epilogues (spectral filter, analytic signal, FFT and overlap-add
+convolution, the CWT plan, composite 2-D frames).
 
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
-the CUDA toolkit.  It builds the ten kernel libraries from
+the CUDA toolkit.  It builds the twelve kernel libraries from
 ``fft_wgpu_tpu_torch/csrc`` (one nvcc each, all at once) and runs five
 phases, one line each or more; any failure raises and the script exits
 non-zero without a result line:
@@ -34,7 +36,13 @@ non-zero without a result line:
              of 128..16384 with signal and output lengths that are not
              multiples of 128, rows 3 and 1000, and at that path's own
              calls (Bluestein 4093 and 4097, the ZoomFFT) with its tables;
-3. main    — three paths, the launch counts set to 0 just before each and
+             the fused epilogues' kernels: filt at every n, rows 3 and
+             1000, and at 4096 x 4096; bank at every n for banks of 1 and
+             7 rows, and at 128 x 16384; c2r_prod at every n, ragged and
+             padded, B of A's shape and broadcast, at 2048 x 8192 and 547 x
+             2048; ax0_gen at every composite n at m = 7 and 1000, and at
+             16 x 1080 x 1920, and the axis(-3) pass at [2, 1000, 7, 130];
+3. main    — four paths, the launch counts set to 0 just before each and
              read just after: plan / fft / ifft / Forward at the 1-D sizes
              users call (row kernel; axis(-2) then transposed rows; whole
              row), then config 4: fft2 / ifft2 and the rfft2 / irfft2 round
@@ -43,19 +51,27 @@ non-zero without a result line:
              JAX package's benchmark sizes (4095, 4097 and 1000 composite;
              4093 prime), a direct Bluestein call at 4097 (m = 16384),
              rfft at 4095 and 1000, irfft at 4095, czt and ZoomFFT over
-             1024 signals of 4096 samples; each call's launches are
+             1024 signals of 4096 samples; then the fused epilogues:
+             SpectralFilter and hilbert at 4096 x 4096, fftconvolve of two
+             2048 x 4096 signals, oaconvolve of 2^20 samples with 129
+             taps, the CWT plan of 8192 samples over widths 1..128, fft2 /
+             ifft2 of 16 x 1080 x 1920 frames; each call's launches are
              checked; small inputs against float64 numpy after each
              window, and numpy input, which must run on the card;
 4. grad    — gradients against the plain versions' (CPU for the N-D,
              real and non-pow2 ones): fft (row kernel; the four-step at
              2 x 2^20; the whole row at 4 x 2^16; composite 4095 and prime
-             4093 at 64 rows), rfft at 1005, rfft2 and batched fft2;
+             4093 at 64 rows), rfft at 1005, rfft2 and batched fft2,
+             SpectralFilter, fftconvolve (both inputs), the CWT plan and
+             fft2 at 1080 x 1920;
 5. times   — CUDA-event medians of each kernel, its plain version,
              torch.fft and plan.forward at the main shapes, beside a plane
              copy of the same bytes; fft2 at 4096 x 4096 by both routes
              (transposed rows twice, row then axis(-2)) and the fused plane
-             at 256^3 against row then axis(-2); fftn at 512^3; a
-             torch.profiler breakdown of the non-pow2 path's calls.
+             at 256^3 against row then axis(-2); fftn at 512^3; the fused
+             epilogues' kernels at their path's shapes beside torch.fft's
+             composition of the same function; a torch.profiler breakdown
+             of the non-pow2 path's and the fused epilogues' calls.
 
 torch.fft is an oracle and a baseline here, never the implementation.  The
 last two lines are a JSON object describing the kernels (each with its
@@ -81,12 +97,14 @@ import numpy as np
 TOL = 1e-5  # relative L2, the JAX package's oracle bar
 SEED = 0
 LIBS = ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft", "fft2f_fft", "r2c_fft",
-        "c2r_fft", "gen_fft", "r2c_gen_fft", "chirp_fft")
-# Kernels as the launch counters name them: the axis(-3) pass is ax0_fft's
-# library on a free view, with its own entry point and counter; chirp_fft
-# holds two kernels, each with its own.
+        "c2r_fft", "gen_fft", "r2c_gen_fft", "chirp_fft", "filt_fft", "ax0_gen_fft")
+# Kernels as the launch counters name them: the axis(-3) pass is the axis(-2)
+# kernels on a free view, with its own entry point and counter; chirp_fft
+# holds two kernels, each with its own, filt_fft two entry points (filt,
+# bank), c2r_fft a second one (c2r_prod).
 KERNELS = ("rows_fft", "ax0_fft", "ax3_fft", "rows_t_fft", "fft2f_fft", "r2c_fft",
-           "c2r_fft", "big_fft", "gen_fft", "r2c_gen_fft", "chirp_fwd", "chirp_inv")
+           "c2r_fft", "big_fft", "gen_fft", "r2c_gen_fft", "chirp_fwd", "chirp_inv",
+           "filt", "bank", "c2r_prod", "ax0_gen")
 # Composite lengths of phase 2's sweep: factors (20, 32), (25, 40), (15, 67),
 # (23, 89), (63, 65), (17, 241), (81, 81), (100, 100), (127, 129).
 GEN_NS = (640, 1000, 1005, 2047, 4095, 4097, 6561, 10000, 16383)
@@ -175,6 +193,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import fft_wgpu_tpu_torch as ft
     from fft_wgpu_tpu_torch.ops import bigfft, bluestein, cuda_fft, czt, stockham
+    from fft_wgpu_tpu_torch.ops import cwt as cwt_mod
     from fft_wgpu_tpu_torch.utils import build
 
     dev = torch.device("cuda", 0)
@@ -279,7 +298,8 @@ def main() -> int:
           lambda re, im, s, sc, _: bigfft.fft_big_split_reference(re, im, s, sc),
           lambda x, s, sc, _: oracle(x, s, sc))
     sweep("ax3_fft",
-          [((2, n, 7, 130), None) for n in (128, 1024, 16384)] + [((256, 256, 256), None)],
+          [((2, n, 7, 130), None) for n in (128, 1000, 1024, 16384)]
+          + [((256, 256, 256), None)],
           lambda re, im, s, sc, _: cuda_fft._ax3_launch(re, im, s, sc),
           lambda re, im, s, sc, _: cuda_fft.fft_axis3_split_reference(re, im, s, sc),
           lambda x, s, sc, _: oracle(x, s, sc, dim=-3), dim=-3)
@@ -445,6 +465,60 @@ def main() -> int:
 
     chirp_sweep()
 
+    # the fused epilogues: B9 (filt), B10 (bank), B8 (c2r_prod), B2-composite
+    sweep("filt",
+          [((rows, n), planes(crand(n))) for n in pow2 for rows in (3, 1000)]
+          + [((4096, 4096), planes(crand(4096)))],
+          lambda re, im, s, sc, h: cuda_fft._filt(re, im, *h, s, sc),
+          lambda re, im, s, sc, h: cuda_fft.fft_filtered_split_reference(re, im, *h, s, sc),
+          lambda x, s, sc, h: oracle(x * torch.complex(*h), s, sc))
+    sweep("bank",
+          [((n,), planes(crand(rows, n))) for n in pow2 for rows in (1, 7)]
+          + [((16384,), planes(crand(128, 16384)))],
+          lambda re, im, s, sc, h: cuda_fft._bank(re, im, *h, s, sc),
+          lambda re, im, s, sc, h: cuda_fft.fft_bank_split_reference(re, im, *h, s, sc),
+          lambda x, s, sc, h: oracle(x * torch.complex(*h), s, sc))
+
+    def c2r_prod_sweep():
+        """The product C2R against its plain version and torch.fft's irfft of
+        the product: ragged and padded (the pad columns hold garbage, which
+        it must not read), B of A's shape and one broadcast row, scale None
+        and 1/n; the product's DC and Nyquist imaginary parts are ignored."""
+        worst, cases = 0.0, 0
+        for rows, n, bcasts in [(rows, 1 << e, (False, True)) for e in range(7, 15)
+                                for rows in (3, 1000)] + [(2048, 8192, (False,)),
+                                                          (547, 2048, (True,))]:
+            mp = n // 2 + 1
+            for pad in (False, True):
+                bins = cuda_fft.pad_bins(n) if pad else mp
+                for bcast in bcasts:
+                    A, B = crand(rows, bins), crand(1 if bcast else rows, bins)
+                    A[:, mp:], B[:, mp:] = 1e6, -1e6
+                    Ar, Ai = planes(A)
+                    Br, Bi = (t[0] for t in planes(B)) if bcast else planes(B)
+                    P = (A * B)[:, :mp]
+                    P.imag[:, 0] = P.imag[:, -1] = 0.0
+                    for scale in (None, 1.0 / n):
+                        s = 1.0 if scale is None else scale
+                        what = f"{rows}x{n} pad={pad} broadcast={bcast} scale={scale}"
+                        y = cuda_fft._c2r_prod_launch(Ar, Ai, Br, Bi, n, scale)
+                        yp = cuda_fft.irfft_prod_rows_split_reference(Ar, Ai, Br, Bi, n, scale,
+                                                                      padded_in=pad)
+                        worst = max(worst, compare(
+                            "c2r_prod", y, yp, torch.fft.irfft(P, n=n, norm="forward") * s,
+                            what))
+                        cases += 1
+        torch.cuda.synchronize()
+        print(f"kernel c2r_prod: {cases} cases ok | worst rel-L2 {worst:.3e} | "
+              f"max abs err vs plain {max_abs['c2r_prod']:.3e}", flush=True)
+
+    c2r_prod_sweep()
+    sweep("ax0_gen",
+          [((2, n, m), None) for n in GEN_NS for m in (7, 1000)] + [((16, 1080, 1920), None)],
+          lambda re, im, s, sc, _: cuda_fft._ax0_launch(re, im, s, sc),
+          lambda re, im, s, sc, _: cuda_fft.fft_axis0_split_reference(re, im, s, sc),
+          lambda x, s, sc, _: oracle(x, s, sc, dim=-2), dim=-2)
+
     # ---- 3. main path at users' sizes ------------------------------------
     errs = {}
 
@@ -455,7 +529,9 @@ def main() -> int:
                 "c2r_fft": cuda_fft.c2r_launches, "big_fft": bigfft.launches,
                 "gen_fft": cuda_fft.gen_launches, "r2c_gen_fft": cuda_fft.r2c_gen_launches,
                 "chirp_fwd": cuda_fft.chirp_fwd_launches,
-                "chirp_inv": cuda_fft.chirp_inv_launches}
+                "chirp_inv": cuda_fft.chirp_inv_launches, "filt": cuda_fft.filt_launches,
+                "bank": cuda_fft.bank_launches, "c2r_prod": cuda_fft.c2r_prod_launches,
+                "ax0_gen": cuda_fft.ax0_gen_launches}
 
     def reset_counts():
         cuda_fft.launches = cuda_fft.ax0_launches = cuda_fft.ax3_launches = 0
@@ -463,6 +539,8 @@ def main() -> int:
         cuda_fft.r2c_launches = cuda_fft.c2r_launches = bigfft.launches = 0
         cuda_fft.gen_launches = cuda_fft.r2c_gen_launches = 0
         cuda_fft.chirp_fwd_launches = cuda_fft.chirp_inv_launches = 0
+        cuda_fft.filt_launches = cuda_fft.bank_launches = 0
+        cuda_fft.c2r_prod_launches = cuda_fft.ax0_gen_launches = 0
 
     def through(what, fn, **want):
         """Run fn(); the launch counts must rise by exactly ``want``
@@ -654,12 +732,81 @@ def main() -> int:
                                        "fft of a numpy array vs numpy")
     print(f"main: non-pow2 path, {len(errs)} checks ok, launches {path3} | "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+
+    # path 5: the fused epilogues at the sizes of the JAX package's records
+    # (bench.py's fused filter 4096 x 4096, PERFORMANCE.md's product C2R at
+    # 2048 x 8192 and oaconvolve of 2^20 samples with 129 taps) and
+    # composite 2-D frames (16 x 1080 x 1920)
+    errs = {}
+    x = crand(4096, 4096)
+    H = crand(4096)
+    sf = ft.SpectralFilter(H, 4096)
+    r = torch.randn(4096, 4096, device=dev, generator=gen)
+    a2, b2 = (torch.randn(2048, 4096, device=dev, generator=gen) for _ in range(2))
+    sig, taps = (torch.randn(n, device=dev, generator=gen) for n in (1 << 20, 129))
+    widths = np.arange(1, 129)
+    cw = ft.CWT(8192, widths, device=dev)  # builds the bank spectrum: outside the window
+    s8k = torch.randn(8192, device=dev, generator=gen)
+    fr = crand(16, 1080, 1920)
+    reset_counts()
+    Y = through("SpectralFilter 4096^2", lambda: sf(x), rows_fft=1, filt=1)
+    errs["spectral_filter_4096"] = check_close(Y, torch.fft.ifft(torch.fft.fft(x) * H),
+                                               "SpectralFilter 4096^2")
+    Z = through("hilbert 4096^2", lambda: ft.hilbert(r), rows_fft=1, filt=1)
+    hw = torch.zeros(4096, device=dev)
+    hw[0] = hw[2048] = 1.0
+    hw[1:2048] = 2.0
+    errs["hilbert_4096"] = check_close(Z, torch.fft.ifft(torch.fft.fft(r.double()) * hw),
+                                       "hilbert 4096^2 vs float64")
+    C = through("fftconvolve 2048x4096", lambda: ft.fftconvolve(a2, b2, axes=-1),
+                r2c_fft=2, c2r_prod=1)
+    want = torch.fft.irfft(torch.fft.rfft(a2.double(), n=8192)
+                           * torch.fft.rfft(b2.double(), n=8192), n=8192)[:, :8191]
+    errs["fftconvolve_2048x4096"] = check_close(C, want, "fftconvolve 2048x4096 vs float64")
+    O = through("oaconvolve 2^20 x 129", lambda: ft.oaconvolve(sig, taps),
+                r2c_fft=2, c2r_prod=1)
+    L = 1 << 21
+    want = torch.fft.irfft(torch.fft.rfft(sig.double(), n=L) * torch.fft.rfft(taps.double(), n=L),
+                           n=L)[:(1 << 20) + 128]
+    errs["oaconvolve_2^20x129"] = check_close(O, want, "oaconvolve 2^20 x 129 vs float64")
+    W = through("CWT(8192, 1..128)", lambda: cw(s8k), rows_fft=1, bank=1)
+    bank, lmax, _ = cwt_mod._build_bank(8192, widths, "ricker", None)
+    full = torch.fft.ifft(torch.fft.fft(s8k.double(), n=cw.nfft)
+                          * torch.fft.fft(torch.from_numpy(bank).to(dev), n=cw.nfft))
+    want = full.real[:, (lmax - 1) // 2:(lmax - 1) // 2 + 8192]
+    errs["cwt_8192x128"] = check_close(W, want, "CWT(8192, 1..128) vs float64")
+    F = through("fft2 16x1080x1920", lambda: ft.fft2(fr), gen_fft=1, ax0_gen=1)
+    errs["fft2_1080x1920"] = check_close(F, torch.fft.fft2(fr), "fft2 16x1080x1920")
+    errs["ifft2_1080x1920"] = check_close(
+        through("ifft2 16x1080x1920", lambda: ft.ifft2(F), gen_fft=1, ax0_gen=1), fr,
+        "ifft2 16x1080x1920 round trip")
+    path5 = counts()
+    for name in ("filt", "bank", "c2r_prod", "ax0_gen"):
+        check(path5[name] > 0, f"fused-epilogue path launched no {name} kernel")
+    del x, Y, r, Z, a2, b2, C, sig, O, W, full, F, want
+    # outside the window: small inputs against float64 numpy
+    xs = torch.randn(3, 1000, 5, device=dev, generator=gen)
+    want = np.fft.fft(xs.cpu().numpy().astype(np.float64), axis=1)
+    got = through("fft 3x1000x5 axis=1", lambda: ft.fft(xs, axis=1), ax0_gen=1)
+    errs["fft_axis1_1000_np"] = check_close(got.cpu(), torch.from_numpy(want),
+                                            "fft 3x1000x5 axis=1 vs numpy")
+    a1, b1 = (torch.randn(5, n, device=dev, generator=gen) for n in (700, 90))
+    want = np.stack([np.convolve(u, v) for u, v in zip(a1.cpu().double().numpy(),
+                                                       b1.cpu().double().numpy())])
+    got = through("fftconvolve 5x700 * 5x90", lambda: ft.fftconvolve(a1, b1, axes=-1),
+                  r2c_fft=2, c2r_prod=1)
+    errs["fftconvolve_small_np"] = check_close(got.cpu(), torch.from_numpy(want),
+                                               "fftconvolve 5x700 vs numpy")
+    print(f"main: fused-epilogue path, {len(errs)} checks ok, launches {path5} | "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
     # The kernels line gives each kernel the launches of the path it was
     # ported for (the 1-D path for B1, B2, B4 and B15, the non-pow2 path for
-    # B11-B14, config 4 for the rest); each path's counts are on its line.
+    # B11-B14, the fused-epilogue path for B8-B10 and B2-composite, config 4
+    # for the rest); each path's counts are on its line.
     path_of = {"rows_fft": path1, "ax0_fft": path1, "rows_t_fft": path1, "big_fft": path1,
                "gen_fft": path3, "r2c_gen_fft": path3, "chirp_fwd": path3,
-               "chirp_inv": path3}
+               "chirp_inv": path3, "filt": path5, "bank": path5, "c2r_prod": path5,
+               "ax0_gen": path5}
     main_launches = {k: path_of.get(k, path2)[k] for k in KERNELS}
 
     # ---- 4. autograd on the card -----------------------------------------
@@ -715,6 +862,42 @@ def main() -> int:
         gp = grads_nd(fn, shape, SEED + 2, torch.device("cpu"))  # the plain path
         gerrs[f"{fn.__name__} {shape}"] = check_close(
             gk.cpu(), gp, f"grad of sum(w*|{fn.__name__}(x)|^2) {shape} kernels vs plain")
+
+    def grads_of(fn, shapes, seed, device, cplx):
+        """d/d(inputs) of sum(w*|fn(*inputs)|^2), all inputs' gradients in
+        one flat tensor; real or complex inputs made from ``seed``."""
+        g = torch.Generator().manual_seed(seed)
+        ins = []
+        for shape in shapes:
+            v = torch.randn(shape, generator=g)
+            if cplx:
+                v = torch.complex(v, torch.randn(shape, generator=g))
+            ins.append(v.to(device).requires_grad_())
+        y = fn(*ins)
+        w = torch.rand(y.shape, generator=g).to(device)
+        (w * y.abs() ** 2).sum().backward()
+        return torch.cat([v.grad.reshape(-1) for v in ins])
+
+    # the fused epilogues: SpectralFilter (B1 and B9 forward, the row kernel
+    # twice back), fftconvolve in both inputs (B6 twice and B8 forward; B6,
+    # then B1 for each input, back), the CWT plan (B1 and B10 forward, B1
+    # twice back; on the CPU its own nfft), fft2 of 1080 x 1920 (B2-composite
+    # and B13 both ways)
+    cw_cpu = ft.CWT(8192, widths, device="cpu")
+    for what, fn, fn_cpu, shapes, cplx, kernels in (
+            ("SpectralFilter 64x4096", sf, sf, [(64, 4096)], True,
+             {"rows_fft": 3, "filt": 1}),
+            ("fftconvolve 64x1000 (both inputs)",
+             lambda u, v: ft.fftconvolve(u, v, axes=-1), None,
+             [(64, 1000), (64, 1000)], False, {"r2c_fft": 3, "c2r_prod": 1, "rows_fft": 2}),
+            ("CWT(8192, 1..128)", cw, cw_cpu, [(8192,)], False, {"rows_fft": 3, "bank": 1}),
+            ("fft2 1080x1920", ft.fft2, None, [(1080, 1920)], True,
+             {"gen_fft": 2, "ax0_gen": 2})):
+        gk = through(f"grad {what}", lambda: grads_of(fn, shapes, SEED + 3, dev, cplx),
+                     **kernels)
+        gp = grads_of(fn_cpu or fn, shapes, SEED + 3, torch.device("cpu"), cplx)
+        gerrs[what] = check_close(gk.cpu(), gp, f"grad of sum(w*|f(x)|^2) {what} "
+                                                "kernels vs plain")
     print("grad: rel-L2 vs plain " + ", ".join(f"{k} {v:.3e}" for k, v in gerrs.items()),
           flush=True)
 
@@ -872,6 +1055,61 @@ def main() -> int:
     }, reps=20)
     del x, re, im, Ar, Ai
 
+    x = crand(4096, 4096)  # the fused-epilogue path's shapes
+    re, im = planes(x)
+    hr, hi = planes(H)
+    r = torch.randn(4096, 4096, device=dev, generator=gen)
+    times["filt 4096x4096"] = time_in_turns({
+        "kernel": lambda: cuda_fft._filt(re, im, hr, hi, 1, 1.0 / 4096),
+        "plain": lambda: cuda_fft.fft_filtered_split_reference(re, im, hr, hi, 1, 1.0 / 4096),
+        "torch.fft": lambda: torch.fft.ifft(x * H),
+        "SpectralFilter": lambda: sf(x),
+        "torch.fft SpectralFilter": lambda: torch.fft.ifft(torch.fft.fft(x) * H),
+        "hilbert": lambda: ft.hilbert(r),
+        "torch.fft hilbert": lambda: torch.fft.ifft(torch.fft.fft(r) * hw),
+        "copy": plane_copy(re, im),
+    }, reps=20)
+    xb, Bk = crand(16384), crand(128, 16384)
+    (xbr, xbi), (bkr, bki) = planes(xb), planes(Bk)
+    times["bank 128x16384"] = time_in_turns({
+        "kernel": lambda: cuda_fft._bank(xbr, xbi, bkr, bki, 1, 1.0 / 16384),
+        "plain": lambda: cuda_fft.fft_bank_split_reference(xbr, xbi, bkr, bki, 1,
+                                                           1.0 / 16384),
+        "torch.fft": lambda: torch.fft.ifft(xb * Bk),
+        "CWT": lambda: cw(s8k),
+        "copy": plane_copy(bkr, bki),
+    }, reps=20)
+    A, B = crand(2048, 4097), crand(2048, 4097)
+    (Ar, Ai), (Br, Bi) = planes(A), planes(B)
+    a2, b2 = (torch.randn(2048, 4096, device=dev, generator=gen) for _ in range(2))
+    sig, taps = (torch.randn(n, device=dev, generator=gen) for n in (1 << 20, 129))
+    times["c2r_prod 2048x8192"] = time_in_turns({
+        "kernel": lambda: cuda_fft._c2r_prod_launch(Ar, Ai, Br, Bi, 8192, 1.0 / 8192),
+        "plain": lambda: cuda_fft.irfft_prod_rows_split_reference(Ar, Ai, Br, Bi, 8192,
+                                                                  1.0 / 8192),
+        "torch.fft": lambda: torch.fft.irfft(A * B, n=8192),
+        "fftconvolve": lambda: ft.fftconvolve(a2, b2, axes=-1),
+        "torch.fft fftconvolve": lambda: torch.fft.irfft(
+            torch.fft.rfft(a2, n=8192) * torch.fft.rfft(b2, n=8192), n=8192)[:, :8191],
+        "oaconvolve 2^20x129": lambda: ft.oaconvolve(sig, taps),
+        "torch.fft 2^20x129": lambda: torch.fft.irfft(
+            torch.fft.rfft(sig, n=1 << 21) * torch.fft.rfft(taps, n=1 << 21),
+            n=1 << 21)[:(1 << 20) + 128],
+    }, reps=20)
+    del re, im, A, B, Ar, Ai, Br, Bi
+    fr = crand(16, 1080, 1920)
+    re, im = planes(fr)
+    times["ax0_gen 16x1080x1920"] = time_in_turns({
+        "kernel": lambda: cuda_fft._ax0_launch(re, im, -1, None),
+        "plain": lambda: cuda_fft.fft_axis0_split_reference(re, im, -1),
+        "torch.fft": lambda: torch.fft.fft(fr, dim=-2),
+        "gen_fft": lambda: cuda_fft._gen_launch(re, im, -1, None),
+        "fft2": lambda: ft.fft2(fr),
+        "torch.fft fft2": lambda: torch.fft.fft2(fr),
+        "copy": plane_copy(re, im),
+    }, reps=10)
+    del re, im
+
     def breakdown(fn, names, reps=20):
         """Device ms per call of each kernel in ``names`` and of the rest
         (the facade's split and merge, pads), from a torch.profiler window;
@@ -905,7 +1143,18 @@ def main() -> int:
     x = crand(1024, 4096)
     zf = ft.ZoomFFT(4096, [0.1, 0.35], m=1024)
     profiles["ZoomFFT 1024x4096 m=1024"] = breakdown(lambda: zf(x), ("chirp_fwd", "chirp_inv"))
-    del x, r, R
+    x = crand(4096, 4096)
+    r = torch.randn(4096, 4096, device=dev, generator=gen)
+    profiles["SpectralFilter 4096x4096"] = breakdown(lambda: sf(x), ("rows_fft", "filt_fft"))
+    profiles["hilbert 4096x4096"] = breakdown(lambda: ft.hilbert(r), ("rows_fft", "filt_fft"))
+    profiles["fftconvolve 2048x4096"] = breakdown(lambda: ft.fftconvolve(a2, b2, axes=-1),
+                                                  ("r2c_fft", "c2r_fft"))
+    profiles["oaconvolve 2^20x129"] = breakdown(lambda: ft.oaconvolve(sig, taps),
+                                                ("r2c_fft", "c2r_fft"))
+    profiles["CWT 8192 x 128 widths"] = breakdown(lambda: cw(s8k), ("rows_fft", "filt_fft"))
+    profiles["fft2 16x1080x1920"] = breakdown(lambda: ft.fft2(fr), ("gen_fft", "ax0_gen_fft"),
+                                              reps=5)
+    del x, r, R, a2, b2, sig, taps, fr
 
     x = crand(512, 512, 512)  # 1 GiB: axis(-3), axis(-2), row kernel
     times["fftn 512^3"] = {"fftn": time_ms(lambda: ft.fftn(x), reps=5, warmup=1),
@@ -964,6 +1213,20 @@ def main() -> int:
         entry("chirp_inv", "chirp_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2672",
               "chirp 1024x4093", 8 * (8192 + 4093) * 1024 + 8 * (8192 + 4093),
               fft_flops(8192, 1024), ms="chirp_inv", plain="chirp_inv_plain"),
+        # the fused epilogues: each kernel's library_ms is torch.fft's
+        # composition of the same function (multiply + ifft, multiply +
+        # irfft, fft along axis -2)
+        entry("filt", "filt_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2406",
+              "filt 4096x4096", c2c * 4096 * 4096 + 8 * 4096,
+              fft_flops(4096, 4096) + 6 * 4096 * 4096),
+        entry("bank", "filt_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2497",
+              "bank 128x16384", 8 * 16384 + c2c * 128 * 16384,
+              fft_flops(16384, 128) + 6 * 128 * 16384),
+        entry("c2r_prod", "c2r_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2163",
+              "c2r_prod 2048x8192", 2 * 8 * 4097 * 2048 + 4 * 8192 * 2048,
+              fft_flops(8192, 2048) + 6 * 4097 * 2048),
+        entry("ax0_gen", "ax0_gen_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1180",
+              "ax0_gen 16x1080x1920", c2c * 16 * 1080 * 1920, fft_flops(1080, 16 * 1920)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,12 @@ non-pow2 lengths of 512..16384 (factors <= 256) run the composite-row
 kernels (``csrc/gen_fft.cu``, ``csrc/r2c_gen_fft.cu``); lengths with a
 large prime factor, and the chirp-z transform (``czt``, ``zoom_fft``,
 ``CZT``, ``ZoomFFT``), run Bluestein's two chirp passes
-(``csrc/chirp_fft.cu``) up to a padded length of 16384.  Other lengths,
+(``csrc/chirp_fft.cu``) up to a padded length of 16384; composite axes
+before the last run the composite axis(-2) kernel (``csrc/ax0_gen_fft.cu``).
+The fused epilogues run their own kernels: ``SpectralFilter`` and
+``hilbert`` the filtered row kernel (``csrc/filt_fft.cu``), the ``CWT``
+plan its filter-bank kernel, and ``fftconvolve`` / ``oaconvolve`` of real
+input the product C2R kernel (``csrc/c2r_fft.cu``).  Other lengths,
 and every CPU tensor, run the plain torch mixed-radix path.  A tensor is
 transformed on the device it lies on; other input (numpy arrays) goes to
 the current CUDA device, and raises if there is none.  This package
@@ -24,7 +29,13 @@ imports torch and never jax.
 
 from .core.reference import naive_dft, naive_idft
 from .core.twiddle import FORWARD, INVERSE
+from .ops.cwt import CWT, cwt, morlet2, ricker
 from .ops.czt import CZT, ZoomFFT, czt, czt_points, zoom_fft
+from .ops.fastconv import SpectralFilter, spectral_filter
+from .ops.helpers import (choose_conv_method, convolve, correlate, correlation_lags,
+                          detrend, dht, fft_convolve, fftconvolve, fftcorrelate, fftfreq,
+                          fftshift, get_workers, hilbert, hilbert2, idht, ifftshift,
+                          next_fast_len, oaconvolve, prev_fast_len, rfftfreq, set_workers)
 from .ops.nd import fft2, fftn, ifft2, ifftn
 from .ops.rfft import (hfft, hfft2, hfftn, ihfft, ihfft2, ihfftn, irfft, irfft2,
                        irfftn, rfft, rfft2, rfftn)
@@ -60,6 +71,33 @@ __all__ = [
     "czt_points",
     "CZT",
     "ZoomFFT",
+    "cwt",
+    "CWT",
+    "ricker",
+    "morlet2",
+    "SpectralFilter",
+    "spectral_filter",
+    "choose_conv_method",
+    "convolve",
+    "correlate",
+    "correlation_lags",
+    "detrend",
+    "dht",
+    "idht",
+    "fft_convolve",
+    "fftconvolve",
+    "fftcorrelate",
+    "hilbert",
+    "hilbert2",
+    "fftfreq",
+    "fftshift",
+    "ifftshift",
+    "next_fast_len",
+    "prev_fast_len",
+    "get_workers",
+    "set_workers",
+    "oaconvolve",
+    "rfftfreq",
     "Plan",
     "plan",
     "get_plan",

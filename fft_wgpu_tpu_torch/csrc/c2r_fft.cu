@@ -24,10 +24,23 @@
 // fft_wgpu_tpu/ops/rfft.py::_irfft_even_split without its halving, which
 // the 1/m it pairs with undoes).
 //
+// The product C2R (c2r_prod_fft_f32) replaces the TPU kernel
+// fft_wgpu_tpu/ops/pallas_fft.py::irfft_prod_rows_split (B8, its
+// pl.pallas_call over _kernel_c2r_bal_prod), the fftconvolve / oaconvolve
+// epilogue: the same C2R of X = A * B, with the complex product formed for
+// both X[k] and X[m-k] at load, so it is never written to device memory.
+// B is a spectrum of A's shape, or one row broadcast over every row of A
+// (its row index fixed at 0).  The DC and Nyquist imaginary parts are taken
+// off the product, not off A or B (numpy's irfft of A * B).  The packing is
+// one source templated on how a bin is read (Bins or ProductBins), so both
+// entry points share it.
+//
 // What bounds it: device memory, 8*(n/2+1)/n bytes read and 4 written per
-// point.  A row lives in shared memory (n*4 bytes); rows of fewer than 512
-// points share a block (one per threadIdx.y, 128 threads a block), and
-// rows past the last load zeros and store nothing.
+// point; the product reads both spectra (134 MB read and 67 MB written at
+// 2048 x 8192 with equal shapes).  A row lives in shared memory (n*4
+// bytes); rows of fewer than 512 points share a block (one per
+// threadIdx.y, 128 threads a block), and rows past the last load zeros and
+// store nothing.
 
 #include <cuda_runtime.h>
 
@@ -42,10 +55,33 @@ __host__ __device__ constexpr int c2r_rows(int log2m) {
   return threads_for(log2m) >= 128 ? 1 : 128 / threads_for(log2m);
 }
 
+// Bin k of one half-spectrum row as stored.
+struct Bins {
+  const float* r;
+  const float* i;
+  __device__ __forceinline__ void get(int k, float& a, float& b) const {
+    a = r[k];
+    b = i[k];
+  }
+};
+
+// Bin k of the product A * B of two half-spectrum rows.
+struct ProductBins {
+  const float* ar;
+  const float* ai;
+  const float* br;
+  const float* bi;
+  __device__ __forceinline__ void get(int k, float& a, float& b) const {
+    const float a_r = ar[k], a_i = ai[k], b_r = br[k], b_i = bi[k];
+    a = a_r * b_r - a_i * b_i;
+    b = a_r * b_i + a_i * b_r;
+  }
+};
+
 // Z[k] of row r, formed at load from X[k] and X[m-k].
+template <class Spectrum>
 struct HalfSpectrumIn {
-  const float* xr;
-  const float* xi;
+  Spectrum x;
   const float2* half;
   int m;
   bool valid;
@@ -55,9 +91,10 @@ struct HalfSpectrumIn {
       a = b = 0.f;
       return;
     }
-    const float ar = xr[k], br = xr[m - k];
-    // k = 0 pairs DC with Nyquist: both imaginary parts are ignored.
-    const float ai = k ? xi[k] : 0.f, bi = k ? xi[m - k] : 0.f;
+    float ar, ai, br, bi;
+    x.get(k, ar, ai);
+    x.get(m - k, br, bi);
+    if (k == 0) ai = bi = 0.f;  // DC with Nyquist: both imaginary parts are ignored
     const float er = ar + br, ei = ai - bi;
     const float dr = ar - br, di = ai + bi;
     const float2 t = __ldg(&half[k]);
@@ -79,12 +116,15 @@ struct InterleavedOut {
   }
 };
 
-template <int LOG2M>
+// PROD: the row's spectrum is A * B (b_stride floats between B's rows: 0
+// for a broadcast B); else it is A alone and B is not read.
+template <int LOG2M, bool PROD>
 __global__ void __launch_bounds__(threads_for(LOG2M) * c2r_rows(LOG2M))
-c2r_fft_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im,
+c2r_fft_kernel(const float* __restrict__ ar, const float* __restrict__ ai,
+               const float* __restrict__ br, const float* __restrict__ bi,
                float* __restrict__ out, const float2* __restrict__ tw,
                const float2* __restrict__ half, long long rows, int bins,
-               float scale) {
+               long long b_stride, float scale) {
   constexpr int M = 1 << LOG2M;
   constexpr int T = threads_for(LOG2M);
   extern __shared__ float smem[];
@@ -94,30 +134,61 @@ c2r_fft_kernel(const float* __restrict__ in_re, const float* __restrict__ in_im,
   const bool valid = r < rows;
   const size_t i = static_cast<size_t>(valid ? r : 0) * bins;
   const size_t o = static_cast<size_t>(valid ? r : 0) * 2 * M;
-  fft_passes<LOG2M, T>(HalfSpectrumIn{in_re + i, in_im + i, half, M, valid},
-                       Shared{sr, si}, InterleavedOut{out + o, scale, valid}, tw,
-                       1.f);
+  const Shared s{sr, si};
+  const InterleavedOut dst{out + o, scale, valid};
+  if constexpr (PROD) {
+    const size_t j = static_cast<size_t>((valid ? r : 0) * b_stride);
+    fft_passes<LOG2M, T>(
+        HalfSpectrumIn<ProductBins>{{ar + i, ai + i, br + j, bi + j}, half, M, valid},
+        s, dst, tw, 1.f);
+  } else {
+    fft_passes<LOG2M, T>(HalfSpectrumIn<Bins>{{ar + i, ai + i}, half, M, valid}, s,
+                         dst, tw, 1.f);
+  }
 }
 
-template <int LOG2M>
-cudaError_t launch(const void* in_re, const void* in_im, void* out, const void* tw,
-                   const void* half, long long rows, int bins, float scale,
-                   cudaStream_t stream) {
+template <int LOG2M, bool PROD>
+cudaError_t launch(const void* ar, const void* ai, const void* br, const void* bi,
+                   void* out, const void* tw, const void* half, long long rows,
+                   int bins, long long b_stride, float scale, cudaStream_t stream) {
   constexpr int RB = c2r_rows(LOG2M);
   constexpr int smem = RB * 2 * (1 << LOG2M) * static_cast<int>(sizeof(float));
   const long long blocks = (rows + RB - 1) / RB;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
   if constexpr (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        c2r_fft_kernel<LOG2M>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        c2r_fft_kernel<LOG2M, PROD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  c2r_fft_kernel<LOG2M><<<static_cast<unsigned>(blocks),
-                          dim3(threads_for(LOG2M), RB), smem, stream>>>(
-      static_cast<const float*>(in_re), static_cast<const float*>(in_im),
+  c2r_fft_kernel<LOG2M, PROD><<<static_cast<unsigned>(blocks),
+                                dim3(threads_for(LOG2M), RB), smem, stream>>>(
+      static_cast<const float*>(ar), static_cast<const float*>(ai),
+      static_cast<const float*>(br), static_cast<const float*>(bi),
       static_cast<float*>(out), static_cast<const float2*>(tw),
-      static_cast<const float2*>(half), rows, bins, scale);
+      static_cast<const float2*>(half), rows, bins, b_stride, scale);
   return cudaGetLastError();
+}
+
+template <bool PROD>
+int run(const void* ar, const void* ai, const void* br, const void* bi, void* out,
+        const void* tw, const void* half, long long rows, int log2m, int bins,
+        long long b_stride, float scale, int device, void* stream) {
+  if (rows < 1 || log2m < 6 || log2m > 13 || bins < (1 << log2m) + 1) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (log2m) {
+#define C2R_CASE(L)                                                                 \
+  case L:                                                                           \
+    return launch<L, PROD>(ar, ai, br, bi, out, tw, half, rows, bins, b_stride,    \
+                           scale, s);
+    C2R_CASE(6) C2R_CASE(7) C2R_CASE(8) C2R_CASE(9)
+    C2R_CASE(10) C2R_CASE(11) C2R_CASE(12) C2R_CASE(13)
+#undef C2R_CASE
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -132,21 +203,19 @@ extern "C" {
 int c2r_fft_f32(const void* in_re, const void* in_im, void* out, const void* tw,
                 const void* half, long long rows, int log2m, int bins,
                 float scale, int device, void* stream) {
-  if (rows < 1 || log2m < 6 || log2m > 13 || bins < (1 << log2m) + 1) {
-    return cudaErrorInvalidValue;
-  }
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (log2m) {
-#define C2R_CASE(L) \
-  case L:           \
-    return launch<L>(in_re, in_im, out, tw, half, rows, bins, scale, s);
-    C2R_CASE(6) C2R_CASE(7) C2R_CASE(8) C2R_CASE(9)
-    C2R_CASE(10) C2R_CASE(11) C2R_CASE(12) C2R_CASE(13)
-#undef C2R_CASE
-    default: return cudaErrorInvalidValue;
-  }
+  return run<false>(in_re, in_im, nullptr, nullptr, out, tw, half, rows, log2m, bins,
+                    0, scale, device, stream);
+}
+
+// C2R of the products A * B: A as the input of c2r_fft_f32, B rows of the
+// same `bins`, `b_rows` of them: 1 (broadcast over A's rows) or `rows`.
+int c2r_prod_fft_f32(const void* ar, const void* ai, const void* br, const void* bi,
+                     void* out, const void* tw, const void* half, long long rows,
+                     long long b_rows, int log2m, int bins, float scale, int device,
+                     void* stream) {
+  if (b_rows != 1 && b_rows != rows) return cudaErrorInvalidValue;
+  return run<true>(ar, ai, br, bi, out, tw, half, rows, log2m, bins,
+                   b_rows == 1 ? 0 : bins, scale, device, stream);
 }
 
 const char* c2r_fft_error_string(int err) {

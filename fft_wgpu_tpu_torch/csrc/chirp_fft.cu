@@ -15,7 +15,7 @@
 // of 128, so their callers padded the tables and sliced the result).
 //
 // Both are the row kernel's Stockham passes (stockham.cuh, as in
-// rows_fft.cu) with their own source and sink: ChirpIn loads x[k]*h[k] for
+// rows_fft.cu) with their own source and sink: ProductIn loads x[k]*h[k] for
 // k < n_in and zeros beyond (the zero-pad is never written to device
 // memory), ChirpOut stores only the k < n_out outputs, as
 // scale*y[k]*g[k], into rows of n_out.  The TPU kernel also cut its stage-2
@@ -37,26 +37,6 @@
 namespace {
 
 using namespace fftk;
-
-// Row x of device memory times the table h, zero past n_in.
-struct ChirpIn {
-  const float* xr;
-  const float* xi;
-  const float* hr;
-  const float* hi;
-  int n_in;
-  static constexpr bool kShared = false;
-  __device__ __forceinline__ void load(int k, float& a, float& b) const {
-    if (k >= n_in) {
-      a = b = 0.f;
-      return;
-    }
-    const float x_r = xr[k], x_i = xi[k];
-    const float h_r = __ldg(&hr[k]), h_i = __ldg(&hi[k]);
-    a = x_r * h_r - x_i * h_i;
-    b = x_r * h_i + x_i * h_r;
-  }
-};
 
 // The first n_out outputs, times scale and the table g, into a row of
 // device memory; the others are dropped.
@@ -89,7 +69,7 @@ chirp_fwd_kernel(const float* __restrict__ in_re, const float* __restrict__ in_i
   const size_t in = static_cast<size_t>(blockIdx.x) * n_in;
   const size_t out = static_cast<size_t>(blockIdx.x) * M;
   fft_passes<LOG2M, threads_for(LOG2M)>(
-      ChirpIn{in_re + in, in_im + in, hr, hi, n_in}, Shared{smem, smem + M},
+      ProductIn{in_re + in, in_im + in, hr, hi, n_in}, Shared{smem, smem + M},
       GlobalOut{out_re + out, out_im + out, 1.f}, tw, sign);
 }
 
@@ -105,7 +85,7 @@ chirp_inv_kernel(const float* __restrict__ in_re, const float* __restrict__ in_i
   const size_t in = static_cast<size_t>(blockIdx.x) * M;
   const size_t out = static_cast<size_t>(blockIdx.x) * n_out;
   fft_passes<LOG2M, threads_for(LOG2M)>(
-      ChirpIn{in_re + in, in_im + in, Hr, Hi, M}, Shared{smem, smem + M},
+      ProductIn{in_re + in, in_im + in, Hr, Hi, M}, Shared{smem, smem + M},
       ChirpOut{out_re + out, out_im + out, gr, gi, n_out, scale}, tw, sign);
 }
 

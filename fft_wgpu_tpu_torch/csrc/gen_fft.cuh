@@ -1,5 +1,6 @@
-// Two-factor direct-DFT stages shared by the composite-length row kernels
-// (gen_fft.cu, C2C; r2c_gen_fft.cu, R2C).
+// Two-factor direct-DFT stages shared by the composite-length kernels
+// (gen_fft.cu, C2C rows; r2c_gen_fft.cu, R2C rows; ax0_gen_fft.cu, C2C
+// columns).
 //
 // A row of n = n1 * n2 points (n1 <= n2, both <= 256) x[j1*n2 + j2] is held
 // in dynamic shared memory as the n1 x n2 matrix A[j1][j2], planar float32,
@@ -21,7 +22,11 @@
 // most kGenPer) outputs into registers, the block synchronises, and then
 // the outputs are written back (the discipline of stockham.cuh).  Stage 2
 // reads the buffer and hands each output to a sink, which stores it to
-// device memory.
+// device memory, or writes its outputs back into the buffer the same way.
+// A stage's threads are threadIdx.x (blockDim.x of them); a block that
+// holds several transforms gives each threadIdx.y its own buffer.  Every
+// thread of the block must run every stage, because stages synchronise
+// the whole block.
 //
 // Work per row: n*(n1 + n2) complex multiply-adds, against the n*log2(n)
 // butterflies of a radix-2 FFT, so the kernels are bound by the CUDA cores'
@@ -110,6 +115,27 @@ __device__ __forceinline__ void gen_stage1(float* sr, float* si, int n1, int n2,
   __syncthreads();
 }
 
+// Output k = k1 + n1*k2 of stage 2, unscaled: sum_j2 B[k1][j2] w_n2^(j2*k2).
+__device__ __forceinline__ void gen_output(const float* sr, const float* si, int n1,
+                                           int n2, int P, int k,
+                                           const float2* __restrict__ tw, float& ar,
+                                           float& ai) {
+  const int k2 = k / n1;
+  const int k1 = k - k2 * n1;
+  const float* rr = sr + k1 * P;
+  const float* ri = si + k1 * P;
+  ar = ai = 0.f;
+  int e = 0;  // j2 * k2 mod n2
+  for (int j2 = 0; j2 < n2; ++j2) {
+    const float2 w = __ldg(&tw[e * n1]);
+    const float xr = rr[j2], xi = ri[j2];
+    ar = fmaf(xr, w.x, fmaf(-xi, w.y, ar));
+    ai = fmaf(xr, w.y, fmaf(xi, w.x, ai));
+    e += k2;
+    if (e >= n2) e -= n2;
+  }
+}
+
 // Stage 2: outputs k < n_out (k = k1 + n1*k2) to sink.store(k, re, im).
 // Neighbouring threads take neighbouring k, so the store is coalesced and
 // a warp's reads, one row k1 per thread, fall at the odd stride P.
@@ -119,22 +145,38 @@ __device__ __forceinline__ void gen_stage2(const float* sr, const float* si, int
                                            const float2* __restrict__ tw,
                                            const Sink& sink) {
   for (int k = threadIdx.x; k < n_out; k += blockDim.x) {
-    const int k2 = k / n1;
-    const int k1 = k - k2 * n1;
-    const float* rr = sr + k1 * P;
-    const float* ri = si + k1 * P;
-    float ar = 0.f, ai = 0.f;
-    int e = 0;  // j2 * k2 mod n2
-    for (int j2 = 0; j2 < n2; ++j2) {
-      const float2 w = __ldg(&tw[e * n1]);
-      const float xr = rr[j2], xi = ri[j2];
-      ar = fmaf(xr, w.x, fmaf(-xi, w.y, ar));
-      ai = fmaf(xr, w.y, fmaf(xi, w.x, ai));
-      e += k2;
-      if (e >= n2) e -= n2;
-    }
+    float ar, ai;
+    gen_output(sr, si, n1, n2, P, k, tw, ar, ai);
     sink.store(k, ar, ai);
   }
+}
+
+// Stage 2 in place: output k, times scale, to (sr[k], si[k]), so the buffer
+// then holds X in natural order.  As stage 1: each thread computes its (at
+// most kGenPer) outputs into registers, the block synchronises, and then
+// the outputs are written back.
+__device__ __forceinline__ void gen_stage2_in_place(float* sr, float* si, int n1,
+                                                    int n2, int P, float scale,
+                                                    const float2* __restrict__ tw) {
+  const int n = n1 * n2;
+  const int T = blockDim.x;
+  float yr[kGenPer], yi[kGenPer];
+#pragma unroll
+  for (int q = 0; q < kGenPer; ++q) {
+    const int k = threadIdx.x + q * T;
+    yr[q] = yi[q] = 0.f;
+    if (k < n) gen_output(sr, si, n1, n2, P, k, tw, yr[q], yi[q]);
+  }
+  __syncthreads();  // every read of the buffer precedes any write
+#pragma unroll
+  for (int q = 0; q < kGenPer; ++q) {
+    const int k = threadIdx.x + q * T;
+    if (k < n) {
+      sr[k] = yr[q] * scale;
+      si[k] = yi[q] * scale;
+    }
+  }
+  __syncthreads();
 }
 
 // Sink: a planar row of device memory, scale folded into the store.

@@ -98,6 +98,28 @@ struct GlobalOut {
   }
 };
 
+// A row x of device memory times a table h, zero past n_in: the first pass
+// of a transform with a multiply fused into its loads (the chirp passes,
+// the spectral filter and the filter bank).
+struct ProductIn {
+  const float* xr;
+  const float* xi;
+  const float* hr;
+  const float* hi;
+  int n_in;
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void load(int k, float& a, float& b) const {
+    if (k >= n_in) {
+      a = b = 0.f;
+      return;
+    }
+    const float x_r = xr[k], x_i = xi[k];
+    const float h_r = __ldg(&hr[k]), h_i = __ldg(&hi[k]);
+    a = x_r * h_r - x_i * h_i;
+    b = x_r * h_i + x_i * h_r;
+  }
+};
+
 // One Stockham autosort pass of radix R over a row of N points.  NS is the
 // product of the radices of the passes before it.  Butterfly j (0 <= j < N/R)
 // reads x[j + k*N/R] for k < R, multiplies input k by the twiddle

@@ -1,12 +1,14 @@
 """FFT kernels on Hopper: the port's counterpart of ``ops/pallas_fft.py``
-for eleven of its entry points.
+for fourteen of its entry points.
 
 * ``fft_batched_split`` — rows along the last axis, ``csrc/rows_fft.cu``
   (one thread block per row, the whole row in shared memory);
-* ``fft_axis0_split`` — along axis -2 of ``[..., n, m]``, ``csrc/ax0_fft.cu``
-  (a tile of neighbouring columns per block);
+* ``fft_axis0_split`` — along axis -2 of ``[..., n, m]`` (a tile of
+  neighbouring columns per block): ``csrc/ax0_fft.cu`` for pow2 n,
+  ``csrc/ax0_gen_fft.cu`` (the composite-row kernels' direct-DFT stages)
+  for composite n;
 * ``fft_axis3_split`` — along axis -3 of ``[..., n, Y, Z]``: the same
-  ``ax0_fft`` kernel on the free view ``[..., n, Y*Z]``;
+  kernels on the free view ``[..., n, Y*Z]``;
 * ``fft_rows_transposed_split`` — rows with the four-step outer twiddle at
   load and a transposed store, ``csrc/rows_t_fft.cu``; ``fft2_split`` is
   that kernel twice;
@@ -20,7 +22,12 @@ for eleven of its entry points.
   ``csrc/r2c_gen_fft.cu``;
 * ``fft_chirp_forward_split`` / ``fft_chirp_inverse_split`` — the two
   m-point passes of Bluestein and the chirp-z transform, with the chirp
-  multiplies at load and store, ``csrc/chirp_fft.cu``.
+  multiplies at load and store, ``csrc/chirp_fft.cu``;
+* ``fft_filtered_split`` / ``fft_bank_split`` — rows with a filter
+  multiply at load: every row times one filter, or one signal times every
+  row of a filter bank, ``csrc/filt_fft.cu``;
+* ``irfft_prod_rows_split`` — C2R of the product of two half spectra
+  formed at load, ``csrc/c2r_fft.cu``'s second entry point.
 
 A CUDA tensor goes through the hand-written kernel, a CPU tensor through
 its plain version (``*_reference``).  There is no fallback between the two:
@@ -53,17 +60,22 @@ __all__ = ["Unsupported", "FUSED_MIN_N", "FUSED_MAX_N", "FFT2F_MAX_ELEMS",
            "fft_rows_general_split_reference", "rfft_rows_general_split",
            "rfft_rows_general_split_reference", "fft_chirp_forward_split",
            "fft_chirp_forward_split_reference", "fft_chirp_inverse_split",
-           "fft_chirp_inverse_split_reference"]
+           "fft_chirp_inverse_split_reference", "fft_filtered_split",
+           "fft_filtered_split_reference", "fft_bank_split",
+           "fft_bank_split_reference", "irfft_prod_rows_split",
+           "irfft_prod_rows_split_reference"]
 
 FUSED_MIN_N = 128
 FUSED_MAX_N = 16384
 FFT2F_MAX_ELEMS = 1 << 16  # points of one fused 2-D plane (the JAX envelope)
 
-# Launches of each entry point's kernel (rows_fft, ax0_fft, ax0_fft on the
-# axis(-3) view, rows_t_fft, fft2f_fft, r2c_fft, c2r_fft, gen_fft,
-# r2c_gen_fft, and chirp_fft's two kernels); callers may reset them to 0.
+# Launches of each entry point's kernel (rows_fft, ax0_fft, ax0_gen_fft,
+# either of those on the axis(-3) view, rows_t_fft, fft2f_fft, r2c_fft,
+# c2r_fft and its product form, gen_fft, r2c_gen_fft, chirp_fft's two
+# kernels and filt_fft's two); callers may reset them to 0.
 launches = 0
 ax0_launches = 0
+ax0_gen_launches = 0
 ax3_launches = 0
 rows_t_launches = 0
 fft2f_launches = 0
@@ -73,6 +85,9 @@ gen_launches = 0
 r2c_gen_launches = 0
 chirp_fwd_launches = 0
 chirp_inv_launches = 0
+filt_launches = 0
+bank_launches = 0
+c2r_prod_launches = 0
 
 # Device copies of the f64-generated (n, sign) tables, [rows, 2] float32.
 _TWIDDLES: dict = {}
@@ -217,10 +232,12 @@ def fft_batched_split_reference(re, im, sign, scale=None):
 # axis -2 of [..., n, m] (pallas_fft.fft_axis0_split)
 # ---------------------------------------------------------------------- #
 def _ax0_supported(n: int) -> bool:
-    """Axis(-2) kernel envelope: pow2 n in 128..16384.  The JAX package's
-    kernel also takes composite n; that range comes with the composite row
-    kernel (ROADMAP queue A, slice 6)."""
-    return _supported(n)
+    """Axis(-2) kernel envelope, the JAX kernel's: pow2 n in 128..16384
+    (``ax0_fft``), or composite n in 512..16384 with a split of factors
+    <= 256 (``ax0_gen_fft``)."""
+    if _supported(n):
+        return True
+    return GEN_MIN_N <= n <= FUSED_MAX_N and _choose_general_split(n) is not None
 
 
 def _check_ax0(re) -> None:
@@ -228,35 +245,42 @@ def _check_ax0(re) -> None:
         raise ValueError(f"axis(-2) FFT needs [..., n, m], got shape {tuple(re.shape)}")
     n = re.shape[-2]
     if not _ax0_supported(n):
-        raise Unsupported(f"n={n} outside the axis(-2) kernel envelope "
-                          f"(pow2 {FUSED_MIN_N}..{FUSED_MAX_N})")
+        raise Unsupported(f"n={n} outside the axis(-2) kernel envelope (pow2 "
+                          f"{FUSED_MIN_N}..{FUSED_MAX_N}, or composite "
+                          f"{GEN_MIN_N}..{FUSED_MAX_N} with factors <= {GEN_MAX_FACTOR})")
 
 
 def _ax0_kernel(re, im, sign, scale):
-    """Run the ax0_fft kernel on CUDA tensors; returns the output planes
-    and whether it launched (an empty input launches nothing)."""
+    """Run the axis(-2) kernel of n on CUDA tensors (``ax0_fft`` for pow2
+    n, ``ax0_gen_fft`` for composite n); returns the output planes and
+    whether it launched (an empty input launches nothing)."""
     n, m = re.shape[-2:]
     re, im = re.contiguous(), im.contiguous()
     out = (torch.empty_like(re), torch.empty_like(im))
     if re.numel() == 0:
         return out, False
     planes = re.numel() // (n * m)
-    fn = build.function("ax0_fft", "ax0_fft_f32",
-                        [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I, _P])
-    tw = _twiddle_table(n, sign, re.device)
+    if _supported(n):
+        lib, shape_args = "ax0_fft", (n.bit_length() - 1, sign)
+    else:  # (n1, n2); the sign is the table's
+        lib, shape_args = "ax0_gen_fft", _choose_general_split(n)
+    fn = build.function(lib, f"{lib}_f32", [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I, _P])
     err = fn(re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-             tw.data_ptr(), planes, m, n.bit_length() - 1, sign, _scale_arg(scale),
-             re.device.index, _stream(re))
-    build.check("ax0_fft", err,
-                f"ax0_fft launch failed (n={n}, m={m}, planes={planes})")
+             _twiddle_table(n, sign, re.device).data_ptr(), planes, m, *shape_args,
+             _scale_arg(scale), re.device.index, _stream(re))
+    build.check(lib, err, f"{lib} launch failed (n={n}, m={m}, planes={planes})")
     return out, True
 
 
 def _ax0_launch(re, im, sign, scale):
-    """The ax0_fft kernel on axis -2 of CUDA tensors, counted."""
-    global ax0_launches
+    """The axis(-2) kernel on axis -2 of CUDA tensors, counted as
+    ``ax0_fft`` (pow2 n) or ``ax0_gen_fft`` (composite n)."""
+    global ax0_launches, ax0_gen_launches
     out, launched = _ax0_kernel(re, im, sign, scale)
-    ax0_launches += launched
+    if _supported(re.shape[-2]):
+        ax0_launches += launched
+    else:
+        ax0_gen_launches += launched
     return out
 
 
@@ -270,7 +294,8 @@ def _ax0(re, im, sign, scale):
 
 def fft_axis0_split(re, im, sign, scale=None):
     """Batched FFT along axis -2 of planar float32 ``[..., n, m]`` tensors
-    (the m columns are the batch), with no transpose in memory.
+    (the m columns are the batch), with no transpose in memory; n pow2 in
+    128..16384, or composite in 512..16384 with factors <= 256.
 
     sign: -1 forward / +1 inverse; scale folded into the store.
     Differentiable (the backward is the sign-flipped transform)."""
@@ -280,14 +305,25 @@ def fft_axis0_split(re, im, sign, scale=None):
     return _SignFlipped.apply(_ax0, re, im, sign, scale)
 
 
+def _axis_plain(re, im, sign, scale, axis):
+    """The plain transform along ``axis``, moved to the back: the
+    mixed-radix path for pow2 n, the composite kernels' two-factor math
+    (:func:`_two_factor`) for composite n; plus the scale."""
+    n = re.shape[axis]
+    r, i = re.movedim(axis, -1), im.movedim(axis, -1)
+    if _supported(n):
+        yr, yi = stockham.apply_scale(*stockham.fft_last_axis(r, i, sign), scale)
+    else:
+        yr, yi = _two_factor(r, i, sign, scale)
+    return yr.movedim(-1, axis), yi.movedim(-1, axis)
+
+
 def fft_axis0_split_reference(re, im, sign, scale=None):
-    """Plain torch version of :func:`fft_axis0_split`: the mixed-radix path
-    on axis -2 moved to the back, plus the scale (the JAX package's route
-    off the TPU).  Raises :class:`Unsupported` for the same n as the kernel."""
+    """Plain torch version of :func:`fft_axis0_split`: the plain transform
+    on axis -2 moved to the back (:func:`_axis_plain`).  Raises
+    :class:`Unsupported` for the same n as the kernel."""
     _check_ax0(re)
-    yr, yi = stockham.fft_last_axis(re.movedim(-2, -1), im.movedim(-2, -1), sign)
-    yr, yi = stockham.apply_scale(yr, yi, scale)
-    return yr.movedim(-1, -2), yi.movedim(-1, -2)
+    return _axis_plain(re, im, sign, scale, -2)
 
 
 # ---------------------------------------------------------------------- #
@@ -400,16 +436,18 @@ def _check_ax3(re) -> None:
         raise ValueError(f"axis(-3) FFT needs [..., n, Y, Z], got shape "
                          f"{tuple(re.shape)}")
     n = re.shape[-3]
-    # the axis(-2) kernel's envelope; the JAX kernel also needs Y % 8 == 0
-    # and Z % 128 == 0 (its VMEM tiling), here Y and Z are free
+    # the axis(-2) kernels' envelope, composite n too; the JAX kernel takes
+    # pow2 n only and needs Y % 8 == 0 and Z % 128 == 0 (its VMEM tiling),
+    # here Y and Z are free
     if not _ax0_supported(n):
-        raise Unsupported(f"n={n} outside the axis(-3) kernel envelope "
-                          f"(pow2 {FUSED_MIN_N}..{FUSED_MAX_N})")
+        raise Unsupported(f"n={n} outside the axis(-3) kernel envelope (that "
+                          f"of the axis(-2) kernels)")
 
 
 def _ax3_launch(re, im, sign, scale):
     """Axis -3 of contiguous ``[..., n, Y, Z]`` is axis -2 of the free view
-    ``[..., n, Y*Z]``: run the ax0_fft kernel there, counted as axis(-3)."""
+    ``[..., n, Y*Z]``: run the axis(-2) kernel of n there, counted as
+    axis(-3)."""
     global ax3_launches
     shape = re.shape
     re, im = re.contiguous(), im.contiguous()
@@ -441,13 +479,11 @@ def fft_axis3_split(re, im, sign, scale=None):
 
 
 def fft_axis3_split_reference(re, im, sign, scale=None):
-    """Plain torch version of :func:`fft_axis3_split`: the mixed-radix path
-    on axis -3 moved to the back, plus the scale.  Raises
+    """Plain torch version of :func:`fft_axis3_split`: the plain transform
+    on axis -3 moved to the back (:func:`_axis_plain`).  Raises
     :class:`Unsupported` for the same n as the kernel."""
     _check_ax3(re)
-    yr, yi = stockham.fft_last_axis(re.movedim(-3, -1), im.movedim(-3, -1), sign)
-    yr, yi = stockham.apply_scale(yr, yi, scale)
-    return yr.movedim(-1, -3), yi.movedim(-1, -3)
+    return _axis_plain(re, im, sign, scale, -3)
 
 
 # ---------------------------------------------------------------------- #
@@ -688,10 +724,21 @@ class _R2C(torch.autograd.Function):
         return yr, None, None
 
 
-class _C2R(torch.autograd.Function):
-    """C2R with scale k: x = 2k Re sum_b eps_b X[b] exp(+2 pi i b j/n),
-    eps = 1/2 at DC and Nyquist.  Its adjoint is 2k eps_b (R2C of ct)[b]
+def _c2r_adjoint(g, n, scale, padded_in):
+    """The adjoint of the C2R with scale k, x = 2k Re sum_b eps_b X[b]
+    exp(+2 pi i b j/n), eps = 1/2 at DC and Nyquist: 2k eps_b (R2C of g)[b]
     (the R2C kernel on the card); the padded form's pad columns get zero."""
+    m = n // 2
+    gr, gi = _r2c(g.contiguous(), None, padded_in)
+    eps = torch.zeros(gr.shape[-1], dtype=gr.dtype, device=gr.device)
+    eps[:m + 1] = 1.0
+    eps[0] = eps[m] = 0.5
+    k = 2.0 * _scale_arg(scale)
+    return k * eps * gr, k * eps * gi
+
+
+class _C2R(torch.autograd.Function):
+    """C2R with its adjoint (:func:`_c2r_adjoint`)."""
 
     @staticmethod
     def forward(ctx, Xr, Xi, n, scale, padded_in):
@@ -700,13 +747,7 @@ class _C2R(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        n, m = ctx.n, ctx.n // 2
-        gr, gi = _r2c(g.contiguous(), None, ctx.padded_in)
-        eps = torch.zeros(gr.shape[-1], dtype=gr.dtype, device=gr.device)
-        eps[:m + 1] = 1.0
-        eps[0] = eps[m] = 0.5
-        k = 2.0 * _scale_arg(ctx.scale)
-        return k * eps * gr, k * eps * gi, None, None, None
+        return (*_c2r_adjoint(g, ctx.n, ctx.scale, ctx.padded_in), None, None, None)
 
 
 def rfft_rows_split(xr, scale=None, *, pad_out=False):
@@ -769,6 +810,101 @@ def irfft_rows_split_reference(Xr, Xi, n, scale=None, *, padded_in=False):
     # the packed inverse with 1/m is numpy's irfft (scale 1/n): n/m = 2
     zr, zi = stockham.apply_scale(zr, zi, 2.0 * _scale_arg(scale))
     return torch.stack([zr, zi], dim=-1).reshape(*zr.shape[:-1], n)
+
+
+# ---------------------------------------------------------------------- #
+# C2R of a spectrum product (pallas_fft.irfft_prod_rows_split): the C2R
+# kernel with A * B formed at load
+# ---------------------------------------------------------------------- #
+def _check_c2r_prod(Ar, Ai, Br, Bi, n, padded_in) -> None:
+    _check_c2r(Ar, Ai, n, padded_in)
+    _check_planes(Br, Bi)
+    if Br.device != Ar.device:
+        raise ValueError("A and B must lie on one device")
+    if Br.shape[-1] != Ar.shape[-1] or not (Br.ndim == 1 or Br.shape == Ar.shape):
+        raise Unsupported(f"spectrum operands must have equal shapes (or a 1-D "
+                          f"broadcast B), got {tuple(Ar.shape)} and {tuple(Br.shape)}")
+
+
+def _c2r_prod_launch(Ar, Ai, Br, Bi, n, scale):
+    """Run the c2r_fft kernel's product form on CUDA tensors."""
+    global c2r_prod_launches
+    bins = Ar.shape[-1]
+    Ar, Ai, Br, Bi = (t.contiguous() for t in (Ar, Ai, Br, Bi))
+    out = Ar.new_empty((*Ar.shape[:-1], n))
+    if Ar.numel() == 0:
+        return out
+    rows, b_rows = Ar.numel() // bins, Br.numel() // bins
+    m = n // 2
+    fn = build.function("c2r_fft", "c2r_prod_fft_f32",
+                        [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I, _P])
+    err = fn(Ar.data_ptr(), Ai.data_ptr(), Br.data_ptr(), Bi.data_ptr(), out.data_ptr(),
+             _twiddle_table(m, INVERSE, Ar.device).data_ptr(),
+             _halfcomplex_table(n, INVERSE, Ar.device).data_ptr(), rows, b_rows,
+             m.bit_length() - 1, bins, _scale_arg(scale), Ar.device.index, _stream(Ar))
+    build.check("c2r_fft", err, f"c2r_prod launch failed (n={n}, rows={rows}, "
+                f"b_rows={b_rows})")
+    c2r_prod_launches += 1
+    return out
+
+
+def _c2r_prod(Ar, Ai, Br, Bi, n, scale, padded_in):
+    if Ar.device.type == "cuda":
+        return _c2r_prod_launch(Ar, Ai, Br, Bi, n, scale)
+    if Ar.device.type != "cpu":
+        raise ValueError(f"no C2R FFT for device {Ar.device}")
+    return irfft_prod_rows_split_reference(Ar, Ai, Br, Bi, n, scale, padded_in=padded_in)
+
+
+class _C2RProd(torch.autograd.Function):
+    """x = C2R(A * B).  Its adjoint, of the composed form as the JAX
+    package's custom_vjp takes it: g_P = the C2R adjoint of the cotangent
+    (:func:`_c2r_adjoint`, the R2C kernel on the card), then
+    gA = g_P * conj(B) and gB = g_P * conj(A), summed over the rows for a
+    broadcast B; pad columns get zero."""
+
+    @staticmethod
+    def forward(ctx, Ar, Ai, Br, Bi, n, scale, padded_in):
+        ctx.save_for_backward(Ar, Ai, Br, Bi)
+        ctx.n, ctx.scale, ctx.padded_in = n, scale, padded_in
+        return _c2r_prod(Ar, Ai, Br, Bi, n, scale, padded_in)
+
+    @staticmethod
+    def backward(ctx, g):
+        Ar, Ai, Br, Bi = ctx.saved_tensors
+        pr, pi = _c2r_adjoint(g, ctx.n, ctx.scale, ctx.padded_in)
+        gar = gai = gbr = gbi = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            gar, gai = pr * Br + pi * Bi, pi * Br - pr * Bi
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+            gbr, gbi = pr * Ar + pi * Ai, pi * Ar - pr * Ai
+            if Br.ndim == 1:
+                gbr = gbr.reshape(-1, Br.shape[0]).sum(0)
+                gbi = gbi.reshape(-1, Br.shape[0]).sum(0)
+        return gar, gai, gbr, gbi, None, None, None
+
+
+def irfft_prod_rows_split(Ar, Ai, Br, Bi, n, scale=None, *, padded_in=False):
+    """Batched C2R of the spectrum product A * B over the last axis,
+    real(IRFFT(A * B)) times ``scale``, with the product formed at load
+    (never written to device memory): the fftconvolve / oaconvolve
+    epilogue.  A is planar ``[..., n//2 + 1]`` (or ``[..., pad_bins(n)]``
+    with ``padded_in=True``); B has A's shape, or is one 1-D row broadcast
+    over every row of A.  The imaginary parts of the product's DC and
+    Nyquist bins are ignored (numpy's irfft of A * B).  Pow2 n in
+    128..16384.  Differentiable in A and B (backward: the R2C kernel and
+    two products)."""
+    _check_c2r_prod(Ar, Ai, Br, Bi, n, padded_in)
+    return _C2RProd.apply(Ar, Ai, Br, Bi, n, scale, bool(padded_in))
+
+
+def irfft_prod_rows_split_reference(Ar, Ai, Br, Bi, n, scale=None, *, padded_in=False):
+    """Plain torch version of :func:`irfft_prod_rows_split`: the product,
+    then :func:`irfft_rows_split_reference`.  Raises :class:`Unsupported`
+    for the same shapes as the kernel."""
+    _check_c2r_prod(Ar, Ai, Br, Bi, n, padded_in)
+    return irfft_rows_split_reference(*_cmul(Ar, Ai, Br, Bi), n, scale,
+                                      padded_in=padded_in)
 
 
 # ---------------------------------------------------------------------- #
@@ -974,11 +1110,13 @@ def _check_chirp(m: int, n: int, what: str) -> None:
                           f"(pow2 m in {FUSED_MIN_N}..{FUSED_MAX_N}, {what} <= m)")
 
 
-def _table(t, n: int, device, what: str) -> torch.Tensor:
-    """A constant table (numpy array or tensor) of n floats on ``device``."""
+def _table(t, shape, device, what: str) -> torch.Tensor:
+    """A constant table (numpy array or tensor) of ``shape`` (an int for
+    one row) float32 values on ``device``."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
     t = torch.as_tensor(t, dtype=torch.float32, device=device).contiguous()
-    if t.shape != (n,):
-        raise ValueError(f"{what} must have shape ({n},), got {tuple(t.shape)}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{what} must have shape {shape}, got {tuple(t.shape)}")
     return t
 
 
@@ -1147,3 +1285,141 @@ def fft_chirp_inverse_split_reference(re, im, hr, hi, gr, gi, n_out, sign,
     yr, yi = stockham.fft_last_axis(*_cmul(re, im, hr, hi), sign)
     yr, yi = stockham.apply_scale(yr[..., :n_out], yi[..., :n_out], scale)
     return _cmul(yr, yi, gr, gi)
+
+
+# ---------------------------------------------------------------------- #
+# rows with a filter multiply at load: the spectral filter
+# (pallas_fft.fft_filtered_split) and the filter bank
+# (pallas_fft.fft_bank_split)
+# ---------------------------------------------------------------------- #
+def _filt_kernel(lib_fn, re, im, hr, hi, shape, sign, scale):
+    """Run one of the filt_fft kernels on CUDA tensors into output planes of
+    ``shape`` (rows of n = h's last axis); returns them and whether it
+    launched (an empty output launches nothing)."""
+    n = hr.shape[-1]
+    re, im = re.contiguous(), im.contiguous()
+    out = (re.new_empty(shape), re.new_empty(shape))
+    rows = out[0].numel() // n
+    if rows == 0:
+        return out, False
+    fn = build.function("filt_fft", lib_fn,
+                        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P])
+    err = fn(re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+             out[0].data_ptr(), out[1].data_ptr(),
+             _twiddle_table(n, sign, re.device).data_ptr(), rows, n.bit_length() - 1,
+             sign, _scale_arg(scale), re.device.index, _stream(re))
+    build.check("filt_fft", err, f"{lib_fn} launch failed (n={n}, rows={rows})")
+    return out, True
+
+
+def _filt(re, im, hr, hi, sign, scale):
+    global filt_launches
+    if re.device.type == "cuda":
+        out, launched = _filt_kernel("filt_fft_f32", re, im, hr, hi, re.shape, sign, scale)
+        filt_launches += launched
+        return out
+    if re.device.type != "cpu":
+        raise ValueError(f"no filtered FFT for device {re.device}")
+    return fft_filtered_split_reference(re, im, hr, hi, sign, scale)
+
+
+class _Filtered(torch.autograd.Function):
+    """y = scale * FFT_sign(h * x), linear in x with h constant.  Adjoint:
+    conj(h) * (scale * FFT_{-sign}(ct)), the row kernel with the sign
+    flipped and a multiply (the JAX package's transpose rule)."""
+
+    @staticmethod
+    def forward(ctx, re, im, hr, hi, sign, scale):
+        ctx.save_for_backward(hr, hi)
+        ctx.sign, ctx.scale = sign, scale
+        return _filt(re, im, hr, hi, sign, scale)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        hr, hi = ctx.saved_tensors
+        ar, ai = _transform(gr.contiguous(), gi.contiguous(), -ctx.sign, ctx.scale)
+        return ar * hr + ai * hi, ai * hr - ar * hi, None, None, None, None
+
+
+def fft_filtered_split(re, im, hr, hi, sign, scale=None):
+    """Batched FFT over the last axis with the filter multiply fused into
+    the loads: ``scale * FFT_sign(h * x)``, planar float32 ``[..., n]``
+    with h ``[n]`` (a numpy array or tensor) broadcast over the rows; pow2
+    n in 128..16384.  Differentiable in (re, im); h is a constant."""
+    n = re.shape[-1]
+    _check_envelope(n)
+    _check_sign(sign)
+    _check_planes(re, im)
+    hr, hi = (_table(t, n, re.device, w) for t, w in ((hr, "hr"), (hi, "hi")))
+    return _Filtered.apply(re, im, hr, hi, sign, scale)
+
+
+def fft_filtered_split_reference(re, im, hr, hi, sign, scale=None):
+    """Plain torch version of :func:`fft_filtered_split`: the multiply,
+    then :func:`fft_batched_split_reference`."""
+    n = re.shape[-1]
+    _check_envelope(n)
+    hr, hi = (_table(t, n, re.device, w) for t, w in ((hr, "hr"), (hi, "hi")))
+    return fft_batched_split_reference(*_cmul(re, im, hr, hi), sign, scale)
+
+
+def _check_bank(re, hr) -> None:
+    n = re.shape[-1]
+    _check_envelope(n)
+    if re.ndim != 1 or np.ndim(hr) != 2 or np.shape(hr)[-1] != n:
+        raise Unsupported(f"the bank kernel takes x [n] and h [S, n], got "
+                          f"{tuple(re.shape)} and {tuple(np.shape(hr))}")
+
+
+def _bank(re, im, hr, hi, sign, scale):
+    global bank_launches
+    if re.device.type == "cuda":
+        out, launched = _filt_kernel("bank_fft_f32", re, im, hr, hi, hr.shape, sign, scale)
+        bank_launches += launched
+        return out
+    if re.device.type != "cpu":
+        raise ValueError(f"no filter-bank FFT for device {re.device}")
+    return fft_bank_split_reference(re, im, hr, hi, sign, scale)
+
+
+class _Bank(torch.autograd.Function):
+    """y[s] = scale * FFT_sign(x * h[s]), linear in x with the bank h
+    constant.  Adjoint: sum_s conj(h[s]) * (scale * FFT_{-sign}(ct[s])),
+    the row kernel with the sign flipped, a multiply and a sum over the
+    bank (the JAX package's transpose rule)."""
+
+    @staticmethod
+    def forward(ctx, re, im, hr, hi, sign, scale):
+        ctx.save_for_backward(hr, hi)
+        ctx.sign, ctx.scale = sign, scale
+        return _bank(re, im, hr, hi, sign, scale)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        hr, hi = ctx.saved_tensors
+        ar, ai = _transform(gr.contiguous(), gi.contiguous(), -ctx.sign, ctx.scale)
+        return ((ar * hr + ai * hi).sum(0), (ai * hr - ar * hi).sum(0),
+                None, None, None, None)
+
+
+def fft_bank_split(re, im, hr, hi, sign, scale=None):
+    """Filter-bank transform ``y[s] = scale * FFT_sign(x * h[s])``: one
+    planar float32 signal ``[n]`` against a bank h ``[S, n]`` (numpy arrays
+    or tensors), out ``[S, n]``, the multiply fused into the loads, so the
+    signal is never materialised at ``[S, n]``; pow2 n in 128..16384.
+    Differentiable in (re, im); the bank is a constant."""
+    _check_bank(re, hr)
+    _check_sign(sign)
+    _check_planes(re, im)
+    shape = np.shape(hr)
+    hr, hi = (_table(t, shape, re.device, w) for t, w in ((hr, "hr"), (hi, "hi")))
+    return _Bank.apply(re, im, hr, hi, sign, scale)
+
+
+def fft_bank_split_reference(re, im, hr, hi, sign, scale=None):
+    """Plain torch version of :func:`fft_bank_split`: the broadcast
+    multiply, then :func:`fft_batched_split_reference` over the bank."""
+    _check_bank(re, hr)
+    shape = np.shape(hr)
+    hr, hi = (_table(t, shape, re.device, w) for t, w in ((hr, "hr"), (hi, "hi")))
+    return fft_batched_split_reference(*_cmul(re, im, hr, hi), sign, scale)

@@ -2,7 +2,9 @@
 
 N-D is the separable application of the 1-D executor along each axis; the
 per-axis route (row, axis(-2) or axis(-3) kernel, or the mixed-radix path)
-is the plan's.  On a CUDA tensor a transform over the two trailing axes of
+is the plan's.  Composite axes take the composite kernels with no
+transpose: ``fft2`` of ``[16, 1080, 1920]`` frames is the composite-row
+kernel over 1920 and the composite axis(-2) kernel over 1080.  On a CUDA tensor a transform over the two trailing axes of
 at least 8 planes in the fused-plane envelope, or of planes with further
 axes to transform, first runs the fused-plane kernel
 (``cuda_fft.fft2_fused_split``, both axes in one pass over device memory);

@@ -7,8 +7,10 @@ through the R2C / C2R kernels (``cuda_fft.rfft_rows_split`` and
 ``cuda_fft.irfft_rows_split``); an R2C of composite non-pow2 n in the
 composite-row envelope, odd or even, runs the composite R2C kernel
 (``cuda_fft.rfft_rows_general_split``); other even n take the packed
-path through the plan, other odd n a zero-imaginary C2C.  A CPU tensor takes
-the packed path, as the JAX package does off the TPU.
+path through the plan, other odd n a zero-imaginary C2C.  The C2R of a
+spectrum product (``irfft_prod_last_split``, the convolutions' epilogue)
+runs the product C2R kernel (``cuda_fft.irfft_prod_rows_split``) there.
+A CPU tensor takes the packed path, as the JAX package does off the TPU.
 
 All recombination twiddles are f64-generated (core/twiddle.py).  Chained
 stages (the C2C axes of ``rfftn`` / ``irfftn``, the Hermitian family)
@@ -28,7 +30,7 @@ from .nd import _norm_axes, _run_nd_split, fftn_split
 from .transforms import _pad_or_trim, _resize_axis
 
 __all__ = ["rfft", "irfft", "rfft2", "irfft2", "rfftn", "irfftn", "hfft",
-           "ihfft", "hfft2", "ihfft2", "hfftn", "ihfftn"]
+           "ihfft", "hfft2", "ihfft2", "hfftn", "ihfftn", "irfft_prod_last_split"]
 
 
 def _r2c_general(xr) -> bool:
@@ -99,6 +101,30 @@ def irfft_last_split(Xr, Xi, n, total_scale, *, padded_in=False):
     # the packed path applies 1/n itself; pass the remainder on top
     net = T * n
     return _irfft_even_split(Xr, Xi, n, None if abs(net - 1.0) < 1e-12 else net)
+
+
+def _prod_on_kernel(Ar, Br, n) -> bool:
+    """Whether real(IRFFT(A * B)) runs the product C2R kernel: a CUDA
+    tensor, pow2 n in its envelope, and B of A's shape or one 1-D row."""
+    return (Ar.device.type == "cuda" and cuda_fft._supported(n)
+            and (Br.ndim == 1 or Br.shape == Ar.shape))
+
+
+def irfft_prod_last_split(Ar, Ai, Br, Bi, n, total_scale, *, padded_in=False):
+    """real(IRFFT(A * B)) over the last axis with explicit TOTAL output
+    scale: the spectrum-domain convolution epilogue.
+
+    In the product C2R kernel's envelope (:func:`_prod_on_kernel`) the
+    product is formed at load; any other shape (a batched-lead B such as
+    ``[..., 1, bins]``, other n, a CPU tensor) takes the composed product
+    and :func:`irfft_last_split`, chosen before any launch.  Both are
+    differentiable in A and B.  padded_in=True consumes the padded serving
+    form [..., pad_bins(n)] of both operands."""
+    if _prod_on_kernel(Ar, Br, n):
+        return cuda_fft.irfft_prod_rows_split(Ar, Ai, Br, Bi, n, total_scale,
+                                              padded_in=padded_in)
+    return irfft_last_split(Ar * Br - Ai * Bi, Ar * Bi + Ai * Br, n, total_scale,
+                            padded_in=padded_in)
 
 
 def _irfft_even_split(Xr, Xi, n, scale):

@@ -28,10 +28,11 @@ mixed-radix path on the same device, which sends a length with a prime
 factor above 128 from 512 on to Bluestein (``bluestein.fft_bluestein_split``:
 the two chirp passes while its m is at most 16384, the ifft scale folded
 into the second).  Axis -2 of a CUDA tensor,
-for pow2 n in 128..16384, goes through the axis(-2) kernel with no
-transpose, and any axis before it through the axis(-3) kernel on
-``[..., n, mid, Z]``, again with no transpose; other lengths move to the
-back around the row route.  A CPU tensor always takes the mixed-radix
+for pow2 n in 128..16384 or composite n in the composite-row envelope,
+goes through the axis(-2) kernel of n with no transpose, and any axis
+before it through the axis(-3) entry point on ``[..., n, mid, Z]`` (the
+same kernels on a free view), again with no transpose; other lengths move
+to the back around the row route.  A CPU tensor always takes the mixed-radix
 path, as the JAX package does off the TPU.
 """
 
@@ -156,11 +157,13 @@ class Plan:
 
     def _execute_split_axis(self, re, im, sign: int, scale, axis: int,
                             out=None):
-        """Transform along ``axis``.  On a CUDA tensor with pow2 n in
-        128..16384, axis -2 runs the axis(-2) kernel and any axis before it
-        the axis(-3) kernel on the free view ``[..., n, mid, Z]`` (the axes
-        between it and the last merged into mid), both with no transpose;
-        otherwise the axis moves to the back around the row path."""
+        """Transform along ``axis``.  On a CUDA tensor with n in the
+        axis(-2) kernels' envelope (pow2 128..16384, or composite
+        512..16384 with factors <= 256), axis -2 runs the axis(-2) kernel
+        and any axis before it the axis(-3) entry point on the free view
+        ``[..., n, mid, Z]`` (the axes between it and the last merged into
+        mid), both with no transpose; otherwise the axis moves to the back
+        around the row path."""
         ax = axis % re.ndim
         if ax == re.ndim - 1:
             return self._execute_split(re, im, sign, scale, out)

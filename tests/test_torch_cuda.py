@@ -2,9 +2,10 @@
 
 rows_fft (B1), ax0_fft (B2, and B3 on the axis(-3) view), rows_t_fft (B4),
 fft2f_fft (B5), r2c_fft (B6), c2r_fft (B7), big_fft (B15), gen_fft (B13),
-r2c_gen_fft (B14) and chirp_fft (B11, B12): values, launch counts and
-gradients, and the routes of the plan, the N-D, the real and the
-non-pow2 transforms through them.
+r2c_gen_fft (B14), chirp_fft (B11, B12), filt_fft (B9, B10), the product
+form of c2r_fft (B8) and ax0_gen_fft (B2's composite range): values,
+launch counts and gradients, and the routes of the plan, the N-D, the
+real and the non-pow2 transforms and the fused epilogues through them.
 
 Every test here needs a CUDA device and skips without one.  The card's
 machine has no jax, so run them without the suite's conftest:
@@ -261,7 +262,9 @@ def _counts():
             "c2r_fft": cuda_fft.c2r_launches, "big_fft": bigfft.launches,
             "gen_fft": cuda_fft.gen_launches, "r2c_gen_fft": cuda_fft.r2c_gen_launches,
             "chirp_fwd": cuda_fft.chirp_fwd_launches,
-            "chirp_inv": cuda_fft.chirp_inv_launches}
+            "chirp_inv": cuda_fft.chirp_inv_launches, "filt": cuda_fft.filt_launches,
+            "bank": cuda_fft.bank_launches, "c2r_prod": cuda_fft.c2r_prod_launches,
+            "ax0_gen": cuda_fft.ax0_gen_launches}
 
 
 def _through(fn, **want):
@@ -597,3 +600,159 @@ def test_numpy_input_runs_on_the_card(dev):
     assert rel_l2(y.cpu(), torch.fft.fft(torch.from_numpy(x))) < TOL
     assert ft.rfft(x.real).device.type == "cuda"
     assert ft.plan(4096).warmup((2,)) is not None
+
+
+# ---------------------------------------------------------------------- #
+# the fused epilogues: B9 and B10 (filt_fft), B8 (c2r_fft's product form),
+# B2's composite range (ax0_gen_fft) and their routes
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("n", GEN_NS)
+@pytest.mark.parametrize("lead,m", [((), 7), ((2,), 300)])
+def test_ax0_gen_kernel_matches_plain_and_torch_fft(dev, n, lead, m):
+    x = crand(dev, *lead, n, m)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    for sign, scale in ((-1, None), (1, 1.0 / n)):
+        k = torch.complex(*_through(lambda: cuda_fft.fft_axis0_split(re, im, sign, scale),
+                                    ax0_gen=1))
+        p = torch.complex(*cuda_fft.fft_axis0_split_reference(re, im, sign, scale))
+        o = torch.fft.fft(x, dim=-2) if sign < 0 else torch.fft.ifft(x, dim=-2)
+        assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, (sign, scale)
+
+
+def test_axis3_composite_kernel_matches_plain_and_torch_fft(dev):
+    x = crand(dev, 2, 1000, 7, 13)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    k = torch.complex(*_through(lambda: cuda_fft.fft_axis3_split(re, im, -1, None), ax3=1))
+    p = torch.complex(*cuda_fft.fft_axis3_split_reference(re, im, -1, None))
+    assert rel_l2(k, p) < TOL and rel_l2(k, torch.fft.fft(x, dim=-3)) < TOL
+
+
+@pytest.mark.parametrize("n", [1 << e for e in range(7, 15)])
+@pytest.mark.parametrize("rows", [(1,), (2, 37)])
+def test_filt_kernel_matches_plain_and_torch_fft(dev, n, rows):
+    x, h = crand(dev, *rows, n, seed=1), crand(dev, n, seed=2)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    for sign, scale in ((-1, None), (1, 1.0 / n)):
+        k = torch.complex(*_through(lambda: cuda_fft.fft_filtered_split(
+            re, im, h.real, h.imag, sign, scale), filt=1))
+        p = torch.complex(*cuda_fft.fft_filtered_split_reference(re, im, h.real, h.imag,
+                                                                 sign, scale))
+        o = torch.fft.fft(x * h) if sign < 0 else torch.fft.ifft(x * h, norm="forward")
+        o = o * (1.0 if scale is None else scale)
+        assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, (sign, scale)
+
+
+@pytest.mark.parametrize("n", [1 << e for e in range(7, 15)])
+@pytest.mark.parametrize("S", [1, 7, 128])
+def test_bank_kernel_matches_plain_and_torch_fft(dev, n, S):
+    x, h = crand(dev, n, seed=1), crand(dev, S, n, seed=2)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    for sign, scale in ((-1, None), (1, 1.0 / n)):
+        k = torch.complex(*_through(lambda: cuda_fft.fft_bank_split(
+            re, im, h.real, h.imag, sign, scale), bank=1))
+        assert k.shape == (S, n)
+        p = torch.complex(*cuda_fft.fft_bank_split_reference(re, im, h.real, h.imag, sign,
+                                                             scale))
+        o = torch.fft.fft(x * h) if sign < 0 else torch.fft.ifft(x * h, norm="forward")
+        o = o * (1.0 if scale is None else scale)
+        assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, (sign, scale)
+
+
+@pytest.mark.parametrize("n", [1 << e for e in range(7, 15)])
+@pytest.mark.parametrize("pad", [False, True])
+@pytest.mark.parametrize("bcast", [False, True])
+def test_c2r_prod_kernel_matches_plain_and_torch_fft(dev, n, pad, bcast):
+    mp = n // 2 + 1
+    bins = cuda_fft.pad_bins(n) if pad else mp
+    A, B = crand(dev, 37, bins, seed=1), crand(dev, 1 if bcast else 37, bins, seed=2)
+    A[:, mp:], B[:, mp:] = 1e6, -1e6  # garbage pad columns: never read
+    Ar, Ai = A.real.contiguous(), A.imag.contiguous()
+    Br, Bi = B.real.contiguous(), B.imag.contiguous()
+    if bcast:
+        Br, Bi = Br[0], Bi[0]
+    P = (A * B)[:, :mp]
+    P.imag[:, 0] = P.imag[:, -1] = 0.0  # the product's DC and Nyquist: real
+    for scale in (None, 1.0 / n):
+        k = _through(lambda: cuda_fft.irfft_prod_rows_split(Ar, Ai, Br, Bi, n, scale,
+                                                            padded_in=pad), c2r_prod=1)
+        p = cuda_fft.irfft_prod_rows_split_reference(Ar, Ai, Br, Bi, n, scale,
+                                                     padded_in=pad)
+        o = torch.fft.irfft(P, n=n, norm="forward") * (1.0 if scale is None else scale)
+        assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, scale
+
+
+@pytest.mark.parametrize("entry", ["filt", "bank", "c2r_prod", "c2r_prod_bcast", "ax0_gen"])
+def test_grad_fused_kernels_match_plain(dev, entry):
+    if entry == "ax0_gen":  # forward and backward: the composite axis(-2) kernel
+        run = _grad(2, 1000, 33)
+        gk = _through(lambda: run(lambda r, i: cuda_fft.fft_axis0_split(r, i, 1, 1e-3)),
+                      ax0_gen=2)
+        gp = run(lambda r, i: cuda_fft.fft_axis0_split_reference(r, i, 1, 1e-3))
+    elif entry in ("filt", "bank"):  # backward: the row kernel, sign flipped
+        n = 2048
+        h = crand(dev, *((n,) if entry == "filt" else (16, n)), seed=3)
+        run = _grad(*((8, n) if entry == "filt" else (n,)))
+        fn = cuda_fft.fft_filtered_split if entry == "filt" else cuda_fft.fft_bank_split
+        ref = (cuda_fft.fft_filtered_split_reference if entry == "filt"
+               else cuda_fft.fft_bank_split_reference)
+        gk = _through(lambda: run(lambda r, i: fn(r, i, h.real, h.imag, 1, 1.0 / n)),
+                      **{entry: 1, "rows_fft": 1})
+        gp = run(lambda r, i: ref(r, i, h.real, h.imag, 1, 1.0 / n))
+    else:  # backward: the R2C kernel, in A and B
+        n, rows = 1024, 8
+        bcast = entry.endswith("bcast")
+        bins = cuda_fft.pad_bins(n)
+        A, B = crand(dev, rows, bins, seed=4), crand(dev, 1 if bcast else rows, bins, seed=5)
+        A[:, n // 2 + 1:] = B[:, n // 2 + 1:] = 0
+        w = torch.linspace(0.5, 1.5, rows * n, device=dev).reshape(rows, n)
+
+        def grad(f):
+            ins = [t.contiguous().requires_grad_() for t in
+                   (A.real, A.imag, *((B.real[0], B.imag[0]) if bcast else (B.real, B.imag)))]
+            y = f(*ins)
+            (w * y * y).sum().backward()
+            return torch.cat([t.grad.reshape(-1) for t in ins])
+
+        gk = _through(lambda: grad(lambda *v: cuda_fft.irfft_prod_rows_split(
+            *v, n, 1.0 / n, padded_in=True)), c2r_prod=1, r2c_fft=1)
+        gp = grad(lambda *v: cuda_fft.irfft_prod_rows_split_reference(
+            *v, n, 1.0 / n, padded_in=True))
+    assert rel_l2(gk, gp) < TOL
+
+
+def test_fused_epilogue_routes(dev):
+    x, H = crand(dev, 64, 4096, seed=1), crand(dev, 4096, seed=2)
+    sf = ft.SpectralFilter(H)
+    y = _through(lambda: sf(x), rows_fft=1, filt=1)
+    assert y.device.type == "cuda" and rel_l2(y, torch.fft.ifft(torch.fft.fft(x) * H)) < TOL
+    xc = crand(dev, 16, 1000, seed=3)  # composite n: the plan, B13 both ways
+    y = _through(lambda: ft.SpectralFilter(H[:1000])(xc), gen_fft=2)
+    assert rel_l2(y, torch.fft.ifft(torch.fft.fft(xc) * H[:1000])) < TOL
+    r = rrand(dev, 64, 4096)
+    z = _through(lambda: ft.hilbert(r), rows_fft=1, filt=1)
+    assert rel_l2(z.cpu(), ft.hilbert(r.cpu())) < TOL
+    a, b = rrand(dev, 16, 4096, seed=4), rrand(dev, 16, 4096, seed=5)
+    c = _through(lambda: ft.fftconvolve(a, b, axes=-1), r2c_fft=2, c2r_prod=1)
+    assert rel_l2(c, torch.fft.irfft(torch.fft.rfft(a, n=8192) * torch.fft.rfft(b, n=8192),
+                                     n=8192)[:, :8191]) < TOL
+    s, t = rrand(dev, 1 << 16, seed=6), rrand(dev, 129, seed=7)
+    o = _through(lambda: ft.oaconvolve(s, t), r2c_fft=2, c2r_prod=1)
+    assert rel_l2(o, torch.fft.irfft(torch.fft.rfft(s, n=1 << 17) * torch.fft.rfft(t, n=1 << 17),
+                                     n=1 << 17)[:(1 << 16) + 128]) < TOL
+    cw = ft.CWT(2000, np.arange(1, 33), device=dev)
+    sig = rrand(dev, 2000, seed=8)
+    assert cw.nfft == 4096
+    w = _through(lambda: cw(sig), rows_fft=1, bank=1)
+    assert rel_l2(w.cpu(), ft.CWT(2000, np.arange(1, 33), device="cpu")(sig.cpu())) < TOL
+
+
+def test_composite_axis_routes(dev):
+    x = crand(dev, 2, 1080, 1920, seed=1)  # fft2 of frames: rows B13, columns B2-composite
+    X = _through(lambda: ft.fft2(x), gen_fft=1, ax0_gen=1)
+    assert rel_l2(X, torch.fft.fft2(x)) < TOL
+    assert rel_l2(_through(lambda: ft.ifft2(X), gen_fft=1, ax0_gen=1), x) < TOL
+    r = rrand(dev, 1080, 1920)  # rfft2: B14 then B2-composite
+    R = _through(lambda: ft.rfft2(r), r2c_gen_fft=1, ax0_gen=1)
+    assert rel_l2(R, torch.fft.rfft2(r)) < TOL
+    y = crand(dev, 1000, 3, 64, seed=2)  # axis -3: B2-composite on the free view
+    assert rel_l2(_through(lambda: ft.fft(y, axis=0), ax3=1), torch.fft.fft(y, dim=0)) < TOL

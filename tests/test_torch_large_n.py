@@ -95,11 +95,19 @@ def test_reference_is_the_cpu_route(entry, rng):
 
 @pytest.mark.parametrize("n", [64, 1000, 32768])
 def test_envelopes_raise(n):
+    # the axis(-2) entry raises exactly outside the JAX kernel's envelope
+    # (composite 1000 is inside both); the transposed-rows entry takes pow2
+    # n in 128..16384 only
     z = torch.zeros(n, 4)
-    with pytest.raises(cuda_fft.Unsupported):
-        cuda_fft.fft_axis0_split(z, z, -1)
-    with pytest.raises(cuda_fft.Unsupported):
-        cuda_fft.fft_axis0_split_reference(z, z, -1)
+    if j_pf._ax0_supported(n):
+        assert n == 1000
+        for fn in (cuda_fft.fft_axis0_split, cuda_fft.fft_axis0_split_reference):
+            assert fn(z, z, -1)[0].shape == (n, 4)
+    else:
+        with pytest.raises(cuda_fft.Unsupported):
+            cuda_fft.fft_axis0_split(z, z, -1)
+        with pytest.raises(cuda_fft.Unsupported):
+            cuda_fft.fft_axis0_split_reference(z, z, -1)
     zt = torch.zeros(4, n)
     with pytest.raises(cuda_fft.Unsupported):
         cuda_fft.fft_rows_transposed_split(zt, zt, -1)
@@ -108,10 +116,13 @@ def test_envelopes_raise(n):
 
 
 def test_ax0_envelope_is_the_pow2_part_of_jax():
-    # pow2 n match the JAX kernel; its composite n (slice 6) are not ported
+    # pow2 n match the JAX kernel, and so do its composite n (the composite
+    # axis(-2) kernel, csrc/ax0_gen_fft.cu): the envelopes are equal
     for e in range(20):
         assert cuda_fft._ax0_supported(1 << e) == j_pf._ax0_supported(1 << e)
-    assert j_pf._ax0_supported(1000) and not cuda_fft._ax0_supported(1000)
+    assert j_pf._ax0_supported(1000) and cuda_fft._ax0_supported(1000)
+    for n in range(2, 16500):
+        assert cuda_fft._ax0_supported(n) == j_pf._ax0_supported(n), n
 
 
 def test_bad_arguments_raise():

@@ -291,7 +291,7 @@ def test_grad_through_fftn_matches_jax(rng, assert_close):
 # ---------------------------------------------------------------------- #
 # routes on the card, from the predicates (no card needed)
 # ---------------------------------------------------------------------- #
-def test_plane_routes_on_the_card():
+def test_plane_routes_on_the_card(assert_close):
     cpu = torch.device("cpu")
     assert nd._fused_plane((256, 256, 256), (0, 1, 2), CUDA)  # 3-D fftn
     assert nd._fused_plane((8, 256, 256), (1, 2), CUDA)
@@ -312,6 +312,13 @@ def test_plane_routes_on_the_card():
     for n in (128, 256, 512, 4096, 16384):
         assert cuda_fft._ax0_supported(n)
         assert ft.plan(n)._resolve_executor(CUDA) == "pallas"
-    assert not cuda_fft._ax0_supported(1000)
-    with pytest.raises(cuda_fft.Unsupported):
-        cuda_fft.fft_axis3_split(torch.zeros(1000, 2, 2), torch.zeros(1000, 2, 2), -1)
+    # composite n too, as in the JAX package: the composite axis(-2) kernel,
+    # with no transpose (the last axis: the composite-row kernel)
+    for n in (1000, 1080, 4095):
+        assert cuda_fft._ax0_supported(n) and j_pf._ax0_supported(n)
+        assert ft.plan(n)._resolve_executor(CUDA) == "general"
+    x = np.random.default_rng(0).standard_normal((1000, 2, 2)).astype(np.float32)
+    got = cuda_fft.fft_axis3_split(torch.from_numpy(x), torch.zeros(1000, 2, 2), -1)
+    assert_close(got[0].numpy() + 1j * got[1].numpy(), np.fft.fft(x, axis=0))
+    with pytest.raises(cuda_fft.Unsupported):  # a prime: outside both envelopes
+        cuda_fft.fft_axis3_split(torch.zeros(1031, 2, 2), torch.zeros(1031, 2, 2), -1)
