@@ -2,14 +2,15 @@
 """Drive the torch port's paths once on one CUDA card: the batched 1-D
 main path (n = 128..16384), the large-N path (four-step and whole-row),
 BASELINE config 4 (2-D 4096 x 4096, R2C/C2R, 3-D 256^3), the non-pow2
-path (composite, Bluestein and chirp-z transforms), and the fused
-epilogues (spectral filter, analytic signal, FFT and overlap-add
-convolution, the CWT plan, composite 2-D frames).
+path (composite, Bluestein and chirp-z transforms), the fused epilogues
+(spectral filter, analytic signal, FFT and overlap-add convolution, the
+CWT plan, composite 2-D frames), and the spectral estimators (welch,
+periodogram, csd, coherence, spectrogram, multitaper).
 
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
-the CUDA toolkit.  It builds the twelve kernel libraries from
+the CUDA toolkit and scipy.  It builds the thirteen kernel libraries from
 ``fft_wgpu_tpu_torch/csrc`` (one nvcc each, all at once) and runs five
 phases, one line each or more; any failure raises and the script exits
 non-zero without a result line:
@@ -42,7 +43,14 @@ non-zero without a result line:
              padded, B of A's shape and broadcast, at 2048 x 8192 and 547 x
              2048; ax0_gen at every composite n at m = 7 and 1000, and at
              16 x 1080 x 1920, and the axis(-3) pass at [2, 1000, 7, 130];
-3. main    — four paths, the launch counts set to 0 just before each and
+             the segment-spectrum kernels welch, psd, csd, coh and c2c
+             against their plain versions and float64 torch.fft of the
+             frames at
+             every pow2 nfft, nperseg = nfft and odd nperseg < nfft, hops
+             nperseg, nperseg/2 and nperseg - nperseg/8, one signal with
+             no detrend and three with "constant", a ragged last tile, and
+             at path 6's shapes, each run twice for the same bits;
+3. main    — five paths, the launch counts set to 0 just before each and
              read just after: plan / fft / ifft / Forward at the 1-D sizes
              users call (row kernel; axis(-2) then transposed rows; whole
              row), then config 4: fft2 / ifft2 and the rfft2 / irfft2 round
@@ -55,29 +63,39 @@ non-zero without a result line:
              SpectralFilter and hilbert at 4096 x 4096, fftconvolve of two
              2048 x 4096 signals, oaconvolve of 2^20 samples with 129
              taps, the CWT plan of 8192 samples over widths 1..128, fft2 /
-             ifft2 of 16 x 1080 x 1920 frames; each call's launches are
-             checked; small inputs against float64 numpy after each
-             window, and numpy input, which must run on the card;
+             ifft2 of 16 x 1080 x 1920 frames; then the spectral
+             estimators: welch of 2^22 samples (nperseg 4096, hop 2048) and
+             of 64 x 2^20 at scipy's defaults, its median, csd and
+             coherence of two 2^22 signals, spectrogram of 2^22 (psd and
+             magnitude), periodogram of 64 x 16384, multitaper of 16384
+             (K = 7) and the two-sided welch of a complex 2^22 signal (B21), each
+             against scipy.signal (float64 numpy for multitaper); each
+             call's launches are checked; small inputs against float64
+             numpy after each window, and numpy input, which must run on
+             the card;
 4. grad    — gradients against the plain versions' (CPU for the N-D,
              real and non-pow2 ones): fft (row kernel; the four-step at
              2 x 2^20; the whole row at 4 x 2^16; composite 4095 and prime
              4093 at 64 rows), rfft at 1005, rfft2 and batched fft2,
              SpectralFilter, fftconvolve (both inputs), the CWT plan and
-             fft2 at 1080 x 1920;
+             fft2 at 1080 x 1920; welch, csd (both inputs), spectrogram
+             and the two-sided welch of a complex signal at 2^16 samples;
 5. times   — CUDA-event medians of each kernel, its plain version,
              torch.fft and plan.forward at the main shapes, beside a plane
              copy of the same bytes; fft2 at 4096 x 4096 by both routes
              (transposed rows twice, row then axis(-2)) and the fused plane
              at 256^3 against row then axis(-2); fftn at 512^3; the fused
-             epilogues' kernels at their path's shapes beside torch.fft's
-             composition of the same function; a torch.profiler breakdown
-             of the non-pow2 path's and the fused epilogues' calls.
+             epilogues' and the estimators' kernels at their path's shapes
+             beside torch.fft's composition of the same function; a
+             torch.profiler breakdown of the non-pow2 path's, the fused
+             epilogues' and the estimators' calls.
 
 torch.fft is an oracle and a baseline here, never the implementation.  The
 last two lines are a JSON object describing the kernels (each with its
 main-path launches, times, the torch.fft time and its bound: the larger of
-its bytes at 3.35 TB/s and 5*n*log2(n) flops per row at 67 TFLOP/s, the
-H100 SXM's data-sheet rates), then ``{"ok": true, "device": {...}}``.
+its bytes at 3.35 TB/s and 5*n*log2(n) flops per complex row (half that
+per real row) at 67 TFLOP/s, the H100 SXM's data-sheet rates), then
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -97,14 +115,16 @@ import numpy as np
 TOL = 1e-5  # relative L2, the JAX package's oracle bar
 SEED = 0
 LIBS = ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft", "fft2f_fft", "r2c_fft",
-        "c2r_fft", "gen_fft", "r2c_gen_fft", "chirp_fft", "filt_fft", "ax0_gen_fft")
+        "c2r_fft", "gen_fft", "r2c_gen_fft", "chirp_fft", "filt_fft", "ax0_gen_fft",
+        "welch_fft")
 # Kernels as the launch counters name them: the axis(-3) pass is the axis(-2)
 # kernels on a free view, with its own entry point and counter; chirp_fft
 # holds two kernels, each with its own, filt_fft two entry points (filt,
-# bank), c2r_fft a second one (c2r_prod).
+# bank), c2r_fft a second one (c2r_prod), welch_fft five (welch, psd, csd,
+# coh, c2c).
 KERNELS = ("rows_fft", "ax0_fft", "ax3_fft", "rows_t_fft", "fft2f_fft", "r2c_fft",
            "c2r_fft", "big_fft", "gen_fft", "r2c_gen_fft", "chirp_fwd", "chirp_inv",
-           "filt", "bank", "c2r_prod", "ax0_gen")
+           "filt", "bank", "c2r_prod", "ax0_gen", "welch", "psd", "csd", "coh", "c2c")
 # Composite lengths of phase 2's sweep: factors (20, 32), (25, 40), (15, 67),
 # (23, 89), (63, 65), (17, 241), (81, 81), (100, 100), (127, 129).
 GEN_NS = (640, 1000, 1005, 2047, 4095, 4097, 6561, 10000, 16383)
@@ -145,8 +165,39 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 def fft_flops(n: int, rows: int) -> float:
-    """The nominal 5*n*log2(n) flops of an n-point FFT, times rows."""
+    """The nominal 5*n*log2(n) flops of an n-point complex FFT, times rows."""
     return 5.0 * n * math.log2(n) * rows
+
+
+def rfft_flops(n: int, rows: int) -> float:
+    """The nominal flops of an n-point real FFT (an n/2-point complex one
+    and the recombination): half a complex one's, times rows."""
+    return fft_flops(n, rows) / 2
+
+
+def multitaper_ref(x: np.ndarray, NW: float, K: int) -> np.ndarray:
+    """Thomson's adaptive multitaper PSD of a real float64 signal in float64
+    numpy (scipy's dpss tapers, one-sided, fs = 1, constant detrend, 10
+    fixed-point steps of the weights from the mean of the first two
+    eigenspectra): the estimator's definition, written out on the host."""
+    from scipy.signal.windows import dpss
+
+    n = x.shape[-1]
+    tapers, lam = dpss(n, NW, K, return_ratios=True)
+    v = x - x.mean()
+    Sk = np.abs(np.fft.rfft(v * tapers, axis=-1)) ** 2
+    s2 = np.mean(v * v)
+    lamc = lam[:, None]
+    S = Sk[:2].mean(0)
+    for _ in range(10):
+        b = S / (lamc * S + (1 - lamc) * s2 + 1e-30)
+        w = b * b * lamc
+        S = (w * Sk).sum(0) / (w.sum(0) + 1e-30)
+    mult = np.full(n // 2 + 1, 2.0)
+    mult[0] = 1.0
+    if n % 2 == 0:
+        mult[-1] = 1.0
+    return S * mult
 
 
 def kernel_part(event_name: str, names) -> str:
@@ -192,7 +243,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import fft_wgpu_tpu_torch as ft
-    from fft_wgpu_tpu_torch.ops import bigfft, bluestein, cuda_fft, czt, stockham
+    from fft_wgpu_tpu_torch.ops import bigfft, bluestein, cuda_fft, cuda_welch, czt, stockham
     from fft_wgpu_tpu_torch.ops import cwt as cwt_mod
     from fft_wgpu_tpu_torch.utils import build
 
@@ -519,6 +570,100 @@ def main() -> int:
           lambda re, im, s, sc, _: cuda_fft.fft_axis0_split_reference(re, im, s, sc),
           lambda x, s, sc, _: oracle(x, s, sc, dim=-2), dim=-2)
 
+    # the segment-spectrum kernels: B16 (welch), B19 (psd), B17 (csd), B18
+    # (coh), B21 (c2c: y is the imaginary plane)
+    def torch_segments(kind, x, y, w, nperseg, hop, nfft, detrend):
+        """torch.fft's composition of a kernel's function (frames, detrend,
+        window, rfft or fft, power or cross product, sum over segments), in
+        x's dtype: float64 it is phase 2's oracle, float32 phase 5's
+        baseline; never the implementation."""
+        def spectra(v):
+            fr = v.unfold(-1, nperseg, hop)
+            if detrend == "constant":
+                fr = fr - fr.mean(-1, keepdim=True)
+            fft = torch.fft.fft if v.is_complex() else torch.fft.rfft
+            return fft(fr * w.to(x.dtype), n=nfft)
+
+        if kind == "c2c":
+            X = spectra(torch.complex(x, y))
+            return ((X.real ** 2 + X.imag ** 2).sum(-2),)
+        X = spectra(x)
+        if kind == "psd":
+            return (X.real ** 2 + X.imag ** 2,)
+        if kind == "welch":
+            return ((X.real ** 2 + X.imag ** 2).sum(-2),)
+        Y = spectra(y)
+        P = (X.conj() * Y).sum(-2)
+        if kind == "csd":
+            return P.real, P.imag
+        return (P.real, P.imag, (X.real ** 2 + X.imag ** 2).sum(-2),
+                (Y.real ** 2 + Y.imag ** 2).sum(-2))
+
+    def flat(outs):
+        return torch.cat([o.reshape(-1) for o in outs])
+
+    def welch_case(kind, x, y, w, args, what, with_oracle=True):
+        """One kernel launch against its plain version (and float64
+        torch.fft); a second launch must give the same bits."""
+        got = cuda_welch._launch(kind, x, y, w, *args)
+        plain, _ = cuda_welch._reference(kind, x, y, w, *args)
+        err = check_close(flat(got), flat(plain), f"{kind} vs plain {what}")
+        if with_oracle:
+            oracle = torch_segments(kind, x.double(), None if y is None else y.double(), w,
+                                    *args)
+            err = max(err, check_close(flat(got), flat(oracle),
+                                       f"{kind} vs float64 torch.fft {what}"))
+        again = cuda_welch._launch(kind, x, y, w, *args)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{kind} {what}: two runs differ in their bits")
+        max_abs[kind] = max(max_abs[kind], float((flat(got) - flat(plain)).abs().max()))
+        return err
+
+    def welch_sweep():
+        worst, cases = 0.0, 0
+        for nfft in pow2:
+            for nperseg in (nfft, nfft - nfft // 4 + 1):
+                for hop in (nperseg, nperseg // 2, nperseg - nperseg // 8):
+                    for lead, detrend in (((), False), ((3,), "constant")):
+                        t = nperseg + 37 * hop + hop // 3  # a ragged last tile
+                        x = torch.randn(*lead, t, device=dev, generator=gen)
+                        y = torch.randn(*lead, t, device=dev, generator=gen)
+                        w = torch.rand(nperseg, device=dev, generator=gen) + 0.5
+                        args = (nperseg, hop, nfft, detrend)
+                        what = f"{lead} t={t} nperseg={nperseg} hop={hop} nfft={nfft} {detrend}"
+                        for kind, u in (("welch", None), ("psd", None), ("csd", y),
+                                        ("coh", y), ("c2c", y)):
+                            worst = max(worst, welch_case(kind, x, u, w, args, what))
+                            cases += 1
+        # path 6's own shapes (float64 oracle in phase 3, against scipy)
+        n22 = 1 << 22
+        x, y = (torch.randn(n22, device=dev, generator=gen) for _ in range(2))
+        hann = ft.hann_window(4096, device=dev)
+        tukey = ft.get_window(("tukey", 0.25), 4096, device=dev)
+        xb = torch.randn(64, 1 << 20, device=dev, generator=gen)
+        xp = torch.randn(64, 16384, device=dev, generator=gen)
+        for kind, v, u, w, args in (
+                ("welch", x, None, hann, (4096, 2048, 4096, "constant")),
+                ("welch", xb, None, ft.hann_window(256, device=dev), (256, 128, 256, "constant")),
+                ("welch", xp, None, torch.ones(16384, device=dev),
+                 (16384, 16384, 16384, "constant")),
+                ("psd", x, None, hann, (4096, 2048, 4096, "constant")),
+                ("psd", x, None, tukey, (4096, 3584, 4096, "constant")),
+                ("csd", x, y, hann, (4096, 2048, 4096, "constant")),
+                ("coh", x, y, hann, (4096, 2048, 4096, "constant")),
+                ("c2c", x, y, hann, (4096, 2048, 4096, "constant"))):
+            what = f"path 6 {tuple(v.shape)} nperseg={args[0]} hop={args[1]}"
+            worst = max(worst, welch_case(kind, v, u, w, args, what, with_oracle=False))
+            cases += 1
+        del x, y, xb, xp
+        torch.cuda.synchronize()
+        print(f"kernel welch, psd, csd, coh, c2c: {cases} cases ok, each run twice with the "
+              f"same bits | worst rel-L2 {worst:.3e} | max abs err vs plain "
+              + ", ".join(f"{max_abs[k]:.3e}" for k in ("welch", "psd", "csd", "coh", "c2c")),
+              flush=True)
+
+    welch_sweep()
+
     # ---- 3. main path at users' sizes ------------------------------------
     errs = {}
 
@@ -531,7 +676,9 @@ def main() -> int:
                 "chirp_fwd": cuda_fft.chirp_fwd_launches,
                 "chirp_inv": cuda_fft.chirp_inv_launches, "filt": cuda_fft.filt_launches,
                 "bank": cuda_fft.bank_launches, "c2r_prod": cuda_fft.c2r_prod_launches,
-                "ax0_gen": cuda_fft.ax0_gen_launches}
+                "ax0_gen": cuda_fft.ax0_gen_launches, "welch": cuda_welch.welch_launches,
+                "psd": cuda_welch.psd_launches, "csd": cuda_welch.csd_launches,
+                "coh": cuda_welch.coh_launches, "c2c": cuda_welch.c2c_launches}
 
     def reset_counts():
         cuda_fft.launches = cuda_fft.ax0_launches = cuda_fft.ax3_launches = 0
@@ -541,6 +688,8 @@ def main() -> int:
         cuda_fft.chirp_fwd_launches = cuda_fft.chirp_inv_launches = 0
         cuda_fft.filt_launches = cuda_fft.bank_launches = 0
         cuda_fft.c2r_prod_launches = cuda_fft.ax0_gen_launches = 0
+        cuda_welch.welch_launches = cuda_welch.psd_launches = 0
+        cuda_welch.csd_launches = cuda_welch.coh_launches = cuda_welch.c2c_launches = 0
 
     def through(what, fn, **want):
         """Run fn(); the launch counts must rise by exactly ``want``
@@ -799,14 +948,85 @@ def main() -> int:
                                                "fftconvolve 5x700 vs numpy")
     print(f"main: fused-epilogue path, {len(errs)} checks ok, launches {path5} | "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+    # path 6: the spectral estimators at the sizes of the JAX package's
+    # records (bench.py and PERFORMANCE.md: welch of 2^22 samples at nperseg
+    # 4096, hop 2048) and at scipy's defaults over 64 channels of 2^20
+    import warnings
+
+    import scipy.signal as ss
+
+    errs = {}
+    n22 = 1 << 22
+    x, y = (torch.randn(n22, device=dev, generator=gen) for _ in range(2))
+    xb = torch.randn(64, 1 << 20, device=dev, generator=gen)
+    xp = torch.randn(64, 16384, device=dev, generator=gen)
+    xm = torch.randn(16384, device=dev, generator=gen)
+    xc = crand(n22)
+    x64, y64 = x.cpu().double().numpy(), y.cpu().double().numpy()
+    seg = {"nperseg": 4096, "noverlap": 2048}
+
+    def vs_scipy(key, got, want, what):
+        errs[key] = check_close(got.cpu(), torch.from_numpy(np.asarray(want)),
+                                f"{what} vs scipy.signal float64")
+
+    reset_counts()
+    P = through("welch 2^22 nperseg 4096", lambda: ft.welch(x, **seg)[1], welch=1)
+    vs_scipy("welch_2^22", P, ss.welch(x64, **seg)[1], "welch 2^22")
+    P = through("welch 64x2^20 scipy defaults", lambda: ft.welch(xb)[1], welch=1)
+    vs_scipy("welch_64x2^20", P, ss.welch(xb.cpu().double().numpy())[1], "welch 64x2^20")
+    del P
+    P = through("welch 2^22 median", lambda: ft.welch(x, average="median", **seg)[1], psd=1)
+    vs_scipy("welch_median_2^22", P, ss.welch(x64, average="median", **seg)[1],
+             "welch median 2^22")
+    P = through("csd 2^22", lambda: ft.csd(x, y, **seg)[1], csd=1)
+    vs_scipy("csd_2^22", P, ss.csd(x64, y64, **seg)[1], "csd 2^22")
+    C = through("coherence 2^22", lambda: ft.coherence(x, y, **seg)[1], coh=1)
+    vs_scipy("coherence_2^22", C, ss.coherence(x64, y64, **seg)[1], "coherence 2^22")
+    for mode in ("psd", "magnitude"):
+        f, t, S = through(f"spectrogram 2^22 {mode}",
+                          lambda: ft.spectrogram(x, nperseg=4096, mode=mode), psd=1)
+        fs_, ts_, Ss = ss.spectrogram(x64, nperseg=4096, mode=mode)
+        vs_scipy(f"spectrogram_{mode}_2^22", S, Ss, f"spectrogram 2^22 {mode}")
+        check(f.device.type == "cuda" and S.device.type == "cuda",
+              "spectrogram outputs left the card")
+        errs[f"spectrogram_t_{mode}"] = check_close(t.cpu().double(), torch.from_numpy(ts_),
+                                                    "spectrogram segment times")
+        del S, Ss
+    P = through("periodogram 64x16384", lambda: ft.periodogram(xp)[1], welch=1)
+    vs_scipy("periodogram_64x16384", P, ss.periodogram(xp.cpu().double().numpy())[1],
+             "periodogram 64x16384")
+    f, P = through("multitaper 16384 K=7", lambda: ft.multitaper(xm, NW=4.0, K=7), r2c_fft=1)
+    errs["multitaper_16384"] = check_close(
+        P.cpu().double(), torch.from_numpy(multitaper_ref(xm.cpu().double().numpy(), 4.0, 7)),
+        "multitaper 16384 K=7 vs float64 numpy")
+    with warnings.catch_warnings():  # scipy: complex input, two-sided
+        warnings.simplefilter("ignore")
+        want = ss.welch(xc.cpu().numpy().astype(np.complex128), **seg)[1]
+    P = through("welch 2^22 complex (two-sided)", lambda: ft.welch(xc, **seg)[1], c2c=1)
+    vs_scipy("welch_complex_2^22", P, want, "welch 2^22 complex two-sided")
+    path6 = counts()
+    for name in ("welch", "psd", "csd", "coh", "c2c"):
+        check(path6[name] > 0, f"spectral-estimator path launched no {name} kernel")
+    del x, y, xb, xp, xc, P, C, want
+    # outside the window: numpy input runs on the card
+    xn = np.random.default_rng(SEED).standard_normal(5000)
+    f, P = through("welch of a numpy array", lambda: ft.welch(xn, nperseg=512), welch=1)
+    check(P.device.type == "cuda" and f.device.type == "cuda",
+          f"numpy input ran on {P.device}, not the card")
+    vs_scipy("welch_numpy_in", P, ss.welch(xn.astype(np.float32).astype(np.float64),
+                                           nperseg=512)[1], "welch of a numpy array")
+    print(f"main: spectral-estimator path, {len(errs)} checks ok, launches {path6} | "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
     # The kernels line gives each kernel the launches of the path it was
     # ported for (the 1-D path for B1, B2, B4 and B15, the non-pow2 path for
-    # B11-B14, the fused-epilogue path for B8-B10 and B2-composite, config 4
-    # for the rest); each path's counts are on its line.
+    # B11-B14, the fused-epilogue path for B8-B10 and B2-composite, the
+    # estimators' path for B16-B19, config 4 for the rest); each path's
+    # counts are on its line.
     path_of = {"rows_fft": path1, "ax0_fft": path1, "rows_t_fft": path1, "big_fft": path1,
                "gen_fft": path3, "r2c_gen_fft": path3, "chirp_fwd": path3,
                "chirp_inv": path3, "filt": path5, "bank": path5, "c2r_prod": path5,
-               "ax0_gen": path5}
+               "ax0_gen": path5, "welch": path6, "psd": path6, "csd": path6, "coh": path6,
+               "c2c": path6}
     main_launches = {k: path_of.get(k, path2)[k] for k in KERNELS}
 
     # ---- 4. autograd on the card -----------------------------------------
@@ -896,6 +1116,23 @@ def main() -> int:
         gk = through(f"grad {what}", lambda: grads_of(fn, shapes, SEED + 3, dev, cplx),
                      **kernels)
         gp = grads_of(fn_cpu or fn, shapes, SEED + 3, torch.device("cpu"), cplx)
+        gerrs[what] = check_close(gk.cpu(), gp, f"grad of sum(w*|f(x)|^2) {what} "
+                                                "kernels vs plain")
+    # the estimators at 2^16 samples (nperseg 256): the kernel forward; back,
+    # the frames rebuilt through B6 under autograd and B1 for B6's adjoint,
+    # once per signal (complex input: B1 forward and back)
+    for what, fn, shapes, kernels, cplx in (
+            ("welch 2^16", lambda u: ft.welch(u)[1], [(1 << 16,)],
+             {"welch": 1, "r2c_fft": 1, "rows_fft": 1}, False),
+            ("csd 2^16 (both inputs)", lambda u, v: ft.csd(u, v)[1], [(1 << 16,)] * 2,
+             {"csd": 1, "r2c_fft": 2, "rows_fft": 2}, False),
+            ("spectrogram 2^16 psd", lambda u: ft.spectrogram(u)[2], [(1 << 16,)],
+             {"psd": 1, "r2c_fft": 1, "rows_fft": 1}, False),
+            ("welch 2^16 complex (two-sided)", lambda u: ft.welch(u)[1], [(1 << 16,)],
+             {"c2c": 1, "rows_fft": 2}, True)):
+        gk = through(f"grad {what}", lambda: grads_of(fn, shapes, SEED + 4, dev, cplx),
+                     **kernels)
+        gp = grads_of(fn, shapes, SEED + 4, torch.device("cpu"), cplx)
         gerrs[what] = check_close(gk.cpu(), gp, f"grad of sum(w*|f(x)|^2) {what} "
                                                 "kernels vs plain")
     print("grad: rel-L2 vs plain " + ", ".join(f"{k} {v:.3e}" for k, v in gerrs.items()),
@@ -1156,6 +1393,51 @@ def main() -> int:
                                               reps=5)
     del x, r, R, a2, b2, sig, taps, fr
 
+    # the estimators' kernels at path 6's shapes, beside their plain versions
+    # and torch.fft's composition of the same function
+    x, y = (torch.randn(1 << 22, device=dev, generator=gen) for _ in range(2))
+    xb = torch.randn(64, 1 << 20, device=dev, generator=gen)
+    hann = ft.hann_window(4096, device=dev)
+    tukey = ft.get_window(("tukey", 0.25), 4096, device=dev)
+    hann256 = ft.hann_window(256, device=dev)
+    seg = {"nperseg": 4096, "noverlap": 2048}
+    xc = torch.complex(x, y)
+    path6_calls = {
+        "welch 2^22 nperseg 4096": lambda: ft.welch(x, **seg),
+        "welch 64x2^20 scipy defaults": lambda: ft.welch(xb),
+        "welch median 2^22": lambda: ft.welch(x, average="median", **seg),
+        "csd 2^22": lambda: ft.csd(x, y, **seg),
+        "coherence 2^22": lambda: ft.coherence(x, y, **seg),
+        "spectrogram 2^22": lambda: ft.spectrogram(x, nperseg=4096),
+        "welch 2^22 complex": lambda: ft.welch(xc, **seg),
+    }
+    welch_shapes = {  # key -> (kind, x, y, window, args, the estimator's call)
+        "welch 2^22 nperseg 4096 hop 2048": ("welch", x, None, hann,
+                                             (4096, 2048, 4096, "constant"),
+                                             "welch 2^22 nperseg 4096"),
+        "welch 64x2^20 nperseg 256 hop 128": ("welch", xb, None, hann256,
+                                              (256, 128, 256, "constant"),
+                                              "welch 64x2^20 scipy defaults"),
+        "csd 2^22 nperseg 4096 hop 2048": ("csd", x, y, hann, (4096, 2048, 4096, "constant"),
+                                           "csd 2^22"),
+        "coh 2^22 nperseg 4096 hop 2048": ("coh", x, y, hann, (4096, 2048, 4096, "constant"),
+                                           "coherence 2^22"),
+        "psd 2^22 nperseg 4096 hop 3584": ("psd", x, None, tukey,
+                                           (4096, 3584, 4096, "constant"), "spectrogram 2^22"),
+        "c2c 2^22 nperseg 4096 hop 2048": ("c2c", x, y, hann, (4096, 2048, 4096, "constant"),
+                                           "welch 2^22 complex"),
+    }
+    for key, (kind, v, u, w, args, call) in welch_shapes.items():
+        times[key] = time_in_turns({
+            "kernel": lambda: cuda_welch._launch(kind, v, u, w, *args),
+            "plain": lambda: cuda_welch._reference(kind, v, u, w, *args),
+            "torch.fft": lambda: torch_segments(kind, v, u, w, *args),
+            "estimator": path6_calls[call],
+        }, reps=10)
+    for call, fn in path6_calls.items():  # every estimator kernel is a welch_kernel<...>
+        profiles[call] = breakdown(fn, ("welch",))
+    del x, y, xb, xc
+
     x = crand(512, 512, 512)  # 1 GiB: axis(-3), axis(-2), row kernel
     times["fftn 512^3"] = {"fftn": time_ms(lambda: ft.fftn(x), reps=5, warmup=1),
                            "torch.fft": time_ms(lambda: torch.fft.fftn(x), reps=5,
@@ -1196,15 +1478,15 @@ def main() -> int:
         entry("fft2f_fft", "fft2f_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2274",
               "fft2f_fft 256x256x256", c2c * 256 ** 3, fft_flops(256 * 256, 256)),
         entry("r2c_fft", "r2c_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1801",
-              "r2c_fft 4096x4096", r2c(4096, 4096), fft_flops(4096, 4096)),
+              "r2c_fft 4096x4096", r2c(4096, 4096), rfft_flops(4096, 4096)),
         entry("c2r_fft", "c2r_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2076",
-              "c2r_fft 4096x4096", r2c(4096, 4096), fft_flops(4096, 4096)),
+              "c2r_fft 4096x4096", r2c(4096, 4096), rfft_flops(4096, 4096)),
         entry("big_fft", "big_fft.cu", "fft_wgpu_tpu/ops/bigfft.py:139",
               "big_fft 256x2^16", c2c * 256 * 65536, fft_flops(65536, 256)),
         entry("gen_fft", "gen_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2865",
               "gen_fft 1024x4095", c2c * 1024 * 4095, fft_flops(4095, 1024)),
         entry("r2c_gen_fft", "r2c_gen_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2970",
-              "r2c_gen_fft 1024x4095", r2c(4095, 1024), fft_flops(4095, 1024)),
+              "r2c_gen_fft 1024x4095", r2c(4095, 1024), rfft_flops(4095, 1024)),
         # the two Bluestein passes of a 4093-point transform, m = 8192;
         # library_ms is torch.fft's whole 4093-point transform
         entry("chirp_fwd", "chirp_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2613",
@@ -1224,9 +1506,29 @@ def main() -> int:
               fft_flops(16384, 128) + 6 * 128 * 16384),
         entry("c2r_prod", "c2r_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2163",
               "c2r_prod 2048x8192", 2 * 8 * 4097 * 2048 + 4 * 8192 * 2048,
-              fft_flops(8192, 2048) + 6 * 4097 * 2048),
+              rfft_flops(8192, 2048) + 6 * 4097 * 2048),
         entry("ax0_gen", "ax0_gen_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1180",
               "ax0_gen 16x1080x1920", c2c * 16 * 1080 * 1920, fft_flops(1080, 16 * 1920)),
+        # the segment-spectrum kernels: each signal (or plane) read once,
+        # the window once, the bins (B19: every segment's bins) written once;
+        # one real nfft-point transform per segment and real signal, one
+        # complex one per segment of the complex signal (B21); library_ms
+        # is torch.fft's composition of the same function
+        entry("welch", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:477",
+              "welch 2^22 nperseg 4096 hop 2048", 4 * n22 + 4 * 4096 + 4 * 2049,
+              rfft_flops(4096, 2047)),
+        entry("csd", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:404",
+              "csd 2^22 nperseg 4096 hop 2048", 8 * n22 + 4 * 4096 + 8 * 2049,
+              2 * rfft_flops(4096, 2047)),
+        entry("coh", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:440",
+              "coh 2^22 nperseg 4096 hop 2048", 8 * n22 + 4 * 4096 + 16 * 2049,
+              2 * rfft_flops(4096, 2047)),
+        entry("psd", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:514",
+              "psd 2^22 nperseg 4096 hop 3584", 4 * n22 + 4 * 4096 + 4 * 1170 * 2049,
+              rfft_flops(4096, 1170)),
+        entry("c2c", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:582",
+              "c2c 2^22 nperseg 4096 hop 2048", 8 * n22 + 4 * 4096 + 4 * 4096,
+              fft_flops(4096, 2047)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

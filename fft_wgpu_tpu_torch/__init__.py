@@ -20,7 +20,11 @@ before the last run the composite axis(-2) kernel (``csrc/ax0_gen_fft.cu``).
 The fused epilogues run their own kernels: ``SpectralFilter`` and
 ``hilbert`` the filtered row kernel (``csrc/filt_fft.cu``), the ``CWT``
 plan its filter-bank kernel, and ``fftconvolve`` / ``oaconvolve`` of real
-input the product C2R kernel (``csrc/c2r_fft.cu``).  Other lengths,
+input the product C2R kernel (``csrc/c2r_fft.cu``).  The spectral
+estimators (``welch``, ``periodogram``, ``csd``, ``coherence``,
+``spectrogram``) of real input run the fused segment-spectrum kernels
+(``csrc/welch_fft.cu``); their other modes compose the transforms above,
+and the window functions are host tables.  Other lengths,
 and every CPU tensor, run the plain torch mixed-radix path.  A tensor is
 transformed on the device it lies on; other input (numpy arrays) goes to
 the current CUDA device, and raises if there is none.  This package
@@ -39,7 +43,17 @@ from .ops.helpers import (choose_conv_method, convolve, correlate, correlation_l
 from .ops.nd import fft2, fftn, ifft2, ifftn
 from .ops.rfft import (hfft, hfft2, hfftn, ihfft, ihfft2, ihfftn, irfft, irfft2,
                        irfftn, rfft, rfft2, rfftn)
+from .ops.spectral_est import (check_COLA, check_NOLA, coherence, csd, dpss, flattop_window,
+                               get_window, kaiser_window, lombscargle, multitaper,
+                               periodogram, spectrogram, tukey_window, welch)
+from .ops.stft import bartlett_window, blackman_window, hamming_window, hann_window
 from .ops.transforms import fft, ifft, ifft_unnormalized, normalize
+from .ops.windows import (barthann_window, blackmanharris_window, bohman_window,
+                          boxcar_window, chebwin_window, cosine_window, exponential_window,
+                          gaussian_window, general_cosine_window, general_gaussian_window,
+                          general_hamming_window, kaiser_bessel_derived_window,
+                          lanczos_window, nuttall_window, parzen_window, taylor_window,
+                          triang_window)
 from .plan.parity import Forward, Inverse, Normalize, Onlyinverse
 from .plan.plan import Plan, get_plan, plan
 
@@ -98,6 +112,41 @@ __all__ = [
     "set_workers",
     "oaconvolve",
     "rfftfreq",
+    "get_window",
+    "check_COLA",
+    "check_NOLA",
+    "tukey_window",
+    "kaiser_window",
+    "flattop_window",
+    "dpss",
+    "periodogram",
+    "welch",
+    "csd",
+    "coherence",
+    "multitaper",
+    "spectrogram",
+    "lombscargle",
+    "hann_window",
+    "hamming_window",
+    "blackman_window",
+    "bartlett_window",
+    "boxcar_window",
+    "triang_window",
+    "parzen_window",
+    "bohman_window",
+    "nuttall_window",
+    "blackmanharris_window",
+    "cosine_window",
+    "exponential_window",
+    "barthann_window",
+    "lanczos_window",
+    "gaussian_window",
+    "general_gaussian_window",
+    "general_cosine_window",
+    "general_hamming_window",
+    "chebwin_window",
+    "taylor_window",
+    "kaiser_bessel_derived_window",
     "Plan",
     "plan",
     "get_plan",

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["split", "merge", "promote_to_split", "default_device", "to_device"]
+__all__ = ["split", "merge", "is_pair", "promote_to_split", "default_device", "to_device"]
 
 
 def default_device() -> torch.device:
@@ -57,10 +57,18 @@ def merge(re, im):
     return torch.complex(re.to(torch.float32), im.to(torch.float32))
 
 
+def is_pair(x) -> bool:
+    """True for an explicit (re, im) pair: a tuple of two tensors or
+    ndarrays.  Anything else, a list of two rows included, is data."""
+    return (isinstance(x, tuple) and len(x) == 2
+            and all(isinstance(v, (torch.Tensor, np.ndarray)) for v in x))
+
+
 def promote_to_split(x, device=None):
-    """Accept complex/real tensor or numpy input, or an (re, im) pair, and
-    return an (re, im) float32 tensor pair."""
-    if isinstance(x, (tuple, list)) and len(x) == 2:
+    """Accept complex/real tensor or numpy input (lists are data, as numpy
+    reads them), or an (re, im) pair (:func:`is_pair`), and return an
+    (re, im) float32 tensor pair."""
+    if is_pair(x):
         re, im = x
         return to_device(re, device=device), to_device(im, device=device)
     return split(x, device)

@@ -109,16 +109,14 @@ extern "C" {
 
 // Transforms axis -2 of `planes` contiguous [n, m] planes, n = 2^log2n,
 // planar float32.  tw holds n interleaved (cos, sin) float32 pairs of
-// exp(sign*2pi*i*k/n).  Launches on `stream` of `device` and returns
+// exp(sign*2pi*i*k/n).  Launches on `stream` and returns
 // cudaGetLastError() (0 = ok).
 int ax0_fft_f32(const void* in_re, const void* in_im, void* out_re,
                 void* out_im, const void* tw, long long planes, long long m,
-                int log2n, int sign, float scale, int device, void* stream) {
+                int log2n, int sign, float scale, void* stream) {
   if (planes < 1 || m < 1 || (sign != 1 && sign != -1)) {
     return cudaErrorInvalidValue;
   }
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
   const auto s = static_cast<cudaStream_t>(stream);
   const float sg = static_cast<float>(sign);
   switch (log2n) {

@@ -108,10 +108,10 @@ extern "C" {
 // Transforms axis -2 of `planes` contiguous [n, m] planes, n = n1 * n2,
 // planar float32.  tw holds n interleaved (cos, sin) float32 pairs of
 // exp(sign*2pi*i*k/n): the sign of the transform is the table's.  Launches
-// on `stream` of `device` and returns cudaGetLastError() (0 = ok).
+// on `stream` and returns cudaGetLastError() (0 = ok).
 int ax0_gen_fft_f32(const void* in_re, const void* in_im, void* out_re, void* out_im,
                     const void* tw, long long planes, long long m, int n1, int n2,
-                    float scale, int device, void* stream) {
+                    float scale, void* stream) {
   if (planes < 1 || m < 1 || n1 < 2 || n2 < n1 || n2 > 256 ||
       n1 * n2 > kGenPer * kGenMaxThreads) {
     return cudaErrorInvalidValue;
@@ -119,12 +119,10 @@ int ax0_gen_fft_f32(const void* in_re, const void* in_im, void* out_re, void* ou
   const int tm = ax0_gen_cols(n1, n2);
   const long long tiles = (m + tm - 1) / tm;
   if (planes * tiles > 2147483647LL) return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
   const int smem = tm * 2 * ax0_gen_ld(n1, n2) * static_cast<int>(sizeof(float));
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(ax0_gen_fft_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t e = cudaFuncSetAttribute(
+        ax0_gen_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
   ax0_gen_fft_kernel<<<static_cast<unsigned>(planes * tiles),

@@ -173,13 +173,11 @@ extern "C" {
 // Transforms `rows` contiguous rows of n = 2^log2n planar float32 points,
 // n = 2^15 .. 2^18.  tw holds n interleaved (cos, sin) float32 pairs of
 // exp(sign*2pi*i*k/n).  The output may alias the input.  Launches on
-// `stream` of `device` and returns the launch's error (0 = ok).
+// `stream` and returns the launch's error (0 = ok).
 int big_fft_f32(const void* in_re, const void* in_im, void* out_re,
                 void* out_im, const void* tw, long long rows, int log2n,
-                int sign, float scale, int device, void* stream) {
+                int sign, float scale, void* stream) {
   if (rows < 1 || (sign != 1 && sign != -1)) return cudaErrorInvalidValue;
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
   const auto s = static_cast<cudaStream_t>(stream);
   const float sg = static_cast<float>(sign);
   switch (log2n) {

@@ -172,12 +172,10 @@ cudaError_t launch(const void* ar, const void* ai, const void* br, const void* b
 template <bool PROD>
 int run(const void* ar, const void* ai, const void* br, const void* bi, void* out,
         const void* tw, const void* half, long long rows, int log2m, int bins,
-        long long b_stride, float scale, int device, void* stream) {
+        long long b_stride, float scale, void* stream) {
   if (rows < 1 || log2m < 6 || log2m > 13 || bins < (1 << log2m) + 1) {
     return cudaErrorInvalidValue;
   }
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
   const auto s = static_cast<cudaStream_t>(stream);
   switch (log2m) {
 #define C2R_CASE(L)                                                                 \
@@ -199,23 +197,22 @@ extern "C" {
 // (bins 0..n/2 read) into contiguous real rows of n = 2^(log2m + 1)
 // float32 points.  tw holds m = n/2 interleaved (cos, sin) float32 pairs
 // of exp(+2pi*i*j/m), half holds at least m pairs of exp(+2pi*i*k/n).
-// Launches on `stream` of `device` and returns cudaGetLastError() (0 = ok).
+// Launches on `stream` and returns cudaGetLastError() (0 = ok).
 int c2r_fft_f32(const void* in_re, const void* in_im, void* out, const void* tw,
                 const void* half, long long rows, int log2m, int bins,
-                float scale, int device, void* stream) {
+                float scale, void* stream) {
   return run<false>(in_re, in_im, nullptr, nullptr, out, tw, half, rows, log2m, bins,
-                    0, scale, device, stream);
+                    0, scale, stream);
 }
 
 // C2R of the products A * B: A as the input of c2r_fft_f32, B rows of the
 // same `bins`, `b_rows` of them: 1 (broadcast over A's rows) or `rows`.
 int c2r_prod_fft_f32(const void* ar, const void* ai, const void* br, const void* bi,
                      void* out, const void* tw, const void* half, long long rows,
-                     long long b_rows, int log2m, int bins, float scale, int device,
-                     void* stream) {
+                     long long b_rows, int log2m, int bins, float scale, void* stream) {
   if (b_rows != 1 && b_rows != rows) return cudaErrorInvalidValue;
   return run<true>(ar, ai, br, bi, out, tw, half, rows, log2m, bins,
-                   b_rows == 1 ? 0 : bins, scale, device, stream);
+                   b_rows == 1 ? 0 : bins, scale, stream);
 }
 
 const char* c2r_fft_error_string(int err) {

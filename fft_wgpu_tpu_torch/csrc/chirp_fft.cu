@@ -142,14 +142,11 @@ extern "C" {
 // chirp_fwd over `rows` contiguous rows of n_in planar float32 points into
 // rows of m = 2^log2m.  h holds n_in floats per plane; tw holds m
 // interleaved (cos, sin) float32 pairs of exp(sign*2pi*i*j/m).  Launches on
-// `stream` of `device` and returns cudaGetLastError() (0 = ok).
+// `stream` and returns cudaGetLastError() (0 = ok).
 int chirp_fwd_f32(const void* in_re, const void* in_im, const void* hr,
                   const void* hi, void* out_re, void* out_im, const void* tw,
-                  long long rows, int n_in, int log2m, int sign, int device,
-                  void* stream) {
+                  long long rows, int n_in, int log2m, int sign, void* stream) {
   if (!valid(rows, log2m, n_in, sign)) return cudaErrorInvalidValue;
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
   const auto s = static_cast<cudaStream_t>(stream);
   const float sg = static_cast<float>(sign);
   switch (log2m) {
@@ -169,10 +166,8 @@ int chirp_fwd_f32(const void* in_re, const void* in_im, const void* hr,
 int chirp_inv_f32(const void* in_re, const void* in_im, const void* Hr,
                   const void* Hi, const void* gr, const void* gi, void* out_re,
                   void* out_im, const void* tw, long long rows, int n_out,
-                  int log2m, int sign, float scale, int device, void* stream) {
+                  int log2m, int sign, float scale, void* stream) {
   if (!valid(rows, log2m, n_out, sign)) return cudaErrorInvalidValue;
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
   const auto s = static_cast<cudaStream_t>(stream);
   const float sg = static_cast<float>(sign);
   switch (log2m) {

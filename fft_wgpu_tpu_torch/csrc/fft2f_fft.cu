@@ -190,15 +190,13 @@ extern "C" {
 // A = 2^log2a, B = 2^log2b, pow2 >= 128 with A*B <= 2^16, planar float32.
 // twa and twb hold A and B interleaved (cos, sin) float32 pairs of
 // exp(sign*2pi*i*k/A) and exp(sign*2pi*i*k/B).  The output may alias the
-// input.  Launches on `stream` of `device` and returns the launch's error
+// input.  Launches on `stream` and returns the launch's error
 // (0 = ok).
 int fft2f_fft_f32(const void* in_re, const void* in_im, void* out_re,
                   void* out_im, const void* twa, const void* twb,
                   long long planes, int log2a, int log2b, int sign, float scale,
-                  int device, void* stream) {
+                  void* stream) {
   if (planes < 1 || (sign != 1 && sign != -1)) return cudaErrorInvalidValue;
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
   const auto s = static_cast<cudaStream_t>(stream);
   const float sg = static_cast<float>(sign);
 #define FFT2F_CASE(LA, LB)                                                      \

@@ -76,12 +76,10 @@ cudaError_t launch(const void* xr, const void* xi, const void* hr, const void* h
 // r*h_stride (floats of each plane).
 int run(const void* xr, const void* xi, const void* hr, const void* hi, void* out_re,
         void* out_im, const void* tw, long long rows, int log2n, long long x_stride,
-        long long h_stride, int sign, float scale, int device, void* stream) {
+        long long h_stride, int sign, float scale, void* stream) {
   if (rows < 1 || rows > 2147483647LL || (sign != 1 && sign != -1)) {
     return cudaErrorInvalidValue;
   }
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
   const auto s = static_cast<cudaStream_t>(stream);
   const float sg = static_cast<float>(sign);
   switch (log2n) {
@@ -102,22 +100,22 @@ extern "C" {
 
 // filt over `rows` contiguous rows x of n = 2^log2n planar float32 points,
 // each times the one row h of n floats per plane.  tw holds n interleaved
-// (cos, sin) float32 pairs of exp(sign*2pi*i*j/n).  Launches on `stream` of
-// `device` and returns cudaGetLastError() (0 = ok).
+// (cos, sin) float32 pairs of exp(sign*2pi*i*j/n).  Launches on `stream`
+// and returns cudaGetLastError() (0 = ok).
 int filt_fft_f32(const void* xr, const void* xi, const void* hr, const void* hi,
                  void* out_re, void* out_im, const void* tw, long long rows, int log2n,
-                 int sign, float scale, int device, void* stream) {
+                 int sign, float scale, void* stream) {
   return run(xr, xi, hr, hi, out_re, out_im, tw, rows, log2n, 1LL << log2n, 0, sign,
-             scale, device, stream);
+             scale, stream);
 }
 
 // bank over `rows` contiguous filter rows h of n = 2^log2n planar float32
 // points, each times the one signal row x.  tw as for filt_fft_f32.
 int bank_fft_f32(const void* xr, const void* xi, const void* hr, const void* hi,
                  void* out_re, void* out_im, const void* tw, long long rows, int log2n,
-                 int sign, float scale, int device, void* stream) {
+                 int sign, float scale, void* stream) {
   return run(xr, xi, hr, hi, out_re, out_im, tw, rows, log2n, 0, 1LL << log2n, sign,
-             scale, device, stream);
+             scale, stream);
 }
 
 const char* filt_fft_error_string(int err) {

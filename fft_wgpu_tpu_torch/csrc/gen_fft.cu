@@ -57,21 +57,19 @@ extern "C" {
 
 // Transforms `rows` contiguous rows of n = n1 * n2 planar float32 points.
 // tw holds n interleaved (cos, sin) float32 pairs of exp(sign*2pi*i*m/n):
-// the sign of the transform is the table's.  Launches on `stream` of
-// `device` and returns cudaGetLastError() (0 = ok).
+// the sign of the transform is the table's.  Launches on `stream` and
+// returns cudaGetLastError() (0 = ok).
 int gen_fft_f32(const void* in_re, const void* in_im, void* out_re, void* out_im,
                 const void* tw, long long rows, int n1, int n2, float scale,
-                int device, void* stream) {
+                void* stream) {
   if (rows < 1 || rows > 2147483647LL || n1 < 2 || n2 < n1 || n2 > 256 ||
       n1 * n2 > kGenPer * kGenMaxThreads) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
   const int smem = gen_smem_bytes(n1, n2);
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(gen_fft_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t e = cudaFuncSetAttribute(
+        gen_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
   gen_fft_kernel<<<static_cast<unsigned>(rows), gen_threads(n1 * n2), smem,

@@ -121,16 +121,14 @@ extern "C" {
 // R2C of `rows` contiguous real rows of n = 2^(log2m + 1) float32 points
 // into planar rows of `bins` >= n/2 + 1 floats (zeros past bin n/2).  tw
 // holds m = n/2 interleaved (cos, sin) float32 pairs of exp(-2pi*i*j/m),
-// half holds m + 1 pairs of exp(-2pi*i*k/n).  Launches on `stream` of
-// `device` and returns cudaGetLastError() (0 = ok).
+// half holds m + 1 pairs of exp(-2pi*i*k/n).  Launches on `stream` and
+// returns cudaGetLastError() (0 = ok).
 int r2c_fft_f32(const void* in, void* out_re, void* out_im, const void* tw,
                 const void* half, long long rows, int log2m, int bins,
-                float scale, int device, void* stream) {
+                float scale, void* stream) {
   if (rows < 1 || log2m < 6 || log2m > 13 || bins < (1 << log2m) + 1) {
     return cudaErrorInvalidValue;
   }
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
   const auto s = static_cast<cudaStream_t>(stream);
   switch (log2m) {
 #define R2C_CASE(L) \

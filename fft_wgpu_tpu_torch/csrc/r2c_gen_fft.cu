@@ -57,20 +57,18 @@ extern "C" {
 // R2C of `rows` contiguous real rows of n = n1 * n2 float32 points into
 // planar rows of `bins` >= n/2 + 1 floats (zeros past bin n/2).  tw holds n
 // interleaved (cos, sin) float32 pairs of exp(-2pi*i*m/n).  Launches on
-// `stream` of `device` and returns cudaGetLastError() (0 = ok).
+// `stream` and returns cudaGetLastError() (0 = ok).
 int r2c_gen_fft_f32(const void* in, void* out_re, void* out_im, const void* tw,
                     long long rows, int n1, int n2, int bins, float scale,
-                    int device, void* stream) {
+                    void* stream) {
   if (rows < 1 || rows > 2147483647LL || n1 < 2 || n2 < n1 || n2 > 256 ||
       n1 * n2 > kGenPer * kGenMaxThreads || bins < n1 * n2 / 2 + 1) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
   const int smem = gen_smem_bytes(n1, n2);
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(r2c_gen_fft_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t e = cudaFuncSetAttribute(
+        r2c_gen_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
   r2c_gen_fft_kernel<<<static_cast<unsigned>(rows), gen_threads(n1 * n2), smem,

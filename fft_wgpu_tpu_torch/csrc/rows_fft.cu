@@ -81,15 +81,13 @@ extern "C" {
 
 // Transforms `rows` contiguous rows of n = 2^log2n planar float32 points.
 // tw holds n interleaved (cos, sin) float32 pairs of exp(sign*2pi*i*m/n).
-// Launches on `stream` of `device` and returns cudaGetLastError() (0 = ok).
+// Launches on `stream` and returns cudaGetLastError() (0 = ok).
 int rows_fft_f32(const void* in_re, const void* in_im, void* out_re,
                  void* out_im, const void* tw, long long rows, int log2n,
-                 int sign, float scale, int device, void* stream) {
+                 int sign, float scale, void* stream) {
   if (rows < 1 || rows > 2147483647LL || (sign != 1 && sign != -1)) {
     return cudaErrorInvalidValue;
   }
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
   const auto s = static_cast<cudaStream_t>(stream);
   const float sg = static_cast<float>(sign);
   switch (log2n) {

@@ -136,17 +136,15 @@ extern "C" {
 // float32.  tw holds n interleaved (cos, sin) float32 pairs of
 // exp(sign*2pi*i*k/n); outer, when not null, holds outer_n pairs of
 // exp(sign*2pi*i*k/outer_n).  The output must not alias the input.
-// Launches on `stream` of `device` and returns cudaGetLastError() (0 = ok).
+// Launches on `stream` and returns cudaGetLastError() (0 = ok).
 int rows_t_fft_f32(const void* in_re, const void* in_im, void* out_re,
                    void* out_im, const void* tw, const void* outer,
                    long long outer_n, long long planes, long long rows,
-                   int log2n, int sign, float scale, int device, void* stream) {
+                   int log2n, int sign, float scale, void* stream) {
   if (planes < 1 || rows < 1 || (sign != 1 && sign != -1) ||
       (outer != nullptr && outer_n < 1)) {
     return cudaErrorInvalidValue;
   }
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
   const auto s = static_cast<cudaStream_t>(stream);
   const float sg = static_cast<float>(sign);
   switch (log2n) {

@@ -64,13 +64,12 @@ def _launch(re, im, sign, scale):
     rows = _rows(re)
     if rows == 0:
         return out
-    fn = build.function("big_fft", "big_fft_f32",
-                        [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P])
     tw = cuda_fft._twiddle_table(n, sign, re.device)
-    err = fn(re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-             tw.data_ptr(), rows, n.bit_length() - 1, sign,
-             cuda_fft._scale_arg(scale), re.device.index, cuda_fft._stream(re))
-    build.check("big_fft", err, f"big_fft launch failed (n={n}, rows={rows})")
+    build.launch("big_fft", "big_fft_f32", [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
+                 re.device, re.data_ptr(), im.data_ptr(), out[0].data_ptr(),
+                 out[1].data_ptr(), tw.data_ptr(), rows, n.bit_length() - 1, sign,
+                 cuda_fft._scale_arg(scale), cuda_fft._stream(re),
+                 what=f"big_fft launch failed (n={n}, rows={rows})")
     launches += 1
     return out
 

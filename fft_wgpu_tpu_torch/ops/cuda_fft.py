@@ -159,13 +159,12 @@ def _launch(re, im, sign, scale, out=None):
     rows = re.numel() // n
     if rows == 0:
         return out
-    fn = build.function("rows_fft", "rows_fft_f32",
-                        [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P])
     tw = _twiddle_table(n, sign, re.device)
-    err = fn(re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-             tw.data_ptr(), rows, n.bit_length() - 1, sign, _scale_arg(scale),
-             re.device.index, _stream(re))
-    build.check("rows_fft", err, f"rows_fft launch failed (n={n}, rows={rows})")
+    build.launch("rows_fft", "rows_fft_f32", [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
+                 re.device, re.data_ptr(), im.data_ptr(), out[0].data_ptr(),
+                 out[1].data_ptr(), tw.data_ptr(), rows, n.bit_length() - 1, sign,
+                 _scale_arg(scale), _stream(re),
+                 what=f"rows_fft launch failed (n={n}, rows={rows})")
     launches += 1
     return out
 
@@ -264,11 +263,11 @@ def _ax0_kernel(re, im, sign, scale):
         lib, shape_args = "ax0_fft", (n.bit_length() - 1, sign)
     else:  # (n1, n2); the sign is the table's
         lib, shape_args = "ax0_gen_fft", _choose_general_split(n)
-    fn = build.function(lib, f"{lib}_f32", [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I, _P])
-    err = fn(re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-             _twiddle_table(n, sign, re.device).data_ptr(), planes, m, *shape_args,
-             _scale_arg(scale), re.device.index, _stream(re))
-    build.check(lib, err, f"{lib} launch failed (n={n}, m={m}, planes={planes})")
+    build.launch(lib, f"{lib}_f32", [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _P],
+                 re.device, re.data_ptr(), im.data_ptr(), out[0].data_ptr(),
+                 out[1].data_ptr(), _twiddle_table(n, sign, re.device).data_ptr(), planes,
+                 m, *shape_args, _scale_arg(scale), _stream(re),
+                 what=f"{lib} launch failed (n={n}, m={m}, planes={planes})")
     return out, True
 
 
@@ -363,13 +362,13 @@ def _rows_t_launch(re, im, sign, scale, outer):
     tw = _twiddle_table(n, sign, re.device)
     outer_n = 0 if outer is None else int(outer[1])
     otab = None if outer is None else _twiddle_table(outer_n, sign, re.device).data_ptr()
-    fn = build.function("rows_t_fft", "rows_t_fft_f32",
-                        [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _F, _I, _P])
-    err = fn(re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-             tw.data_ptr(), otab, outer_n, planes, rows, n.bit_length() - 1, sign,
-             _scale_arg(scale), re.device.index, _stream(re))
-    build.check("rows_t_fft", err, f"rows_t_fft launch failed (n={n}, "
-                f"rows={rows}, planes={planes}, outer={outer})")
+    build.launch("rows_t_fft", "rows_t_fft_f32",
+                 [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _F, _P], re.device,
+                 re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                 tw.data_ptr(), otab, outer_n, planes, rows, n.bit_length() - 1, sign,
+                 _scale_arg(scale), _stream(re),
+                 what=f"rows_t_fft launch failed (n={n}, rows={rows}, planes={planes}, "
+                      f"outer={outer})")
     rows_t_launches += 1
     return out
 
@@ -516,16 +515,14 @@ def _fft2f_launch(re, im, sign, scale):
     if re.numel() == 0:
         return out
     planes = re.numel() // (A * B)
-    fn = build.function("fft2f_fft", "fft2f_fft_f32",
-                        [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _I, _P])
     twa = _twiddle_table(A, sign, re.device)
     twb = _twiddle_table(B, sign, re.device)
-    err = fn(re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-             twa.data_ptr(), twb.data_ptr(), planes, A.bit_length() - 1,
-             B.bit_length() - 1, sign, _scale_arg(scale), re.device.index,
-             _stream(re))
-    build.check("fft2f_fft", err,
-                f"fft2f_fft launch failed (plane {A}x{B}, planes={planes})")
+    build.launch("fft2f_fft", "fft2f_fft_f32",
+                 [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _P], re.device,
+                 re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                 twa.data_ptr(), twb.data_ptr(), planes, A.bit_length() - 1,
+                 B.bit_length() - 1, sign, _scale_arg(scale), _stream(re),
+                 what=f"fft2f_fft launch failed (plane {A}x{B}, planes={planes})")
     fft2f_launches += 1
     return out
 
@@ -650,14 +647,12 @@ def _r2c_launch(xr, scale, pad_out):
         return out
     rows = xr.numel() // n
     m = n // 2
-    fn = build.function("r2c_fft", "r2c_fft_f32",
-                        [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P])
-    err = fn(xr.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-             _twiddle_table(m, FORWARD, xr.device).data_ptr(),
-             _halfcomplex_table(n, FORWARD, xr.device).data_ptr(), rows,
-             m.bit_length() - 1, bins, _scale_arg(scale), xr.device.index,
-             _stream(xr))
-    build.check("r2c_fft", err, f"r2c_fft launch failed (n={n}, rows={rows})")
+    build.launch("r2c_fft", "r2c_fft_f32", [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
+                 xr.device, xr.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                 _twiddle_table(m, FORWARD, xr.device).data_ptr(),
+                 _halfcomplex_table(n, FORWARD, xr.device).data_ptr(), rows,
+                 m.bit_length() - 1, bins, _scale_arg(scale), _stream(xr),
+                 what=f"r2c_fft launch failed (n={n}, rows={rows})")
     r2c_launches += 1
     return out
 
@@ -681,14 +676,12 @@ def _c2r_launch(Xr, Xi, n, scale):
         return out
     rows = Xr.numel() // bins
     m = n // 2
-    fn = build.function("c2r_fft", "c2r_fft_f32",
-                        [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P])
-    err = fn(Xr.data_ptr(), Xi.data_ptr(), out.data_ptr(),
-             _twiddle_table(m, INVERSE, Xr.device).data_ptr(),
-             _halfcomplex_table(n, INVERSE, Xr.device).data_ptr(), rows,
-             m.bit_length() - 1, bins, _scale_arg(scale), Xr.device.index,
-             _stream(Xr))
-    build.check("c2r_fft", err, f"c2r_fft launch failed (n={n}, rows={rows})")
+    build.launch("c2r_fft", "c2r_fft_f32", [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
+                 Xr.device, Xr.data_ptr(), Xi.data_ptr(), out.data_ptr(),
+                 _twiddle_table(m, INVERSE, Xr.device).data_ptr(),
+                 _halfcomplex_table(n, INVERSE, Xr.device).data_ptr(), rows,
+                 m.bit_length() - 1, bins, _scale_arg(scale), _stream(Xr),
+                 what=f"c2r_fft launch failed (n={n}, rows={rows})")
     c2r_launches += 1
     return out
 
@@ -836,14 +829,13 @@ def _c2r_prod_launch(Ar, Ai, Br, Bi, n, scale):
         return out
     rows, b_rows = Ar.numel() // bins, Br.numel() // bins
     m = n // 2
-    fn = build.function("c2r_fft", "c2r_prod_fft_f32",
-                        [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _I, _P])
-    err = fn(Ar.data_ptr(), Ai.data_ptr(), Br.data_ptr(), Bi.data_ptr(), out.data_ptr(),
-             _twiddle_table(m, INVERSE, Ar.device).data_ptr(),
-             _halfcomplex_table(n, INVERSE, Ar.device).data_ptr(), rows, b_rows,
-             m.bit_length() - 1, bins, _scale_arg(scale), Ar.device.index, _stream(Ar))
-    build.check("c2r_fft", err, f"c2r_prod launch failed (n={n}, rows={rows}, "
-                f"b_rows={b_rows})")
+    build.launch("c2r_fft", "c2r_prod_fft_f32",
+                 [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _P], Ar.device,
+                 Ar.data_ptr(), Ai.data_ptr(), Br.data_ptr(), Bi.data_ptr(), out.data_ptr(),
+                 _twiddle_table(m, INVERSE, Ar.device).data_ptr(),
+                 _halfcomplex_table(n, INVERSE, Ar.device).data_ptr(), rows, b_rows,
+                 m.bit_length() - 1, bins, _scale_arg(scale), _stream(Ar),
+                 what=f"c2r_prod launch failed (n={n}, rows={rows}, b_rows={b_rows})")
     c2r_prod_launches += 1
     return out
 
@@ -953,12 +945,11 @@ def _gen_launch(re, im, sign, scale):
     if re.numel() == 0:
         return out
     rows = re.numel() // n
-    fn = build.function("gen_fft", "gen_fft_f32",
-                        [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P])
-    err = fn(re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-             _twiddle_table(n, sign, re.device).data_ptr(), rows, n1, n2,
-             _scale_arg(scale), re.device.index, _stream(re))
-    build.check("gen_fft", err, f"gen_fft launch failed (n={n}, rows={rows})")
+    build.launch("gen_fft", "gen_fft_f32", [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
+                 re.device, re.data_ptr(), im.data_ptr(), out[0].data_ptr(),
+                 out[1].data_ptr(), _twiddle_table(n, sign, re.device).data_ptr(), rows, n1,
+                 n2, _scale_arg(scale), _stream(re),
+                 what=f"gen_fft launch failed (n={n}, rows={rows})")
     gen_launches += 1
     return out
 
@@ -1025,12 +1016,12 @@ def _r2c_gen_launch(xr, scale, pad_out):
     if xr.numel() == 0:
         return out
     rows = xr.numel() // n
-    fn = build.function("r2c_gen_fft", "r2c_gen_fft_f32",
-                        [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _I, _P])
-    err = fn(xr.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-             _twiddle_table(n, FORWARD, xr.device).data_ptr(), rows, n1, n2, bins,
-             _scale_arg(scale), xr.device.index, _stream(xr))
-    build.check("r2c_gen_fft", err, f"r2c_gen_fft launch failed (n={n}, rows={rows})")
+    build.launch("r2c_gen_fft", "r2c_gen_fft_f32",
+                 [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _P], xr.device, xr.data_ptr(),
+                 out[0].data_ptr(), out[1].data_ptr(),
+                 _twiddle_table(n, FORWARD, xr.device).data_ptr(), rows, n1, n2, bins,
+                 _scale_arg(scale), _stream(xr),
+                 what=f"r2c_gen_fft launch failed (n={n}, rows={rows})")
     r2c_gen_launches += 1
     return out
 
@@ -1134,14 +1125,13 @@ def _chirp_fwd_launch(re, im, hr, hi, m, sign):
     if re.numel() == 0:
         return out
     rows = re.numel() // n_in
-    fn = build.function("chirp_fft", "chirp_fwd_f32",
-                        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P])
-    err = fn(re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(),
-             out[0].data_ptr(), out[1].data_ptr(),
-             _twiddle_table(m, sign, re.device).data_ptr(), rows, n_in,
-             m.bit_length() - 1, sign, re.device.index, _stream(re))
-    build.check("chirp_fft", err,
-                f"chirp_fwd launch failed (n_in={n_in}, m={m}, rows={rows})")
+    build.launch("chirp_fft", "chirp_fwd_f32",
+                 [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P], re.device,
+                 re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+                 out[0].data_ptr(), out[1].data_ptr(),
+                 _twiddle_table(m, sign, re.device).data_ptr(), rows, n_in,
+                 m.bit_length() - 1, sign, _stream(re),
+                 what=f"chirp_fwd launch failed (n_in={n_in}, m={m}, rows={rows})")
     chirp_fwd_launches += 1
     return out
 
@@ -1211,16 +1201,13 @@ def _chirp_inv_launch(re, im, hr, hi, gr, gi, n_out, sign, scale):
     if re.numel() == 0:
         return out
     rows = re.numel() // m
-    fn = build.function("chirp_fft", "chirp_inv_f32",
-                        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F,
-                         _I, _P])
-    err = fn(re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(),
-             gr.data_ptr(), gi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-             _twiddle_table(m, sign, re.device).data_ptr(), rows, n_out,
-             m.bit_length() - 1, sign, _scale_arg(scale), re.device.index,
-             _stream(re))
-    build.check("chirp_fft", err,
-                f"chirp_inv launch failed (m={m}, n_out={n_out}, rows={rows})")
+    build.launch("chirp_fft", "chirp_inv_f32",
+                 [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _P],
+                 re.device, re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+                 gr.data_ptr(), gi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                 _twiddle_table(m, sign, re.device).data_ptr(), rows, n_out,
+                 m.bit_length() - 1, sign, _scale_arg(scale), _stream(re),
+                 what=f"chirp_inv launch failed (m={m}, n_out={n_out}, rows={rows})")
     chirp_inv_launches += 1
     return out
 
@@ -1302,13 +1289,12 @@ def _filt_kernel(lib_fn, re, im, hr, hi, shape, sign, scale):
     rows = out[0].numel() // n
     if rows == 0:
         return out, False
-    fn = build.function("filt_fft", lib_fn,
-                        [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _I, _P])
-    err = fn(re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(),
-             out[0].data_ptr(), out[1].data_ptr(),
-             _twiddle_table(n, sign, re.device).data_ptr(), rows, n.bit_length() - 1,
-             sign, _scale_arg(scale), re.device.index, _stream(re))
-    build.check("filt_fft", err, f"{lib_fn} launch failed (n={n}, rows={rows})")
+    build.launch("filt_fft", lib_fn, [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
+                 re.device, re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+                 out[0].data_ptr(), out[1].data_ptr(),
+                 _twiddle_table(n, sign, re.device).data_ptr(), rows, n.bit_length() - 1,
+                 sign, _scale_arg(scale), _stream(re),
+                 what=f"{lib_fn} launch failed (n={n}, rows={rows})")
     return out, True
 
 

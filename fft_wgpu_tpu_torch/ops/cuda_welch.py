@@ -1,0 +1,319 @@
+"""Fused segment-spectrum kernels on Hopper: the port's counterpart of
+``ops/pallas_welch.py`` for its four real-input entry points and its
+two-sided complex accumulator.
+
+* ``welch_accum_split`` (B16) — sum over segments of |RFFT(w * frame)|^2;
+* ``spec_psd_split`` (B19) — the per-segment powers;
+* ``csd_accum_split`` (B17) — sum over segments of conj(X) * Y;
+* ``coherence_accum_split`` (B18) — conj(X) * Y, |X|^2 and |Y|^2 summed in
+  one sweep;
+* ``welch_accum_c2c_split`` (B21) — sum over segments of |FFT(w * frame)|^2
+  of a complex signal, all nfft bins.
+
+A frame is ``nperseg`` points of a ``[..., t]`` signal at hop ``hop``,
+less its mean when ``detrend == "constant"`` (each plane of a complex
+signal on its own), times the window, zero-padded to ``nfft``.  All five
+run in ``csrc/welch_fft.cu``, one kernel template; a block takes a tile
+of consecutive segments (the library's ``welch_tiles`` sizes the grid),
+and the accumulators write one partial row per block, which
+``torch.sum`` adds in a fixed order (no float atomics).
+
+A CUDA tensor goes through the kernel, a CPU tensor through its plain
+version (``*_reference``: ``_frame``, ``_detrend_seg``, the window, the
+zero pad, then ``rfft_rows_split_reference`` or, for B21,
+``fft_batched_split_reference``, and the power or cross product, summed
+over segments).  There is no fallback between the two.  The JAX kernels
+have no gradient; each entry point here is a ``torch.autograd.Function``
+whose backward differentiates the composed form, rebuilding the frames
+and running the R2C kernel (B6) or the row kernel (B1), whose own
+backward is the row kernel.
+
+The envelope (:func:`fused_welch_ok`) is wider than the TPU's: the frame
+is read with a stride, so any hop <= nperseg runs (the TPU's chunk view
+needed hop | nperseg and nperseg/hop <= 8), and nfft starts at 128, B6's
+floor, not 512.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from ..core.twiddle import FORWARD
+from ..utils import build
+from . import cuda_fft
+from .cuda_fft import FUSED_MAX_N, FUSED_MIN_N, Unsupported
+from .stft import _frame
+
+__all__ = ["Unsupported", "fused_welch_ok", "welch_accum_split",
+           "welch_accum_split_reference", "spec_psd_split", "spec_psd_split_reference",
+           "csd_accum_split", "csd_accum_split_reference", "coherence_accum_split",
+           "coherence_accum_split_reference", "welch_accum_c2c_split",
+           "welch_accum_c2c_split_reference"]
+
+# Launches of each kernel (B16, B19, B17, B18, B21); callers may reset them
+# to 0.
+welch_launches = 0
+psd_launches = 0
+csd_launches = 0
+coh_launches = 0
+c2c_launches = 0
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = [_P] * 9 + [_LL, _LL] + [_I] * 7 + [_P]
+_TILES_ARGTYPES = [_I, _LL, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+# kind -> (C entry point, output planes, the kind's number in welch_tiles);
+# the counter is f"{kind}_launches"
+_KERNELS = {"welch": ("welch_accum_f32", 1, 0), "psd": ("spec_psd_f32", 1, 1),
+            "csd": ("csd_accum_f32", 2, 2), "coh": ("coh_accum_f32", 4, 3),
+            "c2c": ("welch_c2c_f32", 1, 4)}
+
+
+def fused_welch_ok(t: int, nperseg: int, hop: int, nfft: int, detrend) -> bool:
+    """Envelope of the five kernels (B1's and B6's range, for real and
+    complex input alike): nfft a power of two in 128..16384,
+    1 <= nperseg <= nfft, 0 < hop <= nperseg, t >= nperseg, detrend False,
+    None or "constant" (checked by identity, as the JAX package checks it,
+    so that ``detrend=0`` stays outside)."""
+    return (FUSED_MIN_N <= nfft <= FUSED_MAX_N and nfft & (nfft - 1) == 0
+            and 1 <= nperseg <= nfft
+            and 0 < hop <= nperseg
+            and t >= nperseg
+            and (detrend is False or detrend is None
+                 or (isinstance(detrend, str) and detrend == "constant")))
+
+
+def _check(x, y, win, nperseg, hop, nfft, detrend) -> int:
+    """Validate the operands; the segment count."""
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
+        raise ValueError("x must be a real float32 tensor")
+    if y is not None and (not isinstance(y, torch.Tensor) or y.dtype != torch.float32
+                          or y.device != x.device):
+        raise ValueError("y must be a real float32 tensor on x's device")
+    if y is not None and y.shape != x.shape:
+        raise Unsupported(f"the fused kernels take two signals (or planes) of one "
+                          f"shape, got {tuple(x.shape)} and {tuple(y.shape)}")
+    if (win.dtype != torch.float32 or win.shape != (nperseg,)
+            or win.device != x.device):
+        raise ValueError(f"win must be a float32 [{nperseg}] tensor on x's device")
+    t = x.shape[-1]
+    if not fused_welch_ok(t, nperseg, hop, nfft, detrend):
+        raise Unsupported(f"outside the fused welch envelope (t={t}, nperseg={nperseg}, "
+                          f"hop={hop}, nfft={nfft}, detrend={detrend!r})")
+    return 1 + (t - nperseg) // hop
+
+
+# ---------------------------------------------------------------------- #
+# the composed form: the plain versions and the backward
+# ---------------------------------------------------------------------- #
+def _frames(x, win, nperseg, hop, nfft, detrend):
+    """Framed, detrended, windowed segments zero-padded to nfft,
+    ``[..., num, nfft]``."""
+    # imported here: spectral_est imports this module
+    from .spectral_est import _detrend_seg
+
+    fr = _detrend_seg(_frame(x, nperseg, hop), detrend) * win
+    return torch.nn.functional.pad(fr, (0, nfft - nperseg))
+
+
+def _reduce(kind, X, Y):
+    """The kernel's outputs from the per-segment spectra ``[..., num, bins]``."""
+    (xr, xi), p = X, lambda a, b: a * a + b * b
+    if kind == "psd":
+        return (p(xr, xi),)
+    if kind in ("welch", "c2c"):
+        return (p(xr, xi).sum(-2),)
+    yr, yi = Y
+    cross = ((xr * yr + xi * yi).sum(-2), (xr * yi - xi * yr).sum(-2))
+    if kind == "csd":
+        return cross
+    return (*cross, p(xr, xi).sum(-2), p(yr, yi).sum(-2))
+
+
+def _composed(kind, x, y, win, nperseg, hop, nfft, detrend, kernels: bool):
+    """The kernel's function composed of framing and a transform per
+    segment: through the R2C (or, for B21, the row) kernel when
+    ``kernels``, else through its plain version."""
+    def frames(v):
+        return _frames(v, win, nperseg, hop, nfft, detrend)
+
+    if kind == "c2c":  # x, y: the planes of one complex signal
+        fft = cuda_fft.fft_batched_split if kernels else cuda_fft.fft_batched_split_reference
+        return _reduce(kind, fft(frames(x), frames(y), FORWARD), None)
+    rfft = cuda_fft.rfft_rows_split if kernels else cuda_fft.rfft_rows_split_reference
+    return _reduce(kind, rfft(frames(x)), None if y is None else rfft(frames(y)))
+
+
+# ---------------------------------------------------------------------- #
+# the kernels
+# ---------------------------------------------------------------------- #
+@functools.lru_cache(maxsize=256)
+def _tiles(kind, batch: int, num: int, nfft: int, device) -> tuple[int, int]:
+    """(segments per block S, tiles) of ``kind``'s grid, from the library
+    (``welch_tiles``: two waves of the device's SMs at the kernel's
+    occupancy); asked once per shape and device."""
+    per_block, tiles = _I(), _I()
+    build.launch("welch_fft", "welch_tiles", _TILES_ARGTYPES, device, _KERNELS[kind][2],
+                 batch, num, nfft.bit_length() - 1, ctypes.byref(per_block),
+                 ctypes.byref(tiles), what=f"welch_tiles failed ({kind}, nfft={nfft})")
+    return per_block.value, tiles.value
+
+
+def _launch(kind, x, y, win, nperseg, hop, nfft, detrend):
+    """Run one of the five kernels on CUDA tensors; the outputs."""
+    fn, nout, _ = _KERNELS[kind]
+    lead, t = x.shape[:-1], x.shape[-1]
+    batch = math.prod(lead)
+    num = 1 + (t - nperseg) // hop
+    bins = nfft if kind == "c2c" else nfft // 2 + 1
+    if batch == 0:
+        shape = (*lead, num, bins) if kind == "psd" else (*lead, bins)
+        return tuple(x.new_zeros(shape) for _ in range(nout))
+    x = x.contiguous()
+    y = None if y is None else y.contiguous()
+    per_block, tiles = _tiles(kind, batch, num, nfft, x.device)
+    if kind == "psd":
+        outs = [x.new_empty((batch, num, bins))]
+    else:
+        outs = list(x.new_empty((nout, batch, tiles, bins)).unbind(0))
+    ptrs = [o.data_ptr() for o in outs] + [None] * (4 - nout)
+    if kind == "c2c":  # the nfft-point transform, no recombination
+        tw, half = cuda_fft._twiddle_table(nfft, FORWARD, x.device), None
+    else:  # B6's half-length transform and its recombination table
+        tw = cuda_fft._twiddle_table(nfft // 2, FORWARD, x.device)
+        half = cuda_fft._halfcomplex_table(nfft, FORWARD, x.device).data_ptr()
+    build.launch("welch_fft", fn, _ARGTYPES, x.device,
+                 x.data_ptr(), None if y is None else y.data_ptr(),
+                 win.contiguous().data_ptr(), *ptrs, tw.data_ptr(), half,
+                 batch, t, nperseg, hop, num, per_block, tiles, nfft.bit_length() - 1,
+                 int(detrend == "constant"), cuda_fft._stream(x),
+                 what=f"{fn} launch failed (batch={batch}, t={t}, nperseg={nperseg}, "
+                      f"hop={hop}, nfft={nfft})")
+    globals()[f"{kind}_launches"] += 1
+    if kind == "psd":
+        return (outs[0].reshape(*lead, num, bins),)
+    # the partial rows of the tiles, summed in a fixed order
+    return tuple(o.sum(1).reshape(*lead, bins) for o in outs)
+
+
+def _run(kind, x, y, win, nperseg, hop, nfft, detrend):
+    if x.device.type == "cuda":
+        return _launch(kind, x, y, win, nperseg, hop, nfft, detrend)
+    if x.device.type != "cpu":
+        raise ValueError(f"no segment-spectrum kernel for device {x.device}")
+    return _composed(kind, x, y, win, nperseg, hop, nfft, detrend, kernels=False)
+
+
+class _Segments(torch.autograd.Function):
+    """One of the five kernels with the gradient of its composed form:
+    the backward rebuilds the frames of x (and y) and runs them through
+    the R2C kernel (B6; B21: the row kernel, B1) under autograd, then
+    differentiates the power or cross products and the framing back to the
+    signals."""
+
+    @staticmethod
+    def forward(ctx, kind, x, y, win, nperseg, hop, nfft, detrend):
+        ctx.save_for_backward(x, y, win)
+        ctx.args = (kind, nperseg, hop, nfft, detrend)
+        return _run(kind, x, y, win, nperseg, hop, nfft, detrend)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x, y, win = ctx.saved_tensors
+        kind, nperseg, hop, nfft, detrend = ctx.args
+        with torch.enable_grad():
+            ins = [v.detach().requires_grad_() for v in (x, y) if v is not None]
+            outs = _composed(kind, ins[0], ins[1] if y is not None else None, win,
+                             nperseg, hop, nfft, detrend, kernels=True)
+            gs = torch.autograd.grad(outs, ins, grads)
+        return None, gs[0], gs[1] if y is not None else None, None, None, None, None, None
+
+
+def _apply(kind, x, y, win, nperseg, hop, nfft, detrend):
+    num = _check(x, y, win, nperseg, hop, nfft, detrend)
+    return _Segments.apply(kind, x, y, win, nperseg, hop, nfft, detrend), num
+
+
+def _reference(kind, x, y, win, nperseg, hop, nfft, detrend):
+    num = _check(x, y, win, nperseg, hop, nfft, detrend)
+    return _composed(kind, x, y, win, nperseg, hop, nfft, detrend, kernels=False), num
+
+
+def welch_accum_split(x, win, nperseg, hop, nfft, detrend):
+    """Fused welch core: real float32 ``[..., t]`` x -> (power_sum
+    ``[..., nfft//2 + 1]``, num), power_sum[b] = sum over the ``num``
+    segments of |RFFT(win * detrend(frame_s), nfft)[b]|^2.  The caller
+    applies the mean, the normalisation and the one-sided doubling.
+    Differentiable in x."""
+    (psum,), num = _apply("welch", x, None, win, nperseg, hop, nfft, detrend)
+    return psum, num
+
+
+def welch_accum_split_reference(x, win, nperseg, hop, nfft, detrend):
+    """Plain torch version of :func:`welch_accum_split`; raises
+    :class:`Unsupported` where the kernel would."""
+    (psum,), num = _reference("welch", x, None, win, nperseg, hop, nfft, detrend)
+    return psum, num
+
+
+def spec_psd_split(x, win, nperseg, hop, nfft, detrend):
+    """Fused per-segment power spectra: real float32 ``[..., t]`` x ->
+    ``[..., num, nfft//2 + 1]`` (the spectrogram psd core and welch's
+    median; the caller scales).  Differentiable in x."""
+    (P,), _ = _apply("psd", x, None, win, nperseg, hop, nfft, detrend)
+    return P
+
+
+def spec_psd_split_reference(x, win, nperseg, hop, nfft, detrend):
+    """Plain torch version of :func:`spec_psd_split`."""
+    (P,), _ = _reference("psd", x, None, win, nperseg, hop, nfft, detrend)
+    return P
+
+
+def csd_accum_split(x, y, win, nperseg, hop, nfft, detrend):
+    """Fused csd core: real float32 ``[..., t]`` x, y of one shape ->
+    (Pr, Pi ``[..., nfft//2 + 1]``, num), P = sum_s conj(X_s) * Y_s (scipy's
+    csd convention).  Differentiable in x and y."""
+    (pr, pi), num = _apply("csd", x, y, win, nperseg, hop, nfft, detrend)
+    return pr, pi, num
+
+
+def csd_accum_split_reference(x, y, win, nperseg, hop, nfft, detrend):
+    """Plain torch version of :func:`csd_accum_split`."""
+    (pr, pi), num = _reference("csd", x, y, win, nperseg, hop, nfft, detrend)
+    return pr, pi, num
+
+
+def coherence_accum_split(x, y, win, nperseg, hop, nfft, detrend):
+    """Fused coherence core: real float32 ``[..., t]`` x, y of one shape ->
+    (Pr, Pi, Sxx, Syy ``[..., nfft//2 + 1]``, num) from one sweep;
+    coherence = |P|^2 / (Sxx Syy), whose normalisations cancel.
+    Differentiable in x and y."""
+    outs, num = _apply("coh", x, y, win, nperseg, hop, nfft, detrend)
+    return (*outs, num)
+
+
+def coherence_accum_split_reference(x, y, win, nperseg, hop, nfft, detrend):
+    """Plain torch version of :func:`coherence_accum_split`."""
+    outs, num = _reference("coh", x, y, win, nperseg, hop, nfft, detrend)
+    return (*outs, num)
+
+
+def welch_accum_c2c_split(re, im, win, nperseg, hop, nfft, detrend):
+    """Fused two-sided welch core (B21): a complex signal as float32
+    planes (re, im) ``[..., t]`` of one shape -> (power_sum ``[..., nfft]``,
+    num), power_sum[b] = sum over the ``num`` segments of |FFT(win *
+    detrend(frame_s), nfft)[b]|^2, every bin in natural (unshifted) order;
+    each plane is detrended on its own.  The caller applies the mean and
+    the normalisation.  Differentiable in re and im."""
+    (psum,), num = _apply("c2c", re, im, win, nperseg, hop, nfft, detrend)
+    return psum, num
+
+
+def welch_accum_c2c_split_reference(re, im, win, nperseg, hop, nfft, detrend):
+    """Plain torch version of :func:`welch_accum_c2c_split`."""
+    (psum,), num = _reference("c2c", re, im, win, nperseg, hop, nfft, detrend)
+    return psum, num

@@ -12,12 +12,14 @@ Math (one level), for n = n1*n2, x row-major viewed as A[n1, n2]:
 
 Everything operates on split (re, im) float32 tensors on whatever device
 they lie on; the transform axis is always the last one.  The matmuls run
-in full float32: on a CUDA device TF32 is switched off before each one,
-because TF32 keeps about three decimal digits and misses the 1e-5
-relative-L2 bar.
+in full float32: on a CUDA device TF32 is switched off around each one
+(:func:`full_float32`, which restores the caller's setting), because TF32
+keeps about three decimal digits and misses the 1e-5 relative-L2 bar.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -25,7 +27,7 @@ import torch
 from ..core import factor as _factor
 from ..core import twiddle as _tw
 
-__all__ = ["fft_last_axis", "apply_scale", "BLUESTEIN_MIN"]
+__all__ = ["fft_last_axis", "apply_scale", "full_float32", "BLUESTEIN_MIN"]
 
 # Non-smooth lengths from this size on take Bluestein (as
 # fft_wgpu_tpu.ops.bluestein.BLUESTEIN_MIN); below it the direct DFT serves.
@@ -45,12 +47,27 @@ def _const(kind: str, args: tuple, device):
     return pair
 
 
+@contextlib.contextmanager
+def full_float32(t):
+    """Matmuls on ``t``'s device in full float32 inside the block: on a CUDA
+    tensor TF32 is off there (it would cut a product to ~1e-3 relative
+    error) and the caller's setting is restored after it; the CPU has no
+    TF32, so a CPU tensor leaves the setting alone."""
+    if not t.is_cuda:
+        yield
+        return
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def _cmatmul(ar, ai, wr, wi):
     """(ar + i*ai) @ (wr + i*wi) in full float32."""
-    if ar.is_cuda:
-        # TF32 would cut the matmul to ~1e-3 relative error.
-        torch.backends.cuda.matmul.allow_tf32 = False
-    return ar @ wr - ai @ wi, ar @ wi + ai @ wr
+    with full_float32(ar):
+        return ar @ wr - ai @ wi, ar @ wi + ai @ wr
 
 
 def _dft_direct(re, im, sign):

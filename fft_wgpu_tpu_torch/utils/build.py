@@ -11,6 +11,8 @@ header it includes (``#include "<header>.cuh"``, followed into headers) and
 of the flags, so an edited source or header is rebuilt and a stale library
 is never loaded.  nvcc's output, with ``-Xptxas -v``'s register and
 shared-memory report, is kept beside the library as ``<library>.log``.
+Every launch goes through :func:`launch`, which calls the C function on
+the tensors' device and leaves the thread's current device as it was.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["CompileError", "BUILD_DIR", "library_path", "build", "load",
-           "function", "check"]
+           "function", "check", "launch"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -123,3 +125,16 @@ def check(name: str, err: int, what: str) -> None:
         describe.argtypes = [ctypes.c_int]
         describe.restype = ctypes.c_char_p
         raise RuntimeError(f"{what}: {describe(err).decode()}")
+
+
+def launch(name: str, fn: str, argtypes: list, device, *args, what: str) -> None:
+    """Call the C function ``fn`` of ``csrc/<name>.cu`` with ``args`` for
+    tensors on ``device``, inside a ``torch.cuda.device`` guard: the call
+    runs on that device and the thread's current device is restored after
+    it.  Raise with ``what`` if it returned an error."""
+    import torch
+
+    f = function(name, fn, argtypes)
+    with torch.cuda.device(device):
+        err = f(*args)
+    check(name, err, what)

@@ -116,6 +116,31 @@ def test_promote_to_split_inputs(rng):
     assert t_cu.split(c128)[0].dtype == torch.float32
 
 
+def test_promote_to_split_reads_lists_as_data(rng):
+    # a pair is a tuple of two tensors or arrays; a list of two rows is data
+    # (numpy's reading), so fft([[1, 2, 3, 4], [5, 6, 7, 8]]) is two rows
+    import fft_wgpu_tpu_torch as ft
+
+    rows = [[1.0, 2.0, 3.0, 4.0], [5.0, 6.0, 7.0, 8.0]]
+    re, im = t_cu.promote_to_split(rows, device="cpu")
+    assert re.shape == (2, 4) and not im.any()
+    np.testing.assert_array_equal(re.numpy(), np.asarray(rows, np.float32))
+    x = rng.standard_normal((2, 6))
+    for data in (x.tolist(), [x[0], x[1]], [torch.from_numpy(x[0]), torch.from_numpy(x[1])]):
+        re, im = t_cu.promote_to_split(data, device="cpu")
+        np.testing.assert_array_equal(re.numpy(), x.astype(np.float32))
+        assert not im.any()
+    for pair in ((x[0], x[1]), (torch.from_numpy(x[0]), x[1])):
+        assert t_cu.is_pair(pair)
+        re, im = t_cu.promote_to_split(pair, device="cpu")
+        np.testing.assert_array_equal(im.numpy(), x[1].astype(np.float32))
+    assert not t_cu.is_pair((x[0], 1.0)) and not t_cu.is_pair([x[0], x[1]])
+    y = ft.fft(torch.from_numpy(np.asarray(rows, np.float32)))
+    np.testing.assert_allclose(y.numpy(), np.fft.fft(rows), rtol=1e-6, atol=1e-5)
+    re, im = t_cu.promote_to_split(rows, device="cpu")
+    np.testing.assert_allclose(ft.fft((re, im)).numpy(), np.fft.fft(rows), rtol=1e-6, atol=1e-5)
+
+
 
 def test_numpy_input_needs_a_card(rng, monkeypatch):
     """Non-tensor input goes to the current CUDA device, as the JAX package

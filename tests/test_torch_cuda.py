@@ -3,9 +3,11 @@
 rows_fft (B1), ax0_fft (B2, and B3 on the axis(-3) view), rows_t_fft (B4),
 fft2f_fft (B5), r2c_fft (B6), c2r_fft (B7), big_fft (B15), gen_fft (B13),
 r2c_gen_fft (B14), chirp_fft (B11, B12), filt_fft (B9, B10), the product
-form of c2r_fft (B8) and ax0_gen_fft (B2's composite range): values,
-launch counts and gradients, and the routes of the plan, the N-D, the
-real and the non-pow2 transforms and the fused epilogues through them.
+form of c2r_fft (B8), ax0_gen_fft (B2's composite range) and welch_fft
+(B16, B17, B18, B19, B21): values, launch counts and gradients, and the routes
+of the plan, the N-D, the real and the non-pow2 transforms, the fused
+epilogues and the spectral estimators through them.  No call may move the
+thread's current device or the caller's TF32 setting.
 
 Every test here needs a CUDA device and skips without one.  The card's
 machine has no jax, so run them without the suite's conftest:
@@ -20,7 +22,7 @@ import pytest
 import torch
 
 import fft_wgpu_tpu_torch as ft
-from fft_wgpu_tpu_torch.ops import bigfft, cuda_fft, stockham
+from fft_wgpu_tpu_torch.ops import bigfft, cuda_fft, cuda_welch, stockham
 
 pytestmark = pytest.mark.cuda
 
@@ -264,7 +266,9 @@ def _counts():
             "chirp_fwd": cuda_fft.chirp_fwd_launches,
             "chirp_inv": cuda_fft.chirp_inv_launches, "filt": cuda_fft.filt_launches,
             "bank": cuda_fft.bank_launches, "c2r_prod": cuda_fft.c2r_prod_launches,
-            "ax0_gen": cuda_fft.ax0_gen_launches}
+            "ax0_gen": cuda_fft.ax0_gen_launches, "welch": cuda_welch.welch_launches,
+            "psd": cuda_welch.psd_launches, "csd": cuda_welch.csd_launches,
+            "coh": cuda_welch.coh_launches, "c2c": cuda_welch.c2c_launches}
 
 
 def _through(fn, **want):
@@ -756,3 +760,228 @@ def test_composite_axis_routes(dev):
     assert rel_l2(R, torch.fft.rfft2(r)) < TOL
     y = crand(dev, 1000, 3, 64, seed=2)  # axis -3: B2-composite on the free view
     assert rel_l2(_through(lambda: ft.fft(y, axis=0), ax3=1), torch.fft.fft(y, dim=0)) < TOL
+
+
+# ---------------------------------------------------------------------- #
+# the caller's state: TF32 and the current device
+# ---------------------------------------------------------------------- #
+def test_tf32_setting_is_restored(dev):
+    x = crand(dev, 64, 100)  # 100 = 4 * 25: the plain path's matmuls
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y = ft.fft(x)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        w = ft.lombscargle(torch.linspace(0, 10, 300, device=dev),
+                           torch.sin(torch.linspace(0, 23, 300, device=dev)),
+                           torch.linspace(0.5, 6.0, 50, device=dev))
+        assert torch.backends.cuda.matmul.allow_tf32 is True and w.device == x.device
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert rel_l2(y, torch.fft.fft(x)) < TOL
+
+
+def _every_kernel(dev):
+    """One small call of each C entry point of the thirteen libraries."""
+    from fft_wgpu_tpu_torch.ops import bluestein
+
+    def planar(*shape):
+        x = crand(dev, *shape)
+        return x.real.contiguous(), x.imag.contiguous()
+
+    re, im = planar(3, 1024)
+    hr, hi = planar(1024)
+    r = rrand(dev, 3, 1024)
+    Rr, Ri = cuda_fft._r2c_launch(r, None, False)
+    g = rrand(dev, 3, 1000)
+    s, w = rrand(dev, 2, 4096), torch.hann_window(256, device=dev)
+    (cr, ci, bfr, bfi), m = bluestein._chirp_tables(1031, -1, dev)
+    return {
+        "rows_fft": lambda: cuda_fft._launch(re, im, -1, None),
+        "ax0_fft": lambda: cuda_fft._ax0_launch(*planar(2, 128, 5), -1, None),
+        "rows_t_fft": lambda: cuda_fft._rows_t_launch(re, im, -1, None, None),
+        "big_fft": lambda: bigfft._launch(*planar(1, 1 << 15), -1, None),
+        "fft2f_fft": lambda: cuda_fft._fft2f_launch(*planar(2, 128, 128), -1, None),
+        "r2c_fft": lambda: cuda_fft._r2c_launch(r, None, False),
+        "c2r_fft": lambda: cuda_fft._c2r_launch(Rr, Ri, 1024, None),
+        "c2r_prod": lambda: cuda_fft._c2r_prod_launch(Rr, Ri, Rr, Ri, 1024, None),
+        "gen_fft": lambda: cuda_fft._gen_launch(g, g, -1, None),
+        "r2c_gen_fft": lambda: cuda_fft._r2c_gen_launch(g, None, False),
+        "ax0_gen": lambda: cuda_fft._ax0_launch(*planar(1000, 3), -1, None),
+        "chirp_fwd": lambda: cuda_fft._chirp_fwd_launch(*planar(2, 1031), cr, ci, m, -1),
+        "chirp_inv": lambda: cuda_fft._chirp_inv_launch(*planar(2, m), bfr, bfi, cr, ci, 1031,
+                                                        1, 1.0 / m),
+        "filt": lambda: cuda_fft._filt(re, im, hr, hi, -1, None),
+        "bank": lambda: cuda_fft._bank(hr, hi, re, im, -1, None),
+        "welch": lambda: cuda_welch.welch_accum_split(s, w, 256, 128, 256, "constant"),
+        "psd": lambda: cuda_welch.spec_psd_split(s, w, 256, 128, 256, "constant"),
+        "csd": lambda: cuda_welch.csd_accum_split(s, s, w, 256, 128, 256, "constant"),
+        "coh": lambda: cuda_welch.coherence_accum_split(s, s, w, 256, 128, 256, "constant"),
+        "c2c": lambda: cuda_welch.welch_accum_c2c_split(s, s, w, 256, 128, 256, "constant"),
+    }
+
+
+def test_kernels_leave_current_device(dev):
+    """Each launch runs on its tensors' device inside a device guard; the
+    thread's current device is what it was (with two cards or more the
+    current device is set to another card than the tensors')."""
+    calls = _every_kernel(dev)
+    other = torch.cuda.device_count() - 1
+    prev = torch.cuda.current_device()
+    torch.cuda.set_device(other)
+    try:
+        for name, call in calls.items():
+            before = _counts()
+            call()
+            torch.cuda.synchronize(dev)
+            assert torch.cuda.current_device() == other, name
+            assert sum(_counts().values()) > sum(before.values()), name
+    finally:
+        torch.cuda.set_device(prev)
+
+
+# ---------------------------------------------------------------------- #
+# the fused segment-spectrum kernels: B16 (welch), B19 (psd), B17 (csd),
+# B18 (coh), B21 (c2c: y is the imaginary plane) and the spectral
+# estimators' routes
+# ---------------------------------------------------------------------- #
+WELCH_KINDS = ("welch", "psd", "csd", "coh", "c2c")
+
+
+def _welch_call(kind, x, y, w, args, plain=False):
+    suffix = "_reference" if plain else ""
+    if kind == "welch":
+        return (getattr(cuda_welch, "welch_accum_split" + suffix)(x, w, *args)[0],)
+    if kind == "psd":
+        return (getattr(cuda_welch, "spec_psd_split" + suffix)(x, w, *args),)
+    if kind == "c2c":
+        return (getattr(cuda_welch, "welch_accum_c2c_split" + suffix)(x, y, w, *args)[0],)
+    fn = "csd_accum_split" if kind == "csd" else "coherence_accum_split"
+    return getattr(cuda_welch, fn + suffix)(x, y, w, *args)[:-1]
+
+
+def _welch_oracle(kind, x, y, w, nperseg, hop, nfft, detrend):
+    """float64 torch.fft of the frames: an oracle, never the implementation."""
+    def spectra(v):
+        fr = v.unfold(-1, nperseg, hop)
+        if detrend == "constant":
+            fr = fr - fr.mean(-1, keepdim=True)
+        fft = torch.fft.fft if v.is_complex() else torch.fft.rfft
+        return fft(fr * w.double(), n=nfft)
+
+    if kind == "c2c":
+        return ((spectra(torch.complex(x.double(), y.double())).abs() ** 2).sum(-2),)
+    X = spectra(x.double())
+    if kind == "psd":
+        return (X.abs() ** 2,)
+    if kind == "welch":
+        return ((X.abs() ** 2).sum(-2),)
+    Y = spectra(y.double())
+    P = (X.conj() * Y).sum(-2)
+    outs = (P.real, P.imag)
+    return outs + ((X.abs() ** 2).sum(-2), (Y.abs() ** 2).sum(-2)) if kind == "coh" else outs
+
+
+def _stack(outs):
+    return torch.stack([o.reshape(-1) for o in outs])
+
+
+@pytest.mark.parametrize("nfft", [1 << e for e in range(7, 15)])
+@pytest.mark.parametrize("kind", WELCH_KINDS)
+def test_welch_kernels_match_plain_and_torch_fft(dev, nfft, kind):
+    cases = 0
+    for nperseg in (nfft, nfft - nfft // 4 + 1):
+        for hop in (nperseg, nperseg // 2, nperseg - nperseg // 8):
+            for lead, detrend in (((), False), ((3,), "constant")):
+                t = nperseg + 37 * hop + hop // 3  # a ragged last tile
+                x, y = rrand(dev, *lead, t, seed=1), rrand(dev, *lead, t, seed=2)
+                w = torch.hann_window(nperseg, device=dev) + 0.1
+                args = (nperseg, hop, nfft, detrend)
+                got = _through(lambda: _welch_call(kind, x, y, w, args), **{kind: 1})
+                plain = _welch_call(kind, x, y, w, args, plain=True)
+                want = _welch_oracle(kind, x, y, w, *args)
+                assert rel_l2(_stack(got), _stack(plain)) < TOL, (nperseg, hop, lead)
+                assert rel_l2(_stack(got), _stack(want)) < TOL, (nperseg, hop, lead)
+                cases += 1
+    assert cases == 12
+
+
+def test_welch_kernels_are_bit_identical_across_runs(dev):
+    x, y = rrand(dev, 1 << 22, seed=1), rrand(dev, 1 << 22, seed=2)
+    w = torch.hann_window(4096, device=dev)
+    for kind in WELCH_KINDS:
+        a = _welch_call(kind, x, y, w, (4096, 2048, 4096, "constant"))
+        b = _welch_call(kind, x, y, w, (4096, 2048, 4096, "constant"))
+        assert all(torch.equal(u, v) for u, v in zip(a, b)), kind
+    x = rrand(dev, 64, 1 << 16, seed=3)  # many small blocks
+    w = torch.hann_window(256, device=dev)
+    a = cuda_welch.welch_accum_split(x, w, 256, 128, 256, "constant")[0]
+    assert torch.equal(a, cuda_welch.welch_accum_split(x, w, 256, 128, 256, "constant")[0])
+
+
+def test_welch_kernels_raise_outside_envelope(dev):
+    x, w = rrand(dev, 4096), torch.ones(512, device=dev)
+    with pytest.raises(cuda_welch.Unsupported):
+        cuda_welch.welch_accum_split(x, w, 512, 256, 512, "linear")
+    with pytest.raises(cuda_welch.Unsupported):
+        cuda_welch.spec_psd_split(x, w, 512, 256, 32768, False)
+    with pytest.raises(ValueError, match="win"):
+        cuda_welch.welch_accum_split(x, w.cpu(), 512, 256, 512, False)
+
+
+@pytest.mark.parametrize("kind", WELCH_KINDS)
+def test_grad_welch_kernels_match_plain(dev, kind):
+    """Backward: the frames rebuilt and run through B6 under autograd (B6
+    forward, B1 back, for each signal; B21: B1 forward and back)."""
+    x0, y0 = rrand(dev, 2, 5000, seed=4), rrand(dev, 2, 5000, seed=5)
+    w = torch.hann_window(512, device=dev)
+    args = (512, 200, 1024, "constant")
+
+    def grad(plain):
+        x, y = x0.clone().requires_grad_(), y0.clone().requires_grad_()
+        outs = _welch_call(kind, x, y, w, args, plain=plain)
+        loss = sum((torch.linspace(0.5, 1.5, o.numel(), device=dev).reshape(o.shape) * o).sum()
+                   for o in outs)
+        loss.backward()
+        return torch.cat([x.grad.reshape(-1)]
+                         + ([y.grad.reshape(-1)] if kind in ("csd", "coh", "c2c") else []))
+
+    two = 2 if kind in ("csd", "coh") else 1
+    back = {"rows_fft": 2} if kind == "c2c" else {"r2c_fft": two, "rows_fft": two}
+    gk = _through(lambda: grad(False), **{kind: 1}, **back)
+    assert rel_l2(gk, grad(True)) < TOL
+
+
+def test_spectral_estimator_routes(dev):
+    """Each estimator on the card takes its route with exact launches and
+    matches the same call on CPU tensors (the composed route)."""
+    x, y = rrand(dev, 3, 1 << 16, seed=6), rrand(dev, 3, 1 << 16, seed=7)
+    xc = crand(dev, 1 << 14, seed=8)
+    calls = [
+        ("welch", lambda v, u: ft.welch(v, nperseg=1024)[1], {"welch": 1}),
+        ("welch scipy defaults", lambda v, u: ft.welch(v)[1], {"welch": 1}),
+        ("welch median", lambda v, u: ft.welch(v[0], nperseg=512, average="median")[1],
+         {"psd": 1}),
+        ("periodogram", lambda v, u: ft.periodogram(v[:, :16384])[1], {"welch": 1}),
+        ("csd", lambda v, u: ft.csd(v, u, nperseg=2048)[1], {"csd": 1}),
+        ("coherence", lambda v, u: ft.coherence(v, u, nperseg=512)[1], {"coh": 1}),
+        ("spectrogram", lambda v, u: ft.spectrogram(v, nperseg=1024)[2], {"psd": 1}),
+        ("spectrogram magnitude",
+         lambda v, u: ft.spectrogram(v, nperseg=1024, mode="magnitude")[2], {"psd": 1}),
+        ("spectrogram complex", lambda v, u: ft.spectrogram(v, nperseg=1024, mode="complex")[2],
+         {"r2c_fft": 1}),
+        ("welch linear", lambda v, u: ft.welch(v, nperseg=1024, detrend="linear")[1],
+         {"r2c_fft": 1}),
+        ("multitaper", lambda v, u: ft.multitaper(v[0, :16384], NW=4.0)[1], {"r2c_fft": 1}),
+        ("welch two-sided", lambda v, u: ft.welch(v, nperseg=1024, return_onesided=False)[1],
+         {"c2c": 1}),
+        ("csd two-sided", lambda v, u: ft.csd(v, u, nperseg=1024, return_onesided=False)[1],
+         {"rows_fft": 2}),
+    ]
+    for what, call, want in calls:
+        got = _through(lambda: call(x, y), **want)
+        assert got.device.type == "cuda", what
+        assert rel_l2(got.cpu(), call(x.cpu(), y.cpu())) < TOL, what
+    got = _through(lambda: ft.welch(xc, nperseg=4096)[1], c2c=1)  # complex input: B21
+    assert rel_l2(got.cpu(), ft.welch(xc.cpu(), nperseg=4096)[1]) < TOL
+    f, P = ft.welch(x.cpu().numpy()[0], nperseg=1024)  # numpy input: the current card
+    assert P.device.type == "cuda" and f.device.type == "cuda"

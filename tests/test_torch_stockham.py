@@ -82,3 +82,23 @@ def test_bluestein_min_matches_jax():
     from fft_wgpu_tpu.ops.bluestein import BLUESTEIN_MIN
 
     assert t_st.BLUESTEIN_MIN == BLUESTEIN_MIN
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_cmatmul_leaves_tf32_setting(tf32, rng, assert_close):
+    # the products run in full float32 and leave the caller's TF32 setting
+    # as they found it (a CPU tensor never touches it; the card's half of
+    # this check is in tests/test_torch_cuda.py)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        ar, ai, wr, wi = (torch.from_numpy(a) for a in (*_pair(rng, 3, 8), *_pair(rng, 8, 5)))
+        yr, yi = t_st._cmatmul(ar, ai, wr, wi)
+        assert torch.backends.cuda.matmul.allow_tf32 is tf32
+        with t_st.full_float32(ar):
+            assert torch.backends.cuda.matmul.allow_tf32 is tf32
+        assert torch.backends.cuda.matmul.allow_tf32 is tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    want = (ar.numpy() + 1j * ai.numpy()) @ (wr.numpy() + 1j * wi.numpy())
+    assert_close(yr.numpy() + 1j * yi.numpy(), want)

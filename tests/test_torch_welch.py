@@ -1,0 +1,323 @@
+"""Torch port, the fused segment-spectrum kernels' entry points on the CPU:
+``welch_accum_split`` (B16), ``spec_psd_split`` (B19), ``csd_accum_split``
+(B17), ``coherence_accum_split`` (B18) and ``welch_accum_c2c_split`` (B21)
+of ``ops/cuda_welch.py``.
+
+On a CPU tensor each entry point runs its plain version.  Inside the JAX
+package's envelope the same numpy inputs go through its Pallas kernels in
+interpret mode, as ``tests/test_pallas_welch.py`` runs them; outside it
+(nfft 128 and 256, a hop that does not divide nperseg, more than 8 hops a
+frame) against a float64 numpy framing.  Gradients: the JAX kernels have
+none, so the port's backward is held against ``jax.grad`` of the JAX
+package's composed path (``_spec_segments_split`` and the same products).
+The kernels themselves need the card: ``tests/test_torch_cuda.py``.
+Tolerance: 1e-5 relative L2.
+"""
+
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.signal as ss
+import torch
+
+from fft_wgpu_tpu.ops import pallas_welch as j_pw
+from fft_wgpu_tpu.ops import spectral_est as j_se
+from fft_wgpu_tpu_torch.ops import cuda_welch
+
+torch.set_num_threads(1)
+
+KINDS = ("welch", "psd", "csd", "coh")
+
+
+def _t(x):
+    # a CPU tensor asks the port for the CPU
+    return torch.from_numpy(np.array(x))
+
+
+def _np(v):
+    return v.detach().numpy()
+
+
+def port(kind, x, y, win, *args):
+    """The port's entry point of ``kind``: its tensors as numpy, and num."""
+    w = _t(win)
+    if kind == "welch":
+        p, num = cuda_welch.welch_accum_split(_t(x), w, *args)
+        return [_np(p)], num
+    if kind == "psd":
+        P = cuda_welch.spec_psd_split(_t(x), w, *args)
+        return [_np(P)], P.shape[-2]
+    fn = cuda_welch.csd_accum_split if kind == "csd" else cuda_welch.coherence_accum_split
+    *outs, num = fn(_t(x), _t(y), w, *args)
+    return [_np(o) for o in outs], num
+
+
+def jax_kernel(kind, x, y, win, *args):
+    """The JAX package's Pallas kernel of ``kind`` in interpret mode."""
+    if kind == "welch":
+        p, num = j_pw.welch_accum_split(x, win, *args, interpret=True)
+        return [np.asarray(p)], num
+    if kind == "psd":
+        P = j_pw.spec_psd_split(x, win, *args, interpret=True)
+        return [np.asarray(P)], P.shape[-2]
+    fn = j_pw.csd_accum_split if kind == "csd" else j_pw.coherence_accum_split
+    *outs, num = fn(x, y, win, *args, interpret=True)
+    return [np.asarray(o) for o in outs], num
+
+
+def numpy_ref(kind, x, y, win, nperseg, hop, nfft, detrend):
+    """float64 numpy framing: every segment's rfft, then the products."""
+    def spectra(v):
+        v = np.asarray(v, np.float64)
+        num = 1 + (v.shape[-1] - nperseg) // hop
+        fr = np.stack([v[..., s * hop: s * hop + nperseg] for s in range(num)], -2)
+        if detrend == "constant":
+            fr = fr - fr.mean(-1, keepdims=True)
+        return np.fft.rfft(fr * win, n=nfft)
+
+    X = spectra(x)
+    if kind == "psd":
+        return [np.abs(X) ** 2], X.shape[-2]
+    if kind == "welch":
+        return [(np.abs(X) ** 2).sum(-2)], X.shape[-2]
+    Y = spectra(y)
+    P = (np.conj(X) * Y).sum(-2)
+    outs = [P.real, P.imag]
+    if kind == "coh":
+        outs += [(np.abs(X) ** 2).sum(-2), (np.abs(Y) ** 2).sum(-2)]
+    return outs, X.shape[-2]
+
+
+def check_all(got, want, assert_close, what):
+    (g, gnum), (w, wnum) = got, want
+    assert gnum == wnum, what
+    assert len(g) == len(w), what
+    for a, b in zip(g, w):
+        assert a.shape == b.shape and a.dtype == np.float32, what
+        assert_close(a, b, what=what)
+
+
+def inputs(rng, lead, t, nperseg):
+    x = rng.standard_normal((*lead, t)).astype(np.float32)
+    y = rng.standard_normal((*lead, t)).astype(np.float32)
+    return x, y, ss.get_window("hann", nperseg).astype(np.float32)
+
+
+# ---------------------------------------------------------------------- #
+# the envelope
+# ---------------------------------------------------------------------- #
+def test_envelope_contains_jax_envelope():
+    port_only = 0
+    for t, nperseg, hop, nfft, detrend in itertools.product(
+            (100, 512, 4096, 20000), (1, 96, 256, 512, 1000, 4096, 16384),
+            (1, 3, 64, 128, 256, 384, 512, 4096), (64, 100, 128, 256, 512, 1000, 1024,
+                                                   4096, 16384, 32768),
+            (False, None, "constant", "linear", 0)):
+        mine = cuda_welch.fused_welch_ok(t, nperseg, hop, nfft, detrend)
+        if j_pw.fused_welch_ok(t, nperseg, hop, nfft, detrend):
+            assert mine, (t, nperseg, hop, nfft, detrend)
+        port_only += mine and not j_pw.fused_welch_ok(t, nperseg, hop, nfft, detrend)
+        # one envelope for real and complex input (B21's table is the JAX c2c one)
+        if j_pw.fused_welch_ok(t, nperseg, hop, nfft, detrend, c2c=True):
+            assert mine, ("c2c", t, nperseg, hop, nfft, detrend)
+    assert port_only > 0
+    # the lifted rules: nfft from 128, any hop <= nperseg, more than 8 hops a frame
+    assert cuda_welch.fused_welch_ok(4096, 256, 128, 256, "constant")
+    assert cuda_welch.fused_welch_ok(4096, 512, 384, 512, False)
+    assert cuda_welch.fused_welch_ok(4096, 512, 32, 512, None)
+    # and what stays outside: detrend=0, "linear", hop > nperseg, nperseg > nfft, t < nperseg
+    for args in ((4096, 512, 256, 512, 0), (4096, 512, 256, 512, "linear"),
+                 (4096, 512, 513, 512, False), (4096, 1024, 256, 512, False),
+                 (500, 512, 256, 512, False), (4096, 512, 256, 64, False),
+                 (4096, 96, 32, 96, False), (40000, 512, 256, 32768, False)):
+        assert not cuda_welch.fused_welch_ok(*args), args
+
+
+def test_outside_envelope_raises():
+    x, w = torch.zeros(4096), torch.ones(512)
+    with pytest.raises(cuda_welch.Unsupported):
+        cuda_welch.welch_accum_split(x, w, 512, 256, 512, "linear")
+    with pytest.raises(cuda_welch.Unsupported):
+        cuda_welch.spec_psd_split(x, w, 512, 256, 1000, False)
+    with pytest.raises(cuda_welch.Unsupported):
+        cuda_welch.csd_accum_split(x, torch.zeros(4095), w, 512, 256, 512, False)
+    with pytest.raises(ValueError, match="win"):
+        cuda_welch.welch_accum_split(x, torch.ones(511), 512, 256, 512, False)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_welch.welch_accum_split(x.double(), w, 512, 256, 512, False)
+    with pytest.raises(cuda_welch.Unsupported):
+        cuda_welch.welch_accum_split_reference(x, w, 512, 256, 512, 0)
+    with pytest.raises(cuda_welch.Unsupported):  # the planes of one complex signal
+        cuda_welch.welch_accum_c2c_split(x, torch.zeros(4095), w, 512, 256, 512, False)
+    with pytest.raises(cuda_welch.Unsupported):
+        cuda_welch.welch_accum_c2c_split(x, x, w, 512, 256, 32768, False)
+
+
+# ---------------------------------------------------------------------- #
+# inside the JAX envelope: against the Pallas kernels in interpret mode
+# ---------------------------------------------------------------------- #
+JAX_CASES = [((2,), 4096, 512, 256, 512, "constant"),     # batch, ragged last block
+             ((), 4096, 512, 128, 1024, None)]              # nfft pad, K = 4
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("case", JAX_CASES, ids=lambda c: "x".join(map(str, c[1:5])))
+def test_kernel_matches_jax_interpret(kind, case, rng, assert_close):
+    lead, t, nperseg, hop, nfft, detrend = case
+    x, y, win = inputs(rng, lead, t, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    got = port(kind, x, y, win, *args)
+    check_all(got, jax_kernel(kind, x, y, win, *args), assert_close, f"{kind} vs JAX")
+    check_all(got, numpy_ref(kind, x, y, win, *args), assert_close, f"{kind} vs numpy")
+    assert (cuda_welch.welch_launches, cuda_welch.psd_launches, cuda_welch.csd_launches,
+            cuda_welch.coh_launches, cuda_welch.c2c_launches) == (0, 0, 0, 0, 0)
+
+
+def numpy_c2c(re, im, win, nperseg, hop, nfft, detrend):
+    """float64 numpy framing of a complex signal: every segment's fft, then
+    the power summed over segments."""
+    v = np.asarray(re, np.float64) + 1j * np.asarray(im, np.float64)
+    num = 1 + (v.shape[-1] - nperseg) // hop
+    fr = np.stack([v[..., s * hop: s * hop + nperseg] for s in range(num)], -2)
+    if detrend == "constant":
+        fr = fr - fr.mean(-1, keepdims=True)
+    return (np.abs(np.fft.fft(fr * win, n=nfft)) ** 2).sum(-2), num
+
+
+@pytest.mark.parametrize("case", JAX_CASES, ids=lambda c: "x".join(map(str, c[1:5])))
+def test_c2c_matches_jax_interpret(case, rng, assert_close):
+    lead, t, nperseg, hop, nfft, detrend = case
+    re, im, win = inputs(rng, lead, t, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    p, num = cuda_welch.welch_accum_c2c_split(_t(re), _t(im), _t(win), *args)
+    jp, jnum = j_pw.welch_accum_c2c_split(re, im, win, *args, interpret=True)
+    assert num == jnum and p.shape == (*lead, nfft) and p.dtype == torch.float32
+    assert_close(_np(p), np.asarray(jp), what="c2c vs JAX")
+    want, wnum = numpy_c2c(re, im, win, *args)
+    assert num == wnum
+    assert_close(_np(p), want, what="c2c vs numpy")
+    assert cuda_welch.c2c_launches == 0
+
+
+# ---------------------------------------------------------------------- #
+# outside the JAX envelope: against float64 numpy and the JAX composed form
+# ---------------------------------------------------------------------- #
+PORT_CASES = [((), 3000, 128, 64, 128, "constant"),        # nfft 128
+              ((2,), 2000, 200, 150, 256, False),          # nfft 256, hop !| nperseg
+              ((), 5000, 512, 448, 512, "constant"),       # hop = nperseg - nperseg//8
+              ((), 3000, 512, 32, 512, None),              # 16 hops a frame (K > 8)
+              ((2, 2), 700, 100, 70, 128, "constant")]     # a 2 x 2 batch, even nperseg < nfft
+
+
+@pytest.mark.parametrize("case", PORT_CASES, ids=lambda c: "x".join(map(str, c[1:5])))
+def test_kernel_outside_jax_envelope(case, rng, assert_close):
+    lead, t, nperseg, hop, nfft, detrend = case
+    assert not j_pw.fused_welch_ok(t, nperseg, hop, nfft, detrend)
+    assert cuda_welch.fused_welch_ok(t, nperseg, hop, nfft, detrend)
+    x, y, win = inputs(rng, lead, t, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    for kind in KINDS:
+        check_all(port(kind, x, y, win, *args), numpy_ref(kind, x, y, win, *args),
+                  assert_close, kind)
+    # the JAX package's composed per-segment spectra, the same products
+    Xr, Xi = j_se._spec_segments_split(jnp.asarray(x), None, jnp.asarray(win), *args)
+    want = np.asarray(Xr) ** 2 + np.asarray(Xi) ** 2
+    assert_close(port("psd", x, y, win, *args)[0][0], want, what="psd vs JAX composed")
+    # B21 on x + iy, against numpy and the JAX composed two-sided spectra
+    assert not j_pw.fused_welch_ok(t, nperseg, hop, nfft, detrend, c2c=True)
+    p, num = cuda_welch.welch_accum_c2c_split(_t(x), _t(y), _t(win), *args)
+    want, wnum = numpy_c2c(x, y, win, *args)
+    assert num == wnum
+    assert_close(_np(p), want, what="c2c vs numpy")
+    Xr, Xi = j_se._spec_segments_split(jnp.asarray(x), jnp.asarray(y), jnp.asarray(win), *args)
+    assert_close(_np(p), (np.asarray(Xr) ** 2 + np.asarray(Xi) ** 2).sum(-2),
+                 what="c2c vs JAX composed")
+
+
+def test_plain_versions_equal_entry_points_on_cpu(rng):
+    x, y, win = inputs(rng, (2,), 3000, 256)
+    w, args = _t(win), (256, 100, 512, "constant")
+    np.testing.assert_array_equal(
+        _np(cuda_welch.welch_accum_split(_t(x), w, *args)[0]),
+        _np(cuda_welch.welch_accum_split_reference(_t(x), w, *args)[0]))
+    np.testing.assert_array_equal(_np(cuda_welch.spec_psd_split(_t(x), w, *args)),
+                                  _np(cuda_welch.spec_psd_split_reference(_t(x), w, *args)))
+    for a, b in zip(cuda_welch.coherence_accum_split(_t(x), _t(y), w, *args)[:4],
+                    cuda_welch.coherence_accum_split_reference(_t(x), _t(y), w, *args)[:4]):
+        np.testing.assert_array_equal(_np(a), _np(b))
+    assert cuda_welch.csd_accum_split_reference(_t(x), _t(y), w, *args)[2] == 28
+    a, num = cuda_welch.welch_accum_c2c_split(_t(x), _t(y), w, *args)
+    b, _ = cuda_welch.welch_accum_c2c_split_reference(_t(x), _t(y), w, *args)
+    np.testing.assert_array_equal(_np(a), _np(b))
+    assert a.shape == (2, 512) and num == 28
+
+
+# ---------------------------------------------------------------------- #
+# gradients: against jax.grad of the JAX package's composed form
+# ---------------------------------------------------------------------- #
+def _jax_outputs(kind, x, y, win, args):
+    X = j_se._spec_segments_split(x, None, win, *args)
+    p = lambda a, b: a * a + b * b  # noqa: E731
+    if kind == "psd":
+        return [p(*X)]
+    if kind == "welch":
+        return [jnp.sum(p(*X), axis=-2)]
+    Y = j_se._spec_segments_split(y, None, win, *args)
+    outs = [jnp.sum(X[0] * Y[0] + X[1] * Y[1], axis=-2),
+            jnp.sum(X[0] * Y[1] - X[1] * Y[0], axis=-2)]
+    if kind == "coh":
+        outs += [jnp.sum(p(*X), axis=-2), jnp.sum(p(*Y), axis=-2)]
+    return outs
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_gradient_matches_jax_grad(kind, rng, assert_close):
+    nperseg, hop, nfft, detrend = 256, 96, 256, "constant"  # hop !| nperseg
+    x, y, win = inputs(rng, (2,), 1500, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    num = 1 + (1500 - nperseg) // hop
+    bins = nfft // 2 + 1
+    shape = (2, num, bins) if kind == "psd" else (2, bins)
+    ws = [rng.random(shape).astype(np.float32) for _ in range(4)]
+
+    def jloss(a, b):
+        outs = _jax_outputs(kind, a, b, jnp.asarray(win), args)
+        return sum(jnp.sum(w * o) for w, o in zip(ws, outs))
+
+    want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(y))
+    xt, yt = _t(x).requires_grad_(), _t(y).requires_grad_()
+    if kind == "welch":
+        outs = [cuda_welch.welch_accum_split(xt, _t(win), *args)[0]]
+    elif kind == "psd":
+        outs = [cuda_welch.spec_psd_split(xt, _t(win), *args)]
+    elif kind == "csd":
+        outs = cuda_welch.csd_accum_split(xt, yt, _t(win), *args)[:2]
+    else:
+        outs = cuda_welch.coherence_accum_split(xt, yt, _t(win), *args)[:4]
+    sum((_t(w) * o).sum() for w, o in zip(ws, outs)).backward()
+    assert_close(_np(xt.grad), np.asarray(want[0]), what=f"{kind} d/dx")
+    if kind in ("csd", "coh"):
+        assert_close(_np(yt.grad), np.asarray(want[1]), what=f"{kind} d/dy")
+    else:
+        assert yt.grad is None
+
+
+def test_c2c_gradient_matches_jax_grad(rng, assert_close):
+    nperseg, hop, nfft, detrend = 256, 96, 512, "constant"  # hop !| nperseg, zero pad
+    re, im, win = inputs(rng, (2,), 1500, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    w = rng.random((2, nfft)).astype(np.float32)
+
+    def jloss(a, b):
+        Xr, Xi = j_se._spec_segments_split(a, b, jnp.asarray(win), *args)
+        return jnp.sum(w * jnp.sum(Xr * Xr + Xi * Xi, axis=-2))
+
+    want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(re), jnp.asarray(im))
+    rt, it = _t(re).requires_grad_(), _t(im).requires_grad_()
+    p, _ = cuda_welch.welch_accum_c2c_split(rt, it, _t(win), *args)
+    (_t(w) * p).sum().backward()
+    assert_close(_np(rt.grad), np.asarray(want[0]), what="c2c d/dre")
+    assert_close(_np(it.grad), np.asarray(want[1]), what="c2c d/dim")
