@@ -4,8 +4,10 @@ main path (n = 128..16384), the large-N path (four-step and whole-row),
 BASELINE config 4 (2-D 4096 x 4096, R2C/C2R, 3-D 256^3), the non-pow2
 path (composite, Bluestein and chirp-z transforms), the fused epilogues
 (spectral filter, analytic signal, FFT and overlap-add convolution, the
-CWT plan, composite 2-D frames), and the spectral estimators (welch,
-periodogram, csd, coherence, spectrogram, multitaper).
+CWT plan, composite 2-D frames), the spectral estimators (welch,
+periodogram, csd, coherence, spectrogram, multitaper), and the per-segment
+spectra (stft, istft, ShortTimeFFT, the complex spectrogram modes,
+resample).
 
     python3 chip_smoke.py
 
@@ -43,14 +45,15 @@ non-zero without a result line:
              padded, B of A's shape and broadcast, at 2048 x 8192 and 547 x
              2048; ax0_gen at every composite n at m = 7 and 1000, and at
              16 x 1080 x 1920, and the axis(-3) pass at [2, 1000, 7, 130];
-             the segment-spectrum kernels welch, psd, csd, coh and c2c
-             against their plain versions and float64 torch.fft of the
-             frames at
-             every pow2 nfft, nperseg = nfft and odd nperseg < nfft, hops
-             nperseg, nperseg/2 and nperseg - nperseg/8, one signal with
-             no detrend and three with "constant", a ragged last tile, and
-             at path 6's shapes, each run twice for the same bits;
-3. main    — five paths, the launch counts set to 0 just before each and
+             the segment-spectrum kernels welch, psd, csd, coh, c2c, spec
+             and spec_c2c against their plain versions and float64
+             torch.fft of the frames at every pow2 nfft, nperseg = nfft
+             and odd nperseg < nfft, hops nperseg, nperseg/2 and nperseg -
+             nperseg/8, one signal with no detrend and three with
+             "constant", a ragged last tile (spec also with a roll and the
+             padded output), and at path 6's and path 7's shapes, each run
+             twice for the same bits;
+3. main    — six paths, the launch counts set to 0 just before each and
              read just after: plan / fft / ifft / Forward at the 1-D sizes
              users call (row kernel; axis(-2) then transposed rows; whole
              row), then config 4: fft2 / ifft2 and the rfft2 / irfft2 round
@@ -69,10 +72,17 @@ non-zero without a result line:
              coherence of two 2^22 signals, spectrogram of 2^22 (psd and
              magnitude), periodogram of 64 x 16384, multitaper of 16384
              (K = 7) and the two-sided welch of a complex 2^22 signal (B21), each
-             against scipy.signal (float64 numpy for multitaper); each
-             call's launches are checked; small inputs against float64
-             numpy after each window, and numpy input, which must run on
-             the card;
+             against scipy.signal (float64 numpy for multitaper); then
+             the per-segment spectra: stft of 2^20 samples and of 8 x 2^17
+             (n_fft 512, hop 128) against float64 numpy and its istft
+             round trip, spectrogram(mode="complex") of 2^22 (nperseg
+             4096, noverlap 2048), the two-sided psd and complex
+             spectrograms and csd of complex 2^22 signals,
+             ShortTimeFFT(hann(1024), hop 256, fs 48000) at mfft 1024 and
+             2048 and its istft, resample of 256 x 8192 to 16384 and
+             6144, against scipy.signal; each call's launches are
+             checked; small inputs against float64 numpy after each
+             window, and numpy input, which must run on the card;
 4. grad    — gradients against the plain versions' (CPU for the N-D,
              real and non-pow2 ones): fft (row kernel; the four-step at
              2 x 2^20; the whole row at 4 x 2^16; composite 4095 and prime
@@ -80,15 +90,18 @@ non-zero without a result line:
              SpectralFilter, fftconvolve (both inputs), the CWT plan and
              fft2 at 1080 x 1920; welch, csd (both inputs), spectrogram
              and the two-sided welch of a complex signal at 2^16 samples;
+             stft, ShortTimeFFT.stft with a phase shift and the complex
+             two-sided spectrogram at 2^16;
 5. times   — CUDA-event medians of each kernel, its plain version,
              torch.fft and plan.forward at the main shapes, beside a plane
              copy of the same bytes; fft2 at 4096 x 4096 by both routes
              (transposed rows twice, row then axis(-2)) and the fused plane
              at 256^3 against row then axis(-2); fftn at 512^3; the fused
-             epilogues' and the estimators' kernels at their path's shapes
-             beside torch.fft's composition of the same function; a
-             torch.profiler breakdown of the non-pow2 path's, the fused
-             epilogues' and the estimators' calls.
+             epilogues', the estimators' and the per-segment spectra's
+             kernels at their path's shapes beside torch.fft's composition
+             of the same function; a torch.profiler breakdown of the
+             non-pow2 path's, the fused epilogues', the estimators' and the
+             per-segment spectra's calls.
 
 torch.fft is an oracle and a baseline here, never the implementation.  The
 last two lines are a JSON object describing the kernels (each with its
@@ -120,11 +133,12 @@ LIBS = ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft", "fft2f_fft", "r2c_fft",
 # Kernels as the launch counters name them: the axis(-3) pass is the axis(-2)
 # kernels on a free view, with its own entry point and counter; chirp_fft
 # holds two kernels, each with its own, filt_fft two entry points (filt,
-# bank), c2r_fft a second one (c2r_prod), welch_fft five (welch, psd, csd,
-# coh, c2c).
+# bank), c2r_fft a second one (c2r_prod), welch_fft seven (welch, psd, csd,
+# coh, c2c, spec, spec_c2c).
 KERNELS = ("rows_fft", "ax0_fft", "ax3_fft", "rows_t_fft", "fft2f_fft", "r2c_fft",
            "c2r_fft", "big_fft", "gen_fft", "r2c_gen_fft", "chirp_fwd", "chirp_inv",
-           "filt", "bank", "c2r_prod", "ax0_gen", "welch", "psd", "csd", "coh", "c2c")
+           "filt", "bank", "c2r_prod", "ax0_gen", "welch", "psd", "csd", "coh", "c2c",
+           "spec", "spec_c2c")
 # Composite lengths of phase 2's sweep: factors (20, 32), (25, 40), (15, 67),
 # (23, 89), (63, 65), (17, 241), (81, 81), (100, 100), (127, 129).
 GEN_NS = (640, 1000, 1005, 2047, 4095, 4097, 6561, 10000, 16383)
@@ -571,19 +585,32 @@ def main() -> int:
           lambda x, s, sc, _: oracle(x, s, sc, dim=-2), dim=-2)
 
     # the segment-spectrum kernels: B16 (welch), B19 (psd), B17 (csd), B18
-    # (coh), B21 (c2c: y is the imaginary plane)
-    def torch_segments(kind, x, y, w, nperseg, hop, nfft, detrend):
+    # (coh), B21 (c2c: y is the imaginary plane), B20 (spec), B22 (spec_c2c:
+    # y is the imaginary plane)
+    def torch_segments(kind, x, y, w, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False):
         """torch.fft's composition of a kernel's function (frames, detrend,
-        window, rfft or fft, power or cross product, sum over segments), in
-        x's dtype: float64 it is phase 2's oracle, float32 phase 5's
-        baseline; never the implementation."""
+        window, zero pad and roll, rfft or fft, then the spectra or their
+        power or cross product, summed over segments), in x's dtype:
+        float64 it is phase 2's oracle, float32 phase 5's baseline; never
+        the implementation."""
         def spectra(v):
             fr = v.unfold(-1, nperseg, hop)
             if detrend == "constant":
                 fr = fr - fr.mean(-1, keepdim=True)
             fft = torch.fft.fft if v.is_complex() else torch.fft.rfft
+            if roll_s:
+                fr = torch.nn.functional.pad(fr * w.to(x.dtype), (0, nfft - nperseg))
+                return fft(fr.roll(-roll_s, -1))
             return fft(fr * w.to(x.dtype), n=nfft)
 
+        if kind == "spec":
+            X = spectra(x)
+            if pad_out:
+                X = torch.nn.functional.pad(X, (0, cuda_fft.pad_bins(nfft) - X.shape[-1]))
+            return X.real, X.imag
+        if kind == "spec_c2c":
+            X = spectra(torch.complex(x, y))
+            return X.real, X.imag
         if kind == "c2c":
             X = spectra(torch.complex(x, y))
             return ((X.real ** 2 + X.imag ** 2).sum(-2),)
@@ -602,9 +629,11 @@ def main() -> int:
     def flat(outs):
         return torch.cat([o.reshape(-1) for o in outs])
 
-    def welch_case(kind, x, y, w, args, what, with_oracle=True):
+    def welch_case(kind, x, y, w, args, what, with_oracle=True, opts=(0, False)):
         """One kernel launch against its plain version (and float64
-        torch.fft); a second launch must give the same bits."""
+        torch.fft); a second launch must give the same bits.  ``opts``:
+        B20's (roll_s, pad_out)."""
+        args = (*args, *opts)
         got = cuda_welch._launch(kind, x, y, w, *args)
         plain, _ = cuda_welch._reference(kind, x, y, w, *args)
         err = check_close(flat(got), flat(plain), f"{kind} vs plain {what}")
@@ -613,6 +642,10 @@ def main() -> int:
                                     *args)
             err = max(err, check_close(flat(got), flat(oracle),
                                        f"{kind} vs float64 torch.fft {what}"))
+        if kind == "spec" and opts[1]:
+            check(not got[0][..., args[2] // 2 + 1:].any()
+                  and not got[1][..., args[2] // 2 + 1:].any(),
+                  f"spec pad columns not zero {what}")
         again = cuda_welch._launch(kind, x, y, w, *args)
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"{kind} {what}: two runs differ in their bits")
@@ -632,9 +665,14 @@ def main() -> int:
                         args = (nperseg, hop, nfft, detrend)
                         what = f"{lead} t={t} nperseg={nperseg} hop={hop} nfft={nfft} {detrend}"
                         for kind, u in (("welch", None), ("psd", None), ("csd", y),
-                                        ("coh", y), ("c2c", y)):
+                                        ("coh", y), ("c2c", y), ("spec", None),
+                                        ("spec_c2c", y)):
                             worst = max(worst, welch_case(kind, x, u, w, args, what))
                             cases += 1
+                        # B20's roll of each padded frame and its padded output
+                        worst = max(worst, welch_case("spec", x, None, w, args, what,
+                                                      opts=(nfft // 2 + 3, True)))
+                        cases += 1
         # path 6's own shapes (float64 oracle in phase 3, against scipy)
         n22 = 1 << 22
         x, y = (torch.randn(n22, device=dev, generator=gen) for _ in range(2))
@@ -655,12 +693,32 @@ def main() -> int:
             what = f"path 6 {tuple(v.shape)} nperseg={args[0]} hop={args[1]}"
             worst = max(worst, welch_case(kind, v, u, w, args, what, with_oracle=False))
             cases += 1
-        del x, y, xb, xp
+        # path 7's shapes: stft of 2^20 (+ the center pad) and 8 x 2^17 at
+        # n_fft 512, hop 128; the complex spectrogram, the two-sided ones
+        # and csd at 2^22; ShortTimeFFT(hann(1024), 256) at mfft 1024 and
+        # 2048, whose default phase shift is a roll of 512
+        h512, h1024 = ft.hann_window(512, device=dev), ft.hann_window(1024, device=dev)
+        xs, x8 = (torch.randn(*s, device=dev, generator=gen)
+                  for s in (((1 << 20) + 512,), (8, (1 << 17) + 512)))
+        xt = torch.randn((1 << 20) + 1024, device=dev, generator=gen)
+        for kind, v, u, w, args, opts in (
+                ("spec", xs, None, h512, (512, 128, 512, False), (0, False)),
+                ("spec", x8, None, h512, (512, 128, 512, False), (0, False)),
+                ("spec", x, None, tukey, (4096, 2048, 4096, "constant"), (0, False)),
+                ("spec_c2c", x, y, tukey, (4096, 2048, 4096, "constant"), (0, False)),
+                ("spec_c2c", x, y, hann, (4096, 2048, 4096, "constant"), (0, False)),
+                ("spec", xt, None, h1024, (1024, 256, 1024, False), (512, False)),
+                ("spec", xt, None, h1024, (1024, 256, 2048, False), (512, True))):
+            what = f"path 7 {tuple(v.shape)} nperseg={args[0]} hop={args[1]} nfft={args[2]}"
+            worst = max(worst, welch_case(kind, v, u, w, args, what, with_oracle=False,
+                                          opts=opts))
+            cases += 1
+        del x, y, xb, xp, xs, x8, xt
         torch.cuda.synchronize()
-        print(f"kernel welch, psd, csd, coh, c2c: {cases} cases ok, each run twice with the "
+        names = ("welch", "psd", "csd", "coh", "c2c", "spec", "spec_c2c")
+        print(f"kernel {', '.join(names)}: {cases} cases ok, each run twice with the "
               f"same bits | worst rel-L2 {worst:.3e} | max abs err vs plain "
-              + ", ".join(f"{max_abs[k]:.3e}" for k in ("welch", "psd", "csd", "coh", "c2c")),
-              flush=True)
+              + ", ".join(f"{max_abs[k]:.3e}" for k in names), flush=True)
 
     welch_sweep()
 
@@ -678,7 +736,8 @@ def main() -> int:
                 "bank": cuda_fft.bank_launches, "c2r_prod": cuda_fft.c2r_prod_launches,
                 "ax0_gen": cuda_fft.ax0_gen_launches, "welch": cuda_welch.welch_launches,
                 "psd": cuda_welch.psd_launches, "csd": cuda_welch.csd_launches,
-                "coh": cuda_welch.coh_launches, "c2c": cuda_welch.c2c_launches}
+                "coh": cuda_welch.coh_launches, "c2c": cuda_welch.c2c_launches,
+                "spec": cuda_welch.spec_launches, "spec_c2c": cuda_welch.spec_c2c_launches}
 
     def reset_counts():
         cuda_fft.launches = cuda_fft.ax0_launches = cuda_fft.ax3_launches = 0
@@ -690,6 +749,7 @@ def main() -> int:
         cuda_fft.c2r_prod_launches = cuda_fft.ax0_gen_launches = 0
         cuda_welch.welch_launches = cuda_welch.psd_launches = 0
         cuda_welch.csd_launches = cuda_welch.coh_launches = cuda_welch.c2c_launches = 0
+        cuda_welch.spec_launches = cuda_welch.spec_c2c_launches = 0
 
     def through(what, fn, **want):
         """Run fn(); the launch counts must rise by exactly ``want``
@@ -1017,16 +1077,105 @@ def main() -> int:
                                            nperseg=512)[1], "welch of a numpy array")
     print(f"main: spectral-estimator path, {len(errs)} checks ok, launches {path6} | "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+
+    # path 7: the per-segment spectra at the sizes of the JAX package's
+    # records (BENCHMARKS.md:163: stft of 2^20 samples at n_fft 512, hop 128;
+    # PERFORMANCE.md:844-850: the spectrogram of 2^22 at nperseg 4096) and a
+    # ShortTimeFFT of 48 kHz audio, each call against float64 numpy or
+    # scipy.signal
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    errs = {}
+    x20 = torch.randn(1 << 20, device=dev, generator=gen)
+    x8 = torch.randn(8, 1 << 17, device=dev, generator=gen)
+    x = torch.randn(n22, device=dev, generator=gen)
+    xc, yc = crand(n22), crand(n22)
+    x64, xc64, yc64 = (v.cpu().numpy().astype(np.complex128 if v.is_complex() else np.float64)
+                       for v in (x, xc, yc))
+    hann512 = np.hanning(513)[:512]  # the periodic hann window, as ft.hann_window(512)
+
+    def stft_ref(v):
+        """float64 numpy stft: reflect pad, frames, window, rfft."""
+        v = np.pad(v.cpu().double().numpy(), [(0, 0)] * (v.ndim - 1) + [(256, 256)],
+                   mode="reflect")
+        frames = sliding_window_view(v, 512, axis=-1)[..., ::128, :]
+        return np.swapaxes(np.fft.rfft(frames * hann512, axis=-1), -1, -2)
+
+    reset_counts()
+    for key, v in (("stft_2^20", x20), ("stft_8x2^17", x8)):
+        Z = through(f"stft {tuple(v.shape)} n_fft 512 hop 128",
+                    lambda: ft.stft(v, 512, 128), spec=1)
+        vs_scipy(key, Z, stft_ref(v), f"stft {tuple(v.shape)} (float64 numpy)")
+        back = through(f"istft {tuple(v.shape)}",
+                       lambda: ft.istft(Z, 512, 128, length=v.shape[-1]), c2r_fft=1)
+        errs[f"i{key}"] = check_close(back, v, f"istft(stft) {tuple(v.shape)} round trip")
+    del Z, back
+    seg = {"nperseg": 4096, "noverlap": 2048}
+    f, t, S = through("spectrogram 2^22 complex",
+                      lambda: ft.spectrogram(x, mode="complex", **seg), spec=1)
+    vs_scipy("spectrogram_complex_2^22", S, ss.spectrogram(x64, mode="complex", **seg)[2],
+             "spectrogram 2^22 complex")
+    with warnings.catch_warnings():  # scipy: complex input, two-sided
+        warnings.simplefilter("ignore")
+        for mode in ("psd", "complex"):
+            f, t, S = through(f"spectrogram 2^22 complex input {mode}",
+                              lambda: ft.spectrogram(xc, mode=mode, **seg), spec_c2c=1)
+            vs_scipy(f"spectrogram_two_sided_{mode}_2^22", S,
+                     ss.spectrogram(xc64, mode=mode, **seg)[2],
+                     f"spectrogram 2^22 two-sided {mode}")
+            del S
+        P = through("csd 2^22 complex", lambda: ft.csd(xc, yc, **seg)[1], spec_c2c=2)
+        vs_scipy("csd_complex_2^22", P, ss.csd(xc64, yc64, **seg)[1], "csd 2^22 complex")
+    del P
+    hann1024 = ss.windows.hann(1024, sym=False)
+    x20_64 = x20.cpu().double().numpy()
+    for mfft in (1024, 2048):
+        stf = ft.ShortTimeFFT(hann1024, 256, 48000.0, mfft=mfft)
+        S = through(f"ShortTimeFFT 2^20 mfft {mfft}", lambda: stf.stft(x20), spec=1)
+        ref = ss.ShortTimeFFT(hann1024, 256, 48000.0, mfft=mfft)
+        vs_scipy(f"short_time_fft_{mfft}", S, ref.stft(x20_64), f"ShortTimeFFT mfft {mfft}")
+        if mfft == 1024:
+            back = through("ShortTimeFFT.istft 2^20",
+                           lambda: stf.istft(S, k1=1 << 20), c2r_fft=1)
+            errs["short_time_fft_istft"] = check_close(back, x20,
+                                                       "ShortTimeFFT istft round trip")
+        del S
+    xr = torch.randn(256, 8192, device=dev, generator=gen)
+    xr64 = xr.cpu().double().numpy()
+    resample_launches = {}
+    for num in (16384, 6144):
+        before = counts()
+        R = ft.resample(xr, num, axis=-1)
+        torch.cuda.synchronize()
+        resample_launches[num] = {k: v - before[k] for k, v in counts().items()
+                                  if v != before[k]}
+        check(not any(k in resample_launches[num] for k in ("spec", "spec_c2c", "welch")),
+              f"resample to {num} launched a segment-spectrum kernel")
+        vs_scipy(f"resample_256x8192_to_{num}", R, ss.resample(xr64, num, axis=-1),
+                 f"resample 256x8192 to {num}")
+    del R
+    path7 = counts()
+    for name in ("spec", "spec_c2c"):
+        check(path7[name] > 0, f"per-segment path launched no {name} kernel")
+    # outside the window: numpy input runs on the card
+    Zn = through("stft of a numpy array", lambda: ft.stft(x20.cpu().numpy()[:8192], 512, 128),
+                 spec=1)
+    check(Zn.device.type == "cuda", f"numpy input ran on {Zn.device}, not the card")
+    vs_scipy("stft_numpy_in", Zn, stft_ref(x20[:8192]), "stft of a numpy array")
+    print(f"main: per-segment path, {len(errs)} checks ok, launches {path7}, resample "
+          f"launches {resample_launches} | "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
+    del x20, x8, x, xc, yc, x64, xc64, yc64, x20_64, xr, xr64, Zn
     # The kernels line gives each kernel the launches of the path it was
     # ported for (the 1-D path for B1, B2, B4 and B15, the non-pow2 path for
     # B11-B14, the fused-epilogue path for B8-B10 and B2-composite, the
-    # estimators' path for B16-B19, config 4 for the rest); each path's
-    # counts are on its line.
+    # estimators' path for B16-B19 and B21, the per-segment path for B20 and
+    # B22, config 4 for the rest); each path's counts are on its line.
     path_of = {"rows_fft": path1, "ax0_fft": path1, "rows_t_fft": path1, "big_fft": path1,
                "gen_fft": path3, "r2c_gen_fft": path3, "chirp_fwd": path3,
                "chirp_inv": path3, "filt": path5, "bank": path5, "c2r_prod": path5,
                "ax0_gen": path5, "welch": path6, "psd": path6, "csd": path6, "coh": path6,
-               "c2c": path6}
+               "c2c": path6, "spec": path7, "spec_c2c": path7}
     main_launches = {k: path_of.get(k, path2)[k] for k in KERNELS}
 
     # ---- 4. autograd on the card -----------------------------------------
@@ -1118,9 +1267,12 @@ def main() -> int:
         gp = grads_of(fn_cpu or fn, shapes, SEED + 3, torch.device("cpu"), cplx)
         gerrs[what] = check_close(gk.cpu(), gp, f"grad of sum(w*|f(x)|^2) {what} "
                                                 "kernels vs plain")
-    # the estimators at 2^16 samples (nperseg 256): the kernel forward; back,
-    # the frames rebuilt through B6 under autograd and B1 for B6's adjoint,
-    # once per signal (complex input: B1 forward and back)
+    # the estimators and the per-segment spectra at 2^16 samples (nperseg
+    # 256; stft n_fft 512; ShortTimeFFT mfft 512 with a phase shift): the
+    # kernel forward; back, the frames rebuilt through B6 under autograd and
+    # B1 for B6's adjoint, once per signal (complex input: B1 forward and
+    # back)
+    stf_grad = ft.ShortTimeFFT(np.hanning(256), 64, 1.0, mfft=512, phase_shift=30)
     for what, fn, shapes, kernels, cplx in (
             ("welch 2^16", lambda u: ft.welch(u)[1], [(1 << 16,)],
              {"welch": 1, "r2c_fft": 1, "rows_fft": 1}, False),
@@ -1129,7 +1281,14 @@ def main() -> int:
             ("spectrogram 2^16 psd", lambda u: ft.spectrogram(u)[2], [(1 << 16,)],
              {"psd": 1, "r2c_fft": 1, "rows_fft": 1}, False),
             ("welch 2^16 complex (two-sided)", lambda u: ft.welch(u)[1], [(1 << 16,)],
-             {"c2c": 1, "rows_fft": 2}, True)):
+             {"c2c": 1, "rows_fft": 2}, True),
+            ("stft 2^16", lambda u: ft.stft(u, 512, 128), [(1 << 16,)],
+             {"spec": 1, "r2c_fft": 1, "rows_fft": 1}, False),
+            ("ShortTimeFFT.stft 2^16 phase shift", stf_grad.stft, [(1 << 16,)],
+             {"spec": 1, "r2c_fft": 1, "rows_fft": 1}, False),
+            ("spectrogram 2^16 complex two-sided",
+             lambda u: ft.spectrogram(u, mode="complex")[2], [(1 << 16,)],
+             {"spec_c2c": 1, "rows_fft": 2}, True)):
         gk = through(f"grad {what}", lambda: grads_of(fn, shapes, SEED + 4, dev, cplx),
                      **kernels)
         gp = grads_of(fn, shapes, SEED + 4, torch.device("cpu"), cplx)
@@ -1436,7 +1595,69 @@ def main() -> int:
         }, reps=10)
     for call, fn in path6_calls.items():  # every estimator kernel is a welch_kernel<...>
         profiles[call] = breakdown(fn, ("welch",))
-    del x, y, xb, xc
+
+    # the per-segment kernels at path 7's shapes, beside their plain versions
+    # and torch.fft's composition (unfold, detrend, window, rfft or fft)
+    x20 = torch.randn(1 << 20, device=dev, generator=gen)
+    x8 = torch.randn(8, 1 << 17, device=dev, generator=gen)
+    xs = torch.nn.functional.pad(x20[None], (256, 256), mode="reflect")[0]  # stft's center pad
+    yc = torch.complex(y, x)
+    hann1024 = ss.windows.hann(1024, sym=False)
+    stf = {m: ft.ShortTimeFFT(hann1024, 256, 48000.0, mfft=m) for m in (1024, 2048)}
+    p0, p1 = stf[2048].p_range(1 << 20)
+    xt = torch.randn((p1 - p0 - 1) * 256 + 1024, device=dev, generator=gen)  # the blended signal
+    h512, h1024 = ft.hann_window(512, device=dev), ft.hann_window(1024, device=dev)
+    Z20, S1024 = ft.stft(x20, 512, 128), stf[1024].stft(x20)
+    xr = torch.randn(256, 8192, device=dev, generator=gen)
+    path7_calls = {
+        "stft 2^20 n_fft 512": lambda: ft.stft(x20, 512, 128),
+        "stft 8x2^17 n_fft 512": lambda: ft.stft(x8, 512, 128),
+        "istft 2^20 n_fft 512": lambda: ft.istft(Z20, 512, 128, length=1 << 20),
+        "spectrogram 2^22 complex": lambda: ft.spectrogram(x, mode="complex", **seg),
+        "spectrogram 2^22 complex input psd": lambda: ft.spectrogram(xc, **seg),
+        "spectrogram 2^22 complex input complex":
+            lambda: ft.spectrogram(xc, mode="complex", **seg),
+        "csd 2^22 complex": lambda: ft.csd(xc, yc, **seg),
+        "ShortTimeFFT 2^20 mfft 1024": lambda: stf[1024].stft(x20),
+        "ShortTimeFFT 2^20 mfft 2048": lambda: stf[2048].stft(x20),
+        "ShortTimeFFT.istft 2^20 mfft 1024": lambda: stf[1024].istft(S1024, k1=1 << 20),
+        "resample 256x8192 to 16384": lambda: ft.resample(xr, 16384, axis=-1),
+        "resample 256x8192 to 6144": lambda: ft.resample(xr, 6144, axis=-1),
+    }
+    spec_shapes = {  # key -> (kind, x, y, window, args, the call it serves)
+        "spec stft 2^20 n_fft 512 hop 128": ("spec", xs, None, h512,
+                                             (512, 128, 512, False, 0, False),
+                                             "stft 2^20 n_fft 512"),
+        "spec 2^22 nperseg 4096 hop 2048": ("spec", x, None, tukey,
+                                            (4096, 2048, 4096, "constant", 0, False),
+                                            "spectrogram 2^22 complex"),
+        "spec ShortTimeFFT 2^20 mfft 2048 roll 512": ("spec", xt, None, h1024,
+                                                      (1024, 256, 2048, False, 512, False),
+                                                      "ShortTimeFFT 2^20 mfft 2048"),
+        "spec_c2c 2^22 nperseg 4096 hop 2048": ("spec_c2c", x, y, tukey,
+                                                (4096, 2048, 4096, "constant", 0, False),
+                                                "spectrogram 2^22 complex input complex"),
+    }
+    spec_bounds = {}
+    for key, (kind, v, u, w, args, call) in spec_shapes.items():
+        times[key] = time_in_turns({
+            "kernel": lambda: cuda_welch._launch(kind, v, u, w, *args),
+            "plain": lambda: cuda_welch._reference(kind, v, u, w, *args),
+            "torch.fft": lambda: torch_segments(kind, v, u, w, *args),
+            "estimator": path7_calls[call],
+        }, reps=10)
+        nperseg, hop, nfft = args[:3]
+        num, planes_in = 1 + (v.shape[-1] - nperseg) // hop, 1 if u is None else 2
+        bins = nfft // 2 + 1 if kind == "spec" else nfft
+        flops = (rfft_flops if kind == "spec" else fft_flops)(nfft, num * v.numel() // v.shape[-1])
+        spec_bounds[key] = bound(4 * planes_in * v.numel() + 4 * nperseg
+                                 + 8 * num * bins * (v.numel() // v.shape[-1]), flops)
+    for call, fn in path7_calls.items():
+        profiles[call] = breakdown(fn, ("welch", "r2c_fft", "c2r_fft", "rows_fft", "gen_fft"))
+    for key, (ms, by) in spec_bounds.items():
+        print(f"bound: {key} | {ms:.4f} ms ({by}; each input read once, the spectra written "
+              f"once, at 3.35 TB/s and 67 TFLOP/s)", flush=True)
+    del x, y, xb, xc, yc, x20, x8, xs, xt, Z20, S1024, xr
 
     x = crand(512, 512, 512)  # 1 GiB: axis(-3), axis(-2), row kernel
     times["fftn 512^3"] = {"fftn": time_ms(lambda: ft.fftn(x), reps=5, warmup=1),
@@ -1528,6 +1749,14 @@ def main() -> int:
               rfft_flops(4096, 1170)),
         entry("c2c", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:582",
               "c2c 2^22 nperseg 4096 hop 2048", 8 * n22 + 4 * 4096 + 4 * 4096,
+              fft_flops(4096, 2047)),
+        # the per-segment spectra (path 7's spectrogram shapes): every
+        # segment's two planes written once
+        entry("spec", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:544",
+              "spec 2^22 nperseg 4096 hop 2048", 4 * n22 + 4 * 4096 + 8 * 2047 * 2049,
+              rfft_flops(4096, 2047)),
+        entry("spec_c2c", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:614",
+              "spec_c2c 2^22 nperseg 4096 hop 2048", 8 * n22 + 4 * 4096 + 8 * 2047 * 4096,
               fft_flops(4096, 2047)),
     ]}))
     print(json.dumps({"ok": True, "device": {

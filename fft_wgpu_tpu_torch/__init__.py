@@ -22,9 +22,11 @@ The fused epilogues run their own kernels: ``SpectralFilter`` and
 plan its filter-bank kernel, and ``fftconvolve`` / ``oaconvolve`` of real
 input the product C2R kernel (``csrc/c2r_fft.cu``).  The spectral
 estimators (``welch``, ``periodogram``, ``csd``, ``coherence``,
-``spectrogram``) of real input run the fused segment-spectrum kernels
-(``csrc/welch_fft.cu``); their other modes compose the transforms above,
-and the window functions are host tables.  Other lengths,
+``spectrogram``) run the fused segment-spectrum kernels
+(``csrc/welch_fft.cu``), and so do the per-segment spectra of ``stft``,
+``ShortTimeFFT`` and the complex spectrogram modes (its framed R2C and C2C
+kernels); ``istft`` and ``resample`` compose the transforms above, and
+the window functions are host tables.  Other lengths,
 and every CPU tensor, run the plain torch mixed-radix path.  A tensor is
 transformed on the device it lies on; other input (numpy arrays) goes to
 the current CUDA device, and raises if there is none.  This package
@@ -39,14 +41,17 @@ from .ops.fastconv import SpectralFilter, spectral_filter
 from .ops.helpers import (choose_conv_method, convolve, correlate, correlation_lags,
                           detrend, dht, fft_convolve, fftconvolve, fftcorrelate, fftfreq,
                           fftshift, get_workers, hilbert, hilbert2, idht, ifftshift,
-                          next_fast_len, oaconvolve, prev_fast_len, rfftfreq, set_workers)
+                          next_fast_len, oaconvolve, prev_fast_len, resample, rfftfreq,
+                          set_workers)
 from .ops.nd import fft2, fftn, ifft2, ifftn
 from .ops.rfft import (hfft, hfft2, hfftn, ihfft, ihfft2, ihfftn, irfft, irfft2,
                        irfftn, rfft, rfft2, rfftn)
 from .ops.spectral_est import (check_COLA, check_NOLA, coherence, csd, dpss, flattop_window,
                                get_window, kaiser_window, lombscargle, multitaper,
                                periodogram, spectrogram, tukey_window, welch)
-from .ops.stft import bartlett_window, blackman_window, hamming_window, hann_window
+from .ops.short_time_fft import ShortTimeFFT
+from .ops.stft import (bartlett_window, blackman_window, hamming_window, hann_window, istft,
+                       stft)
 from .ops.transforms import fft, ifft, ifft_unnormalized, normalize
 from .ops.windows import (barthann_window, blackmanharris_window, bohman_window,
                           boxcar_window, chebwin_window, cosine_window, exponential_window,
@@ -103,6 +108,7 @@ __all__ = [
     "fftcorrelate",
     "hilbert",
     "hilbert2",
+    "resample",
     "fftfreq",
     "fftshift",
     "ifftshift",
@@ -126,6 +132,9 @@ __all__ = [
     "multitaper",
     "spectrogram",
     "lombscargle",
+    "stft",
+    "istft",
+    "ShortTimeFFT",
     "hann_window",
     "hamming_window",
     "blackman_window",

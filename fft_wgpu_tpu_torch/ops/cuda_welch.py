@@ -1,6 +1,5 @@
 """Fused segment-spectrum kernels on Hopper: the port's counterpart of
-``ops/pallas_welch.py`` for its four real-input entry points and its
-two-sided complex accumulator.
+``ops/pallas_welch.py``, all seven of its entry points.
 
 * ``welch_accum_split`` (B16) — sum over segments of |RFFT(w * frame)|^2;
 * ``spec_psd_split`` (B19) — the per-segment powers;
@@ -8,11 +7,16 @@ two-sided complex accumulator.
 * ``coherence_accum_split`` (B18) — conj(X) * Y, |X|^2 and |Y|^2 summed in
   one sweep;
 * ``welch_accum_c2c_split`` (B21) — sum over segments of |FFT(w * frame)|^2
-  of a complex signal, all nfft bins.
+  of a complex signal, all nfft bins;
+* ``spec_rfft_split`` (B20) — the per-segment half spectra of a real
+  signal, ragged or in the padded serving form, each padded frame
+  optionally rolled left (ShortTimeFFT's phase shift);
+* ``spec_c2c_split`` (B22) — the per-segment two-sided spectra of a
+  complex signal.
 
 A frame is ``nperseg`` points of a ``[..., t]`` signal at hop ``hop``,
 less its mean when ``detrend == "constant"`` (each plane of a complex
-signal on its own), times the window, zero-padded to ``nfft``.  All five
+signal on its own), times the window, zero-padded to ``nfft``.  All seven
 run in ``csrc/welch_fft.cu``, one kernel template; a block takes a tile
 of consecutive segments (the library's ``welch_tiles`` sizes the grid),
 and the accumulators write one partial row per block, which
@@ -20,13 +24,13 @@ and the accumulators write one partial row per block, which
 
 A CUDA tensor goes through the kernel, a CPU tensor through its plain
 version (``*_reference``: ``_frame``, ``_detrend_seg``, the window, the
-zero pad, then ``rfft_rows_split_reference`` or, for B21,
-``fft_batched_split_reference``, and the power or cross product, summed
-over segments).  There is no fallback between the two.  The JAX kernels
-have no gradient; each entry point here is a ``torch.autograd.Function``
-whose backward differentiates the composed form, rebuilding the frames
-and running the R2C kernel (B6) or the row kernel (B1), whose own
-backward is the row kernel.
+zero pad and roll, then ``rfft_rows_split_reference`` or, for complex
+input, ``fft_batched_split_reference``, and the power or cross product,
+summed over segments).  There is no fallback between the two.  The JAX
+kernels have no gradient; each entry point here is a
+``torch.autograd.Function`` whose backward differentiates the composed
+form, rebuilding the frames and running the R2C kernel (B6) or the row
+kernel (B1), whose own backward is the row kernel.
 
 The envelope (:func:`fused_welch_ok`) is wider than the TPU's: the frame
 is read with a stride, so any hop <= nperseg runs (the TPU's chunk view
@@ -52,28 +56,36 @@ __all__ = ["Unsupported", "fused_welch_ok", "welch_accum_split",
            "welch_accum_split_reference", "spec_psd_split", "spec_psd_split_reference",
            "csd_accum_split", "csd_accum_split_reference", "coherence_accum_split",
            "coherence_accum_split_reference", "welch_accum_c2c_split",
-           "welch_accum_c2c_split_reference"]
+           "welch_accum_c2c_split_reference", "spec_rfft_split",
+           "spec_rfft_split_reference", "spec_c2c_split", "spec_c2c_split_reference"]
 
-# Launches of each kernel (B16, B19, B17, B18, B21); callers may reset them
-# to 0.
+# Launches of each kernel (B16, B19, B17, B18, B21, B20, B22); callers may
+# reset them to 0.
 welch_launches = 0
 psd_launches = 0
 csd_launches = 0
 coh_launches = 0
 c2c_launches = 0
+spec_launches = 0
+spec_c2c_launches = 0
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 9 + [_LL, _LL] + [_I] * 7 + [_P]
+_ARGTYPES = [_P] * 9 + [_LL, _LL] + [_I] * 9 + [_P]
 _TILES_ARGTYPES = [_I, _LL, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
 # kind -> (C entry point, output planes, the kind's number in welch_tiles);
 # the counter is f"{kind}_launches"
 _KERNELS = {"welch": ("welch_accum_f32", 1, 0), "psd": ("spec_psd_f32", 1, 1),
             "csd": ("csd_accum_f32", 2, 2), "coh": ("coh_accum_f32", 4, 3),
-            "c2c": ("welch_c2c_f32", 1, 4)}
+            "c2c": ("welch_c2c_f32", 1, 4), "spec": ("spec_rfft_f32", 2, 5),
+            "spec_c2c": ("spec_c2c_f32", 2, 6)}
+# kinds whose x and y are the planes of one complex signal (nfft bins), and
+# kinds that write every segment's row rather than sums over segments
+_COMPLEX = ("c2c", "spec_c2c")
+_PER_SEG = ("psd", "spec", "spec_c2c")
 
 
 def fused_welch_ok(t: int, nperseg: int, hop: int, nfft: int, detrend) -> bool:
-    """Envelope of the five kernels (B1's and B6's range, for real and
+    """Envelope of the seven kernels (B1's and B6's range, for real and
     complex input alike): nfft a power of two in 128..16384,
     1 <= nperseg <= nfft, 0 < hop <= nperseg, t >= nperseg, detrend False,
     None or "constant" (checked by identity, as the JAX package checks it,
@@ -86,7 +98,7 @@ def fused_welch_ok(t: int, nperseg: int, hop: int, nfft: int, detrend) -> bool:
                  or (isinstance(detrend, str) and detrend == "constant")))
 
 
-def _check(x, y, win, nperseg, hop, nfft, detrend) -> int:
+def _check(x, y, win, nperseg, hop, nfft, detrend, roll_s=0) -> int:
     """Validate the operands; the segment count."""
     if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
         raise ValueError("x must be a real float32 tensor")
@@ -103,24 +115,29 @@ def _check(x, y, win, nperseg, hop, nfft, detrend) -> int:
     if not fused_welch_ok(t, nperseg, hop, nfft, detrend):
         raise Unsupported(f"outside the fused welch envelope (t={t}, nperseg={nperseg}, "
                           f"hop={hop}, nfft={nfft}, detrend={detrend!r})")
+    if not 0 <= roll_s < nfft:
+        raise ValueError(f"roll_s={roll_s} must lie in [0, nfft={nfft})")
     return 1 + (t - nperseg) // hop
 
 
 # ---------------------------------------------------------------------- #
 # the composed form: the plain versions and the backward
 # ---------------------------------------------------------------------- #
-def _frames(x, win, nperseg, hop, nfft, detrend):
-    """Framed, detrended, windowed segments zero-padded to nfft,
-    ``[..., num, nfft]``."""
+def _frames(x, win, nperseg, hop, nfft, detrend, roll_s=0):
+    """Framed, detrended, windowed segments zero-padded to nfft and rolled
+    left by roll_s, ``[..., num, nfft]``."""
     # imported here: spectral_est imports this module
     from .spectral_est import _detrend_seg
 
     fr = _detrend_seg(_frame(x, nperseg, hop), detrend) * win
-    return torch.nn.functional.pad(fr, (0, nfft - nperseg))
+    fr = torch.nn.functional.pad(fr, (0, nfft - nperseg))
+    return torch.roll(fr, -roll_s, -1) if roll_s else fr
 
 
 def _reduce(kind, X, Y):
     """The kernel's outputs from the per-segment spectra ``[..., num, bins]``."""
+    if kind in ("spec", "spec_c2c"):
+        return X
     (xr, xi), p = X, lambda a, b: a * a + b * b
     if kind == "psd":
         return (p(xr, xi),)
@@ -133,18 +150,20 @@ def _reduce(kind, X, Y):
     return (*cross, p(xr, xi).sum(-2), p(yr, yi).sum(-2))
 
 
-def _composed(kind, x, y, win, nperseg, hop, nfft, detrend, kernels: bool):
+def _composed(kind, x, y, win, nperseg, hop, nfft, detrend, kernels: bool, roll_s=0,
+              pad_out=False):
     """The kernel's function composed of framing and a transform per
-    segment: through the R2C (or, for B21, the row) kernel when
+    segment: through the R2C (or, for complex input, the row) kernel when
     ``kernels``, else through its plain version."""
     def frames(v):
-        return _frames(v, win, nperseg, hop, nfft, detrend)
+        return _frames(v, win, nperseg, hop, nfft, detrend, roll_s)
 
-    if kind == "c2c":  # x, y: the planes of one complex signal
+    if kind in _COMPLEX:  # x, y: the planes of one complex signal
         fft = cuda_fft.fft_batched_split if kernels else cuda_fft.fft_batched_split_reference
         return _reduce(kind, fft(frames(x), frames(y), FORWARD), None)
     rfft = cuda_fft.rfft_rows_split if kernels else cuda_fft.rfft_rows_split_reference
-    return _reduce(kind, rfft(frames(x)), None if y is None else rfft(frames(y)))
+    return _reduce(kind, rfft(frames(x), pad_out=pad_out),
+                   None if y is None else rfft(frames(y)))
 
 
 # ---------------------------------------------------------------------- #
@@ -162,25 +181,28 @@ def _tiles(kind, batch: int, num: int, nfft: int, device) -> tuple[int, int]:
     return per_block.value, tiles.value
 
 
-def _launch(kind, x, y, win, nperseg, hop, nfft, detrend):
-    """Run one of the five kernels on CUDA tensors; the outputs."""
+def _launch(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False):
+    """Run one of the seven kernels on CUDA tensors; the outputs."""
     fn, nout, _ = _KERNELS[kind]
     lead, t = x.shape[:-1], x.shape[-1]
     batch = math.prod(lead)
     num = 1 + (t - nperseg) // hop
-    bins = nfft if kind == "c2c" else nfft // 2 + 1
+    if kind in _COMPLEX:
+        bins = nfft
+    else:
+        bins = cuda_fft.pad_bins(nfft) if pad_out else nfft // 2 + 1
     if batch == 0:
-        shape = (*lead, num, bins) if kind == "psd" else (*lead, bins)
+        shape = (*lead, num, bins) if kind in _PER_SEG else (*lead, bins)
         return tuple(x.new_zeros(shape) for _ in range(nout))
     x = x.contiguous()
     y = None if y is None else y.contiguous()
     per_block, tiles = _tiles(kind, batch, num, nfft, x.device)
-    if kind == "psd":
-        outs = [x.new_empty((batch, num, bins))]
+    if kind in _PER_SEG:
+        outs = [x.new_empty((batch, num, bins)) for _ in range(nout)]
     else:
         outs = list(x.new_empty((nout, batch, tiles, bins)).unbind(0))
     ptrs = [o.data_ptr() for o in outs] + [None] * (4 - nout)
-    if kind == "c2c":  # the nfft-point transform, no recombination
+    if kind in _COMPLEX:  # the nfft-point transform, no recombination
         tw, half = cuda_fft._twiddle_table(nfft, FORWARD, x.device), None
     else:  # B6's half-length transform and its recombination table
         tw = cuda_fft._twiddle_table(nfft // 2, FORWARD, x.device)
@@ -189,57 +211,59 @@ def _launch(kind, x, y, win, nperseg, hop, nfft, detrend):
                  x.data_ptr(), None if y is None else y.data_ptr(),
                  win.contiguous().data_ptr(), *ptrs, tw.data_ptr(), half,
                  batch, t, nperseg, hop, num, per_block, tiles, nfft.bit_length() - 1,
-                 int(detrend == "constant"), cuda_fft._stream(x),
+                 int(detrend == "constant"), int(roll_s), bins, cuda_fft._stream(x),
                  what=f"{fn} launch failed (batch={batch}, t={t}, nperseg={nperseg}, "
                       f"hop={hop}, nfft={nfft})")
     globals()[f"{kind}_launches"] += 1
-    if kind == "psd":
-        return (outs[0].reshape(*lead, num, bins),)
+    if kind in _PER_SEG:
+        return tuple(o.reshape(*lead, num, bins) for o in outs)
     # the partial rows of the tiles, summed in a fixed order
     return tuple(o.sum(1).reshape(*lead, bins) for o in outs)
 
 
-def _run(kind, x, y, win, nperseg, hop, nfft, detrend):
+def _run(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s, pad_out):
     if x.device.type == "cuda":
-        return _launch(kind, x, y, win, nperseg, hop, nfft, detrend)
+        return _launch(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s, pad_out)
     if x.device.type != "cpu":
         raise ValueError(f"no segment-spectrum kernel for device {x.device}")
-    return _composed(kind, x, y, win, nperseg, hop, nfft, detrend, kernels=False)
+    return _composed(kind, x, y, win, nperseg, hop, nfft, detrend, False, roll_s, pad_out)
 
 
 class _Segments(torch.autograd.Function):
-    """One of the five kernels with the gradient of its composed form:
+    """One of the seven kernels with the gradient of its composed form:
     the backward rebuilds the frames of x (and y) and runs them through
-    the R2C kernel (B6; B21: the row kernel, B1) under autograd, then
-    differentiates the power or cross products and the framing back to the
-    signals."""
+    the R2C kernel (B6; complex input: the row kernel, B1) under autograd,
+    then differentiates the power or cross products and the framing back
+    to the signals."""
 
     @staticmethod
-    def forward(ctx, kind, x, y, win, nperseg, hop, nfft, detrend):
+    def forward(ctx, kind, x, y, win, nperseg, hop, nfft, detrend, roll_s, pad_out):
         ctx.save_for_backward(x, y, win)
-        ctx.args = (kind, nperseg, hop, nfft, detrend)
-        return _run(kind, x, y, win, nperseg, hop, nfft, detrend)
+        ctx.args = (kind, nperseg, hop, nfft, detrend, roll_s, pad_out)
+        return _run(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s, pad_out)
 
     @staticmethod
     def backward(ctx, *grads):
         x, y, win = ctx.saved_tensors
-        kind, nperseg, hop, nfft, detrend = ctx.args
+        kind, nperseg, hop, nfft, detrend, roll_s, pad_out = ctx.args
         with torch.enable_grad():
             ins = [v.detach().requires_grad_() for v in (x, y) if v is not None]
             outs = _composed(kind, ins[0], ins[1] if y is not None else None, win,
-                             nperseg, hop, nfft, detrend, kernels=True)
+                             nperseg, hop, nfft, detrend, True, roll_s, pad_out)
             gs = torch.autograd.grad(outs, ins, grads)
-        return None, gs[0], gs[1] if y is not None else None, None, None, None, None, None
+        return (None, gs[0], gs[1] if y is not None else None) + (None,) * 8
 
 
-def _apply(kind, x, y, win, nperseg, hop, nfft, detrend):
-    num = _check(x, y, win, nperseg, hop, nfft, detrend)
-    return _Segments.apply(kind, x, y, win, nperseg, hop, nfft, detrend), num
+def _apply(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False):
+    num = _check(x, y, win, nperseg, hop, nfft, detrend, roll_s)
+    return _Segments.apply(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s,
+                           bool(pad_out)), num
 
 
-def _reference(kind, x, y, win, nperseg, hop, nfft, detrend):
-    num = _check(x, y, win, nperseg, hop, nfft, detrend)
-    return _composed(kind, x, y, win, nperseg, hop, nfft, detrend, kernels=False), num
+def _reference(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False):
+    num = _check(x, y, win, nperseg, hop, nfft, detrend, roll_s)
+    return _composed(kind, x, y, win, nperseg, hop, nfft, detrend, False, roll_s,
+                     bool(pad_out)), num
 
 
 def welch_accum_split(x, win, nperseg, hop, nfft, detrend):
@@ -317,3 +341,37 @@ def welch_accum_c2c_split_reference(re, im, win, nperseg, hop, nfft, detrend):
     """Plain torch version of :func:`welch_accum_c2c_split`."""
     (psum,), num = _reference("c2c", re, im, win, nperseg, hop, nfft, detrend)
     return psum, num
+
+
+def spec_rfft_split(x, win, nperseg, hop, nfft, detrend, *, pad_out=False, roll_s=0):
+    """Fused framed R2C (B20): real float32 ``[..., t]`` x -> split spectra
+    (Xr, Xi) ``[..., num, bins]``, bins = nfft//2 + 1, or ``pad_bins(nfft)``
+    with exact zeros past bin nfft//2 when ``pad_out``.  ``roll_s`` (0 <=
+    roll_s < nfft) rolls each zero-padded frame left before the transform
+    (ShortTimeFFT's phase shift); the mean is taken before the roll.
+    Differentiable in x."""
+    (Xr, Xi), _ = _apply("spec", x, None, win, nperseg, hop, nfft, detrend, roll_s, pad_out)
+    return Xr, Xi
+
+
+def spec_rfft_split_reference(x, win, nperseg, hop, nfft, detrend, *, pad_out=False,
+                              roll_s=0):
+    """Plain torch version of :func:`spec_rfft_split`."""
+    (Xr, Xi), _ = _reference("spec", x, None, win, nperseg, hop, nfft, detrend, roll_s,
+                             pad_out)
+    return Xr, Xi
+
+
+def spec_c2c_split(re, im, win, nperseg, hop, nfft, detrend):
+    """Fused two-sided framed C2C (B22): a complex signal as float32 planes
+    (re, im) ``[..., t]`` of one shape -> split spectra (Xr, Xi) ``[...,
+    num, nfft]``, every bin in natural (unshifted) order; each plane is
+    detrended on its own.  Differentiable in re and im."""
+    (Xr, Xi), _ = _apply("spec_c2c", re, im, win, nperseg, hop, nfft, detrend)
+    return Xr, Xi
+
+
+def spec_c2c_split_reference(re, im, win, nperseg, hop, nfft, detrend):
+    """Plain torch version of :func:`spec_c2c_split`."""
+    (Xr, Xi), _ = _reference("spec_c2c", re, im, win, nperseg, hop, nfft, detrend)
+    return Xr, Xi

@@ -1,6 +1,6 @@
 """numpy.fft / scipy-compatible helpers: shifts, frequency grids, FFT
 convolution and correlation, the analytic signal, the Hartley transform
-(torch port of ``fft_wgpu_tpu.ops.helpers``, less ``resample``).
+and FFT-domain resampling (torch port of ``fft_wgpu_tpu.ops.helpers``).
 
 The kernel users on a CUDA tensor:
 
@@ -10,9 +10,14 @@ The kernel users on a CUDA tensor:
   through ``nd.fftn_split``;
 * ``oaconvolve`` of real input: the R2C kernel on every segment and on the
   kernel, the product C2R kernel with the kernel spectrum broadcast over
-  the segments, then an overlap-add of K contiguous slabs (no scatter);
+  the segments, then an overlap-add of K contiguous slabs
+  (``stft._ola_slabs``, no scatter);
 * ``hilbert``: the row kernel, then the filtered row kernel with the
-  one-sided weights at load (``cuda_fft.fft_filtered_split``).
+  one-sided weights at load (``cuda_fft.fft_filtered_split``);
+* ``resample`` has no kernel of its own: real input takes the plan's R2C
+  and C2R (the R2C and C2R kernels for pow2 lengths), complex input and
+  ``domain="freq"`` its C2C, and composite lengths whatever the plan
+  routes them to.
 
 The transform lengths of the convolutions are powers of two on a CUDA
 tensor (up to 2^21, the kernels' routes) and scipy's 5-smooth even length
@@ -34,7 +39,9 @@ from ..core.twiddle import FORWARD, INVERSE
 from ..plan.plan import get_plan
 from . import cuda_fft
 from .nd import fftn, fftn_split, ifftn
-from .rfft import irfft, irfft_last_split, irfft_prod_last_split, rfft, rfft_last_split
+from .rfft import (_hermitian_extend, irfft, irfft_last_split, irfft_prod_last_split, rfft,
+                   rfft_last_split)
+from .stft import _ola_slabs
 from .transforms import _resize_axis, fft, ifft
 
 __all__ = [
@@ -49,6 +56,7 @@ __all__ = [
     "fftcorrelate",
     "hilbert",
     "hilbert2",
+    "resample",
     "fftshift",
     "ifftshift",
     "fftfreq",
@@ -216,16 +224,8 @@ def oaconvolve(a, b, mode: str = "full", axes=None, axis: int = None):
         if B.ndim > 1:
             B = B[..., None, :]  # broadcast over the segment axis
         Y = ifft(fft(segs, axis=-1) * B, axis=-1)  # [.., nseg, nfft]
-    # overlap-add into [.., nseg*step + nfft - step]: pad each frame to
-    # K*step and add K contiguous shifted slabs (no flat-index scatter)
-    t = nseg * step + (nfft - step)
-    K = -(-nfft // step)
-    Yp = torch.nn.functional.pad(Y, (0, K * step - nfft))
-    ch = Yp.reshape(*lead, nseg, K, step)
-    out = Y.new_zeros((*lead, nseg + K - 1, step))
-    for k in range(K):
-        out[..., k:k + nseg, :] += ch[..., :, k, :]
-    full = out.reshape(*lead, (nseg + K - 1) * step)[..., :t][..., :lfull].movedim(-1, axis)
+    # overlap-add into [.., nseg*step + nfft - step] (no flat-index scatter)
+    full = _ola_slabs(Y, step, nseg * step + (nfft - step))[..., :lfull].movedim(-1, axis)
     if mode == "full":
         return full
     ax = axis % full.ndim
@@ -447,6 +447,126 @@ def hilbert(x, n: int = None, axis: int = -1, *, N: int = None):
     else:
         re, im = p._execute_split(re * h, im * h, INVERSE, 1.0 / length)
     return merge(re.movedim(-1, axis), im.movedim(-1, axis))
+
+
+def _resample_window(window, n):
+    """Host-side spectral window for `resample` (scipy semantics):
+    callable -> window(fftfreq(n)); array -> used as-is (fft bin order);
+    name/tuple -> fftshift(get_window(window, n)).  float64 numpy out."""
+    if callable(window):
+        W = np.asarray(window(np.fft.fftfreq(n)))
+    elif hasattr(window, "shape") or isinstance(window, list):
+        W = np.asarray(window.detach().cpu() if isinstance(window, torch.Tensor) else window)
+        if W.shape != (n,):
+            raise ValueError(f"window length {W.shape} != number of "
+                             f"frequency bins ({n},)")
+    else:
+        # imported here: spectral_est imports this module
+        from .spectral_est import get_window
+
+        W = np.fft.fftshift(get_window(window, n, device="cpu").numpy().astype(np.float64))
+    if np.iscomplexobj(W):
+        raise ValueError("complex spectral windows are not supported")
+    return W.astype(np.float64)
+
+
+def _scale_bin(v, k: int, s: float):
+    """``v`` with bin ``k`` of its last axis multiplied by ``s`` (a copy)."""
+    v = v.clone()
+    v[..., k] *= s
+    return v
+
+
+def resample(x, num: int, t=None, axis: int = 0, window=None,
+             domain: str = "time"):
+    """FFT-domain resampling (scipy.signal.resample parity): transform,
+    truncate or zero-pad the spectrum to `num` bins, inverse transform,
+    rescale by num/n.  Real input rides the half-spectrum path; complex
+    input and `domain='freq'` run the two-sided form.  `window` is applied
+    in the frequency domain (folded onto the half spectrum for real input,
+    scipy eq.); with `t` the resampled sample positions are returned as a
+    second value (numpy)."""
+    if domain not in ("time", "freq"):
+        raise ValueError(f"domain must be 'time' or 'freq', got {domain!r}")
+    num = int(num)
+    if num < 1:
+        raise ValueError("num must be >= 1")
+    x0 = _tensor(x)
+    n = x0.shape[axis]
+    m = min(num, n)
+    m2 = m // 2 + 1
+    s_fac = n / num
+    W = None if window is None else _resample_window(window, n)
+
+    if domain == "time" and not _iscomplex(x0):
+        old_bins = n // 2 + 1
+        v = _f32(x0).movedim(axis, -1)
+        if n % 2 == 0:
+            Xr, Xi = rfft_last_split(v, None)
+        else:  # odd input length: zero-imag C2C, half spectrum kept
+            re_, im_ = fftn_split(v, torch.zeros_like(v), (v.ndim - 1,), FORWARD, None)
+            Xr, Xi = re_[..., :old_bins], im_[..., :old_bins]
+        if W is not None:
+            # fold the two-sided window onto the half spectrum:
+            # W1[l] = (W[l] + W[n-l]) / 2 for 0 < l < old_bins
+            Wf = W[:old_bins].copy()
+            Wf[1:] = (W[1:old_bins] + W[:-old_bins:-1]) / 2.0
+            wj = torch.from_numpy(Wf.astype(np.float32)).to(v.device)
+            Xr, Xi = Xr * wj, Xi * wj
+        if m2 <= old_bins:
+            Xr, Xi = Xr[..., :m2], Xi[..., :m2]
+            if num % 2 == 0 and num < n:
+                # the kept +num/2 and -num/2 bins fold into the new (real)
+                # Nyquist: X[num/2] + conj(.) = 2*Re(X[num/2])
+                Xr, Xi = _scale_bin(Xr, -1, 2.0), _scale_bin(Xi, -1, 0.0)
+        if m2 > old_bins or num > n:
+            if n % 2 == 0:
+                # the old Nyquist splits across +/- frequencies: halve it
+                Xr = _scale_bin(Xr, old_bins - 1, 0.5)
+                Xi = _scale_bin(Xi, old_bins - 1, 0.5)
+            new_bins = num // 2 + 1
+            if new_bins > Xr.shape[-1]:
+                pad = (0, new_bins - Xr.shape[-1])
+                Xr = torch.nn.functional.pad(Xr, pad)
+                Xi = torch.nn.functional.pad(Xi, pad)
+        # total scale num/n with the inverse's 1/num folded in => 1/n
+        if num % 2 == 0:
+            y = irfft_last_split(Xr, Xi, num, 1.0 / n)
+        else:  # odd target length: hermitian-extend + C2C inverse
+            fr, fi = _hermitian_extend(Xr, Xi, num)
+            y, _ = fftn_split(fr, fi, (fr.ndim - 1,), INVERSE, 1.0 / n)
+        out = y.movedim(-1, axis)
+    else:  # complex input or spectrum input: two-sided form
+        vr, vi = split(x0)
+        vr, vi = vr.movedim(axis, -1), vi.movedim(axis, -1)
+        if domain == "time":
+            Xr, Xi = fftn_split(vr, vi, (vr.ndim - 1,), FORWARD, None)
+        else:
+            Xr, Xi = vr, vi
+        if W is not None:
+            wj = torch.from_numpy(W.astype(np.float32)).to(vr.device)
+            Xr, Xi = Xr * wj, Xi * wj
+        Yr = Xr.new_zeros((*Xr.shape[:-1], num))
+        Yi = Xi.new_zeros((*Xi.shape[:-1], num))
+        Yr[..., :m2], Yi[..., :m2] = Xr[..., :m2], Xi[..., :m2]
+        if m2 < m:  # negative-frequency half
+            Yr[..., m2 - m:], Yi[..., m2 - m:] = Xr[..., m2 - m:], Xi[..., m2 - m:]
+        if m % 2 == 0:
+            if num < n:  # down: unite the bin pair at -m/2
+                Yr[..., -m // 2] += Xr[..., -m // 2]
+                Yi[..., -m // 2] += Xi[..., -m // 2]
+            elif n < num:  # up: split the unpaired bin at m/2
+                Yr[..., m // 2] *= 0.5
+                Yi[..., m // 2] *= 0.5
+                Yr[..., num - m // 2] = Yr[..., m // 2]
+                Yi[..., num - m // 2] = Yi[..., m // 2]
+        # ifft(Y / s_fac): 1/num inverse scale * num/n => 1/n
+        yr, yi = fftn_split(Yr, Yi, (Yr.ndim - 1,), INVERSE, 1.0 / n)
+        out = merge(yr.movedim(-1, axis), yi.movedim(-1, axis))
+    if t is not None:
+        t = np.asarray(t.detach().cpu() if isinstance(t, torch.Tensor) else t)
+        return out, t[0] + (t[1] - t[0]) * s_fac * np.arange(num)
+    return out
 
 
 def hilbert2(x, N=None):

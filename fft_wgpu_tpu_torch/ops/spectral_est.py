@@ -20,17 +20,22 @@ in the cases where the JAX package takes its TPU kernels, with
   * the one-sided median of one real signal: B19, ``spec_psd_split``, then
     the median over segments;
   * ``csd`` of two real signals of one shape: B17; ``coherence``: B18;
-  * ``spectrogram``'s psd and magnitude modes of real input: B19;
+  * ``spectrogram``'s one-sided psd and magnitude modes of real input: B19;
   * the two-sided mean of one signal (complex input, or real input with
-    ``return_onesided=False``): B21, ``welch_accum_c2c_split``.
+    ``return_onesided=False``): B21, ``welch_accum_c2c_split``;
+  * every other per-segment spectrum, :func:`_spec_segments_split`: B20
+    (``spec_rfft_split``) for the half spectra of real input, B22
+    (``spec_c2c_split``) for the two-sided spectra of complex input or of
+    real input with ``return_onesided=False``.  It serves the cross
+    spectra and medians of complex input, two-sided ``csd``,
+    ``spectrogram``'s complex, angle and phase modes and its two-sided
+    psd and magnitude modes.
 
-Everything else (the cross spectra and medians of complex input,
-two-sided spectrograms, ``mode="complex"``, ``"angle"`` and ``"phase"``,
-``detrend="linear"``, shapes outside the envelope, and every CPU tensor)
-takes the composed route,
-:func:`_spec_segments_split`: frames, detrend, window, then the plan's
-transforms (the R2C kernel for pow2 nfft on the card, the composite R2C
-kernel for composite nfft, ``fftn_split`` for odd nfft and complex input).
+Outside the envelope (``detrend="linear"``, non-pow2 nfft, other shapes)
+and on every CPU tensor :func:`_spec_segments_split` composes: frames,
+detrend, window, then the plan's transforms (the R2C kernel for pow2 nfft
+on the card, the composite R2C kernel for composite nfft, ``fftn_split``
+for odd nfft and complex input).
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ from . import windows as _windows
 from .helpers import fftfreq, rfftfreq
 from .nd import fftn_split
 from .rfft import rfft_last_split
-from .stft import _frame, bartlett_window, blackman_window, hamming_window, hann_window
+from .stft import (_frame, _on_card, bartlett_window, blackman_window, hamming_window,
+                   hann_window)
 from .stockham import full_float32
 from .windows import _finish, _ones
 
@@ -315,7 +321,13 @@ def _pad_last(v, n: int):
 
 def _spec_segments_split(xr, xi, win, nperseg, hop, nfft, detrend):
     """Frame, detrend, window, transform: split ``[..., num, bins]``, the
-    two-sided spectrum for complex input, the half spectrum for real."""
+    two-sided spectrum for complex input (planes xr, xi of one shape), the
+    half spectrum for real (xi None).  On a CUDA tensor in the envelope one
+    kernel does it all: B20 for real input, B22 for complex."""
+    if _on_card(xr) and cuda_welch.fused_welch_ok(xr.shape[-1], nperseg, hop, nfft, detrend):
+        if xi is None:
+            return cuda_welch.spec_rfft_split(xr, win, nperseg, hop, nfft, detrend)
+        return cuda_welch.spec_c2c_split(xr, xi, win, nperseg, hop, nfft, detrend)
     frames_r = _pad_last(_detrend_seg(_frame(xr, nperseg, hop), detrend) * win, nfft)
     if xi is None:
         if nfft % 2 == 0:
@@ -336,12 +348,6 @@ def _is_complex(x) -> bool:
     if isinstance(x, torch.Tensor):
         return x.is_complex()
     return bool(np.iscomplexobj(x))
-
-
-def _on_card(t) -> bool:
-    """Whether the kernel routes apply: a CUDA tensor (where the JAX
-    package checks for its TPU backend)."""
-    return t.is_cuda
 
 
 def _split(x, device=None):

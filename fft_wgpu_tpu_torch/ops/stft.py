@@ -1,10 +1,15 @@
-"""The four classic windows and the segment framing of
-``fft_wgpu_tpu.ops.stft``.
+"""STFT / ISTFT and the four classic windows (scipy.signal-style
+semantics), the port of ``fft_wgpu_tpu.ops.stft``.
 
-Only what the spectral estimators need is here: ``hann_window``,
-``hamming_window``, ``blackman_window``, ``bartlett_window`` and
-``_frame``.  ``stft``, ``istft``, ``_ola_slabs`` and ``_prep_window`` come
-with the per-segment complex spectra and their kernels (ROADMAP slice 8b).
+``stft`` frames a real signal and transforms every frame: on a CUDA
+tensor in the segment-spectrum envelope (``cuda_welch.fused_welch_ok``
+with nperseg = nfft = n_fft and no detrend) one launch of the framed-R2C
+kernel (B20, ``cuda_welch.spec_rfft_split``) does both, without the frame
+matrix; anywhere else the frames go through the plan's R2C.  ``istft``
+runs the C2R (the C2R kernel for pow2 n_fft on the card), the window and a
+scatter-free overlap-add of K contiguous slabs (``_ola_slabs``), and
+divides by the same overlap-add of the squared window, built on the
+signal's device.
 
 Windows are float64 numpy tables cast once to float32, as in the JAX
 package, on ``device`` (the current CUDA device by default).
@@ -13,10 +18,14 @@ package, on ``device`` (the current CUDA device by default).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..core.complex_utils import merge, promote_to_split, to_device
+from .rfft import _rfft_split, irfft
 from .windows import _finish, _ones
 
-__all__ = ["hann_window", "hamming_window", "blackman_window", "bartlett_window"]
+__all__ = ["hann_window", "hamming_window", "blackman_window", "bartlett_window", "stft",
+           "istft"]
 
 
 def _k_m(n: int, periodic: bool):
@@ -66,3 +75,113 @@ def _frame(x, frame_len: int, hop: int):
             "pad the input or pass center=True"
         )
     return x.unfold(-1, frame_len, hop)
+
+
+def _ola_slabs(frames, hop: int, t: int):
+    """Scatter-free overlap-add of ``[..., num, flen]`` frames at stride
+    ``hop`` into ``[..., t]``: pad the frames to K*hop and add K contiguous
+    shifted slabs (no flat-index scatter).  A frame tensor expanded along
+    its num axis (one row broadcast) is read without copying it when
+    K*hop == flen."""
+    num, flen = frames.shape[-2], frames.shape[-1]
+    lead = frames.shape[:-2]
+    K = -(-flen // hop)
+    if K * hop != flen:
+        frames = torch.nn.functional.pad(frames, (0, K * hop - flen))
+    ch = frames.reshape(*lead, num, K, hop)
+    out = frames.new_zeros((*lead, num + K - 1, hop))
+    for k in range(K):
+        out[..., k:k + num, :] += ch[..., :, k, :]
+    return out.reshape(*lead, (num + K - 1) * hop)[..., :t]
+
+
+def _prep_window(window, n_fft: int, win_length, device):
+    """Resolve the analysis window to a float32 tensor of n_fft points on
+    ``device``: default hann of win_length (or n_fft), and any window
+    shorter than n_fft is padded centered (torch.stft win_length
+    semantics)."""
+    if window is None:
+        window = hann_window(win_length or n_fft, device=device)
+    window = to_device(window, device)
+    wl = window.shape[0]
+    if win_length is not None and wl != win_length:
+        raise ValueError(f"window length {wl} != win_length {win_length}")
+    if wl > n_fft:
+        raise ValueError(f"window length {wl} exceeds n_fft {n_fft}")
+    if wl < n_fft:
+        left = (n_fft - wl) // 2
+        window = torch.nn.functional.pad(window, (left, n_fft - wl - left))
+    return window
+
+
+def _on_card(t) -> bool:
+    """Whether the kernel routes apply: a CUDA tensor (where the JAX
+    package checks for its TPU backend)."""
+    return t.is_cuda
+
+
+def _reflect_pad(x, pad: int):
+    """numpy's reflect pad of ``pad`` points at both ends of the last axis
+    (torch's reflect pad takes 2-D and 3-D input: the rows are flattened)."""
+    lead = x.shape[:-1]
+    v = torch.nn.functional.pad(x.reshape(-1, x.shape[-1]), (pad, pad), mode="reflect")
+    return v.reshape(*lead, v.shape[-1])
+
+
+def stft(x, n_fft: int = 512, hop_length: int | None = None, window=None,
+         center: bool = True, win_length: int | None = None):
+    """Short-time Fourier transform of a real signal.
+
+    Returns complex64 ``[..., n_fft//2 + 1, num_frames]`` (librosa-style
+    layout).  A tensor is transformed on its device; other input goes to
+    the current CUDA device."""
+    # imported here: cuda_welch imports this module
+    from . import cuda_welch
+
+    hop = hop_length or n_fft // 4
+    x = to_device(x)
+    window = _prep_window(window, n_fft, win_length, x.device)
+    if center:
+        x = _reflect_pad(x, n_fft // 2)
+    if _on_card(x) and cuda_welch.fused_welch_ok(x.shape[-1], n_fft, hop, n_fft, False):
+        # B20: frames, window and R2C in one pass, no frame matrix
+        Xr, Xi = cuda_welch.spec_rfft_split(x, window, n_fft, hop, n_fft, False)
+    else:
+        Xr, Xi = _rfft_split(_frame(x, n_fft, hop) * window, None, -1, None)
+    return merge(Xr.transpose(-1, -2), Xi.transpose(-1, -2))
+
+
+def _cola_norm(window, num: int, hop: int, t: int):
+    """The overlap-added squared window of ``num`` frames at stride hop,
+    ``[t]``, with entries <= 1e-8 set to 1: istft's divisor, by the same
+    slab overlap-add as the frames, on the window's device."""
+    wsq = window * window
+    norm = _ola_slabs(wsq.expand(num, wsq.shape[0]), hop, t)
+    return torch.where(norm > 1e-8, norm, torch.ones_like(norm))
+
+
+def istft(Z, n_fft: int = 512, hop_length: int | None = None, window=None,
+          center: bool = True, length: int | None = None,
+          win_length: int | None = None):
+    """Inverse STFT via windowed overlap-add (COLA normalization) of
+    ``[..., n_fft//2 + 1, num_frames]`` spectra; real float32 output."""
+    hop = hop_length or n_fft // 4
+    zr, zi = promote_to_split(Z)
+    window = _prep_window(window, n_fft, win_length, zr.device)
+    frames = irfft((zr.transpose(-1, -2), zi.transpose(-1, -2)), n=n_fft, axis=-1)
+    frames = frames * window  # [..., num, n_fft]
+    num = frames.shape[-2]
+    t = n_fft + hop * (num - 1)
+    y = _ola_slabs(frames, hop, t) / _cola_norm(window, num, hop, t)
+    if center:
+        # trim the left reflect-pad; the right trim happens through length
+        # below when given (torch serves length= from the right pad's
+        # reconstructed samples before it zero-pads)
+        y = y[..., n_fft // 2:]
+        if length is None:
+            y = y[..., : y.shape[-1] - n_fft // 2]
+    if length is not None:
+        if y.shape[-1] < length:
+            y = torch.nn.functional.pad(y, (0, length - y.shape[-1]))
+        y = y[..., :length]
+    return y

@@ -4,9 +4,10 @@ rows_fft (B1), ax0_fft (B2, and B3 on the axis(-3) view), rows_t_fft (B4),
 fft2f_fft (B5), r2c_fft (B6), c2r_fft (B7), big_fft (B15), gen_fft (B13),
 r2c_gen_fft (B14), chirp_fft (B11, B12), filt_fft (B9, B10), the product
 form of c2r_fft (B8), ax0_gen_fft (B2's composite range) and welch_fft
-(B16, B17, B18, B19, B21): values, launch counts and gradients, and the routes
-of the plan, the N-D, the real and the non-pow2 transforms, the fused
-epilogues and the spectral estimators through them.  No call may move the
+(B16, B17, B18, B19, B20, B21, B22): values, launch counts and gradients,
+and the routes of the plan, the N-D, the real and the non-pow2 transforms,
+the fused epilogues, the spectral estimators and the per-segment spectra
+(stft, istft, ShortTimeFFT, resample) through them.  No call may move the
 thread's current device or the caller's TF32 setting.
 
 Every test here needs a CUDA device and skips without one.  The card's
@@ -268,7 +269,8 @@ def _counts():
             "bank": cuda_fft.bank_launches, "c2r_prod": cuda_fft.c2r_prod_launches,
             "ax0_gen": cuda_fft.ax0_gen_launches, "welch": cuda_welch.welch_launches,
             "psd": cuda_welch.psd_launches, "csd": cuda_welch.csd_launches,
-            "coh": cuda_welch.coh_launches, "c2c": cuda_welch.c2c_launches}
+            "coh": cuda_welch.coh_launches, "c2c": cuda_welch.c2c_launches,
+            "spec": cuda_welch.spec_launches, "spec_c2c": cuda_welch.spec_c2c_launches}
 
 
 def _through(fn, **want):
@@ -817,6 +819,8 @@ def _every_kernel(dev):
         "csd": lambda: cuda_welch.csd_accum_split(s, s, w, 256, 128, 256, "constant"),
         "coh": lambda: cuda_welch.coherence_accum_split(s, s, w, 256, 128, 256, "constant"),
         "c2c": lambda: cuda_welch.welch_accum_c2c_split(s, s, w, 256, 128, 256, "constant"),
+        "spec": lambda: cuda_welch.spec_rfft_split(s, w, 256, 128, 256, "constant", roll_s=3),
+        "spec_c2c": lambda: cuda_welch.spec_c2c_split(s, s, w, 256, 128, 256, "constant"),
     }
 
 
@@ -841,14 +845,18 @@ def test_kernels_leave_current_device(dev):
 
 # ---------------------------------------------------------------------- #
 # the fused segment-spectrum kernels: B16 (welch), B19 (psd), B17 (csd),
-# B18 (coh), B21 (c2c: y is the imaginary plane) and the spectral
-# estimators' routes
+# B18 (coh), B21 (c2c: y is the imaginary plane), B20 (spec), B22
+# (spec_c2c: y is the imaginary plane) and the spectral estimators' routes
 # ---------------------------------------------------------------------- #
-WELCH_KINDS = ("welch", "psd", "csd", "coh", "c2c")
+WELCH_KINDS = ("welch", "psd", "csd", "coh", "c2c", "spec", "spec_c2c")
 
 
-def _welch_call(kind, x, y, w, args, plain=False):
+def _welch_call(kind, x, y, w, args, plain=False, **opts):
     suffix = "_reference" if plain else ""
+    if kind == "spec":
+        return getattr(cuda_welch, "spec_rfft_split" + suffix)(x, w, *args, **opts)
+    if kind == "spec_c2c":
+        return getattr(cuda_welch, "spec_c2c_split" + suffix)(x, y, w, *args)
     if kind == "welch":
         return (getattr(cuda_welch, "welch_accum_split" + suffix)(x, w, *args)[0],)
     if kind == "psd":
@@ -859,15 +867,23 @@ def _welch_call(kind, x, y, w, args, plain=False):
     return getattr(cuda_welch, fn + suffix)(x, y, w, *args)[:-1]
 
 
-def _welch_oracle(kind, x, y, w, nperseg, hop, nfft, detrend):
+def _welch_oracle(kind, x, y, w, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False):
     """float64 torch.fft of the frames: an oracle, never the implementation."""
     def spectra(v):
         fr = v.unfold(-1, nperseg, hop)
         if detrend == "constant":
             fr = fr - fr.mean(-1, keepdim=True)
-        fft = torch.fft.fft if v.is_complex() else torch.fft.rfft
-        return fft(fr * w.double(), n=nfft)
+        fr = torch.nn.functional.pad(fr * w.double(), (0, nfft - nperseg)).roll(-roll_s, -1)
+        return (torch.fft.fft if v.is_complex() else torch.fft.rfft)(fr)
 
+    if kind == "spec":
+        X = spectra(x.double())
+        if pad_out:
+            X = torch.nn.functional.pad(X, (0, cuda_fft.pad_bins(nfft) - X.shape[-1]))
+        return X.real, X.imag
+    if kind == "spec_c2c":
+        X = spectra(torch.complex(x.double(), y.double()))
+        return X.real, X.imag
     if kind == "c2c":
         return ((spectra(torch.complex(x.double(), y.double())).abs() ** 2).sum(-2),)
     X = spectra(x.double())
@@ -912,16 +928,47 @@ def test_welch_kernels_are_bit_identical_across_runs(dev):
         a = _welch_call(kind, x, y, w, (4096, 2048, 4096, "constant"))
         b = _welch_call(kind, x, y, w, (4096, 2048, 4096, "constant"))
         assert all(torch.equal(u, v) for u, v in zip(a, b)), kind
+    a = cuda_welch.spec_rfft_split(x, w, 4096, 2048, 4096, False, pad_out=True, roll_s=100)
+    b = cuda_welch.spec_rfft_split(x, w, 4096, 2048, 4096, False, pad_out=True, roll_s=100)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
     x = rrand(dev, 64, 1 << 16, seed=3)  # many small blocks
     w = torch.hann_window(256, device=dev)
     a = cuda_welch.welch_accum_split(x, w, 256, 128, 256, "constant")[0]
     assert torch.equal(a, cuda_welch.welch_accum_split(x, w, 256, 128, 256, "constant")[0])
 
 
+@pytest.mark.parametrize("nfft", [1 << e for e in range(7, 15)])
+def test_spec_kernel_roll_and_padded_output(dev, nfft):
+    """B20 with a left roll of each padded frame (ShortTimeFFT's phase
+    shift) and the padded serving form, whose extra columns are zeros."""
+    for nperseg, roll_s in ((nfft, nfft // 2 + 1), (nfft - nfft // 4 + 1, nfft - 1),
+                            (nfft // 2, 7)):
+        hop = max(nperseg // 4, 1)
+        t = nperseg + 37 * hop + hop // 3
+        x = rrand(dev, 2, t, seed=nperseg)
+        w = torch.hann_window(nperseg, device=dev) + 0.1
+        args = (nperseg, hop, nfft, "constant")
+        for pad_out in (False, True):
+            opts = {"roll_s": roll_s, "pad_out": pad_out}
+            got = _through(lambda: _welch_call("spec", x, None, w, args, **opts), spec=1)
+            plain = _welch_call("spec", x, None, w, args, plain=True, **opts)
+            want = _welch_oracle("spec", x, None, w, *args, **opts)
+            assert got[0].shape == (2, 38, cuda_fft.pad_bins(nfft) if pad_out else nfft // 2 + 1)
+            assert rel_l2(_stack(got), _stack(plain)) < TOL, (nperseg, roll_s, pad_out)
+            assert rel_l2(_stack(got), _stack(want)) < TOL, (nperseg, roll_s, pad_out)
+            if pad_out:
+                assert not got[0][..., nfft // 2 + 1:].any()
+                assert not got[1][..., nfft // 2 + 1:].any()
+
+
 def test_welch_kernels_raise_outside_envelope(dev):
     x, w = rrand(dev, 4096), torch.ones(512, device=dev)
     with pytest.raises(cuda_welch.Unsupported):
         cuda_welch.welch_accum_split(x, w, 512, 256, 512, "linear")
+    with pytest.raises(cuda_welch.Unsupported):
+        cuda_welch.spec_c2c_split(x, x[:4000], w, 512, 256, 512, False)
+    with pytest.raises(ValueError, match="roll_s"):
+        cuda_welch.spec_rfft_split(x, w, 512, 256, 512, False, roll_s=512)
     with pytest.raises(cuda_welch.Unsupported):
         cuda_welch.spec_psd_split(x, w, 512, 256, 32768, False)
     with pytest.raises(ValueError, match="win"):
@@ -939,14 +986,20 @@ def test_grad_welch_kernels_match_plain(dev, kind):
     def grad(plain):
         x, y = x0.clone().requires_grad_(), y0.clone().requires_grad_()
         outs = _welch_call(kind, x, y, w, args, plain=plain)
+        if kind in ("spec", "spec_c2c"):
+            # weighted powers of the spectra: a weighted sum of the spectra
+            # themselves is a ramp's transform, whose large DC term the
+            # detrend cancels, leaving float32 rounding of 1e-4
+            outs = [o * o for o in outs]
         loss = sum((torch.linspace(0.5, 1.5, o.numel(), device=dev).reshape(o.shape) * o).sum()
                    for o in outs)
         loss.backward()
-        return torch.cat([x.grad.reshape(-1)]
-                         + ([y.grad.reshape(-1)] if kind in ("csd", "coh", "c2c") else []))
+        return torch.cat([x.grad.reshape(-1)] + ([y.grad.reshape(-1)] if kind in (
+            "csd", "coh", "c2c", "spec_c2c") else []))
 
     two = 2 if kind in ("csd", "coh") else 1
-    back = {"rows_fft": 2} if kind == "c2c" else {"r2c_fft": two, "rows_fft": two}
+    back = ({"rows_fft": 2} if kind in ("c2c", "spec_c2c")
+            else {"r2c_fft": two, "rows_fft": two})
     gk = _through(lambda: grad(False), **{kind: 1}, **back)
     assert rel_l2(gk, grad(True)) < TOL
 
@@ -968,14 +1021,20 @@ def test_spectral_estimator_routes(dev):
         ("spectrogram magnitude",
          lambda v, u: ft.spectrogram(v, nperseg=1024, mode="magnitude")[2], {"psd": 1}),
         ("spectrogram complex", lambda v, u: ft.spectrogram(v, nperseg=1024, mode="complex")[2],
-         {"r2c_fft": 1}),
+         {"spec": 1}),
+        ("spectrogram phase", lambda v, u: ft.spectrogram(v, nperseg=1024, mode="phase")[2],
+         {"spec": 1}),
+        ("spectrogram two-sided",
+         lambda v, u: ft.spectrogram(v, nperseg=1024, return_onesided=False)[2],
+         {"spec_c2c": 1}),
         ("welch linear", lambda v, u: ft.welch(v, nperseg=1024, detrend="linear")[1],
          {"r2c_fft": 1}),
         ("multitaper", lambda v, u: ft.multitaper(v[0, :16384], NW=4.0)[1], {"r2c_fft": 1}),
         ("welch two-sided", lambda v, u: ft.welch(v, nperseg=1024, return_onesided=False)[1],
          {"c2c": 1}),
         ("csd two-sided", lambda v, u: ft.csd(v, u, nperseg=1024, return_onesided=False)[1],
-         {"rows_fft": 2}),
+         {"spec_c2c": 2}),
+        ("csd unequal shapes", lambda v, u: ft.csd(v, u[0], nperseg=1024)[1], {"spec": 2}),
     ]
     for what, call, want in calls:
         got = _through(lambda: call(x, y), **want)
@@ -983,5 +1042,87 @@ def test_spectral_estimator_routes(dev):
         assert rel_l2(got.cpu(), call(x.cpu(), y.cpu())) < TOL, what
     got = _through(lambda: ft.welch(xc, nperseg=4096)[1], c2c=1)  # complex input: B21
     assert rel_l2(got.cpu(), ft.welch(xc.cpu(), nperseg=4096)[1]) < TOL
+    for what, call, want in (  # complex input: B22
+            ("complex spectrogram", lambda v: ft.spectrogram(v, nperseg=1024, mode="complex")[2],
+             {"spec_c2c": 1}),
+            ("complex csd", lambda v: ft.csd(v, v * 2, nperseg=1024)[1], {"spec_c2c": 2}),
+            ("complex welch median",
+             lambda v: ft.welch(v, nperseg=1024, average="median")[1], {"spec_c2c": 1})):
+        got = _through(lambda: call(xc), **want)
+        assert rel_l2(got.cpu(), call(xc.cpu())) < TOL, what
     f, P = ft.welch(x.cpu().numpy()[0], nperseg=1024)  # numpy input: the current card
     assert P.device.type == "cuda" and f.device.type == "cuda"
+
+
+# ---------------------------------------------------------------------- #
+# the per-segment spectra: stft, istft, ShortTimeFFT and resample
+# ---------------------------------------------------------------------- #
+def test_segment_spectra_routes(dev):
+    """stft and ShortTimeFFT.stft launch B20 once in the envelope, istft
+    the C2R kernel, resample the plan's real kernels; each matches the same
+    call on CPU tensors."""
+    x = rrand(dev, 2, 1 << 14, seed=9)
+    w = torch.from_numpy(np.hanning(256).astype(np.float32))
+    S = ft.ShortTimeFFT(w.numpy(), 64, 1.0, mfft=512, phase_shift=40)
+    calls = [
+        ("stft", lambda v: ft.stft(v, 512, 128), {"spec": 1}),
+        ("stft win_length", lambda v: ft.stft(v, 512, 100, win_length=300), {"spec": 1}),
+        ("stft composite n_fft", lambda v: ft.stft(v, 1000, 250), {"r2c_gen_fft": 1}),
+        ("istft", lambda v: ft.istft(ft.stft(v.cpu(), 512, 128).to(v.device), 512, 128),
+         {"c2r_fft": 1}),
+        ("ShortTimeFFT.stft", lambda v: S.stft(v), {"spec": 1}),
+        ("ShortTimeFFT.istft", lambda v: S.istft(S.stft(v.cpu()).to(v.device),
+                                                 k1=v.shape[-1]), {"c2r_fft": 1}),
+        ("ShortTimeFFT two-sided", lambda v: ft.ShortTimeFFT(
+            w.numpy(), 64, 1.0, fft_mode="twosided").stft(v), {"rows_fft": 1}),
+        ("resample down", lambda v: ft.resample(v, 1 << 13, axis=-1), {"r2c_fft": 1,
+                                                                       "c2r_fft": 1}),
+    ]
+    for what, call, want in calls:
+        got = _through(lambda: call(x), **want)
+        assert got.device.type == "cuda", what
+        assert rel_l2(got.cpu(), call(x.cpu())) < TOL, what
+
+
+def test_segment_spectra_never_compose_on_the_card(dev, monkeypatch):
+    """A CUDA tensor in the envelope runs B20 or B22: the plain versions,
+    the composed form and the plan's transforms are never reached."""
+    from fft_wgpu_tpu_torch.ops import short_time_fft, spectral_est
+    from fft_wgpu_tpu_torch.ops import stft as stft_mod
+
+    def refuse(name):
+        def fail(*a, **k):
+            raise AssertionError(f"{name} ran on the card")
+        return fail
+
+    for mod, name in ((cuda_welch, "_composed"), (cuda_welch, "_reference"),
+                      (cuda_fft, "rfft_rows_split"), (cuda_fft, "fft_batched_split"),
+                      (spectral_est, "rfft_last_split"), (spectral_est, "fftn_split"),
+                      (stft_mod, "_rfft_split"), (short_time_fft, "rfft_last_split"),
+                      (short_time_fft, "fftn_split")):
+        monkeypatch.setattr(mod, name, refuse(f"{mod.__name__}.{name}"))
+    x, xc = rrand(dev, 1 << 15, seed=10), crand(dev, 1 << 15, seed=11)
+    S = ft.ShortTimeFFT(np.hanning(512), 128, 1.0, mfft=1024)
+    for call, want in ((lambda: ft.stft(x, 512, 128), {"spec": 1}),
+                       (lambda: S.stft(x), {"spec": 1}),
+                       (lambda: ft.spectrogram(x, nperseg=1024, mode="complex"), {"spec": 1}),
+                       (lambda: ft.spectrogram(xc, nperseg=1024), {"spec_c2c": 1}),
+                       (lambda: ft.csd(xc, x, nperseg=1024), {"spec_c2c": 2})):
+        _through(call, **want)
+
+
+def test_grad_segment_spectra_match_plain(dev):
+    """d/dx of stft and of ShortTimeFFT.stft with a phase shift: B20
+    forward, B6 and B1 back; against the CPU route."""
+    x0 = rrand(dev, 4096, seed=12)
+    S = ft.ShortTimeFFT(np.hanning(256), 64, 1.0, mfft=512, phase_shift=30)
+    for what, call in (("stft", lambda v: ft.stft(v, 512, 128)), ("ShortTimeFFT", S.stft)):
+        def grad(v):
+            v = v.clone().requires_grad_()
+            y = call(v)
+            (torch.linspace(0.5, 1.5, y.numel(), device=v.device).reshape(y.shape)
+             * y.abs() ** 2).sum().backward()
+            return v.grad
+
+        gk = _through(lambda: grad(x0), spec=1, r2c_fft=1, rows_fft=1)
+        assert rel_l2(gk.cpu(), grad(x0.cpu())) < TOL, what

@@ -1,6 +1,7 @@
 """Torch port, the fused-epilogue modules on the CPU: ``ops/helpers.py``
 (shifts, frequency grids, fast lengths, the convolutions, correlation,
-the analytic signal, the Hartley transform, detrending), ``ops/fastconv.py``
+the analytic signal, the Hartley transform, detrending, resampling),
+``ops/fastconv.py``
 (``SpectralFilter``) and ``ops/cwt.py`` (``cwt``, ``CWT``).
 
 The same numpy inputs go through the JAX package on the CPU and through
@@ -54,11 +55,11 @@ def assert_no_launches():
 
 
 def test_exports_match_jax():
-    # the JAX package's names from helpers, fastconv and cwt, less resample
-    names = (set(j_helpers.__all__) - {"resample"}) | {
+    # the JAX package's names from helpers, fastconv and cwt
+    names = set(j_helpers.__all__) | {
         "SpectralFilter", "spectral_filter", "cwt", "CWT", "ricker", "morlet2"}
     assert names <= set(ft.__all__)
-    assert not hasattr(ft, "resample")
+    assert "resample" in names
     for name in names:
         assert callable(getattr(ft, name)), name
 
@@ -412,3 +413,65 @@ def test_kernel_shapes_of_the_card_path():
     assert cwt._pick_nfft(8192 + 1279, CUDA) == 16384  # CWT(8192, 1..128)
     assert helpers._conv_fast_len(4096 + 4095, CUDA) == 8192  # fftconvolve 2048x4096
     assert 1 << max(3, (8 * 129 - 1).bit_length()) == 2048  # oaconvolve's nfft, 129 taps
+
+
+# ---------------------------------------------------------------------- #
+# resample
+# ---------------------------------------------------------------------- #
+RESAMPLE = [  # (kind, shape, num, axis, window, domain)
+    ("r", (64,), 100, 0, None, "time"),               # even up
+    ("r", (3, 64), 40, -1, None, "time"),             # even down, batched
+    ("r", (63, 2), 100, 0, ("kaiser", 5.0), "time"),  # odd up, window, axis 0
+    ("r", (63,), 31, 0, "hann", "time"),              # odd down to odd
+    ("r", (64,), 33, 0, "ones", "time"),              # an array window, odd target
+    ("r", (64,), 101, 0, None, "freq"),               # a spectrum, two-sided
+    ("c", (64,), 100, 0, None, "time"),               # complex up
+    ("c", (65, 3), 40, 0, "hann", "time"),            # complex odd down, window
+    ("c", (64,), 48, 0, None, "freq"),                # complex spectrum down
+    ("c", (2, 96), 96, 1, None, "time"),              # same length
+]
+
+
+@pytest.mark.parametrize("case", RESAMPLE, ids=lambda c: "-".join(map(str, c)))
+def test_resample_matches_jax_and_scipy(case, rng, assert_close):
+    kind, shape, num, axis, window, domain = case
+    x = crand(rng, *shape) if kind == "c" else rrand(rng, *shape)
+    if window == "ones":
+        window = np.ones(shape[axis])
+    got = ft.resample(_t(x), num, axis=axis, window=window, domain=domain)
+    want = np.asarray(ftt.resample(x, num, axis=axis, window=window, domain=domain))
+    assert tuple(got.shape) == want.shape and got.device == CPU
+    assert got.dtype == (torch.complex64 if np.iscomplexobj(want) else torch.float32)
+    assert_close(_np(got), want, what="resample vs JAX")
+    ref = ss.resample(x.astype(np.complex128 if kind == "c" else np.float64), num, axis=axis,
+                      window=window, domain=domain)
+    assert_close(_np(got), ref, what="resample vs scipy")
+    assert_no_launches()
+
+
+def test_resample_t_and_validation(rng, assert_close):
+    x = rrand(rng, 64)
+    t = np.arange(64) * 0.1
+    y, ty = ft.resample(_t(x), 100, t=t)
+    want, twant = ftt.resample(x, 100, t=t)
+    assert_close(_np(y), np.asarray(want))
+    np.testing.assert_allclose(ty, twant)
+    _, ty = ft.resample(_t(x), 100, t=_t(t))
+    np.testing.assert_allclose(ty, twant)
+    y = ft.resample(_t(x), 80, window=lambda f: np.exp(-f * f))
+    assert_close(_np(y), np.asarray(ftt.resample(x, 80, window=lambda f: np.exp(-f * f))))
+    with pytest.raises(ValueError, match="domain"):
+        ft.resample(_t(x), 10, domain="space")
+    with pytest.raises(ValueError, match="num"):
+        ft.resample(_t(x), 0)
+    with pytest.raises(ValueError, match="window length"):
+        ft.resample(_t(x), 10, window=np.ones(5))
+
+
+def test_grad_through_resample_matches_jax(rng, assert_close):
+    x = rrand(rng, 2, 96)
+    w = rng.random((2, 150)).astype(np.float32)
+    jg = jax.grad(lambda v: jnp.sum(w * ftt.resample(v, 150, axis=1) ** 2))(jnp.asarray(x))
+    t = _t(x).requires_grad_()
+    (_t(w) * ft.resample(t, 150, axis=1) ** 2).sum().backward()
+    assert_close(t.grad.numpy(), np.asarray(jg))

@@ -55,12 +55,13 @@ def crand(rng, *shape):
 
 @pytest.fixture
 def routes(monkeypatch):
-    """Pretend CPU tensors lie on the card, and record which of the five
+    """Pretend CPU tensors lie on the card, and record which of the seven
     entry points each call reaches."""
     seen = []
     monkeypatch.setattr(spectral_est, "_on_card", lambda t: True)
     for name in ("welch_accum_split", "spec_psd_split", "csd_accum_split",
-                 "coherence_accum_split", "welch_accum_c2c_split"):
+                 "coherence_accum_split", "welch_accum_c2c_split", "spec_rfft_split",
+                 "spec_c2c_split"):
         fn = getattr(cuda_welch, name)
 
         def spy(*a, _fn=fn, _name=name, **k):
@@ -78,7 +79,8 @@ def test_exports_match_jax():
     names = (set(j_windows.__all__) | set(j_se.__all__)
              | {"hann_window", "hamming_window", "blackman_window", "bartlett_window"})
     assert names <= set(ft.__all__)
-    assert not {"stft", "istft", "ShortTimeFFT"} & set(ft.__all__)  # slice 8b
+    assert {"stft", "istft", "ShortTimeFFT"} <= set(ft.__all__)
+    assert ft.ShortTimeFFT.__name__ == ftt.ShortTimeFFT.__name__
 
 
 WINDOWS = [(name, ()) for name in j_windows.__all__
@@ -310,6 +312,29 @@ CASES = {
     "spectrogram_complex_input": ([("c", (2048,))],
                                   lambda m, x: m.spectrogram(x, nperseg=256, window="hann"),
                                   lambda x: ss.spectrogram(x, nperseg=256, window="hann")),
+    "spectrogram_complex_input_complex": ([("c", (2, 2048))],
+                                          lambda m, x: m.spectrogram(x, nperseg=256,
+                                                                     mode="complex"),
+                                          lambda x: ss.spectrogram(x, nperseg=256,
+                                                                   mode="complex")),
+    "spectrogram_two_sided_magnitude": ([("r", (2048,))],
+                                        lambda m, x: m.spectrogram(x, nperseg=128,
+                                                                   return_onesided=False,
+                                                                   mode="magnitude"),
+                                        lambda x: ss.spectrogram(x, nperseg=128,
+                                                                 return_onesided=False,
+                                                                 mode="magnitude")),
+    "spectrogram_complex_linear": ([("r", (2048,))],
+                                   lambda m, x: m.spectrogram(x, nperseg=256, mode="complex",
+                                                              detrend="linear"),
+                                   lambda x: ss.spectrogram(x, nperseg=256, mode="complex",
+                                                            detrend="linear")),
+    "csd_two_sided": ([("r", (2, 2048)), ("r", (2, 2048))],
+                      lambda m, x, y: m.csd(x, y, nperseg=256, return_onesided=False),
+                      lambda x, y: ss.csd(x, y, nperseg=256, return_onesided=False)),
+    "welch_complex_median": ([("c", (2048,))],
+                             lambda m, x: m.welch(x, nperseg=256, average="median"),
+                             lambda x: ss.welch(x, nperseg=256, average="median")),
     "multitaper_adaptive": ([("r", (2, 1024))], lambda m, x: m.multitaper(x, NW=3.0), None),
     "multitaper_unity_odd": ([("r", (999,))],
                              lambda m, x: m.multitaper(x, NW=2.5, weights="unity"), None),
@@ -338,7 +363,8 @@ def test_estimator_matches_jax_and_scipy(name, rng, assert_close):
         for g, w in zip(got, ref):
             assert_close(_np(g), w, what=f"{name} vs scipy")
     assert (cuda_fft.launches, cuda_fft.r2c_launches, cuda_welch.welch_launches,
-            cuda_welch.psd_launches) == (0, 0, 0, 0)
+            cuda_welch.psd_launches, cuda_welch.spec_launches,
+            cuda_welch.spec_c2c_launches) == (0, 0, 0, 0, 0, 0)
 
 
 # the call, the entry point the route must reach (None: the composed route;
@@ -347,12 +373,19 @@ ROUTES = {
     "welch": "welch_accum_split", "welch_300_100": None, "welch_odd_nfft": None,
     "welch_nfft_1000": None, "welch_median_batched": "spec_psd_split",
     "welch_axis0": "welch_accum_split", "welch_linear": None,
-    "welch_complex": "welch_accum_c2c_split", "welch_two_sided": "welch_accum_c2c_split", "welch_spectrum": "welch_accum_split",
+    "welch_complex": "welch_accum_c2c_split", "welch_two_sided": "welch_accum_c2c_split",
+    "welch_spectrum": "welch_accum_split", "welch_complex_median": "spec_c2c_split",
     "periodogram": "welch_accum_split", "periodogram_linear": None, "csd": "csd_accum_split",
-    "csd_complex_median": None, "coherence": "coherence_accum_split",
-    "coherence_complex": ["welch_accum_c2c_split"] * 2,  # Pxx and Pyy; Pxy composed "spectrogram_psd": "spec_psd_split",
-    "spectrogram_magnitude": "spec_psd_split", "spectrogram_complex": None,
-    "spectrogram_angle": None, "spectrogram_phase": None, "spectrogram_complex_input": None,
+    "csd_complex_median": ["spec_c2c_split"] * 2,  # x, then y with a zero imaginary plane
+    "csd_two_sided": ["spec_c2c_split"] * 2,
+    "coherence": "coherence_accum_split",
+    # Pxy from the two-sided spectra of x and y, then Pxx and Pyy
+    "coherence_complex": ["spec_c2c_split"] * 2 + ["welch_accum_c2c_split"] * 2,
+    "spectrogram_psd": "spec_psd_split", "spectrogram_magnitude": "spec_psd_split",
+    "spectrogram_complex": "spec_rfft_split", "spectrogram_angle": "spec_rfft_split",
+    "spectrogram_phase": "spec_rfft_split", "spectrogram_complex_input": "spec_c2c_split",
+    "spectrogram_complex_input_complex": "spec_c2c_split",
+    "spectrogram_two_sided_magnitude": "spec_c2c_split", "spectrogram_complex_linear": None,
 }
 
 
@@ -383,10 +416,13 @@ def test_kernel_route_windows_and_envelope(routes, rng, assert_close):
     with pytest.warns(UserWarning, match="nperseg"):
         want = ftt.welch(x, nperseg=4096, nfft=8192)[1]
     assert_close(got.numpy(), np.asarray(want))
-    # unequal shapes, detrend=0 and an nfft above 16384: composed, or raise as JAX does
+    # unequal shapes: no B17, the per-segment spectra of each signal (B20);
+    # detrend=0 raises before any launch, as JAX does
     routes.clear()
     got = ft.csd(_t(x), _t(np.stack([y, y])), nperseg=256)[1]
     assert_close(_np(got), np.asarray(ftt.csd(x, np.stack([y, y]), nperseg=256)[1]))
+    assert routes == ["spec_rfft_split"] * 2
+    routes.clear()
     with pytest.raises(ValueError, match="detrend"):
         ft.welch(_t(x), nperseg=256, detrend=0)
     assert routes == []
@@ -422,6 +458,9 @@ GRADS = {
     "csd": (2, lambda m, x, y: m.csd(x, y, nperseg=256, noverlap=96)[1]),
     "spectrogram": (1, lambda m, x: m.spectrogram(x, nperseg=256)[2]),
     "welch_two_sided": (1, lambda m, x: m.welch(x, nperseg=256, return_onesided=False)[1]),
+    "spectrogram_complex": (1, lambda m, x: m.spectrogram(x, nperseg=256, mode="complex")[2]),
+    "csd_two_sided": (2, lambda m, x, y: m.csd(x, y, nperseg=256, noverlap=96,
+                                                return_onesided=False)[1]),
 }
 
 

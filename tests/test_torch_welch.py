@@ -1,7 +1,8 @@
 """Torch port, the fused segment-spectrum kernels' entry points on the CPU:
 ``welch_accum_split`` (B16), ``spec_psd_split`` (B19), ``csd_accum_split``
-(B17), ``coherence_accum_split`` (B18) and ``welch_accum_c2c_split`` (B21)
-of ``ops/cuda_welch.py``.
+(B17), ``coherence_accum_split`` (B18), ``welch_accum_c2c_split`` (B21),
+``spec_rfft_split`` (B20, with its roll and padded output) and
+``spec_c2c_split`` (B22) of ``ops/cuda_welch.py``.
 
 On a CPU tensor each entry point runs its plain version.  Inside the JAX
 package's envelope the same numpy inputs go through its Pallas kernels in
@@ -25,6 +26,8 @@ import torch
 
 from fft_wgpu_tpu.ops import pallas_welch as j_pw
 from fft_wgpu_tpu.ops import spectral_est as j_se
+from fft_wgpu_tpu.ops.rfft import rfft_last_split as j_rfft_last_split
+from fft_wgpu_tpu.ops.stft import _frame as j_frame
 from fft_wgpu_tpu_torch.ops import cuda_welch
 
 torch.set_num_threads(1)
@@ -321,3 +324,166 @@ def test_c2c_gradient_matches_jax_grad(rng, assert_close):
     (_t(w) * p).sum().backward()
     assert_close(_np(rt.grad), np.asarray(want[0]), what="c2c d/dre")
     assert_close(_np(it.grad), np.asarray(want[1]), what="c2c d/dim")
+
+
+# ---------------------------------------------------------------------- #
+# B20 and B22: the per-segment spectra
+# ---------------------------------------------------------------------- #
+def numpy_spec(re, im, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False):
+    """float64 numpy framing: every segment's spectrum, complex ``[..., num,
+    bins]`` (the half spectrum of real input, the two-sided one of
+    complex), each zero-padded frame rolled left by roll_s; the mean is
+    taken before the roll."""
+    v = np.asarray(re, np.float64)
+    if im is not None:
+        v = v + 1j * np.asarray(im, np.float64)
+    num = 1 + (v.shape[-1] - nperseg) // hop
+    fr = np.stack([v[..., s * hop: s * hop + nperseg] for s in range(num)], -2)
+    if detrend == "constant":
+        fr = fr - fr.mean(-1, keepdims=True)
+    fr = np.roll(np.pad(fr * win, [(0, 0)] * (fr.ndim - 1) + [(0, nfft - nperseg)]),
+                 -roll_s, -1)
+    if im is not None:
+        return np.fft.fft(fr, axis=-1)
+    X = np.fft.rfft(fr, axis=-1)
+    if pad_out:
+        X = np.pad(X, [(0, 0)] * (X.ndim - 1) + [(0, cuda_welch.cuda_fft.pad_bins(nfft)
+                                                   - X.shape[-1])])
+    return X
+
+
+def _c(pair):
+    return _np(pair[0]) + 1j * _np(pair[1])
+
+
+SPEC_OPTS = [(0, False), (77, True), (300, False)]  # (roll_s, pad_out)
+
+
+@pytest.mark.parametrize("opts", SPEC_OPTS, ids=lambda o: f"roll{o[0]}-pad{int(o[1])}")
+@pytest.mark.parametrize("case", JAX_CASES, ids=lambda c: "x".join(map(str, c[1:5])))
+def test_spec_matches_jax_interpret(case, opts, rng, assert_close):
+    lead, t, nperseg, hop, nfft, detrend = case
+    roll_s, pad_out = opts
+    x, _, win = inputs(rng, lead, t, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    Xr, Xi = cuda_welch.spec_rfft_split(_t(x), _t(win), *args, pad_out=pad_out, roll_s=roll_s)
+    num = 1 + (t - nperseg) // hop
+    bins = cuda_welch.cuda_fft.pad_bins(nfft) if pad_out else nfft // 2 + 1
+    assert Xr.shape == Xi.shape == (*lead, num, bins) and Xr.dtype == torch.float32
+    jr, ji = j_pw.spec_rfft_split(x, win, *args, pad_out=pad_out, roll_s=roll_s,
+                                  interpret=True)
+    assert_close(_c((Xr, Xi)), np.asarray(jr) + 1j * np.asarray(ji), what="spec vs JAX")
+    assert_close(_c((Xr, Xi)), numpy_spec(x, None, win, *args, roll_s, pad_out),
+                 what="spec vs numpy")
+    if pad_out:  # the padded form's columns are exact zeros
+        assert not Xr[..., nfft // 2 + 1:].any() and not Xi[..., nfft // 2 + 1:].any()
+    assert cuda_welch.spec_launches == 0
+
+
+@pytest.mark.parametrize("case", JAX_CASES, ids=lambda c: "x".join(map(str, c[1:5])))
+def test_spec_c2c_matches_jax_interpret(case, rng, assert_close):
+    lead, t, nperseg, hop, nfft, detrend = case
+    re, im, win = inputs(rng, lead, t, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    Xr, Xi = cuda_welch.spec_c2c_split(_t(re), _t(im), _t(win), *args)
+    assert Xr.shape == (*lead, 1 + (t - nperseg) // hop, nfft)
+    jr, ji = j_pw.spec_c2c_split(re, im, win, *args, interpret=True)
+    assert_close(_c((Xr, Xi)), np.asarray(jr) + 1j * np.asarray(ji), what="spec_c2c vs JAX")
+    assert_close(_c((Xr, Xi)), numpy_spec(re, im, win, *args), what="spec_c2c vs numpy")
+    assert cuda_welch.spec_c2c_launches == 0
+
+
+@pytest.mark.parametrize("case", PORT_CASES, ids=lambda c: "x".join(map(str, c[1:5])))
+def test_spec_outside_jax_envelope(case, rng, assert_close):
+    lead, t, nperseg, hop, nfft, detrend = case
+    x, y, win = inputs(rng, lead, t, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    for roll_s, pad_out in SPEC_OPTS:
+        roll_s %= nfft
+        got = cuda_welch.spec_rfft_split(_t(x), _t(win), *args, pad_out=pad_out,
+                                         roll_s=roll_s)
+        assert_close(_c(got), numpy_spec(x, None, win, *args, roll_s, pad_out),
+                     what=f"spec roll {roll_s} pad {pad_out} vs numpy")
+    got = cuda_welch.spec_c2c_split(_t(x), _t(y), _t(win), *args)
+    assert_close(_c(got), numpy_spec(x, y, win, *args), what="spec_c2c vs numpy")
+    # the JAX package's composed per-segment spectra, real and complex
+    for im in (None, y):
+        want = j_se._spec_segments_split(x, im, jnp.asarray(win), *args)
+        got = (cuda_welch.spec_rfft_split(_t(x), _t(win), *args) if im is None
+               else cuda_welch.spec_c2c_split(_t(x), _t(y), _t(win), *args))
+        assert_close(_c(got), np.asarray(want[0]) + 1j * np.asarray(want[1]),
+                     what="vs JAX composed")
+
+
+def test_spec_plain_versions_equal_entry_points_on_cpu(rng):
+    x, y, win = inputs(rng, (2,), 3000, 256)
+    w, args = _t(win), (256, 100, 512, "constant")
+    for a, b in zip(cuda_welch.spec_rfft_split(_t(x), w, *args, pad_out=True, roll_s=5),
+                    cuda_welch.spec_rfft_split_reference(_t(x), w, *args, pad_out=True,
+                                                         roll_s=5)):
+        np.testing.assert_array_equal(_np(a), _np(b))
+    for a, b in zip(cuda_welch.spec_c2c_split(_t(x), _t(y), w, *args),
+                    cuda_welch.spec_c2c_split_reference(_t(x), _t(y), w, *args)):
+        np.testing.assert_array_equal(_np(a), _np(b))
+        assert a.shape == (2, 28, 512)
+
+
+def test_spec_outside_envelope_raises():
+    x, w = torch.zeros(4096), torch.ones(512)
+    with pytest.raises(cuda_welch.Unsupported):
+        cuda_welch.spec_rfft_split(x, w, 512, 256, 512, "linear")
+    with pytest.raises(cuda_welch.Unsupported):
+        cuda_welch.spec_c2c_split(x, torch.zeros(4095), w, 512, 256, 512, False)
+    with pytest.raises(cuda_welch.Unsupported):
+        cuda_welch.spec_c2c_split(x, x, w, 512, 256, 1000, False)
+    for roll_s in (-1, 512):
+        with pytest.raises(ValueError, match="roll_s"):
+            cuda_welch.spec_rfft_split(x, w, 512, 256, 512, False, roll_s=roll_s)
+
+
+def _j_spec_rolled(x, win, nperseg, hop, nfft, detrend, roll_s, pad_out):
+    """The JAX package's composed framed R2C with a roll: its framing,
+    detrend, window, zero pad, jnp.roll and R2C."""
+    fr = j_se._detrend_seg(j_frame(x, nperseg, hop), detrend) * win
+    fr = jnp.pad(fr, [(0, 0)] * (fr.ndim - 1) + [(0, nfft - nperseg)])
+    return j_rfft_last_split(jnp.roll(fr, -roll_s, axis=-1), None, pad_out=pad_out)
+
+
+@pytest.mark.parametrize("opts", SPEC_OPTS[:2], ids=lambda o: f"roll{o[0]}-pad{int(o[1])}")
+def test_spec_gradient_matches_jax_grad(opts, rng, assert_close):
+    roll_s, pad_out = opts
+    nperseg, hop, nfft, detrend = 200, 96, 256, "constant"  # hop !| nperseg, zero pad
+    x, _, win = inputs(rng, (2,), 1500, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    num = 1 + (1500 - nperseg) // hop
+    bins = cuda_welch.cuda_fft.pad_bins(nfft) if pad_out else nfft // 2 + 1
+    wr, wi = (rng.random((2, num, bins)).astype(np.float32) for _ in range(2))
+
+    def jloss(a):
+        Xr, Xi = _j_spec_rolled(a, jnp.asarray(win), *args, roll_s, pad_out)
+        return jnp.sum(wr * Xr * Xr + wi * Xi)
+
+    want = jax.grad(jloss)(jnp.asarray(x))
+    xt = _t(x).requires_grad_()
+    Xr, Xi = cuda_welch.spec_rfft_split(xt, _t(win), *args, pad_out=pad_out, roll_s=roll_s)
+    (_t(wr) * Xr * Xr + _t(wi) * Xi).sum().backward()
+    assert_close(_np(xt.grad), np.asarray(want), what="spec d/dx")
+
+
+def test_spec_c2c_gradient_matches_jax_grad(rng, assert_close):
+    nperseg, hop, nfft, detrend = 256, 96, 512, "constant"
+    re, im, win = inputs(rng, (2,), 1500, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    num = 1 + (1500 - nperseg) // hop
+    wr, wi = (rng.random((2, num, nfft)).astype(np.float32) for _ in range(2))
+
+    def jloss(a, b):
+        Xr, Xi = j_se._spec_segments_split(a, b, jnp.asarray(win), *args)
+        return jnp.sum(wr * Xr * Xr + wi * Xi * Xr)
+
+    want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(re), jnp.asarray(im))
+    rt, it = _t(re).requires_grad_(), _t(im).requires_grad_()
+    Xr, Xi = cuda_welch.spec_c2c_split(rt, it, _t(win), *args)
+    (_t(wr) * Xr * Xr + _t(wi) * Xi * Xr).sum().backward()
+    assert_close(_np(rt.grad), np.asarray(want[0]), what="spec_c2c d/dre")
+    assert_close(_np(it.grad), np.asarray(want[1]), what="spec_c2c d/dim")
