@@ -32,10 +32,13 @@ non-zero without a result line:
              [2, n, 7, 130] and 256^3; fft2f_fft at every plane of its
              envelope, single and batched; r2c_fft and c2r_fft for every n
              at rows 3 and 1000, ragged and padded, and at 4096 x 4096;
-             gen_fft and r2c_gen_fft (ragged and padded) at nine composite
-             n from 640 to 16383, rows 1 and 1000, and at the non-pow2
-             path's 1024 x 4095, 1024 x 4097 and 2048 x 1000 (R2C: 1024 x
-             4095 and 1024 x 1000); chirp_fwd and chirp_inv at every pow2 m
+             gen_fft and r2c_gen_fft (ragged and padded) at twenty-one
+             composite n from 640 to 16383 (the two-factor splits, then
+             one n for each pass type of their mixed-radix plans), rows 1
+             and 1000, and at the non-pow2 path's 1024 x 4095, 1024 x 4097
+             and 2048 x 1000 (R2C: 1024 x 4095 and 1024 x 1000), and at
+             rows 3 against the plain version of their own passes
+             (cuda_fft._mixed_radix, _mixed_radix_real); chirp_fwd and chirp_inv at every pow2 m
              of 128..16384 with signal and output lengths that are not
              multiples of 128, rows 3 and 1000, and at that path's own
              calls (Bluestein 4093 and 4097, the ZoomFFT) with its tables;
@@ -140,8 +143,13 @@ KERNELS = ("rows_fft", "ax0_fft", "ax3_fft", "rows_t_fft", "fft2f_fft", "r2c_fft
            "filt", "bank", "c2r_prod", "ax0_gen", "welch", "psd", "csd", "coh", "c2c",
            "spec", "spec_c2c")
 # Composite lengths of phase 2's sweep: factors (20, 32), (25, 40), (15, 67),
-# (23, 89), (63, 65), (17, 241), (81, 81), (100, 100), (127, 129).
-GEN_NS = (640, 1000, 1005, 2047, 4095, 4097, 6561, 10000, 16383)
+# (23, 89), (63, 65), (17, 241), (81, 81), (100, 100), (127, 129); then one
+# for each pass type of the composite kernels' mixed-radix plan: powers of 2
+# with 3 and 5 (1920, 3072, 12288), 13^3, 7^4, 11^4, 5^6, the generic
+# primes 251 and 127 (1004, 16129), 7 and 13 at more butterflies a thread
+# (14406, 16224), R2C's half length 17 * 19 with its generic pass last (646).
+GEN_NS = (640, 1000, 1005, 2047, 4095, 4097, 6561, 10000, 16383, 1920, 3072, 12288,
+          2197, 2401, 14641, 15625, 1004, 16129, 14406, 16224, 646)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12    # H100 SXM float32 on the CUDA cores (data sheet)
 
@@ -461,6 +469,35 @@ def main() -> int:
               f"max abs err vs plain {max_abs['r2c_gen_fft']:.3e}", flush=True)
 
     r2c_gen_sweep()
+
+    def mixed_sweep():
+        """Both composite kernels against the plain torch version of their
+        own passes (cuda_fft._mixed_radix, _mixed_radix_real) at every
+        length, both signs and scales, ragged and padded."""
+        worst, cases = 0.0, 0
+        for n in GEN_NS:
+            x = crand(3, n)
+            re, im = planes(x)
+            for sign in (-1, 1):
+                for scale in (None, 1.0 / n):
+                    got = torch.complex(*cuda_fft._gen_launch(re, im, sign, scale))
+                    want = torch.complex(*cuda_fft._mixed_radix(re, im, sign, scale))
+                    worst = max(worst, check_close(
+                        got, want, f"gen_fft vs _mixed_radix {n} sign={sign} scale={scale}"))
+                    cases += 1
+            for pad in (False, True):
+                for scale in (None, 1.0 / n):
+                    got = torch.complex(*cuda_fft._r2c_gen_launch(re, scale, pad))
+                    want = torch.complex(*cuda_fft._mixed_radix_real(re, scale, pad))
+                    worst = max(worst, check_close(
+                        got, want, f"r2c_gen_fft vs _mixed_radix_real {n} pad={pad} "
+                                   f"scale={scale}"))
+                    cases += 1
+        torch.cuda.synchronize()
+        print(f"kernel gen_fft, r2c_gen_fft vs their passes' plain version: {cases} cases "
+              f"ok | worst rel-L2 {worst:.3e}", flush=True)
+
+    mixed_sweep()
 
     def chirp_sweep():
         """The two chirp passes against their plain versions and torch.fft at
@@ -1423,7 +1460,7 @@ def main() -> int:
         "copy": lambda: torch.empty_like(re).copy_(re),
     }, reps=20)
     del x, re, im
-    for rows, n in ((1024, 4097), (2048, 1000)):
+    for rows, n in ((1024, 4097), (2048, 1000), (17280, 1920)):
         x = crand(rows, n)
         re, im = planes(x)
         times[f"gen_fft {rows}x{n}"] = time_in_turns({
@@ -1432,6 +1469,13 @@ def main() -> int:
             "torch.fft": lambda: torch.fft.fft(x),
         }, reps=20)
         del x, re, im
+    r = torch.randn(1024, 1000, device=dev, generator=gen)
+    times["r2c_gen_fft 1024x1000"] = time_in_turns({
+        "kernel": lambda: cuda_fft._r2c_gen_launch(r, None, False),
+        "plain": lambda: cuda_fft.rfft_rows_general_split_reference(r),
+        "torch.fft": lambda: torch.fft.rfft(r),
+    }, reps=20)
+    del r
     x = crand(1024, 4093)  # Bluestein, m = 8192: the two passes on their own data
     re, im = planes(x)
     (cr, ci, bfr, bfi), m = bluestein._chirp_tables(4093, -1, dev)
@@ -1534,6 +1578,11 @@ def main() -> int:
     profiles["fft 1024x4093"] = breakdown(lambda: ft.fft(x), ("chirp_fwd", "chirp_inv"))
     r = torch.randn(1024, 4095, device=dev, generator=gen)
     profiles["rfft 1024x4095"] = breakdown(lambda: ft.rfft(r), ("r2c_gen_fft",))
+    r1000 = torch.randn(1024, 1000, device=dev, generator=gen)
+    profiles["rfft 1024x1000"] = breakdown(lambda: ft.rfft(r1000), ("r2c_gen_fft",))
+    x = crand(17280, 1920)  # the 1080p frames' rows
+    profiles["fft 17280x1920"] = breakdown(lambda: ft.fft(x), ("gen_fft",))
+    del r1000
     R = torch.fft.rfft(r)
     profiles["irfft 1024x4095"] = breakdown(lambda: ft.irfft(R, n=4095), ("gen_fft",))
     x = crand(1024, 4096)

@@ -5,7 +5,7 @@ for fourteen of its entry points.
   (one thread block per row, the whole row in shared memory);
 * ``fft_axis0_split`` — along axis -2 of ``[..., n, m]`` (a tile of
   neighbouring columns per block): ``csrc/ax0_fft.cu`` for pow2 n,
-  ``csrc/ax0_gen_fft.cu`` (the composite-row kernels' direct-DFT stages)
+  ``csrc/ax0_gen_fft.cu`` (the two direct-DFT stages of ``gen_fft.cuh``)
   for composite n;
 * ``fft_axis3_split`` — along axis -3 of ``[..., n, Y, Z]``: the same
   kernels on the free view ``[..., n, Y*Z]``;
@@ -17,9 +17,9 @@ for fourteen of its entry points.
 * ``rfft_rows_split`` / ``irfft_rows_split`` — R2C and C2R rows through a
   half-length complex FFT, ``csrc/r2c_fft.cu`` and ``csrc/c2r_fft.cu``;
 * ``fft_rows_general_split`` / ``rfft_rows_general_split`` — C2C and R2C
-  rows of composite non-pow2 length n = n1*n2 (factors <= 256) as two
-  direct-DFT stages in one pass, ``csrc/gen_fft.cu`` and
-  ``csrc/r2c_gen_fft.cu``;
+  rows of composite non-pow2 length n = n1*n2 (factors <= 256) as
+  mixed-radix Stockham passes in one pass over device memory
+  (``csrc/mixed_fft.cuh``), ``csrc/gen_fft.cu`` and ``csrc/r2c_gen_fft.cu``;
 * ``fft_chirp_forward_split`` / ``fft_chirp_inverse_split`` — the two
   m-point passes of Bluestein and the chirp-z transform, with the chirp
   multiplies at load and store, ``csrc/chirp_fft.cu``;
@@ -39,6 +39,7 @@ too, as in the JAX package.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -901,7 +902,7 @@ def irfft_prod_rows_split_reference(Ar, Ai, Br, Bi, n, scale=None, *, padded_in=
 
 # ---------------------------------------------------------------------- #
 # composite non-pow2 rows: C2C (pallas_fft.fft_rows_general_split) and R2C
-# (pallas_fft.rfft_rows_general_split), one pass of two direct-DFT stages
+# (pallas_fft.rfft_rows_general_split), one pass of mixed-radix passes
 # ---------------------------------------------------------------------- #
 GEN_MIN_N = 512
 GEN_MAX_FACTOR = 256
@@ -935,21 +936,150 @@ def _check_gen(n: int) -> None:
                           f"<= {GEN_MAX_FACTOR})")
 
 
+_GEN_SMALL = (2, 3, 4, 5, 7, 8, 9, 11, 13, 16)
+
+
+def _factorize(n: int) -> list:
+    """The prime factors of n in ascending order, with multiplicity."""
+    out, d = [], 2
+    while d * d <= n:
+        while n % d == 0:
+            out.append(d)
+            n //= d
+        d += 1
+    if n > 1:
+        out.append(n)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _mixed_radix_plan(n: int) -> tuple:
+    """The radices of the composite-row kernels' passes over n points
+    (``csrc/mixed_fft.cuh``), in pass order; their product is n.
+
+    Powers of 2 go into the fewest passes of 16, 8, 4 or 2 (as even as
+    possible, largest first), powers of 3 into 9s and a 3, the primes 5, 7,
+    11 and 13 stay as themselves, and each prime from 17 to 251 is one
+    generic pass.  Order: the smaller generic prime first, then 9s and 3,
+    5, 7, 11, 13, then the powers of 2, then the other generic prime last.
+    A first pass writes shared memory at stride R, so an odd radix there
+    touches 32 banks; a generic pass first or last reads or writes device
+    memory and never holds its outputs across a barrier.  Raises
+    :class:`Unsupported` for n with a prime factor above 256 or more than
+    two from 17 on (none in the envelope: 17*17 > 256)."""
+    f = _factorize(n)
+    if n < 2 or f[-1] > GEN_MAX_FACTOR:
+        raise Unsupported(f"n={n} has no mixed-radix plan (a prime factor > "
+                          f"{GEN_MAX_FACTOR})")
+    generic = [p for p in f if p >= 17]
+    if len(generic) > 2:
+        raise Unsupported(f"n={n} has more than two prime factors >= 17")
+    a, b = f.count(2), f.count(3)
+    twos = []
+    if a:
+        passes = -(-a // 4)
+        base, extra = divmod(a, passes)
+        twos = [1 << (base + 1)] * extra + [1 << base] * (passes - extra)
+    odd = [9] * (b // 2) + [3] * (b % 2) + [p for p in f if 5 <= p <= 13]
+    return tuple(generic[:1] + odd + twos + generic[1:])
+
+
+def _radix_arg(plan: tuple):
+    return (ctypes.c_int * len(plan))(*plan)
+
+
+def _mixed_passes(z, sign, tw, tws):
+    """The kernel's passes in plain torch on a complex ``[..., N]`` tensor:
+    for each radix R of :func:`_mixed_radix_plan`(N), with NS the product of
+    the radices before it, butterfly j reads z[j + k*N/R], multiplies input
+    k by w^k, w = tw[(j mod NS) * N/(NS*R) * tws] (a float32 root of the
+    table; w^k as k - 1 products for a small radix, the table's root of
+    exponent k*e for a generic prime), takes the R-point DFT (an
+    f64-generated matrix) and writes output q to
+    (j - j mod NS)*R + j mod NS + q*NS."""
+    N = z.shape[-1]
+    lead = z.shape[:-1]
+    ns = 1
+    for R in _mixed_radix_plan(N):
+        M = N // R
+        j = torch.arange(M, device=z.device)
+        k = torch.arange(R, device=z.device)
+        x = z.reshape(*lead, R, M)
+        e = (j % ns) * (N // (ns * R)) * tws
+        if R in _GEN_SMALL:
+            wk = torch.cumprod(tw[e].expand(R - 1, M), dim=0)
+            x = torch.cat([x[..., :1, :], x[..., 1:, :] * wk], dim=-2)
+        else:
+            x = x * tw[k[:, None] * e[None, :]]
+        wr, wi = stockham._const("dft_matrix_np", (R, sign), z.device)
+        # y[q, j] = sum_k W[q, k] x[k, j], W symmetric: y^T = x^T @ W
+        yr, yi = stockham._cmatmul(x.real.transpose(-1, -2).contiguous(),
+                                   x.imag.transpose(-1, -2).contiguous(), wr, wi)
+        jm = j % ns
+        d = ((j - jm) * R + jm)[:, None] + (k * ns)[None, :]  # [M, R(q)]
+        out = torch.empty_like(z)
+        out[..., d.reshape(-1)] = torch.complex(yr, yi).reshape(*lead, N)
+        z = out
+        ns *= R
+    return z
+
+
+def _table_c(n: int, sign: int, device):
+    tab = _twiddle_table(n, sign, device)
+    return torch.complex(tab[:, 0], tab[:, 1])
+
+
+def _mixed_radix(re, im, sign, scale):
+    """Plain torch version of the gen_fft kernel's mixed-radix passes
+    (:func:`_mixed_passes` over ``[..., n]``), the scale folded in at the
+    end as the kernel's store does.  No CUDA path calls it."""
+    n = re.shape[-1]
+    y = _mixed_passes(torch.complex(re, im), sign, _table_c(n, sign, re.device), 1)
+    return stockham.apply_scale(y.real.contiguous(), y.imag.contiguous(), scale)
+
+
+def _mixed_radix_real(xr, scale, pad_out):
+    """Plain torch version of the r2c_gen_fft kernel: for even n the row as
+    m = n/2 complex points z[j] = x[2j] + i x[2j+1], the m-point passes
+    (the n-point table at stride 2) and the recombination X[k] = (Z[k] +
+    conj(Z[m-k]))/2 - (i/2) t[k] (Z[k] - conj(Z[m-k])), t[k] = w_n^k; for
+    odd n the n-point passes of the real row, bins 0..n//2.  Zeros past bin
+    n//2 when ``pad_out``.  No CUDA path calls it."""
+    n = xr.shape[-1]
+    mp = n // 2 + 1
+    tw = _table_c(n, FORWARD, xr.device)
+    if n % 2:
+        X = _mixed_passes(torch.complex(xr, torch.zeros_like(xr)), FORWARD, tw, 1)[..., :mp]
+    else:
+        m = n // 2
+        Z = _mixed_passes(torch.complex(xr[..., 0::2], xr[..., 1::2]), FORWARD, tw, 2)
+        k = torch.arange(mp, device=xr.device)
+        a, b = Z[..., k % m], Z[..., (m - k) % m]
+        E = 0.5 * (a + b.conj())
+        D = 0.5 * (a - b.conj())
+        X = E - 1j * tw[k] * D
+    Xr, Xi = stockham.apply_scale(X.real.contiguous(), X.imag.contiguous(), scale)
+    bins = pad_bins(n) if pad_out else mp
+    pad = (0, bins - mp)
+    return torch.nn.functional.pad(Xr, pad), torch.nn.functional.pad(Xi, pad)
+
+
 def _gen_launch(re, im, sign, scale):
     """Run the gen_fft kernel on CUDA tensors."""
     global gen_launches
     n = re.shape[-1]
-    n1, n2 = _choose_general_split(n)
+    plan = _mixed_radix_plan(n)
     re, im = re.contiguous(), im.contiguous()
     out = (torch.empty_like(re), torch.empty_like(im))
     if re.numel() == 0:
         return out
     rows = re.numel() // n
-    build.launch("gen_fft", "gen_fft_f32", [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
+    build.launch("gen_fft", "gen_fft_f32",
+                 [_P, _P, _P, _P, _P, _LL, _I, _P, _I, _I, _F, _P],
                  re.device, re.data_ptr(), im.data_ptr(), out[0].data_ptr(),
-                 out[1].data_ptr(), _twiddle_table(n, sign, re.device).data_ptr(), rows, n1,
-                 n2, _scale_arg(scale), _stream(re),
-                 what=f"gen_fft launch failed (n={n}, rows={rows})")
+                 out[1].data_ptr(), _twiddle_table(n, sign, re.device).data_ptr(), rows, n,
+                 ctypes.cast(_radix_arg(plan), _P), len(plan), sign, _scale_arg(scale),
+                 _stream(re), what=f"gen_fft launch failed (n={n}, rows={rows})")
     gen_launches += 1
     return out
 
@@ -974,7 +1104,8 @@ def fft_rows_general_split(re, im, sign, scale=None):
 
 
 def _two_factor(re, im, sign, scale):
-    """The two-factor transform of the kernel in plain torch: an n1-point
+    """The JAX kernel's two-factor transform in plain torch (the math of
+    ``csrc/ax0_gen_fft.cu``'s stages): an n1-point
     DFT matrix product down the columns of [..., n1, n2], the twiddle
     w_n^(k1*j2), an n2-point DFT matrix product along the rows, out at
     k1 + n1*k2, then the scale; all tables f64-generated."""
@@ -997,9 +1128,10 @@ def _two_factor(re, im, sign, scale):
 
 
 def fft_rows_general_split_reference(re, im, sign, scale=None):
-    """Plain torch version of :func:`fft_rows_general_split`: the kernel's
-    two-factor math (:func:`_two_factor`).  Raises :class:`Unsupported`
-    for the same n as the kernel."""
+    """Plain torch version of :func:`fft_rows_general_split`: the JAX
+    kernel's two-factor math (:func:`_two_factor`; the Hopper kernel's own
+    passes are :func:`_mixed_radix`).  Raises :class:`Unsupported` for the
+    same n as the kernel."""
     _check_gen(re.shape[-1])
     return _two_factor(re, im, sign, scale)
 
@@ -1008,7 +1140,7 @@ def _r2c_gen_launch(xr, scale, pad_out):
     """Run the r2c_gen_fft kernel on a CUDA tensor."""
     global r2c_gen_launches
     n = xr.shape[-1]
-    n1, n2 = _choose_general_split(n)
+    plan = _mixed_radix_plan(n // 2 if n % 2 == 0 else n)
     bins = pad_bins(n) if pad_out else n // 2 + 1
     xr = xr.contiguous()
     shape = (*xr.shape[:-1], bins)
@@ -1017,11 +1149,11 @@ def _r2c_gen_launch(xr, scale, pad_out):
         return out
     rows = xr.numel() // n
     build.launch("r2c_gen_fft", "r2c_gen_fft_f32",
-                 [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _P], xr.device, xr.data_ptr(),
+                 [_P, _P, _P, _P, _LL, _I, _P, _I, _I, _F, _P], xr.device, xr.data_ptr(),
                  out[0].data_ptr(), out[1].data_ptr(),
-                 _twiddle_table(n, FORWARD, xr.device).data_ptr(), rows, n1, n2, bins,
-                 _scale_arg(scale), _stream(xr),
-                 what=f"r2c_gen_fft launch failed (n={n}, rows={rows})")
+                 _twiddle_table(n, FORWARD, xr.device).data_ptr(), rows, n,
+                 ctypes.cast(_radix_arg(plan), _P), len(plan), bins, _scale_arg(scale),
+                 _stream(xr), what=f"r2c_gen_fft launch failed (n={n}, rows={rows})")
     r2c_gen_launches += 1
     return out
 
@@ -1070,8 +1202,9 @@ def rfft_rows_general_split(xr, scale=None, *, pad_out=False):
 
 
 def rfft_rows_general_split_reference(xr, scale=None, *, pad_out=False):
-    """Plain torch version of :func:`rfft_rows_general_split`: the
-    two-factor math on the real row, bins 0..n//2.  Raises
+    """Plain torch version of :func:`rfft_rows_general_split`: the JAX
+    kernel's two-factor math on the real row, bins 0..n//2 (the Hopper
+    kernel's own passes are :func:`_mixed_radix_real`).  Raises
     :class:`Unsupported` for the same n as the kernel."""
     n = xr.shape[-1]
     _check_gen(n)

@@ -442,7 +442,12 @@ def test_real_routes_outside_the_kernels(dev):
 # non-pow2 lengths: B13 (gen_fft), B14 (r2c_gen_fft), B11 and B12
 # (chirp_fft) and their routes
 # ---------------------------------------------------------------------- #
-GEN_NS = [640, 1000, 1005, 2047, 4095, 4097, 6561, 10000, 16383]
+# composite lengths: the two-factor splits of the JAX kernel, then one
+# length for each pass type of the mixed-radix plan (powers of 2 with 3 and
+# 5; 13^3, 7^4, 11^4, 5^6; the generic primes 251 and 127; 7 and 13 at
+# more butterflies a thread; R2C's half-length 17*19, generic last)
+GEN_NS = [640, 1000, 1005, 2047, 4095, 4097, 6561, 10000, 16383, 1920, 3072, 12288,
+          2197, 2401, 14641, 15625, 1004, 16129, 14406, 16224, 646]
 
 
 @pytest.mark.parametrize("n", GEN_NS)
