@@ -18,7 +18,9 @@ phases, one line each or more; any failure raises and the script exits
 non-zero without a result line:
 
 1. device  — the card's name and power limit (nvidia-smi's line as it
-             prints it, then the versions), TF32 off, the kernel builds;
+             prints it, then the versions), TF32 off, the kernel builds, and
+             ptxas's registers, stack and spills of ax0_gen_fft and
+             rows_t_fft;
 2. kernel  — each kernel against its plain torch version and torch.fft,
              both signs, scale None and 1/n (rel-L2 <= 1e-5 each):
              rows_fft for every n in 128..16384 at rows 1 and 1000 and at
@@ -26,7 +28,8 @@ non-zero without a result line:
              m = 1000 (a leading batch of 2), at the 2^22 pass-1 shape
              1024 x 4096 and at config 4's 4096 x 4096 and ragged
              4096 x 2049; rows_t_fft for every n at R = 1 and 200, without
-             and with the outer twiddle, and at the 2^22 pass-2 shape;
+             the outer twiddle, with the four-step's (outer_n = R*n) and
+             with a non-pow2 one (3 * 2^12), and at the 2^22 pass-2 shape;
              big_fft for every n of its envelope at rows 1 and 3, and at
              256 x 2^16; the axis(-3) pass (ax0_fft on a free view) at
              [2, n, 7, 130] and 256^3; fft2f_fft at every plane of its
@@ -48,6 +51,8 @@ non-zero without a result line:
              padded, B of A's shape and broadcast, at 2048 x 8192 and 547 x
              2048; ax0_gen at every composite n at m = 7 and 1000, and at
              16 x 1080 x 1920, and the axis(-3) pass at [2, 1000, 7, 130];
+             ax0_gen again against the plain version of its own passes
+             (cuda_fft._mixed_radix_axis) at every n, m = 7 and 1000;
              the segment-spectrum kernels welch, psd, csd, coh, c2c, spec
              and spec_c2c against their plain versions and float64
              torch.fft of the frames at every pow2 nfft, nperseg = nfft
@@ -102,6 +107,7 @@ non-zero without a result line:
              at 256^3 against row then axis(-2); fftn at 512^3; the fused
              epilogues', the estimators' and the per-segment spectra's
              kernels at their path's shapes beside torch.fft's composition
+             (ax0_gen also at 16 x 4095 x 512)
              of the same function; a torch.profiler breakdown of the
              non-pow2 path's, the fused epilogues', the estimators' and the
              per-segment spectra's calls.
@@ -147,9 +153,10 @@ KERNELS = ("rows_fft", "ax0_fft", "ax3_fft", "rows_t_fft", "fft2f_fft", "r2c_fft
 # for each pass type of the composite kernels' mixed-radix plan: powers of 2
 # with 3 and 5 (1920, 3072, 12288), 13^3, 7^4, 11^4, 5^6, the generic
 # primes 251 and 127 (1004, 16129), 7 and 13 at more butterflies a thread
-# (14406, 16224), R2C's half length 17 * 19 with its generic pass last (646).
+# (14406, 16224), R2C's half length 17 * 19 with its generic pass last (646),
+# and the 1080p frames' height (1080 = 9 * 3 * 5 * 8).
 GEN_NS = (640, 1000, 1005, 2047, 4095, 4097, 6561, 10000, 16383, 1920, 3072, 12288,
-          2197, 2401, 14641, 15625, 1004, 16129, 14406, 16224, 646)
+          2197, 2401, 14641, 15625, 1004, 16129, 14406, 16224, 646, 1080)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12    # H100 SXM float32 on the CUDA cores (data sheet)
 
@@ -220,6 +227,27 @@ def multitaper_ref(x: np.ndarray, NW: float, K: int) -> np.ndarray:
     if n % 2 == 0:
         mult[-1] = 1.0
     return S * mult
+
+
+def ptxas_summary(log: str) -> list:
+    """One "kernel<template arguments>: registers, stack, spill stores" entry
+    per kernel of ax0_gen_fft's and rows_t_fft's nvcc -Xptxas -v logs."""
+    out, kernel = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(ax0_gen_fft_kernel|rows_t_fft_kernel)"
+                      r"I(\w*?)EE", line)
+        if m:
+            targs = re.sub(r"L[ib](n?)(\d+)E?", lambda t: ("-" if t[1] else "") + t[2] + ",",
+                           m[2]).rstrip(",")
+            kernel = f"{m[1]}<{targs}>"
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m and kernel:
+            stack, spill = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out.append(f"{kernel}: {m[1]} registers, {stack} B stack, {spill} B spill stores")
+            kernel = None
+    return out
 
 
 def kernel_part(event_name: str, names) -> str:
@@ -314,6 +342,10 @@ def main() -> int:
     print(f"device: torch {torch.__version__} cuda {torch.version.cuda} | built "
           + ", ".join(f"{name} in {s:.1f} s -> {lib.name}" for name, lib, s in built),
           flush=True)
+    for name, lib, _ in built:  # what ptxas reported for the redesigned kernels
+        if name in ("ax0_gen_fft", "rows_t_fft"):
+            print(f"ptxas: {name} | " + "; ".join(ptxas_summary(
+                lib.with_suffix(".log").read_text())), flush=True)
 
     # ---- 2. each kernel vs plain version vs torch.fft ---------------------
     max_abs = dict.fromkeys(KERNELS, 0.0)
@@ -357,7 +389,7 @@ def main() -> int:
           lambda x, s, sc, _: oracle(x, s, sc, dim=-2), dim=-2)
     sweep("rows_t_fft",
           [((rows, n), outer) for n in pow2 for rows in (1, 200)
-           for outer in (None, (rows, rows * n))]
+           for outer in (None, (rows, rows * n), (rows, 3 << 12))]
           + [((1024, 4096), (1024, 1 << 22))],
           lambda re, im, s, sc, o: cuda_fft._rows_t_launch(re, im, s, sc, o),
           lambda re, im, s, sc, o: cuda_fft.fft_rows_transposed_split_reference(
@@ -620,6 +652,29 @@ def main() -> int:
           lambda re, im, s, sc, _: cuda_fft._ax0_launch(re, im, s, sc),
           lambda re, im, s, sc, _: cuda_fft.fft_axis0_split_reference(re, im, s, sc),
           lambda x, s, sc, _: oracle(x, s, sc, dim=-2), dim=-2)
+
+    def ax0_gen_passes_sweep():
+        """B2c against the plain version of its own passes along axis -2
+        (cuda_fft._mixed_radix_axis) at every length, m = 7 and 1000, both
+        signs and scales."""
+        worst, cases = 0.0, 0
+        for n in GEN_NS:
+            for m in (7, 1000):
+                x = crand(2, n, m)
+                re, im = planes(x)
+                for sign in (-1, 1):
+                    for scale in (None, 1.0 / n):
+                        got = torch.complex(*cuda_fft._ax0_launch(re, im, sign, scale))
+                        want = torch.complex(*cuda_fft._mixed_radix_axis(re, im, sign, scale))
+                        worst = max(worst, check_close(
+                            got, want, f"ax0_gen vs _mixed_radix_axis {n} m={m} sign={sign} "
+                                       f"scale={scale}"))
+                        cases += 1
+        torch.cuda.synchronize()
+        print(f"kernel ax0_gen vs its passes' plain version: {cases} cases ok | worst rel-L2 "
+              f"{worst:.3e}", flush=True)
+
+    ax0_gen_passes_sweep()
 
     # the segment-spectrum kernels: B16 (welch), B19 (psd), B17 (csd), B18
     # (coh), B21 (c2c: y is the imaginary plane), B20 (spec), B22 (spec_c2c:
@@ -1537,6 +1592,15 @@ def main() -> int:
             n=1 << 21)[:(1 << 20) + 128],
     }, reps=20)
     del re, im, A, B, Ar, Ai, Br, Bi
+    x = crand(16, 4095, 512)
+    re, im = planes(x)
+    times["ax0_gen 16x4095x512"] = time_in_turns({
+        "kernel": lambda: cuda_fft._ax0_launch(re, im, -1, None),
+        "plain": lambda: cuda_fft.fft_axis0_split_reference(re, im, -1),
+        "torch.fft": lambda: torch.fft.fft(x, dim=-2),
+        "copy": plane_copy(re, im),
+    }, reps=10)
+    del x
     fr = crand(16, 1080, 1920)
     re, im = planes(fr)
     times["ax0_gen 16x1080x1920"] = time_in_turns({

@@ -5,8 +5,9 @@
 // Replaces the composite range of the TPU kernel
 // fft_wgpu_tpu/ops/pallas_fft.py::_fft_axis0_core (its pl.pallas_call over
 // _kernel_ax0 with the split of _choose_general_split; ax0_fft.cu ports its
-// pow2 range).  For n = n1 * n2 in 512 .. 16384, not a power of two,
-// n1 <= n2 <= 256 (least n1 + n2), it computes for every column
+// pow2 range).  For n in 512 .. 16384, not a power of two, with a split
+// into factors <= 256 (the JAX kernel's envelope), it computes for every
+// column
 //
 //     X[k, c] = scale * sum_i x[i, c] * exp(sign * 2*pi*i * k*i / n)
 //
@@ -14,124 +15,422 @@
 // in device memory.  It is the plan's route for a composite axis -2 of a
 // CUDA tensor, and, on the free view [..., n, Y*Z], for axes before it.
 //
-// Each block takes a tile of TM neighbouring columns, loaded and stored
-// row-contiguous as in ax0_fft.cu (TM contiguous floats of one row of the
-// plane per load and store), and holds each column in shared memory as the
-// n1 x n2 matrix of gen_fft.cuh with its odd pitch P, at an odd column
-// stride, so the tile's transposing load and store hit distinct banks.
-// gen_fft.cuh's stages then run per column, threadIdx.y the column and
-// blockDim.x threads each: stage 1 in place as for the rows, stage 2 in
-// place too, so the column ends in natural order in shared memory and the
-// tile's store writes rows coalesced (a per-output store straight to device
-// memory would stride by m).  Columns past m (a ragged last tile) compute
-// on zeros and are not stored, so every thread reaches every barrier.
-// Shared memory: TM * 2 * (n1*P | 1) * 4 bytes, at most 2^17 bytes of
-// columns (TM = 1 and 1024 threads at n = 16383).  A block reads its whole
-// tile before it stores, and tiles are disjoint, so the output may alias
-// the input.
+// Each column runs the mixed-radix Stockham passes of mixed_fft.cuh, planned
+// on the host by ops/cuda_fft.py::_mixed_radix_plan (1080 = 9*5*3*8, at most
+// 34 multiply-adds a point), as the row kernel gen_fft.cu does; the TPU
+// kernel's two direct DFTs (n*(n1 + n2) multiply-adds a column) are gone.
 //
-// What bounds it: the direct sums, n*(n1 + n2) complex multiply-adds per
-// column (1080 = 30 * 36: 66 per point, 17.5 GFLOP for 16 x 1080 x 1920),
-// as for gen_fft.cu, not device memory (16 bytes per point); making the
-// stages faster (register blocking, a radix split of the factors) is
-// later work, shared with the row kernels.
+// What bounds it: device memory, 16 bytes a point read and written (0.158 ms
+// for 16 x 1080 x 1920 at 3.35 TB/s), and the access pattern: a column is
+// strided by m.  A block takes a tile of TM neighbouring columns, T threads
+// each (threadIdx.x; the column is threadIdx.y), T from the passes'
+// butterflies a thread (mixed_shape's rule), and holds the tile in shared
+// memory, column-major at an odd column stride so the transposing accesses
+// hit distinct banks.  The tile's load and store move runs of TM contiguous
+// floats of one row of the plane; TM is a multiple of 8 where 1024 threads
+// and the shared memory allow it (8 at n = 1080), so every run covers whole
+// 32-byte sectors.  There the blocks are persistent and hold two tiles:
+// the next tile is fetched by cp.async (no register holds a load) while
+// this one runs its passes and is stored, so the strided loads overlap the
+// passes.  Where a block
+// holds fewer than 8 columns (n above about 2000), it takes one column, and
+// a cluster of C = 4 or 8 blocks on neighbouring columns splits the load
+// and store of its C columns by rows through distributed shared memory:
+// block b moves rows [b*n/C, (b+1)*n/C) of all of them, so each run is C
+// floats, and then transforms its own column.  Small blocks let several
+// run on an SM, so one block's loads overlap another's passes.
 
+// A generic prime pass (17..251) held in shared memory needs a thread per
+// unit (generic_pass); where a plan's generic pass has more units than 1024
+// threads (16383 = 43*3*127), the column streams instead: the first pass
+// reads it from device memory at stride m and the last pass writes it there
+// with the scale folded in, and there is no tile.  Columns past m (a ragged
+// last tile) compute on zeros, or on the last column when streaming, and are
+// not stored, so every thread reaches every barrier.  A block (a cluster)
+// reads its whole tile before it stores, and tiles are disjoint, so the
+// output may alias the input.
+
+#include <cooperative_groups.h>
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
-#include "gen_fft.cuh"
+#include "mixed_fft.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace fftk;
 
-// Floats between two columns of the tile: the n1 x P matrix, odd.
-__host__ __device__ inline int ax0_gen_ld(int n1, int n2) {
-  return (n1 * gen_pitch(n2)) | 1;
-}
+constexpr int kSmemMax = 232448;  // bytes of shared memory a block may hold
+constexpr int kRootBytes = kGenericMaxP * static_cast<int>(sizeof(float2));
 
-// Columns per block: at most 32 (128 bytes of one row), at most 1024
-// threads, at most 2^17 bytes of columns, and at least one.
-int ax0_gen_cols(int n1, int n2) {
-  const int per_col = 2 * ax0_gen_ld(n1, n2) * static_cast<int>(sizeof(float));
-  int tm = kGenMaxThreads / gen_threads(n1 * n2);
-  tm = tm < 32 ? tm : 32;
-  tm = tm < (1 << 17) / per_col ? tm : (1 << 17) / per_col;
-  return tm > 1 ? tm : 1;
-}
-
-__global__ void __launch_bounds__(kGenMaxThreads)
-ax0_gen_fft_kernel(const float* in_re, const float* in_im, float* out_re,
-                   float* out_im, const float2* __restrict__ tw, int n1, int n2,
-                   long long m, long long tiles, float scale) {
-  extern __shared__ float smem[];
-  const int n = n1 * n2;
-  const int P = gen_pitch(n2);
-  const int LD = ax0_gen_ld(n1, n2);
-  const int TM = blockDim.y;
-  float* sr = smem;
-  float* si = smem + TM * LD;
-  const long long plane = blockIdx.x / tiles;
-  const long long c0 = (blockIdx.x % tiles) * TM;
-  const size_t base = static_cast<size_t>(plane) * n * m + c0;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nt = blockDim.x * TM;
-  // element i = j1*n2 + j2 of column c to A[j1][j2] of its matrix
-  for (int idx = tid; idx < n * TM; idx += nt) {
-    const int i = idx / TM, c = idx - (idx / TM) * TM;
-    const int j1 = i / n2;
-    const int d = c * LD + j1 * P + (i - j1 * n2);
-    const bool in = c0 + c < m;
-    const size_t g = base + static_cast<size_t>(i) * m + c;
-    sr[d] = in ? in_re[g] : 0.f;
-    si[d] = in ? in_im[g] : 0.f;
+// A column of device memory at stride m, read by a streaming first pass.
+struct ColIn {
+  const float* r;
+  const float* i;
+  long long m;
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void load(int k, float& a, float& b) const {
+    const size_t g = static_cast<size_t>(k) * m;
+    a = r[g];
+    b = i[g];
   }
-  __syncthreads();
-  float* cr = sr + threadIdx.y * LD;
-  float* ci = si + threadIdx.y * LD;
-  gen_stage1<false>(cr, ci, n1, n2, P, tw);
-  gen_stage2_in_place(cr, ci, n1, n2, P, scale, tw);
-  // X[k] of column c is now at c*LD + k
-  for (int idx = tid; idx < n * TM; idx += nt) {
-    const int k = idx / TM, c = idx - (idx / TM) * TM;
-    if (c0 + c < m) {
-      const size_t g = base + static_cast<size_t>(k) * m + c;
-      out_re[g] = sr[c * LD + k];
-      out_im[g] = si[c * LD + k];
+};
+
+// A column of device memory at stride m, written by a streaming last pass
+// with the scale folded in; nothing for a column past m.
+struct ColOut {
+  float* r;
+  float* i;
+  long long m;
+  float scale;
+  bool valid;
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void store(int k, float a, float b) const {
+    if (!valid) return;
+    const size_t g = static_cast<size_t>(k) * m;
+    r[g] = a * scale;
+    i[g] = b * scale;
+  }
+};
+
+struct Ax0Args {
+  const float* in_re;
+  const float* in_im;
+  float* out_re;
+  float* out_im;
+  const float2* tw;
+  long long m;      // columns of a plane
+  long long tiles;  // column tiles of a plane, C*TM columns each
+  MixedPlan plan;
+  int ld;           // floats between two columns of the tile (odd)
+  float scale;
+};
+
+// This thread's column: its place in the shared tile (threadIdx.y) of the
+// buffer that starts `buf` floats into shared memory (the staged roots
+// follow `nbuf` buffers), and for a streaming plan its column of device
+// memory (`off`: the first point).
+template <bool STREAM>
+struct Ax0Col {
+  const Ax0Args& g;
+  size_t off;
+  bool valid;
+  int buf;
+  int nbuf;
+  __device__ __forceinline__ Shared shared() const {
+    extern __shared__ float smem[];
+    float* sr = smem + buf + threadIdx.y * g.ld;
+    return Shared{sr, sr + blockDim.y * g.ld};
+  }
+  __device__ __forceinline__ float2* roots() const {
+    extern __shared__ float smem[];
+    return reinterpret_cast<float2*>(smem + nbuf * 2 * blockDim.y * g.ld);
+  }
+  __device__ __forceinline__ auto src() const {
+    if constexpr (STREAM) {
+      return ColIn{g.in_re + off, g.in_im + off, g.m};
+    } else {
+      return shared();
     }
   }
+  __device__ __forceinline__ auto dst() const {
+    if constexpr (STREAM) {
+      return ColOut{g.out_re + off, g.out_im + off, g.m, g.scale, valid};
+    } else {
+      return shared();
+    }
+  }
+};
+
+// Rows i, i + step, ... < i1 of one column between device memory (from
+// point gi on, at stride m) and its shared column (sr, si): LOAD reads
+// zeros for a column past m (in = false), the store skips it and folds the
+// scale in.  A thread moves kTileBatch rows at a time, all loads before any
+// store, so that many loads are in flight.
+constexpr int kTileBatch = 8;
+
+template <bool LOAD>
+__device__ __forceinline__ void col_move(const Ax0Args& g, float* sr, float* si, bool in,
+                                         size_t gi, int i, int i1, int step) {
+  const size_t gstep = static_cast<size_t>(step) * g.m;
+  for (; i < i1; i += kTileBatch * step, gi += kTileBatch * gstep) {
+    float vr[kTileBatch], vi[kTileBatch];
+#pragma unroll
+    for (int u = 0; u < kTileBatch; ++u) {
+      const bool row = i + u * step < i1;
+      if constexpr (LOAD) {
+        vr[u] = in && row ? g.in_re[gi + u * gstep] : 0.f;
+        vi[u] = in && row ? g.in_im[gi + u * gstep] : 0.f;
+      } else {
+        vr[u] = row ? sr[i + u * step] : 0.f;
+        vi[u] = row ? si[i + u * step] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kTileBatch; ++u) {
+      if (i + u * step >= i1) break;
+      if constexpr (LOAD) {
+        sr[i + u * step] = vr[u];
+        si[i + u * step] = vi[u];
+      } else if (in) {
+        g.out_re[gi + u * gstep] = vr[u] * g.scale;
+        g.out_im[gi + u * gstep] = vi[u] * g.scale;
+      }
+    }
+  }
+}
+
+// The cluster's tile between device memory and the shared columns of its
+// blocks: this block moves rows [i0, i1) of the cluster's CT = C*TM columns
+// (from column c0 of the plane at `base`), lanes along the columns, so each
+// run is CT contiguous floats of a row.  Column c lives in block c / TM of
+// the cluster at column c % TM.  CT divides the block's threads (C divides T).
+// A block alone in its cluster moves its own columns through shared-memory
+// pointers, not the cluster's generic ones.
+template <bool LOAD>
+__device__ __forceinline__ void cluster_move(const Ax0Args& g, cg::cluster_group& cluster,
+                                             size_t base, long long c0, int i0, int i1) {
+  extern __shared__ float smem[];
+  const int TM = blockDim.y;
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int CT = C * TM;
+  const int flat = threadIdx.y * blockDim.x + threadIdx.x;
+  const int step = blockDim.x * TM / CT;  // rows a sweep of the block covers
+  const int c = flat % CT;
+  const bool in = c0 + c < g.m;
+  const size_t gi = base + static_cast<size_t>(i0 + flat / CT) * g.m + c;
+  if (C == 1) {
+    float* sr = smem + c * g.ld;
+    col_move<LOAD>(g, sr, sr + TM * g.ld, in, gi, i0 + flat / CT, i1, step);
+  } else {
+    float* sr = cluster.map_shared_rank(smem, c / TM) + (c % TM) * g.ld;
+    col_move<LOAD>(g, sr, sr + TM * g.ld, in, gi, i0 + flat / CT, i1, step);
+  }
+}
+
+// Tile t (TM columns; t counts the tiles of all planes) into the shared
+// buffer `buf` by cp.async, so no register holds a load and every load of
+// the tile is in flight at once; columns past m are zero-filled.  Commits
+// one pipeline group.
+__device__ __forceinline__ void tile_fetch(const Ax0Args& g, float* buf, long long t) {
+  const int TM = blockDim.y;
+  const int n = g.plan.n;
+  const long long c0 = (t % g.tiles) * TM;
+  const int flat = threadIdx.y * blockDim.x + threadIdx.x;
+  const int c = flat % TM;
+  const bool in = c0 + c < g.m;
+  float* br = buf + c * g.ld;
+  float* bi = br + TM * g.ld;
+  const size_t gstep = static_cast<size_t>(blockDim.x) * g.m;
+  size_t gi = static_cast<size_t>(t / g.tiles) * n * g.m + c0 + c +
+              static_cast<size_t>(flat / TM) * g.m;
+  for (int i = flat / TM; i < n; i += blockDim.x, gi += gstep) {
+    const size_t src = in ? gi : 0;
+    __pipeline_memcpy_async(&br[i], &g.in_re[src], sizeof(float), in ? 0 : sizeof(float));
+    __pipeline_memcpy_async(&bi[i], &g.in_im[src], sizeof(float), in ? 0 : sizeof(float));
+  }
+  __pipeline_commit();
+}
+
+// Persistent blocks over all tiles, two shared buffers: the tile after this
+// one is fetched (cp.async) while this one is transformed and stored, so the
+// loads overlap the passes.  Every kernel of this file is named
+// ax0_gen_fft_kernel, so that a profile counts them as one.
+template <int SIGN>
+__global__ void __launch_bounds__(kMixMaxThreads)
+ax0_gen_fft_kernel(const __grid_constant__ Ax0Args g, long long tiles_all) {
+  extern __shared__ float smem[];
+  const int TM = blockDim.y;
+  const int n = g.plan.n;
+  const int tile = 2 * TM * g.ld;
+  const int flat = threadIdx.y * blockDim.x + threadIdx.x;
+  const int c = flat % TM;
+  long long t = blockIdx.x;
+  tile_fetch(g, smem, t);
+  for (int cur = 0; t < tiles_all; t += gridDim.x, cur ^= 1) {
+    if (t + gridDim.x < tiles_all) {
+      tile_fetch(g, smem + (cur ^ 1) * tile, t + gridDim.x);
+    } else {
+      __pipeline_commit();  // an empty group, so the wait below is for tile t
+    }
+    __pipeline_wait_prior(1);
+    __syncthreads();  // tile t is in buffer cur
+    mixed_fft<SIGN>(Ax0Col<false>{g, 0, true, cur * tile, 2}, g.plan, g.tw, 1);
+    const long long c0 = (t % g.tiles) * TM;
+    float* br = smem + cur * tile + c * g.ld;
+    col_move<false>(g, br, br + TM * g.ld, c0 + c < g.m,
+                    static_cast<size_t>(t / g.tiles) * n * g.m + c0 + c +
+                        static_cast<size_t>(flat / TM) * g.m,
+                    flat / TM, n, blockDim.x);
+    __syncthreads();  // buffer cur is stored before the fetch of tile t + 2*grid
+  }
+}
+
+template <int SIGN, bool STREAM>
+__global__ void __launch_bounds__(kMixMaxThreads)
+ax0_gen_fft_kernel(const __grid_constant__ Ax0Args g) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int b = static_cast<int>(cluster.block_rank());
+  const int n = g.plan.n;
+  const long long cid = blockIdx.x / C;
+  const long long plane = cid / g.tiles;
+  const long long c0 = (cid % g.tiles) * C * blockDim.y;  // the cluster's first column
+  const size_t base = static_cast<size_t>(plane) * n * g.m + c0;
+  if constexpr (STREAM) {
+    const long long col = c0 + b * blockDim.y + threadIdx.y;
+    const bool valid = col < g.m;
+    const size_t off = base + (valid ? col : g.m - 1) - c0;
+    mixed_fft<SIGN>(Ax0Col<true>{g, off, valid, 0, 1}, g.plan, g.tw, 1);
+  } else {
+    const int i0 = static_cast<int>(static_cast<long long>(b) * n / C);
+    const int i1 = static_cast<int>(static_cast<long long>(b + 1) * n / C);
+    // a block alone in its cluster needs only its own barriers
+    const auto sync = [&] { C > 1 ? cluster.sync() : __syncthreads(); };
+    if (C > 1) cluster.sync();  // every block of the cluster runs before any writes a peer
+    cluster_move<true>(g, cluster, base, c0, i0, i1);
+    sync();  // every block's columns are in place
+    mixed_fft<SIGN>(Ax0Col<false>{g, 0, true, 0, 1}, g.plan, g.tw, 1);
+    sync();  // every block's columns are transformed
+    cluster_move<false>(g, cluster, base, c0, i0, i1);
+    if (C > 1) cluster.sync();  // no block exits while another reads its columns
+  }
+}
+
+struct Ax0Shape {
+  int threads;  // per column
+  int cols;     // per block
+  int cluster;  // blocks per cluster
+  int smem;     // bytes of dynamic shared memory
+  bool stream;  // a generic pass streams: no tile
+  bool pipe;    // persistent blocks, two tiles in flight
+};
+
+// Threads of a column as mixed_shape gives them for a row (about 16 points
+// a thread, every held generic pass in one round); a generic pass of more
+// units than 1024 threads makes the plan stream.  Columns: as many as 1024
+// threads and the shared memory allow, at most 32, rounded down to a
+// multiple of 8 where at least 8 fit; then, where two tiles fit in shared
+// memory, the tiles are pipelined.  Where fewer than 8 fit, one column a
+// block in a cluster of 4 blocks (8 where a block takes more than 512
+// threads, so one block fills an SM): the shapes that measured fastest on
+// an H100 at 2047, 4095 and 12288 (scripts/time_ax0_gen_shapes.py).
+Ax0Shape ax0_shape(const MixedPlan& plan) {
+  const int n = plan.n;
+  int need = (n + 15) / 16;
+  bool stream = false;
+  for (int i = 0; i < plan.np; ++i) {
+    const int r = plan.radix[i];
+    if (mixed_small(r)) {
+      const int per = mixed_hold(r);
+      need = need > (n / r + per - 1) / per ? need : (n / r + per - 1) / per;
+    } else if (generic_units(n, r) > kMixMaxThreads) {
+      stream = true;
+    } else {
+      need = need > generic_units(n, r) ? need : generic_units(n, r);
+    }
+  }
+  int T = (need + 31) / 32 * 32;
+  if (T > kMixMaxThreads) T = kMixMaxThreads;
+  const int per_col = 2 * (n | 1) * static_cast<int>(sizeof(float));
+  int tm = kMixMaxThreads / T;
+  tm = tm < 32 ? tm : 32;
+  tm = tm < (kSmemMax - kRootBytes) / per_col ? tm : (kSmemMax - kRootBytes) / per_col;
+  int C = 1;
+  if (tm >= 8) {
+    tm -= tm % 8;
+  } else if (!stream) {
+    tm = 1;
+    C = T > 512 ? 8 : 4;
+  }
+  const bool pipe = tm >= 8 && 2 * tm * per_col + kRootBytes <= kSmemMax;
+  return Ax0Shape{T, tm, C, (pipe ? 2 : 1) * tm * per_col + kRootBytes, stream, pipe};
+}
+
+template <class Kernel>
+cudaError_t set_smem(Kernel* kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// One tile a block (a cluster), or streaming columns.
+template <int SIGN, bool STREAM>
+cudaError_t launch(const Ax0Args& g, const Ax0Shape& s, long long planes,
+                   cudaStream_t stream) {
+  void (*kernel)(Ax0Args) = ax0_gen_fft_kernel<SIGN, STREAM>;
+  cudaError_t e = set_smem(kernel, s.smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = s.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(planes * g.tiles * s.cluster));
+  cfg.blockDim = dim3(s.threads, s.cols);
+  cfg.dynamicSmemBytes = s.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, g);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// As many persistent blocks as fit on the card at once, at most one a tile.
+template <int SIGN>
+cudaError_t launch_pipe(const Ax0Args& g, const Ax0Shape& s, long long planes,
+                        cudaStream_t stream) {
+  void (*kernel)(Ax0Args, long long) = ax0_gen_fft_kernel<SIGN>;
+  cudaError_t e = set_smem(kernel, s.smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, s.threads * s.cols,
+                                                      s.smem);
+  }
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long tiles_all = planes * g.tiles;
+  const long long grid = tiles_all < 1LL * sms * per_sm ? tiles_all : 1LL * sms * per_sm;
+  kernel<<<static_cast<unsigned>(grid), dim3(s.threads, s.cols), s.smem, stream>>>(
+      g, tiles_all);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Transforms axis -2 of `planes` contiguous [n, m] planes, n = n1 * n2,
-// planar float32.  tw holds n interleaved (cos, sin) float32 pairs of
-// exp(sign*2pi*i*k/n): the sign of the transform is the table's.  Launches
-// on `stream` and returns cudaGetLastError() (0 = ok).
+// Transforms axis -2 of `planes` contiguous [n, m] planes, planar float32, by
+// the plan radix[0..np) (product n, from _mixed_radix_plan).  tw holds n
+// interleaved (cos, sin) float32 pairs of exp(sign*2pi*i*k/n), sign = -1 or
+// +1.  Launches on `stream` and returns the launch's error (0 = ok).
 int ax0_gen_fft_f32(const void* in_re, const void* in_im, void* out_re, void* out_im,
-                    const void* tw, long long planes, long long m, int n1, int n2,
-                    float scale, void* stream) {
-  if (planes < 1 || m < 1 || n1 < 2 || n2 < n1 || n2 > 256 ||
-      n1 * n2 > kGenPer * kGenMaxThreads) {
+                    const void* tw, long long planes, long long m, int n,
+                    const int* radix, int np, int sign, float scale,
+                    void* stream) {
+  Ax0Args g{static_cast<const float*>(in_re), static_cast<const float*>(in_im),
+            static_cast<float*>(out_re), static_cast<float*>(out_im),
+            static_cast<const float2*>(tw), m, 0, {}, n | 1, scale};
+  if (planes < 1 || m < 1 || n > 16384 || (sign != -1 && sign != 1) ||
+      !mixed_plan_make(radix, np, n, &g.plan)) {
     return cudaErrorInvalidValue;
   }
-  const int tm = ax0_gen_cols(n1, n2);
-  const long long tiles = (m + tm - 1) / tm;
-  if (planes * tiles > 2147483647LL) return cudaErrorInvalidValue;
-  const int smem = tm * 2 * ax0_gen_ld(n1, n2) * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ax0_gen_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  ax0_gen_fft_kernel<<<static_cast<unsigned>(planes * tiles),
-                       dim3(gen_threads(n1 * n2), tm), smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in_re), static_cast<const float*>(in_im),
-      static_cast<float*>(out_re), static_cast<float*>(out_im),
-      static_cast<const float2*>(tw), n1, n2, m, tiles, scale);
-  return cudaGetLastError();
+  const Ax0Shape s = ax0_shape(g.plan);
+  const long long ct = static_cast<long long>(s.cols) * s.cluster;
+  g.tiles = (m + ct - 1) / ct;
+  if (planes * g.tiles * s.cluster > 2147483647LL) return cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (s.stream) return sign < 0 ? launch<-1, true>(g, s, planes, st)
+                                : launch<1, true>(g, s, planes, st);
+  if (s.pipe) return sign < 0 ? launch_pipe<-1>(g, s, planes, st)
+                              : launch_pipe<1>(g, s, planes, st);
+  return sign < 0 ? launch<-1, false>(g, s, planes, st) : launch<1, false>(g, s, planes, st);
 }
 
 const char* ax0_gen_fft_error_string(int err) {

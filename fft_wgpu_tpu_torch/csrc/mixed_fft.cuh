@@ -1,5 +1,6 @@
 // Mixed-radix Stockham passes over a row in shared memory, for the
-// composite-length kernels (gen_fft.cu, C2C rows; r2c_gen_fft.cu, R2C rows).
+// composite-length kernels (gen_fft.cu, C2C rows; r2c_gen_fft.cu, R2C rows;
+// ax0_gen_fft.cu, C2C columns).
 //
 // A transform of N points runs the passes of a plan, N = R_0 * R_1 * ...,
 // made on the host by ops/cuda_fft.py::_mixed_radix_plan: hard-coded

@@ -5,13 +5,14 @@ for fourteen of its entry points.
   (one thread block per row, the whole row in shared memory);
 * ``fft_axis0_split`` — along axis -2 of ``[..., n, m]`` (a tile of
   neighbouring columns per block): ``csrc/ax0_fft.cu`` for pow2 n,
-  ``csrc/ax0_gen_fft.cu`` (the two direct-DFT stages of ``gen_fft.cuh``)
-  for composite n;
+  ``csrc/ax0_gen_fft.cu`` (the mixed-radix passes of ``mixed_fft.cuh`` on
+  each column of the tile) for composite n;
 * ``fft_axis3_split`` — along axis -3 of ``[..., n, Y, Z]``: the same
   kernels on the free view ``[..., n, Y*Z]``;
 * ``fft_rows_transposed_split`` — rows with the four-step outer twiddle at
-  load and a transposed store, ``csrc/rows_t_fft.cu``; ``fft2_split`` is
-  that kernel twice;
+  load (a product of two table roots, :func:`_outer_tables`) and a
+  transposed store, ``csrc/rows_t_fft.cu``; ``fft2_split`` is that kernel
+  twice;
 * ``fft2_fused_split`` — both trailing axes of ``[..., A, B]`` planes in one
   pass over device memory, ``csrc/fft2f_fft.cu``;
 * ``rfft_rows_split`` / ``irfft_rows_split`` — R2C and C2R rows through a
@@ -90,7 +91,8 @@ filt_launches = 0
 bank_launches = 0
 c2r_prod_launches = 0
 
-# Device copies of the f64-generated (n, sign) tables, [rows, 2] float32.
+# Device copies of the f64-generated (n, sign) tables, [rows, 2] float32,
+# and of the outer twiddle's (hi, lo, S) (_outer_tables).
 _TWIDDLES: dict = {}
 
 
@@ -252,23 +254,30 @@ def _check_ax0(re) -> None:
 
 def _ax0_kernel(re, im, sign, scale):
     """Run the axis(-2) kernel of n on CUDA tensors (``ax0_fft`` for pow2
-    n, ``ax0_gen_fft`` for composite n); returns the output planes and
-    whether it launched (an empty input launches nothing)."""
+    n, ``ax0_gen_fft`` for composite n, on the passes of
+    :func:`_mixed_radix_plan`); returns the output planes and whether it
+    launched (an empty input launches nothing)."""
     n, m = re.shape[-2:]
     re, im = re.contiguous(), im.contiguous()
     out = (torch.empty_like(re), torch.empty_like(im))
     if re.numel() == 0:
         return out, False
     planes = re.numel() // (n * m)
+    args = (re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            _twiddle_table(n, sign, re.device).data_ptr(), planes, m)
+    what = f"launch failed (n={n}, m={m}, planes={planes})"
     if _supported(n):
-        lib, shape_args = "ax0_fft", (n.bit_length() - 1, sign)
-    else:  # (n1, n2); the sign is the table's
-        lib, shape_args = "ax0_gen_fft", _choose_general_split(n)
-    build.launch(lib, f"{lib}_f32", [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _P],
-                 re.device, re.data_ptr(), im.data_ptr(), out[0].data_ptr(),
-                 out[1].data_ptr(), _twiddle_table(n, sign, re.device).data_ptr(), planes,
-                 m, *shape_args, _scale_arg(scale), _stream(re),
-                 what=f"{lib} launch failed (n={n}, m={m}, planes={planes})")
+        build.launch("ax0_fft", "ax0_fft_f32",
+                     [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _P], re.device, *args,
+                     n.bit_length() - 1, sign, _scale_arg(scale), _stream(re),
+                     what=f"ax0_fft {what}")
+    else:
+        plan = _mixed_radix_plan(n)
+        build.launch("ax0_gen_fft", "ax0_gen_fft_f32",
+                     [_P, _P, _P, _P, _P, _LL, _LL, _I, _P, _I, _I, _F, _P],
+                     re.device, *args, n, ctypes.cast(_radix_arg(plan), _P), len(plan),
+                     sign, _scale_arg(scale), _stream(re),
+                     what=f"ax0_gen_fft {what}")
     return out, True
 
 
@@ -307,7 +316,7 @@ def fft_axis0_split(re, im, sign, scale=None):
 
 def _axis_plain(re, im, sign, scale, axis):
     """The plain transform along ``axis``, moved to the back: the
-    mixed-radix path for pow2 n, the composite kernels' two-factor math
+    mixed-radix path for pow2 n, the JAX kernel's two-factor math
     (:func:`_two_factor`) for composite n; plus the scale."""
     n = re.shape[axis]
     r, i = re.movedim(axis, -1), im.movedim(axis, -1)
@@ -326,6 +335,14 @@ def fft_axis0_split_reference(re, im, sign, scale=None):
     return _axis_plain(re, im, sign, scale, -2)
 
 
+def _mixed_radix_axis(re, im, sign, scale, axis=-2):
+    """Plain torch version of the ax0_gen_fft kernel: the mixed-radix
+    passes of composite n (:func:`_mixed_radix`) along ``axis`` moved to
+    the back.  No CUDA path calls it."""
+    yr, yi = _mixed_radix(re.movedim(axis, -1), im.movedim(axis, -1), sign, scale)
+    return yr.movedim(-1, axis), yi.movedim(-1, axis)
+
+
 # ---------------------------------------------------------------------- #
 # rows with the outer twiddle, stored transposed
 # (pallas_fft.fft_rows_transposed_split)
@@ -342,12 +359,63 @@ def _check_rows_t(re, outer) -> None:
 def _outer_plane(rows: int, n: int, outer_n: int, sign: int, device):
     """The outer twiddle plane w[r, m] = exp(sign*2pi*i*((r*m) mod outer_n)
     / outer_n), r < rows, m < n, gathered from the f64-generated table of
-    outer_n-th roots at the integer-reduced index: (re, im) ``[rows, n]``."""
+    outer_n-th roots at the integer-reduced index: (re, im) ``[rows, n]``.
+    The JAX package's contract; the kernel and its plain version form the
+    same roots as products (:func:`_outer_plane_two_level`)."""
     tab = _twiddle_table(outer_n, sign, device)
     r = torch.arange(rows, device=device, dtype=torch.int64)
     m = torch.arange(n, device=device, dtype=torch.int64)
     w = tab[(r[:, None] * m[None, :]) % outer_n]
     return w[..., 0], w[..., 1]
+
+
+_OUTER_MAX_LO_BITS = 12  # kMaxLoBits of csrc/rows_t_fft.cu
+
+
+def _outer_lo_bits(outer_n: int) -> int:
+    """S of the two-level outer twiddle: ceil(log2(outer_n) / 2), at most 12."""
+    return min((max(outer_n - 1, 0).bit_length() + 1) // 2, _OUTER_MAX_LO_BITS)
+
+
+def _outer_roots_np(outer_n: int, sign: int):
+    """The two tables of w = exp(sign*2pi*i/outer_n), float32 of float64, as
+    one ``(cos, sin)`` pair: hi[q] = w^(q*2^S) for q < ceil(outer_n / 2^S),
+    then lo[t] = w^t for t < 2^S (S = :func:`_outer_lo_bits`), each angle
+    reduced mod outer_n in integers."""
+    S = _outer_lo_bits(outer_n)
+    hi = np.arange(-(-outer_n >> S), dtype=np.int64) << S
+    e = np.concatenate([hi % outer_n, np.arange(1 << S, dtype=np.int64) % outer_n])
+    theta = (sign * 2.0 * np.pi / outer_n) * e.astype(np.float64)
+    return np.cos(theta).astype(np.float32), np.sin(theta).astype(np.float32)
+
+
+def _outer_tables(outer_n: int, sign: int, device):
+    """(hi, lo, S): the two-level outer twiddle's tables on ``device`` as
+    interleaved (cos, sin) float32 pairs ``[entries, 2]``, cached (the
+    four-step calls this once a transform)."""
+    key = ("outer", outer_n, sign, str(device))
+    tables = _TWIDDLES.get(key)
+    if tables is None:
+        tab = _twiddle_table(outer_n, sign, device, table=_outer_roots_np)
+        S = _outer_lo_bits(outer_n)
+        nhi = -(-outer_n >> S)
+        tables = _TWIDDLES[key] = (tab[:nhi], tab[nhi:], S)
+    return tables
+
+
+def _outer_plane_two_level(rows: int, n: int, outer_n: int, sign: int, device):
+    """The outer twiddle plane as the rows_t_fft kernel forms it: w^e for
+    e = (r*m) mod outer_n as the product hi[e >> S] * lo[e & (2^S - 1)] of
+    two float32 roots (:func:`_outer_tables`), r < rows, m < n: (re, im)
+    ``[rows, n]``.  Within about 1.2e-7 of :func:`_outer_plane`."""
+    hi, lo, S = _outer_tables(outer_n, sign, device)
+    r = torch.arange(rows, device=device, dtype=torch.int64)
+    m = torch.arange(n, device=device, dtype=torch.int64)
+    e = (r[:, None] * m[None, :]) % outer_n
+    h, l_ = hi[e >> S], lo[e & ((1 << S) - 1)]
+    wr = h[..., 0] * l_[..., 0] - h[..., 1] * l_[..., 1]
+    wi = h[..., 0] * l_[..., 1] + h[..., 1] * l_[..., 0]
+    return wr, wi
 
 
 def _rows_t_launch(re, im, sign, scale, outer):
@@ -361,13 +429,16 @@ def _rows_t_launch(re, im, sign, scale, outer):
         return out
     planes = re.numel() // (rows * n)
     tw = _twiddle_table(n, sign, re.device)
-    outer_n = 0 if outer is None else int(outer[1])
-    otab = None if outer is None else _twiddle_table(outer_n, sign, re.device).data_ptr()
+    outer_n, hi, lo, S = 0, None, None, 0
+    if outer is not None:
+        outer_n = int(outer[1])
+        hi, lo, S = _outer_tables(outer_n, sign, re.device)
+        hi, lo = hi.data_ptr(), lo.data_ptr()
     build.launch("rows_t_fft", "rows_t_fft_f32",
-                 [_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _F, _P], re.device,
-                 re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                 tw.data_ptr(), otab, outer_n, planes, rows, n.bit_length() - 1, sign,
-                 _scale_arg(scale), _stream(re),
+                 [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _LL, _I, _I, _F, _P],
+                 re.device, re.data_ptr(), im.data_ptr(), out[0].data_ptr(),
+                 out[1].data_ptr(), tw.data_ptr(), hi, lo, outer_n, S, planes, rows,
+                 n.bit_length() - 1, sign, _scale_arg(scale), _stream(re),
                  what=f"rows_t_fft launch failed (n={n}, rows={rows}, planes={planes}, "
                       f"outer={outer})")
     rows_t_launches += 1
@@ -397,7 +468,8 @@ class _RowsTFFT(torch.autograd.Function):
                             -ctx.sign, ctx.scale)
         if ctx.outer is not None:
             rows, n = gr.shape[-2:]
-            twr, twi = _outer_plane(rows, n, int(ctx.outer[1]), -ctx.sign, gr.device)
+            twr, twi = _outer_plane_two_level(rows, n, int(ctx.outer[1]), -ctx.sign,
+                                              gr.device)
             gr, gi = gr * twr - gi * twi, gr * twi + gi * twr
         return gr, gi, None, None, None
 
@@ -416,12 +488,13 @@ def fft_rows_transposed_split(re, im, sign, scale=None, *, outer=None):
 
 def fft_rows_transposed_split_reference(re, im, sign, scale=None, *, outer=None):
     """Plain torch version of :func:`fft_rows_transposed_split`: the twiddle
-    plane, the mixed-radix rows, the scale, then the transpose.  Raises
+    plane as the kernel forms it (:func:`_outer_plane_two_level`), the
+    mixed-radix rows, the scale, then the transpose.  Raises
     :class:`Unsupported` for the same n as the kernel."""
     _check_rows_t(re, outer)
     if outer is not None:
-        twr, twi = _outer_plane(re.shape[-2], re.shape[-1], int(outer[1]), sign,
-                                re.device)
+        twr, twi = _outer_plane_two_level(re.shape[-2], re.shape[-1], int(outer[1]),
+                                          sign, re.device)
         re, im = re * twr - im * twi, re * twi + im * twr
     yr, yi = stockham.fft_last_axis(re, im, sign)
     yr, yi = stockham.apply_scale(yr, yi, scale)
@@ -1104,8 +1177,7 @@ def fft_rows_general_split(re, im, sign, scale=None):
 
 
 def _two_factor(re, im, sign, scale):
-    """The JAX kernel's two-factor transform in plain torch (the math of
-    ``csrc/ax0_gen_fft.cu``'s stages): an n1-point
+    """The JAX kernel's two-factor transform in plain torch: an n1-point
     DFT matrix product down the columns of [..., n1, n2], the twiddle
     w_n^(k1*j2), an n2-point DFT matrix product along the rows, out at
     k1 + n1*k2, then the scale; all tables f64-generated."""

@@ -1,8 +1,15 @@
 #!/usr/bin/env python3
-"""Time the composite-row kernels (gen_fft, C2C; r2c_gen_fft, R2C) of the
-torch port on one CUDA card, beside torch.fft in the same process.
+"""Time the redesigned kernels of the torch port on one CUDA card, beside
+torch.fft in the same process: the composite-row kernels (gen_fft, C2C;
+r2c_gen_fft, R2C; set "rows"), and the composite axis(-2) kernel
+(ax0_gen_fft, on axis -2 and on axis -3 through its free view) and the
+four-step's transposed-rows pass (rows_t_fft, with and without the outer
+twiddle, at n = 4096 and 1024), with the calls that run them:
+plan.forward_split at 1 x 2^20, 1 x 2^22 and 4 x 2^22, and fft2 of
+16 x 1080 x 1920 frames (set "columns").
 
     python3 scripts/time_composite_rows.py [--tree DIR] [--label NAME] [--out FILE]
+                                           [--set rows|columns|all]
 
 ``--tree`` imports ``fft_wgpu_tpu_torch`` from another checkout (for
 example a parent commit unpacked with ``git archive``), so that two
@@ -68,16 +75,18 @@ def device_ms(fn, name, reps=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and re.search(rf"\b{name}\b", e.name))
-    if total <= 0:
-        raise RuntimeError(f"the profiler saw no {name} kernel")
-    return total / 1e3 / reps
+    # a window now and then comes back without device events: take another
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and re.search(rf"\b{name}\b", e.name))
+        if total > 0:
+            return total / 1e3 / reps
+    raise RuntimeError(f"the profiler saw no {name} kernel in 3 windows")
 
 
 def rel_l2(got, want):
@@ -93,6 +102,8 @@ def main() -> int:
         os.path.abspath(__file__))), help="checkout to import the port from")
     ap.add_argument("--label", default="tree")
     ap.add_argument("--out", default=None, help="append the JSON line here")
+    ap.add_argument("--set", default="all", choices=("rows", "columns", "all"),
+                    help="which kernels to time")
     args = ap.parse_args()
 
     import torch
@@ -112,7 +123,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     result = {"label": args.label, "device": smi, "times": {}, "rel_l2": {}}
-    for kernel, rows, n in SHAPES:
+    if args.set in ("columns", "all"):
+        time_columns(ft, cuda_fft, dev, gen, args.label, result)
+    for kernel, rows, n in SHAPES if args.set in ("rows", "all") else ():
         key = f"{kernel} {rows}x{n}"
         if kernel == "gen_fft":
             x = torch.complex(torch.randn(rows, n, device=dev, generator=gen),
@@ -135,6 +148,8 @@ def main() -> int:
         result["times"][key]["device"] = device_ms(fns["kernel"], f"{kernel}_kernel")
         print(f"{args.label} | {key} | rel-L2 {err:.3e} | " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in result["times"][key].items()), flush=True)
+    if args.set == "columns":
+        return finish(result, args)
     fr = torch.complex(torch.randn(16, 1080, 1920, device=dev, generator=gen),
                        torch.randn(16, 1080, 1920, device=dev, generator=gen))
     err = rel_l2(ft.fft2(fr), torch.fft.fft2(fr))
@@ -148,6 +163,92 @@ def main() -> int:
         result["times"][key][f"device {part}"] = device_ms(lambda: ft.fft2(fr), part, reps=5)
     print(f"{args.label} | {key} | rel-L2 {err:.3e} | " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in result["times"][key].items()), flush=True)
+    return finish(result, args)
+
+
+def time_columns(ft, cuda_fft, dev, gen, label, result):
+    """ax0_gen_fft at 16 x 1080 x 1920, 16 x 4095 x 512 and 16 x 1920 x
+    1080, and on axis -3 at 2 x 1000 x 7 x 130 and 1080 x 64 x 64;
+    rows_t_fft at the 2^22 and 2^20 four-steps' 1024 x 4096 and 1024 x
+    1024, with and without the outer twiddle; plan.forward_split at 1 x
+    2^20, 1 x 2^22 and 4 x 2^22, and fft2 of 16 x 1080 x 1920: events and
+    device ms of each, torch.fft beside them."""
+    import torch
+
+    def crand(*shape):
+        return torch.complex(torch.randn(shape, device=dev, generator=gen),
+                             torch.randn(shape, device=dev, generator=gen))
+
+    def record(key, err, fns, device, reps=10):
+        if err > TOL:
+            raise RuntimeError(f"{label} {key}: rel-L2 {err:.3e} > {TOL}")
+        result["rel_l2"][key] = err
+        result["times"][key] = in_turns(fns, reps=reps)
+        for part, (fn, name) in device.items():
+            result["times"][key][part] = device_ms(fn, name, reps=10)
+        print(f"{label} | {key} | rel-L2 {err:.3e} | " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in result["times"][key].items()), flush=True)
+
+    ax0 = "ax0_gen_fft_kernel"
+    # 1920 columns: 8 a block in one tile, a cluster of one block
+    for shape in ((16, 1080, 1920), (16, 4095, 512), (16, 1920, 1080)):
+        x = crand(*shape)
+        re_, im_ = x.real.contiguous(), x.imag.contiguous()
+        err = rel_l2(torch.complex(*cuda_fft._ax0_launch(re_, im_, -1, None)),
+                     torch.fft.fft(x, dim=-2))
+        fns = {"kernel": lambda: cuda_fft._ax0_launch(re_, im_, -1, None),
+               "torch.fft": lambda: torch.fft.fft(x, dim=-2)}
+        record("ax0_gen " + "x".join(map(str, shape)), err, fns,
+               {"device": (fns["kernel"], ax0)})
+        del x, re_, im_
+    # composite axis -3: the same kernel on the free view [..., n, Y*Z]
+    for shape in ((2, 1000, 7, 130), (1080, 64, 64)):
+        x = crand(*shape)
+        re_, im_ = x.real.contiguous(), x.imag.contiguous()
+        err = rel_l2(torch.complex(*cuda_fft._ax3_launch(re_, im_, -1, None)),
+                     torch.fft.fft(x, dim=-3))
+        fns = {"kernel": lambda: cuda_fft._ax3_launch(re_, im_, -1, None),
+               "torch.fft": lambda: torch.fft.fft(x, dim=-3)}
+        record("ax3 " + "x".join(map(str, shape)), err, fns,
+               {"device": (fns["kernel"], ax0)})
+        del x, re_, im_
+    # the second passes of the 2^22 and 2^20 four-steps
+    for rows, n in ((1024, 4096), (1024, 1024)):
+        x = crand(rows, n)
+        re_, im_ = x.real.contiguous(), x.imag.contiguous()
+        outer = (rows, rows * n)
+        got = torch.complex(*cuda_fft._rows_t_launch(re_, im_, -1, None, outer))
+        want = torch.complex(*cuda_fft.fft_rows_transposed_split_reference(
+            re_, im_, -1, outer=outer))
+        fns = {"kernel": lambda: cuda_fft._rows_t_launch(re_, im_, -1, None, outer),
+               "kernel_no_outer": lambda: cuda_fft._rows_t_launch(re_, im_, -1, None, None),
+               "torch.fft": lambda: torch.fft.fft(x)}
+        record(f"rows_t_fft {rows}x{n}", rel_l2(got, want), fns,
+               {"device": (fns["kernel"], "rows_t_fft_kernel"),
+                "device_no_outer": (fns["kernel_no_outer"], "rows_t_fft_kernel")})
+        del x, re_, im_
+    for rows, e in ((1, 22), (4, 22), (1, 20)):
+        x = crand(rows, 1 << e)
+        re_, im_ = x.real.contiguous(), x.imag.contiguous()
+        pn = ft.plan(1 << e)
+        fns = {"forward_split": lambda: pn.forward_split(re_, im_),
+               "torch.fft": lambda: torch.fft.fft(x)}
+        # a short call: its events carry the host's time, which swings
+        # between runs, so more calls
+        record(f"plan {rows}x2^{e}",
+               rel_l2(torch.complex(*fns["forward_split"]()), torch.fft.fft(x)), fns,
+               {"device ax0_fft": (fns["forward_split"], "ax0_fft_kernel"),
+                "device rows_t_fft": (fns["forward_split"], "rows_t_fft_kernel")},
+               reps=200 if rows == 1 else 50)
+        del x, re_, im_
+    fr = crand(16, 1080, 1920)
+    fns = {"fft2": lambda: ft.fft2(fr), "torch.fft": lambda: torch.fft.fft2(fr)}
+    record("fft2 16x1080x1920", rel_l2(ft.fft2(fr), torch.fft.fft2(fr)), fns,
+           {"device gen_fft": (fns["fft2"], "gen_fft_kernel"),
+            "device ax0_gen_fft": (fns["fft2"], ax0)})
+
+
+def finish(result, args) -> int:
     line = json.dumps(result)
     if args.out:
         with open(args.out, "a") as f:

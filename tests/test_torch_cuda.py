@@ -143,11 +143,28 @@ def test_axis0_kernel_matches_plain_and_torch_fft(dev, n, lead, m):
         assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, (sign, scale)
 
 
+def _outer_oracle(x, sign, scale, outer):
+    """transpose(fft(x * w)) in float64, w = exp(sign*2pi*i*((r*m) mod
+    outer_n)/outer_n) at the exact index."""
+    x = x.to(torch.complex128)
+    if outer is not None:
+        rows, n = x.shape[-2:]
+        r = torch.arange(rows, device=x.device, dtype=torch.int64)[:, None]
+        m = torch.arange(n, device=x.device, dtype=torch.int64)[None, :]
+        ang = (sign * 2 * np.pi / outer[1]) * ((r * m) % outer[1]).double()
+        x = x * torch.polar(torch.ones_like(ang), ang)
+    y = torch.fft.fft(x) if sign < 0 else torch.fft.ifft(x, norm="forward")
+    return (y * (1.0 if scale is None else scale)).transpose(-1, -2)
+
+
 @pytest.mark.parametrize("n", [1 << e for e in range(7, 15)])
-@pytest.mark.parametrize("rows", [1, 200])
-@pytest.mark.parametrize("with_outer", [False, True])
+@pytest.mark.parametrize("rows", [1, 7, 200, 1024])
+@pytest.mark.parametrize("with_outer", [None, "pow2", "non-pow2", "wide"])
 def test_rows_transposed_kernel_matches_plain(dev, n, rows, with_outer):
-    outer = (rows, rows * n) if with_outer else None
+    # no twiddle, the four-step's pow2 outer_n = rows*n, 3*2^12, and one
+    # past 2^31, where the kernel carries the exponent in 64 bits
+    outer = {None: None, "pow2": (rows, rows * n), "non-pow2": (rows, 3 << 12),
+             "wide": (rows, (1 << 31) + 11)}[with_outer]
     x = crand(dev, rows, n)
     re, im = x.real.contiguous(), x.imag.contiguous()
     for sign, scale in ((-1, None), (1, 1.0 / n)):
@@ -159,6 +176,7 @@ def test_rows_transposed_kernel_matches_plain(dev, n, rows, with_outer):
         p = torch.complex(*cuda_fft.fft_rows_transposed_split_reference(
             re, im, sign, scale, outer=outer))
         assert rel_l2(k, p) < TOL, (sign, scale)
+        assert rel_l2(k, _outer_oracle(x, sign, scale, outer)) < TOL, (sign, scale)
 
 
 @pytest.mark.parametrize("e", [15, 16, 17, 18])
@@ -445,9 +463,10 @@ def test_real_routes_outside_the_kernels(dev):
 # composite lengths: the two-factor splits of the JAX kernel, then one
 # length for each pass type of the mixed-radix plan (powers of 2 with 3 and
 # 5; 13^3, 7^4, 11^4, 5^6; the generic primes 251 and 127; 7 and 13 at
-# more butterflies a thread; R2C's half-length 17*19, generic last)
+# more butterflies a thread; R2C's half-length 17*19, generic last), and
+# the 1080p frames' height
 GEN_NS = [640, 1000, 1005, 2047, 4095, 4097, 6561, 10000, 16383, 1920, 3072, 12288,
-          2197, 2401, 14641, 15625, 1004, 16129, 14406, 16224, 646]
+          2197, 2401, 14641, 15625, 1004, 16129, 14406, 16224, 646, 1080]
 
 
 @pytest.mark.parametrize("n", GEN_NS)
@@ -618,7 +637,7 @@ def test_numpy_input_runs_on_the_card(dev):
 # B2's composite range (ax0_gen_fft) and their routes
 # ---------------------------------------------------------------------- #
 @pytest.mark.parametrize("n", GEN_NS)
-@pytest.mark.parametrize("lead,m", [((), 7), ((2,), 300)])
+@pytest.mark.parametrize("lead,m", [((), 7), ((), 8), ((2,), 300), ((2,), 1000)])
 def test_ax0_gen_kernel_matches_plain_and_torch_fft(dev, n, lead, m):
     x = crand(dev, *lead, n, m)
     re, im = x.real.contiguous(), x.imag.contiguous()
@@ -626,8 +645,9 @@ def test_ax0_gen_kernel_matches_plain_and_torch_fft(dev, n, lead, m):
         k = torch.complex(*_through(lambda: cuda_fft.fft_axis0_split(re, im, sign, scale),
                                     ax0_gen=1))
         p = torch.complex(*cuda_fft.fft_axis0_split_reference(re, im, sign, scale))
+        q = torch.complex(*cuda_fft._mixed_radix_axis(re, im, sign, scale))
         o = torch.fft.fft(x, dim=-2) if sign < 0 else torch.fft.ifft(x, dim=-2)
-        assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, (sign, scale)
+        assert rel_l2(k, p) < TOL and rel_l2(k, q) < TOL and rel_l2(k, o) < TOL, (sign, scale)
 
 
 def test_axis3_composite_kernel_matches_plain_and_torch_fft(dev):

@@ -1,5 +1,6 @@
 """Torch port, the four-step's two kernel entry points (ops/cuda_fft.py) on
-the CPU: the axis(-2) FFT and the transposed-rows FFT with the outer twiddle.
+the CPU: the axis(-2) FFT and the transposed-rows FFT with the outer twiddle
+(formed as the kernel forms it, a product of two table roots).
 
 On a CPU tensor ``fft_axis0_split`` and ``fft_rows_transposed_split`` run
 their plain versions.  They are held against the JAX package's Pallas
@@ -54,7 +55,9 @@ def test_axis0_matches_jax_kernel(shape, rng, assert_close):
 
 
 @pytest.mark.parametrize("shape,outer", [((3, 200, 512), None),
-                                         ((64, 512), (64, 1 << 15))])
+                                         ((64, 512), (64, 1 << 15)),
+                                         ((16, 1024), (16, 1 << 22)),
+                                         ((3, 4096), (3, 3 << 12))])
 def test_rows_transposed_matches_jax_kernel(shape, outer, rng, assert_close):
     re, im = planes(rng, *shape)
     rows, n = shape[-2:]
@@ -66,6 +69,24 @@ def test_rows_transposed_matches_jax_kernel(shape, outer, rng, assert_close):
         assert got[0].shape == shape[:-2] + (n, rows)
         assert_close(cplx(got), want, what=f"sign={sign}")
     assert_no_launches()
+
+
+@pytest.mark.parametrize("rows,n,outer_n", [(64, 512, 1 << 15), (1024, 4096, 1 << 22),
+                                            (3, 4096, 3 << 12), (100, 256, 3 << 12)])
+def test_outer_plane_two_level_matches_exact_index(rows, n, outer_n):
+    # the kernel's roots hi[e >> S] * lo[e & (2^S - 1)] against the JAX
+    # contract's exact-index gather, both signs; and the tables' own values
+    for sign in (-1, 1):
+        got = cuda_fft._outer_plane_two_level(rows, n, outer_n, sign, "cpu")
+        want = cuda_fft._outer_plane(rows, n, outer_n, sign, "cpu")
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        assert err <= 3e-7, (sign, err)
+    hi, lo, S = cuda_fft._outer_tables(outer_n, -1, "cpu")
+    assert 2 ** S >= outer_n ** 0.5 and lo.shape[0] == 2 ** S
+    assert hi.shape[0] == -(-outer_n // 2 ** S)
+    q = np.arange(hi.shape[0]) * 2 ** S
+    np.testing.assert_allclose(hi[:, 0].numpy() + 1j * hi[:, 1].numpy(),
+                               np.exp(-2j * np.pi * (q % outer_n) / outer_n), atol=1e-7)
 
 
 def test_rows_transposed_outer_twiddle_is_exact_index(rng, assert_close):

@@ -1,10 +1,12 @@
-"""Torch port, the composite-row kernels' mixed-radix passes (B13
-``csrc/gen_fft.cu`` and B14 ``csrc/r2c_gen_fft.cu`` on
-``csrc/mixed_fft.cuh``): the planner over the whole envelope, and the
-passes' plain version (``cuda_fft._mixed_radix`` and
-``_mixed_radix_real``, which follow the kernels step by step) against the
-JAX kernels (``pallas_fft.fft_rows_general_split`` and
-``rfft_rows_general_split`` in interpret mode) and float64 numpy.
+"""Torch port, the composite-length kernels' mixed-radix passes (B13
+``csrc/gen_fft.cu``, B14 ``csrc/r2c_gen_fft.cu`` and the composite axis(-2)
+kernel B2c ``csrc/ax0_gen_fft.cu`` on ``csrc/mixed_fft.cuh``): the planner
+over the whole envelope, and the passes' plain version
+(``cuda_fft._mixed_radix``, ``_mixed_radix_real`` and
+``_mixed_radix_axis``, which follow the kernels step by step) against the
+JAX kernels (``pallas_fft.fft_rows_general_split``,
+``rfft_rows_general_split`` and ``fft_axis0_split`` in interpret mode) and
+float64 numpy.
 
 Lengths: one for each pass type of the plan (powers of 2 with 3 and 5;
 13^3, 7^4, 11^4, 5^6; the generic primes 251, 127, 43 and 17 * 241; 7 and 13
@@ -122,3 +124,23 @@ def test_mixed_radix_real_matches_jax_kernel_and_numpy(n, pad_out, rng, assert_c
         jr, ji = j_pf.rfft_rows_general_split(jnp.asarray(x), scale, pad_out=pad_out,
                                               interpret=True)
         assert_close(got, np.asarray(jr) + 1j * np.asarray(ji), what=f"jax scale={scale}")
+
+
+@pytest.mark.parametrize("n", [1000, 1080, 4095, 4097, 16383])
+def test_mixed_radix_axis_matches_jax_kernel_and_numpy(n, rng, assert_close):
+    # B2c's plain version: the passes along axis -2 of [2, n, 7] (a leading
+    # batch, a ragged m)
+    shape = (2, n, 7)
+    x = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    re, im = np.ascontiguousarray(x.real), np.ascontiguousarray(x.imag)
+    for sign, scale in ((-1, None), (1, None), (-1, 1.0 / n), (1, 1.0 / n)):
+        yr, yi = cuda_fft._mixed_radix_axis(torch.from_numpy(re), torch.from_numpy(im), sign,
+                                            scale)
+        got = yr.numpy() + 1j * yi.numpy()
+        assert yr.dtype == torch.float32 and got.shape == shape
+        want = np.moveaxis(_np_fft(np.moveaxis(x, -2, -1), sign, scale), -1, -2)
+        assert_close(got, want, tol=1e-6, what=f"numpy sign={sign} scale={scale}")
+        jr, ji = j_pf.fft_axis0_split(jnp.asarray(re), jnp.asarray(im), sign, scale,
+                                      interpret=True)
+        assert_close(got, np.asarray(jr) + 1j * np.asarray(ji),
+                     what=f"jax sign={sign} scale={scale}")
