@@ -19,8 +19,8 @@ non-zero without a result line:
 
 1. device  — the card's name and power limit (nvidia-smi's line as it
              prints it, then the versions), TF32 off, the kernel builds, and
-             ptxas's registers, stack and spills of ax0_gen_fft and
-             rows_t_fft;
+             ptxas's registers, stack and spills of ax0_gen_fft,
+             rows_t_fft and chirp_fft (m = 8192 and 16384);
 2. kernel  — each kernel against its plain torch version and torch.fft,
              both signs, scale None and 1/n (rel-L2 <= 1e-5 each):
              rows_fft for every n in 128..16384 at rows 1 and 1000 and at
@@ -41,10 +41,14 @@ non-zero without a result line:
              and 1000, and at the non-pow2 path's 1024 x 4095, 1024 x 4097
              and 2048 x 1000 (R2C: 1024 x 4095 and 1024 x 1000), and at
              rows 3 against the plain version of their own passes
-             (cuda_fft._mixed_radix, _mixed_radix_real); chirp_fwd and chirp_inv at every pow2 m
-             of 128..16384 with signal and output lengths that are not
-             multiples of 128, rows 3 and 1000, and at that path's own
-             calls (Bluestein 4093 and 4097, the ZoomFFT) with its tables;
+             (cuda_fft._mixed_radix, _mixed_radix_real); chirp_fwd,
+             chirp_inv and chirp_full (the two fused) at every pow2 m of
+             128..16384 with signal and output lengths that are not
+             multiples of 128, rows 3 and 1000, chirp_full also against
+             the plain version of its own passes (cuda_fft.
+             _chirp_full_passes), and at that path's own calls (Bluestein
+             4093 and 4097, the ZoomFFT) with its tables, chirp_full there
+             against float64 references;
              the fused epilogues' kernels: filt at every n, rows 3 and
              1000, and at 4096 x 4096; bank at every n for banks of 1 and
              7 rows, and at 128 x 16384; c2r_prod at every n, ragged and
@@ -69,8 +73,10 @@ non-zero without a result line:
              axis(-3)), then the non-pow2 path: fft / ifft / plan at the
              JAX package's benchmark sizes (4095, 4097 and 1000 composite;
              4093 prime), a direct Bluestein call at 4097 (m = 16384),
-             rfft at 4095 and 1000, irfft at 4095, czt and ZoomFFT over
-             1024 signals of 4096 samples; then the fused epilogues:
+             the two chirp passes as the JAX package calls them (B11,
+             then B12) at 4093, rfft at 4095 and 1000, irfft at 4095, czt
+             and ZoomFFT over 1024 signals of 4096 samples; then the fused
+             epilogues:
              SpectralFilter and hilbert at 4096 x 4096, fftconvolve of two
              2048 x 4096 signals, oaconvolve of 2^20 samples with 129
              taps, the CWT plan of 8192 samples over widths 1..128, fft2 /
@@ -94,7 +100,8 @@ non-zero without a result line:
 4. grad    — gradients against the plain versions' (CPU for the N-D,
              real and non-pow2 ones): fft (row kernel; the four-step at
              2 x 2^20; the whole row at 4 x 2^16; composite 4095 and prime
-             4093 at 64 rows), rfft at 1005, rfft2 and batched fft2,
+             4093 at 64 rows, the latter chirp_full forward and back),
+             rfft at 1005, rfft2 and batched fft2,
              SpectralFilter, fftconvolve (both inputs), the CWT plan and
              fft2 at 1080 x 1920; welch, csd (both inputs), spectrogram
              and the two-sided welch of a complex signal at 2^16 samples;
@@ -141,13 +148,14 @@ LIBS = ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft", "fft2f_fft", "r2c_fft",
         "welch_fft")
 # Kernels as the launch counters name them: the axis(-3) pass is the axis(-2)
 # kernels on a free view, with its own entry point and counter; chirp_fft
-# holds two kernels, each with its own, filt_fft two entry points (filt,
-# bank), c2r_fft a second one (c2r_prod), welch_fft seven (welch, psd, csd,
-# coh, c2c, spec, spec_c2c).
+# holds three kernels (chirp_fwd, chirp_inv and the two fused, chirp_full),
+# each with its own, filt_fft two entry points (filt, bank), c2r_fft a
+# second one (c2r_prod), welch_fft seven (welch, psd, csd, coh, c2c, spec,
+# spec_c2c).
 KERNELS = ("rows_fft", "ax0_fft", "ax3_fft", "rows_t_fft", "fft2f_fft", "r2c_fft",
            "c2r_fft", "big_fft", "gen_fft", "r2c_gen_fft", "chirp_fwd", "chirp_inv",
-           "filt", "bank", "c2r_prod", "ax0_gen", "welch", "psd", "csd", "coh", "c2c",
-           "spec", "spec_c2c")
+           "chirp_full", "filt", "bank", "c2r_prod", "ax0_gen", "welch", "psd", "csd", "coh",
+           "c2c", "spec", "spec_c2c")
 # Composite lengths of phase 2's sweep: factors (20, 32), (25, 40), (15, 67),
 # (23, 89), (63, 65), (17, 241), (81, 81), (100, 100), (127, 129); then one
 # for each pass type of the composite kernels' mixed-radix plan: powers of 2
@@ -231,11 +239,14 @@ def multitaper_ref(x: np.ndarray, NW: float, K: int) -> np.ndarray:
 
 def ptxas_summary(log: str) -> list:
     """One "kernel<template arguments>: registers, stack, spill stores" entry
-    per kernel of ax0_gen_fft's and rows_t_fft's nvcc -Xptxas -v logs."""
+    per kernel of ax0_gen_fft's, rows_t_fft's and chirp_fft's nvcc -Xptxas -v
+    logs (chirp_fft's at m = 2^13 and 2^14)."""
     out, kernel = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(ax0_gen_fft_kernel|rows_t_fft_kernel)"
-                      r"I(\w*?)EE", line)
+        m = re.search(r"Compiling entry function '\w*?(ax0_gen_fft_kernel|rows_t_fft_kernel|"
+                      r"chirp_fwd_kernel|chirp_inv_kernel|chirp_full_kernel)I(\w*?)EE", line)
+        if m and m[1].startswith("chirp") and not m[2].endswith(("13", "14")):
+            m = None
         if m:
             targs = re.sub(r"L[ib](n?)(\d+)E?", lambda t: ("-" if t[1] else "") + t[2] + ",",
                            m[2]).rstrip(",")
@@ -343,7 +354,7 @@ def main() -> int:
           + ", ".join(f"{name} in {s:.1f} s -> {lib.name}" for name, lib, s in built),
           flush=True)
     for name, lib, _ in built:  # what ptxas reported for the redesigned kernels
-        if name in ("ax0_gen_fft", "rows_t_fft"):
+        if name in ("ax0_gen_fft", "rows_t_fft", "chirp_fft"):
             print(f"ptxas: {name} | " + "; ".join(ptxas_summary(
                 lib.with_suffix(".log").read_text())), flush=True)
 
@@ -532,28 +543,32 @@ def main() -> int:
     mixed_sweep()
 
     def chirp_sweep():
-        """The two chirp passes against their plain versions and torch.fft at
+        """The chirp passes against their plain versions and torch.fft at
         every pow2 m, with signal and output lengths that are not multiples
-        of 128: chirp_fwd y = FFT_m(pad(h x)), chirp_inv y = g (s FFT_m(H x))[:n_out].
-        Then at the non-pow2 path's own calls: Bluestein at 4093 (m = 8192)
-        and 4097 (m = 16384), both signs, and the ZoomFFT of 1024 x 4096 to
-        1024 bins (L = 8192), 1024 rows each, with the chirp, filter and
-        output tables those calls use and chirp_inv fed chirp_fwd's output."""
+        of 128: chirp_fwd y = FFT_m(pad(h x)), chirp_inv y = g (s FFT_m(H x))[:n_out],
+        chirp_full (the two fused, signs -1 then +1) y = g (s FFT_+(H FFT_-(pad(h x))))[:n_out],
+        the latter also against the plain version of its own passes.  Then at
+        the non-pow2 path's own calls: Bluestein at 4093 (m = 8192) and 4097
+        (m = 16384), both directions (the tables of each sign), and the
+        ZoomFFT of 1024 x 4096 to 1024 bins (L = 8192), 1024 rows each, with
+        the chirp, filter and output tables those calls use, chirp_inv fed
+        chirp_fwd's output, and chirp_full against float64 references of the
+        whole transform."""
         worst, cases = 0.0, 0
         for m in pow2:
             n_in, n_out = m // 2 + 3, 3 * m // 4 + 1
             h, H, g = crand(n_in), crand(m), crand(n_out)
+            tabs = (*planes(h), *planes(H), *planes(g))
             for rows in (3, 1000):
                 x, X = crand(rows, n_in), crand(rows, m)
                 for sign in (-1, 1):
                     what = f"m={m} rows={rows} n_in={n_in} sign={sign}"
                     got = torch.complex(*cuda_fft._chirp_fwd_launch(
                         *planes(x), *planes(h), m, sign))
+                    Y = oracle(torch.nn.functional.pad(x * h, (0, m - n_in)), sign, None)
                     worst = max(worst, compare(
                         "chirp_fwd", got, torch.complex(*cuda_fft.fft_chirp_forward_split_reference(
-                            *planes(x), *planes(h), m, sign)),
-                        oracle(torch.nn.functional.pad(x * h, (0, m - n_in)), sign, None),
-                        what))
+                            *planes(x), *planes(h), m, sign)), Y, what))
                     for scale in (None, 1.0 / m):
                         what = f"m={m} rows={rows} n_out={n_out} sign={sign} scale={scale}"
                         got = torch.complex(*cuda_fft._chirp_inv_launch(
@@ -563,17 +578,30 @@ def main() -> int:
                         want = g * oracle(X * H, sign, scale)[:, :n_out]
                         worst = max(worst, compare("chirp_inv", got, plain, want, what))
                         cases += 1
+                        if sign > 0:  # chirp_full: first sign -1 only
+                            continue
+                        what = f"m={m} rows={rows} n_in={n_in} n_out={n_out} scale={scale}"
+                        got = torch.complex(*cuda_fft._chirp_full_launch(
+                            *planes(x), *tabs, m, n_out, scale))
+                        plain = torch.complex(*cuda_fft.fft_chirp_full_split_reference(
+                            *planes(x), *tabs, m, n_out, scale))
+                        want = g * oracle(Y.to(torch.complex128) * H, 1, scale)[:, :n_out]
+                        worst = max(worst, compare("chirp_full", got, plain, want, what))
+                        worst = max(worst, check_close(got, torch.complex(
+                            *cuda_fft._chirp_full_passes(*planes(x), *tabs, m, n_out, scale)),
+                            f"chirp_full vs its passes' plain version {what}"))
+                        cases += 1
                     cases += 1
         zf = ft.ZoomFFT(4096, [0.1, 0.35], m=1024)
         ((ar, ai), (wr, wi), (vr, vi)), L = czt._device_tables(4096, 1024, zf.w, zf.a, dev)
         calls = [(f"ZoomFFT 1024x4096 m=1024 L={L}", (ar, ai), (vr, vi), (wr, wi), L, 1024,
-                  (1.0 / L,))]
+                  (1.0 / L,), None)]
         for n in (4093, 4097):
             for sign in (-1, 1):
                 (cr, ci, bfr, bfi), m = bluestein._chirp_tables(n, sign, dev)
                 calls.append((f"Bluestein 1024x{n} m={m} sign={sign}", (cr, ci), (bfr, bfi),
-                              (cr, ci), m, n, (1.0 / m, 1.0 / (m * n))))
-        for what, h, H, g, m, n_out, scales in calls:
+                              (cr, ci), m, n, (1.0 / m, 1.0 / (m * n)), sign))
+        for what, h, H, g, m, n_out, scales, sign in calls:
             x = crand(1024, h[0].shape[0])
             re, im = planes(x)
             fr, fi = cuda_fft._chirp_fwd_launch(re, im, *h, m, -1)
@@ -582,6 +610,16 @@ def main() -> int:
                 torch.complex(*cuda_fft.fft_chirp_forward_split_reference(re, im, *h, m, -1)),
                 oracle(torch.nn.functional.pad(x * torch.complex(*h), (0, m - x.shape[-1])),
                        -1, None), what))
+            # the whole transform in float64: the direct sum of the zoom, the
+            # DFT (sign -1) or the unnormalized inverse DFT (sign +1)
+            x64 = x.to(torch.complex128)
+            if sign is None:
+                j = torch.arange(4096, device=dev, dtype=torch.float64)
+                k = torch.arange(1024, device=dev, dtype=torch.float64)
+                whole = x64 @ torch.exp(-j[:, None] * complex(np.log(zf.a))
+                                        + (j[:, None] * k[None, :]) * complex(np.log(zf.w)))
+            else:
+                whole = torch.fft.fft(x64) if sign < 0 else torch.fft.ifft(x64) * n_out
             for scale in scales:
                 got = torch.complex(*cuda_fft._chirp_inv_launch(fr, fi, *H, *g, n_out, 1, scale))
                 plain = torch.complex(*cuda_fft.fft_chirp_inverse_split_reference(
@@ -590,12 +628,18 @@ def main() -> int:
                                                   scale)[:, :n_out]
                 worst = max(worst, compare("chirp_inv", got, plain, want,
                                            f"{what} scale={scale}"))
-                cases += 1
+                got = torch.complex(*cuda_fft._chirp_full_launch(re, im, *h, *H, *g, m, n_out,
+                                                                 scale))
+                plain = torch.complex(*cuda_fft.fft_chirp_full_split_reference(
+                    re, im, *h, *H, *g, m, n_out, scale))
+                worst = max(worst, compare("chirp_full", got, plain, whole * (scale * m),
+                                           f"{what} scale={scale} vs float64"))
+                cases += 2
             cases += 1
         torch.cuda.synchronize()
-        print(f"kernel chirp_fwd, chirp_inv: {cases} cases ok | worst rel-L2 {worst:.3e} | "
-              f"max abs err vs plain {max_abs['chirp_fwd']:.3e}, {max_abs['chirp_inv']:.3e}",
-              flush=True)
+        print(f"kernel chirp_fwd, chirp_inv, chirp_full: {cases} cases ok | worst rel-L2 "
+              f"{worst:.3e} | max abs err vs plain {max_abs['chirp_fwd']:.3e}, "
+              f"{max_abs['chirp_inv']:.3e}, {max_abs['chirp_full']:.3e}", flush=True)
 
     chirp_sweep()
 
@@ -824,7 +868,8 @@ def main() -> int:
                 "c2r_fft": cuda_fft.c2r_launches, "big_fft": bigfft.launches,
                 "gen_fft": cuda_fft.gen_launches, "r2c_gen_fft": cuda_fft.r2c_gen_launches,
                 "chirp_fwd": cuda_fft.chirp_fwd_launches,
-                "chirp_inv": cuda_fft.chirp_inv_launches, "filt": cuda_fft.filt_launches,
+                "chirp_inv": cuda_fft.chirp_inv_launches,
+                "chirp_full": cuda_fft.chirp_full_launches, "filt": cuda_fft.filt_launches,
                 "bank": cuda_fft.bank_launches, "c2r_prod": cuda_fft.c2r_prod_launches,
                 "ax0_gen": cuda_fft.ax0_gen_launches, "welch": cuda_welch.welch_launches,
                 "psd": cuda_welch.psd_launches, "csd": cuda_welch.csd_launches,
@@ -837,6 +882,7 @@ def main() -> int:
         cuda_fft.r2c_launches = cuda_fft.c2r_launches = bigfft.launches = 0
         cuda_fft.gen_launches = cuda_fft.r2c_gen_launches = 0
         cuda_fft.chirp_fwd_launches = cuda_fft.chirp_inv_launches = 0
+        cuda_fft.chirp_full_launches = 0
         cuda_fft.filt_launches = cuda_fft.bank_launches = 0
         cuda_fft.c2r_prod_launches = cuda_fft.ax0_gen_launches = 0
         cuda_welch.welch_launches = cuda_welch.psd_launches = 0
@@ -964,7 +1010,7 @@ def main() -> int:
     # rows (bench.py: composite 4095, 4097 and 1000, Bluestein 4093 and 4097)
     errs = {}
     reset_counts()
-    gen1, chirp = {"gen_fft": 1}, {"chirp_fwd": 1, "chirp_inv": 1}
+    gen1, chirp = {"gen_fft": 1}, {"chirp_full": 1}
     for rows, n in ((1024, 4095), (1024, 4097), (2048, 1000)):
         x = crand(rows, n)
         X = through(f"fft {rows}x{n}", lambda: ft.fft(x), **gen1)
@@ -988,6 +1034,15 @@ def main() -> int:
     errs["fft_4093"] = check_close(X, torch.fft.fft(x), "fft 1024x4093")
     errs["ifft_4093"] = check_close(through("ifft 1024x4093", lambda: ft.ifft(X), **chirp),
                                     x, "ifft 1024x4093 round trip")
+    # the JAX package's two passes (its Bluestein's route), public entry points
+    (cr, ci, bfr, bfi), m = bluestein._chirp_tables(4093, -1, dev)
+    A = through("fft_chirp_forward_split 1024x4093", lambda: cuda_fft.fft_chirp_forward_split(
+        *planes(x), cr, ci, m, -1), chirp_fwd=1)
+    Y = through("fft_chirp_inverse_split 1024x8192", lambda: torch.complex(
+        *cuda_fft.fft_chirp_inverse_split(*A, bfr, bfi, cr, ci, 4093, 1, 1.0 / m)), chirp_inv=1)
+    errs["chirp_pair_4093"] = check_close(Y, torch.fft.fft(x),
+                                          "fft_chirp_forward_split + inverse 1024x4093")
+    del A, Y
     x = crand(1024, 4097)  # a direct call: m = 16384
     Y = through("fft_bluestein_split 1024x4097",
                 lambda: torch.complex(*bluestein.fft_bluestein_split(*planes(x), -1)), **chirp)
@@ -1015,7 +1070,7 @@ def main() -> int:
     errs["czt_4096"] = check_close(Zc, want, "czt 1024x4096 vs float64 direct sum")
     del x, Z, Zc, E, want
     path3 = counts()
-    for name in ("gen_fft", "r2c_gen_fft", "chirp_fwd", "chirp_inv"):
+    for name in ("gen_fft", "r2c_gen_fft", "chirp_fwd", "chirp_inv", "chirp_full"):
         check(path3[name] > 0, f"non-pow2 path launched no {name} kernel")
     # outside the window: small inputs against float64 numpy, numpy input
     xs = crand(5, 1031)
@@ -1260,12 +1315,14 @@ def main() -> int:
     del x20, x8, x, xc, yc, x64, xc64, yc64, x20_64, xr, xr64, Zn
     # The kernels line gives each kernel the launches of the path it was
     # ported for (the 1-D path for B1, B2, B4 and B15, the non-pow2 path for
-    # B11-B14, the fused-epilogue path for B8-B10 and B2-composite, the
-    # estimators' path for B16-B19 and B21, the per-segment path for B20 and
-    # B22, config 4 for the rest); each path's counts are on its line.
+    # B11-B14 and chirp_full, the fused-epilogue path for B8-B10 and
+    # B2-composite, the estimators' path for B16-B19 and B21, the
+    # per-segment path for B20 and B22, config 4 for the rest); each path's
+    # counts are on its line.
     path_of = {"rows_fft": path1, "ax0_fft": path1, "rows_t_fft": path1, "big_fft": path1,
                "gen_fft": path3, "r2c_gen_fft": path3, "chirp_fwd": path3,
-               "chirp_inv": path3, "filt": path5, "bank": path5, "c2r_prod": path5,
+               "chirp_inv": path3, "chirp_full": path3, "filt": path5, "bank": path5,
+               "c2r_prod": path5,
                "ax0_gen": path5, "welch": path6, "psd": path6, "csd": path6, "coh": path6,
                "c2c": path6, "spec": path7, "spec_c2c": path7}
     main_launches = {k: path_of.get(k, path2)[k] for k in KERNELS}
@@ -1308,15 +1365,14 @@ def main() -> int:
 
     # rfft2: R2C, axis(-2); back: axis(-2), the row kernel.  Batched fft2
     # (16 planes): the fused plane forward and back.  Non-pow2 fft: the
-    # composite kernel forward and back (4095); the chirp passes forward,
-    # the row kernel back for each (prime 4093).  rfft at 1005: the
-    # composite R2C forward, the composite C2C back.
+    # composite kernel forward and back (4095); the fused chirp kernel
+    # forward and back (prime 4093).  rfft at 1005: the composite R2C
+    # forward, the composite C2C back.
     for fn, shape, kernels in ((ft.rfft2, (256, 1024), {"r2c_fft": 1, "ax0_fft": 2,
                                                        "rows_fft": 1}),
                                (ft.fft2, (16, 256, 256), {"fft2f_fft": 2}),
                                (ft.fft, (64, 4095), {"gen_fft": 2}),
-                               (ft.fft, (64, 4093), {"chirp_fwd": 1, "chirp_inv": 1,
-                                                     "rows_fft": 2}),
+                               (ft.fft, (64, 4093), {"chirp_full": 2}),
                                (ft.rfft, (64, 1005), {"r2c_gen_fft": 1, "gen_fft": 1})):
         gk = through(f"grad {fn.__name__} {shape}",
                      lambda: grads_nd(fn, shape, SEED + 2, dev), **kernels)
@@ -1539,14 +1595,36 @@ def main() -> int:
         "chirp_fwd": lambda: cuda_fft._chirp_fwd_launch(re, im, cr, ci, m, -1),
         "chirp_inv": lambda: cuda_fft._chirp_inv_launch(Ar, Ai, bfr, bfi, cr, ci, 4093, 1,
                                                         1.0 / m),
+        "chirp_full": lambda: cuda_fft._chirp_full_launch(re, im, cr, ci, bfr, bfi, cr, ci, m,
+                                                          4093, 1.0 / m),
         "chirp_fwd_plain": lambda: cuda_fft.fft_chirp_forward_split_reference(
             re, im, cr, ci, m, -1),
         "chirp_inv_plain": lambda: cuda_fft.fft_chirp_inverse_split_reference(
             Ar, Ai, bfr, bfi, cr, ci, 4093, 1, 1.0 / m),
+        "chirp_full_plain": lambda: cuda_fft.fft_chirp_full_split_reference(
+            re, im, cr, ci, bfr, bfi, cr, ci, m, 4093, 1.0 / m),
         "bluestein": lambda: bluestein.fft_bluestein_split(re, im, -1),
         "torch.fft": lambda: torch.fft.fft(x),
         "fft": lambda: ft.fft(x),
         "copy": plane_copy(Ar, Ai),
+    }, reps=20)
+    x = crand(1024, 4097)  # Bluestein, m = 16384, and the zoom, L = 8192: chirp_full
+    re, im = planes(x)
+    (cr, ci, bfr, bfi), m = bluestein._chirp_tables(4097, -1, dev)
+    times["chirp_full 1024x4097"] = time_in_turns({
+        "chirp_full": lambda: cuda_fft._chirp_full_launch(re, im, cr, ci, bfr, bfi, cr, ci, m,
+                                                          4097, 1.0 / m),
+        "bluestein": lambda: bluestein.fft_bluestein_split(re, im, -1),
+        "torch.fft": lambda: torch.fft.fft(x),
+    }, reps=20)
+    x = crand(1024, 4096)
+    re, im = planes(x)
+    zf = ft.ZoomFFT(4096, [0.1, 0.35], m=1024)
+    ((zar, zai), (zwr, zwi), (zvr, zvi)), L = czt._device_tables(4096, 1024, zf.w, zf.a, dev)
+    times["chirp_full ZoomFFT 1024x4096 m=1024"] = time_in_turns({
+        "chirp_full": lambda: cuda_fft._chirp_full_launch(re, im, zar, zai, zvr, zvi, zwr, zwi,
+                                                          L, 1024, 1.0 / L),
+        "ZoomFFT": lambda: zf(x),
     }, reps=20)
     del x, re, im, Ar, Ai
 
@@ -1639,7 +1717,7 @@ def main() -> int:
         x = crand(rows, n)
         profiles[f"fft {rows}x{n}"] = breakdown(lambda: ft.fft(x), ("gen_fft",))
     x = crand(1024, 4093)
-    profiles["fft 1024x4093"] = breakdown(lambda: ft.fft(x), ("chirp_fwd", "chirp_inv"))
+    profiles["fft 1024x4093"] = breakdown(lambda: ft.fft(x), ("chirp_full",))
     r = torch.randn(1024, 4095, device=dev, generator=gen)
     profiles["rfft 1024x4095"] = breakdown(lambda: ft.rfft(r), ("r2c_gen_fft",))
     r1000 = torch.randn(1024, 1000, device=dev, generator=gen)
@@ -1651,7 +1729,7 @@ def main() -> int:
     profiles["irfft 1024x4095"] = breakdown(lambda: ft.irfft(R, n=4095), ("gen_fft",))
     x = crand(1024, 4096)
     zf = ft.ZoomFFT(4096, [0.1, 0.35], m=1024)
-    profiles["ZoomFFT 1024x4096 m=1024"] = breakdown(lambda: zf(x), ("chirp_fwd", "chirp_inv"))
+    profiles["ZoomFFT 1024x4096 m=1024"] = breakdown(lambda: zf(x), ("chirp_full",))
     x = crand(4096, 4096)
     r = torch.randn(4096, 4096, device=dev, generator=gen)
     profiles["SpectralFilter 4096x4096"] = breakdown(lambda: sf(x), ("rows_fft", "filt_fft"))
@@ -1821,7 +1899,8 @@ def main() -> int:
               "gen_fft 1024x4095", c2c * 1024 * 4095, fft_flops(4095, 1024)),
         entry("r2c_gen_fft", "r2c_gen_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2970",
               "r2c_gen_fft 1024x4095", r2c(4095, 1024), rfft_flops(4095, 1024)),
-        # the two Bluestein passes of a 4093-point transform, m = 8192;
+        # the two Bluestein passes of a 4093-point transform, m = 8192, and
+        # the two fused (B11 then B12: chirp_full, which replaces the pair);
         # library_ms is torch.fft's whole 4093-point transform
         entry("chirp_fwd", "chirp_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2613",
               "chirp 1024x4093", 8 * (4093 + 8192) * 1024 + 8 * 4093,
@@ -1829,6 +1908,9 @@ def main() -> int:
         entry("chirp_inv", "chirp_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2672",
               "chirp 1024x4093", 8 * (8192 + 4093) * 1024 + 8 * (8192 + 4093),
               fft_flops(8192, 1024), ms="chirp_inv", plain="chirp_inv_plain"),
+        entry("chirp_full", "chirp_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2613",
+              "chirp 1024x4093", 8 * (4093 + 4093) * 1024 + 8 * (4093 + 8192 + 4093),
+              2 * fft_flops(8192, 1024), ms="chirp_full", plain="chirp_full_plain"),
         # the fused epilogues: each kernel's library_ms is torch.fft's
         # composition of the same function (multiply + ifft, multiply +
         # irfft, fft along axis -2)

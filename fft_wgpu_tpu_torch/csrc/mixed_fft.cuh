@@ -1,6 +1,7 @@
 // Mixed-radix Stockham passes over a row in shared memory, for the
 // composite-length kernels (gen_fft.cu, C2C rows; r2c_gen_fft.cu, R2C rows;
-// ax0_gen_fft.cu, C2C columns).
+// ax0_gen_fft.cu, C2C columns) and, with the plan fixed at compile time
+// (mixed_fft_fixed), the power-of-two chirp passes (chirp_fft.cu).
 //
 // A transform of N points runs the passes of a plan, N = R_0 * R_1 * ...,
 // made on the host by ops/cuda_fft.py::_mixed_radix_plan: hard-coded
@@ -285,21 +286,45 @@ __device__ __forceinline__ void dft(float (&r)[R], float (&i)[R]) {
 
 // Where a pass runs: N points, NS = product of the radices before it,
 // T threads of the row, this thread's index, the twiddle table's stride.
+// A pass of radix R reads its twiddle w_N^((j mod NS) * N/(NS*R)) at
+// tw[(j mod NS) * tw_step<R>()].
 struct MixStep {
   int n;
   int ns;
   int T;
   int tid;
   int tws;
+  static constexpr bool kFixed = false;
+  template <int R>
+  __device__ __forceinline__ int tw_step() const {
+    return n / (ns * R) * tws;
+  }
 };
 
-// A small-radix pass; BMAX butterflies a thread at most.
-template <int R, int BMAX, int SIGN, class Src, class Dst>
-__device__ __forceinline__ void small_pass(const Src& src, const Dst& dst,
-                                           const MixStep& a,
+// The same with N and NS known at compile time (a plan fixed when the
+// kernel is compiled: fixed_passes), so that the pass's strides, masks and
+// trip counts fold into constants.  Its twiddles are the pass's own NS roots
+// w_(NS*R)^e, e < NS, at stride 1; at NS = 1 it has none.
+template <int N, int NS>
+struct FixedStep {
+  static constexpr int n = N;
+  static constexpr int ns = NS;
+  int T;
+  int tid;
+  static constexpr bool kFixed = true;
+  template <int R>
+  static __device__ __forceinline__ constexpr int tw_step() {
+    return 1;
+  }
+};
+
+// A small-radix pass; BMAX butterflies a thread at most.  Step: MixStep,
+// or FixedStep for a pass of a fixed plan.
+template <int R, int BMAX, int SIGN, class Src, class Dst, class Step>
+__device__ __forceinline__ void small_pass(const Src& src, const Dst& dst, const Step& a,
                                            const float2* __restrict__ tw) {
   const int M = a.n / R;
-  const int step = a.n / (a.ns * R) * a.tws;
+  const int step = a.template tw_step<R>();
   float ar[BMAX][R], ai[BMAX][R];
 #pragma unroll
   for (int b = 0; b < BMAX; ++b) {
@@ -310,13 +335,16 @@ __device__ __forceinline__ void small_pass(const Src& src, const Dst& dst,
 #pragma unroll
     for (int k = 0; k < R; ++k) src.load(j + k * M, ar[b][k], ai[b][k]);
     // w^k = w^(k-1) * w from one gathered root (w = 1 at j mod NS = 0): a
-    // gather of each of the R - 1 roots would cost an L1 wavefront a lane
-    const float2 w = __ldg(&tw[(j % a.ns) * step]);
-    float2 wk = w;
+    // gather of each of the R - 1 roots would cost an L1 wavefront a lane.
+    // A fixed pass at NS = 1 has no twiddles to apply.
+    if (!Step::kFixed || a.ns > 1) {
+      const float2 w = __ldg(&tw[(j % a.ns) * step]);
+      float2 wk = w;
 #pragma unroll
-    for (int k = 1; k < R; ++k) {
-      cmul(ar[b][k], ai[b][k], wk);
-      if (k + 1 < R) cmul(wk.x, wk.y, w);
+      for (int k = 1; k < R; ++k) {
+        cmul(ar[b][k], ai[b][k], wk);
+        if (k + 1 < R) cmul(wk.x, wk.y, w);
+      }
     }
     dft<R, SIGN>(ar[b], ai[b]);
   }
@@ -492,6 +520,34 @@ __device__ __forceinline__ void mixed_fft(const Row& row, const MixedPlan& plan,
     }
     ns *= R;
   }
+}
+
+// The passes of a plan fixed at compile time, radices R, RS... (2, 4, 8 or
+// 16), each at mixed_hold(R) butterflies a thread (the launch shape of
+// mixed_shape), src -> row.shared() -> ... -> row.dst() as in mixed_fft,
+// with every pass's N and NS constants; the first pass at NS, so a caller
+// may run a plan's passes in parts.  The table tw holds each pass's
+// twiddles w_(NS*R)^e, e < NS, pass after pass from the first with NS > 1
+// (where the table begins, OFF = 0): consecutive lanes read consecutive
+// roots, where a gather from the N-point table at stride N/(NS*R) touches
+// a cache line a lane.  OFF: where this pass's roots begin.
+template <int SIGN, int N, int NS, int OFF, int R, int... RS, class Src, class Row>
+__device__ __forceinline__ void fixed_passes(const Src& src, const Row& row,
+                                             const float2* __restrict__ tw) {
+  static_assert(R == 2 || R == 4 || R == 8 || R == 16, "power-of-two radices only");
+  const FixedStep<N, NS> a{static_cast<int>(blockDim.x), static_cast<int>(threadIdx.x)};
+  if constexpr (sizeof...(RS) == 0) {
+    small_pass<R, mixed_hold(R), SIGN>(src, row.dst(), a, tw + OFF);
+  } else {
+    small_pass<R, mixed_hold(R), SIGN>(src, row.shared(), a, tw + OFF);
+    fixed_passes<SIGN, N, NS * R, (NS > 1 ? OFF + NS : OFF), RS...>(row.shared(), row, tw);
+  }
+}
+
+// Every pass of the fixed plan RS (product N): row.src() -> ... -> row.dst().
+template <int SIGN, int N, int... RS, class Row>
+__device__ __forceinline__ void mixed_fft_fixed(const Row& row, const float2* __restrict__ tw) {
+  fixed_passes<SIGN, N, 1, 0, RS...>(row.src(), row, tw);
 }
 
 // ---------------------------------------------------------------------- //

@@ -10,13 +10,16 @@ chirp-z identity
 with the chirp tables generated in f64 on the host (j^2 mod 2n reduction,
 so precision holds at large n).
 
-On a CUDA tensor with m <= 16384 the two FFTs are the chirp passes of
-``csrc/chirp_fft.cu``: the chirp multiply and the zero-pad ride the first
-pass's loads, the filter multiply the second's loads, and the slice and
-the post-chirp multiply its stores.  Otherwise (a CPU tensor, or a larger
-m on the card) the composed path runs: chirp multiply, pad, an m-point FFT
-through the plan, filter multiply, inverse FFT, post-chirp.  The route is
-picked by the envelope predicate, never by catching an error.
+On a CUDA tensor with m <= 16384 the whole transform is one launch of
+``chirp_full`` (``csrc/chirp_fft.cu``, through
+``cuda_fft.fft_chirp_full_split``): the chirp multiply and the zero-pad
+ride the first FFT's loads, the filter multiply the second's loads, the
+slice and the post-chirp multiply its stores, and each m-point row stays
+in shared memory between the two; its gradient is one more launch of the
+same kernel.  Otherwise (a CPU tensor, or a larger m on the card) the
+composed path runs: chirp multiply, pad, an m-point FFT through the plan,
+filter multiply, inverse FFT, post-chirp.  The route is picked by the
+envelope predicate, never by catching an error.
 """
 
 from __future__ import annotations
@@ -82,9 +85,8 @@ def fft_bluestein_split(re, im, sign, scale=None):
     n = re.shape[-1]
     (cr, ci, bfr, bfi), m = _chirp_tables(n, sign, re.device)
     if re.device.type == "cuda" and cuda_fft._chirp_supported(m, n):
-        Ar, Ai = cuda_fft.fft_chirp_forward_split(re, im, cr, ci, m, -1)
         sc = (1.0 / m) * (1.0 if scale is None else float(scale))
-        return cuda_fft.fft_chirp_inverse_split(Ar, Ai, bfr, bfi, cr, ci, n, +1, sc)
+        return cuda_fft.fft_chirp_full_split(re, im, cr, ci, bfr, bfi, cr, ci, m, n, sc)
 
     # a = c * x, zero-padded to m
     ar = re * cr - im * ci

@@ -1,5 +1,5 @@
 """FFT kernels on Hopper: the port's counterpart of ``ops/pallas_fft.py``
-for fourteen of its entry points.
+for fourteen of its entry points, and one fused pair of them.
 
 * ``fft_batched_split`` — rows along the last axis, ``csrc/rows_fft.cu``
   (one thread block per row, the whole row in shared memory);
@@ -23,7 +23,9 @@ for fourteen of its entry points.
   (``csrc/mixed_fft.cuh``), ``csrc/gen_fft.cu`` and ``csrc/r2c_gen_fft.cu``;
 * ``fft_chirp_forward_split`` / ``fft_chirp_inverse_split`` — the two
   m-point passes of Bluestein and the chirp-z transform, with the chirp
-  multiplies at load and store, ``csrc/chirp_fft.cu``;
+  multiplies at load and store, and ``fft_chirp_full_split``, both passes
+  in one kernel (the route of Bluestein and the chirp-z transforms),
+  ``csrc/chirp_fft.cu`` on the mixed-radix passes of ``mixed_fft.cuh``;
 * ``fft_filtered_split`` / ``fft_bank_split`` — rows with a filter
   multiply at load: every row times one filter, or one signal times every
   row of a filter bank, ``csrc/filt_fft.cu``;
@@ -62,7 +64,8 @@ __all__ = ["Unsupported", "FUSED_MIN_N", "FUSED_MAX_N", "FFT2F_MAX_ELEMS",
            "fft_rows_general_split_reference", "rfft_rows_general_split",
            "rfft_rows_general_split_reference", "fft_chirp_forward_split",
            "fft_chirp_forward_split_reference", "fft_chirp_inverse_split",
-           "fft_chirp_inverse_split_reference", "fft_filtered_split",
+           "fft_chirp_inverse_split_reference", "fft_chirp_full_split",
+           "fft_chirp_full_split_reference", "fft_filtered_split",
            "fft_filtered_split_reference", "fft_bank_split",
            "fft_bank_split_reference", "irfft_prod_rows_split",
            "irfft_prod_rows_split_reference"]
@@ -73,7 +76,7 @@ FFT2F_MAX_ELEMS = 1 << 16  # points of one fused 2-D plane (the JAX envelope)
 
 # Launches of each entry point's kernel (rows_fft, ax0_fft, ax0_gen_fft,
 # either of those on the axis(-3) view, rows_t_fft, fft2f_fft, r2c_fft,
-# c2r_fft and its product form, gen_fft, r2c_gen_fft, chirp_fft's two
+# c2r_fft and its product form, gen_fft, r2c_gen_fft, chirp_fft's three
 # kernels and filt_fft's two); callers may reset them to 0.
 launches = 0
 ax0_launches = 0
@@ -87,6 +90,7 @@ gen_launches = 0
 r2c_gen_launches = 0
 chirp_fwd_launches = 0
 chirp_inv_launches = 0
+chirp_full_launches = 0
 filt_launches = 0
 bank_launches = 0
 c2r_prod_launches = 0
@@ -1071,30 +1075,40 @@ def _mixed_passes(z, sign, tw, tws):
     f64-generated matrix) and writes output q to
     (j - j mod NS)*R + j mod NS + q*NS."""
     N = z.shape[-1]
-    lead = z.shape[:-1]
     ns = 1
     for R in _mixed_radix_plan(N):
         M = N // R
         j = torch.arange(M, device=z.device)
         k = torch.arange(R, device=z.device)
-        x = z.reshape(*lead, R, M)
+        x = z.reshape(*z.shape[:-1], R, M)
         e = (j % ns) * (N // (ns * R)) * tws
         if R in _GEN_SMALL:
             wk = torch.cumprod(tw[e].expand(R - 1, M), dim=0)
             x = torch.cat([x[..., :1, :], x[..., 1:, :] * wk], dim=-2)
         else:
             x = x * tw[k[:, None] * e[None, :]]
-        wr, wi = stockham._const("dft_matrix_np", (R, sign), z.device)
-        # y[q, j] = sum_k W[q, k] x[k, j], W symmetric: y^T = x^T @ W
-        yr, yi = stockham._cmatmul(x.real.transpose(-1, -2).contiguous(),
-                                   x.imag.transpose(-1, -2).contiguous(), wr, wi)
-        jm = j % ns
-        d = ((j - jm) * R + jm)[:, None] + (k * ns)[None, :]  # [M, R(q)]
-        out = torch.empty_like(z)
-        out[..., d.reshape(-1)] = torch.complex(yr, yi).reshape(*lead, N)
-        z = out
+        z = _autosort(x, sign, ns)
         ns *= R
     return z
+
+
+def _autosort(x, sign, ns):
+    """The rest of a pass after its twiddles: the R-point DFTs (an
+    f64-generated matrix) of the twiddled inputs ``x`` [..., R(k), M(j)]
+    and the Stockham store of output q of butterfly j at
+    (j - j mod NS)*R + j mod NS + q*NS, a complex [..., R*M] tensor."""
+    R, M = x.shape[-2:]
+    j = torch.arange(M, device=x.device)
+    k = torch.arange(R, device=x.device)
+    wr, wi = stockham._const("dft_matrix_np", (R, sign), x.device)
+    # y[q, j] = sum_k W[q, k] x[k, j], W symmetric: y^T = x^T @ W
+    yr, yi = stockham._cmatmul(x.real.transpose(-1, -2).contiguous(),
+                               x.imag.transpose(-1, -2).contiguous(), wr, wi)
+    jm = j % ns
+    d = ((j - jm) * R + jm)[:, None] + (k * ns)[None, :]  # [M, R(q)]
+    out = x.new_empty(*x.shape[:-2], R * M)
+    out[..., d.reshape(-1)] = torch.complex(yr, yi).reshape(*x.shape[:-2], R * M)
+    return out
 
 
 def _table_c(n: int, sign: int, device):
@@ -1320,6 +1334,37 @@ def _cmul(ar, ai, br, bi):
     return ar * br - ai * bi, ar * bi + ai * br
 
 
+def _plan_roots(m: int, sign: int, plan: tuple):
+    """Each pass's twiddles for the fixed-plan passes of
+    ``mixed_fft.cuh::fixed_passes``: for each pass of ``plan`` after the
+    first, with NS the product of the radices before it and R its radix,
+    the roots w_(NS*R)^e = exp(sign*2pi*i*e/(NS*R)), e < NS, pass after
+    pass; taken from the m-point table of :func:`_tw.roots_np`, so every
+    value is one of that table's."""
+    idx, ns = [], 1
+    for r in plan:
+        if ns > 1:
+            idx.append(np.arange(ns) * (m // (ns * r)))
+        ns *= r
+    idx = np.concatenate(idx)
+    c, s = _tw.roots_np(m, sign)
+    return c[idx], s[idx]
+
+
+def _pass_roots_np(m: int, sign: int):
+    """The chirp kernels' twiddle table: :func:`_plan_roots` of
+    :func:`_mixed_radix_plan`(m), the plan compiled into
+    ``csrc/chirp_fft.cu`` (its ``plans`` table)."""
+    return _plan_roots(m, sign, _mixed_radix_plan(m))
+
+
+def _pass_roots_reversed_np(m: int, sign: int):
+    """chirp_full's second transform's table: :func:`_plan_roots` of the
+    plan in reverse order (the kernel's turn pass runs the first
+    transform's last radix as the second's first)."""
+    return _plan_roots(m, sign, _mixed_radix_plan(m)[::-1])
+
+
 def _chirp_fwd_launch(re, im, hr, hi, m, sign):
     """Run the chirp_fwd kernel on CUDA tensors: [..., n_in] -> [..., m]."""
     global chirp_fwd_launches
@@ -1334,8 +1379,8 @@ def _chirp_fwd_launch(re, im, hr, hi, m, sign):
                  [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P], re.device,
                  re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(),
                  out[0].data_ptr(), out[1].data_ptr(),
-                 _twiddle_table(m, sign, re.device).data_ptr(), rows, n_in,
-                 m.bit_length() - 1, sign, _stream(re),
+                 _twiddle_table(m, sign, re.device, _pass_roots_np).data_ptr(), rows, n_in,
+                 m, sign, _stream(re),
                  what=f"chirp_fwd launch failed (n_in={n_in}, m={m}, rows={rows})")
     chirp_fwd_launches += 1
     return out
@@ -1410,8 +1455,8 @@ def _chirp_inv_launch(re, im, hr, hi, gr, gi, n_out, sign, scale):
                  [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _P],
                  re.device, re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(),
                  gr.data_ptr(), gi.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                 _twiddle_table(m, sign, re.device).data_ptr(), rows, n_out,
-                 m.bit_length() - 1, sign, _scale_arg(scale), _stream(re),
+                 _twiddle_table(m, sign, re.device, _pass_roots_np).data_ptr(), rows,
+                 n_out, m, sign, _scale_arg(scale), _stream(re),
                  what=f"chirp_inv launch failed (m={m}, n_out={n_out}, rows={rows})")
     chirp_inv_launches += 1
     return out
@@ -1477,6 +1522,130 @@ def fft_chirp_inverse_split_reference(re, im, hr, hi, gr, gi, n_out, sign,
     yr, yi = stockham.fft_last_axis(*_cmul(re, im, hr, hi), sign)
     yr, yi = stockham.apply_scale(yr[..., :n_out], yi[..., :n_out], scale)
     return _cmul(yr, yi, gr, gi)
+
+
+def _chirp_full_launch(re, im, hr, hi, Hr, Hi, gr, gi, m, n_out, scale):
+    """Run the chirp_full kernel on CUDA tensors: [..., n_in] -> [..., n_out]."""
+    global chirp_full_launches
+    n_in = re.shape[-1]
+    re, im = re.contiguous(), im.contiguous()
+    shape = (*re.shape[:-1], n_out)
+    out = (re.new_empty(shape), re.new_empty(shape))
+    if re.numel() == 0:
+        return out
+    rows = re.numel() // n_in
+    build.launch("chirp_fft", "chirp_full_f32",
+                 [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _P],
+                 re.device, re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+                 Hr.data_ptr(), Hi.data_ptr(), gr.data_ptr(), gi.data_ptr(),
+                 out[0].data_ptr(), out[1].data_ptr(),
+                 _twiddle_table(m, -1, re.device, _pass_roots_np).data_ptr(),
+                 _twiddle_table(m, 1, re.device, _pass_roots_reversed_np).data_ptr(),
+                 rows, n_in, n_out, m, _scale_arg(scale), _stream(re),
+                 what=f"chirp_full launch failed (n_in={n_in}, m={m}, n_out={n_out}, "
+                      f"rows={rows})")
+    chirp_full_launches += 1
+    return out
+
+
+def _chirp_full(re, im, hr, hi, Hr, Hi, gr, gi, m, n_out, scale):
+    if re.device.type == "cuda":
+        return _chirp_full_launch(re, im, hr, hi, Hr, Hi, gr, gi, m, n_out, scale)
+    if re.device.type != "cpu":
+        raise ValueError(f"no chirp pass for device {re.device}")
+    return fft_chirp_full_split_reference(re, im, hr, hi, Hr, Hi, gr, gi, m, n_out, scale)
+
+
+class _ChirpFull(torch.autograd.Function):
+    """y = g * (scale * FFT_+(H * FFT_-(zero_pad_m(h * x))))[..., :n_out],
+    linear in x with h, H and g constant.  Its adjoint, conj(h) * (scale *
+    FFT_+(conj(H) * FFT_-(zero_pad_m(conj(g) * ct))))[..., :n_in], is the
+    same map with the tables conjugated, h and g swapped and n_in and n_out
+    exchanged (the adjoint of FFT_s is FFT_-s, and the pass order turns
+    round): the same kernel on the card."""
+
+    @staticmethod
+    def forward(ctx, re, im, hr, hi, Hr, Hi, gr, gi, m, n_out, scale):
+        ctx.save_for_backward(hr, hi, Hr, Hi, gr, gi)
+        ctx.m, ctx.scale = m, scale
+        return _chirp_full(re, im, hr, hi, Hr, Hi, gr, gi, m, n_out, scale)
+
+    @staticmethod
+    def backward(ctx, ctr, cti):
+        hr, hi, Hr, Hi, gr, gi = ctx.saved_tensors
+        ar, ai = _chirp_full(ctr.contiguous(), cti.contiguous(), gr, -gi, Hr, -Hi, hr, -hi,
+                             ctx.m, hr.shape[0], ctx.scale)
+        return (ar, ai) + (None,) * 9
+
+
+def fft_chirp_full_split(re, im, hr, hi, Hr, Hi, gr, gi, m, n_out, scale=None):
+    """Bluestein's algorithm and the chirp-z transform in one pass over the
+    last axis: ``g * (scale * FFT_+(H * FFT_-(zero_pad_m(h * x))))[...,
+    :n_out]``, planar float32 ``[..., n_in]`` -> ``[..., n_out]``, with h
+    ``[n_in]``, H ``[m]`` and g ``[n_out]`` (numpy arrays or tensors)
+    multiplied in.  It is :func:`fft_chirp_forward_split` (sign -1)
+    followed by :func:`fft_chirp_inverse_split` (sign +1), and on the card
+    one kernel that holds each m-point row in shared memory from the chirp
+    to the post-chirp; the tables carry the transform's direction (an
+    inverse DFT is the conjugate chirps).  m pow2 in 128..16384, any n_in,
+    n_out <= m.  Differentiable in (re, im) (the backward is the same
+    kernel); the tables are constants."""
+    n_in = re.shape[-1]
+    _check_chirp(m, max(n_in, n_out), "max(n_in, n_out)")
+    _check_planes(re, im)
+    tabs = (_table(t, n, re.device, w) for t, n, w in (
+        (hr, n_in, "hr"), (hi, n_in, "hi"), (Hr, m, "Hr"), (Hi, m, "Hi"),
+        (gr, n_out, "gr"), (gi, n_out, "gi")))
+    return _ChirpFull.apply(re, im, *tabs, m, n_out, scale)
+
+
+def _fixed_passes(z, sign, roots, plan):
+    """The fixed-plan passes of ``mixed_fft.cuh::fixed_passes`` in plain
+    torch on a complex ``[..., N]`` tensor, as :func:`_mixed_passes` but
+    with each pass's twiddle w^k, w = roots[off + j mod NS], read from the
+    pass-after-pass table of :func:`_plan_roots` (complex ``roots``)."""
+    N = z.shape[-1]
+    ns, off = 1, 0
+    for R in plan:
+        M = N // R
+        x = z.reshape(*z.shape[:-1], R, M)
+        if ns > 1:
+            j = torch.arange(M, device=z.device)
+            wk = torch.cumprod(roots[off + j % ns].expand(R - 1, M), dim=0)
+            x = torch.cat([x[..., :1, :], x[..., 1:, :] * wk], dim=-2)
+            off += ns
+        z = _autosort(x, sign, ns)
+        ns *= R
+    return z
+
+
+def _chirp_full_passes(re, im, hr, hi, Hr, Hi, gr, gi, m, n_out, scale=None):
+    """Plain torch version of the chirp_full kernel's own passes: pad(h*x),
+    the fixed passes of :func:`_mixed_radix_plan`(m) (sign -1), the product
+    with H, the passes of the plan in reverse order (+1; the kernel's
+    turn pass fuses the first's last pass with the second's first, the
+    same arithmetic), then the slice, the scale and g, all on the tables
+    the kernel reads.  No CUDA path calls it."""
+    plan = _mixed_radix_plan(m)
+
+    def roots(sgn, table):
+        tab = _twiddle_table(m, sgn, re.device, table)
+        return torch.complex(tab[:, 0], tab[:, 1])
+
+    x = torch.complex(*_cmul(re, im, hr, hi))
+    y = _fixed_passes(torch.nn.functional.pad(x, (0, m - re.shape[-1])), -1,
+                      roots(-1, _pass_roots_np), plan)
+    y = _fixed_passes(y * torch.complex(Hr, Hi), 1, roots(1, _pass_roots_reversed_np),
+                      plan[::-1])
+    yr, yi = stockham.apply_scale(y.real[..., :n_out], y.imag[..., :n_out], scale)
+    return _cmul(yr, yi, gr, gi)
+
+
+def fft_chirp_full_split_reference(re, im, hr, hi, Hr, Hi, gr, gi, m, n_out, scale=None):
+    """Plain torch version of :func:`fft_chirp_full_split`: the plain
+    versions of the two passes, one after the other."""
+    Yr, Yi = fft_chirp_forward_split_reference(re, im, hr, hi, m, -1)
+    return fft_chirp_inverse_split_reference(Yr, Yi, Hr, Hi, gr, gi, n_out, 1, scale)
 
 
 # ---------------------------------------------------------------------- #

@@ -10,11 +10,13 @@ via the chirp factorization w^{jk} = w^{(j^2 + k^2 - (k-j)^2)/2} and one
 power-of-two FFT convolution of length L >= n + m - 1.  All chirp tables
 are generated on the host in complex128.
 
-On a CUDA tensor with L <= 16384 the convolution is the two chirp passes of
-``csrc/chirp_fft.cu`` (the input chirp at the first pass's loads, the
-filter at the second's loads, the output chirp and the m-slice at its
-stores); otherwise (a CPU tensor, or a larger L) the composed path runs
-through the plan.  The route is picked by the envelope predicate.
+On a CUDA tensor with L <= 16384 the whole transform is one launch of
+``chirp_full`` (``csrc/chirp_fft.cu``, through
+``cuda_fft.fft_chirp_full_split``: the input chirp at the first FFT's
+loads, the filter at the second's loads, the output chirp and the m-slice
+at its stores, each L-point row in shared memory between the two);
+otherwise (a CPU tensor, or a larger L) the composed path runs through
+the plan.  The route is picked by the envelope predicate.
 """
 
 from __future__ import annotations
@@ -75,8 +77,7 @@ def _czt_split(re, im, m: int, w: complex, a: complex):
     n = re.shape[-1]
     ((Ar, Ai), (Wr, Wi), (Vr, Vi)), L = _device_tables(n, m, w, a, re.device)
     if re.device.type == "cuda" and cuda_fft._chirp_supported(L, max(n, m)):
-        Yr, Yi = cuda_fft.fft_chirp_forward_split(re, im, Ar, Ai, L, -1)
-        return cuda_fft.fft_chirp_inverse_split(Yr, Yi, Vr, Vi, Wr, Wi, m, +1, 1.0 / L)
+        return cuda_fft.fft_chirp_full_split(re, im, Ar, Ai, Vr, Vi, Wr, Wi, L, m, 1.0 / L)
     # composed path (CPU, or L outside the chirp passes' envelope)
     pad = (0, L - n)
     yr = torch.nn.functional.pad(re * Ar - im * Ai, pad)

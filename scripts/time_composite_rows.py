@@ -6,10 +6,14 @@ r2c_gen_fft, R2C; set "rows"), and the composite axis(-2) kernel
 four-step's transposed-rows pass (rows_t_fft, with and without the outer
 twiddle, at n = 4096 and 1024), with the calls that run them:
 plan.forward_split at 1 x 2^20, 1 x 2^22 and 4 x 2^22, and fft2 of
-16 x 1080 x 1920 frames (set "columns").
+16 x 1080 x 1920 frames (set "columns"); the chirp kernels (chirp_fft) in
+Bluestein at 1024 x 4093 and 1024 x 4097 and the ZoomFFT of 1024 x 4096
+to 1024 bins through the public calls (whichever chirp kernels a tree
+launches there), and the two passes B11 and B12 alone at 1024 x 4093
+(set "chirp").
 
     python3 scripts/time_composite_rows.py [--tree DIR] [--label NAME] [--out FILE]
-                                           [--set rows|columns|all]
+                                           [--set rows|columns|chirp|all]
 
 ``--tree`` imports ``fft_wgpu_tpu_torch`` from another checkout (for
 example a parent commit unpacked with ``git archive``), so that two
@@ -102,7 +106,7 @@ def main() -> int:
         os.path.abspath(__file__))), help="checkout to import the port from")
     ap.add_argument("--label", default="tree")
     ap.add_argument("--out", default=None, help="append the JSON line here")
-    ap.add_argument("--set", default="all", choices=("rows", "columns", "all"),
+    ap.add_argument("--set", default="all", choices=("rows", "columns", "chirp", "all"),
                     help="which kernels to time")
     args = ap.parse_args()
 
@@ -125,6 +129,8 @@ def main() -> int:
     result = {"label": args.label, "device": smi, "times": {}, "rel_l2": {}}
     if args.set in ("columns", "all"):
         time_columns(ft, cuda_fft, dev, gen, args.label, result)
+    if args.set in ("chirp", "all"):
+        time_chirp(ft, cuda_fft, dev, gen, args.label, result)
     for kernel, rows, n in SHAPES if args.set in ("rows", "all") else ():
         key = f"{kernel} {rows}x{n}"
         if kernel == "gen_fft":
@@ -148,7 +154,7 @@ def main() -> int:
         result["times"][key]["device"] = device_ms(fns["kernel"], f"{kernel}_kernel")
         print(f"{args.label} | {key} | rel-L2 {err:.3e} | " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in result["times"][key].items()), flush=True)
-    if args.set == "columns":
+    if args.set in ("columns", "chirp"):
         return finish(result, args)
     fr = torch.complex(torch.randn(16, 1080, 1920, device=dev, generator=gen),
                        torch.randn(16, 1080, 1920, device=dev, generator=gen))
@@ -175,20 +181,8 @@ def time_columns(ft, cuda_fft, dev, gen, label, result):
     device ms of each, torch.fft beside them."""
     import torch
 
-    def crand(*shape):
-        return torch.complex(torch.randn(shape, device=dev, generator=gen),
-                             torch.randn(shape, device=dev, generator=gen))
-
-    def record(key, err, fns, device, reps=10):
-        if err > TOL:
-            raise RuntimeError(f"{label} {key}: rel-L2 {err:.3e} > {TOL}")
-        result["rel_l2"][key] = err
-        result["times"][key] = in_turns(fns, reps=reps)
-        for part, (fn, name) in device.items():
-            result["times"][key][part] = device_ms(fn, name, reps=10)
-        print(f"{label} | {key} | rel-L2 {err:.3e} | " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in result["times"][key].items()), flush=True)
-
+    crand = randn_complex(dev, gen)
+    record = recorder(label, result)
     ax0 = "ax0_gen_fft_kernel"
     # 1920 columns: 8 a block in one tile, a cluster of one block
     for shape in ((16, 1080, 1920), (16, 4095, 512), (16, 1920, 1080)):
@@ -246,6 +240,79 @@ def time_columns(ft, cuda_fft, dev, gen, label, result):
     record("fft2 16x1080x1920", rel_l2(ft.fft2(fr), torch.fft.fft2(fr)), fns,
            {"device gen_fft": (fns["fft2"], "gen_fft_kernel"),
             "device ax0_gen_fft": (fns["fft2"], ax0)})
+
+
+def time_chirp(ft, cuda_fft, dev, gen, label, result):
+    """Bluestein at 1024 x 4093 (m = 8192) and 1024 x 4097 (m = 16384) and
+    the ZoomFFT of 1024 x 4096 to 1024 bins (L = 8192) through the public
+    calls, with the device ms of every chirp kernel they launch (one
+    chirp_full, or B11 then B12 in a tree without it); B11 (chirp_fwd) and
+    B12 (chirp_inv) alone at 1024 x 4093; torch.fft beside each."""
+    import cmath
+
+    import torch
+    from fft_wgpu_tpu_torch.ops import bluestein
+
+    crand = randn_complex(dev, gen)
+    record = recorder(label, result)
+    chirp = "chirp_(?:fwd|inv|full)_kernel"
+    for n in (4093, 4097):
+        x = crand(1024, n)
+        re_, im_ = x.real.contiguous(), x.imag.contiguous()
+        fns = {"bluestein": lambda: bluestein.fft_bluestein_split(re_, im_, -1),
+               "torch.fft": lambda: torch.fft.fft(x)}
+        if n == 4093:  # prime: ft.fft's route is Bluestein (4097 = 17 * 241 is not)
+            fns["fft"] = lambda: ft.fft(x)
+        want = torch.fft.fft(x.to(torch.complex128))
+        record(f"bluestein 1024x{n}", rel_l2(torch.complex(*fns["bluestein"]()), want), fns,
+               {"device": (fns["bluestein"], chirp)}, reps=30)
+    x = crand(1024, 4096)
+    zf = ft.ZoomFFT(4096, [0.1, 0.35], m=1024)
+    j = torch.arange(4096, device=dev, dtype=torch.float64)[:, None]
+    k = torch.arange(1024, device=dev, dtype=torch.float64)[None, :]
+    # the direct sum in float64: X[k] = sum_j x[j] a^-j w^(jk)
+    want = x.to(torch.complex128) @ torch.exp(-j * cmath.log(zf.a) + j * k * cmath.log(zf.w))
+    fns = {"ZoomFFT": lambda: zf(x)}
+    record("ZoomFFT 1024x4096 m=1024", rel_l2(zf(x), want), fns,
+           {"device": (fns["ZoomFFT"], chirp)}, reps=30)
+    x = crand(1024, 4093)
+    re_, im_ = x.real.contiguous(), x.imag.contiguous()
+    (cr, ci, bfr, bfi), m = bluestein._chirp_tables(4093, -1, dev)
+    A = cuda_fft._chirp_fwd_launch(re_, im_, cr, ci, m, -1)
+    fns = {"chirp_fwd": lambda: cuda_fft._chirp_fwd_launch(re_, im_, cr, ci, m, -1),
+           "chirp_inv": lambda: cuda_fft._chirp_inv_launch(*A, bfr, bfi, cr, ci, 4093, 1,
+                                                           1.0 / m),
+           "torch.fft": lambda: torch.fft.fft(x)}
+    err = rel_l2(torch.complex(*fns["chirp_inv"]()), torch.fft.fft(x.to(torch.complex128)))
+    record("chirp_fwd, chirp_inv 1024x4093", err, fns,
+           {"device chirp_fwd": (fns["chirp_fwd"], "chirp_fwd_kernel"),
+            "device chirp_inv": (fns["chirp_inv"], "chirp_inv_kernel")}, reps=30)
+
+
+def randn_complex(dev, gen):
+    """crand(*shape): a complex64 tensor of normal parts on ``dev``."""
+    import torch
+
+    def crand(*shape):
+        return torch.complex(torch.randn(shape, device=dev, generator=gen),
+                             torch.randn(shape, device=dev, generator=gen))
+    return crand
+
+
+def recorder(label, result):
+    """record(key, err, fns, device, reps): check err against TOL, then time
+    ``fns`` in turns and the device ms of each ``device`` entry (part ->
+    (fn, kernel name)) into ``result``, and print the row."""
+    def record(key, err, fns, device, reps=10):
+        if err > TOL:
+            raise RuntimeError(f"{label} {key}: rel-L2 {err:.3e} > {TOL}")
+        result["rel_l2"][key] = err
+        result["times"][key] = in_turns(fns, reps=reps)
+        for part, (fn, name) in device.items():
+            result["times"][key][part] = device_ms(fn, name, reps=10)
+        print(f"{label} | {key} | rel-L2 {err:.3e} | " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in result["times"][key].items()), flush=True)
+    return record
 
 
 def finish(result, args) -> int:

@@ -1,6 +1,7 @@
 """Torch port, Bluestein and the chirp-z transform: the chirp passes'
 entry points (``fft_chirp_forward_split``, B11; ``fft_chirp_inverse_split``,
-B12), ``ops/bluestein.py`` and ``ops/czt.py`` against the JAX package.
+B12; ``fft_chirp_full_split``, the two in one kernel), ``ops/bluestein.py``
+and ``ops/czt.py`` against the JAX package.
 
 The same numpy inputs go through ``fft_wgpu_tpu`` on the CPU (its Pallas
 chirp kernels in interpret mode) and through the port on CPU tensors,
@@ -8,6 +9,10 @@ where each entry point runs its kernel's plain version; the chirp-z
 transforms also against ``scipy.signal``.  The host tables must be
 bit-identical.  Tolerance: 1e-5 relative L2 (the ``assert_close`` fixture).
 """
+
+import math
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -47,7 +52,7 @@ def _np(z):
 
 def assert_no_launches():
     assert (cuda_fft.chirp_fwd_launches, cuda_fft.chirp_inv_launches,
-            cuda_fft.launches) == (0, 0, 0)
+            cuda_fft.chirp_full_launches, cuda_fft.launches) == (0, 0, 0, 0)
 
 
 # ---------------------------------------------------------------------- #
@@ -189,6 +194,128 @@ def test_chirp_inverse_grad_matches_jax(n_out, rng, assert_close):
         return (_t(w.real) * yr + _t(w.imag) * yi).sum()
 
     assert_close(cplx(_grads(tloss, x.real, x.imag)), cplx(jg))
+
+
+# ---------------------------------------------------------------------- #
+# the fused pair, fft_chirp_full_split: the JAX package's B11 -> B12
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("m", [1 << e for e in range(7, 15)])
+def test_chirp_plans_are_pow2_radices(m):
+    # the chirp kernels' passes: radices 16, 8, 4, 2 with product m, and
+    # the plans compiled into csrc/chirp_fft.cu are the planner's
+    plan = cuda_fft._mixed_radix_plan(m)
+    assert math.prod(plan) == m and set(plan) <= {16, 8, 4, 2}
+    src = (pathlib.Path(cuda_fft.__file__).parent.parent / "csrc" / "chirp_fft.cu").read_text()
+    table = re.search(r"plans\[8\]\[kPlanMax\] = \{(.*?)\};", src, re.S)[1]
+    compiled = [tuple(map(int, r.split(","))) for r in re.findall(r"\{([\d, ]+)\}", table)]
+    assert compiled[m.bit_length() - 8] == plan
+    # each pass's twiddle table: NS roots of w_(NS*R) for every pass after the
+    # first, in the plan's order and in reverse
+    for table_fn, order in ((cuda_fft._pass_roots_np, plan),
+                            (cuda_fft._pass_roots_reversed_np, plan[::-1])):
+        c, s = table_fn(m, -1)
+        ns, off = order[0], 0
+        for r in order[1:]:
+            e = np.arange(ns)
+            np.testing.assert_allclose(c[off:off + ns] + 1j * s[off:off + ns],
+                                       np.exp(-2j * np.pi * e / (ns * r)), atol=1e-7)
+            off, ns = off + ns, ns * r
+        assert off == len(c)
+
+
+FULL_CASES = [(512, 384, 256, None), (512, 256, 384, 1 / 512), (1024, 384, 640, 1 / 1024),
+              (1024, 640, 384, None), (2048, 1024, 384, 0.5), (2048, 384, 1024, 1 / 2048)]
+
+
+@pytest.mark.parametrize("m,n_in,n_out,scale", FULL_CASES)
+def test_chirp_full_matches_jax_kernels(m, n_in, n_out, scale, rng, assert_close):
+    # the JAX package's pair as Bluestein and CZT run it: B11 of sign -1,
+    # then B12 of sign +1, both in interpret mode
+    x, h, H, g = crand(rng, 2, 3, n_in), crand(rng, n_in), crand(rng, m), crand(rng, n_out)
+    Yr, Yi = j_pf.fft_chirp_forward_split(jnp.asarray(x.real), jnp.asarray(x.imag), h.real,
+                                          h.imag, m, -1, interpret=True)
+    want = cplx(j_pf.fft_chirp_inverse_split(Yr, Yi, H.real, H.imag, g.real, g.imag, n_out,
+                                             1, scale, interpret=True))
+    tabs = (h.real, h.imag, H.real, H.imag, g.real, g.imag)
+    got = cuda_fft.fft_chirp_full_split(_t(x.real), _t(x.imag), *tabs, m, n_out, scale)
+    assert got[0].shape == (2, 3, n_out)
+    assert_close(cplx(got), want)
+    ttabs = [_t(t) for t in tabs]
+    assert_close(cplx(cuda_fft.fft_chirp_full_split_reference(
+        _t(x.real), _t(x.imag), *ttabs, m, n_out, scale)), want)
+    # the plain version of the kernel's own passes (its tables, reversed plan)
+    assert_close(cplx(cuda_fft._chirp_full_passes(
+        _t(x.real), _t(x.imag), *ttabs, m, n_out, scale)), want)
+    assert_no_launches()
+
+
+@pytest.mark.parametrize("n", [526, 1031])
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_chirp_full_bluestein_tables_both_directions(n, sign, rng, assert_close):
+    # one (-1, +1) pass pair serves the DFT and its inverse: Bluestein's
+    # tables of sign s carry the direction
+    x = crand(rng, 3, n)
+    cr, ci, bfr, bfi, m = bluestein._chirp_np(n, sign)
+    got = cuda_fft.fft_chirp_full_split(_t(x.real), _t(x.imag), cr, ci, bfr, bfi, cr, ci, m,
+                                        n, 1.0 / m)
+    want = np.fft.fft(x.astype(np.complex128)) if sign < 0 else \
+        np.fft.ifft(x.astype(np.complex128)) * n
+    assert_close(cplx(got), want)
+    assert_no_launches()
+
+
+@pytest.mark.parametrize("m,n_in,n_out", [(128, 1, 67), (1024, 1000, 7), (4096, 2049, 4096),
+                                          (16384, 8191, 8191)])
+def test_chirp_full_any_length(m, n_in, n_out, rng, assert_close):
+    x, h, H, g = crand(rng, 2, n_in), crand(rng, n_in), crand(rng, m), crand(rng, n_out)
+    got = cuda_fft.fft_chirp_full_split(_t(x.real), _t(x.imag), h.real, h.imag, H.real,
+                                        H.imag, g.real, g.imag, m, n_out, 1.0 / m)
+    want = g * np.fft.ifft(np.fft.fft(x * h, n=m) * H)[:, :n_out]
+    assert_close(cplx(got), want)
+
+
+def test_chirp_full_envelope_raises():
+    z, o = torch.zeros(2, 100), np.ones(100)
+    tabs = lambda m, n_out: (o, o, np.ones(m), np.ones(m), np.ones(n_out), np.ones(n_out))  # noqa: E731
+    for m in (64, 200, 32768):  # below, not pow2, above
+        with pytest.raises(cuda_fft.Unsupported):
+            cuda_fft.fft_chirp_full_split(z, z, *tabs(m, 50), m, 50)
+    with pytest.raises(cuda_fft.Unsupported):  # n_out > m
+        cuda_fft.fft_chirp_full_split(z, z, *tabs(128, 200), 128, 200)
+    with pytest.raises(cuda_fft.Unsupported):  # n_in > m
+        cuda_fft.fft_chirp_full_split(torch.zeros(2, 200), torch.zeros(2, 200),
+                                      np.ones(200), np.ones(200), *tabs(128, 50)[2:], 128, 50)
+    with pytest.raises(ValueError, match="shape"):  # an H of the wrong length
+        cuda_fft.fft_chirp_full_split(z, z, o, o, np.ones(100), np.ones(100), o[:50], o[:50],
+                                      128, 50)
+    e = torch.zeros(0, 100)
+    assert cuda_fft.fft_chirp_full_split(e, e, *tabs(128, 50), 128, 50)[0].shape == (0, 50)
+    assert_no_launches()
+
+
+@pytest.mark.parametrize("n_in,n_out", [(384, 256), (256, 384)])
+def test_chirp_full_grad_matches_jax(n_in, n_out, rng, assert_close):
+    # the backward is the same map with the tables conjugated, h <-> g and
+    # n_in <-> n_out
+    m = 512
+    x, h, H, g = crand(rng, 4, n_in), crand(rng, n_in), crand(rng, m), crand(rng, n_out)
+    w = crand(rng, 4, n_out)
+
+    def jloss(a, b):
+        Yr, Yi = j_pf.fft_chirp_forward_split(a, b, h.real, h.imag, m, -1, interpret=True)
+        yr, yi = j_pf.fft_chirp_inverse_split(Yr, Yi, H.real, H.imag, g.real, g.imag, n_out,
+                                              1, 1.0 / m, interpret=True)
+        return jnp.sum(w.real * yr + w.imag * yi)
+
+    jg = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(x.real), jnp.asarray(x.imag))
+
+    def tloss(a, b):
+        yr, yi = cuda_fft.fft_chirp_full_split(a, b, h.real, h.imag, H.real, H.imag, g.real,
+                                               g.imag, m, n_out, 1.0 / m)
+        return (_t(w.real) * yr + _t(w.imag) * yi).sum()
+
+    assert_close(cplx(_grads(tloss, x.real, x.imag)), cplx(jg))
+    assert_no_launches()
 
 
 # ---------------------------------------------------------------------- #

@@ -2,7 +2,8 @@
 
 rows_fft (B1), ax0_fft (B2, and B3 on the axis(-3) view), rows_t_fft (B4),
 fft2f_fft (B5), r2c_fft (B6), c2r_fft (B7), big_fft (B15), gen_fft (B13),
-r2c_gen_fft (B14), chirp_fft (B11, B12), filt_fft (B9, B10), the product
+r2c_gen_fft (B14), chirp_fft (B11, B12, and the two fused: chirp_full),
+filt_fft (B9, B10), the product
 form of c2r_fft (B8), ax0_gen_fft (B2's composite range) and welch_fft
 (B16, B17, B18, B19, B20, B21, B22): values, launch counts and gradients,
 and the routes of the plan, the N-D, the real and the non-pow2 transforms,
@@ -283,7 +284,8 @@ def _counts():
             "c2r_fft": cuda_fft.c2r_launches, "big_fft": bigfft.launches,
             "gen_fft": cuda_fft.gen_launches, "r2c_gen_fft": cuda_fft.r2c_gen_launches,
             "chirp_fwd": cuda_fft.chirp_fwd_launches,
-            "chirp_inv": cuda_fft.chirp_inv_launches, "filt": cuda_fft.filt_launches,
+            "chirp_inv": cuda_fft.chirp_inv_launches,
+            "chirp_full": cuda_fft.chirp_full_launches, "filt": cuda_fft.filt_launches,
             "bank": cuda_fft.bank_launches, "c2r_prod": cuda_fft.c2r_prod_launches,
             "ax0_gen": cuda_fft.ax0_gen_launches, "welch": cuda_welch.welch_launches,
             "psd": cuda_welch.psd_launches, "csd": cuda_welch.csd_launches,
@@ -524,7 +526,28 @@ def test_chirp_kernels_match_plain_and_torch_fft(dev, e, rows):
             assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, (sign, scale)
 
 
-@pytest.mark.parametrize("entry", ["gen", "r2c_gen", "r2c_gen_pad", "chirp_fwd", "chirp_inv"])
+@pytest.mark.parametrize("e", list(range(7, 15)))
+@pytest.mark.parametrize("rows", [3, 300])
+def test_chirp_full_kernel_matches_plain_and_torch_fft(dev, e, rows):
+    m = 1 << e
+    n_in, n_out = m // 2 + 3, 3 * m // 4 + 1  # not multiples of 128
+    x, h = crand(dev, rows, n_in, seed=1), crand(dev, n_in, seed=2)
+    H, g = crand(dev, m, seed=4), crand(dev, n_out, seed=5)
+    tabs = (h.real, h.imag, H.real, H.imag, g.real, g.imag)
+    xr, xi = x.real.contiguous(), x.imag.contiguous()
+    for scale in (None, 1.0 / m):
+        k = torch.complex(*_through(lambda: cuda_fft.fft_chirp_full_split(
+            xr, xi, *tabs, m, n_out, scale), chirp_full=1))
+        p = torch.complex(*cuda_fft.fft_chirp_full_split_reference(xr, xi, *tabs, m, n_out,
+                                                                     scale))
+        q = torch.complex(*cuda_fft._chirp_full_passes(xr, xi, *tabs, m, n_out, scale))
+        y = torch.fft.ifft(torch.fft.fft(x.to(torch.complex128) * h, n=m) * H) * m
+        o = g * y[:, :n_out] * (1.0 if scale is None else scale)
+        assert rel_l2(k, p) < TOL and rel_l2(k, q) < TOL and rel_l2(k, o) < TOL, scale
+
+
+@pytest.mark.parametrize("entry", ["gen", "r2c_gen", "r2c_gen_pad", "chirp_fwd", "chirp_inv",
+                                   "chirp_full"])
 def test_grad_nonpow2_kernels_match_plain(dev, entry):
     if entry == "gen":  # forward and backward: the composite kernel
         run = _grad(8, 4095)
@@ -547,6 +570,15 @@ def test_grad_nonpow2_kernels_match_plain(dev, entry):
             t, n ** -0.5, pad_out=pad)), r2c_gen_fft=1, gen_fft=1)
         gp = grad(lambda t: cuda_fft.rfft_rows_general_split_reference(
             t, n ** -0.5, pad_out=pad))
+    elif entry == "chirp_full":  # forward and backward: the fused kernel
+        m, n = 8192, 4093
+        h, H, g = crand(dev, n, seed=6), crand(dev, m, seed=7), crand(dev, n, seed=8)
+        tabs = (h.real, h.imag, H.real, H.imag, g.real, g.imag)
+        run = _grad(4, n)
+        gk = _through(lambda: run(lambda r, i: cuda_fft.fft_chirp_full_split(
+            r, i, *tabs, m, n, 1.0 / m)), chirp_full=2)
+        gp = run(lambda r, i: cuda_fft.fft_chirp_full_split_reference(r, i, *tabs, m, n,
+                                                                        1.0 / m))
     else:  # backward: the row kernel
         m, n = 8192, 4093
         h, g = crand(dev, n if entry == "chirp_fwd" else m, seed=6), crand(dev, n, seed=7)
@@ -569,9 +601,9 @@ def test_grad_nonpow2_kernels_match_plain(dev, entry):
 NONPOW2_ROUTES = [  # (call, shape, launches), the slice's main path
     ("fft", (1024, 4095), {"gen_fft": 1}), ("ifft", (1024, 4097), {"gen_fft": 1}),
     ("plan", (2048, 1000), {"gen_fft": 1}),
-    ("fft", (1024, 4093), {"chirp_fwd": 1, "chirp_inv": 1}),
-    ("ifft", (64, 1031), {"chirp_fwd": 1, "chirp_inv": 1}),
-    ("fft", (4, 526), {"chirp_fwd": 1, "chirp_inv": 1}),
+    ("fft", (1024, 4093), {"chirp_full": 1}),
+    ("ifft", (64, 1031), {"chirp_full": 1}),
+    ("fft", (4, 526), {"chirp_full": 1}),
 ]
 
 
@@ -597,15 +629,15 @@ def test_bluestein_and_czt_routes(dev):
     x = crand(dev, 64, 4097)  # a direct call: m = 16384
     re, im = x.real.contiguous(), x.imag.contiguous()
     y = torch.complex(*_through(lambda: bluestein.fft_bluestein_split(re, im, -1),
-                                 chirp_fwd=1, chirp_inv=1))
+                                 chirp_full=1))
     assert rel_l2(y, torch.fft.fft(x)) < TOL
     x = crand(dev, 64, 4096)  # 1024 bins of a band: L = 8192
     w, a = np.exp(-2j * np.pi * 0.25 / 1024), np.exp(2j * np.pi * 0.1)
-    got = _through(lambda: ft.czt(x, m=1024, w=w, a=a), chirp_fwd=1, chirp_inv=1)
+    got = _through(lambda: ft.czt(x, m=1024, w=w, a=a), chirp_full=1)
     want = ft.czt(x.cpu(), m=1024, w=w, a=a)  # the composed path on the CPU
     assert got.device.type == "cuda" and rel_l2(got.cpu(), want) < TOL
     zf = ft.ZoomFFT(4096, [0.1, 0.35], m=1024)
-    got = _through(lambda: zf(x), chirp_fwd=1, chirp_inv=1)
+    got = _through(lambda: zf(x), chirp_full=1)
     assert rel_l2(got.cpu(), zf(x.cpu())) < TOL
     # prime 8209 needs m = 32768: the composed path, its FFTs the whole-row kernel
     y = crand(dev, 2, 8209)
@@ -835,6 +867,8 @@ def _every_kernel(dev):
         "r2c_gen_fft": lambda: cuda_fft._r2c_gen_launch(g, None, False),
         "ax0_gen": lambda: cuda_fft._ax0_launch(*planar(1000, 3), -1, None),
         "chirp_fwd": lambda: cuda_fft._chirp_fwd_launch(*planar(2, 1031), cr, ci, m, -1),
+        "chirp_full": lambda: cuda_fft._chirp_full_launch(*planar(2, 1031), cr, ci, bfr, bfi,
+                                                          cr, ci, m, 1031, 1.0 / m),
         "chirp_inv": lambda: cuda_fft._chirp_inv_launch(*planar(2, m), bfr, bfi, cr, ci, 1031,
                                                         1, 1.0 / m),
         "filt": lambda: cuda_fft._filt(re, im, hr, hi, -1, None),
