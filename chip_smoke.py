@@ -20,19 +20,23 @@ non-zero without a result line:
 1. device  — the card's name and power limit (nvidia-smi's line as it
              prints it, then the versions), TF32 off, the kernel builds, and
              ptxas's registers, stack and spills of ax0_gen_fft,
-             rows_t_fft and chirp_fft (m = 8192 and 16384);
+             rows_t_fft and chirp_fft (m = 8192 and 16384), and of every
+             instantiation of rows_fft and big_fft;
 2. kernel  — each kernel against its plain torch version and torch.fft,
              both signs, scale None and 1/n (rel-L2 <= 1e-5 each):
              rows_fft for every n in 128..16384 at rows 1 and 1000 and at
-             4096 x 4096 and 2500 x 512; ax0_fft for every n at m = 7 and
+             4096 x 4096 and 2500 x 512, through its planar entry
+             (rows_fft) and its complex64 entry (rows_fft_c64, also in
+             place); ax0_fft for every n at m = 7 and
              m = 1000 (a leading batch of 2), at the 2^22 pass-1 shape
              1024 x 4096 and at config 4's 4096 x 4096 and ragged
              4096 x 2049; rows_t_fft for every n at R = 1 and 200, without
              the outer twiddle, with the four-step's (outer_n = R*n) and
              with a non-pow2 one (3 * 2^12), and at the 2^22 pass-2 shape;
              big_fft for every n of its envelope at rows 1 and 3, and at
-             256 x 2^16; the axis(-3) pass (ax0_fft on a free view) at
-             [2, n, 7, 130] and 256^3; fft2f_fft at every plane of its
+             256 x 2^16, planar (big_fft) and complex64 (big_fft_c64);
+             the axis(-3) pass (ax0_fft on a free view) at [2, n, 7, 130]
+             and 256^3; fft2f_fft at every plane of its
              envelope, single and batched; r2c_fft and c2r_fft for every n
              at rows 3 and 1000, ragged and padded, and at 4096 x 4096;
              gen_fft and r2c_gen_fft (ragged and padded) at twenty-one
@@ -68,10 +72,14 @@ non-zero without a result line:
 3. main    — six paths, the launch counts set to 0 just before each and
              read just after: plan / fft / ifft / Forward at the 1-D sizes
              users call (row kernel; axis(-2) then transposed rows; whole
-             row), then config 4: fft2 / ifft2 and the rfft2 / irfft2 round
-             trip at 4096 x 4096, fftn / ifftn at 256^3 (fused plane, then
-             axis(-3)), then the non-pow2 path: fft / ifft / plan at the
-             JAX package's benchmark sizes (4095, 4097 and 1000 composite;
+             row; a complex64 tensor along its last axis through the
+             complex64 entries of the row and whole-row kernels, counted
+             as rows_fft_c64 and big_fft_c64 beside rows_fft and big_fft,
+             which count both entries), then config 4: fft2 / ifft2 and
+             the rfft2 / irfft2 round trip at 4096 x 4096, fftn / ifftn
+             at 256^3 (fused plane, then axis(-3)), then the non-pow2
+             path: fft / ifft / plan at the JAX package's benchmark
+             sizes (4095, 4097 and 1000 composite;
              4093 prime), a direct Bluestein call at 4097 (m = 16384),
              the two chirp passes as the JAX package calls them (B11,
              then B12) at 4093, rfft at 4095 and 1000, irfft at 4095, czt
@@ -99,17 +107,21 @@ non-zero without a result line:
              window, and numpy input, which must run on the card;
 4. grad    — gradients against the plain versions' (CPU for the N-D,
              real and non-pow2 ones): fft (row kernel; the four-step at
-             2 x 2^20; the whole row at 4 x 2^16; composite 4095 and prime
-             4093 at 64 rows, the latter chirp_full forward and back),
+             2 x 2^20; the whole row at 4 x 2^16; the row and whole-row
+             kernels through their planar entries too; composite 4095 and
+             prime 4093 at 64 rows, the latter chirp_full forward and back),
              rfft at 1005, rfft2 and batched fft2,
              SpectralFilter, fftconvolve (both inputs), the CWT plan and
              fft2 at 1080 x 1920; welch, csd (both inputs), spectrogram
              and the two-sided welch of a complex signal at 2^16 samples;
              stft, ShortTimeFFT.stft with a phase shift and the complex
              two-sided spectrogram at 2^16;
-5. times   — CUDA-event medians of each kernel, its plain version,
-             torch.fft and plan.forward at the main shapes, beside a plane
-             copy of the same bytes; fft2 at 4096 x 4096 by both routes
+5. times   — CUDA-event medians of each kernel (rows_fft and big_fft
+             in both layouts), its plain version, torch.fft and
+             plan.forward at the main shapes, beside a plane copy of the
+             same bytes; a torch.profiler breakdown of plan(4096).forward
+             and of the whole-row fft, which must run their kernel alone
+             (no split, no merge); fft2 at 4096 x 4096 by both routes
              (transposed rows twice, row then axis(-2)) and the fused plane
              at 256^3 against row then axis(-2); fftn at 512^3; the fused
              epilogues', the estimators' and the per-segment spectra's
@@ -151,11 +163,12 @@ LIBS = ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft", "fft2f_fft", "r2c_fft",
 # holds three kernels (chirp_fwd, chirp_inv and the two fused, chirp_full),
 # each with its own, filt_fft two entry points (filt, bank), c2r_fft a
 # second one (c2r_prod), welch_fft seven (welch, psd, csd, coh, c2c, spec,
-# spec_c2c).
-KERNELS = ("rows_fft", "ax0_fft", "ax3_fft", "rows_t_fft", "fft2f_fft", "r2c_fft",
-           "c2r_fft", "big_fft", "gen_fft", "r2c_gen_fft", "chirp_fwd", "chirp_inv",
-           "chirp_full", "filt", "bank", "c2r_prod", "ax0_gen", "welch", "psd", "csd", "coh",
-           "c2c", "spec", "spec_c2c")
+# spec_c2c); rows_fft and big_fft two layouts each (rows_fft_c64 and
+# big_fft_c64: their complex64 entries, counted apart too).
+KERNELS = ("rows_fft", "rows_fft_c64", "ax0_fft", "ax3_fft", "rows_t_fft", "fft2f_fft",
+           "r2c_fft", "c2r_fft", "big_fft", "big_fft_c64", "gen_fft", "r2c_gen_fft",
+           "chirp_fwd", "chirp_inv", "chirp_full", "filt", "bank", "c2r_prod", "ax0_gen",
+           "welch", "psd", "csd", "coh", "c2c", "spec", "spec_c2c")
 # Composite lengths of phase 2's sweep: factors (20, 32), (25, 40), (15, 67),
 # (23, 89), (63, 65), (17, 241), (81, 81), (100, 100), (127, 129); then one
 # for each pass type of the composite kernels' mixed-radix plan: powers of 2
@@ -239,12 +252,13 @@ def multitaper_ref(x: np.ndarray, NW: float, K: int) -> np.ndarray:
 
 def ptxas_summary(log: str) -> list:
     """One "kernel<template arguments>: registers, stack, spill stores" entry
-    per kernel of ax0_gen_fft's, rows_t_fft's and chirp_fft's nvcc -Xptxas -v
-    logs (chirp_fft's at m = 2^13 and 2^14)."""
+    per kernel of ax0_gen_fft's, rows_t_fft's, chirp_fft's, rows_fft's and
+    big_fft's nvcc -Xptxas -v logs (chirp_fft's at m = 2^13 and 2^14)."""
     out, kernel = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(ax0_gen_fft_kernel|rows_t_fft_kernel|"
-                      r"chirp_fwd_kernel|chirp_inv_kernel|chirp_full_kernel)I(\w*?)EE", line)
+                      r"chirp_fwd_kernel|chirp_inv_kernel|chirp_full_kernel|rows_fft_kernel|"
+                      r"big_fft_kernel)I(\w*?)EE", line)
         if m and m[1].startswith("chirp") and not m[2].endswith(("13", "14")):
             m = None
         if m:
@@ -354,7 +368,7 @@ def main() -> int:
           + ", ".join(f"{name} in {s:.1f} s -> {lib.name}" for name, lib, s in built),
           flush=True)
     for name, lib, _ in built:  # what ptxas reported for the redesigned kernels
-        if name in ("ax0_gen_fft", "rows_t_fft", "chirp_fft"):
+        if name in ("ax0_gen_fft", "rows_t_fft", "chirp_fft", "rows_fft", "big_fft"):
             print(f"ptxas: {name} | " + "; ".join(ptxas_summary(
                 lib.with_suffix(".log").read_text())), flush=True)
 
@@ -392,6 +406,25 @@ def main() -> int:
           lambda re, im, s, sc, _: cuda_fft._launch(re, im, s, sc),
           lambda re, im, s, sc, _: cuda_fft.fft_batched_split_reference(re, im, s, sc),
           lambda x, s, sc, _: oracle(x, s, sc))
+
+    def c64(launch):
+        """A complex64 entry as a sweep's planar run: (re, im) in and out."""
+        def run(re, im, s, sc, _):
+            y = launch(torch.complex(re, im), s, sc)
+            return y.real, y.imag
+        return run
+
+    sweep("rows_fft_c64",
+          [((rows, n), None) for n in pow2 for rows in (1, 1000)]
+          + [((4096, 4096), None), ((2500, 512), None)],
+          c64(cuda_fft._launch_c64),
+          lambda re, im, s, sc, _: cuda_fft.fft_batched_split_reference(re, im, s, sc),
+          lambda x, s, sc, _: oracle(x, s, sc))
+    for n in pow2:  # in place: the output is the input
+        x = crand(37, n)
+        plain, want = cuda_fft.fft_batched_c64_reference(x, 1, 1.0 / n), oracle(x, 1, 1.0 / n)
+        check(cuda_fft._launch_c64(x, 1, 1.0 / n, out=x) is x, "rows_fft_c64 out=x")
+        compare("rows_fft_c64", x, plain, want, f"in place 37x{n}")
     sweep("ax0_fft",
           [((2, n, m), None) for n in pow2 for m in (7, 1000)]
           + [((1024, 4096), None), ((4096, 4096), None), ((4096, 2049), None)],
@@ -411,6 +444,12 @@ def main() -> int:
           [((rows, n), None) for n in big_ns for rows in (1, 3)]
           + [((256, 1 << 16), None)],
           lambda re, im, s, sc, _: bigfft._launch(re, im, s, sc),
+          lambda re, im, s, sc, _: bigfft.fft_big_split_reference(re, im, s, sc),
+          lambda x, s, sc, _: oracle(x, s, sc))
+    sweep("big_fft_c64",
+          [((rows, n), None) for n in big_ns for rows in (1, 3)]
+          + [((256, 1 << 16), None)],
+          c64(bigfft._launch_c64),
           lambda re, im, s, sc, _: bigfft.fft_big_split_reference(re, im, s, sc),
           lambda x, s, sc, _: oracle(x, s, sc))
     sweep("ax3_fft",
@@ -874,9 +913,11 @@ def main() -> int:
                 "ax0_gen": cuda_fft.ax0_gen_launches, "welch": cuda_welch.welch_launches,
                 "psd": cuda_welch.psd_launches, "csd": cuda_welch.csd_launches,
                 "coh": cuda_welch.coh_launches, "c2c": cuda_welch.c2c_launches,
-                "spec": cuda_welch.spec_launches, "spec_c2c": cuda_welch.spec_c2c_launches}
+                "spec": cuda_welch.spec_launches, "spec_c2c": cuda_welch.spec_c2c_launches,
+                "rows_fft_c64": cuda_fft.c64_launches, "big_fft_c64": bigfft.c64_launches}
 
     def reset_counts():
+        cuda_fft.c64_launches = bigfft.c64_launches = 0
         cuda_fft.launches = cuda_fft.ax0_launches = cuda_fft.ax3_launches = 0
         cuda_fft.rows_t_launches = cuda_fft.fft2f_launches = 0
         cuda_fft.r2c_launches = cuda_fft.c2r_launches = bigfft.launches = 0
@@ -901,16 +942,18 @@ def main() -> int:
         return out
 
     two_pass = {"ax0_fft": 1, "rows_t_fft": 1}
+    # a complex64 tensor along its last axis: the complex64 entry, no split
+    row, whole = {"rows_fft": 1, "rows_fft_c64": 1}, {"big_fft": 1, "big_fft_c64": 1}
     reset_counts()  # path 1: the 1-D main path and large N
 
     x = crand(4096, 4096)  # BASELINE config 2: 128 MiB of complex64
     p = ft.plan(4096)
-    X = through("plan(4096).forward", lambda: p.forward(x), rows_fft=1)
+    X = through("plan(4096).forward", lambda: p.forward(x), **row)
     errs["plan4096_fwd"] = check_close(X, torch.fft.fft(x), "plan(4096).forward")
-    xi = through("plan(4096).inverse", lambda: p.inverse(X), rows_fft=1)
+    xi = through("plan(4096).inverse", lambda: p.inverse(X), **row)
     errs["plan4096_roundtrip"] = check_close(xi, x, "plan(4096) inverse round trip")
     xu = through("plan(4096).inverse_unnormalized",
-                 lambda: p.inverse_unnormalized(X), rows_fft=1)
+                 lambda: p.inverse_unnormalized(X), **row)
     errs["plan4096_onlyinv_norm"] = check_close(
         p.normalize(xu), x, "plan(4096) inverse_unnormalized + normalize")
     X0 = through("plan(4096).forward axis=0", lambda: p.forward(x, axis=0), ax0_fft=1)
@@ -919,15 +962,15 @@ def main() -> int:
     del x, X, xi, xu, X0
 
     x = crand(2500, 512)  # the README quick-start shape
-    X = through("fft 2500x512", lambda: ft.fft(x), rows_fft=1)
+    X = through("fft 2500x512", lambda: ft.fft(x), **row)
     errs["fft_2500x512"] = check_close(X, torch.fft.fft(x), "fft 2500x512")
     errs["ifft_2500x512"] = check_close(
-        through("ifft 2500x512", lambda: ft.ifft(X), rows_fft=1), x, "ifft 2500x512")
-    Xf = through("Forward(512).proc", lambda: ft.Forward(512).proc(x), rows_fft=1)
+        through("ifft 2500x512", lambda: ft.ifft(X), **row), x, "ifft 2500x512")
+    Xf = through("Forward(512).proc", lambda: ft.Forward(512).proc(x), **row)
     errs["Forward512"] = check_close(Xf, torch.fft.fft(x), "Forward(512).proc")
 
     x1 = crand(1, 1024)  # BASELINE config 1, against the f64 naive DFT
-    X1 = through("fft 1x1024", lambda: ft.fft(x1), rows_fft=1)
+    X1 = through("fft 1x1024", lambda: ft.fft(x1), **row)
     want = torch.from_numpy(ft.naive_dft(x1.cpu().numpy()))
     errs["fft_1x1024_naive"] = check_close(X1.cpu(), want, "fft 1x1024 vs naive_dft")
 
@@ -945,7 +988,7 @@ def main() -> int:
         p.normalize(xu), x, "plan(2^22) inverse_unnormalized + normalize")
     del x, X, xu
     for rows, e, kernels in ((4, 22, two_pass), (1, 20, two_pass),
-                             (256, 16, {"big_fft": 1}), (1, 17, {"big_fft": 1})):
+                             (256, 16, whole), (1, 17, whole)):
         x = crand(rows, 1 << e)
         X = through(f"fft {rows}x2^{e}", lambda: ft.fft(x), **kernels)
         errs[f"fft_{rows}x2^{e}"] = check_close(X, torch.fft.fft(x), f"fft {rows}x2^{e}")
@@ -961,7 +1004,7 @@ def main() -> int:
         raise RuntimeError("check failed: executor='bigfft' beyond its envelope "
                            "did not raise Unsupported")
     path1 = counts()
-    for name in ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft"):
+    for name in ("rows_fft", "rows_fft_c64", "ax0_fft", "rows_t_fft", "big_fft", "big_fft_c64"):
         check(path1[name] > 0, f"1-D main path launched no {name} kernel")
     print(f"main: 1-D path, {len(errs)} checks ok, launches {path1} | "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
@@ -1319,7 +1362,8 @@ def main() -> int:
     # B2-composite, the estimators' path for B16-B19 and B21, the
     # per-segment path for B20 and B22, config 4 for the rest); each path's
     # counts are on its line.
-    path_of = {"rows_fft": path1, "ax0_fft": path1, "rows_t_fft": path1, "big_fft": path1,
+    path_of = {"rows_fft": path1, "rows_fft_c64": path1, "ax0_fft": path1, "rows_t_fft": path1,
+               "big_fft": path1, "big_fft_c64": path1,
                "gen_fft": path3, "r2c_gen_fft": path3, "chirp_fwd": path3,
                "chirp_inv": path3, "chirp_full": path3, "filt": path5, "bank": path5,
                "c2r_prod": path5,
@@ -1345,13 +1389,21 @@ def main() -> int:
         return stockham.fft_last_axis(a, b, -1)
 
     gerrs = {}
-    for shape, kernels in (((64, 4096), {"rows_fft": 2}),
-                           ((2, 1 << 20), {"ax0_fft": 2, "rows_t_fft": 1, "rows_fft": 1}),
-                           ((4, 1 << 16), {"big_fft": 2})):
-        gk = through(f"grad {shape}", lambda: grads(via_fft, shape, SEED + 1), **kernels)
+    # fft of complex64: the complex64 entries forward and back; the planar
+    # entries of the row and whole-row kernels called directly
+    for what, shape, transform, kernels in (
+            ("", (64, 4096), via_fft, {"rows_fft": 2, "rows_fft_c64": 2}),
+            ("", (2, 1 << 20), via_fft, {"ax0_fft": 2, "rows_t_fft": 1, "rows_fft": 1}),
+            ("", (4, 1 << 16), via_fft, {"big_fft": 2, "big_fft_c64": 2}),
+            (" planar", (64, 4096), lambda a, b: cuda_fft.fft_batched_split(a, b, -1),
+             {"rows_fft": 2}),
+            (" planar", (4, 1 << 16), lambda a, b: bigfft.fft_big_split(a, b, -1),
+             {"big_fft": 2})):
+        gk = through(f"grad {shape}{what}", lambda: grads(transform, shape, SEED + 1),
+                     **kernels)
         gp = grads(plain, shape, SEED + 1)
-        gerrs[f"{shape[0]}x{shape[1]}"] = check_close(
-            gk, gp, f"grad of sum(w*|fft(x)|^2) {shape} kernels vs plain")
+        gerrs[f"{shape[0]}x{shape[1]}{what}"] = check_close(
+            gk, gp, f"grad of sum(w*|fft(x)|^2) {shape}{what} kernels vs plain")
 
     def grads_nd(fn, shape, seed, device):
         """d/dx of sum(w*|fn(x)|^2) for a real (rfft2, rfft) or complex input x."""
@@ -1457,7 +1509,9 @@ def main() -> int:
         pn = ft.plan(n)
         times[f"rows_fft {rows}x{n}"] = time_in_turns({
             "kernel": lambda: cuda_fft._launch(re, im, -1, None),
+            "kernel_c64": lambda: cuda_fft._launch_c64(x, -1, None),
             "plain": lambda: cuda_fft.fft_batched_split_reference(re, im, -1),
+            "plain_c64": lambda: cuda_fft.fft_batched_c64_reference(x, -1),
             "torch.fft": lambda: torch.fft.fft(x),
             "plan.forward": lambda: pn.forward(x),
         })
@@ -1486,7 +1540,9 @@ def main() -> int:
     re, im = planes(x)
     times["big_fft 256x2^16"] = time_in_turns({
         "kernel": lambda: bigfft._launch(re, im, -1, None),
+        "kernel_c64": lambda: bigfft._launch_c64(x, -1, None),
         "plain": lambda: bigfft.fft_big_split_reference(re, im, -1),
+        "plain_c64": lambda: bigfft.fft_big_c64_reference(x, -1),
         "torch.fft": lambda: torch.fft.fft(x),
         "copy": plane_copy(re, im),
     }, reps=20)
@@ -1694,8 +1750,9 @@ def main() -> int:
 
     def breakdown(fn, names, reps=20):
         """Device ms per call of each kernel in ``names`` and of the rest
-        (the facade's split and merge, pads), from a torch.profiler window;
-        idle is 1 - device busy / the CUDA-event median of a call."""
+        (the facade's split and merge, pads), and the device launches per
+        call of each part, from a torch.profiler window; idle is 1 - device
+        busy / the CUDA-event median of a call."""
         from torch.profiler import ProfilerActivity, profile
 
         event_ms = time_ms(fn, reps)
@@ -1704,15 +1761,28 @@ def main() -> int:
                 fn()
             torch.cuda.synchronize()
         parts = dict.fromkeys(names + ("other",), 0.0)
+        n_launch = dict.fromkeys(names + ("other",), 0)
         for e in prof.events():
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
-            parts[kernel_part(e.name, names)] += e.time_range.elapsed_us() / 1e3 / reps
+            part = kernel_part(e.name, names)
+            parts[part] += e.time_range.elapsed_us() / 1e3 / reps
+            n_launch[part] += 1
         busy = sum(parts.values())
         check(busy > 0, "the profiler saw no device time")
-        return {"events": event_ms, **parts, "idle": 1.0 - busy / event_ms}
+        return {"events": event_ms, **parts, "idle": 1.0 - busy / event_ms,
+                **{f"{k} launches": v / reps for k, v in n_launch.items()}}
 
     profiles = {}
+    # the 1-D main path on complex64: its kernel alone, no split or merge
+    for rows, n, kernel in ((4096, 4096, "rows_fft"), (256, 1 << 16, "big_fft")):
+        x = crand(rows, n)
+        pn = ft.plan(n)
+        call = f"plan({n}).forward {rows}x{n}"
+        profiles[call] = breakdown(lambda: pn.forward(x), (kernel,))
+        got = profiles[call]
+        check(got["other launches"] == 0 and got[f"{kernel} launches"] == 1,
+              f"{call}: not its kernel alone, once a call: {got}")
     for rows, n in ((1024, 4095), (1024, 4097), (2048, 1000)):
         x = crand(rows, n)
         profiles[f"fft {rows}x{n}"] = breakdown(lambda: ft.fft(x), ("gen_fft",))
@@ -1879,8 +1949,13 @@ def main() -> int:
     c2c = 16  # bytes per point of a planar complex64 row, read and written
     r2c = lambda n, rows: (4 * n + 8 * (n // 2 + 1)) * rows  # noqa: E731
     print(json.dumps({"kernels": [
+        # rows_fft and big_fft through each of their two entries (the
+        # planar one, and the complex64 one of the 1-D main path)
         entry("rows_fft", "rows_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:946",
               "rows_fft 4096x4096", c2c * 4096 * 4096, fft_flops(4096, 4096)),
+        entry("rows_fft_c64", "rows_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:946",
+              "rows_fft 4096x4096", c2c * 4096 * 4096, fft_flops(4096, 4096),
+              ms="kernel_c64", plain="plain_c64"),
         entry("ax0_fft", "ax0_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1180",
               "ax0_fft 1024x4096", c2c * 1024 * 4096, fft_flops(1024, 4096)),
         entry("ax3_fft", "ax0_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1342",
@@ -1895,6 +1970,9 @@ def main() -> int:
               "c2r_fft 4096x4096", r2c(4096, 4096), rfft_flops(4096, 4096)),
         entry("big_fft", "big_fft.cu", "fft_wgpu_tpu/ops/bigfft.py:139",
               "big_fft 256x2^16", c2c * 256 * 65536, fft_flops(65536, 256)),
+        entry("big_fft_c64", "big_fft.cu", "fft_wgpu_tpu/ops/bigfft.py:139",
+              "big_fft 256x2^16", c2c * 256 * 65536, fft_flops(65536, 256),
+              ms="kernel_c64", plain="plain_c64"),
         entry("gen_fft", "gen_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2865",
               "gen_fft 1024x4095", c2c * 1024 * 4095, fft_flops(4095, 1024)),
         entry("r2c_gen_fft", "r2c_gen_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2970",

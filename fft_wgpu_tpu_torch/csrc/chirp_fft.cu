@@ -25,7 +25,9 @@
 // (8192 = 16*8*8*8: four passes of radix-16 and radix-8 butterflies held
 // in registers, where radix-4 passes take seven), compiled in for each m
 // (mixed_fft_fixed: every stride, mask and trip count a constant), with
-// each pass's twiddles in a table of its own (_pass_roots_np).  The first
+// each pass's twiddles in a table of its own (_pass_roots_np); the plan
+// table (plan_radix) and the padded shared row (PadShared) are
+// mixed_fft.cuh's, shared with the row kernels.  The first
 // pass loads through ProductIn: x[k]*h[k] for k < n_in and zeros beyond
 // (the zero-pad is never written to device memory).  ChirpOut stores only
 // the k < n_out outputs, as scale*y[k]*g[k].
@@ -64,28 +66,6 @@
 namespace {
 
 using namespace fftk;
-
-// A row in shared memory: (re, im) pairs with one pad pair after every 16.
-// A pass at NS = 1 (a plan's first, radix 16 or 8) stores a butterfly's R
-// outputs at stride R across the lanes: unpadded, a half-warp's 8-byte
-// stores hit 32/R pairs of banks (16-way conflicts at R = 16); padded, all
-// 32 banks.  A half-warp's run of 16 consecutive points stays
-// conflict-free.
-__host__ __device__ constexpr int padded_len(int m) { return m + m / 16; }
-__device__ __forceinline__ int padded(int k) { return k + (k >> 4); }
-
-struct PadShared {
-  float2* p;
-  static constexpr bool kShared = true;
-  __device__ __forceinline__ void load(int k, float& a, float& b) const {
-    const float2 v = p[padded(k)];
-    a = v.x;
-    b = v.y;
-  }
-  __device__ __forceinline__ void store(int k, float a, float b) const {
-    p[padded(k)] = make_float2(a, b);
-  }
-};
 
 // The row of m points in device memory, written by chirp_fwd's last pass;
 // nothing for a row past the last.
@@ -181,31 +161,6 @@ struct ChirpRow {
     }
   }
 };
-
-// The plan of each m = 2^LOG2M, _mixed_radix_plan(m) (16*8*8*8 at 8192),
-// compiled into the kernels: radix i, 0 past the last pass.  The host side
-// builds its twiddle tables from the same plan (tests hold the two equal).
-constexpr int kPlanMax = 4;
-__host__ __device__ constexpr int plan_radix(int log2m, int i) {
-  constexpr int plans[8][kPlanMax] = {{16, 8}, {16, 16}, {8, 8, 8}, {16, 8, 8}, {16, 16, 8},
-                                      {16, 16, 16}, {16, 8, 8, 8}, {16, 16, 8, 8}};
-  return plans[log2m - 7][i];
-}
-
-// The passes of m = 2^LOG2M's plan, row.src() -> ... -> row.dst().
-template <int SIGN, int LOG2M, class Row>
-__device__ __forceinline__ void plan_fft(const Row& row, const float2* __restrict__ tw) {
-  constexpr int M = 1 << LOG2M;
-  constexpr int r0 = plan_radix(LOG2M, 0), r1 = plan_radix(LOG2M, 1);
-  constexpr int r2 = plan_radix(LOG2M, 2), r3 = plan_radix(LOG2M, 3);
-  if constexpr (r2 == 0) {
-    mixed_fft_fixed<SIGN, M, r0, r1>(row, tw);
-  } else if constexpr (r3 == 0) {
-    mixed_fft_fixed<SIGN, M, r0, r1, r2>(row, tw);
-  } else {
-    mixed_fft_fixed<SIGN, M, r0, r1, r2, r3>(row, tw);
-  }
-}
 
 // chirp_full's turn from the first transform (sign SIGN) to the second:
 // the first's last pass (radix R at NS = M/R; its roots at tw[OFF + j]),

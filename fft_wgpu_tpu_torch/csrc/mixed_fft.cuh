@@ -1,7 +1,12 @@
 // Mixed-radix Stockham passes over a row in shared memory, for the
 // composite-length kernels (gen_fft.cu, C2C rows; r2c_gen_fft.cu, R2C rows;
 // ax0_gen_fft.cu, C2C columns) and, with the plan fixed at compile time
-// (mixed_fft_fixed), the power-of-two chirp passes (chirp_fft.cu).
+// (mixed_fft_fixed; plan_fft for the power-of-two lengths 2^7 .. 2^14 of
+// the one compiled plan table, plan_radix), the power-of-two kernels: the
+// chirp passes (chirp_fft.cu), the row kernel (rows_fft.cu) and the
+// whole-row kernel's per-block transform (big_fft.cu), which hold each row
+// in shared memory as interleaved (re, im) pairs with a pad pair after
+// every 16 (PadShared).
 //
 // A transform of N points runs the passes of a plan, N = R_0 * R_1 * ...,
 // made on the host by ops/cuda_fft.py::_mixed_radix_plan: hard-coded
@@ -548,6 +553,56 @@ __device__ __forceinline__ void fixed_passes(const Src& src, const Row& row,
 template <int SIGN, int N, int... RS, class Row>
 __device__ __forceinline__ void mixed_fft_fixed(const Row& row, const float2* __restrict__ tw) {
   fixed_passes<SIGN, N, 1, 0, RS...>(row.src(), row, tw);
+}
+
+// A row in shared memory: (re, im) pairs with one pad pair after every 16.
+// A pass at NS = 1 (a plan's first, radix 16 or 8) stores a butterfly's R
+// outputs at stride R across the lanes: unpadded, a half-warp's 8-byte
+// stores hit 32/R pairs of banks (16-way conflicts at R = 16); padded, all
+// 32 banks.  A half-warp's run of 16 consecutive points stays
+// conflict-free.
+__host__ __device__ constexpr int padded_len(int m) { return m + m / 16; }
+__device__ __forceinline__ int padded(int k) { return k + (k >> 4); }
+
+struct PadShared {
+  float2* p;
+  static constexpr bool kShared = true;
+  __device__ __forceinline__ void load(int k, float& a, float& b) const {
+    const float2 v = p[padded(k)];
+    a = v.x;
+    b = v.y;
+  }
+  __device__ __forceinline__ void store(int k, float a, float b) const {
+    p[padded(k)] = make_float2(a, b);
+  }
+};
+
+// The plan of each power of two m = 2^LOG2M, 2^7 .. 2^14, compiled into the
+// kernels that include this header: radix i, 0 past the last pass.  It is
+// ops/cuda_fft.py::_mixed_radix_plan(m) (16*8*8*8 at 8192; only the radices
+// 16 and 8, so a thread holds 16 points in every pass at m/16 threads a
+// row), and the host builds each pass's twiddle table from the same plan
+// (_pass_roots_np; tests hold the two equal).
+constexpr int kPlanMax = 4;
+__host__ __device__ constexpr int plan_radix(int log2m, int i) {
+  constexpr int plans[8][kPlanMax] = {{16, 8}, {16, 16}, {8, 8, 8}, {16, 8, 8}, {16, 16, 8},
+                                      {16, 16, 16}, {16, 8, 8, 8}, {16, 16, 8, 8}};
+  return plans[log2m - 7][i];
+}
+
+// The passes of m = 2^LOG2M's plan, row.src() -> ... -> row.dst().
+template <int SIGN, int LOG2M, class Row>
+__device__ __forceinline__ void plan_fft(const Row& row, const float2* __restrict__ tw) {
+  constexpr int M = 1 << LOG2M;
+  constexpr int r0 = plan_radix(LOG2M, 0), r1 = plan_radix(LOG2M, 1);
+  constexpr int r2 = plan_radix(LOG2M, 2), r3 = plan_radix(LOG2M, 3);
+  if constexpr (r2 == 0) {
+    mixed_fft_fixed<SIGN, M, r0, r1>(row, tw);
+  } else if constexpr (r3 == 0) {
+    mixed_fft_fixed<SIGN, M, r0, r1, r2>(row, tw);
+  } else {
+    mixed_fft_fixed<SIGN, M, r0, r1, r2, r3>(row, tw);
+  }
 }
 
 // ---------------------------------------------------------------------- //

@@ -1,4 +1,5 @@
-// Batched complex-to-complex FFT along the last axis, one row per block.
+// Batched complex-to-complex FFT along the last axis, planar float32 or
+// interleaved complex64 rows.
 //
 // Replaces the TPU kernel fft_wgpu_tpu/ops/pallas_fft.py::_fft_batched_core
 // (its one pl.pallas_call over _kernel_rows_bal, _kernel_rows_bal_pipe,
@@ -7,72 +8,176 @@
 //
 //     X[k] = scale * sum_m x[m] * exp(sign * 2*pi*i * k*m / n)
 //
-// in natural order, planar float32 (re, im) in and out.
+// in natural order, from and to device memory in either of two layouts:
+// planar (re, im) float32 planes (rows_fft_f32) or interleaved complex64,
+// one 8-byte (re, im) pair a point (rows_fft_c64, a torch complex64
+// tensor as it lies, so a complex caller needs no split and no merge).
 //
 // What bounds it: device memory.  Each point is read once and written once,
-// 16 bytes of planar float32, against about 5*log2(n) flops, well under the
-// card's float32 flop-per-byte balance (an H100 SXM has 3.35 TB/s of device
-// memory for 67 TFLOP/s of float32 on the CUDA cores, data sheet).  One row
-// per block keeps every intermediate out of device memory, as the
-// VMEM-resident TPU kernel did: the first pass reads the row from device
-// memory into registers, the passes in between go through the row held in
-// dynamic shared memory (2 * n * 4 bytes, 128 KB at n = 16384), and the last
-// pass stores from registers to device memory with the scale folded in.
+// 16 bytes, against about 5*log2(n) flops, well under the card's float32
+// flop-per-byte balance (an H100 SXM has 3.35 TB/s of device memory for 67
+// TFLOP/s of float32 on the CUDA cores, data sheet): 4096 x 4096 needs
+// 0.080 ms.  So every intermediate stays on chip: the first pass reads the
+// row from device memory into registers, the passes in between go through
+// the row held in shared memory, and the last pass stores from registers to
+// device memory with the scale folded in.
 //
-// A ping-pong pair of shared buffers would need 256 KB at n = 16384, more
-// than the 227 KB a block may hold, so the row lives in one buffer: each
-// pass reads all of its radix-r inputs into registers, synchronises, and
-// then writes the Stockham autosort positions.  Because a block has read its
-// whole row before it stores any of it, the output may alias the input (the
-// plan's donate=True runs in place).
+// The passes are mixed_fft.cuh's on the plan compiled in for each n
+// (plan_fft; 4096 = 16*16*16: three radix-16 passes), with each pass's
+// twiddles in a table of its own read by consecutive lanes (the host's
+// ops/cuda_fft.py::_pass_roots_np), and both signs compiled.  The row sits
+// in shared memory as padded interleaved pairs (PadShared: one 8-byte access
+// a point, no bank conflict in the stride-R stores of the first pass), 34 KB
+// at n = 4096, 136 KB at 16384.  Every radix of the plan is 16 or 8, so
+// with n/16 threads a row each thread holds 16 points (one radix-16 or two
+// radix-8 butterflies) in every pass; a block holds 128 / (n/16) rows up to
+// n = 1024 (one per threadIdx.y) and one row above.  Each n has its own
+// launch bound (RowsShape): blocks of 128 or 256 threads keep up to 80
+// registers a thread, 512 and 1024 threads 64.
 //
-// The passes are those of stockham.cuh: radix 4, with one radix-2 pass
-// first when log2(n) is odd, on the CUDA cores in float32 FMAs.  Twiddles
-// come from a per-(n, sign) float32 table of the n-th roots of unity
-// generated in float64 on the host.
+// A pass that reads and writes shared memory reads all of its inputs into
+// registers, synchronises, and then writes; because a block has read its
+// whole row before it stores any of it, the output may alias the input in
+// either layout (the plan's donate=True runs in place).
 
 #include <cuda_runtime.h>
 
-#include "stockham.cuh"
+#include "mixed_fft.cuh"
 
 namespace {
 
 using namespace fftk;
 
-// The output may alias the input, so the row pointers carry no __restrict__.
+// The launch shape of n = 2^LOG2N: threads a row (16 points each), rows a
+// block, and the blocks an SM that the launch bound asks registers for.
 template <int LOG2N>
-__global__ void __launch_bounds__(threads_for(LOG2N))
-rows_fft_kernel(const float* in_re, const float* in_im, float* out_re,
-                float* out_im, const float2* __restrict__ tw, float sign,
-                float scale) {
-  constexpr int N = 1 << LOG2N;
-  constexpr int T = threads_for(LOG2N);
-  extern __shared__ float smem[];
-  float* sr = smem;
-  float* si = smem + N;
-  const size_t off = static_cast<size_t>(blockIdx.x) * N;
-  fft_passes<LOG2N, T>(GlobalIn{in_re + off, in_im + off}, Shared{sr, si},
-                       GlobalOut{out_re + off, out_im + off, scale}, tw, sign);
+struct RowsShape {
+  static constexpr int kThreads = (1 << LOG2N) / 16;
+  static constexpr int kRows = kThreads >= 128 ? 1 : 128 / kThreads;
+  static constexpr int kBlock = kThreads * kRows;
+  static constexpr int kMinBlocks = kBlock <= 128 ? 6 : kBlock == 256 ? 3 : 1024 / kBlock;
+  static constexpr int kSmem = kRows * padded_len(1 << LOG2N) * static_cast<int>(sizeof(float2));
+};
+
+struct RowsArgs {
+  const float* in_re;  // planar layout
+  const float* in_im;
+  float* out_re;
+  float* out_im;
+  const float2* in;  // interleaved layout
+  float2* out;
+  const float2* tw;  // _pass_roots_np(n, sign)
+  long long rows;
+  float scale;
+};
+
+// The row in device memory, interleaved: read by the first pass.  No
+// __restrict__: the output may alias the input.
+struct C64In {
+  const float2* p;
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void load(int k, float& a, float& b) const {
+    const float2 v = p[k];
+    a = v.x;
+    b = v.y;
+  }
+};
+
+// The row in device memory, written by the last pass with the scale folded
+// in; nothing for a row past the last.
+struct C64Out {
+  float2* p;
+  float scale;
+  bool valid;
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void store(int k, float a, float b) const {
+    if (valid) p[k] = make_float2(a * scale, b * scale);
+  }
+};
+
+struct PlanarOut {
+  float* r;
+  float* i;
+  float scale;
+  bool valid;
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void store(int k, float a, float b) const {
+    if (!valid) return;
+    r[k] = a * scale;
+    i[k] = b * scale;
+  }
+};
+
+// This thread's row (one per threadIdx.y) and its source, buffer and sink,
+// built where a pass needs them.  A row past the last reads row 0 and
+// stores nothing.
+template <int LOG2N, bool C64>
+struct RowsRow {
+  const RowsArgs& g;
+  static constexpr int N = 1 << LOG2N;
+  __device__ __forceinline__ long long row() const {
+    return static_cast<long long>(blockIdx.x) * blockDim.y + threadIdx.y;
+  }
+  __device__ __forceinline__ bool valid() const { return row() < g.rows; }
+  __device__ __forceinline__ size_t off() const {
+    return static_cast<size_t>(valid() ? row() : 0) * N;
+  }
+  __device__ __forceinline__ PadShared shared() const {
+    extern __shared__ float2 smem[];
+    return PadShared{smem + threadIdx.y * padded_len(N)};
+  }
+  __device__ __forceinline__ auto src() const {
+    if constexpr (C64) {
+      return C64In{g.in + off()};
+    } else {
+      return GlobalIn{g.in_re + off(), g.in_im + off()};
+    }
+  }
+  __device__ __forceinline__ auto dst() const {
+    if constexpr (C64) {
+      return C64Out{g.out + off(), g.scale, valid()};
+    } else {
+      return PlanarOut{g.out_re + off(), g.out_im + off(), g.scale, valid()};
+    }
+  }
+};
+
+template <int SIGN, int LOG2N, bool C64>
+__global__ void __launch_bounds__(RowsShape<LOG2N>::kBlock, RowsShape<LOG2N>::kMinBlocks)
+rows_fft_kernel(const __grid_constant__ RowsArgs g) {
+  plan_fft<SIGN, LOG2N>(RowsRow<LOG2N, C64>{g}, g.tw);
 }
 
-template <int LOG2N>
-cudaError_t launch(const void* in_re, const void* in_im, void* out_re,
-                   void* out_im, const void* tw, long long rows, float sign,
-                   float scale, cudaStream_t stream) {
-  constexpr int N = 1 << LOG2N;
-  constexpr int smem = 2 * N * static_cast<int>(sizeof(float));
-  if constexpr (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rows_fft_kernel<LOG2N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+template <int LOG2N, bool C64>
+cudaError_t launch(int sign, const RowsArgs& g, cudaStream_t stream) {
+  using S = RowsShape<LOG2N>;
+  auto* kernel = sign < 0 ? rows_fft_kernel<-1, LOG2N, C64> : rows_fft_kernel<1, LOG2N, C64>;
+  const long long blocks = (g.rows + S::kRows - 1) / S::kRows;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  if constexpr (S::kSmem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
     if (e != cudaSuccess) return e;
   }
-  rows_fft_kernel<LOG2N><<<static_cast<unsigned>(rows), threads_for(LOG2N),
-                           smem, stream>>>(
-      static_cast<const float*>(in_re), static_cast<const float*>(in_im),
-      static_cast<float*>(out_re), static_cast<float*>(out_im),
-      static_cast<const float2*>(tw), sign, scale);
+  kernel<<<static_cast<unsigned>(blocks), dim3(S::kThreads, S::kRows), S::kSmem, stream>>>(g);
   return cudaGetLastError();
+}
+
+template <bool C64>
+int dispatch(const RowsArgs& g, int log2n, int sign, void* stream) {
+  if (g.rows < 1 || (sign != 1 && sign != -1)) return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (log2n) {
+    case 7: return launch<7, C64>(sign, g, s);
+    case 8: return launch<8, C64>(sign, g, s);
+    case 9: return launch<9, C64>(sign, g, s);
+    case 10: return launch<10, C64>(sign, g, s);
+    case 11: return launch<11, C64>(sign, g, s);
+    case 12: return launch<12, C64>(sign, g, s);
+    case 13: return launch<13, C64>(sign, g, s);
+    case 14: return launch<14, C64>(sign, g, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -80,27 +185,26 @@ cudaError_t launch(const void* in_re, const void* in_im, void* out_re,
 extern "C" {
 
 // Transforms `rows` contiguous rows of n = 2^log2n planar float32 points.
-// tw holds n interleaved (cos, sin) float32 pairs of exp(sign*2pi*i*m/n).
-// Launches on `stream` and returns cudaGetLastError() (0 = ok).
-int rows_fft_f32(const void* in_re, const void* in_im, void* out_re,
-                 void* out_im, const void* tw, long long rows, int log2n,
+// tw holds the roots of exp(sign*2pi*i/n) that the passes of n's plan read
+// (_pass_roots_np: interleaved (cos, sin) float32 pairs).  The output may
+// alias the input.  Launches on `stream` and returns cudaGetLastError()
+// (0 = ok).
+int rows_fft_f32(const void* in_re, const void* in_im, void* out_re, void* out_im,
+                 const void* tw, long long rows, int log2n, int sign, float scale,
+                 void* stream) {
+  const RowsArgs g{static_cast<const float*>(in_re), static_cast<const float*>(in_im),
+                   static_cast<float*>(out_re), static_cast<float*>(out_im), nullptr,
+                   nullptr, static_cast<const float2*>(tw), rows, scale};
+  return dispatch<false>(g, log2n, sign, stream);
+}
+
+// The same over interleaved complex64 rows: (re, im) float32 pairs, 8-byte
+// aligned.  The output may alias the input.
+int rows_fft_c64(const void* in, void* out, const void* tw, long long rows, int log2n,
                  int sign, float scale, void* stream) {
-  if (rows < 1 || rows > 2147483647LL || (sign != 1 && sign != -1)) {
-    return cudaErrorInvalidValue;
-  }
-  const auto s = static_cast<cudaStream_t>(stream);
-  const float sg = static_cast<float>(sign);
-  switch (log2n) {
-    case 7: return launch<7>(in_re, in_im, out_re, out_im, tw, rows, sg, scale, s);
-    case 8: return launch<8>(in_re, in_im, out_re, out_im, tw, rows, sg, scale, s);
-    case 9: return launch<9>(in_re, in_im, out_re, out_im, tw, rows, sg, scale, s);
-    case 10: return launch<10>(in_re, in_im, out_re, out_im, tw, rows, sg, scale, s);
-    case 11: return launch<11>(in_re, in_im, out_re, out_im, tw, rows, sg, scale, s);
-    case 12: return launch<12>(in_re, in_im, out_re, out_im, tw, rows, sg, scale, s);
-    case 13: return launch<13>(in_re, in_im, out_re, out_im, tw, rows, sg, scale, s);
-    case 14: return launch<14>(in_re, in_im, out_re, out_im, tw, rows, sg, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+  const RowsArgs g{nullptr, nullptr, nullptr, nullptr, static_cast<const float2*>(in),
+                   static_cast<float2*>(out), static_cast<const float2*>(tw), rows, scale};
+  return dispatch<true>(g, log2n, sign, stream);
 }
 
 const char* rows_fft_error_string(int err) {

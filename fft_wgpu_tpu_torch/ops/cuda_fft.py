@@ -1,8 +1,9 @@
 """FFT kernels on Hopper: the port's counterpart of ``ops/pallas_fft.py``
 for fourteen of its entry points, and one fused pair of them.
 
-* ``fft_batched_split`` — rows along the last axis, ``csrc/rows_fft.cu``
-  (one thread block per row, the whole row in shared memory);
+* ``fft_batched_split`` / ``fft_batched_c64`` — rows along the last axis,
+  planar or complex64 as it lies, ``csrc/rows_fft.cu`` (the compiled pow2
+  passes of ``mixed_fft.cuh``, the whole row in shared memory);
 * ``fft_axis0_split`` — along axis -2 of ``[..., n, m]`` (a tile of
   neighbouring columns per block): ``csrc/ax0_fft.cu`` for pow2 n,
   ``csrc/ax0_gen_fft.cu`` (the mixed-radix passes of ``mixed_fft.cuh`` on
@@ -54,7 +55,8 @@ from . import stockham
 
 __all__ = ["Unsupported", "FUSED_MIN_N", "FUSED_MAX_N", "FFT2F_MAX_ELEMS",
            "GEN_MIN_N", "GEN_MAX_FACTOR",
-           "fft_batched_split", "fft_batched_split_reference",
+           "fft_batched_split", "fft_batched_split_reference", "fft_batched_c64",
+           "fft_batched_c64_reference",
            "fft_axis0_split", "fft_axis0_split_reference", "fft_axis3_split",
            "fft_axis3_split_reference", "fft_rows_transposed_split",
            "fft_rows_transposed_split_reference", "fft2_fused_split",
@@ -77,8 +79,11 @@ FFT2F_MAX_ELEMS = 1 << 16  # points of one fused 2-D plane (the JAX envelope)
 # Launches of each entry point's kernel (rows_fft, ax0_fft, ax0_gen_fft,
 # either of those on the axis(-3) view, rows_t_fft, fft2f_fft, r2c_fft,
 # c2r_fft and its product form, gen_fft, r2c_gen_fft, chirp_fft's three
-# kernels and filt_fft's two); callers may reset them to 0.
+# kernels and filt_fft's two); callers may reset them to 0.  ``launches``
+# counts every launch of rows_fft, ``c64_launches`` those of them through its
+# complex64 entry (fft_batched_c64).
 launches = 0
+c64_launches = 0
 ax0_launches = 0
 ax0_gen_launches = 0
 ax3_launches = 0
@@ -153,7 +158,7 @@ def _twiddle_table(n: int, sign: int, device, table=_tw.roots_np) -> torch.Tenso
 
 
 def _launch(re, im, sign, scale, out=None):
-    """Run the rows_fft kernel on CUDA tensors; ``out`` may alias the input."""
+    """Run the rows_fft kernel on CUDA planes; ``out`` may alias the input."""
     global launches
     n = re.shape[-1]
     re, im = re.contiguous(), im.contiguous()
@@ -166,13 +171,35 @@ def _launch(re, im, sign, scale, out=None):
     rows = re.numel() // n
     if rows == 0:
         return out
-    tw = _twiddle_table(n, sign, re.device)
+    tw = _twiddle_table(n, sign, re.device, _pass_roots_np)
     build.launch("rows_fft", "rows_fft_f32", [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
                  re.device, re.data_ptr(), im.data_ptr(), out[0].data_ptr(),
                  out[1].data_ptr(), tw.data_ptr(), rows, n.bit_length() - 1, sign,
                  _scale_arg(scale), _stream(re),
                  what=f"rows_fft launch failed (n={n}, rows={rows})")
     launches += 1
+    return out
+
+
+def _launch_c64(x, sign, scale, out=None):
+    """Run the rows_fft kernel on a CUDA complex64 tensor, its interleaved
+    entry; ``out`` (contiguous, of x's shape) may be x itself, since a
+    block reads its whole row before it stores any of it."""
+    global launches, c64_launches
+    n = x.shape[-1]
+    x = x.resolve_conj().contiguous()
+    if out is None:
+        out = torch.empty_like(x)
+    rows = x.numel() // n
+    if rows == 0:
+        return out
+    tw = _twiddle_table(n, sign, x.device, _pass_roots_np)
+    build.launch("rows_fft", "rows_fft_c64", [_P, _P, _P, _LL, _I, _I, _F, _P], x.device,
+                 x.data_ptr(), out.data_ptr(), tw.data_ptr(), rows, n.bit_length() - 1,
+                 sign, _scale_arg(scale), _stream(x),
+                 what=f"rows_fft launch failed (n={n}, rows={rows})")
+    launches += 1
+    c64_launches += 1
     return out
 
 
@@ -189,20 +216,55 @@ def _transform(re, im, sign, scale, out=None):
     return out
 
 
+def _transform_c64(x, sign, scale):
+    if x.device.type == "cuda":
+        return _launch_c64(x, sign, scale)
+    if x.device.type != "cpu":
+        raise ValueError(f"no row FFT for device {x.device}")
+    return fft_batched_c64_reference(x, sign, scale)
+
+
 class _SignFlipped(torch.autograd.Function):
-    """``transform(re, im, sign, scale)``, a DFT along one axis, with its
-    adjoint.  The transform is M = scale * W_sign with W symmetric and
-    conj(W_s) = W_-s, so its adjoint is scale * W_-sign: the same transform
-    (the same kernel, on the card) with the sign flipped and the same scale."""
+    """``transform(*xs, sign, scale)``, a DFT along one axis of planes
+    ``(re, im)`` or of one complex64 tensor, with its adjoint.  The transform
+    is M = scale * W_sign with W symmetric and conj(W_s) = W_-s, so its
+    adjoint is scale * W_-sign: the same transform (the same kernel, on the
+    card) with the sign flipped and the same scale (torch's gradient of a
+    complex input is the adjoint applied to the output's)."""
 
     @staticmethod
-    def forward(ctx, transform, re, im, sign, scale):
+    def forward(ctx, transform, sign, scale, *xs):
         ctx.transform, ctx.sign, ctx.scale = transform, sign, scale
-        return transform(re, im, sign, scale)
+        return transform(*xs, sign, scale)
 
     @staticmethod
-    def backward(ctx, gr, gi):
-        return (None, *ctx.transform(gr, gi, -ctx.sign, ctx.scale), None, None)
+    def backward(ctx, *grads):
+        g = ctx.transform(*grads, -ctx.sign, ctx.scale)
+        return (None, None, None, *(g if isinstance(g, tuple) else (g,)))
+
+
+def _check_c64(x):
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.complex64 or x.ndim < 1:
+        raise ValueError("x must be a complex64 tensor of at least one axis")
+
+
+def fft_batched_c64(x, sign, scale=None):
+    """:func:`fft_batched_split` on a complex64 ``[..., n]`` tensor as it
+    lies (interleaved (re, im) pairs; a non-contiguous one is copied
+    first), with no split and no merge: on the card the kernel's
+    interleaved entry, one launch.  Differentiable (the backward is the
+    sign-flipped transform)."""
+    _check_c64(x)
+    _check_envelope(x.shape[-1])
+    _check_sign(sign)
+    return _SignFlipped.apply(_transform_c64, sign, scale, x)
+
+
+def fft_batched_c64_reference(x, sign, scale=None):
+    """Plain torch version of :func:`fft_batched_c64`: the plain version of
+    the planar entry on the two planes."""
+    _check_c64(x)
+    return torch.complex(*fft_batched_split_reference(x.real, x.imag, sign, scale))
 
 
 def fft_batched_split(re, im, sign, scale=None, *, out=None):
@@ -218,7 +280,7 @@ def fft_batched_split(re, im, sign, scale=None, *, out=None):
     _check_sign(sign)
     _check_planes(re, im)
     if out is None:
-        return _SignFlipped.apply(_transform, re, im, sign, scale)
+        return _SignFlipped.apply(_transform, sign, scale, re, im)
     if torch.is_grad_enabled() and (re.requires_grad or im.requires_grad):
         raise ValueError("out= writes in place and records no gradient; "
                          "call without out= to differentiate")
@@ -315,7 +377,7 @@ def fft_axis0_split(re, im, sign, scale=None):
     _check_ax0(re)
     _check_sign(sign)
     _check_planes(re, im)
-    return _SignFlipped.apply(_ax0, re, im, sign, scale)
+    return _SignFlipped.apply(_ax0, sign, scale, re, im)
 
 
 def _axis_plain(re, im, sign, scale, axis):
@@ -552,7 +614,7 @@ def fft_axis3_split(re, im, sign, scale=None):
     _check_ax3(re)
     _check_sign(sign)
     _check_planes(re, im)
-    return _SignFlipped.apply(_ax3, re, im, sign, scale)
+    return _SignFlipped.apply(_ax3, sign, scale, re, im)
 
 
 def fft_axis3_split_reference(re, im, sign, scale=None):
@@ -622,7 +684,7 @@ def fft2_fused_split(re, im, sign, scale=None):
     _check_fft2f(re)
     _check_sign(sign)
     _check_planes(re, im)
-    return _SignFlipped.apply(_fft2f, re, im, sign, scale)
+    return _SignFlipped.apply(_fft2f, sign, scale, re, im)
 
 
 def fft2_fused_split_reference(re, im, sign, scale=None):
@@ -1187,7 +1249,7 @@ def fft_rows_general_split(re, im, sign, scale=None):
     _check_gen(re.shape[-1])
     _check_sign(sign)
     _check_planes(re, im)
-    return _SignFlipped.apply(_gen, re, im, sign, scale)
+    return _SignFlipped.apply(_gen, sign, scale, re, im)
 
 
 def _two_factor(re, im, sign, scale):

@@ -9,7 +9,8 @@ counterpart of ``ops/fourstep.py``.
 
 On a CUDA tensor the route is chosen by envelope, never by catching an
 error: a shape in the whole-row kernel's envelope (``bigfft._supported``)
-runs it in one pass; otherwise pass 1 is the axis(-2) kernel (through the
+runs it in one pass (a complex64 tensor reaches that kernel's complex64
+entry straight from the plan, ``Plan._execute_c64``, with no split); otherwise pass 1 is the axis(-2) kernel (through the
 plan's axis -2 route) and pass 2 the transposed-rows kernel with the outer
 twiddle applied at load, so the whole transform is two passes over device
 memory and the final reshape is free.  A CPU tensor, or a factor outside

@@ -38,6 +38,10 @@ def _norm_scales(n: int, norm):
 
 
 def _run_1d(x, n, axis, sign, scale, executor):
+    if n is None or n == _length(x, axis):  # a complex64 CUDA tensor: no split
+        y = get_plan(_length(x, axis), executor)._execute_c64(x, axis, sign, scale)
+        if y is not None:
+            return y
     re, im = promote_to_split(x)
     if n is not None and re.shape[axis] != n:
         re, im = _pad_or_trim(re, im, n, axis)
@@ -59,22 +63,32 @@ def _pad_or_trim(re, im, n, axis):
     return _resize_axis(re, n, axis), _resize_axis(im, n, axis)
 
 
+def _checked_length(x, n, axis: int) -> int:
+    """The transform's length: ``n``, or the length of ``axis``; a length
+    below 1 raises ``ValueError``, as numpy.fft does."""
+    length = _length(x, axis) if n is None else n
+    if length < 1:
+        raise ValueError(f"fft length must be >= 1, got {length}")
+    return length
+
+
 def fft(x, n=None, axis: int = -1, norm=None, *, executor: str = "auto"):
     """1-D C2C forward FFT along `axis` (reference Forward)."""
-    fscale, _ = _norm_scales(n or _length(x, axis), norm)
+    fscale, _ = _norm_scales(_checked_length(x, n, axis), norm)
     return _run_1d(x, n, axis, FORWARD, fscale, executor)
 
 
 def ifft(x, n=None, axis: int = -1, norm=None, *, executor: str = "auto"):
     """1-D C2C inverse FFT, scaled per `norm` (reference Inverse with fused
     1/N)."""
-    _, iscale = _norm_scales(n or _length(x, axis), norm)
+    _, iscale = _norm_scales(_checked_length(x, n, axis), norm)
     return _run_1d(x, n, axis, INVERSE, iscale, executor)
 
 
 def ifft_unnormalized(x, n=None, axis: int = -1, *, executor: str = "auto"):
     """Unnormalized inverse FFT (reference Onlyinverse).  Compose with
     :func:`normalize` for the reference's two-pass inverse."""
+    _checked_length(x, n, axis)
     return _run_1d(x, n, axis, INVERSE, None, executor)
 
 

@@ -20,7 +20,9 @@ Executors keep the JAX package's names:
     ``"bigfft"`` cannot run on the CPU at all outside interpret mode).
 
 With ``executor="auto"`` a CUDA tensor of pow2 length 128..16384 always
-goes through the row kernel, whatever its row count; pow2 lengths above
+goes through the row kernel, whatever its row count (a complex64 tensor
+transformed along its last axis through the kernel's interleaved entry, with
+no split and no merge, as on the whole-row kernel's route); pow2 lengths above
 16384 go through ``"fourstep"``; composite lengths in the composite-row
 kernel's envelope (non-pow2 512..16384, factors <= 256) through that
 kernel (``cuda_fft.fft_rows_general_split``); any other length runs the
@@ -209,7 +211,28 @@ class Plan:
     # ------------------------------------------------------------------ #
     # public complex-facade methods
     # ------------------------------------------------------------------ #
+    def _execute_c64(self, x, axis: int, sign: int, scale):
+        """The transform of a complex64 CUDA tensor along its last axis on
+        the row kernel's route, or the whole-row kernel's (``"bigfft"``, or
+        ``"fourstep"`` where that kernel takes the shape), through the
+        kernel's interleaved entry: one launch, no split and no merge.
+        None for any other input, which takes the planar path."""
+        if not (isinstance(x, torch.Tensor) and x.dtype == torch.complex64
+                and x.is_cuda and x.ndim >= 1 and axis % x.ndim == x.ndim - 1
+                and x.shape[-1] == self.n):
+            return None
+        self._check_autotune(x.device)
+        ex = self._resolve_executor(x.device)
+        if ex in _KERNEL:
+            return cuda_fft.fft_batched_c64(x, sign, scale)
+        if ex in ("fourstep", "bigfft") and bigfft._supported(self.n, x.numel() // self.n):
+            return bigfft.fft_big_c64(x, sign, scale)
+        return None
+
     def _run(self, x, axis: int, sign: int, scale):
+        y = self._execute_c64(x, axis, sign, scale)
+        if y is not None:
+            return y
         re, im = promote_to_split(x)
         if re.shape[axis] != self.n:
             raise ValueError(

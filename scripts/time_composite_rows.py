@@ -10,10 +10,16 @@ plan.forward_split at 1 x 2^20, 1 x 2^22 and 4 x 2^22, and fft2 of
 Bluestein at 1024 x 4093 and 1024 x 4097 and the ZoomFFT of 1024 x 4096
 to 1024 bins through the public calls (whichever chirp kernels a tree
 launches there), and the two passes B11 and B12 alone at 1024 x 4093
-(set "chirp").
+(set "chirp"); the pow2 row kernel (rows_fft, B1) at 4096 x 4096, 1 x
+1024, 2500 x 512, 1000 x 128 and 1024 x 16384, and the whole-row kernel
+(big_fft, B15) at 256 x 2^16, 64 x 2^15 and 16 x 2^18, each through its
+planar entry and, where the tree has one, its complex64 entry, with
+plan(n).forward of complex64 there (all of its device work, split and
+merge included, and its events), and fft2 of 4096 x 4096 (B1 then B2;
+set "pow2").
 
     python3 scripts/time_composite_rows.py [--tree DIR] [--label NAME] [--out FILE]
-                                           [--set rows|columns|chirp|all]
+                                           [--set rows|columns|chirp|pow2|all]
 
 ``--tree`` imports ``fft_wgpu_tpu_torch`` from another checkout (for
 example a parent commit unpacked with ``git archive``), so that two
@@ -106,7 +112,8 @@ def main() -> int:
         os.path.abspath(__file__))), help="checkout to import the port from")
     ap.add_argument("--label", default="tree")
     ap.add_argument("--out", default=None, help="append the JSON line here")
-    ap.add_argument("--set", default="all", choices=("rows", "columns", "chirp", "all"),
+    ap.add_argument("--set", default="all",
+                    choices=("rows", "columns", "chirp", "pow2", "all"),
                     help="which kernels to time")
     args = ap.parse_args()
 
@@ -131,6 +138,8 @@ def main() -> int:
         time_columns(ft, cuda_fft, dev, gen, args.label, result)
     if args.set in ("chirp", "all"):
         time_chirp(ft, cuda_fft, dev, gen, args.label, result)
+    if args.set in ("pow2", "all"):
+        time_pow2(ft, cuda_fft, dev, gen, args.label, result)
     for kernel, rows, n in SHAPES if args.set in ("rows", "all") else ():
         key = f"{kernel} {rows}x{n}"
         if kernel == "gen_fft":
@@ -154,7 +163,7 @@ def main() -> int:
         result["times"][key]["device"] = device_ms(fns["kernel"], f"{kernel}_kernel")
         print(f"{args.label} | {key} | rel-L2 {err:.3e} | " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in result["times"][key].items()), flush=True)
-    if args.set in ("columns", "chirp"):
+    if args.set in ("columns", "chirp", "pow2"):
         return finish(result, args)
     fr = torch.complex(torch.randn(16, 1080, 1920, device=dev, generator=gen),
                        torch.randn(16, 1080, 1920, device=dev, generator=gen))
@@ -287,6 +296,47 @@ def time_chirp(ft, cuda_fft, dev, gen, label, result):
     record("chirp_fwd, chirp_inv 1024x4093", err, fns,
            {"device chirp_fwd": (fns["chirp_fwd"], "chirp_fwd_kernel"),
             "device chirp_inv": (fns["chirp_inv"], "chirp_inv_kernel")}, reps=30)
+
+
+def time_pow2(ft, cuda_fft, dev, gen, label, result):
+    """rows_fft (B1) and big_fft (B15) at the 1-D main path's shapes through
+    the planar entry (``_launch``) and, where the tree has it, the complex64
+    one (``_launch_c64``); plan(n).forward of complex64 at each shape (its
+    events, the device ms of all of its device work and of the kernel);
+    fft2 of 4096 x 4096 (rows_fft then ax0_fft); torch.fft beside each."""
+    import torch
+    from fft_wgpu_tpu_torch.ops import bigfft
+
+    crand = randn_complex(dev, gen)
+    record = recorder(label, result)
+    every = r"\w+"  # all device work of a call
+    for mod, kernel, shapes in (
+            (cuda_fft, "rows_fft_kernel",
+             ((4096, 4096), (1, 1024), (2500, 512), (1000, 128), (1024, 16384))),
+            (bigfft, "big_fft_kernel", ((256, 1 << 16), (64, 1 << 15), (16, 1 << 18)))):
+        for rows, n in shapes:
+            x = crand(rows, n)
+            re_, im_ = x.real.contiguous(), x.imag.contiguous()
+            pn = ft.plan(n)
+            fns = {"kernel": lambda: mod._launch(re_, im_, -1, None),
+                   "plan.forward": lambda: pn.forward(x),
+                   "torch.fft": lambda: torch.fft.fft(x)}
+            device = {"device kernel": (fns["kernel"], kernel),
+                      "device plan.forward": (fns["plan.forward"], every)}
+            if hasattr(mod, "_launch_c64"):
+                fns["kernel_c64"] = lambda: mod._launch_c64(x, -1, None)
+                device["device kernel_c64"] = (fns["kernel_c64"], kernel)
+            want = torch.fft.fft(x.to(torch.complex128))
+            err = max(rel_l2(torch.complex(*fns["kernel"]()), want),
+                      rel_l2(fns["plan.forward"](), want))
+            record(f"{kernel[:-7]} {rows}x{n}", err, fns, device, reps=30)
+            del x, re_, im_
+    x = crand(4096, 4096)
+    fns = {"fft2": lambda: ft.fft2(x), "torch.fft": lambda: torch.fft.fft2(x)}
+    record("fft2 4096x4096", rel_l2(ft.fft2(x), torch.fft.fft2(x.to(torch.complex128))), fns,
+           {"device rows_fft": (fns["fft2"], "rows_fft_kernel"),
+            "device ax0_fft": (fns["fft2"], "ax0_fft_kernel"),
+            "device all": (fns["fft2"], every)}, reps=20)
 
 
 def randn_complex(dev, gen):

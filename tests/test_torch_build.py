@@ -38,6 +38,6 @@ def test_hash_ignores_headers_not_included(csrc):
 
 def test_port_sources_include_the_shared_passes():
     names = {p.name for p in build._sources(build.CSRC / "rows_fft.cu")}
-    assert names == {"rows_fft.cu", "stockham.cuh"}
+    assert names == {"rows_fft.cu", "mixed_fft.cuh", "stockham.cuh"}
     for name in ("ax0_fft", "rows_t_fft", "big_fft"):
         assert "stockham.cuh" in {p.name for p in build._sources(build.CSRC / f"{name}.cu")}

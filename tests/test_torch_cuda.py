@@ -50,18 +50,41 @@ def crand(dev, *shape, seed=0):
     return torch.from_numpy(x.astype(np.complex64)).to(dev)
 
 
+def _planes(fn):
+    """fn(re, im, sign, scale) of a planar entry as fn(x, sign, scale) on a
+    complex64 x's planes."""
+    return lambda x, sign, scale: torch.complex(
+        *fn(x.real.contiguous(), x.imag.contiguous(), sign, scale))
+
+
+def _rows_entry(layout):
+    """B1 in one of its two device layouts and its plain version, each as
+    fn(x, sign, scale) on a complex64 x: the planar entry on x's planes, or
+    the interleaved entry on x as it lies."""
+    if layout == "c64":
+        return cuda_fft.fft_batched_c64, cuda_fft.fft_batched_c64_reference
+    return _planes(cuda_fft.fft_batched_split), _planes(cuda_fft.fft_batched_split_reference)
+
+
+def _big_entry(layout):
+    """B15's two layouts, as :func:`_rows_entry`."""
+    if layout == "c64":
+        return bigfft.fft_big_c64, bigfft.fft_big_c64_reference
+    return _planes(bigfft.fft_big_split), _planes(bigfft.fft_big_split_reference)
+
+
+@pytest.mark.parametrize("layout", ["planar", "c64"])
 @pytest.mark.parametrize("n", [1 << e for e in range(7, 15)])
 @pytest.mark.parametrize("rows", [(1,), (37,), (2, 3)])
-def test_kernel_matches_plain_and_torch_fft(dev, n, rows):
+def test_kernel_matches_plain_and_torch_fft(dev, n, rows, layout):
     x = crand(dev, *rows, n)
-    re, im = x.real.contiguous(), x.imag.contiguous()
+    kernel, plain = _rows_entry(layout)
     for sign in (-1, 1):
         for scale in (None, 1.0 / n, n ** -0.5):
             before = cuda_fft.launches
-            kr, ki = cuda_fft.fft_batched_split(re, im, sign, scale)
+            k = kernel(x, sign, scale)
             assert cuda_fft.launches == before + 1
-            k = torch.complex(kr, ki)
-            p = torch.complex(*cuda_fft.fft_batched_split_reference(re, im, sign, scale))
+            p = plain(x, sign, scale)
             o = torch.fft.fft(x) if sign < 0 else torch.fft.ifft(x, norm="forward")
             o = o * (1.0 if scale is None else scale)
             assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, (sign, scale)
@@ -85,33 +108,44 @@ def test_plan_routes_through_kernel(dev):
         ft.plan(1024, autotune=True).forward(torch.zeros(2, 1024, device=dev))
 
 
-def test_donate_runs_in_place_on_kernel(dev):
+@pytest.mark.parametrize("layout", ["planar", "c64"])
+def test_donate_runs_in_place_on_kernel(dev, layout):
     x = crand(dev, 64, 4096)
-    re, im = x.real.contiguous(), x.imag.contiguous()
-    ptrs = (re.data_ptr(), im.data_ptr())
+    p = ft.plan(4096, donate=True)
     before = cuda_fft.launches
-    out = ft.plan(4096, donate=True).forward_split(re, im)
-    assert out[0] is re and out[1] is im and (re.data_ptr(), im.data_ptr()) == ptrs
-    assert cuda_fft.launches == before + 1
-    assert rel_l2(torch.complex(re, im), torch.fft.fft(x)) < TOL
+    if layout == "planar":
+        re, im = x.real.contiguous(), x.imag.contiguous()
+        ptrs = (re.data_ptr(), im.data_ptr())
+        out = p.forward_split(re, im)
+        assert out[0] is re and out[1] is im and (re.data_ptr(), im.data_ptr()) == ptrs
+        assert rel_l2(torch.complex(re, im), torch.fft.fft(x)) < TOL
+    else:
+        # donate concerns the split forms: forward of complex64 leaves x as
+        # it is; the interleaved entry's kernel runs in place with out=x
+        x0 = x.clone()
+        assert rel_l2(p.forward(x), torch.fft.fft(x0)) < TOL and torch.equal(x, x0)
+        assert cuda_fft._launch_c64(x, -1, None, out=x) is x
+        assert rel_l2(x, torch.fft.fft(x0)) < TOL
+    assert cuda_fft.launches == before + 1 + (layout == "c64")
 
 
-def test_grad_matches_plain(dev):
-    rng = np.random.default_rng(1)
-    a, b, w = (torch.from_numpy(rng.standard_normal((8, 2048)).astype(np.float32)).to(dev)
-               for _ in range(3))
+def _grad_c64(fn, x, w):
+    """d/dx of sum(w * |fn(x)|^2) for complex x (d/dre + i d/dim)."""
+    x = x.clone().requires_grad_()
+    (w * fn(x).abs() ** 2).sum().backward()
+    return x.grad
 
-    def grad(fn):
-        re, im = a.clone().requires_grad_(), b.clone().requires_grad_()
-        yr, yi = fn(re, im)
-        (w * (yr * yr + yi * yi)).sum().backward()
-        return torch.complex(re.grad, im.grad)
 
+@pytest.mark.parametrize("layout", ["planar", "c64"])
+def test_grad_matches_plain(dev, layout):
+    x = crand(dev, 8, 2048, seed=1)
+    w = torch.linspace(0.5, 1.5, x.numel(), device=dev).reshape(x.shape)
+    kernel, plain = _rows_entry(layout)
     for sign, scale in ((-1, None), (1, 1.0 / 2048)):
         before = cuda_fft.launches
-        gk = grad(lambda r, i: cuda_fft.fft_batched_split(r, i, sign, scale))
+        gk = _grad_c64(lambda z: kernel(z, sign, scale), x, w)
         assert cuda_fft.launches == before + 2  # forward and backward kernels
-        gp = grad(lambda r, i: cuda_fft.fft_batched_split_reference(r, i, sign, scale))
+        gp = _grad_c64(lambda z: plain(z, sign, scale), x, w)
         assert rel_l2(gk, gp) < TOL
 
 
@@ -180,17 +214,18 @@ def test_rows_transposed_kernel_matches_plain(dev, n, rows, with_outer):
         assert rel_l2(k, _outer_oracle(x, sign, scale, outer)) < TOL, (sign, scale)
 
 
+@pytest.mark.parametrize("layout", ["planar", "c64"])
 @pytest.mark.parametrize("e", [15, 16, 17, 18])
 @pytest.mark.parametrize("rows", [1, 3])
-def test_bigfft_kernel_matches_plain_and_torch_fft(dev, e, rows):
+def test_bigfft_kernel_matches_plain_and_torch_fft(dev, e, rows, layout):
     n = 1 << e
     x = crand(dev, rows, n)
-    re, im = x.real.contiguous(), x.imag.contiguous()
+    kernel, plain = _big_entry(layout)
     for sign, scale in ((-1, None), (1, 1.0 / n)):
         before = bigfft.launches
-        k = torch.complex(*bigfft.fft_big_split(re, im, sign, scale))
+        k = kernel(x, sign, scale)
         assert bigfft.launches == before + 1
-        p = torch.complex(*bigfft.fft_big_split_reference(re, im, sign, scale))
+        p = plain(x, sign, scale)
         o = torch.fft.fft(x) if sign < 0 else torch.fft.ifft(x)
         assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, (sign, scale)
 
@@ -226,14 +261,20 @@ def test_bigfft_executor_outside_envelope_raises(dev):
         ft.fft(crand(dev, 1, 1 << 19), executor="bigfft")
 
 
-def test_donate_on_bigfft_route(dev):
+@pytest.mark.parametrize("layout", ["planar", "c64"])
+def test_donate_on_bigfft_route(dev, layout):
     x = crand(dev, 4, 1 << 16)
-    re, im = x.real.contiguous(), x.imag.contiguous()
+    p = ft.plan(1 << 16, donate=True)
     before = bigfft.launches
-    out = ft.plan(1 << 16, donate=True).forward_split(re, im)
-    assert out[0] is re and out[1] is im
+    if layout == "planar":
+        re, im = x.real.contiguous(), x.imag.contiguous()
+        out = p.forward_split(re, im)
+        assert out[0] is re and out[1] is im
+        assert rel_l2(torch.complex(re, im), torch.fft.fft(x)) < TOL
+    else:  # donate concerns the split forms: x stays as it is
+        x0 = x.clone()
+        assert rel_l2(p.forward(x), torch.fft.fft(x0)) < TOL and torch.equal(x, x0)
     assert bigfft.launches == before + 1
-    assert rel_l2(torch.complex(re, im), torch.fft.fft(x)) < TOL
 
 
 def test_grad_axis0_matches_plain(dev):
@@ -258,13 +299,51 @@ def test_grad_rows_transposed_matches_plain(dev, outer):
     assert rel_l2(gk, gp) < TOL
 
 
-def test_grad_bigfft_matches_plain(dev):
-    run = _grad(2, 1 << 16)
+@pytest.mark.parametrize("layout", ["planar", "c64"])
+def test_grad_bigfft_matches_plain(dev, layout):
+    x = crand(dev, 2, 1 << 16, seed=1)
+    w = torch.linspace(0.5, 1.5, x.numel(), device=dev).reshape(x.shape)
+    kernel, plain = _big_entry(layout)
     before = bigfft.launches
-    gk = run(lambda r, i: bigfft.fft_big_split(r, i, 1, 2.0 ** -16))
+    gk = _grad_c64(lambda z: kernel(z, 1, 2.0 ** -16), x, w)
     assert bigfft.launches == before + 2
-    gp = run(lambda r, i: bigfft.fft_big_split_reference(r, i, 1, 2.0 ** -16))
+    gp = _grad_c64(lambda z: plain(z, 1, 2.0 ** -16), x, w)
     assert rel_l2(gk, gp) < TOL
+
+
+def _device_kernels(fn):
+    """The names of the device kernels one call of fn() runs (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("n,kernel", [(4096, "rows_fft_kernel"), (128, "rows_fft_kernel"),
+                                      (1 << 16, "big_fft_kernel")])
+def test_complex64_route_is_one_launch(dev, n, kernel):
+    # a complex64 CUDA tensor along its last axis: the interleaved entry, one
+    # launch and no other device work (no split, no merge) in every mode of
+    # the plan, the functional API and the parity classes
+    x = crand(dev, 16, n)
+    p = ft.plan(n)
+    calls = {"forward": (lambda: p.forward(x), torch.fft.fft(x)),
+             "inverse": (lambda: p.inverse(x), torch.fft.ifft(x)),
+             "inverse_unnormalized": (lambda: p.inverse_unnormalized(x),
+                                      torch.fft.ifft(x, norm="forward")),
+             "fft": (lambda: ft.fft(x, norm="ortho"), torch.fft.fft(x, norm="ortho")),
+             "ifft": (lambda: ft.ifft(x), torch.fft.ifft(x)),
+             "Inverse": (lambda: ft.Inverse(n).proc(x), torch.fft.ifft(x))}
+    for name, (call, want) in calls.items():
+        names = _device_kernels(call)
+        assert len(names) == 1 and kernel in names[0], (name, names)
+        assert rel_l2(call(), want) < TOL, name
+    # other axes and the split forms keep the planar path
+    assert len(_device_kernels(lambda: p.forward_split(x.real, x.imag))) > 1
 
 
 def test_grad_through_fourstep_matches_plain(dev):
@@ -856,9 +935,11 @@ def _every_kernel(dev):
     (cr, ci, bfr, bfi), m = bluestein._chirp_tables(1031, -1, dev)
     return {
         "rows_fft": lambda: cuda_fft._launch(re, im, -1, None),
+        "rows_fft c64": lambda: cuda_fft._launch_c64(torch.complex(re, im), -1, None),
         "ax0_fft": lambda: cuda_fft._ax0_launch(*planar(2, 128, 5), -1, None),
         "rows_t_fft": lambda: cuda_fft._rows_t_launch(re, im, -1, None, None),
         "big_fft": lambda: bigfft._launch(*planar(1, 1 << 15), -1, None),
+        "big_fft c64": lambda: bigfft._launch_c64(crand(dev, 1, 1 << 15), -1, None),
         "fft2f_fft": lambda: cuda_fft._fft2f_launch(*planar(2, 128, 128), -1, None),
         "r2c_fft": lambda: cuda_fft._r2c_launch(r, None, False),
         "c2r_fft": lambda: cuda_fft._c2r_launch(Rr, Ri, 1024, None),

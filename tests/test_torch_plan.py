@@ -173,6 +173,21 @@ def test_value_errors_match_jax():
     assert ft.plan(128, dtype=np.complex64).dtype == torch.complex64
 
 
+@pytest.mark.parametrize("fn", ["fft", "ifft", "ifft_unnormalized"])
+def test_zero_length_raises_value_error(fn):
+    # numpy.fft's error, and Plan(0)'s, for a zero-length axis and for n=0
+    # (the scale of the norm is never computed for them)
+    call = getattr(ft, fn)
+    with pytest.raises(ValueError, match="fft length must be >= 1, got 0"):
+        call(torch.zeros(3, 0, dtype=torch.complex64))
+    with pytest.raises(ValueError, match="fft length must be >= 1, got 0"):
+        call(torch.zeros(0, 4, dtype=torch.complex64), axis=0)
+    with pytest.raises(ValueError, match="fft length must be >= 1, got 0"):
+        call(torch.zeros(3, 8, dtype=torch.complex64), n=0)
+    with pytest.raises(ValueError, match="fft length must be >= 1, got -2"):
+        call(torch.zeros(3, 8, dtype=torch.complex64), n=-2)
+
+
 def test_routing_on_cuda_tensors():
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
     for e in range(7, 15):

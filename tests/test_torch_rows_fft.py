@@ -6,6 +6,12 @@ Pallas kernel ``pallas_fft.fft_batched_split`` run in interpret mode, as
 ``tests/test_pallas.py`` runs it, values and gradient.  The kernel itself
 needs the card: ``tests/test_torch_cuda.py``.  Tolerance: 1e-5 relative L2.
 
+The complex64 entry ``fft_batched_c64`` (the plan's route for a complex64
+CUDA tensor, with no split and no merge) runs the same plain version on a
+CPU tensor; it is held against the JAX package's plan modes and
+``fft``/``ifft`` norms, and its gradient against ``jax.grad`` of the JAX
+kernel.
+
 The JAX kernel's interpret-mode cost is its compile, per shape and constant,
 so each JAX call stacks the row shapes of one (n, sign, scale) case.
 """
@@ -16,8 +22,9 @@ import numpy as np
 import pytest
 import torch
 
+import fft_wgpu_tpu as ftt
 from fft_wgpu_tpu.ops import pallas_fft as j_pf
-from fft_wgpu_tpu_torch.ops import cuda_fft
+from fft_wgpu_tpu_torch.ops import cuda_fft, transforms
 
 torch.set_num_threads(1)
 
@@ -127,3 +134,75 @@ def test_empty_batch():
     z = torch.zeros(0, 512)
     yr, yi = cuda_fft.fft_batched_split(z, z, -1)
     assert yr.shape == (0, 512) and yi.shape == (0, 512)
+
+
+def _crand(rng, *shape):
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+MODES = {"forward": (-1, lambda n: None), "inverse": (1, lambda n: 1.0 / n),
+         "inverse_unnormalized": (1, lambda n: None)}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("n", [128, 1024, 4096])
+def test_c64_entry_matches_jax_plan(n, mode, rng, assert_close):
+    x = _crand(rng, 2, 3, n)
+    sign, scale = MODES[mode]
+    got = cuda_fft.fft_batched_c64(torch.from_numpy(x), sign, scale(n))
+    assert got.dtype == torch.complex64 and got.shape == x.shape
+    assert_close(got.numpy(), np.asarray(getattr(ftt.plan(n), mode)(x)), what=mode)
+    assert cuda_fft.launches == 0  # CPU tensors never reach the kernel
+
+
+@pytest.mark.parametrize("norm", [None, "backward", "ortho", "forward"])
+@pytest.mark.parametrize("fn", ["fft", "ifft"])
+def test_c64_entry_norms_match_jax(fn, norm, rng, assert_close):
+    n = 1024
+    x = _crand(rng, 4, n)
+    fscale, iscale = transforms._norm_scales(n, norm)
+    sign, scale = (-1, fscale) if fn == "fft" else (1, iscale)
+    got = cuda_fft.fft_batched_c64(torch.from_numpy(x), sign, scale)
+    assert_close(got.numpy(), np.asarray(getattr(ftt, fn)(x, norm=norm)))
+
+
+@pytest.mark.parametrize("sign,sc", [(-1, "none"), (1, "inv_n")])
+def test_c64_grad_matches_jax_kernel(sign, sc, rng, assert_close):
+    # d/dx of sum(w * |y|^2) for complex x: torch's gradient of a complex
+    # input is d/dre + i d/dim, against jax.grad through the JAX kernel
+    n = 512
+    scale = _scales(n)[sc]
+    re, im, w = (rng.standard_normal((3, n)).astype(np.float32) for _ in range(3))
+
+    def jloss(a, b):
+        yr, yi = j_pf.fft_batched_split(a, b, sign, scale, interpret=True)
+        return jnp.sum(w * (yr * yr + yi * yi))
+
+    jg = jax.grad(jloss, argnums=(0, 1))(re, im)
+    x = torch.from_numpy(re + 1j * im).to(torch.complex64).requires_grad_()
+    y = cuda_fft.fft_batched_c64(x, sign, scale)
+    (torch.from_numpy(w) * y.abs() ** 2).sum().backward()
+    assert_close(x.grad.numpy(), np.asarray(jg[0]) + 1j * np.asarray(jg[1]))
+    assert cuda_fft.launches == 0
+
+
+def test_c64_input_layouts(rng, assert_close):
+    # a non-contiguous input is copied, a conjugate view read as its values
+    n = 256
+    x = _crand(rng, 3, n)
+    want = np.fft.fft(x)
+    xt = torch.from_numpy(np.ascontiguousarray(x.T)).T
+    assert_close(cuda_fft.fft_batched_c64(xt, -1).numpy(), want)
+    xc = torch.from_numpy(x.conj().copy()).conj()
+    assert_close(cuda_fft.fft_batched_c64(xc, -1).numpy(), want)
+
+
+def test_c64_bad_arguments_raise():
+    with pytest.raises(ValueError, match="complex64"):
+        cuda_fft.fft_batched_c64(torch.zeros(2, 256), -1)
+    with pytest.raises(ValueError, match="complex64"):
+        cuda_fft.fft_batched_c64(torch.zeros(2, 256, dtype=torch.complex128), -1)
+    with pytest.raises(ValueError, match="sign"):
+        cuda_fft.fft_batched_c64(torch.zeros(2, 256, dtype=torch.complex64), 0)
+    with pytest.raises(cuda_fft.Unsupported):
+        cuda_fft.fft_batched_c64(torch.zeros(2, 100, dtype=torch.complex64), -1)
