@@ -21,7 +21,7 @@ non-zero without a result line:
              prints it, then the versions), TF32 off, the kernel builds, and
              ptxas's registers, stack and spills of ax0_gen_fft,
              rows_t_fft and chirp_fft (m = 8192 and 16384), and of every
-             instantiation of rows_fft and big_fft;
+             instantiation of rows_fft, big_fft, ax0_fft and r2c_fft;
 2. kernel  — each kernel against its plain torch version and torch.fft,
              both signs, scale None and 1/n (rel-L2 <= 1e-5 each):
              rows_fft for every n in 128..16384 at rows 1 and 1000 and at
@@ -30,15 +30,20 @@ non-zero without a result line:
              place); ax0_fft for every n at m = 7 and
              m = 1000 (a leading batch of 2), at the 2^22 pass-1 shape
              1024 x 4096 and at config 4's 4096 x 4096 and ragged
-             4096 x 2049; rows_t_fft for every n at R = 1 and 200, without
+             4096 x 2049, through its planar entry and its complex64 entry
+             (ax0_fft_c64, also in place at every n); rows_t_fft for every
+             n at R = 1 and 200, without
              the outer twiddle, with the four-step's (outer_n = R*n) and
              with a non-pow2 one (3 * 2^12), and at the 2^22 pass-2 shape;
              big_fft for every n of its envelope at rows 1 and 3, and at
              256 x 2^16, planar (big_fft) and complex64 (big_fft_c64);
              the axis(-3) pass (ax0_fft on a free view) at [2, n, 7, 130]
-             and 256^3; fft2f_fft at every plane of its
-             envelope, single and batched; r2c_fft and c2r_fft for every n
-             at rows 3 and 1000, ragged and padded, and at 4096 x 4096;
+             and 256^3, and its complex64 entry (ax3_fft_c64) at
+             [2, n, 7, 13] for every n, 256^3 and 512^3; fft2f_fft at every
+             plane of its envelope, single and batched; r2c_fft and c2r_fft
+             for every n at rows 3 and 1000, ragged and padded, and at
+             4096 x 4096, r2c_fft's complex64 sink (r2c_fft_c64) at the
+             same shapes;
              gen_fft and r2c_gen_fft (ragged and padded) at twenty-one
              composite n from 640 to 16383 (the two-factor splits, then
              one n for each pass type of their mixed-radix plans), rows 1
@@ -75,9 +80,13 @@ non-zero without a result line:
              row; a complex64 tensor along its last axis through the
              complex64 entries of the row and whole-row kernels, counted
              as rows_fft_c64 and big_fft_c64 beside rows_fft and big_fft,
-             which count both entries), then config 4: fft2 / ifft2 and
-             the rfft2 / irfft2 round trip at 4096 x 4096, fftn / ifftn
-             at 256^3 (fused plane, then axis(-3)), then the non-pow2
+             which count both entries), then config 4: fft2 / ifft2 at
+             4096 x 4096 (the complex64 entries of the row and axis(-2)
+             kernels, ax0_fft_c64 counted beside ax0_fft), rfft at 4096 x
+             4096 (r2c_fft's complex64 sink) and the rfft2 / irfft2 round
+             trip, fftn / ifftn at 256^3 (fused plane, then axis(-3)) and
+             fftn at 512^3 (axis(-3), axis(-2) and rows through their
+             complex64 entries), then the non-pow2
              path: fft / ifft / plan at the JAX package's benchmark
              sizes (4095, 4097 and 1000 composite;
              4093 prime), a direct Bluestein call at 4097 (m = 16384),
@@ -110,7 +119,8 @@ non-zero without a result line:
              2 x 2^20; the whole row at 4 x 2^16; the row and whole-row
              kernels through their planar entries too; composite 4095 and
              prime 4093 at 64 rows, the latter chirp_full forward and back),
-             rfft at 1005, rfft2 and batched fft2,
+             rfft at 1005 and 4096 (the complex64 sink), rfft2, batched fft2
+             and fft2 of one 256 x 1024 complex64 plane,
              SpectralFilter, fftconvolve (both inputs), the CWT plan and
              fft2 at 1080 x 1920; welch, csd (both inputs), spectrogram
              and the two-sided welch of a complex signal at 2^16 samples;
@@ -121,8 +131,10 @@ non-zero without a result line:
              plan.forward at the main shapes, beside a plane copy of the
              same bytes; a torch.profiler breakdown of plan(4096).forward
              and of the whole-row fft, which must run their kernel alone
-             (no split, no merge); fft2 at 4096 x 4096 by both routes
-             (transposed rows twice, row then axis(-2)) and the fused plane
+             (no split, no merge), and of fft2 and rfft at 4096 x 4096,
+             which must run their kernels alone, once each; fft2 at 4096 x
+             4096 by three routes (transposed rows twice, row then
+             axis(-2) planar and complex64) and the fused plane
              at 256^3 against row then axis(-2); fftn at 512^3; the fused
              epilogues', the estimators' and the per-segment spectra's
              kernels at their path's shapes beside torch.fft's composition
@@ -163,10 +175,13 @@ LIBS = ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft", "fft2f_fft", "r2c_fft",
 # holds three kernels (chirp_fwd, chirp_inv and the two fused, chirp_full),
 # each with its own, filt_fft two entry points (filt, bank), c2r_fft a
 # second one (c2r_prod), welch_fft seven (welch, psd, csd, coh, c2c, spec,
-# spec_c2c); rows_fft and big_fft two layouts each (rows_fft_c64 and
-# big_fft_c64: their complex64 entries, counted apart too).
-KERNELS = ("rows_fft", "rows_fft_c64", "ax0_fft", "ax3_fft", "rows_t_fft", "fft2f_fft",
-           "r2c_fft", "c2r_fft", "big_fft", "big_fft_c64", "gen_fft", "r2c_gen_fft",
+# spec_c2c); rows_fft, ax0_fft (on axis -2 and on the axis(-3) view),
+# r2c_fft and big_fft two layouts each (rows_fft_c64, ax0_fft_c64,
+# ax3_fft_c64, r2c_fft_c64 and big_fft_c64: their complex64 entries, counted
+# apart too).
+KERNELS = ("rows_fft", "rows_fft_c64", "ax0_fft", "ax0_fft_c64", "ax3_fft", "ax3_fft_c64",
+           "rows_t_fft", "fft2f_fft", "r2c_fft", "r2c_fft_c64", "c2r_fft", "big_fft",
+           "big_fft_c64", "gen_fft", "r2c_gen_fft",
            "chirp_fwd", "chirp_inv", "chirp_full", "filt", "bank", "c2r_prod", "ax0_gen",
            "welch", "psd", "csd", "coh", "c2c", "spec", "spec_c2c")
 # Composite lengths of phase 2's sweep: factors (20, 32), (25, 40), (15, 67),
@@ -252,13 +267,14 @@ def multitaper_ref(x: np.ndarray, NW: float, K: int) -> np.ndarray:
 
 def ptxas_summary(log: str) -> list:
     """One "kernel<template arguments>: registers, stack, spill stores" entry
-    per kernel of ax0_gen_fft's, rows_t_fft's, chirp_fft's, rows_fft's and
-    big_fft's nvcc -Xptxas -v logs (chirp_fft's at m = 2^13 and 2^14)."""
+    per kernel of ax0_gen_fft's, rows_t_fft's, chirp_fft's, rows_fft's,
+    big_fft's, ax0_fft's and r2c_fft's nvcc -Xptxas -v logs (chirp_fft's at
+    m = 2^13 and 2^14)."""
     out, kernel = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(ax0_gen_fft_kernel|rows_t_fft_kernel|"
                       r"chirp_fwd_kernel|chirp_inv_kernel|chirp_full_kernel|rows_fft_kernel|"
-                      r"big_fft_kernel)I(\w*?)EE", line)
+                      r"big_fft_kernel|ax0_fft_kernel|r2c_fft_kernel)I(\w*?)EE", line)
         if m and m[1].startswith("chirp") and not m[2].endswith(("13", "14")):
             m = None
         if m:
@@ -368,7 +384,8 @@ def main() -> int:
           + ", ".join(f"{name} in {s:.1f} s -> {lib.name}" for name, lib, s in built),
           flush=True)
     for name, lib, _ in built:  # what ptxas reported for the redesigned kernels
-        if name in ("ax0_gen_fft", "rows_t_fft", "chirp_fft", "rows_fft", "big_fft"):
+        if name in ("ax0_gen_fft", "rows_t_fft", "chirp_fft", "rows_fft", "big_fft",
+                    "ax0_fft", "r2c_fft"):
             print(f"ptxas: {name} | " + "; ".join(ptxas_summary(
                 lib.with_suffix(".log").read_text())), flush=True)
 
@@ -431,6 +448,18 @@ def main() -> int:
           lambda re, im, s, sc, _: cuda_fft._ax0_launch(re, im, s, sc),
           lambda re, im, s, sc, _: cuda_fft.fft_axis0_split_reference(re, im, s, sc),
           lambda x, s, sc, _: oracle(x, s, sc, dim=-2), dim=-2)
+    sweep("ax0_fft_c64",
+          [((2, n, m), None) for n in pow2 for m in (7, 1000)]
+          + [((1024, 4096), None), ((4096, 4096), None), ((4096, 2049), None)],
+          c64(cuda_fft._ax0_launch_c64),
+          lambda re, im, s, sc, _: cuda_fft.fft_axis0_split_reference(re, im, s, sc),
+          lambda x, s, sc, _: oracle(x, s, sc, dim=-2), dim=-2)
+    for n in pow2:  # in place: the output is the input
+        x = crand(2, n, 45)
+        plain = cuda_fft.fft_axis0_c64_reference(x, -1, None)
+        want = oracle(x, -1, None, dim=-2)
+        check(cuda_fft._ax0_launch_c64(x, -1, None, out=x) is x, "ax0_fft_c64 out=x")
+        compare("ax0_fft_c64", x, plain, want, f"in place 2x{n}x45")
     sweep("rows_t_fft",
           [((rows, n), outer) for n in pow2 for rows in (1, 200)
            for outer in (None, (rows, rows * n), (rows, 3 << 12))]
@@ -456,6 +485,12 @@ def main() -> int:
           [((2, n, 7, 130), None) for n in (128, 1000, 1024, 16384)]
           + [((256, 256, 256), None)],
           lambda re, im, s, sc, _: cuda_fft._ax3_launch(re, im, s, sc),
+          lambda re, im, s, sc, _: cuda_fft.fft_axis3_split_reference(re, im, s, sc),
+          lambda x, s, sc, _: oracle(x, s, sc, dim=-3), dim=-3)
+    sweep("ax3_fft_c64",  # 512^3: fftn's first axis on the complex64 route
+          [((2, n, 7, 13), None) for n in pow2] + [((256, 256, 256), None),
+                                                   ((512, 512, 512), None)],
+          c64(cuda_fft._ax3_launch_c64),
           lambda re, im, s, sc, _: cuda_fft.fft_axis3_split_reference(re, im, s, sc),
           lambda x, s, sc, _: oracle(x, s, sc, dim=-3), dim=-3)
 
@@ -491,6 +526,15 @@ def main() -> int:
                     X = torch.fft.rfft(x)
                     err = max(err, check_close(got[:, :mp], X * s,
                                                f"r2c_fft vs torch.fft {what}"))
+                    if not pad:  # the complex64 sink: the same bins, no merge
+                        got_c = cuda_fft._r2c_launch_c64(x, scale)
+                        plain_c = cuda_fft.rfft_rows_c64_reference(x, scale)
+                        err = max(err, check_close(got_c, plain_c,
+                                                   f"r2c_fft_c64 vs plain {what}"),
+                                  check_close(got_c, X * s, f"r2c_fft_c64 vs torch.fft {what}"))
+                        max_abs["r2c_fft_c64"] = max(max_abs["r2c_fft_c64"], float(
+                            (got_c - plain_c).abs().max()))
+                        cases += 1
                     check(not kr[:, mp:].any() and not ki[:, mp:].any(),
                           f"r2c_fft pad columns not zero {what}")
                     max_abs["r2c_fft"] = max(max_abs["r2c_fft"], float(
@@ -509,9 +553,9 @@ def main() -> int:
                     worst = max(worst, err)
                     cases += 2
         torch.cuda.synchronize()
-        print(f"kernel r2c_fft, c2r_fft: {cases} cases ok | worst rel-L2 {worst:.3e} | "
-              f"max abs err vs plain {max_abs['r2c_fft']:.3e}, {max_abs['c2r_fft']:.3e}",
-              flush=True)
+        print(f"kernel r2c_fft, r2c_fft_c64, c2r_fft: {cases} cases ok | worst rel-L2 "
+              f"{worst:.3e} | max abs err vs plain {max_abs['r2c_fft']:.3e}, "
+              f"{max_abs['r2c_fft_c64']:.3e}, {max_abs['c2r_fft']:.3e}", flush=True)
 
     real_sweep()
 
@@ -914,10 +958,14 @@ def main() -> int:
                 "psd": cuda_welch.psd_launches, "csd": cuda_welch.csd_launches,
                 "coh": cuda_welch.coh_launches, "c2c": cuda_welch.c2c_launches,
                 "spec": cuda_welch.spec_launches, "spec_c2c": cuda_welch.spec_c2c_launches,
-                "rows_fft_c64": cuda_fft.c64_launches, "big_fft_c64": bigfft.c64_launches}
+                "rows_fft_c64": cuda_fft.c64_launches, "big_fft_c64": bigfft.c64_launches,
+                "ax0_fft_c64": cuda_fft.ax0_c64_launches,
+                "ax3_fft_c64": cuda_fft.ax3_c64_launches,
+                "r2c_fft_c64": cuda_fft.r2c_c64_launches}
 
     def reset_counts():
         cuda_fft.c64_launches = bigfft.c64_launches = 0
+        cuda_fft.ax0_c64_launches = cuda_fft.ax3_c64_launches = cuda_fft.r2c_c64_launches = 0
         cuda_fft.launches = cuda_fft.ax0_launches = cuda_fft.ax3_launches = 0
         cuda_fft.rows_t_launches = cuda_fft.fft2f_launches = 0
         cuda_fft.r2c_launches = cuda_fft.c2r_launches = bigfft.launches = 0
@@ -956,7 +1004,8 @@ def main() -> int:
                  lambda: p.inverse_unnormalized(X), **row)
     errs["plan4096_onlyinv_norm"] = check_close(
         p.normalize(xu), x, "plan(4096) inverse_unnormalized + normalize")
-    X0 = through("plan(4096).forward axis=0", lambda: p.forward(x, axis=0), ax0_fft=1)
+    X0 = through("plan(4096).forward axis=0", lambda: p.forward(x, axis=0), ax0_fft=1,
+                 ax0_fft_c64=1)
     errs["plan4096_axis0"] = check_close(X0, torch.fft.fft(x, dim=0),
                                          "plan(4096).forward(axis=0)")
     del x, X, xi, xu, X0
@@ -1009,17 +1058,21 @@ def main() -> int:
     print(f"main: 1-D path, {len(errs)} checks ok, launches {path1} | "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
 
-    # path 2: BASELINE config 4, 2-D 4096 x 4096 + R2C/C2R, and 3-D 256^3
+    # path 2: BASELINE config 4, 2-D 4096 x 4096 + R2C/C2R, and 3-D 256^3 and
+    # 512^3; complex64 planes and rfft run the kernels' complex64 entries
     errs = {}
     reset_counts()
     x = crand(4096, 4096)  # 128 MiB of complex64
-    X = through("fft2 4096^2", lambda: ft.fft2(x), rows_fft=1, ax0_fft=1)
+    c2d = {"rows_fft": 1, "rows_fft_c64": 1, "ax0_fft": 1, "ax0_fft_c64": 1}
+    X = through("fft2 4096^2", lambda: ft.fft2(x), **c2d)
     errs["fft2_4096"] = check_close(X, torch.fft.fft2(x), "fft2 4096^2")
     errs["ifft2_4096"] = check_close(
-        through("ifft2 4096^2", lambda: ft.ifft2(X), rows_fft=1, ax0_fft=1), x,
-        "ifft2 4096^2 round trip")
+        through("ifft2 4096^2", lambda: ft.ifft2(X), **c2d), x, "ifft2 4096^2 round trip")
     del x, X
     r = torch.randn(4096, 4096, device=dev, generator=gen)
+    R = through("rfft 4096^2", lambda: ft.rfft(r), r2c_fft=1, r2c_fft_c64=1)
+    check(R.dtype == torch.complex64 and R.shape == (4096, 2049), "rfft 4096^2: its output")
+    errs["rfft_4096"] = check_close(R, torch.fft.rfft(r), "rfft 4096^2")
     R = through("rfft2 4096^2", lambda: ft.rfft2(r), r2c_fft=1, ax0_fft=1)
     errs["rfft2_4096"] = check_close(R, torch.fft.rfft2(r), "rfft2 4096^2")
     back = through("irfft2 4096^2", lambda: ft.irfft2(R, s=r.shape), ax0_fft=1, c2r_fft=1)
@@ -1032,8 +1085,14 @@ def main() -> int:
         through("ifftn 256^3", lambda: ft.ifftn(X), fft2f_fft=1, ax3_fft=1), x,
         "ifftn 256^3 round trip")
     del x, X
+    x = crand(512, 512, 512)  # 1 GiB: planes outside the fused envelope, per axis
+    X = through("fftn 512^3", lambda: ft.fftn(x), rows_fft=1, rows_fft_c64=1, ax0_fft=1,
+                ax0_fft_c64=1, ax3_fft=1, ax3_fft_c64=1)
+    errs["fftn_512^3"] = check_close(X, torch.fft.fftn(x), "fftn 512^3")
+    del x, X
     path2 = counts()
-    for name in ("rows_fft", "ax0_fft", "ax3_fft", "fft2f_fft", "r2c_fft", "c2r_fft"):
+    for name in ("rows_fft", "ax0_fft", "ax3_fft", "fft2f_fft", "r2c_fft", "c2r_fft",
+                 "rows_fft_c64", "ax0_fft_c64", "ax3_fft_c64", "r2c_fft_c64"):
         check(path2[name] > 0, f"config 4 path launched no {name} kernel")
     # small inputs against float64 numpy on the host, through the same
     # kernels, outside config 4's count window
@@ -1416,13 +1475,20 @@ def main() -> int:
         return a.grad if b.grad is None else torch.complex(a.grad, b.grad)
 
     # rfft2: R2C, axis(-2); back: axis(-2), the row kernel.  Batched fft2
-    # (16 planes): the fused plane forward and back.  Non-pow2 fft: the
+    # (16 planes): the fused plane forward and back.  fft2 of one complex64
+    # plane: the row and axis(-2) kernels' complex64 entries forward and
+    # back; rfft at 4096: the R2C kernel's complex64 sink, back the row
+    # kernel's complex64 entry.  Non-pow2 fft: the
     # composite kernel forward and back (4095); the fused chirp kernel
     # forward and back (prime 4093).  rfft at 1005: the composite R2C
     # forward, the composite C2C back.
     for fn, shape, kernels in ((ft.rfft2, (256, 1024), {"r2c_fft": 1, "ax0_fft": 2,
                                                        "rows_fft": 1}),
                                (ft.fft2, (16, 256, 256), {"fft2f_fft": 2}),
+                               (ft.fft2, (256, 1024), {"rows_fft": 2, "rows_fft_c64": 2,
+                                                       "ax0_fft": 2, "ax0_fft_c64": 2}),
+                               (ft.rfft, (64, 4096), {"r2c_fft": 1, "r2c_fft_c64": 1,
+                                                      "rows_fft": 1, "rows_fft_c64": 1}),
                                (ft.fft, (64, 4095), {"gen_fft": 2}),
                                (ft.fft, (64, 4093), {"chirp_full": 2}),
                                (ft.rfft, (64, 1005), {"r2c_gen_fft": 1, "gen_fft": 1})):
@@ -1517,11 +1583,23 @@ def main() -> int:
         })
         del x, re, im
 
+    x = crand(4096, 4096)  # fft2's axis(-2) pass: both layouts
+    re, im = planes(x)
+    times["ax0_fft 4096x4096"] = time_in_turns({
+        "kernel": lambda: cuda_fft._ax0_launch(re, im, -1, None),
+        "kernel_c64": lambda: cuda_fft._ax0_launch_c64(x, -1, None),
+        "plain": lambda: cuda_fft.fft_axis0_split_reference(re, im, -1),
+        "plain_c64": lambda: cuda_fft.fft_axis0_c64_reference(x, -1),
+        "torch.fft": lambda: torch.fft.fft(x, dim=-2),
+        "copy": plane_copy(re, im),
+    }, reps=20)
+    del x, re, im
     x = crand(1024, 4096)  # the 2^22 four-step's pass shapes
     re, im = planes(x)
     outer = (1024, 1 << 22)
     times["ax0_fft 1024x4096"] = time_in_turns({
         "kernel": lambda: cuda_fft._ax0_launch(re, im, -1, None),
+        "kernel_c64": lambda: cuda_fft._ax0_launch_c64(x, -1, None),
         "plain": lambda: cuda_fft.fft_axis0_split_reference(re, im, -1),
         "torch.fft": lambda: torch.fft.fft(x, dim=-2),
         "copy": plane_copy(re, im),
@@ -1571,7 +1649,9 @@ def main() -> int:
     }, reps=10)
     times["ax3_fft 256^3"] = time_in_turns({
         "kernel": lambda: cuda_fft._ax3_launch(re, im, -1, None),
+        "kernel_c64": lambda: cuda_fft._ax3_launch_c64(x, -1, None),
         "plain": lambda: cuda_fft.fft_axis3_split_reference(re, im, -1),
+        "plain_c64": lambda: cuda_fft.fft_axis3_c64_reference(x, -1),
         "torch.fft": lambda: torch.fft.fft(x, dim=0),
         "copy": plane_copy(re, im),
     }, reps=10)
@@ -1584,7 +1664,10 @@ def main() -> int:
     times["r2c_fft 4096x4096"] = time_in_turns({
         "kernel": lambda: cuda_fft._r2c_launch(r, None, False),
         "kernel_padded": lambda: cuda_fft._r2c_launch(r, None, True),
+        "kernel_c64": lambda: cuda_fft._r2c_launch_c64(r, None),
+        "rfft": lambda: ft.rfft(r),
         "plain": lambda: cuda_fft.rfft_rows_split_reference(r),
+        "plain_c64": lambda: cuda_fft.rfft_rows_c64_reference(r),
         "torch.fft": lambda: torch.fft.rfft(r),
         "copy": lambda: out.copy_(r),
     }, reps=20)
@@ -1603,6 +1686,8 @@ def main() -> int:
             *cuda_fft._rows_t_launch(re, im, -1, None, None), -1, None, None),
         "rows_fft + ax0_fft": lambda: cuda_fft._ax0_launch(
             *cuda_fft._launch(re, im, -1, None), -1, None),
+        "rows_fft_c64 + ax0_fft_c64": lambda: cuda_fft._ax0_launch_c64(
+            cuda_fft._launch_c64(x, -1, None), -1, None),
         "fft2": lambda: ft.fft2(x),
         "torch.fft": lambda: torch.fft.fft2(x),
         "copy": plane_copy(re, im),
@@ -1774,15 +1859,30 @@ def main() -> int:
                 **{f"{k} launches": v / reps for k, v in n_launch.items()}}
 
     profiles = {}
+
+    def alone(call, fn, kernels):
+        """Profile ``call``: its kernels alone, each once a call, no other
+        device work.  A profiler window on the card now and then drops
+        device events, so a window that sees fewer launches is taken
+        again (at most three); one that sees other work fails at once."""
+        for _ in range(3):
+            got = breakdown(fn, kernels)
+            check(got["other launches"] == 0, f"{call}: other device work: {got}")
+            if all(got[f"{k} launches"] == 1 for k in kernels):
+                profiles[call] = got
+                return
+        check(False, f"{call}: not its kernels once each a call: {got}")
+
     # the 1-D main path on complex64: its kernel alone, no split or merge
     for rows, n, kernel in ((4096, 4096, "rows_fft"), (256, 1 << 16, "big_fft")):
         x = crand(rows, n)
         pn = ft.plan(n)
-        call = f"plan({n}).forward {rows}x{n}"
-        profiles[call] = breakdown(lambda: pn.forward(x), (kernel,))
-        got = profiles[call]
-        check(got["other launches"] == 0 and got[f"{kernel} launches"] == 1,
-              f"{call}: not its kernel alone, once a call: {got}")
+        alone(f"plan({n}).forward {rows}x{n}", lambda: pn.forward(x), (kernel,))
+    # fft2 of a complex64 plane and rfft: their kernels alone, no split or merge
+    x = crand(4096, 4096)
+    r = torch.randn(4096, 4096, device=dev, generator=gen)
+    alone("fft2 4096x4096", lambda: ft.fft2(x), ("rows_fft", "ax0_fft"))
+    alone("rfft 4096x4096", lambda: ft.rfft(r), ("r2c_fft",))
     for rows, n in ((1024, 4095), (1024, 4097), (2048, 1000)):
         x = crand(rows, n)
         profiles[f"fft {rows}x{n}"] = breakdown(lambda: ft.fft(x), ("gen_fft",))
@@ -1949,8 +2049,9 @@ def main() -> int:
     c2c = 16  # bytes per point of a planar complex64 row, read and written
     r2c = lambda n, rows: (4 * n + 8 * (n // 2 + 1)) * rows  # noqa: E731
     print(json.dumps({"kernels": [
-        # rows_fft and big_fft through each of their two entries (the
-        # planar one, and the complex64 one of the 1-D main path)
+        # rows_fft, ax0_fft (axis -2 and the axis(-3) view), r2c_fft and
+        # big_fft through each of their two entries (the planar one, and the
+        # complex64 one of the 1-D main path, fft2, fftn and rfft)
         entry("rows_fft", "rows_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:946",
               "rows_fft 4096x4096", c2c * 4096 * 4096, fft_flops(4096, 4096)),
         entry("rows_fft_c64", "rows_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:946",
@@ -1958,14 +2059,23 @@ def main() -> int:
               ms="kernel_c64", plain="plain_c64"),
         entry("ax0_fft", "ax0_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1180",
               "ax0_fft 1024x4096", c2c * 1024 * 4096, fft_flops(1024, 4096)),
+        entry("ax0_fft_c64", "ax0_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1180",
+              "ax0_fft 4096x4096", c2c * 4096 * 4096, fft_flops(4096, 4096),
+              ms="kernel_c64", plain="plain_c64"),
         entry("ax3_fft", "ax0_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1342",
               "ax3_fft 256^3", c2c * 256 ** 3, fft_flops(256, 256 * 256)),
+        entry("ax3_fft_c64", "ax0_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1342",
+              "ax3_fft 256^3", c2c * 256 ** 3, fft_flops(256, 256 * 256),
+              ms="kernel_c64", plain="plain_c64"),
         entry("rows_t_fft", "rows_t_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1494",
               "rows_t_fft 1024x4096", c2c * 1024 * 4096, fft_flops(4096, 1024)),
         entry("fft2f_fft", "fft2f_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2274",
               "fft2f_fft 256x256x256", c2c * 256 ** 3, fft_flops(256 * 256, 256)),
         entry("r2c_fft", "r2c_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1801",
               "r2c_fft 4096x4096", r2c(4096, 4096), rfft_flops(4096, 4096)),
+        entry("r2c_fft_c64", "r2c_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1801",
+              "r2c_fft 4096x4096", r2c(4096, 4096), rfft_flops(4096, 4096),
+              ms="kernel_c64", plain="plain_c64"),
         entry("c2r_fft", "c2r_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2076",
               "c2r_fft 4096x4096", r2c(4096, 4096), rfft_flops(4096, 4096)),
         entry("big_fft", "big_fft.cu", "fft_wgpu_tpu/ops/bigfft.py:139",

@@ -1,11 +1,12 @@
 // Mixed-radix Stockham passes over a row in shared memory, for the
 // composite-length kernels (gen_fft.cu, C2C rows; r2c_gen_fft.cu, R2C rows;
 // ax0_gen_fft.cu, C2C columns) and, with the plan fixed at compile time
-// (mixed_fft_fixed; plan_fft for the power-of-two lengths 2^7 .. 2^14 of
+// (mixed_fft_fixed; plan_fft for the power-of-two lengths 2^6 .. 2^14 of
 // the one compiled plan table, plan_radix), the power-of-two kernels: the
-// chirp passes (chirp_fft.cu), the row kernel (rows_fft.cu) and the
-// whole-row kernel's per-block transform (big_fft.cu), which hold each row
-// in shared memory as interleaved (re, im) pairs with a pad pair after
+// chirp passes (chirp_fft.cu), the row kernel (rows_fft.cu), the whole-row
+// kernel's per-block transform (big_fft.cu), the column kernel (ax0_fft.cu)
+// and the R2C kernel's half-length transform (r2c_fft.cu), which hold each
+// row in shared memory as interleaved (re, im) pairs with a pad pair after
 // every 16 (PadShared).
 //
 // A transform of N points runs the passes of a plan, N = R_0 * R_1 * ...,
@@ -527,6 +528,18 @@ __device__ __forceinline__ void mixed_fft(const Row& row, const MixedPlan& plan,
   }
 }
 
+// The threads of a row and this thread's index among them: blockDim.x and
+// threadIdx.x, unless the row's type says otherwise with a member lanes()
+// (a block whose rows interleave across the lanes of a warp, ax0_fft.cu).
+template <class Row>
+__device__ __forceinline__ auto row_lanes(const Row& row, int) -> decltype(row.lanes()) {
+  return row.lanes();
+}
+template <class Row>
+__device__ __forceinline__ int2 row_lanes(const Row&, long) {
+  return make_int2(static_cast<int>(blockDim.x), static_cast<int>(threadIdx.x));
+}
+
 // The passes of a plan fixed at compile time, radices R, RS... (2, 4, 8 or
 // 16), each at mixed_hold(R) butterflies a thread (the launch shape of
 // mixed_shape), src -> row.shared() -> ... -> row.dst() as in mixed_fft,
@@ -540,7 +553,8 @@ template <int SIGN, int N, int NS, int OFF, int R, int... RS, class Src, class R
 __device__ __forceinline__ void fixed_passes(const Src& src, const Row& row,
                                              const float2* __restrict__ tw) {
   static_assert(R == 2 || R == 4 || R == 8 || R == 16, "power-of-two radices only");
-  const FixedStep<N, NS> a{static_cast<int>(blockDim.x), static_cast<int>(threadIdx.x)};
+  const int2 l = row_lanes(row, 0);
+  const FixedStep<N, NS> a{l.x, l.y};
   if constexpr (sizeof...(RS) == 0) {
     small_pass<R, mixed_hold(R), SIGN>(src, row.dst(), a, tw + OFF);
   } else {
@@ -577,7 +591,7 @@ struct PadShared {
   }
 };
 
-// The plan of each power of two m = 2^LOG2M, 2^7 .. 2^14, compiled into the
+// The plan of each power of two m = 2^LOG2M, 2^6 .. 2^14, compiled into the
 // kernels that include this header: radix i, 0 past the last pass.  It is
 // ops/cuda_fft.py::_mixed_radix_plan(m) (16*8*8*8 at 8192; only the radices
 // 16 and 8, so a thread holds 16 points in every pass at m/16 threads a
@@ -585,9 +599,10 @@ struct PadShared {
 // (_pass_roots_np; tests hold the two equal).
 constexpr int kPlanMax = 4;
 __host__ __device__ constexpr int plan_radix(int log2m, int i) {
-  constexpr int plans[8][kPlanMax] = {{16, 8}, {16, 16}, {8, 8, 8}, {16, 8, 8}, {16, 16, 8},
-                                      {16, 16, 16}, {16, 8, 8, 8}, {16, 16, 8, 8}};
-  return plans[log2m - 7][i];
+  constexpr int plans[9][kPlanMax] = {{8, 8}, {16, 8}, {16, 16}, {8, 8, 8}, {16, 8, 8},
+                                      {16, 16, 8}, {16, 16, 16}, {16, 8, 8, 8},
+                                      {16, 16, 8, 8}};
+  return plans[log2m - 6][i];
 }
 
 // The passes of m = 2^LOG2M's plan, row.src() -> ... -> row.dst().

@@ -4,20 +4,22 @@ for fourteen of its entry points, and one fused pair of them.
 * ``fft_batched_split`` / ``fft_batched_c64`` — rows along the last axis,
   planar or complex64 as it lies, ``csrc/rows_fft.cu`` (the compiled pow2
   passes of ``mixed_fft.cuh``, the whole row in shared memory);
-* ``fft_axis0_split`` — along axis -2 of ``[..., n, m]`` (a tile of
-  neighbouring columns per block): ``csrc/ax0_fft.cu`` for pow2 n,
-  ``csrc/ax0_gen_fft.cu`` (the mixed-radix passes of ``mixed_fft.cuh`` on
-  each column of the tile) for composite n;
-* ``fft_axis3_split`` — along axis -3 of ``[..., n, Y, Z]``: the same
-  kernels on the free view ``[..., n, Y*Z]``;
+* ``fft_axis0_split`` / ``fft_axis0_c64`` — along axis -2 of ``[..., n, m]``
+  (a tile of neighbouring columns per block or cluster):
+  ``csrc/ax0_fft.cu`` (the compiled pow2 passes of ``mixed_fft.cuh``,
+  planar or complex64 as it lies) for pow2 n, ``csrc/ax0_gen_fft.cu`` (the
+  mixed-radix passes on each column of the tile) for composite n;
+* ``fft_axis3_split`` / ``fft_axis3_c64`` — along axis -3 of
+  ``[..., n, Y, Z]``: the same kernels on the free view ``[..., n, Y*Z]``;
 * ``fft_rows_transposed_split`` — rows with the four-step outer twiddle at
   load (a product of two table roots, :func:`_outer_tables`) and a
   transposed store, ``csrc/rows_t_fft.cu``; ``fft2_split`` is that kernel
   twice;
 * ``fft2_fused_split`` — both trailing axes of ``[..., A, B]`` planes in one
   pass over device memory, ``csrc/fft2f_fft.cu``;
-* ``rfft_rows_split`` / ``irfft_rows_split`` — R2C and C2R rows through a
-  half-length complex FFT, ``csrc/r2c_fft.cu`` and ``csrc/c2r_fft.cu``;
+* ``rfft_rows_split`` / ``rfft_rows_c64`` / ``irfft_rows_split`` — R2C
+  (into planes or complex64) and C2R rows through a half-length complex
+  FFT, ``csrc/r2c_fft.cu`` and ``csrc/c2r_fft.cu``;
 * ``fft_rows_general_split`` / ``rfft_rows_general_split`` — C2C and R2C
   rows of composite non-pow2 length n = n1*n2 (factors <= 256) as
   mixed-radix Stockham passes in one pass over device memory
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -57,11 +60,13 @@ __all__ = ["Unsupported", "FUSED_MIN_N", "FUSED_MAX_N", "FFT2F_MAX_ELEMS",
            "GEN_MIN_N", "GEN_MAX_FACTOR",
            "fft_batched_split", "fft_batched_split_reference", "fft_batched_c64",
            "fft_batched_c64_reference",
-           "fft_axis0_split", "fft_axis0_split_reference", "fft_axis3_split",
-           "fft_axis3_split_reference", "fft_rows_transposed_split",
+           "fft_axis0_split", "fft_axis0_split_reference", "fft_axis0_c64",
+           "fft_axis0_c64_reference", "fft_axis3_split", "fft_axis3_split_reference",
+           "fft_axis3_c64", "fft_axis3_c64_reference", "fft_rows_transposed_split",
            "fft_rows_transposed_split_reference", "fft2_fused_split",
            "fft2_fused_split_reference", "fft2_split", "pad_bins",
-           "rfft_rows_split", "rfft_rows_split_reference", "irfft_rows_split",
+           "rfft_rows_split", "rfft_rows_split_reference", "rfft_rows_c64",
+           "rfft_rows_c64_reference", "irfft_rows_split",
            "irfft_rows_split_reference", "fft_rows_general_split",
            "fft_rows_general_split_reference", "rfft_rows_general_split",
            "rfft_rows_general_split_reference", "fft_chirp_forward_split",
@@ -81,15 +86,21 @@ FFT2F_MAX_ELEMS = 1 << 16  # points of one fused 2-D plane (the JAX envelope)
 # c2r_fft and its product form, gen_fft, r2c_gen_fft, chirp_fft's three
 # kernels and filt_fft's two); callers may reset them to 0.  ``launches``
 # counts every launch of rows_fft, ``c64_launches`` those of them through its
-# complex64 entry (fft_batched_c64).
+# complex64 entry (fft_batched_c64); so do ``ax0_launches`` and
+# ``ax0_c64_launches`` for ax0_fft on axis -2, ``ax3_launches`` and
+# ``ax3_c64_launches`` on the axis(-3) view, and ``r2c_launches`` and
+# ``r2c_c64_launches`` for r2c_fft.
 launches = 0
 c64_launches = 0
 ax0_launches = 0
+ax0_c64_launches = 0
 ax0_gen_launches = 0
 ax3_launches = 0
+ax3_c64_launches = 0
 rows_t_launches = 0
 fft2f_launches = 0
 r2c_launches = 0
+r2c_c64_launches = 0
 c2r_launches = 0
 gen_launches = 0
 r2c_gen_launches = 0
@@ -308,6 +319,17 @@ def _ax0_supported(n: int) -> bool:
     return GEN_MIN_N <= n <= FUSED_MAX_N and _choose_general_split(n) is not None
 
 
+# log2 of the blocks of the pow2 axis(-2) kernel's clusters for n = 2^7 ..
+# 2^14, planar and complex64: ax0_log2c of csrc/ax0_fft.cu (tests hold the
+# two equal).  A block transforms n / 2^log2c points of each of its columns,
+# and the host builds that length's pass twiddles.
+_AX0_LOG2C = {False: (0, 0, 0, 0, 0, 2, 3, 4), True: (0, 0, 0, 0, 0, 0, 2, 3)}
+
+
+def _ax0_log2c(n: int, c64: bool) -> int:
+    return _AX0_LOG2C[bool(c64)][n.bit_length() - 8]
+
+
 def _check_ax0(re) -> None:
     if re.ndim < 2:
         raise ValueError(f"axis(-2) FFT needs [..., n, m], got shape {tuple(re.shape)}")
@@ -318,40 +340,83 @@ def _check_ax0(re) -> None:
                           f"{GEN_MIN_N}..{FUSED_MAX_N} with factors <= {GEN_MAX_FACTOR})")
 
 
-def _ax0_kernel(re, im, sign, scale):
+def _ax0_kernel(re, im, sign, scale, out=None):
     """Run the axis(-2) kernel of n on CUDA tensors (``ax0_fft`` for pow2
     n, ``ax0_gen_fft`` for composite n, on the passes of
     :func:`_mixed_radix_plan`); returns the output planes and whether it
-    launched (an empty input launches nothing)."""
+    launched (an empty input launches nothing).  ``out`` (contiguous planes
+    of the input's shape) may be the input planes themselves: both kernels
+    read a tile whole before they store any of it."""
     n, m = re.shape[-2:]
     re, im = re.contiguous(), im.contiguous()
-    out = (torch.empty_like(re), torch.empty_like(im))
+    if out is None:
+        out = (torch.empty_like(re), torch.empty_like(im))
     if re.numel() == 0:
         return out, False
     planes = re.numel() // (n * m)
-    args = (re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            _twiddle_table(n, sign, re.device).data_ptr(), planes, m)
     what = f"launch failed (n={n}, m={m}, planes={planes})"
     if _supported(n):
         build.launch("ax0_fft", "ax0_fft_f32",
-                     [_P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _P], re.device, *args,
-                     n.bit_length() - 1, sign, _scale_arg(scale), _stream(re),
-                     what=f"ax0_fft {what}")
+                     [_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _F, _P], re.device,
+                     re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                     *_ax0_tables(n, sign, False, re.device), planes, m,
+                     n.bit_length() - 1, _ax0_log2c(n, False), sign, _scale_arg(scale),
+                     _stream(re), what=f"ax0_fft {what}")
     else:
         plan = _mixed_radix_plan(n)
         build.launch("ax0_gen_fft", "ax0_gen_fft_f32",
                      [_P, _P, _P, _P, _P, _LL, _LL, _I, _P, _I, _I, _F, _P],
-                     re.device, *args, n, ctypes.cast(_radix_arg(plan), _P), len(plan),
+                     re.device, re.data_ptr(), im.data_ptr(), out[0].data_ptr(),
+                     out[1].data_ptr(), _twiddle_table(n, sign, re.device).data_ptr(),
+                     planes, m, n, ctypes.cast(_radix_arg(plan), _P), len(plan),
                      sign, _scale_arg(scale), _stream(re),
                      what=f"ax0_gen_fft {what}")
     return out, True
 
 
-def _ax0_launch(re, im, sign, scale):
+def _ax0_tables(n: int, sign: int, c64: bool, device):
+    """The pow2 axis(-2) kernel's two twiddle tables, as pointers: the n-th
+    roots (its clusters' butterfly) and the pass roots of the length each
+    block transforms, n / 2^_ax0_log2c(n, c64)."""
+    q = n >> _ax0_log2c(n, c64)
+    return (_twiddle_table(n, sign, device).data_ptr(),
+            _twiddle_table(q, sign, device, _pass_roots_np).data_ptr())
+
+
+def _ax0_c64_kernel(x, sign, scale, out=None):
+    """Run ax0_fft's complex64 entry on a CUDA ``[..., n, m]`` tensor, pow2
+    n; ``out`` (contiguous, of x's shape) may be x itself.  Returns the
+    output and whether it launched (an empty input launches nothing)."""
+    n, m = x.shape[-2:]
+    x = x.resolve_conj().contiguous()
+    if out is None:
+        out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out, False
+    planes = x.numel() // (n * m)
+    build.launch("ax0_fft", "ax0_fft_c64", [_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _F, _P],
+                 x.device, x.data_ptr(), out.data_ptr(), *_ax0_tables(n, sign, True, x.device),
+                 planes, m, n.bit_length() - 1, _ax0_log2c(n, True), sign, _scale_arg(scale),
+                 _stream(x), what=f"ax0_fft launch failed (n={n}, m={m}, planes={planes})")
+    return out, True
+
+
+def _ax0_launch_c64(x, sign, scale, out=None):
+    """ax0_fft's complex64 entry on axis -2 of a CUDA tensor, counted as
+    ``ax0_fft`` and ``ax0_fft`` complex64; ``out`` may be x."""
+    global ax0_launches, ax0_c64_launches
+    out, launched = _ax0_c64_kernel(x, sign, scale, out)
+    ax0_launches += launched
+    ax0_c64_launches += launched
+    return out
+
+
+def _ax0_launch(re, im, sign, scale, out=None):
     """The axis(-2) kernel on axis -2 of CUDA tensors, counted as
-    ``ax0_fft`` (pow2 n) or ``ax0_gen_fft`` (composite n)."""
+    ``ax0_fft`` (pow2 n) or ``ax0_gen_fft`` (composite n); ``out`` may be
+    the input planes."""
     global ax0_launches, ax0_gen_launches
-    out, launched = _ax0_kernel(re, im, sign, scale)
+    out, launched = _ax0_kernel(re, im, sign, scale, out)
     if _supported(re.shape[-2]):
         ax0_launches += launched
     else:
@@ -359,25 +424,42 @@ def _ax0_launch(re, im, sign, scale):
     return out
 
 
-def _ax0(re, im, sign, scale):
+def _ax0(re, im, sign, scale, out=None):
     if re.device.type == "cuda":
-        return _ax0_launch(re, im, sign, scale)
+        return _ax0_launch(re, im, sign, scale, out)
     if re.device.type != "cpu":
         raise ValueError(f"no axis(-2) FFT for device {re.device}")
-    return fft_axis0_split_reference(re, im, sign, scale)
+    yr, yi = fft_axis0_split_reference(re, im, sign, scale)
+    if out is None:
+        return yr, yi
+    out[0].copy_(yr)
+    out[1].copy_(yi)
+    return out
 
 
-def fft_axis0_split(re, im, sign, scale=None):
+def fft_axis0_split(re, im, sign, scale=None, *, out=None):
     """Batched FFT along axis -2 of planar float32 ``[..., n, m]`` tensors
     (the m columns are the batch), with no transpose in memory; n pow2 in
     128..16384, or composite in 512..16384 with factors <= 256.
 
     sign: -1 forward / +1 inverse; scale folded into the store.
-    Differentiable (the backward is the sign-flipped transform)."""
+    Differentiable (the backward is the sign-flipped transform).  With
+    ``out=(out_re, out_im)`` (contiguous planes of the input's shape) the
+    result is written there, which may be the inputs themselves (in place);
+    that form records no autograd history."""
     _check_ax0(re)
     _check_sign(sign)
     _check_planes(re, im)
-    return _SignFlipped.apply(_ax0, sign, scale, re, im)
+    if out is None:
+        return _SignFlipped.apply(_ax0, sign, scale, re, im)
+    if torch.is_grad_enabled() and (re.requires_grad or im.requires_grad):
+        raise ValueError("out= writes in place and records no gradient; "
+                         "call without out= to differentiate")
+    if not all(o.is_contiguous() and o.dtype == torch.float32 and o.shape == re.shape
+               and o.device == re.device for o in out):
+        raise ValueError("out planes must be contiguous float32 tensors of the "
+                         "input's shape and device")
+    return _ax0(re, im, sign, scale, out)
 
 
 def _axis_plain(re, im, sign, scale, axis):
@@ -399,6 +481,43 @@ def fft_axis0_split_reference(re, im, sign, scale=None):
     :class:`Unsupported` for the same n as the kernel."""
     _check_ax0(re)
     return _axis_plain(re, im, sign, scale, -2)
+
+
+def _check_pow2_axis(x, axis: int, what: str) -> None:
+    _check_c64(x)
+    if x.ndim < -axis:
+        raise ValueError(f"{what} FFT needs at least {-axis} axes, got shape "
+                         f"{tuple(x.shape)}")
+    n = x.shape[axis]
+    if not _supported(n):
+        raise Unsupported(f"n={n} outside the complex64 {what} kernel envelope (pow2 "
+                          f"{FUSED_MIN_N}..{FUSED_MAX_N})")
+
+
+def _ax0_c64(x, sign, scale):
+    if x.device.type == "cuda":
+        return _ax0_launch_c64(x, sign, scale)
+    if x.device.type != "cpu":
+        raise ValueError(f"no axis(-2) FFT for device {x.device}")
+    return fft_axis0_c64_reference(x, sign, scale)
+
+
+def fft_axis0_c64(x, sign, scale=None):
+    """:func:`fft_axis0_split` on a complex64 ``[..., n, m]`` tensor as it
+    lies (interleaved (re, im) pairs; a non-contiguous one is copied first),
+    pow2 n in 128..16384, with no split and no merge: on the card the
+    kernel's interleaved entry, one launch.  Differentiable (the backward is
+    the sign-flipped transform)."""
+    _check_pow2_axis(x, -2, "axis(-2)")
+    _check_sign(sign)
+    return _SignFlipped.apply(_ax0_c64, sign, scale, x)
+
+
+def fft_axis0_c64_reference(x, sign, scale=None):
+    """Plain torch version of :func:`fft_axis0_c64`: the plain version of
+    the planar entry on the two planes."""
+    _check_pow2_axis(x, -2, "axis(-2)")
+    return torch.complex(*fft_axis0_split_reference(x.real, x.imag, sign, scale))
 
 
 def _mixed_radix_axis(re, im, sign, scale, axis=-2):
@@ -625,6 +744,61 @@ def fft_axis3_split_reference(re, im, sign, scale=None):
     return _axis_plain(re, im, sign, scale, -3)
 
 
+def _ax3_launch_c64(x, sign, scale):
+    """ax0_fft's complex64 entry on the free view ``[..., n, Y*Z]`` of a
+    contiguous CUDA ``[..., n, Y, Z]``, counted as axis(-3) and axis(-3)
+    complex64."""
+    global ax3_launches, ax3_c64_launches
+    shape = x.shape
+    x = x.resolve_conj().contiguous()
+    y, launched = _ax0_c64_kernel(x.view(*shape[:-2], shape[-2] * shape[-1]), sign, scale)
+    ax3_launches += launched
+    ax3_c64_launches += launched
+    return y.view(shape)
+
+
+def _ax3_c64(x, sign, scale):
+    if x.device.type == "cuda":
+        return _ax3_launch_c64(x, sign, scale)
+    if x.device.type != "cpu":
+        raise ValueError(f"no axis(-3) FFT for device {x.device}")
+    return fft_axis3_c64_reference(x, sign, scale)
+
+
+def fft_axis3_c64(x, sign, scale=None):
+    """:func:`fft_axis3_split` on a complex64 ``[..., n, Y, Z]`` tensor as it
+    lies, pow2 n in 128..16384: on the card the axis(-2) kernel's
+    interleaved entry on the free view ``[..., n, Y*Z]``, one launch, no
+    split and no merge.  Differentiable (the backward is the sign-flipped
+    transform)."""
+    _check_pow2_axis(x, -3, "axis(-3)")
+    _check_sign(sign)
+    return _SignFlipped.apply(_ax3_c64, sign, scale, x)
+
+
+def fft_axis3_c64_reference(x, sign, scale=None):
+    """Plain torch version of :func:`fft_axis3_c64`: the plain version of
+    the planar entry on the two planes."""
+    _check_pow2_axis(x, -3, "axis(-3)")
+    return torch.complex(*fft_axis3_split_reference(x.real, x.imag, sign, scale))
+
+
+def fft_c64_along(x, axis: int, sign, scale=None):
+    """The complex64 kernels' transform of ``x`` along ``axis`` (pow2 length
+    in 128..16384): the row kernel's interleaved entry for the last axis,
+    the axis(-2) kernel's for axis -2, and that kernel on the free view
+    ``[..., n, mid, Z]`` for an axis before it (the axes between merged
+    into mid).  Differentiable."""
+    ax = axis % x.ndim
+    if ax == x.ndim - 1:
+        return fft_batched_c64(x, sign, scale)
+    if ax == x.ndim - 2:
+        return fft_axis0_c64(x, sign, scale)
+    shape = x.shape
+    view = (*shape[:ax + 1], math.prod(shape[ax + 1:-1]), shape[-1])
+    return fft_axis3_c64(x.reshape(view), sign, scale).reshape(shape)
+
+
 # ---------------------------------------------------------------------- #
 # 2-D planes: fused (pallas_fft.fft2_fused_split) and two transposed-rows
 # passes (pallas_fft.fft2_split)
@@ -775,25 +949,57 @@ def _c2r_pack(Xr, Xi, n):
     return er - oi, ei + or_
 
 
+def _paired(xr):
+    """xr contiguous and 8-byte aligned, as the R2C kernel reads each pair
+    of real points (x[2j], x[2j+1]) as one 8-byte load."""
+    xr = xr.contiguous()
+    return xr.clone() if xr.data_ptr() % 8 else xr
+
+
+def _r2c_tables(n: int, device):
+    """The R2C kernel's two tables, as pointers: the pass roots of the
+    half length m = n/2 (sign -1) and the recombination's exp(-2 pi i k/n),
+    k = 0..m."""
+    return (_twiddle_table(n // 2, FORWARD, device, _pass_roots_np).data_ptr(),
+            _halfcomplex_table(n, FORWARD, device).data_ptr())
+
+
 def _r2c_launch(xr, scale, pad_out):
-    """Run the r2c_fft kernel on a CUDA tensor."""
+    """Run the r2c_fft kernel's planar sink on a CUDA tensor."""
     global r2c_launches
     n = xr.shape[-1]
     bins = pad_bins(n) if pad_out else n // 2 + 1
-    xr = xr.contiguous()
+    xr = _paired(xr)
     shape = (*xr.shape[:-1], bins)
     out = (xr.new_empty(shape), xr.new_empty(shape))
     if xr.numel() == 0:
         return out
     rows = xr.numel() // n
-    m = n // 2
     build.launch("r2c_fft", "r2c_fft_f32", [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
                  xr.device, xr.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                 _twiddle_table(m, FORWARD, xr.device).data_ptr(),
-                 _halfcomplex_table(n, FORWARD, xr.device).data_ptr(), rows,
-                 m.bit_length() - 1, bins, _scale_arg(scale), _stream(xr),
+                 *_r2c_tables(n, xr.device), rows, n.bit_length() - 2, bins,
+                 _scale_arg(scale), _stream(xr),
                  what=f"r2c_fft launch failed (n={n}, rows={rows})")
     r2c_launches += 1
+    return out
+
+
+def _r2c_launch_c64(xr, scale):
+    """Run the r2c_fft kernel's complex64 sink on a CUDA tensor: ``[...,
+    n/2 + 1]`` complex64, no merge."""
+    global r2c_launches, r2c_c64_launches
+    n = xr.shape[-1]
+    xr = _paired(xr)
+    out = torch.empty((*xr.shape[:-1], n // 2 + 1), dtype=torch.complex64, device=xr.device)
+    if xr.numel() == 0:
+        return out
+    rows = xr.numel() // n
+    build.launch("r2c_fft", "r2c_fft_c64", [_P, _P, _P, _P, _LL, _I, _F, _P], xr.device,
+                 xr.data_ptr(), out.data_ptr(), *_r2c_tables(n, xr.device), rows,
+                 n.bit_length() - 2, _scale_arg(scale), _stream(xr),
+                 what=f"r2c_fft launch failed (n={n}, rows={rows})")
+    r2c_launches += 1
+    r2c_c64_launches += 1
     return out
 
 
@@ -857,6 +1063,30 @@ class _R2C(torch.autograd.Function):
         return yr, None, None
 
 
+def _r2c_c64(xr, scale):
+    if xr.device.type == "cuda":
+        return _r2c_launch_c64(xr, scale)
+    if xr.device.type != "cpu":
+        raise ValueError(f"no R2C FFT for device {xr.device}")
+    return rfft_rows_c64_reference(xr, scale)
+
+
+class _R2CC64(torch.autograd.Function):
+    """:class:`_R2C` into complex64: the same adjoint, on the complex64
+    cotangent zero-padded to n through the +sign row kernel's complex64
+    entry, real part (no split)."""
+
+    @staticmethod
+    def forward(ctx, xr, scale):
+        ctx.n, ctx.scale = xr.shape[-1], scale
+        return _r2c_c64(xr, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = torch.nn.functional.pad(g.to(torch.complex64), (0, ctx.n - g.shape[-1]))
+        return _transform_c64(g, INVERSE, ctx.scale).real, None
+
+
 def _c2r_adjoint(g, n, scale, padded_in):
     """The adjoint of the C2R with scale k, x = 2k Re sum_b eps_b X[b]
     exp(+2 pi i b j/n), eps = 1/2 at DC and Nyquist: 2k eps_b (R2C of g)[b]
@@ -894,6 +1124,24 @@ def rfft_rows_split(xr, scale=None, *, pad_out=False):
         raise ValueError("rfft_rows_split takes a float32 tensor")
     _check_real(xr.shape[-1])
     return _R2C.apply(xr, scale, bool(pad_out))
+
+
+def rfft_rows_c64(xr, scale=None):
+    """Batched R2C FFT over the last axis: real float32 ``[..., n]`` ->
+    complex64 ``[..., n//2 + 1]``, pow2 n in 128..16384: on the card the
+    kernel's complex64 sink, one launch and no merge.  Forward sign; scale
+    folded into the store.  Differentiable (backward: the +sign row kernel
+    on the zero-padded cotangent, real part)."""
+    if not isinstance(xr, torch.Tensor) or xr.dtype != torch.float32 or xr.ndim < 1:
+        raise ValueError("rfft_rows_c64 takes a float32 tensor of at least one axis")
+    _check_real(xr.shape[-1])
+    return _R2CC64.apply(xr, scale)
+
+
+def rfft_rows_c64_reference(xr, scale=None):
+    """Plain torch version of :func:`rfft_rows_c64`: the plain version of
+    the planar entry, merged."""
+    return torch.complex(*rfft_rows_split_reference(xr, scale))
 
 
 def rfft_rows_split_reference(xr, scale=None, *, pad_out=False):

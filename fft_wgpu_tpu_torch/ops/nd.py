@@ -17,14 +17,23 @@ kernel, measured faster at 4096 x 4096 (0.60 against 0.67 ms on an NVIDIA
 H100 80GB HBM3 at its 700 W power limit, PERF.md), so those planes take
 the per-axis loop.
 
-Routes are picked by envelope predicates (:func:`_fused_plane`), never by
-catching an error.  A CPU tensor takes the per-axis loop, as the JAX
-package does off the TPU.
+A complex64 CUDA tensor whose transformed axes are all pow2 in 128..16384,
+and which the fused plane does not take, runs each axis through the
+kernels' complex64 entries (:func:`_c64_route`, :func:`fftn_c64`): the
+row kernel's for the last axis, the axis(-2) kernel's for axis -2 and on
+the free view for the axes before it, with no split and no merge (``fft2``
+of a 4096 x 4096 plane is two launches and nothing else).
+
+Routes are picked by envelope predicates (:func:`_fused_plane`,
+:func:`_c64_route`), never by catching an error.  A CPU tensor takes the
+per-axis loop, as the JAX package does off the TPU.
 """
 
 from __future__ import annotations
 
 import math
+
+import torch
 
 from ..core.complex_utils import merge, promote_to_split
 from ..core.twiddle import FORWARD, INVERSE
@@ -68,6 +77,38 @@ def _fused_plane(shape, axes, device, executor="auto") -> bool:
                 and cuda_fft._fft2f_supported(*shape[-2:]))
 
 
+def _c64_route(shape, dtype, device, s, axes, executor="auto") -> bool:
+    """Whether the transform over ``axes`` (normalised, with the sizes
+    ``s``) of a tensor of ``shape``, ``dtype`` and ``device`` runs the
+    complex64 entries axis by axis (:func:`fftn_c64`): complex64 on a CUDA
+    device, no pad or trim, every axis pow2 in 128..16384, and not the
+    fused-plane kernel's route."""
+    return (dtype == torch.complex64 and device.type == "cuda"
+            and executor in ("auto", "pallas") and len(axes) > 0
+            and all(size is None or size == shape[a] for size, a in zip(s, axes))
+            and all(cuda_fft._supported(shape[a]) for a in axes)
+            and not _fused_plane(shape, axes, device, executor))
+
+
+def fftn_c64(x, axes, sign, scale):
+    """The complex64 route: each axis of ``axes`` in turn through the
+    kernels' complex64 entries (``cuda_fft.fft_c64_along``), the scale
+    folded into the last axis's pass.  Differentiable."""
+    for i, ax in enumerate(axes):
+        x = cuda_fft.fft_c64_along(x, ax, sign, scale if i == len(axes) - 1 else None)
+    return x
+
+
+def _nd_scale(total, sign, norm):
+    if norm in (None, "backward"):
+        return None if sign == FORWARD else 1.0 / total
+    if norm == "ortho":
+        return total**-0.5
+    if norm == "forward":
+        return 1.0 / total if sign == FORWARD else None
+    raise ValueError(f"invalid norm {norm!r}")
+
+
 def fftn_split(re, im, axes, sign, scale, executor="auto"):
     """Apply the 1-D executor along each axis; the scale is folded into the
     last axis's pass (the JAX package multiplies once at the end).
@@ -104,19 +145,16 @@ def _run_nd_split(x, s, axes, sign, norm, executor):
         if size is not None and re.shape[ax] != size:
             re, im = _pad_or_trim(re, im, size, ax)
 
-    total = math.prod(re.shape[a] for a in axes)
-    if norm in (None, "backward"):
-        scale = None if sign == FORWARD else 1.0 / total
-    elif norm == "ortho":
-        scale = total**-0.5
-    elif norm == "forward":
-        scale = 1.0 / total if sign == FORWARD else None
-    else:
-        raise ValueError(f"invalid norm {norm!r}")
+    scale = _nd_scale(math.prod(re.shape[a] for a in axes), sign, norm)
     return fftn_split(re, im, tuple(axes), sign, scale, executor)
 
 
 def _run_nd(x, s, axes, sign, norm, executor):
+    if isinstance(x, torch.Tensor):
+        sn, axn = _norm_axes(x.ndim, s, axes)
+        if _c64_route(x.shape, x.dtype, x.device, sn, axn, executor):
+            scale = _nd_scale(math.prod(x.shape[a] for a in axn), sign, norm)
+            return fftn_c64(x, axn, sign, scale)
     return merge(*_run_nd_split(x, s, axes, sign, norm, executor))
 
 

@@ -4,7 +4,9 @@ Even lengths use the half-size packing trick: one complex FFT of length
 n/2 plus an O(n) recombination, about half the flops and bytes of a full
 C2C.  On a CUDA tensor, pow2 n in 128..16384 runs that in one pass per row
 through the R2C / C2R kernels (``cuda_fft.rfft_rows_split`` and
-``cuda_fft.irfft_rows_split``); an R2C of composite non-pow2 n in the
+``cuda_fft.irfft_rows_split``; ``rfft`` itself takes the R2C kernel's
+complex64 sink, ``cuda_fft.rfft_rows_c64``, and returns its output with no
+merge); an R2C of composite non-pow2 n in the
 composite-row envelope, odd or even, runs the composite R2C kernel
 (``cuda_fft.rfft_rows_general_split``); other even n take the packed
 path through the plan, other odd n a zero-imaginary C2C.  The C2R of a
@@ -160,9 +162,22 @@ def _real_tensor(x):
     return _float_tensor(x)
 
 
+def _rfft_c64(device, n: int) -> bool:
+    """Whether ``rfft`` of length ``n`` on ``device`` runs the R2C kernel's
+    complex64 sink (one launch, no merge): a CUDA device, pow2 n in the
+    kernel's envelope."""
+    return device.type == "cuda" and cuda_fft._supported(n)
+
+
 def rfft(x, n=None, axis: int = -1, norm=None):
     """1-D R2C FFT: real input -> n//2+1 complex bins (numpy.fft.rfft)."""
-    return merge(*_rfft_split(x, n, axis, norm))
+    xr = _real_tensor(x)
+    if n is not None and xr.shape[axis] != n:
+        xr = _resize_axis(xr, n, axis)
+    if _rfft_c64(xr.device, xr.shape[axis]):
+        scale = _scales(xr.shape[axis], norm, inverse=False)
+        return cuda_fft.rfft_rows_c64(xr.movedim(axis, -1), scale).movedim(-1, axis)
+    return merge(*_rfft_split(xr, None, axis, norm))
 
 
 def _rfft_split(x, n, axis, norm):

@@ -88,8 +88,9 @@ class Plan:
       normalize              -> Normalize::proc
 
     ``donate=True`` makes the ``*_split`` forms write their result into the
-    input planes, in place: on the row kernel directly (each block holds its
-    whole row in shared memory before it stores), elsewhere by a copy.
+    input planes, in place: on the row kernel and the axis(-2) kernels
+    directly (each block holds its whole row, or each cluster its whole
+    tile, on chip before it stores), elsewhere by a copy.
     ``autotune=True`` raises :class:`NotImplementedError` on a CUDA tensor
     until ``plan/autotune.py`` is ported; on a CPU tensor it does nothing,
     as in the JAX package off the TPU.
@@ -176,6 +177,9 @@ class Plan:
                 raise ValueError(f"plan built for n={self.n}, input axis "
                                  f"{axis} has length {shape[ax]}")
             if ax == re.ndim - 2:
+                if out is not None and re.is_contiguous() and im.is_contiguous():
+                    # in place: the kernel reads each tile whole before it stores
+                    return cuda_fft.fft_axis0_split(re, im, sign, scale, out=out)
                 return _into(out, *cuda_fft.fft_axis0_split(re, im, sign, scale))
             view = (*shape[:ax + 1], math.prod(shape[ax + 1:-1]), shape[-1])
             yr, yi = cuda_fft.fft_axis3_split(re.reshape(view), im.reshape(view),
@@ -212,20 +216,23 @@ class Plan:
     # public complex-facade methods
     # ------------------------------------------------------------------ #
     def _execute_c64(self, x, axis: int, sign: int, scale):
-        """The transform of a complex64 CUDA tensor along its last axis on
-        the row kernel's route, or the whole-row kernel's (``"bigfft"``, or
-        ``"fourstep"`` where that kernel takes the shape), through the
-        kernel's interleaved entry: one launch, no split and no merge.
-        None for any other input, which takes the planar path."""
+        """The transform of a complex64 CUDA tensor on the row kernel's
+        route (any axis: the row kernel's, the axis(-2) kernel's or, on the
+        free view, the axis(-3) entry), or along its last axis on the
+        whole-row kernel's (``"bigfft"``, or ``"fourstep"`` where that
+        kernel takes the shape), through the kernel's interleaved entry:
+        one launch, no split and no merge.  None for any other input, which
+        takes the planar path."""
         if not (isinstance(x, torch.Tensor) and x.dtype == torch.complex64
-                and x.is_cuda and x.ndim >= 1 and axis % x.ndim == x.ndim - 1
-                and x.shape[-1] == self.n):
+                and x.is_cuda and x.ndim >= 1 and -x.ndim <= axis < x.ndim
+                and x.shape[axis] == self.n):
             return None
         self._check_autotune(x.device)
         ex = self._resolve_executor(x.device)
         if ex in _KERNEL:
-            return cuda_fft.fft_batched_c64(x, sign, scale)
-        if ex in ("fourstep", "bigfft") and bigfft._supported(self.n, x.numel() // self.n):
+            return cuda_fft.fft_c64_along(x, axis, sign, scale)
+        if (ex in ("fourstep", "bigfft") and axis % x.ndim == x.ndim - 1
+                and bigfft._supported(self.n, x.numel() // self.n)):
             return bigfft.fft_big_c64(x, sign, scale)
         return None
 

@@ -16,10 +16,16 @@ launches there), and the two passes B11 and B12 alone at 1024 x 4093
 planar entry and, where the tree has one, its complex64 entry, with
 plan(n).forward of complex64 there (all of its device work, split and
 merge included, and its events), and fft2 of 4096 x 4096 (B1 then B2;
-set "pow2").
+set "pow2"); the pow2 column kernel (ax0_fft, B2) at 1024 x 4096 and 4096
+x 4096 and on the axis(-3) view of 256^3 (B3), the R2C kernel (r2c_fft,
+B6) at 4096 x 4096, each through its planar entry and, where the tree has
+one, its complex64 entry, fft2 and rfft of 4096 x 4096 through the public
+calls (events, all of their device work, and each kernel's), the 2^22
+four-step (config 3, plan.forward_split: B2 then B4), and B2 and B6 at
+every pow2 n of 128..16384 over 2^24 points (set "cols").
 
     python3 scripts/time_composite_rows.py [--tree DIR] [--label NAME] [--out FILE]
-                                           [--set rows|columns|chirp|pow2|all]
+                                           [--set rows|columns|chirp|pow2|cols|all]
 
 ``--tree`` imports ``fft_wgpu_tpu_torch`` from another checkout (for
 example a parent commit unpacked with ``git archive``), so that two
@@ -113,7 +119,7 @@ def main() -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--out", default=None, help="append the JSON line here")
     ap.add_argument("--set", default="all",
-                    choices=("rows", "columns", "chirp", "pow2", "all"),
+                    choices=("rows", "columns", "chirp", "pow2", "cols", "all"),
                     help="which kernels to time")
     args = ap.parse_args()
 
@@ -140,6 +146,8 @@ def main() -> int:
         time_chirp(ft, cuda_fft, dev, gen, args.label, result)
     if args.set in ("pow2", "all"):
         time_pow2(ft, cuda_fft, dev, gen, args.label, result)
+    if args.set in ("cols", "all"):
+        time_cols(ft, cuda_fft, dev, gen, args.label, result)
     for kernel, rows, n in SHAPES if args.set in ("rows", "all") else ():
         key = f"{kernel} {rows}x{n}"
         if kernel == "gen_fft":
@@ -163,7 +171,7 @@ def main() -> int:
         result["times"][key]["device"] = device_ms(fns["kernel"], f"{kernel}_kernel")
         print(f"{args.label} | {key} | rel-L2 {err:.3e} | " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in result["times"][key].items()), flush=True)
-    if args.set in ("columns", "chirp", "pow2"):
+    if args.set in ("columns", "chirp", "pow2", "cols"):
         return finish(result, args)
     fr = torch.complex(torch.randn(16, 1080, 1920, device=dev, generator=gen),
                        torch.randn(16, 1080, 1920, device=dev, generator=gen))
@@ -337,6 +345,74 @@ def time_pow2(ft, cuda_fft, dev, gen, label, result):
            {"device rows_fft": (fns["fft2"], "rows_fft_kernel"),
             "device ax0_fft": (fns["fft2"], "ax0_fft_kernel"),
             "device all": (fns["fft2"], every)}, reps=20)
+
+
+def time_cols(ft, cuda_fft, dev, gen, label, result):
+    """ax0_fft (B2) at 1024 x 4096 (config 3's pass 1) and 4096 x 4096
+    (fft2's), and on the axis(-3) view of 256^3 (B3); r2c_fft (B6) at 4096
+    x 4096; each through its planar entry and, where the tree has it, its
+    complex64 one; fft2 and rfft of 4096 x 4096 (events, all of their
+    device work, each kernel); plan(2^22).forward_split; B2 and B6 at every
+    pow2 n over 2^24 points; torch.fft beside each."""
+    import torch
+
+    crand = randn_complex(dev, gen)
+    record = recorder(label, result)
+    every = r"\w+"
+    has_c64 = hasattr(cuda_fft, "_ax0_launch_c64")
+    shapes = [((1024, 4096), "ax0"), ((4096, 4096), "ax0"), ((256, 256, 256), "ax3")]
+    shapes += [((1 << e, 1 << 24 >> e), "ax0") for e in range(7, 15)]
+    for shape, kind in dict.fromkeys(shapes):  # 4096 x 4096 once
+        x = crand(*shape)
+        re_, im_ = x.real.contiguous(), x.imag.contiguous()
+        dim = -2 if kind == "ax0" else -3
+        planar = getattr(cuda_fft, f"_{kind}_launch")
+        fns = {"kernel": lambda: planar(re_, im_, -1, None),
+               "torch.fft": lambda: torch.fft.fft(x, dim=dim)}
+        device = {"device kernel": (fns["kernel"], "ax0_fft_kernel")}
+        if has_c64:
+            c64 = getattr(cuda_fft, f"_{kind}_launch_c64")
+            fns["kernel_c64"] = lambda: c64(x, -1, None)
+            device["device kernel_c64"] = (fns["kernel_c64"], "ax0_fft_kernel")
+        want = torch.fft.fft(x.to(torch.complex128), dim=dim)
+        err = rel_l2(torch.complex(*fns["kernel"]()), want)
+        if has_c64:
+            err = max(err, rel_l2(fns["kernel_c64"](), want))
+        record(f"{kind} " + "x".join(map(str, shape)), err, fns, device, reps=20)
+        del x, re_, im_
+    for rows, n in [(4096, 4096)] + [(1 << 24 >> e, 1 << e) for e in range(7, 15)]:
+        r = torch.randn(rows, n, device=dev, generator=gen)
+        fns = {"kernel": lambda: cuda_fft._r2c_launch(r, None, False),
+               "torch.fft": lambda: torch.fft.rfft(r)}
+        device = {"device kernel": (fns["kernel"], "r2c_fft_kernel")}
+        if hasattr(cuda_fft, "_r2c_launch_c64"):
+            fns["kernel_c64"] = lambda: cuda_fft._r2c_launch_c64(r, None)
+            device["device kernel_c64"] = (fns["kernel_c64"], "r2c_fft_kernel")
+        if (rows, n) == (4096, 4096):
+            fns["rfft"] = lambda: ft.rfft(r)
+            device["device rfft all"] = (fns["rfft"], every)
+        want = torch.fft.rfft(r.double())
+        err = rel_l2(torch.complex(*fns["kernel"]()), want)
+        if "kernel_c64" in fns:
+            err = max(err, rel_l2(fns["kernel_c64"](), want))
+        record(f"r2c {rows}x{n}", max(err, rel_l2(ft.rfft(r), want)), fns, device, reps=20)
+        del r
+    x = crand(4096, 4096)
+    fns = {"fft2": lambda: ft.fft2(x), "torch.fft": lambda: torch.fft.fft2(x)}
+    record("fft2 4096x4096", rel_l2(ft.fft2(x), torch.fft.fft2(x.to(torch.complex128))), fns,
+           {"device rows_fft": (fns["fft2"], "rows_fft_kernel"),
+            "device ax0_fft": (fns["fft2"], "ax0_fft_kernel"),
+            "device all": (fns["fft2"], every)}, reps=20)
+    del x
+    x = crand(1, 1 << 22)
+    re_, im_ = x.real.contiguous(), x.imag.contiguous()
+    pn = ft.plan(1 << 22)
+    fns = {"forward_split": lambda: pn.forward_split(re_, im_),
+           "torch.fft": lambda: torch.fft.fft(x)}
+    record("plan 1x2^22", rel_l2(torch.complex(*fns["forward_split"]()), torch.fft.fft(x)),
+           fns, {"device ax0_fft": (fns["forward_split"], "ax0_fft_kernel"),
+                 "device rows_t_fft": (fns["forward_split"], "rows_t_fft_kernel"),
+                 "device all": (fns["forward_split"], every)}, reps=50)
 
 
 def randn_complex(dev, gen):

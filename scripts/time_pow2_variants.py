@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
-"""Time launch-bound and cluster-size variants of the pow2 row kernels of
-the torch port (rows_fft, B1; big_fft, B15) on one CUDA card, each beside
-the kernel as it is.
+"""Time launch-bound and cluster-size variants of the pow2 kernels of the
+torch port (rows_fft, B1; big_fft, B15; ax0_fft, B2/B3) on one CUDA card,
+each beside the kernel as it is.
 
-    python3 scripts/time_pow2_variants.py [--out FILE]
+    python3 scripts/time_pow2_variants.py [--lib rows_fft|big_fft|ax0_fft] [--out FILE]
 
 Variants: rows_fft with every launch bound at 64 registers (1024 threads an
 SM; the kernel keeps 80 for blocks of 128 and 256 threads); big_fft with
 one 512-thread block an SM at 8192 points a block (128 registers; the
 kernel asks for two, 64 registers); big_fft at 2^15 in clusters of 8 blocks
 of 4096 points (the kernel: 4 of 8192) and at 2^17 in 16 blocks of 8192
-(the kernel: 8 of 16384).  Each variant is the kernel's
-source with one line rewritten, compiled with the port's nvcc flags into
+(the kernel: 8 of 16384); ax0_fft (through both of its entries) in its
+first design's shapes (clusters from n = 1024 planar and 2048 complex64
+on, 16 planar columns of 512 points a block, 8 complex64 columns of 1024),
+with 2048 points a block's column from 4096 on (the kernel: 1024 at 4096
+planar, 4096 complex64, and 1024 planar at 8192 and 16384), with 8
+complex64 columns from 4096 on (at 4096 in a cluster of 4 blocks of 1024
+points a column; the kernel: one block of 4 columns of 4096 there, 4
+columns above), and with 4 columns of 4096 points a block in both layouts
+(one block at 4096, clusters of 2 and 4 above).  Each variant is the kernel's source with a line
+or two rewritten, compiled with the port's nvcc flags into
 ``fft_wgpu_tpu_torch/_build/variants/`` (all at once), called through its
-complex64 entry point, checked against torch.fft (relative L2 <= 1e-5) and
+complex64 entry point (ax0_fft: and its planar one), checked against
+torch.fft (relative L2 <= 1e-5) and
 timed by its kernel's device time from a torch.profiler window of 20
 calls.  The card's name and power limit (nvidia-smi) head the output; one
 JSON line ends it and, with ``--out``, is appended to FILE.
@@ -42,7 +51,16 @@ ROWS_BOUND = ("  static constexpr int kMinBlocks = kBlock <= 128 ? 6 : kBlock ==
 BIG_BOUND = "  static constexpr int kMinBlocks = kThreads == 256 ? 3 : kThreads == 512 ? 2 : 1;\n"
 BIG_15 = "    case 15 * 8 + 2: return launch<15, 2, C64>(sign, g, rows, s);\n"
 BIG_17 = "    case 17 * 8 + 3: return launch<17, 3, C64>(sign, g, rows, s);\n"
-# (library, variant) -> (line of the source, its replacement); None: as is
+AX0_LOG2C = "  constexpr int t[2][8] = {{0, 0, 0, 0, 0, 2, 3, 4}, {0, 0, 0, 0, 0, 0, 2, 3}};\n"
+AX0_COLS = "  constexpr int t[2][8] = {{32, 16, 16, 8, 8, 8, 8, 8}, {32, 16, 8, 8, 8, 4, 4, 4}};\n"
+# the first design's shapes: clusters from 1024 planar (2048 complex64) on,
+# 16 planar columns of 512 points, 8 complex64 columns of 1024
+AX0_FIRST = ((AX0_LOG2C, "  constexpr int t[2][8] = {{0, 0, 0, 1, 2, 3, 4, 4}, "
+                         "{0, 0, 0, 0, 1, 2, 3, 4}};\n"),
+             (AX0_COLS, "  constexpr int t[2][8] = {{32, 16, 16, 16, 16, 16, 16, 8}, "
+                        "{32, 16, 8, 8, 8, 8, 8, 8}};\n"))
+# (library, variant) -> (line of the source, its replacement), or a tuple of
+# such pairs; None: as is
 VARIANTS = {
     ("rows_fft", "kernel"): None,
     ("rows_fft", "64 registers"): (
@@ -54,7 +72,34 @@ VARIANTS = {
         BIG_15, BIG_15 + "    case 15 * 8 + 3: return launch<15, 3, C64>(sign, g, rows, s);\n"),
     ("big_fft", "16 blocks of 8192"): (
         BIG_17, BIG_17 + "    case 17 * 8 + 4: return launch<17, 4, C64>(sign, g, rows, s);\n"),
+    ("ax0_fft", "kernel"): None,
+    ("ax0_fft", "first design"): AX0_FIRST,
+    ("ax0_fft", "2048 a column"): (AX0_LOG2C, AX0_LOG2C.replace(
+        "{{0, 0, 0, 0, 0, 2, 3, 4}, {0, 0, 0, 0, 0, 0, 2, 3}}",
+        "{{0, 0, 0, 0, 0, 1, 2, 3}, {0, 0, 0, 0, 0, 1, 2, 3}}")),
+    ("ax0_fft", "complex64, 8 columns"): (
+        (AX0_LOG2C, AX0_LOG2C.replace("{0, 0, 0, 0, 0, 0, 2, 3}", "{0, 0, 0, 0, 0, 2, 2, 3}")),
+        (AX0_COLS, AX0_COLS.replace("{32, 16, 8, 8, 8, 4, 4, 4}",
+                                    "{32, 16, 8, 8, 8, 8, 8, 8}"))),
+    ("ax0_fft", "4 columns of 4096"): (
+        (AX0_LOG2C, AX0_LOG2C.replace("{{0, 0, 0, 0, 0, 2, 3, 4}, {0, 0, 0, 0, 0, 0, 2, 3}}",
+                                      "{{0, 0, 0, 0, 0, 0, 1, 2}, {0, 0, 0, 0, 0, 0, 1, 2}}")),
+        (AX0_COLS, AX0_COLS.replace("{{32, 16, 16, 8, 8, 8, 8, 8}, {32, 16, 8, 8, 8, 4, 4, 4}}",
+                                    "{{32, 16, 16, 8, 8, 4, 4, 4}, {32, 16, 8, 8, 8, 4, 4, 4}}"))),
 }
+# each ax0_fft variant's log2 of the cluster for n = 2^7 .. 2^14, planar
+# and complex64 (the host's table must match the compiled one; the
+# kernel's is cuda_fft._AX0_LOG2C)
+AX0_VARIANT_LOG2C = {
+    "first design": ((0, 0, 0, 1, 2, 3, 4, 4), (0, 0, 0, 0, 1, 2, 3, 4)),
+    "2048 a column": ((0, 0, 0, 0, 0, 1, 2, 3), (0, 0, 0, 0, 0, 1, 2, 3)),
+    "complex64, 8 columns": ((0, 0, 0, 0, 0, 2, 3, 4), (0, 0, 0, 0, 0, 2, 2, 3)),
+    "4 columns of 4096": ((0, 0, 0, 0, 0, 0, 1, 2), (0, 0, 0, 0, 0, 0, 1, 2)),
+}
+# (n, m) of ax0_fft's shapes: config 3's pass 1, fft2's 4096^2, the 256^3
+# axis(-3) view, and the large n
+AX0_SHAPES = ((1024, 4096), (4096, 4096), (256, 65536), (128, 131072), (512, 32768),
+              (2048, 8192), (8192, 2048), (16384, 1024))
 # the cluster sizes of the variants that change them
 CLUSTER = {"8 blocks of 4096": (15, 8), "16 blocks of 8192": (17, 16)}
 ROWS_SHAPES = ((4096, 4096), (2048, 2048), (2500, 512), (1000, 128), (1024, 16384))
@@ -70,11 +115,12 @@ def build_variants():
     def one(item):
         i, ((lib_name, name), edit) = item
         src = (build.CSRC / f"{lib_name}.cu").read_text()
-        if edit is not None:
-            if src.count(edit[0]) != 1:
+        edits = () if edit is None else (edit,) if isinstance(edit[0], str) else edit
+        for line, repl in edits:
+            if src.count(line) != 1:
                 raise RuntimeError(f"{lib_name}.cu: the line of variant {name!r} is not "
                                    "where this script expects it")
-            src = src.replace(*edit)
+            src = src.replace(line, repl)
         cu, lib = out_dir / f"v{i}.cu", out_dir / f"libv{i}.so"
         cu.write_text(src)
         proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
@@ -90,7 +136,12 @@ def build_variants():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="append the JSON line here")
+    ap.add_argument("--lib", default=None, choices=("rows_fft", "big_fft", "ax0_fft"),
+                    help="only this kernel's variants")
     args = ap.parse_args()
+    if args.lib:
+        for key in [k for k in VARIANTS if k[0] != args.lib]:
+            del VARIANTS[key]
 
     import torch
 
@@ -107,10 +158,16 @@ def main() -> int:
     fns = {}
     for (lib_name, name), lib in build_variants().items():
         f = getattr(ctypes.CDLL(lib), f"{lib_name}_c64")
-        f.argtypes = ([P, P, P, LL, I, I, F, P] if lib_name == "rows_fft"
-                      else [P, P, P, LL, I, I, I, F, P])
+        f.argtypes = {"rows_fft": [P, P, P, LL, I, I, F, P],
+                      "big_fft": [P, P, P, LL, I, I, I, F, P],
+                      "ax0_fft": [P, P, P, P, LL, LL, I, I, I, F, P]}[lib_name]
         f.restype = I
         fns[lib_name, name] = f
+        if lib_name == "ax0_fft":
+            f = getattr(ctypes.CDLL(lib), "ax0_fft_f32")
+            f.argtypes = [P, P, P, P, P, P, LL, LL, I, I, I, F, P]
+            f.restype = I
+            fns["ax0_fft_f32", name] = f
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -135,7 +192,7 @@ def main() -> int:
             return out
         return call
 
-    for rows, n in ROWS_SHAPES:
+    for rows, n in ROWS_SHAPES if ("rows_fft", "kernel") in VARIANTS else ():
         x = torch.complex(torch.randn(rows, n, device=dev, generator=gen),
                           torch.randn(rows, n, device=dev, generator=gen))
         out = torch.empty_like(x)
@@ -163,7 +220,7 @@ def main() -> int:
             return out
         return call
 
-    for rows, e in BIG_SHAPES:
+    for rows, e in BIG_SHAPES if ("big_fft", "kernel") in VARIANTS else ():
         n = 1 << e
         x = torch.complex(torch.randn(rows, n, device=dev, generator=gen),
                           torch.randn(rows, n, device=dev, generator=gen))
@@ -177,6 +234,37 @@ def main() -> int:
             elif CLUSTER[name][0] == e:
                 calls[name] = big_call(f, x, out, n, CLUSTER[name][1])
         run(f"big_fft {rows}x2^{e}", x, torch.fft.fft(x), calls, "big_fft_kernel")
+        del x, out
+    def ax0_call(name, f, x, out, n, c64):
+        log2c = (cuda_fft._ax0_log2c(n, c64) if name == "kernel"
+                 else AX0_VARIANT_LOG2C[name][c64][n.bit_length() - 8])
+        tw_n = cuda_fft._twiddle_table(n, -1, dev)
+        tw = cuda_fft._twiddle_table(n >> log2c, -1, dev, cuda_fft._pass_roots_np)
+        m = x.shape[-1]
+        if c64:
+            held = (x, out)
+        else:  # the planes live as long as the call
+            held = (x.real.contiguous(), x.imag.contiguous(), torch.empty(n, m, device=dev),
+                    torch.empty(n, m, device=dev))
+        args = tuple(t.data_ptr() for t in held)
+
+        def call():
+            err = f(*args, tw_n.data_ptr(), tw.data_ptr(), 1, m, n.bit_length() - 1, log2c,
+                    -1, 1.0, stream)
+            if err:
+                raise RuntimeError(f"ax0_fft variant {name!r}: CUDA error {err}")
+            return out if c64 else torch.complex(held[2], held[3])
+        return call
+
+    for n, m in AX0_SHAPES if ("ax0_fft", "kernel") in VARIANTS else ():
+        x = torch.complex(torch.randn(n, m, device=dev, generator=gen),
+                          torch.randn(n, m, device=dev, generator=gen))
+        out = torch.empty_like(x)
+        want = torch.fft.fft(x, dim=0)
+        for lib, c64 in (("ax0_fft", True), ("ax0_fft_f32", False)):
+            run(f"{lib} {n}x{m}", x, want,
+                {name: ax0_call(name, f, x, out, n, c64) for (lb, name), f in fns.items()
+                 if lb == lib}, "ax0_fft_kernel")
         del x, out
     line = json.dumps(result)
     if args.out:

@@ -199,19 +199,20 @@ def test_chirp_inverse_grad_matches_jax(n_out, rng, assert_close):
 # ---------------------------------------------------------------------- #
 # the fused pair, fft_chirp_full_split: the JAX package's B11 -> B12
 # ---------------------------------------------------------------------- #
-@pytest.mark.parametrize("m", [1 << e for e in range(7, 15)])
+@pytest.mark.parametrize("m", [1 << e for e in range(6, 15)])
 def test_chirp_plans_are_pow2_radices(m):
-    # the pow2 kernels' passes (chirp_fft, rows_fft, big_fft's blocks):
-    # radices 16 and 8 with product m, and the one plan table compiled into
+    # the pow2 kernels' passes (chirp_fft, rows_fft, big_fft's blocks,
+    # ax0_fft's columns, r2c_fft's half-length rows from m = 64): radices 16
+    # and 8 with product m, and the one plan table compiled into
     # csrc/mixed_fft.cuh, which they all include, is the planner's
     plan = cuda_fft._mixed_radix_plan(m)
     assert math.prod(plan) == m and set(plan) <= {16, 8}
     csrc = pathlib.Path(cuda_fft.__file__).parent.parent / "csrc"
     src = (csrc / "mixed_fft.cuh").read_text()
-    table = re.search(r"plans\[8\]\[kPlanMax\] = \{(.*?)\};", src, re.S)[1]
+    table = re.search(r"plans\[9\]\[kPlanMax\] = \{(.*?)\};", src, re.S)[1]
     compiled = [tuple(map(int, r.split(","))) for r in re.findall(r"\{([\d, ]+)\}", table)]
-    assert len(compiled) == 8 and compiled[m.bit_length() - 8] == plan
-    for name in ("chirp_fft.cu", "rows_fft.cu", "big_fft.cu"):
+    assert len(compiled) == 9 and compiled[m.bit_length() - 7] == plan
+    for name in ("chirp_fft.cu", "rows_fft.cu", "big_fft.cu", "r2c_fft.cu", "ax0_fft.cu"):
         text = (csrc / name).read_text()
         assert '#include "mixed_fft.cuh"' in text and "plans[" not in text, name
     # each pass's twiddle table: NS roots of w_(NS*R) for every pass after the

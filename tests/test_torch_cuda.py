@@ -311,16 +311,25 @@ def test_grad_bigfft_matches_plain(dev, layout):
     assert rel_l2(gk, gp) < TOL
 
 
-def _device_kernels(fn):
-    """The names of the device kernels one call of fn() runs (torch.profiler)."""
+def _device_kernels(fn, calls=1):
+    """The names of the device kernels ``calls`` calls of fn() run
+    (torch.profiler).  On the card a window now and then comes back without
+    device events, or with some of them missing: take another if it has
+    none, and count launches with the wrappers' counters, not from here."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return names
 
 
 @pytest.mark.parametrize("n,kernel", [(4096, "rows_fft_kernel"), (128, "rows_fft_kernel"),
@@ -338,12 +347,16 @@ def test_complex64_route_is_one_launch(dev, n, kernel):
              "fft": (lambda: ft.fft(x, norm="ortho"), torch.fft.fft(x, norm="ortho")),
              "ifft": (lambda: ft.ifft(x), torch.fft.ifft(x)),
              "Inverse": (lambda: ft.Inverse(n).proc(x), torch.fft.ifft(x))}
+    launches = lambda: (bigfft if kernel == "big_fft_kernel" else cuda_fft).c64_launches  # noqa: E731
     for name, (call, want) in calls.items():
-        names = _device_kernels(call)
-        assert len(names) == 1 and kernel in names[0], (name, names)
+        names = _device_kernels(call, calls=10)
+        assert names and all(kernel in k for k in names), (name, names)
+        before = launches()
         assert rel_l2(call(), want) < TOL, name
-    # other axes and the split forms keep the planar path
-    assert len(_device_kernels(lambda: p.forward_split(x.real, x.imag))) > 1
+        assert launches() == before + 1, name
+    # the split forms keep the planar path: copies of the planes beside it
+    names = _device_kernels(lambda: p.forward_split(x.real, x.imag), calls=10)
+    assert any(kernel in k for k in names) and any(kernel not in k for k in names)
 
 
 def test_grad_through_fourstep_matches_plain(dev):
@@ -1266,3 +1279,177 @@ def test_grad_segment_spectra_match_plain(dev):
 
         gk = _through(lambda: grad(x0), spec=1, r2c_fft=1, rows_fft=1)
         assert rel_l2(gk.cpu(), grad(x0.cpu())) < TOL, what
+
+
+# ---------------------------------------------------------------------- #
+# B2/B3 (ax0_fft) and B6 (r2c_fft) on the compiled pow2 passes: both
+# layouts and sinks, the complex64 entries and the routes through them
+# ---------------------------------------------------------------------- #
+POW2 = [1 << e for e in range(7, 15)]
+
+
+def _column_entry(kind, layout):
+    """B2 (axis -2) or B3 (axis -3, the free view) in one of its layouts and
+    its plain version, each as fn(x, sign, scale) on a complex64 x; the
+    axis and the launch counter of the kind."""
+    entries = {
+        ("axis0", "planar"): (_planes(cuda_fft.fft_axis0_split),
+                              _planes(cuda_fft.fft_axis0_split_reference)),
+        ("axis0", "c64"): (cuda_fft.fft_axis0_c64, cuda_fft.fft_axis0_c64_reference),
+        ("axis3", "planar"): (_planes(cuda_fft.fft_axis3_split),
+                              _planes(cuda_fft.fft_axis3_split_reference)),
+        ("axis3", "c64"): (cuda_fft.fft_axis3_c64, cuda_fft.fft_axis3_c64_reference)}
+    return (*entries[kind, layout], -2 if kind == "axis0" else -3,
+            "ax0_fft" if kind == "axis0" else "ax3")
+
+
+def _c64_counts():
+    return (cuda_fft.c64_launches, cuda_fft.ax0_c64_launches, cuda_fft.ax3_c64_launches,
+            cuda_fft.r2c_c64_launches)
+
+
+@pytest.mark.parametrize("layout", ["planar", "c64"])
+@pytest.mark.parametrize("kind", ["axis0", "axis3"])
+@pytest.mark.parametrize("n", POW2)
+def test_column_kernel_matches_float64(dev, n, kind, layout):
+    # odd column counts and ragged last tiles (8, 16 or 32 columns a tile),
+    # both signs, three scales, against the plain version and float64
+    kernel, plain, axis, counter = _column_entry(kind, layout)
+    shapes = [(n, 37), (2, n, 130)] if kind == "axis0" else [(2, n, 7, 13), (1, n, 3, 40)]
+    for shape in shapes:
+        x = crand(dev, *shape)
+        x64 = x.to(torch.complex128)
+        for sign in (-1, 1):
+            for scale in (None, 1.0 / n, n ** -0.5):
+                before = _c64_counts()
+                k = _through(lambda: kernel(x, sign, scale), **{counter: 1})
+                grew = tuple(a - b for a, b in zip(_c64_counts(), before))
+                c64 = int(layout == "c64")
+                assert grew == (0, c64 * (kind == "axis0"), c64 * (kind == "axis3"), 0)
+                p = plain(x, sign, scale)
+                o = (torch.fft.fft(x64, dim=axis) if sign < 0
+                     else torch.fft.ifft(x64, dim=axis, norm="forward"))
+                o = o * (1.0 if scale is None else scale)
+                assert k.dtype == torch.complex64 and k.shape == x.shape
+                assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, (shape, sign, scale)
+
+
+@pytest.mark.parametrize("n", POW2)
+def test_column_kernel_runs_in_place(dev, n):
+    # out = in, both layouts: every block (cluster) reads its tile whole
+    # before it stores; the planar one through Plan(donate=True)
+    x = crand(dev, 2, n, 45)
+    want = torch.fft.fft(x.to(torch.complex128), dim=-2)
+    y = x.clone()
+    assert cuda_fft._ax0_launch_c64(y, -1, None, out=y) is y
+    assert rel_l2(y, want) < TOL
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    ptrs = (re.data_ptr(), im.data_ptr())
+    before = cuda_fft.ax0_launches
+    out = ft.plan(n, donate=True).forward_split(re, im, axis=-2)
+    assert out[0] is re and out[1] is im and (re.data_ptr(), im.data_ptr()) == ptrs
+    assert cuda_fft.ax0_launches == before + 1
+    assert rel_l2(torch.complex(re, im), want) < TOL
+
+
+@pytest.mark.parametrize("n", POW2)
+@pytest.mark.parametrize("rows", [(1,), (37,), (2, 3)])
+def test_r2c_complex64_sink_matches_float64(dev, n, rows):
+    x = rrand(dev, *rows, n)
+    X64 = torch.fft.rfft(x.double())
+    for scale in (None, 1.0 / n, n ** -0.5):
+        before = cuda_fft.r2c_c64_launches
+        k = _through(lambda: cuda_fft.rfft_rows_c64(x, scale), r2c_fft=1)
+        assert cuda_fft.r2c_c64_launches == before + 1
+        p = cuda_fft.rfft_rows_c64_reference(x, scale)
+        assert k.dtype == torch.complex64 and k.shape == (*rows, n // 2 + 1)
+        s = 1.0 if scale is None else scale
+        assert rel_l2(k, p) < TOL and rel_l2(k, X64 * s) < TOL, scale
+        # the planar sink from the same kernel template: the same bits
+        kr, ki = cuda_fft._r2c_launch(x, scale, False)
+        assert torch.equal(torch.complex(kr, ki), k)
+    # an input not 8-byte aligned is copied first, as the pairs need
+    xo = rrand(dev, 3 * n + 1)[1:].view(3, n)
+    assert rel_l2(cuda_fft.rfft_rows_c64(xo), torch.fft.rfft(xo.double())) < TOL
+
+
+@pytest.mark.parametrize("entry", ["axis0_c64", "axis3_c64", "axis0_planar_16384", "r2c_c64"])
+def test_grad_c64_entries_match_plain(dev, entry):
+    # forward and backward: the entry's kernel twice (r2c: r2c_fft, then the
+    # row kernel's complex64 entry)
+    if entry == "r2c_c64":
+        x = rrand(dev, 8, 2048, seed=2)
+
+        def grad(f):
+            t = x.clone().requires_grad_()
+            y = f(t)
+            w = torch.linspace(0.5, 1.5, y.numel(), device=dev).reshape(y.shape)
+            (w * y.abs() ** 2).sum().backward()
+            return t.grad
+
+        before = _c64_counts()
+        gk = _through(lambda: grad(lambda t: cuda_fft.rfft_rows_c64(t, 2048 ** -0.5)),
+                      r2c_fft=1, rows_fft=1)
+        assert tuple(a - b for a, b in zip(_c64_counts(), before)) == (1, 0, 0, 1)
+        gp = grad(lambda t: cuda_fft.rfft_rows_c64_reference(t, 2048 ** -0.5))
+        assert rel_l2(gk, gp) < TOL
+        return
+    if entry == "axis0_planar_16384":
+        run = _grad(16384, 20)
+        gk = _through(lambda: run(lambda r, i: cuda_fft.fft_axis0_split(r, i, 1, 1e-3)),
+                      ax0_fft=2)
+        gp = run(lambda r, i: cuda_fft.fft_axis0_split_reference(r, i, 1, 1e-3))
+        assert rel_l2(gk, gp) < TOL
+        return
+    kind = entry.split("_")[0]
+    kernel, plain, _, counter = _column_entry(kind, "c64")
+    x = crand(dev, *((2, 4096, 130) if kind == "axis0" else (2, 1024, 9, 13)), seed=1)
+    w = torch.linspace(0.5, 1.5, x.numel(), device=dev).reshape(x.shape)
+    gk = _through(lambda: _grad_c64(lambda z: kernel(z, 1, 0.5), x, w), **{counter: 2})
+    gp = _grad_c64(lambda z: plain(z, 1, 0.5), x, w)
+    assert rel_l2(gk, gp) < TOL
+
+
+def test_complex64_nd_and_rfft_routes(dev):
+    # fft2 of a 4096^2 complex64 plane: the row kernel's complex64 entry and
+    # the axis(-2) kernel's, one launch each and no other device work (no
+    # split, no merge); rfft of 4096^2 float32: r2c_fft's complex64 sink
+    # alone; ifft2, fftn of other axes and a plan on axis 0 take the same
+    # entries; the fused plane and composite axes keep their routes
+    # (the launch counts from the counters, the kernels' names over ten calls
+    # from the profiler, whose windows on the card drop device events)
+    x = crand(dev, 4096, 4096)
+    names = _device_kernels(lambda: ft.fft2(x), calls=10)
+    assert {next((k for k in ("ax0_fft_kernel", "rows_fft_kernel") if k in name), name)
+            for name in names} == {"ax0_fft_kernel", "rows_fft_kernel"}, names
+    before = _c64_counts()
+    X = _through(lambda: ft.fft2(x), rows_fft=1, ax0_fft=1)
+    assert tuple(a - b for a, b in zip(_c64_counts(), before)) == (1, 1, 0, 0)
+    assert X.dtype == torch.complex64 and rel_l2(X, torch.fft.fft2(x.to(torch.complex128))) < TOL
+    assert rel_l2(_through(lambda: ft.ifft2(X, norm="ortho"), rows_fft=1, ax0_fft=1),
+                  torch.fft.ifft2(X, norm="ortho")) < TOL
+    r = rrand(dev, 4096, 4096)
+    names = _device_kernels(lambda: ft.rfft(r), calls=10)
+    assert names and all("r2c_fft_kernel" in name for name in names), names
+    before = _c64_counts()
+    R = _through(lambda: ft.rfft(r), r2c_fft=1)
+    assert tuple(a - b for a, b in zip(_c64_counts(), before)) == (0, 0, 0, 1)
+    assert R.dtype == torch.complex64 and R.shape == (4096, 2049)
+    assert rel_l2(R, torch.fft.rfft(r.double())) < TOL
+    r3 = rrand(dev, 256, 3, 512)  # along another axis: the moved axis, copied once
+    assert rel_l2(_through(lambda: ft.rfft(r3, axis=0, norm="ortho"), r2c_fft=1),
+                  torch.fft.rfft(r3.double(), dim=0, norm="ortho")) < TOL
+    y = crand(dev, 128, 3, 256)
+    before = _c64_counts()
+    Y = _through(lambda: ft.fftn(y, axes=(0, 2)), rows_fft=1, ax3=1)
+    assert tuple(a - b for a, b in zip(_c64_counts(), before)) == (1, 0, 1, 0)
+    assert rel_l2(Y, torch.fft.fftn(y, dim=(0, 2))) < TOL
+    z = crand(dev, 2048, 64)
+    before = _c64_counts()
+    Z = _through(lambda: ft.plan(2048).forward(z, axis=0), ax0_fft=1)
+    assert tuple(a - b for a, b in zip(_c64_counts(), before)) == (0, 1, 0, 0)
+    assert rel_l2(Z, torch.fft.fft(z, dim=0)) < TOL
+    before = _c64_counts()
+    _through(lambda: ft.fft2(crand(dev, 8, 256, 256)), fft2f_fft=1)
+    _through(lambda: ft.fft2(crand(dev, 1080, 1920)), gen_fft=1, ax0_gen=1)
+    assert _c64_counts() == before
