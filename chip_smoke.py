@@ -12,7 +12,7 @@ resample).
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
-the CUDA toolkit and scipy.  It builds the thirteen kernel libraries from
+the CUDA toolkit and scipy.  It builds the fourteen kernel libraries from
 ``fft_wgpu_tpu_torch/csrc`` (one nvcc each, all at once) and runs five
 phases, one line each or more; any failure raises and the script exits
 non-zero without a result line:
@@ -21,7 +21,8 @@ non-zero without a result line:
              prints it, then the versions), TF32 off, the kernel builds, and
              ptxas's registers, stack and spills of ax0_gen_fft,
              rows_t_fft and chirp_fft (m = 8192 and 16384), and of every
-             instantiation of rows_fft, big_fft, ax0_fft and r2c_fft;
+             instantiation of rows_fft, big_fft, ax0_fft, r2c_fft,
+             fft2f_fft and spec_fft;
 2. kernel  — each kernel against its plain torch version and torch.fft,
              both signs, scale None and 1/n (rel-L2 <= 1e-5 each):
              rows_fft for every n in 128..16384 at rows 1 and 1000 and at
@@ -40,7 +41,10 @@ non-zero without a result line:
              the axis(-3) pass (ax0_fft on a free view) at [2, n, 7, 130]
              and 256^3, and its complex64 entry (ax3_fft_c64) at
              [2, n, 7, 13] for every n, 256^3 and 512^3; fft2f_fft at every
-             plane of its envelope, single and batched; r2c_fft and c2r_fft
+             plane of its envelope, single and batched, and 256^3, through
+             its planar and complex64 entries (fft2f_fft_c64, also in
+             place) against the plain version of its own passes
+             (cuda_fft._fft2f_passes); r2c_fft and c2r_fft
              for every n at rows 3 and 1000, ragged and padded, and at
              4096 x 4096, r2c_fft's complex64 sink (r2c_fft_c64) at the
              same shapes;
@@ -67,13 +71,16 @@ non-zero without a result line:
              ax0_gen again against the plain version of its own passes
              (cuda_fft._mixed_radix_axis) at every n, m = 7 and 1000;
              the segment-spectrum kernels welch, psd, csd, coh, c2c, spec
-             and spec_c2c against their plain versions and float64
-             torch.fft of the frames at every pow2 nfft, nperseg = nfft
-             and odd nperseg < nfft, hops nperseg, nperseg/2 and nperseg -
-             nperseg/8, one signal with no detrend and three with
-             "constant", a ragged last tile (spec also with a roll and the
-             padded output), and at path 6's and path 7's shapes, each run
-             twice for the same bits;
+             (spec_fft's planar sink; spec_c64 its complex64 sink, both
+             against the plain version of its own passes,
+             cuda_welch._spec_passes) and spec_c2c against their plain
+             versions and float64 torch.fft of the frames at every pow2
+             nfft, nperseg = nfft and odd nperseg < nfft, hops nperseg,
+             nperseg/2 and nperseg - nperseg/8, one signal with no detrend
+             and three with "constant", a ragged last tile (spec also with
+             odd and even rolls, the padded output and stft's reflect
+             pad), and at path 6's and path 7's shapes, each run twice for
+             the same bits;
 3. main    — six paths, the launch counts set to 0 just before each and
              read just after: plan / fft / ifft / Forward at the 1-D sizes
              users call (row kernel; axis(-2) then transposed rows; whole
@@ -84,7 +91,9 @@ non-zero without a result line:
              4096 x 4096 (the complex64 entries of the row and axis(-2)
              kernels, ax0_fft_c64 counted beside ax0_fft), rfft at 4096 x
              4096 (r2c_fft's complex64 sink) and the rfft2 / irfft2 round
-             trip, fftn / ifftn at 256^3 (fused plane, then axis(-3)) and
+             trip, fftn / ifftn at 256^3 (the fused plane's complex64
+             entry, then axis(-3)'s, fft2f_fft_c64 counted beside
+             fft2f_fft) and
              fftn at 512^3 (axis(-3), axis(-2) and rows through their
              complex64 entries), then the non-pow2
              path: fft / ifft / plan at the JAX package's benchmark
@@ -105,7 +114,8 @@ non-zero without a result line:
              (K = 7) and the two-sided welch of a complex 2^22 signal (B21), each
              against scipy.signal (float64 numpy for multitaper); then
              the per-segment spectra: stft of 2^20 samples and of 8 x 2^17
-             (n_fft 512, hop 128) against float64 numpy and its istft
+             (n_fft 512, hop 128; B20's complex64 sink, spec_c64 counted
+             beside spec) against float64 numpy and its istft
              round trip, spectrogram(mode="complex") of 2^22 (nperseg
              4096, noverlap 2048), the two-sided psd and complex
              spectrograms and csd of complex 2^22 signals,
@@ -132,10 +142,11 @@ non-zero without a result line:
              same bytes; a torch.profiler breakdown of plan(4096).forward
              and of the whole-row fft, which must run their kernel alone
              (no split, no merge), and of fft2 and rfft at 4096 x 4096,
-             which must run their kernels alone, once each; fft2 at 4096 x
-             4096 by three routes (transposed rows twice, row then
-             axis(-2) planar and complex64) and the fused plane
-             at 256^3 against row then axis(-2); fftn at 512^3; the fused
+             fftn at 256^3 and stft of 2^20, which must run their kernels
+             alone, once each; fft2 at 4096 x 4096 by three routes
+             (transposed rows twice, row then axis(-2) planar and
+             complex64) and the fused plane at 256^3 in both layouts
+             against row then axis(-2) in both; fftn at 512^3; the fused
              epilogues', the estimators' and the per-segment spectra's
              kernels at their path's shapes beside torch.fft's composition
              (ax0_gen also at 16 x 4095 x 512)
@@ -169,21 +180,21 @@ TOL = 1e-5  # relative L2, the JAX package's oracle bar
 SEED = 0
 LIBS = ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft", "fft2f_fft", "r2c_fft",
         "c2r_fft", "gen_fft", "r2c_gen_fft", "chirp_fft", "filt_fft", "ax0_gen_fft",
-        "welch_fft")
+        "welch_fft", "spec_fft")
 # Kernels as the launch counters name them: the axis(-3) pass is the axis(-2)
 # kernels on a free view, with its own entry point and counter; chirp_fft
 # holds three kernels (chirp_fwd, chirp_inv and the two fused, chirp_full),
 # each with its own, filt_fft two entry points (filt, bank), c2r_fft a
-# second one (c2r_prod), welch_fft seven (welch, psd, csd, coh, c2c, spec,
-# spec_c2c); rows_fft, ax0_fft (on axis -2 and on the axis(-3) view),
-# r2c_fft and big_fft two layouts each (rows_fft_c64, ax0_fft_c64,
-# ax3_fft_c64, r2c_fft_c64 and big_fft_c64: their complex64 entries, counted
-# apart too).
+# second one (c2r_prod), welch_fft six (welch, psd, csd, coh, c2c,
+# spec_c2c), spec_fft one (spec: B20); rows_fft, ax0_fft (on axis -2 and on
+# the axis(-3) view), fft2f_fft, r2c_fft, big_fft and spec_fft two layouts
+# each (rows_fft_c64, ax0_fft_c64, ax3_fft_c64, fft2f_fft_c64, r2c_fft_c64,
+# big_fft_c64 and spec_c64: their complex64 entries, counted apart too).
 KERNELS = ("rows_fft", "rows_fft_c64", "ax0_fft", "ax0_fft_c64", "ax3_fft", "ax3_fft_c64",
-           "rows_t_fft", "fft2f_fft", "r2c_fft", "r2c_fft_c64", "c2r_fft", "big_fft",
-           "big_fft_c64", "gen_fft", "r2c_gen_fft",
+           "rows_t_fft", "fft2f_fft", "fft2f_fft_c64", "r2c_fft", "r2c_fft_c64", "c2r_fft",
+           "big_fft", "big_fft_c64", "gen_fft", "r2c_gen_fft",
            "chirp_fwd", "chirp_inv", "chirp_full", "filt", "bank", "c2r_prod", "ax0_gen",
-           "welch", "psd", "csd", "coh", "c2c", "spec", "spec_c2c")
+           "welch", "psd", "csd", "coh", "c2c", "spec", "spec_c64", "spec_c2c")
 # Composite lengths of phase 2's sweep: factors (20, 32), (25, 40), (15, 67),
 # (23, 89), (63, 65), (17, 241), (81, 81), (100, 100), (127, 129); then one
 # for each pass type of the composite kernels' mixed-radix plan: powers of 2
@@ -268,13 +279,14 @@ def multitaper_ref(x: np.ndarray, NW: float, K: int) -> np.ndarray:
 def ptxas_summary(log: str) -> list:
     """One "kernel<template arguments>: registers, stack, spill stores" entry
     per kernel of ax0_gen_fft's, rows_t_fft's, chirp_fft's, rows_fft's,
-    big_fft's, ax0_fft's and r2c_fft's nvcc -Xptxas -v logs (chirp_fft's at
-    m = 2^13 and 2^14)."""
+    big_fft's, ax0_fft's, r2c_fft's, fft2f_fft's and spec_fft's nvcc
+    -Xptxas -v logs (chirp_fft's at m = 2^13 and 2^14)."""
     out, kernel = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(ax0_gen_fft_kernel|rows_t_fft_kernel|"
                       r"chirp_fwd_kernel|chirp_inv_kernel|chirp_full_kernel|rows_fft_kernel|"
-                      r"big_fft_kernel|ax0_fft_kernel|r2c_fft_kernel)I(\w*?)EE", line)
+                      r"big_fft_kernel|ax0_fft_kernel|r2c_fft_kernel|fft2f_fft_kernel|"
+                      r"spec_fft_kernel)I(\w*?)EE", line)
         if m and m[1].startswith("chirp") and not m[2].endswith(("13", "14")):
             m = None
         if m:
@@ -385,7 +397,7 @@ def main() -> int:
           flush=True)
     for name, lib, _ in built:  # what ptxas reported for the redesigned kernels
         if name in ("ax0_gen_fft", "rows_t_fft", "chirp_fft", "rows_fft", "big_fft",
-                    "ax0_fft", "r2c_fft"):
+                    "ax0_fft", "r2c_fft", "fft2f_fft", "spec_fft"):
             print(f"ptxas: {name} | " + "; ".join(ptxas_summary(
                 lib.with_suffix(".log").read_text())), flush=True)
 
@@ -498,13 +510,26 @@ def main() -> int:
         y = torch.fft.fft2(x) if sign < 0 else torch.fft.ifft2(x, norm="forward")
         return y * (1.0 if scale is None else scale)
 
-    sweep("fft2f_fft",
-          [((*lead, a, b), None) for a, b in ((128, 128), (128, 256), (256, 128),
-                                              (128, 512), (512, 128), (256, 256))
-           for lead in ((), (5,))] + [((256, 256, 256), None)],
-          lambda re, im, s, sc, _: cuda_fft._fft2f_launch(re, im, s, sc),
-          lambda re, im, s, sc, _: cuda_fft.fft2_fused_split_reference(re, im, s, sc),
+    # the fused plane in both layouts, every plane of its envelope, single
+    # and batched, against the plain version of its own passes and exchange
+    fft2f_shapes = [((*lead, a, b), None) for a, b in ((128, 128), (128, 256), (256, 128),
+                                                       (128, 512), (512, 128), (256, 256))
+                    for lead in ((), (5,))] + [((256, 256, 256), None)]
+
+    def fft2f_plain(re, im, s, sc, _):
+        y = cuda_fft._fft2f_passes(torch.complex(re, im), s, sc)
+        return y.real, y.imag
+
+    sweep("fft2f_fft", fft2f_shapes, lambda re, im, s, sc, _: cuda_fft._fft2f_launch(re, im, s, sc),
+          fft2f_plain, lambda x, s, sc, _: oracle2(x, s, sc), dim=None)
+    sweep("fft2f_fft_c64", fft2f_shapes, c64(cuda_fft._fft2f_launch_c64), fft2f_plain,
           lambda x, s, sc, _: oracle2(x, s, sc), dim=None)
+    for shape, _ in fft2f_shapes:  # in place: the output is the input
+        x = crand(*shape)
+        plain = cuda_fft._fft2f_passes(x, 1, 0.5)
+        want = oracle2(x, 1, 0.5)
+        check(cuda_fft._fft2f_launch_c64(x, 1, 0.5, out=x) is x, "fft2f_fft_c64 out=x")
+        compare("fft2f_fft_c64", x, plain, want, f"in place {shape}")
 
     def real_sweep():
         """R2C and C2R against their plain versions and torch.fft: ragged and
@@ -806,12 +831,16 @@ def main() -> int:
     # the segment-spectrum kernels: B16 (welch), B19 (psd), B17 (csd), B18
     # (coh), B21 (c2c: y is the imaginary plane), B20 (spec), B22 (spec_c2c:
     # y is the imaginary plane)
-    def torch_segments(kind, x, y, w, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False):
-        """torch.fft's composition of a kernel's function (frames, detrend,
-        window, zero pad and roll, rfft or fft, then the spectra or their
-        power or cross product, summed over segments), in x's dtype:
-        float64 it is phase 2's oracle, float32 phase 5's baseline; never
-        the implementation."""
+    def torch_segments(kind, x, y, w, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False,
+                       pad=0):
+        """torch.fft's composition of a kernel's function (reflect pad,
+        frames, detrend, window, zero pad and roll, rfft or fft, then the
+        spectra or their power or cross product, summed over segments), in
+        x's dtype: float64 it is phase 2's oracle, float32 phase 5's
+        baseline; never the implementation."""
+        if pad:
+            x = torch.nn.functional.pad(x[None], (pad, pad), mode="reflect")[0]
+
         def spectra(v):
             fr = v.unfold(-1, nperseg, hop)
             if detrend == "constant":
@@ -822,11 +851,11 @@ def main() -> int:
                 return fft(fr.roll(-roll_s, -1))
             return fft(fr * w.to(x.dtype), n=nfft)
 
-        if kind == "spec":
+        if kind in ("spec", "spec_c64"):
             X = spectra(x)
             if pad_out:
                 X = torch.nn.functional.pad(X, (0, cuda_fft.pad_bins(nfft) - X.shape[-1]))
-            return X.real, X.imag
+            return (X,) if kind == "spec_c64" else (X.real, X.imag)
         if kind == "spec_c2c":
             X = spectra(torch.complex(x, y))
             return X.real, X.imag
@@ -848,24 +877,35 @@ def main() -> int:
     def flat(outs):
         return torch.cat([o.reshape(-1) for o in outs])
 
-    def welch_case(kind, x, y, w, args, what, with_oracle=True, opts=(0, False)):
-        """One kernel launch against its plain version (and float64
-        torch.fft); a second launch must give the same bits.  ``opts``:
-        B20's (roll_s, pad_out)."""
-        args = (*args, *opts)
-        got = cuda_welch._launch(kind, x, y, w, *args)
-        plain, _ = cuda_welch._reference(kind, x, y, w, *args)
+    def welch_case(kind, x, y, w, args, what, with_oracle=True, opts=(0, False, 0)):
+        """One kernel launch against its plain version (B20, spec and
+        spec_c64, its two sinks: the plain version of its own passes) and
+        float64 torch.fft; a second launch must give the same bits.
+        ``opts``: B20's (roll_s, pad_out, reflect pad)."""
+        if kind in ("spec", "spec_c64"):
+            def run():
+                return cuda_welch._spec_launch(x, w, *args, *opts[:2], kind == "spec_c64",
+                                               pad=opts[2])
+            X = cuda_welch._spec_passes(x, w, *args, opts[0], pad=opts[2])
+            if opts[1]:
+                X = torch.nn.functional.pad(X, (0, cuda_fft.pad_bins(args[2]) - X.shape[-1]))
+            plain = (X,) if kind == "spec_c64" else (X.real, X.imag)
+        else:
+            def run():
+                return cuda_welch._launch(kind, x, y, w, *args)
+            plain, _ = cuda_welch._reference(kind, x, y, w, *args)
+        got = run()
         err = check_close(flat(got), flat(plain), f"{kind} vs plain {what}")
         if with_oracle:
             oracle = torch_segments(kind, x.double(), None if y is None else y.double(), w,
-                                    *args)
+                                    *args, *opts)
             err = max(err, check_close(flat(got), flat(oracle),
                                        f"{kind} vs float64 torch.fft {what}"))
         if kind == "spec" and opts[1]:
             check(not got[0][..., args[2] // 2 + 1:].any()
                   and not got[1][..., args[2] // 2 + 1:].any(),
                   f"spec pad columns not zero {what}")
-        again = cuda_welch._launch(kind, x, y, w, *args)
+        again = run()
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"{kind} {what}: two runs differ in their bits")
         max_abs[kind] = max(max_abs[kind], float((flat(got) - flat(plain)).abs().max()))
@@ -885,13 +925,19 @@ def main() -> int:
                         what = f"{lead} t={t} nperseg={nperseg} hop={hop} nfft={nfft} {detrend}"
                         for kind, u in (("welch", None), ("psd", None), ("csd", y),
                                         ("coh", y), ("c2c", y), ("spec", None),
-                                        ("spec_c2c", y)):
+                                        ("spec_c64", None), ("spec_c2c", y)):
                             worst = max(worst, welch_case(kind, x, u, w, args, what))
                             cases += 1
-                        # B20's roll of each padded frame and its padded output
-                        worst = max(worst, welch_case("spec", x, None, w, args, what,
-                                                      opts=(nfft // 2 + 3, True)))
-                        cases += 1
+                        # B20's roll of each padded frame (odd: scalar loads;
+                        # even: pair loads), its padded output and stft's
+                        # reflect pad of each end of the signal
+                        for kind, opts in (("spec", (nfft // 2 + 3, True, 0)),
+                                           ("spec_c64", (nfft // 2 + 3, False, 0)),
+                                           ("spec_c64", (6, False, 0)),
+                                           ("spec_c64", (0, False, nfft // 2))):
+                            worst = max(worst, welch_case(kind, x, None, w, args, what,
+                                                          opts=opts))
+                            cases += 1
         # path 6's own shapes (float64 oracle in phase 3, against scipy)
         n22 = 1 << 22
         x, y = (torch.randn(n22, device=dev, generator=gen) for _ in range(2))
@@ -912,29 +958,30 @@ def main() -> int:
             what = f"path 6 {tuple(v.shape)} nperseg={args[0]} hop={args[1]}"
             worst = max(worst, welch_case(kind, v, u, w, args, what, with_oracle=False))
             cases += 1
-        # path 7's shapes: stft of 2^20 (+ the center pad) and 8 x 2^17 at
-        # n_fft 512, hop 128; the complex spectrogram, the two-sided ones
-        # and csd at 2^22; ShortTimeFFT(hann(1024), 256) at mfft 1024 and
-        # 2048, whose default phase shift is a roll of 512
+        # path 7's shapes: stft of 2^20 and 8 x 2^17 at n_fft 512, hop 128
+        # (the center pad read in place); the complex spectrogram, the
+        # two-sided ones and csd at 2^22; ShortTimeFFT(hann(1024), 256) at
+        # mfft 1024 and 2048, whose default phase shift is a roll of 512
         h512, h1024 = ft.hann_window(512, device=dev), ft.hann_window(1024, device=dev)
-        xs, x8 = (torch.randn(*s, device=dev, generator=gen)
-                  for s in (((1 << 20) + 512,), (8, (1 << 17) + 512)))
+        xs, x8 = (torch.randn(*s, device=dev, generator=gen) for s in ((1 << 20,), (8, 1 << 17)))
         xt = torch.randn((1 << 20) + 1024, device=dev, generator=gen)
         for kind, v, u, w, args, opts in (
-                ("spec", xs, None, h512, (512, 128, 512, False), (0, False)),
-                ("spec", x8, None, h512, (512, 128, 512, False), (0, False)),
-                ("spec", x, None, tukey, (4096, 2048, 4096, "constant"), (0, False)),
-                ("spec_c2c", x, y, tukey, (4096, 2048, 4096, "constant"), (0, False)),
-                ("spec_c2c", x, y, hann, (4096, 2048, 4096, "constant"), (0, False)),
-                ("spec", xt, None, h1024, (1024, 256, 1024, False), (512, False)),
-                ("spec", xt, None, h1024, (1024, 256, 2048, False), (512, True))):
+                ("spec_c64", xs, None, h512, (512, 128, 512, False), (0, False, 256)),
+                ("spec_c64", x8, None, h512, (512, 128, 512, False), (0, False, 256)),
+                ("spec", x, None, tukey, (4096, 2048, 4096, "constant"), (0, False, 0)),
+                ("spec_c64", x, None, tukey, (4096, 2048, 4096, "constant"), (0, False, 0)),
+                ("spec_c2c", x, y, tukey, (4096, 2048, 4096, "constant"), (0, False, 0)),
+                ("spec_c2c", x, y, hann, (4096, 2048, 4096, "constant"), (0, False, 0)),
+                ("spec_c64", xt, None, h1024, (1024, 256, 1024, False), (512, False, 0)),
+                ("spec", xt, None, h1024, (1024, 256, 2048, False), (512, True, 0)),
+                ("spec_c64", xt, None, h1024, (1024, 256, 2048, False), (512, False, 0))):
             what = f"path 7 {tuple(v.shape)} nperseg={args[0]} hop={args[1]} nfft={args[2]}"
             worst = max(worst, welch_case(kind, v, u, w, args, what, with_oracle=False,
                                           opts=opts))
             cases += 1
         del x, y, xb, xp, xs, x8, xt
         torch.cuda.synchronize()
-        names = ("welch", "psd", "csd", "coh", "c2c", "spec", "spec_c2c")
+        names = ("welch", "psd", "csd", "coh", "c2c", "spec", "spec_c64", "spec_c2c")
         print(f"kernel {', '.join(names)}: {cases} cases ok, each run twice with the "
               f"same bits | worst rel-L2 {worst:.3e} | max abs err vs plain "
               + ", ".join(f"{max_abs[k]:.3e}" for k in names), flush=True)
@@ -961,11 +1008,13 @@ def main() -> int:
                 "rows_fft_c64": cuda_fft.c64_launches, "big_fft_c64": bigfft.c64_launches,
                 "ax0_fft_c64": cuda_fft.ax0_c64_launches,
                 "ax3_fft_c64": cuda_fft.ax3_c64_launches,
-                "r2c_fft_c64": cuda_fft.r2c_c64_launches}
+                "fft2f_fft_c64": cuda_fft.fft2f_c64_launches,
+                "r2c_fft_c64": cuda_fft.r2c_c64_launches, "spec_c64": cuda_welch.spec_c64_launches}
 
     def reset_counts():
         cuda_fft.c64_launches = bigfft.c64_launches = 0
         cuda_fft.ax0_c64_launches = cuda_fft.ax3_c64_launches = cuda_fft.r2c_c64_launches = 0
+        cuda_fft.fft2f_c64_launches = cuda_welch.spec_c64_launches = 0
         cuda_fft.launches = cuda_fft.ax0_launches = cuda_fft.ax3_launches = 0
         cuda_fft.rows_t_launches = cuda_fft.fft2f_launches = 0
         cuda_fft.r2c_launches = cuda_fft.c2r_launches = bigfft.launches = 0
@@ -1078,12 +1127,13 @@ def main() -> int:
     back = through("irfft2 4096^2", lambda: ft.irfft2(R, s=r.shape), ax0_fft=1, c2r_fft=1)
     errs["irfft2_4096"] = check_close(back, r, "irfft2(rfft2) 4096^2 round trip")
     del r, R, back
-    x = crand(256, 256, 256)  # 128 MiB: fused plane over axes 1-2, then axis 0
-    X = through("fftn 256^3", lambda: ft.fftn(x), fft2f_fft=1, ax3_fft=1)
+    x = crand(256, 256, 256)  # 128 MiB: fused plane over axes 1-2, then axis 0,
+    # both through their complex64 entries
+    c3d = {"fft2f_fft": 1, "fft2f_fft_c64": 1, "ax3_fft": 1, "ax3_fft_c64": 1}
+    X = through("fftn 256^3", lambda: ft.fftn(x), **c3d)
     errs["fftn_256^3"] = check_close(X, torch.fft.fftn(x), "fftn 256^3")
     errs["ifftn_256^3"] = check_close(
-        through("ifftn 256^3", lambda: ft.ifftn(X), fft2f_fft=1, ax3_fft=1), x,
-        "ifftn 256^3 round trip")
+        through("ifftn 256^3", lambda: ft.ifftn(X), **c3d), x, "ifftn 256^3 round trip")
     del x, X
     x = crand(512, 512, 512)  # 1 GiB: planes outside the fused envelope, per axis
     X = through("fftn 512^3", lambda: ft.fftn(x), rows_fft=1, rows_fft_c64=1, ax0_fft=1,
@@ -1092,13 +1142,14 @@ def main() -> int:
     del x, X
     path2 = counts()
     for name in ("rows_fft", "ax0_fft", "ax3_fft", "fft2f_fft", "r2c_fft", "c2r_fft",
-                 "rows_fft_c64", "ax0_fft_c64", "ax3_fft_c64", "r2c_fft_c64"):
+                 "rows_fft_c64", "ax0_fft_c64", "ax3_fft_c64", "fft2f_fft_c64", "r2c_fft_c64"):
         check(path2[name] > 0, f"config 4 path launched no {name} kernel")
     # small inputs against float64 numpy on the host, through the same
     # kernels, outside config 4's count window
     xs = crand(8, 128, 256)
     want = np.fft.fftn(xs.cpu().numpy().astype(np.complex128), axes=(1, 2))
-    got = through("fftn 8x128x256", lambda: ft.fftn(xs, axes=(1, 2)), fft2f_fft=1)
+    got = through("fftn 8x128x256", lambda: ft.fftn(xs, axes=(1, 2)), fft2f_fft=1,
+                  fft2f_fft_c64=1)
     errs["fftn_small_np"] = check_close(got.cpu(), torch.from_numpy(want), "fftn vs numpy")
     rs = torch.randn(128, 128, 256, device=dev, generator=gen)
     want = np.fft.rfftn(rs.cpu().numpy().astype(np.float64))
@@ -1351,9 +1402,10 @@ def main() -> int:
         return np.swapaxes(np.fft.rfft(frames * hann512, axis=-1), -1, -2)
 
     reset_counts()
+    spec = {"spec": 1, "spec_c64": 1}  # B20's complex64 sink: no merge
     for key, v in (("stft_2^20", x20), ("stft_8x2^17", x8)):
         Z = through(f"stft {tuple(v.shape)} n_fft 512 hop 128",
-                    lambda: ft.stft(v, 512, 128), spec=1)
+                    lambda: ft.stft(v, 512, 128), **spec)
         vs_scipy(key, Z, stft_ref(v), f"stft {tuple(v.shape)} (float64 numpy)")
         back = through(f"istft {tuple(v.shape)}",
                        lambda: ft.istft(Z, 512, 128, length=v.shape[-1]), c2r_fft=1)
@@ -1361,7 +1413,7 @@ def main() -> int:
     del Z, back
     seg = {"nperseg": 4096, "noverlap": 2048}
     f, t, S = through("spectrogram 2^22 complex",
-                      lambda: ft.spectrogram(x, mode="complex", **seg), spec=1)
+                      lambda: ft.spectrogram(x, mode="complex", **seg), **spec)
     vs_scipy("spectrogram_complex_2^22", S, ss.spectrogram(x64, mode="complex", **seg)[2],
              "spectrogram 2^22 complex")
     with warnings.catch_warnings():  # scipy: complex input, two-sided
@@ -1380,7 +1432,7 @@ def main() -> int:
     x20_64 = x20.cpu().double().numpy()
     for mfft in (1024, 2048):
         stf = ft.ShortTimeFFT(hann1024, 256, 48000.0, mfft=mfft)
-        S = through(f"ShortTimeFFT 2^20 mfft {mfft}", lambda: stf.stft(x20), spec=1)
+        S = through(f"ShortTimeFFT 2^20 mfft {mfft}", lambda: stf.stft(x20), **spec)
         ref = ss.ShortTimeFFT(hann1024, 256, 48000.0, mfft=mfft)
         vs_scipy(f"short_time_fft_{mfft}", S, ref.stft(x20_64), f"ShortTimeFFT mfft {mfft}")
         if mfft == 1024:
@@ -1404,11 +1456,11 @@ def main() -> int:
                  f"resample 256x8192 to {num}")
     del R
     path7 = counts()
-    for name in ("spec", "spec_c2c"):
+    for name in ("spec", "spec_c64", "spec_c2c"):
         check(path7[name] > 0, f"per-segment path launched no {name} kernel")
     # outside the window: numpy input runs on the card
     Zn = through("stft of a numpy array", lambda: ft.stft(x20.cpu().numpy()[:8192], 512, 128),
-                 spec=1)
+                 **spec)
     check(Zn.device.type == "cuda", f"numpy input ran on {Zn.device}, not the card")
     vs_scipy("stft_numpy_in", Zn, stft_ref(x20[:8192]), "stft of a numpy array")
     print(f"main: per-segment path, {len(errs)} checks ok, launches {path7}, resample "
@@ -1427,7 +1479,7 @@ def main() -> int:
                "chirp_inv": path3, "chirp_full": path3, "filt": path5, "bank": path5,
                "c2r_prod": path5,
                "ax0_gen": path5, "welch": path6, "psd": path6, "csd": path6, "coh": path6,
-               "c2c": path6, "spec": path7, "spec_c2c": path7}
+               "c2c": path6, "spec": path7, "spec_c64": path7, "spec_c2c": path7}
     main_launches = {k: path_of.get(k, path2)[k] for k in KERNELS}
 
     # ---- 4. autograd on the card -----------------------------------------
@@ -1484,7 +1536,8 @@ def main() -> int:
     # forward, the composite C2C back.
     for fn, shape, kernels in ((ft.rfft2, (256, 1024), {"r2c_fft": 1, "ax0_fft": 2,
                                                        "rows_fft": 1}),
-                               (ft.fft2, (16, 256, 256), {"fft2f_fft": 2}),
+                               (ft.fft2, (16, 256, 256), {"fft2f_fft": 2,
+                                                          "fft2f_fft_c64": 2}),
                                (ft.fft2, (256, 1024), {"rows_fft": 2, "rows_fft_c64": 2,
                                                        "ax0_fft": 2, "ax0_fft_c64": 2}),
                                (ft.rfft, (64, 4096), {"r2c_fft": 1, "r2c_fft_c64": 1,
@@ -1539,6 +1592,10 @@ def main() -> int:
     # B1 for B6's adjoint, once per signal (complex input: B1 forward and
     # back)
     stf_grad = ft.ShortTimeFFT(np.hanning(256), 64, 1.0, mfft=512, phase_shift=30)
+    # B20's complex64 sink forward; back, the R2C kernel's complex64 sink
+    # and the row kernel's complex64 entry for its adjoint
+    c64_spec = {"spec": 1, "spec_c64": 1, "r2c_fft": 1, "r2c_fft_c64": 1, "rows_fft": 1,
+                "rows_fft_c64": 1}
     for what, fn, shapes, kernels, cplx in (
             ("welch 2^16", lambda u: ft.welch(u)[1], [(1 << 16,)],
              {"welch": 1, "r2c_fft": 1, "rows_fft": 1}, False),
@@ -1548,10 +1605,9 @@ def main() -> int:
              {"psd": 1, "r2c_fft": 1, "rows_fft": 1}, False),
             ("welch 2^16 complex (two-sided)", lambda u: ft.welch(u)[1], [(1 << 16,)],
              {"c2c": 1, "rows_fft": 2}, True),
-            ("stft 2^16", lambda u: ft.stft(u, 512, 128), [(1 << 16,)],
-             {"spec": 1, "r2c_fft": 1, "rows_fft": 1}, False),
-            ("ShortTimeFFT.stft 2^16 phase shift", stf_grad.stft, [(1 << 16,)],
-             {"spec": 1, "r2c_fft": 1, "rows_fft": 1}, False),
+            ("stft 2^16", lambda u: ft.stft(u, 512, 128), [(1 << 16,)], c64_spec, False),
+            ("ShortTimeFFT.stft 2^16 phase shift", stf_grad.stft, [(1 << 16,)], c64_spec,
+             False),
             ("spectrogram 2^16 complex two-sided",
              lambda u: ft.spectrogram(u, mode="complex")[2], [(1 << 16,)],
              {"spec_c2c": 1, "rows_fft": 2}, True)):
@@ -1641,10 +1697,16 @@ def main() -> int:
     re, im = planes(x)
     times["fft2f_fft 256x256x256"] = time_in_turns({
         "kernel": lambda: cuda_fft._fft2f_launch(re, im, -1, None),
+        "kernel_c64": lambda: cuda_fft._fft2f_launch_c64(x, -1, None),
         "rows_fft + ax0_fft": lambda: cuda_fft._ax0_launch(
             *cuda_fft._launch(re, im, -1, None), -1, None),
+        "rows_fft_c64 + ax0_fft_c64": lambda: cuda_fft._ax0_launch_c64(
+            cuda_fft._launch_c64(x, -1, None), -1, None),
         "plain": lambda: cuda_fft.fft2_fused_split_reference(re, im, -1),
+        "plain_c64": lambda: cuda_fft._fft2f_passes(x, -1),
         "torch.fft": lambda: torch.fft.fft2(x),
+        "fftn": lambda: ft.fftn(x),
+        "torch.fft fftn": lambda: torch.fft.fftn(x),
         "copy": plane_copy(re, im),
     }, reps=10)
     times["ax3_fft 256^3"] = time_in_turns({
@@ -1883,6 +1945,14 @@ def main() -> int:
     r = torch.randn(4096, 4096, device=dev, generator=gen)
     alone("fft2 4096x4096", lambda: ft.fft2(x), ("rows_fft", "ax0_fft"))
     alone("rfft 4096x4096", lambda: ft.rfft(r), ("r2c_fft",))
+    # fftn of 256^3 complex64 (the fused plane, then axis -3; ax0_fft_kernel
+    # is the axis(-3) pass) and stft of 2^20 (B20's complex64 sink): their
+    # kernels alone, no split and no merge
+    x = crand(256, 256, 256)
+    alone("fftn 256^3", lambda: ft.fftn(x), ("fft2f_fft", "ax0_fft"))
+    x20 = torch.randn(1 << 20, device=dev, generator=gen)
+    alone("stft 2^20 n_fft 512 hop 128", lambda: ft.stft(x20, 512, 128), ("spec_fft",))
+    del x20
     for rows, n in ((1024, 4095), (1024, 4097), (2048, 1000)):
         x = crand(rows, n)
         profiles[f"fft {rows}x{n}"] = breakdown(lambda: ft.fft(x), ("gen_fft",))
@@ -2001,9 +2071,16 @@ def main() -> int:
     }
     spec_bounds = {}
     for key, (kind, v, u, w, args, call) in spec_shapes.items():
+        if kind == "spec":  # B20 (spec_fft.cu): its planar and complex64 sinks
+            fns = {"kernel": lambda: cuda_welch._spec_launch(v, w, *args),
+                   "kernel_c64": lambda: cuda_welch._spec_launch(v, w, *args[:5], False, True),
+                   "plain": lambda: cuda_welch._reference(kind, v, u, w, *args),
+                   "plain_c64": lambda: cuda_welch._spec_passes(v, w, *args[:5])}
+        else:
+            fns = {"kernel": lambda: cuda_welch._launch(kind, v, u, w, *args[:4]),
+                   "plain": lambda: cuda_welch._reference(kind, v, u, w, *args)}
         times[key] = time_in_turns({
-            "kernel": lambda: cuda_welch._launch(kind, v, u, w, *args),
-            "plain": lambda: cuda_welch._reference(kind, v, u, w, *args),
+            **fns,
             "torch.fft": lambda: torch_segments(kind, v, u, w, *args),
             "estimator": path7_calls[call],
         }, reps=10)
@@ -2014,7 +2091,8 @@ def main() -> int:
         spec_bounds[key] = bound(4 * planes_in * v.numel() + 4 * nperseg
                                  + 8 * num * bins * (v.numel() // v.shape[-1]), flops)
     for call, fn in path7_calls.items():
-        profiles[call] = breakdown(fn, ("welch", "r2c_fft", "c2r_fft", "rows_fft", "gen_fft"))
+        profiles[call] = breakdown(fn, ("welch", "spec_fft", "r2c_fft", "c2r_fft", "rows_fft",
+                                        "gen_fft"))
     for key, (ms, by) in spec_bounds.items():
         print(f"bound: {key} | {ms:.4f} ms ({by}; each input read once, the spectra written "
               f"once, at 3.35 TB/s and 67 TFLOP/s)", flush=True)
@@ -2071,6 +2149,9 @@ def main() -> int:
               "rows_t_fft 1024x4096", c2c * 1024 * 4096, fft_flops(4096, 1024)),
         entry("fft2f_fft", "fft2f_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2274",
               "fft2f_fft 256x256x256", c2c * 256 ** 3, fft_flops(256 * 256, 256)),
+        entry("fft2f_fft_c64", "fft2f_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2274",
+              "fft2f_fft 256x256x256", c2c * 256 ** 3, fft_flops(256 * 256, 256),
+              ms="kernel_c64", plain="plain_c64"),
         entry("r2c_fft", "r2c_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1801",
               "r2c_fft 4096x4096", r2c(4096, 4096), rfft_flops(4096, 4096)),
         entry("r2c_fft_c64", "r2c_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1801",
@@ -2135,9 +2216,12 @@ def main() -> int:
               fft_flops(4096, 2047)),
         # the per-segment spectra (path 7's spectrogram shapes): every
         # segment's two planes written once
-        entry("spec", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:544",
+        entry("spec", "spec_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:544",
               "spec 2^22 nperseg 4096 hop 2048", 4 * n22 + 4 * 4096 + 8 * 2047 * 2049,
               rfft_flops(4096, 2047)),
+        entry("spec_c64", "spec_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:544",
+              "spec 2^22 nperseg 4096 hop 2048", 4 * n22 + 4 * 4096 + 8 * 2047 * 2049,
+              rfft_flops(4096, 2047), ms="kernel_c64", plain="plain_c64"),
         entry("spec_c2c", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:614",
               "spec_c2c 2^22 nperseg 4096 hop 2048", 8 * n22 + 4 * 4096 + 8 * 2047 * 4096,
               fft_flops(4096, 2047)),

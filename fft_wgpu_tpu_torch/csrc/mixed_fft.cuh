@@ -324,6 +324,19 @@ struct FixedStep {
   }
 };
 
+// The barrier of a pass that reads and writes shared memory, between its
+// reads and its writes: the block's, or the source's own where it has one
+// (a source in the shared memory of other blocks of a cluster synchronises
+// the cluster, fft2f_fft.cu).
+template <class Src>
+__device__ __forceinline__ auto pass_barrier(const Src& src, int) -> decltype(src.barrier()) {
+  return src.barrier();
+}
+template <class Src>
+__device__ __forceinline__ void pass_barrier(const Src&, long) {
+  __syncthreads();
+}
+
 // A small-radix pass; BMAX butterflies a thread at most.  Step: MixStep,
 // or FixedStep for a pass of a fixed plan.
 template <int R, int BMAX, int SIGN, class Src, class Dst, class Step>
@@ -355,7 +368,7 @@ __device__ __forceinline__ void small_pass(const Src& src, const Dst& dst, const
     dft<R, SIGN>(ar[b], ai[b]);
   }
   // In place in shared memory: every read of the row precedes any write.
-  if constexpr (Src::kShared && Dst::kShared) __syncthreads();
+  if constexpr (Src::kShared && Dst::kShared) pass_barrier(src, 0);
 #pragma unroll
   for (int b = 0; b < BMAX; ++b) {
     const int j = a.tid + b * a.T;

@@ -8,8 +8,8 @@
 //   csd_accum_f32   (B17)  csd_accum_split, kernel _kernel_csd_accum
 //   coh_accum_f32   (B18)  coherence_accum_split, kernel _kernel_coh_accum
 //   welch_c2c_f32   (B21)  welch_accum_c2c_split, kernel _kernel_welch_accum_c2c
-//   spec_rfft_f32   (B20)  spec_rfft_split, kernel _kernel_spec_split
 //   spec_c2c_f32    (B22)  spec_c2c_split, kernel _kernel_spec_split_c2c
+// (B20, spec_rfft_split, the per-segment half spectra, is spec_fft.cu.)
 //
 // Segment s of a row x of t points (s = 0 .. num-1, num = 1 + (t -
 // nperseg) / hop) is the frame of nfft points
@@ -18,9 +18,7 @@
 //     f_s[j] = 0                                for nperseg <= j < nfft,
 //
 // mean_s the mean of x[s*hop .. s*hop + nperseg) when detrend is "constant",
-// else 0.  B20 may roll each frame left by roll_s: its point j is the
-// padded frame's point (j + roll_s) mod nfft (ShortTimeFFT's phase shift),
-// the mean still taken over the nperseg unrolled points.  For a real row
+// else 0.  For a real row
 // its half spectrum X_s[k], k = 0 .. nfft/2, is B6's (r2c_fft.cu): the
 // first Stockham pass reads the frame as m = nfft/2 complex points f[2j]
 // + i f[2j+1] (FramedRealIn), the m-point transform runs in shared memory
@@ -34,9 +32,6 @@
 //   B17  sum_s conj(X_s) Y_s of two real signals of one shape (two rows);
 //   B18  sum_s conj(X_s) Y_s, |X_s|^2 and |Y_s|^2 from the same transforms;
 //   B21  sum_s |X_s|^2 over all nfft bins of a complex signal;
-//   B20  X_s itself, as two planes [batch, num, bins] (re, im), bins =
-//        nfft/2 + 1 or a padded width whose extra columns are written as
-//        zeros (the padded serving form);
 //   B22  X_s of a complex signal, every bin in natural order, two planes
 //        [batch, num, nfft].
 //
@@ -63,10 +58,9 @@
 // frames come again from L2) and crosses about 20 barriers, and at nfft =
 // 256 a block is one warp, so latency, not bytes or flops, sets the time.
 // The design keeps a block's shared rows and accumulators across its S
-// segments.  B20 and B22 write every segment's spectrum, 2*bins floats
-// (B22: 2*nfft) against 4*hop (8*hop) bytes read: their bound is the
-// bytes they write; consecutive threads store consecutive bins of a
-// segment's row, so each store is coalesced.
+// segments.  B22 writes every segment's spectrum, 2*nfft floats against
+// 8*hop bytes read: its bound is the bytes it writes; consecutive threads
+// store consecutive bins of a segment's row, so each store is coalesced.
 
 #include <cuda_runtime.h>
 
@@ -76,7 +70,7 @@ namespace {
 
 using namespace fftk;
 
-enum Kind { kWelch = 0, kPsd = 1, kCsd = 2, kCoh = 3, kC2c = 4, kSpec = 5, kSpecC2c = 6 };
+enum Kind { kWelch = 0, kPsd = 1, kCsd = 2, kCoh = 3, kC2c = 4, kSpecC2c = 6 };
 
 // Shape of kernel KIND at nfft = 2^LOG2N: the real kinds transform the
 // half-length row of nfft/2 points (B6's packing), the complex kinds the
@@ -86,7 +80,7 @@ struct Geom {
   static constexpr bool kReal = KIND != kC2c && KIND != kSpecC2c;
   static constexpr bool kTwo = KIND == kCsd || KIND == kCoh;
   // kinds that write every segment's row rather than sums over segments
-  static constexpr bool kPerSeg = KIND == kPsd || KIND == kSpec || KIND == kSpecC2c;
+  static constexpr bool kPerSeg = KIND == kPsd || KIND == kSpecC2c;
   static constexpr int kLog2Row = kReal ? LOG2N - 1 : LOG2N;
   static constexpr int kRow = 1 << kLog2Row;
   static constexpr int kThreads = threads_for(kLog2Row);
@@ -97,19 +91,14 @@ struct Geom {
       (kRed + (kTwo ? 2 : 1) * 2 * kRow) * static_cast<int>(sizeof(float));
 };
 
-// Frame s of a real row read as m complex points z[k] = f[2k] + i f[2k+1],
-// rolled left by `roll` points of the nfft-point padded frame (mask =
-// nfft - 1).
+// Frame s of a real row read as m complex points z[k] = f[2k] + i f[2k+1].
 struct FramedRealIn {
   const float* f;  // x + s*hop
   const float* w;
   int nperseg;
   float mean;
-  int roll;
-  int mask;
   static constexpr bool kShared = false;
-  __device__ __forceinline__ float point(int j) const {
-    const int i = (j + roll) & mask;
+  __device__ __forceinline__ float point(int i) const {
     return i < nperseg ? (f[i] - mean) * __ldg(&w[i]) : 0.f;
   }
   __device__ __forceinline__ void load(int k, float& a, float& b) const {
@@ -164,17 +153,16 @@ __device__ __forceinline__ void frame_means(const float* const (&f)[NP], int npe
   for (int p = 0; p < NP; ++p) mean[p] = red[p * T] / static_cast<float>(nperseg);
 }
 
-// The m-point transform of real frame f, rolled left by roll points, into
-// shared row z, after the frame's mean when detrend_c.  Ends with a barrier.
+// The m-point transform of real frame f into shared row z, after the
+// frame's mean when detrend_c.  Ends with a barrier.
 template <int LOG2M, int T>
 __device__ __forceinline__ void transform_real(const float* f, const float* w,
-                                               int nperseg, bool detrend_c, int roll,
-                                               float* red, const Shared& z,
+                                               int nperseg, bool detrend_c, float* red,
+                                               const Shared& z,
                                                const float2* __restrict__ tw) {
   float mean[1] = {0.f};
   if (detrend_c) frame_means<T, 1>({f}, nperseg, red, mean);
-  fft_passes<LOG2M, T>(FramedRealIn{f, w, nperseg, mean[0], roll, (2 << LOG2M) - 1}, z, z,
-                       tw, -1.f);
+  fft_passes<LOG2M, T>(FramedRealIn{f, w, nperseg, mean[0]}, z, z, tw, -1.f);
 }
 
 // The n-point transform of the complex frame (fr, fi) into shared row z,
@@ -213,8 +201,7 @@ welch_kernel(const float* __restrict__ x, const float* __restrict__ y,
              float* __restrict__ o1, float* __restrict__ o2,
              float* __restrict__ o3, const float2* __restrict__ tw,
              const float2* __restrict__ half, long long t, int nperseg, int hop,
-             int num, int seg_per_block, int tiles, int detrend_c, int roll_s,
-             int out_bins) {
+             int num, int seg_per_block, int tiles, int detrend_c) {
   using G = Geom<LOG2N, KIND>;
   constexpr int R = G::kRow;
   constexpr int T = G::kThreads;
@@ -245,9 +232,9 @@ welch_kernel(const float* __restrict__ x, const float* __restrict__ y,
     if constexpr (!G::kReal) {
       transform_complex<LOG2N, T>(xb + off, yb + off, w, nperseg, detrend_c, red, zx, tw);
     } else {
-      transform_real<LOG2N - 1, T>(xb + off, w, nperseg, detrend_c, roll_s, red, zx, tw);
+      transform_real<LOG2N - 1, T>(xb + off, w, nperseg, detrend_c, red, zx, tw);
       if constexpr (G::kTwo) {
-        transform_real<LOG2N - 1, T>(yb + off, w, nperseg, detrend_c, 0, red, zy, tw);
+        transform_real<LOG2N - 1, T>(yb + off, w, nperseg, detrend_c, red, zy, tw);
       }
     }
 #pragma unroll
@@ -263,8 +250,8 @@ welch_kernel(const float* __restrict__ x, const float* __restrict__ y,
       }
       if constexpr (KIND == kPsd) {
         o0[(static_cast<size_t>(b) * num + s) * BINS + k] = xr * xr + xi * xi;
-      } else if constexpr (KIND == kSpec || KIND == kSpecC2c) {
-        const size_t at = (static_cast<size_t>(b) * num + s) * out_bins + k;
+      } else if constexpr (KIND == kSpecC2c) {
+        const size_t at = (static_cast<size_t>(b) * num + s) * BINS + k;
         o0[at] = xr;
         o1[at] = xi;
       } else if constexpr (KIND == kWelch || KIND == kC2c) {
@@ -279,10 +266,6 @@ welch_kernel(const float* __restrict__ x, const float* __restrict__ y,
           acc[3][i] += yr * yr + yi * yi;
         }
       }
-    }
-    if constexpr (KIND == kSpec) {  // the padded form's columns past bin nfft/2
-      const size_t row = (static_cast<size_t>(b) * num + s) * out_bins;
-      for (int k = BINS + threadIdx.x; k < out_bins; k += T) o0[row + k] = o1[row + k] = 0.f;
     }
     __syncthreads();  // the next segment's first pass rewrites the rows
   }
@@ -315,8 +298,7 @@ template <int LOG2N, int KIND>
 cudaError_t launch(const void* x, const void* y, const void* w, void* o0, void* o1,
                    void* o2, void* o3, const void* tw, const void* half,
                    long long batch, long long t, int nperseg, int hop, int num,
-                   int seg_per_block, int tiles, int detrend_c, int roll_s, int out_bins,
-                   cudaStream_t stream) {
+                   int seg_per_block, int tiles, int detrend_c, cudaStream_t stream) {
   using G = Geom<LOG2N, KIND>;
   const long long blocks = batch * tiles;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
@@ -328,7 +310,7 @@ cudaError_t launch(const void* x, const void* y, const void* w, void* o0, void* 
       static_cast<const float*>(w), static_cast<float*>(o0), static_cast<float*>(o1),
       static_cast<float*>(o2), static_cast<float*>(o3), static_cast<const float2*>(tw),
       static_cast<const float2*>(half), t, nperseg, hop, num, seg_per_block, tiles,
-      detrend_c, roll_s, out_bins);
+      detrend_c);
   return cudaGetLastError();
 }
 
@@ -361,16 +343,12 @@ template <int KIND>
 int dispatch(const void* x, const void* y, const void* w, void* o0, void* o1, void* o2,
              void* o3, const void* tw, const void* half, long long batch, long long t,
              int nperseg, int hop, int num, int seg_per_block, int tiles, int log2n,
-             int detrend_c, int roll_s, int out_bins, void* stream) {
+             int detrend_c, void* stream) {
   const long long nfft = 1LL << log2n;
-  // the bins a segment's row holds: only B20 takes a padded width or a roll
-  const long long bins = (KIND == kC2c || KIND == kSpecC2c) ? nfft : nfft / 2 + 1;
   if (log2n < 7 || log2n > 14 || batch < 1 || nperseg < 1 || nperseg > nfft ||
       hop < 1 || hop > nperseg || num < 1 || t < nperseg ||
       static_cast<long long>(num - 1) * hop + nperseg > t || seg_per_block < 1 ||
-      tiles < 1 || static_cast<long long>(tiles) * seg_per_block < num ||
-      out_bins < bins || (KIND != kSpec && out_bins != bins) || roll_s < 0 ||
-      roll_s >= nfft || (KIND != kSpec && roll_s != 0)) {
+      tiles < 1 || static_cast<long long>(tiles) * seg_per_block < num) {
     return cudaErrorInvalidValue;
   }
   const auto s = static_cast<cudaStream_t>(stream);
@@ -378,7 +356,7 @@ int dispatch(const void* x, const void* y, const void* w, void* o0, void* o1, vo
 #define WELCH_CASE(L)                                                                \
   case L:                                                                            \
     return launch<L, KIND>(x, y, w, o0, o1, o2, o3, tw, half, batch, t, nperseg, hop, \
-                           num, seg_per_block, tiles, detrend_c, roll_s, out_bins, s);
+                           num, seg_per_block, tiles, detrend_c, s);
     WELCH_LOG2N_CASES(WELCH_CASE)
 #undef WELCH_CASE
     default: return cudaErrorInvalidValue;
@@ -412,34 +390,29 @@ extern "C" {
 // o0 = [batch, tiles, nfft/2 + 1] partial sums of |X|^2; csd_accum o0, o1 =
 // Re, Im of conj(X) Y; coh_accum those and o2, o3 = |X|^2, |Y|^2; spec_psd
 // o0 = [batch, num, nfft/2 + 1] of |X_s|^2; welch_c2c o0 = [batch, tiles,
-// nfft] partial sums of |X|^2 over the two-sided spectrum; spec_rfft o0, o1
-// = Re, Im of X_s, [batch, num, out_bins], out_bins = nfft/2 + 1 or more
-// (columns past nfft/2 written as zeros), each frame rolled left by roll_s
-// (0 <= roll_s < nfft); spec_c2c o0, o1 = Re, Im of X_s, [batch, num,
-// nfft].  Every other kind takes roll_s = 0 and out_bins = its bin count.
-// The kernel launches on `stream` of the current device.  Returns
+// nfft] partial sums of |X|^2 over the two-sided spectrum; spec_c2c o0, o1
+// = Re, Im of X_s, [batch, num, nfft].  The kernel launches on `stream` of
+// the current device.  Returns
 // cudaGetLastError() (0 = ok).
 #define WELCH_ENTRY(NAME, KIND)                                                    \
   int NAME(const void* x, const void* y, const void* w, void* o0, void* o1,       \
            void* o2, void* o3, const void* tw, const void* half, long long batch, \
            long long t, int nperseg, int hop, int num, int seg_per_block,         \
-           int tiles, int log2n, int detrend_c, int roll_s, int out_bins,         \
-           void* stream) {                                                        \
+           int tiles, int log2n, int detrend_c, void* stream) {                   \
     return dispatch<KIND>(x, y, w, o0, o1, o2, o3, tw, half, batch, t, nperseg,   \
                           hop, num, seg_per_block, tiles, log2n, detrend_c,       \
-                          roll_s, out_bins, stream);                              \
+                          stream);                                                \
   }
 WELCH_ENTRY(welch_accum_f32, kWelch)
 WELCH_ENTRY(spec_psd_f32, kPsd)
 WELCH_ENTRY(csd_accum_f32, kCsd)
 WELCH_ENTRY(coh_accum_f32, kCoh)
 WELCH_ENTRY(welch_c2c_f32, kC2c)
-WELCH_ENTRY(spec_rfft_f32, kSpec)
 WELCH_ENTRY(spec_c2c_f32, kSpecC2c)
 #undef WELCH_ENTRY
 
 // The launch shape of entry point `kind` (0 welch_accum, 1 spec_psd, 2
-// csd_accum, 3 coh_accum, 4 welch_c2c, 5 spec_rfft, 6 spec_c2c) for `num`
+// csd_accum, 3 coh_accum, 4 welch_c2c, 6 spec_c2c) for `num`
 // segments of `batch` rows at nfft = 2^log2n on the current device:
 // *seg_per_block and *tiles.  Returns a CUDA error (0 = ok).
 int welch_tiles(int kind, long long batch, int num, int log2n, int* seg_per_block,
@@ -451,7 +424,6 @@ int welch_tiles(int kind, long long batch, int num, int log2n, int* seg_per_bloc
     case kCsd: return tiles_dispatch<kCsd>(batch, num, log2n, seg_per_block, tiles);
     case kCoh: return tiles_dispatch<kCoh>(batch, num, log2n, seg_per_block, tiles);
     case kC2c: return tiles_dispatch<kC2c>(batch, num, log2n, seg_per_block, tiles);
-    case kSpec: return tiles_dispatch<kSpec>(batch, num, log2n, seg_per_block, tiles);
     case kSpecC2c: return tiles_dispatch<kSpecC2c>(batch, num, log2n, seg_per_block, tiles);
     default: return cudaErrorInvalidValue;
   }

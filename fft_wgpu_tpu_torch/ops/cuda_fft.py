@@ -15,8 +15,10 @@ for fourteen of its entry points, and one fused pair of them.
   load (a product of two table roots, :func:`_outer_tables`) and a
   transposed store, ``csrc/rows_t_fft.cu``; ``fft2_split`` is that kernel
   twice;
-* ``fft2_fused_split`` — both trailing axes of ``[..., A, B]`` planes in one
-  pass over device memory, ``csrc/fft2f_fft.cu``;
+* ``fft2_fused_split`` / ``fft2_fused_c64`` — both trailing axes of
+  ``[..., A, B]`` planes in one pass over device memory, planar or
+  complex64 as it lies, ``csrc/fft2f_fft.cu`` (a cluster per plane on the
+  compiled pow2 passes of ``mixed_fft.cuh``);
 * ``rfft_rows_split`` / ``rfft_rows_c64`` / ``irfft_rows_split`` — R2C
   (into planes or complex64) and C2R rows through a half-length complex
   FFT, ``csrc/r2c_fft.cu`` and ``csrc/c2r_fft.cu``;
@@ -64,7 +66,8 @@ __all__ = ["Unsupported", "FUSED_MIN_N", "FUSED_MAX_N", "FFT2F_MAX_ELEMS",
            "fft_axis0_c64_reference", "fft_axis3_split", "fft_axis3_split_reference",
            "fft_axis3_c64", "fft_axis3_c64_reference", "fft_rows_transposed_split",
            "fft_rows_transposed_split_reference", "fft2_fused_split",
-           "fft2_fused_split_reference", "fft2_split", "pad_bins",
+           "fft2_fused_split_reference", "fft2_fused_c64", "fft2_fused_c64_reference",
+           "fft2_split", "pad_bins",
            "rfft_rows_split", "rfft_rows_split_reference", "rfft_rows_c64",
            "rfft_rows_c64_reference", "irfft_rows_split",
            "irfft_rows_split_reference", "fft_rows_general_split",
@@ -88,7 +91,8 @@ FFT2F_MAX_ELEMS = 1 << 16  # points of one fused 2-D plane (the JAX envelope)
 # counts every launch of rows_fft, ``c64_launches`` those of them through its
 # complex64 entry (fft_batched_c64); so do ``ax0_launches`` and
 # ``ax0_c64_launches`` for ax0_fft on axis -2, ``ax3_launches`` and
-# ``ax3_c64_launches`` on the axis(-3) view, and ``r2c_launches`` and
+# ``ax3_c64_launches`` on the axis(-3) view, ``fft2f_launches`` and
+# ``fft2f_c64_launches`` for fft2f_fft, and ``r2c_launches`` and
 # ``r2c_c64_launches`` for r2c_fft.
 launches = 0
 c64_launches = 0
@@ -99,6 +103,7 @@ ax3_launches = 0
 ax3_c64_launches = 0
 rows_t_launches = 0
 fft2f_launches = 0
+fft2f_c64_launches = 0
 r2c_launches = 0
 r2c_c64_launches = 0
 c2r_launches = 0
@@ -820,8 +825,26 @@ def _check_fft2f(re) -> None:
                           f"(pow2 >= {FUSED_MIN_N}, A*B <= {FFT2F_MAX_ELEMS})")
 
 
+# log2 of the points a block of the fused-plane kernel holds: a plane is a
+# cluster of A*B >> _FFT2F_LOG2P blocks (kFft2fLog2P of csrc/fft2f_fft.cu;
+# tests hold the two equal).
+_FFT2F_LOG2P = 12
+
+
+def _fft2f_args(A: int, B: int, planes: int, sign: int, scale, device):
+    """The fused-plane kernel's C arguments after the data pointers: the
+    pass roots of A and of B, the planes, the shape and the cluster."""
+    la, lb = A.bit_length() - 1, B.bit_length() - 1
+    return (_twiddle_table(A, sign, device, _pass_roots_np).data_ptr(),
+            _twiddle_table(B, sign, device, _pass_roots_np).data_ptr(), planes, la, lb,
+            la + lb - _FFT2F_LOG2P, sign, _scale_arg(scale))
+
+
+_FFT2F_TAIL = [_P, _P, _LL, _I, _I, _I, _I, _F, _P]
+
+
 def _fft2f_launch(re, im, sign, scale):
-    """Run the fft2f_fft kernel on CUDA tensors."""
+    """Run the fft2f_fft kernel's planar entry on CUDA tensors."""
     global fft2f_launches
     A, B = re.shape[-2:]
     re, im = re.contiguous(), im.contiguous()
@@ -829,15 +852,31 @@ def _fft2f_launch(re, im, sign, scale):
     if re.numel() == 0:
         return out
     planes = re.numel() // (A * B)
-    twa = _twiddle_table(A, sign, re.device)
-    twb = _twiddle_table(B, sign, re.device)
-    build.launch("fft2f_fft", "fft2f_fft_f32",
-                 [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _F, _P], re.device,
+    build.launch("fft2f_fft", "fft2f_fft_f32", [_P, _P, _P, _P] + _FFT2F_TAIL, re.device,
                  re.data_ptr(), im.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                 twa.data_ptr(), twb.data_ptr(), planes, A.bit_length() - 1,
-                 B.bit_length() - 1, sign, _scale_arg(scale), _stream(re),
+                 *_fft2f_args(A, B, planes, sign, scale, re.device), _stream(re),
                  what=f"fft2f_fft launch failed (plane {A}x{B}, planes={planes})")
     fft2f_launches += 1
+    return out
+
+
+def _fft2f_launch_c64(x, sign, scale, out=None):
+    """Run the fft2f_fft kernel's complex64 entry on a CUDA tensor; ``out``
+    (contiguous, of x's shape) may be x itself: a cluster reads its plane
+    whole before it stores any of it."""
+    global fft2f_launches, fft2f_c64_launches
+    A, B = x.shape[-2:]
+    x = x.resolve_conj().contiguous()
+    if out is None:
+        out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    planes = x.numel() // (A * B)
+    build.launch("fft2f_fft", "fft2f_fft_c64", [_P, _P] + _FFT2F_TAIL, x.device,
+                 x.data_ptr(), out.data_ptr(), *_fft2f_args(A, B, planes, sign, scale, x.device),
+                 _stream(x), what=f"fft2f_fft launch failed (plane {A}x{B}, planes={planes})")
+    fft2f_launches += 1
+    fft2f_c64_launches += 1
     return out
 
 
@@ -870,6 +909,47 @@ def fft2_fused_split_reference(re, im, sign, scale=None):
     yr, yi = stockham.fft_last_axis(yr.transpose(-1, -2), yi.transpose(-1, -2), sign)
     yr, yi = stockham.apply_scale(yr, yi, scale)
     return yr.transpose(-1, -2), yi.transpose(-1, -2)
+
+
+def _fft2f_c64(x, sign, scale):
+    if x.device.type == "cuda":
+        return _fft2f_launch_c64(x, sign, scale)
+    if x.device.type != "cpu":
+        raise ValueError(f"no fused 2-D FFT for device {x.device}")
+    return fft2_fused_c64_reference(x, sign, scale)
+
+
+def fft2_fused_c64(x, sign, scale=None):
+    """:func:`fft2_fused_split` on a complex64 ``[..., A, B]`` tensor as it
+    lies (interleaved (re, im) pairs; a non-contiguous one is copied
+    first), with no split and no merge: on the card the kernel's
+    interleaved entry, one launch.  Differentiable (the backward is the
+    sign-flipped transform)."""
+    _check_c64(x)
+    _check_fft2f(x)
+    _check_sign(sign)
+    return _SignFlipped.apply(_fft2f_c64, sign, scale, x)
+
+
+def fft2_fused_c64_reference(x, sign, scale=None):
+    """Plain torch version of :func:`fft2_fused_c64`: the plain version of
+    the planar entry on the two planes."""
+    _check_c64(x)
+    return torch.complex(*fft2_fused_split_reference(x.real, x.imag, sign, scale))
+
+
+def _fft2f_passes(x, sign, scale=None):
+    """Plain torch version of the fft2f_fft kernel's own passes on a complex
+    ``[..., A, B]`` tensor: the fixed passes of :func:`_mixed_radix_plan`(B)
+    on every row, then those of A on every column, on the kernel's pass
+    roots, the scale last.  No CUDA path calls it."""
+    def passes(z, n):
+        tab = _twiddle_table(n, sign, z.device, _pass_roots_np)
+        return _fixed_passes(z, sign, torch.complex(tab[:, 0], tab[:, 1]),
+                             _mixed_radix_plan(n))
+
+    y = passes(passes(x, x.shape[-1]).transpose(-1, -2), x.shape[-2]).transpose(-1, -2)
+    return y if scale is None else y * scale
 
 
 def fft2_split(re, im, sign, scale=None):

@@ -8,19 +8,22 @@
   one sweep;
 * ``welch_accum_c2c_split`` (B21) — sum over segments of |FFT(w * frame)|^2
   of a complex signal, all nfft bins;
-* ``spec_rfft_split`` (B20) — the per-segment half spectra of a real
-  signal, ragged or in the padded serving form, each padded frame
-  optionally rolled left (ShortTimeFFT's phase shift);
+* ``spec_rfft_split`` / ``spec_rfft_c64`` (B20) — the per-segment half
+  spectra of a real signal, as planes (ragged or in the padded serving
+  form) or as one complex64 tensor, each padded frame optionally rolled
+  left (ShortTimeFFT's phase shift);
 * ``spec_c2c_split`` (B22) — the per-segment two-sided spectra of a
   complex signal.
 
 A frame is ``nperseg`` points of a ``[..., t]`` signal at hop ``hop``,
 less its mean when ``detrend == "constant"`` (each plane of a complex
-signal on its own), times the window, zero-padded to ``nfft``.  All seven
-run in ``csrc/welch_fft.cu``, one kernel template; a block takes a tile
-of consecutive segments (the library's ``welch_tiles`` sizes the grid),
-and the accumulators write one partial row per block, which
-``torch.sum`` adds in a fixed order (no float atomics).
+signal on its own), times the window, zero-padded to ``nfft``.  Six run
+in ``csrc/welch_fft.cu``, one kernel template; a block takes a tile of
+consecutive segments (the library's ``welch_tiles`` sizes the grid), and
+the accumulators write one partial row per block, which ``torch.sum``
+adds in a fixed order (no float atomics).  B20 runs in
+``csrc/spec_fft.cu`` on ``mixed_fft.cuh``'s compiled pow2 passes, several
+segments a block, into a planar or a complex64 sink.
 
 A CUDA tensor goes through the kernel, a CPU tensor through its plain
 version (``*_reference``: ``_frame``, ``_detrend_seg``, the window, the
@@ -50,38 +53,42 @@ from ..core.twiddle import FORWARD
 from ..utils import build
 from . import cuda_fft
 from .cuda_fft import FUSED_MAX_N, FUSED_MIN_N, Unsupported
-from .stft import _frame
+from .stft import _frame, _reflect_pad
 
 __all__ = ["Unsupported", "fused_welch_ok", "welch_accum_split",
            "welch_accum_split_reference", "spec_psd_split", "spec_psd_split_reference",
            "csd_accum_split", "csd_accum_split_reference", "coherence_accum_split",
            "coherence_accum_split_reference", "welch_accum_c2c_split",
            "welch_accum_c2c_split_reference", "spec_rfft_split",
-           "spec_rfft_split_reference", "spec_c2c_split", "spec_c2c_split_reference"]
+           "spec_rfft_split_reference", "spec_rfft_c64", "spec_rfft_c64_reference",
+           "spec_c2c_split", "spec_c2c_split_reference"]
 
 # Launches of each kernel (B16, B19, B17, B18, B21, B20, B22); callers may
-# reset them to 0.
+# reset them to 0.  ``spec_launches`` counts every launch of B20,
+# ``spec_c64_launches`` those of them into its complex64 sink.
 welch_launches = 0
 psd_launches = 0
 csd_launches = 0
 coh_launches = 0
 c2c_launches = 0
 spec_launches = 0
+spec_c64_launches = 0
 spec_c2c_launches = 0
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 9 + [_LL, _LL] + [_I] * 9 + [_P]
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_ARGTYPES = [_P] * 9 + [_LL, _LL] + [_I] * 7 + [_P]
 _TILES_ARGTYPES = [_I, _LL, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
 # kind -> (C entry point, output planes, the kind's number in welch_tiles);
 # the counter is f"{kind}_launches"
 _KERNELS = {"welch": ("welch_accum_f32", 1, 0), "psd": ("spec_psd_f32", 1, 1),
             "csd": ("csd_accum_f32", 2, 2), "coh": ("coh_accum_f32", 4, 3),
-            "c2c": ("welch_c2c_f32", 1, 4), "spec": ("spec_rfft_f32", 2, 5),
-            "spec_c2c": ("spec_c2c_f32", 2, 6)}
+            "c2c": ("welch_c2c_f32", 1, 4), "spec_c2c": ("spec_c2c_f32", 2, 6)}
 # kinds whose x and y are the planes of one complex signal (nfft bins), and
-# kinds that write every segment's row rather than sums over segments
+# kinds that write every segment's row rather than sums over segments; B20
+# (spec_fft.cu) writes planes ("spec") or complex64 ("spec_c64")
 _COMPLEX = ("c2c", "spec_c2c")
-_PER_SEG = ("psd", "spec", "spec_c2c")
+_PER_SEG = ("psd", "spec_c2c")
+_SPEC = ("spec", "spec_c64")
 
 
 def fused_welch_ok(t: int, nperseg: int, hop: int, nfft: int, detrend) -> bool:
@@ -98,7 +105,7 @@ def fused_welch_ok(t: int, nperseg: int, hop: int, nfft: int, detrend) -> bool:
                  or (isinstance(detrend, str) and detrend == "constant")))
 
 
-def _check(x, y, win, nperseg, hop, nfft, detrend, roll_s=0) -> int:
+def _check(x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad=0) -> int:
     """Validate the operands; the segment count."""
     if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
         raise ValueError("x must be a real float32 tensor")
@@ -111,7 +118,9 @@ def _check(x, y, win, nperseg, hop, nfft, detrend, roll_s=0) -> int:
     if (win.dtype != torch.float32 or win.shape != (nperseg,)
             or win.device != x.device):
         raise ValueError(f"win must be a float32 [{nperseg}] tensor on x's device")
-    t = x.shape[-1]
+    if not 0 <= pad < max(x.shape[-1], 1):
+        raise ValueError(f"pad={pad} must lie in [0, t={x.shape[-1]})")
+    t = x.shape[-1] + 2 * pad
     if not fused_welch_ok(t, nperseg, hop, nfft, detrend):
         raise Unsupported(f"outside the fused welch envelope (t={t}, nperseg={nperseg}, "
                           f"hop={hop}, nfft={nfft}, detrend={detrend!r})")
@@ -123,13 +132,14 @@ def _check(x, y, win, nperseg, hop, nfft, detrend, roll_s=0) -> int:
 # ---------------------------------------------------------------------- #
 # the composed form: the plain versions and the backward
 # ---------------------------------------------------------------------- #
-def _frames(x, win, nperseg, hop, nfft, detrend, roll_s=0):
-    """Framed, detrended, windowed segments zero-padded to nfft and rolled
-    left by roll_s, ``[..., num, nfft]``."""
+def _frames(x, win, nperseg, hop, nfft, detrend, roll_s=0, pad=0):
+    """Framed, detrended, windowed segments of x reflect-padded by ``pad``
+    at both ends, zero-padded to nfft and rolled left by roll_s, ``[...,
+    num, nfft]``."""
     # imported here: spectral_est imports this module
     from .spectral_est import _detrend_seg
 
-    fr = _detrend_seg(_frame(x, nperseg, hop), detrend) * win
+    fr = _detrend_seg(_frame(_reflect_pad(x, pad) if pad else x, nperseg, hop), detrend) * win
     fr = torch.nn.functional.pad(fr, (0, nfft - nperseg))
     return torch.roll(fr, -roll_s, -1) if roll_s else fr
 
@@ -138,6 +148,8 @@ def _reduce(kind, X, Y):
     """The kernel's outputs from the per-segment spectra ``[..., num, bins]``."""
     if kind in ("spec", "spec_c2c"):
         return X
+    if kind == "spec_c64":
+        return (X,)
     (xr, xi), p = X, lambda a, b: a * a + b * b
     if kind == "psd":
         return (p(xr, xi),)
@@ -151,19 +163,37 @@ def _reduce(kind, X, Y):
 
 
 def _composed(kind, x, y, win, nperseg, hop, nfft, detrend, kernels: bool, roll_s=0,
-              pad_out=False):
+              pad_out=False, scale=None, pad=0):
     """The kernel's function composed of framing and a transform per
     segment: through the R2C (or, for complex input, the row) kernel when
     ``kernels``, else through its plain version."""
     def frames(v):
-        return _frames(v, win, nperseg, hop, nfft, detrend, roll_s)
+        return _frames(v, win, nperseg, hop, nfft, detrend, roll_s, pad)
 
     if kind in _COMPLEX:  # x, y: the planes of one complex signal
         fft = cuda_fft.fft_batched_split if kernels else cuda_fft.fft_batched_split_reference
         return _reduce(kind, fft(frames(x), frames(y), FORWARD), None)
+    if kind == "spec_c64":
+        rfft = cuda_fft.rfft_rows_c64 if kernels else cuda_fft.rfft_rows_c64_reference
+        return _reduce(kind, rfft(frames(x), scale), None)
     rfft = cuda_fft.rfft_rows_split if kernels else cuda_fft.rfft_rows_split_reference
-    return _reduce(kind, rfft(frames(x), pad_out=pad_out),
+    return _reduce(kind, rfft(frames(x), scale, pad_out=pad_out),
                    None if y is None else rfft(frames(y)))
+
+
+def _spec_passes(x, win, nperseg, hop, nfft, detrend, roll_s=0, scale=None, pad=0):
+    """Plain torch version of the spec_fft kernel's own passes (B20): the
+    frames as m = nfft/2 complex points z[k] = f[2k] + i f[2k+1], the fixed
+    passes of ``cuda_fft._mixed_radix_plan``(m) on the kernel's pass roots,
+    then the recombination of bins 0..m from Z[k] and Z[m-k] and the scale:
+    complex ``[..., num, m + 1]``.  No CUDA path calls it."""
+    m = nfft // 2
+    fr = _frames(x, win, nperseg, hop, nfft, detrend, roll_s, pad)
+    z = torch.complex(fr[..., 0::2], fr[..., 1::2])
+    tab = cuda_fft._twiddle_table(m, FORWARD, x.device, cuda_fft._pass_roots_np)
+    Z = cuda_fft._fixed_passes(z, FORWARD, torch.complex(tab[:, 0], tab[:, 1]),
+                               cuda_fft._mixed_radix_plan(m))
+    return torch.complex(*cuda_fft._r2c_unpack(Z.real, Z.imag, nfft, scale))
 
 
 # ---------------------------------------------------------------------- #
@@ -181,16 +211,13 @@ def _tiles(kind, batch: int, num: int, nfft: int, device) -> tuple[int, int]:
     return per_block.value, tiles.value
 
 
-def _launch(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False):
-    """Run one of the seven kernels on CUDA tensors; the outputs."""
+def _launch(kind, x, y, win, nperseg, hop, nfft, detrend):
+    """Run one of welch_fft's six kernels on CUDA tensors; the outputs."""
     fn, nout, _ = _KERNELS[kind]
     lead, t = x.shape[:-1], x.shape[-1]
     batch = math.prod(lead)
     num = 1 + (t - nperseg) // hop
-    if kind in _COMPLEX:
-        bins = nfft
-    else:
-        bins = cuda_fft.pad_bins(nfft) if pad_out else nfft // 2 + 1
+    bins = nfft if kind in _COMPLEX else nfft // 2 + 1
     if batch == 0:
         shape = (*lead, num, bins) if kind in _PER_SEG else (*lead, bins)
         return tuple(x.new_zeros(shape) for _ in range(nout))
@@ -211,7 +238,7 @@ def _launch(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=Fals
                  x.data_ptr(), None if y is None else y.data_ptr(),
                  win.contiguous().data_ptr(), *ptrs, tw.data_ptr(), half,
                  batch, t, nperseg, hop, num, per_block, tiles, nfft.bit_length() - 1,
-                 int(detrend == "constant"), int(roll_s), bins, cuda_fft._stream(x),
+                 int(detrend == "constant"), cuda_fft._stream(x),
                  what=f"{fn} launch failed (batch={batch}, t={t}, nperseg={nperseg}, "
                       f"hop={hop}, nfft={nfft})")
     globals()[f"{kind}_launches"] += 1
@@ -221,12 +248,56 @@ def _launch(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=Fals
     return tuple(o.sum(1).reshape(*lead, bins) for o in outs)
 
 
-def _run(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s, pad_out):
+def _spec_launch(x, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False, c64=False,
+                 scale=None, pad=0):
+    """Run the spec_fft kernel (B20) on CUDA tensors, x reflect-padded by
+    ``pad`` at both ends: planes (Xr, Xi) ``[..., num, bins]`` (bins =
+    nfft/2 + 1, or pad_bins(nfft) with ``pad_out``), or with ``c64`` one
+    complex64 tensor ``[..., num, nfft/2 + 1]``."""
+    global spec_launches, spec_c64_launches
+    lead, t = x.shape[:-1], x.shape[-1]
+    batch = math.prod(lead)
+    num = 1 + (t + 2 * pad - nperseg) // hop
+    bins = cuda_fft.pad_bins(nfft) if pad_out and not c64 else nfft // 2 + 1
+    shape = (*lead, num, bins)
+    if c64:
+        outs = (torch.empty(shape, dtype=torch.complex64, device=x.device),)
+    else:
+        outs = (x.new_empty(shape), x.new_empty(shape))
+    if batch == 0:
+        return tuple(o.zero_() for o in outs)
+    x = x.contiguous()
+    w = cuda_fft._paired(win)  # 8-byte aligned, for the kernel's pair loads
+    tabs = cuda_fft._r2c_tables(nfft, x.device)
+    args = (batch, t, nperseg, hop, num, nfft.bit_length() - 1, int(detrend == "constant"),
+            int(roll_s), int(pad))
+    what = (f"spec_fft launch failed (batch={batch}, t={t}, nperseg={nperseg}, hop={hop}, "
+            f"nfft={nfft})")
+    if c64:
+        build.launch("spec_fft", "spec_fft_c64", [_P] * 5 + [_LL, _LL] + [_I] * 7 + [_F, _P],
+                     x.device, x.data_ptr(), w.data_ptr(), outs[0].data_ptr(), *tabs, *args,
+                     cuda_fft._scale_arg(scale), cuda_fft._stream(x), what=what)
+        spec_c64_launches += 1
+    else:
+        build.launch("spec_fft", "spec_fft_f32",
+                     [_P] * 6 + [_LL, _LL] + [_I] * 8 + [_F, _P], x.device,
+                     x.data_ptr(), w.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+                     *tabs, *args, bins, cuda_fft._scale_arg(scale), cuda_fft._stream(x),
+                     what=what)
+    spec_launches += 1
+    return outs
+
+
+def _run(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s, pad_out, scale, pad):
     if x.device.type == "cuda":
-        return _launch(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s, pad_out)
+        if kind in _SPEC:
+            return _spec_launch(x, win, nperseg, hop, nfft, detrend, roll_s, pad_out,
+                                kind == "spec_c64", scale, pad)
+        return _launch(kind, x, y, win, nperseg, hop, nfft, detrend)
     if x.device.type != "cpu":
         raise ValueError(f"no segment-spectrum kernel for device {x.device}")
-    return _composed(kind, x, y, win, nperseg, hop, nfft, detrend, False, roll_s, pad_out)
+    return _composed(kind, x, y, win, nperseg, hop, nfft, detrend, False, roll_s, pad_out,
+                     scale, pad)
 
 
 class _Segments(torch.autograd.Function):
@@ -237,33 +308,36 @@ class _Segments(torch.autograd.Function):
     to the signals."""
 
     @staticmethod
-    def forward(ctx, kind, x, y, win, nperseg, hop, nfft, detrend, roll_s, pad_out):
+    def forward(ctx, kind, x, y, win, nperseg, hop, nfft, detrend, roll_s, pad_out, scale,
+                pad):
         ctx.save_for_backward(x, y, win)
-        ctx.args = (kind, nperseg, hop, nfft, detrend, roll_s, pad_out)
-        return _run(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s, pad_out)
+        ctx.args = (kind, nperseg, hop, nfft, detrend, roll_s, pad_out, scale, pad)
+        return _run(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s, pad_out, scale, pad)
 
     @staticmethod
     def backward(ctx, *grads):
         x, y, win = ctx.saved_tensors
-        kind, nperseg, hop, nfft, detrend, roll_s, pad_out = ctx.args
+        kind, nperseg, hop, nfft, detrend, roll_s, pad_out, scale, pad = ctx.args
         with torch.enable_grad():
             ins = [v.detach().requires_grad_() for v in (x, y) if v is not None]
             outs = _composed(kind, ins[0], ins[1] if y is not None else None, win,
-                             nperseg, hop, nfft, detrend, True, roll_s, pad_out)
+                             nperseg, hop, nfft, detrend, True, roll_s, pad_out, scale, pad)
             gs = torch.autograd.grad(outs, ins, grads)
-        return (None, gs[0], gs[1] if y is not None else None) + (None,) * 8
+        return (None, gs[0], gs[1] if y is not None else None) + (None,) * 10
 
 
-def _apply(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False):
-    num = _check(x, y, win, nperseg, hop, nfft, detrend, roll_s)
+def _apply(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False,
+           scale=None, pad=0):
+    num = _check(x, y, win, nperseg, hop, nfft, detrend, roll_s, pad)
     return _Segments.apply(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s,
-                           bool(pad_out)), num
+                           bool(pad_out), scale, pad), num
 
 
-def _reference(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False):
-    num = _check(x, y, win, nperseg, hop, nfft, detrend, roll_s)
+def _reference(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False,
+               scale=None, pad=0):
+    num = _check(x, y, win, nperseg, hop, nfft, detrend, roll_s, pad)
     return _composed(kind, x, y, win, nperseg, hop, nfft, detrend, False, roll_s,
-                     bool(pad_out)), num
+                     bool(pad_out), scale, pad), num
 
 
 def welch_accum_split(x, win, nperseg, hop, nfft, detrend):
@@ -343,23 +417,45 @@ def welch_accum_c2c_split_reference(re, im, win, nperseg, hop, nfft, detrend):
     return psum, num
 
 
-def spec_rfft_split(x, win, nperseg, hop, nfft, detrend, *, pad_out=False, roll_s=0):
+def spec_rfft_split(x, win, nperseg, hop, nfft, detrend, *, pad_out=False, roll_s=0,
+                    scale=None):
     """Fused framed R2C (B20): real float32 ``[..., t]`` x -> split spectra
     (Xr, Xi) ``[..., num, bins]``, bins = nfft//2 + 1, or ``pad_bins(nfft)``
     with exact zeros past bin nfft//2 when ``pad_out``.  ``roll_s`` (0 <=
     roll_s < nfft) rolls each zero-padded frame left before the transform
-    (ShortTimeFFT's phase shift); the mean is taken before the roll.
-    Differentiable in x."""
-    (Xr, Xi), _ = _apply("spec", x, None, win, nperseg, hop, nfft, detrend, roll_s, pad_out)
+    (ShortTimeFFT's phase shift); the mean is taken before the roll; the
+    scale is folded into the store.  Differentiable in x."""
+    (Xr, Xi), _ = _apply("spec", x, None, win, nperseg, hop, nfft, detrend, roll_s, pad_out,
+                         scale)
     return Xr, Xi
 
 
 def spec_rfft_split_reference(x, win, nperseg, hop, nfft, detrend, *, pad_out=False,
-                              roll_s=0):
+                              roll_s=0, scale=None):
     """Plain torch version of :func:`spec_rfft_split`."""
     (Xr, Xi), _ = _reference("spec", x, None, win, nperseg, hop, nfft, detrend, roll_s,
-                             pad_out)
+                             pad_out, scale)
     return Xr, Xi
+
+
+def spec_rfft_c64(x, win, nperseg, hop, nfft, detrend, *, roll_s=0, scale=None, pad=0):
+    """:func:`spec_rfft_split` into one complex64 tensor ``[..., num,
+    nfft//2 + 1]``: on the card the kernel's complex64 sink, one launch and
+    no merge.  ``pad`` (0 <= pad < t) frames x with numpy's reflect pad of
+    ``pad`` points at both ends (stft's centering), read in place by the
+    kernel.  Differentiable in x (the composed form's gradient, through the
+    R2C kernel's complex64 sink)."""
+    (X,), _ = _apply("spec_c64", x, None, win, nperseg, hop, nfft, detrend, roll_s, False,
+                     scale, pad)
+    return X
+
+
+def spec_rfft_c64_reference(x, win, nperseg, hop, nfft, detrend, *, roll_s=0, scale=None,
+                            pad=0):
+    """Plain torch version of :func:`spec_rfft_c64`."""
+    (X,), _ = _reference("spec_c64", x, None, win, nperseg, hop, nfft, detrend, roll_s,
+                         False, scale, pad)
+    return X
 
 
 def spec_c2c_split(re, im, win, nperseg, hop, nfft, detrend):

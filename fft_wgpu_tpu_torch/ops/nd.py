@@ -4,29 +4,35 @@ N-D is the separable application of the 1-D executor along each axis; the
 per-axis route (row, axis(-2) or axis(-3) kernel, or the mixed-radix path)
 is the plan's.  Composite axes take the composite kernels with no
 transpose: ``fft2`` of ``[16, 1080, 1920]`` frames is the composite-row
-kernel over 1920 and the composite axis(-2) kernel over 1080.  On a CUDA tensor a transform over the two trailing axes of
-at least 8 planes in the fused-plane envelope, or of planes with further
-axes to transform, first runs the fused-plane kernel
-(``cuda_fft.fft2_fused_split``, both axes in one pass over device memory);
-the remaining axes then go through the per-axis loop.
+kernel over 1920 and the composite axis(-2) kernel over 1080.  On a CUDA
+tensor a transform over the two trailing axes of planes in the fused-plane
+envelope (A, B pow2 >= 128, A*B <= 2^16) first runs the fused-plane kernel
+(both axes in one pass over device memory, one launch: faster than the row
+kernel then the axis(-2) kernel from one plane on, by CUDA events on an
+NVIDIA H100 80GB HBM3 at its 700 W power limit, PERF.md); the remaining
+axes then take their own routes.
 
 The JAX package sends other trailing planes in the row kernel's envelope
 to two transposed-rows passes (``fft2_split``, kept as an entry point
 here).  On the H100 the per-axis loop, the row kernel then the axis(-2)
-kernel, measured faster at 4096 x 4096 (0.60 against 0.67 ms on an NVIDIA
-H100 80GB HBM3 at its 700 W power limit, PERF.md), so those planes take
-the per-axis loop.
+kernel, measured faster at 4096 x 4096 (0.60 against 0.67 ms, PERF.md), so
+those planes take the per-axis loop.
 
-A complex64 CUDA tensor whose transformed axes are all pow2 in 128..16384,
-and which the fused plane does not take, runs each axis through the
-kernels' complex64 entries (:func:`_c64_route`, :func:`fftn_c64`): the
-row kernel's for the last axis, the axis(-2) kernel's for axis -2 and on
-the free view for the axes before it, with no split and no merge (``fft2``
-of a 4096 x 4096 plane is two launches and nothing else).
+A complex64 CUDA tensor whose transformed axes are all pow2 in 128..16384
+runs the kernels' complex64 entries, with no split and no merge
+(:func:`fftn_c64`): the fused plane's (``cuda_fft.fft2_fused_c64``) over a
+trailing plane in its envelope (:func:`_c64_plane`), then, for every
+other axis, the row kernel's entry for the last axis, the axis(-2)
+kernel's for axis -2 and its entry on the free view for the axes before it
+(:func:`_c64_route` when no plane goes first).  ``fftn`` of 256^3 is the
+fused plane, then the axis(-3) kernel, and ``fft2`` of a 4096 x 4096 plane
+the row kernel, then the axis(-2) kernel: two launches and nothing else.
+Other tensors (planar pairs, other dtypes, pads or trims) take the split
+route, the fused plane's planar entry first where it applies.
 
 Routes are picked by envelope predicates (:func:`_fused_plane`,
-:func:`_c64_route`), never by catching an error.  A CPU tensor takes the
-per-axis loop, as the JAX package does off the TPU.
+:func:`_c64_plane`, :func:`_c64_route`), never by catching an error.  A
+CPU tensor takes the per-axis loop, as the JAX package does off the TPU.
 """
 
 from __future__ import annotations
@@ -66,15 +72,32 @@ def _norm_axes(ndim, s, axes):
 
 def _fused_plane(shape, axes, device, executor="auto") -> bool:
     """Whether a transform over ``axes`` of ``shape`` starts with the
-    fused-plane kernel over the trailing plane (else: the per-axis loop)."""
+    fused-plane kernel over the trailing plane (else: the per-axis loop): a
+    CUDA tensor whose two trailing axes are transformed and lie in the
+    fused envelope, at any plane count (one launch measured faster than the
+    row kernel then the axis(-2) kernel from one plane on, PERF.md)."""
     nd = len(shape)
     ax_sorted = sorted(a % nd for a in axes)
-    if (executor not in ("auto", "pallas") or device.type != "cuda"
-            or len(axes) < 2 or ax_sorted[-2:] != [nd - 2, nd - 1]):
-        return False
-    rest = ax_sorted[:-2]
-    return bool((math.prod(shape[:-2]) >= 8 or rest)
-                and cuda_fft._fft2f_supported(*shape[-2:]))
+    return (executor in ("auto", "pallas") and device.type == "cuda" and len(axes) >= 2
+            and ax_sorted[-2:] == [nd - 2, nd - 1]
+            and cuda_fft._fft2f_supported(*shape[-2:]))
+
+
+def _c64_ok(shape, dtype, device, s, axes, executor) -> bool:
+    """complex64 on a CUDA device, no pad or trim, every axis of ``axes``
+    pow2 in 128..16384: the complex64 entries take the whole transform."""
+    return (dtype == torch.complex64 and device.type == "cuda"
+            and executor in ("auto", "pallas") and len(axes) > 0
+            and all(size is None or size == shape[a] for size, a in zip(s, axes))
+            and all(cuda_fft._supported(shape[a]) for a in axes))
+
+
+def _c64_plane(shape, dtype, device, s, axes, executor="auto") -> bool:
+    """Whether the transform over ``axes`` (normalised, with the sizes
+    ``s``) runs the complex64 entries with the trailing plane first through
+    the fused-plane kernel's (:func:`fftn_c64` with ``plane``)."""
+    return (_c64_ok(shape, dtype, device, s, axes, executor)
+            and _fused_plane(shape, axes, device, executor))
 
 
 def _c64_route(shape, dtype, device, s, axes, executor="auto") -> bool:
@@ -82,18 +105,20 @@ def _c64_route(shape, dtype, device, s, axes, executor="auto") -> bool:
     ``s``) of a tensor of ``shape``, ``dtype`` and ``device`` runs the
     complex64 entries axis by axis (:func:`fftn_c64`): complex64 on a CUDA
     device, no pad or trim, every axis pow2 in 128..16384, and not the
-    fused-plane kernel's route."""
-    return (dtype == torch.complex64 and device.type == "cuda"
-            and executor in ("auto", "pallas") and len(axes) > 0
-            and all(size is None or size == shape[a] for size, a in zip(s, axes))
-            and all(cuda_fft._supported(shape[a]) for a in axes)
+    complex64 fused plane's route (:func:`_c64_plane`)."""
+    return (_c64_ok(shape, dtype, device, s, axes, executor)
             and not _fused_plane(shape, axes, device, executor))
 
 
-def fftn_c64(x, axes, sign, scale):
-    """The complex64 route: each axis of ``axes`` in turn through the
-    kernels' complex64 entries (``cuda_fft.fft_c64_along``), the scale
-    folded into the last axis's pass.  Differentiable."""
+def fftn_c64(x, axes, sign, scale, plane=False):
+    """The complex64 route: with ``plane`` the trailing plane first through
+    the fused-plane kernel's complex64 entry (``cuda_fft.fft2_fused_c64``),
+    then each remaining axis of ``axes`` in turn through the kernels'
+    complex64 entries (``cuda_fft.fft_c64_along``), the scale folded into
+    the last pass.  Differentiable."""
+    if plane:
+        axes = sorted(a % x.ndim for a in axes)[:-2]
+        x = cuda_fft.fft2_fused_c64(x, sign, None if axes else scale)
     for i, ax in enumerate(axes):
         x = cuda_fft.fft_c64_along(x, ax, sign, scale if i == len(axes) - 1 else None)
     return x
@@ -152,9 +177,10 @@ def _run_nd_split(x, s, axes, sign, norm, executor):
 def _run_nd(x, s, axes, sign, norm, executor):
     if isinstance(x, torch.Tensor):
         sn, axn = _norm_axes(x.ndim, s, axes)
-        if _c64_route(x.shape, x.dtype, x.device, sn, axn, executor):
+        plane = _c64_plane(x.shape, x.dtype, x.device, sn, axn, executor)
+        if plane or _c64_route(x.shape, x.dtype, x.device, sn, axn, executor):
             scale = _nd_scale(math.prod(x.shape[a] for a in axn), sign, norm)
-            return fftn_c64(x, axn, sign, scale)
+            return fftn_c64(x, axn, sign, scale, plane)
     return merge(*_run_nd_split(x, s, axes, sign, norm, executor))
 
 

@@ -13,8 +13,10 @@ from, built once per device.
   on the device (v[k] = c1 * x[i1] + c2 * x[i2]), then transforms every
   slice.  Real input in a one-sided mode with mfft in the
   segment-spectrum envelope runs one launch of the framed-R2C kernel (B20,
-  ``cuda_welch.spec_rfft_split``) on a CUDA tensor, the phase shift as its
-  left roll of each padded frame; anything else frames, pads, rolls and
+  ``cuda_welch.spec_rfft_c64``) on a CUDA tensor, the phase shift as its
+  left roll of each padded frame, into complex64 with no merge (the
+  ``onesided2X`` multiplier then scales that tensor, and the result is its
+  transposed, moved view); anything else frames, pads, rolls and
   transforms through the plan (the R2C, or ``fftn_split`` for complex
   input, two-sided modes and odd mfft).
 * ``istft`` inverts each slice (``irfft_last_split``, the C2R kernel for
@@ -427,17 +429,19 @@ class ShortTimeFFT:
         if (xi is None and self.onesided_fft and _on_card(xr)
                 and cuda_welch.fused_welch_ok(k_end - k_start, self.m_num, self._hop,
                                               self.mfft, False)):
-            # B20: framing, window, mfft pad, phase roll and R2C in one pass
-            Xr, Xi = cuda_welch.spec_rfft_split(blend(xr), win, self.m_num, self._hop,
-                                                self.mfft, False, roll_s=self._p_s())
+            # B20: framing, window, mfft pad, phase roll and R2C in one pass,
+            # into complex64: no merge
+            X = cuda_welch.spec_rfft_c64(blend(xr), win, self.m_num, self._hop, self.mfft,
+                                         False, roll_s=self._p_s())
             if self.fft_mode == "onesided2X":
-                mult = self._table("mult", xr.device)
-                Xr, Xi = Xr * mult, Xi * mult
-        else:
-            def prep(v):
-                return _frame(blend(v), self.m_num, self._hop)[..., :num, :] * win
+                X = X * self._table("mult", xr.device)
+            ax = axis if axis >= 0 else X.ndim - 1 + axis
+            return X.transpose(-1, -2).movedim(-2, ax)
 
-            Xr, Xi = self._fft_frames(prep(xr), None if xi is None else prep(xi))
+        def prep(v):
+            return _frame(blend(v), self.m_num, self._hop)[..., :num, :] * win
+
+        Xr, Xi = self._fft_frames(prep(xr), None if xi is None else prep(xi))
         # [..., P, f] -> [..., f, P], f to `axis`'s position
         ax = axis if axis >= 0 else Xr.ndim - 1 + axis
         return merge(Xr.transpose(-1, -2).movedim(-2, ax),

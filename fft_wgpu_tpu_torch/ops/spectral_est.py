@@ -21,6 +21,9 @@ in the cases where the JAX package takes its TPU kernels, with
     the median over segments;
   * ``csd`` of two real signals of one shape: B17; ``coherence``: B18;
   * ``spectrogram``'s one-sided psd and magnitude modes of real input: B19;
+  * its one-sided complex mode of real input: B20's complex64 sink,
+    ``spec_rfft_c64``, the normalisation folded into its store, returned
+    as the transposed view with no merge;
   * the two-sided mean of one signal (complex input, or real input with
     ``return_onesided=False``): B21, ``welch_accum_c2c_split``;
   * every other per-segment spectrum, :func:`_spec_segments_split`: B20
@@ -28,8 +31,7 @@ in the cases where the JAX package takes its TPU kernels, with
     (``spec_c2c_split``) for the two-sided spectra of complex input or of
     real input with ``return_onesided=False``.  It serves the cross
     spectra and medians of complex input, two-sided ``csd``,
-    ``spectrogram``'s complex, angle and phase modes and its two-sided
-    psd and magnitude modes.
+    ``spectrogram``'s angle and phase modes and its two-sided modes.
 
 Outside the envelope (``detrend="linear"``, non-pow2 nfft, other shapes)
 and on every CPU tensor :func:`_spec_segments_split` composes: frames,
@@ -664,6 +666,11 @@ def spectrogram(x, fs: float = 1.0, window=("tukey", 0.25),
         else:
             S = P * norm * _onesided_mult(nfft, P.device)
         out = S.transpose(-1, -2)
+    elif (mode == "complex" and onesided and v_i is None and _on_card(v_r)
+            and cuda_welch.fused_welch_ok(v_r.shape[-1], nperseg, hop, nfft, detrend)):
+        # B20's complex64 sink, the normalisation folded in: no merge
+        out = cuda_welch.spec_rfft_c64(v_r, win, nperseg, hop, nfft, detrend,
+                                       scale=float(np.sqrt(norm))).transpose(-1, -2)
     else:
         Xr, Xi = _spec_segments_split(v_r, v_i, win, nperseg, hop, nfft, detrend)
         if mode == "psd":

@@ -4,8 +4,12 @@ semantics), the port of ``fft_wgpu_tpu.ops.stft``.
 ``stft`` frames a real signal and transforms every frame: on a CUDA
 tensor in the segment-spectrum envelope (``cuda_welch.fused_welch_ok``
 with nperseg = nfft = n_fft and no detrend) one launch of the framed-R2C
-kernel (B20, ``cuda_welch.spec_rfft_split``) does both, without the frame
-matrix; anywhere else the frames go through the plan's R2C.  ``istft``
+kernel (B20, ``cuda_welch.spec_rfft_c64``) does both, the center pad
+included (the kernel reads the reflected points in place), without the
+frame matrix, into complex64 ``[..., num, bins]``, returned as its
+transposed view with no merge and no copy; anywhere else the frames go
+through the plan's R2C.  The default window is built once per length and
+device.  ``istft``
 runs the C2R (the C2R kernel for pow2 n_fft on the card), the window and a
 scatter-free overlap-add of K contiguous slabs (``_ola_slabs``), and
 divides by the same overlap-add of the squared window, built on the
@@ -16,6 +20,8 @@ package, on ``device`` (the current CUDA device by default).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -95,13 +101,20 @@ def _ola_slabs(frames, hop: int, t: int):
     return out.reshape(*lead, (num + K - 1) * hop)[..., :t]
 
 
+@functools.lru_cache(maxsize=64)
+def _default_window(n: int, device) -> torch.Tensor:
+    """stft's default window, the periodic hann of n points, built once per
+    (n, device): a call copies no table to the device."""
+    return hann_window(n, device=device)
+
+
 def _prep_window(window, n_fft: int, win_length, device):
     """Resolve the analysis window to a float32 tensor of n_fft points on
     ``device``: default hann of win_length (or n_fft), and any window
     shorter than n_fft is padded centered (torch.stft win_length
     semantics)."""
     if window is None:
-        window = hann_window(win_length or n_fft, device=device)
+        window = _default_window(win_length or n_fft, device)
     window = to_device(window, device)
     wl = window.shape[0]
     if win_length is not None and wl != win_length:
@@ -133,21 +146,25 @@ def stft(x, n_fft: int = 512, hop_length: int | None = None, window=None,
     """Short-time Fourier transform of a real signal.
 
     Returns complex64 ``[..., n_fft//2 + 1, num_frames]`` (librosa-style
-    layout).  A tensor is transformed on its device; other input goes to
-    the current CUDA device."""
+    layout; on the card a transposed view of the kernel's
+    ``[..., num_frames, n_fft//2 + 1]`` output).  A tensor is transformed on
+    its device; other input goes to the current CUDA device."""
     # imported here: cuda_welch imports this module
     from . import cuda_welch
 
     hop = hop_length or n_fft // 4
     x = to_device(x)
     window = _prep_window(window, n_fft, win_length, x.device)
+    pad = n_fft // 2 if center else 0
+    if (_on_card(x) and pad < x.shape[-1]
+            and cuda_welch.fused_welch_ok(x.shape[-1] + 2 * pad, n_fft, hop, n_fft, False)):
+        # B20: the center pad, frames, window and R2C in one pass into
+        # complex64, no merge
+        return cuda_welch.spec_rfft_c64(x, window, n_fft, hop, n_fft, False,
+                                        pad=pad).transpose(-1, -2)
     if center:
-        x = _reflect_pad(x, n_fft // 2)
-    if _on_card(x) and cuda_welch.fused_welch_ok(x.shape[-1], n_fft, hop, n_fft, False):
-        # B20: frames, window and R2C in one pass, no frame matrix
-        Xr, Xi = cuda_welch.spec_rfft_split(x, window, n_fft, hop, n_fft, False)
-    else:
-        Xr, Xi = _rfft_split(_frame(x, n_fft, hop) * window, None, -1, None)
+        x = _reflect_pad(x, pad)
+    Xr, Xi = _rfft_split(_frame(x, n_fft, hop) * window, None, -1, None)
     return merge(Xr.transpose(-1, -2), Xi.transpose(-1, -2))
 
 

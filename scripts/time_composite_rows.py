@@ -22,10 +22,21 @@ B6) at 4096 x 4096, each through its planar entry and, where the tree has
 one, its complex64 entry, fft2 and rfft of 4096 x 4096 through the public
 calls (events, all of their device work, and each kernel's), the 2^22
 four-step (config 3, plan.forward_split: B2 then B4), and B2 and B6 at
-every pow2 n of 128..16384 over 2^24 points (set "cols").
+every pow2 n of 128..16384 over 2^24 points (set "cols"); the fused-plane
+kernel (fft2f_fft, B5) at 256^3 and at 16 planes of each plane of its
+envelope through each of its entries, fftn of 256^3 complex64 (events,
+all of its device work and each kernel's), and the plane-route table:
+the fused plane's complex64 entry against the row kernel then the
+axis(-2) kernel, both complex64, at 1, 2, 4, 8, 16 and 256 planes of each
+plane (set "plane"); the per-segment R2C kernel (B20) at a 2^22 signal
+with nperseg 4096, hop 2048, through each of its sinks, beside torch.fft's
+composition of the same function, and at every pow2 nfft of 128..16384 at
+half overlap over 2^22 points, stft of 2^20 samples (events, all of its
+device work, the kernel's) beside torch.stft, and the other six
+segment-spectrum kinds' output bits, to compare two trees (set "spec").
 
     python3 scripts/time_composite_rows.py [--tree DIR] [--label NAME] [--out FILE]
-                                           [--set rows|columns|chirp|pow2|cols|all]
+                                           [--set rows|columns|chirp|pow2|cols|plane|spec|all]
 
 ``--tree`` imports ``fft_wgpu_tpu_torch`` from another checkout (for
 example a parent commit unpacked with ``git archive``), so that two
@@ -119,7 +130,8 @@ def main() -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--out", default=None, help="append the JSON line here")
     ap.add_argument("--set", default="all",
-                    choices=("rows", "columns", "chirp", "pow2", "cols", "all"),
+                    choices=("rows", "columns", "chirp", "pow2", "cols", "plane", "spec",
+                             "all"),
                     help="which kernels to time")
     args = ap.parse_args()
 
@@ -148,6 +160,10 @@ def main() -> int:
         time_pow2(ft, cuda_fft, dev, gen, args.label, result)
     if args.set in ("cols", "all"):
         time_cols(ft, cuda_fft, dev, gen, args.label, result)
+    if args.set in ("plane", "all"):
+        time_plane(ft, cuda_fft, dev, gen, args.label, result)
+    if args.set in ("spec", "all"):
+        time_spec(ft, dev, gen, args.label, result)
     for kernel, rows, n in SHAPES if args.set in ("rows", "all") else ():
         key = f"{kernel} {rows}x{n}"
         if kernel == "gen_fft":
@@ -171,7 +187,7 @@ def main() -> int:
         result["times"][key]["device"] = device_ms(fns["kernel"], f"{kernel}_kernel")
         print(f"{args.label} | {key} | rel-L2 {err:.3e} | " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in result["times"][key].items()), flush=True)
-    if args.set in ("columns", "chirp", "pow2", "cols"):
+    if args.set in ("columns", "chirp", "pow2", "cols", "plane", "spec"):
         return finish(result, args)
     fr = torch.complex(torch.randn(16, 1080, 1920, device=dev, generator=gen),
                        torch.randn(16, 1080, 1920, device=dev, generator=gen))
@@ -413,6 +429,146 @@ def time_cols(ft, cuda_fft, dev, gen, label, result):
            fns, {"device ax0_fft": (fns["forward_split"], "ax0_fft_kernel"),
                  "device rows_t_fft": (fns["forward_split"], "rows_t_fft_kernel"),
                  "device all": (fns["forward_split"], every)}, reps=50)
+
+
+PLANES = ((128, 128), (128, 256), (256, 128), (128, 512), (512, 128), (256, 256))
+
+
+def time_plane(ft, cuda_fft, dev, gen, label, result):
+    """fft2f_fft (B5) at 256^3 and at 16 planes of each plane of its
+    envelope, through its planar entry and, where the tree has one, its
+    complex64 entry, torch.fft's fft2 beside it; fftn of 256^3 complex64
+    (events, all of its device work and each kernel's) beside torch.fft;
+    the plane-route table: the fused plane's complex64 entry (planar,
+    split and merge included, where the tree has no complex64 entry)
+    against the row kernel then the axis(-2) kernel through their complex64
+    entries, and the two routes' planar entries, at 1, 2, 4, 8, 16 and 256
+    planes of each plane."""
+    import torch
+
+    crand = randn_complex(dev, gen)
+    record = recorder(label, result)
+    every = r"\w+"
+    has_c64 = hasattr(cuda_fft, "_fft2f_launch_c64")
+    for planes, (a, b) in [(256, (256, 256))] + [(16, p) for p in PLANES]:
+        x = crand(planes, a, b)
+        re_, im_ = x.real.contiguous(), x.imag.contiguous()
+        fns = {"kernel": lambda: cuda_fft._fft2f_launch(re_, im_, -1, None),
+               "torch.fft": lambda: torch.fft.fft2(x)}
+        device = {"device kernel": (fns["kernel"], "fft2f_fft_kernel")}
+        want = torch.fft.fft2(x.to(torch.complex128))
+        err = rel_l2(torch.complex(*fns["kernel"]()), want)
+        if has_c64:
+            fns["kernel_c64"] = lambda: cuda_fft._fft2f_launch_c64(x, -1, None)
+            device["device kernel_c64"] = (fns["kernel_c64"], "fft2f_fft_kernel")
+            err = max(err, rel_l2(fns["kernel_c64"](), want))
+        record(f"fft2f {planes}x{a}x{b}", err, fns, device, reps=20)
+        del x, re_, im_
+    x = crand(256, 256, 256)
+    fns = {"fftn": lambda: ft.fftn(x), "torch.fft": lambda: torch.fft.fftn(x)}
+    record("fftn 256^3", rel_l2(ft.fftn(x), torch.fft.fftn(x.to(torch.complex128))), fns,
+           {"device fft2f_fft": (fns["fftn"], "fft2f_fft_kernel"),
+            "device ax0_fft": (fns["fftn"], "ax0_fft_kernel"),
+            "device all": (fns["fftn"], every)}, reps=20)
+    del x
+    for a, b in PLANES:
+        for planes in (1, 2, 4, 8, 16, 256):
+            x = crand(planes, a, b)
+            if has_c64:
+                def fused():
+                    return cuda_fft._fft2f_launch_c64(x, -1, None)
+            else:
+                def fused():
+                    return torch.complex(*cuda_fft._fft2f_launch(x.real.contiguous(),
+                                                                 x.imag.contiguous(), -1, None))
+
+            def per_axis():
+                return cuda_fft._ax0_launch_c64(cuda_fft._launch_c64(x, -1, None), -1, None)
+
+            re_, im_ = x.real.contiguous(), x.imag.contiguous()
+
+            def fused_planar():
+                return cuda_fft._fft2f_launch(re_, im_, -1, None)
+
+            def per_axis_planar():
+                return cuda_fft._ax0_launch(*cuda_fft._launch(re_, im_, -1, None), -1, None)
+
+            fns = {"fused": fused, "rows + ax0": per_axis, "fused planar": fused_planar,
+                   "rows + ax0 planar": per_axis_planar, "torch.fft": lambda: torch.fft.fft2(x)}
+            want = torch.fft.fft2(x.to(torch.complex128))
+            err = max(rel_l2(fused(), want), rel_l2(per_axis(), want),
+                      rel_l2(torch.complex(*fused_planar()), want),
+                      rel_l2(torch.complex(*per_axis_planar()), want))
+            record(f"plane route {planes}x{a}x{b}", err, fns,
+                   {f"device {k}": (fn, every) for k, fn in fns.items() if k != "torch.fft"},
+                   reps=20)
+            del x, re_, im_
+
+
+def _bits(outs):
+    """A checksum of the bits of a kernel's outputs: the sum of their
+    float32 words read as int32, in int64."""
+    import torch
+
+    return int(sum(o.contiguous().view(torch.int32).to(torch.int64).sum() for o in outs))
+
+
+def time_spec(ft, dev, gen, label, result):
+    """B20 at a 2^22 signal with nperseg 4096, hop 2048 (a tukey window,
+    constant detrend: the complex spectrogram's shape) through its planar
+    sink and, where the tree has one, its complex64 sink, beside torch.fft's
+    composition (unfold, detrend, window, rfft); B20 at every pow2 nfft of
+    128..16384 at half overlap over 2^22 points; stft of 2^20 samples at
+    n_fft 512, hop 128 beside torch.stft; and the bits of the other six
+    segment-spectrum kinds at a 2^20 signal (``bits`` in the JSON line)."""
+    import torch
+
+    from fft_wgpu_tpu_torch.ops import cuda_welch
+
+    record = recorder(label, result)
+    every = r"\w+"
+    b20 = r"(welch|spec_fft)_kernel"  # the parent's welch_kernel<., 5>, or spec_fft_kernel
+    has_c64 = hasattr(cuda_welch, "spec_rfft_c64")
+    x = torch.randn(1 << 22, device=dev, generator=gen)
+    tukey = ft.get_window(("tukey", 0.25), 4096, device=dev)
+
+    def composed(v, w, nperseg, hop, nfft, detrend):
+        fr = v.unfold(-1, nperseg, hop)
+        if detrend == "constant":
+            fr = fr - fr.mean(-1, keepdim=True)
+        return torch.fft.rfft(fr * w, n=nfft)
+
+    shapes = [(tukey, (4096, 2048, 4096, "constant"))]
+    shapes += [(ft.hann_window(1 << e, device=dev), (1 << e, 1 << e - 1, 1 << e, False))
+               for e in range(7, 15)]
+    for w, args in shapes:
+        want = composed(x.double(), w.double(), *args)
+        fns = {"kernel": lambda: cuda_welch.spec_rfft_split(x, w, *args),
+               "torch.fft": lambda: composed(x, w, *args)}
+        device = {"device kernel": (fns["kernel"], b20)}
+        err = rel_l2(torch.complex(*fns["kernel"]()), want)
+        if has_c64:
+            fns["kernel_c64"] = lambda: cuda_welch.spec_rfft_c64(x, w, *args)
+            device["device kernel_c64"] = (fns["kernel_c64"], b20)
+            err = max(err, rel_l2(fns["kernel_c64"](), want))
+        record("spec 2^22 nperseg {} hop {} nfft {} {}".format(*args), err, fns, device,
+               reps=20)
+    del x
+    x20 = torch.randn(1 << 20, device=dev, generator=gen)
+    hann = torch.hann_window(512, device=dev)
+    fns = {"stft": lambda: ft.stft(x20, 512, 128),
+           "torch.stft": lambda: torch.stft(x20, 512, 128, window=hann, center=True,
+                                            pad_mode="reflect", return_complex=True)}
+    record("stft 2^20 n_fft 512 hop 128", rel_l2(ft.stft(x20, 512, 128),
+                                                 fns["torch.stft"]().to(torch.complex128)),
+           fns, {"device kernel": (fns["stft"], b20), "device all": (fns["stft"], every)},
+           reps=50)
+    y20 = torch.randn(1 << 20, device=dev, generator=gen)
+    w = torch.hann_window(4096, device=dev)
+    result["bits"] = {kind: _bits(cuda_welch._launch(kind, x20, y20 if kind in (
+        "csd", "coh", "c2c", "spec_c2c") else None, w, 4096, 2048, 4096, "constant"))
+        for kind in ("welch", "psd", "csd", "coh", "c2c", "spec_c2c")}
+    print(f"{label} | bits of the other six kinds | {result['bits']}", flush=True)
 
 
 def randn_complex(dev, gen):

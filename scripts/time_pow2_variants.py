@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time launch-bound and cluster-size variants of the pow2 kernels of the
-torch port (rows_fft, B1; big_fft, B15; ax0_fft, B2/B3) on one CUDA card,
-each beside the kernel as it is.
+torch port (rows_fft, B1; big_fft, B15; ax0_fft, B2/B3; fft2f_fft, B5;
+spec_fft, B20) on one CUDA card, each beside the kernel as it is.
 
-    python3 scripts/time_pow2_variants.py [--lib rows_fft|big_fft|ax0_fft] [--out FILE]
+    python3 scripts/time_pow2_variants.py
+        [--lib rows_fft|big_fft|ax0_fft|fft2f_fft|spec_fft] [--out FILE]
 
 Variants: rows_fft with every launch bound at 64 registers (1024 threads an
 SM; the kernel keeps 80 for blocks of 128 and 256 threads); big_fft with
@@ -18,12 +19,17 @@ planar, 4096 complex64, and 1024 planar at 8192 and 16384), with 8
 complex64 columns from 4096 on (at 4096 in a cluster of 4 blocks of 1024
 points a column; the kernel: one block of 4 columns of 4096 there, 4
 columns above), and with 4 columns of 4096 points a block in both layouts
-(one block at 4096, clusters of 2 and 4 above).  Each variant is the kernel's source with a line
-or two rewritten, compiled with the port's nvcc flags into
-``fft_wgpu_tpu_torch/_build/variants/`` (all at once), called through its
-complex64 entry point (ax0_fft: and its planar one), checked against
-torch.fft (relative L2 <= 1e-5) and
-timed by its kernel's device time from a torch.profiler window of 20
+(one block at 4096, clusters of 2 and 4 above); fft2f_fft with 8192
+points a block in 512 threads, two an SM (the kernel: 4096 in 256, four
+an SM), and with the launch bound at 128 registers (the kernel: 64);
+spec_fft with blocks of at least 256 threads (the kernel: 128) and with
+six blocks of 128 threads an SM, 85 registers (the kernel: eight, 64).
+Each variant is
+the kernel's source with a line or two rewritten, compiled with the port's
+nvcc flags into ``fft_wgpu_tpu_torch/_build/variants/`` (all at once),
+called through its complex64 entry point (ax0_fft and fft2f_fft: and the
+planar one), checked against torch.fft (relative L2 <= 1e-5) and timed by
+its kernel's device time from a torch.profiler window of 20
 calls.  The card's name and power limit (nvidia-smi) head the output; one
 JSON line ends it and, with ``--out``, is appended to FILE.
 """
@@ -96,6 +102,32 @@ AX0_VARIANT_LOG2C = {
     "complex64, 8 columns": ((0, 0, 0, 0, 0, 2, 3, 4), (0, 0, 0, 0, 0, 2, 2, 3)),
     "4 columns of 4096": ((0, 0, 0, 0, 0, 0, 1, 2), (0, 0, 0, 0, 0, 0, 1, 2)),
 }
+FFT2F_LOG2P = "constexpr int kFft2fLog2P = 12;"
+FFT2F_REGS = "constexpr int kFft2fRegisters = 64;"
+VARIANTS.update({
+    ("fft2f_fft", "kernel"): None,
+    ("fft2f_fft", "8192 points a block"): (FFT2F_LOG2P, "constexpr int kFft2fLog2P = 13;"),
+    ("fft2f_fft", "128 registers"): (FFT2F_REGS, "constexpr int kFft2fRegisters = 128;"),
+})
+# log2 of the points a block of each fft2f_fft variant holds (the kernel's:
+# cuda_fft._FFT2F_LOG2P)
+FFT2F_VARIANT_LOG2P = {"8192 points a block": 13}
+SPEC_ROWS = "  static constexpr int kRows = kThreads >= 128 ? 1 : 128 / kThreads;\n"
+SPEC_BOUND = "  static constexpr int kMinBlocks = 1024 / kBlock;  // 64 registers\n"
+VARIANTS.update({
+    ("spec_fft", "kernel"): None,
+    ("spec_fft", "256 threads a block"): (SPEC_ROWS, SPEC_ROWS.replace("128", "256")),
+    ("spec_fft", "six blocks of 128 an SM"): (
+        SPEC_BOUND, "  static constexpr int kMinBlocks = kBlock <= 128 ? 6 : kBlock == 256 ? 3 : "
+                    "1024 / kBlock;\n"),
+})
+# (t, nperseg, hop, nfft, detrend) of spec_fft's shapes: the complex
+# spectrogram's 2^22, half overlap at 512 and 16384, stft's 2^20 (centred)
+SPEC_SHAPES = ((1 << 22, 4096, 2048, 4096, "constant"), (1 << 22, 512, 256, 512, False),
+               (1 << 22, 16384, 8192, 16384, False), ((1 << 20) + 512, 512, 128, 512, False))
+# (planes, A, B) of fft2f_fft's shapes: fftn 256^3's planes, 16 of each plane
+FFT2F_SHAPES = ((256, 256, 256), (16, 128, 128), (16, 128, 256), (16, 256, 128),
+                (16, 128, 512), (16, 512, 128), (16, 256, 256))
 # (n, m) of ax0_fft's shapes: config 3's pass 1, fft2's 4096^2, the 256^3
 # axis(-3) view, and the large n
 AX0_SHAPES = ((1024, 4096), (4096, 4096), (256, 65536), (128, 131072), (512, 32768),
@@ -136,7 +168,8 @@ def build_variants():
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="append the JSON line here")
-    ap.add_argument("--lib", default=None, choices=("rows_fft", "big_fft", "ax0_fft"),
+    ap.add_argument("--lib", default=None,
+                    choices=("rows_fft", "big_fft", "ax0_fft", "fft2f_fft", "spec_fft"),
                     help="only this kernel's variants")
     args = ap.parse_args()
     if args.lib:
@@ -160,14 +193,17 @@ def main() -> int:
         f = getattr(ctypes.CDLL(lib), f"{lib_name}_c64")
         f.argtypes = {"rows_fft": [P, P, P, LL, I, I, F, P],
                       "big_fft": [P, P, P, LL, I, I, I, F, P],
-                      "ax0_fft": [P, P, P, P, LL, LL, I, I, I, F, P]}[lib_name]
+                      "ax0_fft": [P, P, P, P, LL, LL, I, I, I, F, P],
+                      "fft2f_fft": [P, P, P, P, LL, I, I, I, I, F, P],
+                      "spec_fft": [P, P, P, P, P, LL, LL] + [I] * 7 + [F, P]}[lib_name]
         f.restype = I
         fns[lib_name, name] = f
-        if lib_name == "ax0_fft":
-            f = getattr(ctypes.CDLL(lib), "ax0_fft_f32")
-            f.argtypes = [P, P, P, P, P, P, LL, LL, I, I, I, F, P]
+        if lib_name in ("ax0_fft", "fft2f_fft"):
+            f = getattr(ctypes.CDLL(lib), f"{lib_name}_f32")
+            f.argtypes = {"ax0_fft": [P, P, P, P, P, P, LL, LL, I, I, I, F, P],
+                          "fft2f_fft": [P, P, P, P, P, P, LL, I, I, I, I, F, P]}[lib_name]
             f.restype = I
-            fns["ax0_fft_f32", name] = f
+            fns[f"{lib_name}_f32", name] = f
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
@@ -265,6 +301,65 @@ def main() -> int:
             run(f"{lib} {n}x{m}", x, want,
                 {name: ax0_call(name, f, x, out, n, c64) for (lb, name), f in fns.items()
                  if lb == lib}, "ax0_fft_kernel")
+        del x, out
+    def fft2f_call(name, f, x, out, c64):
+        planes, A, B = x.shape
+        la, lb = A.bit_length() - 1, B.bit_length() - 1
+        log2c = la + lb - FFT2F_VARIANT_LOG2P.get(name, cuda_fft._FFT2F_LOG2P)
+        tabs = tuple(cuda_fft._twiddle_table(n, -1, dev, cuda_fft._pass_roots_np)
+                     for n in (A, B))
+        if c64:
+            held = (x, out)
+        else:  # the planes live as long as the call
+            held = (x.real.contiguous(), x.imag.contiguous(), torch.empty(x.shape, device=dev),
+                    torch.empty(x.shape, device=dev))
+        args = tuple(t.data_ptr() for t in held + tabs)
+
+        def call():
+            err = f(*args, planes, la, lb, log2c, -1, 1.0, stream)
+            if err:
+                raise RuntimeError(f"fft2f_fft variant {name!r}: CUDA error {err}")
+            return out if c64 else torch.complex(held[2], held[3])
+        return call
+
+    for planes, A, B in FFT2F_SHAPES if ("fft2f_fft", "kernel") in VARIANTS else ():
+        x = torch.complex(torch.randn(planes, A, B, device=dev, generator=gen),
+                          torch.randn(planes, A, B, device=dev, generator=gen))
+        out = torch.empty_like(x)
+        want = torch.fft.fft2(x)
+        for lib, c64 in (("fft2f_fft", True), ("fft2f_fft_f32", False)):
+            run(f"{lib} {planes}x{A}x{B}", x, want,
+                {name: fft2f_call(name, f, x, out, c64) for (lb, name), f in fns.items()
+                 if lb == lib},
+                "fft2f_fft_kernel")
+        del x, out
+    def spec_call(name, f, x, w, out, shape):
+        t, nperseg, hop, nfft, detrend = shape
+        num = 1 + (t - nperseg) // hop
+        tabs = (cuda_fft._twiddle_table(nfft // 2, -1, dev, cuda_fft._pass_roots_np),
+                cuda_fft._halfcomplex_table(nfft, -1, dev))
+
+        def call():
+            err = f(x.data_ptr(), w.data_ptr(), out.data_ptr(), *(tab.data_ptr() for tab in tabs),
+                    1, t, nperseg, hop, num, nfft.bit_length() - 1, int(detrend == "constant"),
+                    0, 0, 1.0, stream)
+            if err:
+                raise RuntimeError(f"spec_fft variant {name!r}: CUDA error {err}")
+            return out
+        return call
+
+    for shape in SPEC_SHAPES if ("spec_fft", "kernel") in VARIANTS else ():
+        t, nperseg, hop, nfft, detrend = shape
+        x = torch.randn(t, device=dev, generator=gen)
+        w = torch.hann_window(nperseg, device=dev)
+        fr = x.double().unfold(-1, nperseg, hop)
+        if detrend == "constant":
+            fr = fr - fr.mean(-1, keepdim=True)
+        want = torch.fft.rfft(fr * w.double(), n=nfft)
+        out = torch.empty(want.shape, dtype=torch.complex64, device=dev)
+        run("spec_fft t={} nperseg={} hop={} nfft={} {}".format(*shape), x, want,
+            {name: spec_call(name, f, x, w, out, shape) for (lb, name), f in fns.items()
+             if lb == "spec_fft"}, "spec_fft_kernel")
         del x, out
     line = json.dumps(result)
     if args.out:

@@ -221,7 +221,7 @@ C64 = torch.complex64
 @pytest.mark.parametrize("shape,axes,s,dtype,device,executor,takes", [
     ((4096, 4096), [0, 1], None, C64, CUDA, "auto", True),     # fft2, config 4
     ((16384, 128), [1, 0], None, C64, CUDA, "auto", True),     # any order
-    ((2, 256, 256), [1, 2], None, C64, CUDA, "auto", True),    # < 8 planes
+    ((2, 256, 256), [1, 2], None, C64, CUDA, "auto", False),   # the fused plane
     ((128, 3, 256), [0, 2], None, C64, CUDA, "pallas", True),  # axis 0 on the view
     ((4096, 4096), [0, 1], [4096, 4096], C64, CUDA, "auto", True),
     ((4096, 4096), [0, 1], None, C64, CPU, "auto", False),     # the CPU
@@ -287,3 +287,92 @@ def test_axis0_out_in_place_matches_jax(rng, assert_close):
     with pytest.raises(ValueError, match="out planes"):
         cuda_fft.fft_axis0_split(torch.zeros(256, 4), torch.zeros(256, 4), 1,
                                  out=(torch.zeros(256, 5), torch.zeros(256, 5)))
+
+
+# ---------------------------------------------------------------------- #
+# B5: the fused plane's complex64 entry and the plain version of its own
+# passes and exchange, and the complex64 plane route of fftn
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("shape", [(2, 128, 128), (128, 256), (256, 128), (512, 128),
+                                   (128, 512), (256, 256)])
+@pytest.mark.parametrize("sign", [-1, 1])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_fft2_fused_c64_matches_jax_kernel(shape, sign, scaled, rng, assert_close):
+    x = crand(rng, *shape)
+    A, B = shape[-2:]
+    scale = 1.0 / (A * B) if scaled else None
+    want = cplx(j_pf.fft2_fused_split(np.ascontiguousarray(x.real), np.ascontiguousarray(x.imag),
+                                      sign, scale, interpret=True))
+    got = cuda_fft.fft2_fused_c64(torch.from_numpy(x), sign, scale)
+    assert got.dtype == torch.complex64 and got.shape == shape
+    assert_close(got.numpy(), want, what="entry")
+    assert_close(cuda_fft._fft2f_passes(torch.from_numpy(x), sign, scale).numpy(), want,
+                 what="the kernel's passes")
+    assert_no_launches()
+
+
+def test_fft2_fused_c64_grad_matches_jax(rng, assert_close):
+    re, im, wr, wi = (rng.standard_normal((2, 128, 256)).astype(np.float32) for _ in range(4))
+    jg = _jax_grad(lambda a, b: j_pf.fft2_fused_split(a, b, 1, 0.5, interpret=True),
+                   re, im, wr, wi)
+    tre, tim = torch.from_numpy(re).requires_grad_(), torch.from_numpy(im).requires_grad_()
+    y = cuda_fft.fft2_fused_c64(torch.complex(tre, tim), 1, 0.5)
+    (y.real * torch.from_numpy(wr) + y.imag * torch.from_numpy(wi)).sum().backward()
+    assert_close(tre.grad.numpy(), np.asarray(jg[0]), what="d/dre")
+    assert_close(tim.grad.numpy(), np.asarray(jg[1]), what="d/dim")
+    assert_no_launches()
+
+
+def test_fft2f_block_size_matches_source():
+    # the host passes the cluster size of each plane, A*B >> _FFT2F_LOG2P,
+    # which the kernel checks against its compiled block size; the kernel
+    # runs the compiled plans of A and B (plan_fft), whose pass roots the
+    # host builds
+    csrc = pathlib.Path(cuda_fft.__file__).parent.parent / "csrc"
+    src = (csrc / "fft2f_fft.cu").read_text()
+    assert int(re.search(r"constexpr int kFft2fLog2P = (\d+);", src)[1]) == cuda_fft._FFT2F_LOG2P
+    assert "plan_fft<" in src and "fft_passes" not in src
+    for a in range(7, 10):
+        for b in range(7, 10):
+            if cuda_fft._fft2f_supported(1 << a, 1 << b):
+                assert 2 <= 1 << (a + b - cuda_fft._FFT2F_LOG2P) <= 16, (a, b)
+
+
+@pytest.mark.parametrize("shape,axes", [((4, 128, 256), (1, 2)), ((3, 2, 128, 128), (2, 3)),
+                                        ((128, 2, 128, 128), (0, 2, 3))])
+@pytest.mark.parametrize("norm", [None, "ortho"])
+def test_fftn_c64_plane_matches_jax(shape, axes, norm, rng, assert_close):
+    # the complex64 plane route's arithmetic as fftn runs it on the card:
+    # the fused plane's complex64 entry over the trailing plane, then the
+    # axes before it through the axis(-3) entry
+    x = crand(rng, *shape)
+    ax = list(axes)
+    total = int(np.prod([shape[a] for a in ax]))
+    for sign, jfn in ((-1, ftt.fftn), (1, ftt.ifftn)):
+        got = nd.fftn_c64(torch.from_numpy(x), ax, sign, nd._nd_scale(total, sign, norm),
+                          plane=True)
+        assert got.dtype == torch.complex64 and got.shape == shape
+        assert_close(got.numpy(), np.asarray(jfn(x, axes=axes, norm=norm)), what=f"sign={sign}")
+    assert_no_launches()
+
+
+@pytest.mark.parametrize("shape,axes,dtype,device,takes", [
+    ((1, 128, 128), [1, 2], C64, CUDA, True),        # a single plane
+    ((2, 256, 256), [2, 1], C64, CUDA, True),        # any order
+    ((256, 512, 128), [1, 2], C64, CUDA, True),
+    ((128, 256, 256), [0, 1, 2], C64, CUDA, True),   # fftn: the plane, then axis -3
+    ((128, 256, 256), [0, 1, 2], torch.complex128, CUDA, False),
+    ((128, 256, 256), [0, 1, 2], C64, CPU, False),
+    ((4, 256, 256), [0, 1, 2], C64, CUDA, False),    # axis 0 outside the complex64 kernels
+    ((2, 512, 256), [1, 2], C64, CUDA, False),       # outside the fused envelope
+    ((256, 256, 256), [0, 2], C64, CUDA, False),     # not the trailing plane
+])
+def test_nd_complex64_plane_predicate(shape, axes, dtype, device, takes):
+    # a complex64 CUDA tensor's trailing plane in the fused envelope takes
+    # the fused plane's complex64 entry at every plane count (the measured
+    # route, PERF.md), then the complex64 entries for the axes before it;
+    # the per-axis complex64 route takes the other complex64 shapes
+    s = [None] * len(axes)
+    assert nd._c64_plane(shape, dtype, device, s, axes) is takes
+    if takes:
+        assert not nd._c64_route(shape, dtype, device, s, axes)

@@ -19,6 +19,8 @@ machine has no jax, so run them without the suite's conftest:
 Tolerance: 1e-5 relative L2, with TF32 off for the plain version's matmuls.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -529,10 +531,14 @@ def test_config4_routes(dev):
 
 
 def test_fftn_3d_routes(dev):
+    # 256^3 complex64: the fused plane, then axis -3, through their
+    # complex64 entries
     x = crand(dev, 256, 256, 256)
+    before = _fused_c64_counts()
     X = _through(lambda: ft.fftn(x), fft2f_fft=1, ax3=1)
     assert rel_l2(X, torch.fft.fftn(x)) < TOL
     assert rel_l2(_through(lambda: ft.ifftn(X), fft2f_fft=1, ax3=1), x) < TOL
+    assert tuple(a - b for a, b in zip(_fused_c64_counts(), before)) == (2, 2, 0)
     y = crand(dev, 2, 128, 3, 64)  # the plan's axis(-3) route, any trailing shape
     Y = _through(lambda: ft.fft(y, axis=1), ax3=1)
     assert rel_l2(Y, torch.fft.fft(y, dim=1)) < TOL
@@ -1453,3 +1459,123 @@ def test_complex64_nd_and_rfft_routes(dev):
     _through(lambda: ft.fft2(crand(dev, 8, 256, 256)), fft2f_fft=1)
     _through(lambda: ft.fft2(crand(dev, 1080, 1920)), gen_fft=1, ax0_gen=1)
     assert _c64_counts() == before
+
+
+# ---------------------------------------------------------------------- #
+# B5 (fft2f_fft) and B20 (spec_fft) on the compiled pow2 passes: both
+# layouts and sinks, the complex64 entries and the routes through them
+# ---------------------------------------------------------------------- #
+def _fused_c64_counts():
+    return (cuda_fft.fft2f_c64_launches, cuda_fft.ax3_c64_launches,
+            cuda_welch.spec_c64_launches)
+
+
+@pytest.mark.parametrize("A,B", PLANES)
+@pytest.mark.parametrize("lead", [(), (3,), (2, 5)])
+def test_fft2_fused_c64_kernel_matches_plain(dev, A, B, lead):
+    # the complex64 entry against the plain version of its own passes and
+    # exchange and against float64 torch.fft, both signs, and in place
+    x = crand(dev, *lead, A, B)
+    want = torch.fft.fft2(x.to(torch.complex128))
+    for sign, scale in ((-1, None), (1, 1.0 / (A * B))):
+        o = want if sign < 0 else torch.fft.ifft2(x.to(torch.complex128), norm="forward") * scale
+        before = _fused_c64_counts()
+        k = _through(lambda: cuda_fft.fft2_fused_c64(x, sign, scale), fft2f_fft=1)
+        assert _fused_c64_counts()[0] == before[0] + 1
+        assert rel_l2(k, cuda_fft._fft2f_passes(x, sign, scale)) < TOL, sign
+        assert rel_l2(k, o) < TOL, sign
+    y = x.clone()
+    assert cuda_fft._fft2f_launch_c64(y, -1, None, out=y) is y
+    assert rel_l2(y, want) < TOL
+
+
+def test_grad_fft2_fused_c64_matches_plain(dev):
+    x = crand(dev, 4, 128, 512, seed=3)
+    w = torch.linspace(0.5, 1.5, x.numel(), device=dev).reshape(x.shape)
+    gk = _through(lambda: _grad_c64(lambda z: cuda_fft.fft2_fused_c64(z, 1, 0.5), x, w),
+                  fft2f_fft=2)
+    gp = _grad_c64(lambda z: cuda_fft.fft2_fused_c64_reference(z, 1, 0.5), x, w)
+    assert rel_l2(gk, gp) < TOL
+
+
+@pytest.mark.parametrize("nfft", POW2)
+def test_spec_c64_sink_matches_plain(dev, nfft):
+    # B20's complex64 sink against the plain version of its passes and
+    # float64 torch.fft: odd nperseg, a roll (odd: scalar loads; even: pair
+    # loads), a ragged last group of segments, the reflect pad of stft
+    for nperseg, roll_s, pad in ((nfft, 0, 0), (nfft - nfft // 4 + 1, nfft // 2 + 1, 0),
+                                 (nfft // 2, 6, 0), (nfft, 0, nfft // 2)):
+        hop = max(nperseg // 4, 1)
+        t = nperseg + 37 * hop + hop // 3
+        x = rrand(dev, 2, t, seed=nperseg)
+        w = torch.hann_window(nperseg, device=dev) + 0.1
+        for detrend in (False, "constant"):
+            before = _fused_c64_counts()
+            got = _through(lambda: cuda_welch.spec_rfft_c64(x, w, nperseg, hop, nfft, detrend,
+                                                             roll_s=roll_s, pad=pad), spec=1)
+            assert _fused_c64_counts()[2] == before[2] + 1
+            plain = cuda_welch._spec_passes(x, w, nperseg, hop, nfft, detrend, roll_s, pad=pad)
+            v = torch.nn.functional.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
+            want = torch.complex(*_welch_oracle("spec", v.double(), None, w, nperseg, hop,
+                                                nfft, detrend, roll_s=roll_s))
+            assert got.dtype == torch.complex64 and got.shape == want.shape
+            assert rel_l2(got, plain) < TOL and rel_l2(got, want) < TOL, (nperseg, roll_s, pad)
+            again = cuda_welch.spec_rfft_c64(x, w, nperseg, hop, nfft, detrend, roll_s=roll_s,
+                                             pad=pad)
+            assert torch.equal(got, again)
+
+
+def test_grad_spec_c64_matches_plain(dev):
+    x0 = rrand(dev, 3, 5000, seed=13)
+    w = torch.hann_window(512, device=dev)
+
+    def grad(v):
+        v = v.clone().requires_grad_()
+        y = cuda_welch.spec_rfft_c64(v, w.to(v.device), 512, 200, 1024, "constant", roll_s=7,
+                                     pad=256)
+        (torch.linspace(0.5, 1.5, y.numel(), device=v.device).reshape(y.shape)
+         * y.abs() ** 2).sum().backward()
+        return v.grad
+
+    gk = _through(lambda: grad(x0), spec=1, r2c_fft=1, rows_fft=1)
+    assert rel_l2(gk.cpu(), grad(x0.cpu())) < TOL
+
+
+def test_fftn_256_cubed_and_stft_are_their_kernels_alone(dev):
+    # fftn of 256^3 complex64: the fused plane's complex64 entry, then the
+    # axis(-3) pass's, one launch each and no other device work; stft of
+    # 2^20 samples: B20's complex64 sink once, the center pad read in place,
+    # no merge (over ten calls, from the profiler)
+    x = crand(dev, 256, 256, 256)
+    names = _device_kernels(lambda: ft.fftn(x), calls=10)
+    assert {next((k for k in ("fft2f_fft_kernel", "ax0_fft_kernel") if k in name), name)
+            for name in names} == {"fft2f_fft_kernel", "ax0_fft_kernel"}, names
+    before = _fused_c64_counts()
+    X = _through(lambda: ft.fftn(x), fft2f_fft=1, ax3=1)
+    assert tuple(a - b for a, b in zip(_fused_c64_counts(), before)) == (1, 1, 0)
+    assert rel_l2(X, torch.fft.fftn(x.to(torch.complex128))) < TOL
+    v = rrand(dev, 1 << 20, seed=14)
+    names = _device_kernels(lambda: ft.stft(v, 512, 128), calls=10)
+    assert names and all("spec_fft_kernel" in name for name in names), names
+    before = _fused_c64_counts()
+    Z = _through(lambda: ft.stft(v, 512, 128), spec=1)
+    assert tuple(a - b for a, b in zip(_fused_c64_counts(), before)) == (0, 0, 1)
+    assert Z.dtype == torch.complex64 and rel_l2(Z.cpu(), ft.stft(v.cpu(), 512, 128)) < TOL
+
+
+def test_fused_and_spec_plans_are_the_planner_s(dev):
+    # the new kernels run the one compiled plan table (plan_fft) on every
+    # pass length (rows and columns of each plane, each half length of
+    # B20), whose pass roots the host builds from the planner's plan
+    import pathlib
+
+    csrc = pathlib.Path(cuda_fft.__file__).parent.parent / "csrc"
+    for name in ("fft2f_fft.cu", "spec_fft.cu"):
+        text = (csrc / name).read_text()
+        assert '#include "mixed_fft.cuh"' in text, name
+        assert "plan_fft<" in text and "fft_passes" not in text and "plans[" not in text, name
+    for A, B in PLANES:
+        for n in (A, B):
+            tab = cuda_fft._twiddle_table(n, -1, dev, cuda_fft._pass_roots_np)
+            assert tab.shape[0] == sum(math.prod(cuda_fft._mixed_radix_plan(n)[:i])
+                                       for i in range(1, len(cuda_fft._mixed_radix_plan(n))))

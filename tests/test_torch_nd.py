@@ -297,10 +297,12 @@ def test_plane_routes_on_the_card(assert_close):
     assert nd._fused_plane((8, 256, 256), (1, 2), CUDA)
     assert nd._fused_plane((8, 256, 256), (2, 1), CUDA)  # any order
     assert nd._fused_plane((2, 128, 512), (0, 1, 2), CUDA)  # rest
-    # config 4's plane and a few planes: the per-axis loop (row kernel and
-    # axis(-2) kernel), measured faster than two transposed-rows passes
+    # a few planes: the fused plane too (one launch measured faster than two
+    # from one plane on); config 4's plane: the per-axis loop (row kernel
+    # and axis(-2) kernel), measured faster than two transposed-rows passes
+    assert nd._fused_plane((2, 256, 256), (1, 2), CUDA)
+    assert nd._fused_plane((128, 128), (0, 1), CUDA)
     assert not nd._fused_plane((4096, 4096), (-2, -1), CUDA)
-    assert not nd._fused_plane((2, 256, 256), (1, 2), CUDA)
     assert not nd._fused_plane((512, 512, 512), (0, 1, 2), CUDA)
     assert not nd._fused_plane((4096, 2049), (0,), CUDA)  # rfft2's C2C axis
     assert not nd._fused_plane((256, 256, 256), (0, 2), CUDA)  # not trailing

@@ -59,13 +59,13 @@ def card(request, monkeypatch):
     takes; record the framed-R2C entry point's calls."""
     seen = []
     monkeypatch.setattr(short_time_fft, "_on_card", lambda t: request.param)
-    spec = cuda_welch.spec_rfft_split
+    spec = cuda_welch.spec_rfft_c64
 
     def spy(*a, **k):
         seen.append(k.get("roll_s"))
         return spec(*a, **k)
 
-    monkeypatch.setattr(cuda_welch, "spec_rfft_split", spy)
+    monkeypatch.setattr(cuda_welch, "spec_rfft_c64", spy)
     return request.param, seen
 
 
@@ -297,3 +297,26 @@ def test_gradient_matches_jax_grad(phase_shift, card, assert_close):
     (_t(wt) * ours.stft(xt).abs() ** 2).sum().backward()
     assert_close(_np(xt.grad), np.asarray(want))
     assert card[1] == ([ours._p_s()] if card[0] else [])
+
+
+@pytest.mark.parametrize("fft_mode", ["onesided", "onesided2X"])
+def test_kernel_route_takes_the_complex64_sink(fft_mode, monkeypatch, assert_close):
+    """On the card, real input in a one-sided mode with pow2 mfft runs B20's
+    complex64 sink once and returns its transposed, moved view (the
+    onesided2X multiplier on the complex tensor): no merge."""
+    def refuse(*a, **k):
+        raise AssertionError("the kernel route merged planes")
+
+    seen = []
+    spec = cuda_welch.spec_rfft_c64
+    monkeypatch.setattr(short_time_fft, "_on_card", lambda t: True)
+    monkeypatch.setattr(short_time_fft, "merge", refuse)
+    monkeypatch.setattr(cuda_welch, "spec_rfft_c64",
+                        lambda *a, **k: seen.append(k["roll_s"]) or spec(*a, **k))
+    ours, jx, sp = _trio(m_num=128, hop=32, fft_mode=fft_mode, scale_to="magnitude")
+    x = _sig(900, seed=5).reshape(3, 300)
+    got = ours.stft(_t(_f32(x)), axis=-1)
+    assert seen == [ours._p_s()]
+    assert got.dtype == torch.complex64 and tuple(got.shape) == jx.stft(_f32(x)).shape
+    assert_close(_np(got), np.asarray(jx.stft(_f32(x))), what="vs JAX")
+    assert_close(_np(got), sp.stft(x), what="vs scipy")

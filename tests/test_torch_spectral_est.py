@@ -55,13 +55,13 @@ def crand(rng, *shape):
 
 @pytest.fixture
 def routes(monkeypatch):
-    """Pretend CPU tensors lie on the card, and record which of the seven
+    """Pretend CPU tensors lie on the card, and record which of the eight
     entry points each call reaches."""
     seen = []
     monkeypatch.setattr(spectral_est, "_on_card", lambda t: True)
     for name in ("welch_accum_split", "spec_psd_split", "csd_accum_split",
                  "coherence_accum_split", "welch_accum_c2c_split", "spec_rfft_split",
-                 "spec_c2c_split"):
+                 "spec_rfft_c64", "spec_c2c_split"):
         fn = getattr(cuda_welch, name)
 
         def spy(*a, _fn=fn, _name=name, **k):
@@ -382,7 +382,7 @@ ROUTES = {
     # Pxy from the two-sided spectra of x and y, then Pxx and Pyy
     "coherence_complex": ["spec_c2c_split"] * 2 + ["welch_accum_c2c_split"] * 2,
     "spectrogram_psd": "spec_psd_split", "spectrogram_magnitude": "spec_psd_split",
-    "spectrogram_complex": "spec_rfft_split", "spectrogram_angle": "spec_rfft_split",
+    "spectrogram_complex": "spec_rfft_c64", "spectrogram_angle": "spec_rfft_split",
     "spectrogram_phase": "spec_rfft_split", "spectrogram_complex_input": "spec_c2c_split",
     "spectrogram_complex_input_complex": "spec_c2c_split",
     "spectrogram_two_sided_magnitude": "spec_c2c_split", "spectrogram_complex_linear": None,

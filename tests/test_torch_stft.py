@@ -52,13 +52,13 @@ def test_stft_matches_jax(case, rng, assert_close):
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-{c[3]}-{c[4]}")
 def test_stft_kernel_route_matches_jax(case, rng, monkeypatch, assert_close):
     """The route of a CUDA tensor, run by pretending the tensor lies on the
-    card: pow2 n_fft takes the framed-R2C entry point (B20) once, with
-    nperseg = nfft = n_fft and no detrend; the rest compose."""
+    card: pow2 n_fft takes the framed-R2C entry point's complex64 sink (B20)
+    once, with nperseg = nfft = n_fft and no detrend; the rest compose."""
     shape, n_fft, hop, center, wl = case
     calls = []
-    spec = cuda_welch.spec_rfft_split
+    spec = cuda_welch.spec_rfft_c64
     monkeypatch.setattr(t_stft, "_on_card", lambda t: True)
-    monkeypatch.setattr(cuda_welch, "spec_rfft_split",
+    monkeypatch.setattr(cuda_welch, "spec_rfft_c64",
                         lambda *a, **k: calls.append(a[2:]) or spec(*a, **k))
     x = rng.standard_normal(shape).astype(np.float32)
     got = ft.stft(_t(x), n_fft, hop, center=center, win_length=wl)
@@ -66,6 +66,28 @@ def test_stft_kernel_route_matches_jax(case, rng, monkeypatch, assert_close):
                                                  win_length=wl)), what="stft vs JAX")
     pow2 = n_fft & (n_fft - 1) == 0
     assert calls == ([(n_fft, hop or n_fft // 4, n_fft, False)] if pow2 else [])
+
+
+@pytest.mark.parametrize("center", [True, False])
+def test_stft_kernel_route_takes_the_complex64_sink(center, rng, monkeypatch, assert_close):
+    """On the card, pow2 n_fft runs B20's complex64 sink once on the
+    unpadded signal (the centering's reflect pad is the kernel's ``pad``)
+    and returns its transposed view: no merge, no pad in torch."""
+    def refuse(*a, **k):
+        raise AssertionError("the kernel route merged or padded in torch")
+
+    calls = []
+    spec = cuda_welch.spec_rfft_c64
+    monkeypatch.setattr(t_stft, "_on_card", lambda t: True)
+    monkeypatch.setattr(t_stft, "merge", refuse)
+    monkeypatch.setattr(t_stft, "_reflect_pad", refuse)
+    monkeypatch.setattr(cuda_welch, "spec_rfft_c64",
+                        lambda *a, **k: calls.append((a[0].shape, k)) or spec(*a, **k))
+    x = rng.standard_normal((2, 3000)).astype(np.float32)
+    got = ft.stft(_t(x), 256, 64, center=center)
+    assert calls == [((2, 3000), {"pad": 128 if center else 0})]
+    assert got.dtype == torch.complex64 and not got.is_contiguous()
+    assert_close(got.numpy(), np.asarray(fj.stft(x, 256, 64, center=center)), what="stft vs JAX")
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-{c[1]}-{c[2]}-{c[3]}-{c[4]}")

@@ -487,3 +487,67 @@ def test_spec_c2c_gradient_matches_jax_grad(rng, assert_close):
     (_t(wr) * Xr * Xr + _t(wi) * Xi * Xr).sum().backward()
     assert_close(_np(rt.grad), np.asarray(want[0]), what="spec_c2c d/dre")
     assert_close(_np(it.grad), np.asarray(want[1]), what="spec_c2c d/dim")
+
+
+# B20's complex64 sink (spec_rfft_c64) and the plain version of the
+# kernel's own passes, against the JAX kernel in interpret mode, merged
+SPEC_C64_CASES = [((2,), 4096, 512, 256, 512, "constant", 77),  # a roll, ragged last block
+                  ((), 3000, 255, 85, 512, "constant", 0),      # odd nperseg < nfft
+                  ((), 4096, 512, 128, 1024, None, 300)]        # nfft pad, an even roll
+
+
+@pytest.mark.parametrize("case", SPEC_C64_CASES, ids=lambda c: "x".join(map(str, c[1:5])))
+def test_spec_c64_matches_jax_interpret(case, rng, assert_close):
+    lead, t, nperseg, hop, nfft, detrend, roll_s = case
+    x, _, win = inputs(rng, lead, t, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    jr, ji = j_pw.spec_rfft_split(x, win, *args, roll_s=roll_s, interpret=True)
+    want = np.asarray(jr) + 1j * np.asarray(ji)
+    got = cuda_welch.spec_rfft_c64(_t(x), _t(win), *args, roll_s=roll_s)
+    assert got.dtype == torch.complex64 and got.shape == (*lead, 1 + (t - nperseg) // hop,
+                                                          nfft // 2 + 1)
+    assert_close(_np(got), want, what="spec_rfft_c64 vs JAX")
+    passes = cuda_welch._spec_passes(_t(x), _t(win), *args, roll_s)
+    assert_close(_np(passes), want, what="the kernel's passes vs JAX")
+    plain = cuda_welch.spec_rfft_c64_reference(_t(x), _t(win), *args, roll_s=roll_s)
+    np.testing.assert_array_equal(_np(plain), _np(got))
+    assert cuda_welch.spec_launches == cuda_welch.spec_c64_launches == 0
+
+
+@pytest.mark.parametrize("nfft,hop", [(512, 128), (256, 100)])
+def test_spec_c64_reflect_pad_matches_jax_interpret(nfft, hop, rng, assert_close):
+    # stft's centering: the reflect pad of nfft/2 points at each end, which
+    # the kernel reads in place, against the JAX kernel on the padded signal
+    x, _, win = inputs(rng, (2,), 3000, nfft)
+    pad = nfft // 2
+    xp = np.pad(x, [(0, 0), (pad, pad)], mode="reflect")
+    args = (nfft, hop, nfft, False)
+    got = cuda_welch.spec_rfft_c64(_t(x), _t(win), *args, pad=pad)
+    if 512 <= nfft:
+        jr, ji = j_pw.spec_rfft_split(xp, win, *args, interpret=True)
+        want = np.asarray(jr) + 1j * np.asarray(ji)
+    else:  # below the JAX kernel's envelope: its composed framing
+        want = numpy_spec(xp, None, win, *args)
+    assert_close(_np(got), want, what="padded")
+    assert_close(_np(cuda_welch._spec_passes(_t(x), _t(win), *args, pad=pad)), want,
+                 what="the kernel's passes, padded")
+    with pytest.raises(ValueError, match="pad"):
+        cuda_welch.spec_rfft_c64(_t(x), _t(win), *args, pad=3000)
+
+
+def test_spec_c64_gradient_matches_jax_grad(rng, assert_close):
+    nperseg, hop, nfft, detrend, roll_s = 200, 96, 256, "constant", 77
+    x, _, win = inputs(rng, (2,), 1500, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    num = 1 + (1500 - nperseg) // hop
+    wr, wi = (rng.random((2, num, nfft // 2 + 1)).astype(np.float32) for _ in range(2))
+
+    def jloss(a):
+        Xr, Xi = _j_spec_rolled(a, jnp.asarray(win), *args, roll_s, False)
+        return jnp.sum(wr * Xr * Xr + wi * Xi)
+
+    want = jax.grad(jloss)(jnp.asarray(x))
+    xt = _t(x).requires_grad_()
+    X = cuda_welch.spec_rfft_c64(xt, _t(win), *args, roll_s=roll_s)
+    (_t(wr) * X.real * X.real + _t(wi) * X.imag).sum().backward()
+    assert_close(_np(xt.grad), np.asarray(want), what="spec_rfft_c64 d/dx")
