@@ -12,7 +12,7 @@ resample).
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
-the CUDA toolkit and scipy.  It builds the fourteen kernel libraries from
+the CUDA toolkit and scipy.  It builds the fifteen kernel libraries from
 ``fft_wgpu_tpu_torch/csrc`` (one nvcc each, all at once) and runs five
 phases, one line each or more; any failure raises and the script exits
 non-zero without a result line:
@@ -22,7 +22,7 @@ non-zero without a result line:
              ptxas's registers, stack and spills of ax0_gen_fft,
              rows_t_fft and chirp_fft (m = 8192 and 16384), and of every
              instantiation of rows_fft, big_fft, ax0_fft, r2c_fft,
-             fft2f_fft and spec_fft;
+             fft2f_fft, spec_fft, filt_fft's filtered rows and spec_c2c_fft;
 2. kernel  — each kernel against its plain torch version and torch.fft,
              both signs, scale None and 1/n (rel-L2 <= 1e-5 each):
              rows_fft for every n in 128..16384 at rows 1 and 1000 and at
@@ -63,8 +63,14 @@ non-zero without a result line:
              4093 and 4097, the ZoomFFT) with its tables, chirp_full there
              against float64 references;
              the fused epilogues' kernels: filt at every n, rows 3 and
-             1000, and at 4096 x 4096; bank at every n for banks of 1 and
-             7 rows, and at 128 x 16384; c2r_prod at every n, ragged and
+             1000, and at 4096 x 4096, through its planar entry and its
+             complex64 entry (filt_c64, against the plain version of its
+             own passes, cuda_fft._filt_passes; also on rows of n/2 + 1
+             points, zero past them, and in place); bank at every n for
+             banks of 1 and 7 rows, and at 128 x 16384; the bits of the
+             kernels kept as they were (rows_fft in both entries, bank,
+             welch, psd, csd, coh, c2c) against those recorded from them
+             before (KEPT_BITS); c2r_prod at every n, ragged and
              padded, B of A's shape and broadcast, at 2048 x 8192 and 547 x
              2048; ax0_gen at every composite n at m = 7 and 1000, and at
              16 x 1080 x 1920, and the axis(-3) pass at [2, 1000, 7, 130];
@@ -73,7 +79,11 @@ non-zero without a result line:
              the segment-spectrum kernels welch, psd, csd, coh, c2c, spec
              (spec_fft's planar sink; spec_c64 its complex64 sink, both
              against the plain version of its own passes,
-             cuda_welch._spec_passes) and spec_c2c against their plain
+             cuda_welch._spec_passes) and spec_c2c (spec_c2c_fft's planar
+             source and sink; spec_c2c_c64 its complex64 sink from a
+             complex64 signal, from two planes and from one real plane,
+             both against the plain version of its own passes,
+             cuda_welch._spec_c2c_passes) against their plain
              versions and float64 torch.fft of the frames at every pow2
              nfft, nperseg = nfft and odd nperseg < nfft, hops nperseg,
              nperseg/2 and nperseg - nperseg/8, one signal with no detrend
@@ -103,7 +113,8 @@ non-zero without a result line:
              then B12) at 4093, rfft at 4095 and 1000, irfft at 4095, czt
              and ZoomFFT over 1024 signals of 4096 samples; then the fused
              epilogues:
-             SpectralFilter and hilbert at 4096 x 4096, fftconvolve of two
+             SpectralFilter of complex64 and hilbert of real 4096 x 4096
+             (filt_c64 counted beside filt), fftconvolve of two
              2048 x 4096 signals, oaconvolve of 2^20 samples with 129
              taps, the CWT plan of 8192 samples over widths 1..128, fft2 /
              ifft2 of 16 x 1080 x 1920 frames; then the spectral
@@ -118,7 +129,8 @@ non-zero without a result line:
              beside spec) against float64 numpy and its istft
              round trip, spectrogram(mode="complex") of 2^22 (nperseg
              4096, noverlap 2048), the two-sided psd and complex
-             spectrograms and csd of complex 2^22 signals,
+             spectrograms and csd of complex 2^22 signals (B22's complex64
+             source and sink, spec_c2c_c64 counted beside spec_c2c),
              ShortTimeFFT(hann(1024), hop 256, fs 48000) at mfft 1024 and
              2048 and its istft, resample of 256 x 8192 to 16384 and
              6144, against scipy.signal; each call's launches are
@@ -131,19 +143,21 @@ non-zero without a result line:
              prime 4093 at 64 rows, the latter chirp_full forward and back),
              rfft at 1005 and 4096 (the complex64 sink), rfft2, batched fft2
              and fft2 of one 256 x 1024 complex64 plane,
-             SpectralFilter, fftconvolve (both inputs), the CWT plan and
+             SpectralFilter of complex64 (the complex64 entries of the row
+             and filtered kernels), fftconvolve (both inputs), the CWT plan and
              fft2 at 1080 x 1920; welch, csd (both inputs), spectrogram
              and the two-sided welch of a complex signal at 2^16 samples;
              stft, ShortTimeFFT.stft with a phase shift and the complex
              two-sided spectrogram at 2^16;
-5. times   — CUDA-event medians of each kernel (rows_fft and big_fft
-             in both layouts), its plain version, torch.fft and
+5. times   — CUDA-event medians of each kernel (rows_fft, big_fft, filt
+             and spec_c2c in both layouts), its plain version, torch.fft and
              plan.forward at the main shapes, beside a plane copy of the
              same bytes; a torch.profiler breakdown of plan(4096).forward
              and of the whole-row fft, which must run their kernel alone
              (no split, no merge), and of fft2 and rfft at 4096 x 4096,
-             fftn at 256^3 and stft of 2^20, which must run their kernels
-             alone, once each; fft2 at 4096 x 4096 by three routes
+             fftn at 256^3, stft of 2^20, SpectralFilter of complex64 and
+             hilbert at 4096 x 4096 and the complex spectrogram of complex64
+             2^22, which must run their kernels alone, once each; fft2 at 4096 x 4096 by three routes
              (transposed rows twice, row then axis(-2) planar and
              complex64) and the fused plane at 256^3 in both layouts
              against row then axis(-2) in both; fftn at 512^3; the fused
@@ -180,21 +194,23 @@ TOL = 1e-5  # relative L2, the JAX package's oracle bar
 SEED = 0
 LIBS = ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft", "fft2f_fft", "r2c_fft",
         "c2r_fft", "gen_fft", "r2c_gen_fft", "chirp_fft", "filt_fft", "ax0_gen_fft",
-        "welch_fft", "spec_fft")
+        "welch_fft", "spec_fft", "spec_c2c_fft")
 # Kernels as the launch counters name them: the axis(-3) pass is the axis(-2)
 # kernels on a free view, with its own entry point and counter; chirp_fft
 # holds three kernels (chirp_fwd, chirp_inv and the two fused, chirp_full),
-# each with its own, filt_fft two entry points (filt, bank), c2r_fft a
-# second one (c2r_prod), welch_fft six (welch, psd, csd, coh, c2c,
-# spec_c2c), spec_fft one (spec: B20); rows_fft, ax0_fft (on axis -2 and on
-# the axis(-3) view), fft2f_fft, r2c_fft, big_fft and spec_fft two layouts
-# each (rows_fft_c64, ax0_fft_c64, ax3_fft_c64, fft2f_fft_c64, r2c_fft_c64,
-# big_fft_c64 and spec_c64: their complex64 entries, counted apart too).
+# each with its own, filt_fft two kernels (filt, bank), c2r_fft a second
+# one (c2r_prod), welch_fft five (welch, psd, csd, coh, c2c), spec_fft one
+# (spec: B20), spec_c2c_fft one (spec_c2c: B22); rows_fft, ax0_fft (on axis
+# -2 and on the axis(-3) view), fft2f_fft, r2c_fft, big_fft, filt, spec_fft
+# and spec_c2c_fft two layouts each (rows_fft_c64, ax0_fft_c64, ax3_fft_c64,
+# fft2f_fft_c64, r2c_fft_c64, big_fft_c64, filt_c64, spec_c64 and
+# spec_c2c_c64: their complex64 entries, counted apart too).
 KERNELS = ("rows_fft", "rows_fft_c64", "ax0_fft", "ax0_fft_c64", "ax3_fft", "ax3_fft_c64",
            "rows_t_fft", "fft2f_fft", "fft2f_fft_c64", "r2c_fft", "r2c_fft_c64", "c2r_fft",
            "big_fft", "big_fft_c64", "gen_fft", "r2c_gen_fft",
-           "chirp_fwd", "chirp_inv", "chirp_full", "filt", "bank", "c2r_prod", "ax0_gen",
-           "welch", "psd", "csd", "coh", "c2c", "spec", "spec_c64", "spec_c2c")
+           "chirp_fwd", "chirp_inv", "chirp_full", "filt", "filt_c64", "bank", "c2r_prod",
+           "ax0_gen", "welch", "psd", "csd", "coh", "c2c", "spec", "spec_c64", "spec_c2c",
+           "spec_c2c_c64")
 # Composite lengths of phase 2's sweep: factors (20, 32), (25, 40), (15, 67),
 # (23, 89), (63, 65), (17, 241), (81, 81), (100, 100), (127, 129); then one
 # for each pass type of the composite kernels' mixed-radix plan: powers of 2
@@ -206,6 +222,78 @@ GEN_NS = (640, 1000, 1005, 2047, 4095, 4097, 6561, 10000, 16383, 1920, 3072, 122
           2197, 2401, 14641, 15625, 1004, 16129, 14406, 16224, 646, 1080)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12    # H100 SXM float32 on the CUDA cores (data sheet)
+
+
+# sha256 (first 16 hex digits) of the outputs of kernels this work keeps as
+# they were, on kept_bits's inputs: B1 (rows_fft, both entries; its row types
+# moved into mixed_fft.cuh), B10 (bank, on stockham.cuh; filt_fft.cu's other
+# kernel was redesigned) and B16-B19, B21 (welch_fft.cu, which B22 left).
+# Recorded from the kernels before that work (the parent commit's libraries,
+# NVIDIA H100 80GB HBM3, by scripts/time_composite_rows.py --set bits).
+KEPT_BITS = {
+    "rows_fft 128": "f4898d7e20440177", "rows_fft_c64 128": "f8f226c7db5eb860",
+    "bank 128": "e1dd6b3ef9b691c1", "rows_fft 256": "82f279a213465b27",
+    "rows_fft_c64 256": "d23f7c08ec2be4d8", "bank 256": "5fbceba9d73ee15c",
+    "rows_fft 512": "8502651580d6b439", "rows_fft_c64 512": "5b41b67485e3818c",
+    "bank 512": "01ce4cb690e0ad44", "rows_fft 1024": "d044325a2756e4fc",
+    "rows_fft_c64 1024": "9e838d2b8ef30c44", "bank 1024": "625e5c30198e0e21",
+    "rows_fft 2048": "28f19421d9941639", "rows_fft_c64 2048": "6a45edcc385cf1ac",
+    "bank 2048": "24c5c583760c5cb0", "rows_fft 4096": "49f5dcbcebd219b6",
+    "rows_fft_c64 4096": "2802eb379c85eca6", "bank 4096": "2b90c4a514d784f5",
+    "rows_fft 8192": "a2279294e2854e4d", "rows_fft_c64 8192": "bd4cd6dd5b46cd92",
+    "bank 8192": "cbf3799d6f2e6a30", "rows_fft 16384": "28cc39cf96dc770d",
+    "rows_fft_c64 16384": "528b0ca7f625ab05", "bank 16384": "b182cfb66738d9c9",
+    "welch 128": "d9cb0e5a62869acd", "psd 128": "32b1cbce04f4f84d",
+    "csd 128": "aefe27bc9950ff34", "coh 128": "da12577eb9799239",
+    "c2c 128": "ef4cd28c8de09d08", "welch 512": "72e60d1281526938",
+    "psd 512": "bd8a3c9d46f44a0c", "csd 512": "66d0c3a466a54eeb",
+    "coh 512": "829149a06727f581", "c2c 512": "98af9c692c20a955",
+    "welch 4096": "1d55d774c395aa5f", "psd 4096": "49c56641423fedc5",
+    "csd 4096": "ebdd0554d98096c5", "coh 4096": "261f27bda9fd0ce5",
+    "c2c 4096": "042e59b3716124c7"}
+
+
+def kept_bits(cuda_fft, cuda_welch, dev) -> dict:
+    """sha256 (16 hex digits) of each kept kernel's outputs on inputs made
+    with numpy from SEED: rows_fft through both entries and bank at every
+    pow2 n, both signs, and the five welch_fft kinds at nfft 128, 512 and
+    4096 over a 2^18 signal.  ``cuda_fft`` and ``cuda_welch`` may be another
+    checkout's modules (the parent's, to record KEPT_BITS)."""
+    import hashlib
+
+    import torch
+
+    rng = np.random.default_rng(SEED)
+
+    def real(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    def digest(outs):
+        h = hashlib.sha256()
+        for o in outs:
+            h.update(o.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    out = {}
+    for e in range(7, 15):
+        n = 1 << e
+        re, im, hr, hi = real(37, n), real(37, n), real(7, n), real(7, n)
+        x = torch.complex(re, im)
+        out[f"rows_fft {n}"] = digest([*cuda_fft._launch(re, im, -1, None),
+                                       *cuda_fft._launch(re, im, 1, 1.0 / n)])
+        out[f"rows_fft_c64 {n}"] = digest([cuda_fft._launch_c64(x, -1, None),
+                                           cuda_fft._launch_c64(x, 1, 1.0 / n)])
+        out[f"bank {n}"] = digest([*cuda_fft._bank(re[0], im[0], hr, hi, -1, None),
+                                   *cuda_fft._bank(re[0], im[0], hr, hi, 1, 1.0 / n)])
+    x, y = real(1 << 18), real(1 << 18)
+    for nfft in (128, 512, 4096):
+        w = torch.from_numpy(np.hanning(nfft).astype(np.float32) + 0.1).to(dev)
+        for kind in ("welch", "psd", "csd", "coh", "c2c"):
+            u = y if kind in ("csd", "coh", "c2c") else None
+            out[f"{kind} {nfft}"] = digest(cuda_welch._launch(kind, x, u, w, nfft, nfft // 2,
+                                                              nfft, "constant"))
+    torch.cuda.synchronize()
+    return out
 
 
 def rel_l2(got, want) -> float:
@@ -279,14 +367,15 @@ def multitaper_ref(x: np.ndarray, NW: float, K: int) -> np.ndarray:
 def ptxas_summary(log: str) -> list:
     """One "kernel<template arguments>: registers, stack, spill stores" entry
     per kernel of ax0_gen_fft's, rows_t_fft's, chirp_fft's, rows_fft's,
-    big_fft's, ax0_fft's, r2c_fft's, fft2f_fft's and spec_fft's nvcc
-    -Xptxas -v logs (chirp_fft's at m = 2^13 and 2^14)."""
+    big_fft's, ax0_fft's, r2c_fft's, fft2f_fft's, spec_fft's, filt_fft's
+    (its filtered rows) and spec_c2c_fft's nvcc -Xptxas -v logs (chirp_fft's
+    at m = 2^13 and 2^14)."""
     out, kernel = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(ax0_gen_fft_kernel|rows_t_fft_kernel|"
                       r"chirp_fwd_kernel|chirp_inv_kernel|chirp_full_kernel|rows_fft_kernel|"
                       r"big_fft_kernel|ax0_fft_kernel|r2c_fft_kernel|fft2f_fft_kernel|"
-                      r"spec_fft_kernel)I(\w*?)EE", line)
+                      r"spec_fft_kernel|filt_fft_kernel|spec_c2c_kernel)I(\w*?)EE", line)
         if m and m[1].startswith("chirp") and not m[2].endswith(("13", "14")):
             m = None
         if m:
@@ -305,8 +394,10 @@ def ptxas_summary(log: str) -> list:
 
 def kernel_part(event_name: str, names) -> str:
     """Which of ``names`` a profiled device event is (``<name>_kernel`` as a
-    whole word of its demangled name), else "other"."""
-    return next((k for k in names if re.search(rf"\b{k}_kernel\b", event_name)), "other")
+    whole word of its demangled name, or the start of a copy's name, as
+    "Memcpy DtoD"), else "other"."""
+    return next((k for k in names if re.search(rf"\b{k}_kernel\b", event_name)
+                 or event_name.startswith(k)), "other")
 
 
 def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
@@ -397,7 +488,7 @@ def main() -> int:
           flush=True)
     for name, lib, _ in built:  # what ptxas reported for the redesigned kernels
         if name in ("ax0_gen_fft", "rows_t_fft", "chirp_fft", "rows_fft", "big_fft",
-                    "ax0_fft", "r2c_fft", "fft2f_fft", "spec_fft"):
+                    "ax0_fft", "r2c_fft", "fft2f_fft", "spec_fft", "filt_fft", "spec_c2c_fft"):
             print(f"ptxas: {name} | " + "; ".join(ptxas_summary(
                 lib.with_suffix(".log").read_text())), flush=True)
 
@@ -751,13 +842,51 @@ def main() -> int:
 
     chirp_sweep()
 
-    # the fused epilogues: B9 (filt), B10 (bank), B8 (c2r_prod), B2-composite
-    sweep("filt",
-          [((rows, n), planes(crand(n))) for n in pow2 for rows in (3, 1000)]
-          + [((4096, 4096), planes(crand(4096)))],
+    # the fused epilogues: B9 (filt, and its complex64 entry filt_c64: also
+    # on rows of n/2 + 1 points, zero past them, and in place), B10 (bank),
+    # B8 (c2r_prod), B2-composite
+    filt_shapes = ([((rows, n), planes(crand(n))) for n in pow2 for rows in (3, 1000)]
+                   + [((4096, 4096), planes(crand(4096)))])
+    sweep("filt", filt_shapes,
           lambda re, im, s, sc, h: cuda_fft._filt(re, im, *h, s, sc),
           lambda re, im, s, sc, h: cuda_fft.fft_filtered_split_reference(re, im, *h, s, sc),
           lambda x, s, sc, h: oracle(x * torch.complex(*h), s, sc))
+
+    def filt_c64_run(re, im, s, sc, e):
+        """filt_c64 on the first e[2] points of each row (None: all), as a
+        sweep's planar run; e[:2] the filter's planes, read as one complex
+        row."""
+        y = cuda_fft._filt_launch_c64(torch.complex(re, im)[..., :e[2]], torch.complex(*e[:2]),
+                                      s, sc)
+        return y.real, y.imag
+
+    def filt_c64_plain(re, im, s, sc, e):
+        y = cuda_fft._filt_passes(torch.complex(re, im)[..., :e[2]], torch.complex(*e[:2]), s,
+                                  sc)
+        return y.real, y.imag
+
+    def filt_c64_want(x, s, sc, e):
+        v = x[..., :e[2]]
+        v = torch.nn.functional.pad(v, (0, x.shape[-1] - v.shape[-1]))
+        return oracle(v * torch.complex(*e[:2]), s, sc)
+
+    sweep("filt_c64", [(shape, (*h, None)) for shape, h in filt_shapes]
+          + [((rows, n), (*planes(crand(n)), n // 2 + 1)) for n in pow2 for rows in (3, 1000)],
+          filt_c64_run, filt_c64_plain, filt_c64_want)
+    for n in pow2:  # in place: the output is the input
+        x, h = crand(37, n), crand(n)
+        plain = cuda_fft._filt_passes(x, h, 1, 1.0 / n)
+        want = oracle(x * h, 1, 1.0 / n)
+        check(cuda_fft._filt_launch_c64(x, h, 1, 1.0 / n, out=x) is x, "filt_c64 out=x")
+        compare("filt_c64", x, plain, want, f"in place 37x{n}")
+    # B1 (its row types moved into mixed_fft.cuh), B10 (on stockham.cuh, the
+    # filtered rows' library redesigned) and B16-B19, B21 (welch_fft.cu,
+    # which B22 left) give the bits they gave before
+    got = kept_bits(cuda_fft, cuda_welch, dev)
+    check(got == KEPT_BITS, "kept kernels' bits changed: "
+          + str({k: v for k, v in got.items() if KEPT_BITS.get(k) != v}))
+    print(f"kernel rows_fft, rows_fft_c64, bank, welch, psd, csd, coh, c2c: {len(got)} "
+          f"outputs, the bits recorded before (KEPT_BITS)", flush=True)
     sweep("bank",
           [((n,), planes(crand(rows, n))) for n in pow2 for rows in (1, 7)]
           + [((16384,), planes(crand(128, 16384)))],
@@ -830,7 +959,8 @@ def main() -> int:
 
     # the segment-spectrum kernels: B16 (welch), B19 (psd), B17 (csd), B18
     # (coh), B21 (c2c: y is the imaginary plane), B20 (spec), B22 (spec_c2c:
-    # y is the imaginary plane)
+    # y is the imaginary plane; spec_c2c_c64: x complex64, or planes x and y,
+    # or x real with no imaginary plane)
     def torch_segments(kind, x, y, w, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False,
                        pad=0):
         """torch.fft's composition of a kernel's function (reflect pad,
@@ -856,9 +986,10 @@ def main() -> int:
             if pad_out:
                 X = torch.nn.functional.pad(X, (0, cuda_fft.pad_bins(nfft) - X.shape[-1]))
             return (X,) if kind == "spec_c64" else (X.real, X.imag)
-        if kind == "spec_c2c":
-            X = spectra(torch.complex(x, y))
-            return X.real, X.imag
+        if kind in ("spec_c2c", "spec_c2c_c64"):
+            X = spectra(x if x.is_complex() else torch.complex(
+                x, torch.zeros_like(x) if y is None else y))
+            return (X,) if kind == "spec_c2c_c64" else (X.real, X.imag)
         if kind == "c2c":
             X = spectra(torch.complex(x, y))
             return ((X.real ** 2 + X.imag ** 2).sum(-2),)
@@ -877,12 +1008,20 @@ def main() -> int:
     def flat(outs):
         return torch.cat([o.reshape(-1) for o in outs])
 
+    def wide(v):
+        return None if v is None else v.to(torch.complex128 if v.is_complex() else torch.float64)
+
     def welch_case(kind, x, y, w, args, what, with_oracle=True, opts=(0, False, 0)):
-        """One kernel launch against its plain version (B20, spec and
-        spec_c64, its two sinks: the plain version of its own passes) and
-        float64 torch.fft; a second launch must give the same bits.
-        ``opts``: B20's (roll_s, pad_out, reflect pad)."""
-        if kind in ("spec", "spec_c64"):
+        """One kernel launch against its plain version (B20 and B22, both
+        sinks each: the plain version of the kernel's own passes) and float64
+        torch.fft; a second launch must give the same bits.  ``opts``: B20's
+        (roll_s, pad_out, reflect pad)."""
+        if kind in ("spec_c2c", "spec_c2c_c64"):
+            def run():
+                return cuda_welch._spec_c2c_launch(x, y, w, *args, kind == "spec_c2c_c64")
+            X = cuda_welch._spec_c2c_passes(x, y, w, *args)
+            plain = (X,) if kind == "spec_c2c_c64" else (X.real, X.imag)
+        elif kind in ("spec", "spec_c64"):
             def run():
                 return cuda_welch._spec_launch(x, w, *args, *opts[:2], kind == "spec_c64",
                                                pad=opts[2])
@@ -897,8 +1036,7 @@ def main() -> int:
         got = run()
         err = check_close(flat(got), flat(plain), f"{kind} vs plain {what}")
         if with_oracle:
-            oracle = torch_segments(kind, x.double(), None if y is None else y.double(), w,
-                                    *args, *opts)
+            oracle = torch_segments(kind, wide(x), wide(y), w, *args, *opts)
             err = max(err, check_close(flat(got), flat(oracle),
                                        f"{kind} vs float64 torch.fft {what}"))
         if kind == "spec" and opts[1]:
@@ -923,10 +1061,12 @@ def main() -> int:
                         w = torch.rand(nperseg, device=dev, generator=gen) + 0.5
                         args = (nperseg, hop, nfft, detrend)
                         what = f"{lead} t={t} nperseg={nperseg} hop={hop} nfft={nfft} {detrend}"
-                        for kind, u in (("welch", None), ("psd", None), ("csd", y),
-                                        ("coh", y), ("c2c", y), ("spec", None),
-                                        ("spec_c64", None), ("spec_c2c", y)):
-                            worst = max(worst, welch_case(kind, x, u, w, args, what))
+                        for kind, v, u in (("welch", x, None), ("psd", x, None), ("csd", x, y),
+                                           ("coh", x, y), ("c2c", x, y), ("spec", x, None),
+                                           ("spec_c64", x, None), ("spec_c2c", x, y),
+                                           ("spec_c2c_c64", torch.complex(x, y), None),
+                                           ("spec_c2c_c64", x, y), ("spec_c2c_c64", x, None)):
+                            worst = max(worst, welch_case(kind, v, u, w, args, what))
                             cases += 1
                         # B20's roll of each padded frame (odd: scalar loads;
                         # even: pair loads), its padded output and stft's
@@ -972,6 +1112,10 @@ def main() -> int:
                 ("spec_c64", x, None, tukey, (4096, 2048, 4096, "constant"), (0, False, 0)),
                 ("spec_c2c", x, y, tukey, (4096, 2048, 4096, "constant"), (0, False, 0)),
                 ("spec_c2c", x, y, hann, (4096, 2048, 4096, "constant"), (0, False, 0)),
+                ("spec_c2c_c64", torch.complex(x, y), None, tukey, (4096, 2048, 4096, "constant"),
+                 (0, False, 0)),
+                ("spec_c2c_c64", torch.complex(x, y), None, hann, (4096, 2048, 4096, "constant"),
+                 (0, False, 0)),
                 ("spec_c64", xt, None, h1024, (1024, 256, 1024, False), (512, False, 0)),
                 ("spec", xt, None, h1024, (1024, 256, 2048, False), (512, True, 0)),
                 ("spec_c64", xt, None, h1024, (1024, 256, 2048, False), (512, False, 0))):
@@ -981,7 +1125,8 @@ def main() -> int:
             cases += 1
         del x, y, xb, xp, xs, x8, xt
         torch.cuda.synchronize()
-        names = ("welch", "psd", "csd", "coh", "c2c", "spec", "spec_c64", "spec_c2c")
+        names = ("welch", "psd", "csd", "coh", "c2c", "spec", "spec_c64", "spec_c2c",
+                 "spec_c2c_c64")
         print(f"kernel {', '.join(names)}: {cases} cases ok, each run twice with the "
               f"same bits | worst rel-L2 {worst:.3e} | max abs err vs plain "
               + ", ".join(f"{max_abs[k]:.3e}" for k in names), flush=True)
@@ -1009,12 +1154,15 @@ def main() -> int:
                 "ax0_fft_c64": cuda_fft.ax0_c64_launches,
                 "ax3_fft_c64": cuda_fft.ax3_c64_launches,
                 "fft2f_fft_c64": cuda_fft.fft2f_c64_launches,
-                "r2c_fft_c64": cuda_fft.r2c_c64_launches, "spec_c64": cuda_welch.spec_c64_launches}
+                "r2c_fft_c64": cuda_fft.r2c_c64_launches, "spec_c64": cuda_welch.spec_c64_launches,
+                "filt_c64": cuda_fft.filt_c64_launches,
+                "spec_c2c_c64": cuda_welch.spec_c2c_c64_launches}
 
     def reset_counts():
         cuda_fft.c64_launches = bigfft.c64_launches = 0
         cuda_fft.ax0_c64_launches = cuda_fft.ax3_c64_launches = cuda_fft.r2c_c64_launches = 0
         cuda_fft.fft2f_c64_launches = cuda_welch.spec_c64_launches = 0
+        cuda_fft.filt_c64_launches = cuda_welch.spec_c2c_c64_launches = 0
         cuda_fft.launches = cuda_fft.ax0_launches = cuda_fft.ax3_launches = 0
         cuda_fft.rows_t_launches = cuda_fft.fft2f_launches = 0
         cuda_fft.r2c_launches = cuda_fft.c2r_launches = bigfft.launches = 0
@@ -1258,10 +1406,15 @@ def main() -> int:
     s8k = torch.randn(8192, device=dev, generator=gen)
     fr = crand(16, 1080, 1920)
     reset_counts()
-    Y = through("SpectralFilter 4096^2", lambda: sf(x), rows_fft=1, filt=1)
+    # complex64 in: the complex64 entries of the row and filtered kernels,
+    # real in: the R2C kernel's complex64 sink and the filtered kernel's
+    # complex64 entry on its n/2 + 1 bins; no split, no merge
+    Y = through("SpectralFilter 4096^2", lambda: sf(x), rows_fft=1, rows_fft_c64=1, filt=1,
+                filt_c64=1)
     errs["spectral_filter_4096"] = check_close(Y, torch.fft.ifft(torch.fft.fft(x) * H),
                                                "SpectralFilter 4096^2")
-    Z = through("hilbert 4096^2", lambda: ft.hilbert(r), rows_fft=1, filt=1)
+    Z = through("hilbert 4096^2", lambda: ft.hilbert(r), r2c_fft=1, r2c_fft_c64=1, filt=1,
+                filt_c64=1)
     hw = torch.zeros(4096, device=dev)
     hw[0] = hw[2048] = 1.0
     hw[1:2048] = 2.0
@@ -1290,7 +1443,7 @@ def main() -> int:
         through("ifft2 16x1080x1920", lambda: ft.ifft2(F), gen_fft=1, ax0_gen=1), fr,
         "ifft2 16x1080x1920 round trip")
     path5 = counts()
-    for name in ("filt", "bank", "c2r_prod", "ax0_gen"):
+    for name in ("filt", "filt_c64", "bank", "c2r_prod", "ax0_gen"):
         check(path5[name] > 0, f"fused-epilogue path launched no {name} kernel")
     del x, Y, r, Z, a2, b2, C, sig, O, W, full, F, want
     # outside the window: small inputs against float64 numpy
@@ -1418,14 +1571,16 @@ def main() -> int:
              "spectrogram 2^22 complex")
     with warnings.catch_warnings():  # scipy: complex input, two-sided
         warnings.simplefilter("ignore")
-        for mode in ("psd", "complex"):
+        for mode in ("psd", "complex"):  # B22's complex64 source and sink
             f, t, S = through(f"spectrogram 2^22 complex input {mode}",
-                              lambda: ft.spectrogram(xc, mode=mode, **seg), spec_c2c=1)
+                              lambda: ft.spectrogram(xc, mode=mode, **seg), spec_c2c=1,
+                              spec_c2c_c64=1)
             vs_scipy(f"spectrogram_two_sided_{mode}_2^22", S,
                      ss.spectrogram(xc64, mode=mode, **seg)[2],
                      f"spectrogram 2^22 two-sided {mode}")
             del S
-        P = through("csd 2^22 complex", lambda: ft.csd(xc, yc, **seg)[1], spec_c2c=2)
+        P = through("csd 2^22 complex", lambda: ft.csd(xc, yc, **seg)[1], spec_c2c=2,
+                    spec_c2c_c64=2)
         vs_scipy("csd_complex_2^22", P, ss.csd(xc64, yc64, **seg)[1], "csd 2^22 complex")
     del P
     hann1024 = ss.windows.hann(1024, sym=False)
@@ -1456,7 +1611,7 @@ def main() -> int:
                  f"resample 256x8192 to {num}")
     del R
     path7 = counts()
-    for name in ("spec", "spec_c64", "spec_c2c"):
+    for name in ("spec", "spec_c64", "spec_c2c", "spec_c2c_c64"):
         check(path7[name] > 0, f"per-segment path launched no {name} kernel")
     # outside the window: numpy input runs on the card
     Zn = through("stft of a numpy array", lambda: ft.stft(x20.cpu().numpy()[:8192], 512, 128),
@@ -1476,10 +1631,12 @@ def main() -> int:
     path_of = {"rows_fft": path1, "rows_fft_c64": path1, "ax0_fft": path1, "rows_t_fft": path1,
                "big_fft": path1, "big_fft_c64": path1,
                "gen_fft": path3, "r2c_gen_fft": path3, "chirp_fwd": path3,
-               "chirp_inv": path3, "chirp_full": path3, "filt": path5, "bank": path5,
+               "chirp_inv": path3, "chirp_full": path3, "filt": path5, "filt_c64": path5,
+               "bank": path5,
                "c2r_prod": path5,
                "ax0_gen": path5, "welch": path6, "psd": path6, "csd": path6, "coh": path6,
-               "c2c": path6, "spec": path7, "spec_c64": path7, "spec_c2c": path7}
+               "c2c": path6, "spec": path7, "spec_c64": path7, "spec_c2c": path7,
+               "spec_c2c_c64": path7}
     main_launches = {k: path_of.get(k, path2)[k] for k in KERNELS}
 
     # ---- 4. autograd on the card -----------------------------------------
@@ -1566,15 +1723,15 @@ def main() -> int:
         (w * y.abs() ** 2).sum().backward()
         return torch.cat([v.grad.reshape(-1) for v in ins])
 
-    # the fused epilogues: SpectralFilter (B1 and B9 forward, the row kernel
-    # twice back), fftconvolve in both inputs (B6 twice and B8 forward; B6,
+    # the fused epilogues: SpectralFilter of complex64 (B1 and B9 forward,
+    # the row kernel twice back, all through their complex64 entries), fftconvolve in both inputs (B6 twice and B8 forward; B6,
     # then B1 for each input, back), the CWT plan (B1 and B10 forward, B1
     # twice back; on the CPU its own nfft), fft2 of 1080 x 1920 (B2-composite
     # and B13 both ways)
     cw_cpu = ft.CWT(8192, widths, device="cpu")
     for what, fn, fn_cpu, shapes, cplx, kernels in (
             ("SpectralFilter 64x4096", sf, sf, [(64, 4096)], True,
-             {"rows_fft": 3, "filt": 1}),
+             {"rows_fft": 3, "rows_fft_c64": 3, "filt": 1, "filt_c64": 1}),
             ("fftconvolve 64x1000 (both inputs)",
              lambda u, v: ft.fftconvolve(u, v, axes=-1), None,
              [(64, 1000), (64, 1000)], False, {"r2c_fft": 3, "c2r_prod": 1, "rows_fft": 2}),
@@ -1608,9 +1765,9 @@ def main() -> int:
             ("stft 2^16", lambda u: ft.stft(u, 512, 128), [(1 << 16,)], c64_spec, False),
             ("ShortTimeFFT.stft 2^16 phase shift", stf_grad.stft, [(1 << 16,)], c64_spec,
              False),
-            ("spectrogram 2^16 complex two-sided",
+            ("spectrogram 2^16 complex two-sided",  # B22's complex64 sink, B1's entry
              lambda u: ft.spectrogram(u, mode="complex")[2], [(1 << 16,)],
-             {"spec_c2c": 1, "rows_fft": 2}, True)):
+             {"spec_c2c": 1, "spec_c2c_c64": 1, "rows_fft": 2, "rows_fft_c64": 2}, True)):
         gk = through(f"grad {what}", lambda: grads_of(fn, shapes, SEED + 4, dev, cplx),
                      **kernels)
         gp = grads_of(fn, shapes, SEED + 4, torch.device("cpu"), cplx)
@@ -1837,7 +1994,9 @@ def main() -> int:
     r = torch.randn(4096, 4096, device=dev, generator=gen)
     times["filt 4096x4096"] = time_in_turns({
         "kernel": lambda: cuda_fft._filt(re, im, hr, hi, 1, 1.0 / 4096),
+        "kernel_c64": lambda: cuda_fft._filt_launch_c64(x, H, 1, 1.0 / 4096),
         "plain": lambda: cuda_fft.fft_filtered_split_reference(re, im, hr, hi, 1, 1.0 / 4096),
+        "plain_c64": lambda: cuda_fft._filt_passes(x, H, 1, 1.0 / 4096),
         "torch.fft": lambda: torch.fft.ifft(x * H),
         "SpectralFilter": lambda: sf(x),
         "torch.fft SpectralFilter": lambda: torch.fft.ifft(torch.fft.fft(x) * H),
@@ -1895,42 +2054,69 @@ def main() -> int:
     }, reps=10)
     del re, im
 
-    def breakdown(fn, names, reps=20):
+    def breakdown(fn, names, reps=20, counted=None):
         """Device ms per call of each kernel in ``names`` and of the rest
         (the facade's split and merge, pads), and the device launches per
-        call of each part, from a torch.profiler window; idle is 1 - device
-        busy / the CUDA-event median of a call."""
-        from torch.profiler import ProfilerActivity, profile
+        call of each part, from a torch.profiler window of ``reps`` calls
+        after one warm-up step of the profiler (a call traced and dropped:
+        a window that starts the trace has been seen to miss the first
+        launch); idle is 1 - device
+        busy / the CUDA-event median of a call.  ``counted``, where given,
+        gets the wrappers' launch counts over the window's calls."""
+        from torch.profiler import ProfilerActivity, profile, schedule
 
         event_ms = time_ms(fn, reps)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+        for _ in range(3):  # a window now and then comes back with no device events
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
                 fn()
-            torch.cuda.synchronize()
-        parts = dict.fromkeys(names + ("other",), 0.0)
-        n_launch = dict.fromkeys(names + ("other",), 0)
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            part = kernel_part(e.name, names)
-            parts[part] += e.time_range.elapsed_us() / 1e3 / reps
-            n_launch[part] += 1
-        busy = sum(parts.values())
-        check(busy > 0, "the profiler saw no device time")
+                torch.cuda.synchronize()
+                prof.step()
+                before = counts()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                after = counts()
+                prof.step()
+            if counted is not None:
+                counted.clear()
+                counted.update({k: v - before[k] for k, v in after.items() if v != before[k]})
+            parts = dict.fromkeys(names + ("other",), 0.0)
+            n_launch = dict.fromkeys(names + ("other",), 0)
+            for e in prof.events():
+                # the schedule's step marker has a device row of its own
+                if (e.device_type != torch.autograd.DeviceType.CUDA
+                        or e.name.startswith("ProfilerStep")):
+                    continue
+                part = kernel_part(e.name, names)
+                parts[part] += e.time_range.elapsed_us() / 1e3 / reps
+                n_launch[part] += 1
+            busy = sum(parts.values())
+            if busy > 0:
+                break
+        check(busy > 0, "the profiler saw no device time in three windows")
         return {"events": event_ms, **parts, "idle": 1.0 - busy / event_ms,
                 **{f"{k} launches": v / reps for k, v in n_launch.items()}}
 
     profiles = {}
 
-    def alone(call, fn, kernels):
-        """Profile ``call``: its kernels alone, each once a call, no other
-        device work.  A profiler window on the card now and then drops
-        device events, so a window that sees fewer launches is taken
-        again (at most three); one that sees other work fails at once."""
+    def alone(call, fn, kernels, want, copies=0, reps=20):
+        """Profile ``call``: its kernels alone, each once a call, and
+        ``copies`` device-to-device copies a call (the fresh grids an
+        estimator returns), no other device work; over the same calls the
+        wrappers' counters rise by ``want`` (counter -> launches) a call
+        and no other counter moves.  A window that sees other work, or
+        counters off, fails at once; one that sees fewer launches is taken
+        again (at most three)."""
+        names = kernels + (("Memcpy DtoD",) if copies else ())
+        per_call = {**dict.fromkeys(kernels, 1), "Memcpy DtoD": copies}
         for _ in range(3):
-            got = breakdown(fn, kernels)
+            counted = {}
+            got = breakdown(fn, names, reps, counted)
             check(got["other launches"] == 0, f"{call}: other device work: {got}")
-            if all(got[f"{k} launches"] == 1 for k in kernels):
+            check(counted == {k: reps * v for k, v in want.items()},
+                  f"{call}: launches {counted} in {reps} calls, expected {want} a call")
+            if all(got[f"{k} launches"] == per_call[k] for k in names):
                 profiles[call] = got
                 return
         check(False, f"{call}: not its kernels once each a call: {got}")
@@ -1939,19 +2125,20 @@ def main() -> int:
     for rows, n, kernel in ((4096, 4096, "rows_fft"), (256, 1 << 16, "big_fft")):
         x = crand(rows, n)
         pn = ft.plan(n)
-        alone(f"plan({n}).forward {rows}x{n}", lambda: pn.forward(x), (kernel,))
+        alone(f"plan({n}).forward {rows}x{n}", lambda: pn.forward(x), (kernel,),
+              row if kernel == "rows_fft" else whole)
     # fft2 of a complex64 plane and rfft: their kernels alone, no split or merge
     x = crand(4096, 4096)
     r = torch.randn(4096, 4096, device=dev, generator=gen)
-    alone("fft2 4096x4096", lambda: ft.fft2(x), ("rows_fft", "ax0_fft"))
-    alone("rfft 4096x4096", lambda: ft.rfft(r), ("r2c_fft",))
+    alone("fft2 4096x4096", lambda: ft.fft2(x), ("rows_fft", "ax0_fft"), c2d)
+    alone("rfft 4096x4096", lambda: ft.rfft(r), ("r2c_fft",), {"r2c_fft": 1, "r2c_fft_c64": 1})
     # fftn of 256^3 complex64 (the fused plane, then axis -3; ax0_fft_kernel
     # is the axis(-3) pass) and stft of 2^20 (B20's complex64 sink): their
     # kernels alone, no split and no merge
     x = crand(256, 256, 256)
-    alone("fftn 256^3", lambda: ft.fftn(x), ("fft2f_fft", "ax0_fft"))
+    alone("fftn 256^3", lambda: ft.fftn(x), ("fft2f_fft", "ax0_fft"), c3d)
     x20 = torch.randn(1 << 20, device=dev, generator=gen)
-    alone("stft 2^20 n_fft 512 hop 128", lambda: ft.stft(x20, 512, 128), ("spec_fft",))
+    alone("stft 2^20 n_fft 512 hop 128", lambda: ft.stft(x20, 512, 128), ("spec_fft",), spec)
     del x20
     for rows, n in ((1024, 4095), (1024, 4097), (2048, 1000)):
         x = crand(rows, n)
@@ -1970,15 +2157,19 @@ def main() -> int:
     x = crand(1024, 4096)
     zf = ft.ZoomFFT(4096, [0.1, 0.35], m=1024)
     profiles["ZoomFFT 1024x4096 m=1024"] = breakdown(lambda: zf(x), ("chirp_full",))
+    # SpectralFilter of complex64 and hilbert: their two kernels alone (the
+    # complex64 entries: no split, no merge, no zero plane)
     x = crand(4096, 4096)
     r = torch.randn(4096, 4096, device=dev, generator=gen)
-    profiles["SpectralFilter 4096x4096"] = breakdown(lambda: sf(x), ("rows_fft", "filt_fft"))
-    profiles["hilbert 4096x4096"] = breakdown(lambda: ft.hilbert(r), ("rows_fft", "filt_fft"))
+    alone("SpectralFilter 4096x4096 complex64", lambda: sf(x), ("rows_fft", "filt_fft"),
+          {"rows_fft": 1, "rows_fft_c64": 1, "filt": 1, "filt_c64": 1})
+    alone("hilbert 4096x4096", lambda: ft.hilbert(r), ("r2c_fft", "filt_fft"),
+          {"r2c_fft": 1, "r2c_fft_c64": 1, "filt": 1, "filt_c64": 1})
     profiles["fftconvolve 2048x4096"] = breakdown(lambda: ft.fftconvolve(a2, b2, axes=-1),
                                                   ("r2c_fft", "c2r_fft"))
     profiles["oaconvolve 2^20x129"] = breakdown(lambda: ft.oaconvolve(sig, taps),
                                                 ("r2c_fft", "c2r_fft"))
-    profiles["CWT 8192 x 128 widths"] = breakdown(lambda: cw(s8k), ("rows_fft", "filt_fft"))
+    profiles["CWT 8192 x 128 widths"] = breakdown(lambda: cw(s8k), ("rows_fft", "bank_fft"))
     profiles["fft2 16x1080x1920"] = breakdown(lambda: ft.fft2(fr), ("gen_fft", "ax0_gen_fft"),
                                               reps=5)
     del x, r, R, a2, b2, sig, taps, fr
@@ -2076,6 +2267,13 @@ def main() -> int:
                    "kernel_c64": lambda: cuda_welch._spec_launch(v, w, *args[:5], False, True),
                    "plain": lambda: cuda_welch._reference(kind, v, u, w, *args),
                    "plain_c64": lambda: cuda_welch._spec_passes(v, w, *args[:5])}
+        elif kind == "spec_c2c":  # B22 (spec_c2c_fft.cu): planes in and out, and
+            # complex64 in and out
+            fns = {"kernel": lambda: cuda_welch._spec_c2c_launch(v, u, w, *args[:4]),
+                   "kernel_c64": lambda: cuda_welch._spec_c2c_launch(xc, None, w, *args[:4],
+                                                                     True),
+                   "plain": lambda: cuda_welch._spec_c2c_passes(v, u, w, *args[:4]),
+                   "plain_c64": lambda: cuda_welch._spec_c2c_passes(xc, None, w, *args[:4])}
         else:
             fns = {"kernel": lambda: cuda_welch._launch(kind, v, u, w, *args[:4]),
                    "plain": lambda: cuda_welch._reference(kind, v, u, w, *args)}
@@ -2091,8 +2289,13 @@ def main() -> int:
         spec_bounds[key] = bound(4 * planes_in * v.numel() + 4 * nperseg
                                  + 8 * num * bins * (v.numel() // v.shape[-1]), flops)
     for call, fn in path7_calls.items():
-        profiles[call] = breakdown(fn, ("welch", "spec_fft", "r2c_fft", "c2r_fft", "rows_fft",
-                                        "gen_fft"))
+        if call == "spectrogram 2^22 complex input complex":
+            # B22 alone, no split and no merge; beside it one copy of the
+            # cached (f, t) grid, which the call returns as fresh tensors
+            alone(call, fn, ("spec_c2c",), {"spec_c2c": 1, "spec_c2c_c64": 1}, copies=1)
+            continue
+        profiles[call] = breakdown(fn, ("welch", "spec_fft", "spec_c2c", "r2c_fft", "c2r_fft",
+                                        "rows_fft", "gen_fft"))
     for key, (ms, by) in spec_bounds.items():
         print(f"bound: {key} | {ms:.4f} ms ({by}; each input read once, the spectra written "
               f"once, at 3.35 TB/s and 67 TFLOP/s)", flush=True)
@@ -2186,6 +2389,9 @@ def main() -> int:
         entry("filt", "filt_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2406",
               "filt 4096x4096", c2c * 4096 * 4096 + 8 * 4096,
               fft_flops(4096, 4096) + 6 * 4096 * 4096),
+        entry("filt_c64", "filt_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2406",
+              "filt 4096x4096", c2c * 4096 * 4096 + 8 * 4096,
+              fft_flops(4096, 4096) + 6 * 4096 * 4096, ms="kernel_c64", plain="plain_c64"),
         entry("bank", "filt_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2497",
               "bank 128x16384", 8 * 16384 + c2c * 128 * 16384,
               fft_flops(16384, 128) + 6 * 128 * 16384),
@@ -2222,9 +2428,12 @@ def main() -> int:
         entry("spec_c64", "spec_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:544",
               "spec 2^22 nperseg 4096 hop 2048", 4 * n22 + 4 * 4096 + 8 * 2047 * 2049,
               rfft_flops(4096, 2047), ms="kernel_c64", plain="plain_c64"),
-        entry("spec_c2c", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:614",
+        entry("spec_c2c", "spec_c2c_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:614",
               "spec_c2c 2^22 nperseg 4096 hop 2048", 8 * n22 + 4 * 4096 + 8 * 2047 * 4096,
               fft_flops(4096, 2047)),
+        entry("spec_c2c_c64", "spec_c2c_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:614",
+              "spec_c2c 2^22 nperseg 4096 hop 2048", 8 * n22 + 4 * 4096 + 8 * 2047 * 4096,
+              fft_flops(4096, 2047), ms="kernel_c64", plain="plain_c64"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

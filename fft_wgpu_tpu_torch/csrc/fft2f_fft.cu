@@ -88,18 +88,6 @@ struct Fft2fArgs {
   float scale;
 };
 
-// A row in device memory, interleaved: read by the first pass.  No
-// __restrict__: the output may alias the input.
-struct C64In {
-  const float2* p;
-  static constexpr bool kShared = false;
-  __device__ __forceinline__ void load(int k, float& a, float& b) const {
-    const float2 v = p[k];
-    a = v.x;
-    b = v.y;
-  }
-};
-
 // Output k of a block's column (row k of the plane), written by the last
 // column pass with the scale folded in.
 template <bool C64>

@@ -604,6 +604,57 @@ struct PadShared {
   }
 };
 
+// The launch shape of the row kernels (rows_fft.cu, B1; filt_fft.cu, B9)
+// at n = 2^LOG2N: threads a row (16 points each), rows a block (one per
+// threadIdx.y, at least 128 threads a block), and the blocks an SM that the
+// launch bound asks registers for (up to 80 a thread for blocks of 128 and
+// 256 threads, 64 above).
+template <int LOG2N>
+struct RowsShape {
+  static constexpr int kThreads = (1 << LOG2N) / 16;
+  static constexpr int kRows = kThreads >= 128 ? 1 : 128 / kThreads;
+  static constexpr int kBlock = kThreads * kRows;
+  static constexpr int kMinBlocks = kBlock <= 128 ? 6 : kBlock == 256 ? 3 : 1024 / kBlock;
+  static constexpr int kSmem = kRows * padded_len(1 << LOG2N) * static_cast<int>(sizeof(float2));
+};
+
+// A row in device memory, interleaved: read by the first pass.  No
+// __restrict__: the output may alias the input.
+struct C64In {
+  const float2* p;
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void load(int k, float& a, float& b) const {
+    const float2 v = p[k];
+    a = v.x;
+    b = v.y;
+  }
+};
+
+// A row in device memory, written by the last pass with the scale folded
+// in; nothing for a row past the last.
+struct C64Out {
+  float2* p;
+  float scale;
+  bool valid;
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void store(int k, float a, float b) const {
+    if (valid) p[k] = make_float2(a * scale, b * scale);
+  }
+};
+
+struct PlanarOut {
+  float* r;
+  float* i;
+  float scale;
+  bool valid;
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void store(int k, float a, float b) const {
+    if (!valid) return;
+    r[k] = a * scale;
+    i[k] = b * scale;
+  }
+};
+
 // The plan of each power of two m = 2^LOG2M, 2^6 .. 2^14, compiled into the
 // kernels that include this header: radix i, 0 past the last pass.  It is
 // ops/cuda_fft.py::_mixed_radix_plan(m) (16*8*8*8 at 8192; only the radices

@@ -48,17 +48,6 @@ namespace {
 
 using namespace fftk;
 
-// The launch shape of n = 2^LOG2N: threads a row (16 points each), rows a
-// block, and the blocks an SM that the launch bound asks registers for.
-template <int LOG2N>
-struct RowsShape {
-  static constexpr int kThreads = (1 << LOG2N) / 16;
-  static constexpr int kRows = kThreads >= 128 ? 1 : 128 / kThreads;
-  static constexpr int kBlock = kThreads * kRows;
-  static constexpr int kMinBlocks = kBlock <= 128 ? 6 : kBlock == 256 ? 3 : 1024 / kBlock;
-  static constexpr int kSmem = kRows * padded_len(1 << LOG2N) * static_cast<int>(sizeof(float2));
-};
-
 struct RowsArgs {
   const float* in_re;  // planar layout
   const float* in_im;
@@ -69,43 +58,6 @@ struct RowsArgs {
   const float2* tw;  // _pass_roots_np(n, sign)
   long long rows;
   float scale;
-};
-
-// The row in device memory, interleaved: read by the first pass.  No
-// __restrict__: the output may alias the input.
-struct C64In {
-  const float2* p;
-  static constexpr bool kShared = false;
-  __device__ __forceinline__ void load(int k, float& a, float& b) const {
-    const float2 v = p[k];
-    a = v.x;
-    b = v.y;
-  }
-};
-
-// The row in device memory, written by the last pass with the scale folded
-// in; nothing for a row past the last.
-struct C64Out {
-  float2* p;
-  float scale;
-  bool valid;
-  static constexpr bool kShared = false;
-  __device__ __forceinline__ void store(int k, float a, float b) const {
-    if (valid) p[k] = make_float2(a * scale, b * scale);
-  }
-};
-
-struct PlanarOut {
-  float* r;
-  float* i;
-  float scale;
-  bool valid;
-  static constexpr bool kShared = false;
-  __device__ __forceinline__ void store(int k, float a, float b) const {
-    if (!valid) return;
-    r[k] = a * scale;
-    i[k] = b * scale;
-  }
 };
 
 // This thread's row (one per threadIdx.y) and its source, buffer and sink,

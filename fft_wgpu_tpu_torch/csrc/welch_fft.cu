@@ -1,6 +1,6 @@
 // Fused segment-spectrum kernels: frame, detrend, window, FFT and the power
-// or cross products, or the spectra themselves, of every segment of a
-// signal in one pass.
+// or cross products of every segment of a signal in one pass, summed over
+// segments or per segment.
 //
 // Replaces the TPU kernels of fft_wgpu_tpu/ops/pallas_welch.py:
 //   welch_accum_f32 (B16)  welch_accum_split, kernel _kernel_welch_accum
@@ -8,8 +8,8 @@
 //   csd_accum_f32   (B17)  csd_accum_split, kernel _kernel_csd_accum
 //   coh_accum_f32   (B18)  coherence_accum_split, kernel _kernel_coh_accum
 //   welch_c2c_f32   (B21)  welch_accum_c2c_split, kernel _kernel_welch_accum_c2c
-//   spec_c2c_f32    (B22)  spec_c2c_split, kernel _kernel_spec_split_c2c
-// (B20, spec_rfft_split, the per-segment half spectra, is spec_fft.cu.)
+// (B20, spec_rfft_split, the per-segment half spectra, is spec_fft.cu; B22,
+// spec_c2c_split, the per-segment two-sided spectra, is spec_c2c_fft.cu.)
 //
 // Segment s of a row x of t points (s = 0 .. num-1, num = 1 + (t -
 // nperseg) / hop) is the frame of nfft points
@@ -23,17 +23,15 @@
 // first Stockham pass reads the frame as m = nfft/2 complex points f[2j]
 // + i f[2j+1] (FramedRealIn), the m-point transform runs in shared memory
 // (stockham.cuh) and the bins are recombined from Z[k] and Z[m-k].  For a
-// complex row (B21 and B22, planes x = re and y = im, each framed and
-// detrended on its own) the first pass reads the nfft complex
+// complex row (B21, planes x = re and y = im, each framed and detrended
+// on its own) the first pass reads the nfft complex
 // points (FramedComplexIn) and X_s is the full nfft-point spectrum, B1's
 // transform (rows_fft.cu).  Then, per bin:
 //   B16  sum_s |X_s|^2;
 //   B19  |X_s|^2 written to row s of [batch, num, nfft/2 + 1];
 //   B17  sum_s conj(X_s) Y_s of two real signals of one shape (two rows);
 //   B18  sum_s conj(X_s) Y_s, |X_s|^2 and |Y_s|^2 from the same transforms;
-//   B21  sum_s |X_s|^2 over all nfft bins of a complex signal;
-//   B22  X_s of a complex signal, every bin in natural order, two planes
-//        [batch, num, nfft].
+//   B21  sum_s |X_s|^2 over all nfft bins of a complex signal.
 //
 // Grid: one block per (signal row b, tile of S consecutive segments); the
 // block loops over its S segments, and the loop bounds are the same for
@@ -58,9 +56,7 @@
 // frames come again from L2) and crosses about 20 barriers, and at nfft =
 // 256 a block is one warp, so latency, not bytes or flops, sets the time.
 // The design keeps a block's shared rows and accumulators across its S
-// segments.  B22 writes every segment's spectrum, 2*nfft floats against
-// 8*hop bytes read: its bound is the bytes it writes; consecutive threads
-// store consecutive bins of a segment's row, so each store is coalesced.
+// segments.
 
 #include <cuda_runtime.h>
 
@@ -70,17 +66,17 @@ namespace {
 
 using namespace fftk;
 
-enum Kind { kWelch = 0, kPsd = 1, kCsd = 2, kCoh = 3, kC2c = 4, kSpecC2c = 6 };
+enum Kind { kWelch = 0, kPsd = 1, kCsd = 2, kCoh = 3, kC2c = 4 };
 
 // Shape of kernel KIND at nfft = 2^LOG2N: the real kinds transform the
 // half-length row of nfft/2 points (B6's packing), the complex kinds the
 // whole row; two-signal kinds hold two rows.
 template <int LOG2N, int KIND>
 struct Geom {
-  static constexpr bool kReal = KIND != kC2c && KIND != kSpecC2c;
+  static constexpr bool kReal = KIND != kC2c;
   static constexpr bool kTwo = KIND == kCsd || KIND == kCoh;
   // kinds that write every segment's row rather than sums over segments
-  static constexpr bool kPerSeg = KIND == kPsd || KIND == kSpecC2c;
+  static constexpr bool kPerSeg = KIND == kPsd;
   static constexpr int kLog2Row = kReal ? LOG2N - 1 : LOG2N;
   static constexpr int kRow = 1 << kLog2Row;
   static constexpr int kThreads = threads_for(kLog2Row);
@@ -250,10 +246,6 @@ welch_kernel(const float* __restrict__ x, const float* __restrict__ y,
       }
       if constexpr (KIND == kPsd) {
         o0[(static_cast<size_t>(b) * num + s) * BINS + k] = xr * xr + xi * xi;
-      } else if constexpr (KIND == kSpecC2c) {
-        const size_t at = (static_cast<size_t>(b) * num + s) * BINS + k;
-        o0[at] = xr;
-        o1[at] = xi;
       } else if constexpr (KIND == kWelch || KIND == kC2c) {
         acc[0][i] += xr * xr + xi * xi;
       } else {
@@ -380,19 +372,18 @@ int tiles_dispatch(long long batch, int num, int log2n, int* seg_per_block, int*
 extern "C" {
 
 // Each entry point takes `batch` contiguous rows x (and y: the second real
-// signal of csd and coherence, the imaginary plane of welch_c2c and
-// spec_c2c) of t float32 points, the window w of nperseg points and nfft =
+// signal of csd and coherence, the imaginary plane of welch_c2c) of t
+// float32 points, the window w of nperseg points and nfft =
 // 2^log2n (128 .. 16384).  The real kinds take in tw the m = nfft/2
 // interleaved (cos, sin) float32 pairs of exp(-2pi*i*j/m) and in half m + 1
-// pairs of exp(-2pi*i*k/nfft); welch_c2c and spec_c2c take in tw the nfft
-// pairs of exp(-2pi*i*j/nfft) and no half table.  The grid is batch * tiles
+// pairs of exp(-2pi*i*k/nfft); welch_c2c takes in tw the nfft pairs of
+// exp(-2pi*i*j/nfft) and no half table.  The grid is batch * tiles
 // blocks of seg_per_block segments each (welch_tiles).  welch_accum writes
 // o0 = [batch, tiles, nfft/2 + 1] partial sums of |X|^2; csd_accum o0, o1 =
 // Re, Im of conj(X) Y; coh_accum those and o2, o3 = |X|^2, |Y|^2; spec_psd
 // o0 = [batch, num, nfft/2 + 1] of |X_s|^2; welch_c2c o0 = [batch, tiles,
-// nfft] partial sums of |X|^2 over the two-sided spectrum; spec_c2c o0, o1
-// = Re, Im of X_s, [batch, num, nfft].  The kernel launches on `stream` of
-// the current device.  Returns
+// nfft] partial sums of |X|^2 over the two-sided spectrum.  The kernel
+// launches on `stream` of the current device.  Returns
 // cudaGetLastError() (0 = ok).
 #define WELCH_ENTRY(NAME, KIND)                                                    \
   int NAME(const void* x, const void* y, const void* w, void* o0, void* o1,       \
@@ -408,11 +399,10 @@ WELCH_ENTRY(spec_psd_f32, kPsd)
 WELCH_ENTRY(csd_accum_f32, kCsd)
 WELCH_ENTRY(coh_accum_f32, kCoh)
 WELCH_ENTRY(welch_c2c_f32, kC2c)
-WELCH_ENTRY(spec_c2c_f32, kSpecC2c)
 #undef WELCH_ENTRY
 
 // The launch shape of entry point `kind` (0 welch_accum, 1 spec_psd, 2
-// csd_accum, 3 coh_accum, 4 welch_c2c, 6 spec_c2c) for `num`
+// csd_accum, 3 coh_accum, 4 welch_c2c) for `num`
 // segments of `batch` rows at nfft = 2^log2n on the current device:
 // *seg_per_block and *tiles.  Returns a CUDA error (0 = ok).
 int welch_tiles(int kind, long long batch, int num, int log2n, int* seg_per_block,
@@ -424,7 +414,6 @@ int welch_tiles(int kind, long long batch, int num, int log2n, int* seg_per_bloc
     case kCsd: return tiles_dispatch<kCsd>(batch, num, log2n, seg_per_block, tiles);
     case kCoh: return tiles_dispatch<kCoh>(batch, num, log2n, seg_per_block, tiles);
     case kC2c: return tiles_dispatch<kC2c>(batch, num, log2n, seg_per_block, tiles);
-    case kSpecC2c: return tiles_dispatch<kSpecC2c>(batch, num, log2n, seg_per_block, tiles);
     default: return cudaErrorInvalidValue;
   }
 }

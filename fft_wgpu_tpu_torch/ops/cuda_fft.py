@@ -31,9 +31,11 @@ for fourteen of its entry points, and one fused pair of them.
   multiplies at load and store, and ``fft_chirp_full_split``, both passes
   in one kernel (the route of Bluestein and the chirp-z transforms),
   ``csrc/chirp_fft.cu`` on the mixed-radix passes of ``mixed_fft.cuh``;
-* ``fft_filtered_split`` / ``fft_bank_split`` — rows with a filter
-  multiply at load: every row times one filter, or one signal times every
-  row of a filter bank, ``csrc/filt_fft.cu``;
+* ``fft_filtered_split`` / ``fft_filtered_c64`` / ``fft_bank_split`` —
+  rows with a filter multiply at load: every row times one filter (planar,
+  or complex64 as it lies, on the compiled pow2 passes of
+  ``mixed_fft.cuh``), or one signal times every row of a filter bank,
+  ``csrc/filt_fft.cu``;
 * ``irfft_prod_rows_split`` — C2R of the product of two half spectra
   formed at load, ``csrc/c2r_fft.cu``'s second entry point.
 
@@ -76,7 +78,8 @@ __all__ = ["Unsupported", "FUSED_MIN_N", "FUSED_MAX_N", "FFT2F_MAX_ELEMS",
            "fft_chirp_forward_split_reference", "fft_chirp_inverse_split",
            "fft_chirp_inverse_split_reference", "fft_chirp_full_split",
            "fft_chirp_full_split_reference", "fft_filtered_split",
-           "fft_filtered_split_reference", "fft_bank_split",
+           "fft_filtered_split_reference", "fft_filtered_c64",
+           "fft_filtered_c64_reference", "fft_bank_split",
            "fft_bank_split_reference", "irfft_prod_rows_split",
            "irfft_prod_rows_split_reference"]
 
@@ -92,8 +95,9 @@ FFT2F_MAX_ELEMS = 1 << 16  # points of one fused 2-D plane (the JAX envelope)
 # complex64 entry (fft_batched_c64); so do ``ax0_launches`` and
 # ``ax0_c64_launches`` for ax0_fft on axis -2, ``ax3_launches`` and
 # ``ax3_c64_launches`` on the axis(-3) view, ``fft2f_launches`` and
-# ``fft2f_c64_launches`` for fft2f_fft, and ``r2c_launches`` and
-# ``r2c_c64_launches`` for r2c_fft.
+# ``fft2f_c64_launches`` for fft2f_fft, ``r2c_launches`` and
+# ``r2c_c64_launches`` for r2c_fft, and ``filt_launches`` and
+# ``filt_c64_launches`` for filt_fft's filtered rows.
 launches = 0
 c64_launches = 0
 ax0_launches = 0
@@ -113,6 +117,7 @@ chirp_fwd_launches = 0
 chirp_inv_launches = 0
 chirp_full_launches = 0
 filt_launches = 0
+filt_c64_launches = 0
 bank_launches = 0
 c2r_prod_launches = 0
 
@@ -2043,34 +2048,82 @@ def fft_chirp_full_split_reference(re, im, hr, hi, Hr, Hi, gr, gi, m, n_out, sca
 # (pallas_fft.fft_filtered_split) and the filter bank
 # (pallas_fft.fft_bank_split)
 # ---------------------------------------------------------------------- #
-def _filt_kernel(lib_fn, re, im, hr, hi, shape, sign, scale):
-    """Run one of the filt_fft kernels on CUDA tensors into output planes of
-    ``shape`` (rows of n = h's last axis); returns them and whether it
-    launched (an empty output launches nothing)."""
+def _bank_kernel(re, im, hr, hi, sign, scale):
+    """Run the bank kernel on CUDA tensors into output planes of h's shape;
+    returns them and whether it launched (an empty bank launches nothing)."""
     n = hr.shape[-1]
     re, im = re.contiguous(), im.contiguous()
-    out = (re.new_empty(shape), re.new_empty(shape))
+    out = (re.new_empty(hr.shape), re.new_empty(hr.shape))
     rows = out[0].numel() // n
     if rows == 0:
         return out, False
-    build.launch("filt_fft", lib_fn, [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
+    build.launch("filt_fft", "bank_fft_f32", [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
                  re.device, re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(),
                  out[0].data_ptr(), out[1].data_ptr(),
                  _twiddle_table(n, sign, re.device).data_ptr(), rows, n.bit_length() - 1,
                  sign, _scale_arg(scale), _stream(re),
-                 what=f"{lib_fn} launch failed (n={n}, rows={rows})")
+                 what=f"bank_fft_f32 launch failed (n={n}, rows={rows})")
     return out, True
 
 
-def _filt(re, im, hr, hi, sign, scale):
+def _filt_launch(re, im, hr, hi, sign, scale):
+    """Run the filt kernel's planar entry on CUDA planes ``[..., n]``."""
     global filt_launches
-    if re.device.type == "cuda":
-        out, launched = _filt_kernel("filt_fft_f32", re, im, hr, hi, re.shape, sign, scale)
-        filt_launches += launched
+    n = re.shape[-1]
+    re, im = re.contiguous(), im.contiguous()
+    out = (torch.empty_like(re), torch.empty_like(im))
+    rows = re.numel() // n
+    if rows == 0:
         return out
+    build.launch("filt_fft", "filt_fft_f32", [_P] * 7 + [_LL, _I, _I, _F, _P], re.device,
+                 re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+                 out[0].data_ptr(), out[1].data_ptr(),
+                 _twiddle_table(n, sign, re.device, _pass_roots_np).data_ptr(), rows,
+                 n.bit_length() - 1, sign, _scale_arg(scale), _stream(re),
+                 what=f"filt_fft_f32 launch failed (n={n}, rows={rows})")
+    filt_launches += 1
+    return out
+
+
+def _filt_launch_c64(x, h, sign, scale, out=None):
+    """Run the filt kernel's complex64 entry on a CUDA complex64 ``[...,
+    n_in]`` tensor and the complex64 filter row h ``[n]``, n >= n_in (points
+    past n_in are zero): complex64 ``[..., n]``.  ``out`` (contiguous, of
+    the output's shape) may be x itself when n_in = n: a block reads its
+    whole row before it stores any of it."""
+    global filt_launches, filt_c64_launches
+    n, n_in = h.shape[-1], x.shape[-1]
+    x = x.resolve_conj().contiguous()
+    h = h.resolve_conj().contiguous()
+    if out is None:
+        out = x.new_empty((*x.shape[:-1], n))
+    rows = x.numel() // n_in
+    if rows == 0:
+        return out
+    build.launch("filt_fft", "filt_fft_c64", [_P] * 4 + [_LL, _I, _I, _I, _F, _P], x.device,
+                 x.data_ptr(), h.data_ptr(), out.data_ptr(),
+                 _twiddle_table(n, sign, x.device, _pass_roots_np).data_ptr(), rows,
+                 n.bit_length() - 1, n_in, sign, _scale_arg(scale), _stream(x),
+                 what=f"filt_fft_c64 launch failed (n={n}, n_in={n_in}, rows={rows})")
+    filt_launches += 1
+    filt_c64_launches += 1
+    return out
+
+
+def _filt(re, im, hr, hi, sign, scale):
+    if re.device.type == "cuda":
+        return _filt_launch(re, im, hr, hi, sign, scale)
     if re.device.type != "cpu":
         raise ValueError(f"no filtered FFT for device {re.device}")
     return fft_filtered_split_reference(re, im, hr, hi, sign, scale)
+
+
+def _filt_c64(x, h, sign, scale):
+    if x.device.type == "cuda":
+        return _filt_launch_c64(x, h, sign, scale)
+    if x.device.type != "cpu":
+        raise ValueError(f"no filtered FFT for device {x.device}")
+    return fft_filtered_c64_reference(x, h, sign, scale)
 
 
 class _Filtered(torch.autograd.Function):
@@ -2089,6 +2142,24 @@ class _Filtered(torch.autograd.Function):
         hr, hi = ctx.saved_tensors
         ar, ai = _transform(gr.contiguous(), gi.contiguous(), -ctx.sign, ctx.scale)
         return ar * hr + ai * hi, ai * hr - ar * hi, None, None, None, None
+
+
+class _FilteredC64(torch.autograd.Function):
+    """The complex64 form of :class:`_Filtered`, x zero past its n_in
+    points: the adjoint conj(h) * (scale * FFT_{-sign}(ct)) through the row
+    kernel's complex64 entry, cut to the first n_in points."""
+
+    @staticmethod
+    def forward(ctx, x, h, sign, scale):
+        ctx.save_for_backward(h)
+        ctx.sign, ctx.scale, ctx.n_in = sign, scale, x.shape[-1]
+        return _filt_c64(x, h, sign, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        (h,) = ctx.saved_tensors
+        a = _transform_c64(g, -ctx.sign, ctx.scale)[..., :ctx.n_in]
+        return a * h[:ctx.n_in].conj(), None, None, None
 
 
 def fft_filtered_split(re, im, hr, hi, sign, scale=None):
@@ -2113,6 +2184,57 @@ def fft_filtered_split_reference(re, im, hr, hi, sign, scale=None):
     return fft_batched_split_reference(*_cmul(re, im, hr, hi), sign, scale)
 
 
+def _filter_row(x, h, n_in):
+    """Check a complex64 ``[..., n_in]`` x and the filter row h of length n
+    (pow2 in 128..16384, n >= n_in); h as one complex64 tensor on x's
+    device (a complex64 tensor there as it is, anything else converted)."""
+    _check_c64(x)
+    h = torch.as_tensor(h, dtype=torch.complex64, device=x.device)
+    n = h.shape[-1] if h.ndim == 1 else 0
+    _check_envelope(n)
+    if n_in is not None and n_in != x.shape[-1]:
+        raise ValueError(f"n_in={n_in} != the input's last axis {x.shape[-1]}")
+    if not 1 <= x.shape[-1] <= n:
+        raise Unsupported(f"input rows of {x.shape[-1]} points for a filter of n={n}: "
+                          f"the kernel takes 1 <= n_in <= n")
+    return h
+
+
+def fft_filtered_c64(x, h, sign, scale=None, *, n_in=None):
+    """:func:`fft_filtered_split` on a complex64 ``[..., n_in]`` tensor as
+    it lies, zero past its n_in points: ``scale * FFT_sign(h * pad(x, n))``,
+    complex64 ``[..., n]``, with h ``[n]`` one complex row (a complex64
+    tensor, read as it lies, or an array), 1 <= n_in <= n (n_in =
+    x.shape[-1]; when given it must be that).  On the card the filtered row kernel's complex64 entry, one
+    launch, no split and no merge (hilbert's inverse reads the R2C half
+    spectrum of n/2 + 1 bins as it lies).  Differentiable in x; h is a
+    constant."""
+    h = _filter_row(x, h, n_in)
+    _check_sign(sign)
+    return _FilteredC64.apply(x, h, sign, scale)
+
+
+def fft_filtered_c64_reference(x, h, sign, scale=None, *, n_in=None):
+    """Plain torch version of :func:`fft_filtered_c64`: the zero pad and the
+    multiply, then :func:`fft_batched_c64_reference`."""
+    h = _filter_row(x, h, n_in)
+    xp = torch.nn.functional.pad(x, (0, h.shape[-1] - x.shape[-1]))
+    return fft_batched_c64_reference(xp * h, sign, scale)
+
+
+def _filt_passes(x, h, sign, scale=None):
+    """Plain torch version of the filt kernel's own passes on a complex
+    ``[..., n_in]`` x and a complex filter row h: the zero pad to n = h's
+    length and the multiply, the fixed passes of :func:`_mixed_radix_plan`(n)
+    on the kernel's pass roots (``_pass_roots_np``), then the scale.  No
+    CUDA path calls it."""
+    n = h.shape[-1]
+    z = torch.nn.functional.pad(x, (0, n - x.shape[-1])) * h
+    tab = _twiddle_table(n, sign, x.device, _pass_roots_np)
+    y = _fixed_passes(z, sign, torch.complex(tab[:, 0], tab[:, 1]), _mixed_radix_plan(n))
+    return y * _scale_arg(scale)
+
+
 def _check_bank(re, hr) -> None:
     n = re.shape[-1]
     _check_envelope(n)
@@ -2124,7 +2246,7 @@ def _check_bank(re, hr) -> None:
 def _bank(re, im, hr, hi, sign, scale):
     global bank_launches
     if re.device.type == "cuda":
-        out, launched = _filt_kernel("bank_fft_f32", re, im, hr, hi, hr.shape, sign, scale)
+        out, launched = _bank_kernel(re, im, hr, hi, sign, scale)
         bank_launches += launched
         return out
     if re.device.type != "cpu":

@@ -12,28 +12,32 @@
   spectra of a real signal, as planes (ragged or in the padded serving
   form) or as one complex64 tensor, each padded frame optionally rolled
   left (ShortTimeFFT's phase shift);
-* ``spec_c2c_split`` (B22) — the per-segment two-sided spectra of a
-  complex signal.
+* ``spec_c2c_split`` / ``spec_c2c_c64`` (B22) — the per-segment two-sided
+  spectra of a complex signal (or of a real one taken two-sided), as
+  planes or as one complex64 tensor, from planes or from the complex64
+  signal as it lies.
 
 A frame is ``nperseg`` points of a ``[..., t]`` signal at hop ``hop``,
 less its mean when ``detrend == "constant"`` (each plane of a complex
-signal on its own), times the window, zero-padded to ``nfft``.  Six run
+signal on its own), times the window, zero-padded to ``nfft``.  Five run
 in ``csrc/welch_fft.cu``, one kernel template; a block takes a tile of
 consecutive segments (the library's ``welch_tiles`` sizes the grid), and
 the accumulators write one partial row per block, which ``torch.sum``
 adds in a fixed order (no float atomics).  B20 runs in
-``csrc/spec_fft.cu`` on ``mixed_fft.cuh``'s compiled pow2 passes, several
-segments a block, into a planar or a complex64 sink.
+``csrc/spec_fft.cu`` and B22 in ``csrc/spec_c2c_fft.cu``, both on
+``mixed_fft.cuh``'s compiled pow2 passes, several segments a block, each
+into a planar or a complex64 sink.
 
 A CUDA tensor goes through the kernel, a CPU tensor through its plain
 version (``*_reference``: ``_frame``, ``_detrend_seg``, the window, the
 zero pad and roll, then ``rfft_rows_split_reference`` or, for complex
-input, ``fft_batched_split_reference``, and the power or cross product,
-summed over segments).  There is no fallback between the two.  The JAX
+input, ``fft_batched_split_reference`` (``fft_batched_c64_reference``),
+and the power or cross product, summed over segments).  There is no fallback between the two.  The JAX
 kernels have no gradient; each entry point here is a
 ``torch.autograd.Function`` whose backward differentiates the composed
 form, rebuilding the frames and running the R2C kernel (B6) or the row
-kernel (B1), whose own backward is the row kernel.
+kernel (B1; its complex64 entry for ``spec_c2c_c64``), whose own backward
+is the row kernel.
 
 The envelope (:func:`fused_welch_ok`) is wider than the TPU's: the frame
 is read with a stride, so any hop <= nperseg runs (the TPU's chunk view
@@ -61,11 +65,13 @@ __all__ = ["Unsupported", "fused_welch_ok", "welch_accum_split",
            "coherence_accum_split_reference", "welch_accum_c2c_split",
            "welch_accum_c2c_split_reference", "spec_rfft_split",
            "spec_rfft_split_reference", "spec_rfft_c64", "spec_rfft_c64_reference",
-           "spec_c2c_split", "spec_c2c_split_reference"]
+           "spec_c2c_split", "spec_c2c_split_reference", "spec_c2c_c64",
+           "spec_c2c_c64_reference"]
 
 # Launches of each kernel (B16, B19, B17, B18, B21, B20, B22); callers may
 # reset them to 0.  ``spec_launches`` counts every launch of B20,
-# ``spec_c64_launches`` those of them into its complex64 sink.
+# ``spec_c64_launches`` those of them into its complex64 sink; so do
+# ``spec_c2c_launches`` and ``spec_c2c_c64_launches`` for B22.
 welch_launches = 0
 psd_launches = 0
 csd_launches = 0
@@ -74,6 +80,7 @@ c2c_launches = 0
 spec_launches = 0
 spec_c64_launches = 0
 spec_c2c_launches = 0
+spec_c2c_c64_launches = 0
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ARGTYPES = [_P] * 9 + [_LL, _LL] + [_I] * 7 + [_P]
@@ -82,13 +89,14 @@ _TILES_ARGTYPES = [_I, _LL, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
 # the counter is f"{kind}_launches"
 _KERNELS = {"welch": ("welch_accum_f32", 1, 0), "psd": ("spec_psd_f32", 1, 1),
             "csd": ("csd_accum_f32", 2, 2), "coh": ("coh_accum_f32", 4, 3),
-            "c2c": ("welch_c2c_f32", 1, 4), "spec_c2c": ("spec_c2c_f32", 2, 6)}
-# kinds whose x and y are the planes of one complex signal (nfft bins), and
-# kinds that write every segment's row rather than sums over segments; B20
-# (spec_fft.cu) writes planes ("spec") or complex64 ("spec_c64")
+            "c2c": ("welch_c2c_f32", 1, 4)}
+# kinds whose x and y are the planes of one complex signal (nfft bins; B22's
+# complex64 sink, "spec_c2c_c64", takes x complex64 too, or a real x with no
+# y); B20 (spec_fft.cu) writes planes ("spec") or complex64 ("spec_c64"),
+# B22 (spec_c2c_fft.cu) planes ("spec_c2c") or complex64 ("spec_c2c_c64")
 _COMPLEX = ("c2c", "spec_c2c")
-_PER_SEG = ("psd", "spec_c2c")
 _SPEC = ("spec", "spec_c64")
+_SPEC_C2C = ("spec_c2c", "spec_c2c_c64")
 
 
 def fused_welch_ok(t: int, nperseg: int, hop: int, nfft: int, detrend) -> bool:
@@ -105,13 +113,16 @@ def fused_welch_ok(t: int, nperseg: int, hop: int, nfft: int, detrend) -> bool:
                  or (isinstance(detrend, str) and detrend == "constant")))
 
 
-def _check(x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad=0) -> int:
-    """Validate the operands; the segment count."""
-    if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
-        raise ValueError("x must be a real float32 tensor")
+def _check(x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad=0, c64_ok=False) -> int:
+    """Validate the operands (x complex64 too where ``c64_ok``, then with no
+    y); the segment count."""
+    if not isinstance(x, torch.Tensor) or x.dtype not in (
+            (torch.float32, torch.complex64) if c64_ok else (torch.float32,)):
+        raise ValueError("x must be a real float32 tensor"
+                         + (" or a complex64 one" if c64_ok else ""))
     if y is not None and (not isinstance(y, torch.Tensor) or y.dtype != torch.float32
-                          or y.device != x.device):
-        raise ValueError("y must be a real float32 tensor on x's device")
+                          or y.device != x.device or x.is_complex()):
+        raise ValueError("y must be a real float32 tensor on x's device, beside a real x")
     if y is not None and y.shape != x.shape:
         raise Unsupported(f"the fused kernels take two signals (or planes) of one "
                           f"shape, got {tuple(x.shape)} and {tuple(y.shape)}")
@@ -148,7 +159,7 @@ def _reduce(kind, X, Y):
     """The kernel's outputs from the per-segment spectra ``[..., num, bins]``."""
     if kind in ("spec", "spec_c2c"):
         return X
-    if kind == "spec_c64":
+    if kind in ("spec_c64", "spec_c2c_c64"):
         return (X,)
     (xr, xi), p = X, lambda a, b: a * a + b * b
     if kind == "psd":
@@ -170,6 +181,9 @@ def _composed(kind, x, y, win, nperseg, hop, nfft, detrend, kernels: bool, roll_
     def frames(v):
         return _frames(v, win, nperseg, hop, nfft, detrend, roll_s, pad)
 
+    if kind == "spec_c2c_c64":  # x complex64, or real with y its imaginary plane or None
+        fft = cuda_fft.fft_batched_c64 if kernels else cuda_fft.fft_batched_c64_reference
+        return _reduce(kind, fft(_complex_frames(x, y, frames), FORWARD, scale), None)
     if kind in _COMPLEX:  # x, y: the planes of one complex signal
         fft = cuda_fft.fft_batched_split if kernels else cuda_fft.fft_batched_split_reference
         return _reduce(kind, fft(frames(x), frames(y), FORWARD), None)
@@ -179,6 +193,28 @@ def _composed(kind, x, y, win, nperseg, hop, nfft, detrend, kernels: bool, roll_
     rfft = cuda_fft.rfft_rows_split if kernels else cuda_fft.rfft_rows_split_reference
     return _reduce(kind, rfft(frames(x), scale, pad_out=pad_out),
                    None if y is None else rfft(frames(y)))
+
+
+def _complex_frames(x, y, frames):
+    """The frames of a complex signal, complex64: of x complex64, or of the
+    planes x and y (None: a zero plane), each plane framed and detrended on
+    its own."""
+    if x.is_complex():
+        return torch.complex(frames(x.real), frames(x.imag))
+    fr = frames(x)
+    return torch.complex(fr, frames(y) if y is not None else torch.zeros_like(fr))
+
+
+def _spec_c2c_passes(x, y, win, nperseg, hop, nfft, detrend, scale=None):
+    """Plain torch version of the spec_c2c_fft kernel's own passes (B22):
+    the complex frames (:func:`_complex_frames`), the fixed passes of
+    ``cuda_fft._mixed_radix_plan``(nfft) on the kernel's pass roots, then
+    the scale: complex ``[..., num, nfft]``.  No CUDA path calls it."""
+    z = _complex_frames(x, y, lambda v: _frames(v, win, nperseg, hop, nfft, detrend))
+    tab = cuda_fft._twiddle_table(nfft, FORWARD, x.device, cuda_fft._pass_roots_np)
+    Z = cuda_fft._fixed_passes(z, FORWARD, torch.complex(tab[:, 0], tab[:, 1]),
+                               cuda_fft._mixed_radix_plan(nfft))
+    return Z * cuda_fft._scale_arg(scale)
 
 
 def _spec_passes(x, win, nperseg, hop, nfft, detrend, roll_s=0, scale=None, pad=0):
@@ -212,19 +248,19 @@ def _tiles(kind, batch: int, num: int, nfft: int, device) -> tuple[int, int]:
 
 
 def _launch(kind, x, y, win, nperseg, hop, nfft, detrend):
-    """Run one of welch_fft's six kernels on CUDA tensors; the outputs."""
+    """Run one of welch_fft's five kernels on CUDA tensors; the outputs."""
     fn, nout, _ = _KERNELS[kind]
     lead, t = x.shape[:-1], x.shape[-1]
     batch = math.prod(lead)
     num = 1 + (t - nperseg) // hop
     bins = nfft if kind in _COMPLEX else nfft // 2 + 1
     if batch == 0:
-        shape = (*lead, num, bins) if kind in _PER_SEG else (*lead, bins)
+        shape = (*lead, num, bins) if kind == "psd" else (*lead, bins)
         return tuple(x.new_zeros(shape) for _ in range(nout))
     x = x.contiguous()
     y = None if y is None else y.contiguous()
     per_block, tiles = _tiles(kind, batch, num, nfft, x.device)
-    if kind in _PER_SEG:
+    if kind == "psd":
         outs = [x.new_empty((batch, num, bins)) for _ in range(nout)]
     else:
         outs = list(x.new_empty((nout, batch, tiles, bins)).unbind(0))
@@ -242,7 +278,7 @@ def _launch(kind, x, y, win, nperseg, hop, nfft, detrend):
                  what=f"{fn} launch failed (batch={batch}, t={t}, nperseg={nperseg}, "
                       f"hop={hop}, nfft={nfft})")
     globals()[f"{kind}_launches"] += 1
-    if kind in _PER_SEG:
+    if kind == "psd":
         return tuple(o.reshape(*lead, num, bins) for o in outs)
     # the partial rows of the tiles, summed in a fixed order
     return tuple(o.sum(1).reshape(*lead, bins) for o in outs)
@@ -288,11 +324,53 @@ def _spec_launch(x, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False, c
     return outs
 
 
+def _spec_c2c_launch(x, y, win, nperseg, hop, nfft, detrend, c64=False, scale=None):
+    """Run the spec_c2c_fft kernel (B22) on CUDA tensors: from x complex64
+    as it lies, or from the planes x and y (None: a zero plane, none read);
+    planes (Xr, Xi) ``[..., num, nfft]``, or with ``c64`` one complex64
+    tensor of that shape."""
+    global spec_c2c_launches, spec_c2c_c64_launches
+    lead, t = x.shape[:-1], x.shape[-1]
+    batch = math.prod(lead)
+    num = 1 + (t - nperseg) // hop
+    shape = (*lead, num, nfft)
+    if c64:
+        outs = (torch.empty(shape, dtype=torch.complex64, device=x.device),)
+    else:
+        outs = (torch.empty(shape, device=x.device), torch.empty(shape, device=x.device))
+    if batch == 0:
+        return tuple(o.zero_() for o in outs)
+    x = x.resolve_conj().contiguous()
+    y = None if y is None else y.contiguous()
+    src = ((x.data_ptr(), None, None) if x.is_complex()
+           else (None, x.data_ptr(), None if y is None else y.data_ptr()))
+    tw = cuda_fft._twiddle_table(nfft, FORWARD, x.device, cuda_fft._pass_roots_np)
+    args = (batch, t, nperseg, hop, num, nfft.bit_length() - 1, int(detrend == "constant"),
+            cuda_fft._scale_arg(scale), cuda_fft._stream(x))
+    what = (f"spec_c2c_fft launch failed (batch={batch}, t={t}, nperseg={nperseg}, "
+            f"hop={hop}, nfft={nfft})")
+    w = win.contiguous()
+    if c64:
+        build.launch("spec_c2c_fft", "spec_c2c_fft_c64", [_P] * 6 + [_LL, _LL] + [_I] * 5
+                     + [_F, _P], x.device, *src, w.data_ptr(), outs[0].data_ptr(),
+                     tw.data_ptr(), *args, what=what)
+        spec_c2c_c64_launches += 1
+    else:
+        build.launch("spec_c2c_fft", "spec_c2c_fft_f32", [_P] * 7 + [_LL, _LL] + [_I] * 5
+                     + [_F, _P], x.device, *src, w.data_ptr(), outs[0].data_ptr(),
+                     outs[1].data_ptr(), tw.data_ptr(), *args, what=what)
+    spec_c2c_launches += 1
+    return outs
+
+
 def _run(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s, pad_out, scale, pad):
     if x.device.type == "cuda":
         if kind in _SPEC:
             return _spec_launch(x, win, nperseg, hop, nfft, detrend, roll_s, pad_out,
                                 kind == "spec_c64", scale, pad)
+        if kind in _SPEC_C2C:
+            return _spec_c2c_launch(x, y, win, nperseg, hop, nfft, detrend,
+                                    kind == "spec_c2c_c64", scale)
         return _launch(kind, x, y, win, nperseg, hop, nfft, detrend)
     if x.device.type != "cpu":
         raise ValueError(f"no segment-spectrum kernel for device {x.device}")
@@ -328,14 +406,14 @@ class _Segments(torch.autograd.Function):
 
 def _apply(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False,
            scale=None, pad=0):
-    num = _check(x, y, win, nperseg, hop, nfft, detrend, roll_s, pad)
+    num = _check(x, y, win, nperseg, hop, nfft, detrend, roll_s, pad, kind == "spec_c2c_c64")
     return _Segments.apply(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s,
                            bool(pad_out), scale, pad), num
 
 
 def _reference(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False,
                scale=None, pad=0):
-    num = _check(x, y, win, nperseg, hop, nfft, detrend, roll_s, pad)
+    num = _check(x, y, win, nperseg, hop, nfft, detrend, roll_s, pad, kind == "spec_c2c_c64")
     return _composed(kind, x, y, win, nperseg, hop, nfft, detrend, False, roll_s,
                      bool(pad_out), scale, pad), num
 
@@ -471,3 +549,23 @@ def spec_c2c_split_reference(re, im, win, nperseg, hop, nfft, detrend):
     """Plain torch version of :func:`spec_c2c_split`."""
     (Xr, Xi), _ = _reference("spec_c2c", re, im, win, nperseg, hop, nfft, detrend)
     return Xr, Xi
+
+
+def spec_c2c_c64(x, win, nperseg, hop, nfft, detrend, *, scale=None, im=None):
+    """Fused two-sided framed C2C (B22) into one complex64 tensor ``[...,
+    num, nfft]``, every bin in natural order, the scale folded into the
+    store.  x is the complex64 signal ``[..., t]`` (read as it lies, each
+    plane detrended on its own), or a real float32 one (with ``im``, a
+    float32 tensor of x's shape: the planes of a complex signal; without,
+    the real signal taken two-sided, no imaginary plane read).  On the card
+    the kernel's complex64 sink, one launch and no merge.  Differentiable in
+    x and im (the composed form's gradient, through the row kernel's
+    complex64 entry)."""
+    (X,), _ = _apply("spec_c2c_c64", x, im, win, nperseg, hop, nfft, detrend, scale=scale)
+    return X
+
+
+def spec_c2c_c64_reference(x, win, nperseg, hop, nfft, detrend, *, scale=None, im=None):
+    """Plain torch version of :func:`spec_c2c_c64`."""
+    (X,), _ = _reference("spec_c2c_c64", x, im, win, nperseg, hop, nfft, detrend, scale=scale)
+    return X

@@ -5,9 +5,13 @@ of ``fft_wgpu_tpu.ops.fastconv``).
 filtering, channel equalisation, deconvolution).  Composed from separate
 operations it costs three round trips through device memory (forward
 transform, multiply, inverse transform); here the H multiply is fused into
-the inverse transform's loads (``cuda_fft.fft_filtered_split``), so the
-loop is two: on a CUDA tensor of pow2 length 128..16384, the row kernel,
-then the filtered row kernel with the 1/n folded into its store.  Any
+the inverse transform's loads, so the loop is two: on a CUDA tensor of
+pow2 length 128..16384, the row kernel, then the filtered row kernel with
+the 1/n folded into its store.  A complex64 CUDA tensor takes both through
+their complex64 entries (``cuda_fft.fft_batched_c64``, the plan's route
+of pow2 n, then ``cuda_fft.fft_filtered_c64``): two launches, no split and
+no merge; other
+input on the card their planar entries (``fft_filtered_split``).  Any
 other length, and a CPU tensor, takes the composed form through the plan
 (``get_plan(n)._execute_split``), so a composite length on the card runs
 the composite-row kernel; the JAX package's composed form goes to its
@@ -23,6 +27,7 @@ from ..core.complex_utils import merge, promote_to_split
 from ..core.twiddle import FORWARD, INVERSE
 from ..plan.plan import get_plan
 from . import cuda_fft
+from .stft import _on_card
 
 __all__ = ["SpectralFilter", "spectral_filter"]
 
@@ -45,8 +50,10 @@ class SpectralFilter(torch.nn.Module):
     ``ifft(fft(x) * H)`` along the last axis of x (circular convolution
     with the impulse response) and returns complex64.  The response is held
     as float32 planar buffers ``hr`` and ``hi`` (generated in float64, cast
-    once); they follow x to its device at the first call there.  Note that
-    ``apply`` here is the filter, not ``torch.nn.Module.apply``.
+    once); they follow x to its device at the first call there.  The
+    complex64 route reads it as one complex64 row, made from the buffers
+    once per device and buffer version.  Note that ``apply`` here is the
+    filter, not ``torch.nn.Module.apply``.
     """
 
     def __init__(self, h, n: int | None = None, *, domain: str = "freq"):
@@ -69,21 +76,36 @@ class SpectralFilter(torch.nn.Module):
     def forward(self, x):
         """Filter x ([..., n]: a tensor on its device, anything else on the
         current CUDA device) -> complex64 of the same shape."""
-        re, im = promote_to_split(x)
         n = self.n
+        if (isinstance(x, torch.Tensor) and x.dtype == torch.complex64 and _on_card(x)
+                and cuda_fft._supported(n) and x.ndim >= 1 and x.shape[-1] == n):
+            if self.hr.device != x.device:
+                self.to(x.device)
+            X = cuda_fft.fft_batched_c64(x, FORWARD)  # the plan's route of pow2 n
+            return cuda_fft.fft_filtered_c64(X, self._response_c64(), INVERSE, 1.0 / n)
+        re, im = promote_to_split(x)
         if re.shape[-1] != n:
             raise ValueError(f"last axis {re.shape[-1]} != plan length {n}")
         if self.hr.device != re.device:
             self.to(re.device)
         p = get_plan(n)
         Xr, Xi = p._execute_split(re, im, FORWARD, None)
-        if re.device.type == "cuda" and cuda_fft._supported(n):
+        if _on_card(re) and cuda_fft._supported(n):
             yr, yi = cuda_fft.fft_filtered_split(Xr, Xi, self.hr, self.hi, INVERSE,
                                                  1.0 / n)
         else:
             cr, ci = Xr * self.hr - Xi * self.hi, Xr * self.hi + Xi * self.hr
             yr, yi = p._execute_split(cr, ci, INVERSE, 1.0 / n)
         return merge(yr, yi)
+
+    def _response_c64(self):
+        """The response as one complex64 row on the buffers' device, made
+        from ``hr`` and ``hi`` once per device and buffer version."""
+        key = (self.hr.device, self.hr.data_ptr(), self.hr._version, self.hi.data_ptr(),
+               self.hi._version)
+        if getattr(self, "_c64_key", None) != key:
+            self._c64, self._c64_key = torch.complex(self.hr, self.hi), key
+        return self._c64
 
     def apply(self, x):  # the JAX package's name for the call
         return self.forward(x)

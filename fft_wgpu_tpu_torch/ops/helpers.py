@@ -41,7 +41,8 @@ from . import cuda_fft
 from .nd import fftn, fftn_split, ifftn
 from .rfft import (_hermitian_extend, irfft, irfft_last_split, irfft_prod_last_split, rfft,
                    rfft_last_split)
-from .stft import _ola_slabs
+from .spectral_est import get_window
+from .stft import _ola_slabs, _on_card
 from .transforms import _resize_axis, fft, ifft
 
 __all__ = [
@@ -404,9 +405,10 @@ def fftcorrelate(a, b, mode: str = "full", axes=None):
 _HILBERT: dict = {}
 
 
-def _hilbert_weights(length: int, device) -> torch.Tensor:
+def _hilbert_weights(length: int, device):
     """scipy's one-sided spectrum weights h = [1, 2, .., 2, (1), 0, ..] of
-    ``length`` bins on ``device``, cached."""
+    ``length`` bins on ``device``, as float32 and as complex64 (the filtered
+    kernel's complex64 row), both cached."""
     key = (length, str(device))
     h = _HILBERT.get(key)
     if h is None:
@@ -417,17 +419,21 @@ def _hilbert_weights(length: int, device) -> torch.Tensor:
         else:
             w[0] = 1.0
             w[1: (length + 1) // 2] = 2.0
-        h = _HILBERT[key] = torch.from_numpy(w).to(device)
+        h = _HILBERT[key] = (torch.from_numpy(w).to(device),
+                             torch.from_numpy(w.astype(np.complex64)).to(device))
     return h
 
 
 def hilbert(x, n: int = None, axis: int = -1, *, N: int = None):
     """Analytic signal via the FFT (scipy.signal.hilbert): real input ->
-    complex x + i*H(x).  The forward transform goes through the plan; on a
-    CUDA tensor of pow2 length in the row kernel's envelope the inverse is
-    the filtered row kernel with the one-sided weights applied at load,
-    elsewhere the weights multiply and the plan runs the inverse.  scipy
-    spells the length argument N=; both are accepted."""
+    complex x + i*H(x).  On a CUDA tensor of pow2 length in the row
+    kernel's envelope: the R2C kernel into complex64 (its half spectrum of
+    n/2 + 1 bins), then the filtered row kernel's complex64 entry reading
+    those bins as they lie, zero past them, with the one-sided weights
+    applied at load and 1/n at store: two launches, no zero plane, no split
+    and no merge.  Elsewhere the plan's forward transform, the weights and
+    the plan's inverse.  scipy spells the length argument N=; both are
+    accepted."""
     if N is not None:
         if n is not None and n != N:
             raise ValueError("pass only one of n= and N=")
@@ -438,14 +444,13 @@ def hilbert(x, n: int = None, axis: int = -1, *, N: int = None):
     length = n if n is not None else v.shape[-1]
     if v.shape[-1] != length:
         v = _resize_axis(v, length, -1)
+    h, hc = _hilbert_weights(length, v.device)
+    if _on_card(v) and cuda_fft._supported(length):
+        X = cuda_fft.rfft_rows_c64(v)
+        return cuda_fft.fft_filtered_c64(X, hc, INVERSE, 1.0 / length).movedim(-1, axis)
     p = get_plan(length)
-    h = _hilbert_weights(length, v.device)
     re, im = p._execute_split(v, torch.zeros_like(v), FORWARD, None)
-    if v.device.type == "cuda" and cuda_fft._supported(length):
-        re, im = cuda_fft.fft_filtered_split(re, im, h, torch.zeros_like(h), INVERSE,
-                                             1.0 / length)
-    else:
-        re, im = p._execute_split(re * h, im * h, INVERSE, 1.0 / length)
+    re, im = p._execute_split(re * h, im * h, INVERSE, 1.0 / length)
     return merge(re.movedim(-1, axis), im.movedim(-1, axis))
 
 
@@ -461,9 +466,6 @@ def _resample_window(window, n):
             raise ValueError(f"window length {W.shape} != number of "
                              f"frequency bins ({n},)")
     else:
-        # imported here: spectral_est imports this module
-        from .spectral_est import get_window
-
         W = np.fft.fftshift(get_window(window, n, device="cpu").numpy().astype(np.float64))
     if np.iscomplexobj(W):
         raise ValueError("complex spectral windows are not supported")

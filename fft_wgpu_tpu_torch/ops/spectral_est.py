@@ -26,12 +26,19 @@ in the cases where the JAX package takes its TPU kernels, with
     as the transposed view with no merge;
   * the two-sided mean of one signal (complex input, or real input with
     ``return_onesided=False``): B21, ``welch_accum_c2c_split``;
-  * every other per-segment spectrum, :func:`_spec_segments_split`: B20
-    (``spec_rfft_split``) for the half spectra of real input, B22
-    (``spec_c2c_split``) for the two-sided spectra of complex input or of
-    real input with ``return_onesided=False``.  It serves the cross
-    spectra and medians of complex input, two-sided ``csd``,
-    ``spectrogram``'s angle and phase modes and its two-sided modes.
+  * every other two-sided per-segment spectrum (complex input, or real
+    input with ``return_onesided=False``): B22's complex64 sink,
+    ``spec_c2c_c64``, read from the caller's complex64 tensor as it lies
+    (:func:`_split` takes its planes as views, no copy) or from the planes
+    (real input: no imaginary plane).  It serves the cross spectra and
+    medians of complex input and two-sided ``csd`` (the products taken as
+    complex tensors, conj(X) * Y) and every mode of the two-sided
+    ``spectrogram`` (``mode="complex"`` the sink's transposed view, the
+    normalisation folded into its store: one launch and nothing else);
+  * every other one-sided per-segment spectrum,
+    :func:`_spec_segments_split`: B20 (``spec_rfft_split``), the half
+    spectra of real input (``spectrogram``'s angle and phase modes, the
+    medians of cross spectra).
 
 Outside the envelope (``detrend="linear"``, non-pow2 nfft, other shapes)
 and on every CPU tensor :func:`_spec_segments_split` composes: frames,
@@ -42,6 +49,7 @@ for odd nfft and complex input).
 
 from __future__ import annotations
 
+import functools
 import warnings
 
 import numpy as np
@@ -51,7 +59,6 @@ from ..core.complex_utils import default_device, is_pair, merge, promote_to_spli
 from ..core.twiddle import FORWARD
 from . import cuda_welch
 from . import windows as _windows
-from .helpers import fftfreq, rfftfreq
 from .nd import fftn_split
 from .rfft import rfft_last_split
 from .stft import (_frame, _on_card, bartlett_window, blackman_window, hamming_window,
@@ -324,12 +331,12 @@ def _pad_last(v, n: int):
 def _spec_segments_split(xr, xi, win, nperseg, hop, nfft, detrend):
     """Frame, detrend, window, transform: split ``[..., num, bins]``, the
     two-sided spectrum for complex input (planes xr, xi of one shape), the
-    half spectrum for real (xi None).  On a CUDA tensor in the envelope one
-    kernel does it all: B20 for real input, B22 for complex."""
-    if _on_card(xr) and cuda_welch.fused_welch_ok(xr.shape[-1], nperseg, hop, nfft, detrend):
-        if xi is None:
-            return cuda_welch.spec_rfft_split(xr, win, nperseg, hop, nfft, detrend)
-        return cuda_welch.spec_c2c_split(xr, xi, win, nperseg, hop, nfft, detrend)
+    half spectrum for real (xi None).  On a CUDA tensor in the envelope B20
+    does it all for real input (the two-sided spectra there take B22's
+    complex64 sink, :func:`_spec_c2c`, before this is reached)."""
+    if (xi is None and _on_card(xr)
+            and cuda_welch.fused_welch_ok(xr.shape[-1], nperseg, hop, nfft, detrend)):
+        return cuda_welch.spec_rfft_split(xr, win, nperseg, hop, nfft, detrend)
     frames_r = _pad_last(_detrend_seg(_frame(xr, nperseg, hop), detrend) * win, nfft)
     if xi is None:
         if nfft % 2 == 0:
@@ -339,6 +346,23 @@ def _spec_segments_split(xr, xi, win, nperseg, hop, nfft, detrend):
         return re[..., : nfft // 2 + 1], im[..., : nfft // 2 + 1]
     frames_i = _pad_last(_detrend_seg(_frame(xi, nperseg, hop), detrend) * win, nfft)
     return fftn_split(frames_r, frames_i, (frames_r.ndim - 1,), FORWARD, None)
+
+
+def _spec_c2c(xc, v, vi, axis, win, nperseg, hop, nfft, detrend, scale=None):
+    """The two-sided per-segment spectra on the card, complex64 ``[...,
+    num, nfft]``, by B22's complex64 sink: from the caller's complex64
+    tensor ``xc`` as it lies where there is one (:func:`_c64`, moved like
+    ``v``), else from the planes ``v`` and ``vi`` (None: a real signal, no
+    imaginary plane read)."""
+    if xc is not None:
+        return cuda_welch.spec_c2c_c64(xc.movedim(axis, -1), win, nperseg, hop, nfft,
+                                       detrend, scale=scale)
+    return cuda_welch.spec_c2c_c64(v, win, nperseg, hop, nfft, detrend, scale=scale, im=vi)
+
+
+def _power(X):
+    """|X|^2 of a complex tensor, as float32."""
+    return torch.view_as_real(X).square().sum(-1)
 
 
 def _is_complex(x) -> bool:
@@ -352,9 +376,19 @@ def _is_complex(x) -> bool:
     return bool(np.iscomplexobj(x))
 
 
+def _c64(x):
+    """x itself where it is a complex64 tensor, which B22 reads as it lies
+    (:func:`_spec_c2c`), else None."""
+    return x if isinstance(x, torch.Tensor) and x.dtype == torch.complex64 else None
+
+
 def _split(x, device=None):
     """x as planes (re, im), im None for real input: the one promotion of
-    an estimator's input (numpy input is copied to the card once)."""
+    an estimator's input (numpy input is copied to the card once).  A
+    complex64 tensor already on ``device`` is not copied: its planes are
+    views of it."""
+    if _c64(x) is not None and (device is None or x.device == torch.device(device)):
+        return x.real, x.imag
     xr, xi = promote_to_split(x, device)
     return xr, xi if _is_complex(x) else None
 
@@ -405,38 +439,80 @@ def _norm(win, fs: float, scaling: str) -> float:
     raise ValueError(f"invalid scaling {scaling!r}")
 
 
+@functools.lru_cache(maxsize=64)
+def _grid_on(nfft: int, fs: float, onesided: bool, num: int, hop: int, nperseg: int,
+             device):
+    """The estimate's frequency grid, then the spectrogram's ``num`` segment
+    times, as one float32 vector on ``device``, built once per key so that
+    a call on the card copies no table there.  Never returned as it is:
+    :func:`_grids` hands out copies."""
+    f = (np.fft.rfftfreq if onesided else np.fft.fftfreq)(nfft, 1.0 / fs)
+    t = (np.arange(num) * hop + nperseg / 2.0) / fs
+    return torch.from_numpy(np.concatenate([f, t]).astype(np.float32)).to(device)
+
+
+def _grids(nfft: int, fs: float, onesided: bool, device, num: int = 0, hop: int = 0,
+           nperseg: int = 0):
+    """The frequency grid f and the ``num`` segment times t (empty for
+    num 0) of an estimate, fresh tensors on ``device``: one device copy of
+    the cached grid, so that a caller's in-place edit of f or t (scipy's
+    ``f /= 1e3``) reaches no other call."""
+    g = _grid_on(nfft, float(fs), onesided, num, hop, nperseg, torch.device(device)).clone()
+    nf = nfft // 2 + 1 if onesided else nfft
+    return g[:nf], g[nf:]
+
+
 def _freqs(nfft: int, fs: float, onesided: bool, device):
-    return (rfftfreq if onesided else fftfreq)(nfft, 1.0 / fs, device=device)
+    """The estimate's frequency grid on ``device``, a fresh tensor."""
+    return _grids(nfft, fs, onesided, device)[0]
+
+
+@functools.lru_cache(maxsize=64)
+def _named_window(window, nperseg: int, device):
+    return get_window(window, nperseg, device="cpu").to(device)
+
+
+def _window_on(window, win, device):
+    """The CPU window ``win`` of the spec ``window`` on ``device``: a named
+    window (a string, or a tuple of a name and numbers) is built there once
+    per (spec, length, device), so that a call on the card copies no table
+    there; an array window is copied."""
+    named = isinstance(window, str) or (isinstance(window, tuple) and all(
+        isinstance(p, (str, int, float)) for p in window))
+    return _named_window(window, win.shape[0], device) if named else win.to(device)
 
 
 def _csd_impl(xs, ys, fs, window, nperseg, noverlap, nfft, detrend,
-              return_onesided, scaling, axis, average):
+              return_onesided, scaling, axis, average, xc=None, yc=None):
     """The estimate from the split inputs ``xs`` and ``ys`` (None: the
-    auto-spectrum of x)."""
+    auto-spectrum of x); ``xc`` and ``yc`` the callers' complex64 tensors
+    where they were ones (:func:`_c64`)."""
     nperseg, noverlap, nfft, win, complex_input = _resolve_args(
         xs, ys, nperseg, noverlap, nfft, window, axis)
     (xr, xi), (yr, yi) = xs, ys or (None, None)
     onesided = return_onesided and not complex_input
     hop = nperseg - noverlap
     norm = _norm(win, fs, scaling)
-    win = win.to(xr.device)
+    win = _window_on(window, win, xr.device)
     same = ys is None
 
     def mv(a):
         return None if a is None else a.movedim(axis, -1)
 
     xr_, xi_, yr_, yi_ = mv(xr), mv(xi), mv(yr), mv(yi)
-    # two-sided output needs the full C2C path even for real input
-    if not onesided and xi_ is None:
+    fused = (_on_card(xr_)
+             and cuda_welch.fused_welch_ok(xr_.shape[-1], nperseg, hop, nfft, detrend))
+    # two-sided output needs the full C2C path even for real input (B22
+    # reads no imaginary plane of a real signal)
+    if not onesided and xi_ is None and not (fused and not (same and average == "mean")):
         xi_ = torch.zeros_like(xr_)
-    if not onesided and yr_ is not None and yi_ is None:
+    if not onesided and yr_ is not None and yi_ is None and not fused:
         yi_ = torch.zeros_like(yr_)
 
     if (onesided and xi_ is None
             and (same or (yi_ is None and yr_.shape == xr_.shape))
             and (average == "mean" or (average == "median" and same))
-            and _on_card(xr_)
-            and cuda_welch.fused_welch_ok(xr_.shape[-1], nperseg, hop, nfft, detrend)):
+            and fused):
         # the segment-spectrum kernels: everything after them is on the
         # small bins vector
         args = (win, nperseg, hop, nfft, detrend)
@@ -451,23 +527,33 @@ def _csd_impl(xs, ys, fs, window, nperseg, noverlap, nfft, detrend,
             Pi = torch.zeros_like(Pr)
         mult = _onesided_mult(nfft, Pr.device) * (norm / float(den))
         Pr, Pi = Pr * mult, Pi * mult
-    elif (not onesided and same and average == "mean" and _on_card(xr_)
-          and cuda_welch.fused_welch_ok(xr_.shape[-1], nperseg, hop, nfft, detrend)):
+    elif not onesided and same and average == "mean" and fused:
         # B21: the two-sided sum over segments, every bin
         psum, den = cuda_welch.welch_accum_c2c_split(xr_, xi_, win, nperseg, hop, nfft,
                                                      detrend)
         Pr = psum * (norm / float(den))
         Pi = torch.zeros_like(Pr)
     else:
-        Xr, Xi = _spec_segments_split(xr_, xi_, win, nperseg, hop, nfft, detrend)
-        if same:
-            Pr = Xr * Xr + Xi * Xi  # X * conj(X)
-            Pi = torch.zeros_like(Pr)
+        if not onesided and fused:
+            # B22's complex64 sink: the products taken as complex tensors
+            args = (axis, win, nperseg, hop, nfft, detrend)
+            X = _spec_c2c(xc, xr_, xi_, *args)
+            if same:
+                Pr = _power(X)  # X * conj(X)
+                Pi = torch.zeros_like(Pr)
+            else:
+                P = X.conj() * _spec_c2c(yc, yr_, yi_, *args)  # scipy: Pxy = conj(X) * Y
+                Pr, Pi = P.real, P.imag
         else:
-            Yr, Yi = _spec_segments_split(yr_, yi_, win, nperseg, hop, nfft, detrend)
-            # scipy: Pxy = conj(X) * Y
-            Pr = Xr * Yr + Xi * Yi
-            Pi = Xr * Yi - Xi * Yr
+            Xr, Xi = _spec_segments_split(xr_, xi_, win, nperseg, hop, nfft, detrend)
+            if same:
+                Pr = Xr * Xr + Xi * Xi  # X * conj(X)
+                Pi = torch.zeros_like(Pr)
+            else:
+                Yr, Yi = _spec_segments_split(yr_, yi_, win, nperseg, hop, nfft, detrend)
+                # scipy: Pxy = conj(X) * Y
+                Pr = Xr * Yr + Xi * Yi
+                Pi = Xr * Yi - Xi * Yr
         if average == "mean":
             Pr, Pi = Pr.mean(-2), Pi.mean(-2)
         elif average == "median":
@@ -493,7 +579,7 @@ def periodogram(x, fs: float = 1.0, window="boxcar", nfft: int | None = None,
     xs = _split(x)
     f, Pr, _Pi, _onesided = _csd_impl(
         xs, None, fs, window, xs[0].shape[axis], 0, nfft, detrend, return_onesided,
-        scaling, axis, "mean")
+        scaling, axis, "mean", _c64(x))
     return f, Pr
 
 
@@ -507,7 +593,7 @@ def welch(x, fs: float = 1.0, window="hann", nperseg: int | None = None,
     """
     f, Pr, _Pi, _onesided = _csd_impl(
         _split(x), None, fs, window, nperseg, noverlap, nfft, detrend,
-        return_onesided, scaling, axis, average)
+        return_onesided, scaling, axis, average, _c64(x))
     return f, Pr
 
 
@@ -521,7 +607,7 @@ def csd(x, y, fs: float = 1.0, window="hann", nperseg: int | None = None,
     """
     f, Pr, Pi, _onesided = _csd_impl(
         *_split_pair(x, y), fs, window, nperseg, noverlap, nfft, detrend,
-        return_onesided, scaling, axis, average)
+        return_onesided, scaling, axis, average, _c64(x), _c64(y))
     return f, merge(Pr, Pi)
 
 
@@ -541,16 +627,17 @@ def coherence(x, y, fs: float = 1.0, window="hann",
         if (xr.shape == yr.shape
                 and cuda_welch.fused_welch_ok(xr.shape[axis], np_, hop, nf_, detrend)):
             Pr, Pi, Sxx, Syy, _num = cuda_welch.coherence_accum_split(
-                xr.movedim(axis, -1), yr.movedim(axis, -1), win.to(xr.device), np_, hop,
+                xr.movedim(axis, -1), yr.movedim(axis, -1), _window_on(window, win, xr.device),
+                np_, hop,
                 nf_, detrend)
             C = (Pr * Pr + Pi * Pi) / (Sxx * Syy)
             return _freqs(nf_, fs, True, C.device), C.movedim(-1, axis)
     f, Pxyr, Pxyi, _ = _csd_impl(xs, ys, fs, window, nperseg, noverlap, nfft,
-                                 detrend, True, "density", axis, "mean")
+                                 detrend, True, "density", axis, "mean", _c64(x), _c64(y))
     _, Pxx, _, _ = _csd_impl(xs, None, fs, window, nperseg, noverlap, nfft,
-                             detrend, True, "density", axis, "mean")
+                             detrend, True, "density", axis, "mean", _c64(x))
     _, Pyy, _, _ = _csd_impl(ys, None, fs, window, nperseg, noverlap, nfft,
-                             detrend, True, "density", axis, "mean")
+                             detrend, True, "density", axis, "mean", _c64(y))
     return f, (Pxyr * Pxyr + Pxyi * Pxyi) / (Pxx * Pyy)
 
 
@@ -651,14 +738,15 @@ def spectrogram(x, fs: float = 1.0, window=("tukey", 0.25),
     hop = nperseg - noverlap_d
     onesided = return_onesided and not complex_input
     norm = _norm(win, fs, scaling)
-    win = win.to(xr.device)
+    win = _window_on(window, win, xr.device)
 
     v_r = xr.movedim(axis, -1)
     v_i = None if xi is None else xi.movedim(axis, -1)
-    if not onesided and v_i is None:
+    fused = (_on_card(v_r)
+             and cuda_welch.fused_welch_ok(v_r.shape[-1], nperseg, hop, nfft, detrend))
+    if not onesided and v_i is None and not fused:
         v_i = torch.zeros_like(v_r)  # two-sided needs the full C2C path
-    if (mode in ("psd", "magnitude") and onesided and v_i is None and _on_card(v_r)
-            and cuda_welch.fused_welch_ok(v_r.shape[-1], nperseg, hop, nfft, detrend)):
+    if mode in ("psd", "magnitude") and onesided and v_i is None and fused:
         # B19: the per-segment powers, without the frame matrix
         P = cuda_welch.spec_psd_split(v_r, win, nperseg, hop, nfft, detrend)
         if mode == "magnitude":
@@ -666,11 +754,28 @@ def spectrogram(x, fs: float = 1.0, window=("tukey", 0.25),
         else:
             S = P * norm * _onesided_mult(nfft, P.device)
         out = S.transpose(-1, -2)
-    elif (mode == "complex" and onesided and v_i is None and _on_card(v_r)
-            and cuda_welch.fused_welch_ok(v_r.shape[-1], nperseg, hop, nfft, detrend)):
+    elif mode == "complex" and onesided and v_i is None and fused:
         # B20's complex64 sink, the normalisation folded in: no merge
         out = cuda_welch.spec_rfft_c64(v_r, win, nperseg, hop, nfft, detrend,
                                        scale=float(np.sqrt(norm))).transpose(-1, -2)
+    elif not onesided and fused and mode in ("psd", "magnitude", "complex", "angle",
+                                             "phase"):
+        # B22's complex64 sink, sqrt(norm) folded into its store (every mode
+        # but the angles, which it leaves as they are): the complex mode is
+        # its transposed view, the others are computed from it
+        s = None if mode in ("angle", "phase") else float(np.sqrt(norm))
+        X = _spec_c2c(_c64(x), v_r, v_i, axis, win, nperseg, hop, nfft, detrend,
+                      s).transpose(-1, -2)
+        if mode == "psd":
+            out = _power(X)
+        elif mode == "magnitude":
+            out = X.abs()
+        elif mode == "complex":
+            out = X
+        else:
+            out = X.angle()
+            if mode == "phase":  # scipy: unwrapped along the time axis
+                out = _unwrap(out, -1)
     else:
         Xr, Xi = _spec_segments_split(v_r, v_i, win, nperseg, hop, nfft, detrend)
         if mode == "psd":
@@ -690,9 +795,8 @@ def spectrogram(x, fs: float = 1.0, window=("tukey", 0.25),
         else:
             raise ValueError(f"invalid mode {mode!r}")
     num = 1 + (xr.shape[axis] - nperseg) // hop
-    t = torch.from_numpy(((np.arange(num) * hop + nperseg / 2.0) / fs)
-                         .astype(np.float32)).to(out.device)
-    return _freqs(nfft, fs, onesided, out.device), t, out
+    f, t = _grids(nfft, fs, onesided, out.device, num, hop, nperseg)
+    return f, t, out
 
 
 def _lombscargle_core(x, y, w, freqs, floating_mean: bool):

@@ -32,11 +32,18 @@ plane (set "plane"); the per-segment R2C kernel (B20) at a 2^22 signal
 with nperseg 4096, hop 2048, through each of its sinks, beside torch.fft's
 composition of the same function, and at every pow2 nfft of 128..16384 at
 half overlap over 2^22 points, stft of 2^20 samples (events, all of its
-device work, the kernel's) beside torch.stft, and the other six
-segment-spectrum kinds' output bits, to compare two trees (set "spec").
+device work, the kernel's) beside torch.stft, and the five welch_kernel
+segment-spectrum kinds' output bits, to compare two trees (set "spec"); the
+filtered rows (B9) at 4096 x 4096 and at every pow2 n at 1000 rows in both
+layouts beside B1's complex64 entry, SpectralFilter and hilbert at 4096 x
+4096 (set "filt"); the per-segment two-sided spectra (B22) at 2^22 in both
+sources and sinks and at every pow2 nfft, the complex spectrogram and csd
+of complex 2^22 signals (set "c2c"); and the output bits of the kernels
+kept as they were, chip_smoke.kept_bits (set "bits").
 
     python3 scripts/time_composite_rows.py [--tree DIR] [--label NAME] [--out FILE]
-                                           [--set rows|columns|chirp|pow2|cols|plane|spec|all]
+                                           [--set rows|columns|chirp|pow2|cols|plane|spec|
+                                                  filt|c2c|bits|all]
 
 ``--tree`` imports ``fft_wgpu_tpu_torch`` from another checkout (for
 example a parent commit unpacked with ``git archive``), so that two
@@ -131,7 +138,7 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="append the JSON line here")
     ap.add_argument("--set", default="all",
                     choices=("rows", "columns", "chirp", "pow2", "cols", "plane", "spec",
-                             "all"),
+                             "filt", "c2c", "bits", "all"),
                     help="which kernels to time")
     args = ap.parse_args()
 
@@ -164,6 +171,18 @@ def main() -> int:
         time_plane(ft, cuda_fft, dev, gen, args.label, result)
     if args.set in ("spec", "all"):
         time_spec(ft, dev, gen, args.label, result)
+    if args.set in ("filt", "all"):
+        time_filt(ft, cuda_fft, dev, gen, args.label, result)
+    if args.set in ("c2c", "all"):
+        time_c2c(ft, dev, gen, args.label, result)
+    if args.set == "bits":
+        # the kept kernels' output bits (chip_smoke.kept_bits on this tree's modules)
+        sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        import chip_smoke
+        from fft_wgpu_tpu_torch.ops import cuda_welch
+
+        result["bits"] = chip_smoke.kept_bits(cuda_fft, cuda_welch, dev)
+        print(f"{args.label} | kept bits | {result['bits']}", flush=True)
     for kernel, rows, n in SHAPES if args.set in ("rows", "all") else ():
         key = f"{kernel} {rows}x{n}"
         if kernel == "gen_fft":
@@ -187,7 +206,7 @@ def main() -> int:
         result["times"][key]["device"] = device_ms(fns["kernel"], f"{kernel}_kernel")
         print(f"{args.label} | {key} | rel-L2 {err:.3e} | " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in result["times"][key].items()), flush=True)
-    if args.set in ("columns", "chirp", "pow2", "cols", "plane", "spec"):
+    if args.set in ("columns", "chirp", "pow2", "cols", "plane", "spec", "filt", "c2c", "bits"):
         return finish(result, args)
     fr = torch.complex(torch.randn(16, 1080, 1920, device=dev, generator=gen),
                        torch.randn(16, 1080, 1920, device=dev, generator=gen))
@@ -519,8 +538,9 @@ def time_spec(ft, dev, gen, label, result):
     sink and, where the tree has one, its complex64 sink, beside torch.fft's
     composition (unfold, detrend, window, rfft); B20 at every pow2 nfft of
     128..16384 at half overlap over 2^22 points; stft of 2^20 samples at
-    n_fft 512, hop 128 beside torch.stft; and the bits of the other six
-    segment-spectrum kinds at a 2^20 signal (``bits`` in the JSON line)."""
+    n_fft 512, hop 128 beside torch.stft; and the bits of the five
+    segment-spectrum kinds left on welch_kernel (welch, psd, csd, coh, c2c)
+    at a 2^20 signal (``bits`` in the JSON line)."""
     import torch
 
     from fft_wgpu_tpu_torch.ops import cuda_welch
@@ -565,10 +585,137 @@ def time_spec(ft, dev, gen, label, result):
            reps=50)
     y20 = torch.randn(1 << 20, device=dev, generator=gen)
     w = torch.hann_window(4096, device=dev)
+    # the five kinds on welch_kernel in every tree since B22 left it
     result["bits"] = {kind: _bits(cuda_welch._launch(kind, x20, y20 if kind in (
-        "csd", "coh", "c2c", "spec_c2c") else None, w, 4096, 2048, 4096, "constant"))
-        for kind in ("welch", "psd", "csd", "coh", "c2c", "spec_c2c")}
-    print(f"{label} | bits of the other six kinds | {result['bits']}", flush=True)
+        "csd", "coh", "c2c") else None, w, 4096, 2048, 4096, "constant"))
+        for kind in ("welch", "psd", "csd", "coh", "c2c")}
+    print(f"{label} | bits of the welch_kernel kinds | {result['bits']}", flush=True)
+
+
+def time_filt(ft, cuda_fft, dev, gen, label, result):
+    """B9 (the filtered rows) at 4096 x 4096 and at every pow2 n of
+    128..16384 at 1000 rows, through its planar entry and, where the tree
+    has one, its complex64 entry, beside B1's complex64 entry on the same
+    rows and torch.fft's multiply and ifft; SpectralFilter of complex64
+    4096 x 4096 and hilbert of real 4096 x 4096 through the public calls
+    (events, all of their device work, and each kernel's), with hilbert's
+    other route where the tree has the complex64 entry: the full C2C
+    through B1's complex64 entry, then B9's."""
+    import torch
+
+    record = recorder(label, result)
+    crand = randn_complex(dev, gen)
+    has_c64 = hasattr(cuda_fft, "fft_filtered_c64")
+    every = r"\w+"
+    for rows, n in [(4096, 4096)] + [(1000, 1 << e) for e in range(7, 15)]:
+        x, H = crand(rows, n), crand(n)
+        re, im = x.real.contiguous(), x.imag.contiguous()
+        hr, hi = H.real.contiguous(), H.imag.contiguous()
+        want = torch.fft.ifft(x.to(torch.complex128) * H)
+        fns = {"kernel": lambda: cuda_fft._filt(re, im, hr, hi, 1, 1.0 / n),
+               "B1 c64": lambda: cuda_fft._launch_c64(x, 1, 1.0 / n),
+               "torch.fft": lambda: torch.fft.ifft(x * H)}
+        device = {"device kernel": (fns["kernel"], "filt_fft_kernel"),
+                  "device B1 c64": (fns["B1 c64"], "rows_fft_kernel")}
+        err = rel_l2(torch.complex(*fns["kernel"]()), want)
+        if has_c64:
+            fns["kernel_c64"] = lambda: cuda_fft._filt_launch_c64(x, H, 1, 1.0 / n)
+            device["device kernel_c64"] = (fns["kernel_c64"], "filt_fft_kernel")
+            err = max(err, rel_l2(fns["kernel_c64"](), want))
+        record(f"filt {rows}x{n}", err, fns, device, reps=20)
+        del x, re, im
+    x, H = crand(4096, 4096), crand(4096)
+    sf = ft.SpectralFilter(H)
+    fns = {"SpectralFilter": lambda: sf(x),
+           "torch.fft": lambda: torch.fft.ifft(torch.fft.fft(x) * H)}
+    record("SpectralFilter 4096x4096 complex64",
+           rel_l2(sf(x), torch.fft.ifft(torch.fft.fft(x.to(torch.complex128)) * H)), fns,
+           {"device all": (fns["SpectralFilter"], every),
+            "device filt": (fns["SpectralFilter"], "filt_fft_kernel"),
+            "device B1": (fns["SpectralFilter"], "rows_fft_kernel")}, reps=20)
+    del x
+    r = torch.randn(4096, 4096, device=dev, generator=gen)
+    hw = torch.zeros(4096, device=dev)
+    hw[0] = hw[2048] = 1.0
+    hw[1:2048] = 2.0
+    fns = {"hilbert": lambda: ft.hilbert(r),
+           "torch.fft": lambda: torch.fft.ifft(torch.fft.fft(r) * hw)}
+    device = {"device all": (fns["hilbert"], every),
+              "device filt": (fns["hilbert"], "filt_fft_kernel")}
+    want = torch.fft.ifft(torch.fft.fft(r.double()) * hw)
+    err = rel_l2(ft.hilbert(r), want)
+    if has_c64:
+        hc = hw.to(torch.complex64)
+
+        def full_c2c():
+            X = cuda_fft.fft_batched_c64(r.to(torch.complex64), -1)
+            return cuda_fft.fft_filtered_c64(X, hc, 1, 1.0 / 4096)
+
+        fns["full C2C route"] = full_c2c
+        device["device full C2C route"] = (full_c2c, every)
+        err = max(err, rel_l2(full_c2c(), want))
+    record("hilbert 4096x4096", err, fns, device, reps=20)
+
+
+def time_c2c(ft, dev, gen, label, result):
+    """B22 at a 2^22 complex signal with nperseg 4096, hop 2048 (a tukey
+    window, constant detrend: the complex spectrogram's shape) through its
+    planar source and sink and, where the tree has them, its complex64
+    source and sink, beside torch.fft's composition (unfold, detrend,
+    window, fft); B22 at every pow2 nfft of 128..16384 at half overlap over
+    2^22 points; the complex spectrogram of a complex64 2^22 signal and csd
+    of two, through the public calls (events, all of their device work, the
+    kernel's)."""
+    import torch
+
+    from fft_wgpu_tpu_torch.ops import cuda_welch
+
+    record = recorder(label, result)
+    crand = randn_complex(dev, gen)
+    every = r"\w+"
+    b22 = r"(welch|spec_c2c)_kernel"  # the parent's welch_kernel<., 6>, or spec_c2c_kernel
+    has_c64 = hasattr(cuda_welch, "spec_c2c_c64")
+    x = crand(1 << 22)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    tukey = ft.get_window(("tukey", 0.25), 4096, device=dev)
+
+    def composed(v, w, nperseg, hop, nfft, detrend):
+        fr = v.unfold(-1, nperseg, hop)
+        if detrend == "constant":
+            fr = fr - fr.mean(-1, keepdim=True)
+        return torch.fft.fft(fr * w, n=nfft)
+
+    shapes = [(tukey, (4096, 2048, 4096, "constant"))]
+    shapes += [(ft.hann_window(1 << e, device=dev), (1 << e, 1 << e - 1, 1 << e, False))
+               for e in range(7, 15)]
+    for w, args in shapes:
+        want = composed(x.to(torch.complex128), w.double(), *args)
+        fns = {"kernel": lambda: cuda_welch.spec_c2c_split(re, im, w, *args),
+               "torch.fft": lambda: composed(x, w, *args)}
+        device = {"device kernel": (fns["kernel"], b22)}
+        err = rel_l2(torch.complex(*fns["kernel"]()), want)
+        if has_c64:
+            fns["kernel_c64"] = lambda: cuda_welch.spec_c2c_c64(x, w, *args)
+            device["device kernel_c64"] = (fns["kernel_c64"], b22)
+            err = max(err, rel_l2(fns["kernel_c64"](), want))
+        record("spec_c2c 2^22 nperseg {} hop {} nfft {} {}".format(*args), err, fns, device,
+               reps=20)
+    y = crand(1 << 22)
+    seg = {"nperseg": 4096, "noverlap": 2048}
+    spec = lambda: ft.spectrogram(x, mode="complex", **seg)[2]  # noqa: E731
+    cs = lambda: ft.csd(x, y, **seg)[1]  # noqa: E731
+    want = composed(x.to(torch.complex128), tukey.double(), 4096, 2048, 4096,
+                    "constant").transpose(-1, -2)
+    norm = 1.0 / float((tukey.double() ** 2).sum())
+    record("spectrogram 2^22 complex64 mode complex", rel_l2(spec(), want * norm ** 0.5),
+           {"spectrogram": spec}, {"device all": (spec, every), "device kernel": (spec, b22)},
+           reps=20)
+    hann = ft.hann_window(4096, device=dev)
+    X = composed(x.to(torch.complex128), hann.double(), 4096, 2048, 4096, "constant")
+    Y = composed(y.to(torch.complex128), hann.double(), 4096, 2048, 4096, "constant")
+    want = (X.conj() * Y).mean(-2) / float((hann.double() ** 2).sum())
+    record("csd 2^22 complex64", rel_l2(cs(), want), {"csd": cs},
+           {"device all": (cs, every), "device kernel": (cs, b22)}, reps=20)
 
 
 def randn_complex(dev, gen):

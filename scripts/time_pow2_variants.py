@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time launch-bound and cluster-size variants of the pow2 kernels of the
 torch port (rows_fft, B1; big_fft, B15; ax0_fft, B2/B3; fft2f_fft, B5;
-spec_fft, B20) on one CUDA card, each beside the kernel as it is.
+spec_fft, B20; filt_fft's filtered rows, B9; spec_c2c_fft, B22) on one CUDA
+card, each beside the kernel as it is.
 
     python3 scripts/time_pow2_variants.py
-        [--lib rows_fft|big_fft|ax0_fft|fft2f_fft|spec_fft] [--out FILE]
+        [--lib rows_fft|big_fft|ax0_fft|fft2f_fft|spec_fft|filt_fft|spec_c2c_fft]
+        [--out FILE]
 
 Variants: rows_fft with every launch bound at 64 registers (1024 threads an
 SM; the kernel keeps 80 for blocks of 128 and 256 threads); big_fft with
@@ -23,14 +25,22 @@ columns above), and with 4 columns of 4096 points a block in both layouts
 points a block in 512 threads, two an SM (the kernel: 4096 in 256, four
 an SM), and with the launch bound at 128 registers (the kernel: 64);
 spec_fft with blocks of at least 256 threads (the kernel: 128) and with
-six blocks of 128 threads an SM, 85 registers (the kernel: eight, 64).
+six blocks of 128 threads an SM, 85 registers (the kernel: eight, 64);
+filt_fft's filtered rows, through the complex64 entry, with the filter read
+as two planes (the kernel: one interleaved complex64 row), with
+RowsShape's launch bounds (the kernel: 64 registers at n = 4096, where
+RowsShape asks 80), and with the product staged in the row's shared
+buffer before the first pass (the kernel: formed in its loads);
+spec_c2c_fft with blocks of at least 256
+threads (the kernel: 128) and with RowsShape's launch bounds, up to 80
+registers (the kernel: 64).
 Each variant is
 the kernel's source with a line or two rewritten, compiled with the port's
 nvcc flags into ``fft_wgpu_tpu_torch/_build/variants/`` (all at once),
 called through its complex64 entry point (ax0_fft and fft2f_fft: and the
 planar one), checked against torch.fft (relative L2 <= 1e-5) and timed by
 its kernel's device time from a torch.profiler window of 20
-calls.  The card's name and power limit (nvidia-smi) head the output; one
+calls, two rounds in turns (the mean of the two).  The card's name and power limit (nvidia-smi) head the output; one
 JSON line ends it and, with ``--out``, is appended to FILE.
 """
 
@@ -121,6 +131,51 @@ VARIANTS.update({
         SPEC_BOUND, "  static constexpr int kMinBlocks = kBlock <= 128 ? 6 : kBlock == 256 ? 3 : "
                     "1024 / kBlock;\n"),
 })
+FILT_H = "    const float2 w = __ldg(&h[k]);\n"
+FILT_N = "  const float2* h;\n  int n_in;\n"
+FILT_SRC = "      return C64ProductIn{g.in + line() * g.n_in, g.h, g.n_in};\n"
+FILT_BOUND = "  static constexpr int kMinBlocks = LOG2N == 12 ? 4 : RowsShape<LOG2N>::kMinBlocks;\n"
+C2C_ROWS = "  static constexpr int kRows = kThreads >= 128 ? 1 : 128 / kThreads;\n"
+C2C_BOUND = "  static constexpr int kMinBlocks = 1024 / kBlock;  // 64 registers\n"
+VARIANTS.update({
+    ("filt_fft", "kernel"): None,
+    # h is the filter's two planes one after the other, [hr | hi], 2n floats
+    ("filt_fft", "planar h"): (
+        (FILT_N, FILT_N + "  int n;\n"),
+        (FILT_H, "    const float* p = reinterpret_cast<const float*>(h);\n"
+                 "    const float2 w = make_float2(__ldg(p + k), __ldg(p + n + k));\n"),
+        (FILT_SRC, FILT_SRC.replace("g.n_in};", "g.n_in, N};"))),
+    ("filt_fft", "RowsShape's bound"): (
+        FILT_BOUND, "  static constexpr int kMinBlocks = RowsShape<LOG2N>::kMinBlocks;\n"),
+    # the product staged in the row's shared buffer before the first pass
+    ("filt_fft", "staged product"): (
+        ("  __device__ __forceinline__ auto src() const {\n    if constexpr (C64) {\n"
+         "      return C64ProductIn",
+         "  __device__ __forceinline__ PadShared src() const { return shared(); }\n"
+         "  __device__ __forceinline__ auto product() const {\n    if constexpr (C64) {\n"
+         "      return C64ProductIn"),
+        ("  plan_fft<SIGN, LOG2N>(FiltRow<LOG2N, C64>{g}, g.tw);\n",
+         "  const FiltRow<LOG2N, C64> row{g};\n  const auto in = row.product();\n"
+         "  const PadShared z = row.shared();\n#pragma unroll 4\n"
+         "  for (int k = threadIdx.x; k < (1 << LOG2N); k += blockDim.x) {\n"
+         "    float a, b;\n    in.load(k, a, b);\n    z.store(k, a, b);\n  }\n"
+         "  __syncthreads();\n  plan_fft<SIGN, LOG2N>(row, g.tw);\n")),
+    ("spec_c2c_fft", "kernel"): None,
+    ("spec_c2c_fft", "256 threads a block"): (C2C_ROWS, C2C_ROWS.replace("128", "256")),
+    ("spec_c2c_fft", "RowsShape's bound"): (
+        C2C_BOUND, "  static constexpr int kMinBlocks = kBlock <= 128 ? 6 : kBlock == 256 ? 3 : "
+                   "1024 / kBlock;\n"),
+})
+# (rows, n, n_in) of filt_fft's shapes: SpectralFilter's 4096^2, hilbert's
+# half spectrum, and 1000 rows at the ends and middle of the envelope
+FILT_SHAPES = ((4096, 4096, 4096), (4096, 4096, 2049), (1000, 128, 128), (1000, 1024, 1024),
+               (1000, 16384, 16384))
+# (t, nperseg, hop, nfft, detrend) of spec_c2c_fft's shapes: the complex
+# spectrogram's 2^22 (with and without its detrend), half overlap at 128,
+# 512 and 16384
+C2C_SHAPES = ((1 << 22, 4096, 2048, 4096, "constant"), (1 << 22, 4096, 2048, 4096, False),
+              (1 << 22, 128, 64, 128, False),
+              (1 << 22, 512, 256, 512, False), (1 << 22, 16384, 8192, 16384, False))
 # (t, nperseg, hop, nfft, detrend) of spec_fft's shapes: the complex
 # spectrogram's 2^22, half overlap at 512 and 16384, stft's 2^20 (centred)
 SPEC_SHAPES = ((1 << 22, 4096, 2048, 4096, "constant"), (1 << 22, 512, 256, 512, False),
@@ -169,7 +224,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="append the JSON line here")
     ap.add_argument("--lib", default=None,
-                    choices=("rows_fft", "big_fft", "ax0_fft", "fft2f_fft", "spec_fft"),
+                    choices=("rows_fft", "big_fft", "ax0_fft", "fft2f_fft", "spec_fft",
+                             "filt_fft", "spec_c2c_fft"),
                     help="only this kernel's variants")
     args = ap.parse_args()
     if args.lib:
@@ -195,7 +251,9 @@ def main() -> int:
                       "big_fft": [P, P, P, LL, I, I, I, F, P],
                       "ax0_fft": [P, P, P, P, LL, LL, I, I, I, F, P],
                       "fft2f_fft": [P, P, P, P, LL, I, I, I, I, F, P],
-                      "spec_fft": [P, P, P, P, P, LL, LL] + [I] * 7 + [F, P]}[lib_name]
+                      "spec_fft": [P, P, P, P, P, LL, LL] + [I] * 7 + [F, P],
+                      "filt_fft": [P] * 4 + [LL, I, I, I, F, P],
+                      "spec_c2c_fft": [P] * 6 + [LL, LL] + [I] * 5 + [F, P]}[lib_name]
         f.restype = I
         fns[lib_name, name] = f
         if lib_name in ("ax0_fft", "fft2f_fft"):
@@ -210,12 +268,18 @@ def main() -> int:
     result = {"device": smi, "times": {}}
 
     def run(key, x, want, calls, kernel):
+        # each variant's device ms in two rounds in turns (forward, then
+        # reverse order), the mean of the two
         result["times"][key] = {}
         for name, call in calls.items():
             err = rel_l2(call(), want)
             if err > TOL:
                 raise RuntimeError(f"{name} at {key}: rel-L2 {err:.3e} > {TOL}")
-            result["times"][key][name] = device_ms(call, kernel)
+        samples = {name: [] for name in calls}
+        for order in (list(calls), list(calls)[::-1]):
+            for name in order:
+                samples[name].append(device_ms(calls[name], kernel))
+        result["times"][key] = {name: sum(v) / len(v) for name, v in samples.items()}
         print(f"{key} | " + ", ".join(f"{k} {v:.4f} ms"
                                       for k, v in result["times"][key].items()), flush=True)
 
@@ -361,6 +425,59 @@ def main() -> int:
             {name: spec_call(name, f, x, w, out, shape) for (lb, name), f in fns.items()
              if lb == "spec_fft"}, "spec_fft_kernel")
         del x, out
+    def filt_call(name, f, x, h, hp, out, n):
+        tw = cuda_fft._twiddle_table(n, 1, dev, cuda_fft._pass_roots_np)
+        h = hp if name == "planar h" else h
+
+        def call():
+            err = f(x.data_ptr(), h.data_ptr(), out.data_ptr(), tw.data_ptr(), x.shape[0],
+                    n.bit_length() - 1, x.shape[-1], 1, 1.0 / n, stream)
+            if err:
+                raise RuntimeError(f"filt_fft variant {name!r}: CUDA error {err}")
+            return out
+        return call
+
+    for rows, n, n_in in FILT_SHAPES if ("filt_fft", "kernel") in VARIANTS else ():
+        x = torch.complex(torch.randn(rows, n_in, device=dev, generator=gen),
+                          torch.randn(rows, n_in, device=dev, generator=gen))
+        H = torch.complex(torch.randn(n, device=dev, generator=gen),
+                          torch.randn(n, device=dev, generator=gen))
+        hp = torch.cat([H.real, H.imag])  # [hr | hi]
+        out = torch.empty(rows, n, dtype=torch.complex64, device=dev)
+        want = torch.fft.ifft(torch.nn.functional.pad(x, (0, n - n_in)) * H)
+        run(f"filt_fft {rows}x{n} n_in={n_in}", x, want,
+            {name: filt_call(name, f, x, H, hp, out, n) for (lb, name), f in fns.items()
+             if lb == "filt_fft"}, "filt_fft_kernel")
+        del x, out
+
+    def c2c_call(name, f, z, w, out, shape):
+        t, nperseg, hop, nfft, detrend = shape
+        num = 1 + (t - nperseg) // hop
+        tw = cuda_fft._twiddle_table(nfft, -1, dev, cuda_fft._pass_roots_np)
+
+        def call():
+            err = f(z.data_ptr(), None, None, w.data_ptr(), out.data_ptr(), tw.data_ptr(), 1, t,
+                    nperseg, hop, num, nfft.bit_length() - 1, int(detrend == "constant"), 1.0,
+                    stream)
+            if err:
+                raise RuntimeError(f"spec_c2c_fft variant {name!r}: CUDA error {err}")
+            return out
+        return call
+
+    for shape in C2C_SHAPES if ("spec_c2c_fft", "kernel") in VARIANTS else ():
+        t, nperseg, hop, nfft, detrend = shape
+        z = torch.complex(torch.randn(t, device=dev, generator=gen),
+                          torch.randn(t, device=dev, generator=gen))
+        w = torch.hann_window(nperseg, device=dev)
+        fr = z.to(torch.complex128).unfold(-1, nperseg, hop)
+        if detrend == "constant":
+            fr = fr - fr.mean(-1, keepdim=True)
+        want = torch.fft.fft(fr * w.double(), n=nfft)
+        out = torch.empty(want.shape, dtype=torch.complex64, device=dev)
+        run("spec_c2c_fft t={} nperseg={} hop={} nfft={} {}".format(*shape), z, want,
+            {name: c2c_call(name, f, z, w, out, shape) for (lb, name), f in fns.items()
+             if lb == "spec_c2c_fft"}, "spec_c2c_kernel")
+        del z, out
     line = json.dumps(result)
     if args.out:
         with open(args.out, "a") as f:

@@ -202,9 +202,10 @@ def test_chirp_inverse_grad_matches_jax(n_out, rng, assert_close):
 @pytest.mark.parametrize("m", [1 << e for e in range(6, 15)])
 def test_chirp_plans_are_pow2_radices(m):
     # the pow2 kernels' passes (chirp_fft, rows_fft, big_fft's blocks,
-    # ax0_fft's columns, r2c_fft's half-length rows from m = 64): radices 16
-    # and 8 with product m, and the one plan table compiled into
-    # csrc/mixed_fft.cuh, which they all include, is the planner's
+    # ax0_fft's columns, r2c_fft's half-length rows from m = 64, filt_fft's
+    # filtered rows, spec_c2c_fft's segments): radices 16 and 8 with product
+    # m, and the one plan table compiled into csrc/mixed_fft.cuh, which they
+    # all include, is the planner's
     plan = cuda_fft._mixed_radix_plan(m)
     assert math.prod(plan) == m and set(plan) <= {16, 8}
     csrc = pathlib.Path(cuda_fft.__file__).parent.parent / "csrc"
@@ -212,9 +213,12 @@ def test_chirp_plans_are_pow2_radices(m):
     table = re.search(r"plans\[9\]\[kPlanMax\] = \{(.*?)\};", src, re.S)[1]
     compiled = [tuple(map(int, r.split(","))) for r in re.findall(r"\{([\d, ]+)\}", table)]
     assert len(compiled) == 9 and compiled[m.bit_length() - 7] == plan
-    for name in ("chirp_fft.cu", "rows_fft.cu", "big_fft.cu", "r2c_fft.cu", "ax0_fft.cu"):
+    for name in ("chirp_fft.cu", "rows_fft.cu", "big_fft.cu", "r2c_fft.cu", "ax0_fft.cu",
+                 "filt_fft.cu", "spec_c2c_fft.cu"):
         text = (csrc / name).read_text()
         assert '#include "mixed_fft.cuh"' in text and "plans[" not in text, name
+    for name in ("filt_fft.cu", "spec_c2c_fft.cu"):  # the two kernels of the compiled plan
+        assert "plan_fft<" in (csrc / name).read_text(), name
     # each pass's twiddle table: NS roots of w_(NS*R) for every pass after the
     # first, in the plan's order and in reverse
     for table_fn, order in ((cuda_fft._pass_roots_np, plan),

@@ -384,7 +384,9 @@ def _counts():
             "ax0_gen": cuda_fft.ax0_gen_launches, "welch": cuda_welch.welch_launches,
             "psd": cuda_welch.psd_launches, "csd": cuda_welch.csd_launches,
             "coh": cuda_welch.coh_launches, "c2c": cuda_welch.c2c_launches,
-            "spec": cuda_welch.spec_launches, "spec_c2c": cuda_welch.spec_c2c_launches}
+            "spec": cuda_welch.spec_launches, "spec_c2c": cuda_welch.spec_c2c_launches,
+            "filt_c64": cuda_fft.filt_c64_launches,
+            "spec_c2c_c64": cuda_welch.spec_c2c_c64_launches}
 
 
 def _through(fn, **want):
@@ -884,13 +886,13 @@ def test_grad_fused_kernels_match_plain(dev, entry):
 def test_fused_epilogue_routes(dev):
     x, H = crand(dev, 64, 4096, seed=1), crand(dev, 4096, seed=2)
     sf = ft.SpectralFilter(H)
-    y = _through(lambda: sf(x), rows_fft=1, filt=1)
+    y = _through(lambda: sf(x), rows_fft=1, filt=1, filt_c64=1)
     assert y.device.type == "cuda" and rel_l2(y, torch.fft.ifft(torch.fft.fft(x) * H)) < TOL
     xc = crand(dev, 16, 1000, seed=3)  # composite n: the plan, B13 both ways
     y = _through(lambda: ft.SpectralFilter(H[:1000])(xc), gen_fft=2)
     assert rel_l2(y, torch.fft.ifft(torch.fft.fft(xc) * H[:1000])) < TOL
     r = rrand(dev, 64, 4096)
-    z = _through(lambda: ft.hilbert(r), rows_fft=1, filt=1)
+    z = _through(lambda: ft.hilbert(r), r2c_fft=1, filt=1, filt_c64=1)
     assert rel_l2(z.cpu(), ft.hilbert(r.cpu())) < TOL
     a, b = rrand(dev, 16, 4096, seed=4), rrand(dev, 16, 4096, seed=5)
     c = _through(lambda: ft.fftconvolve(a, b, axes=-1), r2c_fft=2, c2r_prod=1)
@@ -938,7 +940,7 @@ def test_tf32_setting_is_restored(dev):
 
 
 def _every_kernel(dev):
-    """One small call of each C entry point of the thirteen libraries."""
+    """One small call of each C entry point of the fifteen libraries."""
     from fft_wgpu_tpu_torch.ops import bluestein
 
     def planar(*shape):
@@ -980,6 +982,10 @@ def _every_kernel(dev):
         "c2c": lambda: cuda_welch.welch_accum_c2c_split(s, s, w, 256, 128, 256, "constant"),
         "spec": lambda: cuda_welch.spec_rfft_split(s, w, 256, 128, 256, "constant", roll_s=3),
         "spec_c2c": lambda: cuda_welch.spec_c2c_split(s, s, w, 256, 128, 256, "constant"),
+        "filt c64": lambda: cuda_fft._filt_launch_c64(torch.complex(re, im),
+                                                      torch.complex(hr, hi), -1, None),
+        "spec_c2c c64": lambda: cuda_welch.spec_c2c_c64(torch.complex(s, s), w, 256, 128, 256,
+                                                        "constant"),
     }
 
 
@@ -1185,14 +1191,14 @@ def test_spectral_estimator_routes(dev):
          {"spec": 1}),
         ("spectrogram two-sided",
          lambda v, u: ft.spectrogram(v, nperseg=1024, return_onesided=False)[2],
-         {"spec_c2c": 1}),
+         {"spec_c2c": 1, "spec_c2c_c64": 1}),
         ("welch linear", lambda v, u: ft.welch(v, nperseg=1024, detrend="linear")[1],
          {"r2c_fft": 1}),
         ("multitaper", lambda v, u: ft.multitaper(v[0, :16384], NW=4.0)[1], {"r2c_fft": 1}),
         ("welch two-sided", lambda v, u: ft.welch(v, nperseg=1024, return_onesided=False)[1],
          {"c2c": 1}),
         ("csd two-sided", lambda v, u: ft.csd(v, u, nperseg=1024, return_onesided=False)[1],
-         {"spec_c2c": 2}),
+         {"spec_c2c": 2, "spec_c2c_c64": 2}),
         ("csd unequal shapes", lambda v, u: ft.csd(v, u[0], nperseg=1024)[1], {"spec": 2}),
     ]
     for what, call, want in calls:
@@ -1203,10 +1209,12 @@ def test_spectral_estimator_routes(dev):
     assert rel_l2(got.cpu(), ft.welch(xc.cpu(), nperseg=4096)[1]) < TOL
     for what, call, want in (  # complex input: B22
             ("complex spectrogram", lambda v: ft.spectrogram(v, nperseg=1024, mode="complex")[2],
-             {"spec_c2c": 1}),
-            ("complex csd", lambda v: ft.csd(v, v * 2, nperseg=1024)[1], {"spec_c2c": 2}),
+             {"spec_c2c": 1, "spec_c2c_c64": 1}),
+            ("complex csd", lambda v: ft.csd(v, v * 2, nperseg=1024)[1],
+             {"spec_c2c": 2, "spec_c2c_c64": 2}),
             ("complex welch median",
-             lambda v: ft.welch(v, nperseg=1024, average="median")[1], {"spec_c2c": 1})):
+             lambda v: ft.welch(v, nperseg=1024, average="median")[1],
+             {"spec_c2c": 1, "spec_c2c_c64": 1})):
         got = _through(lambda: call(xc), **want)
         assert rel_l2(got.cpu(), call(xc.cpu())) < TOL, what
     f, P = ft.welch(x.cpu().numpy()[0], nperseg=1024)  # numpy input: the current card
@@ -1265,8 +1273,9 @@ def test_segment_spectra_never_compose_on_the_card(dev, monkeypatch):
     for call, want in ((lambda: ft.stft(x, 512, 128), {"spec": 1}),
                        (lambda: S.stft(x), {"spec": 1}),
                        (lambda: ft.spectrogram(x, nperseg=1024, mode="complex"), {"spec": 1}),
-                       (lambda: ft.spectrogram(xc, nperseg=1024), {"spec_c2c": 1}),
-                       (lambda: ft.csd(xc, x, nperseg=1024), {"spec_c2c": 2})):
+                       (lambda: ft.spectrogram(xc, nperseg=1024),
+                        {"spec_c2c": 1, "spec_c2c_c64": 1}),
+                       (lambda: ft.csd(xc, x, nperseg=1024), {"spec_c2c": 2, "spec_c2c_c64": 2})):
         _through(call, **want)
 
 
@@ -1570,7 +1579,7 @@ def test_fused_and_spec_plans_are_the_planner_s(dev):
     import pathlib
 
     csrc = pathlib.Path(cuda_fft.__file__).parent.parent / "csrc"
-    for name in ("fft2f_fft.cu", "spec_fft.cu"):
+    for name in ("fft2f_fft.cu", "spec_fft.cu", "spec_c2c_fft.cu"):
         text = (csrc / name).read_text()
         assert '#include "mixed_fft.cuh"' in text, name
         assert "plan_fft<" in text and "fft_passes" not in text and "plans[" not in text, name
@@ -1579,3 +1588,161 @@ def test_fused_and_spec_plans_are_the_planner_s(dev):
             tab = cuda_fft._twiddle_table(n, -1, dev, cuda_fft._pass_roots_np)
             assert tab.shape[0] == sum(math.prod(cuda_fft._mixed_radix_plan(n)[:i])
                                        for i in range(1, len(cuda_fft._mixed_radix_plan(n))))
+
+
+# ---------------------------------------------------------------------- #
+# B9 (filt_fft's filtered rows) and B22 (spec_c2c_fft) on the compiled pow2
+# passes: both layouts, sources and sinks, and the routes through their
+# complex64 entries
+# ---------------------------------------------------------------------- #
+def _new_c64_counts():
+    return cuda_fft.filt_c64_launches, cuda_welch.spec_c2c_c64_launches
+
+
+@pytest.mark.parametrize("n", POW2)
+@pytest.mark.parametrize("rows", [(1,), (2, 37)])
+def test_filt_c64_kernel_matches_plain(dev, n, rows):
+    # the complex64 entry, rows of n and of n/2 + 1 points (zero past them),
+    # against the plain version of its own passes and float64 torch.fft,
+    # both signs, scale None and 1/n, and in place
+    h = crand(dev, n, seed=2)
+    for n_in in (n, n // 2 + 1):
+        x = crand(dev, *rows, n_in, seed=1)
+        xp = torch.nn.functional.pad(x.to(torch.complex128), (0, n - n_in)) * h
+        for sign, scale in ((-1, None), (1, 1.0 / n)):
+            before = _new_c64_counts()
+            k = _through(lambda: cuda_fft.fft_filtered_c64(x, h, sign, scale), filt=1,
+                         filt_c64=1)
+            assert _new_c64_counts()[0] == before[0] + 1
+            o = torch.fft.fft(xp) if sign < 0 else torch.fft.ifft(xp, norm="forward")
+            o = o * (1.0 if scale is None else scale)
+            assert k.dtype == torch.complex64 and k.shape == (*rows, n)
+            assert rel_l2(k, cuda_fft._filt_passes(x, h, sign, scale)) < TOL, (n_in, sign)
+            assert rel_l2(k, o) < TOL, (n_in, sign)
+            assert rel_l2(k, cuda_fft.fft_filtered_c64_reference(x, h, sign, scale)) < TOL
+    y = crand(dev, *rows, n, seed=3)
+    want = cuda_fft._filt_passes(y, h, 1, 1.0 / n)
+    assert cuda_fft._filt_launch_c64(y, h, 1, 1.0 / n, out=y) is y
+    assert rel_l2(y, want) < TOL
+
+
+@pytest.mark.parametrize("n_in", [2048, 1025])
+def test_grad_filt_c64_matches_plain(dev, n_in):
+    # forward: the filtered kernel's complex64 entry; backward: the row
+    # kernel's complex64 entry, sign flipped, cut to the first n_in points
+    n = 2048
+    h = crand(dev, n, seed=3)
+    x0 = crand(dev, 8, n_in, seed=4)
+
+    def grad(v, fn):
+        v = v.clone().requires_grad_()
+        y = fn(v, h.to(v.device), 1, 1.0 / n)
+        (torch.linspace(0.5, 1.5, y.numel(), device=v.device).reshape(y.shape)
+         * y.abs() ** 2).sum().backward()
+        return v.grad
+
+    gk = _through(lambda: grad(x0, cuda_fft.fft_filtered_c64), filt=1, filt_c64=1, rows_fft=1)
+    assert rel_l2(gk, grad(x0, cuda_fft.fft_filtered_c64_reference)) < TOL
+    assert rel_l2(gk.cpu(), grad(x0.cpu(), cuda_fft.fft_filtered_c64)) < TOL
+
+
+@pytest.mark.parametrize("nfft", POW2)
+def test_spec_c2c_kernel_sources_and_sinks_match_plain(dev, nfft):
+    # B22 from the complex64 signal, from two planes and from one real
+    # plane, into planes and into complex64, against the plain version of
+    # its own passes and float64 torch.fft: odd nperseg, a ragged last group
+    # of segments, both detrends, the scale; a second run gives the same bits
+    for nperseg in (nfft, nfft - nfft // 4 + 1):
+        hop = max(nperseg // 4, 1)
+        t = nperseg + 37 * hop + hop // 3
+        z = crand(dev, 2, t, seed=nperseg)
+        re, im = z.real.contiguous(), z.imag.contiguous()
+        w = torch.hann_window(nperseg, device=dev) + 0.1
+        for detrend in (False, "constant"):
+            args = (w, nperseg, hop, nfft, detrend)
+            for src, x, y in (("c64", z, None), ("planes", re, im), ("real", re, None)):
+                imag = torch.zeros_like(re) if src == "real" else im
+                want = torch.complex(*_welch_oracle("spec_c2c", re, imag, *args))
+                plain = cuda_welch._spec_c2c_passes(x, y, *args, scale=0.5)
+                before = _new_c64_counts()
+                k = _through(lambda: cuda_welch.spec_c2c_c64(x, *args, scale=0.5, im=y),
+                             spec_c2c=1, spec_c2c_c64=1)
+                assert _new_c64_counts()[1] == before[1] + 1
+                assert k.dtype == torch.complex64 and k.shape == want.shape
+                assert rel_l2(k, plain) < TOL and rel_l2(k, want * 0.5) < TOL, (src, nperseg)
+                again = cuda_welch.spec_c2c_c64(x, *args, scale=0.5, im=y)
+                assert torch.equal(k, again), (src, nperseg)
+                kp = torch.complex(*cuda_welch._spec_c2c_launch(x, y, *args, False, 0.5))
+                assert rel_l2(kp, plain) < TOL, (src, "planar sink")
+            kp = torch.complex(*_through(lambda: cuda_welch.spec_c2c_split(re, im, *args),
+                                         spec_c2c=1))
+            assert rel_l2(kp, cuda_welch._spec_c2c_passes(re, im, *args)) < TOL
+
+
+def test_grad_spec_c2c_c64_matches_plain(dev):
+    # forward: B22's complex64 sink; backward: the row kernel's complex64
+    # entry on the frames; a complex64 signal and a real one taken two-sided
+    w = torch.hann_window(512, device=dev)
+    for x0 in (crand(dev, 3, 5000, seed=13), rrand(dev, 3, 5000, seed=14)):
+        def grad(v):
+            v = v.clone().requires_grad_()
+            y = cuda_welch.spec_c2c_c64(v, w.to(v.device), 512, 200, 1024, "constant", scale=0.3)
+            (torch.linspace(0.5, 1.5, y.numel(), device=v.device).reshape(y.shape)
+             * y.abs() ** 2).sum().backward()
+            return v.grad
+
+        gk = _through(lambda: grad(x0), spec_c2c=1, spec_c2c_c64=1, rows_fft=2)
+        assert rel_l2(gk.cpu(), grad(x0.cpu())) < TOL
+
+
+def test_filter_hilbert_and_complex_spectrogram_are_their_kernels_alone(dev):
+    # SpectralFilter of complex64 4096 x 4096: the row kernel's complex64
+    # entry, then the filtered kernel's; hilbert of real 4096 x 4096: the
+    # R2C kernel's complex64 sink, then the filtered kernel's complex64
+    # entry on its n/2 + 1 bins; spectrogram(mode="complex") of a complex64
+    # 2^22 signal: B22's complex64 sink once, beside the one copy of the
+    # cached (f, t) grid that it returns as fresh tensors.  Nothing else on
+    # the device (no split, no merge, no zero plane) over ten calls, from
+    # the profiler
+    x, H = crand(dev, 4096, 4096, seed=1), crand(dev, 4096, seed=2)
+    r = rrand(dev, 4096, 4096, seed=3)
+    xc = crand(dev, 1 << 22, seed=4)
+    sf = ft.SpectralFilter(H)
+    seg = {"nperseg": 4096, "noverlap": 2048}
+    for what, fn, kernels, want in (
+            ("SpectralFilter", lambda: sf(x), {"rows_fft_kernel", "filt_fft_kernel"},
+             {"rows_fft": 1, "filt": 1, "filt_c64": 1}),
+            ("hilbert", lambda: ft.hilbert(r), {"r2c_fft_kernel", "filt_fft_kernel"},
+             {"r2c_fft": 1, "filt": 1, "filt_c64": 1}),
+            ("spectrogram", lambda: ft.spectrogram(xc, mode="complex", **seg)[2],
+             {"spec_c2c_kernel", "Memcpy DtoD"}, {"spec_c2c": 1, "spec_c2c_c64": 1})):
+        names = _device_kernels(fn, calls=10)
+        parts = {next((k for k in kernels if k in name), name) for name in names}
+        assert parts == kernels, (what, names)
+        _through(lambda: [fn() for _ in range(10)], **{k: 10 * v for k, v in want.items()})
+    y = sf(x)
+    assert y.dtype == torch.complex64
+    assert rel_l2(y, torch.fft.ifft(torch.fft.fft(x.to(torch.complex128)) * H)) < TOL
+    hw = torch.zeros(4096, device=dev, dtype=torch.float64)
+    hw[0] = hw[2048] = 1.0
+    hw[1:2048] = 2.0
+    assert rel_l2(ft.hilbert(r), torch.fft.ifft(torch.fft.fft(r.double()) * hw)) < TOL
+    S = ft.spectrogram(xc, mode="complex", **seg)[2]
+    assert S.dtype == torch.complex64 and rel_l2(
+        S[:, :64].cpu(), ft.spectrogram(xc[:64 * 2048 + 2048].cpu(), mode="complex",
+                                        **seg)[2]) < TOL
+
+
+def test_bank_and_rows_keep_their_bits(dev):
+    # B10 (bank, on stockham.cuh) and B1 (rows_fft) compute the bits of the
+    # kernels they were before B9 left their library and their row types
+    # moved into mixed_fft.cuh (chip_smoke.KEPT_BITS, recorded from them)
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    got = chip_smoke.kept_bits(cuda_fft, cuda_welch, dev)
+    assert got == chip_smoke.KEPT_BITS, {k: (got[k], chip_smoke.KEPT_BITS.get(k))
+                                         for k in got if got[k] != chip_smoke.KEPT_BITS.get(k)}

@@ -1,6 +1,8 @@
 """Torch port, the fused-epilogue kernels' entry points on the CPU: the
 composite axis(-2) FFT (B2's composite range, ``fft_axis0_split``, and
-B3's through it), the filtered FFT (B9, ``fft_filtered_split``), the
+B3's through it), the filtered FFT (B9, ``fft_filtered_split`` and its
+complex64 entry ``fft_filtered_c64``, with the plain version of its
+kernel's passes, ``_filt_passes``), the
 filter-bank FFT (B10, ``fft_bank_split``) and the product C2R (B8,
 ``irfft_prod_rows_split``, with ``rfft.irfft_prod_last_split`` around it).
 
@@ -47,8 +49,8 @@ def _t(x):
 
 
 def assert_no_launches():
-    assert (cuda_fft.ax0_gen_launches, cuda_fft.filt_launches, cuda_fft.bank_launches,
-            cuda_fft.c2r_prod_launches) == (0, 0, 0, 0)
+    assert (cuda_fft.ax0_gen_launches, cuda_fft.filt_launches, cuda_fft.filt_c64_launches,
+            cuda_fft.bank_launches, cuda_fft.c2r_prod_launches) == (0, 0, 0, 0, 0)
 
 
 # ---------------------------------------------------------------------- #
@@ -168,6 +170,71 @@ def test_grad_filtered_and_bank_match_jax(entry, rng, assert_close):
     yr, yi = t_fn(tre, tim, hr, hi, 1, 1.0 / n)
     (_t(w) * (yr * yr + yi * yi)).sum().backward()
     assert_close(tre.grad.numpy() + 1j * tim.grad.numpy(), cplx(jg))
+
+
+# the complex64 entry: rows of n points, and of n_in = n/2 + 1 (zero past
+# them: hilbert's half spectrum), against the JAX kernel on the zero-padded
+# rows, values and gradients
+@pytest.mark.parametrize("n", [128, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("half", [False, True], ids=["n_in=n", "n_in=n/2+1"])
+def test_filtered_c64_matches_jax_kernel(n, half, rng, assert_close):
+    n_in = n // 2 + 1 if half else n
+    re, im = planes(rng, 3, n_in)
+    hr, hi = planes(rng, n)
+    pad = [(0, 0), (0, n - n_in)]
+    x = _t(re + 1j * im)
+    for sign, scale in ((-1, None), (1, 1.0 / n), (-1, 1.0 / n), (1, None)):
+        want = cplx(j_pf._fft_filtered_core(np.pad(re, pad), np.pad(im, pad), hr, hi, sign,
+                                            scale, interpret=True))
+        got = cuda_fft.fft_filtered_c64(x, _t(hr + 1j * hi), sign, scale, n_in=n_in)
+        assert got.dtype == torch.complex64 and got.shape == (3, n)
+        assert_close(got.numpy(), want, what=f"sign={sign} scale={scale}")
+        passes = cuda_fft._filt_passes(x, _t(hr + 1j * hi).to(torch.complex64), sign, scale)
+        assert_close(passes.numpy(), want, what=f"the kernel's passes sign={sign}")
+        ref = cuda_fft.fft_filtered_c64_reference(x, hr + 1j * hi, sign, scale)
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert_no_launches()
+
+
+@pytest.mark.parametrize("half", [False, True], ids=["n_in=n", "n_in=n/2+1"])
+def test_grad_filtered_c64_matches_jax(half, rng, assert_close):
+    n = 256
+    n_in = n // 2 + 1 if half else n
+    re, im = planes(rng, 3, n_in)
+    hr, hi = planes(rng, n)
+    w = rng.random((3, n)).astype(np.float32)
+    pad = [(0, 0), (0, n - n_in)]
+
+    def jloss(a, b):
+        yr, yi = j_pf.fft_filtered_split(jnp.pad(a, pad), jnp.pad(b, pad), hr, hi, 1, 1.0 / n,
+                                         interpret=True)
+        return jnp.sum(w * (yr * yr + yi * yi))
+
+    jg = jax.grad(jloss, argnums=(0, 1))(re, im)
+    x = _t(re + 1j * im).requires_grad_()
+    y = cuda_fft.fft_filtered_c64(x, hr + 1j * hi, 1, 1.0 / n)
+    (_t(w) * y.abs() ** 2).sum().backward()
+    assert_close(x.grad.numpy(), cplx(jg))
+    assert_no_launches()
+
+
+def test_filtered_c64_envelope_raises():
+    h = np.zeros(256, np.complex64)
+    for fn in (cuda_fft.fft_filtered_c64, cuda_fft.fft_filtered_c64_reference):
+        with pytest.raises(cuda_fft.Unsupported):  # n_in > n
+            fn(torch.zeros(2, 257, dtype=torch.complex64), h, -1)
+        with pytest.raises(cuda_fft.Unsupported):  # n outside the envelope
+            fn(torch.zeros(2, 64, dtype=torch.complex64), h[:64], -1)
+        with pytest.raises(ValueError, match="complex64"):
+            fn(torch.zeros(2, 256), h, -1)
+        with pytest.raises(ValueError, match="n_in"):
+            fn(torch.zeros(2, 129, dtype=torch.complex64), h, -1, n_in=128)
+        with pytest.raises(cuda_fft.Unsupported):  # one row of the filter only
+            fn(torch.zeros(2, 256, dtype=torch.complex64), np.zeros((2, 256), np.complex64), -1)
+    with pytest.raises(ValueError, match="sign"):
+        cuda_fft.fft_filtered_c64(torch.zeros(2, 256, dtype=torch.complex64), h, 0)
+    e = torch.zeros(0, 129, dtype=torch.complex64)
+    assert cuda_fft.fft_filtered_c64(e, h, -1).shape == (0, 256)
 
 
 def test_filtered_and_bank_envelopes_raise():

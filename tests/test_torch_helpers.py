@@ -24,7 +24,7 @@ import fft_wgpu_tpu as ftt
 import fft_wgpu_tpu_torch as ft
 from fft_wgpu_tpu.ops import cwt as j_cwt
 from fft_wgpu_tpu.ops import helpers as j_helpers
-from fft_wgpu_tpu_torch.ops import cuda_fft, cwt, helpers
+from fft_wgpu_tpu_torch.ops import cuda_fft, cwt, fastconv, helpers
 
 torch.set_num_threads(1)
 
@@ -51,7 +51,34 @@ def rrand(rng, *shape):
 
 def assert_no_launches():
     assert (cuda_fft.launches, cuda_fft.r2c_launches, cuda_fft.filt_launches,
-            cuda_fft.bank_launches, cuda_fft.c2r_prod_launches) == (0, 0, 0, 0, 0)
+            cuda_fft.filt_c64_launches, cuda_fft.bank_launches,
+            cuda_fft.c2r_prod_launches) == (0, 0, 0, 0, 0, 0)
+
+
+def _card_route(monkeypatch, module, spied, refuse=True):
+    """Pretend CPU tensors lie on the card for ``module``'s route, refuse
+    any split, merge or plan there (unless not ``refuse``), and record the
+    cuda_fft entry points of ``spied`` it calls, in order."""
+    calls = []
+
+    def refused(name):
+        def fail(*a, **k):
+            raise AssertionError(f"the card route ran {name}")
+        return fail
+
+    monkeypatch.setattr(module, "_on_card", lambda t: True)
+    for name in ("merge", "promote_to_split", "get_plan") if refuse else ():
+        if hasattr(module, name):
+            monkeypatch.setattr(module, name, refused(name))
+    for name in spied:
+        fn = getattr(cuda_fft, name)
+
+        def spy(*a, _fn=fn, _name=name, **k):
+            calls.append((_name, tuple(a[0].shape), a[0].dtype, k.get("n_in")))
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(cuda_fft, name, spy)
+    return calls
 
 
 def test_exports_match_jax():
@@ -232,6 +259,27 @@ def test_hilbert_matches_jax(n, rng, assert_close):
     assert_no_launches()
 
 
+@pytest.mark.parametrize("n", [512, 256])
+def test_hilbert_card_route_matches_jax(n, rng, monkeypatch, assert_close):
+    """On the card, pow2 n: the R2C kernel's complex64 sink, then the
+    filtered kernel's complex64 entry on its n/2 + 1 bins with the
+    one-sided weights; no zero plane, no split, no merge.  Other n keeps
+    the plan's route."""
+    calls = _card_route(monkeypatch, helpers, ("rfft_rows_c64", "fft_filtered_c64"))
+    x = rrand(rng, 3, n)
+    got = ft.hilbert(_t(x))
+    assert got.dtype == torch.complex64 and got.shape == (3, n)
+    assert calls == [("rfft_rows_c64", (3, n), torch.float32, None),
+                     ("fft_filtered_c64", (3, n // 2 + 1), torch.complex64, None)]
+    assert_close(_np(got), np.asarray(ftt.hilbert(x)))
+    assert_close(_np(got), ss.hilbert(x))
+    calls.clear()
+    got = ft.hilbert(_t(x.T.copy()), axis=0)  # the axis moved to the back and back
+    assert_close(_np(got), ss.hilbert(x.T, axis=0))
+    assert [c[0] for c in calls] == ["rfft_rows_c64", "fft_filtered_c64"]
+    assert_no_launches()
+
+
 def test_hilbert2_matches_jax(rng, assert_close):
     x = rrand(rng, 2, 12, 9)
     assert_close(_np(ft.hilbert2(_t(x))), np.asarray(ftt.hilbert2(x)))
@@ -290,6 +338,43 @@ def test_spectral_filter_matches_jax(n, rng, assert_close):
     assert_no_launches()
 
 
+@pytest.mark.parametrize("n", [1024, 256])
+def test_spectral_filter_card_route_matches_jax(n, rng, monkeypatch, assert_close):
+    """On the card a complex64 input of pow2 n takes the row kernel's
+    complex64 entry, then the filtered kernel's: no split, no merge.
+    Planar input (a real tensor) keeps the planar entries."""
+    calls = _card_route(monkeypatch, fastconv, ("fft_batched_c64", "fft_filtered_c64",
+                                                "fft_filtered_split"))
+    x, H = crand(rng, 4, n), crand(rng, n)
+    got = ft.SpectralFilter(H)(_t(x))
+    assert got.dtype == torch.complex64 and got.shape == (4, n)
+    assert calls == [("fft_batched_c64", (4, n), torch.complex64, None),
+                     ("fft_filtered_c64", (4, n), torch.complex64, None)]
+    assert_close(_np(got), np.asarray(ftt.SpectralFilter(H)(x)))
+    assert_close(_np(got), np.fft.ifft(np.fft.fft(x) * H))
+    monkeypatch.undo()
+    calls = _card_route(monkeypatch, fastconv, ("fft_filtered_split",), refuse=False)
+    r = rrand(rng, 4, n)
+    got = ft.SpectralFilter(H)(_t(r))
+    assert [c[0] for c in calls] == ["fft_filtered_split"]
+    assert_close(_np(got), np.asarray(ftt.SpectralFilter(H)(r)))
+    assert_no_launches()
+
+
+def test_spectral_filter_complex_row_follows_its_buffers(rng):
+    # the complex64 route's row is made from hr and hi once, and again after
+    # either changes in place or moves
+    f = ft.SpectralFilter(crand(rng, 256))
+    h1 = f._response_c64()
+    assert f._response_c64() is h1 and h1.dtype == torch.complex64
+    torch.testing.assert_close(h1, torch.complex(f.hr, f.hi), rtol=0, atol=0)
+    with torch.no_grad():
+        f.hi.mul_(2.0)
+    h2 = f._response_c64()
+    assert h2 is not h1
+    torch.testing.assert_close(h2, torch.complex(f.hr, f.hi), rtol=0, atol=0)
+
+
 def test_spectral_filter_validation():
     with pytest.raises(ValueError):
         ft.SpectralFilter(np.ones((2, 8)))
@@ -319,6 +404,21 @@ def test_grad_through_spectral_filter_matches_jax(rng, assert_close):
     (_t(w) * ft.SpectralFilter(H)(torch.complex(tre, tim)).abs() ** 2).sum().backward()
     assert_close(tre.grad.numpy() + 1j * tim.grad.numpy(),
                  np.asarray(jg[0]) + 1j * np.asarray(jg[1]))
+
+
+def test_grad_through_spectral_filter_card_route_matches_jax(rng, monkeypatch, assert_close):
+    # the complex64 route's gradient: the filtered kernel's adjoint, then
+    # the row kernel's (plain versions here), against jax.grad
+    n = 256
+    x, H, w = crand(rng, 3, n), crand(rng, n), rng.random((3, n)).astype(np.float32)
+    jf = ftt.SpectralFilter(H)
+    ja, jb = jax.grad(lambda a, b: jnp.sum(w * jnp.abs(jf.apply(jax.lax.complex(a, b))) ** 2),
+                      argnums=(0, 1))(x.real, x.imag)
+    monkeypatch.setattr(fastconv, "_on_card", lambda t: True)
+    tx = _t(x).requires_grad_()
+    (_t(w) * ft.SpectralFilter(H)(tx).abs() ** 2).sum().backward()
+    assert_close(tx.grad.numpy(), np.asarray(ja) + 1j * np.asarray(jb))
+    assert_no_launches()
 
 
 def test_grad_through_fftconvolve_matches_jax(rng, assert_close):

@@ -55,13 +55,13 @@ def crand(rng, *shape):
 
 @pytest.fixture
 def routes(monkeypatch):
-    """Pretend CPU tensors lie on the card, and record which of the eight
+    """Pretend CPU tensors lie on the card, and record which of the nine
     entry points each call reaches."""
     seen = []
     monkeypatch.setattr(spectral_est, "_on_card", lambda t: True)
     for name in ("welch_accum_split", "spec_psd_split", "csd_accum_split",
                  "coherence_accum_split", "welch_accum_c2c_split", "spec_rfft_split",
-                 "spec_rfft_c64", "spec_c2c_split"):
+                 "spec_rfft_c64", "spec_c2c_split", "spec_c2c_c64"):
         fn = getattr(cuda_welch, name)
 
         def spy(*a, _fn=fn, _name=name, **k):
@@ -335,6 +335,33 @@ CASES = {
     "welch_complex_median": ([("c", (2048,))],
                              lambda m, x: m.welch(x, nperseg=256, average="median"),
                              lambda x: ss.welch(x, nperseg=256, average="median")),
+    "spectrogram_complex_input_magnitude": ([("c", (2, 2048))],
+                                            lambda m, x: m.spectrogram(x, nperseg=256,
+                                                                       mode="magnitude"),
+                                            lambda x: ss.spectrogram(x, nperseg=256,
+                                                                     mode="magnitude")),
+    "spectrogram_complex_input_angle": ([("c", (2048,))],
+                                        lambda m, x: m.spectrogram(x, nperseg=256,
+                                                                   mode="angle"), None),
+    "spectrogram_complex_input_phase": ([("c", (2048,))],
+                                        lambda m, x: m.spectrogram(x, nperseg=256,
+                                                                   mode="phase"), None),
+    # (the JAX package's axis order here is not scipy's: held to the JAX package)
+    "spectrogram_complex_input_axis0": ([("c", (2048, 2))],
+                                        lambda m, x: m.spectrogram(x, nperseg=128, axis=0,
+                                                                   mode="complex"), None),
+    "spectrogram_two_sided_complex": ([("r", (2, 2048))],
+                                      lambda m, x: m.spectrogram(x, nperseg=256,
+                                                                 return_onesided=False,
+                                                                 mode="complex"),
+                                      lambda x: ss.spectrogram(x, nperseg=256,
+                                                               return_onesided=False,
+                                                               mode="complex")),
+    "csd_complex_complex_median": ([("c", (2, 2048)), ("c", (2, 2048))],
+                                   lambda m, x, y: m.csd(x, y, nperseg=256, noverlap=64,
+                                                         average="median"),
+                                   lambda x, y: ss.csd(x, y, nperseg=256, noverlap=64,
+                                                       average="median")),
     "multitaper_adaptive": ([("r", (2, 1024))], lambda m, x: m.multitaper(x, NW=3.0), None),
     "multitaper_unity_odd": ([("r", (999,))],
                              lambda m, x: m.multitaper(x, NW=2.5, weights="unity"), None),
@@ -374,18 +401,24 @@ ROUTES = {
     "welch_nfft_1000": None, "welch_median_batched": "spec_psd_split",
     "welch_axis0": "welch_accum_split", "welch_linear": None,
     "welch_complex": "welch_accum_c2c_split", "welch_two_sided": "welch_accum_c2c_split",
-    "welch_spectrum": "welch_accum_split", "welch_complex_median": "spec_c2c_split",
+    "welch_spectrum": "welch_accum_split", "welch_complex_median": "spec_c2c_c64",
     "periodogram": "welch_accum_split", "periodogram_linear": None, "csd": "csd_accum_split",
-    "csd_complex_median": ["spec_c2c_split"] * 2,  # x, then y with a zero imaginary plane
-    "csd_two_sided": ["spec_c2c_split"] * 2,
+    "csd_complex_median": ["spec_c2c_c64"] * 2,  # x, then y with no imaginary plane
+    "csd_complex_complex_median": ["spec_c2c_c64"] * 2,
+    "csd_two_sided": ["spec_c2c_c64"] * 2,
     "coherence": "coherence_accum_split",
     # Pxy from the two-sided spectra of x and y, then Pxx and Pyy
-    "coherence_complex": ["spec_c2c_split"] * 2 + ["welch_accum_c2c_split"] * 2,
+    "coherence_complex": ["spec_c2c_c64"] * 2 + ["welch_accum_c2c_split"] * 2,
     "spectrogram_psd": "spec_psd_split", "spectrogram_magnitude": "spec_psd_split",
     "spectrogram_complex": "spec_rfft_c64", "spectrogram_angle": "spec_rfft_split",
-    "spectrogram_phase": "spec_rfft_split", "spectrogram_complex_input": "spec_c2c_split",
-    "spectrogram_complex_input_complex": "spec_c2c_split",
-    "spectrogram_two_sided_magnitude": "spec_c2c_split", "spectrogram_complex_linear": None,
+    "spectrogram_phase": "spec_rfft_split", "spectrogram_complex_input": "spec_c2c_c64",
+    "spectrogram_complex_input_complex": "spec_c2c_c64",
+    "spectrogram_complex_input_magnitude": "spec_c2c_c64",
+    "spectrogram_complex_input_angle": "spec_c2c_c64",
+    "spectrogram_complex_input_phase": "spec_c2c_c64",
+    "spectrogram_complex_input_axis0": "spec_c2c_c64",
+    "spectrogram_two_sided_complex": "spec_c2c_c64",
+    "spectrogram_two_sided_magnitude": "spec_c2c_c64", "spectrogram_complex_linear": None,
 }
 
 
@@ -428,6 +461,85 @@ def test_kernel_route_windows_and_envelope(routes, rng, assert_close):
     assert routes == []
 
 
+def test_two_sided_routes_take_the_complex64_source_and_sink(rng, monkeypatch,
+                                                             assert_close):
+    """On the card B22 reads a complex64 input as it lies (no split: its
+    planes are views, promote_to_split is never called) and a real one with
+    no imaginary plane; spectrogram's complex mode is the sink's transposed
+    view with sqrt(norm) folded into its store, no merge; csd takes its
+    products as complex tensors."""
+    def refuse(name):
+        def fail(*a, **k):
+            raise AssertionError(f"the card route ran {name}")
+        return fail
+
+    calls = []
+    c64, promote = cuda_welch.spec_c2c_c64, spectral_est.promote_to_split
+    monkeypatch.setattr(spectral_est, "_on_card", lambda t: True)
+    monkeypatch.setattr(spectral_est, "promote_to_split", refuse("promote_to_split"))
+    monkeypatch.setattr(cuda_welch, "spec_c2c_c64", lambda x, *a, **k: calls.append(
+        (x.dtype, k.get("im") is None, k.get("scale"))) or c64(x, *a, **k))
+    monkeypatch.setattr(cuda_welch, "spec_c2c_split", refuse("spec_c2c_split"))
+    x, y = crand(rng, 2, 2048), crand(rng, 2, 2048)
+    norm = 1.0 / float((ss.get_window(("tukey", 0.25), 256) ** 2).sum())
+    with monkeypatch.context() as m:
+        m.setattr(spectral_est, "merge", refuse("merge"))
+        for mode in ("psd", "magnitude", "complex", "angle", "phase"):
+            calls.clear()
+            got = ft.spectrogram(_t(x), nperseg=256, mode=mode)[2]
+            want = ftt.spectrogram(x, nperseg=256, mode=mode)[2]
+            assert_close(_np(got), np.asarray(want), what=mode)
+            scale = None if mode in ("angle", "phase") else pytest.approx(np.sqrt(norm))
+            assert calls == [(torch.complex64, True, scale)], mode
+            if mode == "complex":
+                assert got.dtype == torch.complex64 and not got.is_contiguous()
+    calls.clear()
+    got = ft.csd(_t(x), _t(y), nperseg=256, average="median")[1]
+    assert_close(_np(got), np.asarray(ftt.csd(x, y, nperseg=256, average="median")[1]))
+    assert calls == [(torch.complex64, True, None)] * 2
+    calls.clear()
+    monkeypatch.setattr(spectral_est, "promote_to_split", promote)
+    r = rrand(rng, 2, 2048)  # real input taken two-sided: no imaginary plane (im None)
+    got = ft.spectrogram(_t(r), nperseg=256, return_onesided=False)[2]
+    assert_close(_np(got), np.asarray(ftt.spectrogram(r, nperseg=256,
+                                                      return_onesided=False)[2]))
+    assert calls == [(torch.float32, True, pytest.approx(np.sqrt(norm)))]
+
+
+# name -> the grids (f, and spectrogram's t) an estimator returns for x
+GRIDS = {
+    "periodogram": lambda x: ft.periodogram(x)[:1],
+    "welch": lambda x: ft.welch(x, nperseg=256)[:1],
+    "welch two-sided": lambda x: ft.welch(x, nperseg=256, return_onesided=False)[:1],
+    "csd": lambda x: ft.csd(x, x.flip(-1), nperseg=256)[:1],
+    "coherence": lambda x: ft.coherence(x, x.flip(-1), nperseg=256)[:1],
+    "multitaper": lambda x: ft.multitaper(x[:512])[:1],
+    "spectrogram": lambda x: ft.spectrogram(x, nperseg=256)[:2],
+    "spectrogram complex": lambda x: ft.spectrogram(torch.complex(x, x.flip(-1)),
+                                                    nperseg=256, mode="complex")[:2],
+}
+
+
+@pytest.mark.parametrize("card", [False, True], ids=["composed", "kernel routes"])
+@pytest.mark.parametrize("name", list(GRIDS))
+def test_returned_grids_are_fresh(name, card, rng, monkeypatch):
+    """The grids f and t are the caller's own tensors: scipy's in-place
+    ``f /= 1e3`` on one call's grid, or an edit through ``.numpy()``,
+    leaves every later call's grid as it was."""
+    monkeypatch.setattr(spectral_est, "_on_card", lambda t: card)
+    x = _t(rrand(rng, 2048))
+    first = GRIDS[name](x)
+    want = [g.clone() for g in first]
+    for g in first:
+        g /= 1e3
+        g.numpy()[:1] = 7.0
+    again = GRIDS[name](x)
+    assert len(again) == len(want)
+    for got, w, old in zip(again, want, first):
+        assert torch.equal(got, w), name
+        assert got.untyped_storage().data_ptr() != old.untyped_storage().data_ptr(), name
+
+
 @pytest.mark.parametrize("kw", [{}, {"normalize": True}, {"normalize": "amplitude"},
                                 {"floating_mean": True}, {"weights": "w"},
                                 {"floating_mean": True, "normalize": "amplitude"}],
@@ -461,6 +573,8 @@ GRADS = {
     "spectrogram_complex": (1, lambda m, x: m.spectrogram(x, nperseg=256, mode="complex")[2]),
     "csd_two_sided": (2, lambda m, x, y: m.csd(x, y, nperseg=256, noverlap=96,
                                                 return_onesided=False)[1]),
+    "spectrogram_two_sided": (1, lambda m, x: m.spectrogram(x, nperseg=256,
+                                                            return_onesided=False)[2]),
 }
 
 

@@ -2,7 +2,8 @@
 ``welch_accum_split`` (B16), ``spec_psd_split`` (B19), ``csd_accum_split``
 (B17), ``coherence_accum_split`` (B18), ``welch_accum_c2c_split`` (B21),
 ``spec_rfft_split`` (B20, with its roll and padded output) and
-``spec_c2c_split`` (B22) of ``ops/cuda_welch.py``.
+``spec_c2c_split`` and ``spec_c2c_c64`` (B22, with the plain version of
+its kernel's passes, ``_spec_c2c_passes``) of ``ops/cuda_welch.py``.
 
 On a CPU tensor each entry point runs its plain version.  Inside the JAX
 package's envelope the same numpy inputs go through its Pallas kernels in
@@ -551,3 +552,87 @@ def test_spec_c64_gradient_matches_jax_grad(rng, assert_close):
     X = cuda_welch.spec_rfft_c64(xt, _t(win), *args, roll_s=roll_s)
     (_t(wr) * X.real * X.real + _t(wi) * X.imag).sum().backward()
     assert_close(_np(xt.grad), np.asarray(want), what="spec_rfft_c64 d/dx")
+
+
+# B22's complex64 entry (spec_c2c_c64) from each of its sources, and the
+# plain version of the kernel's own passes, against the JAX kernel in
+# interpret mode, merged; a real source is the JAX kernel's with a zero
+# imaginary plane
+C2C_SOURCES = ("c64", "planes", "real")
+
+
+@pytest.mark.parametrize("scale", [None, 0.25])
+@pytest.mark.parametrize("source", C2C_SOURCES)
+@pytest.mark.parametrize("case", JAX_CASES, ids=lambda c: "x".join(map(str, c[1:5])))
+def test_spec_c2c_c64_matches_jax_interpret(case, source, scale, rng, assert_close):
+    lead, t, nperseg, hop, nfft, detrend = case
+    re, im, win = inputs(rng, lead, t, nperseg)
+    if source == "real":
+        im = np.zeros_like(re)
+    args = (nperseg, hop, nfft, detrend)
+    jr, ji = j_pw.spec_c2c_split(re, im, win, *args, interpret=True)
+    want = (np.asarray(jr) + 1j * np.asarray(ji)) * (1.0 if scale is None else scale)
+    x, y = {"c64": (_t(re + 1j * im), None), "planes": (_t(re), _t(im)),
+            "real": (_t(re), None)}[source]
+    got = cuda_welch.spec_c2c_c64(x, _t(win), *args, scale=scale, im=y)
+    assert got.dtype == torch.complex64 and got.shape == (*lead, 1 + (t - nperseg) // hop,
+                                                          nfft)
+    assert_close(_np(got), want, what=f"spec_c2c_c64 {source} vs JAX")
+    assert_close(_np(cuda_welch._spec_c2c_passes(x, y, _t(win), *args, scale)), want,
+                 what=f"the kernel's passes, {source}, vs JAX")
+    plain = cuda_welch.spec_c2c_c64_reference(x, _t(win), *args, scale=scale, im=y)
+    np.testing.assert_array_equal(_np(plain), _np(got))
+    assert cuda_welch.spec_c2c_launches == cuda_welch.spec_c2c_c64_launches == 0
+
+
+@pytest.mark.parametrize("case", PORT_CASES, ids=lambda c: "x".join(map(str, c[1:5])))
+def test_spec_c2c_c64_outside_jax_envelope(case, rng, assert_close):
+    lead, t, nperseg, hop, nfft, detrend = case
+    x, y, win = inputs(rng, lead, t, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    want = numpy_spec(x, y, win, *args)
+    for got in (cuda_welch.spec_c2c_c64(_t(x + 1j * y), _t(win), *args),
+                cuda_welch.spec_c2c_c64(_t(x), _t(win), *args, im=_t(y)),
+                cuda_welch._spec_c2c_passes(_t(x + 1j * y), None, _t(win), *args)):
+        assert_close(_np(got), want, what="spec_c2c_c64 vs numpy")
+    assert_close(_np(cuda_welch.spec_c2c_c64(_t(x), _t(win), *args)),
+                 numpy_spec(x, np.zeros_like(x), win, *args), what="real source vs numpy")
+
+
+def test_spec_c2c_c64_envelope_raises():
+    z, w = torch.zeros(4096, dtype=torch.complex64), torch.ones(512)
+    with pytest.raises(cuda_welch.Unsupported):
+        cuda_welch.spec_c2c_c64(z, w, 512, 256, 512, "linear")
+    with pytest.raises(cuda_welch.Unsupported):
+        cuda_welch.spec_c2c_c64(z, w, 512, 256, 1000, False)
+    with pytest.raises(ValueError, match="complex64"):
+        cuda_welch.spec_c2c_c64(z.to(torch.complex128), w, 512, 256, 512, False)
+    with pytest.raises(ValueError, match="real x"):  # an im plane beside complex input
+        cuda_welch.spec_c2c_c64(z, w, 512, 256, 512, False, im=torch.zeros(4096))
+    with pytest.raises(ValueError, match="real float32"):  # only B22 takes complex64
+        cuda_welch.spec_c2c_split(z, torch.zeros(4096), w, 512, 256, 512, False)
+
+
+@pytest.mark.parametrize("source", ["c64", "real"])
+def test_spec_c2c_c64_gradient_matches_jax_grad(source, rng, assert_close):
+    nperseg, hop, nfft, detrend = 256, 96, 512, "constant"
+    re, im, win = inputs(rng, (2,), 1500, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    num = 1 + (1500 - nperseg) // hop
+    wr, wi = (rng.random((2, num, nfft)).astype(np.float32) for _ in range(2))
+
+    def jloss(a, b):
+        Xr, Xi = j_se._spec_segments_split(a, b, jnp.asarray(win), *args)
+        return jnp.sum(wr * (0.5 * Xr) ** 2 + wi * (0.5 * Xi) * (0.5 * Xr))
+
+    if source == "c64":
+        want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(re), jnp.asarray(im))
+        xt = _t(re + 1j * im).requires_grad_()
+    else:  # the real signal taken two-sided: JAX's composed form with a zero plane
+        want = (jax.grad(jloss)(jnp.asarray(re), jnp.zeros_like(re)),)
+        xt = _t(re).requires_grad_()
+    X = cuda_welch.spec_c2c_c64(xt, _t(win), *args, scale=0.5)
+    (_t(wr) * X.real * X.real + _t(wi) * X.imag * X.real).sum().backward()
+    assert_close(_np(xt.grad.real), np.asarray(want[0]), what=f"spec_c2c_c64 d/dre {source}")
+    if source == "c64":
+        assert_close(_np(xt.grad.imag), np.asarray(want[1]), what="spec_c2c_c64 d/dim")
