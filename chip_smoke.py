@@ -12,7 +12,7 @@ resample).
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
-the CUDA toolkit and scipy.  It builds the fifteen kernel libraries from
+the CUDA toolkit and scipy.  It builds the sixteen kernel libraries from
 ``fft_wgpu_tpu_torch/csrc`` (one nvcc each, all at once) and runs five
 phases, one line each or more; any failure raises and the script exits
 non-zero without a result line:
@@ -22,7 +22,8 @@ non-zero without a result line:
              ptxas's registers, stack and spills of ax0_gen_fft,
              rows_t_fft and chirp_fft (m = 8192 and 16384), and of every
              instantiation of rows_fft, big_fft, ax0_fft, r2c_fft,
-             fft2f_fft, spec_fft, filt_fft's filtered rows and spec_c2c_fft;
+             fft2f_fft, spec_fft, filt_fft's filtered rows, spec_c2c_fft
+             and welch_acc_fft;
 2. kernel  — each kernel against its plain torch version and torch.fft,
              both signs, scale None and 1/n (rel-L2 <= 1e-5 each):
              rows_fft for every n in 128..16384 at rows 1 and 1000 and at
@@ -69,8 +70,8 @@ non-zero without a result line:
              points, zero past them, and in place); bank at every n for
              banks of 1 and 7 rows, and at 128 x 16384; the bits of the
              kernels kept as they were (rows_fft in both entries, bank,
-             welch, psd, csd, coh, c2c) against those recorded from them
-             before (KEPT_BITS); c2r_prod at every n, ragged and
+             psd, csd, c2c) against those recorded from them before
+             (KEPT_BITS); c2r_prod at every n, ragged and
              padded, B of A's shape and broadcast, at 2048 x 8192 and 547 x
              2048; ax0_gen at every composite n at m = 7 and 1000, and at
              16 x 1080 x 1920, and the axis(-3) pass at [2, 1000, 7, 130];
@@ -89,8 +90,11 @@ non-zero without a result line:
              nperseg/2 and nperseg - nperseg/8, one signal with no detrend
              and three with "constant", a ragged last tile (spec also with
              odd and even rolls, the padded output and stft's reflect
-             pad), and at path 6's and path 7's shapes, each run twice for
-             the same bits;
+             pad; welch and coh, welch_acc_fft's two kinds, also at odd
+             segment counts and against the plain version of their own
+             passes and epilogue, cuda_welch._acc_passes (welch: both its
+             designs), and scipy.signal's welch and coherence in float64), and at path 6's and path 7's
+             shapes, each run twice for the same bits;
 3. main    — six paths, the launch counts set to 0 just before each and
              read just after: plan / fft / ifft / Forward at the 1-D sizes
              users call (row kernel; axis(-2) then transposed rows; whole
@@ -194,13 +198,14 @@ TOL = 1e-5  # relative L2, the JAX package's oracle bar
 SEED = 0
 LIBS = ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft", "fft2f_fft", "r2c_fft",
         "c2r_fft", "gen_fft", "r2c_gen_fft", "chirp_fft", "filt_fft", "ax0_gen_fft",
-        "welch_fft", "spec_fft", "spec_c2c_fft")
+        "welch_fft", "spec_fft", "spec_c2c_fft", "welch_acc_fft")
 # Kernels as the launch counters name them: the axis(-3) pass is the axis(-2)
 # kernels on a free view, with its own entry point and counter; chirp_fft
 # holds three kernels (chirp_fwd, chirp_inv and the two fused, chirp_full),
 # each with its own, filt_fft two kernels (filt, bank), c2r_fft a second
-# one (c2r_prod), welch_fft five (welch, psd, csd, coh, c2c), spec_fft one
-# (spec: B20), spec_c2c_fft one (spec_c2c: B22); rows_fft, ax0_fft (on axis
+# one (c2r_prod), welch_fft three (psd, csd, c2c), welch_acc_fft two (welch:
+# B16, coh: B18), spec_fft one (spec: B20), spec_c2c_fft one (spec_c2c: B22);
+# rows_fft, ax0_fft (on axis
 # -2 and on the axis(-3) view), fft2f_fft, r2c_fft, big_fft, filt, spec_fft
 # and spec_c2c_fft two layouts each (rows_fft_c64, ax0_fft_c64, ax3_fft_c64,
 # fft2f_fft_c64, r2c_fft_c64, big_fft_c64, filt_c64, spec_c64 and
@@ -227,9 +232,11 @@ F32_FLOPS_PER_S = 67e12    # H100 SXM float32 on the CUDA cores (data sheet)
 # sha256 (first 16 hex digits) of the outputs of kernels this work keeps as
 # they were, on kept_bits's inputs: B1 (rows_fft, both entries; its row types
 # moved into mixed_fft.cuh), B10 (bank, on stockham.cuh; filt_fft.cu's other
-# kernel was redesigned) and B16-B19, B21 (welch_fft.cu, which B22 left).
-# Recorded from the kernels before that work (the parent commit's libraries,
-# NVIDIA H100 80GB HBM3, by scripts/time_composite_rows.py --set bits).
+# kernel was redesigned) and B17, B19, B21 (welch_fft.cu, which B16, B18 and
+# B22 left).  Recorded from the kernels before that work (the libraries of
+# commit 9602cd4, which commit e09b20d kept, NVIDIA H100 80GB HBM3, by
+# scripts/time_composite_rows.py --set bits); B16's and B18's were taken out
+# when their kernel changed.
 KEPT_BITS = {
     "rows_fft 128": "f4898d7e20440177", "rows_fft_c64 128": "f8f226c7db5eb860",
     "bank 128": "e1dd6b3ef9b691c1", "rows_fft 256": "82f279a213465b27",
@@ -243,22 +250,19 @@ KEPT_BITS = {
     "rows_fft 8192": "a2279294e2854e4d", "rows_fft_c64 8192": "bd4cd6dd5b46cd92",
     "bank 8192": "cbf3799d6f2e6a30", "rows_fft 16384": "28cc39cf96dc770d",
     "rows_fft_c64 16384": "528b0ca7f625ab05", "bank 16384": "b182cfb66738d9c9",
-    "welch 128": "d9cb0e5a62869acd", "psd 128": "32b1cbce04f4f84d",
-    "csd 128": "aefe27bc9950ff34", "coh 128": "da12577eb9799239",
-    "c2c 128": "ef4cd28c8de09d08", "welch 512": "72e60d1281526938",
-    "psd 512": "bd8a3c9d46f44a0c", "csd 512": "66d0c3a466a54eeb",
-    "coh 512": "829149a06727f581", "c2c 512": "98af9c692c20a955",
-    "welch 4096": "1d55d774c395aa5f", "psd 4096": "49c56641423fedc5",
-    "csd 4096": "ebdd0554d98096c5", "coh 4096": "261f27bda9fd0ce5",
+    "psd 128": "32b1cbce04f4f84d", "csd 128": "aefe27bc9950ff34",
+    "c2c 128": "ef4cd28c8de09d08", "psd 512": "bd8a3c9d46f44a0c",
+    "csd 512": "66d0c3a466a54eeb", "c2c 512": "98af9c692c20a955",
+    "psd 4096": "49c56641423fedc5", "csd 4096": "ebdd0554d98096c5",
     "c2c 4096": "042e59b3716124c7"}
 
 
 def kept_bits(cuda_fft, cuda_welch, dev) -> dict:
     """sha256 (16 hex digits) of each kept kernel's outputs on inputs made
     with numpy from SEED: rows_fft through both entries and bank at every
-    pow2 n, both signs, and the five welch_fft kinds at nfft 128, 512 and
-    4096 over a 2^18 signal.  ``cuda_fft`` and ``cuda_welch`` may be another
-    checkout's modules (the parent's, to record KEPT_BITS)."""
+    pow2 n, both signs, and welch_fft's kinds psd, csd and c2c at nfft 128,
+    512 and 4096 over a 2^18 signal.  ``cuda_fft`` and ``cuda_welch`` may be
+    another checkout's modules (the parent's, to record KEPT_BITS)."""
     import hashlib
 
     import torch
@@ -288,8 +292,8 @@ def kept_bits(cuda_fft, cuda_welch, dev) -> dict:
     x, y = real(1 << 18), real(1 << 18)
     for nfft in (128, 512, 4096):
         w = torch.from_numpy(np.hanning(nfft).astype(np.float32) + 0.1).to(dev)
-        for kind in ("welch", "psd", "csd", "coh", "c2c"):
-            u = y if kind in ("csd", "coh", "c2c") else None
+        for kind in ("psd", "csd", "c2c"):
+            u = y if kind in ("csd", "c2c") else None
             out[f"{kind} {nfft}"] = digest(cuda_welch._launch(kind, x, u, w, nfft, nfft // 2,
                                                               nfft, "constant"))
     torch.cuda.synchronize()
@@ -368,14 +372,15 @@ def ptxas_summary(log: str) -> list:
     """One "kernel<template arguments>: registers, stack, spill stores" entry
     per kernel of ax0_gen_fft's, rows_t_fft's, chirp_fft's, rows_fft's,
     big_fft's, ax0_fft's, r2c_fft's, fft2f_fft's, spec_fft's, filt_fft's
-    (its filtered rows) and spec_c2c_fft's nvcc -Xptxas -v logs (chirp_fft's
-    at m = 2^13 and 2^14)."""
+    (its filtered rows), spec_c2c_fft's and welch_acc_fft's nvcc -Xptxas -v
+    logs (chirp_fft's at m = 2^13 and 2^14)."""
     out, kernel = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(ax0_gen_fft_kernel|rows_t_fft_kernel|"
                       r"chirp_fwd_kernel|chirp_inv_kernel|chirp_full_kernel|rows_fft_kernel|"
                       r"big_fft_kernel|ax0_fft_kernel|r2c_fft_kernel|fft2f_fft_kernel|"
-                      r"spec_fft_kernel|filt_fft_kernel|spec_c2c_kernel)I(\w*?)EE", line)
+                      r"spec_fft_kernel|filt_fft_kernel|spec_c2c_kernel|welch_acc_kernel)"
+                      r"I(\w*?)EE", line)
         if m and m[1].startswith("chirp") and not m[2].endswith(("13", "14")):
             m = None
         if m:
@@ -488,7 +493,8 @@ def main() -> int:
           flush=True)
     for name, lib, _ in built:  # what ptxas reported for the redesigned kernels
         if name in ("ax0_gen_fft", "rows_t_fft", "chirp_fft", "rows_fft", "big_fft",
-                    "ax0_fft", "r2c_fft", "fft2f_fft", "spec_fft", "filt_fft", "spec_c2c_fft"):
+                    "ax0_fft", "r2c_fft", "fft2f_fft", "spec_fft", "filt_fft", "spec_c2c_fft",
+                    "welch_acc_fft"):
             print(f"ptxas: {name} | " + "; ".join(ptxas_summary(
                 lib.with_suffix(".log").read_text())), flush=True)
 
@@ -880,12 +886,12 @@ def main() -> int:
         check(cuda_fft._filt_launch_c64(x, h, 1, 1.0 / n, out=x) is x, "filt_c64 out=x")
         compare("filt_c64", x, plain, want, f"in place 37x{n}")
     # B1 (its row types moved into mixed_fft.cuh), B10 (on stockham.cuh, the
-    # filtered rows' library redesigned) and B16-B19, B21 (welch_fft.cu,
-    # which B22 left) give the bits they gave before
+    # filtered rows' library redesigned) and B17, B19, B21 (welch_fft.cu,
+    # which B16, B18 and B22 left) give the bits they gave before
     got = kept_bits(cuda_fft, cuda_welch, dev)
     check(got == KEPT_BITS, "kept kernels' bits changed: "
           + str({k: v for k, v in got.items() if KEPT_BITS.get(k) != v}))
-    print(f"kernel rows_fft, rows_fft_c64, bank, welch, psd, csd, coh, c2c: {len(got)} "
+    print(f"kernel rows_fft, rows_fft_c64, bank, psd, csd, c2c: {len(got)} "
           f"outputs, the bits recorded before (KEPT_BITS)", flush=True)
     sweep("bank",
           [((n,), planes(crand(rows, n))) for n in pow2 for rows in (1, 7)]
@@ -1035,6 +1041,11 @@ def main() -> int:
             plain, _ = cuda_welch._reference(kind, x, y, w, *args)
         got = run()
         err = check_close(flat(got), flat(plain), f"{kind} vs plain {what}")
+        # welch_acc_fft: the plain version of its passes and epilogue too (B16:
+        # of both its designs, whichever the source runs at this nfft)
+        for half in {"welch": (False, True), "coh": (False,)}.get(kind, ()):
+            err = max(err, check_close(flat(got), flat(cuda_welch._acc_passes(
+                kind, x, y, w, *args, half=half)), f"{kind} vs its passes' plain version {what}"))
         if with_oracle:
             oracle = torch_segments(kind, wide(x), wide(y), w, *args, *opts)
             err = max(err, check_close(flat(got), flat(oracle),
@@ -1048,6 +1059,29 @@ def main() -> int:
               f"{kind} {what}: two runs differ in their bits")
         max_abs[kind] = max(max_abs[kind], float((flat(got) - flat(plain)).abs().max()))
         return err
+
+    def vs_scipy_acc(kind, x, y, w, args, what):
+        """B16's sums or B18's coherence against scipy.signal in float64:
+        welch with scaling "spectrum" (the mean over segments of the sums,
+        over sum(w)^2, the inner bins doubled) and coherence."""
+        import scipy.signal as ss
+
+        nperseg, hop, nfft, detrend = args
+        w64 = w.double().cpu().numpy()
+        kw = {"window": w64, "nperseg": nperseg, "noverlap": nperseg - hop, "nfft": nfft,
+              "detrend": detrend or False, "axis": -1}
+        got = cuda_welch._launch(kind, x, y, w, *args)
+        if kind == "welch":
+            num = 1 + (x.shape[-1] - nperseg) // hop
+            mult = np.full(nfft // 2 + 1, 2.0)
+            mult[0] = mult[-1] = 1.0
+            P = ss.welch(x.double().cpu().numpy(), scaling="spectrum", **kw)[1]
+            return check_close(got[0].cpu(), torch.from_numpy(P * num * w64.sum() ** 2 / mult),
+                               f"welch vs scipy.signal float64 {what}")
+        C = ss.coherence(x.double().cpu().numpy(), y.double().cpu().numpy(), **kw)[1]
+        Pr, Pi, Sxx, Syy = (o.double() for o in got)
+        return check_close(((Pr * Pr + Pi * Pi) / (Sxx * Syy)).cpu(), torch.from_numpy(C),
+                           f"coh vs scipy.signal float64 {what}")
 
     def welch_sweep():
         worst, cases = 0.0, 0
@@ -1078,6 +1112,18 @@ def main() -> int:
                             worst = max(worst, welch_case(kind, x, None, w, args, what,
                                                           opts=opts))
                             cases += 1
+                        # welch_acc_fft: odd segment counts (B16's last frame
+                        # with a zero plane), and scipy.signal
+                        for num in (37, 39):
+                            t = nperseg + (num - 1) * hop + hop // 3
+                            x = torch.randn(*lead, t, device=dev, generator=gen)
+                            y = torch.randn(*lead, t, device=dev, generator=gen)
+                            what = (f"{lead} t={t} ({num} segments) nperseg={nperseg} "
+                                    f"hop={hop} nfft={nfft} {detrend}")
+                            for kind, u in (("welch", None), ("coh", y)):
+                                worst = max(worst, welch_case(kind, x, u, w, args, what),
+                                            vs_scipy_acc(kind, x, u, w, args, what))
+                                cases += 1
         # path 6's own shapes (float64 oracle in phase 3, against scipy)
         n22 = 1 << 22
         x, y = (torch.randn(n22, device=dev, generator=gen) for _ in range(2))
@@ -2100,20 +2146,21 @@ def main() -> int:
 
     profiles = {}
 
-    def alone(call, fn, kernels, want, copies=0, reps=20):
+    def alone(call, fn, kernels, want, copies=0, reps=20, others=False):
         """Profile ``call``: its kernels alone, each once a call, and
         ``copies`` device-to-device copies a call (the fresh grids an
-        estimator returns), no other device work; over the same calls the
-        wrappers' counters rise by ``want`` (counter -> launches) a call
-        and no other counter moves.  A window that sees other work, or
-        counters off, fails at once; one that sees fewer launches is taken
-        again (at most three)."""
+        estimator returns), no other device work (with ``others``: beside
+        the call's torch work, an estimator's normalisation and sums); over
+        the same calls the wrappers' counters rise by ``want`` (counter ->
+        launches) a call and no other counter moves.  A window that sees
+        other work, or counters off, fails at once; one that sees fewer
+        launches is taken again (at most three)."""
         names = kernels + (("Memcpy DtoD",) if copies else ())
         per_call = {**dict.fromkeys(kernels, 1), "Memcpy DtoD": copies}
         for _ in range(3):
             counted = {}
             got = breakdown(fn, names, reps, counted)
-            check(got["other launches"] == 0, f"{call}: other device work: {got}")
+            check(others or got["other launches"] == 0, f"{call}: other device work: {got}")
             check(counted == {k: reps * v for k, v in want.items()},
                   f"{call}: launches {counted} in {reps} calls, expected {want} a call")
             if all(got[f"{k} launches"] == per_call[k] for k in names):
@@ -2215,8 +2262,15 @@ def main() -> int:
             "torch.fft": lambda: torch_segments(kind, v, u, w, *args),
             "estimator": path6_calls[call],
         }, reps=10)
-    for call, fn in path6_calls.items():  # every estimator kernel is a welch_kernel<...>
-        profiles[call] = breakdown(fn, ("welch",))
+    for call, fn in path6_calls.items():
+        if call in ("welch 2^22 nperseg 4096", "welch 64x2^20 scipy defaults",
+                    "coherence 2^22"):
+            # welch_acc_fft's kernel, once a call exactly, beside the sum over
+            # its blocks' rows and the estimator's normalisation
+            alone(call, fn, ("welch_acc",), {"coh" if "coherence" in call else "welch": 1},
+                  others=True)
+        else:  # B17, B19, B21: welch_kernel<...>
+            profiles[call] = breakdown(fn, ("welch",))
 
     # the per-segment kernels at path 7's shapes, beside their plain versions
     # and torch.fft's composition (unfold, detrend, window, rfft or fft)
@@ -2405,13 +2459,13 @@ def main() -> int:
         # one real nfft-point transform per segment and real signal, one
         # complex one per segment of the complex signal (B21); library_ms
         # is torch.fft's composition of the same function
-        entry("welch", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:477",
+        entry("welch", "welch_acc_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:477",
               "welch 2^22 nperseg 4096 hop 2048", 4 * n22 + 4 * 4096 + 4 * 2049,
               rfft_flops(4096, 2047)),
         entry("csd", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:404",
               "csd 2^22 nperseg 4096 hop 2048", 8 * n22 + 4 * 4096 + 8 * 2049,
               2 * rfft_flops(4096, 2047)),
-        entry("coh", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:440",
+        entry("coh", "welch_acc_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:440",
               "coh 2^22 nperseg 4096 hop 2048", 8 * n22 + 4 * 4096 + 16 * 2049,
               2 * rfft_flops(4096, 2047)),
         entry("psd", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:514",

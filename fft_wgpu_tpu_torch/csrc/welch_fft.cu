@@ -2,14 +2,14 @@
 // or cross products of every segment of a signal in one pass, summed over
 // segments or per segment.
 //
-// Replaces the TPU kernels of fft_wgpu_tpu/ops/pallas_welch.py:
-//   welch_accum_f32 (B16)  welch_accum_split, kernel _kernel_welch_accum
+// Replaces three TPU kernels of fft_wgpu_tpu/ops/pallas_welch.py:
 //   spec_psd_f32    (B19)  spec_psd_split, kernel _kernel_spec_psd
 //   csd_accum_f32   (B17)  csd_accum_split, kernel _kernel_csd_accum
-//   coh_accum_f32   (B18)  coherence_accum_split, kernel _kernel_coh_accum
 //   welch_c2c_f32   (B21)  welch_accum_c2c_split, kernel _kernel_welch_accum_c2c
-// (B20, spec_rfft_split, the per-segment half spectra, is spec_fft.cu; B22,
-// spec_c2c_split, the per-segment two-sided spectra, is spec_c2c_fft.cu.)
+// (B16 and B18, welch_accum_split and coherence_accum_split, are
+// welch_acc_fft.cu; B20, spec_rfft_split, the per-segment half spectra, is
+// spec_fft.cu; B22, spec_c2c_split, the per-segment two-sided spectra, is
+// spec_c2c_fft.cu.)
 //
 // Segment s of a row x of t points (s = 0 .. num-1, num = 1 + (t -
 // nperseg) / hop) is the frame of nfft points
@@ -27,10 +27,8 @@
 // on its own) the first pass reads the nfft complex
 // points (FramedComplexIn) and X_s is the full nfft-point spectrum, B1's
 // transform (rows_fft.cu).  Then, per bin:
-//   B16  sum_s |X_s|^2;
 //   B19  |X_s|^2 written to row s of [batch, num, nfft/2 + 1];
 //   B17  sum_s conj(X_s) Y_s of two real signals of one shape (two rows);
-//   B18  sum_s conj(X_s) Y_s, |X_s|^2 and |Y_s|^2 from the same transforms;
 //   B21  sum_s |X_s|^2 over all nfft bins of a complex signal.
 //
 // Grid: one block per (signal row b, tile of S consecutive segments); the
@@ -66,7 +64,8 @@ namespace {
 
 using namespace fftk;
 
-enum Kind { kWelch = 0, kPsd = 1, kCsd = 2, kCoh = 3, kC2c = 4 };
+// the kinds' numbers in welch_tiles (ops/cuda_welch.py::_KERNELS)
+enum Kind { kPsd = 1, kCsd = 2, kC2c = 4 };
 
 // Shape of kernel KIND at nfft = 2^LOG2N: the real kinds transform the
 // half-length row of nfft/2 points (B6's packing), the complex kinds the
@@ -74,7 +73,7 @@ enum Kind { kWelch = 0, kPsd = 1, kCsd = 2, kCoh = 3, kC2c = 4 };
 template <int LOG2N, int KIND>
 struct Geom {
   static constexpr bool kReal = KIND != kC2c;
-  static constexpr bool kTwo = KIND == kCsd || KIND == kCoh;
+  static constexpr bool kTwo = KIND == kCsd;
   // kinds that write every segment's row rather than sums over segments
   static constexpr bool kPerSeg = KIND == kPsd;
   static constexpr int kLog2Row = kReal ? LOG2N - 1 : LOG2N;
@@ -194,8 +193,7 @@ template <int LOG2N, int KIND>
 __global__ void __launch_bounds__(Geom<LOG2N, KIND>::kThreads)
 welch_kernel(const float* __restrict__ x, const float* __restrict__ y,
              const float* __restrict__ w, float* __restrict__ o0,
-             float* __restrict__ o1, float* __restrict__ o2,
-             float* __restrict__ o3, const float2* __restrict__ tw,
+             float* __restrict__ o1, const float2* __restrict__ tw,
              const float2* __restrict__ half, long long t, int nperseg, int hop,
              int num, int seg_per_block, int tiles, int detrend_c) {
   using G = Geom<LOG2N, KIND>;
@@ -203,7 +201,7 @@ welch_kernel(const float* __restrict__ x, const float* __restrict__ y,
   constexpr int T = G::kThreads;
   constexpr int BINS = G::kBins;
   constexpr int NB = (BINS + T - 1) / T;  // bins a thread owns
-  constexpr int NQ = KIND == kCsd ? 2 : KIND == kCoh ? 4 : 1;
+  constexpr int NQ = KIND == kCsd ? 2 : 1;
   extern __shared__ float smem[];
   float* red = smem;
   const Shared zx{smem + G::kRed, smem + G::kRed + R};
@@ -246,23 +244,19 @@ welch_kernel(const float* __restrict__ x, const float* __restrict__ y,
       }
       if constexpr (KIND == kPsd) {
         o0[(static_cast<size_t>(b) * num + s) * BINS + k] = xr * xr + xi * xi;
-      } else if constexpr (KIND == kWelch || KIND == kC2c) {
+      } else if constexpr (KIND == kC2c) {
         acc[0][i] += xr * xr + xi * xi;
       } else {
         float yr, yi;
         half_bin<R>(zy.r, zy.i, half, k, yr, yi);
         acc[0][i] += xr * yr + xi * yi;  // Re conj(X) Y
         acc[1][i] += xr * yi - xi * yr;  // Im conj(X) Y
-        if constexpr (KIND == kCoh) {
-          acc[2][i] += xr * xr + xi * xi;
-          acc[3][i] += yr * yr + yi * yi;
-        }
       }
     }
     __syncthreads();  // the next segment's first pass rewrites the rows
   }
   if constexpr (!G::kPerSeg) {
-    float* outs[4] = {o0, o1, o2, o3};
+    float* outs[2] = {o0, o1};
     const size_t row = (static_cast<size_t>(b) * tiles + tile) * BINS;
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
@@ -288,7 +282,7 @@ cudaError_t allow_smem() {
 
 template <int LOG2N, int KIND>
 cudaError_t launch(const void* x, const void* y, const void* w, void* o0, void* o1,
-                   void* o2, void* o3, const void* tw, const void* half,
+                   const void* tw, const void* half,
                    long long batch, long long t, int nperseg, int hop, int num,
                    int seg_per_block, int tiles, int detrend_c, cudaStream_t stream) {
   using G = Geom<LOG2N, KIND>;
@@ -300,7 +294,7 @@ cudaError_t launch(const void* x, const void* y, const void* w, void* o0, void* 
                               stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(y),
       static_cast<const float*>(w), static_cast<float*>(o0), static_cast<float*>(o1),
-      static_cast<float*>(o2), static_cast<float*>(o3), static_cast<const float2*>(tw),
+      static_cast<const float2*>(tw),
       static_cast<const float2*>(half), t, nperseg, hop, num, seg_per_block, tiles,
       detrend_c);
   return cudaGetLastError();
@@ -332,8 +326,8 @@ cudaError_t tiles_for(long long batch, int num, int* seg_per_block, int* tiles) 
   CASE(7) CASE(8) CASE(9) CASE(10) CASE(11) CASE(12) CASE(13) CASE(14)
 
 template <int KIND>
-int dispatch(const void* x, const void* y, const void* w, void* o0, void* o1, void* o2,
-             void* o3, const void* tw, const void* half, long long batch, long long t,
+int dispatch(const void* x, const void* y, const void* w, void* o0, void* o1,
+             const void* tw, const void* half, long long batch, long long t,
              int nperseg, int hop, int num, int seg_per_block, int tiles, int log2n,
              int detrend_c, void* stream) {
   const long long nfft = 1LL << log2n;
@@ -347,8 +341,8 @@ int dispatch(const void* x, const void* y, const void* w, void* o0, void* o1, vo
   switch (log2n) {
 #define WELCH_CASE(L)                                                                \
   case L:                                                                            \
-    return launch<L, KIND>(x, y, w, o0, o1, o2, o3, tw, half, batch, t, nperseg, hop, \
-                           num, seg_per_block, tiles, detrend_c, s);
+    return launch<L, KIND>(x, y, w, o0, o1, tw, half, batch, t, nperseg, hop, num, \
+                           seg_per_block, tiles, detrend_c, s);
     WELCH_LOG2N_CASES(WELCH_CASE)
 #undef WELCH_CASE
     default: return cudaErrorInvalidValue;
@@ -372,47 +366,41 @@ int tiles_dispatch(long long batch, int num, int log2n, int* seg_per_block, int*
 extern "C" {
 
 // Each entry point takes `batch` contiguous rows x (and y: the second real
-// signal of csd and coherence, the imaginary plane of welch_c2c) of t
+// signal of csd, the imaginary plane of welch_c2c) of t
 // float32 points, the window w of nperseg points and nfft =
 // 2^log2n (128 .. 16384).  The real kinds take in tw the m = nfft/2
 // interleaved (cos, sin) float32 pairs of exp(-2pi*i*j/m) and in half m + 1
 // pairs of exp(-2pi*i*k/nfft); welch_c2c takes in tw the nfft pairs of
 // exp(-2pi*i*j/nfft) and no half table.  The grid is batch * tiles
-// blocks of seg_per_block segments each (welch_tiles).  welch_accum writes
-// o0 = [batch, tiles, nfft/2 + 1] partial sums of |X|^2; csd_accum o0, o1 =
-// Re, Im of conj(X) Y; coh_accum those and o2, o3 = |X|^2, |Y|^2; spec_psd
-// o0 = [batch, num, nfft/2 + 1] of |X_s|^2; welch_c2c o0 = [batch, tiles,
+// blocks of seg_per_block segments each (welch_tiles).  csd_accum writes
+// o0, o1 = [batch, tiles, nfft/2 + 1] partial sums of Re, Im of conj(X) Y;
+// spec_psd o0 = [batch, num, nfft/2 + 1] of |X_s|^2; welch_c2c o0 = [batch, tiles,
 // nfft] partial sums of |X|^2 over the two-sided spectrum.  The kernel
 // launches on `stream` of the current device.  Returns
 // cudaGetLastError() (0 = ok).
 #define WELCH_ENTRY(NAME, KIND)                                                    \
   int NAME(const void* x, const void* y, const void* w, void* o0, void* o1,       \
-           void* o2, void* o3, const void* tw, const void* half, long long batch, \
-           long long t, int nperseg, int hop, int num, int seg_per_block,         \
-           int tiles, int log2n, int detrend_c, void* stream) {                   \
-    return dispatch<KIND>(x, y, w, o0, o1, o2, o3, tw, half, batch, t, nperseg,   \
-                          hop, num, seg_per_block, tiles, log2n, detrend_c,       \
-                          stream);                                                \
+           const void* tw, const void* half, long long batch, long long t,        \
+           int nperseg, int hop, int num, int seg_per_block, int tiles, int log2n, \
+           int detrend_c, void* stream) {                                         \
+    return dispatch<KIND>(x, y, w, o0, o1, tw, half, batch, t, nperseg, hop, num, \
+                          seg_per_block, tiles, log2n, detrend_c, stream);        \
   }
-WELCH_ENTRY(welch_accum_f32, kWelch)
 WELCH_ENTRY(spec_psd_f32, kPsd)
 WELCH_ENTRY(csd_accum_f32, kCsd)
-WELCH_ENTRY(coh_accum_f32, kCoh)
 WELCH_ENTRY(welch_c2c_f32, kC2c)
 #undef WELCH_ENTRY
 
-// The launch shape of entry point `kind` (0 welch_accum, 1 spec_psd, 2
-// csd_accum, 3 coh_accum, 4 welch_c2c) for `num`
+// The launch shape of entry point `kind` (1 spec_psd, 2 csd_accum, 4
+// welch_c2c) for `num`
 // segments of `batch` rows at nfft = 2^log2n on the current device:
 // *seg_per_block and *tiles.  Returns a CUDA error (0 = ok).
 int welch_tiles(int kind, long long batch, int num, int log2n, int* seg_per_block,
                 int* tiles) {
   if (batch < 1 || num < 1) return cudaErrorInvalidValue;
   switch (kind) {
-    case kWelch: return tiles_dispatch<kWelch>(batch, num, log2n, seg_per_block, tiles);
     case kPsd: return tiles_dispatch<kPsd>(batch, num, log2n, seg_per_block, tiles);
     case kCsd: return tiles_dispatch<kCsd>(batch, num, log2n, seg_per_block, tiles);
-    case kCoh: return tiles_dispatch<kCoh>(batch, num, log2n, seg_per_block, tiles);
     case kC2c: return tiles_dispatch<kC2c>(batch, num, log2n, seg_per_block, tiles);
     default: return cudaErrorInvalidValue;
   }

@@ -19,11 +19,19 @@
 
 A frame is ``nperseg`` points of a ``[..., t]`` signal at hop ``hop``,
 less its mean when ``detrend == "constant"`` (each plane of a complex
-signal on its own), times the window, zero-padded to ``nfft``.  Five run
-in ``csrc/welch_fft.cu``, one kernel template; a block takes a tile of
-consecutive segments (the library's ``welch_tiles`` sizes the grid), and
-the accumulators write one partial row per block, which ``torch.sum``
-adds in a fixed order (no float atomics).  B20 runs in
+signal on its own), times the window, zero-padded to ``nfft``.  B16 and
+B18 run in ``csrc/welch_acc_fft.cu`` on ``mixed_fft.cuh``'s compiled pow2
+passes: two real frames transformed as one complex frame (B16: frames 2p
+and 2p + 1 of a row, or at nfft 8192 and 16384 B20's half-length
+transform of each frame; B18: segment s of x and of y), the two spectra
+separated per bin and their sums kept per thread; each block writes one
+row of its sums, which ``torch.sum`` adds in a fixed order (the
+library's ``welch_acc_shape`` sizes the grid; ``_acc_passes`` is the
+plain version of its passes and epilogue).  The other three (B17, B19,
+B21) run in ``csrc/welch_fft.cu``, one kernel template; a block takes a tile of
+consecutive segments (``welch_tiles`` sizes the grid), and the
+accumulators write one partial row per block, which ``torch.sum`` adds in
+a fixed order.  No kernel uses float atomics.  B20 runs in
 ``csrc/spec_fft.cu`` and B22 in ``csrc/spec_c2c_fft.cu``, both on
 ``mixed_fft.cuh``'s compiled pow2 passes, several segments a block, each
 into a planar or a complex64 sink.
@@ -83,13 +91,17 @@ spec_c2c_launches = 0
 spec_c2c_c64_launches = 0
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = [_P] * 9 + [_LL, _LL] + [_I] * 7 + [_P]
+_ARGTYPES = [_P] * 7 + [_LL, _LL] + [_I] * 7 + [_P]
 _TILES_ARGTYPES = [_I, _LL, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
-# kind -> (C entry point, output planes, the kind's number in welch_tiles);
-# the counter is f"{kind}_launches"
-_KERNELS = {"welch": ("welch_accum_f32", 1, 0), "psd": ("spec_psd_f32", 1, 1),
-            "csd": ("csd_accum_f32", 2, 2), "coh": ("coh_accum_f32", 4, 3),
+# welch_fft.cu's kinds: kind -> (C entry point, output planes, the kind's
+# number in welch_tiles); the counter is f"{kind}_launches"
+_KERNELS = {"psd": ("spec_psd_f32", 1, 1), "csd": ("csd_accum_f32", 2, 2),
             "c2c": ("welch_c2c_f32", 1, 4)}
+# welch_acc_fft.cu's kinds (B16, B18): kind -> (its number in welch_acc_f32
+# and welch_acc_shape, output planes)
+_ACC = {"welch": (0, 1), "coh": (1, 4)}
+_ACC_ARGTYPES = [_I] + [_P] * 10 + [_LL, _LL] + [_I] * 7 + [_P]
+_ACC_SHAPE_ARGTYPES = [_I, _LL, _I, _I] + [ctypes.POINTER(_I)] * 2
 # kinds whose x and y are the planes of one complex signal (nfft bins; B22's
 # complex64 sink, "spec_c2c_c64", takes x complex64 too, or a real x with no
 # y); B20 (spec_fft.cu) writes planes ("spec") or complex64 ("spec_c64"),
@@ -232,9 +244,96 @@ def _spec_passes(x, win, nperseg, hop, nfft, detrend, roll_s=0, scale=None, pad=
     return torch.complex(*cuda_fft._r2c_unpack(Z.real, Z.imag, nfft, scale))
 
 
+def _acc_passes(kind, x, y, win, nperseg, hop, nfft, detrend, half=False):
+    """Plain torch version of the welch_acc_fft kernel's passes and
+    epilogue (B16 ``"welch"``, B18 ``"coh"``): the frames as the kernel
+    makes them, two real frames a complex one z = a + i b (B16: frames 2p
+    and 2p + 1 of a row, an odd count's last with a zero plane; B18:
+    segment s of x and of y, of y and of x for odd s), the fixed passes of
+    ``cuda_fft._mixed_radix_plan``(nfft) on the kernel's pass roots, then
+    per bin k = 0..nfft/2, A = Z[k] and B = conj Z[(nfft - k) mod nfft]:
+    B16 sums (|A|^2 + |B|^2)/2 over the pairs; B18 separates FFT(a) = (A +
+    B)/2 and FFT(b) = (A - B)/(2i), X and Y or (odd s) Y and X, and sums Re
+    and Im of conj(X) Y, |X|^2 and |Y|^2.  With ``half``, B16's other
+    design: :func:`_spec_passes`, B20's half-length transform of each
+    frame, and |X|^2 summed over the segments (the source's kWelchHalf says
+    at which nfft the kernel runs it; both designs compute one function).
+    The kernel's outputs; no CUDA path calls it."""
+    def frames(v):
+        return _frames(v, win, nperseg, hop, nfft, detrend)
+
+    if kind == "welch" and half:
+        X = _spec_passes(x, win, nperseg, hop, nfft, detrend)
+        return ((X.real ** 2 + X.imag ** 2).sum(-2),)
+    fx = frames(x)
+    if kind == "coh":  # odd segments swap the planes
+        fy = frames(y)
+        swap = (torch.arange(fx.shape[-2], device=x.device) % 2 == 1)[:, None]
+        z = torch.complex(torch.where(swap, fy, fx), torch.where(swap, fx, fy))
+    else:
+        if fx.shape[-2] % 2:
+            fx = torch.cat([fx, torch.zeros_like(fx[..., :1, :])], -2)
+        z = torch.complex(fx[..., 0::2, :], fx[..., 1::2, :])
+    tab = cuda_fft._twiddle_table(nfft, FORWARD, x.device, cuda_fft._pass_roots_np)
+    Z = cuda_fft._fixed_passes(z, FORWARD, torch.complex(tab[:, 0], tab[:, 1]),
+                               cuda_fft._mixed_radix_plan(nfft))
+    k = torch.arange(nfft // 2 + 1, device=x.device)
+    A, C = Z[..., k], Z[..., (nfft - k) % nfft]
+    if kind == "welch":
+        return ((0.5 * (A.real ** 2 + A.imag ** 2 + C.real ** 2 + C.imag ** 2)).sum(-2),)
+    # FFT(a) = (A + conj C)/2, FFT(b) = (A - conj C)/(2i)
+    fr, fi = 0.5 * (A.real + C.real), 0.5 * (A.imag - C.imag)
+    hr, hi = 0.5 * (A.imag + C.imag), 0.5 * (C.real - A.real)
+    pf, ph, im = fr * fr + fi * fi, hr * hr + hi * hi, fr * hi - fi * hr
+    return ((fr * hr + fi * hi).sum(-2), torch.where(swap, -im, im).sum(-2),
+            torch.where(swap, ph, pf).sum(-2), torch.where(swap, pf, ph).sum(-2))
+
+
 # ---------------------------------------------------------------------- #
 # the kernels
 # ---------------------------------------------------------------------- #
+@functools.lru_cache(maxsize=256)
+def _acc_shape(kind, batch: int, num: int, nfft: int, device) -> tuple[int, int]:
+    """(rounds a block, blocks a row) of ``kind``'s grid in welch_acc_fft,
+    from the library (``welch_acc_shape``: one wave of the device's SMs at
+    the kernel's occupancy); asked once per shape and device."""
+    iters, tiles = _I(), _I()
+    build.launch("welch_acc_fft", "welch_acc_shape", _ACC_SHAPE_ARGTYPES, device,
+                 _ACC[kind][0], batch, num, nfft.bit_length() - 1, ctypes.byref(iters),
+                 ctypes.byref(tiles), what=f"welch_acc_shape failed ({kind}, nfft={nfft})")
+    return iters.value, tiles.value
+
+
+def _acc_launch(kind, x, y, win, nperseg, hop, nfft, detrend):
+    """Run welch_acc_fft's kernel (B16 ``"welch"``, B18 ``"coh"``) on CUDA
+    tensors; the outputs ``[..., nfft/2 + 1]``: one row a block, summed
+    over a signal row's blocks by ``torch.sum`` where there are several."""
+    number, nout = _ACC[kind]
+    lead, t = x.shape[:-1], x.shape[-1]
+    batch = math.prod(lead)
+    num = 1 + (t - nperseg) // hop
+    bins = nfft // 2 + 1
+    if batch == 0:
+        return tuple(x.new_zeros((*lead, bins)) for _ in range(nout))
+    x = x.contiguous()
+    y = None if y is None else y.contiguous()
+    iters, tiles = _acc_shape(kind, batch, num, nfft, x.device)
+    outs = list(x.new_empty((nout, batch, tiles, bins)).unbind(0))
+    ptrs = [o.data_ptr() for o in outs] + [None] * (4 - nout)
+    tw = cuda_fft._twiddle_table(nfft, FORWARD, x.device, cuda_fft._pass_roots_np)
+    build.launch("welch_acc_fft", "welch_acc_f32", _ACC_ARGTYPES, x.device, number,
+                 x.data_ptr(), None if y is None else y.data_ptr(),
+                 win.contiguous().data_ptr(), *ptrs, tw.data_ptr(),
+                 *cuda_fft._r2c_tables(nfft, x.device), batch, t, nperseg, hop, num,
+                 nfft.bit_length() - 1, int(detrend == "constant"), iters, tiles,
+                 cuda_fft._stream(x),
+                 what=f"welch_acc_f32 launch failed ({kind}, batch={batch}, t={t}, "
+                      f"nperseg={nperseg}, hop={hop}, nfft={nfft})")
+    globals()[f"{kind}_launches"] += 1
+    # the blocks' rows, summed in a fixed order
+    return tuple((o.sum(1) if tiles > 1 else o[:, 0]).reshape(*lead, bins) for o in outs)
+
+
 @functools.lru_cache(maxsize=256)
 def _tiles(kind, batch: int, num: int, nfft: int, device) -> tuple[int, int]:
     """(segments per block S, tiles) of ``kind``'s grid, from the library
@@ -248,7 +347,10 @@ def _tiles(kind, batch: int, num: int, nfft: int, device) -> tuple[int, int]:
 
 
 def _launch(kind, x, y, win, nperseg, hop, nfft, detrend):
-    """Run one of welch_fft's five kernels on CUDA tensors; the outputs."""
+    """Run the kernel of ``kind`` (welch, psd, csd, coh, c2c: welch_acc_fft's
+    two, welch_fft's three) on CUDA tensors; the outputs."""
+    if kind in _ACC:
+        return _acc_launch(kind, x, y, win, nperseg, hop, nfft, detrend)
     fn, nout, _ = _KERNELS[kind]
     lead, t = x.shape[:-1], x.shape[-1]
     batch = math.prod(lead)
@@ -264,7 +366,7 @@ def _launch(kind, x, y, win, nperseg, hop, nfft, detrend):
         outs = [x.new_empty((batch, num, bins)) for _ in range(nout)]
     else:
         outs = list(x.new_empty((nout, batch, tiles, bins)).unbind(0))
-    ptrs = [o.data_ptr() for o in outs] + [None] * (4 - nout)
+    ptrs = [o.data_ptr() for o in outs] + [None] * (2 - nout)
     if kind in _COMPLEX:  # the nfft-point transform, no recombination
         tw, half = cuda_fft._twiddle_table(nfft, FORWARD, x.device), None
     else:  # B6's half-length transform and its recombination table

@@ -32,18 +32,24 @@ plane (set "plane"); the per-segment R2C kernel (B20) at a 2^22 signal
 with nperseg 4096, hop 2048, through each of its sinks, beside torch.fft's
 composition of the same function, and at every pow2 nfft of 128..16384 at
 half overlap over 2^22 points, stft of 2^20 samples (events, all of its
-device work, the kernel's) beside torch.stft, and the five welch_kernel
-segment-spectrum kinds' output bits, to compare two trees (set "spec"); the
+device work, the kernel's) beside torch.stft, and the output bits of the
+three segment-spectrum kinds left on welch_kernel, to compare two trees
+(set "spec"); the
 filtered rows (B9) at 4096 x 4096 and at every pow2 n at 1000 rows in both
 layouts beside B1's complex64 entry, SpectralFilter and hilbert at 4096 x
 4096 (set "filt"); the per-segment two-sided spectra (B22) at 2^22 in both
 sources and sinks and at every pow2 nfft, the complex spectrogram and csd
-of complex 2^22 signals (set "c2c"); and the output bits of the kernels
-kept as they were, chip_smoke.kept_bits (set "bits").
+of complex 2^22 signals (set "c2c"); welch's and coherence's segment sums
+(B16, B18) at a 2^22 signal with nperseg 4096, hop 2048, at 64 x 2^20
+with nperseg 256, hop 128 (scipy's defaults) and at every pow2 nfft of
+128..16384 at half overlap over 2^22 points, each kernel alone and with
+all of its device work, beside torch.fft's composition, and the welch and
+coherence calls at those shapes (set "welch"); and the output bits of the
+kernels kept as they were, chip_smoke.kept_bits (set "bits").
 
     python3 scripts/time_composite_rows.py [--tree DIR] [--label NAME] [--out FILE]
                                            [--set rows|columns|chirp|pow2|cols|plane|spec|
-                                                  filt|c2c|bits|all]
+                                                  filt|c2c|welch|bits|all]
 
 ``--tree`` imports ``fft_wgpu_tpu_torch`` from another checkout (for
 example a parent commit unpacked with ``git archive``), so that two
@@ -103,7 +109,10 @@ def device_ms(fn, name, reps=20):
     """Device ms per call of the kernels named ``name`` (a whole word of
     the demangled name) from a torch.profiler window of ``reps`` calls:
     free of the host's launch time, which CUDA events around a short call
-    include."""
+    include.  The window's time is divided by the launches it holds and
+    multiplied by the launches a call makes (their count over the calls,
+    rounded), so a launch the profiler missed does not read as a faster
+    call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -115,11 +124,12 @@ def device_ms(fn, name, reps=20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and re.search(rf"\b{name}\b", e.name))
-        if total > 0:
-            return total / 1e3 / reps
+        times = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and re.search(rf"\b{name}\b", e.name)]
+        if times:
+            per_call = max(1, round(len(times) / reps))
+            return sum(times) / len(times) * per_call / 1e3
     raise RuntimeError(f"the profiler saw no {name} kernel in 3 windows")
 
 
@@ -138,7 +148,7 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="append the JSON line here")
     ap.add_argument("--set", default="all",
                     choices=("rows", "columns", "chirp", "pow2", "cols", "plane", "spec",
-                             "filt", "c2c", "bits", "all"),
+                             "filt", "c2c", "welch", "bits", "all"),
                     help="which kernels to time")
     args = ap.parse_args()
 
@@ -175,6 +185,8 @@ def main() -> int:
         time_filt(ft, cuda_fft, dev, gen, args.label, result)
     if args.set in ("c2c", "all"):
         time_c2c(ft, dev, gen, args.label, result)
+    if args.set in ("welch", "all"):
+        time_welch(ft, dev, gen, args.label, result)
     if args.set == "bits":
         # the kept kernels' output bits (chip_smoke.kept_bits on this tree's modules)
         sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -206,7 +218,8 @@ def main() -> int:
         result["times"][key]["device"] = device_ms(fns["kernel"], f"{kernel}_kernel")
         print(f"{args.label} | {key} | rel-L2 {err:.3e} | " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in result["times"][key].items()), flush=True)
-    if args.set in ("columns", "chirp", "pow2", "cols", "plane", "spec", "filt", "c2c", "bits"):
+    if args.set in ("columns", "chirp", "pow2", "cols", "plane", "spec", "filt", "c2c", "welch",
+                    "bits"):
         return finish(result, args)
     fr = torch.complex(torch.randn(16, 1080, 1920, device=dev, generator=gen),
                        torch.randn(16, 1080, 1920, device=dev, generator=gen))
@@ -538,9 +551,9 @@ def time_spec(ft, dev, gen, label, result):
     sink and, where the tree has one, its complex64 sink, beside torch.fft's
     composition (unfold, detrend, window, rfft); B20 at every pow2 nfft of
     128..16384 at half overlap over 2^22 points; stft of 2^20 samples at
-    n_fft 512, hop 128 beside torch.stft; and the bits of the five
-    segment-spectrum kinds left on welch_kernel (welch, psd, csd, coh, c2c)
-    at a 2^20 signal (``bits`` in the JSON line)."""
+    n_fft 512, hop 128 beside torch.stft; and the bits of the three
+    segment-spectrum kinds left on welch_kernel (psd, csd, c2c) at a 2^20
+    signal (``bits`` in the JSON line)."""
     import torch
 
     from fft_wgpu_tpu_torch.ops import cuda_welch
@@ -585,10 +598,10 @@ def time_spec(ft, dev, gen, label, result):
            reps=50)
     y20 = torch.randn(1 << 20, device=dev, generator=gen)
     w = torch.hann_window(4096, device=dev)
-    # the five kinds on welch_kernel in every tree since B22 left it
+    # the three kinds on welch_kernel in every tree since B16 and B18 left it
     result["bits"] = {kind: _bits(cuda_welch._launch(kind, x20, y20 if kind in (
-        "csd", "coh", "c2c") else None, w, 4096, 2048, 4096, "constant"))
-        for kind in ("welch", "psd", "csd", "coh", "c2c")}
+        "csd", "c2c") else None, w, 4096, 2048, 4096, "constant"))
+        for kind in ("psd", "csd", "c2c")}
     print(f"{label} | bits of the welch_kernel kinds | {result['bits']}", flush=True)
 
 
@@ -716,6 +729,80 @@ def time_c2c(ft, dev, gen, label, result):
     want = (X.conj() * Y).mean(-2) / float((hann.double() ** 2).sum())
     record("csd 2^22 complex64", rel_l2(cs(), want), {"csd": cs},
            {"device all": (cs, every), "device kernel": (cs, b22)}, reps=20)
+
+
+def time_welch(ft, dev, gen, label, result):
+    """B16 (welch) and B18 (coh) through ``cuda_welch._launch`` at a 2^22
+    signal with nperseg 4096, hop 2048 (a hann window, constant detrend:
+    welch's and coherence's defaults at path 6's shape), B16 at 64 x 2^20
+    with nperseg 256, hop 128 (scipy's defaults), and both at every pow2
+    nfft of 128..16384 at half overlap over 2^22 points: the events of the
+    call, the kernel's device time and all of the call's device work (the
+    kernel and the sum over its partial rows), beside torch.fft's
+    composition (unfold, detrend, window, rfft, the products summed); then
+    ft.welch and ft.coherence at the first two shapes (events, all of their
+    device work, the kernel's)."""
+    import torch
+
+    from fft_wgpu_tpu_torch.ops import cuda_welch
+
+    record = recorder(label, result)
+    every = r"\w+"
+    kernel = r"welch(_acc)?_kernel"  # the parent's welch_kernel<., 0 or 3>, or welch_acc_kernel
+    x, y = (torch.randn(1 << 22, device=dev, generator=gen) for _ in range(2))
+    xb = torch.randn(64, 1 << 20, device=dev, generator=gen)
+
+    def composed(kind, v, u, w, nperseg, hop, nfft, detrend):
+        def spectra(a):
+            fr = a.unfold(-1, nperseg, hop)
+            if detrend == "constant":
+                fr = fr - fr.mean(-1, keepdim=True)
+            return torch.fft.rfft(fr * w.to(a.dtype), n=nfft)
+
+        X = spectra(v)
+        if kind == "welch":
+            return ((X.real ** 2 + X.imag ** 2).sum(-2),)
+        Y = spectra(u)
+        P = (X.conj() * Y).sum(-2)
+        return (P.real, P.imag, (X.real ** 2 + X.imag ** 2).sum(-2),
+                (Y.real ** 2 + Y.imag ** 2).sum(-2))
+
+    def flat(outs):
+        return torch.cat([o.reshape(-1) for o in outs])
+
+    shapes = [("welch", x, ft.hann_window(4096, device=dev), (4096, 2048, 4096, "constant")),
+              ("welch", xb, ft.hann_window(256, device=dev), (256, 128, 256, "constant")),
+              ("coh", x, ft.hann_window(4096, device=dev), (4096, 2048, 4096, "constant"))]
+    shapes += [(kind, x, ft.hann_window(1 << e, device=dev),
+                (1 << e, 1 << e - 1, 1 << e, "constant"))
+               for kind in ("welch", "coh") for e in range(7, 15)]
+    for kind, v, w, args in shapes:
+        u = y if kind == "coh" else None
+        fns = {"kernel": lambda: cuda_welch._launch(kind, v, u, w, *args),
+               "torch.fft": lambda: composed(kind, v, u, w, *args)}
+        want = composed(kind, v.double(), None if u is None else u.double(), w, *args)
+        err = rel_l2(flat(fns["kernel"]()), flat(want))
+        record("{} {} nperseg {} hop {} nfft {} {}".format(
+            kind, "x".join(map(str, v.shape)), *args), err, fns,
+            {"device kernel": (fns["kernel"], kernel), "device all": (fns["kernel"], every)},
+            reps=20)
+    seg = {"nperseg": 4096, "noverlap": 2048}
+    calls = {"welch 2^22 nperseg 4096": (lambda: ft.welch(x, **seg)[1], "welch"),
+             "welch 64x2^20 scipy defaults": (lambda: ft.welch(xb)[1], "welch"),
+             "coherence 2^22 nperseg 4096": (lambda: ft.coherence(x, y, **seg)[1], "coh")}
+    for key, (call, kind) in calls.items():
+        v, args = (xb, (256, 128, 256)) if "64x" in key else (x, (4096, 2048, 4096))
+        w = ft.hann_window(args[0], device=dev)
+        P = composed(kind, v.double(), y.double(), w, *args, "constant")
+        if kind == "welch":  # the density: the mean over segments, one-sided
+            num = 1 + (v.shape[-1] - args[0]) // args[1]
+            mult = torch.full((args[2] // 2 + 1,), 2.0, dtype=torch.float64, device=dev)
+            mult[0] = mult[-1] = 1.0
+            want = P[0] * mult / (num * float((w.double() ** 2).sum()))
+        else:
+            want = (P[0] ** 2 + P[1] ** 2) / (P[2] * P[3])
+        record(key, rel_l2(call(), want), {"call": call},
+               {"device all": (call, every), "device kernel": (call, kernel)}, reps=20)
 
 
 def randn_complex(dev, gen):

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Time launch-bound and cluster-size variants of the pow2 kernels of the
 torch port (rows_fft, B1; big_fft, B15; ax0_fft, B2/B3; fft2f_fft, B5;
-spec_fft, B20; filt_fft's filtered rows, B9; spec_c2c_fft, B22) on one CUDA
-card, each beside the kernel as it is.
+spec_fft, B20; filt_fft's filtered rows, B9; spec_c2c_fft, B22;
+welch_acc_fft, B16 and B18) on one CUDA card, each beside the kernel as it
+is.
 
     python3 scripts/time_pow2_variants.py
-        [--lib rows_fft|big_fft|ax0_fft|fft2f_fft|spec_fft|filt_fft|spec_c2c_fft]
+        [--lib rows_fft|big_fft|ax0_fft|fft2f_fft|spec_fft|filt_fft|spec_c2c_fft|
+               welch_acc_fft]
         [--out FILE]
 
 Variants: rows_fft with every launch bound at 64 registers (1024 threads an
@@ -33,10 +35,20 @@ RowsShape asks 80), and with the product staged in the row's shared
 buffer before the first pass (the kernel: formed in its loads);
 spec_c2c_fft with blocks of at least 256
 threads (the kernel: 128) and with RowsShape's launch bounds, up to 80
-registers (the kernel: 64).
+registers (the kernel: 64); welch_acc_fft with B16 on B20's half-length
+transform of each frame and the recombination of its bins at every nfft,
+and on two frames as one complex frame at every nfft (the kernel: the
+half-length transform at 8192 and 16384, kWelchHalf), with every sum in
+registers and with every sum in shared memory that fits (the kernel's
+kRegSums), with a grid of 2 and 4 waves of the SMs (the kernel: one
+wave), with a launch bound of 64 registers at every nfft (the kernel's
+kRegisters: 85 up to 4096), and with every load of the frame's mean
+unrolled (the kernel: a runtime loop), each call timed with the
+torch.sum over its partial rows where there are several.
 Each variant is
 the kernel's source with a line or two rewritten, compiled with the port's
-nvcc flags into ``fft_wgpu_tpu_torch/_build/variants/`` (all at once),
+nvcc flags into ``fft_wgpu_tpu_torch/_build/variants/`` (all at once;
+each ``libv<i>.log`` keeps ptxas's registers and spills),
 called through its complex64 entry point (ax0_fft and fft2f_fft: and the
 planar one), checked against torch.fft (relative L2 <= 1e-5) and timed by
 its kernel's device time from a torch.profiler window of 20
@@ -166,6 +178,43 @@ VARIANTS.update({
         C2C_BOUND, "  static constexpr int kMinBlocks = kBlock <= 128 ? 6 : kBlock == 256 ? 3 : "
                    "1024 / kBlock;\n"),
 })
+WELCH_HALF = ("constexpr bool kWelchHalf[8] = {false, false, false, false, false, false, true, "
+              "true};")
+WELCH_SUMS = "constexpr int kRegSums[2][8] = {{1, 1, 0, 0, 0, 0, 0, 0}, {4, 0, 0, 0, 0, 0, 0, 2}};"
+WELCH_REGS = "constexpr int kRegisters[8] = {85, 85, 85, 85, 85, 85, 64, 64};"
+WELCH_SLOTS = "  const long long slots = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);"
+WELCH_MEAN = ("      for (int i = tx; i < g.nperseg; i += T) {\n        ma += pa[i];\n"
+              "        if (pb != nullptr) mb += pb[i];\n      }\n")
+VARIANTS.update({
+    ("welch_acc_fft", "kernel"): None,
+    ("welch_acc_fft", "half-length welch"): (WELCH_HALF, WELCH_HALF.replace("false", "true")),
+    ("welch_acc_fft", "pairs of frames"): (WELCH_HALF, WELCH_HALF.replace("true", "false")),
+    ("welch_acc_fft", "sums in registers"): (
+        WELCH_SUMS, "constexpr int kRegSums[2][8] = {{1, 1, 1, 1, 1, 1, 1, 1}, "
+                    "{4, 4, 4, 4, 4, 4, 4, 4}};"),
+    ("welch_acc_fft", "sums in shared memory"): (
+        WELCH_SUMS, "constexpr int kRegSums[2][8] = {{0, 0, 0, 0, 0, 0, 0, 0}, "
+                    "{0, 0, 0, 0, 0, 0, 0, 2}};"),
+    ("welch_acc_fft", "2 waves"): (WELCH_SLOTS, WELCH_SLOTS.replace("(sms)", "(2 * sms)")),
+    ("welch_acc_fft", "4 waves"): (WELCH_SLOTS, WELCH_SLOTS.replace("(sms)", "(4 * sms)")),
+    ("welch_acc_fft", "64 registers"): (WELCH_REGS, WELCH_REGS.replace("85", "64")),
+    ("welch_acc_fft", "mean loads unrolled"): (
+        WELCH_MEAN, "#pragma unroll\n      for (int r = 0; r < N / T; ++r) {\n"
+                    "        const int i = tx + r * T;\n        if (i < g.nperseg) {\n"
+                    "          ma += pa[i];\n          if (pb != nullptr) mb += pb[i];\n"
+                    "        }\n      }\n"),
+})
+# the variants of each welch_acc_fft kind (the others build its kernel as it is)
+WELCH_COMMON = ("kernel", "2 waves", "4 waves", "64 registers", "mean loads unrolled")
+WELCH_VARIANTS = {"welch": WELCH_COMMON + ("half-length welch", "pairs of frames",
+                                           "sums in registers", "sums in shared memory"),
+                  "coh": WELCH_COMMON + ("sums in registers",)}
+# (kind, rows, t, nperseg) of welch_acc_fft's shapes, hop nperseg/2, nfft
+# nperseg, constant detrend: path 6's 2^22 and 64 x 2^20, and the envelope
+# at 2^22
+WELCH_SHAPES = (("welch", 1, 1 << 22, 4096), ("welch", 64, 1 << 20, 256),
+                ("coh", 1, 1 << 22, 4096)) + tuple(
+    (kind, 1, 1 << 22, 1 << e) for e in (7, 9, 13, 14) for kind in ("welch", "coh"))
 # (rows, n, n_in) of filt_fft's shapes: SpectralFilter's 4096^2, hilbert's
 # half spectrum, and 1000 rows at the ends and middle of the envelope
 FILT_SHAPES = ((4096, 4096, 4096), (4096, 4096, 2049), (1000, 128, 128), (1000, 1024, 1024),
@@ -212,6 +261,7 @@ def build_variants():
         cu.write_text(src)
         proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
                                "-o", str(lib), str(cu)], capture_output=True, text=True)
+        lib.with_suffix(".log").write_text(f"{lib_name} {name}\n" + proc.stdout + proc.stderr)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on variant {name!r}:\n{proc.stderr}")
         return (lib_name, name), str(lib)
@@ -225,7 +275,7 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="append the JSON line here")
     ap.add_argument("--lib", default=None,
                     choices=("rows_fft", "big_fft", "ax0_fft", "fft2f_fft", "spec_fft",
-                             "filt_fft", "spec_c2c_fft"),
+                             "filt_fft", "spec_c2c_fft", "welch_acc_fft"),
                     help="only this kernel's variants")
     args = ap.parse_args()
     if args.lib:
@@ -237,7 +287,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_pow2_variants: no CUDA device", file=sys.stderr)
         return 1
-    from fft_wgpu_tpu_torch.ops import bigfft, cuda_fft
+    from fft_wgpu_tpu_torch.ops import bigfft, cuda_fft, cuda_welch
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -246,6 +296,12 @@ def main() -> int:
     P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     fns = {}
     for (lib_name, name), lib in build_variants().items():
+        if lib_name == "welch_acc_fft":  # its launch and its shape
+            f, shape = ctypes.CDLL(lib).welch_acc_f32, ctypes.CDLL(lib).welch_acc_shape
+            f.argtypes, shape.argtypes = cuda_welch._ACC_ARGTYPES, cuda_welch._ACC_SHAPE_ARGTYPES
+            f.restype = shape.restype = I
+            fns[lib_name, name] = (f, shape)
+            continue
         f = getattr(ctypes.CDLL(lib), f"{lib_name}_c64")
         f.argtypes = {"rows_fft": [P, P, P, LL, I, I, F, P],
                       "big_fft": [P, P, P, LL, I, I, I, F, P],
@@ -478,6 +534,56 @@ def main() -> int:
             {name: c2c_call(name, f, z, w, out, shape) for (lb, name), f in fns.items()
              if lb == "spec_c2c_fft"}, "spec_c2c_kernel")
         del z, out
+    def welch_oracle(kind, x, y, w, nperseg, hop, nfft):
+        # float64 torch.fft of the detrended frames, the products summed
+        def spectra(v):
+            fr = v.double().unfold(-1, nperseg, hop)
+            return torch.fft.rfft((fr - fr.mean(-1, keepdim=True)) * w.double(), n=nfft)
+
+        X = spectra(x)
+        if kind == "welch":
+            return (X.abs() ** 2).sum(-2).reshape(-1)
+        Y = spectra(y)
+        P = (X.conj() * Y).sum(-2)
+        return torch.cat([P.real, P.imag, (X.abs() ** 2).sum(-2),
+                          (Y.abs() ** 2).sum(-2)]).reshape(-1)
+
+    def welch_call(name, f, shape, kind, x, y, w, args):
+        nperseg, hop, nfft = args
+        number, nout = cuda_welch._ACC[kind]
+        batch, t = x.shape
+        num = 1 + (t - nperseg) // hop
+        it, ti = I(), I()
+        err = shape(number, batch, num, nfft.bit_length() - 1, ctypes.byref(it),
+                    ctypes.byref(ti))
+        if err:
+            raise RuntimeError(f"welch_acc_fft variant {name!r}: shape error {err}")
+        iters, tiles = it.value, ti.value
+        outs = x.new_empty((nout, batch, tiles, nfft // 2 + 1))
+        ptrs = [o.data_ptr() for o in outs.unbind(0)] + [None] * (4 - nout)
+        tabs = (cuda_fft._twiddle_table(nfft, -1, dev, cuda_fft._pass_roots_np).data_ptr(),
+                *cuda_fft._r2c_tables(nfft, dev))
+
+        def call():
+            err = f(number, x.data_ptr(), None if y is None else y.data_ptr(), w.data_ptr(),
+                    *ptrs, *tabs, batch, t, nperseg, hop, num, nfft.bit_length() - 1, 1,
+                    iters, tiles, stream)
+            if err:
+                raise RuntimeError(f"welch_acc_fft variant {name!r}: CUDA error {err}")
+            return (outs.sum(2) if outs.shape[2] > 1 else outs[:, :, 0]).reshape(-1)
+        return call
+
+    for kind, rows, t, nperseg in WELCH_SHAPES if ("welch_acc_fft", "kernel") in VARIANTS else ():
+        wargs = (nperseg, nperseg // 2, nperseg)
+        x = torch.randn(rows, t, device=dev, generator=gen)
+        y = torch.randn(rows, t, device=dev, generator=gen) if kind == "coh" else None
+        w = torch.hann_window(nperseg, device=dev)
+        want = welch_oracle(kind, x, y, w, *wargs)
+        calls = {name: welch_call(name, *fns["welch_acc_fft", name], kind, x, y, w, wargs)
+                 for name in WELCH_VARIANTS[kind] if ("welch_acc_fft", name) in fns}
+        run(f"welch_acc_fft {kind} {rows}x{t} nperseg={nperseg} hop={nperseg // 2}", x, want,
+            calls, r"\w+")
+        del x, y
     line = json.dumps(result)
     if args.out:
         with open(args.out, "a") as f:

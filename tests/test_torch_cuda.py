@@ -1069,21 +1069,31 @@ def _stack(outs):
 @pytest.mark.parametrize("nfft", [1 << e for e in range(7, 15)])
 @pytest.mark.parametrize("kind", WELCH_KINDS)
 def test_welch_kernels_match_plain_and_torch_fft(dev, nfft, kind):
+    """Each kernel against its plain version and float64 torch.fft at 38
+    segments (a ragged last tile) and at 37 and 39 (odd counts: B16's last
+    frame paired with a zero plane), one signal and batches of 3 and 5;
+    B16 and B18 also against the plain version of their own passes and
+    epilogue (``_acc_passes``; B16: of both its designs)."""
     cases = 0
     for nperseg in (nfft, nfft - nfft // 4 + 1):
         for hop in (nperseg, nperseg // 2, nperseg - nperseg // 8):
-            for lead, detrend in (((), False), ((3,), "constant")):
-                t = nperseg + 37 * hop + hop // 3  # a ragged last tile
+            for lead, detrend, num in (((), False, 38), ((3,), "constant", 38),
+                                       ((), "constant", 37), ((5,), False, 39)):
+                t = nperseg + (num - 1) * hop + hop // 3  # a ragged last tile
                 x, y = rrand(dev, *lead, t, seed=1), rrand(dev, *lead, t, seed=2)
                 w = torch.hann_window(nperseg, device=dev) + 0.1
                 args = (nperseg, hop, nfft, detrend)
                 got = _through(lambda: _welch_call(kind, x, y, w, args), **{kind: 1})
                 plain = _welch_call(kind, x, y, w, args, plain=True)
                 want = _welch_oracle(kind, x, y, w, *args)
-                assert rel_l2(_stack(got), _stack(plain)) < TOL, (nperseg, hop, lead)
-                assert rel_l2(_stack(got), _stack(want)) < TOL, (nperseg, hop, lead)
+                what = (nperseg, hop, lead, num)
+                assert rel_l2(_stack(got), _stack(plain)) < TOL, what
+                assert rel_l2(_stack(got), _stack(want)) < TOL, what
+                for half in {"welch": (False, True), "coh": (False,)}.get(kind, ()):
+                    passes = cuda_welch._acc_passes(kind, x, y, w, *args, half=half)
+                    assert rel_l2(_stack(got), _stack(passes)) < TOL, what
                 cases += 1
-    assert cases == 12
+    assert cases == 24
 
 
 def test_welch_kernels_are_bit_identical_across_runs(dev):

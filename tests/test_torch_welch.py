@@ -3,7 +3,9 @@
 (B17), ``coherence_accum_split`` (B18), ``welch_accum_c2c_split`` (B21),
 ``spec_rfft_split`` (B20, with its roll and padded output) and
 ``spec_c2c_split`` and ``spec_c2c_c64`` (B22, with the plain version of
-its kernel's passes, ``_spec_c2c_passes``) of ``ops/cuda_welch.py``.
+its kernel's passes, ``_spec_c2c_passes``) of ``ops/cuda_welch.py``, and
+the plain version of B16's and B18's kernel, ``_acc_passes`` (two real
+frames transformed as one complex frame).
 
 On a CPU tensor each entry point runs its plain version.  Inside the JAX
 package's envelope the same numpy inputs go through its Pallas kernels in
@@ -257,6 +259,58 @@ def test_plain_versions_equal_entry_points_on_cpu(rng):
     b, _ = cuda_welch.welch_accum_c2c_split_reference(_t(x), _t(y), w, *args)
     np.testing.assert_array_equal(_np(a), _np(b))
     assert a.shape == (2, 512) and num == 28
+
+
+# ---------------------------------------------------------------------- #
+# B16's and B18's kernel (welch_acc_fft): two real frames transformed as one
+# complex frame, the plain version of its passes and epilogue against the
+# JAX kernels in interpret mode (inside their envelope: nfft >= 512) or the
+# JAX composed form, and float64 numpy
+# ---------------------------------------------------------------------- #
+# (nperseg, hop) of each frame layout at nfft n
+ACC_FRAMES = {"hop<nperseg<nfft": lambda n: (3 * n // 4, n // 4), "hop=nperseg": lambda n: (n, n)}
+# (frame layout, batch, segment count, detrend): odd and even counts (B16's
+# last frame of an odd count pairs with a zero plane), batch 1 and 3
+ACC_CASES = [("hop<nperseg<nfft", (3,), 7, "constant"), ("hop<nperseg<nfft", (1,), 8, False),
+             ("hop=nperseg", (1,), 9, False), ("hop=nperseg", (3,), 6, "constant")]
+
+
+@pytest.mark.parametrize("case", ACC_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("nfft", [1 << e for e in range(7, 13)])
+@pytest.mark.parametrize("kind", ["welch", "coh"])
+def test_acc_passes_match_jax(kind, nfft, case, rng, assert_close):
+    layout, lead, num, detrend = case
+    nperseg, hop = ACC_FRAMES[layout](nfft)
+    t = nperseg + (num - 1) * hop + hop // 3
+    x, y, win = inputs(rng, lead, t, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    got = ([_np(o) for o in cuda_welch._acc_passes(kind, _t(x), _t(y), _t(win), *args)], num)
+    if j_pw.fused_welch_ok(t, *args):
+        want = jax_kernel(kind, x, y, win, *args)
+    else:  # nfft 128 and 256: the JAX package's composed form
+        assert nfft < 512
+        want = ([np.asarray(o) for o in _jax_outputs(kind, x, y, win, args)], num)
+    check_all(got, want, assert_close, f"{kind} two frames a transform vs JAX")
+    check_all(got, numpy_ref(kind, x, y, win, *args), assert_close,
+              f"{kind} two frames a transform vs numpy")
+    # on the CPU the entry point is the composed form, which the kernel's
+    # epilogue equals
+    check_all(got, port(kind, x, y, win, *args), assert_close, f"{kind} vs the entry point")
+
+
+@pytest.mark.parametrize("nfft", [128, 1024, 8192])
+def test_acc_half_length_welch_matches_numpy(nfft, rng, assert_close):
+    # B16's other design, B20's half-length transform of each frame, against
+    # float64 numpy and the pairs of frames (one function, two designs), at
+    # an odd segment count
+    nperseg, hop = 3 * nfft // 4, nfft // 4
+    x, y, win = inputs(rng, (2,), nperseg + 6 * hop + hop // 3, nperseg)
+    args = (nperseg, hop, nfft, "constant")
+    got = ([_np(cuda_welch._acc_passes("welch", _t(x), None, _t(win), *args, half=True)[0])], 7)
+    check_all(got, numpy_ref("welch", x, y, win, *args), assert_close,
+              f"half-length welch at nfft {nfft} vs numpy")
+    pairs = ([_np(cuda_welch._acc_passes("welch", _t(x), None, _t(win), *args)[0])], 7)
+    check_all(got, pairs, assert_close, f"half-length welch at nfft {nfft} vs pairs of frames")
 
 
 # ---------------------------------------------------------------------- #
