@@ -22,8 +22,9 @@ non-zero without a result line:
              ptxas's registers, stack and spills of ax0_gen_fft,
              rows_t_fft and chirp_fft (m = 8192 and 16384), and of every
              instantiation of rows_fft, big_fft, ax0_fft, r2c_fft,
-             fft2f_fft, spec_fft, filt_fft's filtered rows, spec_c2c_fft
-             and welch_acc_fft;
+             fft2f_fft, spec_fft (B20, and B19's psd_pairs),
+             filt_fft's filtered rows, spec_c2c_fft, welch_acc_fft and
+             c2r_fft's product kernel;
 2. kernel  — each kernel against its plain torch version and torch.fft,
              both signs, scale None and 1/n (rel-L2 <= 1e-5 each):
              rows_fft for every n in 128..16384 at rows 1 and 1000 and at
@@ -70,14 +71,18 @@ non-zero without a result line:
              points, zero past them, and in place); bank at every n for
              banks of 1 and 7 rows, and at 128 x 16384; the bits of the
              kernels kept as they were (rows_fft in both entries, bank,
-             psd, csd, c2c) against those recorded from them before
+             csd, c2c, c2r) against those recorded from them before
              (KEPT_BITS); c2r_prod at every n, ragged and
              padded, B of A's shape and broadcast, at 2048 x 8192 and 547 x
-             2048; ax0_gen at every composite n at m = 7 and 1000, and at
-             16 x 1080 x 1920, and the axis(-3) pass at [2, 1000, 7, 130];
+             2048, also against the plain version of its own passes
+             (cuda_fft._c2r_prod_passes); ax0_gen at every composite n at
+             m = 7 and 1000, and at 16 x 1080 x 1920, and the axis(-3)
+             pass at [2, 1000, 7, 130];
              ax0_gen again against the plain version of its own passes
              (cuda_fft._mixed_radix_axis) at every n, m = 7 and 1000;
-             the segment-spectrum kernels welch, psd, csd, coh, c2c, spec
+             the segment-spectrum kernels welch, psd (spec_fft's
+             psd_pairs, also against the plain version of its passes and
+             epilogue, cuda_welch._psd_passes), csd, coh, c2c, spec
              (spec_fft's planar sink; spec_c64 its complex64 sink, both
              against the plain version of its own passes,
              cuda_welch._spec_passes) and spec_c2c (spec_c2c_fft's planar
@@ -232,11 +237,12 @@ F32_FLOPS_PER_S = 67e12    # H100 SXM float32 on the CUDA cores (data sheet)
 # sha256 (first 16 hex digits) of the outputs of kernels this work keeps as
 # they were, on kept_bits's inputs: B1 (rows_fft, both entries; its row types
 # moved into mixed_fft.cuh), B10 (bank, on stockham.cuh; filt_fft.cu's other
-# kernel was redesigned) and B17, B19, B21 (welch_fft.cu, which B16, B18 and
-# B22 left).  Recorded from the kernels before that work (the libraries of
-# commit 9602cd4, which commit e09b20d kept, NVIDIA H100 80GB HBM3, by
-# scripts/time_composite_rows.py --set bits); B16's and B18's were taken out
-# when their kernel changed.
+# kernel was redesigned), B17 and B21 (welch_fft.cu, which B16, B18, B19 and
+# B22 left) and B7 (c2r, on stockham.cuh; c2r_fft.cu's product kernel was
+# redesigned).  Recorded from the kernels before that work (the libraries of
+# commit 9602cd4, which commits e09b20d, a87236e and d70af66 kept; B7's from
+# d70af66's; NVIDIA H100 80GB HBM3, by scripts/time_composite_rows.py --set
+# bits); B16's, B18's and B19's were taken out when their kernel changed.
 KEPT_BITS = {
     "rows_fft 128": "f4898d7e20440177", "rows_fft_c64 128": "f8f226c7db5eb860",
     "bank 128": "e1dd6b3ef9b691c1", "rows_fft 256": "82f279a213465b27",
@@ -250,19 +256,23 @@ KEPT_BITS = {
     "rows_fft 8192": "a2279294e2854e4d", "rows_fft_c64 8192": "bd4cd6dd5b46cd92",
     "bank 8192": "cbf3799d6f2e6a30", "rows_fft 16384": "28cc39cf96dc770d",
     "rows_fft_c64 16384": "528b0ca7f625ab05", "bank 16384": "b182cfb66738d9c9",
-    "psd 128": "32b1cbce04f4f84d", "csd 128": "aefe27bc9950ff34",
-    "c2c 128": "ef4cd28c8de09d08", "psd 512": "bd8a3c9d46f44a0c",
+    "csd 128": "aefe27bc9950ff34", "c2c 128": "ef4cd28c8de09d08",
     "csd 512": "66d0c3a466a54eeb", "c2c 512": "98af9c692c20a955",
-    "psd 4096": "49c56641423fedc5", "csd 4096": "ebdd0554d98096c5",
-    "c2c 4096": "042e59b3716124c7"}
+    "csd 4096": "ebdd0554d98096c5", "c2c 4096": "042e59b3716124c7",
+    "c2r 128": "06ef50a1a435c155", "c2r 256": "3451bfc9fc3925fe",
+    "c2r 512": "45ca057c4615bf12", "c2r 1024": "c5caf83026b6ef78",
+    "c2r 2048": "f127f085bd205511", "c2r 4096": "949f4792c8536cf9",
+    "c2r 8192": "5254006219b78e38", "c2r 16384": "7e0dac04eb4bc855"}
 
 
 def kept_bits(cuda_fft, cuda_welch, dev) -> dict:
     """sha256 (16 hex digits) of each kept kernel's outputs on inputs made
     with numpy from SEED: rows_fft through both entries and bank at every
-    pow2 n, both signs, and welch_fft's kinds psd, csd and c2c at nfft 128,
-    512 and 4096 over a 2^18 signal.  ``cuda_fft`` and ``cuda_welch`` may be
-    another checkout's modules (the parent's, to record KEPT_BITS)."""
+    pow2 n, both signs, welch_fft's kinds csd and c2c at nfft 128, 512 and
+    4096 over a 2^18 signal, then c2r at every pow2 n, scale None and 1/n,
+    on 37 rows of n/2 + 1 bins and 5 rows of pad_bins(n).  ``cuda_fft`` and
+    ``cuda_welch`` may be another checkout's modules (the parent's, to
+    record KEPT_BITS)."""
     import hashlib
 
     import torch
@@ -292,10 +302,17 @@ def kept_bits(cuda_fft, cuda_welch, dev) -> dict:
     x, y = real(1 << 18), real(1 << 18)
     for nfft in (128, 512, 4096):
         w = torch.from_numpy(np.hanning(nfft).astype(np.float32) + 0.1).to(dev)
-        for kind in ("psd", "csd", "c2c"):
-            u = y if kind in ("csd", "c2c") else None
-            out[f"{kind} {nfft}"] = digest(cuda_welch._launch(kind, x, u, w, nfft, nfft // 2,
+        for kind in ("csd", "c2c"):
+            out[f"{kind} {nfft}"] = digest(cuda_welch._launch(kind, x, y, w, nfft, nfft // 2,
                                                               nfft, "constant"))
+    for e in range(7, 15):
+        n = 1 << e
+        outs = []
+        for rows, bins in ((37, n // 2 + 1), (5, cuda_fft.pad_bins(n))):
+            Xr, Xi = real(rows, bins), real(rows, bins)
+            outs += [cuda_fft._c2r_launch(Xr, Xi, n, None),
+                     cuda_fft._c2r_launch(Xr, Xi, n, 1.0 / n)]
+        out[f"c2r {n}"] = digest(outs)
     torch.cuda.synchronize()
     return out
 
@@ -371,15 +388,17 @@ def multitaper_ref(x: np.ndarray, NW: float, K: int) -> np.ndarray:
 def ptxas_summary(log: str) -> list:
     """One "kernel<template arguments>: registers, stack, spill stores" entry
     per kernel of ax0_gen_fft's, rows_t_fft's, chirp_fft's, rows_fft's,
-    big_fft's, ax0_fft's, r2c_fft's, fft2f_fft's, spec_fft's, filt_fft's
-    (its filtered rows), spec_c2c_fft's and welch_acc_fft's nvcc -Xptxas -v
-    logs (chirp_fft's at m = 2^13 and 2^14)."""
+    big_fft's, ax0_fft's, r2c_fft's, fft2f_fft's, spec_fft's (B20 and B19),
+    filt_fft's (its filtered rows), spec_c2c_fft's, welch_acc_fft's and
+    c2r_fft's (its product kernel) nvcc -Xptxas -v logs (chirp_fft's at m =
+    2^13 and 2^14)."""
     out, kernel = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*?(ax0_gen_fft_kernel|rows_t_fft_kernel|"
                       r"chirp_fwd_kernel|chirp_inv_kernel|chirp_full_kernel|rows_fft_kernel|"
                       r"big_fft_kernel|ax0_fft_kernel|r2c_fft_kernel|fft2f_fft_kernel|"
-                      r"spec_fft_kernel|filt_fft_kernel|spec_c2c_kernel|welch_acc_kernel)"
+                      r"spec_fft_kernel|psd_pairs_kernel|filt_fft_kernel|spec_c2c_kernel|"
+                      r"welch_acc_kernel|c2r_prod_kernel)"
                       r"I(\w*?)EE", line)
         if m and m[1].startswith("chirp") and not m[2].endswith(("13", "14")):
             m = None
@@ -494,7 +513,7 @@ def main() -> int:
     for name, lib, _ in built:  # what ptxas reported for the redesigned kernels
         if name in ("ax0_gen_fft", "rows_t_fft", "chirp_fft", "rows_fft", "big_fft",
                     "ax0_fft", "r2c_fft", "fft2f_fft", "spec_fft", "filt_fft", "spec_c2c_fft",
-                    "welch_acc_fft"):
+                    "welch_acc_fft", "c2r_fft"):
             print(f"ptxas: {name} | " + "; ".join(ptxas_summary(
                 lib.with_suffix(".log").read_text())), flush=True)
 
@@ -886,12 +905,13 @@ def main() -> int:
         check(cuda_fft._filt_launch_c64(x, h, 1, 1.0 / n, out=x) is x, "filt_c64 out=x")
         compare("filt_c64", x, plain, want, f"in place 37x{n}")
     # B1 (its row types moved into mixed_fft.cuh), B10 (on stockham.cuh, the
-    # filtered rows' library redesigned) and B17, B19, B21 (welch_fft.cu,
-    # which B16, B18 and B22 left) give the bits they gave before
+    # filtered rows' library redesigned), B17, B21 (welch_fft.cu, which B16,
+    # B18, B19 and B22 left) and B7 (on stockham.cuh, the product C2R's
+    # kernel redesigned) give the bits they gave before
     got = kept_bits(cuda_fft, cuda_welch, dev)
     check(got == KEPT_BITS, "kept kernels' bits changed: "
           + str({k: v for k, v in got.items() if KEPT_BITS.get(k) != v}))
-    print(f"kernel rows_fft, rows_fft_c64, bank, psd, csd, c2c: {len(got)} "
+    print(f"kernel rows_fft, rows_fft_c64, bank, csd, c2c, c2r_fft: {len(got)} "
           f"outputs, the bits recorded before (KEPT_BITS)", flush=True)
     sweep("bank",
           [((n,), planes(crand(rows, n))) for n in pow2 for rows in (1, 7)]
@@ -901,10 +921,11 @@ def main() -> int:
           lambda x, s, sc, h: oracle(x * torch.complex(*h), s, sc))
 
     def c2r_prod_sweep():
-        """The product C2R against its plain version and torch.fft's irfft of
-        the product: ragged and padded (the pad columns hold garbage, which
-        it must not read), B of A's shape and one broadcast row, scale None
-        and 1/n; the product's DC and Nyquist imaginary parts are ignored."""
+        """The product C2R against its plain version, the plain version of its
+        own passes (cuda_fft._c2r_prod_passes) and torch.fft's irfft of the
+        product: ragged and padded (the pad columns hold garbage, which it
+        must not read), B of A's shape and one broadcast row, scale None and
+        1/n; the product's DC and Nyquist imaginary parts are ignored."""
         worst, cases = 0.0, 0
         for rows, n, bcasts in [(rows, 1 << e, (False, True)) for e in range(7, 15)
                                 for rows in (3, 1000)] + [(2048, 8192, (False,)),
@@ -927,7 +948,8 @@ def main() -> int:
                                                                       padded_in=pad)
                         worst = max(worst, compare(
                             "c2r_prod", y, yp, torch.fft.irfft(P, n=n, norm="forward") * s,
-                            what))
+                            what), check_close(y, cuda_fft._c2r_prod_passes(
+                                Ar, Ai, Br, Bi, n, scale), f"c2r_prod vs its passes {what}"))
                         cases += 1
         torch.cuda.synchronize()
         print(f"kernel c2r_prod: {cases} cases ok | worst rel-L2 {worst:.3e} | "
@@ -1042,10 +1064,14 @@ def main() -> int:
         got = run()
         err = check_close(flat(got), flat(plain), f"{kind} vs plain {what}")
         # welch_acc_fft: the plain version of its passes and epilogue too (B16:
-        # of both its designs, whichever the source runs at this nfft)
+        # of both its designs, whichever the source runs at this nfft); B19
+        # (spec_fft's psd_pairs) too
         for half in {"welch": (False, True), "coh": (False,)}.get(kind, ()):
             err = max(err, check_close(flat(got), flat(cuda_welch._acc_passes(
                 kind, x, y, w, *args, half=half)), f"{kind} vs its passes' plain version {what}"))
+        if kind == "psd":
+            err = max(err, check_close(got[0], cuda_welch._psd_passes(x, w, *args),
+                                       f"psd vs its passes' plain version {what}"))
         if with_oracle:
             oracle = torch_segments(kind, wide(x), wide(y), w, *args, *opts)
             err = max(err, check_close(flat(got), flat(oracle),
@@ -2213,9 +2239,9 @@ def main() -> int:
     alone("hilbert 4096x4096", lambda: ft.hilbert(r), ("r2c_fft", "filt_fft"),
           {"r2c_fft": 1, "r2c_fft_c64": 1, "filt": 1, "filt_c64": 1})
     profiles["fftconvolve 2048x4096"] = breakdown(lambda: ft.fftconvolve(a2, b2, axes=-1),
-                                                  ("r2c_fft", "c2r_fft"))
+                                                  ("r2c_fft", "c2r_prod"))
     profiles["oaconvolve 2^20x129"] = breakdown(lambda: ft.oaconvolve(sig, taps),
-                                                ("r2c_fft", "c2r_fft"))
+                                                ("r2c_fft", "c2r_prod"))
     profiles["CWT 8192 x 128 widths"] = breakdown(lambda: cw(s8k), ("rows_fft", "bank_fft"))
     profiles["fft2 16x1080x1920"] = breakdown(lambda: ft.fft2(fr), ("gen_fft", "ax0_gen_fft"),
                                               reps=5)
@@ -2269,7 +2295,9 @@ def main() -> int:
             # its blocks' rows and the estimator's normalisation
             alone(call, fn, ("welch_acc",), {"coh" if "coherence" in call else "welch": 1},
                   others=True)
-        else:  # B17, B19, B21: welch_kernel<...>
+        elif call in ("welch median 2^22", "spectrogram 2^22"):  # B19: spec_fft's psd_pairs
+            profiles[call] = breakdown(fn, ("psd_pairs",))
+        else:  # B17, B21: welch_kernel<...>
             profiles[call] = breakdown(fn, ("welch",))
 
     # the per-segment kernels at path 7's shapes, beside their plain versions
@@ -2468,7 +2496,7 @@ def main() -> int:
         entry("coh", "welch_acc_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:440",
               "coh 2^22 nperseg 4096 hop 2048", 8 * n22 + 4 * 4096 + 16 * 2049,
               2 * rfft_flops(4096, 2047)),
-        entry("psd", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:514",
+        entry("psd", "spec_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:514",
               "psd 2^22 nperseg 4096 hop 3584", 4 * n22 + 4 * 4096 + 4 * 1170 * 2049,
               rfft_flops(4096, 1170)),
         entry("c2c", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:582",

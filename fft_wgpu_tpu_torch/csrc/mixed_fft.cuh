@@ -604,6 +604,28 @@ struct PadShared {
   }
 };
 
+// Two real frames a and b (b null: a zero plane) as nfft complex points
+// a + i b, read by the first pass of the kernels that transform two frames
+// at once (welch_acc_fft.cu, B16 and B18; spec_fft.cu's B19): point j <
+// nperseg less each plane's mean, times the window; zero past.
+struct TwoFramesIn {
+  const float* a;
+  const float* b;
+  const float* w;  // in shared memory, or the caller's
+  int nperseg;
+  float ma, mb;
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void load(int j, float& u, float& v) const {
+    if (j >= nperseg) {
+      u = v = 0.f;
+      return;
+    }
+    const float wj = w[j];
+    u = (a[j] - ma) * wj;
+    v = b != nullptr ? (b[j] - mb) * wj : 0.f;
+  }
+};
+
 // The launch shape of the row kernels (rows_fft.cu, B1; filt_fft.cu, B9)
 // at n = 2^LOG2N: threads a row (16 points each), rows a block (one per
 // threadIdx.y, at least 128 threads a block), and the blocks an SM that the

@@ -134,27 +134,6 @@ struct AccArgs {
   int detrend;
 };
 
-// Frames a and b (null: a zero plane) as nfft complex points a + i b, read
-// by the first pass: point j < nperseg less each plane's mean, times the
-// window; zero past.
-struct PairIn {
-  const float* a;
-  const float* b;
-  const float* w;  // in shared memory, or the caller's
-  int nperseg;
-  float ma, mb;
-  static constexpr bool kShared = false;
-  __device__ __forceinline__ void load(int j, float& u, float& v) const {
-    if (j >= nperseg) {
-      u = v = 0.f;
-      return;
-    }
-    const float wj = w[j];
-    u = (a[j] - ma) * wj;
-    v = b != nullptr ? (b[j] - mb) * wj : 0.f;
-  }
-};
-
 // One real frame as nfft/2 complex points f[2k] + i f[2k+1] (B20's packing).
 struct HalfIn {
   const float* a;
@@ -276,7 +255,8 @@ welch_acc_kernel(const __grid_constant__ AccArgs g) {
     if constexpr (S::kHalf) {
       plan_fft<-1, LOG2N - 1>(AccRow<L, HalfIn>{HalfIn{pa, w, g.nperseg, ma / n}}, g.tw_m);
     } else {
-      plan_fft<-1, LOG2N>(AccRow<L, PairIn>{PairIn{pa, pb, w, g.nperseg, ma / n, mb / n}}, g.tw);
+      plan_fft<-1, LOG2N>(
+          AccRow<L, TwoFramesIn>{TwoFramesIn{pa, pb, w, g.nperseg, ma / n, mb / n}}, g.tw);
     }
     // The last pass ended with a barrier: this row's Z is in shared memory.
     if (valid) {

@@ -1,15 +1,14 @@
 // Fused segment-spectrum kernels: frame, detrend, window, FFT and the power
 // or cross products of every segment of a signal in one pass, summed over
-// segments or per segment.
+// segments.
 //
-// Replaces three TPU kernels of fft_wgpu_tpu/ops/pallas_welch.py:
-//   spec_psd_f32    (B19)  spec_psd_split, kernel _kernel_spec_psd
+// Replaces two TPU kernels of fft_wgpu_tpu/ops/pallas_welch.py:
 //   csd_accum_f32   (B17)  csd_accum_split, kernel _kernel_csd_accum
 //   welch_c2c_f32   (B21)  welch_accum_c2c_split, kernel _kernel_welch_accum_c2c
 // (B16 and B18, welch_accum_split and coherence_accum_split, are
-// welch_acc_fft.cu; B20, spec_rfft_split, the per-segment half spectra, is
-// spec_fft.cu; B22, spec_c2c_split, the per-segment two-sided spectra, is
-// spec_c2c_fft.cu.)
+// welch_acc_fft.cu; B19 and B20, spec_psd_split and spec_rfft_split, the
+// per-segment powers and half spectra, are spec_fft.cu; B22,
+// spec_c2c_split, the per-segment two-sided spectra, is spec_c2c_fft.cu.)
 //
 // Segment s of a row x of t points (s = 0 .. num-1, num = 1 + (t -
 // nperseg) / hop) is the frame of nfft points
@@ -27,7 +26,6 @@
 // on its own) the first pass reads the nfft complex
 // points (FramedComplexIn) and X_s is the full nfft-point spectrum, B1's
 // transform (rows_fft.cu).  Then, per bin:
-//   B19  |X_s|^2 written to row s of [batch, num, nfft/2 + 1];
 //   B17  sum_s conj(X_s) Y_s of two real signals of one shape (two rows);
 //   B21  sum_s |X_s|^2 over all nfft bins of a complex signal.
 //
@@ -48,9 +46,8 @@
 // What bounds it: per segment about 2.5*nfft*log2(nfft) flops for a real
 // frame (5*nfft*log2(nfft) for a complex one) against 4*hop (8*hop) bytes
 // of new signal, so at half overlap and nfft = 4096 every kind is set by
-// the bytes it must move, B19's mostly by the spectra it writes.  On the
-// H100 the kernels run many times those bounds (PERF.md): per segment a
-// block reads its frame twice (the mean, then the first pass; overlapping
+// the bytes it must move.  On the H100 the kernels run many times those
+// bounds (PERF.md): per segment a block reads its frame twice (the mean, then the first pass; overlapping
 // frames come again from L2) and crosses about 20 barriers, and at nfft =
 // 256 a block is one warp, so latency, not bytes or flops, sets the time.
 // The design keeps a block's shared rows and accumulators across its S
@@ -65,7 +62,7 @@ namespace {
 using namespace fftk;
 
 // the kinds' numbers in welch_tiles (ops/cuda_welch.py::_KERNELS)
-enum Kind { kPsd = 1, kCsd = 2, kC2c = 4 };
+enum Kind { kCsd = 2, kC2c = 4 };
 
 // Shape of kernel KIND at nfft = 2^LOG2N: the real kinds transform the
 // half-length row of nfft/2 points (B6's packing), the complex kinds the
@@ -74,8 +71,6 @@ template <int LOG2N, int KIND>
 struct Geom {
   static constexpr bool kReal = KIND != kC2c;
   static constexpr bool kTwo = KIND == kCsd;
-  // kinds that write every segment's row rather than sums over segments
-  static constexpr bool kPerSeg = KIND == kPsd;
   static constexpr int kLog2Row = kReal ? LOG2N - 1 : LOG2N;
   static constexpr int kRow = 1 << kLog2Row;
   static constexpr int kThreads = threads_for(kLog2Row);
@@ -242,9 +237,7 @@ welch_kernel(const float* __restrict__ x, const float* __restrict__ y,
         xr = zx.r[k];
         xi = zx.i[k];
       }
-      if constexpr (KIND == kPsd) {
-        o0[(static_cast<size_t>(b) * num + s) * BINS + k] = xr * xr + xi * xi;
-      } else if constexpr (KIND == kC2c) {
+      if constexpr (KIND == kC2c) {
         acc[0][i] += xr * xr + xi * xi;
       } else {
         float yr, yi;
@@ -255,16 +248,14 @@ welch_kernel(const float* __restrict__ x, const float* __restrict__ y,
     }
     __syncthreads();  // the next segment's first pass rewrites the rows
   }
-  if constexpr (!G::kPerSeg) {
-    float* outs[2] = {o0, o1};
-    const size_t row = (static_cast<size_t>(b) * tiles + tile) * BINS;
+  float* outs[2] = {o0, o1};
+  const size_t row = (static_cast<size_t>(b) * tiles + tile) * BINS;
 #pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const int k = threadIdx.x + i * T;
-      if (k >= BINS) break;
+  for (int i = 0; i < NB; ++i) {
+    const int k = threadIdx.x + i * T;
+    if (k >= BINS) break;
 #pragma unroll
-      for (int q = 0; q < NQ; ++q) outs[q][row + k] = acc[q][i];
-    }
+    for (int q = 0; q < NQ; ++q) outs[q][row + k] = acc[q][i];
   }
 }
 
@@ -374,8 +365,7 @@ extern "C" {
 // exp(-2pi*i*j/nfft) and no half table.  The grid is batch * tiles
 // blocks of seg_per_block segments each (welch_tiles).  csd_accum writes
 // o0, o1 = [batch, tiles, nfft/2 + 1] partial sums of Re, Im of conj(X) Y;
-// spec_psd o0 = [batch, num, nfft/2 + 1] of |X_s|^2; welch_c2c o0 = [batch, tiles,
-// nfft] partial sums of |X|^2 over the two-sided spectrum.  The kernel
+// welch_c2c o0 = [batch, tiles, nfft] partial sums of |X|^2 over the two-sided spectrum.  The kernel
 // launches on `stream` of the current device.  Returns
 // cudaGetLastError() (0 = ok).
 #define WELCH_ENTRY(NAME, KIND)                                                    \
@@ -386,20 +376,18 @@ extern "C" {
     return dispatch<KIND>(x, y, w, o0, o1, tw, half, batch, t, nperseg, hop, num, \
                           seg_per_block, tiles, log2n, detrend_c, stream);        \
   }
-WELCH_ENTRY(spec_psd_f32, kPsd)
 WELCH_ENTRY(csd_accum_f32, kCsd)
 WELCH_ENTRY(welch_c2c_f32, kC2c)
 #undef WELCH_ENTRY
 
-// The launch shape of entry point `kind` (1 spec_psd, 2 csd_accum, 4
-// welch_c2c) for `num`
+// The launch shape of entry point `kind` (2 csd_accum, 4 welch_c2c) for
+// `num`
 // segments of `batch` rows at nfft = 2^log2n on the current device:
 // *seg_per_block and *tiles.  Returns a CUDA error (0 = ok).
 int welch_tiles(int kind, long long batch, int num, int log2n, int* seg_per_block,
                 int* tiles) {
   if (batch < 1 || num < 1) return cudaErrorInvalidValue;
   switch (kind) {
-    case kPsd: return tiles_dispatch<kPsd>(batch, num, log2n, seg_per_block, tiles);
     case kCsd: return tiles_dispatch<kCsd>(batch, num, log2n, seg_per_block, tiles);
     case kC2c: return tiles_dispatch<kC2c>(batch, num, log2n, seg_per_block, tiles);
     default: return cudaErrorInvalidValue;

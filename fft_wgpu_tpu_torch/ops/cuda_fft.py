@@ -37,7 +37,8 @@ for fourteen of its entry points, and one fused pair of them.
   ``mixed_fft.cuh``), or one signal times every row of a filter bank,
   ``csrc/filt_fft.cu``;
 * ``irfft_prod_rows_split`` — C2R of the product of two half spectra
-  formed at load, ``csrc/c2r_fft.cu``'s second entry point.
+  staged once in shared memory, ``csrc/c2r_fft.cu``'s second kernel (on
+  the compiled pow2 passes of ``mixed_fft.cuh``).
 
 A CUDA tensor goes through the hand-written kernel, a CPU tensor through
 its plain version (``*_reference``).  There is no fallback between the two:
@@ -1279,8 +1280,8 @@ def irfft_rows_split_reference(Xr, Xi, n, scale=None, *, padded_in=False):
 
 
 # ---------------------------------------------------------------------- #
-# C2R of a spectrum product (pallas_fft.irfft_prod_rows_split): the C2R
-# kernel with A * B formed at load
+# C2R of a spectrum product (pallas_fft.irfft_prod_rows_split): A * B
+# staged once in shared memory, then the compiled pow2 passes
 # ---------------------------------------------------------------------- #
 def _check_c2r_prod(Ar, Ai, Br, Bi, n, padded_in) -> None:
     _check_c2r(Ar, Ai, n, padded_in)
@@ -1293,7 +1294,8 @@ def _check_c2r_prod(Ar, Ai, Br, Bi, n, padded_in) -> None:
 
 
 def _c2r_prod_launch(Ar, Ai, Br, Bi, n, scale):
-    """Run the c2r_fft kernel's product form on CUDA tensors."""
+    """Run the c2r_prod kernel (``c2r_fft.cu``'s second kernel, on the
+    compiled pow2 passes) on CUDA tensors."""
     global c2r_prod_launches
     bins = Ar.shape[-1]
     Ar, Ai, Br, Bi = (t.contiguous() for t in (Ar, Ai, Br, Bi))
@@ -1305,7 +1307,7 @@ def _c2r_prod_launch(Ar, Ai, Br, Bi, n, scale):
     build.launch("c2r_fft", "c2r_prod_fft_f32",
                  [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _F, _P], Ar.device,
                  Ar.data_ptr(), Ai.data_ptr(), Br.data_ptr(), Bi.data_ptr(), out.data_ptr(),
-                 _twiddle_table(m, INVERSE, Ar.device).data_ptr(),
+                 _twiddle_table(m, INVERSE, Ar.device, _pass_roots_np).data_ptr(),
                  _halfcomplex_table(n, INVERSE, Ar.device).data_ptr(), rows, b_rows,
                  m.bit_length() - 1, bins, _scale_arg(scale), _stream(Ar),
                  what=f"c2r_prod launch failed (n={n}, rows={rows}, b_rows={b_rows})")
@@ -1319,6 +1321,23 @@ def _c2r_prod(Ar, Ai, Br, Bi, n, scale, padded_in):
     if Ar.device.type != "cpu":
         raise ValueError(f"no C2R FFT for device {Ar.device}")
     return irfft_prod_rows_split_reference(Ar, Ai, Br, Bi, n, scale, padded_in=padded_in)
+
+
+def _c2r_prod_passes(Ar, Ai, Br, Bi, n, scale=None):
+    """Plain torch version of the c2r_prod kernel's own passes (B8): the
+    product X = A * B of bins 0..n/2 (B of A's shape or one broadcast row),
+    Z packed from X[k] and X[m-k] (:func:`_c2r_pack`: the DC and Nyquist
+    imaginary parts ignored), the fixed passes of
+    :func:`_mixed_radix_plan`(m) on the kernel's pass roots (sign +1), then
+    the scale (2/m of the packing's halves is numpy's 1/n) and z[j]
+    interleaved as x[2j], x[2j+1]: real ``[..., n]``.  No CUDA path calls
+    it."""
+    m = n // 2
+    Zr, Zi = _c2r_pack(*_cmul(*(v[..., :m + 1] for v in (Ar, Ai, Br, Bi))), n)
+    tab = _twiddle_table(m, INVERSE, Ar.device, _pass_roots_np)
+    z = _fixed_passes(torch.complex(Zr, Zi), INVERSE, torch.complex(tab[:, 0], tab[:, 1]),
+                      _mixed_radix_plan(m)) * (2.0 * _scale_arg(scale))
+    return torch.stack([z.real, z.imag], dim=-1).reshape(*z.shape[:-1], n)
 
 
 class _C2RProd(torch.autograd.Function):

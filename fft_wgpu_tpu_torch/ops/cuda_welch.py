@@ -27,14 +27,17 @@ transform of each frame; B18: segment s of x and of y), the two spectra
 separated per bin and their sums kept per thread; each block writes one
 row of its sums, which ``torch.sum`` adds in a fixed order (the
 library's ``welch_acc_shape`` sizes the grid; ``_acc_passes`` is the
-plain version of its passes and epilogue).  The other three (B17, B19,
-B21) run in ``csrc/welch_fft.cu``, one kernel template; a block takes a tile of
+plain version of its passes and epilogue).  B17 and B21 run in
+``csrc/welch_fft.cu``, one kernel template; a block takes a tile of
 consecutive segments (``welch_tiles`` sizes the grid), and the
 accumulators write one partial row per block, which ``torch.sum`` adds in
 a fixed order.  No kernel uses float atomics.  B20 runs in
 ``csrc/spec_fft.cu`` and B22 in ``csrc/spec_c2c_fft.cu``, both on
 ``mixed_fft.cuh``'s compiled pow2 passes, several segments a block, each
-into a planar or a complex64 sink.
+into a planar or a complex64 sink; B19 runs in ``spec_fft.cu`` too, two
+segments as one complex frame (B16's design) on nfft's compiled plan, each
+segment's powers stored (``_psd_passes`` is the plain version of its
+passes and epilogue).
 
 A CUDA tensor goes through the kernel, a CPU tensor through its plain
 version (``*_reference``: ``_frame``, ``_detrend_seg``, the window, the
@@ -77,7 +80,9 @@ __all__ = ["Unsupported", "fused_welch_ok", "welch_accum_split",
            "spec_c2c_c64_reference"]
 
 # Launches of each kernel (B16, B19, B17, B18, B21, B20, B22); callers may
-# reset them to 0.  ``spec_launches`` counts every launch of B20,
+# reset them to 0.  ``psd_launches`` counts B19's launches (spec_fft's
+# psd_pairs kernel, not counted in ``spec_launches``); ``spec_launches``
+# counts every launch of B20,
 # ``spec_c64_launches`` those of them into its complex64 sink; so do
 # ``spec_c2c_launches`` and ``spec_c2c_c64_launches`` for B22.
 welch_launches = 0
@@ -95,8 +100,7 @@ _ARGTYPES = [_P] * 7 + [_LL, _LL] + [_I] * 7 + [_P]
 _TILES_ARGTYPES = [_I, _LL, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
 # welch_fft.cu's kinds: kind -> (C entry point, output planes, the kind's
 # number in welch_tiles); the counter is f"{kind}_launches"
-_KERNELS = {"psd": ("spec_psd_f32", 1, 1), "csd": ("csd_accum_f32", 2, 2),
-            "c2c": ("welch_c2c_f32", 1, 4)}
+_KERNELS = {"csd": ("csd_accum_f32", 2, 2), "c2c": ("welch_c2c_f32", 1, 4)}
 # welch_acc_fft.cu's kinds (B16, B18): kind -> (its number in welch_acc_f32
 # and welch_acc_shape, output planes)
 _ACC = {"welch": (0, 1), "coh": (1, 4)}
@@ -244,6 +248,30 @@ def _spec_passes(x, win, nperseg, hop, nfft, detrend, roll_s=0, scale=None, pad=
     return torch.complex(*cuda_fft._r2c_unpack(Z.real, Z.imag, nfft, scale))
 
 
+def _psd_passes(x, win, nperseg, hop, nfft, detrend):
+    """Plain torch version of spec_fft's B19 kernel's passes and epilogue:
+    segments 2p and 2p + 1 as one complex frame z = a + i b (an odd count's
+    last with a zero plane), the fixed passes of
+    ``cuda_fft._mixed_radix_plan``(nfft) on the kernel's pass roots, and per
+    bin k = 0..nfft/2, A = Z[k] and C = Z[(nfft - k) mod nfft],
+    |FFT(a)|^2 = |A + conj C|^2/4 and |FFT(b)|^2 = |A - conj C|^2/4 to rows
+    2p and 2p + 1: ``[..., num, nfft/2 + 1]``.  No CUDA path calls it."""
+    fx = _frames(x, win, nperseg, hop, nfft, detrend)
+    num = fx.shape[-2]
+    if num % 2:
+        fx = torch.cat([fx, torch.zeros_like(fx[..., :1, :])], -2)
+    z = torch.complex(fx[..., 0::2, :], fx[..., 1::2, :])
+    tab = cuda_fft._twiddle_table(nfft, FORWARD, x.device, cuda_fft._pass_roots_np)
+    Z = cuda_fft._fixed_passes(z, FORWARD, torch.complex(tab[:, 0], tab[:, 1]),
+                               cuda_fft._mixed_radix_plan(nfft))
+    k = torch.arange(nfft // 2 + 1, device=x.device)
+    A, C = Z[..., k], Z[..., (nfft - k) % nfft]
+    pa = 0.25 * ((A.real + C.real) ** 2 + (A.imag - C.imag) ** 2)
+    pb = 0.25 * ((A.imag + C.imag) ** 2 + (C.real - A.real) ** 2)
+    P = torch.stack([pa, pb], -2).reshape(*Z.shape[:-2], -1, nfft // 2 + 1)
+    return P[..., :num, :]
+
+
 def _acc_passes(kind, x, y, win, nperseg, hop, nfft, detrend, half=False):
     """Plain torch version of the welch_acc_fft kernel's passes and
     epilogue (B16 ``"welch"``, B18 ``"coh"``): the frames as the kernel
@@ -348,24 +376,22 @@ def _tiles(kind, batch: int, num: int, nfft: int, device) -> tuple[int, int]:
 
 def _launch(kind, x, y, win, nperseg, hop, nfft, detrend):
     """Run the kernel of ``kind`` (welch, psd, csd, coh, c2c: welch_acc_fft's
-    two, welch_fft's three) on CUDA tensors; the outputs."""
+    two, spec_fft's B19, welch_fft's two) on CUDA tensors; the outputs."""
     if kind in _ACC:
         return _acc_launch(kind, x, y, win, nperseg, hop, nfft, detrend)
+    if kind == "psd":
+        return (_psd_launch(x, win, nperseg, hop, nfft, detrend),)
     fn, nout, _ = _KERNELS[kind]
     lead, t = x.shape[:-1], x.shape[-1]
     batch = math.prod(lead)
     num = 1 + (t - nperseg) // hop
     bins = nfft if kind in _COMPLEX else nfft // 2 + 1
     if batch == 0:
-        shape = (*lead, num, bins) if kind == "psd" else (*lead, bins)
-        return tuple(x.new_zeros(shape) for _ in range(nout))
+        return tuple(x.new_zeros((*lead, bins)) for _ in range(nout))
     x = x.contiguous()
     y = None if y is None else y.contiguous()
     per_block, tiles = _tiles(kind, batch, num, nfft, x.device)
-    if kind == "psd":
-        outs = [x.new_empty((batch, num, bins)) for _ in range(nout)]
-    else:
-        outs = list(x.new_empty((nout, batch, tiles, bins)).unbind(0))
+    outs = list(x.new_empty((nout, batch, tiles, bins)).unbind(0))
     ptrs = [o.data_ptr() for o in outs] + [None] * (2 - nout)
     if kind in _COMPLEX:  # the nfft-point transform, no recombination
         tw, half = cuda_fft._twiddle_table(nfft, FORWARD, x.device), None
@@ -380,10 +406,30 @@ def _launch(kind, x, y, win, nperseg, hop, nfft, detrend):
                  what=f"{fn} launch failed (batch={batch}, t={t}, nperseg={nperseg}, "
                       f"hop={hop}, nfft={nfft})")
     globals()[f"{kind}_launches"] += 1
-    if kind == "psd":
-        return tuple(o.reshape(*lead, num, bins) for o in outs)
     # the partial rows of the tiles, summed in a fixed order
     return tuple(o.sum(1).reshape(*lead, bins) for o in outs)
+
+
+def _psd_launch(x, win, nperseg, hop, nfft, detrend):
+    """Run spec_fft's B19 kernel on a CUDA tensor: the powers ``[..., num,
+    nfft/2 + 1]``."""
+    global psd_launches
+    lead, t = x.shape[:-1], x.shape[-1]
+    batch = math.prod(lead)
+    num = 1 + (t - nperseg) // hop
+    out = x.new_empty((*lead, num, nfft // 2 + 1))
+    if batch == 0:
+        return out
+    x = x.contiguous()
+    tw = cuda_fft._twiddle_table(nfft, FORWARD, x.device, cuda_fft._pass_roots_np)
+    build.launch("spec_fft", "spec_psd_f32", [_P] * 4 + [_LL, _LL] + [_I] * 5 + [_P],
+                 x.device, x.data_ptr(), win.contiguous().data_ptr(), out.data_ptr(),
+                 tw.data_ptr(), batch, t, nperseg, hop, num, nfft.bit_length() - 1,
+                 int(detrend == "constant"), cuda_fft._stream(x),
+                 what=f"spec_psd_f32 launch failed (batch={batch}, t={t}, "
+                      f"nperseg={nperseg}, hop={hop}, nfft={nfft})")
+    psd_launches += 1
+    return out
 
 
 def _spec_launch(x, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False, c64=False,

@@ -32,9 +32,18 @@ plane (set "plane"); the per-segment R2C kernel (B20) at a 2^22 signal
 with nperseg 4096, hop 2048, through each of its sinks, beside torch.fft's
 composition of the same function, and at every pow2 nfft of 128..16384 at
 half overlap over 2^22 points, stft of 2^20 samples (events, all of its
-device work, the kernel's) beside torch.stft, and the output bits of the
-three segment-spectrum kinds left on welch_kernel, to compare two trees
-(set "spec"); the
+device work, the kernel's) beside torch.stft, the per-segment powers
+(B19) at a 2^22 signal with nperseg 4096, hop 3584 (the psd spectrogram's
+shape) and at every pow2 nfft of 128..16384 at half overlap over 2^22
+points, spectrogram's psd mode and welch's median of that signal (events,
+all of their device work, the kernel's), and the output bits of the two
+segment-spectrum kinds left on welch_kernel, to compare two trees (set
+"spec"); the product C2R (B8) at
+2048 x 8192 with B of A's shape, padded and not, and broadcast, and at
+every pow2 n of 128..16384 over 2^24 points, fftconvolve of two 2048 x
+4096 signals and oaconvolve of 2^20 samples with 129 taps (events, all of
+their device work, the kernel's), beside torch.fft's composition (set
+"c2r"); the
 filtered rows (B9) at 4096 x 4096 and at every pow2 n at 1000 rows in both
 layouts beside B1's complex64 entry, SpectralFilter and hilbert at 4096 x
 4096 (set "filt"); the per-segment two-sided spectra (B22) at 2^22 in both
@@ -49,7 +58,7 @@ kernels kept as they were, chip_smoke.kept_bits (set "bits").
 
     python3 scripts/time_composite_rows.py [--tree DIR] [--label NAME] [--out FILE]
                                            [--set rows|columns|chirp|pow2|cols|plane|spec|
-                                                  filt|c2c|welch|bits|all]
+                                                  filt|c2c|welch|c2r|bits|all]
 
 ``--tree`` imports ``fft_wgpu_tpu_torch`` from another checkout (for
 example a parent commit unpacked with ``git archive``), so that two
@@ -148,7 +157,7 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="append the JSON line here")
     ap.add_argument("--set", default="all",
                     choices=("rows", "columns", "chirp", "pow2", "cols", "plane", "spec",
-                             "filt", "c2c", "welch", "bits", "all"),
+                             "filt", "c2c", "welch", "c2r", "bits", "all"),
                     help="which kernels to time")
     args = ap.parse_args()
 
@@ -187,6 +196,8 @@ def main() -> int:
         time_c2c(ft, dev, gen, args.label, result)
     if args.set in ("welch", "all"):
         time_welch(ft, dev, gen, args.label, result)
+    if args.set in ("c2r", "all"):
+        time_c2r(ft, cuda_fft, dev, gen, args.label, result)
     if args.set == "bits":
         # the kept kernels' output bits (chip_smoke.kept_bits on this tree's modules)
         sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -219,7 +230,7 @@ def main() -> int:
         print(f"{args.label} | {key} | rel-L2 {err:.3e} | " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in result["times"][key].items()), flush=True)
     if args.set in ("columns", "chirp", "pow2", "cols", "plane", "spec", "filt", "c2c", "welch",
-                    "bits"):
+                    "c2r", "bits"):
         return finish(result, args)
     fr = torch.complex(torch.randn(16, 1080, 1920, device=dev, generator=gen),
                        torch.randn(16, 1080, 1920, device=dev, generator=gen))
@@ -551,9 +562,15 @@ def time_spec(ft, dev, gen, label, result):
     sink and, where the tree has one, its complex64 sink, beside torch.fft's
     composition (unfold, detrend, window, rfft); B20 at every pow2 nfft of
     128..16384 at half overlap over 2^22 points; stft of 2^20 samples at
-    n_fft 512, hop 128 beside torch.stft; and the bits of the three
-    segment-spectrum kinds left on welch_kernel (psd, csd, c2c) at a 2^20
-    signal (``bits`` in the JSON line)."""
+    n_fft 512, hop 128 beside torch.stft; B19 (``cuda_welch._launch("psd",
+    ...)``, welch_fft.cu's or spec_fft.cu's kernel, whichever the tree has)
+    at a 2^22 signal with nperseg 4096, hop 3584 (a tukey window, constant
+    detrend: the psd spectrogram's shape) and at every pow2 nfft at half
+    overlap over 2^22 points, beside torch.fft's composition (unfold,
+    detrend, window, rfft, |X|^2), spectrogram's psd mode and welch's
+    median of that signal against scipy.signal; and the bits of the two
+    segment-spectrum kinds left on welch_kernel (csd, c2c) at a 2^20 signal
+    (``bits`` in the JSON line)."""
     import torch
 
     from fft_wgpu_tpu_torch.ops import cuda_welch
@@ -596,12 +613,38 @@ def time_spec(ft, dev, gen, label, result):
                                                  fns["torch.stft"]().to(torch.complex128)),
            fns, {"device kernel": (fns["stft"], b20), "device all": (fns["stft"], every)},
            reps=50)
+    b19 = r"(welch|psd_pairs)_kernel"  # the parent's welch_kernel<., 1>, or spec_fft's B19
+    x = torch.randn(1 << 22, device=dev, generator=gen)
+    shapes = [(tukey, (4096, 3584, 4096, "constant"))]
+    shapes += [(ft.hann_window(1 << e, device=dev), (1 << e, 1 << e - 1, 1 << e, "constant"))
+               for e in range(7, 15)]
+    for w, args in shapes:
+        fns = {"kernel": lambda: cuda_welch._launch("psd", x, None, w, *args),
+               "torch.fft": lambda: composed(x, w, *args).abs() ** 2}
+        err = rel_l2(fns["kernel"]()[0], composed(x.double(), w.double(), *args).abs() ** 2)
+        record("psd 2^22 nperseg {} hop {} nfft {} {}".format(*args), err, fns,
+               {"device kernel": (fns["kernel"], b19)}, reps=20)
+    # B19's calls: spectrogram's psd mode (nperseg 4096, hop 3584) and welch's
+    # median (nperseg 4096, hop 2048), against scipy.signal in float64
+    import scipy.signal as ss
+
+    x64 = x.double().cpu().numpy()
+    spectrogram = lambda: ft.spectrogram(x, nperseg=4096)[2]  # noqa: E731
+    want = torch.from_numpy(ss.spectrogram(x64, nperseg=4096)[2]).to(dev)
+    record("spectrogram psd 2^22 nperseg 4096", rel_l2(spectrogram(), want),
+           {"call": spectrogram}, {"device all": (spectrogram, every),
+                                   "device kernel": (spectrogram, b19)}, reps=20)
+    median = lambda: ft.welch(x, nperseg=4096, noverlap=2048, average="median")[1]  # noqa: E731
+    want = torch.from_numpy(ss.welch(x64, nperseg=4096, noverlap=2048, average="median")[1])
+    record("welch median 2^22 nperseg 4096", rel_l2(median(), want.to(dev)), {"call": median},
+           {"device all": (median, every), "device kernel": (median, b19)}, reps=20)
+    del x, x64, want
     y20 = torch.randn(1 << 20, device=dev, generator=gen)
     w = torch.hann_window(4096, device=dev)
-    # the three kinds on welch_kernel in every tree since B16 and B18 left it
-    result["bits"] = {kind: _bits(cuda_welch._launch(kind, x20, y20 if kind in (
-        "csd", "c2c") else None, w, 4096, 2048, 4096, "constant"))
-        for kind in ("psd", "csd", "c2c")}
+    # the two kinds on welch_kernel in every tree since B16, B18 and B19 left it
+    result["bits"] = {kind: _bits(cuda_welch._launch(kind, x20, y20, w, 4096, 2048, 4096,
+                                                     "constant"))
+                      for kind in ("csd", "c2c")}
     print(f"{label} | bits of the welch_kernel kinds | {result['bits']}", flush=True)
 
 
@@ -803,6 +846,58 @@ def time_welch(ft, dev, gen, label, result):
             want = (P[0] ** 2 + P[1] ** 2) / (P[2] * P[3])
         record(key, rel_l2(call(), want), {"call": call},
                {"device all": (call, every), "device kernel": (call, kernel)}, reps=20)
+
+
+def time_c2r(ft, cuda_fft, dev, gen, label, result):
+    """B8 (``cuda_fft._c2r_prod_launch``) at 2048 x 8192 with B of A's shape,
+    in the padded serving form (fftconvolve's) and not, and with one
+    broadcast B row, and at every pow2 n of 128..16384 over 2^24 points
+    (padded, equal shapes); beside torch.fft's composition (the product,
+    irfft); then fftconvolve of two 2048 x 4096 signals and oaconvolve of
+    2^20 samples with 129 taps (events, all of their device work, the
+    kernel's), beside torch.fft's."""
+    import torch
+
+    crand = randn_complex(dev, gen)
+    record = recorder(label, result)
+    every = r"\w+"
+    b8 = r"c2r_(fft|prod)_kernel"  # the parent's c2r_fft_kernel<., true>, or c2r_prod_kernel
+    shapes = [(2048, 8192, True, False), (2048, 8192, False, False), (2048, 8192, True, True)]
+    shapes += [(1 << 24 >> e, 1 << e, True, False) for e in range(7, 15)]
+    for rows, n, pad, bcast in shapes:
+        mp = n // 2 + 1
+        bins = cuda_fft.pad_bins(n) if pad else mp
+        A, B = crand(rows, bins), crand(1 if bcast else rows, bins)
+        A[:, mp:], B[:, mp:] = 0, 0
+        Ar, Ai = A.real.contiguous(), A.imag.contiguous()
+        Br, Bi = B.real.contiguous(), B.imag.contiguous()
+        if bcast:
+            Br, Bi = Br[0], Bi[0]
+        fns = {"kernel": lambda: cuda_fft._c2r_prod_launch(Ar, Ai, Br, Bi, n, 1.0 / n),
+               "torch.fft": lambda: torch.fft.irfft((A * B)[:, :mp], n=n)}
+        P = (A.to(torch.complex128) * B)[:, :mp]
+        P.imag[:, 0] = P.imag[:, -1] = 0
+        err = rel_l2(fns["kernel"](), torch.fft.irfft(P, n=n))
+        record(f"c2r_prod {rows}x{n} {'padded' if pad else 'ragged'}"
+               f"{' broadcast' if bcast else ''}", err, fns,
+               {"device kernel": (fns["kernel"], b8)}, reps=20)
+        del A, B, Ar, Ai, Br, Bi, P
+    a2, b2 = (torch.randn(2048, 4096, device=dev, generator=gen) for _ in range(2))
+    sig, taps = (torch.randn(n, device=dev, generator=gen) for n in (1 << 20, 129))
+    calls = {"fftconvolve 2048x4096": (
+                 lambda: ft.fftconvolve(a2, b2, axes=-1),
+                 lambda: torch.fft.irfft(torch.fft.rfft(a2, n=8192) * torch.fft.rfft(b2, n=8192),
+                                         n=8192)[:, :8191], 8192, (a2, b2)),
+             "oaconvolve 2^20x129": (
+                 lambda: ft.oaconvolve(sig, taps),
+                 lambda: torch.fft.irfft(torch.fft.rfft(sig, n=1 << 21)
+                                         * torch.fft.rfft(taps, n=1 << 21),
+                                         n=1 << 21)[:(1 << 20) + 128], 1 << 21, (sig, taps))}
+    for key, (call, torch_call, L, (u, v)) in calls.items():
+        want = torch.fft.irfft(torch.fft.rfft(u.double(), n=L) * torch.fft.rfft(v.double(), n=L),
+                               n=L)[..., :u.shape[-1] + v.shape[-1] - 1]
+        record(key, rel_l2(call(), want), {"call": call, "torch.fft": torch_call},
+               {"device all": (call, every), "device kernel": (call, b8)}, reps=20)
 
 
 def randn_complex(dev, gen):

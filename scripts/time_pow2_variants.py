@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Time launch-bound and cluster-size variants of the pow2 kernels of the
 torch port (rows_fft, B1; big_fft, B15; ax0_fft, B2/B3; fft2f_fft, B5;
-spec_fft, B20; filt_fft's filtered rows, B9; spec_c2c_fft, B22;
-welch_acc_fft, B16 and B18) on one CUDA card, each beside the kernel as it
-is.
+spec_fft, B20 and B19; filt_fft's filtered rows, B9; spec_c2c_fft, B22;
+welch_acc_fft, B16 and B18; c2r_fft's product kernel, B8) on one CUDA
+card, each beside the kernel as it is.
 
     python3 scripts/time_pow2_variants.py
         [--lib rows_fft|big_fft|ax0_fft|fft2f_fft|spec_fft|filt_fft|spec_c2c_fft|
-               welch_acc_fft]
+               welch_acc_fft|c2r_fft]
         [--out FILE]
 
 Variants: rows_fft with every launch bound at 64 registers (1024 threads an
@@ -27,7 +27,8 @@ columns above), and with 4 columns of 4096 points a block in both layouts
 points a block in 512 threads, two an SM (the kernel: 4096 in 256, four
 an SM), and with the launch bound at 128 registers (the kernel: 64);
 spec_fft with blocks of at least 256 threads (the kernel: 128) and with
-six blocks of 128 threads an SM, 85 registers (the kernel: eight, 64);
+six blocks of 128 threads an SM, 85 registers (the kernel: eight, 64),
+through B20's complex64 sink and B19's entry;
 filt_fft's filtered rows, through the complex64 entry, with the filter read
 as two planes (the kernel: one interleaved complex64 row), with
 RowsShape's launch bounds (the kernel: 64 registers at n = 4096, where
@@ -44,13 +45,19 @@ kRegSums), with a grid of 2 and 4 waves of the SMs (the kernel: one
 wave), with a launch bound of 64 registers at every nfft (the kernel's
 kRegisters: 85 up to 4096), and with every load of the frame's mean
 unrolled (the kernel: a runtime loop), each call timed with the
-torch.sum over its partial rows where there are several.
+torch.sum over its partial rows where there are several; c2r_fft's product
+kernel with the first pass reading A and B from device memory at X[k] and
+X[m-k] (two global reads of each bin, the product formed twice; the
+kernel: one sweep stages the product in shared memory), with 1, 4 and 16
+bins a thread staged a round (the kernel: 8, kStage), and with the last pass
+storing to shared memory and a sweep of the block's rows to device memory
+(the kernel: the last pass stores 8-byte pairs).
 Each variant is
 the kernel's source with a line or two rewritten, compiled with the port's
 nvcc flags into ``fft_wgpu_tpu_torch/_build/variants/`` (all at once;
-each ``libv<i>.log`` keeps ptxas's registers and spills),
+each ``lib<library>_v<i>.log`` keeps ptxas's registers and spills),
 called through its complex64 entry point (ax0_fft and fft2f_fft: and the
-planar one), checked against torch.fft (relative L2 <= 1e-5) and timed by
+planar one; spec_fft: and spec_psd_f32; c2r_fft: c2r_prod_fft_f32), checked against torch.fft (relative L2 <= 1e-5) and timed by
 its kernel's device time from a torch.profiler window of 20
 calls, two rounds in turns (the mean of the two).  The card's name and power limit (nvidia-smi) head the output; one
 JSON line ends it and, with ``--out``, is appended to FILE.
@@ -143,6 +150,71 @@ VARIANTS.update({
         SPEC_BOUND, "  static constexpr int kMinBlocks = kBlock <= 128 ? 6 : kBlock == 256 ? 3 : "
                     "1024 / kBlock;\n"),
 })
+# B8: the first pass reading A and B from device memory (no staging sweep),
+# and the last pass storing to shared memory, then a sweep of the rows
+C2R_STAGE = "  stage_product<LOG2M>(g);\n"
+C2R_SRC = ("  __device__ __forceinline__ StagedIn<M> src() const "
+           "{ return StagedIn<M>{shared(), g.half}; }\n")
+C2R_ROW = "// This thread's row (one per threadIdx.y): its staged buffer, the first\n"
+C2R_GLOBAL_IN = """template <int M>
+struct GlobalProductIn {
+  const ProdArgs& g;
+  size_t a0, b0;
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void x(int k, float& re, float& im) const {
+    const float a_r = g.ar[a0 + k], a_i = g.ai[a0 + k];
+    const float b_r = __ldg(&g.br[b0 + k]), b_i = __ldg(&g.bi[b0 + k]);
+    re = a_r * b_r - a_i * b_i;
+    im = a_r * b_i + a_i * b_r;
+  }
+  __device__ __forceinline__ void load(int k, float& a, float& b) const {
+    float ar, ai, br, bi;
+    x(k, ar, ai);
+    x(M - k, br, bi);
+    if (k == 0) ai = bi = 0.f;
+    const float er = ar + br, ei = ai - bi;
+    const float dr = ar - br, di = ai + bi;
+    const float2 t = __ldg(&g.half[k]);
+    a = er - (t.x * di + t.y * dr);
+    b = ei + (t.x * dr - t.y * di);
+  }
+};
+
+"""
+C2R_DST = """  __device__ __forceinline__ InterleavedOut dst() const {
+    const bool valid = row() < g.rows;
+    return InterleavedOut{g.out + static_cast<size_t>(valid ? row() : 0) * 2 * M, g.scale,
+                          valid};
+  }
+"""
+C2R_PLAN = "  plan_fft<1, LOG2M>(ProdRow<LOG2M>{g}, g.tw);\n"
+C2R_UNROLL = "  static constexpr int kStage = 8;  // bins a thread stages a round\n"
+VARIANTS.update({
+    ("c2r_fft", "kernel"): None,
+    ("c2r_fft", "one bin a round"): (C2R_UNROLL, C2R_UNROLL.replace("8;", "1;")),
+    ("c2r_fft", "4 bins a round"): (C2R_UNROLL, C2R_UNROLL.replace("8;", "4;")),
+    ("c2r_fft", "16 bins a round"): (C2R_UNROLL, C2R_UNROLL.replace("8;", "16;")),
+    ("c2r_fft", "two global reads"): (
+        (C2R_STAGE, ""), (C2R_ROW, C2R_GLOBAL_IN + C2R_ROW),
+        (C2R_SRC, "  __device__ __forceinline__ GlobalProductIn<M> src() const {\n"
+                  "    const long long r = row() < g.rows ? row() : 0;\n"
+                  "    return GlobalProductIn<M>{g, static_cast<size_t>(r) * g.bins,\n"
+                  "                              static_cast<size_t>(r * g.b_stride)};\n"
+                  "  }\n")),
+    ("c2r_fft", "shared sweep store"): (
+        (C2R_DST, "  __device__ __forceinline__ PadShared dst() const { return shared(); }\n"),
+        (C2R_PLAN, C2R_PLAN + """  using S = ProdShape<LOG2M>;
+  constexpr int M = S::kM;
+  extern __shared__ float2 smem[];
+  const long long row0 = static_cast<long long>(blockIdx.x) * S::kRows;
+  const int rows = g.rows - row0 < S::kRows ? static_cast<int>(g.rows - row0) : S::kRows;
+  float2* out = reinterpret_cast<float2*>(g.out) + row0 * M;
+  for (int i = threadIdx.y * S::kThreads + threadIdx.x; i < rows * M; i += S::kBlock) {
+    const float2 v = smem[(i >> LOG2M) * padded_len(M) + padded(i & (M - 1))];
+    out[i] = make_float2(v.x * g.scale, v.y * g.scale);
+  }
+""")),
+})
 FILT_H = "    const float2 w = __ldg(&h[k]);\n"
 FILT_N = "  const float2* h;\n  int n_in;\n"
 FILT_SRC = "      return C64ProductIn{g.in + line() * g.n_in, g.h, g.n_in};\n"
@@ -229,6 +301,15 @@ C2C_SHAPES = ((1 << 22, 4096, 2048, 4096, "constant"), (1 << 22, 4096, 2048, 409
 # spectrogram's 2^22, half overlap at 512 and 16384, stft's 2^20 (centred)
 SPEC_SHAPES = ((1 << 22, 4096, 2048, 4096, "constant"), (1 << 22, 512, 256, 512, False),
                (1 << 22, 16384, 8192, 16384, False), ((1 << 20) + 512, 512, 128, 512, False))
+# (t, nperseg, hop, nfft) of B19's shapes (constant detrend): the psd
+# spectrogram's 2^22, and every pow2 nfft at half overlap over 2^22 points
+PSD_SHAPES = ((1 << 22, 4096, 3584, 4096),) + tuple(
+    (1 << 22, 1 << e, 1 << e - 1, 1 << e) for e in range(7, 15))
+# (rows, n, padded, broadcast B) of c2r_fft's product kernel: fftconvolve's
+# 2048 x 8192 padded, ragged and broadcast, and every pow2 n over 2^24 points
+C2R_SHAPES = ((2048, 8192, True, False), (2048, 8192, False, False),
+              (2048, 8192, True, True)) + tuple(
+    (1 << 24 >> e, 1 << e, True, False) for e in range(7, 15))
 # (planes, A, B) of fft2f_fft's shapes: fftn 256^3's planes, 16 of each plane
 FFT2F_SHAPES = ((256, 256, 256), (16, 128, 128), (16, 128, 256), (16, 256, 128),
                 (16, 128, 512), (16, 512, 128), (16, 256, 256))
@@ -257,7 +338,7 @@ def build_variants():
                 raise RuntimeError(f"{lib_name}.cu: the line of variant {name!r} is not "
                                    "where this script expects it")
             src = src.replace(line, repl)
-        cu, lib = out_dir / f"v{i}.cu", out_dir / f"libv{i}.so"
+        cu, lib = out_dir / f"{lib_name}_v{i}.cu", out_dir / f"lib{lib_name}_v{i}.so"
         cu.write_text(src)
         proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
                                "-o", str(lib), str(cu)], capture_output=True, text=True)
@@ -275,7 +356,7 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="append the JSON line here")
     ap.add_argument("--lib", default=None,
                     choices=("rows_fft", "big_fft", "ax0_fft", "fft2f_fft", "spec_fft",
-                             "filt_fft", "spec_c2c_fft", "welch_acc_fft"),
+                             "filt_fft", "spec_c2c_fft", "welch_acc_fft", "c2r_fft"),
                     help="only this kernel's variants")
     args = ap.parse_args()
     if args.lib:
@@ -302,6 +383,15 @@ def main() -> int:
             f.restype = shape.restype = I
             fns[lib_name, name] = (f, shape)
             continue
+        if lib_name == "c2r_fft":  # the product kernel's entry
+            f = ctypes.CDLL(lib).c2r_prod_fft_f32
+            f.argtypes, f.restype = [P] * 7 + [LL, LL, I, I, F, P], I
+            fns[lib_name, name] = f
+            continue
+        if lib_name == "spec_fft":  # B19's entry beside B20's complex64 one
+            f = ctypes.CDLL(lib).spec_psd_f32
+            f.argtypes, f.restype = [P] * 4 + [LL, LL] + [I] * 5 + [P], I
+            fns["spec_psd", name] = f
         f = getattr(ctypes.CDLL(lib), f"{lib_name}_c64")
         f.argtypes = {"rows_fft": [P, P, P, LL, I, I, F, P],
                       "big_fft": [P, P, P, LL, I, I, I, F, P],
@@ -481,6 +571,62 @@ def main() -> int:
             {name: spec_call(name, f, x, w, out, shape) for (lb, name), f in fns.items()
              if lb == "spec_fft"}, "spec_fft_kernel")
         del x, out
+
+    def psd_call(name, f, x, w, out, shape):
+        t, nperseg, hop, nfft = shape
+        num = 1 + (t - nperseg) // hop
+        tw = cuda_fft._twiddle_table(nfft, -1, dev, cuda_fft._pass_roots_np)
+
+        def call():
+            err = f(x.data_ptr(), w.data_ptr(), out.data_ptr(), tw.data_ptr(), 1, t, nperseg,
+                    hop, num, nfft.bit_length() - 1, 1, stream)
+            if err:
+                raise RuntimeError(f"spec_psd_f32 variant {name!r}: CUDA error {err}")
+            return out
+        return call
+
+    for shape in PSD_SHAPES if ("spec_fft", "kernel") in VARIANTS else ():
+        t, nperseg, hop, nfft = shape
+        x = torch.randn(t, device=dev, generator=gen)
+        w = torch.hann_window(nperseg, device=dev)
+        fr = x.double().unfold(-1, nperseg, hop)
+        want = torch.fft.rfft((fr - fr.mean(-1, keepdim=True)) * w.double(), n=nfft).abs() ** 2
+        out = torch.empty(want.shape, device=dev)
+        run("spec_psd t={} nperseg={} hop={} nfft={}".format(*shape), x, want,
+            {name: psd_call(name, f, x, w, out, shape) for (lb, name), f in fns.items()
+             if lb == "spec_psd"}, "psd_pairs_kernel")
+        del x, out
+
+    def c2r_call(name, f, A, B, out, n, bcast):
+        m = n // 2
+        tabs = (cuda_fft._twiddle_table(m, 1, dev, cuda_fft._pass_roots_np),
+                cuda_fft._halfcomplex_table(n, 1, dev))
+        ar, ai = A.real.contiguous(), A.imag.contiguous()
+        br, bi = B.real.contiguous(), B.imag.contiguous()
+
+        def call():
+            err = f(ar.data_ptr(), ai.data_ptr(), br.data_ptr(), bi.data_ptr(), out.data_ptr(),
+                    *(tab.data_ptr() for tab in tabs), A.shape[0], 1 if bcast else A.shape[0],
+                    m.bit_length() - 1, A.shape[-1], 1.0 / n, stream)
+            if err:
+                raise RuntimeError(f"c2r_fft variant {name!r}: CUDA error {err}")
+            return out
+        return call
+
+    for rows, n, pad, bcast in C2R_SHAPES if ("c2r_fft", "kernel") in VARIANTS else ():
+        mp = n // 2 + 1
+        bins = cuda_fft.pad_bins(n) if pad else mp
+        A = torch.complex(torch.randn(rows, bins, device=dev, generator=gen),
+                          torch.randn(rows, bins, device=dev, generator=gen))
+        B = A[:1].flip(-1).contiguous() if bcast else A.flip(0).contiguous()
+        P = (A.to(torch.complex128) * B)[:, :mp]
+        P.imag[:, 0] = P.imag[:, -1] = 0
+        want = torch.fft.irfft(P, n=n)
+        out = torch.empty(rows, n, device=dev)
+        run(f"c2r_prod {rows}x{n} {'padded' if pad else 'ragged'}{' broadcast' if bcast else ''}",
+            A, want, {name: c2r_call(name, f, A, B, out, n, bcast)
+                      for (lb, name), f in fns.items() if lb == "c2r_fft"}, "c2r_prod_kernel")
+        del A, B, P, want, out
     def filt_call(name, f, x, h, hp, out, n):
         tw = cuda_fft._twiddle_table(n, 1, dev, cuda_fft._pass_roots_np)
         h = hp if name == "planar h" else h

@@ -315,20 +315,30 @@ def test_grad_bigfft_matches_plain(dev, layout):
 
 def _device_kernels(fn, calls=1):
     """The names of the device kernels ``calls`` calls of fn() run
-    (torch.profiler).  On the card a window now and then comes back without
-    device events, or with some of them missing: take another if it has
-    none, and count launches with the wrappers' counters, not from here."""
-    from torch.profiler import ProfilerActivity, profile
+    (torch.profiler), after one warm-up step of the profiler (a call traced
+    and dropped, as chip_smoke.py's breakdown() does: on the card a window
+    that starts the trace has been seen to come back without device events,
+    or with some of them missing).  A window with none is taken again (at
+    most three); count launches with the wrappers' counters, not from
+    here."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            prof.step()
+        # the schedule's step marker has a device row of its own
         names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.name.startswith("ProfilerStep")]
         if names:
             return names
     return names
@@ -842,6 +852,8 @@ def test_c2r_prod_kernel_matches_plain_and_torch_fft(dev, n, pad, bcast):
                                                      padded_in=pad)
         o = torch.fft.irfft(P, n=n, norm="forward") * (1.0 if scale is None else scale)
         assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, scale
+        # the plain version of the kernel's own passes
+        assert rel_l2(k, cuda_fft._c2r_prod_passes(Ar, Ai, Br, Bi, n, scale)) < TOL, scale
 
 
 @pytest.mark.parametrize("entry", ["filt", "bank", "c2r_prod", "c2r_prod_bcast", "ax0_gen"])
@@ -881,6 +893,26 @@ def test_grad_fused_kernels_match_plain(dev, entry):
         gp = grad(lambda *v: cuda_fft.irfft_prod_rows_split_reference(
             *v, n, 1.0 / n, padded_in=True))
     assert rel_l2(gk, gp) < TOL
+
+
+def test_psd_and_c2r_prod_are_their_kernels_alone(dev):
+    # B19 at the psd spectrogram's 2^22 (nperseg 4096, hop 3584) and at the
+    # pairs' nfft 256, and B8 at 2048 x 8192 padded: one launch of the kernel
+    # a call and no other device work (over ten calls, from the profiler)
+    x = rrand(dev, 1 << 22, seed=1)
+    A, B = crand(dev, 2048, cuda_fft.pad_bins(8192), seed=2), crand(dev, 2048, 4224, seed=3)
+    A[:, 4097:] = B[:, 4097:] = 0
+    planes = [v.contiguous() for v in (A.real, A.imag, B.real, B.imag)]
+    w4096, w256 = torch.hann_window(4096, device=dev), torch.hann_window(256, device=dev)
+    for fn, kernel in (
+            (lambda: cuda_welch.spec_psd_split(x, w4096, 4096, 3584, 4096, "constant"), "psd"),
+            (lambda: cuda_welch.spec_psd_split(x, w256, 256, 128, 256, False), "psd"),
+            (lambda: cuda_fft.irfft_prod_rows_split(*planes, 8192, 1.0 / 8192, padded_in=True),
+             "c2r_prod")):
+        names = _device_kernels(fn, calls=10)
+        name = {"psd": "psd_pairs_kernel", "c2r_prod": "c2r_prod_kernel"}[kernel]
+        assert names and all(name in k for k in names), names
+        _through(lambda: [fn() for _ in range(10)], **{kernel: 10})
 
 
 def test_fused_epilogue_routes(dev):
@@ -1070,10 +1102,12 @@ def _stack(outs):
 @pytest.mark.parametrize("kind", WELCH_KINDS)
 def test_welch_kernels_match_plain_and_torch_fft(dev, nfft, kind):
     """Each kernel against its plain version and float64 torch.fft at 38
-    segments (a ragged last tile) and at 37 and 39 (odd counts: B16's last
-    frame paired with a zero plane), one signal and batches of 3 and 5;
-    B16 and B18 also against the plain version of their own passes and
-    epilogue (``_acc_passes``; B16: of both its designs)."""
+    segments (a ragged last tile) and at 37 and 39 (odd counts: B16's and
+    B19's last frame paired with a zero plane), one signal and batches of 3
+    and 5, hops even and odd, nperseg = nfft and below; B16 and B18 also
+    against the plain version of their own passes and epilogue
+    (``_acc_passes``; B16: of both its designs), B19 against the plain
+    version of its passes and epilogue (``_psd_passes``)."""
     cases = 0
     for nperseg in (nfft, nfft - nfft // 4 + 1):
         for hop in (nperseg, nperseg // 2, nperseg - nperseg // 8):
@@ -1092,6 +1126,8 @@ def test_welch_kernels_match_plain_and_torch_fft(dev, nfft, kind):
                 for half in {"welch": (False, True), "coh": (False,)}.get(kind, ()):
                     passes = cuda_welch._acc_passes(kind, x, y, w, *args, half=half)
                     assert rel_l2(_stack(got), _stack(passes)) < TOL, what
+                if kind == "psd":
+                    assert rel_l2(got[0], cuda_welch._psd_passes(x, w, *args)) < TOL, what
                 cases += 1
     assert cases == 24
 

@@ -315,6 +315,55 @@ def test_c2r_prod_envelope_raises(rng):
             fn(z, z, z, z, 1024, padded_in=True)
 
 
+# (n, padded, broadcast B) of the plain version of the kernel's passes: every
+# layout at 256 and 1024, two at 8192 (the JAX kernel in interpret mode
+# takes seconds a shape there)
+PROD_PASSES = [(n, pad, bcast) for n in (256, 1024) for pad in (False, True)
+               for bcast in (False, True)] + [(8192, True, False), (8192, False, True)]
+
+
+@pytest.mark.parametrize("n,pad,bcast", PROD_PASSES)
+def test_c2r_prod_passes_match_jax(n, pad, bcast, rng, assert_close):
+    # the plain version of the c2r_prod kernel's own passes (the product, Z
+    # packed from X[k] and X[m-k], the compiled plan's passes on its pass
+    # roots) against the JAX kernel in interpret mode (n >= 512; at 256 the
+    # JAX package's composed form) and float64 numpy
+    Ar, Ai, Br, Bi = _spectra(rng, 2, n, pad, bcast)
+    got = cuda_fft._c2r_prod_passes(*(_t(v) for v in (Ar, Ai, Br, Bi)), n, 1.0 / n)
+    if n >= 512:
+        want = j_pf.irfft_prod_rows_split(Ar, Ai, Br, Bi, n, 1.0 / n, padded_in=pad,
+                                          interpret=True)
+    else:
+        want = j_rfft.irfft_prod_last_split(*(jnp.asarray(v) for v in (Ar, Ai, Br, Bi)), n,
+                                            1.0 / n, padded_in=pad)
+    assert got.shape == (2, n) and got.dtype == torch.float32
+    assert_close(got.numpy(), np.asarray(want), what=f"n={n} pad={pad} bcast={bcast} vs JAX")
+    mp = n // 2 + 1
+    P = cplx((Ar, Ai))[..., :mp] * cplx((Br, Bi))[..., :mp]
+    assert_close(got.numpy(), np.fft.irfft(P, n=n), what="vs numpy")
+
+
+def test_c2r_prod_passes_ignore_dc_and_nyquist_imaginary_parts(rng, assert_close):
+    # numpy's irfft of A * B drops the product's imaginary parts at DC and
+    # Nyquist (slot 0 of the kernel's staged row holds both real parts): with
+    # B real there, a change of Im A[0] and Im A[n/2] moves only those parts
+    # of the product, and not one bit of the output
+    n, m = 1024, 512
+    Ar, Ai, Br, Bi = _spectra(rng, 3, n, False, False)
+    Br[:, 0] = Br[:, m] = 1.5
+    Bi[:, 0] = Bi[:, m] = 0.0
+    Ai2 = Ai.copy()
+    Ai2[:, 0] += 5.0
+    Ai2[:, m] -= 5.0
+    P = cplx((Ar, Ai2)) * cplx((Br, Bi))
+    assert np.abs(P.imag[:, [0, m]]).min() > 0.1
+    for fn in (cuda_fft._c2r_prod_passes, cuda_fft.irfft_prod_rows_split_reference):
+        a = fn(*(_t(v) for v in (Ar, Ai, Br, Bi)), n, 1.0 / n)
+        b = fn(*(_t(v) for v in (Ar, Ai2, Br, Bi)), n, 1.0 / n)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert_close(b.numpy(), np.fft.irfft(P, n=n), what=fn.__name__)
+
+
 @pytest.mark.parametrize("bcast", [False, True])
 @pytest.mark.parametrize("pad", [False, True])
 def test_grad_c2r_prod_matches_jax(pad, bcast, rng, assert_close):

@@ -4,8 +4,9 @@
 ``spec_rfft_split`` (B20, with its roll and padded output) and
 ``spec_c2c_split`` and ``spec_c2c_c64`` (B22, with the plain version of
 its kernel's passes, ``_spec_c2c_passes``) of ``ops/cuda_welch.py``, and
-the plain version of B16's and B18's kernel, ``_acc_passes`` (two real
-frames transformed as one complex frame).
+the plain versions of B16's and B18's kernel, ``_acc_passes`` (two real
+frames transformed as one complex frame), and of B19's, ``_psd_passes``
+(two segments as one complex frame).
 
 On a CPU tensor each entry point runs its plain version.  Inside the JAX
 package's envelope the same numpy inputs go through its Pallas kernels in
@@ -311,6 +312,35 @@ def test_acc_half_length_welch_matches_numpy(nfft, rng, assert_close):
               f"half-length welch at nfft {nfft} vs numpy")
     pairs = ([_np(cuda_welch._acc_passes("welch", _t(x), None, _t(win), *args)[0])], 7)
     check_all(got, pairs, assert_close, f"half-length welch at nfft {nfft} vs pairs of frames")
+
+
+# ---------------------------------------------------------------------- #
+# B19's kernel (spec_fft.cu's psd_pairs): the plain version of its passes
+# and epilogue (two segments as one complex frame) against the JAX kernel in
+# interpret mode (inside its envelope) or the JAX composed form (nfft 128),
+# and float64 numpy
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("detrend", [False, "constant"])
+@pytest.mark.parametrize("nfft", [128, 1024, 8192])
+def test_psd_passes_match_jax(nfft, detrend, rng, assert_close):
+    # an odd hop that divides nperseg < nfft (the JAX envelope needs hop |
+    # nperseg), and an odd segment count (the pairs' last with a zero plane)
+    hop = nfft // 4 - 1
+    nperseg = 3 * hop
+    x, y, win = inputs(rng, (2,), nperseg + 6 * hop + hop // 3, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    if j_pw.fused_welch_ok(x.shape[-1], *args):
+        want = jax_kernel("psd", x, y, win, *args)
+    else:
+        assert nfft < 512
+        want = ([np.asarray(_jax_outputs("psd", x, y, win, args)[0])], 7)
+    got = ([_np(cuda_welch._psd_passes(_t(x), _t(win), *args))], 7)
+    check_all(got, want, assert_close, f"psd's passes at nfft {nfft} vs JAX")
+    check_all(got, numpy_ref("psd", x, y, win, *args), assert_close,
+              f"psd's passes at nfft {nfft} vs numpy")
+    # on the CPU the entry point is the composed form, which the kernel's
+    # epilogue equals
+    check_all(got, port("psd", x, y, win, *args), assert_close, "psd vs the entry point")
 
 
 # ---------------------------------------------------------------------- #
