@@ -12,7 +12,7 @@ resample).
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
-the CUDA toolkit and scipy.  It builds the sixteen kernel libraries from
+the CUDA toolkit and scipy.  It builds the fifteen kernel libraries from
 ``fft_wgpu_tpu_torch/csrc`` (one nvcc each, all at once) and runs five
 phases, one line each or more; any failure raises and the script exits
 non-zero without a result line:
@@ -71,7 +71,7 @@ non-zero without a result line:
              points, zero past them, and in place); bank at every n for
              banks of 1 and 7 rows, and at 128 x 16384; the bits of the
              kernels kept as they were (rows_fft in both entries, bank,
-             csd, c2c, c2r) against those recorded from them before
+             c2r) against those recorded from them before
              (KEPT_BITS); c2r_prod at every n, ragged and
              padded, B of A's shape and broadcast, at 2048 x 8192 and 547 x
              2048, also against the plain version of its own passes
@@ -82,7 +82,10 @@ non-zero without a result line:
              (cuda_fft._mixed_radix_axis) at every n, m = 7 and 1000;
              the segment-spectrum kernels welch, psd (spec_fft's
              psd_pairs, also against the plain version of its passes and
-             epilogue, cuda_welch._psd_passes), csd, coh, c2c, spec
+             epilogue, cuda_welch._psd_passes), csd, coh, c2c (the
+             planes of a complex signal; c2c_c64 its complex64 entry from a
+             complex64 signal, from two planes and from one real plane),
+             spec
              (spec_fft's planar sink; spec_c64 its complex64 sink, both
              against the plain version of its own passes,
              cuda_welch._spec_passes) and spec_c2c (spec_c2c_fft's planar
@@ -95,11 +98,12 @@ non-zero without a result line:
              nperseg/2 and nperseg - nperseg/8, one signal with no detrend
              and three with "constant", a ragged last tile (spec also with
              odd and even rolls, the padded output and stft's reflect
-             pad; welch and coh, welch_acc_fft's two kinds, also at odd
-             segment counts and against the plain version of their own
-             passes and epilogue, cuda_welch._acc_passes (welch: both its
-             designs), and scipy.signal's welch and coherence in float64), and at path 6's and path 7's
-             shapes, each run twice for the same bits;
+             pad; welch_acc_fft's kinds welch, coh, csd, c2c and c2c_c64
+             also at odd segment counts and against the plain version of
+             their own passes and epilogue, cuda_welch._acc_passes (welch:
+             both its designs), and scipy.signal's welch, coherence and
+             csd and the two-sided welch in float64), and at path 6's and
+             path 7's shapes, each run twice for the same bits;
 3. main    — six paths, the launch counts set to 0 just before each and
              read just after: plan / fft / ifft / Forward at the 1-D sizes
              users call (row kernel; axis(-2) then transposed rows; whole
@@ -131,8 +135,11 @@ non-zero without a result line:
              of 64 x 2^20 at scipy's defaults, its median, csd and
              coherence of two 2^22 signals, spectrogram of 2^22 (psd and
              magnitude), periodogram of 64 x 16384, multitaper of 16384
-             (K = 7) and the two-sided welch of a complex 2^22 signal (B21), each
-             against scipy.signal (float64 numpy for multitaper); then
+             (K = 7), csd of two independent 2^22 signals at nperseg 256
+             (32767 segments: B17's rounding bias, cancelled by its swap)
+             and the two-sided welch of a complex64 and of a real 2^22
+             signal (B21's complex64 entry, c2c_c64 counted beside c2c),
+             each against scipy.signal (float64 numpy for multitaper); then
              the per-segment spectra: stft of 2^20 samples and of 8 x 2^17
              (n_fft 512, hop 128; B20's complex64 sink, spec_c64 counted
              beside spec) against float64 numpy and its istft
@@ -166,7 +173,10 @@ non-zero without a result line:
              (no split, no merge), and of fft2 and rfft at 4096 x 4096,
              fftn at 256^3, stft of 2^20, SpectralFilter of complex64 and
              hilbert at 4096 x 4096 and the complex spectrogram of complex64
-             2^22, which must run their kernels alone, once each; fft2 at 4096 x 4096 by three routes
+             2^22, which must run their kernels alone, once each, and of
+             welch, coherence, csd and the two-sided welch of complex64 and
+             real input at 2^22, each one welch_acc_fft launch beside its
+             sums and normalisation; fft2 at 4096 x 4096 by three routes
              (transposed rows twice, row then axis(-2) planar and
              complex64) and the fused plane at 256^3 in both layouts
              against row then axis(-2) in both; fftn at 512^3; the fused
@@ -196,6 +206,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -203,24 +214,24 @@ TOL = 1e-5  # relative L2, the JAX package's oracle bar
 SEED = 0
 LIBS = ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft", "fft2f_fft", "r2c_fft",
         "c2r_fft", "gen_fft", "r2c_gen_fft", "chirp_fft", "filt_fft", "ax0_gen_fft",
-        "welch_fft", "spec_fft", "spec_c2c_fft", "welch_acc_fft")
+        "spec_fft", "spec_c2c_fft", "welch_acc_fft")
 # Kernels as the launch counters name them: the axis(-3) pass is the axis(-2)
 # kernels on a free view, with its own entry point and counter; chirp_fft
 # holds three kernels (chirp_fwd, chirp_inv and the two fused, chirp_full),
 # each with its own, filt_fft two kernels (filt, bank), c2r_fft a second
-# one (c2r_prod), welch_fft three (psd, csd, c2c), welch_acc_fft two (welch:
-# B16, coh: B18), spec_fft one (spec: B20), spec_c2c_fft one (spec_c2c: B22);
-# rows_fft, ax0_fft (on axis
-# -2 and on the axis(-3) view), fft2f_fft, r2c_fft, big_fft, filt, spec_fft
-# and spec_c2c_fft two layouts each (rows_fft_c64, ax0_fft_c64, ax3_fft_c64,
-# fft2f_fft_c64, r2c_fft_c64, big_fft_c64, filt_c64, spec_c64 and
-# spec_c2c_c64: their complex64 entries, counted apart too).
+# one (c2r_prod), welch_acc_fft four (welch: B16, coh: B18, csd: B17, c2c:
+# B21), spec_fft two (spec: B20, psd: B19), spec_c2c_fft one (spec_c2c:
+# B22); rows_fft, ax0_fft (on axis
+# -2 and on the axis(-3) view), fft2f_fft, r2c_fft, big_fft, filt, c2c,
+# spec_fft and spec_c2c_fft two layouts each (rows_fft_c64, ax0_fft_c64,
+# ax3_fft_c64, fft2f_fft_c64, r2c_fft_c64, big_fft_c64, filt_c64, c2c_c64,
+# spec_c64 and spec_c2c_c64: their complex64 entries, counted apart too).
 KERNELS = ("rows_fft", "rows_fft_c64", "ax0_fft", "ax0_fft_c64", "ax3_fft", "ax3_fft_c64",
            "rows_t_fft", "fft2f_fft", "fft2f_fft_c64", "r2c_fft", "r2c_fft_c64", "c2r_fft",
            "big_fft", "big_fft_c64", "gen_fft", "r2c_gen_fft",
            "chirp_fwd", "chirp_inv", "chirp_full", "filt", "filt_c64", "bank", "c2r_prod",
-           "ax0_gen", "welch", "psd", "csd", "coh", "c2c", "spec", "spec_c64", "spec_c2c",
-           "spec_c2c_c64")
+           "ax0_gen", "welch", "psd", "csd", "coh", "c2c", "c2c_c64", "spec", "spec_c64",
+           "spec_c2c", "spec_c2c_c64")
 # Composite lengths of phase 2's sweep: factors (20, 32), (25, 40), (15, 67),
 # (23, 89), (63, 65), (17, 241), (81, 81), (100, 100), (127, 129); then one
 # for each pass type of the composite kernels' mixed-radix plan: powers of 2
@@ -237,12 +248,13 @@ F32_FLOPS_PER_S = 67e12    # H100 SXM float32 on the CUDA cores (data sheet)
 # sha256 (first 16 hex digits) of the outputs of kernels this work keeps as
 # they were, on kept_bits's inputs: B1 (rows_fft, both entries; its row types
 # moved into mixed_fft.cuh), B10 (bank, on stockham.cuh; filt_fft.cu's other
-# kernel was redesigned), B17 and B21 (welch_fft.cu, which B16, B18, B19 and
-# B22 left) and B7 (c2r, on stockham.cuh; c2r_fft.cu's product kernel was
-# redesigned).  Recorded from the kernels before that work (the libraries of
-# commit 9602cd4, which commits e09b20d, a87236e and d70af66 kept; B7's from
-# d70af66's; NVIDIA H100 80GB HBM3, by scripts/time_composite_rows.py --set
-# bits); B16's, B18's and B19's were taken out when their kernel changed.
+# kernel was redesigned) and B7 (c2r, on stockham.cuh; c2r_fft.cu's product
+# kernel was redesigned).  Recorded from the kernels before that work (the
+# libraries of commit 9602cd4, which commits e09b20d, a87236e and d70af66
+# kept; B7's from d70af66's; NVIDIA H100 80GB HBM3, by
+# scripts/time_composite_rows.py --set bits); B16's, B17's, B18's, B19's and
+# B21's were taken out when their kernel changed (B17 and B21 when they left
+# welch_fft.cu for welch_acc_fft.cu, and welch_fft.cu was removed).
 KEPT_BITS = {
     "rows_fft 128": "f4898d7e20440177", "rows_fft_c64 128": "f8f226c7db5eb860",
     "bank 128": "e1dd6b3ef9b691c1", "rows_fft 256": "82f279a213465b27",
@@ -256,23 +268,18 @@ KEPT_BITS = {
     "rows_fft 8192": "a2279294e2854e4d", "rows_fft_c64 8192": "bd4cd6dd5b46cd92",
     "bank 8192": "cbf3799d6f2e6a30", "rows_fft 16384": "28cc39cf96dc770d",
     "rows_fft_c64 16384": "528b0ca7f625ab05", "bank 16384": "b182cfb66738d9c9",
-    "csd 128": "aefe27bc9950ff34", "c2c 128": "ef4cd28c8de09d08",
-    "csd 512": "66d0c3a466a54eeb", "c2c 512": "98af9c692c20a955",
-    "csd 4096": "ebdd0554d98096c5", "c2c 4096": "042e59b3716124c7",
     "c2r 128": "06ef50a1a435c155", "c2r 256": "3451bfc9fc3925fe",
     "c2r 512": "45ca057c4615bf12", "c2r 1024": "c5caf83026b6ef78",
     "c2r 2048": "f127f085bd205511", "c2r 4096": "949f4792c8536cf9",
     "c2r 8192": "5254006219b78e38", "c2r 16384": "7e0dac04eb4bc855"}
 
 
-def kept_bits(cuda_fft, cuda_welch, dev) -> dict:
+def kept_bits(cuda_fft, dev) -> dict:
     """sha256 (16 hex digits) of each kept kernel's outputs on inputs made
     with numpy from SEED: rows_fft through both entries and bank at every
-    pow2 n, both signs, welch_fft's kinds csd and c2c at nfft 128, 512 and
-    4096 over a 2^18 signal, then c2r at every pow2 n, scale None and 1/n,
-    on 37 rows of n/2 + 1 bins and 5 rows of pad_bins(n).  ``cuda_fft`` and
-    ``cuda_welch`` may be another checkout's modules (the parent's, to
-    record KEPT_BITS)."""
+    pow2 n, both signs, then c2r at every pow2 n, scale None and 1/n,
+    on 37 rows of n/2 + 1 bins and 5 rows of pad_bins(n).  ``cuda_fft`` may
+    be another checkout's module (the parent's, to record KEPT_BITS)."""
     import hashlib
 
     import torch
@@ -299,12 +306,9 @@ def kept_bits(cuda_fft, cuda_welch, dev) -> dict:
                                            cuda_fft._launch_c64(x, 1, 1.0 / n)])
         out[f"bank {n}"] = digest([*cuda_fft._bank(re[0], im[0], hr, hi, -1, None),
                                    *cuda_fft._bank(re[0], im[0], hr, hi, 1, 1.0 / n)])
-    x, y = real(1 << 18), real(1 << 18)
-    for nfft in (128, 512, 4096):
-        w = torch.from_numpy(np.hanning(nfft).astype(np.float32) + 0.1).to(dev)
-        for kind in ("csd", "c2c"):
-            out[f"{kind} {nfft}"] = digest(cuda_welch._launch(kind, x, y, w, nfft, nfft // 2,
-                                                              nfft, "constant"))
+    # the two 2^18-point signals of B17's and B21's digests, drawn still so
+    # that c2r's inputs are the ones KEPT_BITS was recorded on
+    rng.standard_normal((2, 1 << 18))
     for e in range(7, 15):
         n = 1 << e
         outs = []
@@ -905,13 +909,12 @@ def main() -> int:
         check(cuda_fft._filt_launch_c64(x, h, 1, 1.0 / n, out=x) is x, "filt_c64 out=x")
         compare("filt_c64", x, plain, want, f"in place 37x{n}")
     # B1 (its row types moved into mixed_fft.cuh), B10 (on stockham.cuh, the
-    # filtered rows' library redesigned), B17, B21 (welch_fft.cu, which B16,
-    # B18, B19 and B22 left) and B7 (on stockham.cuh, the product C2R's
-    # kernel redesigned) give the bits they gave before
-    got = kept_bits(cuda_fft, cuda_welch, dev)
+    # filtered rows' library redesigned) and B7 (on stockham.cuh, the product
+    # C2R's kernel redesigned) give the bits they gave before
+    got = kept_bits(cuda_fft, dev)
     check(got == KEPT_BITS, "kept kernels' bits changed: "
           + str({k: v for k, v in got.items() if KEPT_BITS.get(k) != v}))
-    print(f"kernel rows_fft, rows_fft_c64, bank, csd, c2c, c2r_fft: {len(got)} "
+    print(f"kernel rows_fft, rows_fft_c64, bank, c2r_fft: {len(got)} "
           f"outputs, the bits recorded before (KEPT_BITS)", flush=True)
     sweep("bank",
           [((n,), planes(crand(rows, n))) for n in pow2 for rows in (1, 7)]
@@ -986,9 +989,9 @@ def main() -> int:
     ax0_gen_passes_sweep()
 
     # the segment-spectrum kernels: B16 (welch), B19 (psd), B17 (csd), B18
-    # (coh), B21 (c2c: y is the imaginary plane), B20 (spec), B22 (spec_c2c:
-    # y is the imaginary plane; spec_c2c_c64: x complex64, or planes x and y,
-    # or x real with no imaginary plane)
+    # (coh), B21 (c2c: y is the imaginary plane; c2c_c64: x complex64, or
+    # planes x and y, or x real with no imaginary plane), B20 (spec), B22
+    # (spec_c2c: y is the imaginary plane; spec_c2c_c64: as c2c_c64)
     def torch_segments(kind, x, y, w, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False,
                        pad=0):
         """torch.fft's composition of a kernel's function (reflect pad,
@@ -1018,8 +1021,9 @@ def main() -> int:
             X = spectra(x if x.is_complex() else torch.complex(
                 x, torch.zeros_like(x) if y is None else y))
             return (X,) if kind == "spec_c2c_c64" else (X.real, X.imag)
-        if kind == "c2c":
-            X = spectra(torch.complex(x, y))
+        if kind in ("c2c", "c2c_c64"):
+            X = spectra(x if x.is_complex() else torch.complex(
+                x, torch.zeros_like(x) if y is None else y))
             return ((X.real ** 2 + X.imag ** 2).sum(-2),)
         X = spectra(x)
         if kind == "psd":
@@ -1066,9 +1070,11 @@ def main() -> int:
         # welch_acc_fft: the plain version of its passes and epilogue too (B16:
         # of both its designs, whichever the source runs at this nfft); B19
         # (spec_fft's psd_pairs) too
-        for half in {"welch": (False, True), "coh": (False,)}.get(kind, ()):
+        acc = "c2c" if kind == "c2c_c64" else kind
+        for half in {"welch": (False, True), "coh": (False,), "csd": (False,),
+                     "c2c": (False,)}.get(acc, ()):
             err = max(err, check_close(flat(got), flat(cuda_welch._acc_passes(
-                kind, x, y, w, *args, half=half)), f"{kind} vs its passes' plain version {what}"))
+                acc, x, y, w, *args, half=half)), f"{kind} vs its passes' plain version {what}"))
         if kind == "psd":
             err = max(err, check_close(got[0], cuda_welch._psd_passes(x, w, *args),
                                        f"psd vs its passes' plain version {what}"))
@@ -1087,9 +1093,11 @@ def main() -> int:
         return err
 
     def vs_scipy_acc(kind, x, y, w, args, what):
-        """B16's sums or B18's coherence against scipy.signal in float64:
-        welch with scaling "spectrum" (the mean over segments of the sums,
-        over sum(w)^2, the inner bins doubled) and coherence."""
+        """B16's, B17's and B21's sums or B18's coherence against
+        scipy.signal in float64: welch and csd with scaling "spectrum" (the
+        mean over segments of the sums, over sum(w)^2; one-sided, the inner
+        bins doubled; B21's two-sided welch of x + iy or of complex64 x)
+        and coherence."""
         import scipy.signal as ss
 
         nperseg, hop, nfft, detrend = args
@@ -1097,13 +1105,25 @@ def main() -> int:
         kw = {"window": w64, "nperseg": nperseg, "noverlap": nperseg - hop, "nfft": nfft,
               "detrend": detrend or False, "axis": -1}
         got = cuda_welch._launch(kind, x, y, w, *args)
-        if kind == "welch":
-            num = 1 + (x.shape[-1] - nperseg) // hop
-            mult = np.full(nfft // 2 + 1, 2.0)
-            mult[0] = mult[-1] = 1.0
-            P = ss.welch(x.double().cpu().numpy(), scaling="spectrum", **kw)[1]
-            return check_close(got[0].cpu(), torch.from_numpy(P * num * w64.sum() ** 2 / mult),
-                               f"welch vs scipy.signal float64 {what}")
+        num = 1 + (x.shape[-1] - nperseg) // hop
+        mult = np.full(nfft // 2 + 1, 2.0)
+        mult[0] = mult[-1] = 1.0
+        if kind in ("welch", "csd"):
+            P = (ss.welch(x.double().cpu().numpy(), scaling="spectrum", **kw)[1]
+                 if kind == "welch" else ss.csd(x.double().cpu().numpy(),
+                                                y.double().cpu().numpy(), scaling="spectrum",
+                                                **kw)[1])
+            got = got[0] if kind == "welch" else torch.complex(*got)
+            return check_close(got.cpu(), torch.from_numpy(P * num * w64.sum() ** 2 / mult),
+                               f"{kind} vs scipy.signal float64 {what}")
+        if kind in ("c2c", "c2c_c64"):
+            v = x if x.is_complex() else torch.complex(x, torch.zeros_like(x) if y is None else y)
+            with warnings.catch_warnings():  # scipy: complex input, two-sided
+                warnings.simplefilter("ignore")
+                P = ss.welch(v.cpu().numpy().astype(np.complex128), scaling="spectrum",
+                             return_onesided=False, **kw)[1]
+            return check_close(got[0].cpu(), torch.from_numpy(P * num * w64.sum() ** 2),
+                               f"{kind} vs scipy.signal float64 {what}")
         C = ss.coherence(x.double().cpu().numpy(), y.double().cpu().numpy(), **kw)[1]
         Pr, Pi, Sxx, Syy = (o.double() for o in got)
         return check_close(((Pr * Pr + Pi * Pi) / (Sxx * Syy)).cpu(), torch.from_numpy(C),
@@ -1122,7 +1142,10 @@ def main() -> int:
                         args = (nperseg, hop, nfft, detrend)
                         what = f"{lead} t={t} nperseg={nperseg} hop={hop} nfft={nfft} {detrend}"
                         for kind, v, u in (("welch", x, None), ("psd", x, None), ("csd", x, y),
-                                           ("coh", x, y), ("c2c", x, y), ("spec", x, None),
+                                           ("coh", x, y), ("c2c", x, y),
+                                           ("c2c_c64", torch.complex(x, y), None),
+                                           ("c2c_c64", x, y), ("c2c_c64", x, None),
+                                           ("spec", x, None),
                                            ("spec_c64", x, None), ("spec_c2c", x, y),
                                            ("spec_c2c_c64", torch.complex(x, y), None),
                                            ("spec_c2c_c64", x, y), ("spec_c2c_c64", x, None)):
@@ -1139,16 +1162,20 @@ def main() -> int:
                                                           opts=opts))
                             cases += 1
                         # welch_acc_fft: odd segment counts (B16's last frame
-                        # with a zero plane), and scipy.signal
+                        # with a zero plane; B17's and B18's last unswapped),
+                        # and scipy.signal
                         for num in (37, 39):
                             t = nperseg + (num - 1) * hop + hop // 3
                             x = torch.randn(*lead, t, device=dev, generator=gen)
                             y = torch.randn(*lead, t, device=dev, generator=gen)
                             what = (f"{lead} t={t} ({num} segments) nperseg={nperseg} "
                                     f"hop={hop} nfft={nfft} {detrend}")
-                            for kind, u in (("welch", None), ("coh", y)):
-                                worst = max(worst, welch_case(kind, x, u, w, args, what),
-                                            vs_scipy_acc(kind, x, u, w, args, what))
+                            for kind, v, u in (("welch", x, None), ("coh", x, y), ("csd", x, y),
+                                               ("c2c", x, y),
+                                               ("c2c_c64", torch.complex(x, y), None),
+                                               ("c2c_c64", x, None)):
+                                worst = max(worst, welch_case(kind, v, u, w, args, what),
+                                            vs_scipy_acc(kind, v, u, w, args, what))
                                 cases += 1
         # path 6's own shapes (float64 oracle in phase 3, against scipy)
         n22 = 1 << 22
@@ -1166,7 +1193,9 @@ def main() -> int:
                 ("psd", x, None, tukey, (4096, 3584, 4096, "constant")),
                 ("csd", x, y, hann, (4096, 2048, 4096, "constant")),
                 ("coh", x, y, hann, (4096, 2048, 4096, "constant")),
-                ("c2c", x, y, hann, (4096, 2048, 4096, "constant"))):
+                ("c2c", x, y, hann, (4096, 2048, 4096, "constant")),
+                ("c2c_c64", torch.complex(x, y), None, hann, (4096, 2048, 4096, "constant")),
+                ("c2c_c64", x, None, hann, (4096, 2048, 4096, "constant"))):
             what = f"path 6 {tuple(v.shape)} nperseg={args[0]} hop={args[1]}"
             worst = max(worst, welch_case(kind, v, u, w, args, what, with_oracle=False))
             cases += 1
@@ -1197,7 +1226,7 @@ def main() -> int:
             cases += 1
         del x, y, xb, xp, xs, x8, xt
         torch.cuda.synchronize()
-        names = ("welch", "psd", "csd", "coh", "c2c", "spec", "spec_c64", "spec_c2c",
+        names = ("welch", "psd", "csd", "coh", "c2c", "c2c_c64", "spec", "spec_c64", "spec_c2c",
                  "spec_c2c_c64")
         print(f"kernel {', '.join(names)}: {cases} cases ok, each run twice with the "
               f"same bits | worst rel-L2 {worst:.3e} | max abs err vs plain "
@@ -1228,6 +1257,7 @@ def main() -> int:
                 "fft2f_fft_c64": cuda_fft.fft2f_c64_launches,
                 "r2c_fft_c64": cuda_fft.r2c_c64_launches, "spec_c64": cuda_welch.spec_c64_launches,
                 "filt_c64": cuda_fft.filt_c64_launches,
+                "c2c_c64": cuda_welch.c2c_c64_launches,
                 "spec_c2c_c64": cuda_welch.spec_c2c_c64_launches}
 
     def reset_counts():
@@ -1235,6 +1265,7 @@ def main() -> int:
         cuda_fft.ax0_c64_launches = cuda_fft.ax3_c64_launches = cuda_fft.r2c_c64_launches = 0
         cuda_fft.fft2f_c64_launches = cuda_welch.spec_c64_launches = 0
         cuda_fft.filt_c64_launches = cuda_welch.spec_c2c_c64_launches = 0
+        cuda_welch.c2c_c64_launches = 0
         cuda_fft.launches = cuda_fft.ax0_launches = cuda_fft.ax3_launches = 0
         cuda_fft.rows_t_launches = cuda_fft.fft2f_launches = 0
         cuda_fft.r2c_launches = cuda_fft.c2r_launches = bigfft.launches = 0
@@ -1536,8 +1567,6 @@ def main() -> int:
     # path 6: the spectral estimators at the sizes of the JAX package's
     # records (bench.py and PERFORMANCE.md: welch of 2^22 samples at nperseg
     # 4096, hop 2048) and at scipy's defaults over 64 channels of 2^20
-    import warnings
-
     import scipy.signal as ss
 
     errs = {}
@@ -1565,6 +1594,11 @@ def main() -> int:
              "welch median 2^22")
     P = through("csd 2^22", lambda: ft.csd(x, y, **seg)[1], csd=1)
     vs_scipy("csd_2^22", P, ss.csd(x64, y64, **seg)[1], "csd 2^22")
+    # two independent signals at many segments: the transform's rounding bias
+    # in conj(X) Y grows as the segment count, the cross spectrum as its root
+    P = through("csd 2^22 nperseg 256", lambda: ft.csd(x, y, nperseg=256)[1], csd=1)
+    vs_scipy("csd_2^22_nperseg_256", P, ss.csd(x64, y64, nperseg=256)[1],
+             "csd 2^22 nperseg 256 (32767 segments)")
     C = through("coherence 2^22", lambda: ft.coherence(x, y, **seg)[1], coh=1)
     vs_scipy("coherence_2^22", C, ss.coherence(x64, y64, **seg)[1], "coherence 2^22")
     for mode in ("psd", "magnitude"):
@@ -1587,10 +1621,15 @@ def main() -> int:
     with warnings.catch_warnings():  # scipy: complex input, two-sided
         warnings.simplefilter("ignore")
         want = ss.welch(xc.cpu().numpy().astype(np.complex128), **seg)[1]
-    P = through("welch 2^22 complex (two-sided)", lambda: ft.welch(xc, **seg)[1], c2c=1)
+    P = through("welch 2^22 complex (two-sided)", lambda: ft.welch(xc, **seg)[1], c2c=1,
+                c2c_c64=1)
     vs_scipy("welch_complex_2^22", P, want, "welch 2^22 complex two-sided")
+    P = through("welch 2^22 real two-sided",
+                lambda: ft.welch(x, return_onesided=False, **seg)[1], c2c=1, c2c_c64=1)
+    vs_scipy("welch_real_two-sided_2^22", P, ss.welch(x64, return_onesided=False, **seg)[1],
+             "welch 2^22 real two-sided")
     path6 = counts()
-    for name in ("welch", "psd", "csd", "coh", "c2c"):
+    for name in ("welch", "psd", "csd", "coh", "c2c", "c2c_c64"):
         check(path6[name] > 0, f"spectral-estimator path launched no {name} kernel")
     del x, y, xb, xp, xc, P, C, want
     # outside the window: numpy input runs on the card
@@ -1707,7 +1746,7 @@ def main() -> int:
                "bank": path5,
                "c2r_prod": path5,
                "ax0_gen": path5, "welch": path6, "psd": path6, "csd": path6, "coh": path6,
-               "c2c": path6, "spec": path7, "spec_c64": path7, "spec_c2c": path7,
+               "c2c": path6, "c2c_c64": path6, "spec": path7, "spec_c64": path7, "spec_c2c": path7,
                "spec_c2c_c64": path7}
     main_launches = {k: path_of.get(k, path2)[k] for k in KERNELS}
 
@@ -1833,7 +1872,7 @@ def main() -> int:
             ("spectrogram 2^16 psd", lambda u: ft.spectrogram(u)[2], [(1 << 16,)],
              {"psd": 1, "r2c_fft": 1, "rows_fft": 1}, False),
             ("welch 2^16 complex (two-sided)", lambda u: ft.welch(u)[1], [(1 << 16,)],
-             {"c2c": 1, "rows_fft": 2}, True),
+             {"c2c": 1, "c2c_c64": 1, "rows_fft": 2, "rows_fft_c64": 2}, True),
             ("stft 2^16", lambda u: ft.stft(u, 512, 128), [(1 << 16,)], c64_spec, False),
             ("ShortTimeFFT.stft 2^16 phase shift", stf_grad.stft, [(1 << 16,)], c64_spec,
              False),
@@ -2264,6 +2303,7 @@ def main() -> int:
         "coherence 2^22": lambda: ft.coherence(x, y, **seg),
         "spectrogram 2^22": lambda: ft.spectrogram(x, nperseg=4096),
         "welch 2^22 complex": lambda: ft.welch(xc, **seg),
+        "welch 2^22 real two-sided": lambda: ft.welch(x, return_onesided=False, **seg),
     }
     welch_shapes = {  # key -> (kind, x, y, window, args, the estimator's call)
         "welch 2^22 nperseg 4096 hop 2048": ("welch", x, None, hann,
@@ -2282,23 +2322,27 @@ def main() -> int:
                                            "welch 2^22 complex"),
     }
     for key, (kind, v, u, w, args, call) in welch_shapes.items():
+        fns = {"kernel": lambda: cuda_welch._launch(kind, v, u, w, *args),
+               "plain": lambda: cuda_welch._reference(kind, v, u, w, *args)}
+        if kind == "c2c":  # B21's complex64 entry on the same signal as it lies
+            fns["kernel_c64"] = lambda: cuda_welch._launch("c2c_c64", xc, None, w, *args)
+            fns["plain_c64"] = lambda: cuda_welch._reference("c2c_c64", xc, None, w, *args)
         times[key] = time_in_turns({
-            "kernel": lambda: cuda_welch._launch(kind, v, u, w, *args),
-            "plain": lambda: cuda_welch._reference(kind, v, u, w, *args),
+            **fns,
             "torch.fft": lambda: torch_segments(kind, v, u, w, *args),
             "estimator": path6_calls[call],
         }, reps=10)
+    # welch_acc_fft's kernel, once a call exactly, beside the sum over its
+    # blocks' rows and the estimator's normalisation
+    acc_calls = {"welch 2^22 nperseg 4096": {"welch": 1},
+                 "welch 64x2^20 scipy defaults": {"welch": 1}, "coherence 2^22": {"coh": 1},
+                 "csd 2^22": {"csd": 1}, "welch 2^22 complex": {"c2c": 1, "c2c_c64": 1},
+                 "welch 2^22 real two-sided": {"c2c": 1, "c2c_c64": 1}}
     for call, fn in path6_calls.items():
-        if call in ("welch 2^22 nperseg 4096", "welch 64x2^20 scipy defaults",
-                    "coherence 2^22"):
-            # welch_acc_fft's kernel, once a call exactly, beside the sum over
-            # its blocks' rows and the estimator's normalisation
-            alone(call, fn, ("welch_acc",), {"coh" if "coherence" in call else "welch": 1},
-                  others=True)
-        elif call in ("welch median 2^22", "spectrogram 2^22"):  # B19: spec_fft's psd_pairs
+        if call in acc_calls:
+            alone(call, fn, ("welch_acc",), acc_calls[call], others=True)
+        else:  # B19: spec_fft's psd_pairs
             profiles[call] = breakdown(fn, ("psd_pairs",))
-        else:  # B17, B21: welch_kernel<...>
-            profiles[call] = breakdown(fn, ("welch",))
 
     # the per-segment kernels at path 7's shapes, beside their plain versions
     # and torch.fft's composition (unfold, detrend, window, rfft or fft)
@@ -2376,8 +2420,8 @@ def main() -> int:
             # cached (f, t) grid, which the call returns as fresh tensors
             alone(call, fn, ("spec_c2c",), {"spec_c2c": 1, "spec_c2c_c64": 1}, copies=1)
             continue
-        profiles[call] = breakdown(fn, ("welch", "spec_fft", "spec_c2c", "r2c_fft", "c2r_fft",
-                                        "rows_fft", "gen_fft"))
+        profiles[call] = breakdown(fn, ("welch_acc", "spec_fft", "spec_c2c", "r2c_fft",
+                                        "c2r_fft", "rows_fft", "gen_fft"))
     for key, (ms, by) in spec_bounds.items():
         print(f"bound: {key} | {ms:.4f} ms ({by}; each input read once, the spectra written "
               f"once, at 3.35 TB/s and 67 TFLOP/s)", flush=True)
@@ -2485,12 +2529,13 @@ def main() -> int:
         # the segment-spectrum kernels: each signal (or plane) read once,
         # the window once, the bins (B19: every segment's bins) written once;
         # one real nfft-point transform per segment and real signal, one
-        # complex one per segment of the complex signal (B21); library_ms
-        # is torch.fft's composition of the same function
+        # complex one per segment of the complex signal (B21, through its
+        # planar and its complex64 entry); library_ms is torch.fft's
+        # composition of the same function
         entry("welch", "welch_acc_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:477",
               "welch 2^22 nperseg 4096 hop 2048", 4 * n22 + 4 * 4096 + 4 * 2049,
               rfft_flops(4096, 2047)),
-        entry("csd", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:404",
+        entry("csd", "welch_acc_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:404",
               "csd 2^22 nperseg 4096 hop 2048", 8 * n22 + 4 * 4096 + 8 * 2049,
               2 * rfft_flops(4096, 2047)),
         entry("coh", "welch_acc_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:440",
@@ -2499,9 +2544,12 @@ def main() -> int:
         entry("psd", "spec_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:514",
               "psd 2^22 nperseg 4096 hop 3584", 4 * n22 + 4 * 4096 + 4 * 1170 * 2049,
               rfft_flops(4096, 1170)),
-        entry("c2c", "welch_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:582",
+        entry("c2c", "welch_acc_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:582",
               "c2c 2^22 nperseg 4096 hop 2048", 8 * n22 + 4 * 4096 + 4 * 4096,
               fft_flops(4096, 2047)),
+        entry("c2c_c64", "welch_acc_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:582",
+              "c2c 2^22 nperseg 4096 hop 2048", 8 * n22 + 4 * 4096 + 4 * 4096,
+              fft_flops(4096, 2047), ms="kernel_c64", plain="plain_c64"),
         # the per-segment spectra (path 7's spectrogram shapes): every
         # segment's two planes written once
         entry("spec", "spec_fft.cu", "fft_wgpu_tpu/ops/pallas_welch.py:544",

@@ -22,10 +22,11 @@ The fused epilogues run their own kernels: ``SpectralFilter`` and
 plan its filter-bank kernel, and ``fftconvolve`` / ``oaconvolve`` of real
 input the product C2R kernel (``csrc/c2r_fft.cu``).  The spectral
 estimators (``welch``, ``periodogram``, ``csd``, ``coherence``,
-``spectrogram``) run the fused segment-spectrum kernels
-(``csrc/welch_fft.cu``), and so do the per-segment spectra of ``stft``,
-``ShortTimeFFT`` and the complex spectrogram modes (its framed R2C and C2C
-kernels); ``istft`` and ``resample`` compose the transforms above, and
+``spectrogram``) run the fused segment-spectrum kernels (the segment
+sums of ``csrc/welch_acc_fft.cu``, the per-segment powers of
+``csrc/spec_fft.cu``), and so do the per-segment spectra of ``stft``,
+``ShortTimeFFT`` and the complex spectrogram modes (the framed R2C and C2C
+kernels, ``csrc/spec_fft.cu`` and ``csrc/spec_c2c_fft.cu``); ``istft`` and ``resample`` compose the transforms above, and
 the window functions are host tables.  Other lengths,
 and every CPU tensor, run the plain torch mixed-radix path.  A tensor is
 transformed on the device it lies on; other input (numpy arrays) goes to

@@ -606,7 +606,7 @@ struct PadShared {
 
 // Two real frames a and b (b null: a zero plane) as nfft complex points
 // a + i b, read by the first pass of the kernels that transform two frames
-// at once (welch_acc_fft.cu, B16 and B18; spec_fft.cu's B19): point j <
+// at once (welch_acc_fft.cu, B16-B18; spec_fft.cu's B19): point j <
 // nperseg less each plane's mean, times the window; zero past.
 struct TwoFramesIn {
   const float* a;
@@ -623,6 +623,40 @@ struct TwoFramesIn {
     const float wj = w[j];
     u = (a[j] - ma) * wj;
     v = b != nullptr ? (b[j] - mb) * wj : 0.f;
+  }
+};
+
+// A segment's frame of a complex signal as nfft complex points, read by the
+// first pass of spec_c2c_fft.cu (B22) and welch_acc_fft.cu's two-sided
+// kind (B21): point j < nperseg is the signal's, less each plane's mean,
+// times the window; zero past.  Planar (a null im: a zero plane, none of it
+// read) or the complex64 signal as it lies.
+template <bool IN_C64>
+struct C2cFrameIn {
+  const float* re;  // planar: the frame's first point of each plane
+  const float* im;  // null: a zero plane
+  const float2* z;  // complex64: the frame's first point
+  const float* w;   // the window: in shared memory, or the caller's
+  int nperseg;
+  float mr, mi;
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void load(int j, float& a, float& b) const {
+    if (j >= nperseg) {
+      a = b = 0.f;
+      return;
+    }
+    float u, v;
+    if constexpr (IN_C64) {
+      const float2 p = z[j];
+      u = p.x;
+      v = p.y;
+    } else {
+      u = re[j];
+      v = im != nullptr ? im[j] : 0.f;
+    }
+    const float wj = w[j];
+    a = (u - mr) * wj;
+    b = (v - mi) * wj;
   }
 };
 

@@ -84,37 +84,6 @@ struct SpecC2cArgs {
   float scale;
 };
 
-// Segment frame f as nfft complex points, read by the first pass: point j <
-// nperseg is the signal's, less the means, times the window; zero past.
-template <bool IN_C64>
-struct C2cFrameIn {
-  const float* re;  // planar: the frame's first point of each plane
-  const float* im;  // null: a zero plane
-  const float2* z;  // complex64: the frame's first point
-  const float* w;   // the window: in shared memory, or the caller's
-  int nperseg;
-  float mr, mi;
-  static constexpr bool kShared = false;
-  __device__ __forceinline__ void load(int j, float& a, float& b) const {
-    if (j >= nperseg) {
-      a = b = 0.f;
-      return;
-    }
-    float u, v;
-    if constexpr (IN_C64) {
-      const float2 p = z[j];
-      u = p.x;
-      v = p.y;
-    } else {
-      u = re[j];
-      v = im != nullptr ? im[j] : 0.f;
-    }
-    const float wj = w[j];
-    a = (u - mr) * wj;
-    b = (v - mi) * wj;
-  }
-};
-
 // This thread's segment (one per threadIdx.y): its source, its buffer, and
 // its row of the sink (nothing for a segment past the last).
 template <int LOG2N, bool IN_C64, bool OUT_C64>

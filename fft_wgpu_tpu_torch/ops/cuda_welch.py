@@ -6,8 +6,9 @@
 * ``csd_accum_split`` (B17) — sum over segments of conj(X) * Y;
 * ``coherence_accum_split`` (B18) — conj(X) * Y, |X|^2 and |Y|^2 summed in
   one sweep;
-* ``welch_accum_c2c_split`` (B21) — sum over segments of |FFT(w * frame)|^2
-  of a complex signal, all nfft bins;
+* ``welch_accum_c2c_split`` / ``welch_accum_c2c_c64`` (B21) — sum over
+  segments of |FFT(w * frame)|^2 of a complex signal, all nfft bins, from
+  planes or from the complex64 signal as it lies;
 * ``spec_rfft_split`` / ``spec_rfft_c64`` (B20) — the per-segment half
   spectra of a real signal, as planes (ragged or in the padded serving
   form) or as one complex64 tensor, each padded frame optionally rolled
@@ -19,19 +20,16 @@
 
 A frame is ``nperseg`` points of a ``[..., t]`` signal at hop ``hop``,
 less its mean when ``detrend == "constant"`` (each plane of a complex
-signal on its own), times the window, zero-padded to ``nfft``.  B16 and
-B18 run in ``csrc/welch_acc_fft.cu`` on ``mixed_fft.cuh``'s compiled pow2
-passes: two real frames transformed as one complex frame (B16: frames 2p
-and 2p + 1 of a row, or at nfft 8192 and 16384 B20's half-length
-transform of each frame; B18: segment s of x and of y), the two spectra
-separated per bin and their sums kept per thread; each block writes one
-row of its sums, which ``torch.sum`` adds in a fixed order (the
-library's ``welch_acc_shape`` sizes the grid; ``_acc_passes`` is the
-plain version of its passes and epilogue).  B17 and B21 run in
-``csrc/welch_fft.cu``, one kernel template; a block takes a tile of
-consecutive segments (``welch_tiles`` sizes the grid), and the
-accumulators write one partial row per block, which ``torch.sum`` adds in
-a fixed order.  No kernel uses float atomics.  B20 runs in
+signal on its own), times the window, zero-padded to ``nfft``.  B16, B17,
+B18 and B21 run in ``csrc/welch_acc_fft.cu`` on ``mixed_fft.cuh``'s
+compiled pow2 passes: two real frames transformed as one complex frame
+(B16: frames 2p and 2p + 1 of a row, or at nfft 8192 and 16384 B20's
+half-length transform of each frame; B17 and B18: segment s of x and of
+y), the two spectra separated per bin, or (B21) one complex frame a
+segment, and their sums kept per thread; each block writes one row of its
+sums, which ``torch.sum`` adds in a fixed order (the library's
+``welch_acc_shape`` sizes the grid; ``_acc_passes`` is the plain version
+of its passes and epilogue).  No kernel uses float atomics.  B20 runs in
 ``csrc/spec_fft.cu`` and B22 in ``csrc/spec_c2c_fft.cu``, both on
 ``mixed_fft.cuh``'s compiled pow2 passes, several segments a block, each
 into a planar or a complex64 sink; B19 runs in ``spec_fft.cu`` too, two
@@ -47,7 +45,8 @@ and the power or cross product, summed over segments).  There is no fallback bet
 kernels have no gradient; each entry point here is a
 ``torch.autograd.Function`` whose backward differentiates the composed
 form, rebuilding the frames and running the R2C kernel (B6) or the row
-kernel (B1; its complex64 entry for ``spec_c2c_c64``), whose own backward
+kernel (B1; its complex64 entry for ``spec_c2c_c64`` and
+``welch_accum_c2c_c64``), whose own backward
 is the row kernel.
 
 The envelope (:func:`fused_welch_ok`) is wider than the TPU's: the frame
@@ -74,14 +73,17 @@ __all__ = ["Unsupported", "fused_welch_ok", "welch_accum_split",
            "welch_accum_split_reference", "spec_psd_split", "spec_psd_split_reference",
            "csd_accum_split", "csd_accum_split_reference", "coherence_accum_split",
            "coherence_accum_split_reference", "welch_accum_c2c_split",
-           "welch_accum_c2c_split_reference", "spec_rfft_split",
+           "welch_accum_c2c_split_reference", "welch_accum_c2c_c64",
+           "welch_accum_c2c_c64_reference", "spec_rfft_split",
            "spec_rfft_split_reference", "spec_rfft_c64", "spec_rfft_c64_reference",
            "spec_c2c_split", "spec_c2c_split_reference", "spec_c2c_c64",
            "spec_c2c_c64_reference"]
 
 # Launches of each kernel (B16, B19, B17, B18, B21, B20, B22); callers may
 # reset them to 0.  ``psd_launches`` counts B19's launches (spec_fft's
-# psd_pairs kernel, not counted in ``spec_launches``); ``spec_launches``
+# psd_pairs kernel, not counted in ``spec_launches``); ``c2c_launches``
+# counts every launch of B21, ``c2c_c64_launches`` those of them through
+# its complex64 entry point (``welch_accum_c2c_c64``); ``spec_launches``
 # counts every launch of B20,
 # ``spec_c64_launches`` those of them into its complex64 sink; so do
 # ``spec_c2c_launches`` and ``spec_c2c_c64_launches`` for B22.
@@ -90,27 +92,28 @@ psd_launches = 0
 csd_launches = 0
 coh_launches = 0
 c2c_launches = 0
+c2c_c64_launches = 0
 spec_launches = 0
 spec_c64_launches = 0
 spec_c2c_launches = 0
 spec_c2c_c64_launches = 0
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_ARGTYPES = [_P] * 7 + [_LL, _LL] + [_I] * 7 + [_P]
-_TILES_ARGTYPES = [_I, _LL, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
-# welch_fft.cu's kinds: kind -> (C entry point, output planes, the kind's
-# number in welch_tiles); the counter is f"{kind}_launches"
-_KERNELS = {"csd": ("csd_accum_f32", 2, 2), "c2c": ("welch_c2c_f32", 1, 4)}
-# welch_acc_fft.cu's kinds (B16, B18): kind -> (its number in welch_acc_f32
-# and welch_acc_shape, output planes)
-_ACC = {"welch": (0, 1), "coh": (1, 4)}
+# welch_acc_fft.cu's kinds (B16, B18, B17, B21; B21's complex64 entry point
+# "c2c_c64"): kind -> (its number in welch_acc_f32 and welch_acc_shape,
+# output planes, and whether they hold all nfft bins or nfft/2 + 1)
+_ACC = {"welch": (0, 1, False), "coh": (1, 4, False), "csd": (2, 2, False),
+        "c2c": (3, 1, True), "c2c_c64": (3, 1, True)}
 _ACC_ARGTYPES = [_I] + [_P] * 10 + [_LL, _LL] + [_I] * 7 + [_P]
+_ACC_C64_ARGTYPES = [_P] * 4 + [_LL, _LL] + [_I] * 7 + [_P]
 _ACC_SHAPE_ARGTYPES = [_I, _LL, _I, _I] + [ctypes.POINTER(_I)] * 2
-# kinds whose x and y are the planes of one complex signal (nfft bins; B22's
-# complex64 sink, "spec_c2c_c64", takes x complex64 too, or a real x with no
-# y); B20 (spec_fft.cu) writes planes ("spec") or complex64 ("spec_c64"),
-# B22 (spec_c2c_fft.cu) planes ("spec_c2c") or complex64 ("spec_c2c_c64")
+# kinds whose x and y are the planes of one complex signal (nfft bins; the
+# complex64 entries "c2c_c64" and "spec_c2c_c64" take x complex64 too, or a
+# real x with y its imaginary plane or None); B20 (spec_fft.cu) writes planes
+# ("spec") or complex64 ("spec_c64"), B22 (spec_c2c_fft.cu) planes
+# ("spec_c2c") or complex64 ("spec_c2c_c64")
 _COMPLEX = ("c2c", "spec_c2c")
+_C64_IN = ("c2c_c64", "spec_c2c_c64")
 _SPEC = ("spec", "spec_c64")
 _SPEC_C2C = ("spec_c2c", "spec_c2c_c64")
 
@@ -177,6 +180,8 @@ def _reduce(kind, X, Y):
         return X
     if kind in ("spec_c64", "spec_c2c_c64"):
         return (X,)
+    if kind == "c2c_c64":
+        return ((X.real * X.real + X.imag * X.imag).sum(-2),)
     (xr, xi), p = X, lambda a, b: a * a + b * b
     if kind == "psd":
         return (p(xr, xi),)
@@ -197,7 +202,7 @@ def _composed(kind, x, y, win, nperseg, hop, nfft, detrend, kernels: bool, roll_
     def frames(v):
         return _frames(v, win, nperseg, hop, nfft, detrend, roll_s, pad)
 
-    if kind == "spec_c2c_c64":  # x complex64, or real with y its imaginary plane or None
+    if kind in _C64_IN:  # x complex64, or real with y its imaginary plane or None
         fft = cuda_fft.fft_batched_c64 if kernels else cuda_fft.fft_batched_c64_reference
         return _reduce(kind, fft(_complex_frames(x, y, frames), FORWARD, scale), None)
     if kind in _COMPLEX:  # x, y: the planes of one complex signal
@@ -274,27 +279,33 @@ def _psd_passes(x, win, nperseg, hop, nfft, detrend):
 
 def _acc_passes(kind, x, y, win, nperseg, hop, nfft, detrend, half=False):
     """Plain torch version of the welch_acc_fft kernel's passes and
-    epilogue (B16 ``"welch"``, B18 ``"coh"``): the frames as the kernel
-    makes them, two real frames a complex one z = a + i b (B16: frames 2p
-    and 2p + 1 of a row, an odd count's last with a zero plane; B18:
-    segment s of x and of y, of y and of x for odd s), the fixed passes of
-    ``cuda_fft._mixed_radix_plan``(nfft) on the kernel's pass roots, then
-    per bin k = 0..nfft/2, A = Z[k] and B = conj Z[(nfft - k) mod nfft]:
-    B16 sums (|A|^2 + |B|^2)/2 over the pairs; B18 separates FFT(a) = (A +
-    B)/2 and FFT(b) = (A - B)/(2i), X and Y or (odd s) Y and X, and sums Re
-    and Im of conj(X) Y, |X|^2 and |Y|^2.  With ``half``, B16's other
-    design: :func:`_spec_passes`, B20's half-length transform of each
-    frame, and |X|^2 summed over the segments (the source's kWelchHalf says
-    at which nfft the kernel runs it; both designs compute one function).
-    The kernel's outputs; no CUDA path calls it."""
+    epilogue (B16 ``"welch"``, B18 ``"coh"``, B17 ``"csd"``, B21 ``"c2c"``):
+    the frames as the kernel makes them, two real frames a complex one z =
+    a + i b (B16: frames 2p and 2p + 1 of a row, an odd count's last with a
+    zero plane; B17, B18: segment s of x and of y, of y and of x for odd s),
+    the fixed passes of ``cuda_fft._mixed_radix_plan``(nfft) on the
+    kernel's pass roots, then per bin k = 0..nfft/2, A = Z[k] and B = conj
+    Z[(nfft - k) mod nfft]: B16 sums (|A|^2 + |B|^2)/2 over the pairs; B17
+    and B18 separate FFT(a) = (A + B)/2 and FFT(b) = (A - B)/(2i), X and Y
+    or (odd s) Y and X, and sum Re and Im of conj(X) Y (B18: and |X|^2 and
+    |Y|^2).  B21: one complex frame a segment (x complex64, or the planes x
+    and y, None a zero plane: :func:`_spec_c2c_passes`), |Z|^2 summed over
+    the segments at every bin.  With ``half``, B16's other design:
+    :func:`_spec_passes`, B20's half-length transform of each frame, and
+    |X|^2 summed over the segments (the source's kWelchHalf says at which
+    nfft the kernel runs it; both designs compute one function).  The
+    kernel's outputs; no CUDA path calls it."""
     def frames(v):
         return _frames(v, win, nperseg, hop, nfft, detrend)
 
     if kind == "welch" and half:
         X = _spec_passes(x, win, nperseg, hop, nfft, detrend)
         return ((X.real ** 2 + X.imag ** 2).sum(-2),)
+    if kind == "c2c":
+        Z = _spec_c2c_passes(x, y, win, nperseg, hop, nfft, detrend)
+        return ((Z.real ** 2 + Z.imag ** 2).sum(-2),)
     fx = frames(x)
-    if kind == "coh":  # odd segments swap the planes
+    if kind in ("coh", "csd"):  # odd segments swap the planes
         fy = frames(y)
         swap = (torch.arange(fx.shape[-2], device=x.device) % 2 == 1)[:, None]
         z = torch.complex(torch.where(swap, fy, fx), torch.where(swap, fx, fy))
@@ -312,102 +323,76 @@ def _acc_passes(kind, x, y, win, nperseg, hop, nfft, detrend, half=False):
     # FFT(a) = (A + conj C)/2, FFT(b) = (A - conj C)/(2i)
     fr, fi = 0.5 * (A.real + C.real), 0.5 * (A.imag - C.imag)
     hr, hi = 0.5 * (A.imag + C.imag), 0.5 * (C.real - A.real)
-    pf, ph, im = fr * fr + fi * fi, hr * hr + hi * hi, fr * hi - fi * hr
-    return ((fr * hr + fi * hi).sum(-2), torch.where(swap, -im, im).sum(-2),
-            torch.where(swap, ph, pf).sum(-2), torch.where(swap, pf, ph).sum(-2))
+    im = fr * hi - fi * hr
+    cross = ((fr * hr + fi * hi).sum(-2), torch.where(swap, -im, im).sum(-2))
+    if kind == "csd":
+        return cross
+    pf, ph = fr * fr + fi * fi, hr * hr + hi * hi
+    return (*cross, torch.where(swap, ph, pf).sum(-2), torch.where(swap, pf, ph).sum(-2))
 
 
 # ---------------------------------------------------------------------- #
 # the kernels
 # ---------------------------------------------------------------------- #
 @functools.lru_cache(maxsize=256)
-def _acc_shape(kind, batch: int, num: int, nfft: int, device) -> tuple[int, int]:
-    """(rounds a block, blocks a row) of ``kind``'s grid in welch_acc_fft,
+def _acc_shape(number: int, batch: int, num: int, nfft: int, device) -> tuple[int, int]:
+    """(rounds a block, blocks a row) of welch_acc_fft's kind ``number``,
     from the library (``welch_acc_shape``: one wave of the device's SMs at
     the kernel's occupancy); asked once per shape and device."""
     iters, tiles = _I(), _I()
     build.launch("welch_acc_fft", "welch_acc_shape", _ACC_SHAPE_ARGTYPES, device,
-                 _ACC[kind][0], batch, num, nfft.bit_length() - 1, ctypes.byref(iters),
-                 ctypes.byref(tiles), what=f"welch_acc_shape failed ({kind}, nfft={nfft})")
+                 number, batch, num, nfft.bit_length() - 1, ctypes.byref(iters),
+                 ctypes.byref(tiles), what=f"welch_acc_shape failed ({number}, nfft={nfft})")
     return iters.value, tiles.value
 
 
 def _acc_launch(kind, x, y, win, nperseg, hop, nfft, detrend):
-    """Run welch_acc_fft's kernel (B16 ``"welch"``, B18 ``"coh"``) on CUDA
-    tensors; the outputs ``[..., nfft/2 + 1]``: one row a block, summed
+    """Run welch_acc_fft's kernel (B16 ``"welch"``, B18 ``"coh"``, B17
+    ``"csd"``, B21 ``"c2c"`` and ``"c2c_c64"``: x complex64 read as it
+    lies, or the planes x and y, None a zero plane) on CUDA tensors; the
+    outputs ``[..., bins]`` (nfft/2 + 1, B21 nfft): one row a block, summed
     over a signal row's blocks by ``torch.sum`` where there are several."""
-    number, nout = _ACC[kind]
+    global c2c_launches
+    number, nout, full = _ACC[kind]
     lead, t = x.shape[:-1], x.shape[-1]
     batch = math.prod(lead)
     num = 1 + (t - nperseg) // hop
-    bins = nfft // 2 + 1
+    bins = nfft if full else nfft // 2 + 1
     if batch == 0:
-        return tuple(x.new_zeros((*lead, bins)) for _ in range(nout))
-    x = x.contiguous()
+        return tuple(x.new_zeros((*lead, bins), dtype=torch.float32) for _ in range(nout))
+    x = x.resolve_conj().contiguous()
     y = None if y is None else y.contiguous()
-    iters, tiles = _acc_shape(kind, batch, num, nfft, x.device)
-    outs = list(x.new_empty((nout, batch, tiles, bins)).unbind(0))
-    ptrs = [o.data_ptr() for o in outs] + [None] * (4 - nout)
+    iters, tiles = _acc_shape(number, batch, num, nfft, x.device)
+    outs = list(torch.empty((nout, batch, tiles, bins), dtype=torch.float32,
+                            device=x.device).unbind(0))
     tw = cuda_fft._twiddle_table(nfft, FORWARD, x.device, cuda_fft._pass_roots_np)
-    build.launch("welch_acc_fft", "welch_acc_f32", _ACC_ARGTYPES, x.device, number,
-                 x.data_ptr(), None if y is None else y.data_ptr(),
-                 win.contiguous().data_ptr(), *ptrs, tw.data_ptr(),
-                 *cuda_fft._r2c_tables(nfft, x.device), batch, t, nperseg, hop, num,
-                 nfft.bit_length() - 1, int(detrend == "constant"), iters, tiles,
-                 cuda_fft._stream(x),
-                 what=f"welch_acc_f32 launch failed ({kind}, batch={batch}, t={t}, "
-                      f"nperseg={nperseg}, hop={hop}, nfft={nfft})")
+    args = (batch, t, nperseg, hop, num, nfft.bit_length() - 1, int(detrend == "constant"),
+            iters, tiles, cuda_fft._stream(x))
+    what = (f"welch_acc_fft launch failed ({kind}, batch={batch}, t={t}, nperseg={nperseg}, "
+            f"hop={hop}, nfft={nfft})")
+    if x.is_complex():
+        build.launch("welch_acc_fft", "welch_acc_c64", _ACC_C64_ARGTYPES, x.device,
+                     x.data_ptr(), win.contiguous().data_ptr(), outs[0].data_ptr(),
+                     tw.data_ptr(), *args, what=what)
+    else:
+        ptrs = [o.data_ptr() for o in outs] + [None] * (4 - nout)
+        build.launch("welch_acc_fft", "welch_acc_f32", _ACC_ARGTYPES, x.device, number,
+                     x.data_ptr(), None if y is None else y.data_ptr(),
+                     win.contiguous().data_ptr(), *ptrs, tw.data_ptr(),
+                     *cuda_fft._r2c_tables(nfft, x.device), *args, what=what)
     globals()[f"{kind}_launches"] += 1
+    if kind == "c2c_c64":
+        c2c_launches += 1
     # the blocks' rows, summed in a fixed order
     return tuple((o.sum(1) if tiles > 1 else o[:, 0]).reshape(*lead, bins) for o in outs)
 
 
-@functools.lru_cache(maxsize=256)
-def _tiles(kind, batch: int, num: int, nfft: int, device) -> tuple[int, int]:
-    """(segments per block S, tiles) of ``kind``'s grid, from the library
-    (``welch_tiles``: two waves of the device's SMs at the kernel's
-    occupancy); asked once per shape and device."""
-    per_block, tiles = _I(), _I()
-    build.launch("welch_fft", "welch_tiles", _TILES_ARGTYPES, device, _KERNELS[kind][2],
-                 batch, num, nfft.bit_length() - 1, ctypes.byref(per_block),
-                 ctypes.byref(tiles), what=f"welch_tiles failed ({kind}, nfft={nfft})")
-    return per_block.value, tiles.value
-
-
 def _launch(kind, x, y, win, nperseg, hop, nfft, detrend):
-    """Run the kernel of ``kind`` (welch, psd, csd, coh, c2c: welch_acc_fft's
-    two, spec_fft's B19, welch_fft's two) on CUDA tensors; the outputs."""
-    if kind in _ACC:
-        return _acc_launch(kind, x, y, win, nperseg, hop, nfft, detrend)
+    """Run the kernel of ``kind`` (welch, coh, csd, c2c, c2c_c64:
+    welch_acc_fft's; psd: spec_fft's B19) on CUDA tensors; the outputs."""
     if kind == "psd":
         return (_psd_launch(x, win, nperseg, hop, nfft, detrend),)
-    fn, nout, _ = _KERNELS[kind]
-    lead, t = x.shape[:-1], x.shape[-1]
-    batch = math.prod(lead)
-    num = 1 + (t - nperseg) // hop
-    bins = nfft if kind in _COMPLEX else nfft // 2 + 1
-    if batch == 0:
-        return tuple(x.new_zeros((*lead, bins)) for _ in range(nout))
-    x = x.contiguous()
-    y = None if y is None else y.contiguous()
-    per_block, tiles = _tiles(kind, batch, num, nfft, x.device)
-    outs = list(x.new_empty((nout, batch, tiles, bins)).unbind(0))
-    ptrs = [o.data_ptr() for o in outs] + [None] * (2 - nout)
-    if kind in _COMPLEX:  # the nfft-point transform, no recombination
-        tw, half = cuda_fft._twiddle_table(nfft, FORWARD, x.device), None
-    else:  # B6's half-length transform and its recombination table
-        tw = cuda_fft._twiddle_table(nfft // 2, FORWARD, x.device)
-        half = cuda_fft._halfcomplex_table(nfft, FORWARD, x.device).data_ptr()
-    build.launch("welch_fft", fn, _ARGTYPES, x.device,
-                 x.data_ptr(), None if y is None else y.data_ptr(),
-                 win.contiguous().data_ptr(), *ptrs, tw.data_ptr(), half,
-                 batch, t, nperseg, hop, num, per_block, tiles, nfft.bit_length() - 1,
-                 int(detrend == "constant"), cuda_fft._stream(x),
-                 what=f"{fn} launch failed (batch={batch}, t={t}, nperseg={nperseg}, "
-                      f"hop={hop}, nfft={nfft})")
-    globals()[f"{kind}_launches"] += 1
-    # the partial rows of the tiles, summed in a fixed order
-    return tuple(o.sum(1).reshape(*lead, bins) for o in outs)
+    return _acc_launch(kind, x, y, win, nperseg, hop, nfft, detrend)
 
 
 def _psd_launch(x, win, nperseg, hop, nfft, detrend):
@@ -554,14 +539,14 @@ class _Segments(torch.autograd.Function):
 
 def _apply(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False,
            scale=None, pad=0):
-    num = _check(x, y, win, nperseg, hop, nfft, detrend, roll_s, pad, kind == "spec_c2c_c64")
+    num = _check(x, y, win, nperseg, hop, nfft, detrend, roll_s, pad, kind in _C64_IN)
     return _Segments.apply(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s,
                            bool(pad_out), scale, pad), num
 
 
 def _reference(kind, x, y, win, nperseg, hop, nfft, detrend, roll_s=0, pad_out=False,
                scale=None, pad=0):
-    num = _check(x, y, win, nperseg, hop, nfft, detrend, roll_s, pad, kind == "spec_c2c_c64")
+    num = _check(x, y, win, nperseg, hop, nfft, detrend, roll_s, pad, kind in _C64_IN)
     return _composed(kind, x, y, win, nperseg, hop, nfft, detrend, False, roll_s,
                      bool(pad_out), scale, pad), num
 
@@ -640,6 +625,26 @@ def welch_accum_c2c_split(re, im, win, nperseg, hop, nfft, detrend):
 def welch_accum_c2c_split_reference(re, im, win, nperseg, hop, nfft, detrend):
     """Plain torch version of :func:`welch_accum_c2c_split`."""
     (psum,), num = _reference("c2c", re, im, win, nperseg, hop, nfft, detrend)
+    return psum, num
+
+
+def welch_accum_c2c_c64(x, win, nperseg, hop, nfft, detrend, *, im=None):
+    """:func:`welch_accum_c2c_split` of a complex64 signal as it lies: x
+    is the complex64 signal ``[..., t]`` (each plane detrended on its own),
+    or a real float32 one (with ``im``, a float32 tensor of x's shape: the
+    planes of a complex signal; without, the real signal taken two-sided,
+    no imaginary plane read) -> (power_sum ``[..., nfft]``, num).  On the
+    card one launch of B21's complex64 entry point (or, for real x, its
+    planar one) with no split and no copy of a contiguous x.
+    Differentiable in x and im (the composed form's gradient, through the
+    row kernel's complex64 entry)."""
+    (psum,), num = _apply("c2c_c64", x, im, win, nperseg, hop, nfft, detrend)
+    return psum, num
+
+
+def welch_accum_c2c_c64_reference(x, win, nperseg, hop, nfft, detrend, *, im=None):
+    """Plain torch version of :func:`welch_accum_c2c_c64`."""
+    (psum,), num = _reference("c2c_c64", x, im, win, nperseg, hop, nfft, detrend)
     return psum, num
 
 

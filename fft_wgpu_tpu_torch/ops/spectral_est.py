@@ -25,7 +25,9 @@ in the cases where the JAX package takes its TPU kernels, with
     ``spec_rfft_c64``, the normalisation folded into its store, returned
     as the transposed view with no merge;
   * the two-sided mean of one signal (complex input, or real input with
-    ``return_onesided=False``): B21, ``welch_accum_c2c_split``;
+    ``return_onesided=False``): B21, ``welch_accum_c2c_c64``, read from the
+    caller's complex64 tensor as it lies or from the planes (real input:
+    no imaginary plane);
   * every other two-sided per-segment spectrum (complex input, or real
     input with ``return_onesided=False``): B22's complex64 sink,
     ``spec_c2c_c64``, read from the caller's complex64 tensor as it lies
@@ -367,8 +369,9 @@ def _power(X):
 
 def _is_complex(x) -> bool:
     """True for complex input and explicit (re, im) pairs (a tuple of two
-    tensors or arrays; a list is data).  promote_to_split gives real input
-    a zero imaginary part, so this is decided before promotion."""
+    tensors or arrays; a list is data).  Decided before promotion: real
+    input is not given to promote_to_split, which would make it a zero
+    imaginary plane (:func:`_promote`)."""
     if is_pair(x):
         return True
     if isinstance(x, torch.Tensor):
@@ -382,6 +385,14 @@ def _c64(x):
     return x if isinstance(x, torch.Tensor) and x.dtype == torch.complex64 else None
 
 
+def _promote(x, device=None):
+    """x as float32 planes (re, im) on ``device``, im None for real input,
+    for which no imaginary plane is made."""
+    if _is_complex(x):
+        return promote_to_split(x, device)
+    return to_device(x, device), None
+
+
 def _split(x, device=None):
     """x as planes (re, im), im None for real input: the one promotion of
     an estimator's input (numpy input is copied to the card once).  A
@@ -389,8 +400,7 @@ def _split(x, device=None):
     views of it."""
     if _c64(x) is not None and (device is None or x.device == torch.device(device)):
         return x.real, x.imag
-    xr, xi = promote_to_split(x, device)
-    return xr, xi if _is_complex(x) else None
+    return _promote(x, device)
 
 
 def _split_pair(x, y):
@@ -502,9 +512,9 @@ def _csd_impl(xs, ys, fs, window, nperseg, noverlap, nfft, detrend,
     xr_, xi_, yr_, yi_ = mv(xr), mv(xi), mv(yr), mv(yi)
     fused = (_on_card(xr_)
              and cuda_welch.fused_welch_ok(xr_.shape[-1], nperseg, hop, nfft, detrend))
-    # two-sided output needs the full C2C path even for real input (B22
-    # reads no imaginary plane of a real signal)
-    if not onesided and xi_ is None and not (fused and not (same and average == "mean")):
+    # two-sided output needs the full C2C path even for real input (B21 and
+    # B22 read no imaginary plane of a real signal)
+    if not onesided and xi_ is None and not fused:
         xi_ = torch.zeros_like(xr_)
     if not onesided and yr_ is not None and yi_ is None and not fused:
         yi_ = torch.zeros_like(yr_)
@@ -528,9 +538,11 @@ def _csd_impl(xs, ys, fs, window, nperseg, noverlap, nfft, detrend,
         mult = _onesided_mult(nfft, Pr.device) * (norm / float(den))
         Pr, Pi = Pr * mult, Pi * mult
     elif not onesided and same and average == "mean" and fused:
-        # B21: the two-sided sum over segments, every bin
-        psum, den = cuda_welch.welch_accum_c2c_split(xr_, xi_, win, nperseg, hop, nfft,
-                                                     detrend)
+        # B21: the two-sided sum over segments, every bin, from the caller's
+        # complex64 tensor as it lies, else from the planes (real input: no
+        # imaginary plane read)
+        v, vi = (xc.movedim(axis, -1), None) if xc is not None else (xr_, xi_)
+        psum, den = cuda_welch.welch_accum_c2c_c64(v, win, nperseg, hop, nfft, detrend, im=vi)
         Pr = psum * (norm / float(den))
         Pi = torch.zeros_like(Pr)
     else:

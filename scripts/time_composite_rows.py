@@ -36,8 +36,8 @@ device work, the kernel's) beside torch.stft, the per-segment powers
 (B19) at a 2^22 signal with nperseg 4096, hop 3584 (the psd spectrogram's
 shape) and at every pow2 nfft of 128..16384 at half overlap over 2^22
 points, spectrogram's psd mode and welch's median of that signal (events,
-all of their device work, the kernel's), and the output bits of the two
-segment-spectrum kinds left on welch_kernel, to compare two trees (set
+all of their device work, the kernel's), and the output bits of csd's
+and the two-sided welch's segment sums, to compare two trees (set
 "spec"); the product C2R (B8) at
 2048 x 8192 with B of A's shape, padded and not, and broadcast, and at
 every pow2 n of 128..16384 over 2^24 points, fftconvolve of two 2048 x
@@ -53,7 +53,10 @@ of complex 2^22 signals (set "c2c"); welch's and coherence's segment sums
 with nperseg 256, hop 128 (scipy's defaults) and at every pow2 nfft of
 128..16384 at half overlap over 2^22 points, each kernel alone and with
 all of its device work, beside torch.fft's composition, and the welch and
-coherence calls at those shapes (set "welch"); and the output bits of the
+coherence calls at those shapes; csd's segment sums and the two-sided
+welch's of a complex signal (B17, B21: through both of its sources where
+the tree has them) at the same shapes, and csd of two 2^22 signals and the
+two-sided welch of a complex64 and a real one (set "welch"); and the output bits of the
 kernels kept as they were, chip_smoke.kept_bits (set "bits").
 
     python3 scripts/time_composite_rows.py [--tree DIR] [--label NAME] [--out FILE]
@@ -202,9 +205,8 @@ def main() -> int:
         # the kept kernels' output bits (chip_smoke.kept_bits on this tree's modules)
         sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
         import chip_smoke
-        from fft_wgpu_tpu_torch.ops import cuda_welch
 
-        result["bits"] = chip_smoke.kept_bits(cuda_fft, cuda_welch, dev)
+        result["bits"] = chip_smoke.kept_bits(cuda_fft, dev)
         print(f"{args.label} | kept bits | {result['bits']}", flush=True)
     for kernel, rows, n in SHAPES if args.set in ("rows", "all") else ():
         key = f"{kernel} {rows}x{n}"
@@ -563,14 +565,15 @@ def time_spec(ft, dev, gen, label, result):
     composition (unfold, detrend, window, rfft); B20 at every pow2 nfft of
     128..16384 at half overlap over 2^22 points; stft of 2^20 samples at
     n_fft 512, hop 128 beside torch.stft; B19 (``cuda_welch._launch("psd",
-    ...)``, welch_fft.cu's or spec_fft.cu's kernel, whichever the tree has)
+    ...)``, spec_fft.cu's kernel)
     at a 2^22 signal with nperseg 4096, hop 3584 (a tukey window, constant
     detrend: the psd spectrogram's shape) and at every pow2 nfft at half
     overlap over 2^22 points, beside torch.fft's composition (unfold,
     detrend, window, rfft, |X|^2), spectrogram's psd mode and welch's
-    median of that signal against scipy.signal; and the bits of the two
-    segment-spectrum kinds left on welch_kernel (csd, c2c) at a 2^20 signal
-    (``bits`` in the JSON line)."""
+    median of that signal against scipy.signal; and the bits of csd's and
+    the two-sided welch's segment sums (B17, B21; welch_fft.cu's kinds in
+    trees before they moved to welch_acc_fft.cu) at a 2^20 signal (``bits``
+    in the JSON line)."""
     import torch
 
     from fft_wgpu_tpu_torch.ops import cuda_welch
@@ -641,11 +644,11 @@ def time_spec(ft, dev, gen, label, result):
     del x, x64, want
     y20 = torch.randn(1 << 20, device=dev, generator=gen)
     w = torch.hann_window(4096, device=dev)
-    # the two kinds on welch_kernel in every tree since B16, B18 and B19 left it
+    # B17 and B21, whichever library the tree runs them in
     result["bits"] = {kind: _bits(cuda_welch._launch(kind, x20, y20, w, 4096, 2048, 4096,
                                                      "constant"))
                       for kind in ("csd", "c2c")}
-    print(f"{label} | bits of the welch_kernel kinds | {result['bits']}", flush=True)
+    print(f"{label} | bits of B17 and B21 | {result['bits']}", flush=True)
 
 
 def time_filt(ft, cuda_fft, dev, gen, label, result):
@@ -775,73 +778,104 @@ def time_c2c(ft, dev, gen, label, result):
 
 
 def time_welch(ft, dev, gen, label, result):
-    """B16 (welch) and B18 (coh) through ``cuda_welch._launch`` at a 2^22
-    signal with nperseg 4096, hop 2048 (a hann window, constant detrend:
-    welch's and coherence's defaults at path 6's shape), B16 at 64 x 2^20
-    with nperseg 256, hop 128 (scipy's defaults), and both at every pow2
-    nfft of 128..16384 at half overlap over 2^22 points: the events of the
-    call, the kernel's device time and all of the call's device work (the
-    kernel and the sum over its partial rows), beside torch.fft's
-    composition (unfold, detrend, window, rfft, the products summed); then
-    ft.welch and ft.coherence at the first two shapes (events, all of their
-    device work, the kernel's)."""
+    """B16 (welch), B18 (coh), B17 (csd) and B21 (c2c: the planes of a
+    complex signal; c2c_c64: the complex64 signal as it lies, where the tree
+    has that entry) through ``cuda_welch._launch`` at a 2^22 signal with
+    nperseg 4096, hop 2048 (a hann window, constant detrend: the estimators'
+    defaults at path 6's shape), B16 at 64 x 2^20 with nperseg 256, hop 128
+    (scipy's defaults), and each at every pow2 nfft of 128..16384 at half
+    overlap over 2^22 points: the events of the call, the kernel's device
+    time and all of the call's device work (the kernel and the sum over its
+    partial rows), beside torch.fft's composition (unfold, detrend, window,
+    rfft or fft, the products summed); then ft.welch, ft.coherence and
+    ft.csd at the first two shapes, and the two-sided ft.welch of a
+    complex64 and of a real 2^22 signal (events, all of their device work,
+    the kernel's)."""
     import torch
 
     from fft_wgpu_tpu_torch.ops import cuda_welch
 
     record = recorder(label, result)
     every = r"\w+"
-    kernel = r"welch(_acc)?_kernel"  # the parent's welch_kernel<., 0 or 3>, or welch_acc_kernel
+    kernel = r"welch(_acc)?_kernel"  # the parent's welch_kernel<., .>, or welch_acc_kernel
     x, y = (torch.randn(1 << 22, device=dev, generator=gen) for _ in range(2))
     xb = torch.randn(64, 1 << 20, device=dev, generator=gen)
+    xc = torch.complex(x, y)
+    kinds = ("welch", "coh", "csd", "c2c") + (
+        ("c2c_c64",) if hasattr(cuda_welch, "welch_accum_c2c_c64") else ())
 
     def composed(kind, v, u, w, nperseg, hop, nfft, detrend):
         def spectra(a):
             fr = a.unfold(-1, nperseg, hop)
             if detrend == "constant":
                 fr = fr - fr.mean(-1, keepdim=True)
-            return torch.fft.rfft(fr * w.to(a.dtype), n=nfft)
+            fr = fr * w.to(fr.real.dtype)
+            return (torch.fft.fft if a.is_complex() else torch.fft.rfft)(fr, n=nfft)
 
+        if kind in ("c2c", "c2c_c64"):
+            X = spectra(v if v.is_complex() else torch.complex(v, u))
+            return ((X.real ** 2 + X.imag ** 2).sum(-2),)
         X = spectra(v)
         if kind == "welch":
             return ((X.real ** 2 + X.imag ** 2).sum(-2),)
         Y = spectra(u)
         P = (X.conj() * Y).sum(-2)
+        if kind == "csd":
+            return P.real, P.imag
         return (P.real, P.imag, (X.real ** 2 + X.imag ** 2).sum(-2),
                 (Y.real ** 2 + Y.imag ** 2).sum(-2))
 
     def flat(outs):
         return torch.cat([o.reshape(-1) for o in outs])
 
-    shapes = [("welch", x, ft.hann_window(4096, device=dev), (4096, 2048, 4096, "constant")),
-              ("welch", xb, ft.hann_window(256, device=dev), (256, 128, 256, "constant")),
-              ("coh", x, ft.hann_window(4096, device=dev), (4096, 2048, 4096, "constant"))]
+    def operands(kind, v):
+        # (x, y) of a kind: one real signal, two, the planes or the complex64 signal
+        if kind == "c2c_c64":
+            return xc, None
+        return v, (y if kind in ("coh", "csd", "c2c") else None)
+
+    shapes = [(kind, x, ft.hann_window(4096, device=dev), (4096, 2048, 4096, "constant"))
+              for kind in kinds]
+    shapes.insert(1, ("welch", xb, ft.hann_window(256, device=dev), (256, 128, 256, "constant")))
     shapes += [(kind, x, ft.hann_window(1 << e, device=dev),
                 (1 << e, 1 << e - 1, 1 << e, "constant"))
-               for kind in ("welch", "coh") for e in range(7, 15)]
+               for kind in kinds for e in range(7, 15)]
     for kind, v, w, args in shapes:
-        u = y if kind == "coh" else None
+        v, u = operands(kind, v)
         fns = {"kernel": lambda: cuda_welch._launch(kind, v, u, w, *args),
                "torch.fft": lambda: composed(kind, v, u, w, *args)}
-        want = composed(kind, v.double(), None if u is None else u.double(), w, *args)
+        want = composed(kind, v.to(torch.complex128 if v.is_complex() else torch.float64),
+                        None if u is None else u.double(), w, *args)
         err = rel_l2(flat(fns["kernel"]()), flat(want))
         record("{} {} nperseg {} hop {} nfft {} {}".format(
             kind, "x".join(map(str, v.shape)), *args), err, fns,
             {"device kernel": (fns["kernel"], kernel), "device all": (fns["kernel"], every)},
             reps=20)
     seg = {"nperseg": 4096, "noverlap": 2048}
-    calls = {"welch 2^22 nperseg 4096": (lambda: ft.welch(x, **seg)[1], "welch"),
-             "welch 64x2^20 scipy defaults": (lambda: ft.welch(xb)[1], "welch"),
-             "coherence 2^22 nperseg 4096": (lambda: ft.coherence(x, y, **seg)[1], "coh")}
-    for key, (call, kind) in calls.items():
-        v, args = (xb, (256, 128, 256)) if "64x" in key else (x, (4096, 2048, 4096))
+    zero = torch.zeros_like(x)
+    calls = {  # key -> (the call, the kind of its oracle, its operands)
+        "welch 2^22 nperseg 4096": (lambda: ft.welch(x, **seg)[1], "welch", x, None),
+        "welch 64x2^20 scipy defaults": (lambda: ft.welch(xb)[1], "welch", xb, None),
+        "coherence 2^22 nperseg 4096": (lambda: ft.coherence(x, y, **seg)[1], "coh", x, y),
+        "csd 2^22 nperseg 4096": (lambda: ft.csd(x, y, **seg)[1], "csd", x, y),
+        "welch 2^22 complex64 two-sided": (lambda: ft.welch(xc, **seg)[1], "c2c", xc, None),
+        "welch 2^22 real two-sided": (lambda: ft.welch(x, return_onesided=False, **seg)[1],
+                                      "c2c", x, zero)}
+    for key, (call, kind, v, u) in calls.items():
+        args = (256, 128, 256) if "64x" in key else (4096, 2048, 4096)
         w = ft.hann_window(args[0], device=dev)
-        P = composed(kind, v.double(), y.double(), w, *args, "constant")
+        P = composed(kind, v.to(torch.complex128 if v.is_complex() else torch.float64),
+                     None if u is None else u.double(), w, *args, "constant")
+        num = 1 + (v.shape[-1] - args[0]) // args[1]
+        norm = num * float((w.double() ** 2).sum())
+        mult = torch.full((args[2] // 2 + 1,), 2.0, dtype=torch.float64, device=dev)
+        mult[0] = mult[-1] = 1.0
         if kind == "welch":  # the density: the mean over segments, one-sided
-            num = 1 + (v.shape[-1] - args[0]) // args[1]
-            mult = torch.full((args[2] // 2 + 1,), 2.0, dtype=torch.float64, device=dev)
-            mult[0] = mult[-1] = 1.0
-            want = P[0] * mult / (num * float((w.double() ** 2).sum()))
+            want = P[0] * mult / norm
+        elif kind == "csd":
+            want = torch.complex(P[0], P[1]) * mult / norm
+        elif kind == "c2c":  # two-sided
+            want = P[0] / norm
         else:
             want = (P[0] ** 2 + P[1] ** 2) / (P[2] * P[3])
         record(key, rel_l2(call(), want), {"call": call},

@@ -2,7 +2,7 @@
 """Time launch-bound and cluster-size variants of the pow2 kernels of the
 torch port (rows_fft, B1; big_fft, B15; ax0_fft, B2/B3; fft2f_fft, B5;
 spec_fft, B20 and B19; filt_fft's filtered rows, B9; spec_c2c_fft, B22;
-welch_acc_fft, B16 and B18; c2r_fft's product kernel, B8) on one CUDA
+welch_acc_fft, B16, B17, B18 and B21; c2r_fft's product kernel, B8) on one CUDA
 card, each beside the kernel as it is.
 
     python3 scripts/time_pow2_variants.py
@@ -42,10 +42,12 @@ and on two frames as one complex frame at every nfft (the kernel: the
 half-length transform at 8192 and 16384, kWelchHalf), with every sum in
 registers and with every sum in shared memory that fits (the kernel's
 kRegSums), with a grid of 2 and 4 waves of the SMs (the kernel: one
-wave), with a launch bound of 64 registers at every nfft (the kernel's
-kRegisters: 85 up to 4096), and with every load of the frame's mean
-unrolled (the kernel: a runtime loop), each call timed with the
-torch.sum over its partial rows where there are several; c2r_fft's product
+wave), with a launch bound of 64 registers at every nfft, of 85 up to
+4096 and of 128 up to 8192 (the kernel's kRegisters), and with every
+load of the frame's mean unrolled (the kernel: a runtime loop), each
+call timed with the torch.sum over its partial rows where there are
+several;
+c2r_fft's product
 kernel with the first pass reading A and B from device memory at X[k] and
 X[m-k] (two global reads of each bin, the product formed twice; the
 kernel: one sweep stages the product in shared memory), with 1, 4 and 16
@@ -252,41 +254,65 @@ VARIANTS.update({
 })
 WELCH_HALF = ("constexpr bool kWelchHalf[8] = {false, false, false, false, false, false, true, "
               "true};")
-WELCH_SUMS = "constexpr int kRegSums[2][8] = {{1, 1, 0, 0, 0, 0, 0, 0}, {4, 0, 0, 0, 0, 0, 0, 2}};"
-WELCH_REGS = "constexpr int kRegisters[8] = {85, 85, 85, 85, 85, 85, 64, 64};"
+# kRegSums' and kRegisters' rows, one a kind
+WELCH_SUMS = {"welch": "{{1, 1, 0, 0, 0, 0, 0, 0},   // welch",
+              "coh": "{4, 0, 0, 0, 0, 0, 0, 2},   // coh",
+              "csd": "{2, 2, 2, 2, 2, 2, 2, 0},   // csd",
+              "c2c": "{0, 0, 0, 0, 0, 0, 0, 0}};  // c2c"}
+WELCH_REGS = {"welch": "{{85, 85, 85, 85, 85, 85, 64, 64},         // welch",
+              "coh": "{85, 85, 85, 85, 85, 85, 64, 64},         // coh",
+              "csd": "{128, 128, 128, 128, 128, 128, 128, 64},  // csd",
+              "c2c": "{85, 64, 128, 128, 128, 128, 128, 64}};   // c2c"}
 WELCH_SLOTS = "  const long long slots = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);"
-WELCH_MEAN = ("      for (int i = tx; i < g.nperseg; i += T) {\n        ma += pa[i];\n"
-              "        if (pb != nullptr) mb += pb[i];\n      }\n")
+WELCH_MEAN = ("        for (int i = tx; i < g.nperseg; i += T) {\n          ma += pa[i];\n"
+              "          if (pb != nullptr) mb += pb[i];\n        }\n")
+
+
+def _rows(table, new):
+    """Edits of rows of a per-kind table: kind -> its new numbers."""
+    def nums(row):
+        return row[row.rindex("{") + 1:row.index("}")]
+    return tuple((table[k], table[k].replace(nums(table[k]), v)) for k, v in new.items())
+
+
 VARIANTS.update({
     ("welch_acc_fft", "kernel"): None,
     ("welch_acc_fft", "half-length welch"): (WELCH_HALF, WELCH_HALF.replace("false", "true")),
     ("welch_acc_fft", "pairs of frames"): (WELCH_HALF, WELCH_HALF.replace("true", "false")),
-    ("welch_acc_fft", "sums in registers"): (
-        WELCH_SUMS, "constexpr int kRegSums[2][8] = {{1, 1, 1, 1, 1, 1, 1, 1}, "
-                    "{4, 4, 4, 4, 4, 4, 4, 4}};"),
-    ("welch_acc_fft", "sums in shared memory"): (
-        WELCH_SUMS, "constexpr int kRegSums[2][8] = {{0, 0, 0, 0, 0, 0, 0, 0}, "
-                    "{0, 0, 0, 0, 0, 0, 0, 2}};"),
+    ("welch_acc_fft", "sums in registers"): _rows(WELCH_SUMS, {
+        "welch": "1, 1, 1, 1, 1, 1, 1, 1", "coh": "4, 4, 4, 4, 4, 4, 4, 4"}),
+    ("welch_acc_fft", "sums in shared memory"): _rows(WELCH_SUMS, {
+        "welch": "0, 0, 0, 0, 0, 0, 0, 0", "coh": "0, 0, 0, 0, 0, 0, 0, 2",
+        "csd": "0, 0, 0, 0, 0, 0, 0, 0"}),
     ("welch_acc_fft", "2 waves"): (WELCH_SLOTS, WELCH_SLOTS.replace("(sms)", "(2 * sms)")),
     ("welch_acc_fft", "4 waves"): (WELCH_SLOTS, WELCH_SLOTS.replace("(sms)", "(4 * sms)")),
-    ("welch_acc_fft", "64 registers"): (WELCH_REGS, WELCH_REGS.replace("85", "64")),
+    ("welch_acc_fft", "64 registers"): _rows(WELCH_REGS, dict.fromkeys(
+        WELCH_REGS, "64, 64, 64, 64, 64, 64, 64, 64")),
+    ("welch_acc_fft", "85 registers"): _rows(WELCH_REGS, dict.fromkeys(
+        WELCH_REGS, "85, 85, 85, 85, 85, 85, 64, 64")),
+    ("welch_acc_fft", "128 registers"): _rows(WELCH_REGS, dict.fromkeys(
+        WELCH_REGS, "128, 128, 128, 128, 128, 128, 128, 64")),
     ("welch_acc_fft", "mean loads unrolled"): (
-        WELCH_MEAN, "#pragma unroll\n      for (int r = 0; r < N / T; ++r) {\n"
-                    "        const int i = tx + r * T;\n        if (i < g.nperseg) {\n"
-                    "          ma += pa[i];\n          if (pb != nullptr) mb += pb[i];\n"
-                    "        }\n      }\n"),
+        WELCH_MEAN, "#pragma unroll\n        for (int r = 0; r < N / T; ++r) {\n"
+                    "          const int i = tx + r * T;\n          if (i < g.nperseg) {\n"
+                    "            ma += pa[i];\n            if (pb != nullptr) mb += pb[i];\n"
+                    "          }\n        }\n"),
 })
 # the variants of each welch_acc_fft kind (the others build its kernel as it is)
-WELCH_COMMON = ("kernel", "2 waves", "4 waves", "64 registers", "mean loads unrolled")
+WELCH_COMMON = ("kernel", "2 waves", "4 waves", "64 registers", "128 registers",
+                "mean loads unrolled")
 WELCH_VARIANTS = {"welch": WELCH_COMMON + ("half-length welch", "pairs of frames",
                                            "sums in registers", "sums in shared memory"),
-                  "coh": WELCH_COMMON + ("sums in registers",)}
+                  "coh": WELCH_COMMON + ("sums in registers",),
+                  "csd": WELCH_COMMON + ("85 registers", "sums in shared memory"),
+                  "c2c": WELCH_COMMON + ("85 registers",)}
 # (kind, rows, t, nperseg) of welch_acc_fft's shapes, hop nperseg/2, nfft
 # nperseg, constant detrend: path 6's 2^22 and 64 x 2^20, and the envelope
-# at 2^22
+# at 2^22 (B21, "c2c": x and y the planes of a complex signal, at every nfft)
 WELCH_SHAPES = (("welch", 1, 1 << 22, 4096), ("welch", 64, 1 << 20, 256),
                 ("coh", 1, 1 << 22, 4096)) + tuple(
-    (kind, 1, 1 << 22, 1 << e) for e in (7, 9, 13, 14) for kind in ("welch", "coh"))
+    (kind, 1, 1 << 22, 1 << e) for e in (7, 9, 13, 14) for kind in ("welch", "coh")
+) + tuple((kind, 1, 1 << 22, 1 << e) for kind in ("csd", "c2c") for e in range(7, 15))
 # (rows, n, n_in) of filt_fft's shapes: SpectralFilter's 4096^2, hilbert's
 # half spectrum, and 1000 rows at the ends and middle of the envelope
 FILT_SHAPES = ((4096, 4096, 4096), (4096, 4096, 2049), (1000, 128, 128), (1000, 1024, 1024),
@@ -683,20 +709,26 @@ def main() -> int:
     def welch_oracle(kind, x, y, w, nperseg, hop, nfft):
         # float64 torch.fft of the detrended frames, the products summed
         def spectra(v):
-            fr = v.double().unfold(-1, nperseg, hop)
-            return torch.fft.rfft((fr - fr.mean(-1, keepdim=True)) * w.double(), n=nfft)
+            fr = v.unfold(-1, nperseg, hop)
+            fr = (fr - fr.mean(-1, keepdim=True)) * w.double()
+            return (torch.fft.fft if v.is_complex() else torch.fft.rfft)(fr, n=nfft)
 
-        X = spectra(x)
+        if kind == "c2c":
+            return (spectra(torch.complex(x.double(), y.double())).abs() ** 2).sum(-2).reshape(-1)
+        X = spectra(x.double())
         if kind == "welch":
             return (X.abs() ** 2).sum(-2).reshape(-1)
-        Y = spectra(y)
+        Y = spectra(y.double())
         P = (X.conj() * Y).sum(-2)
-        return torch.cat([P.real, P.imag, (X.abs() ** 2).sum(-2),
-                          (Y.abs() ** 2).sum(-2)]).reshape(-1)
+        outs = [P.real, P.imag]
+        if kind == "coh":
+            outs += [(X.abs() ** 2).sum(-2), (Y.abs() ** 2).sum(-2)]
+        return torch.cat(outs).reshape(-1)
 
     def welch_call(name, f, shape, kind, x, y, w, args):
+        # B21 ("c2c") through its planar entry, x and y the planes
         nperseg, hop, nfft = args
-        number, nout = cuda_welch._ACC[kind]
+        number, nout, full = cuda_welch._ACC[kind]
         batch, t = x.shape
         num = 1 + (t - nperseg) // hop
         it, ti = I(), I()
@@ -705,7 +737,7 @@ def main() -> int:
         if err:
             raise RuntimeError(f"welch_acc_fft variant {name!r}: shape error {err}")
         iters, tiles = it.value, ti.value
-        outs = x.new_empty((nout, batch, tiles, nfft // 2 + 1))
+        outs = x.new_empty((nout, batch, tiles, nfft if full else nfft // 2 + 1))
         ptrs = [o.data_ptr() for o in outs.unbind(0)] + [None] * (4 - nout)
         tabs = (cuda_fft._twiddle_table(nfft, -1, dev, cuda_fft._pass_roots_np).data_ptr(),
                 *cuda_fft._r2c_tables(nfft, dev))
@@ -722,7 +754,7 @@ def main() -> int:
     for kind, rows, t, nperseg in WELCH_SHAPES if ("welch_acc_fft", "kernel") in VARIANTS else ():
         wargs = (nperseg, nperseg // 2, nperseg)
         x = torch.randn(rows, t, device=dev, generator=gen)
-        y = torch.randn(rows, t, device=dev, generator=gen) if kind == "coh" else None
+        y = torch.randn(rows, t, device=dev, generator=gen) if kind != "welch" else None
         w = torch.hann_window(nperseg, device=dev)
         want = welch_oracle(kind, x, y, w, *wargs)
         calls = {name: welch_call(name, *fns["welch_acc_fft", name], kind, x, y, w, wargs)

@@ -4,8 +4,9 @@ rows_fft (B1), ax0_fft (B2, and B3 on the axis(-3) view), rows_t_fft (B4),
 fft2f_fft (B5), r2c_fft (B6), c2r_fft (B7), big_fft (B15), gen_fft (B13),
 r2c_gen_fft (B14), chirp_fft (B11, B12, and the two fused: chirp_full),
 filt_fft (B9, B10), the product
-form of c2r_fft (B8), ax0_gen_fft (B2's composite range) and welch_fft
-(B16, B17, B18, B19, B20, B21, B22): values, launch counts and gradients,
+form of c2r_fft (B8), ax0_gen_fft (B2's composite range), welch_acc_fft
+(B16, B17, B18, B21), spec_fft (B19, B20) and spec_c2c_fft (B22): values,
+launch counts and gradients,
 and the routes of the plan, the N-D, the real and the non-pow2 transforms,
 the fused epilogues, the spectral estimators and the per-segment spectra
 (stft, istft, ShortTimeFFT, resample) through them.  No call may move the
@@ -395,7 +396,7 @@ def _counts():
             "psd": cuda_welch.psd_launches, "csd": cuda_welch.csd_launches,
             "coh": cuda_welch.coh_launches, "c2c": cuda_welch.c2c_launches,
             "spec": cuda_welch.spec_launches, "spec_c2c": cuda_welch.spec_c2c_launches,
-            "filt_c64": cuda_fft.filt_c64_launches,
+            "filt_c64": cuda_fft.filt_c64_launches, "c2c_c64": cuda_welch.c2c_c64_launches,
             "spec_c2c_c64": cuda_welch.spec_c2c_c64_launches}
 
 
@@ -1016,6 +1017,8 @@ def _every_kernel(dev):
         "spec_c2c": lambda: cuda_welch.spec_c2c_split(s, s, w, 256, 128, 256, "constant"),
         "filt c64": lambda: cuda_fft._filt_launch_c64(torch.complex(re, im),
                                                       torch.complex(hr, hi), -1, None),
+        "c2c c64": lambda: cuda_welch.welch_accum_c2c_c64(torch.complex(s, s), w, 256, 128,
+                                                          256, "constant"),
         "spec_c2c c64": lambda: cuda_welch.spec_c2c_c64(torch.complex(s, s), w, 256, 128, 256,
                                                         "constant"),
     }
@@ -1042,10 +1045,17 @@ def test_kernels_leave_current_device(dev):
 
 # ---------------------------------------------------------------------- #
 # the fused segment-spectrum kernels: B16 (welch), B19 (psd), B17 (csd),
-# B18 (coh), B21 (c2c: y is the imaginary plane), B20 (spec), B22
-# (spec_c2c: y is the imaginary plane) and the spectral estimators' routes
+# B18 (coh), B21 (c2c: y is the imaginary plane; c2c_c64: the complex64
+# signal x + iy as it lies), B20 (spec), B22 (spec_c2c: y is the imaginary
+# plane) and the spectral estimators' routes
 # ---------------------------------------------------------------------- #
-WELCH_KINDS = ("welch", "psd", "csd", "coh", "c2c", "spec", "spec_c2c")
+WELCH_KINDS = ("welch", "psd", "csd", "coh", "c2c", "c2c_c64", "spec", "spec_c2c")
+
+
+def _launches(kind):
+    """The counters a call of ``kind`` moves: B21's complex64 entry counts
+    as c2c too."""
+    return {kind: 1, "c2c": 1} if kind == "c2c_c64" else {kind: 1}
 
 
 def _welch_call(kind, x, y, w, args, plain=False, **opts):
@@ -1060,6 +1070,9 @@ def _welch_call(kind, x, y, w, args, plain=False, **opts):
         return (getattr(cuda_welch, "spec_psd_split" + suffix)(x, w, *args),)
     if kind == "c2c":
         return (getattr(cuda_welch, "welch_accum_c2c_split" + suffix)(x, y, w, *args)[0],)
+    if kind == "c2c_c64":
+        return (getattr(cuda_welch, "welch_accum_c2c_c64" + suffix)(torch.complex(x, y), w,
+                                                                   *args)[0],)
     fn = "csd_accum_split" if kind == "csd" else "coherence_accum_split"
     return getattr(cuda_welch, fn + suffix)(x, y, w, *args)[:-1]
 
@@ -1081,7 +1094,7 @@ def _welch_oracle(kind, x, y, w, nperseg, hop, nfft, detrend, roll_s=0, pad_out=
     if kind == "spec_c2c":
         X = spectra(torch.complex(x.double(), y.double()))
         return X.real, X.imag
-    if kind == "c2c":
+    if kind in ("c2c", "c2c_c64"):
         return ((spectra(torch.complex(x.double(), y.double())).abs() ** 2).sum(-2),)
     X = spectra(x.double())
     if kind == "psd":
@@ -1103,11 +1116,13 @@ def _stack(outs):
 def test_welch_kernels_match_plain_and_torch_fft(dev, nfft, kind):
     """Each kernel against its plain version and float64 torch.fft at 38
     segments (a ragged last tile) and at 37 and 39 (odd counts: B16's and
-    B19's last frame paired with a zero plane), one signal and batches of 3
-    and 5, hops even and odd, nperseg = nfft and below; B16 and B18 also
-    against the plain version of their own passes and epilogue
-    (``_acc_passes``; B16: of both its designs), B19 against the plain
-    version of its passes and epilogue (``_psd_passes``)."""
+    B19's last frame paired with a zero plane, B17's and B18's last
+    unswapped), one signal and batches of 3 and 5, hops even and odd,
+    nperseg = nfft and below; B16, B17, B18 and B21 (both entries; the
+    complex64 one also on a real signal, no imaginary plane) also against
+    the plain version of their own passes and epilogue (``_acc_passes``;
+    B16: of both its designs), B19 against the plain version of its passes
+    and epilogue (``_psd_passes``)."""
     cases = 0
     for nperseg in (nfft, nfft - nfft // 4 + 1):
         for hop in (nperseg, nperseg // 2, nperseg - nperseg // 8):
@@ -1117,15 +1132,25 @@ def test_welch_kernels_match_plain_and_torch_fft(dev, nfft, kind):
                 x, y = rrand(dev, *lead, t, seed=1), rrand(dev, *lead, t, seed=2)
                 w = torch.hann_window(nperseg, device=dev) + 0.1
                 args = (nperseg, hop, nfft, detrend)
-                got = _through(lambda: _welch_call(kind, x, y, w, args), **{kind: 1})
+                got = _through(lambda: _welch_call(kind, x, y, w, args), **_launches(kind))
                 plain = _welch_call(kind, x, y, w, args, plain=True)
                 want = _welch_oracle(kind, x, y, w, *args)
                 what = (nperseg, hop, lead, num)
                 assert rel_l2(_stack(got), _stack(plain)) < TOL, what
                 assert rel_l2(_stack(got), _stack(want)) < TOL, what
-                for half in {"welch": (False, True), "coh": (False,)}.get(kind, ()):
-                    passes = cuda_welch._acc_passes(kind, x, y, w, *args, half=half)
+                acc = "c2c" if kind == "c2c_c64" else kind
+                for half in {"welch": (False, True), "coh": (False,), "csd": (False,),
+                             "c2c": (False,)}.get(acc, ()):
+                    passes = cuda_welch._acc_passes(acc, torch.complex(x, y) if kind == "c2c_c64"
+                                                    else x, y, w, *args, half=half)
                     assert rel_l2(_stack(got), _stack(passes)) < TOL, what
+                if kind == "c2c_c64":  # a real signal taken two-sided: no imaginary plane
+                    got = _through(lambda: cuda_welch.welch_accum_c2c_c64(x, w, *args)[0],
+                                   c2c=1, c2c_c64=1)
+                    passes = cuda_welch._acc_passes("c2c", x, None, w, *args)[0]
+                    assert rel_l2(got, passes) < TOL, what
+                    assert rel_l2(got, _welch_oracle(kind, x, torch.zeros_like(x), w,
+                                                     *args)[0]) < TOL, what
                 if kind == "psd":
                     assert rel_l2(got[0], cuda_welch._psd_passes(x, w, *args)) < TOL, what
                 cases += 1
@@ -1189,7 +1214,8 @@ def test_welch_kernels_raise_outside_envelope(dev):
 @pytest.mark.parametrize("kind", WELCH_KINDS)
 def test_grad_welch_kernels_match_plain(dev, kind):
     """Backward: the frames rebuilt and run through B6 under autograd (B6
-    forward, B1 back, for each signal; B21: B1 forward and back)."""
+    forward, B1 back, for each signal; B21: B1 forward and back, through its
+    complex64 entry for B21's)."""
     x0, y0 = rrand(dev, 2, 5000, seed=4), rrand(dev, 2, 5000, seed=5)
     w = torch.hann_window(512, device=dev)
     args = (512, 200, 1024, "constant")
@@ -1206,13 +1232,52 @@ def test_grad_welch_kernels_match_plain(dev, kind):
                    for o in outs)
         loss.backward()
         return torch.cat([x.grad.reshape(-1)] + ([y.grad.reshape(-1)] if kind in (
-            "csd", "coh", "c2c", "spec_c2c") else []))
+            "csd", "coh", "c2c", "c2c_c64", "spec_c2c") else []))
 
     two = 2 if kind in ("csd", "coh") else 1
-    back = ({"rows_fft": 2} if kind in ("c2c", "spec_c2c")
+    back = ({"rows_fft": 2} if kind in ("c2c", "c2c_c64", "spec_c2c")
             else {"r2c_fft": two, "rows_fft": two})
-    gk = _through(lambda: grad(False), **{kind: 1}, **back)
+    gk = _through(lambda: grad(False), **_launches(kind), **back)
     assert rel_l2(gk, grad(True)) < TOL
+
+
+def test_csd_of_independent_signals_at_many_segments(dev):
+    """B17 at 32767 segments of two independent 2^22 signals (nperseg
+    256): the transform's rounding leaks a bias into conj(X) Y that grows
+    as the segment count, the cross spectrum only as its square root; the
+    planes swapped on odd segments cancel it (scipy.signal in float64)."""
+    import scipy.signal as ss
+
+    x, y = rrand(dev, 1 << 22, seed=12), rrand(dev, 1 << 22, seed=13)
+    P = _through(lambda: ft.csd(x, y, nperseg=256)[1], csd=1)
+    want = ss.csd(x.double().cpu().numpy(), y.double().cpu().numpy(), nperseg=256)[1]
+    assert rel_l2(P.cpu(), torch.from_numpy(want)) < TOL
+
+
+@pytest.mark.parametrize("source", ["complex64", "real"])
+def test_two_sided_welch_reads_the_signal_as_it_lies(dev, source):
+    """The two-sided welch of a complex64 signal, or of a real one: one
+    launch of B21 (its complex64 entry), no copy of the signal's planes and
+    no zero imaginary plane (no copy kernel in the profiler's window; the
+    call's peak allocation below one plane's bytes)."""
+    n = 1 << 22
+    x = crand(dev, n, seed=14) if source == "complex64" else rrand(dev, n, seed=14)
+    seg = {"nperseg": 4096, "noverlap": 2048, "return_onesided": False}
+
+    def call():
+        return ft.welch(x, **seg)[1]
+
+    P = _through(call, c2c=1, c2c_c64=1)
+    assert rel_l2(P.cpu(), ft.welch(x.cpu(), **seg)[1]) < TOL
+    names = _device_kernels(call, calls=10)
+    assert any("welch_acc_kernel" in k for k in names), names
+    assert not any("copy" in k for k in names), names
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    call()
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base < 4 * n
 
 
 def test_spectral_estimator_routes(dev):
@@ -1242,7 +1307,7 @@ def test_spectral_estimator_routes(dev):
          {"r2c_fft": 1}),
         ("multitaper", lambda v, u: ft.multitaper(v[0, :16384], NW=4.0)[1], {"r2c_fft": 1}),
         ("welch two-sided", lambda v, u: ft.welch(v, nperseg=1024, return_onesided=False)[1],
-         {"c2c": 1}),
+         {"c2c": 1, "c2c_c64": 1}),
         ("csd two-sided", lambda v, u: ft.csd(v, u, nperseg=1024, return_onesided=False)[1],
          {"spec_c2c": 2, "spec_c2c_c64": 2}),
         ("csd unequal shapes", lambda v, u: ft.csd(v, u[0], nperseg=1024)[1], {"spec": 2}),
@@ -1251,7 +1316,7 @@ def test_spectral_estimator_routes(dev):
         got = _through(lambda: call(x, y), **want)
         assert got.device.type == "cuda", what
         assert rel_l2(got.cpu(), call(x.cpu(), y.cpu())) < TOL, what
-    got = _through(lambda: ft.welch(xc, nperseg=4096)[1], c2c=1)  # complex input: B21
+    got = _through(lambda: ft.welch(xc, nperseg=4096)[1], c2c=1, c2c_c64=1)  # complex: B21
     assert rel_l2(got.cpu(), ft.welch(xc.cpu(), nperseg=4096)[1]) < TOL
     for what, call, want in (  # complex input: B22
             ("complex spectrogram", lambda v: ft.spectrogram(v, nperseg=1024, mode="complex")[2],
@@ -1789,6 +1854,6 @@ def test_bank_and_rows_keep_their_bits(dev):
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
     import chip_smoke
 
-    got = chip_smoke.kept_bits(cuda_fft, cuda_welch, dev)
+    got = chip_smoke.kept_bits(cuda_fft, dev)
     assert got == chip_smoke.KEPT_BITS, {k: (got[k], chip_smoke.KEPT_BITS.get(k))
                                          for k in got if got[k] != chip_smoke.KEPT_BITS.get(k)}

@@ -55,12 +55,13 @@ def crand(rng, *shape):
 
 @pytest.fixture
 def routes(monkeypatch):
-    """Pretend CPU tensors lie on the card, and record which of the nine
+    """Pretend CPU tensors lie on the card, and record which of the ten
     entry points each call reaches."""
     seen = []
     monkeypatch.setattr(spectral_est, "_on_card", lambda t: True)
     for name in ("welch_accum_split", "spec_psd_split", "csd_accum_split",
-                 "coherence_accum_split", "welch_accum_c2c_split", "spec_rfft_split",
+                 "coherence_accum_split", "welch_accum_c2c_split", "welch_accum_c2c_c64",
+                 "spec_rfft_split",
                  "spec_rfft_c64", "spec_c2c_split", "spec_c2c_c64"):
         fn = getattr(cuda_welch, name)
 
@@ -221,15 +222,18 @@ def test_numpy_input_needs_a_card(rng, monkeypatch):
 @pytest.mark.parametrize("card", [False, True], ids=["composed", "kernel routes"])
 def test_estimators_promote_each_input_once(card, rng, monkeypatch):
     """Each input is promoted once per estimator call (numpy input is then
-    copied to the card once), coherence's three estimates included."""
+    copied to the card once), coherence's three estimates included; a real
+    input gets no imaginary plane."""
     calls = []
-    promote = spectral_est.promote_to_split
+    promote = spectral_est._promote
 
     def spy(*a, **k):
         calls.append(1)
-        return promote(*a, **k)
+        out = promote(*a, **k)
+        assert out[1] is None
+        return out
 
-    monkeypatch.setattr(spectral_est, "promote_to_split", spy)
+    monkeypatch.setattr(spectral_est, "_promote", spy)
     monkeypatch.setattr(spectral_est, "_on_card", lambda t: card)
     x, y = _t(rrand(rng, 2048)), _t(rrand(rng, 2048))
     for what, call, want in (("welch", lambda: ft.welch(x), 1),
@@ -400,7 +404,7 @@ ROUTES = {
     "welch": "welch_accum_split", "welch_300_100": None, "welch_odd_nfft": None,
     "welch_nfft_1000": None, "welch_median_batched": "spec_psd_split",
     "welch_axis0": "welch_accum_split", "welch_linear": None,
-    "welch_complex": "welch_accum_c2c_split", "welch_two_sided": "welch_accum_c2c_split",
+    "welch_complex": "welch_accum_c2c_c64", "welch_two_sided": "welch_accum_c2c_c64",
     "welch_spectrum": "welch_accum_split", "welch_complex_median": "spec_c2c_c64",
     "periodogram": "welch_accum_split", "periodogram_linear": None, "csd": "csd_accum_split",
     "csd_complex_median": ["spec_c2c_c64"] * 2,  # x, then y with no imaginary plane
@@ -408,7 +412,7 @@ ROUTES = {
     "csd_two_sided": ["spec_c2c_c64"] * 2,
     "coherence": "coherence_accum_split",
     # Pxy from the two-sided spectra of x and y, then Pxx and Pyy
-    "coherence_complex": ["spec_c2c_c64"] * 2 + ["welch_accum_c2c_split"] * 2,
+    "coherence_complex": ["spec_c2c_c64"] * 2 + ["welch_accum_c2c_c64"] * 2,
     "spectrogram_psd": "spec_psd_split", "spectrogram_magnitude": "spec_psd_split",
     "spectrogram_complex": "spec_rfft_c64", "spectrogram_angle": "spec_rfft_split",
     "spectrogram_phase": "spec_rfft_split", "spectrogram_complex_input": "spec_c2c_c64",

@@ -1,12 +1,13 @@
 """Torch port, the fused segment-spectrum kernels' entry points on the CPU:
 ``welch_accum_split`` (B16), ``spec_psd_split`` (B19), ``csd_accum_split``
-(B17), ``coherence_accum_split`` (B18), ``welch_accum_c2c_split`` (B21),
-``spec_rfft_split`` (B20, with its roll and padded output) and
-``spec_c2c_split`` and ``spec_c2c_c64`` (B22, with the plain version of
-its kernel's passes, ``_spec_c2c_passes``) of ``ops/cuda_welch.py``, and
-the plain versions of B16's and B18's kernel, ``_acc_passes`` (two real
-frames transformed as one complex frame), and of B19's, ``_psd_passes``
-(two segments as one complex frame).
+(B17), ``coherence_accum_split`` (B18), ``welch_accum_c2c_split`` and
+``welch_accum_c2c_c64`` (B21), ``spec_rfft_split`` (B20, with its roll
+and padded output) and ``spec_c2c_split`` and ``spec_c2c_c64`` (B22, with
+the plain version of its kernel's passes, ``_spec_c2c_passes``) of
+``ops/cuda_welch.py``, the plain versions of B16's, B17's, B18's and
+B21's kernel, ``_acc_passes`` (two real frames transformed as one complex
+frame; B21 one complex frame a segment), and of B19's, ``_psd_passes``
+(two segments as one complex frame), and the two-sided ``welch`` routes.
 
 On a CPU tensor each entry point runs its plain version.  Inside the JAX
 package's envelope the same numpy inputs go through its Pallas kernels in
@@ -32,6 +33,7 @@ from fft_wgpu_tpu.ops import pallas_welch as j_pw
 from fft_wgpu_tpu.ops import spectral_est as j_se
 from fft_wgpu_tpu.ops.rfft import rfft_last_split as j_rfft_last_split
 from fft_wgpu_tpu.ops.stft import _frame as j_frame
+import fft_wgpu_tpu_torch as ft
 from fft_wgpu_tpu_torch.ops import cuda_welch
 
 torch.set_num_threads(1)
@@ -263,10 +265,11 @@ def test_plain_versions_equal_entry_points_on_cpu(rng):
 
 
 # ---------------------------------------------------------------------- #
-# B16's and B18's kernel (welch_acc_fft): two real frames transformed as one
-# complex frame, the plain version of its passes and epilogue against the
-# JAX kernels in interpret mode (inside their envelope: nfft >= 512) or the
-# JAX composed form, and float64 numpy
+# B16's, B17's, B18's and B21's kernel (welch_acc_fft): two real frames
+# transformed as one complex frame (B21: one complex frame a segment), the
+# plain version of its passes and epilogue against the JAX kernels in
+# interpret mode (inside their envelope: nfft >= 512) or the JAX composed
+# form, and float64 numpy
 # ---------------------------------------------------------------------- #
 # (nperseg, hop) of each frame layout at nfft n
 ACC_FRAMES = {"hop<nperseg<nfft": lambda n: (3 * n // 4, n // 4), "hop=nperseg": lambda n: (n, n)}
@@ -278,13 +281,16 @@ ACC_CASES = [("hop<nperseg<nfft", (3,), 7, "constant"), ("hop<nperseg<nfft", (1,
 
 @pytest.mark.parametrize("case", ACC_CASES, ids=lambda c: "-".join(map(str, c)))
 @pytest.mark.parametrize("nfft", [1 << e for e in range(7, 13)])
-@pytest.mark.parametrize("kind", ["welch", "coh"])
+@pytest.mark.parametrize("kind", ["welch", "coh", "csd", "c2c"])
 def test_acc_passes_match_jax(kind, nfft, case, rng, assert_close):
     layout, lead, num, detrend = case
     nperseg, hop = ACC_FRAMES[layout](nfft)
     t = nperseg + (num - 1) * hop + hop // 3
     x, y, win = inputs(rng, lead, t, nperseg)
     args = (nperseg, hop, nfft, detrend)
+    if kind == "c2c":
+        _check_c2c_passes(x, y, win, args, num, assert_close)
+        return
     got = ([_np(o) for o in cuda_welch._acc_passes(kind, _t(x), _t(y), _t(win), *args)], num)
     if j_pw.fused_welch_ok(t, *args):
         want = jax_kernel(kind, x, y, win, *args)
@@ -297,6 +303,55 @@ def test_acc_passes_match_jax(kind, nfft, case, rng, assert_close):
     # on the CPU the entry point is the composed form, which the kernel's
     # epilogue equals
     check_all(got, port(kind, x, y, win, *args), assert_close, f"{kind} vs the entry point")
+
+
+def _check_c2c_passes(re, im, win, args, num, assert_close):
+    """B21's kernel design from each of its sources (complex64, planes, a
+    real signal with no imaginary plane) against the JAX kernel in
+    interpret mode (the JAX composed form outside its envelope, and for
+    the real source, JAX's with a zero imaginary plane), float64 numpy and
+    the entry point."""
+    def jax_composed(v_im):
+        Xr, Xi = j_se._spec_segments_split(jnp.asarray(re), jnp.asarray(v_im),
+                                           jnp.asarray(win), *args)
+        return np.asarray(jnp.sum(Xr * Xr + Xi * Xi, axis=-2))
+
+    if j_pw.fused_welch_ok(re.shape[-1], *args, c2c=True):
+        want, wnum = j_pw.welch_accum_c2c_split(re, im, win, *args, interpret=True)
+        want = np.asarray(want)
+        assert wnum == num
+    else:
+        want = jax_composed(im)
+    zero = np.zeros_like(re)
+    for source, x, y, jax_want, v_im in (
+            ("c64", _t(re + 1j * im), None, want, im), ("planes", _t(re), _t(im), want, im),
+            ("real", _t(re), None, jax_composed(zero), zero)):
+        (got,) = cuda_welch._acc_passes("c2c", x, y, _t(win), *args)
+        what = f"c2c one complex frame a transform, {source}"
+        assert got.shape == (*re.shape[:-1], args[2]) and got.dtype == torch.float32
+        assert_close(_np(got), jax_want, what=f"{what} vs JAX")
+        assert_close(_np(got), numpy_c2c(re, v_im, win, *args)[0], what=f"{what} vs numpy")
+        # on the CPU the entry point is the composed form, which the
+        # kernel's epilogue equals
+        entry, enum = cuda_welch.welch_accum_c2c_c64(x, _t(win), *args, im=y)
+        assert enum == num
+        assert_close(_np(got), _np(entry), what=f"{what} vs the entry point")
+
+
+def test_acc_csd_swap_cancels_the_bias(rng, assert_close):
+    # B17's design at many segments of two independent signals: the
+    # transform's rounding leaks a bias into conj(X) Y that grows as the
+    # segment count, while the cross spectrum grows as its square root; the
+    # planes swapped on odd segments cancel it (unswapped, 3.5e-5 off
+    # float64 here; at nperseg 128 the leak is smaller: 1.5e-5 at 60000
+    # segments)
+    nperseg, hop, num = 256, 128, 30000
+    x, y, win = inputs(rng, (), nperseg + (num - 1) * hop, nperseg)
+    args = (nperseg, hop, nperseg, "constant")
+    got = ([_np(o) for o in cuda_welch._acc_passes("csd", _t(x), _t(y), _t(win), *args)],
+           num)
+    check_all(got, numpy_ref("csd", x, y, win, *args), assert_close,
+              f"csd two frames a transform at {num} segments vs numpy")
 
 
 @pytest.mark.parametrize("nfft", [128, 1024, 8192])
@@ -720,3 +775,113 @@ def test_spec_c2c_c64_gradient_matches_jax_grad(source, rng, assert_close):
     assert_close(_np(xt.grad.real), np.asarray(want[0]), what=f"spec_c2c_c64 d/dre {source}")
     if source == "c64":
         assert_close(_np(xt.grad.imag), np.asarray(want[1]), what="spec_c2c_c64 d/dim")
+
+
+# ---------------------------------------------------------------------- #
+# B21's complex64 entry (welch_accum_c2c_c64) from each of its sources,
+# against the JAX kernel in interpret mode (a real source is the JAX
+# kernel's with a zero imaginary plane) and float64 numpy, its gradient,
+# and the two-sided welch's routes to it
+# ---------------------------------------------------------------------- #
+def _c2c_source(source, re, im):
+    return {"c64": (_t(re + 1j * im), None), "planes": (_t(re), _t(im)),
+            "real": (_t(re), None)}[source]
+
+
+@pytest.mark.parametrize("source", C2C_SOURCES)
+@pytest.mark.parametrize("case", JAX_CASES, ids=lambda c: "x".join(map(str, c[1:5])))
+def test_welch_accum_c2c_c64_matches_jax_interpret(case, source, rng, assert_close):
+    lead, t, nperseg, hop, nfft, detrend = case
+    re, im, win = inputs(rng, lead, t, nperseg)
+    if source == "real":
+        im = np.zeros_like(re)
+    args = (nperseg, hop, nfft, detrend)
+    want, wnum = j_pw.welch_accum_c2c_split(re, im, win, *args, interpret=True)
+    x, y = _c2c_source(source, re, im)
+    got, num = cuda_welch.welch_accum_c2c_c64(x, _t(win), *args, im=y)
+    assert num == wnum and got.shape == (*lead, nfft) and got.dtype == torch.float32
+    assert_close(_np(got), np.asarray(want), what=f"welch_accum_c2c_c64 {source} vs JAX")
+    plain, pnum = cuda_welch.welch_accum_c2c_c64_reference(x, _t(win), *args, im=y)
+    np.testing.assert_array_equal(_np(plain), _np(got))
+    assert pnum == num
+    assert cuda_welch.c2c_launches == cuda_welch.c2c_c64_launches == 0
+
+
+@pytest.mark.parametrize("case", PORT_CASES, ids=lambda c: "x".join(map(str, c[1:5])))
+def test_welch_accum_c2c_c64_outside_jax_envelope(case, rng, assert_close):
+    lead, t, nperseg, hop, nfft, detrend = case
+    re, im, win = inputs(rng, lead, t, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    for source in C2C_SOURCES:
+        x, y = _c2c_source(source, re, im)
+        want, wnum = numpy_c2c(re, np.zeros_like(re) if source == "real" else im, win, *args)
+        got, num = cuda_welch.welch_accum_c2c_c64(x, _t(win), *args, im=y)
+        assert num == wnum
+        assert_close(_np(got), want, what=f"welch_accum_c2c_c64 {source} vs numpy")
+
+
+def test_welch_accum_c2c_c64_envelope_raises():
+    z, w = torch.zeros(4096, dtype=torch.complex64), torch.ones(512)
+    with pytest.raises(cuda_welch.Unsupported):
+        cuda_welch.welch_accum_c2c_c64(z, w, 512, 256, 512, "linear")
+    with pytest.raises(cuda_welch.Unsupported):
+        cuda_welch.welch_accum_c2c_c64_reference(z, w, 512, 256, 1000, False)
+    with pytest.raises(ValueError, match="complex64"):
+        cuda_welch.welch_accum_c2c_c64(z.to(torch.complex128), w, 512, 256, 512, False)
+    with pytest.raises(ValueError, match="real x"):  # an im plane beside complex input
+        cuda_welch.welch_accum_c2c_c64(z, w, 512, 256, 512, False, im=torch.zeros(4096))
+    with pytest.raises(cuda_welch.Unsupported):  # planes of two shapes
+        cuda_welch.welch_accum_c2c_c64(z.real, w, 512, 256, 512, False, im=torch.zeros(4095))
+
+
+@pytest.mark.parametrize("source", ["c64", "real"])
+def test_welch_accum_c2c_c64_gradient_matches_jax_grad(source, rng, assert_close):
+    nperseg, hop, nfft, detrend = 256, 96, 512, "constant"  # hop !| nperseg, zero pad
+    re, im, win = inputs(rng, (2,), 1500, nperseg)
+    args = (nperseg, hop, nfft, detrend)
+    w = rng.random((2, nfft)).astype(np.float32)
+
+    def jloss(a, b):
+        Xr, Xi = j_se._spec_segments_split(a, b, jnp.asarray(win), *args)
+        return jnp.sum(w * jnp.sum(Xr * Xr + Xi * Xi, axis=-2))
+
+    if source == "c64":
+        want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(re), jnp.asarray(im))
+        xt = _t(re + 1j * im).requires_grad_()
+    else:  # the real signal taken two-sided: JAX's composed form with a zero plane
+        want = (jax.grad(jloss)(jnp.asarray(re), jnp.zeros_like(re)),)
+        xt = _t(re).requires_grad_()
+    p, _ = cuda_welch.welch_accum_c2c_c64(xt, _t(win), *args)
+    (_t(w) * p).sum().backward()
+    assert_close(_np(xt.grad.real), np.asarray(want[0]), what=f"c2c_c64 d/dre {source}")
+    if source == "c64":
+        assert_close(_np(xt.grad.imag), np.asarray(want[1]), what="c2c_c64 d/dim")
+
+
+@pytest.mark.parametrize("card", [False, True], ids=["composed", "kernel route"])
+@pytest.mark.parametrize("source", ["c64", "real"])
+def test_two_sided_welch_matches_jax(source, card, rng, monkeypatch, assert_close):
+    """ft.welch of a complex64 signal and of a real one with
+    return_onesided=False equals the JAX package's on the CPU, by the
+    composed route and by the card's (CPU tensors taken for card ones):
+    B21's complex64 entry, on the caller's complex64 tensor as it lies or
+    on the real signal with no imaginary plane."""
+    from fft_wgpu_tpu_torch.ops import spectral_est
+
+    calls = []
+    entry = cuda_welch.welch_accum_c2c_c64
+    monkeypatch.setattr(spectral_est, "_on_card", lambda t: card)
+    monkeypatch.setattr(cuda_welch, "welch_accum_c2c_c64", lambda x, *a, **k: calls.append(
+        (x.dtype, k.get("im") is None)) or entry(x, *a, **k))
+    x = rng.standard_normal((2, 3000)).astype(np.float32)
+    if source == "c64":
+        x = (x + 1j * rng.standard_normal((2, 3000))).astype(np.complex64)
+    kw = {"nperseg": 512, "noverlap": 384, "return_onesided": False}
+    f, P = ft.welch(_t(x), **kw)
+    jf, jP = j_se.welch(x, **kw)
+    assert P.dtype == torch.float32 and P.shape == (2, 512)
+    assert_close(_np(f), np.asarray(jf), what="frequencies")
+    assert_close(_np(P), np.asarray(jP), what=f"two-sided welch {source}")
+    dtype = torch.complex64 if source == "c64" else torch.float32
+    assert calls == ([(dtype, True)] if card else [])
+
