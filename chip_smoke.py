@@ -23,8 +23,8 @@ non-zero without a result line:
              rows_t_fft and chirp_fft (m = 8192 and 16384), and of every
              instantiation of rows_fft, big_fft, ax0_fft, r2c_fft,
              fft2f_fft, spec_fft (B20, and B19's psd_pairs),
-             filt_fft's filtered rows, spec_c2c_fft, welch_acc_fft and
-             c2r_fft's product kernel;
+             filt_fft's filtered rows (and bank), spec_c2c_fft,
+             welch_acc_fft and c2r_fft (C2R and its product form);
 2. kernel  — each kernel against its plain torch version and torch.fft,
              both signs, scale None and 1/n (rel-L2 <= 1e-5 each):
              rows_fft for every n in 128..16384 at rows 1 and 1000 and at
@@ -48,8 +48,10 @@ non-zero without a result line:
              place) against the plain version of its own passes
              (cuda_fft._fft2f_passes); r2c_fft and c2r_fft
              for every n at rows 3 and 1000, ragged and padded, and at
-             4096 x 4096, r2c_fft's complex64 sink (r2c_fft_c64) at the
-             same shapes;
+             4096 x 4096, r2c_fft's complex64 sink (r2c_fft_c64) and
+             c2r_fft's complex64 source (c2r_fft_c64) at the same shapes,
+             c2r_fft in both sources also against the plain version of its
+             own passes (cuda_fft._c2r_passes);
              gen_fft and r2c_gen_fft (ragged and padded) at twenty-one
              composite n from 640 to 16383 (the two-factor splits, then
              one n for each pass type of their mixed-radix plans), rows 1
@@ -69,9 +71,10 @@ non-zero without a result line:
              complex64 entry (filt_c64, against the plain version of its
              own passes, cuda_fft._filt_passes; also on rows of n/2 + 1
              points, zero past them, and in place); bank at every n for
-             banks of 1 and 7 rows, and at 128 x 16384; the bits of the
-             kernels kept as they were (rows_fft in both entries, bank,
-             c2r) against those recorded from them before
+             banks of 1 and 7 rows, and at 128 x 16384, also against the
+             plain version of its own passes (cuda_fft._bank_passes); the
+             bits of the kernels kept as they were (rows_fft in both
+             entries) against those recorded from them before
              (KEPT_BITS); c2r_prod at every n, ragged and
              padded, B of A's shape and broadcast, at 2048 x 8192 and 547 x
              2048, also against the plain version of its own passes
@@ -113,8 +116,11 @@ non-zero without a result line:
              which count both entries), then config 4: fft2 / ifft2 at
              4096 x 4096 (the complex64 entries of the row and axis(-2)
              kernels, ax0_fft_c64 counted beside ax0_fft), rfft at 4096 x
-             4096 (r2c_fft's complex64 sink) and the rfft2 / irfft2 round
-             trip, fftn / ifftn at 256^3 (the fused plane's complex64
+             4096 (r2c_fft's complex64 sink), irfft of complex64 4096 x
+             2049 (c2r_fft's complex64 source, c2r_fft_c64 counted beside
+             c2r_fft) and the rfft2 / irfft2 round trip (irfft2 of
+             complex64: ax0_fft's and c2r_fft's complex64 entries), fftn /
+             ifftn at 256^3 (the fused plane's complex64
              entry, then axis(-3)'s, fft2f_fft_c64 counted beside
              fft2f_fft) and
              fftn at 512^3 (axis(-3), axis(-2) and rows through their
@@ -157,7 +163,8 @@ non-zero without a result line:
              2 x 2^20; the whole row at 4 x 2^16; the row and whole-row
              kernels through their planar entries too; composite 4095 and
              prime 4093 at 64 rows, the latter chirp_full forward and back),
-             rfft at 1005 and 4096 (the complex64 sink), rfft2, batched fft2
+             rfft at 1005 and 4096 (the complex64 sink), irfft of complex64
+             at 4096 (the complex64 source), rfft2, batched fft2
              and fft2 of one 256 x 1024 complex64 plane,
              SpectralFilter of complex64 (the complex64 entries of the row
              and filtered kernels), fftconvolve (both inputs), the CWT plan and
@@ -170,7 +177,8 @@ non-zero without a result line:
              plan.forward at the main shapes, beside a plane copy of the
              same bytes; a torch.profiler breakdown of plan(4096).forward
              and of the whole-row fft, which must run their kernel alone
-             (no split, no merge), and of fft2 and rfft at 4096 x 4096,
+             (no split, no merge), and of fft2, rfft, and irfft and
+             irfft2 of complex64 at 4096 x 4096,
              fftn at 256^3, stft of 2^20, SpectralFilter of complex64 and
              hilbert at 4096 x 4096 and the complex spectrogram of complex64
              2^22, which must run their kernels alone, once each, and of
@@ -218,17 +226,18 @@ LIBS = ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft", "fft2f_fft", "r2c_fft",
 # Kernels as the launch counters name them: the axis(-3) pass is the axis(-2)
 # kernels on a free view, with its own entry point and counter; chirp_fft
 # holds three kernels (chirp_fwd, chirp_inv and the two fused, chirp_full),
-# each with its own, filt_fft two kernels (filt, bank), c2r_fft a second
-# one (c2r_prod), welch_acc_fft four (welch: B16, coh: B18, csd: B17, c2c:
+# each with its own, filt_fft two entries of one kernel (filt, bank),
+# c2r_fft a second kernel (c2r_prod), welch_acc_fft four (welch: B16, coh: B18, csd: B17, c2c:
 # B21), spec_fft two (spec: B20, psd: B19), spec_c2c_fft one (spec_c2c:
 # B22); rows_fft, ax0_fft (on axis
-# -2 and on the axis(-3) view), fft2f_fft, r2c_fft, big_fft, filt, c2c,
-# spec_fft and spec_c2c_fft two layouts each (rows_fft_c64, ax0_fft_c64,
-# ax3_fft_c64, fft2f_fft_c64, r2c_fft_c64, big_fft_c64, filt_c64, c2c_c64,
-# spec_c64 and spec_c2c_c64: their complex64 entries, counted apart too).
+# -2 and on the axis(-3) view), fft2f_fft, r2c_fft, c2r_fft, big_fft, filt,
+# c2c, spec_fft and spec_c2c_fft two layouts each (rows_fft_c64,
+# ax0_fft_c64, ax3_fft_c64, fft2f_fft_c64, r2c_fft_c64, c2r_fft_c64,
+# big_fft_c64, filt_c64, c2c_c64, spec_c64 and spec_c2c_c64: their
+# complex64 entries, counted apart too).
 KERNELS = ("rows_fft", "rows_fft_c64", "ax0_fft", "ax0_fft_c64", "ax3_fft", "ax3_fft_c64",
            "rows_t_fft", "fft2f_fft", "fft2f_fft_c64", "r2c_fft", "r2c_fft_c64", "c2r_fft",
-           "big_fft", "big_fft_c64", "gen_fft", "r2c_gen_fft",
+           "c2r_fft_c64", "big_fft", "big_fft_c64", "gen_fft", "r2c_gen_fft",
            "chirp_fwd", "chirp_inv", "chirp_full", "filt", "filt_c64", "bank", "c2r_prod",
            "ax0_gen", "welch", "psd", "csd", "coh", "c2c", "c2c_c64", "spec", "spec_c64",
            "spec_c2c", "spec_c2c_c64")
@@ -247,39 +256,29 @@ F32_FLOPS_PER_S = 67e12    # H100 SXM float32 on the CUDA cores (data sheet)
 
 # sha256 (first 16 hex digits) of the outputs of kernels this work keeps as
 # they were, on kept_bits's inputs: B1 (rows_fft, both entries; its row types
-# moved into mixed_fft.cuh), B10 (bank, on stockham.cuh; filt_fft.cu's other
-# kernel was redesigned) and B7 (c2r, on stockham.cuh; c2r_fft.cu's product
-# kernel was redesigned).  Recorded from the kernels before that work (the
+# moved into mixed_fft.cuh).  Recorded from the kernels before that work (the
 # libraries of commit 9602cd4, which commits e09b20d, a87236e and d70af66
-# kept; B7's from d70af66's; NVIDIA H100 80GB HBM3, by
-# scripts/time_composite_rows.py --set bits); B16's, B17's, B18's, B19's and
-# B21's were taken out when their kernel changed (B17 and B21 when they left
-# welch_fft.cu for welch_acc_fft.cu, and welch_fft.cu was removed).
+# kept; NVIDIA H100 80GB HBM3, by scripts/time_composite_rows.py --set
+# bits); the other kernels' digests were taken out when their kernel changed
+# (B16-B19 and B21 when they left welch_fft.cu, B10 when the bank became
+# the filtered rows' kernel with its strides swapped and B7 when it became
+# c2r_fft.cu's staged design beside B8).
 KEPT_BITS = {
     "rows_fft 128": "f4898d7e20440177", "rows_fft_c64 128": "f8f226c7db5eb860",
-    "bank 128": "e1dd6b3ef9b691c1", "rows_fft 256": "82f279a213465b27",
-    "rows_fft_c64 256": "d23f7c08ec2be4d8", "bank 256": "5fbceba9d73ee15c",
+    "rows_fft 256": "82f279a213465b27", "rows_fft_c64 256": "d23f7c08ec2be4d8",
     "rows_fft 512": "8502651580d6b439", "rows_fft_c64 512": "5b41b67485e3818c",
-    "bank 512": "01ce4cb690e0ad44", "rows_fft 1024": "d044325a2756e4fc",
-    "rows_fft_c64 1024": "9e838d2b8ef30c44", "bank 1024": "625e5c30198e0e21",
+    "rows_fft 1024": "d044325a2756e4fc", "rows_fft_c64 1024": "9e838d2b8ef30c44",
     "rows_fft 2048": "28f19421d9941639", "rows_fft_c64 2048": "6a45edcc385cf1ac",
-    "bank 2048": "24c5c583760c5cb0", "rows_fft 4096": "49f5dcbcebd219b6",
-    "rows_fft_c64 4096": "2802eb379c85eca6", "bank 4096": "2b90c4a514d784f5",
+    "rows_fft 4096": "49f5dcbcebd219b6", "rows_fft_c64 4096": "2802eb379c85eca6",
     "rows_fft 8192": "a2279294e2854e4d", "rows_fft_c64 8192": "bd4cd6dd5b46cd92",
-    "bank 8192": "cbf3799d6f2e6a30", "rows_fft 16384": "28cc39cf96dc770d",
-    "rows_fft_c64 16384": "528b0ca7f625ab05", "bank 16384": "b182cfb66738d9c9",
-    "c2r 128": "06ef50a1a435c155", "c2r 256": "3451bfc9fc3925fe",
-    "c2r 512": "45ca057c4615bf12", "c2r 1024": "c5caf83026b6ef78",
-    "c2r 2048": "f127f085bd205511", "c2r 4096": "949f4792c8536cf9",
-    "c2r 8192": "5254006219b78e38", "c2r 16384": "7e0dac04eb4bc855"}
+    "rows_fft 16384": "28cc39cf96dc770d", "rows_fft_c64 16384": "528b0ca7f625ab05"}
 
 
 def kept_bits(cuda_fft, dev) -> dict:
     """sha256 (16 hex digits) of each kept kernel's outputs on inputs made
-    with numpy from SEED: rows_fft through both entries and bank at every
-    pow2 n, both signs, then c2r at every pow2 n, scale None and 1/n,
-    on 37 rows of n/2 + 1 bins and 5 rows of pad_bins(n).  ``cuda_fft`` may
-    be another checkout's module (the parent's, to record KEPT_BITS)."""
+    with numpy from SEED: rows_fft through both entries at every pow2 n,
+    both signs.  ``cuda_fft`` may be another checkout's module (the
+    parent's, to record KEPT_BITS)."""
     import hashlib
 
     import torch
@@ -298,25 +297,14 @@ def kept_bits(cuda_fft, dev) -> dict:
     out = {}
     for e in range(7, 15):
         n = 1 << e
-        re, im, hr, hi = real(37, n), real(37, n), real(7, n), real(7, n)
+        # the two 7-row planes of the bank's digest, drawn still so that the
+        # rows' inputs are the ones KEPT_BITS was recorded on
+        re, im, _, _ = real(37, n), real(37, n), real(7, n), real(7, n)
         x = torch.complex(re, im)
         out[f"rows_fft {n}"] = digest([*cuda_fft._launch(re, im, -1, None),
                                        *cuda_fft._launch(re, im, 1, 1.0 / n)])
         out[f"rows_fft_c64 {n}"] = digest([cuda_fft._launch_c64(x, -1, None),
                                            cuda_fft._launch_c64(x, 1, 1.0 / n)])
-        out[f"bank {n}"] = digest([*cuda_fft._bank(re[0], im[0], hr, hi, -1, None),
-                                   *cuda_fft._bank(re[0], im[0], hr, hi, 1, 1.0 / n)])
-    # the two 2^18-point signals of B17's and B21's digests, drawn still so
-    # that c2r's inputs are the ones KEPT_BITS was recorded on
-    rng.standard_normal((2, 1 << 18))
-    for e in range(7, 15):
-        n = 1 << e
-        outs = []
-        for rows, bins in ((37, n // 2 + 1), (5, cuda_fft.pad_bins(n))):
-            Xr, Xi = real(rows, bins), real(rows, bins)
-            outs += [cuda_fft._c2r_launch(Xr, Xi, n, None),
-                     cuda_fft._c2r_launch(Xr, Xi, n, 1.0 / n)]
-        out[f"c2r {n}"] = digest(outs)
     torch.cuda.synchronize()
     return out
 
@@ -393,8 +381,8 @@ def ptxas_summary(log: str) -> list:
     """One "kernel<template arguments>: registers, stack, spill stores" entry
     per kernel of ax0_gen_fft's, rows_t_fft's, chirp_fft's, rows_fft's,
     big_fft's, ax0_fft's, r2c_fft's, fft2f_fft's, spec_fft's (B20 and B19),
-    filt_fft's (its filtered rows), spec_c2c_fft's, welch_acc_fft's and
-    c2r_fft's (its product kernel) nvcc -Xptxas -v logs (chirp_fft's at m =
+    filt_fft's, spec_c2c_fft's, welch_acc_fft's and c2r_fft's nvcc
+    -Xptxas -v logs (chirp_fft's at m =
     2^13 and 2^14)."""
     out, kernel = [], None
     for line in log.splitlines():
@@ -402,7 +390,7 @@ def ptxas_summary(log: str) -> list:
                       r"chirp_fwd_kernel|chirp_inv_kernel|chirp_full_kernel|rows_fft_kernel|"
                       r"big_fft_kernel|ax0_fft_kernel|r2c_fft_kernel|fft2f_fft_kernel|"
                       r"spec_fft_kernel|psd_pairs_kernel|filt_fft_kernel|spec_c2c_kernel|"
-                      r"welch_acc_kernel|c2r_prod_kernel)"
+                      r"welch_acc_kernel|c2r_fft_kernel|c2r_prod_kernel)"
                       r"I(\w*?)EE", line)
         if m and m[1].startswith("chirp") and not m[2].endswith(("13", "14")):
             m = None
@@ -653,8 +641,10 @@ def main() -> int:
 
     def real_sweep():
         """R2C and C2R against their plain versions and torch.fft: ragged and
-        padded, scale None and 1/n; C2R also gets nonzero imaginary DC and
-        Nyquist parts and, padded, garbage pad columns, which it must not read."""
+        padded, scale None and 1/n; C2R, from planes and from complex64,
+        also against the plain version of its own passes, with nonzero
+        imaginary DC and Nyquist parts and, padded, garbage pad columns,
+        which it must not read."""
         worst, cases = 0.0, 0
         for rows, n in [(rows, 1 << e) for e in range(7, 15) for rows in (3, 1000)] \
                 + [(4096, 4096)]:
@@ -688,19 +678,23 @@ def main() -> int:
                     Xi[:, 0] += 3.0
                     Xi[:, mp - 1] -= 2.0
                     Xr[:, mp:], Xi[:, mp:] = 1e6, -1e6
-                    y = cuda_fft._c2r_launch(Xr, Xi, n, scale)
                     yp = cuda_fft.irfft_rows_split_reference(Xr, Xi, n, scale, padded_in=pad)
-                    err = max(err, check_close(y, yp, f"c2r_fft vs plain {what}"))
-                    err = max(err, check_close(
-                        y, torch.fft.irfft(X, n=n, norm="forward") * s * s,
-                        f"c2r_fft vs torch.fft {what}"))
-                    max_abs["c2r_fft"] = max(max_abs["c2r_fft"], float((y - yp).abs().max()))
+                    yo = torch.fft.irfft(X, n=n, norm="forward") * s * s
+                    ys = cuda_fft._c2r_passes(Xr, Xi, n, scale)
+                    for name, y in (("c2r_fft", cuda_fft._c2r_launch(Xr, Xi, n, scale)),
+                                    ("c2r_fft_c64", cuda_fft._c2r_launch_c64(
+                                        torch.complex(Xr, Xi), n, scale))):
+                        err = max(err, check_close(y, yp, f"{name} vs plain {what}"),
+                                  check_close(y, yo, f"{name} vs torch.fft {what}"),
+                                  check_close(y, ys, f"{name} vs its passes {what}"))
+                        max_abs[name] = max(max_abs[name], float((y - yp).abs().max()))
                     worst = max(worst, err)
-                    cases += 2
+                    cases += 3
         torch.cuda.synchronize()
-        print(f"kernel r2c_fft, r2c_fft_c64, c2r_fft: {cases} cases ok | worst rel-L2 "
-              f"{worst:.3e} | max abs err vs plain {max_abs['r2c_fft']:.3e}, "
-              f"{max_abs['r2c_fft_c64']:.3e}, {max_abs['c2r_fft']:.3e}", flush=True)
+        print(f"kernel r2c_fft, r2c_fft_c64, c2r_fft, c2r_fft_c64: {cases} cases ok | worst "
+              f"rel-L2 {worst:.3e} | max abs err vs plain {max_abs['r2c_fft']:.3e}, "
+              f"{max_abs['r2c_fft_c64']:.3e}, {max_abs['c2r_fft']:.3e}, "
+              f"{max_abs['c2r_fft_c64']:.3e}", flush=True)
 
     real_sweep()
 
@@ -908,20 +902,29 @@ def main() -> int:
         want = oracle(x * h, 1, 1.0 / n)
         check(cuda_fft._filt_launch_c64(x, h, 1, 1.0 / n, out=x) is x, "filt_c64 out=x")
         compare("filt_c64", x, plain, want, f"in place 37x{n}")
-    # B1 (its row types moved into mixed_fft.cuh), B10 (on stockham.cuh, the
-    # filtered rows' library redesigned) and B7 (on stockham.cuh, the product
-    # C2R's kernel redesigned) give the bits they gave before
+    # B1 (its row types moved into mixed_fft.cuh) gives the bits it gave before
     got = kept_bits(cuda_fft, dev)
     check(got == KEPT_BITS, "kept kernels' bits changed: "
           + str({k: v for k, v in got.items() if KEPT_BITS.get(k) != v}))
-    print(f"kernel rows_fft, rows_fft_c64, bank, c2r_fft: {len(got)} "
-          f"outputs, the bits recorded before (KEPT_BITS)", flush=True)
-    sweep("bank",
-          [((n,), planes(crand(rows, n))) for n in pow2 for rows in (1, 7)]
-          + [((16384,), planes(crand(128, 16384)))],
+    print(f"kernel rows_fft, rows_fft_c64: {len(got)} outputs, the bits recorded before "
+          f"(KEPT_BITS)", flush=True)
+    bank_shapes = ([((n,), planes(crand(rows, n))) for n in pow2 for rows in (1, 7)]
+                   + [((16384,), planes(crand(128, 16384)))])
+    sweep("bank", bank_shapes,
           lambda re, im, s, sc, h: cuda_fft._bank(re, im, *h, s, sc),
           lambda re, im, s, sc, h: cuda_fft.fft_bank_split_reference(re, im, *h, s, sc),
           lambda x, s, sc, h: oracle(x * torch.complex(*h), s, sc))
+    worst = 0.0
+    for shape, h in bank_shapes:  # against the plain version of its own passes
+        re, im = planes(crand(*shape))
+        for sign in (-1, 1):
+            for scale in (None, 1.0 / shape[-1]):
+                worst = max(worst, check_close(
+                    torch.complex(*cuda_fft._bank(re, im, *h, sign, scale)),
+                    cuda_fft._bank_passes(re, im, *h, sign, scale),
+                    f"bank vs its passes {shape} x {h[0].shape[0]} sign={sign} scale={scale}"))
+    print(f"kernel bank: {4 * len(bank_shapes)} cases vs its passes ok | worst rel-L2 "
+          f"{worst:.3e}", flush=True)
 
     def c2r_prod_sweep():
         """The product C2R against its plain version, the plain version of its
@@ -1243,6 +1246,7 @@ def main() -> int:
                 "fft2f_fft": cuda_fft.fft2f_launches, "r2c_fft": cuda_fft.r2c_launches,
                 "c2r_fft": cuda_fft.c2r_launches, "big_fft": bigfft.launches,
                 "gen_fft": cuda_fft.gen_launches, "r2c_gen_fft": cuda_fft.r2c_gen_launches,
+                "c2r_fft_c64": cuda_fft.c2r_c64_launches,
                 "chirp_fwd": cuda_fft.chirp_fwd_launches,
                 "chirp_inv": cuda_fft.chirp_inv_launches,
                 "chirp_full": cuda_fft.chirp_full_launches, "filt": cuda_fft.filt_launches,
@@ -1263,6 +1267,7 @@ def main() -> int:
     def reset_counts():
         cuda_fft.c64_launches = bigfft.c64_launches = 0
         cuda_fft.ax0_c64_launches = cuda_fft.ax3_c64_launches = cuda_fft.r2c_c64_launches = 0
+        cuda_fft.c2r_c64_launches = 0
         cuda_fft.fft2f_c64_launches = cuda_welch.spec_c64_launches = 0
         cuda_fft.filt_c64_launches = cuda_welch.spec_c2c_c64_launches = 0
         cuda_welch.c2c_c64_launches = 0
@@ -1373,10 +1378,19 @@ def main() -> int:
     R = through("rfft 4096^2", lambda: ft.rfft(r), r2c_fft=1, r2c_fft_c64=1)
     check(R.dtype == torch.complex64 and R.shape == (4096, 2049), "rfft 4096^2: its output")
     errs["rfft_4096"] = check_close(R, torch.fft.rfft(r), "rfft 4096^2")
+    # irfft of complex64: c2r_fft's complex64 source on the tensor as it lies
+    back = through("irfft 4096^2", lambda: ft.irfft(R), c2r_fft=1, c2r_fft_c64=1)
+    errs["irfft_4096"] = check_close(back, r, "irfft(rfft) 4096^2 round trip")
+    errs["irfft_4096_torch"] = check_close(back, torch.fft.irfft(R), "irfft 4096^2")
     R = through("rfft2 4096^2", lambda: ft.rfft2(r), r2c_fft=1, ax0_fft=1)
     errs["rfft2_4096"] = check_close(R, torch.fft.rfft2(r), "rfft2 4096^2")
-    back = through("irfft2 4096^2", lambda: ft.irfft2(R, s=r.shape), ax0_fft=1, c2r_fft=1)
+    # irfft2 of complex64: axis 0 through ax0_fft's complex64 entry, then
+    # c2r_fft's complex64 source; no split, no merge
+    back = through("irfft2 4096^2", lambda: ft.irfft2(R, s=r.shape), ax0_fft=1,
+                   ax0_fft_c64=1, c2r_fft=1, c2r_fft_c64=1)
     errs["irfft2_4096"] = check_close(back, r, "irfft2(rfft2) 4096^2 round trip")
+    errs["irfft2_4096_torch"] = check_close(back, torch.fft.irfft2(R, s=r.shape),
+                                            "irfft2 4096^2")
     del r, R, back
     x = crand(256, 256, 256)  # 128 MiB: fused plane over axes 1-2, then axis 0,
     # both through their complex64 entries
@@ -1393,7 +1407,8 @@ def main() -> int:
     del x, X
     path2 = counts()
     for name in ("rows_fft", "ax0_fft", "ax3_fft", "fft2f_fft", "r2c_fft", "c2r_fft",
-                 "rows_fft_c64", "ax0_fft_c64", "ax3_fft_c64", "fft2f_fft_c64", "r2c_fft_c64"):
+                 "rows_fft_c64", "ax0_fft_c64", "ax3_fft_c64", "fft2f_fft_c64", "r2c_fft_c64",
+                 "c2r_fft_c64"):
         check(path2[name] > 0, f"config 4 path launched no {name} kernel")
     # small inputs against float64 numpy on the host, through the same
     # kernels, outside config 4's count window
@@ -1798,7 +1813,8 @@ def main() -> int:
     # (16 planes): the fused plane forward and back.  fft2 of one complex64
     # plane: the row and axis(-2) kernels' complex64 entries forward and
     # back; rfft at 4096: the R2C kernel's complex64 sink, back the row
-    # kernel's complex64 entry.  Non-pow2 fft: the
+    # kernel's complex64 entry; irfft of complex64 at 4096: the C2R kernel's
+    # complex64 source, back the R2C kernel's complex64 sink.  Non-pow2 fft: the
     # composite kernel forward and back (4095); the fused chirp kernel
     # forward and back (prime 4093).  rfft at 1005: the composite R2C
     # forward, the composite C2C back.
@@ -1810,6 +1826,8 @@ def main() -> int:
                                                        "ax0_fft": 2, "ax0_fft_c64": 2}),
                                (ft.rfft, (64, 4096), {"r2c_fft": 1, "r2c_fft_c64": 1,
                                                       "rows_fft": 1, "rows_fft_c64": 1}),
+                               (ft.irfft, (64, 2049), {"c2r_fft": 1, "c2r_fft_c64": 1,
+                                                       "r2c_fft": 1, "r2c_fft_c64": 1}),
                                (ft.fft, (64, 4095), {"gen_fft": 2}),
                                (ft.fft, (64, 4093), {"chirp_full": 2}),
                                (ft.rfft, (64, 1005), {"r2c_gen_fft": 1, "gen_fft": 1})):
@@ -2001,13 +2019,17 @@ def main() -> int:
         "torch.fft": lambda: torch.fft.rfft(r),
         "copy": lambda: out.copy_(r),
     }, reps=20)
+    Rc = torch.complex(Rr, Ri)
     times["c2r_fft 4096x4096"] = time_in_turns({
         "kernel": lambda: cuda_fft._c2r_launch(Rr, Ri, 4096, 1.0 / 4096),
+        "kernel_c64": lambda: cuda_fft._c2r_launch_c64(Rc, 4096, 1.0 / 4096),
+        "irfft": lambda: ft.irfft(Rc),
         "plain": lambda: cuda_fft.irfft_rows_split_reference(Rr, Ri, 4096, 1.0 / 4096),
+        "plain_c64": lambda: cuda_fft.irfft_rows_c64_reference(Rc, 4096, 1.0 / 4096),
         "torch.fft": lambda: torch.fft.irfft(R, n=4096),
         "copy": lambda: out.copy_(r),
     }, reps=20)
-    del r, Rr, Ri, R, out
+    del r, Rr, Ri, R, Rc, out
 
     x = crand(4096, 4096)  # config 4's plane by both routes
     re, im = planes(x)
@@ -2244,6 +2266,14 @@ def main() -> int:
     r = torch.randn(4096, 4096, device=dev, generator=gen)
     alone("fft2 4096x4096", lambda: ft.fft2(x), ("rows_fft", "ax0_fft"), c2d)
     alone("rfft 4096x4096", lambda: ft.rfft(r), ("r2c_fft",), {"r2c_fft": 1, "r2c_fft_c64": 1})
+    # irfft and irfft2 of complex64: the C2R kernel's complex64 source (after
+    # ax0_fft's complex64 entry for irfft2) alone, no split, no merge
+    R = ft.rfft(r)
+    alone("irfft 4096x4096 complex64", lambda: ft.irfft(R), ("c2r_fft",),
+          {"c2r_fft": 1, "c2r_fft_c64": 1})
+    alone("irfft2 4096x4096 complex64", lambda: ft.irfft2(R, s=(4096, 4096)),
+          ("ax0_fft", "c2r_fft"), {"ax0_fft": 1, "ax0_fft_c64": 1, "c2r_fft": 1,
+                                   "c2r_fft_c64": 1})
     # fftn of 256^3 complex64 (the fused plane, then axis -3; ax0_fft_kernel
     # is the axis(-3) pass) and stft of 2^20 (B20's complex64 sink): their
     # kernels alone, no split and no merge
@@ -2281,7 +2311,7 @@ def main() -> int:
                                                   ("r2c_fft", "c2r_prod"))
     profiles["oaconvolve 2^20x129"] = breakdown(lambda: ft.oaconvolve(sig, taps),
                                                 ("r2c_fft", "c2r_prod"))
-    profiles["CWT 8192 x 128 widths"] = breakdown(lambda: cw(s8k), ("rows_fft", "bank_fft"))
+    profiles["CWT 8192 x 128 widths"] = breakdown(lambda: cw(s8k), ("rows_fft", "filt_fft"))
     profiles["fft2 16x1080x1920"] = breakdown(lambda: ft.fft2(fr), ("gen_fft", "ax0_gen_fft"),
                                               reps=5)
     del x, r, R, a2, b2, sig, taps, fr
@@ -2456,9 +2486,9 @@ def main() -> int:
     c2c = 16  # bytes per point of a planar complex64 row, read and written
     r2c = lambda n, rows: (4 * n + 8 * (n // 2 + 1)) * rows  # noqa: E731
     print(json.dumps({"kernels": [
-        # rows_fft, ax0_fft (axis -2 and the axis(-3) view), r2c_fft and
-        # big_fft through each of their two entries (the planar one, and the
-        # complex64 one of the 1-D main path, fft2, fftn and rfft)
+        # rows_fft, ax0_fft (axis -2 and the axis(-3) view), r2c_fft, c2r_fft
+        # and big_fft through each of their two entries (the planar one, and
+        # the complex64 one of the 1-D main path, fft2, fftn, rfft and irfft)
         entry("rows_fft", "rows_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:946",
               "rows_fft 4096x4096", c2c * 4096 * 4096, fft_flops(4096, 4096)),
         entry("rows_fft_c64", "rows_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:946",
@@ -2488,6 +2518,9 @@ def main() -> int:
               ms="kernel_c64", plain="plain_c64"),
         entry("c2r_fft", "c2r_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2076",
               "c2r_fft 4096x4096", r2c(4096, 4096), rfft_flops(4096, 4096)),
+        entry("c2r_fft_c64", "c2r_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2076",
+              "c2r_fft 4096x4096", r2c(4096, 4096), rfft_flops(4096, 4096),
+              ms="kernel_c64", plain="plain_c64"),
         entry("big_fft", "big_fft.cu", "fft_wgpu_tpu/ops/bigfft.py:139",
               "big_fft 256x2^16", c2c * 256 * 65536, fft_flops(65536, 256)),
         entry("big_fft_c64", "big_fft.cu", "fft_wgpu_tpu/ops/bigfft.py:139",

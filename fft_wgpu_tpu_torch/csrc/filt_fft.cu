@@ -11,9 +11,14 @@
 //
 // The product is never written to device memory, and the bank's signal is
 // never materialised at [S, n]; the scale is folded into the last pass's
-// store.
+// store.  Both are one kernel, whose rows differ in which operand moves
+// from row to row: filt's x (h one shared row), or the bank's h (x one
+// shared row).  Which one is fixed when the kernel is compiled (BANK), so
+// that the shared row's pointers stay kernel parameters: with both strides
+// as run-time arguments ptxas held them in registers and spilled 52-148 B
+// a thread at n = 256..16384, where this layout spills 0-8 B.
 //
-// filt is the row kernel's design (rows_fft.cu, B1) with the multiply in
+// It is the row kernel's design (rows_fft.cu, B1) with the multiply in
 // its first pass's loads: n's plan compiled in (mixed_fft.cuh's plan_fft;
 // 4096 = 16*16*16) at n/16 threads a row and 16 points a thread, 128 /
 // (n/16) rows a block up to n = 1024 (one per threadIdx.y), a launch bound
@@ -27,22 +32,22 @@
 // entry's input rows may be shorter than n: n_in <= n pairs a row (the row
 // stride), points past n_in read as zero, so hilbert's inverse reads the
 // R2C kernel's half spectrum of n/2 + 1 bins as it lies (its weights past
-// bin n/2 are zero: the same function as the full transform's).  h is read
-// from L2 by every row.  A block reads its whole row before it stores any
-// of it, so the output may alias the input (n_in = n).
+// bin n/2 are zero: the same function as the full transform's).  The shared
+// row (filt's h, the bank's x) is read from L2 by every row.  A block reads
+// its whole row before it stores any of it, so filt's output may alias its
+// input (n_in = n).
 //
-// bank is the first port's kernel, unchanged: stockham.cuh's radix-4
-// passes, one row a block, the first pass through ProductIn x[k] * h[s][k]
-// with the signal shared by every row.
+// bank is the planar path of the same kernel with the roles swapped
+// (bank_fft_f32; its first design ran stockham.cuh's radix-4 passes, one
+// row a block, seven passes at n = 16384).
 //
 // What bounds them: device memory, as for the row kernel: per row, 8 bytes
 // read per point of the operand that moves and 8 written, the shared
 // operand (one row) read from L2: filt at 4096 x 4096 needs 0.080 ms.  The
 // bank of the CWT plan, S = 128 rows of n = 16384, is one wave of 128
-// blocks (one an SM: a 128 KB row, 1024 threads) on the H100's 132 SMs, so
-// one block's seven passes set its time, not bytes; splitting a row over a
-// thread-block cluster, as big_fft.cu does, would fill the card, and is
-// later work.
+// blocks (one an SM: a 136 KB padded row, 1024 threads) on the H100's 132
+// SMs, so one block's four passes set its time more than its 34 MB of
+// device memory (0.010 ms).
 
 #include <cuda_runtime.h>
 
@@ -53,7 +58,7 @@ namespace {
 using namespace fftk;
 
 // ---------------------------------------------------------------------- //
-// filt (B9): the compiled pow2 passes
+// filt (B9) and bank (B10): the compiled pow2 passes
 // ---------------------------------------------------------------------- //
 
 // The row kernel's launch shape (mixed_fft.cuh's RowsShape) with a launch
@@ -73,7 +78,7 @@ struct FiltArgs {
   const float* in_im;
   float* out_re;
   float* out_im;
-  const float* hr;   // the filter as two planes of n points
+  const float* hr;   // the filter as two planes of n points (the bank: rows of them)
   const float* hi;
   const float2* in;  // interleaved layout: rows of n_in pairs
   float2* out;       // rows of n pairs
@@ -103,12 +108,13 @@ struct C64ProductIn {
   }
 };
 
-// This thread's row (one per threadIdx.y) and its source (the row times
-// the filter, formed in the first pass's loads), buffer and sink, built
-// where a pass needs them.  A row past the last reads row 0 and stores
-// nothing.
-template <int LOG2N, bool C64>
+// This thread's row (one per threadIdx.y) and its source (x times h,
+// formed in the first pass's loads: the row's x and the one h, or with BANK
+// the one x and the row's h), buffer and sink, built where a pass needs
+// them.  A row past the last reads row 0 and stores nothing.
+template <int LOG2N, bool C64, bool BANK>
 struct FiltRow {
+  static_assert(!(C64 && BANK), "the bank is planar");
   const FiltArgs& g;
   static constexpr int N = 1 << LOG2N;
   __device__ __forceinline__ long long row() const {
@@ -125,6 +131,8 @@ struct FiltRow {
   __device__ __forceinline__ auto src() const {
     if constexpr (C64) {
       return C64ProductIn{g.in + line() * g.n_in, g.h, g.n_in};
+    } else if constexpr (BANK) {
+      return ProductIn{g.in_re, g.in_im, g.hr + line() * N, g.hi + line() * N, N};
     } else {
       return ProductIn{g.in_re + line() * N, g.in_im + line() * N, g.hr, g.hi, N};
     }
@@ -138,16 +146,17 @@ struct FiltRow {
   }
 };
 
-template <int SIGN, int LOG2N, bool C64>
+template <int SIGN, int LOG2N, bool C64, bool BANK>
 __global__ void __launch_bounds__(FiltShape<LOG2N>::kBlock, FiltShape<LOG2N>::kMinBlocks)
 filt_fft_kernel(const __grid_constant__ FiltArgs g) {
-  plan_fft<SIGN, LOG2N>(FiltRow<LOG2N, C64>{g}, g.tw);
+  plan_fft<SIGN, LOG2N>(FiltRow<LOG2N, C64, BANK>{g}, g.tw);
 }
 
-template <int LOG2N, bool C64>
+template <int LOG2N, bool C64, bool BANK>
 cudaError_t filt_launch(int sign, const FiltArgs& g, cudaStream_t stream) {
   using S = FiltShape<LOG2N>;
-  auto* kernel = sign < 0 ? filt_fft_kernel<-1, LOG2N, C64> : filt_fft_kernel<1, LOG2N, C64>;
+  auto* kernel = sign < 0 ? filt_fft_kernel<-1, LOG2N, C64, BANK>
+                          : filt_fft_kernel<1, LOG2N, C64, BANK>;
   const long long blocks = (g.rows + S::kRows - 1) / S::kRows;
   if (blocks > 2147483647LL) return cudaErrorInvalidValue;
   if constexpr (S::kSmem > 48 * 1024) {
@@ -159,7 +168,7 @@ cudaError_t filt_launch(int sign, const FiltArgs& g, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool C64>
+template <bool C64, bool BANK>
 int filt_dispatch(const FiltArgs& g, int log2n, int sign, void* stream) {
   if (g.rows < 1 || (sign != 1 && sign != -1) || log2n < 7 || log2n > 14 || g.n_in < 1 ||
       g.n_in > (1 << log2n)) {
@@ -167,78 +176,14 @@ int filt_dispatch(const FiltArgs& g, int log2n, int sign, void* stream) {
   }
   const auto s = static_cast<cudaStream_t>(stream);
   switch (log2n) {
-    case 7: return filt_launch<7, C64>(sign, g, s);
-    case 8: return filt_launch<8, C64>(sign, g, s);
-    case 9: return filt_launch<9, C64>(sign, g, s);
-    case 10: return filt_launch<10, C64>(sign, g, s);
-    case 11: return filt_launch<11, C64>(sign, g, s);
-    case 12: return filt_launch<12, C64>(sign, g, s);
-    case 13: return filt_launch<13, C64>(sign, g, s);
-    default: return filt_launch<14, C64>(sign, g, s);
-  }
-}
-
-// ---------------------------------------------------------------------- //
-// bank (B10): stockham.cuh's radix-4 passes, one row a block
-// ---------------------------------------------------------------------- //
-
-template <int LOG2N>
-__global__ void __launch_bounds__(threads_for(LOG2N))
-bank_fft_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                const float* __restrict__ hr, const float* __restrict__ hi,
-                float* __restrict__ out_re, float* __restrict__ out_im,
-                const float2* __restrict__ tw, long long x_stride,
-                long long h_stride, float sign, float scale) {
-  constexpr int N = 1 << LOG2N;
-  extern __shared__ float bank_smem[];  // filt's rows declare smem as float2
-  const long long r = blockIdx.x;
-  const size_t xo = static_cast<size_t>(r * x_stride);
-  const size_t ho = static_cast<size_t>(r * h_stride);
-  const size_t o = static_cast<size_t>(r) * N;
-  fft_passes<LOG2N, threads_for(LOG2N)>(
-      ProductIn{xr + xo, xi + xo, hr + ho, hi + ho, N}, Shared{bank_smem, bank_smem + N},
-      GlobalOut{out_re + o, out_im + o, scale}, tw, sign);
-}
-
-template <int LOG2N>
-cudaError_t bank_launch(const void* xr, const void* xi, const void* hr, const void* hi,
-                        void* out_re, void* out_im, const void* tw, long long rows,
-                        long long x_stride, long long h_stride, float sign, float scale,
-                        cudaStream_t stream) {
-  constexpr int smem = 2 * (1 << LOG2N) * static_cast<int>(sizeof(float));
-  if constexpr (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        bank_fft_kernel<LOG2N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  bank_fft_kernel<LOG2N><<<static_cast<unsigned>(rows), threads_for(LOG2N), smem,
-                           stream>>>(
-      static_cast<const float*>(xr), static_cast<const float*>(xi),
-      static_cast<const float*>(hr), static_cast<const float*>(hi),
-      static_cast<float*>(out_re), static_cast<float*>(out_im),
-      static_cast<const float2*>(tw), x_stride, h_stride, sign, scale);
-  return cudaGetLastError();
-}
-
-// `rows` output rows of n = 2^log2n; row r reads x at r*x_stride and h at
-// r*h_stride (floats of each plane).
-int bank_run(const void* xr, const void* xi, const void* hr, const void* hi, void* out_re,
-             void* out_im, const void* tw, long long rows, int log2n, long long x_stride,
-             long long h_stride, int sign, float scale, void* stream) {
-  if (rows < 1 || rows > 2147483647LL || (sign != 1 && sign != -1)) {
-    return cudaErrorInvalidValue;
-  }
-  const auto s = static_cast<cudaStream_t>(stream);
-  const float sg = static_cast<float>(sign);
-  switch (log2n) {
-#define BANK_CASE(L)                                                          \
-  case L:                                                                     \
-    return bank_launch<L>(xr, xi, hr, hi, out_re, out_im, tw, rows, x_stride, \
-                          h_stride, sg, scale, s);
-    BANK_CASE(7) BANK_CASE(8) BANK_CASE(9) BANK_CASE(10)
-    BANK_CASE(11) BANK_CASE(12) BANK_CASE(13) BANK_CASE(14)
-#undef BANK_CASE
-    default: return cudaErrorInvalidValue;
+    case 7: return filt_launch<7, C64, BANK>(sign, g, s);
+    case 8: return filt_launch<8, C64, BANK>(sign, g, s);
+    case 9: return filt_launch<9, C64, BANK>(sign, g, s);
+    case 10: return filt_launch<10, C64, BANK>(sign, g, s);
+    case 11: return filt_launch<11, C64, BANK>(sign, g, s);
+    case 12: return filt_launch<12, C64, BANK>(sign, g, s);
+    case 13: return filt_launch<13, C64, BANK>(sign, g, s);
+    default: return filt_launch<14, C64, BANK>(sign, g, s);
   }
 }
 
@@ -258,7 +203,7 @@ int filt_fft_f32(const void* xr, const void* xi, const void* hr, const void* hi,
                    static_cast<float*>(out_re), static_cast<float*>(out_im),
                    static_cast<const float*>(hr), static_cast<const float*>(hi), nullptr,
                    nullptr, nullptr, static_cast<const float2*>(tw), rows, 1 << log2n, scale};
-  return filt_dispatch<false>(g, log2n, sign, stream);
+  return filt_dispatch<false, false>(g, log2n, sign, stream);
 }
 
 // The same over interleaved complex64 rows, (re, im) float32 pairs, 8-byte
@@ -271,17 +216,20 @@ int filt_fft_c64(const void* x, const void* h, void* out, const void* tw, long l
                    static_cast<const float2*>(x), static_cast<float2*>(out),
                    static_cast<const float2*>(h), static_cast<const float2*>(tw), rows, n_in,
                    scale};
-  return filt_dispatch<true>(g, log2n, sign, stream);
+  return filt_dispatch<true, false>(g, log2n, sign, stream);
 }
 
 // bank over `rows` contiguous filter rows h of n = 2^log2n planar float32
-// points, each times the one signal row x.  tw holds n interleaved
-// (cos, sin) float32 pairs of exp(sign*2pi*i*j/n).
+// points, each times the one signal row x, into `rows` contiguous output
+// rows; tw as filt_fft_f32's.
 int bank_fft_f32(const void* xr, const void* xi, const void* hr, const void* hi,
                  void* out_re, void* out_im, const void* tw, long long rows, int log2n,
                  int sign, float scale, void* stream) {
-  return bank_run(xr, xi, hr, hi, out_re, out_im, tw, rows, log2n, 0, 1LL << log2n, sign,
-                  scale, stream);
+  const FiltArgs g{static_cast<const float*>(xr), static_cast<const float*>(xi),
+                   static_cast<float*>(out_re), static_cast<float*>(out_im),
+                   static_cast<const float*>(hr), static_cast<const float*>(hi), nullptr,
+                   nullptr, nullptr, static_cast<const float2*>(tw), rows, 1 << log2n, scale};
+  return filt_dispatch<false, true>(g, log2n, sign, stream);
 }
 
 const char* filt_fft_error_string(int err) {

@@ -19,9 +19,11 @@ for fourteen of its entry points, and one fused pair of them.
   ``[..., A, B]`` planes in one pass over device memory, planar or
   complex64 as it lies, ``csrc/fft2f_fft.cu`` (a cluster per plane on the
   compiled pow2 passes of ``mixed_fft.cuh``);
-* ``rfft_rows_split`` / ``rfft_rows_c64`` / ``irfft_rows_split`` — R2C
-  (into planes or complex64) and C2R rows through a half-length complex
-  FFT, ``csrc/r2c_fft.cu`` and ``csrc/c2r_fft.cu``;
+* ``rfft_rows_split`` / ``rfft_rows_c64`` / ``irfft_rows_split`` /
+  ``irfft_rows_c64`` — R2C (into planes or complex64) and C2R rows (from
+  planes or complex64) through a half-length complex FFT on the compiled
+  pow2 passes of ``mixed_fft.cuh``, ``csrc/r2c_fft.cu`` and
+  ``csrc/c2r_fft.cu`` (the half spectrum staged once in shared memory);
 * ``fft_rows_general_split`` / ``rfft_rows_general_split`` — C2C and R2C
   rows of composite non-pow2 length n = n1*n2 (factors <= 256) as
   mixed-radix Stockham passes in one pass over device memory
@@ -33,9 +35,9 @@ for fourteen of its entry points, and one fused pair of them.
   ``csrc/chirp_fft.cu`` on the mixed-radix passes of ``mixed_fft.cuh``;
 * ``fft_filtered_split`` / ``fft_filtered_c64`` / ``fft_bank_split`` —
   rows with a filter multiply at load: every row times one filter (planar,
-  or complex64 as it lies, on the compiled pow2 passes of
-  ``mixed_fft.cuh``), or one signal times every row of a filter bank,
-  ``csrc/filt_fft.cu``;
+  or complex64 as it lies), or one signal times every row of a filter bank
+  (the same kernel with the strides swapped), ``csrc/filt_fft.cu`` on the
+  compiled pow2 passes of ``mixed_fft.cuh``;
 * ``irfft_prod_rows_split`` — C2R of the product of two half spectra
   staged once in shared memory, ``csrc/c2r_fft.cu``'s second kernel (on
   the compiled pow2 passes of ``mixed_fft.cuh``).
@@ -73,7 +75,7 @@ __all__ = ["Unsupported", "FUSED_MIN_N", "FUSED_MAX_N", "FFT2F_MAX_ELEMS",
            "fft2_split", "pad_bins",
            "rfft_rows_split", "rfft_rows_split_reference", "rfft_rows_c64",
            "rfft_rows_c64_reference", "irfft_rows_split",
-           "irfft_rows_split_reference", "fft_rows_general_split",
+           "irfft_rows_split_reference", "irfft_rows_c64", "irfft_rows_c64_reference", "fft_rows_general_split",
            "fft_rows_general_split_reference", "rfft_rows_general_split",
            "rfft_rows_general_split_reference", "fft_chirp_forward_split",
            "fft_chirp_forward_split_reference", "fft_chirp_inverse_split",
@@ -97,8 +99,9 @@ FFT2F_MAX_ELEMS = 1 << 16  # points of one fused 2-D plane (the JAX envelope)
 # ``ax0_c64_launches`` for ax0_fft on axis -2, ``ax3_launches`` and
 # ``ax3_c64_launches`` on the axis(-3) view, ``fft2f_launches`` and
 # ``fft2f_c64_launches`` for fft2f_fft, ``r2c_launches`` and
-# ``r2c_c64_launches`` for r2c_fft, and ``filt_launches`` and
-# ``filt_c64_launches`` for filt_fft's filtered rows.
+# ``r2c_c64_launches`` for r2c_fft, ``c2r_launches`` and
+# ``c2r_c64_launches`` for c2r_fft's C2R (not its product form), and
+# ``filt_launches`` and ``filt_c64_launches`` for filt_fft's filtered rows.
 launches = 0
 c64_launches = 0
 ax0_launches = 0
@@ -112,6 +115,7 @@ fft2f_c64_launches = 0
 r2c_launches = 0
 r2c_c64_launches = 0
 c2r_launches = 0
+c2r_c64_launches = 0
 gen_launches = 0
 r2c_gen_launches = 0
 chirp_fwd_launches = 0
@@ -1097,9 +1101,16 @@ def _r2c(xr, scale, pad_out):
     return rfft_rows_split_reference(xr, scale, pad_out=pad_out)
 
 
+def _c2r_tables(n: int, device):
+    """The C2R kernels' two tables, as pointers: the pass roots of the half
+    length m = n/2 (sign +1) and the packing's exp(+2 pi i k/n), k = 0..m."""
+    return (_twiddle_table(n // 2, INVERSE, device, _pass_roots_np).data_ptr(),
+            _halfcomplex_table(n, INVERSE, device).data_ptr())
+
+
 def _c2r_launch(Xr, Xi, n, scale):
-    """Run the c2r_fft kernel on CUDA tensors (rows of any bin count
-    >= n/2 + 1; only bins 0..n/2 are read)."""
+    """Run the c2r_fft kernel's planar source on CUDA tensors (rows of any
+    bin count >= n/2 + 1; only bins 0..n/2 are read)."""
     global c2r_launches
     bins = Xr.shape[-1]
     Xr, Xi = Xr.contiguous(), Xi.contiguous()
@@ -1107,14 +1118,32 @@ def _c2r_launch(Xr, Xi, n, scale):
     if Xr.numel() == 0:
         return out
     rows = Xr.numel() // bins
-    m = n // 2
     build.launch("c2r_fft", "c2r_fft_f32", [_P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
                  Xr.device, Xr.data_ptr(), Xi.data_ptr(), out.data_ptr(),
-                 _twiddle_table(m, INVERSE, Xr.device).data_ptr(),
-                 _halfcomplex_table(n, INVERSE, Xr.device).data_ptr(), rows,
-                 m.bit_length() - 1, bins, _scale_arg(scale), _stream(Xr),
+                 *_c2r_tables(n, Xr.device), rows, n.bit_length() - 2, bins,
+                 _scale_arg(scale), _stream(Xr),
                  what=f"c2r_fft launch failed (n={n}, rows={rows})")
     c2r_launches += 1
+    return out
+
+
+def _c2r_launch_c64(X, n, scale):
+    """Run the c2r_fft kernel's complex64 source on a CUDA complex64 tensor
+    ``[..., bins]`` as it lies (bins >= n/2 + 1; only bins 0..n/2 are
+    read): real float32 ``[..., n]``, no split."""
+    global c2r_launches, c2r_c64_launches
+    bins = X.shape[-1]
+    X = X.resolve_conj().contiguous()
+    out = torch.empty((*X.shape[:-1], n), dtype=torch.float32, device=X.device)
+    if X.numel() == 0:
+        return out
+    rows = X.numel() // bins
+    build.launch("c2r_fft", "c2r_fft_c64", [_P, _P, _P, _P, _LL, _I, _I, _F, _P], X.device,
+                 X.data_ptr(), out.data_ptr(), *_c2r_tables(n, X.device), rows,
+                 n.bit_length() - 2, bins, _scale_arg(scale), _stream(X),
+                 what=f"c2r_fft launch failed (n={n}, rows={rows})")
+    c2r_launches += 1
+    c2r_c64_launches += 1
     return out
 
 
@@ -1199,6 +1228,34 @@ class _C2R(torch.autograd.Function):
         return (*_c2r_adjoint(g, ctx.n, ctx.scale, ctx.padded_in), None, None, None)
 
 
+def _c2r_c64(X, n, scale):
+    if X.device.type == "cuda":
+        return _c2r_launch_c64(X, n, scale)
+    if X.device.type != "cpu":
+        raise ValueError(f"no C2R FFT for device {X.device}")
+    return irfft_rows_c64_reference(X, n, scale, padded_in=X.shape[-1] != n // 2 + 1)
+
+
+class _C2RC64(torch.autograd.Function):
+    """:class:`_C2R` from complex64: the same adjoint, 2k eps_b (R2C of
+    g)[b], through the R2C kernel's complex64 sink (no merge); the padded
+    form's pad columns get zero."""
+
+    @staticmethod
+    def forward(ctx, X, n, scale):
+        ctx.n, ctx.scale, ctx.bins = n, scale, X.shape[-1]
+        return _c2r_c64(X, n, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.n // 2
+        G = _r2c_c64(g.contiguous(), None)
+        eps = torch.ones(m + 1, dtype=torch.float32, device=G.device)
+        eps[0] = eps[m] = 0.5
+        G = G * (2.0 * _scale_arg(ctx.scale) * eps)
+        return torch.nn.functional.pad(G, (0, ctx.bins - (m + 1))), None, None
+
+
 def rfft_rows_split(xr, scale=None, *, pad_out=False):
     """Batched R2C FFT over the last axis: real float32 ``[..., n]`` ->
     planar ``[..., n//2 + 1]``, or the padded serving form
@@ -1279,6 +1336,49 @@ def irfft_rows_split_reference(Xr, Xi, n, scale=None, *, padded_in=False):
     return torch.stack([zr, zi], dim=-1).reshape(*zr.shape[:-1], n)
 
 
+def _check_c2r_c64(X, n, padded_in) -> None:
+    if not isinstance(X, torch.Tensor) or X.dtype != torch.complex64 or X.ndim < 1:
+        raise ValueError("irfft_rows_c64 takes a complex64 tensor of at least one axis")
+    _check_real(n)
+    bins = pad_bins(n) if padded_in else n // 2 + 1
+    if X.shape[-1] != bins:
+        raise ValueError(f"C2R of n={n} expects {bins} bins"
+                         f"{' (padded)' if padded_in else ''}, got {X.shape[-1]}")
+
+
+def irfft_rows_c64(X, n, scale=None, *, padded_in=False):
+    """:func:`irfft_rows_split` from a complex64 ``[..., n//2 + 1]`` tensor
+    (or ``[..., pad_bins(n)]`` with ``padded_in=True``, whose pad columns
+    are not read) -> real float32 ``[..., n]``, pow2 n in 128..16384: on the
+    card the C2R kernel's complex64 source, one launch and no split.
+    Differentiable (backward: the R2C kernel's complex64 sink)."""
+    _check_c2r_c64(X, n, padded_in)
+    return _C2RC64.apply(X, n, scale)
+
+
+def irfft_rows_c64_reference(X, n, scale=None, *, padded_in=False):
+    """Plain torch version of :func:`irfft_rows_c64`: the plain version of
+    the planar source on X's planes."""
+    _check_c2r_c64(X, n, padded_in)
+    return irfft_rows_split_reference(X.real, X.imag, n, scale, padded_in=padded_in)
+
+
+def _c2r_passes(Xr, Xi, n, scale=None):
+    """Plain torch version of the C2R kernels' own passes (B7; B8 after its
+    product): Z packed from X[k] and X[m-k] of bins 0..n/2 (:func:`_c2r_pack`:
+    the DC and Nyquist imaginary parts ignored), the fixed passes of
+    :func:`_mixed_radix_plan`(m) on the kernel's pass roots (sign +1), then
+    the scale (2/m of the packing's halves is numpy's 1/n) and z[j]
+    interleaved as x[2j], x[2j+1]: real ``[..., n]``.  No CUDA path calls
+    it."""
+    m = n // 2
+    Zr, Zi = _c2r_pack(Xr[..., :m + 1], Xi[..., :m + 1], n)
+    tab = _twiddle_table(m, INVERSE, Xr.device, _pass_roots_np)
+    z = _fixed_passes(torch.complex(Zr, Zi), INVERSE, torch.complex(tab[:, 0], tab[:, 1]),
+                      _mixed_radix_plan(m)) * (2.0 * _scale_arg(scale))
+    return torch.stack([z.real, z.imag], dim=-1).reshape(*z.shape[:-1], n)
+
+
 # ---------------------------------------------------------------------- #
 # C2R of a spectrum product (pallas_fft.irfft_prod_rows_split): A * B
 # staged once in shared memory, then the compiled pow2 passes
@@ -1326,18 +1426,9 @@ def _c2r_prod(Ar, Ai, Br, Bi, n, scale, padded_in):
 def _c2r_prod_passes(Ar, Ai, Br, Bi, n, scale=None):
     """Plain torch version of the c2r_prod kernel's own passes (B8): the
     product X = A * B of bins 0..n/2 (B of A's shape or one broadcast row),
-    Z packed from X[k] and X[m-k] (:func:`_c2r_pack`: the DC and Nyquist
-    imaginary parts ignored), the fixed passes of
-    :func:`_mixed_radix_plan`(m) on the kernel's pass roots (sign +1), then
-    the scale (2/m of the packing's halves is numpy's 1/n) and z[j]
-    interleaved as x[2j], x[2j+1]: real ``[..., n]``.  No CUDA path calls
-    it."""
+    then :func:`_c2r_passes`.  No CUDA path calls it."""
     m = n // 2
-    Zr, Zi = _c2r_pack(*_cmul(*(v[..., :m + 1] for v in (Ar, Ai, Br, Bi))), n)
-    tab = _twiddle_table(m, INVERSE, Ar.device, _pass_roots_np)
-    z = _fixed_passes(torch.complex(Zr, Zi), INVERSE, torch.complex(tab[:, 0], tab[:, 1]),
-                      _mixed_radix_plan(m)) * (2.0 * _scale_arg(scale))
-    return torch.stack([z.real, z.imag], dim=-1).reshape(*z.shape[:-1], n)
+    return _c2r_passes(*_cmul(*(v[..., :m + 1] for v in (Ar, Ai, Br, Bi))), n, scale)
 
 
 class _C2RProd(torch.autograd.Function):
@@ -2068,8 +2159,9 @@ def fft_chirp_full_split_reference(re, im, hr, hi, Hr, Hi, gr, gi, m, n_out, sca
 # (pallas_fft.fft_bank_split)
 # ---------------------------------------------------------------------- #
 def _bank_kernel(re, im, hr, hi, sign, scale):
-    """Run the bank kernel on CUDA tensors into output planes of h's shape;
-    returns them and whether it launched (an empty bank launches nothing)."""
+    """Run the bank entry (the filtered rows' kernel, x shared and h moving)
+    on CUDA tensors into output planes of h's shape; returns them and
+    whether it launched (an empty bank launches nothing)."""
     n = hr.shape[-1]
     re, im = re.contiguous(), im.contiguous()
     out = (re.new_empty(hr.shape), re.new_empty(hr.shape))
@@ -2079,8 +2171,8 @@ def _bank_kernel(re, im, hr, hi, sign, scale):
     build.launch("filt_fft", "bank_fft_f32", [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _F, _P],
                  re.device, re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(),
                  out[0].data_ptr(), out[1].data_ptr(),
-                 _twiddle_table(n, sign, re.device).data_ptr(), rows, n.bit_length() - 1,
-                 sign, _scale_arg(scale), _stream(re),
+                 _twiddle_table(n, sign, re.device, _pass_roots_np).data_ptr(), rows,
+                 n.bit_length() - 1, sign, _scale_arg(scale), _stream(re),
                  what=f"bank_fft_f32 launch failed (n={n}, rows={rows})")
     return out, True
 
@@ -2252,6 +2344,13 @@ def _filt_passes(x, h, sign, scale=None):
     tab = _twiddle_table(n, sign, x.device, _pass_roots_np)
     y = _fixed_passes(z, sign, torch.complex(tab[:, 0], tab[:, 1]), _mixed_radix_plan(n))
     return y * _scale_arg(scale)
+
+
+def _bank_passes(re, im, hr, hi, sign, scale=None):
+    """Plain torch version of the bank entry's own passes: x ``[n]`` times
+    every row of the bank h ``[S, n]``, then :func:`_filt_passes`' passes
+    (complex ``[S, n]``).  No CUDA path calls it."""
+    return _filt_passes(torch.complex(re, im), torch.complex(hr, hi), sign, scale)
 
 
 def _check_bank(re, hr) -> None:

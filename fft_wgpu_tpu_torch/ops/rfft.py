@@ -6,7 +6,10 @@ C2C.  On a CUDA tensor, pow2 n in 128..16384 runs that in one pass per row
 through the R2C / C2R kernels (``cuda_fft.rfft_rows_split`` and
 ``cuda_fft.irfft_rows_split``; ``rfft`` itself takes the R2C kernel's
 complex64 sink, ``cuda_fft.rfft_rows_c64``, and returns its output with no
-merge); an R2C of composite non-pow2 n in the
+merge, and ``irfft`` of a complex64 tensor the C2R kernel's complex64
+source, ``cuda_fft.irfft_rows_c64``, with no split; ``irfftn`` and
+``irfft2`` of complex64 run their leading axes through ``nd.fftn_c64``
+first, where its route takes them); an R2C of composite non-pow2 n in the
 composite-row envelope, odd or even, runs the composite R2C kernel
 (``cuda_fft.rfft_rows_general_split``); other even n take the packed
 path through the plan, other odd n a zero-imaginary C2C.  The C2R of a
@@ -21,12 +24,14 @@ pass planar (re, im) pairs and merge to complex64 once, at the end.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from ..core.complex_utils import merge, promote_to_split, to_device
 from ..core.twiddle import FORWARD, INVERSE
-from . import cuda_fft
+from . import cuda_fft, nd
 from .cuda_fft import pad_bins
 from .nd import _norm_axes, _run_nd_split, fftn_split
 from .transforms import _pad_or_trim, _resize_axis
@@ -198,8 +203,53 @@ def _rfft_split(x, n, axis, norm):
     return Xr.movedim(-1, axis), Xi.movedim(-1, axis)
 
 
+def _irfft_c64(device, n: int) -> bool:
+    """Whether ``irfft`` of length ``n`` of a complex64 tensor of n//2 + 1
+    bins on ``device`` runs the C2R kernel's complex64 source (one launch,
+    no split): a CUDA device, pow2 n in the kernel's envelope."""
+    return device.type == "cuda" and cuda_fft._supported(n)
+
+
+def _irfftn_c64(shape, dtype, device, s, axes) -> bool:
+    """Whether ``irfftn`` over ``axes`` (normalised, with the sizes ``s``) of
+    a tensor of ``shape``, ``dtype`` and ``device`` runs the complex64 route
+    (:func:`_irfftn_c64_run`): complex64, the last axis's bins as they lie
+    (n//2 + 1 of them, n = s[-1] or 2 * (bins - 1)) on the C2R kernel's
+    complex64 source (:func:`_irfft_c64`), and the leading axes, if any, on
+    ``nd.fftn_c64``'s route (``nd._c64_route`` or ``nd._c64_plane``)."""
+    if dtype != torch.complex64 or not axes:
+        return False
+    last, lead, s_lead = axes[-1], axes[:-1], s[:-1]
+    n = s[-1] if s[-1] is not None else 2 * (shape[last] - 1)
+    if shape[last] != n // 2 + 1 or not _irfft_c64(device, n):
+        return False
+    return (not lead or nd._c64_route(shape, dtype, device, s_lead, lead)
+            or nd._c64_plane(shape, dtype, device, s_lead, lead))
+
+
+def _irfftn_c64_run(x, s, axes, norm):
+    """The complex64 route of :func:`_irfftn_c64`: the inverse C2C of the
+    leading axes through the kernels' complex64 entries (``nd.fftn_c64``),
+    then the C2R of the last axis from complex64 (``irfft_rows_c64``), the
+    whole scale folded into the C2R's store."""
+    last, lead = axes[-1], axes[:-1]
+    n = s[-1] if s[-1] is not None else 2 * (x.shape[last] - 1)
+    scale = _scales(n, norm, inverse=True)
+    if lead:
+        lead_scale = nd._nd_scale(math.prod(x.shape[a] for a in lead), INVERSE, norm)
+        if lead_scale is not None:
+            scale = lead_scale if scale is None else lead_scale * scale
+        plane = nd._c64_plane(x.shape, x.dtype, x.device, s[:-1], lead)
+        x = nd.fftn_c64(x, lead, INVERSE, None, plane)
+    return cuda_fft.irfft_rows_c64(x.movedim(last, -1), n, scale).movedim(-1, last)
+
+
 def irfft(x, n=None, axis: int = -1, norm=None):
-    """1-D C2R inverse: n//2+1 bins -> real length-n signal (numpy.fft.irfft)."""
+    """1-D C2R inverse: n//2+1 bins -> real length-n signal (numpy.fft.irfft).
+    A complex64 CUDA tensor of n//2 + 1 bins takes the C2R kernel's
+    complex64 source (:func:`_irfft_c64`)."""
+    if isinstance(x, torch.Tensor) and _irfftn_c64(x.shape, x.dtype, x.device, [n], [axis]):
+        return _irfftn_c64_run(x, [n], [axis], norm)
     Xr, Xi = promote_to_split(x)
     length = n if n is not None else 2 * (Xr.shape[axis] - 1)
     bins = length // 2 + 1
@@ -239,7 +289,13 @@ def _rfftn_split(xr, s, axes, norm):
 
 
 def irfftn(x, s=None, axes=None, norm=None):
-    """N-D C2R: inverse C2C over the leading axes, irfft over the last."""
+    """N-D C2R: inverse C2C over the leading axes, irfft over the last.  A
+    complex64 CUDA tensor takes the complex64 entries where
+    :func:`_irfftn_c64` holds, with no split and no merge."""
+    if isinstance(x, torch.Tensor):
+        s_, axes_ = _norm_axes(x.ndim, s, axes)
+        if _irfftn_c64(x.shape, x.dtype, x.device, s_, axes_):
+            return _irfftn_c64_run(x, s_, axes_, norm)
     Xr, Xi = promote_to_split(x)
     s_, axes_ = _norm_axes(Xr.ndim, s, axes)
     n_last = s_[-1] if s_[-1] is not None else 2 * (Xr.shape[axes_[-1]] - 1)

@@ -38,7 +38,10 @@ shape) and at every pow2 nfft of 128..16384 at half overlap over 2^22
 points, spectrogram's psd mode and welch's median of that signal (events,
 all of their device work, the kernel's), and the output bits of csd's
 and the two-sided welch's segment sums, to compare two trees (set
-"spec"); the product C2R (B8) at
+"spec"); the C2R (B7) at 4096 x 4096 and at every pow2 n of 128..16384
+over 2^24 points from planes and, where the tree has it, from complex64,
+irfft and irfft2 of complex64 4096 x 2049 (events, all of their device
+work, the kernel's), the product C2R (B8) at
 2048 x 8192 with B of A's shape, padded and not, and broadcast, and at
 every pow2 n of 128..16384 over 2^24 points, fftconvolve of two 2048 x
 4096 signals and oaconvolve of 2^20 samples with 129 taps (events, all of
@@ -46,7 +49,9 @@ their device work, the kernel's), beside torch.fft's composition (set
 "c2r"); the
 filtered rows (B9) at 4096 x 4096 and at every pow2 n at 1000 rows in both
 layouts beside B1's complex64 entry, SpectralFilter and hilbert at 4096 x
-4096 (set "filt"); the per-segment two-sided spectra (B22) at 2^22 in both
+4096, the filter bank (B10) at every pow2 n for banks of 1, 7 and 128 rows
+and the CWT plan of 8192 samples over widths 1..128 (set "filt"); the
+per-segment two-sided spectra (B22) at 2^22 in both
 sources and sinks and at every pow2 nfft, the complex spectrogram and csd
 of complex 2^22 signals (set "c2c"); welch's and coherence's segment sums
 (B16, B18) at a 2^22 signal with nperseg 4096, hop 2048, at 64 x 2^20
@@ -714,6 +719,25 @@ def time_filt(ft, cuda_fft, dev, gen, label, result):
         device["device full C2C route"] = (full_c2c, every)
         err = max(err, rel_l2(full_c2c(), want))
     record("hilbert 4096x4096", err, fns, device, reps=20)
+    # B10: the parent's bank_fft_kernel, or the filtered rows' kernel
+    bank = r"(bank|filt)_fft_kernel"
+    for rows, n in [(rows, 1 << e) for e in range(7, 15) for rows in (1, 7, 128)]:
+        x, h = crand(n), crand(rows, n)
+        re, im = x.real.contiguous(), x.imag.contiguous()
+        hr, hi = h.real.contiguous(), h.imag.contiguous()
+        fns = {"kernel": lambda: cuda_fft._bank(re, im, hr, hi, 1, 1.0 / n),
+               "torch.fft": lambda: torch.fft.ifft(x * h)}
+        err = rel_l2(torch.complex(*fns["kernel"]()), torch.fft.ifft(x.to(torch.complex128) * h))
+        record(f"bank {rows}x{n}", err, fns, {"device kernel": (fns["kernel"], bank)}, reps=20)
+    import numpy as np
+
+    widths = np.arange(1, 129)
+    cw = ft.CWT(8192, widths, device=dev)
+    sig = torch.randn(8192, device=dev, generator=gen)
+    want = ft.CWT(8192, widths, device="cpu")(sig.cpu())
+    record("CWT 8192 x 128 widths", rel_l2(cw(sig).cpu(), want), {"CWT": lambda: cw(sig)},
+           {"device all": (lambda: cw(sig), every), "device bank": (lambda: cw(sig), bank)},
+           reps=20)
 
 
 def time_c2c(ft, dev, gen, label, result):
@@ -895,7 +919,36 @@ def time_c2r(ft, cuda_fft, dev, gen, label, result):
     crand = randn_complex(dev, gen)
     record = recorder(label, result)
     every = r"\w+"
-    b8 = r"c2r_(fft|prod)_kernel"  # the parent's c2r_fft_kernel<., true>, or c2r_prod_kernel
+    has_c64 = hasattr(cuda_fft, "irfft_rows_c64")
+    b7 = "c2r_fft_kernel"
+    for rows, n in [(4096, 4096)] + [(1 << 24 >> e, 1 << e) for e in range(7, 15)]:
+        X = crand(rows, n // 2 + 1)
+        Xr, Xi = X.real.contiguous(), X.imag.contiguous()
+        Xh = X.clone()
+        Xh.imag[:, 0] = Xh.imag[:, -1] = 0
+        want = torch.fft.irfft(Xh.to(torch.complex128), n=n)
+        fns = {"kernel": lambda: cuda_fft._c2r_launch(Xr, Xi, n, 1.0 / n),
+               "torch.fft": lambda: torch.fft.irfft(X, n=n)}
+        device = {"device kernel": (fns["kernel"], b7)}
+        err = rel_l2(fns["kernel"](), want)
+        if has_c64:
+            fns["kernel_c64"] = lambda: cuda_fft._c2r_launch_c64(X, n, 1.0 / n)
+            device["device kernel_c64"] = (fns["kernel_c64"], b7)
+            err = max(err, rel_l2(fns["kernel_c64"](), want))
+        record(f"c2r {rows}x{n}", err, fns, device, reps=20)
+        del X, Xr, Xi, Xh, want
+    X = torch.fft.rfft(torch.randn(4096, 4096, device=dev, generator=gen))
+    X128 = X.to(torch.complex128)
+    for key, call, torch_call, want in (
+            ("irfft 4096x2049 complex64", lambda: ft.irfft(X), lambda: torch.fft.irfft(X),
+             torch.fft.irfft(X128)),
+            ("irfft2 4096x2049 complex64", lambda: ft.irfft2(X, s=(4096, 4096)),
+             lambda: torch.fft.irfft2(X, s=(4096, 4096)),
+             torch.fft.irfft2(X128, s=(4096, 4096)))):
+        record(key, rel_l2(call(), want), {"call": call, "torch.fft": torch_call},
+               {"device all": (call, every), "device c2r": (call, b7)}, reps=20)
+    del X, X128
+    b8 = "c2r_prod_kernel"
     shapes = [(2048, 8192, True, False), (2048, 8192, False, False), (2048, 8192, True, True)]
     shapes += [(1 << 24 >> e, 1 << e, True, False) for e in range(7, 15)]
     for rows, n, pad, bcast in shapes:

@@ -2,7 +2,7 @@
 """Time launch-bound and cluster-size variants of the pow2 kernels of the
 torch port (rows_fft, B1; big_fft, B15; ax0_fft, B2/B3; fft2f_fft, B5;
 spec_fft, B20 and B19; filt_fft's filtered rows, B9; spec_c2c_fft, B22;
-welch_acc_fft, B16, B17, B18 and B21; c2r_fft's product kernel, B8) on one CUDA
+welch_acc_fft, B16, B17, B18 and B21; c2r_fft, B7 and B8) on one CUDA
 card, each beside the kernel as it is.
 
     python3 scripts/time_pow2_variants.py
@@ -47,19 +47,20 @@ wave), with a launch bound of 64 registers at every nfft, of 85 up to
 load of the frame's mean unrolled (the kernel: a runtime loop), each
 call timed with the torch.sum over its partial rows where there are
 several;
-c2r_fft's product
-kernel with the first pass reading A and B from device memory at X[k] and
-X[m-k] (two global reads of each bin, the product formed twice; the
-kernel: one sweep stages the product in shared memory), with 1, 4 and 16
-bins a thread staged a round (the kernel: 8, kStage), and with the last pass
-storing to shared memory and a sweep of the block's rows to device memory
-(the kernel: the last pass stores 8-byte pairs).
+c2r_fft (B7 through its complex64 and planar sources, B8) with 1, 4 and
+16 bins a thread staged a round from A and B (the kernel: 8, kStage; B7
+runs as the kernel there), with 8 and 32 from A alone (the kernel: 16,
+kStageA; B8 runs as the kernel there), and with the launch bound at 64 and
+at 128 registers at every m (the kernel: R2cShape's, 80 registers up to
+m = 4096, then 64); filt_fft's bank at n = 16384 over a cluster of two
+blocks of 8192 points (its own C entry; the kernel: one block a row).
 Each variant is
 the kernel's source with a line or two rewritten, compiled with the port's
 nvcc flags into ``fft_wgpu_tpu_torch/_build/variants/`` (all at once;
 each ``lib<library>_v<i>.log`` keeps ptxas's registers and spills),
 called through its complex64 entry point (ax0_fft and fft2f_fft: and the
-planar one; spec_fft: and spec_psd_f32; c2r_fft: c2r_prod_fft_f32), checked against torch.fft (relative L2 <= 1e-5) and timed by
+planar one; spec_fft: and spec_psd_f32; c2r_fft: c2r_fft_f32 and
+c2r_prod_fft_f32), checked against torch.fft (relative L2 <= 1e-5) and timed by
 its kernel's device time from a torch.profiler window of 20
 calls, two rounds in turns (the mean of the two).  The card's name and power limit (nvidia-smi) head the output; one
 JSON line ends it and, with ``--out``, is appended to FILE.
@@ -152,75 +153,130 @@ VARIANTS.update({
         SPEC_BOUND, "  static constexpr int kMinBlocks = kBlock <= 128 ? 6 : kBlock == 256 ? 3 : "
                     "1024 / kBlock;\n"),
 })
-# B8: the first pass reading A and B from device memory (no staging sweep),
-# and the last pass storing to shared memory, then a sweep of the rows
-C2R_STAGE = "  stage_product<LOG2M>(g);\n"
-C2R_SRC = ("  __device__ __forceinline__ StagedIn<M> src() const "
-           "{ return StagedIn<M>{shared(), g.half}; }\n")
-C2R_ROW = "// This thread's row (one per threadIdx.y): its staged buffer, the first\n"
-C2R_GLOBAL_IN = """template <int M>
-struct GlobalProductIn {
-  const ProdArgs& g;
-  size_t a0, b0;
-  static constexpr bool kShared = false;
-  __device__ __forceinline__ void x(int k, float& re, float& im) const {
-    const float a_r = g.ar[a0 + k], a_i = g.ai[a0 + k];
-    const float b_r = __ldg(&g.br[b0 + k]), b_i = __ldg(&g.bi[b0 + k]);
-    re = a_r * b_r - a_i * b_i;
-    im = a_r * b_i + a_i * b_r;
-  }
-  __device__ __forceinline__ void load(int k, float& a, float& b) const {
-    float ar, ai, br, bi;
-    x(k, ar, ai);
-    x(M - k, br, bi);
-    if (k == 0) ai = bi = 0.f;
-    const float er = ar + br, ei = ai - bi;
-    const float dr = ar - br, di = ai + bi;
-    const float2 t = __ldg(&g.half[k]);
-    a = er - (t.x * di + t.y * dr);
-    b = ei + (t.x * dr - t.y * di);
-  }
-};
-
-"""
-C2R_DST = """  __device__ __forceinline__ InterleavedOut dst() const {
-    const bool valid = row() < g.rows;
-    return InterleavedOut{g.out + static_cast<size_t>(valid ? row() : 0) * 2 * M, g.scale,
-                          valid};
-  }
-"""
-C2R_PLAN = "  plan_fft<1, LOG2M>(ProdRow<LOG2M>{g}, g.tw);\n"
+# c2r_fft (B7 from both sources, B8): the bins a thread stages a round and
+# the launch bounds (C2rShape)
 C2R_UNROLL = "  static constexpr int kStage = 8;  // bins a thread stages a round\n"
+C2R_UNROLL_A = "  static constexpr int kStageA = 16;  // the same from A alone\n"
 VARIANTS.update({
     ("c2r_fft", "kernel"): None,
+    ("c2r_fft", "B7: 8 bins a round"): (C2R_UNROLL_A, C2R_UNROLL_A.replace("16;", "8;")),
+    ("c2r_fft", "B7: 32 bins a round"): (C2R_UNROLL_A, C2R_UNROLL_A.replace("16;", "32;")),
     ("c2r_fft", "one bin a round"): (C2R_UNROLL, C2R_UNROLL.replace("8;", "1;")),
     ("c2r_fft", "4 bins a round"): (C2R_UNROLL, C2R_UNROLL.replace("8;", "4;")),
     ("c2r_fft", "16 bins a round"): (C2R_UNROLL, C2R_UNROLL.replace("8;", "16;")),
-    ("c2r_fft", "two global reads"): (
-        (C2R_STAGE, ""), (C2R_ROW, C2R_GLOBAL_IN + C2R_ROW),
-        (C2R_SRC, "  __device__ __forceinline__ GlobalProductIn<M> src() const {\n"
-                  "    const long long r = row() < g.rows ? row() : 0;\n"
-                  "    return GlobalProductIn<M>{g, static_cast<size_t>(r) * g.bins,\n"
-                  "                              static_cast<size_t>(r * g.b_stride)};\n"
-                  "  }\n")),
-    ("c2r_fft", "shared sweep store"): (
-        (C2R_DST, "  __device__ __forceinline__ PadShared dst() const { return shared(); }\n"),
-        (C2R_PLAN, C2R_PLAN + """  using S = ProdShape<LOG2M>;
-  constexpr int M = S::kM;
-  extern __shared__ float2 smem[];
-  const long long row0 = static_cast<long long>(blockIdx.x) * S::kRows;
-  const int rows = g.rows - row0 < S::kRows ? static_cast<int>(g.rows - row0) : S::kRows;
-  float2* out = reinterpret_cast<float2*>(g.out) + row0 * M;
-  for (int i = threadIdx.y * S::kThreads + threadIdx.x; i < rows * M; i += S::kBlock) {
-    const float2 v = smem[(i >> LOG2M) * padded_len(M) + padded(i & (M - 1))];
-    out[i] = make_float2(v.x * g.scale, v.y * g.scale);
-  }
-""")),
+    ("c2r_fft", "64 registers"): (
+        ROWS_BOUND, "  static constexpr int kMinBlocks = 1024 / kBlock;\n"),
+    ("c2r_fft", "128 registers"): (
+        ROWS_BOUND, "  static constexpr int kMinBlocks = 512 / kBlock;\n"),
 })
 FILT_H = "    const float2 w = __ldg(&h[k]);\n"
 FILT_N = "  const float2* h;\n  int n_in;\n"
 FILT_SRC = "      return C64ProductIn{g.in + line() * g.n_in, g.h, g.n_in};\n"
 FILT_BOUND = "  static constexpr int kMinBlocks = LOG2N == 12 ? 4 : RowsShape<LOG2N>::kMinBlocks;\n"
+# B10 at n = 16384 with each bank row over a cluster of two blocks of 8192
+# points: big_fft.cu's steps at C = 2 (the product at load, the 2-point
+# butterfly and the twiddle w_n^(q*k1), written to block k1 through
+# distributed shared memory; 8192's compiled plan in each block; the
+# outputs X[2*pos + c] read back from both blocks), in a C entry of its own,
+# bank_cluster_fft_f32, whose table is _bank_cluster_roots_np's
+FILT_INCLUDE = '#include "mixed_fft.cuh"\n'
+FILT_NAMESPACE_END = "}  // namespace\n"
+FILT_ERROR = "const char* filt_fft_error_string(int err) {\n"
+BANK_CLUSTER_KERNEL = r"""
+namespace cg = cooperative_groups;
+
+struct BankClusterRow {
+  PadShared s;
+  __device__ __forceinline__ const PadShared& src() const { return s; }
+  __device__ __forceinline__ const PadShared& shared() const { return s; }
+  __device__ __forceinline__ const PadShared& dst() const { return s; }
+};
+
+template <int SIGN>
+__global__ void __launch_bounds__(512, 2) bank_cluster_kernel(const __grid_constant__ FiltArgs g) {
+  constexpr int N = 16384, C = 2, Q = N / C, T = Q / 16, P = Q / C, PT = 16 / C;
+  extern __shared__ float2 smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = static_cast<int>(cluster.block_rank());
+  const int tid = static_cast<int>(threadIdx.x);
+  const size_t row = static_cast<size_t>(blockIdx.x / C) * N;
+  float xr[PT][C], xi[PT][C];
+#pragma unroll
+  for (int i = 0; i < PT; ++i) {
+    const int q = b * P + tid + i * T;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int k = c * Q + q;
+      const float ar = g.in_re[k], ai = g.in_im[k];
+      const float hr = __ldg(&g.hr[row + k]), hi = __ldg(&g.hi[row + k]);
+      xr[i][c] = ar * hr - ai * hi;
+      xi[i][c] = ar * hi + ai * hr;
+    }
+  }
+  cluster.sync();
+  const float2* lane_tw = g.tw + (tid & 31);  // w_n^(l*k1) at [k1*32]
+  const float2* warp_tw = g.tw + C * 32;      // w_n^(32*m)
+#pragma unroll
+  for (int i = 0; i < PT; ++i) {
+    const int q = b * P + tid + i * T;
+    dft<C, SIGN>(xr[i], xi[i]);
+    float2 w = __ldg(&warp_tw[q >> 5]);
+    cmul(w.x, w.y, __ldg(&lane_tw[32]));
+    cmul(xr[i][1], xi[i][1], w);
+#pragma unroll
+    for (int k1 = 0; k1 < C; ++k1) {
+      PadShared{cluster.map_shared_rank(smem, k1)}.store(q, xr[i][k1], xi[i][k1]);
+    }
+  }
+  cluster.sync();
+  plan_fft<SIGN, 13>(BankClusterRow{PadShared{smem}}, g.tw + C * 32 + N / 32);
+  cluster.sync();
+#pragma unroll
+  for (int i = 0; i < PT; ++i) {
+    const int pos = b * P + tid + i * T;
+    float zr[C], zi[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      PadShared{cluster.map_shared_rank(smem, c)}.load(pos, zr[c], zi[c]);
+    }
+    const size_t t = row + static_cast<size_t>(C) * pos;
+    *reinterpret_cast<float2*>(g.out_re + t) = make_float2(zr[0] * g.scale, zr[1] * g.scale);
+    *reinterpret_cast<float2*>(g.out_im + t) = make_float2(zi[0] * g.scale, zi[1] * g.scale);
+  }
+  cluster.sync();
+}
+
+"""
+BANK_CLUSTER_ENTRY = r"""int bank_cluster_fft_f32(const void* xr, const void* xi, const void* hr, const void* hi,
+                         void* out_re, void* out_im, const void* tw, long long rows, int sign,
+                         float scale, void* stream) {
+  const FiltArgs g{static_cast<const float*>(xr), static_cast<const float*>(xi),
+                   static_cast<float*>(out_re), static_cast<float*>(out_im),
+                   static_cast<const float*>(hr), static_cast<const float*>(hi), nullptr,
+                   nullptr, nullptr, static_cast<const float2*>(tw), rows, 16384, scale};
+  auto* kernel = sign < 0 ? bank_cluster_kernel<-1> : bank_cluster_kernel<1>;
+  constexpr int smem = padded_len(8192) * static_cast<int>(sizeof(float2));
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows * 2));
+  cfg.blockDim = dim3(512);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, g);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+"""
+BANK_CLUSTER = "bank over a 2-block cluster"
 C2C_ROWS = "  static constexpr int kRows = kThreads >= 128 ? 1 : 128 / kThreads;\n"
 C2C_BOUND = "  static constexpr int kMinBlocks = 1024 / kBlock;  // 64 registers\n"
 VARIANTS.update({
@@ -240,12 +296,16 @@ VARIANTS.update({
          "  __device__ __forceinline__ PadShared src() const { return shared(); }\n"
          "  __device__ __forceinline__ auto product() const {\n    if constexpr (C64) {\n"
          "      return C64ProductIn"),
-        ("  plan_fft<SIGN, LOG2N>(FiltRow<LOG2N, C64>{g}, g.tw);\n",
-         "  const FiltRow<LOG2N, C64> row{g};\n  const auto in = row.product();\n"
+        ("  plan_fft<SIGN, LOG2N>(FiltRow<LOG2N, C64, BANK>{g}, g.tw);\n",
+         "  const FiltRow<LOG2N, C64, BANK> row{g};\n  const auto in = row.product();\n"
          "  const PadShared z = row.shared();\n#pragma unroll 4\n"
          "  for (int k = threadIdx.x; k < (1 << LOG2N); k += blockDim.x) {\n"
          "    float a, b;\n    in.load(k, a, b);\n    z.store(k, a, b);\n  }\n"
          "  __syncthreads();\n  plan_fft<SIGN, LOG2N>(row, g.tw);\n")),
+    ("filt_fft", BANK_CLUSTER): (
+        (FILT_INCLUDE, "#include <cooperative_groups.h>\n" + FILT_INCLUDE),
+        (FILT_NAMESPACE_END, BANK_CLUSTER_KERNEL + FILT_NAMESPACE_END),
+        (FILT_ERROR, BANK_CLUSTER_ENTRY + FILT_ERROR)),
     ("spec_c2c_fft", "kernel"): None,
     ("spec_c2c_fft", "256 threads a block"): (C2C_ROWS, C2C_ROWS.replace("128", "256")),
     ("spec_c2c_fft", "RowsShape's bound"): (
@@ -317,6 +377,9 @@ WELCH_SHAPES = (("welch", 1, 1 << 22, 4096), ("welch", 64, 1 << 20, 256),
 # half spectrum, and 1000 rows at the ends and middle of the envelope
 FILT_SHAPES = ((4096, 4096, 4096), (4096, 4096, 2049), (1000, 128, 128), (1000, 1024, 1024),
                (1000, 16384, 16384))
+# bank rows of the bank variants at n = 16384: the CWT plan's 128, and 132,
+# 264 (one and two blocks an SM)
+BANK_ROWS = (128, 132, 264)
 # (t, nperseg, hop, nfft, detrend) of spec_c2c_fft's shapes: the complex
 # spectrogram's 2^22 (with and without its detrend), half overlap at 128,
 # 512 and 16384
@@ -336,6 +399,10 @@ PSD_SHAPES = ((1 << 22, 4096, 3584, 4096),) + tuple(
 C2R_SHAPES = ((2048, 8192, True, False), (2048, 8192, False, False),
               (2048, 8192, True, True)) + tuple(
     (1 << 24 >> e, 1 << e, True, False) for e in range(7, 15))
+# (rows, n, entries) of c2r_fft's B7: 4096^2 through both sources, and every
+# pow2 n over 2^24 points through the complex64 one
+C2R_B7_SHAPES = ((4096, 4096, ("c2r_fft_c64", "c2r_fft_f32")),) + tuple(
+    (1 << 24 >> e, 1 << e, ("c2r_fft_c64",)) for e in range(7, 15))
 # (planes, A, B) of fft2f_fft's shapes: fftn 256^3's planes, 16 of each plane
 FFT2F_SHAPES = ((256, 256, 256), (16, 128, 128), (16, 128, 256), (16, 256, 128),
                 (16, 128, 512), (16, 512, 128), (16, 256, 256))
@@ -347,6 +414,20 @@ AX0_SHAPES = ((1024, 4096), (4096, 4096), (256, 65536), (128, 131072), (512, 327
 CLUSTER = {"8 blocks of 4096": (15, 8), "16 blocks of 8192": (17, 16)}
 ROWS_SHAPES = ((4096, 4096), (2048, 2048), (2500, 512), (1000, 128), (1024, 16384))
 BIG_SHAPES = ((64, 15), (256, 16), (32, 17))
+
+
+def _bank_cluster_roots_np(n: int, sign: int):
+    """The bank cluster variant's table (ops/bigfft.py::_big_roots_np's
+    layout at C = 2): the lane roots w_n^(l*k1) as [2][32], the warp roots
+    w_n^(32*m) (m < n/32), then each pass's roots of n/2's compiled plan."""
+    from fft_wgpu_tpu_torch.core import twiddle
+    from fft_wgpu_tpu_torch.ops import cuda_fft
+
+    cos, sin = twiddle.roots_np(n, sign)
+    idx = np.concatenate([(np.arange(2)[:, None] * np.arange(32)).ravel(),
+                          32 * np.arange(n // 32)])
+    pc, ps = cuda_fft._pass_roots_np(n // 2, sign)
+    return np.concatenate([cos[idx], pc]), np.concatenate([sin[idx], ps])
 
 
 def build_variants():
@@ -409,11 +490,26 @@ def main() -> int:
             f.restype = shape.restype = I
             fns[lib_name, name] = (f, shape)
             continue
-        if lib_name == "c2r_fft":  # the product kernel's entry
+        if lib_name == "c2r_fft":  # B8's entry, then B7's two
             f = ctypes.CDLL(lib).c2r_prod_fft_f32
             f.argtypes, f.restype = [P] * 7 + [LL, LL, I, I, F, P], I
             fns[lib_name, name] = f
+            f = ctypes.CDLL(lib).c2r_fft_f32
+            f.argtypes, f.restype = [P] * 5 + [LL, I, I, F, P], I
+            fns["c2r_fft_f32", name] = f
+            f = ctypes.CDLL(lib).c2r_fft_c64
+            f.argtypes, f.restype = [P] * 4 + [LL, I, I, F, P], I
+            fns["c2r_fft_c64", name] = f
             continue
+        if lib_name == "filt_fft":  # the bank's entry (the cluster variant's own)
+            if name == BANK_CLUSTER:
+                f = ctypes.CDLL(lib).bank_cluster_fft_f32
+                f.argtypes = [P] * 7 + [LL, I, F, P]
+            else:
+                f = ctypes.CDLL(lib).bank_fft_f32
+                f.argtypes = [P] * 7 + [LL, I, I, F, P]
+            f.restype = I
+            fns["bank", name] = f
         if lib_name == "spec_fft":  # B19's entry beside B20's complex64 one
             f = ctypes.CDLL(lib).spec_psd_f32
             f.argtypes, f.restype = [P] * 4 + [LL, LL] + [I] * 5 + [P], I
@@ -653,6 +749,33 @@ def main() -> int:
             A, want, {name: c2r_call(name, f, A, B, out, n, bcast)
                       for (lb, name), f in fns.items() if lb == "c2r_fft"}, "c2r_prod_kernel")
         del A, B, P, want, out
+
+    def c2r_b7_call(name, f, X, out, n, c64):
+        tabs = (cuda_fft._twiddle_table(n // 2, 1, dev, cuda_fft._pass_roots_np),
+                cuda_fft._halfcomplex_table(n, 1, dev))
+        src = (X,) if c64 else (X.real.contiguous(), X.imag.contiguous())
+
+        def call():
+            err = f(*(v.data_ptr() for v in src), out.data_ptr(),
+                    *(tab.data_ptr() for tab in tabs), X.shape[0], n.bit_length() - 2,
+                    X.shape[-1], 1.0 / n, stream)
+            if err:
+                raise RuntimeError(f"c2r_fft variant {name!r}: CUDA error {err}")
+            return out
+        return call
+
+    for rows, n, layouts in C2R_B7_SHAPES if ("c2r_fft", "kernel") in VARIANTS else ():
+        X = torch.complex(torch.randn(rows, n // 2 + 1, device=dev, generator=gen),
+                          torch.randn(rows, n // 2 + 1, device=dev, generator=gen))
+        Xh = X.to(torch.complex128)
+        Xh.imag[:, 0] = Xh.imag[:, -1] = 0
+        want = torch.fft.irfft(Xh, n=n)
+        out = torch.empty(rows, n, device=dev)
+        for entry in layouts:
+            run(f"{entry} {rows}x{n}", X, want,
+                {name: c2r_b7_call(name, f, X, out, n, entry == "c2r_fft_c64")
+                 for (lb, name), f in fns.items() if lb == entry}, "c2r_fft_kernel")
+        del X, Xh, want, out
     def filt_call(name, f, x, h, hp, out, n):
         tw = cuda_fft._twiddle_table(n, 1, dev, cuda_fft._pass_roots_np)
         h = hp if name == "planar h" else h
@@ -664,6 +787,38 @@ def main() -> int:
                 raise RuntimeError(f"filt_fft variant {name!r}: CUDA error {err}")
             return out
         return call
+
+    def bank_call(name, f, x, h, out, n, sign):
+        table = _bank_cluster_roots_np if name == BANK_CLUSTER else cuda_fft._pass_roots_np
+        tw = cuda_fft._twiddle_table(n, sign, dev, table)
+        re, im = x.real.contiguous(), x.imag.contiguous()
+        hr, hi = h.real.contiguous(), h.imag.contiguous()
+
+        def call():
+            args = (re.data_ptr(), im.data_ptr(), hr.data_ptr(), hi.data_ptr(),
+                    out[0].data_ptr(), out[1].data_ptr(), tw.data_ptr(), h.shape[0])
+            err = (f(*args, sign, 1.0 / n, stream) if name == BANK_CLUSTER
+                   else f(*args, n.bit_length() - 1, sign, 1.0 / n, stream))
+            if err:
+                raise RuntimeError(f"filt_fft variant {name!r}: CUDA error {err}")
+            return torch.complex(*out)
+        return call
+
+    for rows in BANK_ROWS if ("filt_fft", "kernel") in VARIANTS else ():
+        n = 16384
+        x = torch.complex(torch.randn(n, device=dev, generator=gen),
+                          torch.randn(n, device=dev, generator=gen))
+        h = torch.complex(torch.randn(rows, n, device=dev, generator=gen),
+                          torch.randn(rows, n, device=dev, generator=gen))
+        out = (torch.empty(rows, n, device=dev), torch.empty(rows, n, device=dev))
+        for sign in (-1, 1):
+            want = (torch.fft.fft(x * h) if sign < 0 else torch.fft.ifft(x * h)) / (
+                n if sign < 0 else 1)
+            run(f"bank {rows}x{n} sign={sign}", x, want,
+                {name: bank_call(name, f, x, h, out, n, sign) for (lb, name), f in fns.items()
+                 if lb == "bank" and name in ("kernel", BANK_CLUSTER)},
+                r"(filt_fft|bank_cluster)_kernel")
+        del x, h, out
 
     for rows, n, n_in in FILT_SHAPES if ("filt_fft", "kernel") in VARIANTS else ():
         x = torch.complex(torch.randn(rows, n_in, device=dev, generator=gen),

@@ -1,7 +1,8 @@
 """Torch port, the complex64 entries of the axis(-2), axis(-3) and R2C
 kernels (ops/cuda_fft.py: ``fft_axis0_c64``, ``fft_axis3_c64``,
 ``rfft_rows_c64``) and the complex64 routes through them (ops/nd.py's
-``fftn_c64``, ``rfft``'s complex64 sink) against the JAX package on the CPU.
+``fftn_c64``, ``rfft``'s complex64 sink, and ``irfft``'s and ``irfftn``'s
+complex64 source) against the JAX package on the CPU.
 
 On a CPU tensor the entries run their plain versions; they are held
 against the JAX package's Pallas kernels run in interpret mode, as
@@ -47,7 +48,8 @@ def cplx_dot(pair, wr, wi):
 def assert_no_launches():
     # CPU tensors never reach a kernel
     assert (cuda_fft.launches, cuda_fft.ax0_launches, cuda_fft.ax3_launches,
-            cuda_fft.r2c_launches) == (0, 0, 0, 0)
+            cuda_fft.r2c_launches, cuda_fft.c2r_launches, cuda_fft.fft2f_launches) == (
+                0, 0, 0, 0, 0, 0)
 
 
 # ---------------------------------------------------------------------- #
@@ -245,6 +247,48 @@ def test_rfft_complex64_route_predicate():
         assert rfft._rfft_c64(CUDA, n) and not rfft._rfft_c64(CPU, n)
     for n in (64, 1000, 4095, 32768):
         assert not rfft._rfft_c64(CUDA, n)
+
+
+def test_irfft_complex64_route_predicate():
+    for n in (128, 256, 4096, 16384):
+        assert rfft._irfft_c64(CUDA, n) and not rfft._irfft_c64(CPU, n)
+    for n in (64, 1000, 4094, 32768):
+        assert not rfft._irfft_c64(CUDA, n)
+
+
+@pytest.mark.parametrize("shape,axes,s,dtype,device,takes", [
+    ((4096, 2049), [1], [None], C64, CUDA, True),            # irfft, config 4
+    ((4096, 2049), [1], [4096], C64, CUDA, True),
+    ((2049, 7), [0], [None], C64, CUDA, True),               # along axis 0
+    ((4096, 8193), [1], [None], C64, CUDA, True),            # n = 16384
+    ((4096, 2049), [1], [2048], C64, CUDA, False),           # a trim
+    ((4096, 1025), [1], [4096], C64, CUDA, False),           # a pad
+    ((4096, 1001), [1], [None], C64, CUDA, False),           # n = 2000
+    ((4096, 16385), [1], [None], C64, CUDA, False),          # n = 32768
+    ((4096, 2049), [1], [None], C64, CPU, False),            # the CPU
+    ((4096, 2049), [1], [None], torch.complex128, CUDA, False),
+    ((4096, 2049), [1], [None], torch.float32, CUDA, False),
+    ((4096, 2049), [0, 1], [4096, 4096], C64, CUDA, True),   # irfft2, config 4
+    ((4096, 2049), [0, 1], [2048, 4096], C64, CUDA, False),  # a trim of axis 0
+    ((100, 2049), [0, 1], [None, None], C64, CUDA, False),   # axis 0 below 128
+    ((128, 256, 129), [0, 1, 2], [None] * 3, C64, CUDA, True),    # irfftn
+    ((129, 256, 256), [1, 2, 0], [None] * 3, C64, CUDA, True),    # the fused plane first
+    ((129, 1080, 1920), [1, 2, 0], [None] * 3, C64, CUDA, False),  # composite axes
+    ((129, 256, 256), [1, 2, 0], [None] * 3, C64, CPU, False),
+])
+def test_irfftn_complex64_route_predicate(shape, axes, s, dtype, device, takes):
+    assert rfft._irfftn_c64(shape, dtype, device, s, axes) is takes
+
+
+def test_irfftn_complex64_route_takes_the_plane(rng, assert_close):
+    # the leading axes of irfftn over (1, 2, 0) are the trailing plane: the
+    # fused plane's complex64 entry goes first (its plain version here)
+    shape, axes = (129, 128, 256), [1, 2, 0]
+    assert nd._c64_plane(shape, C64, CUDA, [None, None], axes[:-1])
+    X = crand(rng, *shape)
+    got = rfft._irfftn_c64_run(torch.from_numpy(X), [None] * 3, axes, "ortho")
+    assert_close(got.numpy(), np.asarray(ftt.irfftn(X, axes=axes, norm="ortho")))
+    assert_no_launches()
 
 
 def test_ax0_cluster_table_matches_source():

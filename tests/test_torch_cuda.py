@@ -1,7 +1,8 @@
 """Torch port on the card: each CUDA kernel against its plain version.
 
 rows_fft (B1), ax0_fft (B2, and B3 on the axis(-3) view), rows_t_fft (B4),
-fft2f_fft (B5), r2c_fft (B6), c2r_fft (B7), big_fft (B15), gen_fft (B13),
+fft2f_fft (B5), r2c_fft (B6), c2r_fft (B7, from planes and from complex64),
+big_fft (B15), gen_fft (B13),
 r2c_gen_fft (B14), chirp_fft (B11, B12, and the two fused: chirp_full),
 filt_fft (B9, B10), the product
 form of c2r_fft (B8), ax0_gen_fft (B2's composite range), welch_acc_fft
@@ -314,33 +315,39 @@ def test_grad_bigfft_matches_plain(dev, layout):
     assert rel_l2(gk, gp) < TOL
 
 
-def _device_kernels(fn, calls=1):
+def _device_kernels(fn, calls=1, per_call=1):
     """The names of the device kernels ``calls`` calls of fn() run
     (torch.profiler), after one warm-up step of the profiler (a call traced
     and dropped, as chip_smoke.py's breakdown() does: on the card a window
     that starts the trace has been seen to come back without device events,
-    or with some of them missing).  A window with none is taken again (at
-    most three); count launches with the wrappers' counters, not from
-    here."""
+    or with some of them missing).  A window with fewer than ``per_call``
+    device events a call is taken again, as chip_smoke.py's alone() does
+    (at most five, every other one without the schedule: three scheduled
+    windows in a row have come back empty); count launches with the
+    wrappers' counters, not from here."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    names = []
+    for attempt in range(5):
+        plan = schedule(wait=0, warmup=1, active=1, repeat=1) if attempt % 2 == 0 else None
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
+                     schedule=plan) as prof:
+            if plan is not None:
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-            prof.step()
+            if plan is not None:
+                prof.step()
         # the schedule's step marker has a device row of its own
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and not e.name.startswith("ProfilerStep")]
-        if names:
+        if len(names) >= calls * per_call:
             return names
     return names
 
@@ -397,7 +404,8 @@ def _counts():
             "coh": cuda_welch.coh_launches, "c2c": cuda_welch.c2c_launches,
             "spec": cuda_welch.spec_launches, "spec_c2c": cuda_welch.spec_c2c_launches,
             "filt_c64": cuda_fft.filt_c64_launches, "c2c_c64": cuda_welch.c2c_c64_launches,
-            "spec_c2c_c64": cuda_welch.spec_c2c_c64_launches}
+            "spec_c2c_c64": cuda_welch.spec_c2c_c64_launches,
+            "c2r_fft_c64": cuda_fft.c2r_c64_launches}
 
 
 def _through(fn, **want):
@@ -477,6 +485,56 @@ def test_real_kernels_match_plain_and_torch_fft(dev, n, pad):
         yo = torch.fft.irfft(torch.complex(kr[:, :mp], ki[:, :mp]), n=n, norm="forward")
         yo = yo * (1.0 if scale is None else scale)
         assert rel_l2(y, yp) < TOL and rel_l2(y, yo) < TOL, scale
+        # the plain version of the kernel's own passes
+        assert rel_l2(y, cuda_fft._c2r_passes(Xr, Xi, n, scale)) < TOL, scale
+
+
+@pytest.mark.parametrize("n", [1 << e for e in range(7, 15)])
+@pytest.mark.parametrize("pad", [False, True])
+def test_c2r_complex64_source_matches_plain_and_torch_fft(dev, n, pad):
+    # B7 from a complex64 tensor as it lies, 37 rows of n/2 + 1 or
+    # pad_bins(n) bins: imaginary DC and Nyquist parts and garbage pad
+    # columns are not read
+    mp = n // 2 + 1
+    X = crand(dev, 37, cuda_fft.pad_bins(n) if pad else mp, seed=5)
+    X[:, mp:] = 1e6 - 1e6j
+    Xr, Xi = X.real.contiguous(), X.imag.contiguous()
+    Xh = X[:, :mp].clone()
+    Xh.imag[:, 0] = Xh.imag[:, -1] = 0.0
+    for scale in (None, 1.0 / n):
+        y = _through(lambda: cuda_fft.irfft_rows_c64(X, n, scale, padded_in=pad), c2r_fft=1,
+                     c2r_fft_c64=1)
+        assert y.dtype == torch.float32 and y.shape == (37, n)
+        yo = torch.fft.irfft(Xh, n=n, norm="forward") * (1.0 if scale is None else scale)
+        for want in (cuda_fft.irfft_rows_c64_reference(X, n, scale, padded_in=pad),
+                     cuda_fft.irfft_rows_split_reference(Xr, Xi, n, scale, padded_in=pad),
+                     cuda_fft._c2r_passes(Xr, Xi, n, scale), yo):
+            assert rel_l2(y, want) < TOL, scale
+        # the same bits as the planar source's: one staging, one set of passes
+        assert torch.equal(y, cuda_fft._c2r_launch(Xr, Xi, n, scale))
+
+
+@pytest.mark.parametrize("pad", [False, True])
+def test_grad_irfft_rows_c64_matches_plain(dev, pad):
+    # the backward is the R2C kernel's complex64 sink
+    n = 2048
+    bins = cuda_fft.pad_bins(n) if pad else n // 2 + 1
+    X = crand(dev, 8, bins, seed=6)
+    X[:, n // 2 + 1:] = 0
+    w = torch.linspace(0.5, 1.5, 8 * n, device=dev).reshape(8, n)
+
+    def grad(f, v):
+        t = v.clone().requires_grad_()
+        y = f(t)
+        (w.to(y.device) * y * y).sum().backward()
+        return t.grad
+
+    gk = _through(lambda: grad(lambda t: cuda_fft.irfft_rows_c64(t, n, 1.0 / n, padded_in=pad),
+                               X), c2r_fft=1, c2r_fft_c64=1, r2c_fft=1)
+    assert gk.dtype == torch.complex64 and gk.shape == X.shape
+    assert not gk[:, n // 2 + 1:].any()  # pad columns get zero
+    gp = grad(lambda t: cuda_fft.irfft_rows_c64(t, n, 1.0 / n, padded_in=pad), X.cpu())
+    assert rel_l2(gk.cpu(), gp) < TOL
 
 
 @pytest.mark.parametrize("entry", ["axis3", "fused", "r2c", "r2c_pad", "c2r", "c2r_pad"])
@@ -530,6 +588,48 @@ def test_grad_new_kernels_match_plain(dev, entry):
     assert rel_l2(gk, gp) < TOL
 
 
+def test_irfft_complex64_routes(dev):
+    # irfft of a complex64 4096 x 2049 tensor: the C2R kernel's complex64
+    # source on the tensor as it lies, one launch and no other device work
+    # (no split); irfft2 at s = (4096, 4096): ax0_fft's complex64 entry,
+    # then the C2R's; irfftn of 128 x 256 x 129: the axis(-3) view's and
+    # ax0_fft's complex64 entries, then the C2R's; other shapes keep the
+    # planar route (the names over ten calls from the profiler, the
+    # launches from the counters)
+    X = torch.fft.rfft(rrand(dev, 4096, 4096, seed=1))
+    names = _device_kernels(lambda: ft.irfft(X), calls=10)
+    assert names and all("c2r_fft_kernel" in k for k in names), names
+    y = _through(lambda: ft.irfft(X), c2r_fft=1, c2r_fft_c64=1)
+    assert y.dtype == torch.float32 and rel_l2(y, torch.fft.irfft(X.to(torch.complex128))) < TOL
+    names = _device_kernels(lambda: ft.irfft2(X, s=(4096, 4096)), calls=10, per_call=2)
+    assert {next((k for k in ("ax0_fft_kernel", "c2r_fft_kernel") if k in name), name)
+            for name in names} == {"ax0_fft_kernel", "c2r_fft_kernel"}, names
+    before = _c64_counts()
+    y = _through(lambda: ft.irfft2(X, s=(4096, 4096), norm="ortho"), ax0_fft=1, c2r_fft=1,
+                 c2r_fft_c64=1)
+    assert tuple(a - b for a, b in zip(_c64_counts(), before)) == (0, 1, 0, 0)
+    assert rel_l2(y, torch.fft.irfft2(X.to(torch.complex128), s=(4096, 4096),
+                                      norm="ortho")) < TOL
+    Z = crand(dev, 128, 256, 129, seed=2)
+    before = _c64_counts()
+    y = _through(lambda: ft.irfftn(Z, norm="forward"), ax3=1, ax0_fft=1, c2r_fft=1,
+                 c2r_fft_c64=1)
+    assert tuple(a - b for a, b in zip(_c64_counts(), before)) == (0, 1, 1, 0)
+    assert rel_l2(y, torch.fft.irfftn(Z.to(torch.complex128), norm="forward")) < TOL
+    W = crand(dev, 257, 6, seed=3)  # along axis 0: the moved axis, copied once
+    assert rel_l2(_through(lambda: ft.irfft(W, axis=0), c2r_fft=1, c2r_fft_c64=1),
+                  torch.fft.irfft(W.to(torch.complex128), dim=0)) < TOL
+    # a trim, and a length outside the envelope: the planar route
+    assert rel_l2(_through(lambda: ft.irfft(X[:8], n=2048), c2r_fft=1),
+                  torch.fft.irfft(X[:8].to(torch.complex128), n=2048)) < TOL
+    _through(lambda: ft.irfft(crand(dev, 4, 1001)), gen_fft=1)  # n = 2000: B13 at 1000
+    # fft_convolve's real route: two R2C sinks, then the C2R's complex64 source
+    a, b = rrand(dev, 16, 3000, seed=4), rrand(dev, 16, 1000, seed=5)
+    c = _through(lambda: ft.fft_convolve(a, b), r2c_fft=2, c2r_fft=1, c2r_fft_c64=1)
+    assert rel_l2(c, torch.fft.irfft(torch.fft.rfft(a.double(), n=4096)
+                                     * torch.fft.rfft(b.double(), n=4096), n=4096)[:, :3999]) < TOL
+
+
 def test_config4_routes(dev):
     # BASELINE config 4: 2-D 4096 x 4096 and R2C/C2R on the card
     x = crand(dev, 4096, 4096)
@@ -539,7 +639,8 @@ def test_config4_routes(dev):
     r = rrand(dev, 4096, 4096)
     R = _through(lambda: ft.rfft2(r), r2c_fft=1, ax0_fft=1)
     assert R.shape == (4096, 2049) and rel_l2(R, torch.fft.rfft2(r)) < TOL
-    back = _through(lambda: ft.irfft2(R, s=(4096, 4096)), ax0_fft=1, c2r_fft=1)
+    back = _through(lambda: ft.irfft2(R, s=(4096, 4096)), ax0_fft=1, c2r_fft=1,
+                    c2r_fft_c64=1)
     assert rel_l2(back, r) < TOL
 
 
@@ -830,6 +931,9 @@ def test_bank_kernel_matches_plain_and_torch_fft(dev, n, S):
         o = torch.fft.fft(x * h) if sign < 0 else torch.fft.ifft(x * h, norm="forward")
         o = o * (1.0 if scale is None else scale)
         assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, (sign, scale)
+        # the plain version of its own passes (the filtered rows' kernel)
+        q = cuda_fft._bank_passes(re, im, h.real, h.imag, sign, scale)
+        assert rel_l2(k, q) < TOL, (sign, scale)
 
 
 @pytest.mark.parametrize("n", [1 << e for e in range(7, 15)])
@@ -997,6 +1101,7 @@ def _every_kernel(dev):
         "fft2f_fft": lambda: cuda_fft._fft2f_launch(*planar(2, 128, 128), -1, None),
         "r2c_fft": lambda: cuda_fft._r2c_launch(r, None, False),
         "c2r_fft": lambda: cuda_fft._c2r_launch(Rr, Ri, 1024, None),
+        "c2r_fft c64": lambda: cuda_fft._c2r_launch_c64(torch.complex(Rr, Ri), 1024, None),
         "c2r_prod": lambda: cuda_fft._c2r_prod_launch(Rr, Ri, Rr, Ri, 1024, None),
         "gen_fft": lambda: cuda_fft._gen_launch(g, g, -1, None),
         "r2c_gen_fft": lambda: cuda_fft._r2c_gen_launch(g, None, False),
@@ -1545,7 +1650,7 @@ def test_complex64_nd_and_rfft_routes(dev):
     # (the launch counts from the counters, the kernels' names over ten calls
     # from the profiler, whose windows on the card drop device events)
     x = crand(dev, 4096, 4096)
-    names = _device_kernels(lambda: ft.fft2(x), calls=10)
+    names = _device_kernels(lambda: ft.fft2(x), calls=10, per_call=2)
     assert {next((k for k in ("ax0_fft_kernel", "rows_fft_kernel") if k in name), name)
             for name in names} == {"ax0_fft_kernel", "rows_fft_kernel"}, names
     before = _c64_counts()
@@ -1667,7 +1772,7 @@ def test_fftn_256_cubed_and_stft_are_their_kernels_alone(dev):
     # 2^20 samples: B20's complex64 sink once, the center pad read in place,
     # no merge (over ten calls, from the profiler)
     x = crand(dev, 256, 256, 256)
-    names = _device_kernels(lambda: ft.fftn(x), calls=10)
+    names = _device_kernels(lambda: ft.fftn(x), calls=10, per_call=2)
     assert {next((k for k in ("fft2f_fft_kernel", "ax0_fft_kernel") if k in name), name)
             for name in names} == {"fft2f_fft_kernel", "ax0_fft_kernel"}, names
     before = _fused_c64_counts()
@@ -1827,7 +1932,7 @@ def test_filter_hilbert_and_complex_spectrogram_are_their_kernels_alone(dev):
              {"r2c_fft": 1, "filt": 1, "filt_c64": 1}),
             ("spectrogram", lambda: ft.spectrogram(xc, mode="complex", **seg)[2],
              {"spec_c2c_kernel", "Memcpy DtoD"}, {"spec_c2c": 1, "spec_c2c_c64": 1})):
-        names = _device_kernels(fn, calls=10)
+        names = _device_kernels(fn, calls=10, per_call=len(kernels))
         parts = {next((k for k in kernels if k in name), name) for name in names}
         assert parts == kernels, (what, names)
         _through(lambda: [fn() for _ in range(10)], **{k: 10 * v for k, v in want.items()})
@@ -1845,9 +1950,10 @@ def test_filter_hilbert_and_complex_spectrogram_are_their_kernels_alone(dev):
 
 
 def test_bank_and_rows_keep_their_bits(dev):
-    # B10 (bank, on stockham.cuh) and B1 (rows_fft) compute the bits of the
-    # kernels they were before B9 left their library and their row types
-    # moved into mixed_fft.cuh (chip_smoke.KEPT_BITS, recorded from them)
+    # B1 (rows_fft) computes the bits of the kernel it was before its row
+    # types moved into mixed_fft.cuh (chip_smoke.KEPT_BITS, recorded from
+    # it); B10's were taken out when the bank became the filtered rows'
+    # kernel
     import pathlib
     import sys
 

@@ -3,7 +3,8 @@ composite axis(-2) FFT (B2's composite range, ``fft_axis0_split``, and
 B3's through it), the filtered FFT (B9, ``fft_filtered_split`` and its
 complex64 entry ``fft_filtered_c64``, with the plain version of its
 kernel's passes, ``_filt_passes``), the
-filter-bank FFT (B10, ``fft_bank_split``) and the product C2R (B8,
+filter-bank FFT (B10, ``fft_bank_split``, with the plain version of its
+passes on that kernel, ``_bank_passes``) and the product C2R (B8,
 ``irfft_prod_rows_split``, with ``rfft.irfft_prod_last_split`` around it).
 
 On a CPU tensor each entry point runs its kernel's plain version.  The
@@ -149,6 +150,26 @@ def test_bank_matches_jax_kernel(n, S, rng, assert_close):
         assert_close(cplx(got), want, what=f"sign={sign} scale={scale}")
         ref = cuda_fft.fft_bank_split_reference(_t(re), _t(im), _t(hr), _t(hi), sign, scale)
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert_no_launches()
+
+
+@pytest.mark.parametrize("n,S", [(256, 4), (1024, 1), (4096, 3)])
+def test_bank_passes_match_jax(n, S, rng, assert_close):
+    # the plain version of the bank's own passes (the filtered rows' kernel
+    # with x shared and h moving: the product, the compiled plan's passes on
+    # their pass roots) against the JAX kernel in interpret mode (n <= 1024)
+    # and float64 numpy
+    re, im = planes(rng, n)
+    hr, hi = planes(rng, S, n)
+    for sign, scale in ((-1, None), (1, 1.0 / n)):
+        got = cuda_fft._bank_passes(*(_t(v) for v in (re, im, hr, hi)), sign, scale)
+        assert got.shape == (S, n) and got.dtype == torch.complex64
+        if n <= 1024:
+            want = cplx(j_pf.fft_bank_split(re, im, hr, hi, sign, scale, interpret=True))
+            assert_close(got.numpy(), want, what=f"sign={sign} vs JAX")
+        x = cplx((re, im)) * cplx((hr, hi))
+        want = np.fft.fft(x) if sign < 0 else np.fft.ifft(x) * n
+        assert_close(got.numpy(), want * (1.0 if scale is None else scale), what="vs numpy")
     assert_no_launches()
 
 

@@ -1,6 +1,7 @@
 """Torch port, the real-transform slice (ops/rfft.py and the kernel entry
-points rfft_rows_split and irfft_rows_split of ops/cuda_fft.py) against the
-JAX package on the CPU.
+points rfft_rows_split, irfft_rows_split and irfft_rows_c64 of
+ops/cuda_fft.py, with the plain version of the C2R kernel's own passes,
+``_c2r_passes``) against the JAX package on the CPU.
 
 On a CPU tensor the entry points run their plain versions; they are held
 against the JAX package's Pallas R2C and C2R kernels run in interpret mode,
@@ -20,7 +21,7 @@ import torch
 import fft_wgpu_tpu as ftt
 import fft_wgpu_tpu_torch as ft
 from fft_wgpu_tpu.ops import pallas_fft as j_pf
-from fft_wgpu_tpu_torch.ops import cuda_fft
+from fft_wgpu_tpu_torch.ops import cuda_fft, rfft
 
 torch.set_num_threads(1)
 
@@ -46,7 +47,8 @@ def spectrum(rng, *shape):
 def assert_no_launches():
     # CPU tensors never reach a kernel
     assert (cuda_fft.launches, cuda_fft.r2c_launches, cuda_fft.c2r_launches,
-            cuda_fft.ax0_launches) == (0, 0, 0, 0)
+            cuda_fft.c2r_c64_launches, cuda_fft.ax0_launches, cuda_fft.ax3_launches) == (
+                0, 0, 0, 0, 0, 0)
 
 
 # ---------------------------------------------------------------------- #
@@ -91,6 +93,104 @@ def test_c2r_matches_jax_kernel(n, rows, padded_in, rng, assert_close):
         full = np.fft.irfft(X[:, :m + 1], n=n, norm="forward")
         assert_close(_np(got), full * (1.0 if scale is None else scale))
     assert_no_launches()
+
+
+def _half_spectrum(rng, rows, n, padded_in):
+    """rows of a half spectrum as the C2R takes them: nonzero imaginary DC
+    and Nyquist parts, which it ignores, and with padded_in garbage in the
+    pad columns, which it never reads."""
+    m = n // 2
+    X = spectrum(rng, rows, cuda_fft.pad_bins(n) if padded_in else m + 1)
+    X[:, 0] += 3j
+    X[:, m] -= 2j
+    if padded_in:
+        X[:, m + 1:] = 1e6 * (1 + 1j)
+    return X
+
+
+@pytest.mark.parametrize("padded_in", [False, True])
+@pytest.mark.parametrize("n,rows", [(256, 5), (1024, 3)])
+def test_c2r_c64_matches_jax_kernel(n, rows, padded_in, rng, assert_close):
+    # the complex64 source: the tensor as it lies, against the JAX kernel on
+    # its planes; the plain version of the entry is the CPU route
+    X = _half_spectrum(rng, rows, n, padded_in)
+    Xr, Xi = np.ascontiguousarray(X.real), np.ascontiguousarray(X.imag)
+    for scale in (None, 1.0 / n):
+        want = j_pf.irfft_rows_split(jnp.asarray(Xr), jnp.asarray(Xi), n, scale,
+                                     padded_in=padded_in, interpret=True)
+        got = cuda_fft.irfft_rows_c64(torch.from_numpy(X), n, scale, padded_in=padded_in)
+        assert got.shape == (rows, n) and got.dtype == torch.float32
+        assert_close(_np(got), np.asarray(want), what=f"scale={scale}")
+        ref = cuda_fft.irfft_rows_c64_reference(torch.from_numpy(X), n, scale,
+                                                padded_in=padded_in)
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert_no_launches()
+
+
+# (n, rows, padded) of the plain version of the C2R kernel's own passes:
+# each radix layout of the compiled plan at m = 64 .. 8192 (the JAX kernel
+# in interpret mode at 256 .. 1024, where it takes a second or two a call;
+# float64 numpy at every n)
+C2R_PASSES = [(128, 3, False), (256, 5, True), (512, 3, False), (1024, 3, True),
+              (4096, 1, False), (16384, 1, True)]
+
+
+@pytest.mark.parametrize("n,rows,padded", C2R_PASSES)
+def test_c2r_passes_match_jax(n, rows, padded, rng, assert_close):
+    # Z packed from the staged X[k] and X[m-k], the compiled plan's passes
+    # on their pass roots, z interleaved: the kernel's arithmetic for both
+    # of its sources
+    X = _half_spectrum(rng, rows, n, padded)
+    Xr, Xi = np.ascontiguousarray(X.real), np.ascontiguousarray(X.imag)
+    got = cuda_fft._c2r_passes(torch.from_numpy(Xr), torch.from_numpy(Xi), n, 1.0 / n)
+    assert got.shape == (rows, n) and got.dtype == torch.float32
+    if 256 <= n <= 1024:
+        want = j_pf.irfft_rows_split(jnp.asarray(Xr), jnp.asarray(Xi), n, 1.0 / n,
+                                     padded_in=padded, interpret=True)
+        assert_close(_np(got), np.asarray(want), what="vs JAX")
+    assert_close(_np(got), np.fft.irfft(X[:, :n // 2 + 1], n=n), what="vs numpy")
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_c2r_c64_grad_matches_jax(padded, rng, assert_close):
+    # torch's gradient of a complex input is d/dre + i d/dim; the JAX
+    # kernel's custom rule gives the two planes'
+    n = 512
+    X = _half_spectrum(rng, 3, n, padded)
+    if padded:
+        X[:, n // 2 + 1:] = 0
+    w = rng.standard_normal((3, n)).astype(np.float32)
+
+    def jloss(a, b):
+        y = j_pf.irfft_rows_split(a, b, n, 1.0 / n, padded_in=padded, interpret=True)
+        return jnp.sum(y * w)
+
+    jg = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(X.real.copy()), jnp.asarray(X.imag.copy()))
+    t = torch.from_numpy(X).requires_grad_()
+    (cuda_fft.irfft_rows_c64(t, n, 1.0 / n, padded_in=padded) * torch.from_numpy(w)
+     ).sum().backward()
+    assert t.grad.dtype == torch.complex64 and t.grad.shape == X.shape
+    assert_close(t.grad.real.numpy(), np.asarray(jg[0]), what="d/dre")
+    assert_close(t.grad.imag.numpy(), np.asarray(jg[1]), what="d/dim")
+    assert not t.grad[:, n // 2 + 1:].any()  # pad columns get zero
+    assert_no_launches()
+
+
+def test_c2r_c64_arguments_raise():
+    z = torch.zeros(2, 129, dtype=torch.complex64)  # n = 256: 129 bins, or 256 padded
+    for fn in (cuda_fft.irfft_rows_c64, cuda_fft.irfft_rows_c64_reference):
+        with pytest.raises(ValueError, match="bins"):
+            fn(z, 512)
+        with pytest.raises(ValueError, match="bins"):
+            fn(z, 256, padded_in=True)
+        with pytest.raises(ValueError, match="complex64"):
+            fn(z.to(torch.complex128), 256)
+        with pytest.raises(ValueError, match="complex64"):
+            fn(torch.zeros(2, 129), 256)
+        with pytest.raises(cuda_fft.Unsupported):
+            fn(torch.zeros(2, 16385, dtype=torch.complex64), 32768)
+    assert cuda_fft.irfft_rows_c64(torch.zeros(0, 129, dtype=torch.complex64),
+                                   256).shape == (0, 256)
 
 
 def test_c2r_at_128_widens_the_jax_envelope(rng, assert_close):
@@ -357,6 +457,45 @@ def test_grad_through_irfft_matches_jax(rng, assert_close):
     (torch.from_numpy(w) * ft.irfft(torch.complex(ta, tb), n=128)).sum().backward()
     assert_close(ta.grad.numpy(), np.asarray(jg[0]), what="d/dre")
     assert_close(tb.grad.numpy(), np.asarray(jg[1]), what="d/dim")
+
+
+# the complex64 route of irfft / irfft2 / irfftn (rfft._irfftn_c64_run: the
+# leading axes through nd.fftn_c64, then irfft_rows_c64, the whole scale
+# folded into the C2R), run here on CPU tensors through the entries' plain
+# versions, against the JAX package's functions
+@pytest.mark.parametrize("norm", NORMS)
+@pytest.mark.parametrize("shape,s,axes", [
+    ((3, 129), [None], [1]),                       # irfft
+    ((129, 3), [256], [0]),                        # irfft along axis 0
+    ((128, 65), [None, None], [0, 1]),             # irfft2
+    ((128, 256, 65), [None, None, 128], [0, 1, 2]),  # irfftn, axis -3 first
+    ((129, 3, 256), [None, None], [2, 0]),         # irfftn over (2, 0): real axis 0
+])
+def test_irfft_c64_route_matches_jax(shape, s, axes, norm, rng, assert_close):
+    X = spectrum(rng, *shape)
+    got = rfft._irfftn_c64_run(torch.from_numpy(X), s, axes, norm)
+    want = ftt.irfftn(X, s=s, axes=axes, norm=norm)
+    assert got.dtype == torch.float32 and tuple(got.shape) == np.shape(want)
+    assert_close(_np(got), _np(want), what=f"{shape} s={s} axes={axes}")
+    assert_close(_np(ft.irfftn(torch.from_numpy(X), s=s, axes=axes, norm=norm)), _np(want),
+                 what="the CPU route")
+    assert_no_launches()
+
+
+def test_grad_through_irfft_c64_route_matches_jax(rng, assert_close):
+    X = spectrum(rng, 128, 65)
+    w = rng.standard_normal((128, 128)).astype(np.float32)
+
+    def jloss(a, b):
+        return jnp.sum(w * ftt.irfft2(jax.lax.complex(a, b), norm="ortho"))
+
+    jg = jax.grad(jloss, argnums=(0, 1))(X.real.copy(), X.imag.copy())
+    t = torch.from_numpy(X).requires_grad_()
+    (torch.from_numpy(w) * rfft._irfftn_c64_run(t, [None, None], [0, 1], "ortho")
+     ).sum().backward()
+    assert_close(t.grad.real.numpy(), np.asarray(jg[0]), what="d/dre")
+    assert_close(t.grad.imag.numpy(), np.asarray(jg[1]), what="d/dim")
+    assert_no_launches()
 
 
 def test_routes_on_the_card():
