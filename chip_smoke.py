@@ -7,7 +7,9 @@ path (composite, Bluestein and chirp-z transforms), the fused epilogues
 CWT plan, composite 2-D frames), the spectral estimators (welch,
 periodogram, csd, coherence, spectrogram, multitaper), and the per-segment
 spectra (stft, istft, ShortTimeFFT, the complex spectrogram modes,
-resample).
+resample), and the transform long tail (scipy.fft's DCT/DST and fht, the
+Chebyshev, MDCT, spectral-calculus, Fourier-filter, structured-solver,
+cepstrum, envelope, channelizer and Wigner-Ville calls).
 
     python3 chip_smoke.py
 
@@ -107,8 +109,9 @@ non-zero without a result line:
              both its designs), and scipy.signal's welch, coherence and
              csd and the two-sided welch in float64), and at path 6's and
              path 7's shapes, each run twice for the same bits;
-3. main    — six paths, the launch counts set to 0 just before each and
-             read just after: plan / fft / ifft / Forward at the 1-D sizes
+3. main    — seven paths (1-3, 5-8), the launch counts set to 0 just
+             before each and read just after (path 8 reads them around
+             each call): plan / fft / ifft / Forward at the 1-D sizes
              users call (row kernel; axis(-2) then transposed rows; whole
              row; a complex64 tensor along its last axis through the
              complex64 entries of the row and whole-row kernels, counted
@@ -157,7 +160,27 @@ non-zero without a result line:
              2048 and its istft, resample of 256 x 8192 to 16384 and
              6144, against scipy.signal; each call's launches are
              checked; small inputs against float64 numpy after each
-             window, and numpy input, which must run on the card;
+             window, and numpy input, which must run on the card; then
+             the transform long tail (path 8, :func:`long_tail`): dct,
+             idct, dst and idst of types 1-4 on real 4096 x 4096 (types 1
+             at n = 2049 and DST-I at 2047), dctn and idctn type 2 of
+             4096 x 4096, mdct and imdct of 2^22 samples at N = 1024,
+             cheb_coeffs and cheb_derivative of 1024 x 4097, fht of
+             1024 x 4096, spectral_derivative of 4096 x 4096 along each
+             axis, spectral_laplacian of 256^3, fourier_gaussian and
+             fourier_shift between fft2 and ifft2 of 4096 x 4096,
+             circulant_solve of 1024 x 4096, toeplitz_solve at n = 4096
+             with 64 right-hand sides, bccb_solve of a 4096 x 4096 blur,
+             grf_sample of 2^20 + 1 lags (its covariance; its synthesis
+             of one noise draw against numpy), real_cepstrum of
+             1024 x 4096, minimum_phase of a 255-tap filter, envelope of
+             64 x 2^20, channelize of 2^22 samples into 1024 channels and
+             wigner_ville of 4096 samples, each against float64 scipy or
+             numpy, with three exact launch counts (dct type 2: rows_fft
+             1; dctn: ax0_fft 1 + rows_fft 1; spectral_derivative along
+             the last axis: r2c_fft and c2r_fft 1 each, through their
+             complex64 ends), each call's launches listed, and its CUDA
+             events, device ms and idle share from the profiler;
 4. grad    — gradients against the plain versions' (CPU for the N-D,
              real and non-pow2 ones): fft (row kernel; the four-step at
              2 x 2^20; the whole row at 4 x 2^16; the row and whole-row
@@ -171,7 +194,8 @@ non-zero without a result line:
              fft2 at 1080 x 1920; welch, csd (both inputs), spectrogram
              and the two-sided welch of a complex signal at 2^16 samples;
              stft, ShortTimeFFT.stft with a phase shift and the complex
-             two-sided spectrogram at 2^16;
+             two-sided spectrogram at 2^16; dct type 2 and
+             spectral_derivative at 64 x 4096;
 5. times   — CUDA-event medians of each kernel (rows_fft, big_fft, filt
              and spec_c2c in both layouts), its plain version, torch.fft and
              plan.forward at the main shapes, beside a plane copy of the
@@ -443,6 +467,397 @@ def time_in_turns(fns: dict, reps: int = 30) -> dict:
         for k in order:
             samples[k].append(time_ms(fns[k], reps))
     return {k: statistics.median(v) for k, v in samples.items()}
+
+
+def counts() -> dict:
+    """The launch counters of every port kernel, by kernel name."""
+    from fft_wgpu_tpu_torch.ops import bigfft, cuda_fft, cuda_welch
+
+    return {"rows_fft": cuda_fft.launches, "ax0_fft": cuda_fft.ax0_launches,
+            "ax3_fft": cuda_fft.ax3_launches, "rows_t_fft": cuda_fft.rows_t_launches,
+            "fft2f_fft": cuda_fft.fft2f_launches, "r2c_fft": cuda_fft.r2c_launches,
+            "c2r_fft": cuda_fft.c2r_launches, "big_fft": bigfft.launches,
+            "gen_fft": cuda_fft.gen_launches, "r2c_gen_fft": cuda_fft.r2c_gen_launches,
+            "c2r_fft_c64": cuda_fft.c2r_c64_launches,
+            "chirp_fwd": cuda_fft.chirp_fwd_launches,
+            "chirp_inv": cuda_fft.chirp_inv_launches,
+            "chirp_full": cuda_fft.chirp_full_launches, "filt": cuda_fft.filt_launches,
+            "bank": cuda_fft.bank_launches, "c2r_prod": cuda_fft.c2r_prod_launches,
+            "ax0_gen": cuda_fft.ax0_gen_launches, "welch": cuda_welch.welch_launches,
+            "psd": cuda_welch.psd_launches, "csd": cuda_welch.csd_launches,
+            "coh": cuda_welch.coh_launches, "c2c": cuda_welch.c2c_launches,
+            "spec": cuda_welch.spec_launches, "spec_c2c": cuda_welch.spec_c2c_launches,
+            "rows_fft_c64": cuda_fft.c64_launches, "big_fft_c64": bigfft.c64_launches,
+            "ax0_fft_c64": cuda_fft.ax0_c64_launches,
+            "ax3_fft_c64": cuda_fft.ax3_c64_launches,
+            "fft2f_fft_c64": cuda_fft.fft2f_c64_launches,
+            "r2c_fft_c64": cuda_fft.r2c_c64_launches, "spec_c64": cuda_welch.spec_c64_launches,
+            "filt_c64": cuda_fft.filt_c64_launches,
+            "c2c_c64": cuda_welch.c2c_c64_launches,
+            "spec_c2c_c64": cuda_welch.spec_c2c_c64_launches}
+
+
+def reset_counts() -> None:
+    from fft_wgpu_tpu_torch.ops import bigfft, cuda_fft, cuda_welch
+
+    cuda_fft.c64_launches = bigfft.c64_launches = 0
+    cuda_fft.ax0_c64_launches = cuda_fft.ax3_c64_launches = cuda_fft.r2c_c64_launches = 0
+    cuda_fft.c2r_c64_launches = 0
+    cuda_fft.fft2f_c64_launches = cuda_welch.spec_c64_launches = 0
+    cuda_fft.filt_c64_launches = cuda_welch.spec_c2c_c64_launches = 0
+    cuda_welch.c2c_c64_launches = 0
+    cuda_fft.launches = cuda_fft.ax0_launches = cuda_fft.ax3_launches = 0
+    cuda_fft.rows_t_launches = cuda_fft.fft2f_launches = 0
+    cuda_fft.r2c_launches = cuda_fft.c2r_launches = bigfft.launches = 0
+    cuda_fft.gen_launches = cuda_fft.r2c_gen_launches = 0
+    cuda_fft.chirp_fwd_launches = cuda_fft.chirp_inv_launches = 0
+    cuda_fft.chirp_full_launches = 0
+    cuda_fft.filt_launches = cuda_fft.bank_launches = 0
+    cuda_fft.c2r_prod_launches = cuda_fft.ax0_gen_launches = 0
+    cuda_welch.welch_launches = cuda_welch.psd_launches = 0
+    cuda_welch.csd_launches = cuda_welch.coh_launches = cuda_welch.c2c_launches = 0
+    cuda_welch.spec_launches = cuda_welch.spec_c2c_launches = 0
+
+
+def through(what, fn, **want):
+    """Run fn(); the launch counts must rise by exactly ``want``
+    (kernel name -> launches), and no other kernel may launch."""
+    import torch
+
+    before = counts()
+    out = fn()
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in counts().items()}
+    expect = {k: want.get(k, 0) for k in delta}
+    check(delta == expect, f"{what}: launches {delta}, expected {expect}")
+    return out
+
+
+def breakdown(fn, names, reps=20, counted=None, scheduled=True):
+    """Device ms per call of each kernel in ``names`` and of the rest
+    (the facade's split and merge, pads), and the device launches per
+    call of each part, from a torch.profiler window of ``reps`` calls
+    after one warm-up step of the profiler (a call traced and dropped:
+    a window that starts the trace has been seen to miss the first
+    launch; with ``scheduled`` false, a plain window with no warm-up
+    step); idle is 1 - device
+    busy / the CUDA-event median of a call.  ``counted``, where given,
+    gets the wrappers' launch counts over the window's calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    event_ms = time_ms(fn, reps)
+    for _ in range(3):  # a window now and then comes back with no device events
+        plan = schedule(wait=0, warmup=1, active=1, repeat=1) if scheduled else None
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=plan) as prof:
+            if plan is not None:
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+            before = counts()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            after = counts()
+            if plan is not None:
+                prof.step()
+        if counted is not None:
+            counted.clear()
+            counted.update({k: v - before[k] for k, v in after.items() if v != before[k]})
+        parts = dict.fromkeys(names + ("other",), 0.0)
+        n_launch = dict.fromkeys(names + ("other",), 0)
+        for e in prof.events():
+            # the schedule's step marker has a device row of its own
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or e.name.startswith("ProfilerStep")):
+                continue
+            part = kernel_part(e.name, names)
+            parts[part] += e.time_range.elapsed_us() / 1e3 / reps
+            n_launch[part] += 1
+        busy = sum(parts.values())
+        if busy > 0:
+            break
+    check(busy > 0, "the profiler saw no device time in three windows")
+    return {"events": event_ms, **parts, "idle": 1.0 - busy / event_ms,
+            **{f"{k} launches": v / reps for k, v in n_launch.items()}}
+
+
+# The kernels a call of the transform long tail (path 8) may launch, as the
+# profiler names them (``<name>_kernel``); the rest of its device work (the
+# gathers, products, pads and copies around them) is "other".
+LONG_TAIL_KERNELS = ("rows_fft", "ax0_fft", "rows_t_fft", "fft2f_fft", "r2c_fft", "c2r_fft",
+                     "big_fft", "gen_fft", "r2c_gen_fft", "ax0_gen_fft", "chirp_full")
+FHT_TOL = 2e-4  # tests/test_fftlog.py's bar against scipy.fft.fht
+TOEPLITZ_TOL = 1e-4  # tests/test_structured.py's bar against solve_toeplitz
+MINIMUM_PHASE_TOL = 5e-4  # tests/test_cepstrum.py's bar against scipy (homomorphic)
+
+
+def long_tail(ft, dev, gen, smi) -> dict:
+    """Path 8: the scipy.fft long tail and the transform-domain solvers at
+    their users' sizes, each call once with the launch counts read around
+    it and its output held against a float64 oracle on the host (scipy or
+    numpy), then timed: CUDA events over 10 calls, and the device ms of its
+    kernels and of the rest, and the device's idle share, from a
+    torch.profiler window of 10 calls.  Three launch counts are exact: dct
+    type 2 of real 4096 x 4096 is one row-kernel launch and nothing else,
+    dctn type 2 of 4096 x 4096 one axis(-2) and one row launch, and
+    spectral_derivative of 4096 x 4096 along the last axis one R2C launch
+    into its complex64 sink and one C2R launch from its complex64 source;
+    every other call must launch some port kernel, and its launches are
+    listed.  Returns each call's record."""
+    import scipy.fft as sfft
+    import scipy.linalg as sla
+    import scipy.ndimage as ndi
+    import scipy.signal as ss
+    import torch
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    from fft_wgpu_tpu_torch.ops import structured
+
+    t0 = time.perf_counter()
+    workers = os.cpu_count() or 1
+    calls = {}
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def crandn(*shape):
+        return torch.complex(randn(*shape), randn(*shape))
+
+    def host(t):
+        """A tensor's float64 (complex128) copy on the host."""
+        t = t.detach().cpu()
+        return t.numpy().astype(np.complex128 if t.is_complex() else np.float64)
+
+    def hold(what, got, want, tol=TOL):
+        got = got.detach().cpu() if isinstance(got, torch.Tensor) else torch.from_numpy(got)
+        want = torch.from_numpy(np.ascontiguousarray(want))
+        check(tuple(got.shape) == tuple(want.shape),
+              f"path 8 {what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+        check(bool(got.isfinite().all()), f"path 8 {what}: non-finite output")
+        err = rel_l2(got, want)
+        check(err <= tol, f"path 8 {what}: rel-L2 {err:.3e} > {tol:.0e} against float64")
+        return err
+
+    def run(name, fn, want, tol=TOL, exact=None, measure="rel-L2"):
+        """fn() once, its launches read around it (exactly ``exact`` where
+        given, some port kernel in any case) and its output held against
+        ``want``: a float64 array, or a function of the output returning
+        (part of the output, its float64 oracle), or one returning the
+        error (``measure``) of a check it made itself."""
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        check(bool(delta), f"path 8 {name}: launched no port kernel")
+        if exact is not None:
+            check(delta == exact, f"path 8 {name}: launches {delta}, expected {exact}")
+        if callable(want):
+            judged = want(out)
+            err = judged if isinstance(judged, float) else hold(name, *judged, tol)
+        else:
+            err = hold(name, out, want, tol)
+        calls[name] = {"fn": fn, "launches": delta, "err": err, "measure": measure}
+        return out
+
+    # scipy.fft's DCT/DST, types 1-4, along the last axis of real 4096 x 4096
+    # (types 1 at n = 2049 and DST-I at 2047: extensions of 4096 points)
+    x = randn(4096, 4096)
+    x64 = host(x)
+    x2049, x2047 = randn(4096, 2049), randn(4096, 2047)
+    for t in (1, 2, 3, 4):
+        for name in ("dct", "idct", "dst", "idst"):
+            v = x if t != 1 else x2049 if name in ("dct", "idct") else x2047
+            run(f"{name} type {t} {tuple(v.shape)}",
+                lambda fn=getattr(ft, name), v=v, t=t: fn(v, type=t),
+                getattr(sfft, name)(host(v), type=t, workers=workers),
+                exact={"rows_fft": 1} if (name, t) == ("dct", 2) else None)
+    # the 2-D DCT-II of an image and its inverse (a Neumann Poisson solve's pair)
+    run("dctn type 2 4096x4096", lambda: ft.dctn(x, type=2),
+        sfft.dctn(x64, type=2, workers=workers), exact={"ax0_fft": 1, "rows_fft": 1})
+    run("idctn type 2 4096x4096", lambda: ft.idctn(x, type=2),
+        sfft.idctn(x64, type=2, workers=workers))
+
+    # the MDCT of 2^22 samples at N = 1024 (an AAC long block), sine window,
+    # against the direct cosine sum; the IMDCT of its coefficients against
+    # the direct synthesis, windowed, doubled and overlap-added
+    N = 1024
+    s = randn(1 << 22)
+    s64 = host(s)
+    tt, kk = np.arange(2 * N), np.arange(N)
+    M = np.cos(np.pi / N * (tt[None, :] + 0.5 + N / 2) * (kk[:, None] + 0.5))
+    win = np.sin(np.pi * (tt + 0.5) / (2 * N))
+    C = run("mdct 2^22 N 1024", lambda: ft.mdct(s, N),
+            (sliding_window_view(s64, 2 * N)[::N] * win) @ M.T)
+
+    def imdct_ref(c):
+        fr = (host(c) @ M) * (2.0 / N) * win
+        F = fr.shape[0]
+        y = np.zeros((F + 1) * N)
+        y[:F * N] += fr[:, :N].ravel()
+        y[N:] += fr[:, N:].ravel()
+        return y
+
+    y = run("imdct 2^22 N 1024", lambda: ft.imdct(C), imdct_ref(C))
+    hold("imdct(mdct) 2^22 interior (TDAC)", y[N:-N], s64[N:-N])
+    del y, s64, M
+
+    # Chebyshev coefficients and derivatives of 1024 fields of 4097 random
+    # values at the points (DCT-I, the recurrence, DCT-I synthesis)
+    U = randn(1024, 4097)
+    A64 = sfft.dct(host(U), type=1, workers=workers) / 4096
+    A64[:, 0] *= 0.5
+    A64[:, -1] *= 0.5
+    run("cheb_coeffs 1024x4097", lambda: ft.cheb_coeffs(U), A64)
+    b = np.zeros((4098, 1024))
+    At = A64.T.copy()
+    for k in range(4095, -1, -1):  # b_k = b_{k+2} + 2 (k+1) a_{k+1}
+        b[k] = b[k + 2] + 2 * (k + 1) * At[k + 1]
+    b = b[:4097].T.copy()  # b_0 halved, then doubled again for the synthesis
+    b[:, -1] *= 2
+    run("cheb_derivative 1024x4097", lambda: ft.cheb_derivative(U),
+        sfft.dct(b, type=1, workers=workers) * 0.5)
+    del A64, b, At
+
+    # the fast Hankel transform of 1024 log-spaced signals of 4096 points
+    n, dln, mu = 4096, 0.005, 0.5
+    r = np.exp((np.arange(n) - (n - 1) / 2) * dln)
+    a = torch.from_numpy(((r**2 * np.exp(-(r**2) / 2)) * (1 + 0.1 * host(randn(1024, n))))
+                         .astype(np.float32)).to(dev)
+    offset = float(sfft.fhtoffset(dln, mu))
+    run("fht 1024x4096", lambda: ft.fht(a, dln, mu, offset=offset),
+        sfft.fht(host(a), dln, mu, offset=offset), tol=FHT_TOL)
+
+    # spectral derivatives of a 4096 x 4096 periodic field along each axis,
+    # and the Laplacian of a 256^3 one
+    k = np.arange(2049)
+    for axis, shape in ((-1, (1, -1)), (0, (-1, 1))):
+        run(f"spectral_derivative 4096x4096 axis {axis}",
+            lambda axis=axis: ft.spectral_derivative(x, axis=axis),
+            sfft.irfft(sfft.rfft(x64, axis=axis, workers=workers) * (1j * k).reshape(shape),
+                       n=4096, axis=axis, workers=workers),
+            exact={"r2c_fft": 1, "r2c_fft_c64": 1, "c2r_fft": 1, "c2r_fft_c64": 1}
+            if axis == -1 else None)
+    g = randn(256, 256, 256)
+    kf = np.fft.fftfreq(256) * 256
+    ksq = kf[:, None, None] ** 2 + kf[None, :, None] ** 2 + np.arange(129)[None, None, :] ** 2
+    run("spectral_laplacian 256^3", lambda: ft.spectral_laplacian(g),
+        sfft.irfftn(sfft.rfftn(host(g), workers=workers) * -ksq, s=(256,) * 3,
+                    workers=workers))
+    del ksq
+
+    # scipy.ndimage's Fourier filters between fft2 and ifft2 of an image
+    X64 = sfft.fft2(x64, workers=workers)
+    for name, p in (("fourier_gaussian", 2.0), ("fourier_shift", (1.5, -2.25))):
+        run(f"{name} 4096x4096 (fft2, filter, ifft2)",
+            lambda name=name, p=p: ft.ifft2(getattr(ft, name)(ft.fft2(x), p)),
+            sfft.ifft2(getattr(ndi, name)(X64, p), workers=workers))
+    del X64
+
+    # circulant and Toeplitz solves, a BCCB deblur and a Gaussian random field
+    c = torch.from_numpy((0.5 ** np.arange(4096)).astype(np.float32)).to(dev) * (
+        1 + 0.1 * randn(4096))
+    B = randn(1024, 4096)
+    run("circulant_solve 1024x4096", lambda: ft.circulant_solve(c, B),
+        sfft.ifft(sfft.fft(host(B), workers=workers) / np.fft.fft(host(c))).real)
+    ct = torch.exp(-torch.arange(4096, device=dev, dtype=torch.float32) / 7.0)
+    bt = randn(64, 4096)
+    # scipy's Levinson solve of all 64 right-hand sides
+    run("toeplitz_solve n 4096 x 64", lambda: ft.toeplitz_solve(ct, bt),
+        sla.solve_toeplitz(host(ct), host(bt).T).T, tol=TOEPLITZ_TOL)
+    m = np.arange(4096)
+    d2 = np.minimum(m, 4096 - m)[:, None] ** 2 + np.minimum(m, 4096 - m)[None, :] ** 2
+    kern = np.exp(-d2 / (2 * 1.5**2))
+    kb = torch.from_numpy((kern / kern.sum()).astype(np.float32)).to(dev)
+    yb = ft.bccb_matvec(kb, x) + 1e-3 * randn(4096, 4096)  # a blurred, noisy image
+    K, Y = sfft.fft2(host(kb), workers=workers), sfft.fft2(host(yb), workers=workers)
+    run("bccb_solve 4096x4096 reg 1e-3", lambda: ft.bccb_solve(kb, yb, reg=1e-3),
+        sfft.ifft2(np.conj(K) * Y / (np.abs(K) ** 2 + 1e-3), workers=workers).real)
+    del K, Y, kern, d2
+    nl = (1 << 20) + 1
+    acf = np.exp(-np.arange(nl) / 50.0)
+    grf_gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def covariance(out):
+        """the empirical covariance of the two fields at lags 0..7 within
+        0.05 of the acf (7 standard errors at 2^21 samples of correlation
+        length 50)"""
+        f = host(out)
+        check(f.shape == (2, nl), f"path 8 grf_sample: shape {f.shape}")
+        emp = np.array([np.mean(f[:, :nl - k] * f[:, k:]) for k in range(8)])
+        err = float(np.abs(emp - acf[:8]).max())
+        check(err < 0.05, f"path 8 grf_sample: covariance {emp} against {acf[:8]}")
+        return err
+
+    run("grf_sample 2^20+1 lags x 2", lambda: ft.grf_sample(acf, grf_gen, 2), covariance,
+        measure="max |covariance - acf| over lags 0-7")
+    sqrt_lam, _ = structured._grf_embedding(acf)
+    er, ei = randn(1, 1 << 21), randn(1, 1 << 21)
+    sl = torch.from_numpy(sqrt_lam.astype(np.float32)).to(dev)
+    F = np.fft.fft((host(er) + 1j * host(ei)) * sl.double().cpu().numpy())
+    hold("grf_sample's synthesis of one noise draw (_grf_from_noise)",
+         structured._grf_from_noise(sl, er, ei, 2, nl),
+         np.concatenate([F.real[:, :nl], F.imag[:, :nl]]))
+    del er, ei, sl, F
+
+    # cepstra: the real cepstrum of 1024 frames of 4096, and the minimum-phase
+    # version of a 255-tap filter at scipy's default n_fft (2^16)
+    xr = randn(1024, 4096)
+    run("real_cepstrum 1024x4096", lambda: ft.real_cepstrum(xr),
+        sfft.irfft(np.log(np.abs(sfft.rfft(host(xr), workers=workers))), n=4096,
+                   workers=workers))
+    h = ss.firwin(255, 0.2).astype(np.float32)
+    h32 = torch.from_numpy(h).to(dev)
+    run("minimum_phase 255 taps n_fft 2^16", lambda: ft.minimum_phase(h32),
+        ss.minimum_phase(h.astype(np.float64)), tol=MINIMUM_PHASE_TOL)
+
+    # the envelope of 64 channels of 2^20 samples (scipy on every eighth), the
+    # WOLA channelizer of 2^22 complex samples into 1024 channels, and the
+    # Wigner-Ville distribution of 4096 complex samples
+    e = randn(64, 1 << 20)
+    run("envelope 64x2^20", lambda: ft.envelope(e),
+        lambda out: (out[:, ::8], ss.envelope(host(e[::8]))))
+    z = crandn(1 << 22)
+    hb = host(ft.prototype_lowpass(1024, device=dev)).reshape(8, 1024)
+    blocks = host(z).reshape(4096, 1024)
+    acc = sum(blocks[j:j + 4089] * hb[j] for j in range(8))
+    run("channelize 2^22 1024 channels", lambda: ft.channelize(z, 1024),
+        np.fft.fft(acc, axis=-1))
+    del blocks, acc
+    w = crandn(4096)
+    w64 = host(w)
+    t_, tau = np.arange(4096)[:, None], np.arange(4096)[None, :]
+    lag = w64[np.clip(t_ + tau, 0, 4095)] * np.conj(w64[np.clip(t_ - tau, 0, 4095)])
+    lag *= tau <= np.minimum(t_, 4095 - t_)
+    run("wigner_ville 4096", lambda: ft.wigner_ville(w)[1],
+        2 * np.fft.fft(lag, axis=-1).real - lag[:, :1].real)
+    del lag, x64
+    checked = time.perf_counter() - t0
+
+    # the inputs stay alive in the calls' closures until they are timed
+    for name, rec in calls.items():
+        fn = rec.pop("fn")
+        # a window can miss launches (§7 of PERF.md): take it again, at most
+        # three times, until it holds the call's kernel launches
+        per_call = sum(v for k, v in rec["launches"].items() if not k.endswith("_c64"))
+        for _ in range(3):
+            prof = breakdown(fn, LONG_TAIL_KERNELS, reps=10)
+            if sum(prof[f"{k} launches"] for k in LONG_TAIL_KERNELS) >= per_call:
+                break
+        rec["ms"] = prof["events"]
+        rec["kernel_ms"] = sum(prof[k] for k in LONG_TAIL_KERNELS)
+        rec["other_ms"] = prof["other"]
+        rec["idle"] = prof["idle"]
+        print(f"long tail: {smi} | {name} | {rec['ms']:.4f} ms (CUDA events, median of 10) | "
+              f"device ms (torch.profiler, 10 calls): kernels {rec['kernel_ms']:.4f}, other "
+              f"{rec['other_ms']:.4f}, idle {rec['idle']:.3f} | launches {rec['launches']} | "
+              f"{rec['measure']} {rec['err']:.3e}", flush=True)
+    total = time.perf_counter() - t0
+    print(f"main: transform long-tail path (path 8), {len(calls)} calls checked against "
+          f"float64 in {checked:.1f} s, timed in {total - checked:.1f} s ({total:.1f} s in all)",
+          flush=True)
+    return calls
 
 
 def main() -> int:
@@ -1240,60 +1655,6 @@ def main() -> int:
     # ---- 3. main path at users' sizes ------------------------------------
     errs = {}
 
-    def counts():
-        return {"rows_fft": cuda_fft.launches, "ax0_fft": cuda_fft.ax0_launches,
-                "ax3_fft": cuda_fft.ax3_launches, "rows_t_fft": cuda_fft.rows_t_launches,
-                "fft2f_fft": cuda_fft.fft2f_launches, "r2c_fft": cuda_fft.r2c_launches,
-                "c2r_fft": cuda_fft.c2r_launches, "big_fft": bigfft.launches,
-                "gen_fft": cuda_fft.gen_launches, "r2c_gen_fft": cuda_fft.r2c_gen_launches,
-                "c2r_fft_c64": cuda_fft.c2r_c64_launches,
-                "chirp_fwd": cuda_fft.chirp_fwd_launches,
-                "chirp_inv": cuda_fft.chirp_inv_launches,
-                "chirp_full": cuda_fft.chirp_full_launches, "filt": cuda_fft.filt_launches,
-                "bank": cuda_fft.bank_launches, "c2r_prod": cuda_fft.c2r_prod_launches,
-                "ax0_gen": cuda_fft.ax0_gen_launches, "welch": cuda_welch.welch_launches,
-                "psd": cuda_welch.psd_launches, "csd": cuda_welch.csd_launches,
-                "coh": cuda_welch.coh_launches, "c2c": cuda_welch.c2c_launches,
-                "spec": cuda_welch.spec_launches, "spec_c2c": cuda_welch.spec_c2c_launches,
-                "rows_fft_c64": cuda_fft.c64_launches, "big_fft_c64": bigfft.c64_launches,
-                "ax0_fft_c64": cuda_fft.ax0_c64_launches,
-                "ax3_fft_c64": cuda_fft.ax3_c64_launches,
-                "fft2f_fft_c64": cuda_fft.fft2f_c64_launches,
-                "r2c_fft_c64": cuda_fft.r2c_c64_launches, "spec_c64": cuda_welch.spec_c64_launches,
-                "filt_c64": cuda_fft.filt_c64_launches,
-                "c2c_c64": cuda_welch.c2c_c64_launches,
-                "spec_c2c_c64": cuda_welch.spec_c2c_c64_launches}
-
-    def reset_counts():
-        cuda_fft.c64_launches = bigfft.c64_launches = 0
-        cuda_fft.ax0_c64_launches = cuda_fft.ax3_c64_launches = cuda_fft.r2c_c64_launches = 0
-        cuda_fft.c2r_c64_launches = 0
-        cuda_fft.fft2f_c64_launches = cuda_welch.spec_c64_launches = 0
-        cuda_fft.filt_c64_launches = cuda_welch.spec_c2c_c64_launches = 0
-        cuda_welch.c2c_c64_launches = 0
-        cuda_fft.launches = cuda_fft.ax0_launches = cuda_fft.ax3_launches = 0
-        cuda_fft.rows_t_launches = cuda_fft.fft2f_launches = 0
-        cuda_fft.r2c_launches = cuda_fft.c2r_launches = bigfft.launches = 0
-        cuda_fft.gen_launches = cuda_fft.r2c_gen_launches = 0
-        cuda_fft.chirp_fwd_launches = cuda_fft.chirp_inv_launches = 0
-        cuda_fft.chirp_full_launches = 0
-        cuda_fft.filt_launches = cuda_fft.bank_launches = 0
-        cuda_fft.c2r_prod_launches = cuda_fft.ax0_gen_launches = 0
-        cuda_welch.welch_launches = cuda_welch.psd_launches = 0
-        cuda_welch.csd_launches = cuda_welch.coh_launches = cuda_welch.c2c_launches = 0
-        cuda_welch.spec_launches = cuda_welch.spec_c2c_launches = 0
-
-    def through(what, fn, **want):
-        """Run fn(); the launch counts must rise by exactly ``want``
-        (kernel name -> launches), and no other kernel may launch."""
-        before = counts()
-        out = fn()
-        torch.cuda.synchronize()
-        delta = {k: v - before[k] for k, v in counts().items()}
-        expect = {k: want.get(k, 0) for k in delta}
-        check(delta == expect, f"{what}: launches {delta}, expected {expect}")
-        return out
-
     two_pass = {"ax0_fft": 1, "rows_t_fft": 1}
     # a complex64 tensor along its last axis: the complex64 entry, no split
     row, whole = {"rows_fft": 1, "rows_fft_c64": 1}, {"big_fft": 1, "big_fft_c64": 1}
@@ -1748,6 +2109,7 @@ def main() -> int:
           f"launches {resample_launches} | "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
     del x20, x8, x, xc, yc, x64, xc64, yc64, x20_64, xr, xr64, Zn
+    long_tail(ft, dev, gen, smi)  # path 8
     # The kernels line gives each kernel the launches of the path it was
     # ported for (the 1-D path for B1, B2, B4 and B15, the non-pow2 path for
     # B11-B14 and chirp_full, the fused-epilogue path for B8-B10 and
@@ -1900,6 +2262,21 @@ def main() -> int:
         gk = through(f"grad {what}", lambda: grads_of(fn, shapes, SEED + 4, dev, cplx),
                      **kernels)
         gp = grads_of(fn, shapes, SEED + 4, torch.device("cpu"), cplx)
+        gerrs[what] = check_close(gk.cpu(), gp, f"grad of sum(w*|f(x)|^2) {what} "
+                                                "kernels vs plain")
+    # the transform long tail: dct type 2 (the row kernel forward and, for
+    # its adjoint, back) and spectral_derivative (the R2C kernel's complex64
+    # sink and the C2R kernel's complex64 source forward; back, the R2C
+    # kernel's complex64 sink for the C2R's adjoint and the row kernel's
+    # complex64 entry for the R2C's)
+    for what, fn, kernels in (
+            ("dct type 2 64x4096", lambda u: ft.dct(u, type=2), {"rows_fft": 2}),
+            ("spectral_derivative 64x4096", ft.spectral_derivative,
+             {"r2c_fft": 2, "r2c_fft_c64": 2, "c2r_fft": 1, "c2r_fft_c64": 1, "rows_fft": 1,
+              "rows_fft_c64": 1})):
+        gk = through(f"grad {what}", lambda: grads_of(fn, [(64, 4096)], SEED + 5, dev, False),
+                     **kernels)
+        gp = grads_of(fn, [(64, 4096)], SEED + 5, torch.device("cpu"), False)
         gerrs[what] = check_close(gk.cpu(), gp, f"grad of sum(w*|f(x)|^2) {what} "
                                                 "kernels vs plain")
     print("grad: rel-L2 vs plain " + ", ".join(f"{k} {v:.3e}" for k, v in gerrs.items()),
@@ -2187,50 +2564,6 @@ def main() -> int:
     }, reps=10)
     del re, im
 
-    def breakdown(fn, names, reps=20, counted=None):
-        """Device ms per call of each kernel in ``names`` and of the rest
-        (the facade's split and merge, pads), and the device launches per
-        call of each part, from a torch.profiler window of ``reps`` calls
-        after one warm-up step of the profiler (a call traced and dropped:
-        a window that starts the trace has been seen to miss the first
-        launch); idle is 1 - device
-        busy / the CUDA-event median of a call.  ``counted``, where given,
-        gets the wrappers' launch counts over the window's calls."""
-        from torch.profiler import ProfilerActivity, profile, schedule
-
-        event_ms = time_ms(fn, reps)
-        for _ in range(3):  # a window now and then comes back with no device events
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                         schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-                fn()
-                torch.cuda.synchronize()
-                prof.step()
-                before = counts()
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-                after = counts()
-                prof.step()
-            if counted is not None:
-                counted.clear()
-                counted.update({k: v - before[k] for k, v in after.items() if v != before[k]})
-            parts = dict.fromkeys(names + ("other",), 0.0)
-            n_launch = dict.fromkeys(names + ("other",), 0)
-            for e in prof.events():
-                # the schedule's step marker has a device row of its own
-                if (e.device_type != torch.autograd.DeviceType.CUDA
-                        or e.name.startswith("ProfilerStep")):
-                    continue
-                part = kernel_part(e.name, names)
-                parts[part] += e.time_range.elapsed_us() / 1e3 / reps
-                n_launch[part] += 1
-            busy = sum(parts.values())
-            if busy > 0:
-                break
-        check(busy > 0, "the profiler saw no device time in three windows")
-        return {"events": event_ms, **parts, "idle": 1.0 - busy / event_ms,
-                **{f"{k} launches": v / reps for k, v in n_launch.items()}}
-
     profiles = {}
 
     def alone(call, fn, kernels, want, copies=0, reps=20, others=False):
@@ -2241,12 +2574,14 @@ def main() -> int:
         the same calls the wrappers' counters rise by ``want`` (counter ->
         launches) a call and no other counter moves.  A window that sees
         other work, or counters off, fails at once; one that sees fewer
-        launches is taken again (at most three)."""
+        launches is taken again (at most five, every other one without the
+        profiler's schedule: three scheduled windows in a row have come back
+        short)."""
         names = kernels + (("Memcpy DtoD",) if copies else ())
         per_call = {**dict.fromkeys(kernels, 1), "Memcpy DtoD": copies}
-        for _ in range(3):
+        for attempt in range(5):
             counted = {}
-            got = breakdown(fn, names, reps, counted)
+            got = breakdown(fn, names, reps, counted, scheduled=attempt % 2 == 0)
             check(others or got["other launches"] == 0, f"{call}: other device work: {got}")
             check(counted == {k: reps * v for k, v in want.items()},
                   f"{call}: launches {counted} in {reps} calls, expected {want} a call")

@@ -27,7 +27,15 @@ sums of ``csrc/welch_acc_fft.cu``, the per-segment powers of
 ``csrc/spec_fft.cu``), and so do the per-segment spectra of ``stft``,
 ``ShortTimeFFT`` and the complex spectrogram modes (the framed R2C and C2C
 kernels, ``csrc/spec_fft.cu`` and ``csrc/spec_c2c_fft.cu``); ``istft`` and ``resample`` compose the transforms above, and
-the window functions are host tables.  Other lengths,
+the window functions are host tables.  The scipy.fft long tail and the
+transform-domain solvers compose those transforms and launch no kernel of
+their own: the DCT/DST types I-IV and their N-D forms (a C2C along each
+axis through the plan, with no transpose; types I through the R2C route),
+the Chebyshev transforms, the MDCT, the fast Hankel transform, spectral
+derivatives, scipy.ndimage's Fourier filters, circulant, Toeplitz and
+BCCB solvers and Gaussian random fields, the cepstra and minimum phase,
+``envelope``, the WOLA channelizer and the Wigner-Ville distribution.
+Other lengths,
 and every CPU tensor, run the plain torch mixed-radix path.  A tensor is
 transformed on the device it lies on; other input (numpy arrays) goes to
 the current CUDA device, and raises if there is none.  This package
@@ -36,14 +44,25 @@ imports torch and never jax.
 
 from .core.reference import naive_dft, naive_idft
 from .core.twiddle import FORWARD, INVERSE
+from .ops.cepstrum import (complex_cepstrum, inverse_complex_cepstrum, minimum_phase,
+                           real_cepstrum)
+from .ops.channelizer import channelize, prototype_lowpass
+from .ops.chebyshev import (cheb_coeffs, cheb_derivative, cheb_integrate, cheb_points,
+                            cheb_values, clenshaw_curtis_weights)
 from .ops.cwt import CWT, cwt, morlet2, ricker
 from .ops.czt import CZT, ZoomFFT, czt, czt_points, zoom_fft
+from .ops.dct import dct, dctn, dst, dstn, idct, idctn, idst, idstn
+from .ops.envelope import envelope
 from .ops.fastconv import SpectralFilter, spectral_filter
+from .ops.fftlog import fht, fhtoffset, ifht
+from .ops.fourier_filters import (fourier_ellipsoid, fourier_gaussian, fourier_shift,
+                                  fourier_uniform)
 from .ops.helpers import (choose_conv_method, convolve, correlate, correlation_lags,
                           detrend, dht, fft_convolve, fftconvolve, fftcorrelate, fftfreq,
                           fftshift, get_workers, hilbert, hilbert2, idht, ifftshift,
                           next_fast_len, oaconvolve, prev_fast_len, resample, rfftfreq,
                           set_workers)
+from .ops.mdct import imdct, imdct_frame, mdct, mdct_frame, sine_window
 from .ops.nd import fft2, fftn, ifft2, ifftn
 from .ops.rfft import (hfft, hfft2, hfftn, ihfft, ihfft2, ihfftn, irfft, irfft2,
                        irfftn, rfft, rfft2, rfftn)
@@ -51,9 +70,13 @@ from .ops.spectral_est import (check_COLA, check_NOLA, coherence, csd, dpss, fla
                                get_window, kaiser_window, lombscargle, multitaper,
                                periodogram, spectrogram, tukey_window, welch)
 from .ops.short_time_fft import ShortTimeFFT
+from .ops.spectral import spectral_derivative, spectral_gradient, spectral_laplacian
 from .ops.stft import (bartlett_window, blackman_window, hamming_window, hann_window, istft,
                        stft)
+from .ops.structured import (bccb_matvec, bccb_solve, circulant_matvec, circulant_solve,
+                             grf_sample, toeplitz_matvec, toeplitz_solve)
 from .ops.transforms import fft, ifft, ifft_unnormalized, normalize
+from .ops.wigner import wigner_ville, wigner_ville_frequencies
 from .ops.windows import (barthann_window, blackmanharris_window, bohman_window,
                           boxcar_window, chebwin_window, cosine_window, exponential_window,
                           gaussian_window, general_cosine_window, general_gaussian_window,
@@ -157,6 +180,51 @@ __all__ = [
     "chebwin_window",
     "taylor_window",
     "kaiser_bessel_derived_window",
+    "dct",
+    "idct",
+    "dst",
+    "idst",
+    "dctn",
+    "idctn",
+    "dstn",
+    "idstn",
+    "cheb_points",
+    "cheb_coeffs",
+    "cheb_values",
+    "cheb_derivative",
+    "cheb_integrate",
+    "clenshaw_curtis_weights",
+    "mdct",
+    "imdct",
+    "mdct_frame",
+    "imdct_frame",
+    "sine_window",
+    "fht",
+    "ifht",
+    "fhtoffset",
+    "spectral_derivative",
+    "spectral_gradient",
+    "spectral_laplacian",
+    "fourier_gaussian",
+    "fourier_uniform",
+    "fourier_shift",
+    "fourier_ellipsoid",
+    "circulant_matvec",
+    "circulant_solve",
+    "toeplitz_matvec",
+    "toeplitz_solve",
+    "bccb_matvec",
+    "bccb_solve",
+    "grf_sample",
+    "real_cepstrum",
+    "complex_cepstrum",
+    "inverse_complex_cepstrum",
+    "minimum_phase",
+    "envelope",
+    "channelize",
+    "prototype_lowpass",
+    "wigner_ville",
+    "wigner_ville_frequencies",
     "Plan",
     "plan",
     "get_plan",

@@ -14,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["split", "merge", "is_pair", "promote_to_split", "default_device", "to_device"]
+__all__ = ["split", "merge", "is_pair", "promote_to_split", "default_device", "to_device",
+           "host_table", "real_part"]
 
 
 def default_device() -> torch.device:
@@ -34,6 +35,22 @@ def to_device(x, device=None) -> torch.Tensor:
         return x.to(dtype=torch.float32, device=device)
     arr = np.ascontiguousarray(x, dtype=np.float32)
     return torch.from_numpy(arr).to(device or default_device())
+
+
+def host_table(arr, device, dtype=np.float32) -> torch.Tensor:
+    """A host table (built in float64 or complex128 with numpy) cast once to
+    ``dtype`` and copied to ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(arr).astype(dtype)).to(device)
+
+
+def real_part(x, device=None) -> torch.Tensor:
+    """The real part of ``x`` (a tensor, an array or an (re, im) pair) as a
+    float32 tensor, as ``promote_to_split(x)[0]`` but with no zero plane."""
+    if is_pair(x):
+        return to_device(x[0], device=device)
+    if isinstance(x, torch.Tensor):
+        return (x.real if x.is_complex() else x).to(dtype=torch.float32, device=device)
+    return to_device(np.real(np.asarray(x)), device=device)
 
 
 def split(x, device=None):

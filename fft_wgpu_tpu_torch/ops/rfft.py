@@ -29,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from ..core.complex_utils import merge, promote_to_split, to_device
+from ..core.complex_utils import merge, promote_to_split, real_part
 from ..core.twiddle import FORWARD, INVERSE
 from . import cuda_fft, nd
 from .cuda_fft import pad_bins
@@ -56,11 +56,12 @@ def _scales(n, norm, inverse):
 
 
 def rfft_last_split(xr, sign_scale, *, pad_out=False):
-    """R2C over the last axis, split output.
+    """R2C over the last axis, split output, any length.
 
     On a CUDA tensor, pow2 n in the kernel's envelope runs the one-pass
     R2C kernel, composite n in its envelope the composite R2C kernel;
-    everything else uses the packed half-size path.
+    other even n use the packed half-size path, other odd n a
+    zero-imaginary C2C with the half spectrum kept.
     pad_out=True returns the padded serving form [..., pad_bins(n)]
     (exact zeros past bin n//2).
     """
@@ -69,7 +70,11 @@ def rfft_last_split(xr, sign_scale, *, pad_out=False):
         return cuda_fft.rfft_rows_split(xr, sign_scale, pad_out=pad_out)
     if _r2c_general(xr):
         return cuda_fft.rfft_rows_general_split(xr, sign_scale, pad_out=pad_out)
-    Xr, Xi = _rfft_even_split(xr, sign_scale)
+    if n % 2 == 0 and n >= 2:
+        Xr, Xi = _rfft_even_split(xr, sign_scale)
+    else:
+        re, im = fftn_split(xr, torch.zeros_like(xr), (xr.ndim - 1,), FORWARD, sign_scale)
+        Xr, Xi = re[..., : n // 2 + 1], im[..., : n // 2 + 1]
     if pad_out:
         pad = (0, pad_bins(n) - Xr.shape[-1])
         Xr = torch.nn.functional.pad(Xr, pad)
@@ -93,18 +98,21 @@ def _rfft_even_split(xr, sign_scale):
 
 def irfft_last_split(Xr, Xi, n, total_scale, *, padded_in=False):
     """C2R over the last axis with explicit TOTAL output scale
-    (numpy backward norm == 1/n).
+    (numpy backward norm == 1/n), any length.
 
     On a CUDA tensor, pow2 n in the kernel's envelope runs the one-pass C2R
-    kernel; otherwise the packed half-size path.  padded_in=True consumes
-    the padded serving form [..., pad_bins(n)]; its pad columns are never
-    read."""
+    kernel; otherwise even n take the packed half-size path, odd n the
+    Hermitian extension and a C2C.  padded_in=True consumes the padded
+    serving form [..., pad_bins(n)]; its pad columns are never read."""
     T = 1.0 if total_scale is None else float(total_scale)
     if Xr.device.type == "cuda" and cuda_fft._supported(n):  # the C2R envelope
         return cuda_fft.irfft_rows_split(Xr, Xi, n, T, padded_in=padded_in)
     if padded_in:
         Xr = Xr[..., : n // 2 + 1]
         Xi = Xi[..., : n // 2 + 1]
+    if n % 2 or n < 2:
+        fr, fi = _hermitian_extend(Xr, Xi, n)
+        return fftn_split(fr, fi, (fr.ndim - 1,), INVERSE, total_scale)[0]
     # the packed path applies 1/n itself; pass the remainder on top
     net = T * n
     return _irfft_even_split(Xr, Xi, n, None if abs(net - 1.0) < 1e-12 else net)
@@ -151,20 +159,11 @@ def _irfft_even_split(Xr, Xi, n, scale):
     return x
 
 
-def _float_tensor(x):
-    """float32 tensor of x (a tensor stays on its device, anything else goes
-    to the current CUDA device); like the JAX package's rfftn, a complex
-    input keeps its real part."""
-    if isinstance(x, torch.Tensor):
-        return x.to(torch.float32)
-    return to_device(np.real(np.asarray(x)))
-
-
 def _real_tensor(x):
     is_complex = x.is_complex() if isinstance(x, torch.Tensor) else np.iscomplexobj(x)
     if is_complex:
         raise TypeError("rfft requires real input; use fft for complex")
-    return _float_tensor(x)
+    return real_part(x)
 
 
 def _rfft_c64(device, n: int) -> bool:
@@ -191,15 +190,7 @@ def _rfft_split(x, n, axis, norm):
         xr = _resize_axis(xr, n, axis)
     length = xr.shape[axis]
     scale = _scales(length, norm, inverse=False)
-    v = xr.movedim(axis, -1)
-    if length % 2 == 0 and length >= 2:
-        Xr, Xi = rfft_last_split(v, scale)
-    elif _r2c_general(v):  # odd composite length on the card
-        Xr, Xi = cuda_fft.rfft_rows_general_split(v, scale)
-    else:  # odd length: zero-imaginary C2C, half spectrum kept
-        re, im = fftn_split(v, torch.zeros_like(v), (v.ndim - 1,), FORWARD, scale)
-        Xr = re[..., : length // 2 + 1]
-        Xi = im[..., : length // 2 + 1]
+    Xr, Xi = rfft_last_split(xr.movedim(axis, -1), scale)
     return Xr.movedim(-1, axis), Xi.movedim(-1, axis)
 
 
@@ -256,12 +247,7 @@ def irfft(x, n=None, axis: int = -1, norm=None):
     if Xr.shape[axis] != bins:
         Xr, Xi = _pad_or_trim(Xr, Xi, bins, axis)
     norm_scale = _scales(length, norm, inverse=True)
-    r, i = Xr.movedim(axis, -1), Xi.movedim(axis, -1)
-    if length % 2 == 0 and length >= 2:
-        out = irfft_last_split(r, i, length, norm_scale)
-    else:
-        fr, fi = _hermitian_extend(r, i, length)
-        out, _ = fftn_split(fr, fi, (fr.ndim - 1,), INVERSE, norm_scale)
+    out = irfft_last_split(Xr.movedim(axis, -1), Xi.movedim(axis, -1), length, norm_scale)
     return out.movedim(-1, axis)
 
 
@@ -275,7 +261,7 @@ def _hermitian_extend(Xr, Xi, n):
 
 def rfftn(x, s=None, axes=None, norm=None):
     """N-D R2C: rfft over the last transform axis, C2C over the rest."""
-    xr = _float_tensor(x)
+    xr = real_part(x)  # as in the JAX package, complex input keeps its real part
     return merge(*_rfftn_split(xr, s, axes, norm))
 
 
@@ -369,7 +355,7 @@ def ihfftn(x, s=None, axes=None, norm=None):
     (scipy.fft.ihfftn semantics)."""
     if norm not in _NORM_SWAP:
         raise ValueError(f"invalid norm {norm!r}")
-    Xr, Xi = _rfftn_split(_float_tensor(x), s, axes, _NORM_SWAP[norm])
+    Xr, Xi = _rfftn_split(real_part(x), s, axes, _NORM_SWAP[norm])
     return merge(Xr, -Xi)
 
 

@@ -1963,3 +1963,173 @@ def test_bank_and_rows_keep_their_bits(dev):
     got = chip_smoke.kept_bits(cuda_fft, dev)
     assert got == chip_smoke.KEPT_BITS, {k: (got[k], chip_smoke.KEPT_BITS.get(k))
                                          for k in got if got[k] != chip_smoke.KEPT_BITS.get(k)}
+
+
+# ---------------------------------------------------------------------- #
+# the transform long tail (dct, chebyshev, mdct, fftlog, spectral,
+# fourier_filters, structured, cepstrum, envelope, channelizer, wigner):
+# each family on the card against the port's plain path on the CPU
+# ---------------------------------------------------------------------- #
+def _long_tail_counts():
+    return {**_counts(), "r2c_fft_c64": cuda_fft.r2c_c64_launches,
+            "rows_fft_c64": cuda_fft.c64_launches}
+
+
+def _launched(fn):
+    """fn()'s result and the port kernels it launched (name -> count; the
+    complex64 R2C sink and row entry counted apart too)."""
+    before = _long_tail_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in _long_tail_counts().items() if v != before[k]}
+
+
+def _long_tail_through(fn, **want):
+    """fn()'s result; it must launch exactly ``want``."""
+    out, launched = _launched(fn)
+    assert launched == want
+    return out
+
+
+def _on_card_and_cpu(fn, *args, tol=TOL, launches=True):
+    """fn on the card's tensors against fn on their CPU copies (the plain
+    path); returns the port kernels the card's call launched, which must
+    be some unless ``launches`` is false."""
+    got, launched = _launched(lambda: fn(*args))
+    want = fn(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.device.type == "cuda" and rel_l2(g.cpu(), w) < tol
+    assert launched or not launches
+    return launched
+
+
+def test_long_tail_dct_family_on_card(dev):
+    # along the last axis every type launches a kernel (type 1 at n = 257 and
+    # 255: extensions of 512 points); along axis 0 (n = 256) types 2-4 do
+    x = rrand(dev, 256, 512, seed=1)
+    x1 = {"dct": rrand(dev, 256, 257, seed=2), "dst": rrand(dev, 256, 255, seed=3)}
+    for t in (1, 2, 3, 4):
+        for name in ("dct", "idct", "dst", "idst"):
+            v = x1[name.lstrip("i")] if t == 1 else x
+            for norm in (None, "ortho", "forward"):
+                _on_card_and_cpu(lambda u, f=getattr(ft, name): f(u, type=t, norm=norm), v)
+            _on_card_and_cpu(lambda u, f=getattr(ft, name): f(u, type=t, axis=0), v,
+                             launches=t != 1)
+    # dct type 2 is one row-kernel launch; dctn of a plane one axis(-2) and
+    # one row launch; DCT-I at n = 257 and DST-I at 255 one R2C launch
+    _long_tail_through(lambda: ft.dct(x, type=2), rows_fft=1)
+    _long_tail_through(lambda: ft.dctn(rrand(dev, 512, 512, seed=4), type=2), ax0_fft=1,
+                       rows_fft=1)
+    _long_tail_through(lambda: ft.dct(x1["dct"], type=1), r2c_fft=1)
+    _long_tail_through(lambda: ft.dst(x1["dst"], type=1), r2c_fft=1)
+    for name in ("dctn", "idctn", "dstn", "idstn"):
+        _on_card_and_cpu(lambda v, f=getattr(ft, name): f(v, type=2, s=(300, 128)),
+                         rrand(dev, 256, 200, seed=5))
+    u = rrand(dev, 16, 257, seed=6)
+    for fn, want in ((ft.cheb_coeffs, 1), (ft.cheb_values, 1), (ft.cheb_derivative, 2)):
+        assert _on_card_and_cpu(fn, u) == {"r2c_fft": want}
+    _on_card_and_cpu(lambda v: ft.cheb_integrate(v, interval=(0.0, 2.0)), u, launches=False)
+    s = rrand(dev, 2, 1 << 14, seed=7)
+    assert _on_card_and_cpu(lambda v: ft.mdct(v, 256), s) == {"rows_fft": 1}
+    assert _on_card_and_cpu(lambda v: ft.imdct(ft.mdct(v, 256)), s) == {"rows_fft": 2}
+
+
+def test_long_tail_spectral_and_fftlog_on_card(dev):
+    # spectral_derivative along the last axis: the R2C kernel's complex64
+    # sink once and the C2R kernel's complex64 source once, nothing else
+    f = rrand(dev, 512, 512, seed=1)
+    _long_tail_through(lambda: ft.spectral_derivative(f), r2c_fft=1, r2c_fft_c64=1,
+                       c2r_fft=1, c2r_fft_c64=1)
+    for order, axis in ((1, -1), (2, 0), (3, -1)):
+        assert _on_card_and_cpu(lambda v: ft.spectral_derivative(v, order, axis, 3.0), f) == {
+            "r2c_fft": 1, "r2c_fft_c64": 1, "c2r_fft": 1, "c2r_fft_c64": 1}
+    _on_card_and_cpu(ft.spectral_laplacian, rrand(dev, 128, 128, 128, seed=2))
+    for g, w in zip(ft.spectral_gradient(f), ft.spectral_gradient(f.cpu())):
+        assert rel_l2(g.cpu(), w) < TOL
+    n, dln = 1024, 0.01
+    r = np.exp((np.arange(n) - (n - 1) / 2) * dln)
+    a = torch.from_numpy((r**2 * np.exp(-(r**2) / 2)).astype(np.float32)).to(dev)
+    a = a * (1 + 0.1 * rrand(dev, 16, n, seed=3))
+    for name, mu, bias in (("fht", 0.5, 0.0), ("ifht", 2.0, 0.1)):
+        launched = _on_card_and_cpu(lambda v, f=getattr(ft, name): f(v, dln, mu, bias=bias), a)
+        assert launched == {"r2c_fft": 1, "c2r_fft": 1}
+
+
+def test_long_tail_filters_and_solvers_on_card(dev):
+    X = crand(dev, 256, 192, seed=1)
+    for fn, p in ((ft.fourier_gaussian, 2.0), (ft.fourier_uniform, (3, 4.5)),
+                  (ft.fourier_shift, (1.5, -2.25)), (ft.fourier_ellipsoid, 4.0)):
+        y = fn(X, p)
+        assert y.device.type == "cuda" and rel_l2(y.cpu(), fn(X.cpu(), p)) < TOL
+    c = rrand(dev, 1024, seed=2)
+    c[0] += 1024.0
+    b = rrand(dev, 16, 1024, seed=3)
+    for fn in (ft.circulant_matvec, ft.circulant_solve):
+        _on_card_and_cpu(fn, c, b)
+    _on_card_and_cpu(ft.toeplitz_matvec, c, rrand(dev, 1024, seed=4), b)
+    ct = torch.exp(-torch.arange(512, device=dev, dtype=torch.float32) / 7.0)
+    _on_card_and_cpu(ft.toeplitz_solve, ct, b[:, :512], tol=1e-4)
+    k = 0.05 * rrand(dev, 256, 256, seed=5)
+    k[0, 0] += 1.0
+    for fn in (ft.bccb_matvec, lambda u, v: ft.bccb_solve(u, v, reg=1e-3)):
+        _on_card_and_cpu(fn, k, rrand(dev, 2, 256, 256, seed=6))
+    # the field of one noise draw, and the sampler's device and covariance
+    from fft_wgpu_tpu_torch.ops import structured
+
+    acf = np.exp(-np.arange(1 << 12) / 5.0)
+    sqrt_lam, n = structured._grf_embedding(acf)
+    sl = torch.from_numpy(sqrt_lam.astype(np.float32)).to(dev)
+    _on_card_and_cpu(lambda *a: structured._grf_from_noise(*a, 3, n), sl,
+                     rrand(dev, 2, sl.numel(), seed=7), rrand(dev, 2, sl.numel(), seed=8))
+    s = ft.grf_sample(acf[:32], torch.Generator(device=dev).manual_seed(0), 8192).cpu().numpy()
+    assert s.shape == (8192, 32)
+    # numpy acf runs on the card whatever the generator's device
+    assert ft.grf_sample(acf[:32], torch.Generator().manual_seed(0), 2).device.type == "cuda"
+    emp = [np.mean(s[:, : 32 - lag] * s[:, lag:]) for lag in range(8)]
+    assert np.abs(np.array(emp) - acf[:8]).max() < 0.06
+
+
+def test_long_tail_cepstra_and_analysis_on_card(dev):
+    x = rrand(dev, 16, 1024, seed=1)
+    assert _on_card_and_cpu(ft.real_cepstrum, x) == {"r2c_fft": 1, "c2r_fft": 1}
+    t = torch.arange(128, dtype=torch.float32, device=dev)
+    rows = torch.stack([torch.sin(2 * math.pi * t / 128 * 5) * torch.exp(-t / 40.0)
+                        + 8.0 * torch.exp(-((t - 3.0) ** 2) / 4.0), 0.9 ** t])
+    _on_card_and_cpu(ft.complex_cepstrum, rows)
+    c, nd = ft.complex_cepstrum(rows)
+    _on_card_and_cpu(ft.inverse_complex_cepstrum, c, nd)
+    import scipy.signal as ss
+
+    h = torch.from_numpy(ss.firwin(31, 0.2).astype(np.float32)).to(dev)
+    for method, tol in (("homomorphic", 5e-4), ("hilbert", 5e-3)):  # test_cepstrum.py's bars
+        _on_card_and_cpu(lambda v: ft.minimum_phase(v, method=method), h, tol=tol)
+    for z in (rrand(dev, 4, 4096, seed=2), crand(dev, 4, 4096, seed=3)):
+        for kw in ({}, {"n_out": 1024, "residual": "all"}, {"bp_in": (3, 500),
+                                                            "residual": None}):
+            _on_card_and_cpu(lambda v: ft.envelope(v, **kw), z)
+    for z in (rrand(dev, 2, 1 << 14, seed=4), crand(dev, 1 << 14, seed=5)):
+        assert _on_card_and_cpu(lambda v: ft.channelize(v, 128), z)["rows_fft"] == 1
+    w = crand(dev, 256, seed=6)
+    _on_card_and_cpu(lambda v: ft.wigner_ville(v)[1], w)
+    _on_card_and_cpu(lambda v: ft.wigner_ville(v, window=np.hanning(33))[1], w)
+
+
+def test_grad_long_tail_dct2_matches_plain(dev):
+    # dct type 2: the row kernel forward and, for its adjoint, back;
+    # spectral_derivative: the R2C kernel's complex64 sink and the C2R
+    # kernel's complex64 source forward, their adjoints back
+    for fn, want in ((lambda v: ft.dct(v, type=2, norm="ortho"), {"rows_fft": 2}),
+                     (ft.spectral_derivative, {"r2c_fft": 2, "r2c_fft_c64": 2, "c2r_fft": 1,
+                                               "c2r_fft_c64": 1, "rows_fft": 1,
+                                               "rows_fft_c64": 1})):
+        x0 = rrand(dev, 64, 1024, seed=1)
+        w = torch.rand(64, 1024, generator=torch.Generator().manual_seed(2))
+
+        def grad(v):
+            v = v.clone().requires_grad_()
+            (w.to(v.device) * fn(v) ** 2).sum().backward()
+            return v.grad
+
+        gk = _long_tail_through(lambda: grad(x0), **want)
+        assert rel_l2(gk.cpu(), grad(x0.cpu())) < TOL
