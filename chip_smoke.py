@@ -9,7 +9,9 @@ periodogram, csd, coherence, spectrogram, multitaper), and the per-segment
 spectra (stft, istft, ShortTimeFFT, the complex spectrogram modes,
 resample), and the transform long tail (scipy.fft's DCT/DST and fht, the
 Chebyshev, MDCT, spectral-calculus, Fourier-filter, structured-solver,
-cepstrum, envelope, channelizer and Wigner-Ville calls).
+cepstrum, envelope, channelizer and Wigner-Ville calls), and the
+signal-processing and non-uniform tail (multirate filtering, 2-D
+convolution and Wiener filtering, fractional Fourier transforms, NUFFTs).
 
     python3 chip_smoke.py
 
@@ -180,7 +182,27 @@ non-zero without a result line:
              1; dctn: ax0_fft 1 + rows_fft 1; spectral_derivative along
              the last axis: r2c_fft and c2r_fft 1 each, through their
              complex64 ends), each call's launches listed, and its CUDA
-             events, device ms and idle share from the profiler;
+             events, device ms and idle share from the profiler; the
+             signal-processing and non-uniform tail (path 9,
+             :func:`signal_tail`, run after phase 5): resample_poly of
+             stereo 2^18 at 147/160 (nfft 2^26), decimate by 8 and
+             savgol_filter (window 101, order 3) of 64 x 2^20, a complex
+             upfirdn of 16 x 2^16 (up 4, down 3), convolve2d of a 1080p
+             frame with a 31 x 31 Gaussian at symmetric edges,
+             correlate2d of a complex 512^2 field with a 64^2 template,
+             wiener of 1024^2, frft of 256 x 4096 chirps at a = 0.5 and
+             0.9, frft2 of a 1024^2 beam, dfrft of 64 x 1024, the NUFFTs
+             of types 1 and 2 at 2^16 modes (2^20 points), 256^2 (radial
+             MRI, 2^18 points) and 128^3 (2^20 points), and of type 3 in
+             1-D (2^16 points) and 2-D (2^14), each against float64
+             scipy, the kernel quadrature or the direct NUDFT, with three
+             exact launch counts (nufft2d1: one 2-D transform of its 512^2
+             fine grid; frft at a = 0.5: forward and inverse of
+             256 x 2^15 and 256 x 2^16; resample_poly: the R2C of the
+             signal rows and of the taps row and the C2R at 2^26, each
+             counted from bare calls in the same run), each call's
+             launches, other device work by name, peak bytes, events,
+             device ms and idle share;
 4. grad    — gradients against the plain versions' (CPU for the N-D,
              real and non-pow2 ones): fft (row kernel; the four-step at
              2 x 2^20; the whole row at 4 x 2^16; the row and whole-row
@@ -195,7 +217,9 @@ non-zero without a result line:
              and the two-sided welch of a complex signal at 2^16 samples;
              stft, ShortTimeFFT.stft with a phase shift and the complex
              two-sided spectrogram at 2^16; dct type 2 and
-             spectral_derivative at 64 x 4096;
+             spectral_derivative at 64 x 4096; nufft1d1 of 4096 points
+             to 4096 modes in its values and convolve2d of 500 x 1000 by
+             13 x 25 in both inputs;
 5. times   — CUDA-event medians of each kernel (rows_fft, big_fft, filt
              and spec_c2c in both layouts), its plain version, torch.fft and
              plan.forward at the main shapes, beside a plane copy of the
@@ -533,7 +557,7 @@ def through(what, fn, **want):
     return out
 
 
-def breakdown(fn, names, reps=20, counted=None, scheduled=True):
+def breakdown(fn, names, reps=20, counted=None, scheduled=True, others=None):
     """Device ms per call of each kernel in ``names`` and of the rest
     (the facade's split and merge, pads), and the device launches per
     call of each part, from a torch.profiler window of ``reps`` calls
@@ -542,7 +566,9 @@ def breakdown(fn, names, reps=20, counted=None, scheduled=True):
     launch; with ``scheduled`` false, a plain window with no warm-up
     step); idle is 1 - device
     busy / the CUDA-event median of a call.  ``counted``, where given,
-    gets the wrappers' launch counts over the window's calls."""
+    gets the wrappers' launch counts over the window's calls, and
+    ``others`` the device ms per call of each device event of the rest,
+    by its name."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -567,6 +593,8 @@ def breakdown(fn, names, reps=20, counted=None, scheduled=True):
             counted.update({k: v - before[k] for k, v in after.items() if v != before[k]})
         parts = dict.fromkeys(names + ("other",), 0.0)
         n_launch = dict.fromkeys(names + ("other",), 0)
+        if others is not None:
+            others.clear()
         for e in prof.events():
             # the schedule's step marker has a device row of its own
             if (e.device_type != torch.autograd.DeviceType.CUDA
@@ -575,6 +603,8 @@ def breakdown(fn, names, reps=20, counted=None, scheduled=True):
             part = kernel_part(e.name, names)
             parts[part] += e.time_range.elapsed_us() / 1e3 / reps
             n_launch[part] += 1
+            if part == "other" and others is not None:
+                others[e.name] = others.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
         busy = sum(parts.values())
         if busy > 0:
             break
@@ -857,6 +887,327 @@ def long_tail(ft, dev, gen, smi) -> dict:
     print(f"main: transform long-tail path (path 8), {len(calls)} calls checked against "
           f"float64 in {checked:.1f} s, timed in {total - checked:.1f} s ({total:.1f} s in all)",
           flush=True)
+    return calls
+
+
+# The kernels a call of the signal-processing and non-uniform long tail
+# (path 9) may launch, as the profiler names them; the rest of its device
+# work (scatters, gathers, products, pads, matmuls) is listed by name.
+SIGNAL_TAIL_KERNELS = ("rows_fft", "ax0_fft", "rows_t_fft", "fft2f_fft", "r2c_fft", "c2r_fft",
+                       "big_fft", "gen_fft", "r2c_gen_fft", "ax0_gen_fft", "c2r_prod",
+                       "chirp_full")
+# The JAX package's tests' bars against their oracles: tests/test_multirate.py
+# (upfirdn 2e-5, resample_poly and decimate 5e-5), tests/test_conv2d.py
+# (Savitzky-Golay and complex even templates 1e-4, wiener 2e-4),
+# tests/test_frft.py (the quadrature 2e-5 in the core interval, 5e-5
+# elsewhere), tests/test_nufft.py (types 1 and 2 5e-5, type 3 2e-4).
+UPFIRDN_TOL, RESAMPLE_TOL, SAVGOL_TOL, WIENER_TOL = 2e-5, 5e-5, 1e-4, 2e-4
+FRFT_CORE_TOL, FRFT_TOL, NUFFT_TOL, NUFFT3_TOL = 2e-5, 5e-5, 5e-5, 2e-4
+
+
+def nudft(freqs, pts, vals, isign: int, chunk: int = 1 << 14) -> np.ndarray:
+    """The direct non-uniform DFT in float64 on the host (torch on the CPU,
+    every core): sum_j vals[..., j] exp(isign i freqs[k] . pts[j]) for each
+    row k of freqs [K, D], pts [M, D], in chunks of points."""
+    import torch
+
+    F = torch.as_tensor(np.asarray(freqs, np.float64))
+    P = torch.as_tensor(np.asarray(pts, np.float64))
+    V = torch.as_tensor(np.asarray(vals)).to(torch.complex128)
+    out = 0
+    for lo in range(0, P.shape[0], chunk):
+        ph = F @ P[lo:lo + chunk].T
+        out = out + V[..., lo:lo + chunk] @ torch.polar(torch.ones_like(ph), isign * ph).T
+    return out.numpy()
+
+
+def frft_kernel(n: int, a: float) -> np.ndarray:
+    """The continuous FrFT kernel's quadrature on the grid (n - N/2)/sqrt(N)
+    in float64 (tests/test_frft.py's oracle): frft(f, a) = f @ K.T."""
+    alpha = np.mod(a, 4.0) * np.pi / 2
+    x = (np.arange(n) - n // 2) / np.sqrt(n)
+    cot, csc = 1 / np.tan(alpha), 1 / np.sin(alpha)
+    A = np.exp(-1j * (np.pi * np.sign(np.sin(alpha)) / 4 - alpha / 2)) / np.sqrt(
+        abs(np.sin(alpha)))
+    return A * np.exp(1j * np.pi * (cot * (x[:, None] ** 2 + x[None, :] ** 2)
+                                    - 2 * csc * x[:, None] * x[None, :])) / np.sqrt(n)
+
+
+def signal_tail(ft, dev, gen, smi) -> dict:
+    """Path 9: the signal-processing and non-uniform long tail at its users'
+    sizes (multirate, 2-D convolution and filtering, fractional Fourier
+    transforms, NUFFTs), each call once with the launch counts read around
+    it, its peak device bytes above its inputs, and its output held against
+    a float64 oracle on the host (scipy, numpy, the kernel quadrature, or
+    the direct NUDFT on a random subset of 256 outputs, 64 in 3-D), then
+    timed: CUDA events over 10 calls, and the device ms of the port's
+    kernels and of the rest (listed by name), and the device's idle share,
+    from a torch.profiler window of 10 calls.  Three launch counts are
+    exact, each against bare calls of the transforms it composes, counted
+    in this run: nufft2d1 at 256^2 modes launches the port kernels of one
+    2-D transform of its 512^2 planar fine grid; frft of [256, 4096] at
+    a = 0.5 those of the forward and inverse transforms of [256, 2^15] and
+    of [256, 2^16]; resample_poly of [2, 2^18] at 147/160 those of
+    rfft_last_split of the signal rows and of the taps row and of
+    irfft_last_split, at nfft 2^26.  dfrft is two matmuls and launches no
+    port kernel; every other call must.  Returns each call's record."""
+    import scipy.signal as ss
+    import torch
+
+    from fft_wgpu_tpu_torch.core.twiddle import FORWARD, INVERSE
+    from fft_wgpu_tpu_torch.ops import cuda_fft, frft, nd, nufft
+    from fft_wgpu_tpu_torch.ops.rfft import irfft_last_split, rfft_last_split
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    rng = np.random.default_rng(SEED + 9)
+    calls = {}
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def crandn(*shape):
+        return torch.complex(randn(*shape), randn(*shape))
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def host(t):
+        t = t.detach().cpu()
+        return t.numpy().astype(np.complex128 if t.is_complex() else np.float64)
+
+    def launched(fn):
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v - before[k] for k, v in counts().items() if v != before[k]}
+
+    def summed(*deltas):
+        out = {}
+        for d in deltas:
+            for k, v in d.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    def run(name, fn, want, tol, exact=None, kernels=True):
+        """fn() once: its launches (exactly ``exact`` where given, some port
+        kernel unless ``kernels`` is false), its peak device bytes above
+        the live ones before it, and its output against ``want``, a
+        float64 array or a function of the output returning (part of the
+        output, its float64 oracle)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, delta = launched(fn)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        check(bool(delta) == kernels, f"path 9 {name}: launches {delta}")
+        if exact is not None:
+            check(delta == exact, f"path 9 {name}: launches {delta}, expected {exact}")
+        got, ref = want(out) if callable(want) else (out, want)
+        got = got.detach().cpu() if isinstance(got, torch.Tensor) else torch.from_numpy(got)
+        ref = torch.from_numpy(np.ascontiguousarray(ref))
+        check(tuple(got.shape) == tuple(ref.shape),
+              f"path 9 {name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+        check(bool(got.isfinite().all()), f"path 9 {name}: non-finite output")
+        err = rel_l2(got, ref)
+        check(err <= tol, f"path 9 {name}: rel-L2 {err:.3e} > {tol:.0e} against float64")
+        calls[name] = {"fn": fn, "launches": delta, "err": err, "tol": tol, "peak": peak}
+        return out
+
+    # ---- multirate: 48 -> 44.1 kHz stereo, a decimation by 8, a complex
+    # channel filter upsampled by 4/3, Savitzky-Golay smoothing
+    x = randn(2, 1 << 18)
+    taps_n = 2 * 10 * 160 + 1  # resample_poly's Kaiser design at max(up, down) = 160
+    nfft = 1 << (((1 << 18) - 1) * 147 + taps_n + 160 - 1).bit_length()
+    check(nfft == 1 << 26, f"path 9 resample_poly: nfft {nfft}")
+    _, bare = launched(lambda: rfft_last_split(torch.zeros(2, nfft, device=dev), None))
+    _, bare_h = launched(lambda: rfft_last_split(torch.zeros(1, nfft, device=dev), None))
+    bins = torch.zeros(2, nfft // 2 + 1, device=dev)
+    _, bare_c2r = launched(lambda: irfft_last_split(bins, bins, nfft, 1.0 / nfft))
+    del bins
+    run("resample_poly [2, 2^18] up 147 down 160 (nfft 2^26)",
+        lambda x=x: ft.resample_poly(x, 147, 160), ss.resample_poly(host(x), 147, 160, axis=-1),
+        RESAMPLE_TOL, exact=summed(bare, bare_h, bare_c2r))
+    x = randn(64, 1 << 20)
+    run("decimate [64, 2^20] q 8 FIR", lambda x=x: ft.decimate(x, 8),
+        lambda y: (y[::8], ss.decimate(host(x[::8]), 8, ftype="fir")), RESAMPLE_TOL)
+    z = crandn(16, 1 << 16)
+    hc = ss.firwin(64, 0.2) * np.exp(0.5j * np.pi * np.arange(64))  # a band-shifted channel
+    run("upfirdn complex [16, 2^16] up 4 down 3, 64 complex taps",
+        lambda z=z: ft.upfirdn(hc, z, 4, 3), ss.upfirdn(hc, host(z), 4, 3), UPFIRDN_TOL)
+    run("savgol_filter [64, 2^20] window 101 order 3 interp",
+        lambda x=x: ft.savgol_filter(x, 101, 3),
+        lambda y: (y[::8], ss.savgol_filter(host(x[::8]), 101, 3)), SAVGOL_TOL)
+    del x, z
+
+    # ---- 2-D: a 1080p frame blurred with a 31 x 31 Gaussian at symmetric
+    # edges, template matching of a 64^2 patch in a complex 512^2 field,
+    # the adaptive Wiener filter of a 1024^2 image
+    img = randn(1080, 1920)
+    g1 = np.exp(-0.5 * ((np.arange(31) - 15) / 5.0) ** 2)
+    k = np.outer(g1, g1) / np.outer(g1, g1).sum()
+    kt = on_card(k.astype(np.float32))
+    run("convolve2d 1080x1920 31x31 Gaussian same symm",
+        lambda img=img: ft.convolve2d(img, kt, mode="same", boundary="symm"),
+        ss.fftconvolve(np.pad(host(img), 15, mode="symmetric"), k.astype(np.float32)
+                       .astype(np.float64), mode="valid"), TOL)
+    field, tmpl = crandn(512, 512), crandn(64, 64)
+    run("correlate2d complex 512^2 with a 64^2 template valid",
+        lambda field=field, tmpl=tmpl: ft.correlate2d(field, tmpl, mode="valid"),
+        ss.fftconvolve(host(field), np.conj(host(tmpl)[::-1, ::-1]), mode="valid"),
+        SAVGOL_TOL)
+    im = randn(1024, 1024)
+    run("wiener 1024^2 mysize 5", lambda im=im: ft.wiener(im, 5), ss.wiener(host(im), 5), WIENER_TOL)
+    del img, field, tmpl, im
+
+    # ---- fractional Fourier transforms: a chirp-rate search over 256 radar
+    # returns of 4096 samples (Gaussian-windowed chirps at rates about the
+    # -cot(45 deg) = -1 that a = 0.5 focuses: there the kernel quadrature is
+    # well sampled; positive rates alias it, as tests/test_frft.py notes of
+    # its range), an optical propagation of a defocused beam on 1024^2, the
+    # discrete FrFT
+    n = 4096
+    grid = (np.arange(n) - n // 2) / np.sqrt(n)
+    rates, t0s = rng.uniform(-1.2, -0.2, (256, 1)), rng.uniform(-3, 3, (256, 1))
+    sig = np.exp(-((grid - t0s) / 4.0) ** 2) * np.exp(1j * np.pi * rates * grid * grid)
+    s_card = on_card(sig.astype(np.complex64))
+    L1, L2 = frft._conv_lengths(n)
+    check((L1, L2) == (1 << 15, 1 << 16), f"path 9 frft: lengths {L1}, {L2}")
+    bare_f = []
+    for L in (L1, L2):
+        zr = torch.zeros(256, L, device=dev)
+        p = ft.get_plan(L)
+        bare_f += [launched(lambda: p._execute_split(zr, zr, FORWARD, None))[1],
+                   launched(lambda: p._execute_split(zr, zr, INVERSE, 1.0 / L))[1]]
+    del zr
+    rows = rng.choice(256, 8, replace=False)
+    for a, tol in ((0.5, FRFT_TOL), (0.9, FRFT_CORE_TOL)):
+        K = frft_kernel(n, a)
+        run(f"frft complex [256, 4096] a {a}", lambda a=a, s=s_card: ft.frft(s, a),
+            lambda y, K=K: (y[rows], sig[rows].astype(np.complex64).astype(np.complex128) @ K.T),
+            tol, exact=summed(*bare_f) if a == 0.5 else None)
+    del K, s_card
+    n = 1024
+    grid = (np.arange(n) - n // 2) / np.sqrt(n)
+    beam = np.exp(-(grid / 2.0) ** 2) * np.exp(1j * np.pi * 0.3 * grid * grid)
+    field = np.outer(beam, beam * np.exp(-0.5j * grid)).astype(np.complex64)
+    K = frft_kernel(n, 0.5)
+    f_card = on_card(field)
+    run("frft2 complex 1024^2 (0.5, 0.5)", lambda f=f_card: ft.frft2(f, (0.5, 0.5)),
+        K @ field.astype(np.complex128) @ K.T, FRFT_TOL)
+    u = crandn(64, 1024)
+    V = frft._dfrft_basis(1024)[0].astype(np.float64)
+    ph = np.exp(-0.25j * np.pi * frft._dfrft_basis(1024)[1])
+    run("dfrft [64, 1024] a 0.5 (two matmuls)", lambda u=u: ft.dfrft(u, 0.5),
+        ((host(u) @ V) * ph) @ V.T, TOL, kernels=False)
+    del f_card, u, K, V
+
+    # ---- NUFFTs: unevenly sampled spectra (2^16 modes, 2^20 points),
+    # radial MRI (256 spokes x 1024 samples onto 256^2), 3-D MRI (2^20
+    # points onto 128^3), and type 3 on free-space grids in the kernels'
+    # envelope
+    def points(m, lo=0.0, hi=2 * np.pi):
+        return rng.uniform(lo, hi, m).astype(np.float32)
+
+    def modes(ns, idx):
+        return np.stack(np.unravel_index(idx, ns), -1) - np.array([v // 2 for v in ns])
+
+    def all_modes(ns):
+        return modes(ns, np.arange(int(np.prod(ns))))
+
+    M = 1 << 20
+    xs = points(M)
+    c = crandn(M)
+    sub = rng.choice(1 << 16, 256, replace=False)
+    run("nufft1d1 2^20 points -> 2^16 modes", lambda xs=on_card(xs), c=c: ft.nufft1d1(xs, c, 1 << 16),
+        lambda f: (f[sub], nudft(modes((1 << 16,), sub), xs[:, None], host(c), 1)), NUFFT_TOL)
+    f1 = crandn(1 << 16)
+    pts = rng.choice(M, 256, replace=False)
+    run("nufft1d2 2^16 modes -> 2^20 points", lambda xs=on_card(xs), f1=f1: ft.nufft1d2(xs, f1),
+        lambda v: (v[pts], nudft(xs[pts, None], all_modes((1 << 16,)), host(f1), -1)),
+        NUFFT_TOL)
+    theta = np.repeat(np.pi * np.arange(256) / 256, 1024)
+    r = np.tile(np.pi * (np.arange(1024) - 512) / 512, 256)
+    kx, ky = (r * np.cos(theta)).astype(np.float32), (r * np.sin(theta)).astype(np.float32)
+    c2 = crandn(1 << 18)
+    nf2 = nufft._fine_n(256)
+    gz = torch.zeros(nf2, nf2, device=dev)
+    _, bare2 = launched(lambda: nd.fftn_split(gz, gz, (0, 1), INVERSE, None))
+    del gz
+    sub = rng.choice(256 * 256, 256, replace=False)
+    kxy = np.stack([kx, ky], -1)
+    run("nufft2d1 radial 256 x 1024 -> 256^2", lambda kx=on_card(kx), ky=on_card(ky), c2=c2:
+        ft.nufft2d1(kx, ky, c2, (256, 256)),
+        lambda f: (f.reshape(-1)[sub], nudft(modes((256, 256), sub), kxy, host(c2), 1)),
+        NUFFT_TOL, exact=bare2)
+    f2 = crandn(256, 256)
+    pts = rng.choice(1 << 18, 256, replace=False)
+    run("nufft2d2 256^2 -> radial 256 x 1024", lambda kx=on_card(kx), ky=on_card(ky), f2=f2: ft.nufft2d2(kx, ky, f2),
+        lambda v: (v[pts], nudft(kxy[pts], all_modes((256, 256)), host(f2).reshape(-1), -1)),
+        NUFFT_TOL)
+    p3 = [points(M) for _ in range(3)]
+    p3c = [on_card(v) for v in p3]
+    xyz = np.stack(p3, -1)
+    c3 = crandn(M)
+    sub = rng.choice(128 ** 3, 64, replace=False)
+    run("nufft3d1 2^20 points -> 128^3 (chunked spread)",
+        lambda p3c=p3c, c3=c3: ft.nufft3d1(*p3c, c3, (128, 128, 128)),
+        lambda f: (f.reshape(-1)[sub], nudft(modes((128,) * 3, sub), xyz, host(c3), 1)),
+        NUFFT_TOL)
+    f3 = crandn(128, 128, 128)
+    pts = rng.choice(M, 64, replace=False)
+    run("nufft3d2 128^3 -> 2^20 points (chunked gather)", lambda p3c=p3c, f3=f3: ft.nufft3d2(*p3c, f3),
+        lambda v: (v[pts], nudft(xyz[pts], all_modes((128,) * 3), host(f3).reshape(-1), -1)),
+        NUFFT_TOL)
+    del c, f1, c2, f2, p3c, c3, f3
+    grids = {}
+    for dims, m, X, S in ((1, 1 << 16, 50.0, 63.0), (2, 1 << 14, 20.0, 25.0)):
+        pts3 = [points(m, -X, X) for _ in range(dims)]
+        frs = [points(m, -S, S) for _ in range(dims)]
+        for v, e in zip(pts3 + frs, [X] * dims + [S] * dims):
+            v[:2] = (-e, e)  # the extents, exactly
+        nt = nufft._t3_geom((-X, X), (-S, S))[4]
+        nf = nufft._fine_n(nt)
+        check(cuda_fft._ax0_supported(nf), f"path 9 nufft{dims}d3: fine grid {nf} off the kernels")
+        grids[dims] = (nt, nf)
+        cv = crandn(m)
+        outs = rng.choice(m, 256, replace=False)
+        name = f"nufft{dims}d3 2^{m.bit_length() - 1} points, grid {nt}^{dims}, fine {nf}^{dims}"
+        run(name, lambda pts3=pts3, frs=frs, cv=cv, dims=dims: getattr(ft, f"nufft{dims}d3")(
+            *map(on_card, pts3), cv, *map(on_card, frs)),
+            lambda f, pts3=pts3, frs=frs, cv=cv, outs=outs: (
+                f[outs], nudft(np.stack([v[outs] for v in frs], -1), np.stack(pts3, -1),
+                               host(cv), 1)), NUFFT3_TOL)
+    checked = time.perf_counter() - t0
+
+    for name, rec in calls.items():
+        fn = rec.pop("fn")
+        per_call = sum(v for k, v in rec["launches"].items() if not k.endswith("_c64"))
+        others = {}
+        for _ in range(3):  # a window can miss launches (PERF.md §7)
+            prof = breakdown(fn, SIGNAL_TAIL_KERNELS, reps=10, others=others)
+            if sum(prof[f"{k} launches"] for k in SIGNAL_TAIL_KERNELS) >= per_call:
+                break
+        rec["ms"] = prof["events"]
+        rec["kernel_ms"] = sum(prof[k] for k in SIGNAL_TAIL_KERNELS)
+        rec["other_ms"] = prof["other"]
+        rec["idle"] = prof["idle"]
+        work = {}
+        for k, v in others.items():  # a kernel's name without its arguments
+            k = re.sub(r"[<(].*", "", re.sub(r"^void |\(anonymous namespace\)::", "", k))
+            work[k] = work.get(k, 0.0) + v
+        rec["other_work"] = dict(sorted(work.items(), key=lambda kv: -kv[1])[:4])
+        print(f"signal tail: {smi} | {name} | {rec['ms']:.4f} ms (CUDA events, median of 10) | "
+              f"device ms (torch.profiler, 10 calls): kernels {rec['kernel_ms']:.4f}, other "
+              f"{rec['other_ms']:.4f}, idle {rec['idle']:.3f} | launches {rec['launches']} | "
+              f"other device work (ms) "
+              + ", ".join(f"{k} {v:.4f}" for k, v in rec["other_work"].items())
+              + f" | peak {rec['peak'] / 2**20:.1f} MiB | rel-L2 {rec['err']:.3e} "
+              f"(bar {rec['tol']:.0e})", flush=True)
+    total = time.perf_counter() - t0
+    print(f"main: signal-processing and non-uniform long tail (path 9), {len(calls)} calls "
+          f"checked against float64 in {checked:.1f} s, timed in {total - checked:.1f} s "
+          f"({total:.1f} s in all); type-3 grids {grids}", flush=True)
     return calls
 
 
@@ -2279,6 +2630,24 @@ def main() -> int:
         gp = grads_of(fn, [(64, 4096)], SEED + 5, torch.device("cpu"), False)
         gerrs[what] = check_close(gk.cpu(), gp, f"grad of sum(w*|f(x)|^2) {what} "
                                                 "kernels vs plain")
+    # the signal-processing tail: nufft1d1 in its values (the spread, the
+    # fine grid's row kernel forward; back, the row kernel and the gather)
+    # and convolve2d in both inputs (the R2C and axis(-2) kernels for each
+    # input and the axis(-2) and C2R kernels forward; their adjoints back)
+    xs_grad = torch.from_numpy(np.random.default_rng(SEED + 6).uniform(
+        0, 2 * np.pi, 4096).astype(np.float32))
+    for what, fn, shapes, cplx, kernels in (
+            ("nufft1d1 4096 points -> 4096 modes",
+             lambda u: ft.nufft1d1(xs_grad.to(u.device), u, 4096), [(4096,)], True,
+             {"rows_fft": 2}),
+            ("convolve2d 500x1000 * 13x25 same",
+             lambda u, v: ft.convolve2d(u, v, mode="same"), [(500, 1000), (13, 25)], False,
+             {"r2c_fft": 3, "ax0_fft": 6, "c2r_fft": 1, "rows_fft": 2})):
+        gk = through(f"grad {what}", lambda: grads_of(fn, shapes, SEED + 6, dev, cplx),
+                     **kernels)
+        gp = grads_of(fn, shapes, SEED + 6, torch.device("cpu"), cplx)
+        gerrs[what] = check_close(gk.cpu(), gp, f"grad of sum(w*|f(x)|^2) {what} "
+                                                "kernels vs plain")
     print("grad: rel-L2 vs plain " + ", ".join(f"{k} {v:.3e}" for k, v in gerrs.items()),
           flush=True)
 
@@ -2818,6 +3187,12 @@ def main() -> int:
                 "plain_ms": times[shape][plain], "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": times[shape]["torch.fft"]}
 
+    # Path 9 runs last: after its windows (the 2^20-point NUFFTs launch
+    # thousands of kernels a window) later torch.profiler windows in the
+    # same process were seen to miss one or two of 20 launches, whatever
+    # memory was freed (PERF.md §7), and phase 5 holds windows to exact
+    # launch counts.
+    signal_tail(ft, dev, gen, smi)  # path 9
     c2c = 16  # bytes per point of a planar complex64 row, read and written
     r2c = lambda n, rows: (4 * n + 8 * (n // 2 + 1)) * rows  # noqa: E731
     print(json.dumps({"kernels": [

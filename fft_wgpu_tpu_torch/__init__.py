@@ -34,7 +34,16 @@ axis through the plan, with no transpose; types I through the R2C route),
 the Chebyshev transforms, the MDCT, the fast Hankel transform, spectral
 derivatives, scipy.ndimage's Fourier filters, circulant, Toeplitz and
 BCCB solvers and Gaussian random fields, the cepstra and minimum phase,
-``envelope``, the WOLA channelizer and the Wigner-Ville distribution.
+``envelope``, the WOLA channelizer and the Wigner-Ville distribution.  So
+does the signal-processing and non-uniform long tail: the waveforms and
+the FIR designs (host float64 numpy, as in the JAX package; a waveform of
+a tensor ``t`` is computed on ``t``'s device), ``upfirdn``,
+``resample_poly`` and ``decimate`` (R2C, a spectrum product and C2R at a
+pow2 length), ``convolve2d``, ``correlate2d``, ``wiener`` and
+``savgol_filter``, the fractional Fourier transforms (``frft``,
+``frft2``; ``dfrft`` is two matmuls) and the NUFFTs of types 1-3 in 1-D,
+2-D and 3-D (``index_add_`` spreading, a gather, the fine grid's
+transform through the plan).
 Other lengths,
 and every CPU tensor, run the plain torch mixed-radix path.  A tensor is
 transformed on the device it lies on; other input (numpy arrays) goes to
@@ -47,6 +56,8 @@ from .core.twiddle import FORWARD, INVERSE
 from .ops.cepstrum import (complex_cepstrum, inverse_complex_cepstrum, minimum_phase,
                            real_cepstrum)
 from .ops.channelizer import channelize, prototype_lowpass
+from .ops.conv2d import (convolve2d, correlate2d, deconvolve, morlet, savgol_coeffs,
+                         savgol_filter, wiener)
 from .ops.chebyshev import (cheb_coeffs, cheb_derivative, cheb_integrate, cheb_points,
                             cheb_values, clenshaw_curtis_weights)
 from .ops.cwt import CWT, cwt, morlet2, ricker
@@ -57,13 +68,18 @@ from .ops.fastconv import SpectralFilter, spectral_filter
 from .ops.fftlog import fht, fhtoffset, ifht
 from .ops.fourier_filters import (fourier_ellipsoid, fourier_gaussian, fourier_shift,
                                   fourier_uniform)
+from .ops.frft import dfrft, frft, frft2
 from .ops.helpers import (choose_conv_method, convolve, correlate, correlation_lags,
                           detrend, dht, fft_convolve, fftconvolve, fftcorrelate, fftfreq,
                           fftshift, get_workers, hilbert, hilbert2, idht, ifftshift,
                           next_fast_len, oaconvolve, prev_fast_len, resample, rfftfreq,
                           set_workers)
 from .ops.mdct import imdct, imdct_frame, mdct, mdct_frame, sine_window
+from .ops.multirate import (decimate, firls, firwin, firwin2, freqz, group_delay, kaiser_atten,
+                            kaiser_beta, kaiserord, remez, resample_poly, upfirdn)
 from .ops.nd import fft2, fftn, ifft2, ifftn
+from .ops.nufft import (nufft1d1, nufft1d2, nufft1d3, nufft2d1, nufft2d2, nufft2d3, nufft3d1,
+                        nufft3d2, nufft3d3)
 from .ops.rfft import (hfft, hfft2, hfftn, ihfft, ihfft2, ihfftn, irfft, irfft2,
                        irfftn, rfft, rfft2, rfftn)
 from .ops.spectral_est import (check_COLA, check_NOLA, coherence, csd, dpss, flattop_window,
@@ -76,6 +92,8 @@ from .ops.stft import (bartlett_window, blackman_window, hamming_window, hann_wi
 from .ops.structured import (bccb_matvec, bccb_solve, circulant_matvec, circulant_solve,
                              grf_sample, toeplitz_matvec, toeplitz_solve)
 from .ops.transforms import fft, ifft, ifft_unnormalized, normalize
+from .ops.waveforms import (chirp, gausspulse, max_len_seq, sawtooth, square, sweep_poly,
+                            unit_impulse, vectorstrength)
 from .ops.wigner import wigner_ville, wigner_ville_frequencies
 from .ops.windows import (barthann_window, blackmanharris_window, bohman_window,
                           boxcar_window, chebwin_window, cosine_window, exponential_window,
@@ -225,6 +243,45 @@ __all__ = [
     "prototype_lowpass",
     "wigner_ville",
     "wigner_ville_frequencies",
+    "chirp",
+    "sweep_poly",
+    "gausspulse",
+    "sawtooth",
+    "square",
+    "unit_impulse",
+    "max_len_seq",
+    "vectorstrength",
+    "kaiser_atten",
+    "kaiser_beta",
+    "kaiserord",
+    "firwin",
+    "firwin2",
+    "firls",
+    "remez",
+    "upfirdn",
+    "resample_poly",
+    "decimate",
+    "freqz",
+    "group_delay",
+    "convolve2d",
+    "correlate2d",
+    "deconvolve",
+    "wiener",
+    "savgol_coeffs",
+    "savgol_filter",
+    "morlet",
+    "frft",
+    "frft2",
+    "dfrft",
+    "nufft1d1",
+    "nufft1d2",
+    "nufft1d3",
+    "nufft2d1",
+    "nufft2d2",
+    "nufft2d3",
+    "nufft3d1",
+    "nufft3d2",
+    "nufft3d3",
     "Plan",
     "plan",
     "get_plan",

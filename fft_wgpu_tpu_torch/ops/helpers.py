@@ -92,8 +92,58 @@ def _pair(a, b):
     return _tensor(a, dev), _tensor(b, dev)
 
 
+def _as_host_or_device(x):
+    """Input with a ``.shape``: a tensor or an array passes as it is, a
+    python sequence or scalar becomes host numpy."""
+    if not hasattr(x, "shape"):
+        return np.asarray(x)
+    return x
+
+
 def _iscomplex(x) -> bool:
     return x.is_complex() if isinstance(x, torch.Tensor) else np.iscomplexobj(x)
+
+
+def _pad_axis(x, before: int, after: int, dim: int, mode: str, cval=0.0, odd=False):
+    """``x`` padded along ``dim`` as ``jnp.pad`` / ``numpy.pad`` pad it in
+    ``mode`` ('constant' with ``cval``, 'edge', 'wrap', 'symmetric',
+    'reflect'; ``odd`` for reflect_type='odd'), any pad width."""
+    if mode == "constant":
+        shape = list(x.shape)
+        parts = []
+        for width in (before, after):
+            shape[dim] = width
+            parts.append(x.new_full(shape, cval))
+        return torch.cat([parts[0], x, parts[1]], dim)
+    n = x.shape[dim]
+    if mode in ("edge", "wrap"):  # index maps
+        idx = np.pad(np.arange(n), (before, after), mode=mode)
+        return x.index_select(dim, torch.from_numpy(idx).to(x.device))
+    if mode not in ("symmetric", "reflect"):
+        raise ValueError(f"unknown pad mode {mode!r}")
+    # jnp.pad's loop: reflect the padded array's edge until the width is met
+    arr = x.movedim(dim, -1)
+    offset = 1 if (mode == "reflect" and n > 1) else 0
+
+    def build(arr, width, first):
+        edge = arr[..., :1] if first else arr[..., -1:]
+        while width > 0:
+            cur = min(width, n - offset)
+            width -= cur
+            if first:
+                piece = arr[..., offset:offset + cur]
+            else:
+                stop = arr.shape[-1] - (0 if (mode == "symmetric" or n == 1) else 1)
+                piece = arr[..., stop - cur:stop]
+            piece = piece.flip(-1)
+            if odd:
+                piece = 2 * edge - piece
+                if n > 1:
+                    edge = piece[..., :1] if first else piece[..., -1:]
+            arr = torch.cat([piece, arr] if first else [arr, piece], -1)
+        return arr
+
+    return build(build(arr, before, True), after, False).movedim(-1, dim)
 
 
 def _f32(x):

@@ -118,11 +118,18 @@ def irfft_last_split(Xr, Xi, n, total_scale, *, padded_in=False):
     return _irfft_even_split(Xr, Xi, n, None if abs(net - 1.0) < 1e-12 else net)
 
 
+def _one_row(Ar, Br) -> bool:
+    """Whether B is one row broadcast over A: 1-D, or of A's rank or less
+    with every leading dim 1 (a taps row ``[1, ..., 1, bins]``)."""
+    return Br.ndim == 1 or (Br.ndim <= Ar.ndim and all(d == 1 for d in Br.shape[:-1]))
+
+
 def _prod_on_kernel(Ar, Br, n) -> bool:
     """Whether real(IRFFT(A * B)) runs the product C2R kernel: a CUDA
-    tensor, pow2 n in its envelope, and B of A's shape or one 1-D row."""
+    tensor, pow2 n in its envelope, and B of A's shape or one row
+    (:func:`_one_row`)."""
     return (Ar.device.type == "cuda" and cuda_fft._supported(n)
-            and (Br.ndim == 1 or Br.shape == Ar.shape))
+            and (_one_row(Ar, Br) or Br.shape == Ar.shape))
 
 
 def irfft_prod_last_split(Ar, Ai, Br, Bi, n, total_scale, *, padded_in=False):
@@ -130,12 +137,15 @@ def irfft_prod_last_split(Ar, Ai, Br, Bi, n, total_scale, *, padded_in=False):
     scale: the spectrum-domain convolution epilogue.
 
     In the product C2R kernel's envelope (:func:`_prod_on_kernel`) the
-    product is formed at load; any other shape (a batched-lead B such as
-    ``[..., 1, bins]``, other n, a CPU tensor) takes the composed product
+    product is formed at load (a row ``[1, ..., 1, bins]`` as one 1-D row);
+    any other shape (a batched-lead B such as ``[5, 1, bins]``, other n, a
+    CPU tensor) takes the composed product
     and :func:`irfft_last_split`, chosen before any launch.  Both are
     differentiable in A and B.  padded_in=True consumes the padded serving
     form [..., pad_bins(n)] of both operands."""
     if _prod_on_kernel(Ar, Br, n):
+        if Br.shape != Ar.shape:  # one row, as the kernel broadcasts it
+            Br, Bi = Br.reshape(-1), Bi.reshape(-1)
         return cuda_fft.irfft_prod_rows_split(Ar, Ai, Br, Bi, n, total_scale,
                                               padded_in=padded_in)
     return irfft_last_split(Ar * Br - Ai * Bi, Ar * Bi + Ai * Br, n, total_scale,

@@ -2133,3 +2133,149 @@ def test_grad_long_tail_dct2_matches_plain(dev):
 
         gk = _long_tail_through(lambda: grad(x0), **want)
         assert rel_l2(gk.cpu(), grad(x0.cpu())) < TOL
+
+
+# ---------------------------------------------------------------------- #
+# the signal-processing and non-uniform long tail (waveforms, multirate,
+# conv2d, frft, nufft): each family on the card against the port's plain
+# path on the CPU; three launch counts exact against bare calls of the
+# transforms they compose
+# ---------------------------------------------------------------------- #
+def _summed(*deltas):
+    out = {}
+    for d in deltas:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def test_signal_tail_multirate_and_waveforms_on_card(dev):
+    from fft_wgpu_tpu_torch.ops.rfft import irfft_last_split, rfft_last_split
+
+    t = torch.linspace(0, 10, 501, dtype=torch.float64, device=dev)
+    for name, kw in (("chirp", dict(f0=1.5, t1=10, f1=6.0, method="hyperbolic")),
+                     ("sweep_poly", dict(poly=[0.05, -0.75, 2.0])),
+                     ("sawtooth", dict(width=0.3)), ("square", dict(duty=0.2)),
+                     ("gausspulse", dict(fc=0.5))):
+        y = getattr(ft, name)(t, **kw)
+        assert y.device.type == "cuda"
+        np.testing.assert_allclose(y.cpu().numpy(), getattr(ft, name)(t.cpu().numpy(), **kw),
+                                   rtol=0, atol=1e-12)
+    x = rrand(dev, 2, 4096, seed=1)
+    h = ft.firwin(33, 0.3)
+    assert _on_card_and_cpu(lambda v: ft.upfirdn(h, v, 4, 3), x)
+    assert _on_card_and_cpu(lambda v: ft.upfirdn(h * (1 + 1j), v, 2, 1, mode="reflect"),
+                            crand(dev, 3, 1000, seed=2))
+    for padtype in ("constant", "mean", "median", "antisymmetric"):
+        assert _on_card_and_cpu(lambda v: ft.resample_poly(v, 3, 4, padtype=padtype), x)
+    assert _on_card_and_cpu(lambda v: ft.decimate(v, 8), x)
+    # resample_poly at 147/160: exactly the R2C of the signal rows and of the
+    # taps row and the C2R, at nfft 2^20 (the packed half-length rows through
+    # the four-step)
+    nfft = 1 << 20
+    _, a = _launched(lambda: rfft_last_split(torch.zeros(2, nfft, device=dev), None))
+    _, b = _launched(lambda: rfft_last_split(torch.zeros(1, nfft, device=dev), None))
+    bins = torch.zeros(2, nfft // 2 + 1, device=dev)
+    _, c = _launched(lambda: irfft_last_split(bins, bins, nfft, 1.0 / nfft))
+    _long_tail_through(lambda: ft.resample_poly(x, 147, 160), **_summed(a, b, c))
+
+
+def test_signal_tail_conv2d_on_card(dev):
+    # 600 x 1000 with 9 x 8: 5-smooth even lengths 640 (composite) and 1024
+    a, k = rrand(dev, 600, 1000, seed=1), rrand(dev, 9, 8, seed=2)
+    for mode in ("full", "same", "valid"):
+        for boundary in ("fill", "wrap", "symm"):
+            assert _on_card_and_cpu(lambda u, v: ft.convolve2d(u, v, mode, boundary), a, k)
+    assert _on_card_and_cpu(lambda u, v: ft.correlate2d(u, v, "valid"), crand(dev, 600, 600,
+                                                                              seed=3),
+                            crand(dev, 64, 64, seed=4), tol=1e-4)
+    assert _on_card_and_cpu(lambda u: ft.wiener(u, 5), a, tol=2e-4)
+    for mode in ("interp", "mirror", "wrap"):
+        assert _on_card_and_cpu(lambda u: ft.savgol_filter(u, 31, 3, mode=mode),
+                                rrand(dev, 8, 4000, seed=5))
+    # the taps row of the FIR pass broadcasts on the product C2R kernel
+    _, launched = _launched(lambda: ft.savgol_filter(rrand(dev, 8, 1000, seed=6), 31, 3))
+    assert launched.get("c2r_prod") == 1
+
+
+def test_signal_tail_frft_on_card(dev):
+    from fft_wgpu_tpu_torch.core.twiddle import FORWARD, INVERSE
+
+    x = crand(dev, 8, 1024, seed=1)
+    for a in (0.5, 0.9, 1.7, 3.0):
+        assert _on_card_and_cpu(lambda v: ft.frft(v, a), x)
+    # frft at a = 0.5 is exactly the forward and inverse transforms of
+    # [8, 8192] and [8, 16384] (the row kernel)
+    bare = []
+    for L in (8192, 16384):
+        z = torch.zeros(8, L, device=dev)
+        p = ft.get_plan(L)
+        bare += [_launched(lambda: p._execute_split(z, z, FORWARD, None))[1],
+                 _launched(lambda: p._execute_split(z, z, INVERSE, 1.0 / L))[1]]
+    _long_tail_through(lambda: ft.frft(x, 0.5), **_summed(*bare))
+    # along axis 0 the axis(-2) kernel, with no transpose
+    assert "ax0_fft" in _on_card_and_cpu(lambda v: ft.frft2(v, (0.5, 0.7)),
+                                         crand(dev, 1024, 256, seed=2))
+    _on_card_and_cpu(lambda v: ft.dfrft(v, 0.4), x, launches=False)
+
+
+def test_signal_tail_nufft_on_card(dev):
+    from fft_wgpu_tpu_torch.core.twiddle import INVERSE
+    from fft_wgpu_tpu_torch.ops import nd
+
+    rng = np.random.default_rng(7)
+
+    def pts(m, lo=0.0, hi=2 * np.pi):
+        return torch.from_numpy(rng.uniform(lo, hi, m).astype(np.float32)).to(dev)
+
+    x, y, z = pts(3000), pts(3000), pts(3000)
+    c = crand(dev, 2, 3000, seed=1)
+    for isign in (1, -1):
+        assert _on_card_and_cpu(lambda *a: ft.nufft1d1(*a, 4096, isign=isign), x, c)
+        assert _on_card_and_cpu(lambda *a: ft.nufft2d1(*a, (64, 96), isign=isign), x, y, c)
+        assert _on_card_and_cpu(lambda *a: ft.nufft3d1(*a, (64, 64, 64), isign=isign),
+                                x, y, z, c)
+    assert _on_card_and_cpu(ft.nufft1d2, x, crand(dev, 2, 4096, seed=2))
+    assert _on_card_and_cpu(ft.nufft2d2, x, y, crand(dev, 64, 96, seed=3))
+    assert _on_card_and_cpu(ft.nufft3d2, x, y, z, crand(dev, 64, 64, 64, seed=4))
+    s, t, u = pts(500, -30, 30), pts(500, -20, 20), pts(500, -10, 10)
+    xs, ys, zs = pts(3000, -20, 20), pts(3000, -10, 10), pts(3000, -5, 5)
+    for fn, args in ((ft.nufft1d3, (xs, c, s)), (ft.nufft2d3, (xs, ys, c, s, t)),
+                     (ft.nufft3d3, (xs, ys, zs, c, s, t, u))):
+        assert _on_card_and_cpu(fn, *args, tol=2e-4 if fn is ft.nufft3d3 else TOL)
+    # nufft2d1 at 64^2 modes is exactly one 2-D transform of its planar
+    # 128^2 fine grid
+    g = torch.zeros(128, 128, device=dev)
+    _, bare = _launched(lambda: nd.fftn_split(g, g, (0, 1), INVERSE, None))
+    _long_tail_through(lambda: ft.nufft2d1(x, y, c[0], (64, 64)), **bare)
+
+
+def _grad_on_card_and_cpu(dev, fn, inputs, want):
+    """d/d(inputs) of sum(w * |fn(*inputs)|^2) on the card, launching
+    exactly ``want``, against the same on the CPU."""
+    w = torch.rand(fn(*inputs).shape, generator=torch.Generator().manual_seed(3))
+
+    def grad(device):
+        ins = [v.to(device).requires_grad_() for v in inputs]
+        (w.to(device) * fn(*ins).abs() ** 2).sum().backward()
+        return torch.cat([v.grad.reshape(-1) for v in ins])
+
+    gk = _long_tail_through(lambda: grad(dev), **want)
+    assert rel_l2(gk.cpu(), grad(torch.device("cpu"))) < TOL
+
+
+def test_grad_nufft1d1(dev):
+    # the values: the row kernel forward (fine grid 8192) and back
+    x = torch.from_numpy(np.random.default_rng(1).uniform(0, 2 * np.pi, 4096)
+                         .astype(np.float32))
+    _grad_on_card_and_cpu(dev, lambda c: ft.nufft1d1(x.to(c.device), c, 4096),
+                          [crand(dev, 4096, seed=2).cpu()], {"rows_fft": 2})
+
+
+def test_grad_convolve2d(dev):
+    # both inputs: R2C and axis(-2) forward for each, axis(-2) and C2R
+    # for the product; back, the C2R's adjoint (R2C), the axis(-2) passes'
+    # and the R2Cs' (C2C rows)
+    _grad_on_card_and_cpu(dev, lambda u, v: ft.convolve2d(u, v, mode="same"),
+                          [rrand(dev, 500, 1000, seed=1).cpu(), rrand(dev, 13, 25, seed=2).cpu()],
+                          {"r2c_fft": 3, "ax0_fft": 6, "c2r_fft": 1, "rows_fft": 2})
