@@ -11,7 +11,9 @@ resample), and the transform long tail (scipy.fft's DCT/DST and fht, the
 Chebyshev, MDCT, spectral-calculus, Fourier-filter, structured-solver,
 cepstrum, envelope, channelizer and Wigner-Ville calls), and the
 signal-processing and non-uniform tail (multirate filtering, 2-D
-convolution and Wiener filtering, fractional Fourier transforms, NUFFTs).
+convolution and Wiener filtering, fractional Fourier transforms, NUFFTs),
+and the model family (the FNOs and their training step, the Burgers, KS,
+2-D Navier-Stokes and NLSE steppers, the Poisson solve).
 
     python3 chip_smoke.py
 
@@ -202,7 +204,21 @@ non-zero without a result line:
              signal rows and of the taps row and the C2R at 2^26, each
              counted from bare calls in the same run), each call's
              launches, other device work by name, peak bytes, events,
-             device ms and idle share;
+             device ms and idle share; the model family (path 10,
+             :func:`models_path`, run after phase 5 and before path 9):
+             the flagship FNO1d (modes 64, width 32, depth 2, x
+             [8, 1024, 1]), FNO2d ([4, 256^2, 1]) and FNO3d ([2, 128^3,
+             1]), a forward and one train_step each, their outputs, losses
+             and every parameter's gradient against CPU copies (FNO3d's
+             first sample), Burgers (1024 x 8192 and Cole-Hopf at 8192),
+             Kuramoto-Sivashinsky (1024 x 128, and 20 steps against a
+             float64 ETDRK4), 2-D Navier-Stokes (Taylor-Green and 20
+             random fields at 256^2), the NLSE (bright solitons at 256
+             and 4096, the free Gaussian at 256^2) and solve_poisson at
+             256^3 (the residual of the spectral Laplacian), each call's
+             launches exact, a step and a short rollout against CPU
+             copies, the oracles at the JAX tests' bars, and each step's
+             events, device ms, other device work by name and idle share;
 4. grad    — gradients against the plain versions' (CPU for the N-D,
              real and non-pow2 ones): fft (row kernel; the four-step at
              2 x 2^20; the whole row at 4 x 2^16; the row and whole-row
@@ -1208,6 +1224,337 @@ def signal_tail(ft, dev, gen, smi) -> dict:
     print(f"main: signal-processing and non-uniform long tail (path 9), {len(calls)} calls "
           f"checked against float64 in {checked:.1f} s, timed in {total - checked:.1f} s "
           f"({total:.1f} s in all); type-3 grids {grids}", flush=True)
+    return calls
+
+
+# The kernels a step of the model family (path 10) may launch, as the
+# profiler names them; the rest of its device work (the FNOs' einsums,
+# matmuls and GELU, the steppers' products) is "other".
+MODEL_KERNELS = ("rows_fft", "ax0_fft", "fft2f_fft", "r2c_fft", "c2r_fft")
+# The JAX package's tests' bars against their oracles: tests/test_burgers.py
+# (Cole-Hopf 1e-4), tests/test_ks.py (float64 ETDRK4 1e-4),
+# tests/test_navier_stokes.py (Taylor-Green 1e-4), tests/test_nlse.py (the
+# standing soliton 2e-4, the free Gaussian 1e-4), tests/test_poisson.py
+# (the 2-D analytic solve 1e-4, here the residual of the spectral Laplacian).
+COLE_HOPF_TOL = KS_REF_TOL = TAYLOR_GREEN_TOL = GAUSSIAN_TOL = POISSON_TOL = 1e-4
+SOLITON_TOL = 2e-4
+
+
+def ks_reference(u0: np.ndarray, length: float, h: float, steps: int) -> np.ndarray:
+    """Kassam and Trefethen's ETDRK4 (kursiv.m) in float64 numpy on the
+    host, the full spectrum, 2/3-rule dealiased (tests/test_ks.py's
+    oracle)."""
+    n = u0.shape[-1]
+    k = 2.0 * np.pi / length * np.fft.fftfreq(n, 1.0 / n)
+    lin = k * k - k ** 4
+    E, E2 = np.exp(h * lin), np.exp(h * lin / 2.0)
+    r = np.exp(1j * np.pi * (np.arange(1, 33) - 0.5) / 32)
+    zr = h * lin[:, None] + r[None, :]
+    Q = h * np.real(np.mean(np.expm1(zr / 2.0) / zr, axis=1))
+    f1 = h * np.real(np.mean((-4.0 - zr + np.exp(zr) * (4.0 - 3.0 * zr + zr ** 2)) / zr ** 3, 1))
+    f2 = h * np.real(np.mean((2.0 + zr + np.exp(zr) * (-2.0 + zr)) / zr ** 3, 1))
+    f3 = h * np.real(np.mean((-4.0 - 3.0 * zr - zr ** 2 + np.exp(zr) * (4.0 - zr)) / zr ** 3, 1))
+    dealias = (np.abs(np.fft.fftfreq(n, 1.0 / n)) <= n / 3.0).astype(float)
+    g = -0.5j * k * dealias
+
+    def N(v):
+        u = np.real(np.fft.ifft(v, axis=-1))
+        return g * np.fft.fft(u * u, axis=-1)
+
+    v = np.fft.fft(u0.astype(np.float64), axis=-1) * dealias
+    for _ in range(steps):
+        nv = N(v)
+        a = E2 * v + Q * nv
+        na = N(a)
+        b = E2 * v + Q * na
+        nb = N(b)
+        c = E2 * a + Q * (2.0 * nb - nv)
+        v = E * v + f1 * nv + 2.0 * f2 * (na + nb) + f3 * N(c)
+    return np.real(np.fft.ifft(v, axis=-1))
+
+
+def models_path(dev, gen, smi) -> dict:
+    """Path 10: the model family (``fft_wgpu_tpu_torch.models``) at full
+    width on the card.  FNO1d, the repo's flagship (modes 64, width 32,
+    depth 2, x [8, 1024, 1]), FNO2d (modes 16², width 32, depth 2, x [4,
+    256, 256, 1]) and FNO3d (modes 8³, width 16, depth 2, x [2, 128³, 1]),
+    each a forward and one train_step; Burgers (1024 random fields at n =
+    8192, nu 0.01; Cole-Hopf at 8192), Kuramoto-Sivashinsky (n 128, L 32 pi,
+    h 1/4, 1024 trajectories), 2-D Navier-Stokes (Taylor-Green at 256², 20
+    random fields of 256²), the NLSE (a bright soliton at n 4096, the 2-D
+    free Gaussian at 256²) and solve_poisson at 256³.  Each call runs once
+    with its launches held exact (``through``); its output, and each
+    training step's loss and gradients, against the same call on CPU
+    copies (the plain path; FNO3d's on the first sample, about 12 s of
+    the host's time for the whole batch's 25) at 1e-5 relative L2; the
+    analytic oracles at the JAX tests' bars.  Then each step is timed:
+    CUDA events, and the device ms of its kernels and of the rest and the
+    device's idle share from a torch.profiler window.  Returns each timed
+    call's record."""
+    import copy
+
+    import torch
+
+    from fft_wgpu_tpu_torch import models
+    from fft_wgpu_tpu_torch.models import navier_stokes, spectral
+    from fft_wgpu_tpu_torch.ops import cuda_fft
+    from fft_wgpu_tpu_torch.ops.rfft import rfft_last_split
+
+    t0 = time.perf_counter()
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu = torch.device("cpu")
+    errs, calls = {}, {}
+
+    def hold(what, got, want, tol=TOL, group=None):
+        """The card's ``got`` (a tensor or an (re, im) pair) against
+        ``want`` (the CPU's, or a float64 oracle) by relative L2; the worst
+        error of each ``group`` (else ``what``) is kept, with its count."""
+        if isinstance(got, tuple):
+            got, want = torch.complex(*got), torch.complex(*want)
+        got = got.detach().cpu()
+        want = (want.detach().cpu() if isinstance(want, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(want)))
+        check(tuple(got.shape) == tuple(want.shape),
+              f"path 10 {what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+        check(bool(got.isfinite().all()), f"path 10 {what}: non-finite output")
+        err = rel_l2(got, want)
+        check(err <= tol, f"path 10 {what}: rel-L2 {err:.3e} > {tol:.0e}")
+        worst, count = errs.get(group or what, (0.0, 0))
+        errs[group or what] = (max(worst, err), count + 1)
+        return err
+
+    def to_cpu(v):
+        """A tensor, or a tuple of them, copied to the CPU."""
+        return tuple(map(to_cpu, v)) if isinstance(v, tuple) else v.detach().cpu()
+
+    def timed(name, fn, launches, reps):
+        calls[name] = {"fn": fn, "launches": launches, "reps": reps}
+
+    # ---- the FNO family: forward and one SGD step (autograd) -------------
+    def fno(name, model, x, y, fwd, step, reps, cpu_batch=None):
+        """``model``'s forward, its loss and gradients and one train_step on
+        the card, each exactly ``fwd`` / ``step`` / ``step`` launches; the
+        forward, the loss and every parameter's gradient against a CPU
+        copy (of the first ``cpu_batch`` samples where given: the card's
+        gradients of those samples' loss); the step's loss, and its
+        parameters against p - lr * grad."""
+        ref = copy.deepcopy(model).to(cpu)
+        weights = list(model.parameters())
+        with torch.no_grad():
+            out = through(f"path 10 {name} forward", lambda: model(x), **fwd)
+
+        def grads(a, b):
+            loss = models.mse_loss(model, a, b)
+            return loss, torch.autograd.grad(loss, weights)
+
+        loss, g = through(f"path 10 {name} loss and gradients", lambda: grads(x, y), **step)
+        k = slice(None) if cpu_batch is None else slice(0, cpu_batch)
+        xc, yc = to_cpu(x[k]), to_cpu(y[k])
+        out_c = ref(xc)
+        loss_c = torch.mean((out_c - yc) ** 2)
+        g_c = torch.autograd.grad(loss_c, list(ref.parameters()))
+        hold(f"{name} forward", out[k], out_c)
+        loss_k, g_k = (loss, g) if cpu_batch is None else grads(x[k], y[k])
+        hold(f"{name} loss", loss_k, loss_c)
+        for (pname, _), a, b in zip(model.named_parameters(), g_k, g_c):
+            hold(f"{name} d/d{pname}", a, b, group=f"{name} gradients")
+        before = [w.detach().clone() for w in weights]
+        _, got = through(f"path 10 {name} train_step",
+                         lambda: models.train_step(model, x, y, lr=1e-3), **step)
+        check(got.ndim == 0 and got.device == dev and not got.requires_grad,
+              f"path 10 {name}: train_step's loss {got}")
+        hold(f"{name} train_step loss", got, loss)
+        for (pname, w), w0, gw in zip(model.named_parameters(), before, g):
+            hold(f"{name} train_step {pname}", w, w0 - 1e-3 * gw,
+                 group=f"{name} train_step's parameters")
+
+        def forward():
+            with torch.no_grad():
+                return model(x)
+
+        timed(f"{name} forward {tuple(x.shape)}", forward, fwd, reps)
+        timed(f"{name} train_step {tuple(x.shape)}",
+              lambda: models.train_step(model, x, y, lr=1e-3), step, reps)
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    fno("FNO1d", models.init_fno1d(gen, modes=64, width=32, depth=2, device=dev),
+        randn(8, 1024, 1), randn(8, 1024, 1),
+        {"r2c_fft": 2, "r2c_fft_c64": 2, "c2r_fft": 2, "c2r_fft_c64": 2},
+        {"r2c_fft": 4, "r2c_fft_c64": 4, "c2r_fft": 2, "c2r_fft_c64": 2, "rows_fft": 2,
+         "rows_fft_c64": 2}, reps=20)
+    fno("FNO2d", models.init_fno2d(gen, modes=(16, 16), width=32, depth=2, device=dev),
+        randn(4, 256, 256, 1), randn(4, 256, 256, 1),
+        {"fft2f_fft": 4, "fft2f_fft_c64": 2}, {"fft2f_fft": 8, "fft2f_fft_c64": 4}, reps=10)
+    fno("FNO3d", spectral.init_fno3d(gen, modes=(8, 8, 8), width=16, depth=2, device=dev),
+        randn(2, 128, 128, 128, 1), randn(2, 128, 128, 128, 1),
+        {"fft2f_fft": 4, "fft2f_fft_c64": 2, "ax3_fft": 4, "ax3_fft_c64": 2},
+        {"fft2f_fft": 8, "fft2f_fft_c64": 4, "ax3_fft": 8, "ax3_fft_c64": 4}, reps=5,
+        cpu_batch=1)
+    fno_done = time.perf_counter()
+
+    # ---- the steppers: one step and a short rollout against CPU copies ----
+    def stepper(name, plan, cpu_plan, step, state, want, rollout, u0, steps, start_end):
+        """``step`` on the split state, exactly ``want`` launches, and
+        ``rollout`` of ``steps`` steps from ``u0`` (``want`` a step plus
+        ``start_end``), each against the CPU plan's."""
+        got = through(f"path 10 {name} step", lambda: step(plan, *state), **want)
+        hold(f"{name} step", got, step(cpu_plan, *to_cpu(state)))
+        total = {k: steps * want.get(k, 0) + start_end.get(k, 0) for k in {*want, *start_end}}
+        got = through(f"path 10 {name} rollout {steps}", lambda: rollout(plan, u0, steps), **total)
+        hold(f"{name} rollout {steps}", got, rollout(cpu_plan, to_cpu(u0), steps))
+        timed(f"{name} step", lambda: step(plan, *state), want, reps=20)
+
+    # Burgers: 1024 random fields at n = 8192 (FNO training data), then
+    # Cole-Hopf at 8192 (2000 steps to t = 1: dt inside the advective limit)
+    n = 8192
+    burgers = {"r2c_fft": 2, "c2r_fft": 2}
+    bplan = models.burgers_init(n, 0.01, 1e-4, device=dev)
+    u0 = models.random_initial_condition(gen, n, batch=1024, device=dev)
+    ur, ui = rfft_last_split(u0, None)
+    stepper("burgers 1024x8192", bplan, models.burgers_init(n, 0.01, 1e-4, device=cpu),
+            models.burgers_step, (ur * bplan["mask"], ui * bplan["mask"]), burgers,
+            models.burgers_rollout, u0, 5, {"r2c_fft": 1, "c2r_fft": 1})
+    cplan = models.burgers_init(n, 0.1, 5e-4, device=dev)
+    u = through("path 10 Cole-Hopf 8192 x 2000 steps", lambda: models.burgers_rollout(
+        cplan, models.cole_hopf_solution(n, 0.1, 0.8, 0.0, device=dev), 2000),
+        r2c_fft=4001, c2r_fft=4001)
+    hold("Cole-Hopf 8192 t=1", u, models.cole_hopf_solution(n, 0.1, 0.8, 1.0, device=cpu),
+         COLE_HOPF_TOL)
+
+    # Kuramoto-Sivashinsky: Kassam-Trefethen's n 128, L 32 pi, h 1/4, on
+    # 1024 trajectories (their initial condition, each row scaled)
+    n, length, h = 128, 32.0 * np.pi, 0.25
+    kplan = models.ks_init(n, length, h, device=dev)
+    u0 = models.kt_initial_condition(n, length, device=dev) * (
+        0.9 + 0.2 * torch.rand(1024, 1, device=dev, generator=gen))
+    vr, vi = rfft_last_split(u0, None)
+    stepper("KS 1024x128", kplan, models.ks_init(n, length, h, device=cpu), models.ks_step,
+            (vr * kplan["mask"], vi * kplan["mask"]), {"r2c_fft": 4, "c2r_fft": 4},
+            models.ks_rollout, u0, 20, {"r2c_fft": 1, "c2r_fft": 1})
+    hold("KS 20 steps vs float64 ETDRK4", models.ks_rollout(kplan, u0, 20),
+         ks_reference(u0.cpu().numpy(), length, h, 20), KS_REF_TOL)
+
+    # 2-D Navier-Stokes at 256^2: Taylor-Green (k = 2, 50 steps), then 20
+    # random zero-mean fields
+    ns_step = {"ax0_fft": 10, "c2r_fft": 8, "r2c_fft": 2}
+    tg = models.ns2d_init(256, 0.02, 0.01, device=dev)
+    w0 = models.taylor_green_vorticity(256, 2, device=dev)
+    w = through("path 10 Taylor-Green 256^2 x 50 steps", lambda: models.ns2d_rollout(tg, w0, 50),
+                ax0_fft=502, c2r_fft=401, r2c_fft=101)
+    hold("Taylor-Green 256^2 decay", w, (w0 * math.exp(-2.0 * 4 * 0.02 * 0.01 * 50)).double(),
+         TAYLOR_GREEN_TOL)
+    nplan = models.ns2d_init(256, 1e-3, 5e-3, device=dev)
+    w0 = randn(20, 256, 256)
+    w0 = w0 - w0.mean((-2, -1), keepdim=True)
+    wr, wi = navier_stokes._rfft2_split(w0)
+    stepper("NS2D 20x256^2", nplan, models.ns2d_init(256, 1e-3, 5e-3, device=cpu),
+            models.ns2d_step, (wr * nplan["mask"], wi * nplan["mask"]), ns_step,
+            models.ns2d_rollout, w0, 5, {"ax0_fft": 2, "c2r_fft": 1, "r2c_fft": 1})
+
+    # NLSE: a standing bright soliton at n 4096, and the free Gaussian on
+    # 256^2 (100 steps).  The soliton's oracle is held at tests/test_nlse.py's
+    # own grid (n 256, L 40, 1000 steps to t = 1); at n 4096 (1000 steps)
+    # the row kernel's forward-inverse gain, about 1 - 1.3e-7 a round trip
+    # (the plain path's 1 - 4.8e-8), loses mass linearly, 2.6e-7 a step,
+    # past that bar: 2.9e-4 at t = 1, the plain path 5.6e-5 (ROADMAP §C,
+    # C5).  Its error and mass drift are printed beside the plain path's.
+    def soliton(n, length, device):
+        return (models.nlse_init((n,), length, 1e-3, g=1.0, device=device),
+                models.bright_soliton(n, length, device=device),
+                models.bright_soliton(n, length, t=1.0, device=cpu))
+
+    sol, psi0, want = soliton(256, 40.0, dev)
+    got = through("path 10 soliton 256 x 1000 steps", lambda: models.nlse_rollout(sol, psi0, 1000),
+                  rows_fft=2000)
+    hold("bright soliton 256 t=1", got, want, SOLITON_TOL)
+    sol, psi0, want = soliton(4096, 640.0, dev)
+    stepper("NLSE 4096", sol, models.nlse_init((4096,), 640.0, 1e-3, g=1.0, device=cpu),
+            models.nlse_step, psi0, {"rows_fft": 2}, models.nlse_rollout, psi0, 10, {})
+    drift = {}
+    for where, (plan, p0, _) in (("card", (sol, psi0, want)), ("plain", soliton(4096, 640.0, cpu))):
+        got = through("path 10 soliton 4096 x 1000 steps",
+                      lambda: models.nlse_rollout(plan, p0, 1000),
+                      **({"rows_fft": 2000} if where == "card" else {}))
+        mass = [float((a.double() ** 2 + b.double() ** 2).sum()) for a, b in (got, p0)]
+        drift[where] = (rel_l2(torch.complex(*to_cpu(got)), torch.complex(*want)),
+                        mass[0] / mass[1] - 1.0)
+    # the cause: the power gain of one forward-inverse round trip of 1000
+    # random rows, Re <y, x> / <x, x> - 1, the row kernel's and the plain
+    # version's
+    gains = []
+    for n in (256, 4096):
+        xr, xi = randn(1000, n), randn(1000, n)
+        x = torch.complex(xr, xi).to(torch.complex128)
+        for where, fft in (("card", cuda_fft.fft_batched_split),
+                           ("plain", cuda_fft.fft_batched_split_reference)):
+            y = torch.complex(*fft(*fft(xr, xi, -1, None), 1, 1.0 / n)).to(torch.complex128)
+            gain = float((y * x.conj()).sum().real / x.abs().square().sum())
+            gains.append(f"{where} n {n} {gain - 1:+.3e}")
+    print("models: bright soliton 4096 t=1 (1000 steps; not held, ROADMAP §C C5) | "
+          + ", ".join(f"{k}: rel-L2 {e:.3e} against the soliton, mass {m:+.3e}"
+                      for k, (e, m) in drift.items())
+          + " | rows_fft round-trip gain - 1: " + ", ".join(gains), flush=True)
+    x = (np.arange(256) - 128) * (120.0 / 256)
+    free = models.nlse_init((256, 256), 120.0, 5e-3, g=0.0, device=dev)
+    psi0 = models.free_gaussian([x, x], 2.5, device=dev)
+    stepper("NLSE 256^2", free, models.nlse_init((256, 256), 120.0, 5e-3, g=0.0, device=cpu),
+            models.nlse_step, psi0, {"fft2f_fft": 2}, models.nlse_rollout, psi0, 10, {})
+    got = through("path 10 free Gaussian 256^2 x 100 steps",
+                  lambda: models.nlse_rollout(free, psi0, 100), fft2f_fft=200)
+    hold("free Gaussian 256^2 t=0.5", got, models.free_gaussian([x, x], 2.5, t=0.5, device=cpu),
+         GAUSSIAN_TOL)
+
+    # solve_poisson at 256^3, held by the residual of the spectral Laplacian
+    # (float64 torch.fft on the card: an oracle)
+    f = randn(256, 256, 256)
+    poisson = {"r2c_fft": 1, "ax3_fft": 2, "ax3_fft_c64": 1, "ax0_fft": 2, "ax0_fft_c64": 1,
+               "c2r_fft": 1, "c2r_fft_c64": 1}
+    u = through("path 10 solve_poisson 256^3", lambda: models.solve_poisson(f), **poisson)
+    hold("solve_poisson 256^3", u, models.solve_poisson(f.cpu()))
+    k = torch.fft.fftfreq(256, 1.0 / 256, device=dev, dtype=torch.float64)
+    ksq = k[:, None, None] ** 2 + k[None, :, None] ** 2 + k[None, None, :] ** 2
+    lap = torch.fft.ifftn(-ksq * torch.fft.fftn(u.double())).real
+    hold("solve_poisson 256^3 residual", lap, f.double() - f.double().mean(), POISSON_TOL)
+    del lap, ksq, k
+    timed("solve_poisson 256^3", lambda: models.solve_poisson(f), poisson, reps=10)
+    checked = time.perf_counter() - t0
+
+    for name, rec in calls.items():
+        fn = rec.pop("fn")
+        # a window can miss launches (PERF.md §7): take it again, at most
+        # three times, until it holds the call's launches
+        per_call = sum(v for k, v in rec["launches"].items() if not k.endswith("_c64"))
+        others = {}
+        for window in range(1, 4):
+            prof = breakdown(fn, MODEL_KERNELS, reps=rec["reps"], others=others)
+            if sum(prof[f"{k} launches"] for k in MODEL_KERNELS) >= per_call:
+                break
+        work = {}
+        for k, v in others.items():  # a kernel's name without its arguments
+            k = re.sub(r"[<(].*", "", re.sub(r"^void |\(anonymous namespace\)::", "", k))
+            work[k] = work.get(k, 0.0) + v
+        rec.update(ms=prof["events"], kernel_ms=sum(prof[k] for k in MODEL_KERNELS),
+                   other_ms=prof["other"], idle=prof["idle"],
+                   other_launches=prof["other launches"],
+                   other_work=dict(sorted(work.items(), key=lambda kv: -kv[1])[:3]))
+        print(f"models: {smi} | {name} | {rec['ms']:.4f} ms (CUDA events, median of "
+              f"{rec['reps']}) | device ms (torch.profiler, {rec['reps']} calls, window "
+              f"{window}): kernels {rec['kernel_ms']:.4f} ("
+              + ", ".join(f"{k} {prof[k]:.4f}" for k in MODEL_KERNELS if prof[k])
+              + f"), other {rec['other_ms']:.4f} ({rec['other_launches']:.0f} launches: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in rec["other_work"].items())
+              + f"), idle {rec['idle']:.3f} | launches {rec['launches']}", flush=True)
+    total = time.perf_counter() - t0
+    print(f"models: checks (the worst rel-L2 of each, the card against the CPU copies at "
+          f"{TOL:.0e} or the oracles at the JAX tests' bars) | "
+          + ", ".join(f"{k} {v:.3e}" + (f" ({c})" if c > 1 else "") for k, (v, c) in errs.items()),
+          flush=True)
+    print(f"main: models path (path 10), {sum(c for _, c in errs.values())} checks ok, "
+          f"{len(calls)} calls timed | "
+          f"FNOs {fno_done - t0:.1f} s, checked in {checked:.1f} s, timed in "
+          f"{total - checked:.1f} s ({total:.1f} s in all)", flush=True)
     return calls
 
 
@@ -3187,6 +3534,7 @@ def main() -> int:
                 "plain_ms": times[shape][plain], "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": times[shape]["torch.fft"]}
 
+    models_path(dev, gen, smi)  # path 10, before path 9 (below)
     # Path 9 runs last: after its windows (the 2^20-point NUFFTs launch
     # thousands of kernels a window) later torch.profiler windows in the
     # same process were seen to miss one or two of 20 launches, whatever

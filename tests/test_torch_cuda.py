@@ -10,7 +10,9 @@ form of c2r_fft (B8), ax0_gen_fft (B2's composite range), welch_acc_fft
 launch counts and gradients,
 and the routes of the plan, the N-D, the real and the non-pow2 transforms,
 the fused epilogues, the spectral estimators and the per-segment spectra
-(stft, istft, ShortTimeFFT, resample) through them.  No call may move the
+(stft, istft, ShortTimeFFT, resample) through them, and the model family
+(the FNOs' gradients and training step, the steppers' rollouts, the Poisson
+solve) with exact launch counts.  No call may move the
 thread's current device or the caller's TF32 setting.
 
 Every test here needs a CUDA device and skips without one.  The card's
@@ -2279,3 +2281,111 @@ def test_grad_convolve2d(dev):
     _grad_on_card_and_cpu(dev, lambda u, v: ft.convolve2d(u, v, mode="same"),
                           [rrand(dev, 500, 1000, seed=1).cpu(), rrand(dev, 13, 25, seed=2).cpu()],
                           {"r2c_fft": 3, "ax0_fft": 6, "c2r_fft": 1, "rows_fft": 2})
+
+
+# ---------------------------------------------------------------------- #
+# the model family (FNO 1-D/2-D/3-D, Burgers, KS, 2-D Navier-Stokes, NLSE,
+# the Poisson solve): on the card against the port's plain path on the CPU
+# ---------------------------------------------------------------------- #
+def _model_counts():
+    return {**_long_tail_counts(), "fft2f_fft_c64": cuda_fft.fft2f_c64_launches,
+            "ax3_c64": cuda_fft.ax3_c64_launches, "ax0_fft_c64": cuda_fft.ax0_c64_launches}
+
+
+def _model_through(fn, **want):
+    """fn()'s result; it must launch exactly ``want``."""
+    before = _model_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in _model_counts().items() if v != before[k]} == want
+    return out
+
+
+# rank -> (config, input shape, the launches of one loss-and-gradient pass
+# or train_step: forward and backward through the kernels and their adjoints)
+_FNO_CARD = {
+    1: (dict(modes=16, width=8, depth=2), (2, 256, 1),
+        {"r2c_fft": 4, "r2c_fft_c64": 4, "c2r_fft": 2, "c2r_fft_c64": 2, "rows_fft": 2,
+         "rows_fft_c64": 2}),
+    2: (dict(modes=(8, 8), width=8, depth=2), (2, 128, 128, 1),
+        {"fft2f_fft": 8, "fft2f_fft_c64": 4}),
+    3: (dict(modes=(4, 4, 4), width=4, depth=2), (1, 128, 128, 128, 1),
+        {"fft2f_fft": 8, "fft2f_fft_c64": 4, "ax3": 8, "ax3_c64": 4}),
+}
+
+
+@pytest.mark.parametrize("rank", [1, 2, 3])
+def test_grad_fno_train_step(dev, rank):
+    import copy
+
+    from fft_wgpu_tpu_torch.models import spectral
+
+    cfg, shape, want = _FNO_CARD[rank]
+    init = {1: spectral.init_fno1d, 2: spectral.init_fno2d, 3: spectral.init_fno3d}[rank]
+    model = init(torch.Generator().manual_seed(rank), device=dev, **cfg)
+    ref = copy.deepcopy(model).cpu()
+    x, y = rrand(dev, *shape, seed=1), rrand(dev, *shape, seed=2)
+
+    def grads(m, a, b):
+        loss = spectral.mse_loss(m, a, b)
+        return loss, torch.autograd.grad(loss, list(m.parameters()))
+
+    loss, g = _model_through(lambda: grads(model, x, y), **want)
+    loss_c, g_c = grads(ref, x.cpu(), y.cpu())
+    assert rel_l2(loss.detach().cpu(), loss_c.detach()) < TOL
+    for a, b in zip(g, g_c):
+        assert rel_l2(a.cpu(), b) < TOL
+    # one SGD step of each: the same launches, the same parameters after it
+    _, step_loss = _model_through(lambda: spectral.train_step(model, x, y, lr=1e-2), **want)
+    spectral.train_step(ref, x.cpu(), y.cpu(), lr=1e-2)
+    assert step_loss.device == x.device and rel_l2(step_loss.cpu(), loss_c.detach()) < TOL
+    for p, q in zip(model.parameters(), ref.parameters()):
+        assert rel_l2(p.detach().cpu(), q.detach()) < TOL
+
+
+def test_burgers_rollout_on_card(dev):
+    from fft_wgpu_tpu_torch import models
+
+    c = models.burgers_init(256, 0.02, 1e-3, device=dev)
+    u0 = models.random_initial_condition(torch.Generator().manual_seed(0), 256, batch=8,
+                                         device=dev)
+    # a step is R2C 2 and C2R 2, planar; the rollout one more of each
+    got = _model_through(lambda: models.burgers_rollout(c, u0, 10), r2c_fft=21, c2r_fft=21)
+    want = models.burgers_rollout(models.burgers_init(256, 0.02, 1e-3, device="cpu"),
+                                  u0.cpu(), 10)
+    assert got.device == dev and rel_l2(got.cpu(), want) < TOL
+
+
+def test_ns2d_rollout_on_card(dev):
+    from fft_wgpu_tpu_torch import models
+
+    c = models.ns2d_init(128, 1e-3, 5e-3, device=dev)
+    w0 = rrand(dev, 2, 128, 128, seed=3)
+    # a step is axis(-2) 10, C2R 8, R2C 2; the rollout's ends add axis(-2)
+    # 2, R2C 1, C2R 1
+    got = _model_through(lambda: models.ns2d_rollout(c, w0, 5), ax0_fft=52, c2r_fft=41,
+                         r2c_fft=11)
+    want = models.ns2d_rollout(models.ns2d_init(128, 1e-3, 5e-3, device="cpu"), w0.cpu(), 5)
+    assert got.device == dev and rel_l2(got.cpu(), want) < TOL
+
+
+def test_ks_nlse_and_poisson_on_card(dev):
+    from fft_wgpu_tpu_torch import models
+
+    k = models.ks_init(128, 32 * math.pi, 0.25, device=dev)
+    u0 = models.kt_initial_condition(128, 32 * math.pi, device=dev) * torch.linspace(
+        0.9, 1.1, 16, device=dev)[:, None]
+    got = _model_through(lambda: models.ks_rollout(k, u0, 5), r2c_fft=21, c2r_fft=21)
+    want = models.ks_rollout(models.ks_init(128, 32 * math.pi, 0.25, device="cpu"), u0.cpu(), 5)
+    assert rel_l2(got.cpu(), want) < TOL
+    for shape, kernel in (((1024,), "rows_fft"), ((128, 256), "fft2f_fft")):
+        c = models.nlse_init(shape, 20.0, 1e-3, device=dev)
+        psi = torch.complex(rrand(dev, 3, *shape, seed=4), rrand(dev, 3, *shape, seed=5))
+        got = _model_through(lambda: models.nlse_rollout(c, 0.5 * psi, 5), **{kernel: 10})
+        want = models.nlse_rollout(models.nlse_init(shape, 20.0, 1e-3, device="cpu"),
+                                   0.5 * psi.cpu(), 5)
+        assert rel_l2(torch.complex(*got).cpu(), torch.complex(*want)) < TOL
+    f = rrand(dev, 128, 128, 128, seed=6)
+    got = _model_through(lambda: models.solve_poisson(f), r2c_fft=1, ax3=2, ax3_c64=1,
+                         ax0_fft=2, ax0_fft_c64=1, c2r_fft=1, c2r_fft_c64=1)
+    assert rel_l2(got.cpu(), models.solve_poisson(f.cpu())) < TOL
