@@ -319,23 +319,24 @@ F32_FLOPS_PER_S = 67e12    # H100 SXM float32 on the CUDA cores (data sheet)
 
 
 # sha256 (first 16 hex digits) of the outputs of kernels this work keeps as
-# they were, on kept_bits's inputs: B1 (rows_fft, both entries; its row types
-# moved into mixed_fft.cuh).  Recorded from the kernels before that work (the
-# libraries of commit 9602cd4, which commits e09b20d, a87236e and d70af66
-# kept; NVIDIA H100 80GB HBM3, by scripts/time_composite_rows.py --set
-# bits); the other kernels' digests were taken out when their kernel changed
-# (B16-B19 and B21 when they left welch_fft.cu, B10 when the bank became
-# the filtered rows' kernel with its strides swapped and B7 when it became
-# c2r_fft.cu's staged design beside B8).
+# they were, on kept_bits's inputs: B1 (rows_fft, both entries).  Recorded
+# from the kernel after the repair of ROADMAP §C C5, which changed its
+# bits on purpose (each pass's twiddles w^k gathered from a table of the
+# pass's powers, and butterfly constants of |w|^2 nearest 1; NVIDIA H100
+# 80GB HBM3, by scripts/time_composite_rows.py --set bits); the other
+# kernels' digests were taken out when their kernel changed (B16-B19 and
+# B21 when they left welch_fft.cu, B10 when the bank became the filtered
+# rows' kernel with its strides swapped and B7 when it became c2r_fft.cu's
+# staged design beside B8).
 KEPT_BITS = {
-    "rows_fft 128": "f4898d7e20440177", "rows_fft_c64 128": "f8f226c7db5eb860",
-    "rows_fft 256": "82f279a213465b27", "rows_fft_c64 256": "d23f7c08ec2be4d8",
-    "rows_fft 512": "8502651580d6b439", "rows_fft_c64 512": "5b41b67485e3818c",
-    "rows_fft 1024": "d044325a2756e4fc", "rows_fft_c64 1024": "9e838d2b8ef30c44",
-    "rows_fft 2048": "28f19421d9941639", "rows_fft_c64 2048": "6a45edcc385cf1ac",
-    "rows_fft 4096": "49f5dcbcebd219b6", "rows_fft_c64 4096": "2802eb379c85eca6",
-    "rows_fft 8192": "a2279294e2854e4d", "rows_fft_c64 8192": "bd4cd6dd5b46cd92",
-    "rows_fft 16384": "28cc39cf96dc770d", "rows_fft_c64 16384": "528b0ca7f625ab05"}
+    "rows_fft 128": "fdce864e3af207bd", "rows_fft_c64 128": "e029f1ad74aa4edb",
+    "rows_fft 256": "5aaaeeaabb907d81", "rows_fft_c64 256": "5a85fa8a7292233a",
+    "rows_fft 512": "ccde15b5936cc40b", "rows_fft_c64 512": "a7e6c1bebdaad28d",
+    "rows_fft 1024": "7ff8695f06e536c2", "rows_fft_c64 1024": "5e5db0691b4fb6aa",
+    "rows_fft 2048": "c0232cb590d1a252", "rows_fft_c64 2048": "9864de1712d15fd0",
+    "rows_fft 4096": "77737c7b4f07fced", "rows_fft_c64 4096": "91f828eaa5e62865",
+    "rows_fft 8192": "715757ab85fdc6f0", "rows_fft_c64 8192": "825340d7b6c618b8",
+    "rows_fft 16384": "7ef62f5b242c7e72", "rows_fft_c64 16384": "b46ec35f0ef559a6"}
 
 
 def kept_bits(cuda_fft, dev) -> dict:
@@ -1238,6 +1239,7 @@ MODEL_KERNELS = ("rows_fft", "ax0_fft", "fft2f_fft", "r2c_fft", "c2r_fft")
 # (the 2-D analytic solve 1e-4, here the residual of the spectral Laplacian).
 COLE_HOPF_TOL = KS_REF_TOL = TAYLOR_GREEN_TOL = GAUSSIAN_TOL = POISSON_TOL = 1e-4
 SOLITON_TOL = 2e-4
+ROUND_TRIP_TOL = 6e-8  # |power gain - 1| of the row kernel's forward-inverse pair
 
 
 def ks_reference(u0: np.ndarray, length: float, h: float, steps: int) -> np.ndarray:
@@ -1453,13 +1455,15 @@ def models_path(dev, gen, smi) -> dict:
             models.ns2d_step, (wr * nplan["mask"], wi * nplan["mask"]), ns_step,
             models.ns2d_rollout, w0, 5, {"ax0_fft": 2, "c2r_fft": 1, "r2c_fft": 1})
 
-    # NLSE: a standing bright soliton at n 4096, and the free Gaussian on
-    # 256^2 (100 steps).  The soliton's oracle is held at tests/test_nlse.py's
-    # own grid (n 256, L 40, 1000 steps to t = 1); at n 4096 (1000 steps)
-    # the row kernel's forward-inverse gain, about 1 - 1.3e-7 a round trip
-    # (the plain path's 1 - 4.8e-8), loses mass linearly, 2.6e-7 a step,
-    # past that bar: 2.9e-4 at t = 1, the plain path 5.6e-5 (ROADMAP §C,
-    # C5).  Its error and mass drift are printed beside the plain path's.
+    # NLSE: a standing bright soliton at n 256 (tests/test_nlse.py's own
+    # grid, L 40, 1000 steps to t = 1) and at n 4096 (L 640, 1000 steps),
+    # each held at the test's bar, and the free Gaussian on 256^2 (100
+    # steps).  A rollout takes one forward-inverse round trip a step, so a
+    # round trip that loses power drains its mass linearly: before the
+    # repair of ROADMAP §C C5 the row kernel's gain was 1 - 1.3e-7 at 4096
+    # and the soliton ended 2.9e-4 from the analytic one.  Its error and
+    # mass drift are printed beside the plain path's, and the row kernel's
+    # gain through both entries is held within ROUND_TRIP_TOL.
     def soliton(n, length, device):
         return (models.nlse_init((n,), length, 1e-3, g=1.0, device=device),
                 models.bright_soliton(n, length, device=device),
@@ -1473,29 +1477,39 @@ def models_path(dev, gen, smi) -> dict:
     stepper("NLSE 4096", sol, models.nlse_init((4096,), 640.0, 1e-3, g=1.0, device=cpu),
             models.nlse_step, psi0, {"rows_fft": 2}, models.nlse_rollout, psi0, 10, {})
     drift = {}
-    for where, (plan, p0, _) in (("card", (sol, psi0, want)), ("plain", soliton(4096, 640.0, cpu))):
+    for where, (plan, p0, w) in (("card", (sol, psi0, want)), ("plain", soliton(4096, 640.0, cpu))):
         got = through("path 10 soliton 4096 x 1000 steps",
                       lambda: models.nlse_rollout(plan, p0, 1000),
                       **({"rows_fft": 2000} if where == "card" else {}))
+        if where == "card":
+            hold("bright soliton 4096 t=1", got, w, SOLITON_TOL)
         mass = [float((a.double() ** 2 + b.double() ** 2).sum()) for a, b in (got, p0)]
-        drift[where] = (rel_l2(torch.complex(*to_cpu(got)), torch.complex(*want)),
+        drift[where] = (rel_l2(torch.complex(*to_cpu(got)), torch.complex(*w)),
                         mass[0] / mass[1] - 1.0)
-    # the cause: the power gain of one forward-inverse round trip of 1000
-    # random rows, Re <y, x> / <x, x> - 1, the row kernel's and the plain
-    # version's
+    # the round trip's power gain, Re <y, x> / <x, x> - 1, of 1000 random
+    # rows through the row kernel's two entries, and the plain path's
     gains = []
     for n in (256, 4096):
         xr, xi = randn(1000, n), randn(1000, n)
-        x = torch.complex(xr, xi).to(torch.complex128)
-        for where, fft in (("card", cuda_fft.fft_batched_split),
-                           ("plain", cuda_fft.fft_batched_split_reference)):
-            y = torch.complex(*fft(*fft(xr, xi, -1, None), 1, 1.0 / n)).to(torch.complex128)
-            gain = float((y * x.conj()).sum().real / x.abs().square().sum())
-            gains.append(f"{where} n {n} {gain - 1:+.3e}")
-    print("models: bright soliton 4096 t=1 (1000 steps; not held, ROADMAP §C C5) | "
+        x = torch.complex(xr, xi)
+        for where, fft in (("card", lambda v, s, sc: torch.complex(*cuda_fft.fft_batched_split(
+                               v.real.contiguous(), v.imag.contiguous(), s, sc))),
+                           ("card c64", cuda_fft.fft_batched_c64),
+                           ("plain", lambda v, s, sc: torch.complex(
+                               *cuda_fft.fft_batched_split_reference(
+                                   v.real.contiguous(), v.imag.contiguous(), s, sc)))):
+            y = fft(fft(x, -1, None), 1, 1.0 / n).to(torch.complex128)
+            x64 = x.to(torch.complex128)
+            gain = float((y * x64.conj()).sum().real / x64.abs().square().sum()) - 1.0
+            if where != "plain":
+                check(abs(gain) <= ROUND_TRIP_TOL,
+                      f"path 10 rows_fft round trip ({where}) n {n}: gain - 1 {gain:+.3e}")
+            gains.append(f"{where} n {n} {gain:+.3e}")
+    print("models: bright soliton 4096 t=1 (1000 steps) | "
           + ", ".join(f"{k}: rel-L2 {e:.3e} against the soliton, mass {m:+.3e}"
                       for k, (e, m) in drift.items())
-          + " | rows_fft round-trip gain - 1: " + ", ".join(gains), flush=True)
+          + " | rows_fft round-trip gain - 1 (held within "
+          + f"{ROUND_TRIP_TOL:.0e}): " + ", ".join(gains), flush=True)
     x = (np.arange(256) - 128) * (120.0 / 256)
     free = models.nlse_init((256, 256), 120.0, 5e-3, g=0.0, device=dev)
     psi0 = models.free_gaussian([x, x], 2.5, device=dev)
@@ -1556,6 +1570,218 @@ def models_path(dev, gen, smi) -> dict:
           f"FNOs {fno_done - t0:.1f} s, checked in {checked:.1f} s, timed in "
           f"{total - checked:.1f} s ({total:.1f} s in all)", flush=True)
     return calls
+
+
+# path 11's child process: load the AOT artifact in a fresh process whose
+# build directory is empty, replay it, and say whether it matched the
+# parent's output bit for bit and whether nvcc ran
+AOT_CHILD = """
+import json, sys, tempfile, torch
+sys.path.insert(0, sys.argv[1])
+from fft_wgpu_tpu_torch.utils import build
+build.set_build_dir(tempfile.mkdtemp())
+import fft_wgpu_tpu_torch as ft
+sp = ft.load_plan(sys.argv[2])
+x, want = torch.load(sys.argv[3])
+x = x.cuda()
+got = [g.cpu() for g in sp.forward_split(x.real.contiguous(), x.imag.contiguous())]
+print(json.dumps({"equal": bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])),
+                  "compiles": build.compiles, "libraries": sorted(build._LIBS)}))
+"""
+
+
+def serving_path(dev, gen, smi) -> dict:
+    """Path 11: the serving surface on the card.  Tuned plans
+    (``plan(n, autotune=True)``) at 16 and 256 x 2^17, 4 and 64 x 2^18
+    and 4 x 2^20 (the whole-row kernel against the axis(-2) then the
+    transposed-rows kernel, where the whole-row kernel takes the shape;
+    256 rows fall in the largest rows bucket, and at 64 x 2^18 the two
+    kernels have won) and at 1024 x 4097
+    and 1024 x 3012 (the composite-row kernel against Bluestein's fused
+    chirp kernel): every candidate's time and the winner, the result
+    within 1e-5 of torch.fft, the second call's launches exact for the
+    winner; the fused-plane crossover (``tune_fused_plane``, restored
+    after, since later paths hold the plane route's launches).  The AOT
+    artifact of plan(4096) on 4096 x 4096: replayed bit-equal to the plan,
+    in this process and in a child process with an empty build directory
+    and no nvcc run.  ``dot_precision("fast")``: the row kernel's bits
+    unchanged, TF32 as it was after the block, the plain path's matmuls
+    in TF32 inside it.  The scipy.fft and torch.fft backends on the card
+    against float64 references, with their kernels' launches.  The CLI's
+    ``info`` and ``selftest`` as subprocesses.  Returns the tuned
+    routes."""
+    import tempfile
+
+    import scipy.fft as sf
+    import torch
+
+    import fft_wgpu_tpu_torch as ft
+    import fft_wgpu_tpu_torch.scipy_backend as sb
+    import fft_wgpu_tpu_torch.torch_backend as tb
+    from fft_wgpu_tpu_torch.ops import cuda_fft
+    from fft_wgpu_tpu_torch.plan import autotune
+    from fft_wgpu_tpu_torch.utils import build
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    autotune._WISDOM_PATH = os.path.join(tmp, "wisdom.json")
+    autotune._wisdom_loaded = True
+    card = torch.cuda.get_device_name(dev)
+
+    def crand(*shape):
+        return torch.complex(torch.randn(shape, device=dev, generator=gen),
+                             torch.randn(shape, device=dev, generator=gen))
+
+    def hold(what, got, want, tol=TOL):
+        err = rel_l2(got, want)
+        check(err <= tol, f"path 11 {what}: rel-L2 {err:.3e} > {tol:.0e}")
+        return err
+
+    # tuned plans: each route's kernels, launched once by the second call
+    second = {"pallas": {"rows_fft": 1, "rows_fft_c64": 1},
+              "bigfft": {"big_fft": 1, "big_fft_c64": 1},
+              "fourstep:two-pass": {"ax0_fft": 1, "rows_t_fft": 1},
+              "fourstep": {"ax0_fft": 1, "rows_t_fft": 1},
+              "general": {"gen_fft": 1}, "bluestein": {"chirp_full": 1}}
+    routes = {}
+    for rows, n in ((16, 1 << 17), (256, 1 << 17), (4, 1 << 18), (64, 1 << 18), (4, 1 << 20),
+                    (1024, 4097), (1024, 3012)):
+        x = crand(rows, n)
+        p = ft.plan(n, autotune=True)
+        got = p.forward(x)  # measures, then runs the winner
+        key = (card, n, 1 if rows == 1 else autotune._bucket(rows), -1)
+        best = autotune.TUNE_CACHE[key]
+        err = hold(f"tuned plan {rows}x{n}", got, torch.fft.fft(x))
+        got = through(f"path 11 tuned plan {rows}x{n} ({best}), second call",
+                      lambda: p.forward(x), **second[best])
+        hold(f"tuned plan {rows}x{n} second call", got, torch.fft.fft(x))
+        times = autotune.TIMES.get(key, {})
+        routes[f"{rows}x{n}"] = best
+        print(f"serving: {smi} | plan({n}, autotune=True) {rows}x{n} | candidates "
+              + (", ".join(f"{ex} {t * 1e3:.4f} ms" for ex, t in times.items())
+                 if times else f"one: {best} (nothing to time)")
+              + f" | winner {best} | rel-L2 {err:.3e} | second call's launches "
+              + f"{second[best]}", flush=True)
+    saved = cuda_fft.FFT2F_MAX_ELEMS
+    limit = autotune.tune_fused_plane(device=dev, persist=False)
+    cuda_fft.FFT2F_MAX_ELEMS = saved
+    print(f"serving: {smi} | tune_fused_plane | "
+          + ", ".join(f"{a}^2: fused {t['fused'] * 1e3:.4f} ms, row+axis(-2) "
+                      f"{t['two-pass'] * 1e3:.4f} ms"
+                      for (_, c, a), t in ((k, v) for k, v in autotune.TIMES.items()
+                                           if k[0] == "plane" and k[1] == card))
+          + f" | crossover {limit} points (restored to {saved} for the later paths)",
+          flush=True)
+
+    # the AOT artifact of plan(4096) on 4096 x 4096
+    p = ft.plan(4096)
+    path = os.path.join(tmp, "plan4096.ftta")
+    ft.export_plan(p, path, batch_shape=(4096,))
+    x = crand(4096, 4096)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    want = p.forward_split(re, im)
+    sp = ft.load_plan(path)
+    got = through("path 11 AOT replay of plan(4096)", lambda: sp.forward_split(re, im),
+                  rows_fft=1)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "path 11 AOT replay: not bit-equal to the plan")
+    for op in ("inverse", "inverse_unnormalized"):
+        got, ref = getattr(sp, f"{op}_split")(re, im), getattr(p, f"{op}_split")(re, im)
+        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+              f"path 11 AOT replay {op}: not bit-equal to the plan")
+    torch.save((x.cpu(), tuple(w.cpu() for w in want)), os.path.join(tmp, "io.pt"))
+    child = subprocess.run([sys.executable, "-c", AOT_CHILD, root, path,
+                            os.path.join(tmp, "io.pt")],
+                           capture_output=True, text=True, timeout=300)
+    check(child.returncode == 0, f"path 11 AOT child: rc {child.returncode}\n{child.stderr}")
+    res = json.loads(child.stdout.strip().splitlines()[-1])
+    check(res["equal"] and res["compiles"] == 0 and res["libraries"] == ["rows_fft"],
+          f"path 11 AOT child: {res}")
+    meta = sp._meta
+    print(f"serving: {smi} | AOT plan(4096) 4096x4096 | {os.path.getsize(path)} bytes, "
+          f"libraries {meta['libraries']}, routes "
+          f"{ {op: r['route'] for op, r in meta['routes'].items()} }, capability "
+          f"{meta['capability']} | replay bit-equal here and in a child process "
+          f"(nvcc runs {res['compiles']}, libraries {res['libraries']})", flush=True)
+    del x, re, im, want, got, ref
+
+    # dot precision: the kernels read no mode; the plain path's matmuls do
+    x = crand(64, 4096)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    accurate = p.forward(x)
+    y = crand(64, 100)  # 100: no kernel, the plain path's DFT matmuls
+    plain_accurate = ft.fft(y)
+    with ft.dot_precision("fast"):
+        fast = p.forward(x)
+        plain_fast = ft.fft(y)
+        check(torch.backends.cuda.matmul.allow_tf32 == tf32,
+              "path 11 dot_precision: TF32 set outside the matmul guard")
+    check(torch.backends.cuda.matmul.allow_tf32 == tf32, "path 11 dot_precision: TF32 not restored")
+    check(torch.equal(accurate, fast), "path 11 dot_precision('fast') changed the row kernel's bits")
+    ref = torch.fft.fft(y.to(torch.complex128))
+    err_a = hold("plain path, accurate", plain_accurate, ref)
+    err_f = rel_l2(plain_fast, ref)
+    print(f"serving: {smi} | dot_precision | row kernel 64x4096 bit-equal in both modes, "
+          f"TF32 {tf32} after | plain path 64x100 rel-L2 against float64: accurate "
+          f"{err_a:.3e}, fast {err_f:.3e}", flush=True)
+
+    # the interop backends on the card, against float64 references
+    xn = (np.random.default_rng(SEED).standard_normal((2, 64, 4096))
+          .astype(np.float32))
+    zc = (xn[0] + 1j * xn[1]).astype(np.complex64)
+    z2 = zc.reshape(256, 1024)[:, :512].copy()  # both axes on the kernels, no fused plane
+    lines = []
+
+    def backend_call(what, fn, want, kernel):
+        fn()  # builds and uploads
+        torch.cuda.synchronize()
+        before = counts()
+        got = fn()
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        check(delta.get(kernel, 0) >= 1, f"path 11 {what}: {kernel} did not launch ({delta})")
+        got = got.cpu() if isinstance(got, torch.Tensor) else torch.from_numpy(np.asarray(got))
+        err = rel_l2(got, torch.from_numpy(np.asarray(want)))
+        check(err <= TOL, f"path 11 {what}: rel-L2 {err:.3e} > {TOL:.0e}")
+        lines.append(f"{what} rel-L2 {err:.3e} launches {delta}")
+
+    with sf.set_backend(sb, only=True):
+        backend_call("scipy.fft.fft 64x4096", lambda: sf.fft(zc),
+                     np.fft.fft(zc.astype(np.complex128)), "rows_fft")
+        backend_call("scipy.fft.rfft 64x4096", lambda: sf.rfft(xn[0]),
+                     np.fft.rfft(xn[0].astype(np.float64)), "r2c_fft")
+        backend_call("scipy.fft.fft2 256x512", lambda: sf.fft2(z2),
+                     np.fft.fft2(z2.astype(np.complex128)), "ax0_fft")
+    zt, z2t = torch.from_numpy(zc).to(dev), torch.from_numpy(z2).to(dev)
+    rt = torch.from_numpy(xn[0]).to(dev)
+    with tb.accelerated():
+        backend_call("torch.fft.fft 64x4096", lambda: torch.fft.fft(zt),
+                     np.fft.fft(zc.astype(np.complex128)), "rows_fft")
+        backend_call("torch.fft.rfft 64x4096", lambda: torch.fft.rfft(rt),
+                     np.fft.rfft(xn[0].astype(np.float64)), "r2c_fft")
+        backend_call("torch.fft.ifft2 256x512", lambda: torch.fft.ifft2(z2t),
+                     np.fft.ifft2(z2.astype(np.complex128)), "ax0_fft")
+        f64 = torch.fft.fft(zt.to(torch.complex128))  # 64-bit: stock torch.fft
+        check(f64.dtype == torch.complex128, "path 11 torch_backend: float64 left stock")
+    print(f"serving: {smi} | backends | " + "; ".join(lines), flush=True)
+
+    # the CLI
+    for cmd in (["info"], ["selftest", "--n", "4096"]):
+        out = subprocess.run([sys.executable, "-m", "fft_wgpu_tpu_torch", *cmd], cwd=root,
+                             capture_output=True, text=True, timeout=600)
+        check(out.returncode == 0, f"path 11 CLI {cmd}: rc {out.returncode}\n{out.stdout}"
+                                   f"\n{out.stderr}")
+        if cmd == ["info"]:
+            info = json.loads(out.stdout.strip().splitlines()[-1])
+            check(info["device_kind"] == card and info["backend"] == "cuda",
+                  f"path 11 CLI info: {info}")
+        else:
+            check("selftest: PASS" in out.stdout, f"path 11 CLI selftest:\n{out.stdout}")
+        print(f"serving: CLI {' '.join(cmd)} | rc 0 | "
+              + " | ".join(out.stdout.strip().splitlines()), flush=True)
+    print(f"serving: path 11 done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return routes
 
 
 def main() -> int:
@@ -3535,6 +3761,7 @@ def main() -> int:
                 "bound_by": bound_by, "library_ms": times[shape]["torch.fft"]}
 
     models_path(dev, gen, smi)  # path 10, before path 9 (below)
+    serving_path(dev, gen, smi)  # path 11, before path 9 (below)
     # Path 9 runs last: after its windows (the 2^20-point NUFFTs launch
     # thousands of kernels a window) later torch.profiler windows in the
     # same process were seen to miss one or two of 20 launches, whatever

@@ -44,7 +44,14 @@ pow2 length), ``convolve2d``, ``correlate2d``, ``wiener`` and
 ``frft2``; ``dfrft`` is two matmuls) and the NUFFTs of types 1-3 in 1-D,
 2-D and 3-D (``index_add_`` spreading, a gather, the fine grid's
 transform through the plan).
-Other lengths,
+The serving surface: tuned plans (``plan(n, autotune=True)``, the
+routes the card has for a shape measured and the fastest kept), AOT plan
+artifacts that ship their routes and built kernel libraries
+(``export_plan``, ``load_plan``, ``AOTPlan``), the matmul precision mode
+(``set_dot_precision``, ``get_dot_precision``, ``dot_precision``), host
+transfer (``device_put_complex``, ``device_get_complex``), the scipy.fft
+and torch.fft backends (``scipy_backend``, ``torch_backend``) and the CLI
+(``python -m fft_wgpu_tpu_torch``).  Other lengths,
 and every CPU tensor, run the plain torch mixed-radix path.  A tensor is
 transformed on the device it lies on; other input (numpy arrays) goes to
 the current CUDA device, and raises if there is none.  This package
@@ -102,7 +109,10 @@ from .ops.windows import (barthann_window, blackmanharris_window, bohman_window,
                           lanczos_window, nuttall_window, parzen_window, taylor_window,
                           triang_window)
 from .plan.parity import Forward, Inverse, Normalize, Onlyinverse
+from .plan.aot import AOTPlan, export_plan, load_plan
 from .plan.plan import Plan, get_plan, plan
+from .utils.io import device_get_complex, device_put_complex
+from .utils.precision import dot_precision, get_dot_precision, set_dot_precision
 
 __version__ = "0.1.0"
 
@@ -284,13 +294,19 @@ __all__ = [
     "nufft3d3",
     "Plan",
     "plan",
-    "get_plan",
     "Forward",
     "Inverse",
     "Onlyinverse",
     "Normalize",
-    "FORWARD",
-    "INVERSE",
     "naive_dft",
     "naive_idft",
+    "AOTPlan",
+    "export_plan",
+    "load_plan",
+    "set_dot_precision",
+    "get_dot_precision",
+    "dot_precision",
+    "device_put_complex",
+    "device_get_complex",
+    "__version__",
 ]

@@ -163,7 +163,8 @@ struct ChirpRow {
 };
 
 // chirp_full's turn from the first transform (sign SIGN) to the second:
-// the first's last pass (radix R at NS = M/R; its roots at tw[OFF + j]),
+// the first's last pass (radix R at NS = M/R; its roots w^k at
+// tw[OFF + (k - 1)*M/R + j]),
 // the product with H, and the second's first pass (radix R at NS = 1, no
 // twiddles), one butterfly j on the same R points j + k*M/R, in registers;
 // the shared row is read before the barrier and written, at the second's
@@ -181,13 +182,8 @@ __device__ __forceinline__ void turn_pass(const PadShared& s, const ChirpArgs& g
     const int j = min_int(static_cast<int>(threadIdx.x) + b * T, MR - 1);
 #pragma unroll
     for (int k = 0; k < R; ++k) s.load(j + k * MR, ar[b][k], ai[b][k]);
-    const float2 w = __ldg(&g.tw[OFF + j]);
-    float2 wk = w;
 #pragma unroll
-    for (int k = 1; k < R; ++k) {
-      cmul(ar[b][k], ai[b][k], wk);
-      if (k + 1 < R) cmul(wk.x, wk.y, w);
-    }
+    for (int k = 1; k < R; ++k) cmul(ar[b][k], ai[b][k], __ldg(&g.tw[OFF + (k - 1) * MR + j]));
     dft<R, SIGN>(ar[b], ai[b]);
 #pragma unroll
     for (int k = 0; k < R; ++k) {
@@ -212,8 +208,8 @@ __device__ __forceinline__ void turn_pass(const PadShared& s, const ChirpArgs& g
 // (radix RL, the plan's last), then the second transform's other passes,
 // which run the plan in reverse order (RL, then Rev..., the rest from the
 // back) from NS = RL.  OFF: where the first transform's last pass's roots
-// begin in tw (the sum of the NS of its passes from the second to the one
-// before the last).
+// begin in tw (the sum of NS*(R - 1) over its passes from the second to the
+// one before the last).
 template <int SIGN, int M, int OFF, int RL, int... Rev>
 __device__ __forceinline__ void full_tail(const ChirpArgs& g) {
   turn_pass<SIGN, M, RL, OFF>(ChirpRow<kFullFirst>{g}.shared(), g);
@@ -232,10 +228,10 @@ __device__ __forceinline__ void full_fft(const ChirpArgs& g) {
     full_tail<SIGN, M, 0, r1, r0>(g);
   } else if constexpr (r3 == 0) {
     fixed_passes<SIGN, M, 1, 0, r0, r1>(first.src(), first, g.tw);
-    full_tail<SIGN, M, r0, r2, r1, r0>(g);
+    full_tail<SIGN, M, r0 * (r1 - 1), r2, r1, r0>(g);
   } else {
     fixed_passes<SIGN, M, 1, 0, r0, r1, r2>(first.src(), first, g.tw);
-    full_tail<SIGN, M, r0 + r0 * r1, r3, r2, r1, r0>(g);
+    full_tail<SIGN, M, r0 * (r1 - 1) + r0 * r1 * (r2 - 1), r3, r2, r1, r0>(g);
   }
 }
 

@@ -23,12 +23,13 @@
 // autosort step of stockham.cuh with R and N at run time: butterfly j
 // (0 <= j < N/R) reads x[j + k*N/R] for k < R, multiplies input k by the
 // twiddle w^k, w = w_N^((j mod NS) * N/(NS*R)) (w^k as k - 1 products from
-// one root of the table), takes an R-point DFT and writes
+// one root of the table; a fixed plan's passes gather each w^k from a
+// table of their own), takes an R-point DFT and writes
 // output k to y[(j/NS)*NS*R + (j mod NS) + k*NS]; after the last pass the
 // row is in natural order.  Twiddles come from the float32 table of the
 // N*TWS roots of unity of the transform's sign (generated in float64 on the
-// host): w_N^e is tw[e*TWS].  Butterfly constants are float32 values of
-// float64 cos and sin, the sign flips their imaginary parts; all arithmetic
+// host): w_N^e is tw[e*TWS].  Butterfly constants are float32 pairs of
+// |w|^2 nearest 1 (kRoot), the sign flips their imaginary parts; all arithmetic
 // is float32 FMAs on the CUDA cores (TF32 would miss 1e-5 relative L2).
 //
 // One buffer per row, planar float32 (131 KB at N = 16383; a ping-pong pair
@@ -93,58 +94,56 @@ __host__ __device__ inline int generic_units(int n, int p) {
 // butterflies
 // ---------------------------------------------------------------------- //
 
-// cos and sin of 2*pi*m/R for m < R, float32 of float64, R in
-// {3, 4, 5, 7, 8, 9, 11, 13, 16}, from root_off<R>() on.
+// cos and sin of 2*pi*m/R for m < R, R in {3, 4, 5, 7, 8, 9, 11, 13, 16},
+// from root_off<R>() on: of the float32 pairs within two ulps of the
+// float64 root, the one whose |w|^2 is nearest 1 (ops/cuda_fft.py::
+// butterfly_roots_np, which tests hold equal to this table).  The rounded
+// pairs have |w|^2 - 1 down to -5.7e-8 (w_16), and every radix-16
+// butterfly multiplies 8 of its 16 points by such constants: they cost the
+// row kernel's forward-inverse round trip 5e-8 of its power at N = 4096.
 __constant__ float2 kRoot[76] = {
     // R = 3
-    {1.000000000e+00f, 0.000000000e+00f}, {-5.000000000e-01f, 8.660253882e-01f},
-    {-5.000000000e-01f, -8.660253882e-01f},
+    {1.0f, 0.0f}, {-5.000001192e-01f, 8.660253286e-01f}, {-5.000001192e-01f, -8.660253286e-01f},
     // R = 4
     {1.0f, 0.0f}, {0.0f, 1.0f}, {-1.0f, 0.0f}, {0.0f, -1.0f},
     // R = 5
-    {1.000000000e+00f, 0.000000000e+00f}, {3.090170026e-01f, 9.510565400e-01f},
-    {-8.090170026e-01f, 5.877852440e-01f}, {-8.090170026e-01f, -5.877852440e-01f},
-    {3.090170026e-01f, -9.510565400e-01f},
+    {1.0f, 0.0f}, {3.090169430e-01f, 9.510565400e-01f}, {-8.090170026e-01f, 5.877852440e-01f},
+    {-8.090170026e-01f, -5.877852440e-01f}, {3.090169430e-01f, -9.510565400e-01f},
     // R = 7
-    {1.000000000e+00f, 0.000000000e+00f}, {6.234897971e-01f, 7.818315029e-01f},
-    {-2.225209326e-01f, 9.749279022e-01f}, {-9.009688497e-01f, 4.338837266e-01f},
-    {-9.009688497e-01f, -4.338837266e-01f}, {-2.225209326e-01f, -9.749279022e-01f},
-    {6.234897971e-01f, -7.818315029e-01f},
+    {1.0f, 0.0f}, {6.234898567e-01f, 7.818314433e-01f}, {-2.225209624e-01f, 9.749279022e-01f},
+    {-9.009688497e-01f, 4.338837862e-01f}, {-9.009688497e-01f, -4.338837862e-01f},
+    {-2.225209624e-01f, -9.749279022e-01f}, {6.234898567e-01f, -7.818314433e-01f},
     // R = 8
     {1.0f, 0.0f}, {7.071067691e-01f, 7.071067691e-01f}, {0.0f, 1.0f},
     {-7.071067691e-01f, 7.071067691e-01f}, {-1.0f, 0.0f},
     {-7.071067691e-01f, -7.071067691e-01f}, {0.0f, -1.0f},
     {7.071067691e-01f, -7.071067691e-01f},
     // R = 9
-    {1.000000000e+00f, 0.000000000e+00f}, {7.660444379e-01f, 6.427876353e-01f},
-    {1.736481786e-01f, 9.848077297e-01f}, {-5.000000000e-01f, 8.660253882e-01f},
-    {-9.396926165e-01f, 3.420201540e-01f}, {-9.396926165e-01f, -3.420201540e-01f},
-    {-5.000000000e-01f, -8.660253882e-01f}, {1.736481786e-01f, -9.848077297e-01f},
-    {7.660444379e-01f, -6.427876353e-01f},
+    {1.0f, 0.0f}, {7.660443187e-01f, 6.427877545e-01f}, {1.736482084e-01f, 9.848077297e-01f},
+    {-5.000001192e-01f, 8.660253286e-01f}, {-9.396926165e-01f, 3.420201540e-01f},
+    {-9.396926165e-01f, -3.420201540e-01f}, {-5.000001192e-01f, -8.660253286e-01f},
+    {1.736482084e-01f, -9.848077297e-01f}, {7.660443187e-01f, -6.427877545e-01f},
     // R = 11
-    {1.000000000e+00f, 0.000000000e+00f}, {8.412535191e-01f, 5.406408310e-01f},
-    {4.154150188e-01f, 9.096319675e-01f}, {-1.423148364e-01f, 9.898214340e-01f},
-    {-6.548607349e-01f, 7.557495832e-01f}, {-9.594929814e-01f, 2.817325592e-01f},
-    {-9.594929814e-01f, -2.817325592e-01f}, {-6.548607349e-01f, -7.557495832e-01f},
-    {-1.423148364e-01f, -9.898214340e-01f}, {4.154150188e-01f, -9.096319675e-01f},
-    {8.412535191e-01f, -5.406408310e-01f},
+    {1.0f, 0.0f}, {8.412535191e-01f, 5.406408310e-01f}, {4.154150784e-01f, 9.096319675e-01f},
+    {-1.423148662e-01f, 9.898214340e-01f}, {-6.548607945e-01f, 7.557495236e-01f},
+    {-9.594929814e-01f, 2.817325294e-01f}, {-9.594929814e-01f, -2.817325294e-01f},
+    {-6.548607945e-01f, -7.557495236e-01f}, {-1.423148662e-01f, -9.898214340e-01f},
+    {4.154150784e-01f, -9.096319675e-01f}, {8.412535191e-01f, -5.406408310e-01f},
     // R = 13
-    {1.000000000e+00f, 0.000000000e+00f}, {8.854560256e-01f, 4.647231698e-01f},
-    {5.680647492e-01f, 8.229838610e-01f}, {1.205366775e-01f, 9.927088618e-01f},
-    {-3.546048999e-01f, 9.350162148e-01f}, {-7.485107780e-01f, 6.631226540e-01f},
-    {-9.709418416e-01f, 2.393156588e-01f}, {-9.709418416e-01f, -2.393156588e-01f},
-    {-7.485107780e-01f, -6.631226540e-01f}, {-3.546048999e-01f, -9.350162148e-01f},
-    {1.205366775e-01f, -9.927088618e-01f}, {5.680647492e-01f, -8.229838610e-01f},
-    {8.854560256e-01f, -4.647231698e-01f},
+    {1.0f, 0.0f}, {8.854560256e-01f, 4.647231698e-01f}, {5.680647492e-01f, 8.229838610e-01f},
+    {1.205366924e-01f, 9.927088618e-01f}, {-3.546049595e-01f, 9.350162148e-01f},
+    {-7.485106587e-01f, 6.631227732e-01f}, {-9.709418416e-01f, 2.393156290e-01f},
+    {-9.709418416e-01f, -2.393156290e-01f}, {-7.485106587e-01f, -6.631227732e-01f},
+    {-3.546049595e-01f, -9.350162148e-01f}, {1.205366924e-01f, -9.927088618e-01f},
+    {5.680647492e-01f, -8.229838610e-01f}, {8.854560256e-01f, -4.647231698e-01f},
     // R = 16
-    {1.0f, 0.0f}, {9.238795042e-01f, 3.826834261e-01f},
-    {7.071067691e-01f, 7.071067691e-01f}, {3.826834261e-01f, 9.238795042e-01f},
-    {0.0f, 1.0f}, {-3.826834261e-01f, 9.238795042e-01f},
-    {-7.071067691e-01f, 7.071067691e-01f}, {-9.238795042e-01f, 3.826834261e-01f},
-    {-1.0f, 0.0f}, {-9.238795042e-01f, -3.826834261e-01f},
-    {-7.071067691e-01f, -7.071067691e-01f}, {-3.826834261e-01f, -9.238795042e-01f},
-    {0.0f, -1.0f}, {3.826834261e-01f, -9.238795042e-01f},
-    {7.071067691e-01f, -7.071067691e-01f}, {9.238795042e-01f, -3.826834261e-01f},
+    {1.0f, 0.0f}, {9.238795638e-01f, 3.826833665e-01f}, {7.071067691e-01f, 7.071067691e-01f},
+    {3.826833665e-01f, 9.238795638e-01f}, {0.0f, 1.0f}, {-3.826833665e-01f, 9.238795638e-01f},
+    {-7.071067691e-01f, 7.071067691e-01f}, {-9.238795638e-01f, 3.826833665e-01f}, {-1.0f, 0.0f},
+    {-9.238795638e-01f, -3.826833665e-01f}, {-7.071067691e-01f, -7.071067691e-01f},
+    {-3.826833665e-01f, -9.238795638e-01f}, {0.0f, -1.0f},
+    {3.826833665e-01f, -9.238795638e-01f}, {7.071067691e-01f, -7.071067691e-01f},
+    {9.238795638e-01f, -3.826833665e-01f},
 };
 
 template <int R>
@@ -353,10 +352,22 @@ __device__ __forceinline__ void small_pass(const Src& src, const Dst& dst, const
     const int j = min_int(a.tid + b * a.T, M - 1);
 #pragma unroll
     for (int k = 0; k < R; ++k) src.load(j + k * M, ar[b][k], ai[b][k]);
-    // w^k = w^(k-1) * w from one gathered root (w = 1 at j mod NS = 0): a
-    // gather of each of the R - 1 roots would cost an L1 wavefront a lane.
-    // A fixed pass at NS = 1 has no twiddles to apply.
-    if (!Step::kFixed || a.ns > 1) {
+    // A fixed pass (the power-of-two kernels) gathers each w^k from its
+    // table of its own powers, [k - 1][e], consecutive lanes on
+    // consecutive words: a chain of k - 1 float32 products from one root
+    // multiplies that root's |w|^2 - 1 by k, and shrank the row kernel's
+    // forward-inverse round trip by 5e-8 of its power at N = 4096.  A
+    // run-time pass (the composite kernels) forms w^k = w^(k-1) * w from
+    // one gathered root (w = 1 at j mod NS = 0): a gather of each w^k from
+    // the N-point table costs an L1 wavefront a lane (B2c and B13 18-27%
+    // slower) and left the composite round trip's power no closer to 1.
+    // A fixed pass at NS = 1 has no twiddles.
+    if constexpr (Step::kFixed) {
+      if (a.ns > 1) {
+#pragma unroll
+        for (int k = 1; k < R; ++k) cmul(ar[b][k], ai[b][k], __ldg(&tw[(k - 1) * a.ns + j % a.ns]));
+      }
+    } else {
       const float2 w = __ldg(&tw[(j % a.ns) * step]);
       float2 wk = w;
 #pragma unroll
@@ -558,10 +569,11 @@ __device__ __forceinline__ int2 row_lanes(const Row&, long) {
 // mixed_shape), src -> row.shared() -> ... -> row.dst() as in mixed_fft,
 // with every pass's N and NS constants; the first pass at NS, so a caller
 // may run a plan's passes in parts.  The table tw holds each pass's
-// twiddles w_(NS*R)^e, e < NS, pass after pass from the first with NS > 1
-// (where the table begins, OFF = 0): consecutive lanes read consecutive
-// roots, where a gather from the N-point table at stride N/(NS*R) touches
-// a cache line a lane.  OFF: where this pass's roots begin.
+// twiddles w_(NS*R)^(k*e), [k - 1][e] for 0 < k < R and e < NS, pass after
+// pass from the first with NS > 1 (where the table begins, OFF = 0):
+// consecutive lanes read consecutive roots, where a gather from the
+// N-point table at stride k*N/(NS*R) touches a cache line a lane.  OFF:
+// where this pass's roots begin.
 template <int SIGN, int N, int NS, int OFF, int R, int... RS, class Src, class Row>
 __device__ __forceinline__ void fixed_passes(const Src& src, const Row& row,
                                              const float2* __restrict__ tw) {
@@ -572,7 +584,8 @@ __device__ __forceinline__ void fixed_passes(const Src& src, const Row& row,
     small_pass<R, mixed_hold(R), SIGN>(src, row.dst(), a, tw + OFF);
   } else {
     small_pass<R, mixed_hold(R), SIGN>(src, row.shared(), a, tw + OFF);
-    fixed_passes<SIGN, N, NS * R, (NS > 1 ? OFF + NS : OFF), RS...>(row.shared(), row, tw);
+    fixed_passes<SIGN, N, NS * R, (NS > 1 ? OFF + NS * (R - 1) : OFF), RS...>(row.shared(), row,
+                                                                               tw);
   }
 }
 

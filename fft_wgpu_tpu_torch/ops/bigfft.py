@@ -196,7 +196,7 @@ def _big_passes(re, im, sign, scale=None):
     cos, sin = (torch.from_numpy(t).to(re.device) for t in _big_roots_np(n, sign))
     tab = torch.complex(cos, sin)
     x = torch.complex(re, im).reshape(*re.shape[:-1], c, q)
-    wr, wi = stockham._const("dft_matrix_np", (c, sign), re.device)
+    wr, wi = cuda_fft._butterfly_matrix(c, sign, re.device)
     y = torch.complex(wr, wi) @ x  # [k1, q]: the C-point DFT over c
     k1 = torch.arange(c, device=re.device)[:, None]
     pos = torch.arange(q, device=re.device)[None, :]

@@ -322,6 +322,17 @@ def fft_batched_split_reference(re, im, sign, scale=None):
     return stockham.apply_scale(re, im, scale)
 
 
+def _rows_passes(re, im, sign, scale=None):
+    """Plain torch version of the rows_fft kernel's own passes: n's
+    compiled plan (:func:`_fixed_passes` on :func:`_pass_roots_np`'s
+    table), then the scale.  No CUDA path calls it."""
+    n = re.shape[-1]
+    tab = _twiddle_table(n, sign, re.device, _pass_roots_np)
+    z = _fixed_passes(torch.complex(re, im), sign, torch.complex(tab[:, 0], tab[:, 1]),
+                      _mixed_radix_plan(n))
+    return stockham.apply_scale(z.real.contiguous(), z.imag.contiguous(), scale)
+
+
 # ---------------------------------------------------------------------- #
 # axis -2 of [..., n, m] (pallas_fft.fft_axis0_split)
 # ---------------------------------------------------------------------- #
@@ -1566,6 +1577,52 @@ def _mixed_radix_plan(n: int) -> tuple:
     return tuple(generic[:1] + odd + twos + generic[1:])
 
 
+def _unit_pair(c: float, s: float):
+    """The float32 pair nearest the root (c, s) whose |w|^2 is nearest 1:
+    of the pairs within two ulps of float32(c), float32(s) in each part
+    (parts below 1e-12 taken as 0), those whose | |w|^2 - 1 | is within
+    1e-10 of the least, and of them the nearest to (c, s).  A multiply by
+    it keeps a row's power where the rounded pair (|w|^2 - 1 as low as
+    -5.7e-8 at w_16) shrinks it; its angle is within 2.2e-7 of the
+    root's."""
+    def moved(x, d):
+        for _ in range(abs(d)):
+            x = np.nextafter(x, np.float32(np.inf if d > 0 else -np.inf), dtype=np.float32)
+        return x
+    c, s = (0.0 if abs(v) < 1e-12 else float(v) for v in (c, s))
+    pairs = [(moved(np.float32(c), dc), moved(np.float32(s), ds))
+             for dc in range(-2, 3) for ds in range(-2, 3)]
+    err = [abs(float(a) ** 2 + float(b) ** 2 - 1.0) for a, b in pairs]
+    near = [i for i, e in enumerate(err) if e <= min(err) + 1e-10]
+    return pairs[min(near, key=lambda i: abs(complex(float(pairs[i][0]) - c,
+                                                      float(pairs[i][1]) - s)))]
+
+
+@functools.lru_cache(maxsize=None)
+def butterfly_roots_np(r: int):
+    """cos and sin of 2*pi*m/r, m < r, as the pairs of :func:`_unit_pair`:
+    the butterfly constants of ``csrc/mixed_fft.cuh`` (``kRoot``, for r in
+    :data:`_GEN_SMALL` but 2 and 4; tests hold the two equal)."""
+    t = 2.0 * np.pi * np.arange(r) / r
+    pairs = [_unit_pair(c, s) for c, s in zip(np.cos(t), np.sin(t))]
+    return (np.array([a for a, _ in pairs], np.float32),
+            np.array([b for _, b in pairs], np.float32))
+
+
+def _butterfly_matrix(r: int, sign: int, device):
+    """The r-point DFT matrix W[q, k] = w_r^(sign*q*k) on the butterfly
+    constants (:func:`butterfly_roots_np`), planar float32 on ``device``,
+    cached: the plain version of the kernels' small-radix butterflies."""
+    key = ("butterfly", r, sign, str(device))
+    pair = _TWIDDLES.get(key)
+    if pair is None:
+        c, s = butterfly_roots_np(r)
+        m = np.outer(np.arange(r), np.arange(r)) % r
+        pair = _TWIDDLES[key] = (torch.from_numpy(c[m]).to(device),
+                                 torch.from_numpy(sign * s[m]).to(device))
+    return pair
+
+
 def _radix_arg(plan: tuple):
     return (ctypes.c_int * len(plan))(*plan)
 
@@ -1576,8 +1633,8 @@ def _mixed_passes(z, sign, tw, tws):
     the radices before it, butterfly j reads z[j + k*N/R], multiplies input
     k by w^k, w = tw[(j mod NS) * N/(NS*R) * tws] (a float32 root of the
     table; w^k as k - 1 products for a small radix, the table's root of
-    exponent k*e for a generic prime), takes the R-point DFT (an
-    f64-generated matrix) and writes output q to
+    exponent k*e for a generic prime), takes the R-point DFT
+    (:func:`_autosort`) and writes output q to
     (j - j mod NS)*R + j mod NS + q*NS."""
     N = z.shape[-1]
     ns = 1
@@ -1598,14 +1655,19 @@ def _mixed_passes(z, sign, tw, tws):
 
 
 def _autosort(x, sign, ns):
-    """The rest of a pass after its twiddles: the R-point DFTs (an
-    f64-generated matrix) of the twiddled inputs ``x`` [..., R(k), M(j)]
-    and the Stockham store of output q of butterfly j at
-    (j - j mod NS)*R + j mod NS + q*NS, a complex [..., R*M] tensor."""
+    """The rest of a pass after its twiddles: the R-point DFTs (the
+    butterfly constants' matrix, :func:`_butterfly_matrix`, for a small
+    radix; an f64-generated matrix for a generic prime) of the twiddled
+    inputs ``x`` [..., R(k), M(j)] and the Stockham store of output q of
+    butterfly j at (j - j mod NS)*R + j mod NS + q*NS, a complex
+    [..., R*M] tensor."""
     R, M = x.shape[-2:]
     j = torch.arange(M, device=x.device)
     k = torch.arange(R, device=x.device)
-    wr, wi = stockham._const("dft_matrix_np", (R, sign), x.device)
+    if R in _GEN_SMALL:
+        wr, wi = _butterfly_matrix(R, sign, x.device)
+    else:
+        wr, wi = stockham._const("dft_matrix_np", (R, sign), x.device)
     # y[q, j] = sum_k W[q, k] x[k, j], W symmetric: y^T = x^T @ W
     yr, yi = stockham._cmatmul(x.real.transpose(-1, -2).contiguous(),
                                x.imag.transpose(-1, -2).contiguous(), wr, wi)
@@ -1843,13 +1905,13 @@ def _plan_roots(m: int, sign: int, plan: tuple):
     """Each pass's twiddles for the fixed-plan passes of
     ``mixed_fft.cuh::fixed_passes``: for each pass of ``plan`` after the
     first, with NS the product of the radices before it and R its radix,
-    the roots w_(NS*R)^e = exp(sign*2pi*i*e/(NS*R)), e < NS, pass after
-    pass; taken from the m-point table of :func:`_tw.roots_np`, so every
-    value is one of that table's."""
+    the powers w_(NS*R)^(k*e) = exp(sign*2pi*i*k*e/(NS*R)) as [k - 1][e],
+    0 < k < R, e < NS, pass after pass; taken from the m-point table of
+    :func:`_tw.roots_np`, so every value is one of that table's."""
     idx, ns = [], 1
     for r in plan:
         if ns > 1:
-            idx.append(np.arange(ns) * (m // (ns * r)))
+            idx.append((np.arange(1, r)[:, None] * np.arange(ns) * (m // (ns * r))).ravel())
         ns *= r
     idx = np.concatenate(idx)
     c, s = _tw.roots_np(m, sign)
@@ -2107,8 +2169,9 @@ def fft_chirp_full_split(re, im, hr, hi, Hr, Hi, gr, gi, m, n_out, scale=None):
 def _fixed_passes(z, sign, roots, plan):
     """The fixed-plan passes of ``mixed_fft.cuh::fixed_passes`` in plain
     torch on a complex ``[..., N]`` tensor, as :func:`_mixed_passes` but
-    with each pass's twiddle w^k, w = roots[off + j mod NS], read from the
-    pass-after-pass table of :func:`_plan_roots` (complex ``roots``)."""
+    with each pass's twiddle w^k = roots[off + (k - 1)*NS + j mod NS] read
+    from the pass-after-pass table of :func:`_plan_roots` (complex
+    ``roots``)."""
     N = z.shape[-1]
     ns, off = 1, 0
     for R in plan:
@@ -2116,9 +2179,10 @@ def _fixed_passes(z, sign, roots, plan):
         x = z.reshape(*z.shape[:-1], R, M)
         if ns > 1:
             j = torch.arange(M, device=z.device)
-            wk = torch.cumprod(roots[off + j % ns].expand(R - 1, M), dim=0)
+            k = torch.arange(R - 1, device=z.device)
+            wk = roots[off + (k * ns)[:, None] + (j % ns)[None, :]]
             x = torch.cat([x[..., :1, :], x[..., 1:, :] * wk], dim=-2)
-            off += ns
+            off += ns * (R - 1)
         z = _autosort(x, sign, ns)
         ns *= R
     return z

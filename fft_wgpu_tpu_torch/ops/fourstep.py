@@ -41,14 +41,16 @@ def choose_factors(n: int) -> tuple[int, int]:
     return _factor.balanced_split(n)
 
 
-def fft_last_axis(re, im, sign, scale=None):
-    """Four-step FFT over the last axis of a split (re, im) pair."""
+def fft_last_axis(re, im, sign, scale=None, *, whole_row=True):
+    """Four-step FFT over the last axis of a split (re, im) pair.  With
+    ``whole_row=False`` a CUDA tensor takes the two passes even where the
+    whole-row kernel would serve (a tuned plan measures both routes)."""
     from ..plan.plan import get_plan
 
     n = re.shape[-1]
     lead = re.shape[:-1]
     on_card = re.device.type == "cuda"
-    if on_card and bigfft._supported(n, re.numel() // n if n else 0):
+    if whole_row and on_card and bigfft._supported(n, re.numel() // n if n else 0):
         return bigfft.fft_big_split(re, im, sign, scale)
 
     n1, n2 = choose_factors(n)

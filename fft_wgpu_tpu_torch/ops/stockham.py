@@ -14,7 +14,8 @@ Everything operates on split (re, im) float32 tensors on whatever device
 they lie on; the transform axis is always the last one.  The matmuls run
 in full float32: on a CUDA device TF32 is switched off around each one
 (:func:`full_float32`, which restores the caller's setting), because TF32
-keeps about three decimal digits and misses the 1e-5 relative-L2 bar.
+keeps about three decimal digits and misses the 1e-5 relative-L2 bar;
+``set_dot_precision("fast")`` switches it on there instead.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from ..core import factor as _factor
 from ..core import twiddle as _tw
+from ..utils import precision as _precision
 
 __all__ = ["fft_last_axis", "apply_scale", "full_float32", "BLUESTEIN_MIN"]
 
@@ -51,13 +53,14 @@ def _const(kind: str, args: tuple, device):
 def full_float32(t):
     """Matmuls on ``t``'s device in full float32 inside the block: on a CUDA
     tensor TF32 is off there (it would cut a product to ~1e-3 relative
-    error) and the caller's setting is restored after it; the CPU has no
-    TF32, so a CPU tensor leaves the setting alone."""
+    error), or on under ``set_dot_precision("fast")`` (the mode read here,
+    ``utils/precision.py``), and the caller's setting is restored after it;
+    the CPU has no TF32, so a CPU tensor leaves the setting alone."""
     if not t.is_cuda:
         yield
         return
     prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = _precision.get_dot_precision() == "fast"
     try:
         yield
     finally:

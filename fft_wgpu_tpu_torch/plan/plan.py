@@ -19,6 +19,14 @@ Executors keep the JAX package's names:
     CPU tensor it runs the kernel's plain version (the JAX package's
     ``"bigfft"`` cannot run on the CPU at all outside interpret mode).
 
+Routes of ``"auto"`` that have no executor name of their own, and that a
+tuned plan (``autotune=True``, ``plan/autotune.py``) or an AOT artifact
+(``plan/aot.py``) may pick: ``"general"`` (the composite-row kernel),
+``"bluestein"`` (Bluestein's fused chirp kernel) and
+``"fourstep:two-pass"`` (the axis(-2) kernel then the transposed-rows
+kernel, where ``"fourstep"`` would take the whole-row kernel); and
+``"axis"``, an axis before the last on the axis(-2) kernels.
+
 With ``executor="auto"`` a CUDA tensor of pow2 length 128..16384 always
 goes through the row kernel, whatever its row count (a complex64 tensor
 transformed along its last axis through the kernel's interleaved entry, with
@@ -36,6 +44,11 @@ before it through the axis(-3) entry point on ``[..., n, mid, Z]`` (the
 same kernels on a free view), again with no transpose; other lengths move
 to the back around the row route.  A CPU tensor always takes the mixed-radix
 path, as the JAX package does off the TPU.
+
+With ``autotune=True`` and ``executor="auto"``, a CUDA tensor's route is
+the one ``autotune.measure_executor`` measured fastest for its (card, n,
+rows bucket, axis); a CPU tensor is not tuned, as in the JAX package off
+the TPU.
 """
 
 from __future__ import annotations
@@ -48,7 +61,7 @@ import torch
 
 from ..core.complex_utils import default_device, merge, promote_to_split
 from ..core.twiddle import FORWARD, INVERSE
-from ..ops import bigfft, cuda_fft, fourstep, stockham
+from ..ops import bigfft, bluestein, cuda_fft, fourstep, stockham
 from ..ops.cuda_fft import FUSED_MAX_N, FUSED_MIN_N
 
 __all__ = ["Plan", "plan", "get_plan"]
@@ -91,9 +104,10 @@ class Plan:
     input planes, in place: on the row kernel and the axis(-2) kernels
     directly (each block holds its whole row, or each cluster its whole
     tile, on chip before it stores), elsewhere by a copy.
-    ``autotune=True`` raises :class:`NotImplementedError` on a CUDA tensor
-    until ``plan/autotune.py`` is ported; on a CPU tensor it does nothing,
-    as in the JAX package off the TPU.
+    ``autotune=True`` (with ``executor="auto"``) measures the routes that
+    can serve each CUDA shape once per (card, n, rows bucket, axis) and
+    keeps the fastest (``plan/autotune.py``); on a CPU tensor it does
+    nothing, as in the JAX package off the TPU.
     """
 
     def __init__(self, n: int, *, executor: str = "auto",
@@ -112,8 +126,35 @@ class Plan:
         self.executor = executor
         self.autotune = bool(autotune)
         self.donate = bool(donate)
+        self._tuned: dict = {}  # (device, rows bucket, axis) -> measured route
+
+    def _route(self, device, shape, axis: int) -> str:
+        """The route a call on a tensor of ``shape`` along ``axis`` takes on
+        ``device``, the one rule :meth:`_execute_split_axis` follows and
+        ``plan/aot.py`` records: ``"axis"`` where an axis before the last
+        runs the axis(-2) kernels (the axis(-3) entry on the free view
+        before axis -2); with ``autotune=True`` and ``executor="auto"`` on
+        a CUDA device the measured route, kept on the plan per (device,
+        rows bucket, axis) so that a repeated call is one lookup; else
+        :meth:`_resolve_executor`'s."""
+        ax = axis % len(shape)
+        on_card = device.type == "cuda"
+        if (ax != len(shape) - 1 and on_card and self.executor in ("auto",) + _KERNEL
+                and cuda_fft._ax0_supported(self.n)):
+            return "axis"
+        if not (self.autotune and self.executor == "auto" and on_card):
+            return self._resolve_executor(device)
+        from . import autotune
+
+        key = (device, autotune.rows_bucket(shape, self.n), ax - len(shape))
+        route = self._tuned.get(key)
+        if route is None:
+            route = autotune.measure_executor(self, tuple(shape), axis, device)
+            self._tuned[key] = route
+        return route
 
     def _resolve_executor(self, device) -> str:
+        """The executor, or for ``"auto"`` the static route on ``device``."""
         if self.executor != "auto":
             return self.executor
         n = self.n
@@ -128,21 +169,16 @@ class Plan:
             return "general"  # an internal route of "auto", not an executor name
         return "xla"
 
-    def _check_autotune(self, device):
-        if self.autotune and self.executor == "auto" and device.type == "cuda":
-            raise NotImplementedError(
-                "autotune=True is not ported yet (plan/autotune.py, ROADMAP "
-                "queue A, slice 10)")
-
     # ------------------------------------------------------------------ #
     # split-domain executors (re/im pairs)
     # ------------------------------------------------------------------ #
-    def _execute_split(self, re, im, sign: int, scale, out=None):
-        """Transform along the last axis; ``out`` receives the result."""
+    def _execute_split(self, re, im, sign: int, scale, out=None, ex=None):
+        """Transform along the last axis on route ``ex`` (default: the
+        resolved one); ``out`` receives the result."""
         if re.shape[-1] != self.n:
             raise ValueError(
                 f"plan built for n={self.n}, input last axis is {re.shape[-1]}")
-        ex = self._resolve_executor(re.device)
+        ex = ex or self._route(re.device, re.shape, -1)
         if ex in _KERNEL:
             if out is not None and re.is_contiguous() and im.is_contiguous():
                 return cuda_fft.fft_batched_split(re, im, sign, scale, out=out)
@@ -151,27 +187,31 @@ class Plan:
             return _into(out, *bigfft.fft_big_split(re, im, sign, scale))
         if ex == "general":
             return _into(out, *cuda_fft.fft_rows_general_split(re, im, sign, scale))
-        if ex == "fourstep":
-            return _into(out, *fourstep.fft_last_axis(re, im, sign, scale))
+        if ex == "bluestein":
+            return _into(out, *bluestein.fft_bluestein_split(re, im, sign, scale))
+        if ex in ("fourstep", "fourstep:two-pass"):
+            return _into(out, *fourstep.fft_last_axis(
+                re, im, sign, scale, whole_row=ex == "fourstep"))
         if ex == "direct":
             yr, yi = stockham.apply_scale(*stockham._dft_direct(re, im, sign), scale)
             return _into(out, yr, yi)
         return _into(out, *stockham.fft_last_axis(re, im, sign, scale))
 
     def _execute_split_axis(self, re, im, sign: int, scale, axis: int,
-                            out=None):
-        """Transform along ``axis``.  On a CUDA tensor with n in the
-        axis(-2) kernels' envelope (pow2 128..16384, or composite
+                            out=None, ex=None):
+        """Transform along ``axis`` on route ``ex`` (default:
+        :meth:`_route`'s).  On route ``"axis"`` (a CUDA tensor with n in
+        the axis(-2) kernels' envelope: pow2 128..16384, or composite
         512..16384 with factors <= 256), axis -2 runs the axis(-2) kernel
         and any axis before it the axis(-3) entry point on the free view
         ``[..., n, mid, Z]`` (the axes between it and the last merged into
         mid), both with no transpose; otherwise the axis moves to the back
         around the row path."""
         ax = axis % re.ndim
+        ex = ex or self._route(re.device, re.shape, ax)
         if ax == re.ndim - 1:
-            return self._execute_split(re, im, sign, scale, out)
-        if (re.device.type == "cuda" and self.executor in ("auto",) + _KERNEL
-                and cuda_fft._ax0_supported(self.n)):
+            return self._execute_split(re, im, sign, scale, out, ex)
+        if ex == "axis":
             shape = re.shape
             if shape[ax] != self.n:
                 raise ValueError(f"plan built for n={self.n}, input axis "
@@ -186,12 +226,11 @@ class Plan:
                                               sign, scale)
             return _into(out, yr.view(shape), yi.view(shape))
         yr, yi = self._execute_split(re.movedim(ax, -1), im.movedim(ax, -1),
-                                     sign, scale)
+                                     sign, scale, ex=ex)
         return _into(out, yr.movedim(-1, ax), yi.movedim(-1, ax))
 
     def _split(self, re, im, axis: int, sign: int, scale):
         re, im = promote_to_split((re, im))
-        self._check_autotune(re.device)
         if not self.donate:
             return self._execute_split_axis(re, im, sign, scale, axis)
         if torch.is_grad_enabled() and (re.requires_grad or im.requires_grad):
@@ -227,9 +266,8 @@ class Plan:
                 and x.is_cuda and x.ndim >= 1 and -x.ndim <= axis < x.ndim
                 and x.shape[axis] == self.n):
             return None
-        self._check_autotune(x.device)
-        ex = self._resolve_executor(x.device)
-        if ex in _KERNEL:
+        ex = self._route(x.device, x.shape, axis % x.ndim)
+        if ex in _KERNEL or (ex == "axis" and cuda_fft._supported(self.n)):
             return cuda_fft.fft_c64_along(x, axis, sign, scale)
         if (ex in ("fourstep", "bigfft") and axis % x.ndim == x.ndim - 1
                 and bigfft._supported(self.n, x.numel() // self.n)):
@@ -245,7 +283,6 @@ class Plan:
             raise ValueError(
                 f"plan built for n={self.n}, input axis {axis} has length "
                 f"{re.shape[axis]}")
-        self._check_autotune(re.device)
         return merge(*self._execute_split_axis(re, im, sign, scale, axis))
 
     def forward(self, x, axis: int = -1):
@@ -280,7 +317,6 @@ class Plan:
         for sign, scale in ((FORWARD, None), (INVERSE, 1.0 / self.n),
                             (INVERSE, None)):
             re = torch.zeros(shape, device=device)
-            self._check_autotune(re.device)
             self._execute_split_axis(re, torch.zeros_like(re), sign, scale, axis)
         return self
 

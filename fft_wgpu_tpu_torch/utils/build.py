@@ -17,6 +17,7 @@ the tensors' device and leaves the thread's current device as it was.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,7 +27,8 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["CompileError", "BUILD_DIR", "library_path", "build", "load",
-           "function", "check", "launch"]
+           "function", "check", "launch", "source_stamp", "set_build_dir", "preload",
+           "recording"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -35,6 +37,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# nvcc runs of this process (build() counts them)
+compiles = 0
+# open recordings of the libraries loaded (recording())
+_RECORDS: list = []
 
 
 class CompileError(RuntimeError):
@@ -80,13 +86,34 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def source_stamp() -> str:
+    """A hash of every ``csrc`` source and header and of the flags: what
+    the library names carry, for all of them at once (16 hex digits)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return digest.hexdigest()[:16]
+
+
+def set_build_dir(path) -> Path:
+    """Build and load the libraries in ``path`` from now on (created if
+    missing); libraries already loaded in this process stay loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).expanduser().resolve()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return BUILD_DIR
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built."""
     src = CSRC / f"{name}.cu"
     out = library_path(name)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(exist_ok=True)
+    global compiles
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compiles += 1
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
@@ -101,10 +128,35 @@ def build(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    for names in _RECORDS:
+        names.add(name)
     lib = _LIBS.get(name)
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
     return lib
+
+
+def preload(name: str, path) -> None:
+    """Load the library file ``path`` as ``csrc/<name>.cu``'s, with no
+    build: its file name must be the one :func:`library_path` gives the
+    sources of this checkout (the same sources, headers and flags)."""
+    path = Path(path)
+    if path.name != library_path(name).name:
+        raise ValueError(f"{path.name} was not built from this checkout's {name}.cu "
+                         f"(expected {library_path(name).name})")
+    _LIBS[name] = ctypes.CDLL(str(path))
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect, into the yielded set, the name of every library a launch
+    inside the block loads."""
+    names: set = set()
+    _RECORDS.append(names)
+    try:
+        yield names
+    finally:
+        _RECORDS.remove(names)
 
 
 def function(name: str, fn: str, argtypes: list):

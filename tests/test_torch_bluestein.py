@@ -219,17 +219,19 @@ def test_chirp_plans_are_pow2_radices(m):
         assert '#include "mixed_fft.cuh"' in text and "plans[" not in text, name
     for name in ("filt_fft.cu", "spec_c2c_fft.cu"):  # the two kernels of the compiled plan
         assert "plan_fft<" in (csrc / name).read_text(), name
-    # each pass's twiddle table: NS roots of w_(NS*R) for every pass after the
-    # first, in the plan's order and in reverse
+    # each pass's twiddle table: the powers w_(NS*R)^(k*e), [k - 1][e] for
+    # 0 < k < R and e < NS, for every pass after the first, in the plan's
+    # order and in reverse
     for table_fn, order in ((cuda_fft._pass_roots_np, plan),
                             (cuda_fft._pass_roots_reversed_np, plan[::-1])):
         c, s = table_fn(m, -1)
         ns, off = order[0], 0
         for r in order[1:]:
-            e = np.arange(ns)
-            np.testing.assert_allclose(c[off:off + ns] + 1j * s[off:off + ns],
-                                       np.exp(-2j * np.pi * e / (ns * r)), atol=1e-7)
-            off, ns = off + ns, ns * r
+            k, e = np.arange(1, r)[:, None], np.arange(ns)[None, :]
+            size = ns * (r - 1)
+            np.testing.assert_allclose((c[off:off + size] + 1j * s[off:off + size]).reshape(r - 1, ns),
+                                       np.exp(-2j * np.pi * k * e / (ns * r)), atol=1e-7)
+            off, ns = off + size, ns * r
         assert off == len(c)
 
 

@@ -110,8 +110,15 @@ def test_plan_routes_through_kernel(dev):
     x = crand(dev, 1, 1 << 15)  # the whole-row kernel, one launch
     assert rel_l2(ft.fft(x), torch.fft.fft(x)) < TOL
     assert (bigfft.launches, cuda_fft.launches) == (before[0] + 1, before[1])
-    with pytest.raises(NotImplementedError, match="autotune"):
-        ft.plan(1024, autotune=True).forward(torch.zeros(2, 1024, device=dev))
+    # a tuned plan takes the measured route: the row kernel, its one
+    # candidate at 1024, so nothing is timed
+    from fft_wgpu_tpu_torch.plan import autotune
+
+    before = cuda_fft.launches
+    x = crand(dev, 2, 1024)
+    assert rel_l2(ft.plan(1024, autotune=True).forward(x), torch.fft.fft(x)) < TOL
+    assert cuda_fft.launches == before + 1
+    assert autotune.TUNE_CACHE[(torch.cuda.get_device_name(dev), 1024, 8, -1)] == "pallas"
 
 
 @pytest.mark.parametrize("layout", ["planar", "c64"])
@@ -1804,8 +1811,9 @@ def test_fused_and_spec_plans_are_the_planner_s(dev):
     for A, B in PLANES:
         for n in (A, B):
             tab = cuda_fft._twiddle_table(n, -1, dev, cuda_fft._pass_roots_np)
-            assert tab.shape[0] == sum(math.prod(cuda_fft._mixed_radix_plan(n)[:i])
-                                       for i in range(1, len(cuda_fft._mixed_radix_plan(n))))
+            plan = cuda_fft._mixed_radix_plan(n)
+            assert tab.shape[0] == sum(math.prod(plan[:i]) * (plan[i] - 1)
+                                       for i in range(1, len(plan)))
 
 
 # ---------------------------------------------------------------------- #
@@ -1952,10 +1960,10 @@ def test_filter_hilbert_and_complex_spectrogram_are_their_kernels_alone(dev):
 
 
 def test_bank_and_rows_keep_their_bits(dev):
-    # B1 (rows_fft) computes the bits of the kernel it was before its row
-    # types moved into mixed_fft.cuh (chip_smoke.KEPT_BITS, recorded from
-    # it); B10's were taken out when the bank became the filtered rows'
-    # kernel
+    # B1 (rows_fft) computes the bits recorded in chip_smoke.KEPT_BITS
+    # (re-recorded when the repair of ROADMAP §C C5 changed its twiddles and
+    # butterfly constants); B10's were taken out when the bank became the
+    # filtered rows' kernel
     import pathlib
     import sys
 
@@ -2389,3 +2397,52 @@ def test_ks_nlse_and_poisson_on_card(dev):
     got = _model_through(lambda: models.solve_poisson(f), r2c_fft=1, ax3=2, ax3_c64=1,
                          ax0_fft=2, ax0_fft_c64=1, c2r_fft=1, c2r_fft_c64=1)
     assert rel_l2(got.cpu(), models.solve_poisson(f.cpu())) < TOL
+
+
+# ---------------------------------------------------------------------- #
+# the serving surface: tuned plans, AOT replay, and the round trip's power
+# (ROADMAP §C, C5)
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("n,rows,routes", [(1 << 17, 16, {"bigfft", "fourstep:two-pass"}),
+                                           (4097, 64, {"general", "bluestein"})])
+def test_tuned_plan_measures_and_holds(dev, tmp_path, monkeypatch, n, rows, routes):
+    from fft_wgpu_tpu_torch.plan import autotune
+
+    monkeypatch.setattr(autotune, "_WISDOM_PATH", str(tmp_path / "wisdom.json"))
+    monkeypatch.setattr(autotune, "_wisdom_loaded", True)
+    monkeypatch.setattr(autotune, "TUNE_CACHE", {})
+    p = ft.plan(n, autotune=True)
+    x = crand(dev, rows, n)
+    assert rel_l2(p.forward(x), torch.fft.fft(x)) < TOL
+    key = (torch.cuda.get_device_name(dev), n, autotune._bucket(rows), -1)
+    assert autotune.TUNE_CACHE[key] in routes
+    assert (tmp_path / "wisdom.json").exists()
+    assert rel_l2(p.inverse(p.forward(x)), x) < TOL
+
+
+def test_aot_replay_is_bit_equal(dev):
+    from fft_wgpu_tpu_torch.utils import build
+
+    p = ft.plan(4096)
+    art = ft.export_plan(p, batch_shape=(64,))
+    sp = ft.load_plan(art)
+    assert sp._meta["libraries"] == {"rows_fft": build.library_path("rows_fft").name}
+    assert sp._meta["capability"] == list(torch.cuda.get_device_capability(dev))
+    x = crand(dev, 64, 4096)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    for op in ("forward", "inverse", "inverse_unnormalized"):
+        got = getattr(sp, f"{op}_split")(re, im)
+        want = getattr(p, f"{op}_split")(re, im)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), op
+
+
+@pytest.mark.parametrize("layout", ["planar", "c64"])
+@pytest.mark.parametrize("n", [256, 4096])
+def test_round_trip_keeps_power(dev, layout, n):
+    # forward then inverse (1/n) keeps a random batch's power within 6e-8
+    fwd, _ = _rows_entry(layout)
+    x = crand(dev, 1000, n)
+    y = fwd(fwd(x, -1, None), 1, 1.0 / n)
+    x, y = x.to(torch.complex128), y.to(torch.complex128)
+    gain = float((y * x.conj()).sum().real / x.abs().square().sum()) - 1.0
+    assert abs(gain) <= 6e-8, gain

@@ -212,13 +212,22 @@ def test_routing_on_cuda_tensors():
         assert ft.plan(1 << 15, executor=ex)._resolve_executor(cpu) == ex
 
 
-def test_autotune_not_hidden_on_cuda(rng, assert_close):
+def test_autotune_not_hidden_on_cuda(rng, assert_close, monkeypatch):
+    # a CUDA tensor's route is the measured one (plan/autotune.py), asked
+    # for its own shape and axis; nothing is hidden behind a fallback
+    from fft_wgpu_tpu_torch.plan import autotune
+
+    asked = []
+    monkeypatch.setattr(autotune, "measure_executor",
+                        lambda plan, shape, axis, device: asked.append((shape, axis)) or "pallas")
     p = ft.plan(256, autotune=True)
-    with pytest.raises(NotImplementedError, match="autotune"):
-        p._check_autotune(torch.device("cuda", 0))
+    cuda = torch.device("cuda", 0)
+    assert p._route(cuda, (8, 256), -1) == "pallas" and asked == [((8, 256), -1)]
+    assert ft.plan(256, autotune=True, executor="xla")._route(cuda, (8, 256), -1) == "xla"
     # on the CPU it changes nothing, as in the JAX package off the TPU
     x = crand(rng, 2, 256)
     assert_close(_np(p.forward(_t(x))), _np(ftt.plan(256, autotune=True).forward(x)))
+    assert len(asked) == 1
 
 
 def test_grad_through_fft_matches_jax(rng, assert_close):
