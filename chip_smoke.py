@@ -13,7 +13,8 @@ cepstrum, envelope, channelizer and Wigner-Ville calls), and the
 signal-processing and non-uniform tail (multirate filtering, 2-D
 convolution and Wiener filtering, fractional Fourier transforms, NUFFTs),
 and the model family (the FNOs and their training step, the Burgers, KS,
-2-D Navier-Stokes and NLSE steppers, the Poisson solve).
+2-D Navier-Stokes and NLSE steppers, the Poisson solve), the serving
+surface, the CUDA-graph cache of the convenience calls, and the examples.
 
     python3 chip_smoke.py
 
@@ -258,6 +259,23 @@ non-zero without a result line:
              of the same function; a torch.profiler breakdown of the
              non-pow2 path's, the fused epilogues', the estimators' and the
              per-segment spectra's calls.
+
+Then the CUDA-graph cache (path 12, :func:`graph_cache_path`, after path 11
+and before path 9, in a child process with a fresh profiler): each of the JAX package's cached_call sites at
+PERF.md's shapes (rfft, irfft and the DCT family at 4096^2, fft2, stft and
+istft at 2^20, welch, csd, coherence and the spectrograms at 2^22,
+multitaper, oaconvolve 2^20 x 129, fftconvolve 2048 x 4096, hilbert) eager,
+captured and replayed: eager's bits, a held result unchanged by a replay on
+other inputs, the counters and the profiler's launches per replay as per
+eager call, events ms and idle share eager and replayed, the host ms of the
+capturing call; the routes of one launch an axis (rfft, irfft, fft2, stft
+and hilbert at pow2 lengths, the complex spectrogram) making no cache
+entry, beside the same sites at composite lengths, which capture; the
+memory the graphs hold, LRU eviction past 256 keys, eviction past the byte
+bound handing a graph's memory back, and a call that reads the host
+raising at its capture.  Then the examples (path 13, :func:`examples_path`):
+the fourteen of ``fft_wgpu_tpu_torch.examples`` at the JAX examples' sizes,
+each asserting its own check.
 
 torch.fft is an oracle and a baseline here, never the implementation.  The
 last two lines are a JSON object describing the kernels (each with its
@@ -1782,6 +1800,405 @@ def serving_path(dev, gen, smi) -> dict:
               + " | ".join(out.stdout.strip().splitlines()), flush=True)
     print(f"serving: path 11 done in {time.perf_counter() - t0:.1f} s", flush=True)
     return routes
+
+
+# Path 12's calls: the JAX package's cached_call sites at the shapes of
+# PERF.md §5 (the estimators at 2^22 with nperseg 4096 and hop 2048, stft and
+# istft at 2^20, rfft, irfft and the DCT family at 4096^2, oaconvolve 2^20 x
+# 129, fftconvolve 2048 x 4096, hilbert and the spectrograms as paths 5-7
+# run them), each with the kernels the profiler names in it.  Replay must
+# give eager's bits wherever two eager calls do; GRAPH_TOL is the bar where
+# they do not (stated beside the call that needed it).  The calls in
+# ONE_LAUNCH_CALLS take a route of one launch an axis and no other device
+# work, which their sites run eagerly, uncached (a replay's copy in and
+# clone out would cost more than the host work it saves); beside each, the
+# same site at a composite length takes a route that is captured.
+GRAPH_TOL = 1e-6
+ONE_LAUNCH_CALLS = ("rfft 4096x4096", "irfft 4096x2049 complex64", "fft2 4096x4096 complex64",
+                    "stft 2^20 n_fft 512 hop 128", "hilbert 4096x4096",
+                    "spectrogram 2^22 complex")
+
+
+def graph_sites(dev, gen) -> list:
+    """(call, fn, inputs, other inputs of the same shapes, kernels) of path 12."""
+    import torch
+
+    import fft_wgpu_tpu_torch as ft
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def crand(*shape):
+        return torch.complex(rand(*shape), rand(*shape))
+
+    seg = {"nperseg": 4096, "noverlap": 2048}
+    r, x, y = rand(4096, 4096), rand(1 << 22), rand(1 << 22)
+    xc, x20, xm = torch.complex(x, y), rand(1 << 20), rand(16384)
+    c2, sig, taps = crand(4096, 4096), rand(1 << 20), rand(129)
+    a2, b2 = rand(2048, 4096), rand(2048, 4096)
+    R, Z20 = torch.fft.rfft(r), torch.stft(x20, 512, 128, window=torch.hann_window(
+        512, device=dev), return_complex=True)
+    r4000, c4000 = r[:, :4000].contiguous(), c2[:, :4000].contiguous()
+    R4000 = R[:, :2001].contiguous()
+    tail = LONG_TAIL_KERNELS
+    sites = [
+        ("rfft 4096x4096", ft.rfft, (r,), ("r2c_fft",)),
+        ("rfft 4096x4000", ft.rfft, (r4000,), tail),
+        ("irfft 4096x2049 complex64", ft.irfft, (R,), ("c2r_fft",)),
+        ("irfft 4096x2001 complex64 n 4000", lambda z: ft.irfft(z, n=4000), (R4000,), tail),
+        ("fft2 4096x4096 complex64", ft.fft2, (c2,), ("rows_fft", "ax0_fft")),
+        ("fft2 4096x4000 complex64", ft.fft2, (c4000,), tail),
+        ("stft 2^20 n_fft 512 hop 128", lambda v: ft.stft(v, 512, 128), (x20,), ("spec_fft",)),
+        ("stft 2^20 n_fft 2000 hop 500", lambda v: ft.stft(v, 2000, 500), (x20,), tail),
+        ("istft 2^20 n_fft 512 hop 128", lambda z: ft.istft(z, 512, 128, length=1 << 20),
+         (Z20,), ("c2r_fft",)),
+        ("welch 2^22", lambda v: ft.welch(v, **seg), (x,), ("welch_acc",)),
+        ("csd 2^22", lambda v, u: ft.csd(v, u, **seg), (x, y), ("welch_acc",)),
+        ("welch 2^22 complex64 two-sided", lambda v: ft.welch(v, **seg), (xc,), ("welch_acc",)),
+        ("welch 2^22 median", lambda v: ft.welch(v, average="median", **seg), (x,),
+         ("psd_pairs",)),
+        ("coherence 2^22", lambda v, u: ft.coherence(v, u, **seg), (x, y), ("welch_acc",)),
+        ("multitaper 16384 K=7", lambda v: ft.multitaper(v, NW=4.0, K=7), (xm,),
+         ("r2c_fft",)),
+        ("spectrogram 2^22", lambda v: ft.spectrogram(v, nperseg=4096), (x,), ("psd_pairs",)),
+        ("spectrogram 2^22 complex", lambda v: ft.spectrogram(v, mode="complex", **seg), (x,),
+         ("spec_fft",)),
+        ("oaconvolve 2^20 x 129", ft.oaconvolve, (sig, taps), ("r2c_fft", "c2r_prod")),
+        ("oaconvolve complex64 2^20 x 129", ft.oaconvolve,
+         (torch.complex(sig, x20), torch.complex(taps, taps.flip(0))), ("rows_fft",)),
+        ("fftconvolve 2048x4096", lambda u, v: ft.fftconvolve(u, v, axes=-1), (a2, b2),
+         ("r2c_fft", "c2r_prod")),
+        ("fftconvolve complex64 2048x4096", lambda u, v: ft.fftconvolve(u, v, axes=-1),
+         (torch.complex(a2, b2), torch.complex(b2, a2)), ("rows_fft",)),
+        ("hilbert 4096x4096", ft.hilbert, (r,), ("r2c_fft", "filt_fft")),
+        ("hilbert 4096x4000", ft.hilbert, (r4000,), tail),
+        ("dct type 1 4096x4096", lambda v: ft.dct(v, type=1), (r,), tail),
+        ("dct type 4 4096x4096", lambda v: ft.dct(v, type=4), (r,), tail),
+        ("dct type 2 4096x4096", lambda v: ft.dct(v, type=2), (r,), tail),
+        ("idct type 2 4096x4096", lambda v: ft.idct(v, type=2), (r,), tail),
+        ("dst type 1 4096x4096", lambda v: ft.dst(v, type=1), (r,), tail),
+        ("dctn type 2 4096x4096", lambda v: ft.dctn(v, type=2), (r,), tail),
+    ]
+    return [(call, fn, ins, tuple(v.roll(1, -1) for v in ins), names)
+            for call, fn, ins, names in sites]
+
+
+def _flat(out) -> list:
+    """The tensors of a call's result (a tensor or a tuple of them)."""
+    import torch
+
+    return [out] if isinstance(out, torch.Tensor) else [t for t in out
+                                                        if isinstance(t, torch.Tensor)]
+
+
+def graph_site(call, fn, inputs, others, names, smi) -> dict:
+    """Path 12 at one call: call 1 eager, call 2 captures, call 3 replays;
+    calls 2 and 3 give call 1's bits where two eager calls agree bit for
+    bit (else within GRAPH_TOL); a result held from a replay is unchanged by
+    a replay on other inputs, which gives eager's result there; the
+    counters rise, and the profiler sees the named kernels, per replay as
+    per eager call; events ms and idle share eager (the cache cleared
+    before each call) and replayed, and the host ms of an eager call, of
+    the capturing call and of a replayed one.  A call of ONE_LAUNCH_CALLS
+    instead makes no cache entry in three calls, each with the first's
+    launches and bits, and is timed eager."""
+    import torch
+
+    from fft_wgpu_tpu_torch.utils import jit_cache
+
+    def run(*args):
+        before = counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = _flat(fn(*args))
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t)
+        return out, {k: v - before[k] for k, v in counts().items() if v != before[k]}, host_ms
+
+    def same_bits(a, b) -> bool:
+        return all(torch.equal(u, v) for u, v in zip(a, b))
+
+    def hold(what, got, want, exact):
+        check(len(got) == len(want) and all(u.shape == v.shape for u, v in zip(got, want)),
+              f"path 12 {call} {what}: shapes differ")
+        if exact:
+            check(same_bits(got, want), f"path 12 {call} {what}: not eager's bits")
+            return 0.0
+        err = max(rel_l2(u, v) for u, v in zip(got, want))
+        check(err <= GRAPH_TOL, f"path 12 {call} {what}: rel-L2 {err:.3e} > {GRAPH_TOL:.0e}")
+        return err
+
+    jit_cache.clear()
+    if call in ONE_LAUNCH_CALLS:
+        eager, launched, _ = run(*inputs)
+        check(bool(launched), f"path 12 {call}: no launch")
+        for i in (2, 3):
+            got, n, _ = run(*inputs)
+            check(n == launched, f"path 12 {call} call {i}: launches {n}, call 1 {launched}")
+            check(same_bits(got, eager), f"path 12 {call} call {i}: not call 1's bits")
+        check(not jit_cache._CACHE, f"path 12 {call}: a one-launch route made a cache entry")
+        got = {}
+        e = breakdown(lambda: fn(*inputs), names, reps=20, counted=got)
+        check(got == {k: 20 * v for k, v in launched.items()},
+              f"path 12 {call}: counters {got} over 20 calls, {launched} a call")
+        print(f"graphs: {smi} | {call} | eager by rule (one launch an axis, no cache entry in "
+              f"three calls, call 1's bits) | launches {launched} | eager {e['events']:.4f} ms "
+              f"idle {e['idle']:.2f}", flush=True)
+        return {"exact": True, "eager": e, "replayed": None}
+
+    eager_other, _, _ = run(*others)
+    jit_cache.clear()
+    eager, launched, _ = run(*inputs)
+    jit_cache.clear()
+    eager2, _, eager_host = run(*inputs)
+    exact = same_bits(eager, eager2)
+    captured, n2, capture_host = run(*inputs)
+    entries = list(jit_cache._CACHE.values())
+    check(len(entries) == 1 and isinstance(entries[0], jit_cache._Graph),
+          f"path 12 {call}: {len(entries)} cache entries after the capture, not one graph")
+    replayed, n3, replay_host = run(*inputs)
+    check(n2 == launched and n3 == launched,
+          f"path 12 {call}: launches eager {launched}, capture {n2}, replay {n3}")
+    err = max(hold("capture", captured, eager, exact), hold("replay", replayed, eager, exact))
+    held = [t.clone() for t in replayed]
+    other, _, _ = run(*others)
+    check(same_bits(replayed, held), f"path 12 {call}: a held result changed on replay")
+    hold("replay on other inputs", other, eager_other, exact)
+    nbytes = entries[0].nbytes
+
+    def eager_call():
+        jit_cache.clear()
+        return fn(*inputs)
+
+    # a window that misses a launch or two is taken again (at most five
+    # times, every other one without the profiler's schedule), as phase 5's
+    for attempt in range(5):
+        prof, others = {}, {}
+        for how, f in (("eager", eager_call), ("replayed", lambda: fn(*inputs))):
+            got = {}
+            prof[how] = breakdown(f, names, reps=20, counted=got, scheduled=attempt % 2 == 0,
+                                  others=others.setdefault(how, {}))
+            check(got == {k: 20 * v for k, v in launched.items()},
+                  f"path 12 {call} {how}: counters {got} over 20 calls, {launched} a call")
+        seen = {k: (prof["eager"][f"{k} launches"], prof["replayed"][f"{k} launches"])
+                for k in names}
+        if all(e == r and e == int(e) for e, r in seen.values()):
+            break
+    else:
+        check(False, f"path 12 {call}: the profiler's launches a call, eager and replayed: "
+                     f"{seen}")
+    e, r = prof["eager"], prof["replayed"]
+    added = sorted(set(others["replayed"]) - set(others["eager"]))
+    print(f"graphs: {smi} | {call} | {'bits' if exact else f'rel-L2 {err:.2e}'} | launches "
+          f"{launched} | eager {e['events']:.4f} ms idle {e['idle']:.2f} | replayed "
+          f"{r['events']:.4f} ms idle {r['idle']:.2f} | host ms a call: eager {eager_host:.2f}, "
+          f"capturing {capture_host:.2f}, replayed {replay_host:.2f} | graph "
+          f"{nbytes / 2**20:.1f} MiB | other launches {e['other launches']:g} "
+          f"-> {r['other launches']:g} (new: {', '.join(added) or 'none'})", flush=True)
+    return {"exact": exact, "eager": e, "replayed": r, "capture_host_ms": capture_host,
+            "eager_host_ms": eager_host, "nbytes": nbytes}
+
+
+# path 12's child process: the graph cache's path on a fresh torch.profiler
+# (late in a long run the profiler's windows miss launches, PERF.md §7, and
+# path 12 holds eager and replayed windows to the same launches); the
+# libraries are built already and load with no build
+GRAPH_CHILD = """
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+dev = torch.device("cuda", 0)
+torch.backends.cuda.matmul.allow_tf32 = False
+chip_smoke.graph_cache_path(dev, torch.Generator(device=dev).manual_seed(chip_smoke.SEED),
+                            sys.argv[2])
+"""
+
+
+def graph_cache_child(smi) -> None:
+    """Run path 12 (:func:`graph_cache_path`) in a child process and pass its
+    lines on; it fails if the child does."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    child = subprocess.run([sys.executable, "-c", GRAPH_CHILD, root, smi],
+                           capture_output=True, text=True, timeout=900)
+    print(child.stdout, end="", flush=True)
+    check(child.returncode == 0,
+          f"path 12 child: rc {child.returncode}\n{child.stderr[-4000:]}")
+
+
+def graph_cache_path(dev, gen, smi) -> dict:
+    """Path 12: the CUDA-graph cache (``utils.jit_cache``) at each of its
+    call sites (:func:`graph_site`), the memory its graphs hold, LRU
+    eviction past 256 keys, eviction past its byte bound handing the
+    memory back, and an impl that cannot be captured raising through it."""
+    import torch
+
+    from fft_wgpu_tpu_torch.utils import jit_cache
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    jit_cache.clear()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved(dev)
+    sites = graph_sites(dev, gen)
+    inputs = torch.cuda.memory_reserved(dev)
+    results = {call: graph_site(call, fn, ins, others, names, smi)
+               for call, fn, ins, others, names in sites}
+    # every captured call's graph at once: the memory the cache holds (each
+    # graph's pool is its own), as the device reserves it and as the cache
+    # counts it against its bound
+    jit_cache.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    captured = [site for site in sites if site[0] not in ONE_LAUNCH_CALLS]
+    for _call, fn, ins, _others, _names in captured:
+        fn(*ins)
+        fn(*ins)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_reserved(dev)
+    peak = torch.cuda.max_memory_reserved(dev)
+    counted = jit_cache._BYTES[dev.index]
+    kept = sum(isinstance(e, jit_cache._Graph) for e in jit_cache._CACHE.values())
+    limit = jit_cache.MAX_BYTES or torch.cuda.get_device_properties(dev).total_memory // 8
+    check(counted <= limit, f"path 12: the graphs hold {counted} bytes, past the bound")
+    check(kept == len(captured) or counted + max(
+        r["nbytes"] for r in results.values() if r["replayed"] is not None) > limit,
+        f"path 12: {kept} of {len(captured)} graphs kept under the bound")
+    print(f"graphs: {smi} | memory_reserved: the inputs {(inputs - base) / 2**20:.1f} MiB; "
+          f"with the captured calls' graphs ({kept} of {len(captured)} kept under the bound of "
+          f"{limit / 2**20:.1f} MiB) {(held - inputs) / 2**20:.1f} MiB more, peak "
+          f"{(peak - inputs) / 2**20:.1f} MiB; the cache counts {counted / 2**20:.1f} MiB",
+          flush=True)
+    del sites, captured
+    jit_cache.clear()
+    torch.cuda.empty_cache()
+
+    # LRU: 256 keys captured, the first used again, then two more keys: the
+    # second and third keys go, the first and the newest stay; rfft of a
+    # composite length, whose route is captured
+    import fft_wgpu_tpu_torch as ft
+
+    def key_of(rows):  # rfft's key of [rows, 240] float32
+        return "rfft", ((rows, 240), "float32"), 240, -1, None
+
+    def use(rows, n=240):
+        v = torch.ones(rows, n, device=dev)
+        ft.rfft(v)
+        ft.rfft(v)
+
+    empty = torch.cuda.memory_reserved(dev)
+    for rows in range(1, jit_cache.MAX_ENTRIES + 1):
+        use(rows)
+    full = torch.cuda.memory_reserved(dev)
+    use(1)
+    use(jit_cache.MAX_ENTRIES + 1)
+    use(jit_cache.MAX_ENTRIES + 2)
+    torch.cuda.synchronize()
+    kept = {k[0] for k in jit_cache._CACHE}
+    check(len(jit_cache._CACHE) == jit_cache.MAX_ENTRIES,
+          f"path 12 LRU: {len(jit_cache._CACHE)} entries")
+    check(key_of(2) not in kept and key_of(3) not in kept,
+          "path 12 LRU: the least recently used keys were kept")
+    check(all(key_of(r) in kept for r in (1, 4, jit_cache.MAX_ENTRIES + 2)),
+          "path 12 LRU: a recently used key was evicted")
+    evicted = torch.cuda.memory_reserved(dev)
+    torch.cuda.empty_cache()
+    evicted_emptied = torch.cuda.memory_reserved(dev)
+    jit_cache.clear()
+    torch.cuda.empty_cache()
+    print(f"graphs: {smi} | LRU: {jit_cache.MAX_ENTRIES + 2} keys of rfft [rows, 240], "
+          f"the least recently used two evicted | memory_reserved {empty / 2**20:.1f} MiB "
+          f"before, {full / 2**20:.1f} MiB with 256 graphs, {evicted / 2**20:.1f} MiB after "
+          f"evicting two, {evicted_emptied / 2**20:.1f} MiB after empty_cache, "
+          f"{torch.cuda.memory_reserved(dev) / 2**20:.1f} MiB after clear()", flush=True)
+
+    # the byte bound: graphs of rfft [4096, 4000] under a bound of two and a
+    # half such graphs; the third capture evicts the least recently used,
+    # whose pool the allocator then hands back to the device
+    bound = jit_cache.MAX_BYTES
+    try:
+        use(4096, 4000)
+        one = jit_cache._BYTES[dev.index]
+        jit_cache.MAX_BYTES = int(2.5 * one)
+        use(4097, 4000)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        two = torch.cuda.memory_reserved(dev)
+        use(4098, 4000)
+        torch.cuda.synchronize()
+        graphs = [k[-1][0][0][0] for k, e in jit_cache._CACHE.items() if e is not None]
+        check(graphs == [4097, 4098], f"path 12 byte bound: graphs of rows {graphs} kept")
+        check(jit_cache._BYTES[dev.index] <= jit_cache.MAX_BYTES,
+              "path 12 byte bound: the graphs hold more than the bound")
+        torch.cuda.empty_cache()
+        after = torch.cuda.memory_reserved(dev)
+        check(after <= two + one // 4, f"path 12 byte bound: memory_reserved {after} after "
+                                       f"evicting one of three graphs, {two} with two")
+    finally:
+        jit_cache.MAX_BYTES = bound
+    print(f"graphs: {smi} | byte bound: one graph of rfft [4096, 4000] {one / 2**20:.1f} MiB; "
+          f"bound {2.5 * one / 2**20:.1f} MiB; memory_reserved {two / 2**20:.1f} MiB with two, "
+          f"{after / 2**20:.1f} MiB after the third evicted the first (empty_cache)",
+          flush=True)
+    jit_cache.clear()
+    torch.cuda.empty_cache()
+
+    # an impl that reads the host: eager at the first call, raising at the
+    # capture, never an eager result
+    v = torch.randn(4096, device=dev, generator=gen)
+    key = ("path 12 uncapturable",)
+    impl = lambda u: u * float(u.sum().item())  # noqa: E731
+    jit_cache.cached_call(key, impl, v)
+    try:
+        jit_cache.cached_call(key, impl, v)
+    except RuntimeError as err:
+        print(f"graphs: {smi} | an impl calling .item() raised at its capture: "
+              f"{str(err).splitlines()[0][:160]}", flush=True)
+    else:
+        check(False, "path 12: an impl calling .item() returned from its capture")
+    check(key not in {k[0] for k in jit_cache._CACHE if jit_cache._CACHE[k] is not None},
+          "path 12: the uncapturable impl was cached")
+    jit_cache.clear()
+    print(f"graphs: path 12 done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return results
+
+
+def examples_path(dev, smi) -> dict:
+    """Path 13: the port's examples (``fft_wgpu_tpu_torch.examples``) on the
+    card at the JAX examples' own sizes, each asserting its own check: in
+    this process, but for ``serving``, which points the build cache at
+    ``~/.cache`` and so runs as ``python -m`` in a child process whose home
+    holds that cache as a link to this checkout's build directory (a warm
+    cache: the libraries load with no build).  Returns each one's
+    seconds."""
+    import importlib
+    import tempfile
+
+    from fft_wgpu_tpu_torch.examples import NAMES
+    from fft_wgpu_tpu_torch.utils import build
+
+    t0 = time.perf_counter()
+    seconds = {}
+    for name in NAMES:
+        t1 = time.perf_counter()
+        if name == "serving":
+            home = tempfile.mkdtemp(prefix="chip_smoke_home_")
+            os.makedirs(os.path.join(home, ".cache"))
+            os.symlink(build.BUILD_DIR, os.path.join(home, ".cache",
+                                                     "fft_wgpu_tpu_torch_build"))
+            out = subprocess.run(
+                [sys.executable, "-m", "fft_wgpu_tpu_torch.examples.serving"],
+                cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+                timeout=300, env={**os.environ, "HOME": home})
+            print(out.stdout, end="", flush=True)
+            check(out.returncode == 0,
+                  f"path 13 serving: rc {out.returncode}\n{out.stdout}\n{out.stderr[-3000:]}")
+        else:
+            importlib.import_module(f"fft_wgpu_tpu_torch.examples.{name}").main(device=dev)
+        seconds[name] = time.perf_counter() - t1
+        print(f"examples: {smi} | {name} | ok | {seconds[name]:.1f} s", flush=True)
+    print(f"examples: path 13, {len(NAMES)} examples done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return seconds
 
 
 def main() -> int:
@@ -3762,6 +4179,8 @@ def main() -> int:
 
     models_path(dev, gen, smi)  # path 10, before path 9 (below)
     serving_path(dev, gen, smi)  # path 11, before path 9 (below)
+    graph_cache_child(smi)  # path 12, before path 9 (below), in a process of its own
+    examples_path(dev, smi)  # path 13
     # Path 9 runs last: after its windows (the 2^20-point NUFFTs launch
     # thousands of kernels a window) later torch.profiler windows in the
     # same process were seen to miss one or two of 20 launches, whatever

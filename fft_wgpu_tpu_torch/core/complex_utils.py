@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 __all__ = ["split", "merge", "is_pair", "promote_to_split", "default_device", "to_device",
-           "host_table", "real_part"]
+           "host_table", "real_part", "as_args", "from_args"]
 
 
 def default_device() -> torch.device:
@@ -89,3 +89,18 @@ def promote_to_split(x, device=None):
         re, im = x
         return to_device(re, device=device), to_device(im, device=device)
     return split(x, device)
+
+
+def as_args(x, device=None) -> tuple:
+    """``x`` as the tensor arguments of a cached call (``utils.jit_cache``):
+    a tensor as itself (moved to ``device`` if given), anything else as the
+    planes of :func:`promote_to_split`, so that the call's device work,
+    a split included, is inside the call.  :func:`from_args` undoes it."""
+    if isinstance(x, torch.Tensor):
+        return (x if device is None else x.to(device),)
+    return promote_to_split(x, device)
+
+
+def from_args(args):
+    """The planar pair (re, im) of what :func:`as_args` gave."""
+    return promote_to_split(args[0] if len(args) == 1 else tuple(args))

@@ -1031,6 +1031,17 @@ def _r2c_unpack(Zr, Zi, n, scale):
     return stockham.apply_scale(Xr, Xi, scale)
 
 
+@functools.lru_cache(maxsize=None)
+def _c2r_keep(m: int, dtype, device) -> torch.Tensor:
+    """:func:`_c2r_pack`'s mask of m + 1 bins, 0 at DC and Nyquist and 1
+    between, built once per (m, dtype, device): a captured CUDA graph
+    (``utils/jit_cache``) reads it, so it is built outside any capture and
+    never evicted."""
+    keep = torch.ones(m + 1, dtype=dtype)
+    keep[0] = keep[m] = 0.0
+    return keep.to(device)
+
+
 def _c2r_pack(Xr, Xi, n):
     """Z[k], k < n/2, whose inverse FFT_{n/2} with 1/(n/2) is the real row
     (numpy's irfft) interleaved as z[j] = x[2j] + i x[2j+1]:
@@ -1038,9 +1049,7 @@ def _c2r_pack(Xr, Xi, n):
     O[k] = t[k] (X[k] - conj(X[m-k]))/2, t[k] = exp(+2 pi i k/n).  The
     imaginary parts of the DC and Nyquist bins are ignored, as numpy does."""
     m = n // 2
-    keep = torch.ones(m + 1, dtype=Xi.dtype, device=Xi.device)
-    keep[0] = keep[m] = 0.0
-    Xi = Xi * keep
+    Xi = Xi * _c2r_keep(m, Xi.dtype, Xi.device)
     Xr_rev, Xi_rev = Xr.flip(-1), Xi.flip(-1)
     tab = _halfcomplex_table(n, INVERSE, Xr.device)[:m]
     tr, ti = tab[:, 0], tab[:, 1]

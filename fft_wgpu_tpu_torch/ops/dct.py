@@ -36,6 +36,7 @@ from ..plan.plan import get_plan
 from .nd import _norm_axes
 from .rfft import rfft_last_split
 from .transforms import _length, _resize_axis
+from ..utils.jit_cache import cached_call, shape_key
 
 __all__ = ["dct", "idct", "dst", "idst", "dctn", "idctn", "dstn", "idstn"]
 
@@ -175,9 +176,14 @@ def _dct1(x, axis, norm):
     """DCT-I via the even-symmetric extension of length 2(n-1): bins 0..n-1
     of its R2C half spectrum (n of them) are the transform."""
     v = real_part(x)
-    n = v.shape[axis]
-    if n < 2:
+    if v.shape[axis] < 2:
         raise ValueError("DCT-I requires n >= 2")
+    return cached_call(("dct1", shape_key(v), axis, norm), lambda u: _dct1_impl(u, axis, norm),
+                       v)
+
+
+def _dct1_impl(v, axis, norm):
+    n = v.shape[axis]
     v = v.movedim(axis, -1)
     if norm == "ortho":
         # scipy's orthogonal DCT-I: endpoints scaled sqrt(2) on input,
@@ -196,6 +202,11 @@ def _dct4(x, axis, norm):
     with u[m] = s_m * x[perm][m] (s=-1 on the mirrored half) the identity
     X4[k] = 2*Re( e^{-i pi (2k+1)/(4n)} * FFT(u * e^{-i pi m / n})[k] )."""
     v = real_part(x)
+    return cached_call(("dct4", shape_key(v), axis, norm), lambda u: _dct4_impl(u, axis, norm),
+                       v)
+
+
+def _dct4_impl(v, axis, norm):
     n, nd = v.shape[axis], v.ndim
     perm, _ = _perms(n, v.device)
     prer, prei, postr, posti = (_on_axis(t, axis, nd) for t in _dct4_tables(n, v.device))
@@ -209,6 +220,11 @@ def _dct4(x, axis, norm):
 
 def _dct2(x, axis, norm):
     v = real_part(x)
+    return cached_call(("dct2", shape_key(v), axis, norm), lambda u: _dct2_impl(u, axis, norm),
+                       v)
+
+
+def _dct2_impl(v, axis, norm):
     n, nd = v.shape[axis], v.ndim
     perm, _ = _perms(n, v.device)
     cr, ci = (_on_axis(t, axis, nd) for t in _halfshift(n, -1, v.device))
@@ -223,6 +239,10 @@ def _dct2(x, axis, norm):
 def _idct2_core(Y, axis):
     """Backward-norm inverse of DCT-II:
     invperm(Re(IFFT( 0.5 * e^{+i pi k/2n} * (Y - i*Yrev) )))."""
+    return cached_call(("idct2", shape_key(Y), axis), lambda u: _idct2_impl(u, axis), Y)
+
+
+def _idct2_impl(Y, axis):
     n, nd = Y.shape[axis], Y.ndim
     _, inv_perm = _perms(n, Y.device)
     cr, ci = (_on_axis(t, axis, nd) for t in _halfshift(n, +1, Y.device))
@@ -272,6 +292,11 @@ def dst(x, type: int = 2, axis: int = -1, norm=None):
 def _dst1(xr, axis, norm):
     """DST-I via the odd-symmetric extension of length 2(n+1): bins 1..n of
     its R2C half spectrum (m//2+1 == n+2 bins), negated imaginary parts."""
+    return cached_call(("dst1", shape_key(xr), axis, norm), lambda u: _dst1_impl(u, axis, norm),
+                       xr)
+
+
+def _dst1_impl(xr, axis, norm):
     n = xr.shape[axis]
     v = xr.movedim(axis, -1)
     z = torch.zeros_like(v[..., :1])
@@ -305,12 +330,17 @@ def _apply_nd(fn1d, x, type, s, axes, norm):
     v = real_part(x)
     s, axes = _norm_axes(v.ndim, None if s is None else list(s),
                          None if axes is None else list(axes))
-    for sz, ax in zip(s, axes):
-        if sz is not None and v.shape[ax] != sz:
-            v = _resize_axis(v, sz, ax)
-    for ax in axes:
-        v = fn1d(v, type=type, axis=ax, norm=norm)
-    return v
+
+    def impl(v):
+        for sz, ax in zip(s, axes):
+            if sz is not None and v.shape[ax] != sz:
+                v = _resize_axis(v, sz, ax)
+        for ax in axes:
+            v = fn1d(v, type=type, axis=ax, norm=norm)
+        return v
+
+    key = ("ndsep", fn1d.__name__, shape_key(v), type, tuple(s), tuple(axes), norm)
+    return cached_call(key, impl, v)
 
 
 def dctn(x, type: int = 2, s=None, axes=None, norm=None):

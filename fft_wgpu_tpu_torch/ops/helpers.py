@@ -37,6 +37,7 @@ import torch
 from ..core.complex_utils import default_device, merge, split
 from ..core.twiddle import FORWARD, INVERSE
 from ..plan.plan import get_plan
+from ..utils.jit_cache import cached_call, shape_key
 from . import cuda_fft
 from .nd import fftn, fftn_split, ifftn
 from .rfft import (_hermitian_extend, irfft, irfft_last_split, irfft_prod_last_split, rfft,
@@ -241,6 +242,17 @@ def oaconvolve(a, b, mode: str = "full", axes=None, axis: int = None):
             if len(ax_list) != 1:
                 return fftconvolve(a, b, mode=mode, axes=ax_list)
             axis = int(ax_list[0])
+    lb = min(a.shape[axis], b.shape[axis])
+    # segment size: a few kernel lengths, power-of-two FFT
+    nfft = 1 << max(3, math.ceil(math.log2(8 * lb)))
+    step = nfft - (lb - 1)
+    cplx = _iscomplex(a) or _iscomplex(b)
+    key = ("oaconv", shape_key(a), shape_key(b), axis, cplx, nfft, step, mode)
+    return cached_call(key, lambda u, v: _oaconvolve(u, v, mode, axis, nfft, step, cplx), a, b)
+
+
+def _oaconvolve(a, b, mode, axis, nfft, step, cplx):
+    """The device part of :func:`oaconvolve`, one cached call."""
     la0, lb0 = a.shape[axis], b.shape[axis]
     # swap only for the segmentation (convolution is commutative); 'same'
     # below follows the first operand as the caller passed it
@@ -248,12 +260,7 @@ def oaconvolve(a, b, mode: str = "full", axes=None, axis: int = None):
         a, b = b, a
     la, lb = max(la0, lb0), min(la0, lb0)
     lfull = la + lb - 1
-
-    # segment size: a few kernel lengths, power-of-two FFT
-    nfft = 1 << max(3, math.ceil(math.log2(8 * lb)))
-    step = nfft - (lb - 1)
     nseg = -(-la // step)
-    cplx = _iscomplex(a) or _iscomplex(b)
     if not cplx:
         a, b = _f32(a), _f32(b)
     x = a.movedim(axis, -1)
@@ -405,7 +412,17 @@ def fftconvolve(a, b, mode: str = "full", axes=None):
     cuts = [(ax, *_mode_cut(mode, a.shape[ax], b.shape[ax], lf))
             for ax, lf in zip(axes, lfull)]
 
-    if _iscomplex(a) or _iscomplex(b):
+    cplx = _iscomplex(a) or _iscomplex(b)
+    key = ("fftconv_c" if cplx else "fftconv_r", shape_key(a), shape_key(b), tuple(shape),
+           axes, tuple(cuts))
+    return cached_call(key, lambda u, v: _fftconvolve(u, v, shape, axes, cuts, cplx), a, b)
+
+
+def _fftconvolve(a, b, shape, axes, cuts, cplx):
+    """The device part of :func:`fftconvolve`, one cached call: the
+    convolution over ``axes`` at the transform lengths ``shape``, cropped
+    to ``cuts``."""
+    if cplx:
         fa = fftn(a, s=shape, axes=axes)
         return _crop(ifftn(fa * fftn(b, s=shape, axes=axes), axes=axes), cuts)
 
@@ -481,8 +498,9 @@ def hilbert(x, n: int = None, axis: int = -1, *, N: int = None):
     n/2 + 1 bins), then the filtered row kernel's complex64 entry reading
     those bins as they lie, zero past them, with the one-sided weights
     applied at load and 1/n at store: two launches, no zero plane, no split
-    and no merge.  Elsewhere the plan's forward transform, the weights and
-    the plan's inverse.  scipy spells the length argument N=; both are
+    and no merge, run eagerly.  Elsewhere the plan's forward transform, the
+    weights and the plan's inverse, a captured graph replayed from the
+    second call on (``utils.jit_cache``).  scipy spells the length argument N=; both are
     accepted."""
     if N is not None:
         if n is not None and n != N:
@@ -490,18 +508,25 @@ def hilbert(x, n: int = None, axis: int = -1, *, N: int = None):
         n = N
     if _iscomplex(x):  # checked before any device transfer
         raise ValueError("hilbert requires a real input")
-    v = _f32(_tensor(x)).movedim(axis, -1)
-    length = n if n is not None else v.shape[-1]
-    if v.shape[-1] != length:
-        v = _resize_axis(v, length, -1)
-    h, hc = _hilbert_weights(length, v.device)
-    if _on_card(v) and cuda_fft._supported(length):
-        X = cuda_fft.rfft_rows_c64(v)
-        return cuda_fft.fft_filtered_c64(X, hc, INVERSE, 1.0 / length).movedim(-1, axis)
-    p = get_plan(length)
-    re, im = p._execute_split(v, torch.zeros_like(v), FORWARD, None)
-    re, im = p._execute_split(re * h, im * h, INVERSE, 1.0 / length)
-    return merge(re.movedim(-1, axis), im.movedim(-1, axis))
+    x0 = _f32(_tensor(x))
+    length = n if n is not None else x0.shape[axis]
+    h, hc = _hilbert_weights(length, x0.device)
+
+    kernels = _on_card(x0) and cuda_fft._supported(length)
+
+    def impl(v):
+        v = v.movedim(axis, -1)
+        if v.shape[-1] != length:
+            v = _resize_axis(v, length, -1)
+        if kernels:
+            X = cuda_fft.rfft_rows_c64(v)
+            return cuda_fft.fft_filtered_c64(X, hc, INVERSE, 1.0 / length).movedim(-1, axis)
+        p = get_plan(length)
+        re, im = p._execute_split(v, torch.zeros_like(v), FORWARD, None)
+        re, im = p._execute_split(re * h, im * h, INVERSE, 1.0 / length)
+        return merge(re.movedim(-1, axis), im.movedim(-1, axis))
+
+    return cached_call(None if kernels else ("hilbert", shape_key(x0), length, axis), impl, x0)
 
 
 def _resample_window(window, n):

@@ -41,8 +41,9 @@ import math
 
 import torch
 
-from ..core.complex_utils import merge, promote_to_split
+from ..core.complex_utils import as_args, from_args, merge, promote_to_split
 from ..core.twiddle import FORWARD, INVERSE
+from ..utils.jit_cache import cached_call, shape_key
 from . import cuda_fft
 from .transforms import _pad_or_trim
 
@@ -175,13 +176,35 @@ def _run_nd_split(x, s, axes, sign, norm, executor):
 
 
 def _run_nd(x, s, axes, sign, norm, executor):
-    if isinstance(x, torch.Tensor):
-        sn, axn = _norm_axes(x.ndim, s, axes)
-        plane = _c64_plane(x.shape, x.dtype, x.device, sn, axn, executor)
-        if plane or _c64_route(x.shape, x.dtype, x.device, sn, axn, executor):
-            scale = _nd_scale(math.prod(x.shape[a] for a in axn), sign, norm)
-            return fftn_c64(x, axn, sign, scale, plane)
-    return merge(*_run_nd_split(x, s, axes, sign, norm, executor))
+    """The N-D transform through one cached call (``utils.jit_cache``: on a
+    CUDA tensor a repeated call replays a captured graph), keyed as the JAX
+    package's, plus the fused plane's envelope (``cuda_fft.FFT2F_MAX_ELEMS``,
+    which ``plan.autotune.tune_fused_plane`` may move).  The complex64 route
+    (one launch an axis, no other device work) runs eagerly, uncached: a
+    replay's copy in and clone out would cost it more than the host work
+    it saves."""
+    args = as_args(x)
+    v = args[0]
+    sn, axn = _norm_axes(v.ndim, s, axes)
+    sizes = [v.shape[a] if size is None else size for size, a in zip(sn, axn)]
+    scale = _nd_scale(math.prod(sizes), sign, norm)
+    plane = route = False
+    if len(args) == 1:
+        plane = _c64_plane(v.shape, v.dtype, v.device, sn, axn, executor)
+        route = plane or _c64_route(v.shape, v.dtype, v.device, sn, axn, executor)
+
+    def impl(*a):
+        if route:
+            return fftn_c64(a[0], axn, sign, scale, plane)
+        re, im = from_args(a)
+        for size, ax in zip(sn, axn):
+            if size is not None and re.shape[ax] != size:
+                re, im = _pad_or_trim(re, im, size, ax)
+        return merge(*fftn_split(re, im, tuple(axn), sign, scale, executor))
+
+    key = None if route else ("nd", shape_key(v), tuple(sn), tuple(axn), sign, scale, executor,
+                              cuda_fft.FFT2F_MAX_ELEMS)
+    return cached_call(key, impl, *args)
 
 
 def fftn(x, s=None, axes=None, norm=None, *, executor: str = "auto"):

@@ -29,8 +29,9 @@ import math
 import numpy as np
 import torch
 
-from ..core.complex_utils import merge, promote_to_split, real_part
+from ..core.complex_utils import as_args, from_args, merge, promote_to_split, real_part
 from ..core.twiddle import FORWARD, INVERSE
+from ..utils.jit_cache import cached_call, shape_key
 from . import cuda_fft, nd
 from .cuda_fft import pad_bins
 from .nd import _norm_axes, _run_nd_split, fftn_split
@@ -184,14 +185,24 @@ def _rfft_c64(device, n: int) -> bool:
 
 
 def rfft(x, n=None, axis: int = -1, norm=None):
-    """1-D R2C FFT: real input -> n//2+1 complex bins (numpy.fft.rfft)."""
+    """1-D R2C FFT: real input -> n//2+1 complex bins (numpy.fft.rfft).  On
+    a CUDA tensor a repeated call replays a captured graph
+    (``utils.jit_cache``), but for the R2C kernel's complex64 sink
+    (:func:`_rfft_c64`, one launch), which runs eagerly, uncached."""
     xr = _real_tensor(x)
-    if n is not None and xr.shape[axis] != n:
-        xr = _resize_axis(xr, n, axis)
-    if _rfft_c64(xr.device, xr.shape[axis]):
-        scale = _scales(xr.shape[axis], norm, inverse=False)
-        return cuda_fft.rfft_rows_c64(xr.movedim(axis, -1), scale).movedim(-1, axis)
-    return merge(*_rfft_split(xr, None, axis, norm))
+    length = n if n is not None else xr.shape[axis]
+    scale = _scales(length, norm, inverse=False)
+
+    def impl(v):
+        if v.shape[axis] != length:
+            v = _resize_axis(v, length, axis)
+        if _rfft_c64(v.device, length):
+            return cuda_fft.rfft_rows_c64(v.movedim(axis, -1), scale).movedim(-1, axis)
+        Xr, Xi = rfft_last_split(v.movedim(axis, -1), scale)
+        return merge(Xr.movedim(-1, axis), Xi.movedim(-1, axis))
+
+    key = None if _rfft_c64(xr.device, length) else ("rfft", shape_key(xr), length, axis, scale)
+    return cached_call(key, impl, xr)
 
 
 def _rfft_split(x, n, axis, norm):
@@ -248,17 +259,26 @@ def _irfftn_c64_run(x, s, axes, norm):
 def irfft(x, n=None, axis: int = -1, norm=None):
     """1-D C2R inverse: n//2+1 bins -> real length-n signal (numpy.fft.irfft).
     A complex64 CUDA tensor of n//2 + 1 bins takes the C2R kernel's
-    complex64 source (:func:`_irfft_c64`)."""
-    if isinstance(x, torch.Tensor) and _irfftn_c64(x.shape, x.dtype, x.device, [n], [axis]):
-        return _irfftn_c64_run(x, [n], [axis], norm)
-    Xr, Xi = promote_to_split(x)
-    length = n if n is not None else 2 * (Xr.shape[axis] - 1)
-    bins = length // 2 + 1
-    if Xr.shape[axis] != bins:
-        Xr, Xi = _pad_or_trim(Xr, Xi, bins, axis)
+    complex64 source (:func:`_irfft_c64`), eagerly, uncached (one launch).
+    On a CUDA tensor any other route's repeated call replays a captured
+    graph (``utils.jit_cache``)."""
+    args = as_args(x)
+    length = n if n is not None else 2 * (args[0].shape[axis] - 1)
     norm_scale = _scales(length, norm, inverse=True)
-    out = irfft_last_split(Xr.movedim(axis, -1), Xi.movedim(axis, -1), length, norm_scale)
-    return out.movedim(-1, axis)
+    c64 = len(args) == 1 and _irfftn_c64(x.shape, x.dtype, x.device, [n], [axis])
+
+    def impl(*a):
+        if c64:
+            return _irfftn_c64_run(a[0], [n], [axis], norm)
+        Xr, Xi = from_args(a)
+        bins = length // 2 + 1
+        if Xr.shape[axis] != bins:
+            Xr, Xi = _pad_or_trim(Xr, Xi, bins, axis)
+        out = irfft_last_split(Xr.movedim(axis, -1), Xi.movedim(axis, -1), length, norm_scale)
+        return out.movedim(-1, axis)
+
+    key = None if c64 else ("irfft", shape_key(args[0]), length, axis, norm_scale)
+    return cached_call(key, impl, *args)
 
 
 def _hermitian_extend(Xr, Xi, n):

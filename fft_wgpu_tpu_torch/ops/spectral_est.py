@@ -66,6 +66,7 @@ from .rfft import rfft_last_split
 from .stft import (_frame, _on_card, bartlett_window, blackman_window, hamming_window,
                    hann_window)
 from .stockham import full_float32
+from ..utils.jit_cache import cached_call, shape_key, window_key
 from .windows import _finish, _ones
 
 __all__ = [
@@ -316,9 +317,11 @@ def _median(v, dim: int):
     return 0.5 * (s.select(dim, (n - 1) // 2) + s.select(dim, n // 2))
 
 
+@functools.lru_cache(maxsize=None)
 def _onesided_mult(nfft: int, device) -> torch.Tensor:
     """The one-sided doubling: 2 on every bin but DC and an even nfft's
-    Nyquist."""
+    Nyquist, built once per (nfft, device) (a captured graph may read it:
+    never evicted)."""
     mult = np.full(nfft // 2 + 1, 2.0, np.float32)
     mult[0] = 1.0
     if nfft % 2 == 0:
@@ -401,6 +404,19 @@ def _split(x, device=None):
     if _c64(x) is not None and (device is None or x.device == torch.device(device)):
         return x.real, x.imag
     return _promote(x, device)
+
+
+def _call_args(xs, xc):
+    """The planes ``xs`` of one input as a cached call's arguments (planes,
+    complex64 tensor): a complex64 tensor ``xc``, whose planes ``xs`` are
+    views (:func:`_split`), goes in as itself, so that the call copies it
+    once and B22 and B21 read it as it lies.  :func:`_planes` undoes it."""
+    return (None, None, xc) if xc is not None else (*xs, None)
+
+
+def _planes(xr, xi, xc):
+    """The planes (re, im) of :func:`_call_args`'s arguments."""
+    return (xc.real, xc.imag) if xc is not None else (xr, xi)
 
 
 def _split_pair(x, y):
@@ -505,6 +521,23 @@ def _csd_impl(xs, ys, fs, window, nperseg, noverlap, nfft, detrend,
     norm = _norm(win, fs, scaling)
     win = _window_on(window, win, xr.device)
     same = ys is None
+    wkey = window_key(window)
+    key = None if wkey is None else (
+        "csd", shape_key(xr), shape_key(xi), shape_key(yr), shape_key(yi), float(fs), wkey,
+        nperseg, noverlap, nfft, detrend, return_onesided, scaling, axis, average)
+    Pr, Pi = cached_call(
+        key, lambda *a: _csd_estimate(*a, win, nperseg, hop, nfft, detrend, onesided, norm,
+                                      axis, average, same),
+        *_call_args((xr, xi), xc), *_call_args((yr, yi), yc))
+    return _freqs(nfft, fs, onesided, Pr.device), Pr, Pi, onesided
+
+
+def _csd_estimate(xr, xi, xc, yr, yi, yc, win, nperseg, hop, nfft, detrend, onesided, norm,
+                  axis, average, same):
+    """The device part of :func:`_csd_impl`, one cached call: (Pr, Pi) from
+    the inputs as :func:`_call_args` gave them."""
+    xr, xi = _planes(xr, xi, xc)
+    yr, yi = _planes(yr, yi, yc)
 
     def mv(a):
         return None if a is None else a.movedim(axis, -1)
@@ -577,8 +610,7 @@ def _csd_impl(xs, ys, fs, window, nperseg, noverlap, nfft, detrend,
         if onesided:
             mult = _onesided_mult(nfft, Pr.device)
             Pr, Pi = Pr * mult, Pi * mult
-    f = _freqs(nfft, fs, onesided, Pr.device)
-    return f, Pr.movedim(-1, axis), Pi.movedim(-1, axis), onesided
+    return Pr.movedim(-1, axis), Pi.movedim(-1, axis)
 
 
 def periodogram(x, fs: float = 1.0, window="boxcar", nfft: int | None = None,
@@ -638,12 +670,18 @@ def coherence(x, y, fs: float = 1.0, window="hann",
         hop = np_ - no_
         if (xr.shape == yr.shape
                 and cuda_welch.fused_welch_ok(xr.shape[axis], np_, hop, nf_, detrend)):
-            Pr, Pi, Sxx, Syy, _num = cuda_welch.coherence_accum_split(
-                xr.movedim(axis, -1), yr.movedim(axis, -1), _window_on(window, win, xr.device),
-                np_, hop,
-                nf_, detrend)
-            C = (Pr * Pr + Pi * Pi) / (Sxx * Syy)
-            return _freqs(nf_, fs, True, C.device), C.movedim(-1, axis)
+            w = _window_on(window, win, xr.device)
+
+            def impl(vr, wr):
+                Pr, Pi, Sxx, Syy, _num = cuda_welch.coherence_accum_split(
+                    vr.movedim(axis, -1), wr.movedim(axis, -1), w, np_, hop, nf_, detrend)
+                return ((Pr * Pr + Pi * Pi) / (Sxx * Syy)).movedim(-1, axis)
+
+            wkey = window_key(window)
+            key = None if wkey is None else (
+                "coh", shape_key(xr), shape_key(yr), wkey, np_, hop, nf_, detrend, axis)
+            C = cached_call(key, impl, xr, yr)
+            return _freqs(nf_, fs, True, C.device), C
     f, Pxyr, Pxyi, _ = _csd_impl(xs, ys, fs, window, nperseg, noverlap, nfft,
                                  detrend, True, "density", axis, "mean", _c64(x), _c64(y))
     _, Pxx, _, _ = _csd_impl(xs, None, fs, window, nperseg, noverlap, nfft,
@@ -674,14 +712,32 @@ def multitaper(x, fs: float = 1.0, NW: float = 4.0, K: int | None = None,
         nfft = n
     elif nfft < n:
         raise ValueError("nfft must be >= signal length")
-    tapers_np, lam = _dpss_np(n, NW, K, True, None, True)
     onesided = return_onesided and xi is None
     if weights not in ("unity", "eigen", "adaptive"):
         raise ValueError(f"invalid weights {weights!r}")
-    dev = xr.device
-    tapers = torch.from_numpy(np.ascontiguousarray(tapers_np)).to(dev)
-    lam32 = torch.from_numpy(np.asarray(lam, np.float64).astype(np.float32)).to(dev)
+    tapers, lam32 = _taper_tables(n, float(NW), K, xr.device)
+    key = ("mt", shape_key(xr), shape_key(xi), float(fs), float(NW), K, nfft, detrend,
+           onesided, weights, axis, n_iter)
+    S = cached_call(key, lambda *a: _multitaper_estimate(
+        *a, tapers, lam32, fs, nfft, detrend, onesided, axis, weights, n_iter),
+        *_call_args((xr, xi), _c64(x)))
+    return _freqs(nfft, fs, onesided, S.device), S
 
+
+@functools.lru_cache(maxsize=16)
+def _taper_tables(n: int, NW: float, K: int, device):
+    """The K DPSS tapers of n points and their concentrations, float32 on
+    ``device``, built once per (n, NW, K, device)."""
+    tapers_np, lam = _dpss_np(n, NW, K, True, None, True)
+    return (torch.from_numpy(np.ascontiguousarray(tapers_np)).to(device),
+            torch.from_numpy(np.asarray(lam, np.float64).astype(np.float32)).to(device))
+
+
+def _multitaper_estimate(xr, xi, xc, tapers, lam32, fs, nfft, detrend, onesided, axis,
+                         weights, n_iter):
+    """The device part of :func:`multitaper`, one cached call."""
+    xr, xi = _planes(xr, xi, xc)
+    dev = xr.device
     v_r = _detrend_seg(xr.movedim(axis, -1), detrend)
     # two-sided output needs the full C2C path even for real input
     if not onesided and xi is None:
@@ -717,7 +773,7 @@ def multitaper(x, fs: float = 1.0, NW: float = 4.0, K: int | None = None,
             S = (w * Sk).sum(-2) / (w.sum(-2) + 1e-30)
     if onesided:
         S = S * _onesided_mult(nfft, dev)
-    return _freqs(nfft, fs, onesided, dev), S.movedim(-1, axis)
+    return S.movedim(-1, axis)
 
 
 def _unwrap(p, dim: int = -1):
@@ -740,6 +796,9 @@ def spectrogram(x, fs: float = 1.0, window=("tukey", 0.25),
     Returns (f, t, Sxx): segment times t and Sxx ``[..., bins, num]`` (the
     last two axes frequency and time).  mode: 'psd' (default),
     'magnitude', 'complex', 'angle' or 'phase' (unwrapped along time).
+    The complex mode on the card's kernels (B20 or B22, one launch) runs
+    eagerly; any other call replays a captured graph from its second call
+    on (``utils.jit_cache``).
     """
     xr, xi = xs = _split(x)
     nperseg, noverlap_d, nfft, win, complex_input = _resolve_args(
@@ -751,7 +810,24 @@ def spectrogram(x, fs: float = 1.0, window=("tukey", 0.25),
     onesided = return_onesided and not complex_input
     norm = _norm(win, fs, scaling)
     win = _window_on(window, win, xr.device)
+    wkey = window_key(window)
+    one_launch = mode == "complex" and _on_card(xr) and cuda_welch.fused_welch_ok(
+        xr.shape[axis], nperseg, hop, nfft, detrend)
+    key = None if wkey is None or one_launch else (
+        "spec", shape_key(xr), shape_key(xi), float(fs), wkey, nperseg, hop, nfft, detrend,
+        return_onesided, scaling, axis, mode)
+    out = cached_call(key, lambda *a: _spectrogram_estimate(
+        *a, win, nperseg, hop, nfft, detrend, onesided, norm, axis, mode),
+        *_call_args(xs, _c64(x)))
+    num = 1 + (xr.shape[axis] - nperseg) // hop
+    f, t = _grids(nfft, fs, onesided, out.device, num, hop, nperseg)
+    return f, t, out
 
+
+def _spectrogram_estimate(xr, xi, xc, win, nperseg, hop, nfft, detrend, onesided, norm, axis,
+                          mode):
+    """The device part of :func:`spectrogram`, one cached call."""
+    xr, xi = _planes(xr, xi, xc)
     v_r = xr.movedim(axis, -1)
     v_i = None if xi is None else xi.movedim(axis, -1)
     fused = (_on_card(v_r)
@@ -776,7 +852,7 @@ def spectrogram(x, fs: float = 1.0, window=("tukey", 0.25),
         # but the angles, which it leaves as they are): the complex mode is
         # its transposed view, the others are computed from it
         s = None if mode in ("angle", "phase") else float(np.sqrt(norm))
-        X = _spec_c2c(_c64(x), v_r, v_i, axis, win, nperseg, hop, nfft, detrend,
+        X = _spec_c2c(xc, v_r, v_i, axis, win, nperseg, hop, nfft, detrend,
                       s).transpose(-1, -2)
         if mode == "psd":
             out = _power(X)
@@ -806,9 +882,7 @@ def spectrogram(x, fs: float = 1.0, window=("tukey", 0.25),
                 out = _unwrap(out, -1)
         else:
             raise ValueError(f"invalid mode {mode!r}")
-    num = 1 + (xr.shape[axis] - nperseg) // hop
-    f, t = _grids(nfft, fs, onesided, out.device, num, hop, nperseg)
-    return f, t, out
+    return out
 
 
 def _lombscargle_core(x, y, w, freqs, floating_mean: bool):

@@ -26,7 +26,8 @@ import functools
 import numpy as np
 import torch
 
-from ..core.complex_utils import merge, promote_to_split, to_device
+from ..core.complex_utils import as_args, from_args, merge, to_device
+from ..utils.jit_cache import cached_call, shape_key
 from .rfft import _rfft_split, irfft
 from .windows import _finish, _ones
 
@@ -101,10 +102,11 @@ def _ola_slabs(frames, hop: int, t: int):
     return out.reshape(*lead, (num + K - 1) * hop)[..., :t]
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _default_window(n: int, device) -> torch.Tensor:
     """stft's default window, the periodic hann of n points, built once per
-    (n, device): a call copies no table to the device."""
+    (n, device): a call copies no table to the device.  Never evicted: a
+    captured graph may read it."""
     return hann_window(n, device=device)
 
 
@@ -125,6 +127,15 @@ def _prep_window(window, n_fft: int, win_length, device):
         left = (n_fft - wl) // 2
         window = torch.nn.functional.pad(window, (left, n_fft - wl - left))
     return window
+
+
+def _window_args(window, n_fft: int, win_length, device):
+    """The analysis window of a cached call (``utils.jit_cache``): the
+    default one, a table cached per (length, device) that the call reads
+    in place, as (window, ()); any other as an argument of the call, whose
+    values then go through it, as (None, (window,))."""
+    win = _prep_window(window, n_fft, win_length, device)
+    return (win, ()) if window is None else (None, (win,))
 
 
 def _on_card(t) -> bool:
@@ -148,24 +159,34 @@ def stft(x, n_fft: int = 512, hop_length: int | None = None, window=None,
     Returns complex64 ``[..., n_fft//2 + 1, num_frames]`` (librosa-style
     layout; on the card a transposed view of the kernel's
     ``[..., num_frames, n_fft//2 + 1]`` output).  A tensor is transformed on
-    its device; other input goes to the current CUDA device."""
+    its device; other input goes to the current CUDA device.  B20's route
+    (one launch) runs eagerly; any other replays a captured graph from its
+    second call on (``utils.jit_cache``)."""
     # imported here: cuda_welch imports this module
     from . import cuda_welch
 
     hop = hop_length or n_fft // 4
     x = to_device(x)
-    window = _prep_window(window, n_fft, win_length, x.device)
+    win, args = _window_args(window, n_fft, win_length, x.device)
     pad = n_fft // 2 if center else 0
-    if (_on_card(x) and pad < x.shape[-1]
-            and cuda_welch.fused_welch_ok(x.shape[-1] + 2 * pad, n_fft, hop, n_fft, False)):
-        # B20: the center pad, frames, window and R2C in one pass into
-        # complex64, no merge
-        return cuda_welch.spec_rfft_c64(x, window, n_fft, hop, n_fft, False,
-                                        pad=pad).transpose(-1, -2)
-    if center:
-        x = _reflect_pad(x, pad)
-    Xr, Xi = _rfft_split(_frame(x, n_fft, hop) * window, None, -1, None)
-    return merge(Xr.transpose(-1, -2), Xi.transpose(-1, -2))
+    fused = (_on_card(x) and pad < x.shape[-1]
+             and cuda_welch.fused_welch_ok(x.shape[-1] + 2 * pad, n_fft, hop, n_fft, False))
+
+    def impl(v, *w):
+        w = w[0] if w else win
+        if fused:
+            # B20: the center pad, frames, window and R2C in one pass into
+            # complex64, no merge
+            return cuda_welch.spec_rfft_c64(v, w, n_fft, hop, n_fft, False,
+                                            pad=pad).transpose(-1, -2)
+        if center:
+            v = _reflect_pad(v, pad)
+        Xr, Xi = _rfft_split(_frame(v, n_fft, hop) * w, None, -1, None)
+        return merge(Xr.transpose(-1, -2), Xi.transpose(-1, -2))
+
+    key = None if fused else ("stft", shape_key(x), n_fft, hop, center, win_length,
+                              None if args else "default")
+    return cached_call(key, impl, x, *args)
 
 
 def _cola_norm(window, num: int, hop: int, t: int):
@@ -183,13 +204,20 @@ def istft(Z, n_fft: int = 512, hop_length: int | None = None, window=None,
     """Inverse STFT via windowed overlap-add (COLA normalization) of
     ``[..., n_fft//2 + 1, num_frames]`` spectra; real float32 output."""
     hop = hop_length or n_fft // 4
-    zr, zi = promote_to_split(Z)
-    window = _prep_window(window, n_fft, win_length, zr.device)
-    frames = irfft((zr.transpose(-1, -2), zi.transpose(-1, -2)), n=n_fft, axis=-1)
-    frames = frames * window  # [..., num, n_fft]
-    num = frames.shape[-2]
-    t = n_fft + hop * (num - 1)
-    y = _ola_slabs(frames, hop, t) / _cola_norm(window, num, hop, t)
+    zs = as_args(Z)
+    win, args = _window_args(window, n_fft, win_length, zs[0].device)
+
+    def impl(*a):
+        w = a[-1] if args else win
+        zr, zi = from_args(a[:-1] if args else a)
+        frames = irfft((zr.transpose(-1, -2), zi.transpose(-1, -2)), n=n_fft, axis=-1)
+        frames = frames * w  # [..., num, n_fft]
+        num = frames.shape[-2]
+        t = n_fft + hop * (num - 1)
+        return _ola_slabs(frames, hop, t) / _cola_norm(w, num, hop, t)
+
+    key = ("istft", shape_key(zs[0]), n_fft, hop, win_length, None if args else "default")
+    y = cached_call(key, impl, *zs, *args)
     if center:
         # trim the left reflect-pad; the right trim happens through length
         # below when given (torch serves length= from the right pad's

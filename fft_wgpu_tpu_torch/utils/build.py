@@ -6,6 +6,9 @@ compiled for Hopper into ``_build/`` inside the package (listed in
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
+The host core ``csrc/fftcore.cpp`` (``utils/native.py``) is built the same
+way by g++ (:data:`GXX_FLAGS`).
+
 The library's file name carries a hash of the source, of every ``csrc``
 header it includes (``#include "<header>.cuh"``, followed into headers) and
 of the flags, so an edited source or header is rebuilt and a stale library
@@ -35,16 +38,17 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-pthread", "-std=c++17")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-# nvcc runs of this process (build() counts them)
+# compiler runs of this process, nvcc or g++ (build() counts them)
 compiles = 0
 # open recordings of the libraries loaded (recording())
 _RECORDS: list = []
 
 
 class CompileError(RuntimeError):
-    """nvcc is missing or refused a source."""
+    """nvcc (or g++, for a host source) is missing or refused a source."""
 
 
 def _nvcc() -> str:
@@ -60,6 +64,27 @@ def _nvcc() -> str:
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _source(name: str) -> Path:
+    """``csrc/<name>.cu``, or the host source ``csrc/<name>.cpp``."""
+    src = CSRC / f"{name}.cu"
+    return src if src.exists() else CSRC / f"{name}.cpp"
+
+
+def _compiler(src: Path) -> tuple:
+    """The compiler of ``src`` and its flags: nvcc for CUDA, g++ for host
+    C++."""
+    if src.suffix == ".cu":
+        return _nvcc(), NVCC_FLAGS
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise CompileError("g++ not found: the host core csrc/fftcore.cpp needs it")
+    return gxx, GXX_FLAGS
+
+
+def _flags(src: Path) -> tuple:
+    return NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
 
 
 def _sources(src: Path) -> list[Path]:
@@ -78,10 +103,11 @@ def _sources(src: Path) -> list[Path]:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives, named by the hash of
-    its sources and the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources(CSRC / f"{name}.cu"):
+    """Where the library of ``csrc/<name>.cu`` (or ``.cpp``) lives, named by
+    the hash of its sources and the flags."""
+    src = _source(name)
+    digest = hashlib.sha256(" ".join(_flags(src)).encode())
+    for path in _sources(src):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -106,22 +132,24 @@ def set_build_dir(path) -> Path:
 
 
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built."""
-    src = CSRC / f"{name}.cu"
+    """Compile ``csrc/<name>.cu`` (or ``.cpp``) unless its library is
+    already built."""
+    src = _source(name)
     out = library_path(name)
     if out.exists():
         return out
     global compiles
+    compiler, flags = _compiler(src)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     compiles += 1
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise CompileError(f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
-                           f"{proc.stderr}")
+        raise CompileError(f"{Path(compiler).name} failed on {src.name} "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
 

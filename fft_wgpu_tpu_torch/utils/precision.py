@@ -27,10 +27,17 @@ _current = "accurate"
 
 def set_dot_precision(mode: str) -> None:
     """Set the matmul precision of every later transform: ``"accurate"``
-    (default; full float32) or ``"fast"`` (TF32 in the matmul stages)."""
+    (default; full float32) or ``"fast"`` (TF32 in the matmul stages).  A
+    change of mode drops the captured calls (``jit_cache.clear``), whose
+    graphs hold the matmuls of the mode they were captured in, as the JAX
+    package flushes its compiled executables."""
     global _current
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {sorted(_MODES)}, got {mode!r}")
+    if mode != _current:
+        from . import jit_cache
+
+        jit_cache.clear()
     _current = mode
 
 

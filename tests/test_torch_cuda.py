@@ -12,7 +12,9 @@ and the routes of the plan, the N-D, the real and the non-pow2 transforms,
 the fused epilogues, the spectral estimators and the per-segment spectra
 (stft, istft, ShortTimeFFT, resample) through them, and the model family
 (the FNOs' gradients and training step, the steppers' rollouts, the Poisson
-solve) with exact launch counts.  No call may move the
+solve) with exact launch counts, and the cache of CUDA-graph-captured calls
+(``utils/jit_cache``: replay against eager, held results, the counters,
+LRU eviction, an uncapturable call raising).  No call may move the
 thread's current device or the caller's TF32 setting.
 
 Every test here needs a CUDA device and skips without one.  The card's
@@ -31,10 +33,21 @@ import torch
 
 import fft_wgpu_tpu_torch as ft
 from fft_wgpu_tpu_torch.ops import bigfft, cuda_fft, cuda_welch, stockham
+from fft_wgpu_tpu_torch.utils import jit_cache
 
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _fresh_graph_cache():
+    """Each test starts with no captured call (``utils.jit_cache``): a graph
+    captured by an earlier test would replay its route even where this
+    test patches a predicate that picks another."""
+    jit_cache.clear()
+    yield
+    jit_cache.clear()
 
 
 @pytest.fixture
@@ -2446,3 +2459,283 @@ def test_round_trip_keeps_power(dev, layout, n):
     x, y = x.to(torch.complex128), y.to(torch.complex128)
     gain = float((y * x.conj()).sum().real / x.abs().square().sum()) - 1.0
     assert abs(gain) <= 6e-8, gain
+
+
+# ---------------------------------------------------------------------- #
+# the cache of CUDA-graph-captured calls (utils/jit_cache)
+# ---------------------------------------------------------------------- #
+GRAPH_SITES = {  # a cached_call site -> (call, input shapes; "c": complex64)
+    "rfft composite": (ft.rfft, [(256, 4000)]),
+    "irfft composite": (lambda z: ft.irfft(z, n=4000), [("c", 256, 2001)]),
+    "fft2 complex64 composite": (ft.fft2, [("c", 250, 512)]),
+    "stft n_fft 2000": (lambda v: ft.stft(v, 2000, 500), [(1 << 18,)]),
+    "istft": (lambda z: ft.istft(z, 512, 128), [("c", 257, 257)]),
+    "welch": (lambda v: ft.welch(v, nperseg=4096, noverlap=2048), [(1 << 20,)]),
+    "coherence": (lambda v, u: ft.coherence(v, u, nperseg=4096, noverlap=2048),
+                  [(1 << 20,), (1 << 20,)]),
+    "spectrogram phase": (lambda v: ft.spectrogram(v, mode="phase", nperseg=1024),
+                          [(1 << 20,)]),
+    "oaconvolve": (ft.oaconvolve, [(1 << 18,), (129,)]),
+    "fftconvolve": (lambda u, v: ft.fftconvolve(u, v, axes=-1), [(256, 4096), (256, 4096)]),
+    "hilbert composite": (ft.hilbert, [(256, 4000)]),
+    "dct type 2": (lambda v: ft.dct(v, type=2), [(256, 4096)]),
+    "dctn type 2": (lambda v: ft.dctn(v, type=2), [(512, 1024)]),
+}
+
+
+def _graph_inputs(dev, shapes, seed):
+    out = []
+    for i, shape in enumerate(shapes):
+        if shape[0] == "c":
+            out.append(crand(dev, *shape[1:], seed=seed + i))
+        else:
+            out.append(rrand(dev, *shape, seed=seed + i))
+    return out
+
+
+def _tensors(out):
+    return [out] if isinstance(out, torch.Tensor) else [t for t in out
+                                                        if isinstance(t, torch.Tensor)]
+
+
+@pytest.mark.parametrize("site", list(GRAPH_SITES))
+def test_graph_replay_equals_eager(dev, site):
+    fn, shapes = GRAPH_SITES[site]
+    ins, other = _graph_inputs(dev, shapes, 0), _graph_inputs(dev, shapes, 7)
+
+    def run(args):
+        before = _counts()
+        out = _tensors(fn(*args))
+        torch.cuda.synchronize()
+        return out, {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+
+    want_other, _ = run(other)
+    jit_cache.clear()
+    eager, launched = run(ins)  # call 1: eager
+    assert launched
+    captured, n2 = run(ins)  # call 2: captured, then replayed
+    assert any(isinstance(e, jit_cache._Graph) for e in jit_cache._CACHE.values())
+    replayed, n3 = run(ins)  # call 3: replayed
+    assert n2 == launched and n3 == launched  # the counters: one eager call's kernels
+    for got in (captured, replayed):
+        assert all(torch.equal(g, e) for g, e in zip(got, eager)), site
+    held = [t.clone() for t in replayed]
+    got_other, _ = run(other)  # a replay on other inputs
+    assert all(torch.equal(g, h) for g, h in zip(replayed, held))  # no aliasing
+    assert all(torch.equal(g, w) for g, w in zip(got_other, want_other))
+
+
+# the sites' routes of one launch an axis and no other device work: run
+# eagerly, uncached (a replay's copies in and out would cost them more than
+# the host work it saves)
+ONE_LAUNCH_SITES = {
+    "rfft complex64 sink": (ft.rfft, [(256, 4096)]),
+    "irfft complex64 source": (ft.irfft, [("c", 256, 2049)]),
+    "fft2 complex64 plane": (ft.fft2, [("c", 512, 512)]),
+    "fftn complex64 axes": (lambda z: ft.fftn(z, axes=(0, 2)), [("c", 128, 3, 256)]),
+    "stft B20": (lambda v: ft.stft(v, 512, 128), [(1 << 18,)]),
+    "hilbert": (ft.hilbert, [(256, 4096)]),
+    "spectrogram complex B20": (lambda v: ft.spectrogram(v, mode="complex", nperseg=1024),
+                                [(1 << 20,)]),
+    "spectrogram complex B22": (lambda v: ft.spectrogram(v, mode="complex", nperseg=1024),
+                                [("c", 1 << 20)]),
+}
+
+
+@pytest.mark.parametrize("site", list(ONE_LAUNCH_SITES))
+def test_one_launch_routes_stay_eager(dev, site):
+    fn, shapes = ONE_LAUNCH_SITES[site]
+    ins = _graph_inputs(dev, shapes, 0)
+    outs, launched = [], []
+    for _ in range(3):
+        before = _counts()
+        outs.append(_tensors(fn(*ins)))
+        torch.cuda.synchronize()
+        launched.append({k: v - before[k] for k, v in _counts().items() if v != before[k]})
+    assert not jit_cache._CACHE, site
+    assert launched[0] and launched[1] == launched[0] and launched[2] == launched[0], site
+    assert all(torch.equal(g, e) for out in outs[1:] for g, e in zip(out, outs[0])), site
+
+
+def test_graph_cache_evicts_the_least_recently_used(dev):
+    def use(rows):  # rfft of a composite length: a captured graph
+        v = torch.ones(rows, 240, device=dev)
+        ft.rfft(v)
+        return ft.rfft(v)
+
+    for rows in range(1, jit_cache.MAX_ENTRIES + 1):
+        use(rows)
+    assert all(isinstance(e, jit_cache._Graph) for e in jit_cache._CACHE.values())
+    use(1)
+    use(jit_cache.MAX_ENTRIES + 1)
+    keys = {k[0][1][0][0] for k in jit_cache._CACHE}  # the rows of each rfft key
+    assert len(keys) == jit_cache.MAX_ENTRIES
+    assert 2 not in keys and {1, 3, jit_cache.MAX_ENTRIES + 1} <= keys
+    got = use(2)  # an evicted key starts again from its eager call
+    assert rel_l2(got, torch.fft.rfft(torch.ones(2, 240, device=dev))) < TOL
+
+
+def test_graph_cache_evicts_past_its_bytes_and_frees_them(dev, monkeypatch):
+    # each graph's pool is its own: evicting it hands its memory back
+    def use(rows):
+        v = torch.ones(rows, 4000, device=dev)
+        ft.rfft(v)
+        return ft.rfft(v)
+
+    use(1024)
+    one = jit_cache._BYTES[dev.index]
+    assert one >= 2 * 1024 * 4000 * 4  # at least its static input and its output
+    monkeypatch.setattr(jit_cache, "MAX_BYTES", one + one // 2)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved(dev)
+    use(1025)  # evicts the first graph
+    assert [k[-1][0][0][0] for k, e in jit_cache._CACHE.items() if e is not None] == [1025]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(dev) <= held + one // 8
+
+
+def test_graph_capture_of_a_host_read_raises(dev):
+    v = torch.randn(4096, device=dev)
+    impl = lambda u: u * float(u.sum().item())  # noqa: E731
+    first = jit_cache.cached_call(("host read",), impl, v)  # eager
+    torch.testing.assert_close(first, v * float(v.sum()))
+    with pytest.raises(RuntimeError):
+        jit_cache.cached_call(("host read",), impl, v)  # the capture
+    assert not any(isinstance(e, jit_cache._Graph) for e in jit_cache._CACHE.values())
+    # the process goes on: a capturable call captures and replays
+    u = v[:4000]
+    for _ in range(3):
+        got = ft.rfft(u)
+    assert any(isinstance(e, jit_cache._Graph) for e in jit_cache._CACHE.values())
+    assert rel_l2(got, torch.fft.rfft(u)) < TOL
+
+
+def test_graph_cache_leaves_autograd_eager(dev):
+    x = rrand(dev, 64, 4000).requires_grad_()
+    for _ in range(3):
+        y = ft.rfft(x)
+    assert not jit_cache._CACHE
+    (y.abs() ** 2).sum().backward()
+    xr = x.detach().clone().requires_grad_()
+    (torch.fft.rfft(xr).abs() ** 2).sum().backward()
+    assert rel_l2(x.grad, xr.grad) < TOL
+
+
+SEG = {"nperseg": 1024, "noverlap": 512}
+# every route of the cached sites at small shapes (name, call, input shapes;
+# "c": complex64, "p": a planar (re, im) pair): each must capture, nothing
+# in its call may read the host or copy from it, but the routes of one
+# launch an axis (ONE_LAUNCH_ROUTES), which run eagerly, uncached
+GRAPH_ROUTES = [
+    ("rfft pow2", ft.rfft, [(64, 1024)]),
+    ("rfft pad to n", lambda v: ft.rfft(v, n=1024), [(64, 1000)]),
+    ("rfft composite", ft.rfft, [(64, 1000)]),
+    ("rfft odd", ft.rfft, [(64, 1005)]),
+    ("rfft 2^17", ft.rfft, [(4, 1 << 17)]),
+    ("rfft 16", ft.rfft, [(64, 16)]),
+    ("rfft axis 0 ortho", lambda v: ft.rfft(v, axis=0, norm="ortho"), [(1024, 8)]),
+    ("irfft complex64", ft.irfft, [("c", 64, 513)]),
+    ("irfft planes", ft.irfft, [("p", 64, 513)]),
+    ("irfft composite packed", lambda z: ft.irfft(z, n=2000), [("c", 64, 1001)]),
+    ("irfft odd", lambda z: ft.irfft(z, n=2001), [("c", 64, 1001)]),
+    ("irfft trim", lambda z: ft.irfft(z, n=512), [("c", 64, 1001)]),
+    ("irfft 2^17", ft.irfft, [("c", 2, 65537)]),
+    ("fft2 fused plane", ft.fft2, [("c", 8, 128, 128)]),
+    ("fft2 planar real", ft.fft2, [(64, 256)]),
+    ("fftn composite", ft.fftn, [("c", 30, 1000)]),
+    ("ifftn pad", lambda z: ft.ifftn(z, s=(64, 128), norm="ortho"), [("c", 64, 100)]),
+    ("fftn axes 0 2", lambda z: ft.fftn(z, axes=(0, 2)), [("c", 128, 3, 256)]),
+    ("ifft2 planes", ft.ifft2, [("p", 64, 256)]),
+    ("stft default", lambda v: ft.stft(v, 512, 128), [(1 << 16,)]),
+    ("stft window", lambda v, w: ft.stft(v, 512, 128, window=w), [(1 << 16,), (512,)]),
+    ("stft win_length", lambda v: ft.stft(v, 512, 100, win_length=400), [(2, 1 << 14)]),
+    ("stft 400 no center", lambda v: ft.stft(v, 400, 100, center=False), [(1 << 14,)]),
+    ("istft default", lambda z: ft.istft(z, 512, 128), [("c", 257, 129)]),
+    ("istft window", lambda z, w: ft.istft(z, 512, 128, window=w), [("c", 257, 129), (512,)]),
+    ("istft 400", lambda z: ft.istft(z, 400, 100, length=5000), [("c", 201, 51)]),
+    ("welch", lambda v: ft.welch(v, **SEG), [(1 << 16,)]),
+    ("welch complex", lambda v: ft.welch(v, **SEG), [("c", 1 << 16)]),
+    ("welch planes", lambda v: ft.welch(v, **SEG), [("p", 1 << 16)]),
+    ("welch median", lambda v: ft.welch(v, average="median", **SEG), [(1 << 16,)]),
+    ("welch linear 1000", lambda v: ft.welch(v, nperseg=1000, detrend="linear"), [(1 << 15,)]),
+    ("welch two-sided spectrum", lambda v: ft.welch(v, return_onesided=False,
+                                                    scaling="spectrum", **SEG), [(1 << 16,)]),
+    ("welch nfft axis 0", lambda v: ft.welch(v, nfft=2048, axis=0, **SEG), [(1 << 14, 3)]),
+    ("csd", lambda v, u: ft.csd(v, u, **SEG), [(1 << 16,), (1 << 16,)]),
+    ("csd complex", lambda v, u: ft.csd(v, u, **SEG), [("c", 1 << 16), ("c", 1 << 16)]),
+    ("csd median", lambda v, u: ft.csd(v, u, average="median", **SEG),
+     [(1 << 16,), (1 << 16,)]),
+    ("coherence", lambda v, u: ft.coherence(v, u, **SEG), [(1 << 16,), (1 << 16,)]),
+    ("coherence complex", lambda v, u: ft.coherence(v, u, **SEG),
+     [("c", 1 << 16), ("c", 1 << 16)]),
+    ("coherence 1000", lambda v, u: ft.coherence(v, u, nperseg=1000), [(1 << 15,), (1 << 15,)]),
+    ("multitaper adaptive", lambda v: ft.multitaper(v, NW=3.0), [(4096,)]),
+    ("multitaper unity odd nfft", lambda v: ft.multitaper(v, nfft=4097, weights="unity"),
+     [(4096,)]),
+    ("multitaper eigen complex", lambda v: ft.multitaper(v, weights="eigen"), [("c", 4096)]),
+    *[(f"spectrogram {mode}", lambda v, mode=mode: ft.spectrogram(v, mode=mode, **SEG),
+       [(1 << 16,)]) for mode in ("psd", "magnitude", "complex", "angle", "phase")],
+    *[(f"spectrogram complex {mode}", lambda v, mode=mode: ft.spectrogram(v, mode=mode, **SEG),
+       [("c", 1 << 16)]) for mode in ("psd", "magnitude", "complex", "angle", "phase")],
+    ("spectrogram linear 1000", lambda v: ft.spectrogram(v, nperseg=1000, detrend="linear"),
+     [(1 << 15,)]),
+    ("oaconvolve", ft.oaconvolve, [(1 << 16,), (129,)]),
+    ("oaconvolve same", lambda u, v: ft.oaconvolve(u, v, mode="same"), [(1 << 16,), (129,)]),
+    ("oaconvolve valid swapped", lambda u, v: ft.oaconvolve(v, u, mode="valid"),
+     [(1 << 16,), (129,)]),
+    ("oaconvolve complex", ft.oaconvolve, [("c", 1 << 16), ("c", 65)]),
+    ("oaconvolve axis", lambda u, v: ft.oaconvolve(u, v, axes=1), [(4, 1 << 14), (1, 33)]),
+    ("fftconvolve", ft.fftconvolve, [(1 << 14,), (1000,)]),
+    ("fftconvolve 2-D", ft.fftconvolve, [(256, 300), (31, 17)]),
+    ("fftconvolve 2-D same", lambda u, v: ft.fftconvolve(u, v, mode="same"),
+     [(256, 300), (31, 17)]),
+    ("fftconvolve complex valid", lambda u, v: ft.fftconvolve(u, v, mode="valid"),
+     [("c", 4096), ("c", 100)]),
+    ("hilbert pow2", ft.hilbert, [(64, 1024)]),
+    ("hilbert 1000", ft.hilbert, [(64, 1000)]),
+    ("hilbert N", lambda v: ft.hilbert(v, N=2048), [(64, 1500)]),
+    *[(f"dct {t} {norm}", lambda v, t=t, norm=norm: ft.dct(v, type=t, norm=norm), [(64, 1024)])
+      for t in (1, 2, 3, 4) for norm in (None, "ortho")],
+    *[(f"idct {t}", lambda v, t=t: ft.idct(v, type=t), [(64, 1000)]) for t in (1, 2, 3, 4)],
+    *[(f"dst {t}", lambda v, t=t: ft.dst(v, type=t), [(64, 1024)]) for t in (1, 2, 3, 4)],
+    ("idst 2 forward", lambda v: ft.idst(v, type=2, norm="forward"), [(64, 1024)]),
+    ("dctn s", lambda v: ft.dctn(v, type=2, s=(64, 512)), [(32, 1024)]),
+    ("idctn axes 0", lambda v: ft.idctn(v, type=3, axes=[0]), [(256, 64)]),
+    ("dstn", lambda v: ft.dstn(v, type=1), [(64, 128)]),
+]
+
+
+ONE_LAUNCH_ROUTES = {
+    "rfft pow2", "rfft pad to n", "rfft axis 0 ortho", "irfft complex64", "fft2 fused plane",
+    "fftn axes 0 2", "stft default", "stft window", "stft win_length", "hilbert pow2",
+    "hilbert N", "spectrogram complex", "spectrogram complex complex"}
+
+
+@pytest.mark.parametrize("case", GRAPH_ROUTES, ids=[c[0] for c in GRAPH_ROUTES])
+def test_graph_capture_of_every_route(dev, case):
+    name, fn, shapes = case
+    ins = []
+    for i, shape in enumerate(shapes):
+        if shape[0] == "c":
+            ins.append(crand(dev, *shape[1:], seed=i))
+        elif shape[0] == "p":
+            z = crand(dev, *shape[1:], seed=i)
+            ins.append((z.real.contiguous(), z.imag.contiguous()))
+        else:
+            ins.append(rrand(dev, *shape, seed=i))
+    before = _counts()
+    eager = _tensors(fn(*ins))
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _counts().items()}
+    for _ in range(2):  # the capture, then a replay
+        before = _counts()
+        got = _tensors(fn(*ins))
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in _counts().items()} == launched, name
+        assert all(torch.equal(g, e) for g, e in zip(got, eager)), name
+    if name in ONE_LAUNCH_ROUTES:
+        assert not jit_cache._CACHE, name
+    else:
+        assert any(isinstance(e, jit_cache._Graph) for e in jit_cache._CACHE.values()), name
