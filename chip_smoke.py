@@ -274,8 +274,26 @@ entry, beside the same sites at composite lengths, which capture; the
 memory the graphs hold, LRU eviction past 256 keys, eviction past the byte
 bound handing a graph's memory back, and a call that reads the host
 raising at its capture.  Then the examples (path 13, :func:`examples_path`):
-the fourteen of ``fft_wgpu_tpu_torch.examples`` at the JAX examples' sizes,
-each asserting its own check.
+the fifteen of ``fft_wgpu_tpu_torch.examples`` at the JAX examples' sizes,
+each asserting its own check.  Then the distributed layer (path 14,
+:func:`distributed_path`, before path 9, one child process a rank): (a)
+NCCL across every card of the machine, one rank a card (one card: a 1 x 1
+mesh, every corner turn the identity), at BASELINE config 5's width:
+``fft3d``/``ifft3d`` of a 1024^3 complex64 cube, the transposed 4-turn
+round trip, ``rfft3d``/``irfft3d`` of a 1024^3 float32 cube,
+``fft1d_distributed`` of 2^26 points, ``fft_batch_sharded`` 4096 x 4096,
+``solve_poisson_distributed`` at 512^3 against ``solve_poisson``, the
+ns3d ABC decay at 256^3 over 20 steps against u0 exp(-nu t), a random
+field's step against the same scheme in torch.fft, one timed RK2 step at
+512^3, and the gradient of an fft3d loss at 256^3 against its adjoint,
+each with exact launch counts per rank and 1e-5 against torch.fft (the
+ABC decay 1e-4, the ns3d step 2e-5); fft3d's device ms by kernel, events
+ms, idle share and peak memory beside torch.fft.fftn's time and
+``pencil_fft3d_model``'s floor; (b) a 2 x 2 mesh of 4 processes sharing
+cuda:0 on a gloo group at 256^3, the turns staged through the host:
+fft3d, the transposed round trip, bf16 turns (2e-2), the R2C/C2R pair,
+an ns3d step and the fft3d gradient across the processes, the host
+staging's ms apart from the kernels'.
 
 torch.fft is an oracle and a baseline here, never the implementation.  The
 last two lines are a JSON object describing the kernels (each with its
@@ -2199,6 +2217,485 @@ def examples_path(dev, smi) -> dict:
     print(f"examples: path 13, {len(NAMES)} examples done in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return seconds
+
+
+# ---------------------------------------------------------------------- #
+# path 14: the distributed layer (parallel/, models/ns3d, the distributed
+# Poisson solve), one process a rank
+# ---------------------------------------------------------------------- #
+DIST_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.distributed_rank(*sys.argv[2:])
+"""
+NS3D_TOL = 1e-4      # examples/ns3d_dns.py's bar for the ABC decay
+NS3D_REF_TOL = 2e-5  # tests/test_ns3d.py's bar against an independent scheme
+BF16_TOL = 2e-2      # tests/test_distributed.py's bar for bf16 corner turns
+
+
+def rel_l2_big(got, want, what: str, tol: float = TOL) -> float:
+    """:func:`check_close` for tensors too large for a float64 copy: the
+    sums accumulate in float64 over flat runs of 2^24 elements."""
+    import torch
+
+    check(tuple(got.shape) == tuple(want.shape),
+          f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    g, w = got.reshape(-1), want.reshape(-1)
+    num = den = 0.0
+    for s in range(0, g.numel(), 1 << 24):
+        a, b = g[s:s + (1 << 24)], w[s:s + (1 << 24)]
+        check(bool(a.isfinite().all()), f"{what}: non-finite output")
+        num += float((a - b).abs().to(torch.float64).square().sum())
+        den += float(b.abs().to(torch.float64).square().sum())
+    err = math.sqrt(num / den)
+    check(err <= tol, f"{what}: rel-L2 {err:.3e} > {tol:.0e}")
+    return err
+
+
+def ns3d_reference(u0, nu: float, dt: float, steps: int):
+    """tests/test_ns3d.py's independent scheme (rotational form, Leray
+    projection, integrating-factor Heun) in torch.fft, complex64, on u0's
+    device: the distributed rollout's oracle."""
+    import torch
+
+    n = u0.shape[-1]
+    k = torch.fft.fftfreq(n, 1.0 / n, device=u0.device)
+    kx, ky = k[:, None, None], k[None, :, None]
+    kz = torch.fft.rfftfreq(n, 1.0 / n, device=u0.device)[None, None, :]
+    ksq = kx * kx + ky * ky + kz * kz
+    ksq_safe = torch.where(ksq == 0.0, 1.0, ksq)
+    cut = n / 3.0
+    mask = ((kx.abs() <= cut) & (ky.abs() <= cut) & (kz <= cut)).float()
+    E = torch.exp(-nu * ksq * dt)
+
+    def rfft3(x):
+        return torch.fft.rfftn(x, dim=(-3, -2, -1))
+
+    def irfft3(X):
+        return torch.fft.irfftn(X, s=(n, n, n), dim=(-3, -2, -1))
+
+    def project(F):
+        div = (kx * F[0] + ky * F[1] + kz * F[2]) / ksq_safe
+        return torch.stack([F[0] - kx * div, F[1] - ky * div, F[2] - kz * div])
+
+    def nonlinear(U):
+        W = torch.stack([1j * (ky * U[2] - kz * U[1]), 1j * (kz * U[0] - kx * U[2]),
+                         1j * (kx * U[1] - ky * U[0])])
+        u, w = irfft3(U), irfft3(W)
+        lamb = torch.stack([u[1] * w[2] - u[2] * w[1], u[2] * w[0] - u[0] * w[2],
+                            u[0] * w[1] - u[1] * w[0]])
+        return project(rfft3(lamb) * mask)
+
+    U = project(rfft3(u0) * mask)
+    for _ in range(steps):
+        N1 = nonlinear(U)
+        P = (U + dt * N1) * E
+        N2 = nonlinear(P)
+        U = U * E + 0.5 * dt * (N1 * E + N2)
+    return irfft3(U)
+
+
+def dist_window(fn, names, reps: int = 5) -> tuple:
+    """Device ms per call of each part of ``names`` (kernels as
+    ``<name>_kernel``, or a prefix such as "nccl") and of the rest, events
+    ms per call and the idle share, from one torch.profiler window of
+    ``reps`` calls after a traced warm-up call, and the kernel events of
+    the window in time order (name, ms).  Every rank makes the same calls
+    (no retried window: a rank that called more would hang its peers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    event_ms = time_ms(fn, reps, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    parts = dict.fromkeys(tuple(names) + ("other",), 0.0)
+    seq = []
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.name.startswith("ProfilerStep")):
+            continue
+        part = kernel_part(e.name, names)
+        ms = e.time_range.elapsed_us() / 1e3
+        parts[part] += ms / reps
+        seq.append((e.time_range.start, part, ms))
+    busy = sum(parts.values())
+    check(busy > 0, "path 14: the profiler saw no device time")
+    return ({"events": event_ms, **parts, "idle": 1.0 - busy / event_ms},
+            [(p, ms) for _, p, ms in sorted(seq)])
+
+
+def _pipelined(axis_size: int, extent: int, chunks: int) -> int:
+    """Launches of one FFT -> turn pair: one a chunk where it pipelines."""
+    return 1 if axis_size == 1 or chunks <= 1 or extent < chunks else chunks
+
+
+def _kernels(**k) -> dict:
+    """Launch counts by kernel with each complex64 entry counted twice, as
+    its own counter and its kernel's (``counts``)."""
+    out = {}
+    for name, v in k.items():
+        if v:
+            out[name] = v
+            out[f"{name}_c64"] = v
+    return out
+
+
+def _path14_nccl(rank: int, world: int, backend: str, smi: str) -> None:
+    """Path 14 (a): every card of the machine, one rank each, on NCCL, at
+    full width (BASELINE config 5's 1024^3 cube)."""
+    import torch
+    import torch.distributed as dist
+
+    from fft_wgpu_tpu_torch import models
+    from fft_wgpu_tpu_torch.models import ns3d
+    from fft_wgpu_tpu_torch.parallel import batched, pencil
+    from fft_wgpu_tpu_torch.parallel.mesh import make_mesh, make_pencil_mesh
+    from fft_wgpu_tpu_torch.utils.roofline import pencil_fft3d_model
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pm, fm = make_pencil_mesh(), make_mesh()
+    px, py = pm.shape
+    chunks = pencil._chunks(pm, None)
+    tag = f"dist: {smi} | {backend} x{world} mesh {px}x{py}"
+
+    def say(msg):
+        if rank == 0:
+            print(f"{tag} | {msg}", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = 1024
+    nat, tr = (0, 1), (1, 2)
+
+    # ---- fft3d / ifft3d of the 1024^3 complex64 cube (8 GiB) ------------
+    x = torch.randn((n, n, n), dtype=torch.complex64, device=dev, generator=gen)
+    zc = _pipelined(py, n // px, chunks)
+    yc = _pipelined(px, n // py, chunks)
+    want3 = _kernels(rows_fft=zc, ax0_fft=yc, ax3_fft=1)
+    errs = {}
+    for what, fn, ref in (("fft3d", pencil.fft3d, torch.fft.fftn),
+                          ("ifft3d", pencil.ifft3d, torch.fft.ifftn)):
+        reset_counts()
+        pencil.reset_stats()
+        y = through(f"path 14 {what} 1024^3", lambda: fn(x, pm), **want3)
+        if world == 1:
+            check(all(v == 0 for v in pencil.STATS.values()),
+                  f"path 14 {what}: the turns did device work alone: {pencil.STATS}")
+        want = pencil._local(ref(x), pm, nat, torch.complex64)
+        errs[what] = rel_l2_big(y.to_local(), want, f"path 14 {what} 1024^3")
+        del y, want
+    # the transposed round trip: 2 + 2 turns, the mirror schedule back
+    reset_counts()
+    X = through("path 14 fft3d 1024^3 transposed out", lambda: pencil.fft3d(
+        x, pm, transposed_output=True), **want3)
+    back = through("path 14 ifft3d 1024^3 transposed in", lambda: pencil.ifft3d(
+        X, pm, transposed_input=True), **_kernels(
+            ax3_fft=_pipelined(px, n // py, chunks), ax0_fft=_pipelined(py, n // px, chunks),
+            rows_fft=1))
+    errs["round trip"] = rel_l2_big(back.to_local(), pencil._local(x, pm, nat, torch.complex64),
+                                    "path 14 transposed round trip 1024^3")
+    del X, back
+    say("1024^3 complex64 rel-L2 vs torch.fft: " + ", ".join(
+        f"{k} {v:.2e}" for k, v in errs.items()) + f"; launches a call {want3}")
+
+    names = ("rows_fft", "ax0_fft", "nccl")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pencil.fft3d(x, pm)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    parts, seq = dist_window(lambda: pencil.fft3d(x, pm), names, reps=5)
+    kern = [(p, ms) for p, ms in seq if p in ("rows_fft", "ax0_fft")]
+    per = len(kern) // 5
+    by_pos = [statistics.mean(ms for _, ms in kern[i::per]) for i in range(per)] if per else []
+    lib_ms = time_ms(lambda: torch.fft.fftn(x), reps=5, warmup=1)
+    floor = pencil_fft3d_model(n, (px, py), hbm_bw=HBM_BYTES_PER_S)
+    say(f"fft3d 1024^3: events ms {parts['events']:.3f}, device ms " + ", ".join(
+        f"{k} {parts[k]:.3f}" for k in names + ("other",)) + f", idle {parts['idle']:.3f}; "
+        f"kernels in call order (ms): {', '.join(f'{v:.3f}' for v in by_pos)}; "
+        f"torch.fft.fftn ms {lib_ms:.3f}; model floor ms {1e3 * floor['overlapped_s']:.2f} "
+        f"(compute {1e3 * floor['compute_s']:.2f}, turns {1e3 * floor['ici_s']:.2f}); "
+        f"peak GiB {peak / 2**30:.2f} with the input's {base / 2**30:.2f}")
+    if world == 1:
+        check(parts["nccl"] == 0 and parts["other"] == 0,
+              f"path 14: at world 1 fft3d ran device work besides its kernels: {parts}")
+    del x
+
+    # ---- rfft3d / irfft3d of a 1024^3 float32 cube --------------------
+    r = torch.randn((n, n, n), device=dev, generator=gen)
+    nb = n // 2 + 1
+    kp = pencil._kp(nb, py)
+    reset_counts()
+    R = through("path 14 rfft3d 1024^3", lambda: pencil.rfft3d(r, pm), **_kernels(
+        r2c_fft=1, ax0_fft=_pipelined(px, kp // py, chunks), ax3_fft=1))
+    spec = torch.fft.rfftn(r)
+    e_r = rel_l2_big(R.to_local(), pencil._local(spec, pm, nat, torch.complex64),
+                     "path 14 rfft3d 1024^3")
+    t_r = time_ms(lambda: pencil.rfft3d(r, pm), reps=5, warmup=1)
+    t_rl = time_ms(lambda: torch.fft.rfftn(r), reps=5, warmup=1)
+    y = through("path 14 irfft3d 1024^3", lambda: pencil.irfft3d(R, n, pm), **_kernels(
+        ax0_fft=_pipelined(px, kp // py, chunks), ax3_fft=1, c2r_fft=1))
+    e_i = rel_l2_big(y.to_local(), pencil._local(torch.fft.irfftn(spec, s=(n, n, n)), pm, nat,
+                                                 torch.float32), "path 14 irfft3d 1024^3")
+    del spec, y
+    t_i = time_ms(lambda: pencil.irfft3d(R, n, pm), reps=5, warmup=1)
+    say(f"rfft3d/irfft3d 1024^3 float32: rel-L2 {e_r:.2e} / {e_i:.2e}; events ms "
+        f"{t_r:.3f} / {t_i:.3f}; torch.fft.rfftn ms {t_rl:.3f}")
+    del R, r
+
+    # ---- fft1d_distributed of 2^26 points, fft_batch_sharded 4096^2 ----
+    v = torch.randn(1 << 26, dtype=torch.complex64, device=dev, generator=gen)
+    y = through("path 14 fft1d_distributed 2^26", lambda: pencil.fft1d_distributed(v, fm),
+                **_kernels(ax0_fft=1, rows_fft=1))
+    e1 = rel_l2_big(y.to_local(), pencil._local(torch.fft.fft(v), fm, (0,), torch.complex64),
+                    "path 14 fft1d_distributed 2^26")
+    t1 = time_ms(lambda: pencil.fft1d_distributed(v, fm), reps=10)
+    t1l = time_ms(lambda: torch.fft.fft(v), reps=10)
+    b = torch.randn((4096, 4096), dtype=torch.complex64, device=dev, generator=gen)
+    y = through("path 14 fft_batch_sharded 4096^2", lambda: batched.fft_batch_sharded(b, fm),
+                **_kernels(rows_fft=1))
+    eb = rel_l2_big(y.to_local(), pencil._local(torch.fft.fft(b), fm, (0,), torch.complex64),
+                    "path 14 fft_batch_sharded 4096^2")
+    say(f"fft1d_distributed 2^26: rel-L2 {e1:.2e}, events ms {t1:.3f}, torch.fft.fft ms "
+        f"{t1l:.3f}; fft_batch_sharded 4096^2: rel-L2 {eb:.2e}")
+    del v, b, y
+
+    # ---- the distributed Poisson solve at 512^3 ------------------------
+    f = torch.randn((512, 512, 512), device=dev, generator=gen)
+    kp5 = pencil._kp(257, py)
+    u = through("path 14 solve_poisson_distributed 512^3", lambda: models.solve_poisson_distributed(
+        f, pm), **_kernels(r2c_fft=1, c2r_fft=1,
+                           ax0_fft=_pipelined(px, kp5 // py, chunks) + _pipelined(py, 512 // px,
+                                                                                  chunks),
+                           ax3_fft=1 + _pipelined(px, kp5 // py, chunks)))
+    ep = rel_l2_big(u.to_local(), pencil._local(models.solve_poisson(f), pm, nat, torch.float32),
+                    "path 14 solve_poisson_distributed 512^3 vs solve_poisson")
+    tp = time_ms(lambda: models.solve_poisson_distributed(f, pm), reps=5, warmup=1)
+    say(f"solve_poisson_distributed 512^3: rel-L2 vs solve_poisson {ep:.2e}, events ms {tp:.3f}")
+    del f, u
+
+    # ---- ns3d: the ABC decay at 256^3 over 20 steps, a random field's
+    # step against the independent scheme, one timed RK2 step at 512^3 --
+    nu, dt, steps = 0.05, 0.05, 20
+    c = models.ns3d_init(256, nu, dt, pm)
+    u0 = models.abc_flow(256, device=dev)
+    # a step is 2 nonlinear terms, each 1 batched inverse (the X pair, the
+    # Y pair, C2R) and 1 batched forward (R2C, the Y pair, X); the
+    # rollout's first forward and last inverse besides
+    k = 2 * steps + 1
+    kl = pencil._kp(129, py) // py
+    pair_x, pair_y = _pipelined(px, kl, chunks), _pipelined(py, 256 // px, chunks)
+    t0 = time.perf_counter()
+    u = through("path 14 ns3d ABC 256^3 x 20 steps", lambda: models.ns3d_rollout(c, u0, steps),
+                **_kernels(r2c_fft=k, c2r_fft=k, ax3_fft=k + k * pair_x,
+                           ax0_fft=k * pair_x + k * pair_y))
+    t_abc = time.perf_counter() - t0
+    e_abc = rel_l2_big(u.to_local(), pencil._local(u0 * math.exp(-nu * dt * steps), pm,
+                                                   (1, 2), torch.float32),
+                       "path 14 ns3d ABC decay 256^3", NS3D_TOL)
+    ur = torch.randn((3, 256, 256, 256), device=dev, generator=gen)
+    c1 = models.ns3d_init(256, 0.02, 0.05, pm)
+    got = models.ns3d_rollout(c1, ur, 1)
+    e_ref = rel_l2_big(got.to_local(), pencil._local(ns3d_reference(ur, 0.02, 0.05, 1), pm,
+                                                     (1, 2), torch.float32),
+                       "path 14 ns3d step 256^3 vs the torch.fft scheme", NS3D_REF_TOL)
+    del got, ur
+    c5 = models.ns3d_init(512, 1e-3, 1e-3, pm)
+    u5 = pencil._local(torch.randn((3, 512, 512, 512), device=dev, generator=gen), pm, (1, 2),
+                       torch.float32)
+    t5 = c5.tables(dev)
+    U5 = ns3d._project(t5, ns3d._rfft3(c5, u5) * t5["mask"])
+    check(bool(ns3d._step(c5, t5, U5).isfinite().all()), "path 14 ns3d step 512^3: non-finite")
+    t_step = time_ms(lambda: ns3d._step(c5, t5, U5), reps=3, warmup=1)
+    say(f"ns3d: ABC 256^3 x {steps} steps rel-L2 vs u0 exp(-nu t) {e_abc:.2e} "
+        f"({t_abc:.2f} s with the tables' build), random 256^3 step vs torch.fft scheme "
+        f"{e_ref:.2e}; one RK2 step at 512^3 events ms {t_step:.3f}")
+    del U5, u5, c5, t5
+
+    # ---- the gradient of sum(w |fft3d(x)|^2) at 256^3 -------------------
+    xg = torch.randn((256, 256, 256), dtype=torch.complex64, device=dev, generator=gen)
+    w = torch.rand((256, 256, 256), device=dev, generator=gen)
+    xv = xg.clone().requires_grad_(True)
+    reset_counts()
+
+    def loss_grad():
+        y = pencil.fft3d(xv, pm).to_local()
+        (pencil._local(w, pm, nat, torch.float32) * (y.real ** 2 + y.imag ** 2)).sum().backward()
+
+    through("path 14 fft3d gradient 256^3", loss_grad,
+            **{k2: 2 * v2 for k2, v2 in _kernels(rows_fft=_pipelined(py, 256 // px, chunks),
+                                                 ax0_fft=_pipelined(px, 256 // py, chunks),
+                                                 ax3_fft=1).items()})
+    g = xv.grad.clone()
+    dist.all_reduce(g)
+    adj = 2 * xg.numel() * torch.fft.ifftn(w * torch.fft.fftn(xg))
+    eg = rel_l2_big(g, adj, "path 14 fft3d gradient 256^3 vs its adjoint")
+    say(f"fft3d gradient 256^3: rel-L2 vs 2 N ifftn(w fftn(x)) {eg:.2e}")
+
+
+def _path14_gloo(rank: int, world: int, backend: str, smi: str) -> None:
+    """Path 14 (b): a 2 x 2 mesh of 4 processes sharing one card on a gloo
+    group at 256^3: real corner turns, staged through the host, around the
+    card's kernels."""
+    import torch
+    import torch.distributed as dist
+
+    from fft_wgpu_tpu_torch import models
+    from fft_wgpu_tpu_torch.parallel import pencil
+    from fft_wgpu_tpu_torch.parallel.mesh import make_pencil_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pm = make_pencil_mesh()
+    px, py = pm.shape
+    chunks = pencil._chunks(pm, None)
+    tag = f"dist: {smi} | {backend} x{world} mesh {px}x{py} on one card"
+
+    def say(msg):
+        if rank == 0:
+            print(f"{tag} | {msg}", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = 256
+    nat = (0, 1)
+    x = torch.randn((n, n, n), dtype=torch.complex64, device=dev, generator=gen)
+    want3 = _kernels(rows_fft=_pipelined(py, n // px, chunks),
+                     ax0_fft=_pipelined(px, n // py, chunks), ax3_fft=1)
+    reset_counts()
+    pencil.reset_stats()
+    y = through("path 14 (b) fft3d 256^3", lambda: pencil.fft3d(x, pm), **want3)
+    stats = dict(pencil.STATS)
+    e3 = rel_l2_big(y.to_local(), pencil._local(torch.fft.fftn(x), pm, nat, torch.complex64),
+                    "path 14 (b) fft3d 256^3")
+    X = pencil.fft3d(x, pm, transposed_output=True)
+    back = pencil.ifft3d(X, pm, transposed_input=True)
+    et = rel_l2_big(back.to_local(), pencil._local(x, pm, nat, torch.complex64),
+                    "path 14 (b) transposed round trip 256^3")
+    yb = pencil.fft3d(x, pm, comm_dtype=torch.bfloat16)
+    eb = rel_l2_big(yb.to_local(), y.to_local(), "path 14 (b) fft3d bf16 turns", BF16_TOL)
+    r = torch.randn((n, n, n), device=dev, generator=gen)
+    R = pencil.rfft3d(r, pm, transposed_output=True)
+    er = rel_l2_big(pencil.irfft3d(R, n, pm, transposed_input=True).to_local(),
+                    pencil._local(r, pm, nat, torch.float32), "path 14 (b) rfft3d/irfft3d 256^3")
+    Rn = pencil.rfft3d(r, pm)
+    ern = rel_l2_big(Rn.to_local(), pencil._local(torch.fft.rfftn(r), pm, nat, torch.complex64),
+                     "path 14 (b) rfft3d 256^3")
+    say(f"fft3d 256^3 rel-L2 vs torch.fft {e3:.2e} (launches {want3}; turns "
+        f"{stats['turns']}, pack copies {stats['pack_copies']}, unpack copies "
+        f"{stats['unpack_copies']}, chunk copies {stats['chunk_copies']}); transposed round "
+        f"trip {et:.2e}; bf16 turns vs float32 {eb:.2e}; rfft3d {ern:.2e}, R2C round trip "
+        f"{er:.2e}")
+
+    pencil.reset_stats()
+    parts, _ = dist_window(lambda: pencil.fft3d(x, pm), ("rows_fft", "ax0_fft"), reps=5)
+    calls = 5 + 1 + 1 + 5  # time_ms's warm-up and reps, the traced warm-up, the window
+    say(f"fft3d 256^3 a call: events ms {parts['events']:.3f}, device ms rows_fft "
+        f"{parts['rows_fft']:.3f}, ax0_fft {parts['ax0_fft']:.3f}, other (packs, unpacks, "
+        f"host copies) {parts['other']:.3f}, idle {parts['idle']:.3f}; host staging ms "
+        f"{1e3 * pencil.STATS['host_stage_s'] / calls:.3f} for "
+        f"{pencil.STATS['host_stage_bytes'] / calls / 2**20:.1f} MiB (device to host and back), "
+        f"the gloo exchanges' host ms {1e3 * pencil.STATS['host_exchange_s'] / calls:.3f}")
+
+    ur = torch.randn((3, n, n, n), device=dev, generator=gen)
+    c = models.ns3d_init(n, 0.02, 0.05, pm)
+    got = models.ns3d_rollout(c, ur, 1)
+    en = rel_l2_big(got.to_local(), pencil._local(ns3d_reference(ur, 0.02, 0.05, 1), pm, (1, 2),
+                                                  torch.float32),
+                    "path 14 (b) ns3d step 256^3 vs the torch.fft scheme", NS3D_REF_TOL)
+    w = torch.rand((n, n, n), device=dev, generator=gen)
+    xv = x.clone().requires_grad_(True)
+    yv = pencil.fft3d(xv, pm).to_local()
+    (pencil._local(w, pm, nat, torch.float32) * (yv.real ** 2 + yv.imag ** 2)).sum().backward()
+    g = xv.grad.cpu()
+    dist.all_reduce(g)
+    eg = rel_l2_big(g.to(dev), 2 * x.numel() * torch.fft.ifftn(w * torch.fft.fftn(x)),
+                    "path 14 (b) fft3d gradient 256^3 vs its adjoint")
+    say(f"ns3d step 256^3 vs torch.fft scheme {en:.2e}; fft3d gradient across the processes "
+        f"vs 2 N ifftn(w fftn(x)) {eg:.2e}")
+
+
+def distributed_rank(part: str, rank: str, world: str, address: str, backend: str,
+                     smi: str) -> None:
+    """One rank of path 14: join the group, run part "a" or "b", leave."""
+    import torch
+    import torch.distributed as dist
+
+    from fft_wgpu_tpu_torch.parallel.multihost import initialize
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize(address, int(world), int(rank), backend=backend)
+    try:
+        (_path14_nccl if part == "a" else _path14_gloo)(int(rank), int(world), backend, smi)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_ranks(part: str, world: int, backend: str, smi: str, timeout: float,
+               env=None) -> None:
+    """Path 14's ranks as child processes (a ``file://`` store in a fresh
+    directory), their output passed on; it fails if one fails or hangs."""
+    import shutil
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    store = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    logs = [open(os.path.join(store, f"rank{r}.log"), "w+") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-c", DIST_CHILD, root, part, str(r), str(world),
+                               f"file://{store}/store", backend, smi],
+                              stdout=logs[r], stderr=subprocess.STDOUT,
+                              env={**os.environ, **(env or {})})
+             for r in range(world)]
+    try:
+        t0 = time.perf_counter()
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.returncode not in (None, 0)]
+            if bad or time.perf_counter() - t0 > timeout:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = []
+    for f in logs:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    shutil.rmtree(store, ignore_errors=True)
+    print(outs[0], end="", flush=True)
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"path 14 ({part}) rank {r}: rc {p.returncode}\n{outs[r][-4000:]}")
+
+
+def distributed_path(smi) -> None:
+    """Path 14: the distributed layer, in child processes.  (a) NCCL across
+    every card of the machine, one process a card (one card: a 1 x 1 mesh,
+    every turn the identity); (b) a 2 x 2 mesh of 4 processes sharing
+    cuda:0 on a gloo group, the turns staged through the host."""
+    import gc
+
+    import torch
+
+    from fft_wgpu_tpu_torch.utils import jit_cache
+
+    jit_cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()  # the children need the card's memory
+    t0 = time.perf_counter()
+    _run_ranks("a", torch.cuda.device_count(), "nccl", smi, 900)
+    t1 = time.perf_counter()
+    _run_ranks("b", 4, "gloo", smi, 600, env={"CUDA_VISIBLE_DEVICES": "0"})
+    print(f"dist: path 14 done in {time.perf_counter() - t0:.1f} s ((a) {t1 - t0:.1f} s)",
+          flush=True)
 
 
 def main() -> int:
@@ -4181,6 +4678,7 @@ def main() -> int:
     serving_path(dev, gen, smi)  # path 11, before path 9 (below)
     graph_cache_child(smi)  # path 12, before path 9 (below), in a process of its own
     examples_path(dev, smi)  # path 13
+    distributed_path(smi)  # path 14, before path 9, in processes of its own
     # Path 9 runs last: after its windows (the 2^20-point NUFFTs launch
     # thousands of kernels a window) later torch.profiler windows in the
     # same process were seen to miss one or two of 20 launches, whatever

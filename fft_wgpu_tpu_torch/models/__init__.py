@@ -2,14 +2,12 @@
 ``fft_wgpu_tpu.models``).
 
 * spectral — FNO-style 1-D/2-D/3-D spectral operators + training steps
-* poisson — spectral Poisson solver (local)
+* poisson — spectral Poisson solver (local and distributed pencil)
 * navier_stokes — pseudo-spectral 2-D Navier-Stokes (vorticity form)
 * burgers — pseudo-spectral 1-D viscous Burgers (FNO data generator)
 * ks — Kuramoto-Sivashinsky ETDRK4 exponential integrator
+* ns3d — distributed pseudo-spectral 3-D Navier-Stokes (pencil mesh)
 * nlse — split-step Fourier NLSE / Gross-Pitaevskii (1-D/2-D)
-
-The distributed ones (the 3-D Navier-Stokes DNS and the pencil Poisson
-solve) wait for the port of ``parallel/``.
 """
 
 from .burgers import (
@@ -28,7 +26,8 @@ from .nlse import (
     nlse_rollout,
     nlse_step,
 )
-from .poisson import solve_poisson
+from .ns3d import abc_flow, ns3d_init, ns3d_rollout, ns3d_step
+from .poisson import solve_poisson, solve_poisson_distributed
 from .spectral import (
     FNO1d,
     FNO2d,

@@ -3,8 +3,9 @@ port of ``fft_wgpu_tpu.models.poisson``'s local solve).
 
 Solves  laplacian(u) = f  on a periodic box via diagonalization in Fourier
 space: u_hat = -f_hat / |k|^2 (zero-mean gauge), through the N-D R2C/C2R
-pair ``rfftn`` / ``irfftn``.  The distributed pencil solve waits for the
-port of ``parallel/``.
+pair ``rfftn`` / ``irfftn``; on a mesh, :func:`solve_poisson_distributed`
+runs the same math through the distributed pencil pair ``rfft3d`` /
+``irfft3d`` (``parallel.pencil``).
 """
 
 from __future__ import annotations
@@ -13,11 +14,12 @@ import functools
 import math
 
 import numpy as np
+import torch
 
 from ..core.complex_utils import host_table, to_device
 from ..ops.rfft import irfftn, rfftn
 
-__all__ = ["solve_poisson"]
+__all__ = ["solve_poisson", "solve_poisson_distributed"]
 
 
 def _ksq_grids(shape, lengths):
@@ -54,3 +56,46 @@ def solve_poisson(f, lengths=None):
     F = rfftn(f)
     U = -F / ksq * mask
     return irfftn(U, s=shape)
+
+
+def solve_poisson_distributed(f, mesh=None, lengths=None, *, comm_dtype=None):
+    """Distributed 3-D Poisson solve through the pencil R2C/C2R pair.
+
+    Rides the transposed-spectrum round trip (4 corner turns instead of
+    8): the spectral divide is elementwise on each rank's shard of the
+    transposed layout, with |k|^2 sliced to it (one on the padded
+    half-spectrum columns) and the DC mode zeroed on the rank that holds
+    it.  ``f`` is real [X, Y, Z]: a DTensor in the natural distribution or
+    the global array on every rank; the result is a DTensor on ``mesh``
+    (default: the pencil mesh over every rank; with no process group, this
+    process alone and a plain tensor).  ``comm_dtype=torch.bfloat16``
+    halves the turns' wire bytes (see ``parallel.pencil.fft3d``)."""
+    from ..parallel import pencil
+    from ..parallel.mesh import make_pencil_mesh
+
+    mesh = pencil._default_mesh(mesh, f, make_pencil_mesh)
+    shape = tuple(f.shape)
+    lengths = tuple(lengths or (2 * math.pi,) * 3)
+    ax, ay = pencil._mesh_axes(mesh, 2)
+    chunks = pencil._chunks(mesh, None)
+    comm = pencil._norm_comm_dtype(comm_dtype)
+    x = pencil._local(f, mesh, (0, 1), torch.float32)
+    F = pencil._rfft3d_local(x, ax, ay, None, chunks, comm, True)   # [X, Y/px, Kp/py]
+    U = -F / _local_ksq(shape, lengths, (ax.size, ax.index), (ay.size, ay.index), F.device)
+    if ax.index == 0 and ay.index == 0:
+        U[0, 0, 0] = 0.0  # zero-mean gauge: the DC mode
+    u = pencil._irfft3d_local(U, shape[-1], ax, ay,
+                              pencil._irfft_scale(*shape, None), chunks, comm, True)
+    return pencil._wrap(u, mesh, (0, 1), shape)
+
+
+@functools.lru_cache(maxsize=16)
+def _local_ksq(shape, lengths, xpart, ypart, device):
+    """|k|^2 of this rank's shard of the transposed layout [X, Y/px, Kp/py]
+    (``pencil._spectrum_shard``; one on the padded columns), ``xpart`` and
+    ``ypart`` its (mesh size, coordinate) pairs, float32 on ``device``,
+    built once."""
+    from ..parallel import pencil
+
+    ksq = pencil._spectrum_shard(_ksq_grids(shape, lengths), xpart, ypart, True, fill=1.0)
+    return host_table(np.ascontiguousarray(ksq), device)

@@ -42,7 +42,7 @@ __all__ = ["candidates_for", "measure_executor", "TUNE_CACHE", "TIMES",
            "PLANE_CACHE", "OVERLAP_CACHE",
            "load_wisdom", "save_wisdom", "split_candidates",
            "tune_balanced", "tune_ax0_tile", "tune_fused_plane",
-           "default_overlap_chunks"]
+           "tune_overlap_chunks", "default_overlap_chunks"]
 
 # (card, n, rows_bucket, axis) -> route
 TUNE_CACHE: dict = {}
@@ -360,3 +360,63 @@ def default_overlap_chunks(mesh) -> int:
         load_wisdom()
     card = _card(torch.device(mesh.device_type, 0))
     return OVERLAP_CACHE.get((card, int(mesh.size())), 4)
+
+
+def tune_overlap_chunks(mesh, shape=(256, 256, 256), candidates=(1, 2, 4, 8), repeats=3, *,
+                        persist: bool = True) -> int:
+    """Time ``parallel.pencil.fft3d`` of a complex64 ``shape`` on THIS mesh
+    (a 2-D ``DeviceMesh``; every rank calls it) at each pipeline depth in
+    ``candidates``, pin the fastest for (card, mesh size) in
+    :data:`OVERLAP_CACHE`, where :func:`default_overlap_chunks` serves it,
+    and keep it as wisdom (``persist``).
+
+    Each candidate: one warm-up call, then ``repeats`` calls, each after a
+    barrier, timed by CUDA events on a card (the host clock on the CPU);
+    its time is the slowest rank's best (an all-reduce of the maxima), so
+    every rank pins the same depth.  On a mesh of one rank every depth is
+    the same schedule."""
+    import time
+
+    import torch.distributed as dist
+
+    from ..parallel import pencil
+
+    card = _card(torch.device(mesh.device_type, 0))
+    key = (card, int(mesh.size()))
+    if not _wisdom_loaded:
+        load_wisdom()
+    on_card = mesh.device_type == "cuda"
+    device = torch.device("cuda", torch.cuda.current_device()) if on_card else torch.device("cpu")
+    local = [s // mesh.size(d) if d < 2 else s for d, s in enumerate(shape)]
+    x = pencil._wrap(torch.zeros(local, dtype=torch.complex64, device=device), mesh, (0, 1),
+                     tuple(shape))
+    times = []
+    for c in candidates:
+        pencil.fft3d(x, mesh, overlap_chunks=c)  # builds what the schedule needs
+        best = float("inf")
+        for _ in range(repeats):
+            dist.barrier()
+            if on_card:
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                pencil.fft3d(x, mesh, overlap_chunks=c)
+                stop.record()
+                stop.synchronize()
+                t = start.elapsed_time(stop) / 1e3
+            else:
+                t0 = time.perf_counter()
+                pencil.fft3d(x, mesh, overlap_chunks=c)
+                t = time.perf_counter() - t0
+            best = min(best, t)
+        times.append(best)
+    wire = device if dist.get_backend() == "nccl" else torch.device("cpu")
+    slowest = torch.tensor(times, dtype=torch.float64, device=wire)
+    dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+    slowest = slowest.tolist()
+    best_c = candidates[slowest.index(min(slowest))]
+    TIMES[("overlap",) + key] = dict(zip(candidates, slowest))
+    OVERLAP_CACHE[key] = best_c
+    if persist:
+        save_wisdom()
+    return best_c

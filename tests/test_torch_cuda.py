@@ -2739,3 +2739,130 @@ def test_graph_capture_of_every_route(dev, case):
         assert not jit_cache._CACHE, name
     else:
         assert any(isinstance(e, jit_cache._Graph) for e in jit_cache._CACHE.values()), name
+
+
+# ---------------------------------------------------------------------- #
+# the distributed layer (parallel/, models/ns3d, the distributed Poisson
+# solve) on a one-rank NCCL group: every turn the identity, so each
+# transform is its kernels alone
+# ---------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def nccl_one(tmp_path_factory):
+    """A one-rank NCCL process group and its pencil (1 x 1) and flat (1)
+    meshes, for this module's tests; destroyed after them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from fft_wgpu_tpu_torch.parallel.mesh import make_mesh, make_pencil_mesh
+    from fft_wgpu_tpu_torch.parallel.multihost import initialize
+
+    initialize(f"file://{tmp_path_factory.mktemp('nccl')}/store", 1, 0, backend="nccl")
+    yield make_pencil_mesh(), make_mesh()
+    dist.destroy_process_group()
+
+
+_PENCIL_KERNELS = {"rows_fft": 1, "rows_fft_c64": 1, "ax0_fft": 1, "ax0_fft_c64": 1,
+                   "ax3": 1, "ax3_c64": 1}
+
+
+def test_pencil_fft3d_one_rank_nccl(dev, nccl_one):
+    from fft_wgpu_tpu_torch.parallel import pencil
+
+    pm, _ = nccl_one
+    x = crand(dev, 256, 256, 256, seed=1)
+    pencil.reset_stats()
+    y = _model_through(lambda: pencil.fft3d(x, pm), **_PENCIL_KERNELS)
+    assert rel_l2(y.to_local(), torch.fft.fftn(x)) < TOL
+    assert pencil.STATS["turns"] == 0 and pencil.STATS["pack_copies"] == 0
+    X = pencil.fft3d(x, pm, transposed_output=True)
+    back = _model_through(lambda: pencil.ifft3d(X, pm, transposed_input=True),
+                          **_PENCIL_KERNELS)
+    assert rel_l2(back.to_local(), x) < TOL
+    assert pencil.STATS["turns"] == 0 and pencil.STATS["unpack_copies"] == 0
+
+
+def test_pencil_real_1d_2d_and_batch_one_rank_nccl(dev, nccl_one):
+    from fft_wgpu_tpu_torch.parallel import batched, pencil
+
+    pm, fm = nccl_one
+    r = rrand(dev, 256, 256, 256, seed=2)
+    X = _model_through(lambda: pencil.rfft3d(r, pm), r2c_fft=1, r2c_fft_c64=1, ax0_fft=1,
+                       ax0_fft_c64=1, ax3=1, ax3_c64=1)
+    assert rel_l2(X.to_local(), torch.fft.rfftn(r)) < TOL
+    y = _model_through(lambda: pencil.irfft3d(X, 256, pm), c2r_fft=1, c2r_fft_c64=1, ax0_fft=1,
+                       ax0_fft_c64=1, ax3=1, ax3_c64=1)
+    assert rel_l2(y.to_local(), r) < TOL
+    x = crand(dev, 1024, 2048, seed=3)
+    y = _model_through(lambda: pencil.fft2d(x, fm), rows_fft=1, rows_fft_c64=1, ax0_fft=1,
+                       ax0_fft_c64=1)
+    assert rel_l2(y.to_local(), torch.fft.fft2(x)) < TOL
+    v = crand(dev, 1 << 22, seed=4)
+    y = _model_through(lambda: pencil.fft1d_distributed(v, fm), rows_fft=1, rows_fft_c64=1,
+                       ax0_fft=1, ax0_fft_c64=1)
+    assert rel_l2(y.to_local(), torch.fft.fft(v)) < TOL
+    y = _model_through(lambda: batched.fft_batch_sharded(x, fm), rows_fft=1, rows_fft_c64=1)
+    assert rel_l2(y.to_local(), torch.fft.fft(x)) < TOL
+
+
+def _dist_grad_cases(pm, fm):
+    from fft_wgpu_tpu_torch.parallel import batched, pencil
+
+    return {
+        "fft3d": (lambda x: pencil.fft3d(x, pm), lambda x: torch.fft.fftn(x), (128,) * 3, True),
+        "ifft3d": (lambda x: pencil.ifft3d(x, pm), lambda x: torch.fft.ifftn(x), (128,) * 3,
+                   True),
+        "fft2d": (lambda x: pencil.fft2d(x, fm), lambda x: torch.fft.fft2(x), (256, 512), True),
+        "fft1d_distributed": (lambda x: pencil.fft1d_distributed(x, fm),
+                              lambda x: torch.fft.fft(x), (1 << 20,), True),
+        "fft_batch_sharded": (lambda x: batched.fft_batch_sharded(x, fm),
+                              lambda x: torch.fft.fft(x), (64, 1024), True),
+        "rfft3d": (lambda x: pencil.rfft3d(x, pm), lambda x: torch.fft.rfftn(x), (128,) * 3,
+                   False),
+        "irfft3d": (lambda x: pencil.irfft3d(x, 128, pm),
+                    lambda x: torch.fft.irfftn(x, s=(128,) * 3), (128, 128, 65), True),
+    }
+
+
+@pytest.mark.parametrize("name", ["fft3d", "ifft3d", "fft2d", "fft1d_distributed",
+                                  "fft_batch_sharded", "rfft3d", "irfft3d"])
+def test_grad_distributed_one_rank_nccl(dev, nccl_one, name):
+    """The gradient of sum(w |f(x)|^2) through each distributed transform
+    (its kernels' adjoints) against torch.fft's composition."""
+    cases = _dist_grad_cases(*nccl_one)
+    fn, ref, shape, complex_in = cases[name]
+    x = crand(dev, *shape, seed=5) if complex_in else rrand(dev, *shape, seed=5)
+    out_shape = ref(x).shape
+    w = torch.from_numpy(np.random.default_rng(6).random(out_shape).astype(np.float32)).to(dev)
+
+    def grad(f):
+        v = x.clone().requires_grad_(True)
+        y = f(v)
+        y = y.to_local() if hasattr(y, "to_local") else y
+        (w * (y.abs() ** 2 if y.is_complex() else y ** 2)).sum().backward()
+        return v.grad
+
+    assert rel_l2(grad(fn), grad(ref)) < TOL
+
+
+def test_ns3d_and_poisson_one_rank_nccl(dev, nccl_one):
+    from fft_wgpu_tpu_torch import models
+
+    pm, _ = nccl_one
+    n, nu, dt, steps = 128, 0.05, 0.05, 4
+    c = models.ns3d_init(n, nu, dt, pm)
+    u0 = models.abc_flow(n, device=dev)
+    # a step: two nonlinear terms, each one batched inverse (axis(-3),
+    # axis(-2), C2R) and one batched forward (R2C, axis(-2), axis(-3));
+    # the rollout's first forward and last inverse besides
+    k = 2 * steps + 1
+    u = _model_through(lambda: models.ns3d_rollout(c, u0, steps), r2c_fft=k, r2c_fft_c64=k,
+                       c2r_fft=k, c2r_fft_c64=k, ax0_fft=2 * k, ax0_fft_c64=2 * k, ax3=2 * k,
+                       ax3_c64=2 * k)
+    want = u0 * math.exp(-nu * dt * steps)
+    assert rel_l2(u.to_local(), want) < 1e-4
+    f = rrand(dev, 128, 128, 128, seed=7)
+    got = _model_through(lambda: models.solve_poisson_distributed(f, pm), r2c_fft=1,
+                         r2c_fft_c64=1, ax0_fft=2, ax0_fft_c64=2, ax3=2, ax3_c64=2, c2r_fft=1,
+                         c2r_fft_c64=1)
+    assert rel_l2(got.to_local(), models.solve_poisson(f)) < TOL
