@@ -293,7 +293,12 @@ ms, idle share and peak memory beside torch.fft.fftn's time and
 cuda:0 on a gloo group at 256^3, the turns staged through the host:
 fft3d, the transposed round trip, bf16 turns (2e-2), the R2C/C2R pair,
 an ns3d step and the fft3d gradient across the processes, the host
-staging's ms apart from the kernels'.
+staging's ms apart from the kernels'.  Each part ends with the FNO-3D dp x
+tp training step (:func:`fno_tp_path`) at path 10's width on its mesh
+named ("dp", "tp"): its loss and every parameter against
+``spectral.train_step`` of the global batch, exact launches on every rank,
+the replicated parameters bit-identical across the ranks, events and
+device ms a step, the collectives' bytes and host seconds.
 
 torch.fft is an oracle and a baseline here, never the implementation.  The
 last two lines are a JSON object describing the kernels (each with its
@@ -2348,9 +2353,102 @@ def _kernels(**k) -> dict:
     return out
 
 
+# path 10's FNO3d train_step: forward and backward of 2 blocks, each fftn
+# (B5 planar, B3 planar) and ifftn (B5, B3 complex64) and their adjoints
+FNO_TP_STEP = {"fft2f_fft": 8, "fft2f_fft_c64": 4, "ax3_fft": 8, "ax3_fft_c64": 4}
+
+
+def fno_tp_path(rank: int, world: int, say, reps: int) -> None:
+    """Path 14's FNO-3D dp x tp training step (``parallel.fno``) at path
+    10's full width (modes 8^3, width 16, depth 2, 128^3 fields) on the
+    pencil mesh of every rank named ("dp", "tp"), global x and y
+    [2 dp, 128^3, 1]: one step with each rank's launches exact (path 10's
+    FNO3d step, on its shard), its loss and every gathered parameter
+    against ``spectral.train_step`` of the global batch on a copy (rank
+    0) at 1e-5, the replicated parameters and the loss bit-identical
+    across the ranks (at world 1, no collective ran); then events ms a
+    step, the device ms of B5, B3, the collectives' kernels and copies and
+    the rest, and the collectives' bytes and host seconds a step."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+
+    from fft_wgpu_tpu_torch.models import spectral
+    from fft_wgpu_tpu_torch.parallel import fno
+    from fft_wgpu_tpu_torch.parallel.mesh import make_pencil_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_pencil_mesh(axis_names=("dp", "tp"))
+    dp, tp = mesh.shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    model = spectral.init_fno3d(gen, modes=(8, 8, 8), width=16, depth=2, device=dev)
+    shape = (2 * dp, 128, 128, 128, 1)
+    x = torch.randn(shape, device=dev, generator=gen)
+    y = torch.randn(shape, device=dev, generator=gen)
+    ref = copy.deepcopy(model) if rank == 0 else None
+    sh = fno.shard_params(model, mesh)
+    del model
+    what = f"path 14 FNO3d dp x tp step {dp}x{tp}"
+    reset_counts()
+    fno.reset_stats()
+    _, loss = through(what, lambda: fno.train_step(sh, x, y, lr=1e-3), **FNO_TP_STEP)
+    moved = dict(fno.STATS)
+    if world == 1:
+        check(all(v == 0 for v in moved.values()), f"{what}: collectives ran alone: {moved}")
+    full = fno.gather_params(sh)
+    rep = torch.cat([p.detach().reshape(-1) for n, p in sh.named_parameters()
+                     if not n.endswith(("wr", "wi"))] + [loss.reshape(1)]).cpu()
+    if world > 1:
+        every = [None] * world
+        dist.all_gather_object(every, rep)
+        check(all(torch.equal(every[0], r) for r in every),
+              f"{what}: the replicated parameters or the loss differ across the ranks")
+    if rank == 0:
+        _, want = spectral.train_step(ref, x, y, lr=1e-3)
+        el = rel_l2_big(loss, want, f"{what} loss")
+        ep = max(rel_l2_big(p.detach(), q.detach(), f"{what} {n}")
+                 for (n, p), q in zip(full.named_parameters(), ref.parameters()))
+        say(f"FNO3d dp x tp step, x {list(shape)}, width 16, modes 8^3: rel-L2 vs "
+            f"spectral.train_step of the global batch: loss {el:.2e}, worst parameter "
+            f"{ep:.2e}; launches a rank {FNO_TP_STEP}; replicated parameters and loss "
+            f"bit-identical across {world} rank(s); a step's collectives: all-gathers "
+            f"{moved['all_gathers']} ({moved['gather_bytes'] / 2**20:.2f} MiB), "
+            f"reduce-scatters {moved['reduce_scatters']} "
+            f"({moved['scatter_bytes'] / 2**20:.3f} MiB), all-reduces "
+            f"{moved['all_reduces']} ({moved['reduce_bytes'] / 2**20:.3f} MiB)")
+    del full, ref
+
+    def step():
+        fno.train_step(sh, x, y, lr=1e-3)
+
+    names = ("fft2f_fft", "ax0_fft", "nccl", "Memcpy")
+    fno.reset_stats()
+    wire = ("gather_bytes", "scatter_bytes", "reduce_bytes")
+    parts, _ = dist_window(step, names, reps=reps)
+    calls = 2 * reps + 2  # time_ms's warm-up and reps, the traced warm-up, the window
+    if world == 1:
+        check(parts["nccl"] == 0 and fno.STATS["all_gathers"] == 0,
+              f"{what}: collectives' device work at world 1: {parts}")
+    say(f"FNO3d dp x tp step a step: events ms {parts['events']:.3f}, device ms fft2f_fft "
+        f"(B5) {parts['fft2f_fft']:.3f}, ax0_fft (B3) {parts['ax0_fft']:.3f}, nccl "
+        f"{parts['nccl']:.3f}, memcpy {parts['Memcpy']:.3f}, other {parts['other']:.3f}, idle "
+        f"{parts['idle']:.3f}; host staging s {fno.STATS['host_stage_s'] / calls:.4f} for "
+        f"{fno.STATS['host_stage_bytes'] / calls / 2**20:.1f} MiB, gloo exchange s "
+        f"{fno.STATS['host_exchange_s'] / calls:.4f}, collective bytes "
+        f"{sum(fno.STATS[k] for k in wire) / calls / 2**20:.2f} MiB")
+    if world == 1:
+        unsharded = spectral.init_fno3d(gen, modes=(8, 8, 8), width=16, depth=2, device=dev)
+        t = time_in_turns({"sharded": step, "unsharded": lambda: spectral.train_step(
+            unsharded, x, y, lr=1e-3)}, reps=reps)
+        say(f"events ms a step in turns: fno.train_step {t['sharded']:.3f}, "
+            f"spectral.train_step {t['unsharded']:.3f}")
+
+
 def _path14_nccl(rank: int, world: int, backend: str, smi: str) -> None:
     """Path 14 (a): every card of the machine, one rank each, on NCCL, at
-    full width (BASELINE config 5's 1024^3 cube)."""
+    full width (BASELINE config 5's 1024^3 cube), then the FNO-3D dp x tp
+    step at path 10's width."""
     import torch
     import torch.distributed as dist
 
@@ -2539,12 +2637,17 @@ def _path14_nccl(rank: int, world: int, backend: str, smi: str) -> None:
     adj = 2 * xg.numel() * torch.fft.ifftn(w * torch.fft.fftn(xg))
     eg = rel_l2_big(g, adj, "path 14 fft3d gradient 256^3 vs its adjoint")
     say(f"fft3d gradient 256^3: rel-L2 vs 2 N ifftn(w fftn(x)) {eg:.2e}")
+    del xg, w, xv, g, adj
+
+    # ---- the FNO-3D dp x tp training step at path 10's width -----------
+    fno_tp_path(rank, world, say, reps=5)
 
 
 def _path14_gloo(rank: int, world: int, backend: str, smi: str) -> None:
     """Path 14 (b): a 2 x 2 mesh of 4 processes sharing one card on a gloo
     group at 256^3: real corner turns, staged through the host, around the
-    card's kernels."""
+    card's kernels; then the FNO-3D dp x tp step, dp = tp = 2, at path 10's
+    width."""
     import torch
     import torch.distributed as dist
 
@@ -2619,6 +2722,8 @@ def _path14_gloo(rank: int, world: int, backend: str, smi: str) -> None:
                     "path 14 (b) fft3d gradient 256^3 vs its adjoint")
     say(f"ns3d step 256^3 vs torch.fft scheme {en:.2e}; fft3d gradient across the processes "
         f"vs 2 N ifftn(w fftn(x)) {eg:.2e}")
+    del x, y, yb, X, back, r, R, Rn, ur, got, w, xv, yv, g
+    fno_tp_path(rank, world, say, reps=2)
 
 
 def distributed_rank(part: str, rank: str, world: str, address: str, backend: str,

@@ -65,21 +65,33 @@ def _spectral_conv1d(block, x, modes):
 _EQ = {2: "bcij,ijco->boij", 3: "bcijk,ijkco->boijk"}
 
 
-def _spectral_convnd(block, x, modes):
-    """x [batch, *grid, ch]: multiply the low corner [:m1, :m2(, :m3)] of the
-    full spectrum over the grid axes, and take the real part of the inverse."""
-    d = len(modes)
-    axes = tuple(range(-d, 0))
-    # channels-last complex transform over the grid
+def _low_corner(x, modes):
+    """x [batch, *grid, ch] -> the low corner [:m1, :m2(, :m3)] of the full
+    complex spectrum over the grid axes, channels second: [b, c, *modes]
+    (a view)."""
+    axes = tuple(range(-len(modes), 0))
     X = fftn(x.movedim(-1, 1), axes=axes)  # [b, c, *grid]
-    corner = (slice(None), slice(None)) + tuple(slice(0, m) for m in modes)
-    Xr, Xi = X.real[corner], X.imag[corner]
+    return X[(slice(None), slice(None)) + tuple(slice(0, m) for m in modes)]
+
+
+def _corner_conv(block, Xc, grid):
+    """The corner ``Xc`` [b, c, *modes] times the spectral weights (channels
+    c -> o at every kept mode), zero-padded to ``grid`` and inverse
+    transformed: the real part [b, o, *grid]."""
+    d = len(grid)
+    Xr, Xi = Xc.real, Xc.imag
     wr, wi, eq = block.wr, block.wi, _EQ[d]
     Yr = torch.einsum(eq, Xr, wr) - torch.einsum(eq, Xi, wi)
     Yi = torch.einsum(eq, Xr, wi) + torch.einsum(eq, Xi, wr)
-    pad = sum(((0, n - m) for n, m in zip(reversed(x.shape[1:-1]), reversed(modes))), ())
+    pad = sum(((0, n - m) for n, m in zip(reversed(grid), reversed(Xc.shape[2:]))), ())
     Y = torch.complex(nn.functional.pad(Yr, pad), nn.functional.pad(Yi, pad))
-    return ifftn(Y, axes=axes).real.movedim(1, -1)
+    return ifftn(Y, axes=tuple(range(-d, 0))).real
+
+
+def _spectral_convnd(block, x, modes):
+    """x [batch, *grid, ch]: multiply the low corner [:m1, :m2(, :m3)] of the
+    full spectrum over the grid axes, and take the real part of the inverse."""
+    return _corner_conv(block, _low_corner(x, modes), x.shape[1:-1]).movedim(1, -1)
 
 
 class _FNO(nn.Module):
@@ -103,9 +115,14 @@ class _FNO(nn.Module):
         x = to_device(x, None if isinstance(x, torch.Tensor) else self.lift.device)
         conv = _spectral_conv1d if self.ndim == 1 else _spectral_convnd
         modes = self.modes[0] if self.ndim == 1 else self.modes
+        return self._layers(x, lambda blk, h: conv(blk, h, modes))
+
+    def _layers(self, x, conv):
+        """The model on ``x`` with ``conv(block, h)`` as each block's spectral
+        conv."""
         h = x @ self.lift
         for blk in self.blocks:
-            h = nn.functional.gelu(conv(blk, h, modes) + h @ blk.pw + blk.b, approximate="tanh")
+            h = nn.functional.gelu(conv(blk, h) + h @ blk.pw + blk.b, approximate="tanh")
         return h @ self.proj
 
 
@@ -211,9 +228,13 @@ def train_step(params, x, y, lr=1e-3):
     ``(params, loss)``, the loss before the step as a 0-d tensor on the
     model's device (no host read)."""
     loss = mse_loss(params, x, y)
-    weights = list(params.parameters())
-    grads = torch.autograd.grad(loss, weights)
-    with torch.no_grad():
-        for p, g in zip(weights, grads):
-            p.sub_(lr * g)
+    grads = torch.autograd.grad(loss, list(params.parameters()))
+    _sgd(params, grads, lr)
     return params, loss.detach()
+
+
+def _sgd(params, grads, lr):
+    """p - lr * grad for every parameter, in place."""
+    with torch.no_grad():
+        for p, g in zip(params.parameters(), grads):
+            p.sub_(lr * g)

@@ -251,25 +251,34 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32) if t.dtype == torch.bfloat16 else t
 
 
+def _staged(op, out: torch.Tensor, inp: torch.Tensor, stats: dict) -> None:
+    """``op(out, inp)``, a gloo collective that writes ``out`` (which may be
+    ``inp``) from ``inp``, on host copies of the CUDA tensors: device to
+    host, the collective, host to device, synchronously; the host seconds
+    and bytes counted in ``stats``."""
+    torch.cuda.synchronize(inp.device)
+    t0 = time.perf_counter()
+    h_in = inp.cpu()
+    h_out = h_in if out is inp else torch.empty(out.shape, dtype=out.dtype)
+    stats["host_stage_s"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op(h_out, h_in)
+    stats["host_exchange_s"] += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out.copy_(h_out)
+    torch.cuda.synchronize(inp.device)
+    stats["host_stage_s"] += time.perf_counter() - t0
+    stats["host_stage_bytes"] += inp.nbytes + out.nbytes
+
+
 def _exchange(send: torch.Tensor, axis: _Axis, async_op: bool):
     """``all_to_all_single`` of the packed ``send`` [m, ...] (block j to the
     rank at coordinate j) on ``axis``'s group: (recv, work or None)."""
     STATS["turns"] += 1
     recv = torch.empty(send.shape, dtype=send.dtype, device=send.device)
     if _backend(axis.group, send) == "gloo" and send.is_cuda:
-        torch.cuda.synchronize(send.device)
-        t0 = time.perf_counter()
-        host = send.cpu()
-        STATS["host_stage_s"] += time.perf_counter() - t0
-        got = torch.empty(host.shape, dtype=host.dtype)
-        t0 = time.perf_counter()
-        dist.all_to_all_single(_wire(got), _wire(host), group=axis.group)
-        STATS["host_exchange_s"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        recv.copy_(got)
-        torch.cuda.synchronize(send.device)
-        STATS["host_stage_s"] += time.perf_counter() - t0
-        STATS["host_stage_bytes"] += 2 * send.nbytes
+        _staged(lambda o, i: dist.all_to_all_single(_wire(o), _wire(i), group=axis.group),
+                recv, send, STATS)
         return recv, None
     work = dist.all_to_all_single(_wire(recv), _wire(send), group=axis.group,
                                   async_op=async_op)

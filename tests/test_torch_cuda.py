@@ -2866,3 +2866,29 @@ def test_ns3d_and_poisson_one_rank_nccl(dev, nccl_one):
                          r2c_fft_c64=1, ax0_fft=2, ax0_fft_c64=2, ax3=2, ax3_c64=2, c2r_fft=1,
                          c2r_fft_c64=1)
     assert rel_l2(got.to_local(), models.solve_poisson(f)) < TOL
+
+
+def test_fno3d_dp_tp_step_one_rank_nccl(dev, nccl_one):
+    """The FNO-3D dp x tp step on a 1 x 1 mesh: no collective runs, the
+    launches are spectral.train_step's, and the loss and every parameter
+    after it are the unsharded step's."""
+    import copy
+
+    from fft_wgpu_tpu_torch.models import spectral
+    from fft_wgpu_tpu_torch.parallel import fno
+    from fft_wgpu_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((1, 1), ("dp", "tp"))
+    cfg, shape, want = _FNO_CARD[3]
+    model = spectral.init_fno3d(torch.Generator().manual_seed(3), device=dev, **cfg)
+    ref = copy.deepcopy(model)
+    x, y = rrand(dev, *shape, seed=1), rrand(dev, *shape, seed=2)
+    sh = fno.shard_params(model, mesh)
+    fno.reset_stats()
+    _, loss = _model_through(lambda: fno.train_step(sh, x, y, lr=1e-2), **want)
+    assert all(v == 0 for v in fno.STATS.values())
+    _, loss_ref = spectral.train_step(ref, x, y, lr=1e-2)
+    assert loss.device == x.device and rel_l2(loss, loss_ref) < TOL
+    full = fno.gather_params(sh)
+    for (n, p), q in zip(full.named_parameters(), ref.parameters()):
+        assert rel_l2(p.detach(), q.detach()) < TOL, n

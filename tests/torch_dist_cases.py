@@ -1,6 +1,6 @@
 """The rank side of the distributed CPU tests of the torch port
 (``tests/test_torch_parallel.py``, ``test_torch_ns3d.py``,
-``test_torch_multihost.py``).
+``test_torch_multihost.py``, ``test_torch_fno_tp.py``).
 
 A test module calls :func:`run_suite` once (a module-scoped fixture): it
 writes the test's numpy inputs to ``inputs.npz`` in a fresh directory and
@@ -100,8 +100,8 @@ def _t(a):
 
 
 def parallel_cases(inp, wd):
-    """Every case of tests/test_distributed.py but the FNO-3D dp x tp step,
-    and the port's own."""
+    """Every case of tests/test_distributed.py but the FNO-3D dp x tp step
+    (``fno_tp_cases``), and the port's own."""
     import torch
     import torch.distributed as dist
 
@@ -374,7 +374,116 @@ def multihost_cases(inp, wd):
     return out
 
 
-SUITES = {"parallel": parallel_cases, "ns3d": ns3d_cases, "multihost": multihost_cases}
+FNO_NAMES = ("lift", "proj") + tuple(f"blocks.{i}.{k}" for i in range(2)
+                                     for k in ("wr", "wi", "pw", "b"))
+
+
+def _fno_model(inp, prefix="p/"):
+    """The FNO3d of the JAX pytree stored as numpy under ``prefix``, on
+    the CPU."""
+    from fft_wgpu_tpu_torch.models.spectral import from_numpy
+
+    tree = {"lift": inp[prefix + "lift"], "proj": inp[prefix + "proj"],
+            "blocks": [{k: inp[f"{prefix}blocks.{i}.{k}"] for k in ("wr", "wi", "pw", "b")}
+                       for i in range(2)]}
+    return from_numpy(tree, device="cpu")
+
+
+def fno_tp_cases(inp, wd):
+    """tests/test_distributed.py's FNO-3D dp x tp training step on the
+    (2, 4) mesh, every gradient and updated parameter, the meshes (8, 1),
+    (1, 8) and (4, 2), two steps, DTensor input and the errors."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from fft_wgpu_tpu_torch.models.spectral import init_fno3d
+    from fft_wgpu_tpu_torch.parallel import fno
+    from fft_wgpu_tpu_torch.parallel import mesh as meshlib
+
+    out = {}
+
+    def whole(sh, vals, tp):
+        """Each of this rank's ``vals`` (parameters or gradients, in
+        ``sh.named_parameters()`` order) made whole: a weight slice
+        all-gathered over the ``tp`` dimension's group."""
+        got = {}
+        for (name, _), v in zip(sh.named_parameters(), vals):
+            v = v.detach()
+            if name.endswith(("wr", "wi")) and tp.size() > 1:
+                parts = [torch.empty_like(v) for _ in range(tp.size())]
+                dist.all_gather(parts, v.contiguous(), group=tp)
+                v = torch.cat(parts, dim=-1)
+            got[name] = v.numpy()
+        return got
+
+    def run(key, mesh, x, y, steps=1):
+        sh = fno.shard_params(_fno_model(inp), mesh)
+        tp = mesh.get_group("tp")
+        loss, grads = fno.value_and_grad(sh, x, y)
+        out[f"{key}/loss"] = loss.numpy()
+        for name, g in whole(sh, grads, tp).items():
+            out[f"{key}/grad/{name}"] = g
+        for s in range(steps):
+            _, loss = fno.train_step(sh, x, y, lr=1e-3)
+            out[f"{key}/step{s}/loss"] = loss.numpy()
+        for name, v in whole(sh, list(sh.parameters()), tp).items():
+            out[f"{key}/param/{name}"] = v
+        full = fno.gather_params(sh)
+        out[f"{key}/gathered_equal"] = np.array(all(
+            np.array_equal(p.detach().numpy(), out[f"{key}/param/{n}"])
+            for n, p in full.named_parameters()))
+        return sh
+
+    m24 = meshlib.make_pencil_mesh(axis_names=("dp", "tp"))
+    out["mesh24/shape"] = np.array(m24.shape)
+    # no mesh with a process group: the pencil mesh over every rank
+    default = fno.shard_params(_fno_model(inp)).mesh
+    out["default/mesh"] = np.array([*default.shape, *default.mesh_dim_names])
+    x, y = _t(inp["x"]), _t(inp["y"])
+    sh = run("m24", m24, x, y, steps=2)
+    # after two steps the replicated parameters are the same bits on every
+    # rank, and each weight slice has width/tp output channels
+    rep = torch.cat([p.detach().reshape(-1) for n, p in sh.named_parameters()
+                     if not n.endswith(("wr", "wi"))])
+    reps = [torch.empty_like(rep) for _ in range(dist.get_world_size())]
+    dist.all_gather(reps, rep)
+    out["m24/replicated_bits"] = np.array([torch.equal(reps[0], r) for r in reps])
+    shapes = [None] * dist.get_world_size()
+    dist.all_gather_object(shapes, [tuple(p.shape) for n, p in sh.named_parameters()
+                                    if n.endswith(("wr", "wi"))])
+    out["m24/slice_shapes"] = np.array(shapes)
+    # DTensor input in [Shard(0) on dp, Replicate() on tp]: the same step
+    place = [Shard(0), Replicate()]
+    sd = fno.shard_params(_fno_model(inp), m24)
+    _, loss = fno.train_step(sd, distribute_tensor(x, m24, place),
+                             distribute_tensor(y, m24, place), lr=1e-3)
+    out["dtensor/loss"] = loss.numpy()
+    for name, v in whole(sd, list(sd.parameters()), m24.get_group("tp")).items():
+        out[f"dtensor/param/{name}"] = v
+
+    x16, y16 = _t(inp["x16"]), _t(inp["y16"])
+    for shape in ((8, 1), (1, 8), (4, 2)):
+        m = meshlib.make_mesh(shape, ("dp", "tp"))
+        run(f"m{shape[0]}{shape[1]}", m, x16, y16)
+
+    # the errors, raised on every rank before any collective
+    m18 = meshlib.make_mesh((1, 8), ("dp", "tp"))
+    narrow = init_fno3d(torch.Generator().manual_seed(0), modes=(4, 4, 4), width=12, depth=2,
+                        device="cpu")
+    out["raises/width"] = _raises(lambda: fno.shard_params(narrow, m18), ValueError)
+    out["raises/batch"] = _raises(lambda: fno.train_step(
+        fno.shard_params(_fno_model(inp), m24), x[:3], y[:3]), ValueError)
+    out["raises/mesh_names"] = _raises(
+        lambda: fno.shard_params(_fno_model(inp), meshlib.make_pencil_mesh()), ValueError)
+    out["raises/one_dim_mesh"] = _raises(
+        lambda: fno.shard_params(_fno_model(inp), meshlib.make_mesh(axis_names=("dp",))),
+        ValueError)
+    return out
+
+
+SUITES = {"parallel": parallel_cases, "ns3d": ns3d_cases, "multihost": multihost_cases,
+          "fno_tp": fno_tp_cases}
 
 
 def _rank_main(suite: str, rank: int, world: int, workdir: str) -> None:
