@@ -166,7 +166,11 @@ non-zero without a result line:
              6144, against scipy.signal; each call's launches are
              checked; small inputs against float64 numpy after each
              window, and numpy input, which must run on the card; then
-             the transform long tail (path 8, :func:`long_tail`): dct,
+             the edges (:func:`edges`): lengths below 1 and empty operands
+             through the transforms, the chirp-z family, the convolutions,
+             hilbert and the DCTs, each of which must raise before any
+             launch (one line, ``edges: <k> calls raised, 0 launches``);
+             then the transform long tail (path 8, :func:`long_tail`): dct,
              idct, dst and idst of types 1-4 on real 4096 x 4096 (types 1
              at n = 2049 and DST-I at 2047), dctn and idctn type 2 of
              4096 x 4096, mdct and imdct of 2^22 samples at N = 1024,
@@ -669,6 +673,74 @@ def breakdown(fn, names, reps=20, counted=None, scheduled=True, others=None):
     check(busy > 0, "the profiler saw no device time in three windows")
     return {"events": event_ms, **parts, "idle": 1.0 - busy / event_ms,
             **{f"{k} launches": v / reps for k, v in n_launch.items()}}
+
+
+def edges(ft, dev) -> int:
+    """Calls with a length below 1 or an empty operand (ROADMAP §C C6-C14)
+    on the card: each must raise, and no launch counter may move.  Prints
+    one line and returns the number of calls."""
+    import torch
+
+    import fft_wgpu_tpu_torch.torch_backend as tb
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    c = torch.randn(3, 4, dtype=torch.complex64, device=dev, generator=gen)
+    c64 = torch.randn(4, 2049, dtype=torch.complex64, device=dev, generator=gen)
+    r = torch.randn(3, 64, device=dev, generator=gen)
+    taps, empty = r[0, :3].contiguous(), r[0, :0]
+    # lengths in the kernels' envelope, where a check made late would launch
+    r256 = torch.randn(3, 256, device=dev, generator=gen)
+    d129 = torch.randn(129, 1, device=dev, generator=gen)
+
+    def accelerated(fn):
+        with tb.accelerated():
+            return fn()
+
+    calls = {  # what -> (call, the exception it must raise)
+        "irfft of 1 bin": (lambda: ft.irfft(c[:, :1]), ValueError),
+        "irfft n=0, complex64 source": (lambda: ft.irfft(c64, n=0), ValueError),
+        "irfftn s=(0, 4096), complex64 source": (lambda: ft.irfftn(c64, s=(0, 4096)),
+                                                 ValueError),
+        "hfft of 1 bin": (lambda: ft.hfft(c[:, :1]), ValueError),
+        "irfft2 of 1 bin": (lambda: ft.irfft2(c[:, :1]), ValueError),
+        "irfftn s=(3, 0)": (lambda: ft.irfftn(c, s=(3, 0)), ValueError),
+        "hfftn s=(3, 0)": (lambda: ft.hfftn(c, s=(3, 0)), ValueError),
+        "rfft n=0": (lambda: ft.rfft(r, n=0), ValueError),
+        "rfftn s=(0, 256), the last axis's R2C first": (
+            lambda: ft.rfftn(r256, s=(0, 256)), ValueError),
+        "ifft2 of [3, 0]": (lambda: ft.ifft2(c[:, :0]), ValueError),
+        "torch.fft.irfft of 1 bin, accelerated": (
+            lambda: accelerated(lambda: torch.fft.irfft(c[:, :1])), RuntimeError),
+        "czt m=0": (lambda: ft.czt(c, m=0), ValueError),
+        "zoom_fft m=0": (lambda: ft.zoom_fft(c, 0.5, m=0), ValueError),
+        "ZoomFFT m=0": (lambda: ft.ZoomFFT(4, 0.5, m=0)(c), ValueError),
+        "czt of an empty signal": (lambda: ft.czt(c[:, :0]), ValueError),
+        "convolve of an empty signal": (lambda: ft.convolve(empty, taps), ValueError),
+        "correlate with empty taps": (lambda: ft.correlate(r[0], empty), ValueError),
+        "hilbert N=0": (lambda: ft.hilbert(r, N=0), ValueError),
+        "hilbert2 N=(3, 0)": (lambda: ft.hilbert2(r, N=(3, 0)), ValueError),
+        "hilbert2 of [3, 0]": (lambda: ft.hilbert2(r[:, :0]), ValueError),
+        "idct of [3, 0]": (lambda: ft.idct(r[:, :0]), ValueError),
+        "dctn type 3 s=(3, 0)": (lambda: ft.dctn(r, 3, s=(3, 0)), ValueError),
+        "dctn type 1 of [129, 1], axis 0's R2C first": (lambda: ft.dctn(d129, 1), ValueError),
+    }
+    for norm in ("ortho", "forward"):
+        calls[f"irfft of 1 bin, norm={norm}"] = (
+            lambda n=norm: ft.irfft(c[:, :1], norm=n), ValueError)
+        calls[f"fftn s=(3, 0), norm={norm}"] = (
+            lambda n=norm: ft.fftn(c, s=(3, 0), norm=n), ValueError)
+    before = counts()
+    for what, (call, error) in calls.items():
+        try:
+            call()
+        except error:
+            continue
+        check(False, f"edges: {what} returned")
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    check(not moved, f"edges: launched {moved}")
+    print(f"edges: {len(calls)} calls raised, 0 launches", flush=True)
+    return len(calls)
 
 
 # The kernels a call of the transform long tail (path 8) may launch, as the
@@ -4052,6 +4124,7 @@ def main() -> int:
           f"launches {resample_launches} | "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
     del x20, x8, x, xc, yc, x64, xc64, yc64, x20_64, xr, xr64, Zn
+    edges(ft, dev)
     long_tail(ft, dev, gen, smi)  # path 8
     # The kernels line gives each kernel the launches of the path it was
     # ported for (the 1-D path for B1, B2, B4 and B15, the non-pow2 path for

@@ -91,6 +91,22 @@ def _czt_split(re, im, m: int, w: complex, a: complex):
     return gr * Wr - gi * Wi, gr * Wi + gi * Wr
 
 
+def _positive_points(count: int, kind: str, name: str) -> int:
+    """``count``; a count below 1 raises ``ValueError``, as scipy.signal's
+    CZT does."""
+    if count < 1:
+        raise ValueError(f"Invalid number of CZT {kind} points ({count}) specified. "
+                         f"{name} must be positive.")
+    return count
+
+
+def _points(n: int, m) -> int:
+    """The CZT's output count: ``m``, or ``n`` when ``m`` is None; both
+    counts checked by :func:`_positive_points`."""
+    _positive_points(n, "data", "n")
+    return _positive_points(n if m is None else int(m), "output", "m")
+
+
 def czt(x, m: int | None = None, w: complex | None = None,
         a: complex = 1 + 0j, *, axis: int = -1):
     """Chirp-Z transform along `axis` (scipy.signal.czt semantics).
@@ -98,8 +114,7 @@ def czt(x, m: int | None = None, w: complex | None = None,
     Defaults (m=n, w=exp(-2j*pi/m)) reduce to the DFT.
     """
     re, im = promote_to_split(x)
-    n = re.shape[axis]
-    m = int(m or n)
+    m = _points(re.shape[axis], m)
     if w is None:
         w = np.exp(-2j * np.pi / m)
     yr, yi = _czt_split(re.movedim(axis, -1), im.movedim(axis, -1), m,
@@ -129,15 +144,15 @@ def zoom_fft(x, fn, m: int | None = None, *, fs: float = 2.0,
     """Zoomed DFT over the band [f1, f2] (scipy.signal.zoom_fft semantics:
     `fn` is [f1, f2] or f2 with f1=0; `endpoint` includes f2 as the last
     sample)."""
-    m = m or _length(x, axis)
-    _f1, _f2, w, a = _zoom_params(fn, int(m), fs, endpoint)
+    m = _points(_length(x, axis), m)
+    _f1, _f2, w, a = _zoom_params(fn, m, fs, endpoint)
     return czt(x, m=m, w=w, a=a, axis=axis)
 
 
 def czt_points(m: int, w: complex | None = None, a: complex = 1 + 0j):
     """The m z-plane points a * w^{-k} a CZT evaluates at
     (scipy.signal.czt_points parity; complex128 on the host)."""
-    m = int(m)
+    m = _positive_points(int(m), "output", "m")
     if w is None:
         w = np.exp(-2j * np.pi / m)
     k = np.arange(m, dtype=np.float64)
@@ -154,7 +169,7 @@ class CZT:
     def __init__(self, n: int, m: int | None = None,
                  w: complex | None = None, a: complex = 1 + 0j):
         self.n = int(n)
-        self.m = int(m or n)
+        self.m = _points(self.n, m)
         if w is None:
             w = np.exp(-2j * np.pi / self.m)
         self.w = complex(w)
@@ -179,7 +194,7 @@ class ZoomFFT(CZT):
     def __init__(self, n: int, fn, m: int | None = None, *,
                  fs: float = 2.0, endpoint: bool = False):
         n = int(n)
-        m = int(m or n)
+        m = _points(n, m)
         f1, f2, w, a = _zoom_params(fn, m, fs, endpoint)
         super().__init__(n, m, w, a)
         self.f1, self.f2, self.fs = f1, f2, float(fs)

@@ -33,9 +33,9 @@ import torch
 from ..core.complex_utils import host_table, real_part
 from ..core.twiddle import FORWARD, INVERSE
 from ..plan.plan import get_plan
-from .nd import _norm_axes
+from .nd import _norm_axes, _sizes
 from .rfft import rfft_last_split
-from .transforms import _length, _resize_axis
+from .transforms import _checked_length, _resize_axis
 from ..utils.jit_cache import cached_call, shape_key
 
 __all__ = ["dct", "idct", "dst", "idst", "dctn", "idctn", "dstn", "idstn"]
@@ -127,9 +127,9 @@ def _c2c(re, im, axis, sign, scale):
 def dct(x, type: int = 2, axis: int = -1, norm=None):
     """DCT along `axis` (types 1-4, scipy.fft semantics)."""
     norm = _norm_opt(norm)
+    n = _checked_length(x, None, axis)
     if norm == "forward":
         # scipy puts the whole round-trip scale on the forward transform
-        n = _length(x, axis)
         return dct(x, type, axis, None) / _roundtrip_factor(type, n)
     if type == 1:
         return _dct1(x, axis, norm)
@@ -145,7 +145,7 @@ def dct(x, type: int = 2, axis: int = -1, norm=None):
 def idct(x, type: int = 2, axis: int = -1, norm=None):
     """Inverse DCT (scipy semantics: the inverse of `dct(type=...)`)."""
     norm = _norm_opt(norm)
-    n = _length(x, axis)
+    n = _checked_length(x, None, axis)
     if norm == "forward":
         # the forward carried the whole scale, so the inverse is the raw
         # transpose-pair transform (DCT-II <-> DCT-III; I/IV self-paired)
@@ -271,7 +271,7 @@ def dst(x, type: int = 2, axis: int = -1, norm=None):
     (Sign-flip and reversal are orthogonal maps, so norms carry over.)"""
     norm = _norm_opt(norm)
     xr = real_part(x)
-    n = xr.shape[axis]
+    n = _checked_length(xr, None, axis)
     signs = _on_axis(_scales("signs", n, xr.device), axis, xr.ndim)
 
     if type == 1:
@@ -311,7 +311,7 @@ def _dst1_impl(xr, axis, norm):
 def idst(x, type: int = 2, axis: int = -1, norm=None):
     """Inverse DST (scipy semantics)."""
     norm = _norm_opt(norm)
-    n = _length(x, axis)
+    n = _checked_length(x, None, axis)
     if norm == "forward":
         pair = {1: 1, 2: 3, 3: 2, 4: 4}[type]
         return dst(x, pair, axis, None)
@@ -328,8 +328,12 @@ def _apply_nd(fn1d, x, type, s, axes, norm):
     (scipy.fft.dctn semantics: `s` trims/zero-pads each axis first, and
     with axes=None it selects the LAST len(s) axes)."""
     v = real_part(x)
-    s, axes = _norm_axes(v.ndim, None if s is None else list(s),
+    s, axes = _norm_axes(v.shape, None if s is None else list(s),
                          None if axes is None else list(axes))
+    # every length is checked before the first axis is transformed
+    sizes = _sizes(v.shape, s, axes)
+    if type == 1 and fn1d in (dct, idct) and min(sizes, default=2) < 2:
+        raise ValueError("DCT-I requires n >= 2")
 
     def impl(v):
         for sz, ax in zip(s, axes):

@@ -219,6 +219,21 @@ def fft_convolve(a, b, mode: str = "full", axis: int = -1):
     return _crop(full, [(axis % full.ndim, *_mode_cut(mode, la, lb, lfull))])
 
 
+def _out_dtype(a, b):
+    """A convolution's result type: complex64 where an operand is complex,
+    else float32."""
+    return torch.complex64 if _iscomplex(a) or _iscomplex(b) else torch.float32
+
+
+def _empty_operand(a, b):
+    """scipy's result of fftconvolve and oaconvolve where an operand is
+    empty: an empty 1-D tensor (:func:`_out_dtype`) on the operands'
+    device, whatever the mode; None where neither is empty."""
+    if a.numel() and b.numel():
+        return None
+    return torch.empty(0, dtype=_out_dtype(a, b), device=a.device)
+
+
 def oaconvolve(a, b, mode: str = "full", axes=None, axis: int = None):
     """Overlap-add convolution of a long signal with a short kernel
     (scipy.signal.oaconvolve semantics).
@@ -230,8 +245,10 @@ def oaconvolve(a, b, mode: str = "full", axes=None, axis: int = None):
     tensor the kernel spectrum is broadcast over the segment rows inside
     the kernel), then overlap-added as K contiguous slab adds.  scipy's
     default (axes=None: every axis) and multi-axis requests on N-D input
-    delegate to :func:`fftconvolve`."""
+    delegate to :func:`fftconvolve`, as does an empty operand."""
     a, b = _pair(a, b)
+    if not (a.numel() and b.numel()):
+        return fftconvolve(a, b, mode=mode)
     if axis is None:
         if axes is None:
             if max(a.ndim, b.ndim) > 1:
@@ -384,10 +401,14 @@ def fftconvolve(a, b, mode: str = "full", axes=None):
     real inputs ride the R2C pipeline on the last convolved axis in the
     padded serving form, then, over one axis, the product C2R
     (``rfft.irfft_prod_last_split``), over several the C2C passes of the
-    other axes and the C2R."""
+    other axes and the C2R.  An empty operand gives an empty 1-D tensor
+    (:func:`_empty_operand`), with no launch, as scipy returns one."""
     a, b = _pair(a, b)
     if a.ndim != b.ndim:
         raise ValueError("fftconvolve inputs must have equal rank")
+    empty = _empty_operand(a, b)
+    if empty is not None:
+        return empty
     nd = a.ndim
     if axes is None:
         axes = tuple(range(nd))
@@ -510,6 +531,8 @@ def hilbert(x, n: int = None, axis: int = -1, *, N: int = None):
         raise ValueError("hilbert requires a real input")
     x0 = _f32(_tensor(x))
     length = n if n is not None else x0.shape[axis]
+    if length < 1:  # before any table is built
+        raise ValueError("N must be positive.")
     h, hc = _hilbert_weights(length, x0.device)
 
     kernels = _on_card(x0) and cuda_fft._supported(length)
@@ -656,12 +679,9 @@ def hilbert2(x, N=None):
     v = _f32(_tensor(x))
     if v.ndim < 2:
         raise ValueError("hilbert2 requires at least 2 dimensions")
-    if N is not None:
-        n1, n2 = (N, N) if np.isscalar(N) else N
-        if n1 <= 0 or n2 <= 0:
-            raise ValueError("N must be positive")
-    else:
-        n1, n2 = v.shape[-2], v.shape[-1]
+    n1, n2 = v.shape[-2:] if N is None else (N, N) if np.isscalar(N) else N
+    if n1 <= 0 or n2 <= 0:
+        raise ValueError("N must be positive")
 
     def h(length):
         # scipy's 2-D mask differs from 1-D hilbert: the Nyquist row/col
@@ -780,17 +800,40 @@ def choose_conv_method(in1, in2, mode: str = "full", measure: bool = False):
     return ("fft", {}) if measure else "fft"
 
 
+def _conv_operands(in1, in2, mode, method):
+    """The operands of :func:`convolve` and :func:`correlate` as tensors,
+    and scipy's direct method's result where one is empty (else None): it
+    raises ``ValueError``, but for mode 'same' of an empty first operand
+    and a non-empty second, whose output is empty of the first's shape, and
+    for mode 'valid' of N-D operands one of which is at least as large as
+    the other on every axis, whose output is zeros (sums over no sample).
+    (scipy's 'fft' method raises ``IndexError`` for an empty operand; the
+    port answers as the direct method does for every method.)"""
+    if method not in ("auto", "fft", "direct"):
+        raise ValueError(f"invalid method {method!r}")
+    a, b = _pair(in1, in2)
+    if a.numel() and b.numel():
+        return a, b, None
+    dtype = _out_dtype(a, b)
+    if mode == "same" and b.numel():
+        return a, b, torch.empty(a.shape, dtype=dtype, device=a.device)
+    if mode == "valid" and a.ndim > 1 and a.ndim == b.ndim and (
+            all(i >= j for i, j in zip(a.shape, b.shape))
+            or all(j >= i for i, j in zip(a.shape, b.shape))):
+        shape = [abs(i - j) + 1 for i, j in zip(a.shape, b.shape)]
+        return a, b, torch.zeros(shape, dtype=dtype, device=a.device)
+    raise ValueError("convolution operands cannot be empty")
+
+
 def convolve(in1, in2, mode: str = "full", method: str = "auto"):
     """N-D convolution (scipy.signal.convolve drop-in).  `method` accepts
     'auto'/'fft'/'direct'; all run :func:`fftconvolve`."""
-    if method not in ("auto", "fft", "direct"):
-        raise ValueError(f"invalid method {method!r}")
-    return fftconvolve(in1, in2, mode=mode)
+    a, b, empty = _conv_operands(in1, in2, mode, method)
+    return fftconvolve(a, b, mode=mode) if empty is None else empty
 
 
 def correlate(in1, in2, mode: str = "full", method: str = "auto"):
     """N-D correlation (scipy.signal.correlate drop-in) on the FFT path
     (:func:`fftcorrelate`)."""
-    if method not in ("auto", "fft", "direct"):
-        raise ValueError(f"invalid method {method!r}")
-    return fftcorrelate(in1, in2, mode=mode)
+    a, b, empty = _conv_operands(in1, in2, mode, method)
+    return fftcorrelate(a, b, mode=mode) if empty is None else empty

@@ -648,6 +648,17 @@ def _extend(x, k: int, axis: int, mode: str, cval):
                      f"{sorted(_PAD_MODES)})")
 
 
+def _zeros_along(x, axis: int, length: int, cplx: bool):
+    """Zeros of ``x``'s shape but ``length`` along ``axis``, float32 or
+    complex64, on ``x``'s device; a negative length raises ``ValueError``,
+    as numpy's allocation does in scipy."""
+    if length < 0:
+        raise ValueError("negative dimensions are not allowed")
+    shape = list(x.shape)
+    shape[axis] = length
+    return torch.zeros(shape, dtype=torch.complex64 if cplx else torch.float32, device=x.device)
+
+
 def upfirdn(h, x, up: int = 1, down: int = 1, axis: int = -1,
             mode: str = "constant", cval: float = 0.0):
     """Upsample by `up` (zero-stuffing), FIR filter with `h`, downsample by
@@ -669,6 +680,9 @@ def upfirdn(h, x, up: int = 1, down: int = 1, axis: int = -1,
     n_h = int(h_host.shape[0])
     n = x.shape[axis]
     xt = _tensor(x)
+    if n == 0:  # no sample: scipy's zeros of the output length, no launch
+        return _zeros_along(xt, axis, _output_len(n_h, 0, up, down),
+                            xt.is_complex() or np.iscomplexobj(h_host))
 
     if mode != "constant" or float(cval) != 0.0:
         # materialize the extension: k input samples per side, k a multiple
@@ -737,6 +751,8 @@ def resample_poly(x, up: int, down: int, axis: int = -1,
     if up == down == 1:
         return x
     n_in = x.shape[axis]
+    if n_in == 0:  # no sample: scipy's empty output, no launch
+        return _zeros_along(x, axis, 0, x.is_complex())
     n_out = n_in * up
     n_out = n_out // down + bool(n_out % down)
 

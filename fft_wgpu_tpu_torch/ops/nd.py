@@ -45,12 +45,17 @@ from ..core.complex_utils import as_args, from_args, merge, promote_to_split
 from ..core.twiddle import FORWARD, INVERSE
 from ..utils.jit_cache import cached_call, shape_key
 from . import cuda_fft
-from .transforms import _pad_or_trim
+from .transforms import _pad_or_trim, _positive
 
 __all__ = ["fft2", "ifft2", "fftn", "ifftn", "fftn_split"]
 
 
-def _norm_axes(ndim, s, axes):
+def _norm_axes(shape, s, axes):
+    """(s, axes) for a tensor of ``shape``: the axes normalised (numpy's
+    default: the last len(s) axes, or all), and a size per axis, None for
+    the axis's default; a size of -1 is the axis's length as it lies, as
+    numpy.fft and scipy.fft read it."""
+    ndim = len(shape)
     if axes is None:
         if s is not None and len(s) > ndim:
             # numpy maps s to the LAST len(s) axes; more entries than
@@ -68,7 +73,13 @@ def _norm_axes(ndim, s, axes):
         s = [None] * len(axes)
     if len(s) != len(axes):
         raise ValueError("s and axes must have the same length")
-    return list(s), axes
+    return [shape[a] if size == -1 else size for size, a in zip(s, axes)], axes
+
+
+def _sizes(shape, s, axes) -> list:
+    """The transform's length along each of ``axes`` (normalised, with the
+    sizes ``s``), each checked by ``transforms._positive``."""
+    return [_positive(shape[a] if size is None else size) for size, a in zip(s, axes)]
 
 
 def _fused_plane(shape, axes, device, executor="auto") -> bool:
@@ -165,7 +176,8 @@ def _run_nd_split(x, s, axes, sign, norm, executor):
     planar pair, so that chained stages pass planes without a merge and a
     split in between."""
     re, im = promote_to_split(x)
-    s, axes = _norm_axes(re.ndim, s, axes)
+    s, axes = _norm_axes(re.shape, s, axes)
+    _sizes(re.shape, s, axes)
     # numpy semantics: s trims/pads each axis
     for size, ax in zip(s, axes):
         if size is not None and re.shape[ax] != size:
@@ -185,9 +197,8 @@ def _run_nd(x, s, axes, sign, norm, executor):
     it saves."""
     args = as_args(x)
     v = args[0]
-    sn, axn = _norm_axes(v.ndim, s, axes)
-    sizes = [v.shape[a] if size is None else size for size, a in zip(sn, axn)]
-    scale = _nd_scale(math.prod(sizes), sign, norm)
+    sn, axn = _norm_axes(v.shape, s, axes)
+    scale = _nd_scale(math.prod(_sizes(v.shape, sn, axn)), sign, norm)
     plane = route = False
     if len(args) == 1:
         plane = _c64_plane(v.shape, v.dtype, v.device, sn, axn, executor)

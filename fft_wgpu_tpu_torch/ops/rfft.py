@@ -34,8 +34,8 @@ from ..core.twiddle import FORWARD, INVERSE
 from ..utils.jit_cache import cached_call, shape_key
 from . import cuda_fft, nd
 from .cuda_fft import pad_bins
-from .nd import _norm_axes, _run_nd_split, fftn_split
-from .transforms import _pad_or_trim, _resize_axis
+from .nd import _norm_axes, _run_nd_split, _sizes, fftn_split
+from .transforms import _checked_length, _pad_or_trim, _positive, _resize_axis
 
 __all__ = ["rfft", "irfft", "rfft2", "irfft2", "rfftn", "irfftn", "hfft",
            "ihfft", "hfft2", "ihfft2", "hfftn", "ihfftn", "irfft_prod_last_split"]
@@ -44,6 +44,13 @@ __all__ = ["rfft", "irfft", "rfft2", "irfft2", "rfftn", "irfftn", "hfft",
 def _r2c_general(xr) -> bool:
     """Whether the R2C of ``xr``'s last axis runs the composite R2C kernel."""
     return xr.device.type == "cuda" and cuda_fft._gen_supported(xr.shape[-1])
+
+
+def _c2r_length(bins: int, n) -> int:
+    """A C2R's output length: ``n``, or 2 * (bins - 1) from a half spectrum
+    of ``bins`` bins, checked by ``transforms._positive`` (a 1-bin spectrum
+    has no default length)."""
+    return _positive(2 * (bins - 1) if n is None else n)
 
 
 def _scales(n, norm, inverse):
@@ -190,7 +197,7 @@ def rfft(x, n=None, axis: int = -1, norm=None):
     (``utils.jit_cache``), but for the R2C kernel's complex64 sink
     (:func:`_rfft_c64`, one launch), which runs eagerly, uncached."""
     xr = _real_tensor(x)
-    length = n if n is not None else xr.shape[axis]
+    length = _checked_length(xr, n, axis)
     scale = _scales(length, norm, inverse=False)
 
     def impl(v):
@@ -207,6 +214,7 @@ def rfft(x, n=None, axis: int = -1, norm=None):
 
 def _rfft_split(x, n, axis, norm):
     xr = _real_tensor(x)
+    _checked_length(xr, n, axis)
     if n is not None and xr.shape[axis] != n:
         xr = _resize_axis(xr, n, axis)
     length = xr.shape[axis]
@@ -263,7 +271,7 @@ def irfft(x, n=None, axis: int = -1, norm=None):
     On a CUDA tensor any other route's repeated call replays a captured
     graph (``utils.jit_cache``)."""
     args = as_args(x)
-    length = n if n is not None else 2 * (args[0].shape[axis] - 1)
+    length = _c2r_length(args[0].shape[axis], n)
     norm_scale = _scales(length, norm, inverse=True)
     c64 = len(args) == 1 and _irfftn_c64(x.shape, x.dtype, x.device, [n], [axis])
 
@@ -296,7 +304,8 @@ def rfftn(x, s=None, axes=None, norm=None):
 
 
 def _rfftn_split(xr, s, axes, norm):
-    s_, axes_ = _norm_axes(xr.ndim, s, axes)
+    s_, axes_ = _norm_axes(xr.shape, s, axes)
+    _sizes(xr.shape, s_, axes_)  # every axis before the first is transformed
     y = _rfft_split(xr, s_[-1], axes_[-1], norm)
     rest = axes_[:-1]
     if rest:
@@ -308,14 +317,15 @@ def irfftn(x, s=None, axes=None, norm=None):
     """N-D C2R: inverse C2C over the leading axes, irfft over the last.  A
     complex64 CUDA tensor takes the complex64 entries where
     :func:`_irfftn_c64` holds, with no split and no merge."""
-    if isinstance(x, torch.Tensor):
-        s_, axes_ = _norm_axes(x.ndim, s, axes)
-        if _irfftn_c64(x.shape, x.dtype, x.device, s_, axes_):
-            return _irfftn_c64_run(x, s_, axes_, norm)
-    Xr, Xi = promote_to_split(x)
-    s_, axes_ = _norm_axes(Xr.ndim, s, axes)
-    n_last = s_[-1] if s_[-1] is not None else 2 * (Xr.shape[axes_[-1]] - 1)
+    args = as_args(x)
+    v = args[0]
+    s_, axes_ = _norm_axes(v.shape, s, axes)
     rest = axes_[:-1]
+    _sizes(v.shape, s_[:-1], rest)
+    n_last = _c2r_length(v.shape[axes_[-1]], s_[-1])
+    if len(args) == 1 and _irfftn_c64(v.shape, v.dtype, v.device, s_, axes_):
+        return _irfftn_c64_run(v, s_, axes_, norm)
+    Xr, Xi = from_args(args)
     if rest:
         Xr, Xi = _run_nd_split((Xr, Xi), list(s_[:-1]), rest, INVERSE, norm, "auto")
     return irfft((Xr, Xi), n=n_last, axis=axes_[-1], norm=norm)
@@ -333,7 +343,7 @@ def hfft(x, n=None, axis: int = -1, norm=None):
     """FFT of a signal with Hermitian symmetry -> real output
     (numpy.fft.hfft semantics): hfft(x, n) == irfft(conj(x), n) * n."""
     Xr, Xi = promote_to_split(x)
-    length = n if n is not None else 2 * (Xr.shape[axis] - 1)
+    length = _c2r_length(Xr.shape[axis], n)
     y = irfft((Xr, -Xi), n=length, axis=axis, norm=None)
     if norm in (None, "backward"):
         return y * float(np.float32(length))

@@ -508,11 +508,28 @@ def _window_on(window, win, device):
     return _named_window(window, win.shape[0], device) if named else win.to(device)
 
 
+def _empty_estimate(xr, yr, axis):
+    """scipy's answer where a signal is empty, before any argument is
+    checked: the frequencies and the estimate as one empty float32 tensor
+    of x's shape (for two signals, of their broadcast outer shape and the
+    shorter length), on x's device; None where no signal is empty."""
+    if xr.numel() and (yr is None or yr.numel()):
+        return None
+    if yr is None:
+        return xr.new_empty(xr.shape)
+    outer = torch.broadcast_shapes(*(tuple(v.movedim(axis, -1).shape[:-1]) for v in (xr, yr)))
+    return xr.new_empty((*outer, min(xr.shape[axis], yr.shape[axis]))).movedim(-1, axis)
+
+
 def _csd_impl(xs, ys, fs, window, nperseg, noverlap, nfft, detrend,
               return_onesided, scaling, axis, average, xc=None, yc=None):
     """The estimate from the split inputs ``xs`` and ``ys`` (None: the
     auto-spectrum of x); ``xc`` and ``yc`` the callers' complex64 tensors
-    where they were ones (:func:`_c64`)."""
+    where they were ones (:func:`_c64`).  An empty signal gives
+    :func:`_empty_estimate` for the frequencies and both planes."""
+    empty = _empty_estimate(xs[0], None if ys is None else ys[0], axis)
+    if empty is not None:
+        return empty, empty, empty, return_onesided
     nperseg, noverlap, nfft, win, complex_input = _resolve_args(
         xs, ys, nperseg, noverlap, nfft, window, axis)
     (xr, xi), (yr, yi) = xs, ys or (None, None)
@@ -618,12 +635,16 @@ def periodogram(x, fs: float = 1.0, window="boxcar", nfft: int | None = None,
                 scaling: str = "density", axis: int = -1):
     """Power spectral density from one segment (scipy.signal parity).
 
-    Returns (f, Pxx); Pxx is real float32.
+    Returns (f, Pxx); Pxx is real float32.  An ``nfft`` below the signal's
+    length cuts the signal to its first nfft samples, as scipy does.
     """
-    xs = _split(x)
+    xs, xc = _split(x), _c64(x)
+    if nfft is not None and 0 <= nfft < xs[0].shape[axis]:
+        xs = tuple(None if v is None else v.narrow(axis, 0, nfft).contiguous() for v in xs)
+        xc = nfft = None
     f, Pr, _Pi, _onesided = _csd_impl(
         xs, None, fs, window, xs[0].shape[axis], 0, nfft, detrend, return_onesided,
-        scaling, axis, "mean", _c64(x))
+        scaling, axis, "mean", xc)
     return f, Pr
 
 
@@ -665,7 +686,10 @@ def coherence(x, y, fs: float = 1.0, window="hann",
     cancel); otherwise three estimates."""
     xs, ys = _split_pair(x, y)
     (xr, xi), (yr, yi) = xs, ys
-    if xi is None and yi is None and _on_card(xr):
+    if xr.shape[axis] != yr.shape[axis]:  # :func:`_resolve_args`'s check, for empty signals too
+        raise ValueError("x and y must have the same length along axis")
+    # (an empty signal takes the three estimates: :func:`_empty_estimate`)
+    if xi is None and yi is None and _on_card(xr) and xr.numel() and yr.numel():
         np_, no_, nf_, win, _c = _resolve_args(xs, ys, nperseg, noverlap, nfft, window, axis)
         hop = np_ - no_
         if (xr.shape == yr.shape

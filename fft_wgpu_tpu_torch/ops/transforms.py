@@ -63,13 +63,19 @@ def _pad_or_trim(re, im, n, axis):
     return _resize_axis(re, n, axis), _resize_axis(im, n, axis)
 
 
-def _checked_length(x, n, axis: int) -> int:
-    """The transform's length: ``n``, or the length of ``axis``; a length
-    below 1 raises ``ValueError``, as numpy.fft does."""
-    length = _length(x, axis) if n is None else n
+def _positive(length: int) -> int:
+    """``length``; a length below 1 raises ``ValueError``, as numpy.fft
+    does.  Every entry point checks its output lengths with it before it
+    forms a scale, picks a route or launches a kernel."""
     if length < 1:
         raise ValueError(f"fft length must be >= 1, got {length}")
     return length
+
+
+def _checked_length(x, n, axis: int) -> int:
+    """The transform's length: ``n``, or the length of ``axis``, checked by
+    :func:`_positive`."""
+    return _positive(_length(x, axis) if n is None else n)
 
 
 def fft(x, n=None, axis: int = -1, norm=None, *, executor: str = "auto"):

@@ -16,7 +16,11 @@ The 14 names of ``jnp_backend`` are patched: ``fft``, ``ifft``, ``fft2``,
 ``dim`` is the package's ``axis``/``axes``.  A call falls back to stock
 ``torch.fft`` when its input is 64-bit (the package computes in float32),
 when it passes ``out=``, or when it uses a signature the package does not
-express; an error raised by the package's own call propagates.
+express.  A call the package refuses (a length below 1, a bad norm or axis)
+raises what stock ``torch.fft`` raises for it: stock's own error, found by
+running stock on a ``meta`` copy of the input (shapes only: no data is read
+and nothing launches).  Where stock would not raise, the package's error
+propagates, so a fault of a kernel is never hidden behind stock.
 Gradients flow through the package's kernels.  Nothing in the
 package itself calls ``torch.fft``, so an installed patch never feeds back
 into it.
@@ -37,6 +41,7 @@ _FUNCS = (
     "hfft", "ihfft",
 )
 _ONE_D = ("fft", "ifft", "rfft", "irfft", "hfft", "ihfft")
+_C2R = ("irfft2", "irfftn")
 
 _originals: dict[str, object] = {}
 _install_count = 0  # nesting refcount: uninstall only at zero
@@ -61,6 +66,18 @@ def _bind(args, kwargs, names, defaults) -> dict:
     return vals
 
 
+def _stock_error(orig, input, args, kwargs):
+    """The exception stock ``torch.fft`` raises for the call, from a ``meta``
+    copy of ``input``; None where it would not raise."""
+    if not isinstance(input, torch.Tensor):
+        return None
+    try:
+        orig(torch.empty_like(input, device="meta"), *args, **kwargs)
+    except Exception as err:  # noqa: BLE001 - stock's error, whatever its class
+        return err
+    return None
+
+
 def _wrap(name, ours, orig):
     if name in _ONE_D:
         names, defaults = ("n", "dim", "norm"), (None, -1, None)
@@ -78,11 +95,20 @@ def _wrap(name, ours, orig):
         except TypeError:
             # a signature the package doesn't express: stock fallback
             return orig(input, *args, **kwargs)
-        # errors of a call the package expresses propagate: a fault of a
-        # kernel is never hidden behind stock torch.fft
-        if name in _ONE_D:
-            return ours(input, n=a["n"], axis=a["dim"], norm=a["norm"])
-        return ours(input, s=a["s"], axes=a["dim"], norm=a["norm"])
+        s = a.get("s")
+        if name in _C2R and s is not None and s[-1] == -1:
+            # torch.fft's -1 here is the default length 2 * (bins - 1), where
+            # numpy's (and the package's) is the axis's length as it lies
+            s = [*s[:-1], None]
+        try:
+            if name in _ONE_D:
+                return ours(input, n=a["n"], axis=a["dim"], norm=a["norm"])
+            return ours(input, s=s, axes=a["dim"], norm=a["norm"])
+        except Exception as err:
+            stock = _stock_error(orig, input, args, kwargs)
+            if stock is None:  # stock would return: the package's error stands
+                raise
+            raise stock from err
 
     accelerated_fn.__wrapped_by_fft_wgpu_tpu_torch__ = True
     return accelerated_fn

@@ -149,3 +149,55 @@ def test_torch_backend_gradient(rng, assert_close):
     x.grad = None
     (torch.fft.rfft(x.double()).abs() ** 2 * w.double()).sum().backward()
     assert_close(got.numpy(), x.grad.numpy())
+
+
+# C6 (ROADMAP §C) through the backends: a zero output length raises what the
+# library it stands in for raises, and never returns where that raises
+ZERO_LENGTH_CALLS = [("irfft", {}, (3, 1)), ("irfft", {"norm": "forward"}, (3, 1)),
+                     ("hfft", {}, (3, 1)), ("irfft2", {}, (3, 1)),
+                     ("irfftn", {"s": (3, 0)}, (3, 4)), ("fftn", {"s": (3, 0)}, (3, 4)),
+                     ("fftn", {"s": (3, 0), "norm": "forward"}, (3, 4))]
+
+
+@pytest.mark.parametrize("name,kw,shape", ZERO_LENGTH_CALLS)
+def test_torch_backend_zero_length_raises_as_stock(name, kw, shape, rng):
+    # under accelerated(), torch.fft.irfft of a [3, 1] complex64 raised
+    # ZeroDivisionError, and returned [3, 1] with norm="forward"; stock
+    # torch.fft raises RuntimeError for each
+    x = torch.from_numpy((rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+                          ).astype(np.complex64))
+    with pytest.raises(RuntimeError) as stock:
+        getattr(torch.fft, name)(x, **kw)
+    with tb.accelerated():
+        with pytest.raises(RuntimeError) as got:
+            getattr(torch.fft, name)(x, **kw)
+    assert str(got.value) == str(stock.value)
+    assert isinstance(got.value.__cause__, ValueError)  # the package's own check
+
+
+def test_torch_backend_keeps_the_package_error_where_stock_returns(monkeypatch):
+    # a fault of the package is never hidden behind stock torch.fft: where
+    # stock would return, the package's error propagates as it is
+    import fft_wgpu_tpu_torch as ft
+
+    def broken(*a, **k):
+        raise ZeroDivisionError("a fault")
+
+    monkeypatch.setattr(ft, "fft", broken)
+    with tb.accelerated():
+        with pytest.raises(ZeroDivisionError, match="a fault"):
+            torch.fft.fft(torch.ones(3, 8, dtype=torch.complex64))
+
+
+# (scipy.fft itself returns [3, 1] for irfft2 of one bin: test_torch_edges.py
+# lists that difference)
+@pytest.mark.parametrize("name,kw,shape", [c for c in ZERO_LENGTH_CALLS if c[0] != "irfft2"])
+def test_scipy_backend_zero_length_raises_as_scipy(name, kw, shape, rng):
+    # scipy.fft raises ValueError for these; through the backend they raised
+    # ZeroDivisionError or returned [3, 1]
+    x = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    with pytest.raises(ValueError):
+        getattr(sf, name)(x, **kw)
+    with sf.set_backend(be.on("cpu")):
+        with pytest.raises(ValueError, match="fft length must be >= 1, got 0"):
+            getattr(sf, name)(x, **kw)

@@ -452,3 +452,31 @@ def test_grad_through_czt_matches_jax(rng, assert_close):
     tre, tim = _t(re).requires_grad_(), _t(im).requires_grad_()
     (_t(w) * ft.czt(torch.complex(tre, tim), **kw).abs() ** 2).sum().backward()
     assert_close(tre.grad.numpy() + 1j * tim.grad.numpy(), cplx(jg))
+
+
+@pytest.mark.parametrize("call", [
+    lambda m, x: m.czt(x, m=0), lambda m, x: m.zoom_fft(x, 0.5, m=0),
+    lambda m, x: m.CZT(x.shape[-1], m=0)(x), lambda m, x: m.ZoomFFT(x.shape[-1], 0.5, m=0)(x),
+    lambda m, x: m.czt(x[:, :0]), lambda m, x: m.CZT(0)(x[:, :0]),
+    lambda m, x: m.czt_points(0)],
+    ids=["czt", "zoom_fft", "CZT", "ZoomFFT", "czt-empty", "CZT-n0", "czt_points"])
+def test_zero_points_raise_as_scipy(call, rng):
+    # C7 (ROADMAP §C): m=0 was read as "the default m" and gave an n-point
+    # result; C10: an empty signal divided by zero.  scipy raises ValueError
+    x = crand(rng, 3, 64)
+    with pytest.raises(ValueError):
+        call(ss, x)
+    with pytest.raises(ValueError, match="Invalid number of CZT"):
+        call(ft, _t(x))
+
+
+def test_default_m_keeps_its_bits(rng, assert_close):
+    # m=None is m = n, bit for bit, and scipy's default
+    x = crand(rng, 3, 64)
+    for got, want in ((ft.czt(_t(x)), ft.czt(_t(x), m=64)),
+                      (ft.zoom_fft(_t(x), 0.5), ft.zoom_fft(_t(x), 0.5, m=64)),
+                      (ft.CZT(64)(_t(x)), ft.CZT(64, m=64)(_t(x))),
+                      (ft.ZoomFFT(64, 0.5)(_t(x)), ft.ZoomFFT(64, 0.5, m=64)(_t(x)))):
+        np.testing.assert_array_equal(_np(got), _np(want))
+    assert_close(_np(ft.czt(_t(x))), ss.czt(x))
+    assert_close(_np(ft.zoom_fft(_t(x), 0.5)), ss.zoom_fft(x, 0.5))

@@ -14,8 +14,10 @@ the fused epilogues, the spectral estimators and the per-segment spectra
 (the FNOs' gradients and training step, the steppers' rollouts, the Poisson
 solve) with exact launch counts, and the cache of CUDA-graph-captured calls
 (``utils/jit_cache``: replay against eager, held results, the counters,
-LRU eviction, an uncapturable call raising).  No call may move the
-thread's current device or the caller's TF32 setting.
+LRU eviction, an uncapturable call raising), and calls with a length
+below 1 or an empty operand, which raise (or return scipy's empty result)
+before any launch.  No call may move the thread's current device or the
+caller's TF32 setting.
 
 Every test here needs a CUDA device and skips without one.  The card's
 machine has no jax, so run them without the suite's conftest:
@@ -2892,3 +2894,90 @@ def test_fno3d_dp_tp_step_one_rank_nccl(dev, nccl_one):
     full = fno.gather_params(sh)
     for (n, p), q in zip(full.named_parameters(), ref.parameters()):
         assert rel_l2(p.detach(), q.detach()) < TOL, n
+
+
+# ---------------------------------------------------------------------- #
+# lengths below 1 and empty operands (ROADMAP §C C6-C14): each call raises,
+# or returns scipy's empty result, before any launch
+# ---------------------------------------------------------------------- #
+def _launch_counts():
+    """Every launch counter of the kernel wrappers (the sources of
+    chip_smoke.counts())."""
+    return {f"{m.__name__}.{k}": v for m in (cuda_fft, cuda_welch, bigfft)
+            for k, v in vars(m).items() if k.endswith("launches") and isinstance(v, int)}
+
+
+def _edge_calls(dev):
+    """(what, call, outcome) of each call: an exception class, or the
+    result's shapes."""
+    import fft_wgpu_tpu_torch.torch_backend as tb
+
+    c = crand(dev, 3, 4)
+    c64 = crand(dev, 4, 2049)  # irfft's complex64 source route at n = 4096
+    r = rrand(dev, 3, 64)
+    taps, empty = r[0, :3].contiguous(), r[0, :0]
+
+    def accelerated(fn):
+        def call():
+            with tb.accelerated():
+                return fn()
+        return call
+
+    calls = [("irfft 1 bin", lambda: ft.irfft(c[:, :1]), ValueError),
+             ("irfft n=0 complex64 source", lambda: ft.irfft(c64, n=0), ValueError),
+             ("irfftn s=(0, 4096) complex64 source", lambda: ft.irfftn(c64, s=(0, 4096)),
+              ValueError),
+             ("hfft 1 bin", lambda: ft.hfft(c[:, :1]), ValueError),
+             ("irfft2 1 bin", lambda: ft.irfft2(c[:, :1]), ValueError),
+             ("irfftn s=(3, 0)", lambda: ft.irfftn(c, s=(3, 0)), ValueError),
+             ("hfftn s=(3, 0)", lambda: ft.hfftn(c, s=(3, 0)), ValueError),
+             ("rfft n=0", lambda: ft.rfft(r, n=0), ValueError),
+             ("rfftn s=(0, 256): the last axis's kernel would run first",
+              lambda: ft.rfftn(rrand(dev, 3, 256), s=(0, 256)), ValueError),
+             ("ifft2 [3, 0]", lambda: ft.ifft2(c[:, :0]), ValueError),
+             ("torch.fft.irfft 1 bin", accelerated(lambda: torch.fft.irfft(c[:, :1])),
+              RuntimeError),
+             ("torch.fft.irfftn s=(3, 0)",
+              accelerated(lambda: torch.fft.irfftn(c, s=(3, 0), norm="forward")), RuntimeError),
+             ("czt m=0", lambda: ft.czt(c, m=0), ValueError),
+             ("zoom_fft m=0", lambda: ft.zoom_fft(c, 0.5, m=0), ValueError),
+             ("ZoomFFT m=0", lambda: ft.ZoomFFT(4, 0.5, m=0)(c), ValueError),
+             ("czt empty", lambda: ft.czt(c[:, :0]), ValueError),
+             ("convolve empty", lambda: ft.convolve(empty, taps), ValueError),
+             ("correlate empty taps", lambda: ft.correlate(r[0], empty), ValueError),
+             ("fftconvolve empty", lambda: ft.fftconvolve(empty, taps), ((0,),)),
+             ("oaconvolve empty", lambda: ft.oaconvolve(empty, taps), ((0,),)),
+             ("convolve same empty", lambda: ft.convolve(empty, taps, mode="same"), ((0,),)),
+             ("periodogram empty", lambda: ft.periodogram(r[:, :0]), ((3, 0), (3, 0))),
+             ("periodogram nfft=0", lambda: ft.periodogram(r[0], nfft=0), ((0,), (0,))),
+             ("welch empty", lambda: ft.welch(empty), ((0,), (0,))),
+             ("hilbert N=0", lambda: ft.hilbert(r, N=0), ValueError),
+             ("hilbert2 N=(3, 0)", lambda: ft.hilbert2(r, N=(3, 0)), ValueError),
+             ("hilbert2 [3, 0]", lambda: ft.hilbert2(r[:, :0]), ValueError),
+             ("idct [3, 0]", lambda: ft.idct(r[:, :0]), ValueError),
+             ("dctn type 3 s=(3, 0)", lambda: ft.dctn(r, 3, s=(3, 0)), ValueError),
+             ("dctn type 1 [129, 1]: axis 0's R2C would run first",
+              lambda: ft.dctn(rrand(dev, 129, 1), 1), ValueError),
+             ("upfirdn empty", lambda: ft.upfirdn(taps, empty, 2, 3), ((1,),)),
+             ("resample_poly empty", lambda: ft.resample_poly(empty, 2, 3), ((0,),))]
+    for norm in ("ortho", "forward"):
+        calls += [(f"irfft 1 bin {norm}", lambda n=norm: ft.irfft(c[:, :1], norm=n), ValueError),
+                  (f"fftn s=(3, 0) {norm}", lambda n=norm: ft.fftn(c, s=(3, 0), norm=n),
+                   ValueError)]
+    return calls
+
+
+def test_edges_raise_before_any_launch(dev):
+    for what, call, want in _edge_calls(dev):
+        before = _launch_counts()
+        if isinstance(want, type):
+            with pytest.raises(want):
+                call()
+        else:
+            out = call()
+            out = out if isinstance(out, tuple) else (out,)
+            assert tuple(tuple(o.shape) for o in out) == want, what
+            assert all(o.device == dev for o in out), what
+        torch.cuda.synchronize()
+        delta = {k: v - before[k] for k, v in _launch_counts().items() if v != before[k]}
+        assert not delta, f"{what}: launched {delta}"

@@ -575,3 +575,52 @@ def test_grad_through_resample_matches_jax(rng, assert_close):
     t = _t(x).requires_grad_()
     (_t(w) * ft.resample(t, 150, axis=1) ** 2).sum().backward()
     assert_close(t.grad.numpy(), np.asarray(jg))
+
+
+# ---------------------------------------------------------------------- #
+# C8 and C9 (ROADMAP §C): empty operands and a zero length, held to scipy
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("mode", ["full", "same", "valid"])
+def test_empty_operands_follow_scipy(mode, rng):
+    # an empty signal against 3 taps: fftconvolve, convolve and correlate
+    # returned a 2-point array, oaconvolve raised; scipy's fftconvolve and
+    # oaconvolve return an empty array, its convolve and correlate raise
+    # (for mode 'same' of an empty first operand: an empty array)
+    h = rng.standard_normal(3).astype(np.float32)
+    e = np.zeros(0, np.float32)
+    for a, b in ((e, h), (h, e), (e, e), (e.astype(np.complex64), h)):
+        for name in ("fftconvolve", "oaconvolve", "convolve", "correlate"):
+            try:
+                want = getattr(ss, name)(a, b, mode=mode)
+            except ValueError:
+                with pytest.raises(ValueError):
+                    getattr(ft, name)(_t(a), _t(b), mode=mode)
+                continue
+            got = getattr(ft, name)(_t(a), _t(b), mode=mode)
+            assert got.shape == want.shape and want.size == 0, (name, a.shape, b.shape)
+            assert got.dtype == (torch.complex64 if a.dtype == np.complex64 else torch.float32)
+
+
+def test_periodogram_of_an_empty_signal_and_a_short_nfft_follow_scipy(rng, assert_close):
+    # an empty signal raised ValueError, as did an nfft below the signal's
+    # length; scipy returns empty arrays, and cuts the signal to nfft samples
+    for x in (np.zeros(0, np.float32), np.zeros((3, 0), np.float32)):
+        for got, want in zip(ft.periodogram(_t(x)), ss.periodogram(x)):
+            assert tuple(got.shape) == want.shape == x.shape
+    x = rng.standard_normal((2, 100)).astype(np.float32)
+    for nfft in (0, 1, 40, 99, 100, 128):
+        for got, want in zip(ft.periodogram(_t(x), nfft=nfft), ss.periodogram(x, nfft=nfft)):
+            assert tuple(got.shape) == want.shape, nfft
+            if want.size:
+                assert_close(_np(got), want, what=f"nfft {nfft}")
+
+
+def test_hilbert_zero_length_raises_as_scipy():
+    # hilbert(x, N=0) raised IndexError from its weights table
+    x = np.ones((3, 8), np.float32)
+    for call in (lambda m, v: m.hilbert(v, N=0), lambda m, v: m.hilbert(v[:, :0]),
+                 lambda m, v: m.hilbert2(v, N=(3, 0)), lambda m, v: m.hilbert2(v, N=0)):
+        with pytest.raises(ValueError):
+            call(ss, x)
+        with pytest.raises(ValueError, match="N must be positive"):
+            call(ft, _t(x))

@@ -324,3 +324,24 @@ def test_plane_routes_on_the_card(assert_close):
     assert_close(got[0].numpy() + 1j * got[1].numpy(), np.fft.fft(x, axis=0))
     with pytest.raises(cuda_fft.Unsupported):  # a prime: outside both envelopes
         cuda_fft.fft_axis3_split(torch.zeros(1031, 2, 2), torch.zeros(1031, 2, 2), -1)
+
+
+@pytest.mark.parametrize("norm", [None, "ortho", "forward"])
+@pytest.mark.parametrize("name", ["fft2", "ifft2", "fftn", "ifftn"])
+def test_zero_length_raises_as_numpy(name, norm, monkeypatch):
+    # C6 (ROADMAP §C): fftn(s=(3, 0), norm="forward") raised
+    # ZeroDivisionError, and "ortho" too; numpy raises ValueError, and the
+    # port does so before any route predicate is asked
+    def no_route(*a, **k):
+        raise AssertionError("a route was picked for a call that raises")
+
+    for fn in ("_c64_plane", "_c64_route", "_fused_plane"):
+        monkeypatch.setattr(nd, fn, no_route)
+    x = np.ones((3, 4), np.complex64)
+    for kw in ({"s": (3, 0)}, {"s": (0, 4)}, {"s": (3, -2)}):
+        with pytest.raises(ValueError):
+            getattr(np.fft, name)(x, axes=(0, 1), norm=norm, **kw)
+        with pytest.raises(ValueError, match="fft length must be >= 1"):
+            getattr(ft, name)(_t(x), norm=norm, **kw)
+    with pytest.raises(ValueError, match="fft length must be >= 1, got 0"):
+        getattr(ft, name)(_t(x[:, :0]), norm=norm)

@@ -507,3 +507,95 @@ def test_routes_on_the_card():
     # where the half is in its envelope), odd n the zero-imaginary C2C
     assert not cuda_fft._supported(32768) and cuda_fft._supported(16384)
     assert not cuda_fft._supported(1000) and not cuda_fft._supported(255)
+
+
+# ---------------------------------------------------------------------- #
+# C6 (ROADMAP §C): an output length below 1 raises ValueError before any
+# scale, route or launch, as numpy.fft raises (the JAX package keeps the
+# fault: the port is held to numpy here, not to it)
+# ---------------------------------------------------------------------- #
+ZERO_LENGTH = "fft length must be >= 1, got 0"
+
+
+class _Norm:
+    """The module's transforms with ``norm`` bound: m.irfft(...) calls
+    module.irfft(..., norm=norm)."""
+
+    def __init__(self, module, norm):
+        self.module, self.norm = module, norm
+
+    def __getattr__(self, name):
+        fn = getattr(self.module, name)
+        return lambda *a, **k: fn(*a, norm=self.norm, **k)
+
+
+@pytest.mark.parametrize("norm", [None, "ortho", "forward"])
+@pytest.mark.parametrize("call", [
+    lambda m, x: m.irfft(x[:, :1]), lambda m, x: m.irfft(x, n=0),
+    lambda m, x: m.hfft(x[:, :1]), lambda m, x: m.hfft(x, n=0),
+    lambda m, x: m.irfft2(x[:, :1]), lambda m, x: m.irfftn(x, s=(3, 0)),
+    lambda m, x: m.irfftn(x, s=(0, 4))],
+    ids=["irfft-1bin", "irfft-n0", "hfft-1bin", "hfft-n0", "irfft2-1bin", "irfftn-s30",
+         "irfftn-s04"])
+def test_c2r_zero_length_raises_as_numpy(call, norm, rng):
+    # irfft, hfft, irfft2 and irfftn of a [3, 1] or [3, 4] complex64 input:
+    # ZeroDivisionError, or with norm="forward" a [3, 1] array, before
+    x = spectrum(rng, 3, 4)
+    with pytest.raises(ValueError):
+        call(_Norm(np.fft, norm), x)
+    with pytest.raises(ValueError, match=ZERO_LENGTH):
+        call(_Norm(ft, norm), _t(x))
+
+
+def test_irfft_forward_norm_of_one_bin_raises_as_numpy(rng):
+    # it returned a [3, 1] array
+    x = spectrum(rng, 3, 1)
+    with pytest.raises(ValueError):
+        np.fft.irfft(x, norm="forward")
+    with pytest.raises(ValueError, match=ZERO_LENGTH):
+        ft.irfft(_t(x), norm="forward")
+    with pytest.raises(ValueError, match=ZERO_LENGTH):
+        ft.irfft2(_t(x), norm="forward")
+
+
+@pytest.mark.parametrize("norm", [None, "ortho", "forward"])
+def test_hfftn_zero_length_raises_as_scipy(norm, rng):
+    # hfftn(s=(3, 0)) returned [3, 1]: it runs irfftn with the norm swapped
+    x = spectrum(rng, 3, 4)
+    for s in ((3, 0), (0, 4)):
+        with pytest.raises(ValueError):
+            sfft.hfftn(x, s=s, norm=norm)
+        with pytest.raises(ValueError, match=ZERO_LENGTH):
+            ft.hfftn(_t(x), s=s, norm=norm)
+        with pytest.raises(ValueError, match=ZERO_LENGTH):
+            ft.hfft2(_t(x), s=s, norm=norm)
+        with pytest.raises(ValueError):
+            sfft.ihfftn(x.real, s=s, norm=norm)
+        with pytest.raises(ValueError, match=ZERO_LENGTH):
+            ft.ihfftn(_t(x.real), s=s, norm=norm)
+
+
+def test_zero_length_raises_before_any_route(monkeypatch, rng):
+    # the check comes ahead of the CUDA routes' predicates: irfft picks its
+    # complex64 route before its impl runs, so no predicate may be asked
+    # (and no kernel launched) for a call that raises
+    def no_route(*a, **k):
+        raise AssertionError("a route was picked for a call that raises")
+
+    from fft_wgpu_tpu_torch.plan.plan import Plan
+
+    for mod, name in ((rfft, "_irfftn_c64"), (rfft, "_irfft_c64"), (rfft, "_rfft_c64"),
+                      (rfft.nd, "_c64_plane"), (rfft.nd, "_c64_route"),
+                      (rfft.nd, "_fused_plane"), (cuda_fft, "_supported"),
+                      (Plan, "_execute_split"), (Plan, "_execute_split_axis"),
+                      (Plan, "_execute_c64")):  # nor any axis transformed first
+        monkeypatch.setattr(mod, name, no_route)
+    x = _t(spectrum(rng, 3, 4))
+    for call in (lambda: ft.irfft(x[:, :1]), lambda: ft.irfft(x[:, :1], norm="forward"),
+                 lambda: ft.irfft(x, n=0), lambda: ft.hfft(x[:, :1]),
+                 lambda: ft.irfft2(x[:, :1]), lambda: ft.irfftn(x, s=(3, 0)),
+                 lambda: ft.hfftn(x, s=(3, 0)), lambda: ft.rfft(x.real, n=0),
+                 lambda: ft.rfftn(x.real, s=(0, 4)), lambda: ft.ihfftn(x.real, s=(0, 4)),
+                 lambda: ft.irfftn(x, s=(0, 4))):
+        with pytest.raises(ValueError, match="fft length must be >= 1"):
+            call()
