@@ -44,7 +44,9 @@ non-zero without a result line:
              (ax0_fft_c64, also in place at every n); rows_t_fft for every
              n at R = 1 and 200, without
              the outer twiddle, with the four-step's (outer_n = R*n) and
-             with a non-pow2 one (3 * 2^12), and at the 2^22 pass-2 shape;
+             with a non-pow2 one (3 * 2^12), and at the 2^22 pass-2 shape,
+             through its planar entry and its complex64 entry
+             (rows_t_fft_c64);
              big_fft for every n of its envelope at rows 1 and 3, and at
              256 x 2^16, planar (big_fft) and complex64 (big_fft_c64);
              the axis(-3) pass (ax0_fft on a free view) at [2, n, 7, 130]
@@ -339,13 +341,13 @@ LIBS = ("rows_fft", "ax0_fft", "rows_t_fft", "big_fft", "fft2f_fft", "r2c_fft",
 # c2r_fft a second kernel (c2r_prod), welch_acc_fft four (welch: B16, coh: B18, csd: B17, c2c:
 # B21), spec_fft two (spec: B20, psd: B19), spec_c2c_fft one (spec_c2c:
 # B22); rows_fft, ax0_fft (on axis
-# -2 and on the axis(-3) view), fft2f_fft, r2c_fft, c2r_fft, big_fft, filt,
-# c2c, spec_fft and spec_c2c_fft two layouts each (rows_fft_c64,
-# ax0_fft_c64, ax3_fft_c64, fft2f_fft_c64, r2c_fft_c64, c2r_fft_c64,
+# -2 and on the axis(-3) view), rows_t_fft, fft2f_fft, r2c_fft, c2r_fft,
+# big_fft, filt, c2c, spec_fft and spec_c2c_fft two layouts each
+# (rows_fft_c64, ax0_fft_c64, ax3_fft_c64, rows_t_fft_c64, fft2f_fft_c64, r2c_fft_c64, c2r_fft_c64,
 # big_fft_c64, filt_c64, c2c_c64, spec_c64 and spec_c2c_c64: their
 # complex64 entries, counted apart too).
 KERNELS = ("rows_fft", "rows_fft_c64", "ax0_fft", "ax0_fft_c64", "ax3_fft", "ax3_fft_c64",
-           "rows_t_fft", "fft2f_fft", "fft2f_fft_c64", "r2c_fft", "r2c_fft_c64", "c2r_fft",
+           "rows_t_fft", "rows_t_fft_c64", "fft2f_fft", "fft2f_fft_c64", "r2c_fft", "r2c_fft_c64", "c2r_fft",
            "c2r_fft_c64", "big_fft", "big_fft_c64", "gen_fft", "r2c_gen_fft",
            "chirp_fwd", "chirp_inv", "chirp_full", "filt", "filt_c64", "bank", "c2r_prod",
            "ax0_gen", "welch", "psd", "csd", "coh", "c2c", "c2c_c64", "spec", "spec_c64",
@@ -576,6 +578,7 @@ def counts() -> dict:
             "rows_fft_c64": cuda_fft.c64_launches, "big_fft_c64": bigfft.c64_launches,
             "ax0_fft_c64": cuda_fft.ax0_c64_launches,
             "ax3_fft_c64": cuda_fft.ax3_c64_launches,
+            "rows_t_fft_c64": cuda_fft.rows_t_c64_launches,
             "fft2f_fft_c64": cuda_fft.fft2f_c64_launches,
             "r2c_fft_c64": cuda_fft.r2c_c64_launches, "spec_c64": cuda_welch.spec_c64_launches,
             "filt_c64": cuda_fft.filt_c64_launches,
@@ -588,7 +591,7 @@ def reset_counts() -> None:
 
     cuda_fft.c64_launches = bigfft.c64_launches = 0
     cuda_fft.ax0_c64_launches = cuda_fft.ax3_c64_launches = cuda_fft.r2c_c64_launches = 0
-    cuda_fft.c2r_c64_launches = 0
+    cuda_fft.c2r_c64_launches = cuda_fft.rows_t_c64_launches = 0
     cuda_fft.fft2f_c64_launches = cuda_welch.spec_c64_launches = 0
     cuda_fft.filt_c64_launches = cuda_welch.spec_c2c_c64_launches = 0
     cuda_welch.c2c_c64_launches = 0
@@ -1353,6 +1356,13 @@ MODEL_KERNELS = ("rows_fft", "ax0_fft", "fft2f_fft", "r2c_fft", "c2r_fft")
 COLE_HOPF_TOL = KS_REF_TOL = TAYLOR_GREEN_TOL = GAUSSIAN_TOL = POISSON_TOL = 1e-4
 SOLITON_TOL = 2e-4
 ROUND_TRIP_TOL = 6e-8  # |power gain - 1| of the row kernel's forward-inverse pair
+# |power gain - 1| of complex64 plan(2^22)'s forward-inverse pair on its
+# route before the transposed-rows kernel had a complex64 entry (split,
+# the planar pair on radix-4 passes, merge): -8.965e-8 by
+# scripts/time_composite_rows.py --set rows_t, NVIDIA H100 80GB HBM3,
+# 700.00 W.  Past ROUND_TRIP_TOL already, so the complex64 pair is held
+# to no worse.
+FOURSTEP_ROUND_TRIP_TOL = 8.965e-8
 
 
 def ks_reference(u0: np.ndarray, length: float, h: float, steps: int) -> np.ndarray:
@@ -1754,8 +1764,10 @@ def serving_path(dev, gen, smi) -> dict:
     # tuned plans: each route's kernels, launched once by the second call
     second = {"pallas": {"rows_fft": 1, "rows_fft_c64": 1},
               "bigfft": {"big_fft": 1, "big_fft_c64": 1},
-              "fourstep:two-pass": {"ax0_fft": 1, "rows_t_fft": 1},
-              "fourstep": {"ax0_fft": 1, "rows_t_fft": 1},
+              "fourstep:two-pass": {"ax0_fft": 1, "ax0_fft_c64": 1, "rows_t_fft": 1,
+                                    "rows_t_fft_c64": 1},
+              "fourstep": {"ax0_fft": 1, "ax0_fft_c64": 1, "rows_t_fft": 1,
+                           "rows_t_fft_c64": 1},
               "general": {"gen_fft": 1}, "bluestein": {"chirp_full": 1}}
     routes = {}
     for rows, n in ((16, 1 << 17), (256, 1 << 17), (4, 1 << 18), (64, 1 << 18), (4, 1 << 20),
@@ -3018,6 +3030,19 @@ def main() -> int:
           lambda re, im, s, sc, o: cuda_fft.fft_rows_transposed_split_reference(
               re, im, s, sc, outer=o),
           outer_oracle)
+
+    def rows_t_c64(re, im, s, sc, o):
+        y = cuda_fft._rows_t_launch_c64(torch.complex(re, im), s, sc, o)
+        return y.real, y.imag
+
+    sweep("rows_t_fft_c64",
+          [((rows, n), outer) for n in pow2 for rows in (1, 200)
+           for outer in (None, (rows, rows * n), (rows, 3 << 12))]
+          + [((1024, 4096), (1024, 1 << 22))],
+          rows_t_c64,
+          lambda re, im, s, sc, o: cuda_fft.fft_rows_transposed_split_reference(
+              re, im, s, sc, outer=o),
+          outer_oracle)
     big_ns = [1 << e for e in range(15, 19) if bigfft._supported(1 << e)]
     sweep("big_fft",
           [((rows, n), None) for n in big_ns for rows in (1, 3)]
@@ -3670,8 +3695,9 @@ def main() -> int:
     # ---- 3. main path at users' sizes ------------------------------------
     errs = {}
 
-    two_pass = {"ax0_fft": 1, "rows_t_fft": 1}
-    # a complex64 tensor along its last axis: the complex64 entry, no split
+    # a complex64 tensor along its last axis: the complex64 entry (the
+    # four-step: both passes' complex64 entries), no split
+    two_pass = {"ax0_fft": 1, "ax0_fft_c64": 1, "rows_t_fft": 1, "rows_t_fft_c64": 1}
     row, whole = {"rows_fft": 1, "rows_fft_c64": 1}, {"big_fft": 1, "big_fft_c64": 1}
     reset_counts()  # path 1: the 1-D main path and large N
 
@@ -3716,7 +3742,23 @@ def main() -> int:
                  lambda: p.inverse_unnormalized(X), **two_pass)
     errs["plan2^22_onlyinv_norm"] = check_close(
         p.normalize(xu), x, "plan(2^22) inverse_unnormalized + normalize")
-    del x, X, xu
+    # the round trip's power gain, Re <y, x> / <x, x> - 1, of the complex64
+    # pair (held to no worse than the split route it replaced)
+    x64 = x.to(torch.complex128)
+    y = p.inverse(p.forward(x)).to(torch.complex128)
+    gain = float((y * x64.conj()).sum().real / x64.abs().square().sum()) - 1.0
+    check(abs(gain) <= max(ROUND_TRIP_TOL, FOURSTEP_ROUND_TRIP_TOL),
+          f"plan(2^22) complex64 round trip: gain - 1 {gain:+.3e}")
+    print(f"main: plan(2^22) complex64 round trip power gain - 1 {gain:+.3e} (held within "
+          f"{FOURSTEP_ROUND_TRIP_TOL:.3e}, the split route's; ROUND_TRIP_TOL "
+          f"{ROUND_TRIP_TOL:.0e})", flush=True)
+    # planes through the same two kernels' planar entries
+    re, im = planes(x)
+    Xr, Xi = through("plan(2^22).forward_split", lambda: p.forward_split(re, im),
+                     ax0_fft=1, rows_t_fft=1)
+    errs["plan2^22_fwd_split"] = check_close(torch.complex(Xr, Xi), torch.fft.fft(x),
+                                             "plan(2^22).forward_split")
+    del x, X, xu, x64, y, re, im, Xr, Xi
     for rows, e, kernels in ((4, 22, two_pass), (1, 20, two_pass),
                              (256, 16, whole), (1, 17, whole)):
         x = crand(rows, 1 << e)
@@ -3734,7 +3776,8 @@ def main() -> int:
         raise RuntimeError("check failed: executor='bigfft' beyond its envelope "
                            "did not raise Unsupported")
     path1 = counts()
-    for name in ("rows_fft", "rows_fft_c64", "ax0_fft", "rows_t_fft", "big_fft", "big_fft_c64"):
+    for name in ("rows_fft", "rows_fft_c64", "ax0_fft", "ax0_fft_c64", "rows_t_fft",
+                 "rows_t_fft_c64", "big_fft", "big_fft_c64"):
         check(path1[name] > 0, f"1-D main path launched no {name} kernel")
     print(f"main: 1-D path, {len(errs)} checks ok, launches {path1} | "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()), flush=True)
@@ -4133,6 +4176,7 @@ def main() -> int:
     # per-segment path for B20 and B22, config 4 for the rest); each path's
     # counts are on its line.
     path_of = {"rows_fft": path1, "rows_fft_c64": path1, "ax0_fft": path1, "rows_t_fft": path1,
+               "rows_t_fft_c64": path1,
                "big_fft": path1, "big_fft_c64": path1,
                "gen_fft": path3, "r2c_gen_fft": path3, "chirp_fwd": path3,
                "chirp_inv": path3, "chirp_full": path3, "filt": path5, "filt_c64": path5,
@@ -4165,7 +4209,8 @@ def main() -> int:
     # entries of the row and whole-row kernels called directly
     for what, shape, transform, kernels in (
             ("", (64, 4096), via_fft, {"rows_fft": 2, "rows_fft_c64": 2}),
-            ("", (2, 1 << 20), via_fft, {"ax0_fft": 2, "rows_t_fft": 1, "rows_fft": 1}),
+            ("", (2, 1 << 20), via_fft, {"ax0_fft": 2, "ax0_fft_c64": 2, "rows_t_fft": 2,
+                                         "rows_t_fft_c64": 2}),
             ("", (4, 1 << 16), via_fft, {"big_fft": 2, "big_fft_c64": 2}),
             (" planar", (64, 4096), lambda a, b: cuda_fft.fft_batched_split(a, b, -1),
              {"rows_fft": 2}),
@@ -4360,12 +4405,24 @@ def main() -> int:
     times["rows_t_fft 1024x4096"] = time_in_turns({
         "kernel": lambda: cuda_fft._rows_t_launch(re, im, -1, None, outer),
         "kernel_no_outer": lambda: cuda_fft._rows_t_launch(re, im, -1, None, None),
+        "kernel_c64": lambda: cuda_fft._rows_t_launch_c64(x, -1, None, outer),
         "plain": lambda: cuda_fft.fft_rows_transposed_split_reference(
             re, im, -1, outer=outer),
+        "plain_c64": lambda: cuda_fft.fft_rows_transposed_c64_reference(x, -1, outer=outer),
         "torch.fft": lambda: torch.fft.fft(x),
         "copy": plane_copy(re, im),
     }, reps=20)
     del x, re, im
+    x = crand(1, 1 << 22)  # config 3 whole: the four-step's two passes
+    re, im = planes(x)
+    pn, a, b = ft.plan(1 << 22), torch.empty_like(x), torch.empty_like(x)
+    times["fourstep 2^22"] = time_in_turns({
+        "planar pair": lambda: pn.forward_split(re, im),
+        "complex64 pair": lambda: pn.forward(x),
+        "torch.fft": lambda: torch.fft.fft(x),
+        "copy floor": lambda: (a.copy_(x), b.copy_(a)),  # two passes of 32 MiB each way
+    }, reps=20)
+    del x, re, im, a, b
 
     x = crand(256, 1 << 16)
     re, im = planes(x)
@@ -4630,6 +4687,11 @@ def main() -> int:
         pn = ft.plan(n)
         alone(f"plan({n}).forward {rows}x{n}", lambda: pn.forward(x), (kernel,),
               row if kernel == "rows_fft" else whole)
+    # the complex64 four-step at 2^22: its two kernels alone, no split or merge
+    x = crand(1, 1 << 22)
+    pn = ft.plan(1 << 22)
+    alone("plan(4194304).forward 1x4194304", lambda: pn.forward(x), ("ax0_fft", "rows_t_fft"),
+          two_pass)
     # fft2 of a complex64 plane and rfft: their kernels alone, no split or merge
     x = crand(4096, 4096)
     r = torch.randn(4096, 4096, device=dev, generator=gen)
@@ -4886,6 +4948,9 @@ def main() -> int:
               ms="kernel_c64", plain="plain_c64"),
         entry("rows_t_fft", "rows_t_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1494",
               "rows_t_fft 1024x4096", c2c * 1024 * 4096, fft_flops(4096, 1024)),
+        entry("rows_t_fft_c64", "rows_t_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:1494",
+              "rows_t_fft 1024x4096", c2c * 1024 * 4096, fft_flops(4096, 1024),
+              ms="kernel_c64", plain="plain_c64"),
         entry("fft2f_fft", "fft2f_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2274",
               "fft2f_fft 256x256x256", c2c * 256 ** 3, fft_flops(256 * 256, 256)),
         entry("fft2f_fft_c64", "fft2f_fft.cu", "fft_wgpu_tpu/ops/pallas_fft.py:2274",

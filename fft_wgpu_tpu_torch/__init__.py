@@ -10,7 +10,8 @@ view) and the R2C / C2R kernels (``csrc/r2c_fft.cu``, ``csrc/c2r_fft.cu``);
 2-D planes the fused-plane kernel (``csrc/fft2f_fft.cu``) or the
 transposed-rows kernel twice (``csrc/rows_t_fft.cu``); above 16384 the
 four-step, as the whole-row cluster kernel (``csrc/big_fft.cu``,
-2^15..2^18) or the axis(-2) and transposed-rows kernels.  Composite
+2^15..2^18) or the axis(-2) and transposed-rows kernels (a complex64
+tensor through both kernels' complex64 entries, with no split).  Composite
 non-pow2 lengths of 512..16384 (factors <= 256) run the composite-row
 kernels (``csrc/gen_fft.cu``, ``csrc/r2c_gen_fft.cu``); lengths with a
 large prime factor, and the chirp-z transform (``czt``, ``zoom_fft``,

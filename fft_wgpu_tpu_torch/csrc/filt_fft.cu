@@ -38,8 +38,7 @@
 // input (n_in = n).
 //
 // bank is the planar path of the same kernel with the roles swapped
-// (bank_fft_f32; its first design ran stockham.cuh's radix-4 passes, one
-// row a block, seven passes at n = 16384).
+// (bank_fft_f32).
 //
 // What bounds them: device memory, as for the row kernel: per row, 8 bytes
 // read per point of the operand that moves and 8 written, the shared

@@ -19,8 +19,8 @@
 // to hold its outputs across a barrier (except the last pass of r2c_gen_fft's
 // half-length transform, which stays in shared memory; see generic_pass).
 //
-// Pass R with NS = the product of the radices before it is the Stockham
-// autosort step of stockham.cuh with R and N at run time: butterfly j
+// Pass R with NS = the product of the radices before it is a Stockham
+// autosort step (R and N at run time, or fixed at compile time): butterfly j
 // (0 <= j < N/R) reads x[j + k*N/R] for k < R, multiplies input k by the
 // twiddle w^k, w = w_N^((j mod NS) * N/(NS*R)) (w^k as k - 1 products from
 // one root of the table; a fixed plan's passes gather each w^k from a
@@ -51,9 +51,64 @@
 
 #include <cuda_runtime.h>
 
-#include "stockham.cuh"
-
 namespace fftk {
+
+__host__ __device__ constexpr int min_int(int a, int b) { return a < b ? a : b; }
+
+__device__ __forceinline__ void cmul(float& r, float& i, float2 w) {
+  const float t = r * w.x - i * w.y;
+  i = r * w.y + i * w.x;
+  r = t;
+}
+
+// A row in shared memory, planar: the composite kernels' buffer.
+struct Shared {
+  float* r;
+  float* i;
+  static constexpr bool kShared = true;
+  __device__ __forceinline__ void load(int k, float& a, float& b) const {
+    a = r[k];
+    b = i[k];
+  }
+  __device__ __forceinline__ void store(int k, float a, float b) const {
+    r[k] = a;
+    i[k] = b;
+  }
+};
+
+// A row in device memory, planar, read by the first pass.  No __restrict__:
+// the output may alias the input.
+struct GlobalIn {
+  const float* r;
+  const float* i;
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void load(int k, float& a, float& b) const {
+    a = r[k];
+    b = i[k];
+  }
+};
+
+// A row x of device memory times a table h, zero past n_in: the first pass
+// of a transform with a multiply fused into its loads (the chirp passes,
+// the spectral filter and the filter bank).
+struct ProductIn {
+  const float* xr;
+  const float* xi;
+  const float* hr;
+  const float* hi;
+  int n_in;
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void load(int k, float& a, float& b) const {
+    if (k >= n_in) {
+      a = b = 0.f;
+      return;
+    }
+    const float x_r = xr[k], x_i = xi[k];
+    const float h_r = __ldg(&hr[k]), h_i = __ldg(&hi[k]);
+    a = x_r * h_r - x_i * h_i;
+    b = x_r * h_i + x_i * h_r;
+  }
+};
 
 constexpr int kMixMaxPasses = 16;
 constexpr int kMixMaxThreads = 1024;
@@ -738,13 +793,26 @@ __host__ __device__ constexpr int plan_radix(int log2m, int i) {
   return plans[log2m - 6][i];
 }
 
-// The passes of m = 2^LOG2M's plan, row.src() -> ... -> row.dst().
-template <int SIGN, int LOG2M, class Row>
+// The passes of m = 2^LOG2M's plan, row.src() -> ... -> row.dst().  With
+// FIRST = 1, every pass but the first, row.shared() -> ... -> row.dst(), for
+// a kernel that runs the first pass (radix plan_radix(LOG2M, 0) at NS = 1,
+// no twiddles) itself into row.shared() (rows_t_fft.cu: its loads multiplied
+// by the four-step's outer twiddle).
+template <int SIGN, int LOG2M, int FIRST = 0, class Row>
 __device__ __forceinline__ void plan_fft(const Row& row, const float2* __restrict__ tw) {
+  static_assert(FIRST == 0 || FIRST == 1, "from the first pass or the second");
   constexpr int M = 1 << LOG2M;
   constexpr int r0 = plan_radix(LOG2M, 0), r1 = plan_radix(LOG2M, 1);
   constexpr int r2 = plan_radix(LOG2M, 2), r3 = plan_radix(LOG2M, 3);
-  if constexpr (r2 == 0) {
+  if constexpr (FIRST == 1) {
+    if constexpr (r2 == 0) {
+      fixed_passes<SIGN, M, r0, 0, r1>(row.shared(), row, tw);
+    } else if constexpr (r3 == 0) {
+      fixed_passes<SIGN, M, r0, 0, r1, r2>(row.shared(), row, tw);
+    } else {
+      fixed_passes<SIGN, M, r0, 0, r1, r2, r3>(row.shared(), row, tw);
+    }
+  } else if constexpr (r2 == 0) {
     mixed_fft_fixed<SIGN, M, r0, r1>(row, tw);
   } else if constexpr (r3 == 0) {
     mixed_fft_fixed<SIGN, M, r0, r1, r2>(row, tw);

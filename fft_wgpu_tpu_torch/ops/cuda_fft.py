@@ -11,10 +11,12 @@ for fourteen of its entry points, and one fused pair of them.
   mixed-radix passes on each column of the tile) for composite n;
 * ``fft_axis3_split`` / ``fft_axis3_c64`` — along axis -3 of
   ``[..., n, Y, Z]``: the same kernels on the free view ``[..., n, Y*Z]``;
-* ``fft_rows_transposed_split`` — rows with the four-step outer twiddle at
-  load (a product of two table roots, :func:`_outer_tables`) and a
-  transposed store, ``csrc/rows_t_fft.cu``; ``fft2_split`` is that kernel
-  twice;
+* ``fft_rows_transposed_split`` / ``fft_rows_transposed_c64`` — rows with
+  the four-step outer twiddle at load (a product of two table roots,
+  :func:`_outer_tables`) and a transposed store, planar or complex64 as it
+  lies, ``csrc/rows_t_fft.cu`` (the compiled pow2 passes of
+  ``mixed_fft.cuh``, a cluster's rows stored together); ``fft2_split`` is
+  that kernel twice;
 * ``fft2_fused_split`` / ``fft2_fused_c64`` — both trailing axes of
   ``[..., A, B]`` planes in one pass over device memory, planar or
   complex64 as it lies, ``csrc/fft2f_fft.cu`` (a cluster per plane on the
@@ -70,7 +72,8 @@ __all__ = ["Unsupported", "FUSED_MIN_N", "FUSED_MAX_N", "FFT2F_MAX_ELEMS",
            "fft_axis0_split", "fft_axis0_split_reference", "fft_axis0_c64",
            "fft_axis0_c64_reference", "fft_axis3_split", "fft_axis3_split_reference",
            "fft_axis3_c64", "fft_axis3_c64_reference", "fft_rows_transposed_split",
-           "fft_rows_transposed_split_reference", "fft2_fused_split",
+           "fft_rows_transposed_split_reference", "fft_rows_transposed_c64",
+           "fft_rows_transposed_c64_reference", "fft2_fused_split",
            "fft2_fused_split_reference", "fft2_fused_c64", "fft2_fused_c64_reference",
            "fft2_split", "pad_bins",
            "rfft_rows_split", "rfft_rows_split_reference", "rfft_rows_c64",
@@ -97,7 +100,8 @@ FFT2F_MAX_ELEMS = 1 << 16  # points of one fused 2-D plane (the JAX envelope)
 # counts every launch of rows_fft, ``c64_launches`` those of them through its
 # complex64 entry (fft_batched_c64); so do ``ax0_launches`` and
 # ``ax0_c64_launches`` for ax0_fft on axis -2, ``ax3_launches`` and
-# ``ax3_c64_launches`` on the axis(-3) view, ``fft2f_launches`` and
+# ``ax3_c64_launches`` on the axis(-3) view, ``rows_t_launches`` and
+# ``rows_t_c64_launches`` for rows_t_fft, ``fft2f_launches`` and
 # ``fft2f_c64_launches`` for fft2f_fft, ``r2c_launches`` and
 # ``r2c_c64_launches`` for r2c_fft, ``c2r_launches`` and
 # ``c2r_c64_launches`` for c2r_fft's C2R (not its product form), and
@@ -110,6 +114,7 @@ ax0_gen_launches = 0
 ax3_launches = 0
 ax3_c64_launches = 0
 rows_t_launches = 0
+rows_t_c64_launches = 0
 fft2f_launches = 0
 fft2f_c64_launches = 0
 r2c_launches = 0
@@ -629,30 +634,65 @@ def _outer_plane_two_level(rows: int, n: int, outer_n: int, sign: int, device):
     return wr, wi
 
 
+def _rows_t_tables(n: int, sign: int, outer, device):
+    """The rows_t_fft kernel's tables as pointers and numbers: n's pass
+    roots (:func:`_pass_roots_np`), then the outer twiddle's (hi, lo,
+    outer_n, S), or nulls and zeros without one."""
+    tw = _twiddle_table(n, sign, device, _pass_roots_np).data_ptr()
+    if outer is None:
+        return tw, None, None, 0, 0
+    outer_n = int(outer[1])
+    hi, lo, S = _outer_tables(outer_n, sign, device)
+    return tw, hi.data_ptr(), lo.data_ptr(), outer_n, S
+
+
+def _aligned16(t):
+    """``t`` contiguous, copied where its data does not start on 16 bytes
+    (the rows_t_fft kernel stages its rows 16 bytes a copy)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _rows_t_launch(re, im, sign, scale, outer):
     """Run the rows_t_fft kernel on CUDA tensors: [..., R, n] -> [..., n, R]."""
     global rows_t_launches
     rows, n = re.shape[-2:]
-    re, im = re.contiguous(), im.contiguous()
+    re, im = _aligned16(re), _aligned16(im)
     shape = (*re.shape[:-2], n, rows)
     out = (re.new_empty(shape), im.new_empty(shape))
     if re.numel() == 0:
         return out
     planes = re.numel() // (rows * n)
-    tw = _twiddle_table(n, sign, re.device)
-    outer_n, hi, lo, S = 0, None, None, 0
-    if outer is not None:
-        outer_n = int(outer[1])
-        hi, lo, S = _outer_tables(outer_n, sign, re.device)
-        hi, lo = hi.data_ptr(), lo.data_ptr()
     build.launch("rows_t_fft", "rows_t_fft_f32",
                  [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL, _LL, _I, _I, _F, _P],
                  re.device, re.data_ptr(), im.data_ptr(), out[0].data_ptr(),
-                 out[1].data_ptr(), tw.data_ptr(), hi, lo, outer_n, S, planes, rows,
+                 out[1].data_ptr(), *_rows_t_tables(n, sign, outer, re.device), planes, rows,
                  n.bit_length() - 1, sign, _scale_arg(scale), _stream(re),
                  what=f"rows_t_fft launch failed (n={n}, rows={rows}, planes={planes}, "
                       f"outer={outer})")
     rows_t_launches += 1
+    return out
+
+
+def _rows_t_launch_c64(x, sign, scale, outer):
+    """Run rows_t_fft's complex64 entry on a CUDA ``[..., R, n]`` tensor ->
+    complex64 ``[..., n, R]``, counted as ``rows_t_fft`` and ``rows_t_fft``
+    complex64."""
+    global rows_t_launches, rows_t_c64_launches
+    rows, n = x.shape[-2:]
+    x = _aligned16(x.resolve_conj())
+    out = x.new_empty((*x.shape[:-2], n, rows))
+    if x.numel() == 0:
+        return out
+    planes = x.numel() // (rows * n)
+    build.launch("rows_t_fft", "rows_t_fft_c64",
+                 [_P, _P, _P, _P, _P, _LL, _I, _LL, _LL, _I, _I, _F, _P], x.device,
+                 x.data_ptr(), out.data_ptr(), *_rows_t_tables(n, sign, outer, x.device),
+                 planes, rows, n.bit_length() - 1, sign, _scale_arg(scale), _stream(x),
+                 what=f"rows_t_fft launch failed (n={n}, rows={rows}, planes={planes}, "
+                      f"outer={outer})")
+    rows_t_launches += 1
+    rows_t_c64_launches += 1
     return out
 
 
@@ -662,6 +702,14 @@ def _rows_t(re, im, sign, scale, outer):
     if re.device.type != "cpu":
         raise ValueError(f"no transposed row FFT for device {re.device}")
     return fft_rows_transposed_split_reference(re, im, sign, scale, outer=outer)
+
+
+def _rows_t_c64(x, sign, scale, outer):
+    if x.device.type == "cuda":
+        return _rows_t_launch_c64(x, sign, scale, outer)
+    if x.device.type != "cpu":
+        raise ValueError(f"no transposed row FFT for device {x.device}")
+    return fft_rows_transposed_c64_reference(x, sign, scale, outer=outer)
 
 
 class _RowsTFFT(torch.autograd.Function):
@@ -685,6 +733,24 @@ class _RowsTFFT(torch.autograd.Function):
         return gr, gi, None, None, None
 
 
+class _RowsTFFTC64(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sign, scale, outer):
+        ctx.sign, ctx.scale, ctx.outer = sign, scale, outer
+        return _rows_t_c64(x, sign, scale, outer)
+
+    @staticmethod
+    def backward(ctx, g):
+        # as _RowsTFFT's: back through the transpose, the row kernel's
+        # complex64 entry with the sign flipped, then the conjugate twiddle
+        g = _transform_c64(g.transpose(-1, -2).contiguous(), -ctx.sign, ctx.scale)
+        if ctx.outer is not None:
+            rows, n = g.shape[-2:]
+            g = g * torch.complex(*_outer_plane_two_level(rows, n, int(ctx.outer[1]),
+                                                          -ctx.sign, g.device))
+        return g, None, None, None
+
+
 def fft_rows_transposed_split(re, im, sign, scale=None, *, outer=None):
     """FFT each length-n row of planar float32 ``[..., R, n]`` and return the
     transposed result ``[..., n, R]``.  With ``outer=(n1, outer_n)`` row r is
@@ -698,18 +764,39 @@ def fft_rows_transposed_split(re, im, sign, scale=None, *, outer=None):
 
 
 def fft_rows_transposed_split_reference(re, im, sign, scale=None, *, outer=None):
-    """Plain torch version of :func:`fft_rows_transposed_split`: the twiddle
-    plane as the kernel forms it (:func:`_outer_plane_two_level`), the
-    mixed-radix rows, the scale, then the transpose.  Raises
+    """Plain torch version of :func:`fft_rows_transposed_split`, the
+    kernel's arithmetic: the twiddle plane as the kernel forms it
+    (:func:`_outer_plane_two_level`), n's compiled plan on its pass roots
+    (:func:`_rows_passes`), the scale, then the transpose.  Raises
     :class:`Unsupported` for the same n as the kernel."""
     _check_rows_t(re, outer)
     if outer is not None:
         twr, twi = _outer_plane_two_level(re.shape[-2], re.shape[-1], int(outer[1]),
                                           sign, re.device)
         re, im = re * twr - im * twi, re * twi + im * twr
-    yr, yi = stockham.fft_last_axis(re, im, sign)
-    yr, yi = stockham.apply_scale(yr, yi, scale)
+    yr, yi = _rows_passes(re, im, sign, scale)
     return yr.transpose(-1, -2), yi.transpose(-1, -2)
+
+
+def fft_rows_transposed_c64(x, sign, scale=None, *, outer=None):
+    """:func:`fft_rows_transposed_split` on a complex64 ``[..., R, n]``
+    tensor as it lies (interleaved (re, im) pairs; a non-contiguous one is
+    copied first) -> complex64 ``[..., n, R]``, with no split and no merge:
+    on the card the kernel's interleaved entry, one launch.  Differentiable:
+    the backward runs the row kernel's complex64 entry with the sign flipped
+    and the conjugate twiddle."""
+    _check_c64(x)
+    _check_rows_t(x, outer)
+    _check_sign(sign)
+    return _RowsTFFTC64.apply(x, sign, scale, outer)
+
+
+def fft_rows_transposed_c64_reference(x, sign, scale=None, *, outer=None):
+    """Plain torch version of :func:`fft_rows_transposed_c64`: the plain
+    version of the planar entry on the two planes."""
+    _check_c64(x)
+    return torch.complex(*fft_rows_transposed_split_reference(x.real, x.imag, sign, scale,
+                                                               outer=outer))
 
 
 # ---------------------------------------------------------------------- #

@@ -10,12 +10,16 @@ counterpart of ``ops/fourstep.py``.
 On a CUDA tensor the route is chosen by envelope, never by catching an
 error: a shape in the whole-row kernel's envelope (``bigfft._supported``)
 runs it in one pass (a complex64 tensor reaches that kernel's complex64
-entry straight from the plan, ``Plan._execute_c64``, with no split); otherwise pass 1 is the axis(-2) kernel (through the
-plan's axis -2 route) and pass 2 the transposed-rows kernel with the outer
-twiddle applied at load, so the whole transform is two passes over device
-memory and the final reshape is free.  A CPU tensor, or a factor outside
-the kernels' envelopes, takes the JAX package's route off the TPU: an
-explicit twiddle plane, a row FFT and a corner turn.
+entry straight from the plan, ``Plan._execute_c64``, with no split);
+otherwise pass 1 is the axis(-2) kernel (through the plan's axis -2 route)
+and pass 2 the transposed-rows kernel with the outer twiddle applied at
+load, so the whole transform is two passes over device memory and the
+final reshape is free.  A complex64 tensor takes the same two kernels
+through their complex64 entries (:func:`fft_last_axis_c64`, from
+``Plan._execute_c64`` where :func:`c64_supported` holds): two launches, no
+split and no merge.  A CPU tensor, or a factor outside the kernels'
+envelopes, takes the JAX package's route off the TPU: an explicit twiddle
+plane, a row FFT and a corner turn.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from __future__ import annotations
 from ..core import factor as _factor
 from . import bigfft, cuda_fft, stockham
 
-__all__ = ["fft_last_axis", "choose_factors"]
+__all__ = ["fft_last_axis", "fft_last_axis_c64", "c64_supported", "choose_factors"]
 
 
 def choose_factors(n: int) -> tuple[int, int]:
@@ -79,3 +83,37 @@ def fft_last_axis(re, im, sign, scale=None, *, whole_row=True):
     dr = dr.transpose(-1, -2).reshape(*lead, n)
     di = di.transpose(-1, -2).reshape(*lead, n)
     return dr, di
+
+
+def c64_supported(n: int) -> bool:
+    """Whether :func:`fft_last_axis_c64` takes n: both factors of
+    :func:`choose_factors` in the complex64 entries' envelope (pow2
+    128..16384: the axis(-2) kernel's complex64 entry is pow2 only)."""
+    n1, n2 = choose_factors(n)
+    return n1 > 1 and cuda_fft._supported(n1) and cuda_fft._supported(n2)
+
+
+def _c64(x, sign, scale):
+    n = x.shape[-1]
+    n1, n2 = choose_factors(n)
+    lead = x.shape[:-1]
+    b = cuda_fft._ax0_c64(x.reshape(*lead, n1, n2), sign, None)  # FFT_n1 over axis -2
+    d = cuda_fft._rows_t_c64(b, sign, scale, (n1, n))  # twiddle, FFT_n2, transpose
+    return d.reshape(*lead, n)
+
+
+def fft_last_axis_c64(x, sign, scale=None):
+    """The four-step FFT over the last axis of a complex64 ``[..., n]``
+    tensor as it lies, with no split and no merge: the axis(-2) kernel's
+    complex64 entry on the free view ``[..., n1, n2]``, then the
+    transposed-rows kernel's with the outer twiddle, whose ``[..., n2, n1]``
+    output is the natural-order transform viewed flat; on the card two
+    launches, on the CPU their plain versions.  Differentiable as one
+    linear map: the backward is the same transform with the sign flipped."""
+    cuda_fft._check_c64(x)
+    n = x.shape[-1]
+    if not c64_supported(n):
+        raise cuda_fft.Unsupported(f"n={n} outside the complex64 four-step's envelope "
+                                   f"(factors {choose_factors(n)})")
+    cuda_fft._check_sign(sign)
+    return cuda_fft._SignFlipped.apply(_c64, sign, scale, x)

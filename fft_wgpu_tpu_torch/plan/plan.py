@@ -30,7 +30,8 @@ kernel, where ``"fourstep"`` would take the whole-row kernel); and
 With ``executor="auto"`` a CUDA tensor of pow2 length 128..16384 always
 goes through the row kernel, whatever its row count (a complex64 tensor
 transformed along its last axis through the kernel's interleaved entry, with
-no split and no merge, as on the whole-row kernel's route); pow2 lengths above
+no split and no merge, as on the whole-row kernel's route and the four-step's
+two passes); pow2 lengths above
 16384 go through ``"fourstep"``; composite lengths in the composite-row
 kernel's envelope (non-pow2 512..16384, factors <= 256) through that
 kernel (``cuda_fft.fft_rows_general_split``); any other length runs the
@@ -260,8 +261,12 @@ class Plan:
         free view, the axis(-3) entry), or along its last axis on the
         whole-row kernel's (``"bigfft"``, or ``"fourstep"`` where that
         kernel takes the shape), through the kernel's interleaved entry:
-        one launch, no split and no merge.  None for any other input, which
-        takes the planar path."""
+        one launch, no split and no merge; or along its last axis on the
+        four-step's two passes (``"fourstep"`` where the whole-row kernel
+        does not take the shape, ``"fourstep:two-pass"``; both factors pow2
+        128..16384), through the interleaved entries of the axis(-2) and
+        transposed-rows kernels: two launches, no split and no merge.  None
+        for any other input, which takes the planar path."""
         if not (isinstance(x, torch.Tensor) and x.dtype == torch.complex64
                 and x.is_cuda and x.ndim >= 1 and -x.ndim <= axis < x.ndim
                 and x.shape[axis] == self.n):
@@ -269,9 +274,12 @@ class Plan:
         ex = self._route(x.device, x.shape, axis % x.ndim)
         if ex in _KERNEL or (ex == "axis" and cuda_fft._supported(self.n)):
             return cuda_fft.fft_c64_along(x, axis, sign, scale)
-        if (ex in ("fourstep", "bigfft") and axis % x.ndim == x.ndim - 1
+        last = axis % x.ndim == x.ndim - 1
+        if (ex in ("fourstep", "bigfft") and last
                 and bigfft._supported(self.n, x.numel() // self.n)):
             return bigfft.fft_big_c64(x, sign, scale)
+        if ex in ("fourstep", "fourstep:two-pass") and last and fourstep.c64_supported(self.n):
+            return fourstep.fft_last_axis_c64(x, sign, scale)
         return None
 
     def _run(self, x, axis: int, sign: int, scale):

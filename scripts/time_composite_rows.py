@@ -61,12 +61,20 @@ all of its device work, beside torch.fft's composition, and the welch and
 coherence calls at those shapes; csd's segment sums and the two-sided
 welch's of a complex signal (B17, B21: through both of its sources where
 the tree has them) at the same shapes, and csd of two 2^22 signals and the
-two-sided welch of a complex64 and a real one (set "welch"); and the output bits of the
-kernels kept as they were, chip_smoke.kept_bits (set "bits").
+two-sided welch of a complex64 and a real one (set "welch"); the
+four-step's transposed-rows kernel (B4) at 1024 x 4096 with and without
+the outer twiddle through each of its entries, and at every pow2 n over
+2^22 points with the twiddle, torch.fft of the same rows beside, the 2^22
+four-step (config 3) of planes (plan.forward_split: B2 then B4) and of
+complex64 (plan.forward: where the tree has the entries, B2's and B4's
+complex64 ones), torch.fft.fft and a copy floor (two device copies of the
+32 MiB tensor), and the complex64 plan(2^22) round trip's power gain (set
+"rows_t"); and the output bits of the kernels kept as they were,
+chip_smoke.kept_bits (set "bits").
 
     python3 scripts/time_composite_rows.py [--tree DIR] [--label NAME] [--out FILE]
                                            [--set rows|columns|chirp|pow2|cols|plane|spec|
-                                                  filt|c2c|welch|c2r|bits|all]
+                                                  filt|c2c|welch|c2r|rows_t|bits|all]
 
 ``--tree`` imports ``fft_wgpu_tpu_torch`` from another checkout (for
 example a parent commit unpacked with ``git archive``), so that two
@@ -165,7 +173,7 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="append the JSON line here")
     ap.add_argument("--set", default="all",
                     choices=("rows", "columns", "chirp", "pow2", "cols", "plane", "spec",
-                             "filt", "c2c", "welch", "c2r", "bits", "all"),
+                             "filt", "c2c", "welch", "c2r", "rows_t", "bits", "all"),
                     help="which kernels to time")
     args = ap.parse_args()
 
@@ -206,6 +214,8 @@ def main() -> int:
         time_welch(ft, dev, gen, args.label, result)
     if args.set in ("c2r", "all"):
         time_c2r(ft, cuda_fft, dev, gen, args.label, result)
+    if args.set in ("rows_t", "all"):
+        time_rows_t(ft, cuda_fft, dev, gen, args.label, result)
     if args.set == "bits":
         # the kept kernels' output bits (chip_smoke.kept_bits on this tree's modules)
         sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -237,7 +247,7 @@ def main() -> int:
         print(f"{args.label} | {key} | rel-L2 {err:.3e} | " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in result["times"][key].items()), flush=True)
     if args.set in ("columns", "chirp", "pow2", "cols", "plane", "spec", "filt", "c2c", "welch",
-                    "c2r", "bits"):
+                    "c2r", "rows_t", "bits"):
         return finish(result, args)
     fr = torch.complex(torch.randn(16, 1080, 1920, device=dev, generator=gen),
                        torch.randn(16, 1080, 1920, device=dev, generator=gen))
@@ -985,6 +995,72 @@ def time_c2r(ft, cuda_fft, dev, gen, label, result):
                                n=L)[..., :u.shape[-1] + v.shape[-1] - 1]
         record(key, rel_l2(call(), want), {"call": call, "torch.fft": torch_call},
                {"device all": (call, every), "device kernel": (call, b8)}, reps=20)
+
+
+def time_rows_t(ft, cuda_fft, dev, gen, label, result):
+    """rows_t_fft (B4) at 1024 x 4096, with and without the four-step's
+    outer twiddle, through its planar entry and, where the tree has it, its
+    complex64 one, torch.fft of the rows beside; B4 at every pow2 n over
+    2^22 points with the twiddle; the 2^22 four-step of planes and of
+    complex64 (events, all of their device work, each kernel's), beside
+    torch.fft.fft and a copy floor; the complex64 plan(2^22) round trip's
+    power gain, Re <y, x> / <x, x> - 1."""
+    import torch
+
+    crand = randn_complex(dev, gen)
+    record = recorder(label, result)
+    every = r"\w+"
+    has_c64 = hasattr(cuda_fft, "_rows_t_launch_c64")
+    kern = "rows_t_fft_kernel"
+    for rows, n in [((1 << 22) >> e, 1 << e) for e in range(7, 15)]:
+        x = crand(rows, n)
+        re_, im_ = x.real.contiguous(), x.imag.contiguous()
+        outer = (rows, rows * n)
+        fns = {"kernel": lambda: cuda_fft._rows_t_launch(re_, im_, -1, None, outer),
+               "torch.fft": lambda: torch.fft.fft(x)}
+        device = {"device kernel": (fns["kernel"], kern),
+                  "device torch.fft": (fns["torch.fft"], every)}
+        want = torch.complex(*cuda_fft.fft_rows_transposed_split_reference(
+            re_, im_, -1, outer=outer))
+        err = rel_l2(torch.complex(*fns["kernel"]()), want)
+        if has_c64:
+            fns["kernel_c64"] = lambda: cuda_fft._rows_t_launch_c64(x, -1, None, outer)
+            device["device kernel_c64"] = (fns["kernel_c64"], kern)
+            err = max(err, rel_l2(fns["kernel_c64"](), want))
+        if (rows, n) == (1024, 4096):  # config 3's pass 2
+            fns["kernel_no_outer"] = lambda: cuda_fft._rows_t_launch(re_, im_, -1, None, None)
+            device["device kernel_no_outer"] = (fns["kernel_no_outer"], kern)
+            if has_c64:
+                fns["kernel_c64_no_outer"] = lambda: cuda_fft._rows_t_launch_c64(
+                    x, -1, None, None)
+                device["device kernel_c64_no_outer"] = (fns["kernel_c64_no_outer"], kern)
+        record(f"rows_t_fft {rows}x{n}", err, fns, device, reps=20)
+        del x, re_, im_
+    x = crand(1, 1 << 22)
+    re_, im_ = x.real.contiguous(), x.imag.contiguous()
+    pn = ft.plan(1 << 22)
+    a, b = torch.empty_like(x), torch.empty_like(x)
+    fns = {"forward_split": lambda: pn.forward_split(re_, im_),
+           "forward_c64": lambda: pn.forward(x),
+           "torch.fft": lambda: torch.fft.fft(x),
+           "copy floor": lambda: (a.copy_(x), b.copy_(a))}
+    want = torch.fft.fft(x.to(torch.complex128))
+    err = max(rel_l2(torch.complex(*fns["forward_split"]()), want),
+              rel_l2(fns["forward_c64"](), want))
+    record("plan 1x2^22", err, fns,
+           {"device forward_split": (fns["forward_split"], every),
+            "device forward_split rows_t_fft": (fns["forward_split"], kern),
+            "device forward_split ax0_fft": (fns["forward_split"], "ax0_fft_kernel"),
+            "device forward_c64": (fns["forward_c64"], every),
+            "device forward_c64 rows_t_fft": (fns["forward_c64"], kern),
+            "device forward_c64 ax0_fft": (fns["forward_c64"], "ax0_fft_kernel"),
+            "device torch.fft": (fns["torch.fft"], every),
+            "device copy floor": (fns["copy floor"], every)}, reps=50)
+    x64 = x.to(torch.complex128)
+    y = pn.inverse(pn.forward(x)).to(torch.complex128)
+    gain = float((y * x64.conj()).sum().real / x64.abs().square().sum()) - 1.0
+    result["gain plan 1x2^22 complex64"] = gain
+    print(f"{label} | plan 1x2^22 complex64 round trip | power gain - 1 {gain:+.3e}", flush=True)
 
 
 def randn_complex(dev, gen):

@@ -7,7 +7,7 @@ card, each beside the kernel as it is.
 
     python3 scripts/time_pow2_variants.py
         [--lib rows_fft|big_fft|ax0_fft|fft2f_fft|spec_fft|filt_fft|spec_c2c_fft|
-               welch_acc_fft|c2r_fft]
+               welch_acc_fft|c2r_fft|rows_t_fft]
         [--out FILE]
 
 Variants: rows_fft with every launch bound at 64 registers (1024 threads an
@@ -53,7 +53,23 @@ runs as the kernel there), with 8 and 32 from A alone (the kernel: 16,
 kStageA; B8 runs as the kernel there), and with the launch bound at 64 and
 at 128 registers at every m (the kernel: R2cShape's, 80 registers up to
 m = 4096, then 64); filt_fft's bank at n = 16384 over a cluster of two
-blocks of 8192 points (its own C entry; the kernel: one block a row).
+blocks of 8192 points (its own C entry; the kernel: one block a row);
+rows_t_fft (B4, through both of its entries, with the four-step's outer
+twiddle, at 1024 x 4096 and the other splits of 2^22) in clusters of 16, 4
+and 1 rows (the kernel: 8), with one and two rows of 4096 points a block
+(256 and 512 threads, clusters of 8 and 4 blocks; the kernel: four rows in
+1024 threads, a cluster of 2), with one row of 2048 a block (a cluster of
+8; the kernel: 8 rows, one block), with two rows of 8192 a block (the
+kernel: one), with blocks of 128 threads below 2048 points (the first
+design's: a cluster of 2 blocks of 4 rows at 512, of 4 of 2 rows at 1024;
+the kernel: one block of 8 rows),
+with the launch bound at 64 and at 128 registers (the kernel: RowsShape's,
+80 up to 256 threads), with the lo table read through the cache and not
+staged, with the transposed store pushed (each block writes its row's
+points into their owner block's tile through distributed shared memory,
+the owner stores from its own; the kernel: each block reads its peers'
+rows), and, diagnostics whose output is not checked, with each row stored
+untransposed, as a row kernel would, in clusters and with none.
 Each variant is
 the kernel's source with a line or two rewritten, compiled with the port's
 nvcc flags into ``fft_wgpu_tpu_torch/_build/variants/`` (all at once;
@@ -416,6 +432,131 @@ ROWS_SHAPES = ((4096, 4096), (2048, 2048), (2500, 512), (1000, 128), (1024, 1638
 BIG_SHAPES = ((64, 15), (256, 16), (32, 17))
 
 
+# rows_t_fft (B4): cluster size, rows a block, launch bounds, the lo table,
+# and two ways of the transposed store
+ROWS_T_CLUSTER = "constexpr int kRowsTCluster = 8;   // rows a cluster stores together\n"
+ROWS_T_ROWS = "  static constexpr int kRows = rows_t_rows(kThreads);\n"
+ROWS_T_BOUND = ("  static constexpr int kMinBlocks = kBlock <= 128 ? 6 : kBlock == 256 ? 3 : "
+                "1024 / kBlock;\n")
+ROWS_T_LO = ("  float2* lo = smem + S::kRowPairs;\n",
+             "    for (int t = flat; t < (1 << g.lo_bits); t += S::kBlock) lo[t] = __ldg(&g.lo[t]);\n")
+ROWS_T_STORE = r"""  const int t = flat % CT;
+  float2* p = smem + (t % S::kRows) * S::kLd;
+  if constexpr (C > 1) {
+    cluster.sync();  // every block's rows are transformed
+    p = cluster.map_shared_rank(p, t / S::kRows);
+  }
+  const bool out = rc0 + t < g.rows;
+  constexpr int kStep = S::kBlock / CT;
+  constexpr int kIters = N / C / kStep;
+  const int k0 = cb * (N / C) + flat / CT;
+  const size_t base = static_cast<size_t>(plane) * N * g.rows + rc0 + t;
+  float2 v[kIters];
+#pragma unroll
+  for (int i = 0; i < kIters; ++i) v[i] = p[padded(k0 + i * kStep)];
+  if (out) {
+#pragma unroll
+    for (int i = 0; i < kIters; ++i) {
+      const size_t o = base + static_cast<size_t>(k0 + i * kStep) * g.rows;
+      if constexpr (C64) {
+        g.out[o] = make_float2(v[i].x * g.scale, v[i].y * g.scale);
+      } else {
+        g.out_re[o] = v[i].x * g.scale;
+        g.out_im[o] = v[i].y * g.scale;
+      }
+    }
+  }
+  if constexpr (C > 1) cluster.sync();  // no block exits while another reads its rows
+}
+"""
+ROWS_T_PUSH = r"""  constexpr int T = S::kThreads;
+  constexpr int kHold = N / T;
+  const float2* own = smem + threadIdx.y * S::kLd;
+  float2 v[kHold];
+#pragma unroll
+  for (int i = 0; i < kHold; ++i) v[i] = own[padded(static_cast<int>(threadIdx.x) + i * T)];
+  if constexpr (C > 1) cluster.sync(); else __syncthreads();  // every row is read
+  const int slot = cb * S::kRows + static_cast<int>(threadIdx.y);
+#pragma unroll
+  for (int i = 0; i < kHold; ++i) {
+    const int k = static_cast<int>(threadIdx.x) + i * T;
+    float2* dst = smem;
+    if constexpr (C > 1) dst = cluster.map_shared_rank(smem, k / (N / C));
+    dst[padded((k % (N / C)) * CT + slot)] = v[i];
+  }
+  if constexpr (C > 1) cluster.sync(); else __syncthreads();  // every tile is filled
+  const int t = flat % CT;
+  const bool out = rc0 + t < g.rows;
+  constexpr int kStep = S::kBlock / CT;
+  constexpr int kIters = N / C / kStep;
+  const size_t base = static_cast<size_t>(plane) * N * g.rows + rc0 + t;
+  if (out) {
+#pragma unroll
+    for (int i = 0; i < kIters; ++i) {
+      const int kk = flat / CT + i * kStep;
+      const float2 w = smem[padded(kk * CT + t)];
+      const size_t o = base + static_cast<size_t>(cb * (N / C) + kk) * g.rows;
+      if constexpr (C64) {
+        g.out[o] = make_float2(w.x * g.scale, w.y * g.scale);
+      } else {
+        g.out_re[o] = w.x * g.scale;
+        g.out_im[o] = w.y * g.scale;
+      }
+    }
+  }
+}
+"""
+ROWS_T_UNTRANSPOSED = r"""  constexpr int T = S::kThreads;
+  const float2* own = smem + threadIdx.y * S::kLd;
+  if (valid) {
+#pragma unroll
+    for (int i = 0; i < N / T; ++i) {
+      const int k = static_cast<int>(threadIdx.x) + i * T;
+      const float2 w = own[padded(k)];
+      if constexpr (C64) {
+        g.out[off + k] = make_float2(w.x * g.scale, w.y * g.scale);
+      } else {
+        g.out_re[off + k] = w.x * g.scale;
+        g.out_im[off + k] = w.y * g.scale;
+      }
+    }
+  }
+  if constexpr (C > 1) cluster.sync();
+}
+"""
+VARIANTS.update({
+    ("rows_t_fft", "kernel"): None,
+    ("rows_t_fft", "cluster of 16 rows"): (ROWS_T_CLUSTER, ROWS_T_CLUSTER.replace("8;", "16;")),
+    ("rows_t_fft", "cluster of 4 rows"): (ROWS_T_CLUSTER, ROWS_T_CLUSTER.replace("8;", "4;")),
+    ("rows_t_fft", "one row of 4096 a block"): (
+        ROWS_T_ROWS, "  static constexpr int kRows = kThreads == 256 ? 1 : rows_t_rows(kThreads);\n"),
+    ("rows_t_fft", "two rows of 4096 a block"): (
+        ROWS_T_ROWS, "  static constexpr int kRows = kThreads == 256 ? 2 : rows_t_rows(kThreads);\n"),
+    ("rows_t_fft", "one row of 2048 a block"): (
+        ROWS_T_ROWS, "  static constexpr int kRows = kThreads == 128 ? 1 : rows_t_rows(kThreads);\n"),
+    ("rows_t_fft", "two rows of 8192 a block"): (
+        ROWS_T_ROWS, "  static constexpr int kRows = kThreads == 512 ? 2 : rows_t_rows(kThreads);\n"),
+    ("rows_t_fft", "128 threads a block below 2048"): (
+        ROWS_T_ROWS, "  static constexpr int kRows = kThreads >= 128 ? rows_t_rows(kThreads) : 128 / kThreads;\n"),
+    ("rows_t_fft", "cluster of 1 row"): (ROWS_T_CLUSTER, ROWS_T_CLUSTER.replace("8;", "1;")),
+    ("rows_t_fft", "64 registers"): (
+        ROWS_T_BOUND, "  static constexpr int kMinBlocks = 1024 / kBlock;\n"),
+    ("rows_t_fft", "128 registers"): (
+        ROWS_T_BOUND, "  static constexpr int kMinBlocks = kBlock <= 512 ? 512 / kBlock : 1;\n"),
+    ("rows_t_fft", "lo not staged"): ((ROWS_T_LO[0], "  const float2* lo = g.lo;\n"),
+                                      (ROWS_T_LO[1], "")),
+    ("rows_t_fft", "pushed store"): (ROWS_T_STORE, ROWS_T_PUSH),
+    ("rows_t_fft", "untransposed (diagnostic)"): (ROWS_T_STORE, ROWS_T_UNTRANSPOSED),
+    ("rows_t_fft", "untransposed, no cluster (diagnostic)"): (
+        (ROWS_T_STORE, ROWS_T_UNTRANSPOSED), (ROWS_T_CLUSTER, ROWS_T_CLUSTER.replace("8;", "1;"))),
+})
+# variants whose output is not the transform (timed, not checked)
+UNCHECKED = {"untransposed (diagnostic)", "untransposed, no cluster (diagnostic)"}
+# B4's shapes: the 2^22 four-step's pass 2 and the other splits of 2^22
+ROWS_T_SHAPES = ((1024, 4096), (4096, 1024), (8192, 512), (16384, 256), (2048, 2048),
+                 (512, 8192), (256, 16384))
+
+
 def _bank_cluster_roots_np(n: int, sign: int):
     """The bank cluster variant's table (ops/bigfft.py::_big_roots_np's
     layout at C = 2): the lane roots w_n^(l*k1) as [2][32], the warp roots
@@ -463,7 +604,8 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="append the JSON line here")
     ap.add_argument("--lib", default=None,
                     choices=("rows_fft", "big_fft", "ax0_fft", "fft2f_fft", "spec_fft",
-                             "filt_fft", "spec_c2c_fft", "welch_acc_fft", "c2r_fft"),
+                             "filt_fft", "spec_c2c_fft", "welch_acc_fft", "c2r_fft",
+                             "rows_t_fft"),
                     help="only this kernel's variants")
     args = ap.parse_args()
     if args.lib:
@@ -521,13 +663,15 @@ def main() -> int:
                       "fft2f_fft": [P, P, P, P, LL, I, I, I, I, F, P],
                       "spec_fft": [P, P, P, P, P, LL, LL] + [I] * 7 + [F, P],
                       "filt_fft": [P] * 4 + [LL, I, I, I, F, P],
-                      "spec_c2c_fft": [P] * 6 + [LL, LL] + [I] * 5 + [F, P]}[lib_name]
+                      "spec_c2c_fft": [P] * 6 + [LL, LL] + [I] * 5 + [F, P],
+                      "rows_t_fft": [P] * 5 + [LL, I, LL, LL, I, I, F, P]}[lib_name]
         f.restype = I
         fns[lib_name, name] = f
-        if lib_name in ("ax0_fft", "fft2f_fft"):
+        if lib_name in ("ax0_fft", "fft2f_fft", "rows_t_fft"):
             f = getattr(ctypes.CDLL(lib), f"{lib_name}_f32")
             f.argtypes = {"ax0_fft": [P, P, P, P, P, P, LL, LL, I, I, I, F, P],
-                          "fft2f_fft": [P, P, P, P, P, P, LL, I, I, I, I, F, P]}[lib_name]
+                          "fft2f_fft": [P, P, P, P, P, P, LL, I, I, I, I, F, P],
+                          "rows_t_fft": [P] * 7 + [LL, I, LL, LL, I, I, F, P]}[lib_name]
             f.restype = I
             fns[f"{lib_name}_f32", name] = f
     dev = torch.device("cuda", 0)
@@ -541,6 +685,8 @@ def main() -> int:
         result["times"][key] = {}
         for name, call in calls.items():
             err = rel_l2(call(), want)
+            if name in UNCHECKED:
+                continue
             if err > TOL:
                 raise RuntimeError(f"{name} at {key}: rel-L2 {err:.3e} > {TOL}")
         samples = {name: [] for name in calls}
@@ -917,6 +1063,38 @@ def main() -> int:
         run(f"welch_acc_fft {kind} {rows}x{t} nperseg={nperseg} hop={nperseg // 2}", x, want,
             calls, r"\w+")
         del x, y
+    def rows_t_call(name, f, x, out, c64):
+        rows, n = x.shape
+        outer_n = rows * n
+        tw = cuda_fft._twiddle_table(n, -1, dev, cuda_fft._pass_roots_np)
+        hi, lo, bits = cuda_fft._outer_tables(outer_n, -1, dev)
+        if c64:
+            held = (x, out)
+        else:  # the planes live as long as the call
+            held = (x.real.contiguous(), x.imag.contiguous(), torch.empty(n, rows, device=dev),
+                    torch.empty(n, rows, device=dev))
+        args = tuple(t.data_ptr() for t in held + (tw, hi, lo))
+
+        def call():
+            err = f(*args, outer_n, bits, 1, rows, n.bit_length() - 1, -1, 1.0, stream)
+            if err:
+                raise RuntimeError(f"rows_t_fft variant {name!r}: CUDA error {err}")
+            return out if c64 else torch.complex(held[2], held[3])
+        return call
+
+    for rows, n in ROWS_T_SHAPES if ("rows_t_fft", "kernel") in VARIANTS else ():
+        x = torch.complex(torch.randn(rows, n, device=dev, generator=gen),
+                          torch.randn(rows, n, device=dev, generator=gen))
+        out = torch.empty(n, rows, dtype=torch.complex64, device=dev)
+        r = torch.arange(rows, device=dev)[:, None]
+        m = torch.arange(n, device=dev)[None, :]
+        ang = (-2 * np.pi / (rows * n)) * ((r * m) % (rows * n)).double()
+        want = torch.fft.fft(x.to(torch.complex128) * torch.polar(torch.ones_like(ang), ang)).T
+        for lib, c64 in (("rows_t_fft", True), ("rows_t_fft_f32", False)):
+            run(f"{lib} {rows}x{n} outer", x, want,
+                {name: rows_t_call(name, f, x, out, c64) for (lb, name), f in fns.items()
+                 if lb == lib}, "rows_t_fft_kernel")
+        del x, out
     line = json.dumps(result)
     if args.out:
         with open(args.out, "a") as f:

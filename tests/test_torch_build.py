@@ -37,7 +37,13 @@ def test_hash_ignores_headers_not_included(csrc):
 
 
 def test_port_sources_include_the_shared_passes():
+    # every kernel's passes are mixed_fft.cuh's; the radix-4 header they
+    # once shared is gone
     names = {p.name for p in build._sources(build.CSRC / "rows_fft.cu")}
-    assert names == {"rows_fft.cu", "mixed_fft.cuh", "stockham.cuh"}
+    assert names == {"rows_fft.cu", "mixed_fft.cuh"}
     for name in ("ax0_fft", "rows_t_fft", "big_fft"):
-        assert "stockham.cuh" in {p.name for p in build._sources(build.CSRC / f"{name}.cu")}
+        assert {p.name for p in build._sources(build.CSRC / f"{name}.cu")} \
+            == {f"{name}.cu", "mixed_fft.cuh"}
+    assert not (build.CSRC / "stockham.cuh").exists()
+    assert not any('"stockham.cuh"' in p.read_text() for p in build.CSRC.iterdir()
+                   if p.suffix in (".cu", ".cuh"))

@@ -242,6 +242,56 @@ def test_rows_transposed_kernel_matches_plain(dev, n, rows, with_outer):
         assert rel_l2(k, _outer_oracle(x, sign, scale, outer)) < TOL, (sign, scale)
 
 
+@pytest.mark.parametrize("n", [1 << e for e in range(7, 15)])
+@pytest.mark.parametrize("rows", [1, 7, 200, 1024])
+@pytest.mark.parametrize("with_outer", [None, "pow2", "non-pow2", "wide"])
+def test_rows_transposed_c64_kernel_matches_plain(dev, n, rows, with_outer):
+    # the complex64 entry: the same kernel on interleaved pairs, with a
+    # counter of its own beside rows_t_launches
+    outer = {None: None, "pow2": (rows, rows * n), "non-pow2": (rows, 3 << 12),
+             "wide": (rows, (1 << 31) + 11)}[with_outer]
+    x = crand(dev, 2, rows, n)
+    for sign, scale in ((-1, None), (1, 1.0 / n)):
+        before = cuda_fft.rows_t_launches, cuda_fft.rows_t_c64_launches
+        k = cuda_fft.fft_rows_transposed_c64(x, sign, scale, outer=outer)
+        assert (cuda_fft.rows_t_launches, cuda_fft.rows_t_c64_launches) == (
+            before[0] + 1, before[1] + 1)
+        assert k.shape == (2, n, rows) and k.dtype == torch.complex64
+        p = cuda_fft.fft_rows_transposed_c64_reference(x, sign, scale, outer=outer)
+        assert rel_l2(k, p) < TOL, (sign, scale)
+        assert rel_l2(k, _outer_oracle(x, sign, scale, outer)) < TOL, (sign, scale)
+
+
+def test_rows_transposed_c64_misaligned_view(dev):
+    # a view whose data starts 8 bytes past 16: the wrapper hands the kernel
+    # an aligned copy (its rows are staged 16 bytes a copy)
+    big = crand(dev, 1024 * 4096 + 1)
+    x = big[1:].view(1024, 4096)
+    assert x.data_ptr() % 16 == 8
+    k = cuda_fft.fft_rows_transposed_c64(x, -1, None, outer=(1024, 1 << 22))
+    assert rel_l2(k, _outer_oracle(x, -1, None, (1024, 1 << 22))) < TOL
+
+
+@pytest.mark.parametrize("rows,e", [(1, 22), (4, 22), (1, 20), (3, 17)])
+def test_complex64_fourstep_is_two_launches(dev, rows, e):
+    # complex64 plan(n).forward / inverse along the last axis where the
+    # whole-row kernel does not serve: the complex64 entries of the
+    # axis(-2) and transposed-rows kernels, once each, no split or merge
+    n = 1 << e
+    x = crand(dev, rows, n)
+    p = ft.plan(n, executor="fourstep" if e == 17 else "auto")
+    if e == 17:
+        p._route = lambda device, shape, axis: "fourstep:two-pass"
+    for fn, want in ((p.forward, torch.fft.fft(x)), (p.inverse, torch.fft.ifft(x))):
+        before = (cuda_fft.ax0_c64_launches, cuda_fft.rows_t_c64_launches, cuda_fft.launches,
+                  bigfft.launches)
+        y = fn(x)
+        after = (cuda_fft.ax0_c64_launches, cuda_fft.rows_t_c64_launches, cuda_fft.launches,
+                 bigfft.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0, 0)
+        assert y.dtype == torch.complex64 and rel_l2(y, want) < TOL
+
+
 @pytest.mark.parametrize("layout", ["planar", "c64"])
 @pytest.mark.parametrize("e", [15, 16, 17, 18])
 @pytest.mark.parametrize("rows", [1, 3])
@@ -303,6 +353,21 @@ def test_donate_on_bigfft_route(dev, layout):
         x0 = x.clone()
         assert rel_l2(p.forward(x), torch.fft.fft(x0)) < TOL and torch.equal(x, x0)
     assert bigfft.launches == before + 1
+
+
+@pytest.mark.parametrize("outer", [None, (64, 64 * 4096)])
+def test_grad_rows_transposed_c64_matches_plain(dev, outer):
+    run = _grad(64, 4096)
+    before = cuda_fft.rows_t_c64_launches, cuda_fft.c64_launches
+    gk = run(lambda r, i: (lambda y: (y.real, y.imag))(cuda_fft.fft_rows_transposed_c64(
+        torch.complex(r, i), -1, outer=outer)))
+    # the forward is the transposed-rows kernel's complex64 entry, the
+    # backward the row kernel's
+    assert (cuda_fft.rows_t_c64_launches, cuda_fft.c64_launches) == (before[0] + 1,
+                                                                     before[1] + 1)
+    gp = run(lambda r, i: cuda_fft.fft_rows_transposed_split_reference(
+        r, i, -1, outer=outer))
+    assert rel_l2(gk, gp) < TOL
 
 
 def test_grad_axis0_matches_plain(dev):
