@@ -48,7 +48,12 @@ non-zero without a result line:
              through its planar entry and its complex64 entry
              (rows_t_fft_c64);
              big_fft for every n of its envelope at rows 1 and 3, and at
-             256 x 2^16, planar (big_fft) and complex64 (big_fft_c64);
+             256 x 2^16, planar (big_fft) and complex64 (big_fft_c64),
+             and both at 2 x 2^15 and 2 x 2^18 against the plain model of
+             its own decomposition (bigfft._big_passes), with its
+             forward-inverse round trip's power gain at 64 x 2^16 and
+             64 x 2^18 in both entries and how many of its clusters fit
+             on the card at once, each n (cudaOccupancyMaxActiveClusters);
              the axis(-3) pass (ax0_fft on a free view) at [2, n, 7, 130]
              and 256^3, and its complex64 entry (ax3_fft_c64) at
              [2, n, 7, 13] for every n, 256^3 and 512^3; fft2f_fft at every
@@ -262,7 +267,11 @@ non-zero without a result line:
              epilogues', the estimators' and the per-segment spectra's
              kernels at their path's shapes beside torch.fft's composition
              (ax0_gen also at 16 x 4095 x 512)
-             of the same function; a torch.profiler breakdown of the
+             of the same function; big_fft in both layouts beside the
+             four-step's two passes (complex64), torch.fft and a copy,
+             device ms in turns at 64 x 2^15, 256 x 2^16, 16 x 2^17,
+             256 x 2^17, 16 x 2^18 and 64 x 2^18, each with its bound;
+             a torch.profiler breakdown of the
              non-pow2 path's, the fused epilogues', the estimators' and the
              per-segment spectra's calls.
 
@@ -555,6 +564,73 @@ def time_in_turns(fns: dict, reps: int = 30) -> dict:
         for k in order:
             samples[k].append(time_ms(fns[k], reps))
     return {k: statistics.median(v) for k, v in samples.items()}
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device ms per call of fn(): all of its device work in a
+    torch.profiler window of ``reps`` calls after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a window now and then comes back with no device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy > 0:
+            return busy / 1e3 / reps
+    raise RuntimeError("check failed: the profiler saw no device time in three windows")
+
+
+def device_in_turns(fns: dict, reps: int = 20) -> dict:
+    """Device ms per call of each version, two rounds in turns; the mean
+    of each version's two."""
+    samples = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            samples[k].append(device_ms(fns[k], reps))
+    return {k: sum(v) / len(v) for k, v in samples.items()}
+
+
+# (rows, log2 n) of the whole-row kernel's table of times: the main path's
+# shapes and each side of the static route's crossover
+BIG_SHAPES = ((64, 15), (256, 16), (16, 17), (256, 17), (16, 18), (64, 18))
+
+
+def big_times(dev, gen, smi) -> dict:
+    """The whole-row kernel (B15) through both entries, the four-step's two
+    passes (``fourstep.fft_last_axis_c64``: B2 then B4, complex64),
+    torch.fft.fft and a copy of the rows (read once, written once), device
+    ms in turns at each of BIG_SHAPES, each beside its bound (16 bytes a
+    point, 5 n log2 n flops a row)."""
+    import torch
+    from fft_wgpu_tpu_torch.ops import bigfft, fourstep
+
+    out = {}
+    for rows, e in BIG_SHAPES:
+        n = 1 << e
+        x = torch.complex(torch.randn(rows, n, device=dev, generator=gen),
+                          torch.randn(rows, n, device=dev, generator=gen))
+        re, im = x.real.contiguous(), x.imag.contiguous()
+        y = torch.empty_like(x)
+        t = device_in_turns({
+            "kernel": lambda: bigfft._launch(re, im, -1, None),
+            "kernel_c64": lambda: bigfft._launch_c64(x, -1, None),
+            "two-pass": lambda: fourstep.fft_last_axis_c64(x, -1),
+            "torch.fft": lambda: torch.fft.fft(x),
+            "copy": lambda: y.copy_(x),
+        })
+        ms, by = bound(16.0 * rows * n, fft_flops(n, rows))
+        out[f"{rows}x2^{e}"] = dict(t, bound=ms)
+        print(f"times: {smi} | big_fft {rows}x2^{e} | device ms (torch.profiler, 20 calls, 2 "
+              "rounds in turns) | " + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+              + f" | bound {ms:.4f} ({by})", flush=True)
+        del x, re, im, y
+    return out
 
 
 def counts() -> dict:
@@ -1363,6 +1439,56 @@ ROUND_TRIP_TOL = 6e-8  # |power gain - 1| of the row kernel's forward-inverse pa
 # 700.00 W.  Past ROUND_TRIP_TOL already, so the complex64 pair is held
 # to no worse.
 FOURSTEP_ROUND_TRIP_TOL = 8.965e-8
+
+
+# |power gain - 1| of the whole-row kernel's forward-inverse pair, 64 rows,
+# through its planar and complex64 entries, in the two-crossing design it
+# had before its one-crossing redesign (scripts/round_trip_gains.py on that
+# tree; NVIDIA H100 80GB HBM3, 700.00 W): within ROUND_TRIP_TOL, as the
+# redesign is held to be; printed beside its gains.
+BIG_ROUND_TRIP_TWO_CROSSING = {
+    ("big_fft", 1 << 16): -5.547e-08, ("big_fft_c64", 1 << 16): -5.527e-08,
+    ("big_fft", 1 << 18): -5.025e-08, ("big_fft_c64", 1 << 18): -5.028e-08}
+
+
+def big_checks(bigfft, dev, gen, sweep, c64, oracle) -> None:
+    """The whole-row kernel (B15) beyond its sweep: both entries against
+    the plain model of their own decomposition (``bigfft._big_passes``) at
+    2^15 and 2^18, both signs; the forward-inverse round trip's power gain
+    of both entries at 2^16 and 2^18, held within ROUND_TRIP_TOL, as the
+    design before it was (BIG_ROUND_TRIP_TWO_CROSSING); and how many of its
+    clusters fit on the card at once, each n and entry
+    (cudaOccupancyMaxActiveClusters)."""
+    import torch
+
+    model = [((2, n), None) for n in (1 << 15, 1 << 18)]
+    sweep("big_fft", model, lambda re, im, s, sc, _: bigfft._launch(re, im, s, sc),
+          lambda re, im, s, sc, _: bigfft._big_passes(re, im, s, sc),
+          lambda x, s, sc, _: oracle(x, s, sc))
+    sweep("big_fft_c64", model, c64(bigfft._launch_c64),
+          lambda re, im, s, sc, _: bigfft._big_passes(re, im, s, sc),
+          lambda x, s, sc, _: oracle(x, s, sc))
+    gains = []
+    for n in (1 << 16, 1 << 18):
+        x = torch.complex(torch.randn(64, n, device=dev, generator=gen),
+                          torch.randn(64, n, device=dev, generator=gen))
+        x64 = x.to(torch.complex128)
+        for name, fft in (("big_fft", lambda v, s, sc: torch.complex(*bigfft._launch(
+                               v.real.contiguous(), v.imag.contiguous(), s, sc))),
+                          ("big_fft_c64", lambda v, s, sc: bigfft._launch_c64(v, s, sc))):
+            y = fft(fft(x, -1, None), 1, 1.0 / n).to(torch.complex128)
+            gain = float((y * x64.conj()).sum().real / x64.abs().square().sum()) - 1.0
+            check(abs(gain) <= ROUND_TRIP_TOL, f"{name} round trip 64x{n}: gain - 1 {gain:+.3e}")
+            gains.append(f"{name} 64x{n} {gain:+.3e} (two crossings "
+                         f"{BIG_ROUND_TRIP_TWO_CROSSING[name, n]:+.3e})")
+        del x, x64, y
+    print(f"kernel big_fft: round-trip gain - 1 (held within {ROUND_TRIP_TOL:.0e}): "
+          + ", ".join(gains), flush=True)
+    fits = {f"2^{n.bit_length() - 1} C={bigfft._cluster(n)} {'c64' if c else 'f32'}":
+            bigfft._max_clusters(n, c, dev)
+            for n in (1 << e for e in range(15, 19)) for c in (True, False)}
+    check(all(v > 0 for v in fits.values()), f"big_fft: a cluster does not fit: {fits}")
+    print(f"kernel big_fft: clusters at once (cudaOccupancyMaxActiveClusters) {fits}", flush=True)
 
 
 def ks_reference(u0: np.ndarray, length: float, h: float, steps: int) -> np.ndarray:
@@ -3056,6 +3182,7 @@ def main() -> int:
           c64(bigfft._launch_c64),
           lambda re, im, s, sc, _: bigfft.fft_big_split_reference(re, im, s, sc),
           lambda x, s, sc, _: oracle(x, s, sc))
+    big_checks(bigfft, dev, gen, sweep, c64, oracle)
     sweep("ax3_fft",
           [((2, n, 7, 130), None) for n in (128, 1000, 1024, 16384)]
           + [((256, 256, 256), None)],
@@ -3759,8 +3886,10 @@ def main() -> int:
     errs["plan2^22_fwd_split"] = check_close(torch.complex(Xr, Xi), torch.fft.fft(x),
                                              "plan(2^22).forward_split")
     del x, X, xu, x64, y, re, im, Xr, Xi
+    # each side of the static route's crossover (bigfft.TWO_PASS_FROM) too
     for rows, e, kernels in ((4, 22, two_pass), (1, 20, two_pass),
-                             (256, 16, whole), (1, 17, whole)):
+                             (256, 16, whole), (1, 17, whole), (64, 17, whole),
+                             (256, 17, two_pass), (16, 18, whole), (64, 18, two_pass)):
         x = crand(rows, 1 << e)
         X = through(f"fft {rows}x2^{e}", lambda: ft.fft(x), **kernels)
         errs[f"fft_{rows}x2^{e}"] = check_close(X, torch.fft.fft(x), f"fft {rows}x2^{e}")
@@ -4436,6 +4565,7 @@ def main() -> int:
     }, reps=20)
     del x, re, im
 
+    big_times(dev, gen, smi)
     for rows, e in ((1, 22), (4, 22), (1, 20), (256, 16)):
         x = crand(rows, 1 << e)
         re, im = planes(x)

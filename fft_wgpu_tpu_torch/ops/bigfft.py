@@ -5,9 +5,10 @@ device memory sees one read and one write per point and no
 ``[.., n] <-> [.., n1, n2]`` relayout.  On the TPU the row stays in VMEM; on
 Hopper a row of 2^15 points (256 KB) is more than one block's 227 KB of
 shared memory, so a thread-block cluster of 4, 8 or 16 blocks holds it
-and exchanges through distributed shared memory (``csrc/big_fft.cu``): a
-C-point butterfly over the blocks, each block's Q = n/C-point transform on
-the compiled passes of ``csrc/mixed_fft.cuh``, and a store in natural order.
+(``csrc/big_fft.cu``): each block the Q = n/C-point transform of its
+decimated row x[q*C + b] on the compiled passes of ``csrc/mixed_fft.cuh``,
+read from device memory at stride C, then a C-point butterfly across the
+blocks through distributed shared memory and a store in natural order.
 Two entry points: planar (re, im) float32 planes (:func:`fft_big_split`)
 and complex64 as it lies (:func:`fft_big_c64`, the plan's route for a
 complex64 tensor, with no split and no merge).
@@ -17,7 +18,10 @@ The envelope is Hopper's, not the v5e one: ``BIG_MAX_N`` is set by
 plays no part in it, since every row is its own cluster.  A CUDA tensor in
 the envelope launches the kernel, a CPU tensor runs the plain version
 (:func:`fft_big_split_reference`), and a shape outside it raises
-:class:`Unsupported` on either device.
+:class:`Unsupported` on either device.  Which row counts the static route
+sends here is a rule of its own (:func:`takes`, the crossover to the
+four-step's two passes measured on the card, as the JAX package's
+``BATCHED_MAX_N`` was on a v5e).
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ from . import cuda_fft, stockham
 from .cuda_fft import Unsupported, _P, _I, _LL, _F
 
 __all__ = ["fft_big_split", "fft_big_split_reference", "fft_big_c64",
-           "fft_big_c64_reference", "BIG_MIN_N", "BIG_MAX_N", "Unsupported"]
+           "fft_big_c64_reference", "takes", "BIG_MIN_N", "BIG_MAX_N", "TWO_PASS_FROM",
+           "Unsupported"]
 
 BIG_MIN_N = 1 << 15  # below: the row kernel holds the row in one block
 BIG_MAX_N = 1 << 18  # 16 blocks of 16384 points, the largest cluster
@@ -58,6 +63,32 @@ def _supported(n: int, rows: int = 1) -> bool:
     return rows * _cluster(n) < 2 ** 31  # the grid's x extent
 
 
+# The static route's crossover (``"auto"`` and ``"fourstep"``), the
+# counterpart of the JAX package's BATCHED_MAX_N: from this many rows of n
+# points on, the four-step's two passes (the axis(-2) kernel then the
+# transposed-rows kernel) are taken instead, through the planar entries
+# (key (n, False)) or the complex64 ones ((n, True)); below it, and at any
+# n and layout not listed, this kernel.  Each is the fewest rows measured
+# at which the two passes' slowest round beat this kernel's fastest, by
+# scripts/tune_large_rows.py (the tuner's timer, rows 1 .. 1024, two
+# rounds) on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6):
+# complex64 2^17 at 128 rows 0.2194 ms against 0.2309; 2^18 at 64 rows
+# 0.2370-0.2383 against 0.3482-0.3503 planar, complex64 at 32 rows
+# 0.1236-0.1304 against 0.1767-0.1768.  Planar 2^17 never crossed (256
+# rows: 0.4283-0.4513 against 0.4482-0.4503), nor did 2^15 or 2^16.
+TWO_PASS_FROM: dict[tuple[int, bool], int] = {
+    (1 << 17, True): 128, (1 << 18, False): 64, (1 << 18, True): 32}
+
+
+def takes(n: int, rows: int, c64: bool = False) -> bool:
+    """Whether the static route sends ``rows`` rows of length n (complex64
+    with ``c64``, else planar) to this kernel: inside its envelope and below
+    :data:`TWO_PASS_FROM`'s crossover.  A route rule, not the envelope:
+    ``executor="bigfft"``, the tuner and the kernel's own entry points take
+    every row count that :func:`_supported` takes."""
+    return _supported(n, rows) and rows < TWO_PASS_FROM.get((n, bool(c64)), 2 ** 31)
+
+
 def _check_envelope(n: int, rows: int) -> None:
     if not _supported(n, rows):
         raise Unsupported(f"n={n} x {rows} rows outside the whole-row kernel "
@@ -72,11 +103,11 @@ def _rows(re) -> int:
 def _big_roots_np(n: int, sign: int):
     """The big_fft kernel's twiddle table for n = C*Q points
     (C = :func:`_cluster`), pairs of float32 values of the f64 roots
-    w_n^e = exp(sign*2pi*i*e/n): the lane roots w_n^(l*k1) as [C][32]
-    (l < 32, k1 < C), the warp roots w_n^(32*m) (m < n/32), then each
+    w_n^e = exp(sign*2pi*i*e/n): the lane roots w_n^(l*c) as [C][32]
+    (l < 32, c < C), the warp roots w_n^(32*m) (m < n/32), then each
     pass's roots of Q's compiled plan (:func:`cuda_fft._pass_roots_np`).
-    Step 3's twiddle w_n^(q*k1) is the warp root of m = (q // 32) * k1
-    times the lane root of (q mod 32, k1)."""
+    The butterfly step's twiddle w_n^(c*k2) is the warp root of
+    m = (k2 // 32) * c times the lane root of (k2 mod 32, c)."""
     c = _cluster(n)
     cos, sin = _tw.roots_np(n, sign)
     idx = np.concatenate([(np.arange(c)[:, None] * np.arange(32)).ravel(),
@@ -90,12 +121,26 @@ def _launch_args(n: int, sign: int, device):
     return tw.data_ptr(), n.bit_length() - 1, _cluster(n).bit_length() - 1
 
 
+def _max_clusters(n: int, c64: bool, device) -> int:
+    """How many of the kernel's clusters for rows of n points (its planar
+    entry's, or with ``c64`` its complex64 entry's) fit on the CUDA
+    ``device`` at once (``cudaOccupancyMaxActiveClusters``)."""
+    import ctypes
+
+    _check_envelope(n, 1)
+    count = ctypes.c_int()
+    build.launch("big_fft", "big_fft_max_clusters", [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
+                 device, n.bit_length() - 1, _cluster(n).bit_length() - 1, int(c64),
+                 ctypes.byref(count), what=f"big_fft cluster occupancy (n={n})")
+    return count.value
+
+
 def _launch(re, im, sign, scale):
     """Run the big_fft kernel on CUDA planes."""
     global launches
     n = re.shape[-1]
     re, im = re.contiguous(), im.contiguous()
-    out = (torch.empty_like(re), torch.empty_like(im))  # 16-byte aligned
+    out = (torch.empty_like(re), torch.empty_like(im))
     rows = _rows(re)
     if rows == 0:
         return out
@@ -114,7 +159,7 @@ def _launch_c64(x, sign, scale):
     global launches, c64_launches
     n = x.shape[-1]
     x = x.resolve_conj().contiguous()
-    out = torch.empty_like(x)  # 16-byte aligned
+    out = torch.empty_like(x)
     rows = _rows(x)
     if rows == 0:
         return out
@@ -185,23 +230,23 @@ def fft_big_c64_reference(x, sign, scale=None):
 
 def _big_passes(re, im, sign, scale=None):
     """Plain torch model of the big_fft kernel's own decomposition on the
-    tables it reads: with C = :func:`_cluster`(n) blocks of Q = n/C points,
-    step 3's C-point DFT over x[c*Q + q] (an f64-generated matrix) times
-    the table twiddle w_n^(q*k1) (warp root times lane root of
-    :func:`_big_roots_np`), step 5's Q-point passes of Q's compiled plan
-    (:func:`cuda_fft._fixed_passes` on the table's pass roots), step 7's
-    order X[C*pos + c] = Z[c, pos], and the scale.  No CUDA path calls it."""
+    tables it reads, with C = :func:`_cluster`(n) blocks of Q = n/C points:
+    each block's Q-point passes of Q's compiled plan
+    (:func:`cuda_fft._fixed_passes` on the table's pass roots) over the
+    decimated row x[q*C + b], the table twiddle w_n^(b*k2) (warp root times
+    lane root of :func:`_big_roots_np`), the C-point DFT over the blocks
+    (an f64-generated matrix), the order X[k2 + Q*k1], and the scale.  No
+    CUDA path calls it."""
     n = re.shape[-1]
     c, q = _cluster(n), n // _cluster(n)
     cos, sin = (torch.from_numpy(t).to(re.device) for t in _big_roots_np(n, sign))
     tab = torch.complex(cos, sin)
-    x = torch.complex(re, im).reshape(*re.shape[:-1], c, q)
+    x = torch.complex(re, im).reshape(*re.shape[:-1], q, c).transpose(-1, -2)  # [b, q]
+    y = cuda_fft._fixed_passes(x, sign, tab[c * 32 + n // 32:], cuda_fft._mixed_radix_plan(q))
+    b = torch.arange(c, device=re.device)[:, None]
+    k2 = torch.arange(q, device=re.device)[None, :]
+    y = y * (tab[c * 32 + (k2 // 32) * b] * tab[b * 32 + k2 % 32])
     wr, wi = cuda_fft._butterfly_matrix(c, sign, re.device)
-    y = torch.complex(wr, wi) @ x  # [k1, q]: the C-point DFT over c
-    k1 = torch.arange(c, device=re.device)[:, None]
-    pos = torch.arange(q, device=re.device)[None, :]
-    y = y * (tab[c * 32 + (pos // 32) * k1] * tab[k1 * 32 + pos % 32])
-    z = cuda_fft._fixed_passes(y, sign, tab[c * 32 + n // 32:],
-                               cuda_fft._mixed_radix_plan(q))
-    x = z.transpose(-1, -2).reshape(*re.shape[:-1], n)
+    z = torch.complex(wr, wi) @ y  # [k1, k2]: the C-point DFT over b
+    x = z.reshape(*re.shape[:-1], n)
     return stockham.apply_scale(x.real.contiguous(), x.imag.contiguous(), scale)

@@ -7,11 +7,12 @@ counterpart of ``ops/fourstep.py``.
     3. D  = FFT_n2 over axis -1        (output scale folded here)
     4. X[k1 + n1*k2] = D[k1, k2]       (transpose-flatten)
 
-On a CUDA tensor the route is chosen by envelope, never by catching an
-error: a shape in the whole-row kernel's envelope (``bigfft._supported``)
-runs it in one pass (a complex64 tensor reaches that kernel's complex64
-entry straight from the plan, ``Plan._execute_c64``, with no split);
-otherwise pass 1 is the axis(-2) kernel (through the plan's axis -2 route)
+On a CUDA tensor the route is chosen by rule, never by catching an
+error: a shape the whole-row kernel takes on the static route
+(``bigfft.takes``: its envelope, below the measured crossover to the two
+passes) runs it in one pass (a complex64 tensor reaches that kernel's
+complex64 entry straight from the plan, ``Plan._execute_c64``, with no
+split); otherwise pass 1 is the axis(-2) kernel (through the plan's axis -2 route)
 and pass 2 the transposed-rows kernel with the outer twiddle applied at
 load, so the whole transform is two passes over device memory and the
 final reshape is free.  A complex64 tensor takes the same two kernels
@@ -54,7 +55,7 @@ def fft_last_axis(re, im, sign, scale=None, *, whole_row=True):
     n = re.shape[-1]
     lead = re.shape[:-1]
     on_card = re.device.type == "cuda"
-    if whole_row and on_card and bigfft._supported(n, re.numel() // n if n else 0):
+    if whole_row and on_card and bigfft.takes(n, re.numel() // n if n else 0):
         return bigfft.fft_big_split(re, im, sign, scale)
 
     n1, n2 = choose_factors(n)

@@ -12,8 +12,9 @@ Executors keep the JAX package's names:
   * ``"xla"``    — the plain-torch mixed-radix path (``ops/stockham.py``)
   * ``"direct"`` — one direct DFT matmul
   * ``"fourstep"`` — the four-step decomposition (``ops/fourstep.py``):
-    on a CUDA tensor the whole-row kernel where its envelope allows, else
-    the axis(-2) kernel then the transposed-rows kernel
+    on a CUDA tensor the whole-row kernel where ``bigfft.takes`` the shape
+    (its envelope, below the rows from which the two passes measured
+    faster), else the axis(-2) kernel then the transposed-rows kernel
   * ``"bigfft"`` — the whole-row kernel (``ops/bigfft.py``); a shape
     outside its envelope raises :class:`~..ops.bigfft.Unsupported`.  On a
     CPU tensor it runs the kernel's plain version (the JAX package's
@@ -259,8 +260,8 @@ class Plan:
         """The transform of a complex64 CUDA tensor on the row kernel's
         route (any axis: the row kernel's, the axis(-2) kernel's or, on the
         free view, the axis(-3) entry), or along its last axis on the
-        whole-row kernel's (``"bigfft"``, or ``"fourstep"`` where that
-        kernel takes the shape), through the kernel's interleaved entry:
+        whole-row kernel's (``"bigfft"``, or ``"fourstep"`` where
+        ``bigfft.takes`` the shape), through the kernel's interleaved entry:
         one launch, no split and no merge; or along its last axis on the
         four-step's two passes (``"fourstep"`` where the whole-row kernel
         does not take the shape, ``"fourstep:two-pass"``; both factors pow2
@@ -275,8 +276,9 @@ class Plan:
         if ex in _KERNEL or (ex == "axis" and cuda_fft._supported(self.n)):
             return cuda_fft.fft_c64_along(x, axis, sign, scale)
         last = axis % x.ndim == x.ndim - 1
-        if (ex in ("fourstep", "bigfft") and last
-                and bigfft._supported(self.n, x.numel() // self.n)):
+        rows = x.numel() // self.n
+        if last and ((ex == "bigfft" and bigfft._supported(self.n, rows))
+                     or (ex == "fourstep" and bigfft.takes(self.n, rows, c64=True))):
             return bigfft.fft_big_c64(x, sign, scale)
         if ex in ("fourstep", "fourstep:two-pass") and last and fourstep.c64_supported(self.n):
             return fourstep.fft_last_axis_c64(x, sign, scale)

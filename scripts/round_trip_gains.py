@@ -9,7 +9,9 @@ copies with part of a change, to compare them on one card):
 * gains: Re <y, x> / <x, x> - 1 in float64, y = inverse(forward(x)) with
   the 1/n scale, on random rows made with numpy from a seed: the row
   kernel (B1) through its planar and complex64 entries at n = 256 and
-  4096 (1000 rows), the whole-row kernel (B15) at 2^16 (64 rows), the
+  4096 (1000 rows), the whole-row kernel (B15) through its planar and
+  complex64 entries at 2^16 and 2^18 (64 rows; a tree with no complex64
+  entry skips it), the
   composite-row kernel (B13) at 4095 (1000 rows), and the plain path
   (``stockham``) at 256 and 4096 beside them;
 * the bright soliton of the NLSE at n = 4096 after 1000 Strang steps
@@ -149,12 +151,16 @@ def main() -> int:
         "rows_fft_c64": lambda x, s, sc: cuda_fft._launch_c64(x.contiguous(), s, sc),
         "plain": planar(cuda_fft.fft_batched_split_reference),
         "big_fft": planar(bigfft._launch),
+        "big_fft_c64": lambda x, s, sc: bigfft._launch_c64(x.contiguous(), s, sc),
         "gen_fft": planar(cuda_fft._gen_launch),
     }
     cases = [("rows_fft", 1000, 256), ("rows_fft", 1000, 4096), ("rows_fft_c64", 1000, 256),
              ("rows_fft_c64", 1000, 4096), ("plain", 1000, 256), ("plain", 1000, 4096),
-             ("big_fft", 64, 1 << 16), ("gen_fft", 1000, 4095)]
+             ("big_fft", 64, 1 << 16), ("big_fft_c64", 64, 1 << 16), ("big_fft", 64, 1 << 18),
+             ("big_fft_c64", 64, 1 << 18), ("gen_fft", 1000, 4095)]
     for name, r, n in cases:
+        if name == "big_fft_c64" and not hasattr(bigfft, "_launch_c64"):
+            continue
         x = rows(r, n)
         y = kernels[name](kernels[name](x, -1, None), 1, 1.0 / n)
         torch.cuda.synchronize()

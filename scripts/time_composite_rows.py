@@ -144,7 +144,7 @@ def device_ms(fn, name, reps=20):
     fn()
     torch.cuda.synchronize()
     # a window now and then comes back without device events: take another
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -155,7 +155,7 @@ def device_ms(fn, name, reps=20):
         if times:
             per_call = max(1, round(len(times) / reps))
             return sum(times) / len(times) * per_call / 1e3
-    raise RuntimeError(f"the profiler saw no {name} kernel in 3 windows")
+    raise RuntimeError(f"the profiler saw no {name} kernel in 5 windows")
 
 
 def rel_l2(got, want):

@@ -8,14 +8,33 @@ card, each beside the kernel as it is.
     python3 scripts/time_pow2_variants.py
         [--lib rows_fft|big_fft|ax0_fft|fft2f_fft|spec_fft|filt_fft|spec_c2c_fft|
                welch_acc_fft|c2r_fft|rows_t_fft]
-        [--out FILE]
+        [--parent DIR] [--out FILE]
 
 Variants: rows_fft with every launch bound at 64 registers (1024 threads an
-SM; the kernel keeps 80 for blocks of 128 and 256 threads); big_fft with
-one 512-thread block an SM at 8192 points a block (128 registers; the
-kernel asks for two, 64 registers); big_fft at 2^15 in clusters of 8 blocks
-of 4096 points (the kernel: 4 of 8192) and at 2^17 in 16 blocks of 8192
-(the kernel: 8 of 16384); ax0_fft (through both of its entries) in its
+SM; the kernel keeps 80 for blocks of 128 and 256 threads); big_fft (B15,
+at 64 x 2^15, 256 x 2^16, 16 and 256 x 2^17, 16 and 64 x 2^18) in other
+designs, each with entry points of its own inserted into the source: the
+decimation in frequency (a block's positions of every chunk read
+contiguously, the C-point butterfly and its twiddle in registers, written
+to their owner blocks through distributed shared memory, and the owners'
+last pass storing at stride C), and two or four decimated rows a block
+(the R points of each 32-byte sector read by one block, R rows of n/(R*C)
+points, the twiddle in the last pass's store, the R-point DFT across lanes)
+or one with the twiddle in the last pass; with one 512-thread block an SM
+(128 registers; the kernel asks for two, 64 registers); at 2^15 in
+clusters of 8 blocks (the kernel: 4) and at 2^17 in 16 (the kernel: 8);
+and, diagnostics whose output is not checked, without the blocks' passes
+(each block's strided points copied into its shared memory), without them
+and with the exchange made local (each block reading its own shared memory
+for its peers'), and with each block's decimated row read as n/C
+contiguous points, with and without the passes and the exchange; with
+``--parent DIR`` (a checkout whose big_fft.cu has the two-crossing design:
+each point written to its owner block through distributed shared memory
+before the blocks' passes and read back from the C blocks after them)
+that design as it is, without its passes, and without them with both
+exchanges made local, in turns with the kernel; big_fft also prints how
+many clusters of each variant fit at once (cudaOccupancyMaxActiveClusters)
+and times its planar entries as well; ax0_fft (through both of its entries) in its
 first design's shapes (clusters from n = 1024 planar and 2048 complex64
 on, 16 planar columns of 512 points a block, 8 complex64 columns of 1024),
 with 2048 points a block's column from 4096 on (the kernel: 1024 at 4096
@@ -91,6 +110,7 @@ import os
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -102,9 +122,6 @@ from time_composite_rows import TOL, device_ms, rel_l2  # noqa: E402
 
 ROWS_BOUND = ("  static constexpr int kMinBlocks = kBlock <= 128 ? 6 : kBlock == 256 ? 3 : "
               "1024 / kBlock;\n")
-BIG_BOUND = "  static constexpr int kMinBlocks = kThreads == 256 ? 3 : kThreads == 512 ? 2 : 1;\n"
-BIG_15 = "    case 15 * 8 + 2: return launch<15, 2, C64>(sign, g, rows, s);\n"
-BIG_17 = "    case 17 * 8 + 3: return launch<17, 3, C64>(sign, g, rows, s);\n"
 AX0_LOG2C = "  constexpr int t[2][8] = {{0, 0, 0, 0, 0, 2, 3, 4}, {0, 0, 0, 0, 0, 0, 2, 3}};\n"
 AX0_COLS = "  constexpr int t[2][8] = {{32, 16, 16, 8, 8, 8, 8, 8}, {32, 16, 8, 8, 8, 4, 4, 4}};\n"
 # the first design's shapes: clusters from 1024 planar (2048 complex64) on,
@@ -119,13 +136,6 @@ VARIANTS = {
     ("rows_fft", "kernel"): None,
     ("rows_fft", "64 registers"): (
         ROWS_BOUND, "  static constexpr int kMinBlocks = 1024 / kBlock;\n"),
-    ("big_fft", "kernel"): None,
-    ("big_fft", "one block of 8192 an SM"): (
-        BIG_BOUND, "  static constexpr int kMinBlocks = kThreads == 256 ? 3 : 1;\n"),
-    ("big_fft", "8 blocks of 4096"): (
-        BIG_15, BIG_15 + "    case 15 * 8 + 3: return launch<15, 3, C64>(sign, g, rows, s);\n"),
-    ("big_fft", "16 blocks of 8192"): (
-        BIG_17, BIG_17 + "    case 17 * 8 + 4: return launch<17, 4, C64>(sign, g, rows, s);\n"),
     ("ax0_fft", "kernel"): None,
     ("ax0_fft", "first design"): AX0_FIRST,
     ("ax0_fft", "2048 a column"): (AX0_LOG2C, AX0_LOG2C.replace(
@@ -427,9 +437,10 @@ FFT2F_SHAPES = ((256, 256, 256), (16, 128, 128), (16, 128, 256), (16, 256, 128),
 AX0_SHAPES = ((1024, 4096), (4096, 4096), (256, 65536), (128, 131072), (512, 32768),
               (2048, 8192), (8192, 2048), (16384, 1024))
 # the cluster sizes of the variants that change them
-CLUSTER = {"8 blocks of 4096": (15, 8), "16 blocks of 8192": (17, 16)}
+CLUSTER = {"8 blocks at 2^15": (15, 8), "16 blocks at 2^17": (17, 16)}
 ROWS_SHAPES = ((4096, 4096), (2048, 2048), (2500, 512), (1000, 128), (1024, 16384))
-BIG_SHAPES = ((64, 15), (256, 16), (32, 17))
+# (rows, log2 n) of big_fft's shapes: the main path's and the route's
+BIG_SHAPES = ((64, 15), (256, 16), (16, 17), (256, 17), (16, 18), (64, 18))
 
 
 # rows_t_fft (B4): cluster size, rows a block, launch bounds, the lo table,
@@ -550,8 +561,522 @@ VARIANTS.update({
     ("rows_t_fft", "untransposed, no cluster (diagnostic)"): (
         (ROWS_T_STORE, ROWS_T_UNTRANSPOSED), (ROWS_T_CLUSTER, ROWS_T_CLUSTER.replace("8;", "1;"))),
 })
+# big_fft (B15): the decimated rows a block, the cluster size at 2^15 and
+# 2^17, the launch bound, the decimation in frequency (its own kernel and
+# entry points, inserted), and diagnostics of its phases (the passes left
+# out; the exchange through distributed shared memory made local as well)
+BIG_BOUND = "  static constexpr int kMinBlocks = kThreads == 256 ? 3 : kThreads == 512 ? 2 : 1;\n"
+BIG_15 = "    case 15 * 8 + 2: return launch<15, 2, C64>(sign, g, rows, s);\n"
+BIG_15_MAX = "    case 15 * 8 + 2: return max_clusters<15, 2, C64>(count);\n"
+BIG_17 = "    case 17 * 8 + 3: return launch<17, 3, C64>(sign, g, rows, s);\n"
+BIG_17_MAX = "    case 17 * 8 + 3: return max_clusters<17, 3, C64>(count);\n"
+BIG_C8_15 = ((BIG_15, BIG_15 + BIG_15.replace("2: return launch<15, 2", "3: return launch<15, 3")),
+             (BIG_15_MAX, BIG_15_MAX + BIG_15_MAX.replace("2: return max_clusters<15, 2",
+                                                          "3: return max_clusters<15, 3")))
+BIG_C16_17 = ((BIG_17, BIG_17 + BIG_17.replace("3: return launch<17, 3", "4: return launch<17, 4")),
+              (BIG_17_MAX, BIG_17_MAX + BIG_17_MAX.replace("3: return max_clusters<17, 3",
+                                                           "4: return max_clusters<17, 4")))
+BIG_PLAN = "  plan_fft<SIGN, LOG2Q>(BigRow<StridedIn<C, C64>>{in, {smem}}, g.tw + C * 32 + N / 32);\n"
+BIG_COPY = """  for (int j = 0; j < 16; ++j) {
+    float u, v;
+    in.load(tid + j * T, u, v);
+    PadShared{smem}.store(tid + j * T, u, v);
+  }
+  __syncthreads();
+"""
+BIG_GATHER = "      PadShared{cluster.map_shared_rank(smem, c)}.load(k2, zr[c], zi[c]);\n"
+BIG_LOCAL = (BIG_GATHER, BIG_GATHER.replace("cluster.map_shared_rank(smem, c)", "smem"))
+# the decimated row read as Q contiguous points from the block's own Q-th of
+# the row (the same bytes, each sector read whole by one block)
+BIG_CONTIGUOUS = (
+    ("      const float2 v = z[static_cast<size_t>(q) * C];\n", "      const float2 v = z[q];\n"),
+    ("      a = r[static_cast<size_t>(q) * C];\n      b = i[static_cast<size_t>(q) * C];\n",
+     "      a = r[q];\n      b = i[q];\n"),
+    ("    in.z = g.in + row + b;\n", "    in.z = g.in + row + b * Q;\n"),
+    ("    in.r = g.in_re + row + b;\n    in.i = g.in_im + row + b;\n",
+     "    in.r = g.in_re + row + b * Q;\n    in.i = g.in_im + row + b * Q;\n"))
+# the decimation in frequency, one decimated row a block: block b reads
+# x[c*Q + q] at its positions q of every chunk c, takes the C-point DFT and
+# the twiddle w_n^(q*k1) in registers, writes Y_k1[q] to block k1 through
+# distributed shared memory, and runs Q's plan, whose last pass stores
+# X[b + C*k2] to device memory at stride C (its table: _RESIDUES = 1's)
+BIG_DIF_ERROR = "const char* big_fft_error_string(int err) {\n"
+BIG_DIF_NAMESPACE_END = "}  // namespace\n"
+BIG_DIF_KERNEL = r"""
+namespace dif {
+template <int C, bool C64>
+struct DifOut {
+  float* r;
+  float* i;
+  float2* z;
+  float scale;
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void store(int k, float a, float b) const {
+    if constexpr (C64) {
+      z[static_cast<size_t>(k) * C] = make_float2(a * scale, b * scale);
+    } else {
+      r[static_cast<size_t>(k) * C] = a * scale;
+      i[static_cast<size_t>(k) * C] = b * scale;
+    }
+  }
+};
+
+template <class Dst>
+struct DifRow {
+  PadShared s;
+  Dst out;
+  __device__ __forceinline__ const PadShared& src() const { return s; }
+  __device__ __forceinline__ const PadShared& shared() const { return s; }
+  __device__ __forceinline__ const Dst& dst() const { return out; }
+};
+
+template <int SIGN, int LOG2N, int LOG2C, bool C64>
+__global__ void __launch_bounds__((1 << (LOG2N - LOG2C)) / 16,
+                                  (1 << (LOG2N - LOG2C)) / 16 == 512 ? 2 : 1)
+big_fft_kernel(const __grid_constant__ BigArgs g) {
+  constexpr int N = 1 << LOG2N, C = 1 << LOG2C, LOG2Q = LOG2N - LOG2C, Q = 1 << LOG2Q;
+  constexpr int T = Q / 16, P = Q / C, PT = 16 / C;
+  extern __shared__ float2 smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = static_cast<int>(cluster.block_rank());
+  const int tid = static_cast<int>(threadIdx.x);
+  const size_t row = static_cast<size_t>(blockIdx.x / C) * N;
+  const float2* lane_tw = g.tw + (tid & 31);
+  const float2* warp_tw = g.tw + C * 32;
+  float xr[PT][C], xi[PT][C];
+#pragma unroll
+  for (int i = 0; i < PT; ++i) {
+    const size_t q = row + b * P + tid + i * T;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if constexpr (C64) {
+        const float2 v = g.in[q + c * Q];
+        xr[i][c] = v.x;
+        xi[i][c] = v.y;
+      } else {
+        xr[i][c] = g.in_re[q + c * Q];
+        xi[i][c] = g.in_im[q + c * Q];
+      }
+    }
+  }
+  cluster.sync();
+#pragma unroll
+  for (int i = 0; i < PT; ++i) {
+    const int q = b * P + tid + i * T;
+    dft<C, SIGN>(xr[i], xi[i]);
+#pragma unroll
+    for (int k1 = 1; k1 < C; ++k1) {
+      float2 w = __ldg(&warp_tw[(q >> 5) * k1]);
+      cmul(w.x, w.y, __ldg(&lane_tw[k1 * 32]));
+      cmul(xr[i][k1], xi[i][k1], w);
+    }
+#pragma unroll
+    for (int k1 = 0; k1 < C; ++k1) {
+      PadShared{cluster.map_shared_rank(smem, k1)}.store(q, xr[i][k1], xi[i][k1]);
+    }
+  }
+  cluster.sync();
+  DifOut<C, C64> out{};
+  out.scale = g.scale;
+  if constexpr (C64) {
+    out.z = g.out + row + b;
+  } else {
+    out.r = g.out_re + row + b;
+    out.i = g.out_im + row + b;
+  }
+  plan_fft<SIGN, LOG2Q>(DifRow<DifOut<C, C64>>{{smem}, out}, g.tw + C * 32 + N / 32);
+}
+
+template <int LOG2N, int LOG2C, bool C64>
+int dif_launch(const BigArgs& g, long long rows, int sign, void* stream) {
+  constexpr int C = 1 << LOG2C, Q = 1 << (LOG2N - LOG2C);
+  auto* kernel = sign < 0 ? big_fft_kernel<-1, LOG2N, LOG2C, C64>
+                          : big_fft_kernel<1, LOG2N, LOG2C, C64>;
+  constexpr int smem = padded_len(Q) * static_cast<int>(sizeof(float2));
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && C > 8) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows * C));
+  cfg.blockDim = dim3(Q / 16);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, g);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <bool C64>
+int dif_dispatch(const BigArgs& g, long long rows, int log2n, int log2c, int sign, void* stream) {
+  switch (log2n * 8 + log2c) {
+    case 15 * 8 + 2: return dif_launch<15, 2, C64>(g, rows, sign, stream);
+    case 16 * 8 + 3: return dif_launch<16, 3, C64>(g, rows, sign, stream);
+    case 17 * 8 + 3: return dif_launch<17, 3, C64>(g, rows, sign, stream);
+    case 18 * 8 + 4: return dif_launch<18, 4, C64>(g, rows, sign, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace dif
+"""
+BIG_DIF_ENTRIES = r"""int big_dif_fft_f32(const void* in_re, const void* in_im, void* out_re, void* out_im,
+                    const void* tw, long long rows, int log2n, int log2c, int sign, float scale,
+                    void* stream) {
+  const BigArgs g{static_cast<const float*>(in_re), static_cast<const float*>(in_im),
+                  static_cast<float*>(out_re), static_cast<float*>(out_im), nullptr, nullptr,
+                  static_cast<const float2*>(tw), scale};
+  return dif::dif_dispatch<false>(g, rows, log2n, log2c, sign, stream);
+}
+
+int big_dif_fft_c64(const void* in, void* out, const void* tw, long long rows, int log2n,
+                    int log2c, int sign, float scale, void* stream) {
+  const BigArgs g{nullptr, nullptr, nullptr, nullptr, static_cast<const float2*>(in),
+                  static_cast<float2*>(out), static_cast<const float2*>(tw), scale};
+  return dif::dif_dispatch<true>(g, rows, log2n, log2c, sign, stream);
+}
+
+"""
+# R decimated rows x[q*G + R*b + r] a block (G = R*C), each a threadIdx.y,
+# so that one block reads the R points of a 32-byte sector: each row's
+# plan of n/G points, its last pass storing Y_s[k] * w_n^(s*k); in the
+# butterfly step the C-point DFT over the blocks for each r, the twiddle
+# w_G^(r*K1) from a table of |w|^2 nearest 1, the R-point DFT over r in
+# registers and across the lanes that share a position; at R = 1 the
+# kernel's steps with the twiddle moved into the last pass's store (its
+# own kernel and entry points, inserted; its table: _rows_roots_np)
+BIG_RES_KERNEL = r"""
+namespace res {
+
+
+// Decimated rows a block, R.
+constexpr int kResRows = 4;
+
+// The shape of n = 2^LOG2N's launch: C = 2^LOG2C blocks of R decimated rows
+// of Q points, G = R*C decimated rows in all; Q/16 threads a decimated row
+// (threadIdx.x; threadIdx.y is the row); the launch bound's blocks an SM (two
+// at 512 threads, 64 registers; up to 80 at 256); decimated rows kLd pairs
+// apart in shared memory (four more than the padded row, so that a warp
+// reading four rows at one position touches four groups of banks).  In the
+// butterfly step a thread holds 16 points: kRpt decimated rows of kPpt
+// positions from the C blocks, kTpp threads sharing a position.
+template <int LOG2N, int LOG2C>
+struct BigShape {
+  static constexpr int kC = 1 << LOG2C;
+  static constexpr int kR = kResRows;
+  static constexpr int kG = kR * kC;
+  static constexpr int kLog2Q = LOG2N - LOG2C - (kR == 4 ? 2 : kR == 2 ? 1 : 0);
+  static constexpr int kQ = 1 << kLog2Q;
+  static constexpr int kX = kQ / 16;
+  static constexpr int kThreads = kX * kR;
+  static constexpr int kMinBlocks = kThreads == 256 ? 3 : kThreads == 512 ? 2 : 1;
+  static constexpr int kLd = padded_len(kQ) + 4;
+  static constexpr int kSmem = kR * kLd * static_cast<int>(sizeof(float2));
+  static constexpr int kTpp = kG > 16 ? kG / 16 : 1;
+  static constexpr int kRpt = kR / kTpp;
+  static constexpr int kPpt = 16 / (kC * kRpt);
+  static_assert(kR == 1 || kR == 2 || kR == 4, "one, two or four decimated rows a block");
+  static_assert(kTpp * kRpt == kR && kPpt * kC * kRpt == 16, "a thread holds 16 points");
+};
+
+// Point q of a block's decimated row, x[q*G] from its first point.
+template <int G, bool C64>
+struct StridedIn {
+  const float* r;  // planar
+  const float* i;
+  const float2* z;  // complex64
+  static constexpr bool kShared = false;
+  __device__ __forceinline__ void load(int q, float& a, float& b) const {
+    if constexpr (C64) {
+      const float2 v = z[static_cast<size_t>(q) * G];
+      a = v.x;
+      b = v.y;
+    } else {
+      a = r[static_cast<size_t>(q) * G];
+      b = i[static_cast<size_t>(q) * G];
+    }
+  }
+};
+
+// Decimated row s in shared memory, point k stored times w_n^(s*k): the
+// warp root of (k >> 5) * s times the lane root of (k mod 32, s).
+struct TwiddledShared {
+  float2* p;
+  const float2* warp;  // w_n^(32*m)
+  const float2* lane;  // w_n^(l*s) at [l]
+  int s;
+  static constexpr bool kShared = true;
+  __device__ __forceinline__ void load(int k, float& a, float& b) const {
+    PadShared{p}.load(k, a, b);
+  }
+  __device__ __forceinline__ void store(int k, float a, float b) const {
+    float2 w = __ldg(&warp[(k >> 5) * s]);
+    cmul(w.x, w.y, __ldg(&lane[k & 31]));
+    cmul(a, b, w);
+    PadShared{p}.store(k, a, b);
+  }
+};
+
+// A decimated row's Q-point transform: device memory -> shared memory.
+template <class Src>
+struct BigRow {
+  Src in;
+  PadShared s;
+  TwiddledShared out;
+  __device__ __forceinline__ const Src& src() const { return in; }
+  __device__ __forceinline__ const PadShared& shared() const { return s; }
+  __device__ __forceinline__ const TwiddledShared& dst() const { return out; }
+};
+
+// v of the lane `mask` away, both parts.
+__device__ __forceinline__ void swap_lanes(float& re, float& im, float& pre, float& pim,
+                                           int mask) {
+  pre = __shfl_xor_sync(0xffffffffu, re, mask);
+  pim = __shfl_xor_sync(0xffffffffu, im, mask);
+}
+
+// One radix-2 step of a DFT across the lanes `mask` apart: the lane whose
+// `mask` bit is clear keeps the sum, the other the difference (its
+// partner's value less its own).
+template <int N>
+__device__ __forceinline__ void lanes_dft2(float (&r)[N], float (&i)[N], int mask, bool high) {
+#pragma unroll
+  for (int m = 0; m < N; ++m) {
+    float pr, pi;
+    swap_lanes(r[m], i[m], pr, pi, mask);
+    r[m] = high ? pr - r[m] : r[m] + pr;
+    i[m] = high ? pi - i[m] : i[m] + pi;
+  }
+}
+
+template <int SIGN, int LOG2N, int LOG2C, bool C64>
+__global__ void __launch_bounds__(BigShape<LOG2N, LOG2C>::kThreads,
+                                  BigShape<LOG2N, LOG2C>::kMinBlocks)
+big_fft_kernel(const __grid_constant__ BigArgs g) {
+  using S = BigShape<LOG2N, LOG2C>;
+  constexpr int N = 1 << LOG2N;
+  constexpr int C = S::kC, R = S::kR, G = S::kG, Q = S::kQ;
+  constexpr int TPP = S::kTpp, RPT = S::kRpt, PPT = S::kPpt;
+  constexpr int P = Q / C;  // positions of a block
+  extern __shared__ float2 smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = static_cast<int>(cluster.block_rank());
+  const int r = static_cast<int>(threadIdx.y);
+  const int s = R * b + r;  // this thread's decimated row in step 1
+  const size_t row = static_cast<size_t>(blockIdx.x / C) * N;
+  const float2* g_tw = g.tw + G * 32;          // w_G^m
+  const float2* warp_tw = g.tw + G * 32 + G;   // w_n^(32*m)
+  const float2* pass_tw = warp_tw + N / 32;
+
+  // 1. Y_s * w_n^(s*k) from the Q-point transform of x[q*G + s]
+  StridedIn<G, C64> in{};
+  if constexpr (C64) {
+    in.z = g.in + row + s;
+  } else {
+    in.r = g.in_re + row + s;
+    in.i = g.in_im + row + s;
+  }
+  float2* own = smem + r * S::kLd;
+  const TwiddledShared out{own, warp_tw, g.tw + s * 32, s};
+  plan_fft<SIGN, S::kLog2Q>(BigRow<StridedIn<G, C64>>{in, {own}, out}, pass_tw);
+  cluster.sync();
+
+  // 3. positions k: X[k + Q*(K1 + C*K2)], K1 < C, K2 < R
+  const int f = r * S::kX + static_cast<int>(threadIdx.x);
+  const int sub = f % TPP;  // this thread's part of its positions' rows
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    const int k = b * P + f / TPP + i * (S::kThreads / TPP);
+    float zr[RPT][C], zi[RPT][C];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      const int rr = sub + TPP * j;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        PadShared{cluster.map_shared_rank(smem, c) + rr * S::kLd}.load(k, zr[j][c], zi[j][c]);
+      }
+      dft<C, SIGN>(zr[j], zi[j]);  // over the blocks: A_rr[K1]
+#pragma unroll
+      for (int k1 = 1; k1 < C; ++k1) {  // times w_G^(rr*K1)
+        if (rr != 0) cmul(zr[j][k1], zi[j][k1], __ldg(&g_tw[rr * k1]));
+      }
+    }
+    // the R-point DFT over the rows rr = sub + TPP*j: RPT points in
+    // registers, the twiddle w_R^(sub*t), then TPP points across lanes;
+    // K2 = t + RPT*u, u this lane's output of the lanes' DFT
+#pragma unroll
+    for (int k1 = 0; k1 < C; ++k1) {
+      if constexpr (RPT > 1) {
+        float tr[RPT], ti[RPT];
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          tr[j] = zr[j][k1];
+          ti[j] = zi[j][k1];
+        }
+        dft<RPT, SIGN>(tr, ti);
+#pragma unroll
+        for (int t = 0; t < RPT; ++t) {
+          zr[t][k1] = tr[t];
+          zi[t][k1] = ti[t];
+        }
+      }
+      if constexpr (TPP > 1 && RPT > 1) {
+#pragma unroll
+        for (int t = 1; t < RPT; ++t) {  // w_R^(sub*t)
+          if (sub != 0) cmul(zr[t][k1], zi[t][k1], __ldg(&g_tw[sub * t * C]));
+        }
+      }
+    }
+    int u = 0;
+    if constexpr (TPP == 2) {
+#pragma unroll
+      for (int t = 0; t < RPT; ++t) lanes_dft2(zr[t], zi[t], 1, sub == 1);
+      u = sub;
+    } else if constexpr (TPP == 4) {  // sub = c + 2a: lanes 2 apart, w_4^(c*a), lanes 1 apart
+      const int c = sub & 1, a = sub >> 1;
+      lanes_dft2(zr[0], zi[0], 2, a == 1);
+      if (c == 1 && a == 1) {
+#pragma unroll
+        for (int k1 = 0; k1 < C; ++k1) cmul(zr[0][k1], zi[0][k1], make_float2(0.f, SIGN));
+      }
+      lanes_dft2(zr[0], zi[0], 1, c == 1);
+      u = a + 2 * c;
+    }
+#pragma unroll
+    for (int t = 0; t < RPT; ++t) {
+#pragma unroll
+      for (int k1 = 0; k1 < C; ++k1) {
+        const size_t o = row + k + static_cast<size_t>(Q) * (k1 + C * (t + RPT * u));
+        if constexpr (C64) {
+          g.out[o] = make_float2(zr[t][k1] * g.scale, zi[t][k1] * g.scale);
+        } else {
+          g.out_re[o] = zr[t][k1] * g.scale;
+          g.out_im[o] = zi[t][k1] * g.scale;
+        }
+      }
+    }
+  }
+  cluster.sync();  // no block exits while others read its shared memory
+}
+
+template <int LOG2N, int LOG2C, bool C64>
+int res_launch(const BigArgs& g, long long rows, int sign, void* stream) {
+  using S = BigShape<LOG2N, LOG2C>;
+  constexpr int C = 1 << LOG2C;
+  auto* kernel = sign < 0 ? big_fft_kernel<-1, LOG2N, LOG2C, C64>
+                          : big_fft_kernel<1, LOG2N, LOG2C, C64>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+  if (e == cudaSuccess && C > 8) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows * C));
+  cfg.blockDim = dim3(S::kX, S::kR);
+  cfg.dynamicSmemBytes = S::kSmem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, g);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <bool C64>
+int res_dispatch(const BigArgs& g, long long rows, int log2n, int log2c, int sign, void* stream) {
+  switch (log2n * 8 + log2c) {
+    case 15 * 8 + 2: return res_launch<15, 2, C64>(g, rows, sign, stream);
+    case 16 * 8 + 3: return res_launch<16, 3, C64>(g, rows, sign, stream);
+    case 17 * 8 + 3: return res_launch<17, 3, C64>(g, rows, sign, stream);
+    case 18 * 8 + 4: return res_launch<18, 4, C64>(g, rows, sign, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace res
+"""
+BIG_RES_ENTRIES = r"""int big_res_fft_f32(const void* in_re, const void* in_im, void* out_re, void* out_im,
+                    const void* tw, long long rows, int log2n, int log2c, int sign, float scale,
+                    void* stream) {
+  const BigArgs g{static_cast<const float*>(in_re), static_cast<const float*>(in_im),
+                  static_cast<float*>(out_re), static_cast<float*>(out_im), nullptr, nullptr,
+                  static_cast<const float2*>(tw), scale};
+  return res::res_dispatch<false>(g, rows, log2n, log2c, sign, stream);
+}
+
+int big_res_fft_c64(const void* in, void* out, const void* tw, long long rows, int log2n,
+                    int log2c, int sign, float scale, void* stream) {
+  const BigArgs g{nullptr, nullptr, nullptr, nullptr, static_cast<const float2*>(in),
+                  static_cast<float2*>(out), static_cast<const float2*>(tw), scale};
+  return res::res_dispatch<true>(g, rows, log2n, log2c, sign, stream);
+}
+
+"""
+
+
+def _big_res(rows: int):
+    """The edits that insert the R-row kernel at R = ``rows``."""
+    return ((BIG_DIF_NAMESPACE_END, BIG_RES_KERNEL.replace(
+                "constexpr int kResRows = 4;", f"constexpr int kResRows = {rows};")
+             + BIG_DIF_NAMESPACE_END),
+            (BIG_DIF_ERROR, BIG_RES_ENTRIES + BIG_DIF_ERROR))
+
+
+BIG_DIF = "in frequency, output through L2"
+VARIANTS.update({
+    ("big_fft", "kernel"): None,
+    ("big_fft", BIG_DIF): ((BIG_DIF_NAMESPACE_END, BIG_DIF_KERNEL + BIG_DIF_NAMESPACE_END),
+                           (BIG_DIF_ERROR, BIG_DIF_ENTRIES + BIG_DIF_ERROR)),
+    ("big_fft", "two decimated rows a block"): _big_res(2),
+    ("big_fft", "four decimated rows a block"): _big_res(4),
+    ("big_fft", "twiddle in the last pass"): _big_res(1),
+    ("big_fft", "one 512-thread block an SM"): (
+        BIG_BOUND, "  static constexpr int kMinBlocks = kThreads == 256 ? 3 : 1;\n"),
+    ("big_fft", "8 blocks at 2^15"): BIG_C8_15,
+    ("big_fft", "16 blocks at 2^17"): BIG_C16_17,
+    ("big_fft", "no passes (diagnostic)"): (BIG_PLAN, BIG_COPY),
+    ("big_fft", "no passes, no exchange (diagnostic)"): ((BIG_PLAN, BIG_COPY), BIG_LOCAL),
+    ("big_fft", "contiguous read (diagnostic)"): BIG_CONTIGUOUS,
+    ("big_fft", "no passes, no exchange, contiguous read (diagnostic)"): (
+        (BIG_PLAN, BIG_COPY), BIG_LOCAL) + BIG_CONTIGUOUS,
+})
+# the rows a block of the inserted R-row kernel's variants (their own
+# entry points, big_res_fft_*, and table, _rows_roots_np)
+BIG_VARIANT_RESIDUES = {"two decimated rows a block": 2, "four decimated rows a block": 4,
+                        "twiddle in the last pass": 1}
+# The two-crossing design of big_fft.cu (each point written to its owner
+# block through distributed shared memory before the blocks' passes and read
+# back from the C blocks after them), in a checkout that has it (--tree):
+# as it is, without its passes, and without its passes with both exchanges
+# made local (each block's own shared memory for its peers')
+TWO_PLAN = "  plan_fft<SIGN, LOG2Q>(BigRow{PadShared{smem}}, g.tw + C * 32 + N / 32);\n"
+TWO_PUSH = "      PadShared{cluster.map_shared_rank(smem, k1)}.store(q, xr[i][k1], xi[i][k1]);\n"
+TWO_PULL = "      PadShared{cluster.map_shared_rank(smem, c)}.load(pos, zr[c], zi[c]);\n"
+TWO_CROSSING = {
+    "two crossings": None,
+    "two crossings: no passes (diagnostic)": (TWO_PLAN, ""),
+    "two crossings: no passes, no exchange (diagnostic)": (
+        (TWO_PLAN, ""),
+        (TWO_PUSH, TWO_PUSH.replace("cluster.map_shared_rank(smem, k1)", "smem")),
+        (TWO_PULL, TWO_PULL.replace("cluster.map_shared_rank(smem, c)", "smem"))),
+}
+VARIANTS.update({("big_fft", name): edit for name, edit in TWO_CROSSING.items()})
+
 # variants whose output is not the transform (timed, not checked)
-UNCHECKED = {"untransposed (diagnostic)", "untransposed, no cluster (diagnostic)"}
+UNCHECKED = {"untransposed (diagnostic)", "untransposed, no cluster (diagnostic)"} | {
+    name for lib, name in VARIANTS if lib == "big_fft" and "diagnostic" in name}
 # B4's shapes: the 2^22 four-step's pass 2 and the other splits of 2^22
 ROWS_T_SHAPES = ((1024, 4096), (4096, 1024), (8192, 512), (16384, 256), (2048, 2048),
                  (512, 8192), (256, 16384))
@@ -571,7 +1096,28 @@ def _bank_cluster_roots_np(n: int, sign: int):
     return np.concatenate([cos[idx], pc]), np.concatenate([sin[idx], ps])
 
 
-def build_variants():
+def _rows_roots_np(n: int, sign: int, rows: int):
+    """The table of big_fft's R-row variants, R = ``rows``, G = R*C
+    decimated rows of Q = n/G points (C = ops/bigfft.py::_cluster(n)): the
+    lane roots w_n^(l*s) as [G][32], the G roots w_G^m of |w|^2 nearest 1
+    (cuda_fft.butterfly_roots_np), the warp roots w_n^(32*m) (m < n/32),
+    then each pass's roots of Q's compiled plan."""
+    from fft_wgpu_tpu_torch.core import twiddle
+    from fft_wgpu_tpu_torch.ops import bigfft, cuda_fft
+
+    g = rows * bigfft._cluster(n)
+    cos, sin = twiddle.roots_np(n, sign)
+    gc, gs = cuda_fft.butterfly_roots_np(g)
+    lane = (np.arange(g)[:, None] * np.arange(32)).ravel()
+    warp = 32 * np.arange(n // 32)
+    pc, ps = cuda_fft._pass_roots_np(n // g, sign)
+    return (np.concatenate([cos[lane], gc, cos[warp], pc]),
+            np.concatenate([sin[lane], sign * gs, sin[warp], ps]))
+
+
+def build_variants(parent=None):
+    """Build every variant at once; a TWO_CROSSING one from ``parent``'s
+    sources (a checkout whose big_fft.cu has that design)."""
     from fft_wgpu_tpu_torch.utils import build
 
     out_dir = build.BUILD_DIR / "variants"
@@ -579,7 +1125,9 @@ def build_variants():
 
     def one(item):
         i, ((lib_name, name), edit) = item
-        src = (build.CSRC / f"{lib_name}.cu").read_text()
+        csrc = (Path(parent) / "fft_wgpu_tpu_torch" / "csrc" if name in TWO_CROSSING
+                else build.CSRC)
+        src = (csrc / f"{lib_name}.cu").read_text()
         edits = () if edit is None else (edit,) if isinstance(edit[0], str) else edit
         for line, repl in edits:
             if src.count(line) != 1:
@@ -588,7 +1136,7 @@ def build_variants():
             src = src.replace(line, repl)
         cu, lib = out_dir / f"{lib_name}_v{i}.cu", out_dir / f"lib{lib_name}_v{i}.so"
         cu.write_text(src)
-        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
+        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", str(csrc),
                                "-o", str(lib), str(cu)], capture_output=True, text=True)
         lib.with_suffix(".log").write_text(f"{lib_name} {name}\n" + proc.stdout + proc.stderr)
         if proc.returncode != 0:
@@ -607,7 +1155,13 @@ def main() -> int:
                              "filt_fft", "spec_c2c_fft", "welch_acc_fft", "c2r_fft",
                              "rows_t_fft"),
                     help="only this kernel's variants")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout whose big_fft.cu has the two-crossing design: its "
+                         "variants are timed in turns with big_fft's")
     args = ap.parse_args()
+    if args.parent is None:
+        for name in TWO_CROSSING:
+            del VARIANTS["big_fft", name]
     if args.lib:
         for key in [k for k in VARIANTS if k[0] != args.lib]:
             del VARIANTS[key]
@@ -625,7 +1179,8 @@ def main() -> int:
     print(smi, flush=True)
     P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     fns = {}
-    for (lib_name, name), lib in build_variants().items():
+    built = build_variants(args.parent)
+    for (lib_name, name), lib in built.items():
         if lib_name == "welch_acc_fft":  # its launch and its shape
             f, shape = ctypes.CDLL(lib).welch_acc_f32, ctypes.CDLL(lib).welch_acc_shape
             f.argtypes, shape.argtypes = cuda_welch._ACC_ARGTYPES, cuda_welch._ACC_SHAPE_ARGTYPES
@@ -656,7 +1211,9 @@ def main() -> int:
             f = ctypes.CDLL(lib).spec_psd_f32
             f.argtypes, f.restype = [P] * 4 + [LL, LL] + [I] * 5 + [P], I
             fns["spec_psd", name] = f
-        f = getattr(ctypes.CDLL(lib), f"{lib_name}_c64")
+        entry = ("big_dif_fft" if name == BIG_DIF  # their own entry points
+                 else "big_res_fft" if name in BIG_VARIANT_RESIDUES else lib_name)
+        f = getattr(ctypes.CDLL(lib), f"{entry}_c64")
         f.argtypes = {"rows_fft": [P, P, P, LL, I, I, F, P],
                       "big_fft": [P, P, P, LL, I, I, I, F, P],
                       "ax0_fft": [P, P, P, P, LL, LL, I, I, I, F, P],
@@ -667,11 +1224,12 @@ def main() -> int:
                       "rows_t_fft": [P] * 5 + [LL, I, LL, LL, I, I, F, P]}[lib_name]
         f.restype = I
         fns[lib_name, name] = f
-        if lib_name in ("ax0_fft", "fft2f_fft", "rows_t_fft"):
-            f = getattr(ctypes.CDLL(lib), f"{lib_name}_f32")
+        if lib_name in ("ax0_fft", "fft2f_fft", "rows_t_fft", "big_fft"):
+            f = getattr(ctypes.CDLL(lib), f"{entry}_f32")
             f.argtypes = {"ax0_fft": [P, P, P, P, P, P, LL, LL, I, I, I, F, P],
                           "fft2f_fft": [P, P, P, P, P, P, LL, I, I, I, I, F, P],
-                          "rows_t_fft": [P] * 7 + [LL, I, LL, LL, I, I, F, P]}[lib_name]
+                          "rows_t_fft": [P] * 7 + [LL, I, LL, LL, I, I, F, P],
+                          "big_fft": [P] * 5 + [LL, I, I, I, F, P]}[lib_name]
             f.restype = I
             fns[f"{lib_name}_f32", name] = f
     dev = torch.device("cuda", 0)
@@ -718,36 +1276,62 @@ def main() -> int:
 
     cluster = bigfft._cluster
 
-    def big_call(f, x, out, n, c):
+    def big_call(name, f, x, out, n, c, c64):
         # the table of c blocks a row: _big_roots_np under that cluster rule
+        # (an R-row variant's: _rows_roots_np)
         bigfft._cluster = lambda m: c if m == n else cluster(m)
         try:
-            tab = torch.from_numpy(np.stack(bigfft._big_roots_np(n, -1), axis=-1)).to(dev)
+            tab = (_rows_roots_np(n, -1, BIG_VARIANT_RESIDUES[name])
+                   if name in BIG_VARIANT_RESIDUES else bigfft._big_roots_np(n, -1))
+            tab = torch.from_numpy(np.stack(tab, axis=-1)).to(dev)
         finally:
             bigfft._cluster = cluster
+        if c64:
+            held = (x, out)
+        else:  # the planes live as long as the call
+            held = (x.real.contiguous(), x.imag.contiguous(), torch.empty(x.shape, device=dev),
+                    torch.empty(x.shape, device=dev))
+        args = tuple(t.data_ptr() for t in held)
 
         def call():
-            err = f(x.data_ptr(), out.data_ptr(), tab.data_ptr(), x.shape[0],
-                    n.bit_length() - 1, c.bit_length() - 1, -1, 1.0, stream)
+            err = f(*args, tab.data_ptr(), x.shape[0], n.bit_length() - 1, c.bit_length() - 1,
+                    -1, 1.0, stream)
             if err:
-                raise RuntimeError(f"big_fft variant: CUDA error {err}")
-            return out
+                raise RuntimeError(f"big_fft variant {name!r}: CUDA error {err}")
+            return out if c64 else torch.complex(held[2], held[3])
         return call
 
+    def big_cluster(name, e):
+        return CLUSTER[name][1] if name in CLUSTER else cluster(1 << e)
+
+    for (lib, name), path in built.items():
+        # how many clusters fit at once, for each n the variant compiles
+        if (lib != "big_fft" or name in TWO_CROSSING or name == BIG_DIF
+                or name in BIG_VARIANT_RESIDUES):
+            continue
+        f = ctypes.CDLL(path).big_fft_max_clusters
+        f.argtypes, f.restype = [I, I, I, ctypes.POINTER(I)], I
+        fits = {}
+        for e in range(15, 19):
+            if name in CLUSTER and CLUSTER[name][0] != e:
+                continue
+            for c64 in (1, 0):
+                count = I()
+                err = f(e, big_cluster(name, e).bit_length() - 1, c64, ctypes.byref(count))
+                fits[f"2^{e} {'c64' if c64 else 'f32'}"] = count.value if err == 0 else -err
+        result.setdefault("max_clusters", {})[name] = fits
+        print(f"big_fft {name} | clusters at once: {fits}", flush=True)
     for rows, e in BIG_SHAPES if ("big_fft", "kernel") in VARIANTS else ():
         n = 1 << e
         x = torch.complex(torch.randn(rows, n, device=dev, generator=gen),
                           torch.randn(rows, n, device=dev, generator=gen))
         out = torch.empty_like(x)
-        calls = {}
-        for (lib, name), f in fns.items():
-            if lib != "big_fft":
-                continue
-            if name not in CLUSTER:
-                calls[name] = big_call(f, x, out, n, cluster(n))
-            elif CLUSTER[name][0] == e:
-                calls[name] = big_call(f, x, out, n, CLUSTER[name][1])
-        run(f"big_fft {rows}x2^{e}", x, torch.fft.fft(x), calls, "big_fft_kernel")
+        want = torch.fft.fft(x)
+        for entry, c64 in (("big_fft", True), ("big_fft_f32", False)):
+            calls = {name: big_call(name, f, x, out, n, big_cluster(name, e), c64)
+                     for (lb, name), f in fns.items() if lb == entry
+                     and (name not in CLUSTER or CLUSTER[name][0] == e)}
+            run(f"{entry} {rows}x2^{e}", x, want, calls, "big_fft_kernel")
         del x, out
     def ax0_call(name, f, x, out, n, c64):
         log2c = (cuda_fft._ax0_log2c(n, c64) if name == "kernel"

@@ -64,12 +64,13 @@ def test_high_rank_and_reference(rng, assert_close):
 
 
 def test_model_matches_numpy_float64():
-    # the plain model of the kernel's own decomposition (C-point butterfly
-    # with the table twiddle, Q's compiled passes, the natural-order store)
+    # the plain model of the kernel's own decomposition (each block's
+    # compiled passes over its decimated row, the table twiddle, the C-point
+    # butterfly across the blocks, the natural-order store) at every n
     rng = np.random.default_rng(3)
-    for e in (15, 16):
+    for e in (15, 16, 17, 18):
         n = 1 << e
-        x = (rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))).astype(np.complex64)
+        x = (rng.standard_normal((1, n)) + 1j * rng.standard_normal((1, n))).astype(np.complex64)
         for sign, scale in ((-1, None), (1, 1.0 / n)):
             got = cplx(bigfft._big_passes(torch.from_numpy(x.real.copy()),
                                           torch.from_numpy(x.imag.copy()), sign, scale))
@@ -78,29 +79,40 @@ def test_model_matches_numpy_float64():
             assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-6, (e, sign)
 
 
-@pytest.mark.parametrize("p", [0, 1, 12345, N - 1])
-def test_model_impulse_natural_order(p):
-    re = torch.zeros(N)
+@pytest.mark.parametrize("e", [15, 16, 17, 18])
+@pytest.mark.parametrize("p", [0, 1, 12345, -1])
+def test_model_impulse_natural_order(e, p):
+    n = 1 << e
+    p %= n
+    re = torch.zeros(n)
     re[p] = 1.0
-    got = cplx(bigfft._big_passes(re, torch.zeros(N), -1))
-    want = np.exp(-2j * np.pi * np.arange(N) * p / N)
+    got = cplx(bigfft._big_passes(re, torch.zeros(n), -1))
+    want = np.exp(-2j * np.pi * np.arange(n) * p / n)
     assert np.linalg.norm(got - want) / np.linalg.norm(want) < 1e-6
 
 
 def test_twiddle_table_layout():
-    # lane roots [C][32], warp roots w_n^(32m), then Q's pass roots
-    for e in (15, 16, 18):
+    # lane roots [C][32], warp roots w_n^(32m), then Q's pass roots; the
+    # butterfly step's twiddle w_n^(b*k2) of block b's output k2 is the
+    # warp root of (k2 // 32) * b times the lane root of (b, k2 mod 32)
+    for e in (15, 16, 17, 18):
         n = 1 << e
         c = bigfft._cluster(n)
-        cos, sin = bigfft._big_roots_np(n, -1)
-        w = cos + 1j * sin
-        k1, lane = np.arange(c)[:, None], np.arange(32)[None, :]
-        np.testing.assert_allclose(w[:32 * c].reshape(c, 32),
-                                   np.exp(-2j * np.pi * k1 * lane / n), atol=1e-7)
-        np.testing.assert_allclose(w[32 * c:32 * c + n // 32],
-                                   np.exp(-2j * np.pi * 32 * np.arange(n // 32) / n), atol=1e-7)
-        pc, ps = cuda_fft._pass_roots_np(n // c, -1)
-        np.testing.assert_array_equal(w[32 * c + n // 32:], pc + 1j * ps)
+        q = n // c
+        for sign in (-1, 1):
+            cos, sin = bigfft._big_roots_np(n, sign)
+            w = cos + 1j * sin
+            k1, lane = np.arange(c)[:, None], np.arange(32)[None, :]
+            np.testing.assert_allclose(w[:32 * c].reshape(c, 32),
+                                       np.exp(sign * 2j * np.pi * k1 * lane / n), atol=1e-7)
+            warp = w[32 * c:32 * c + n // 32]
+            np.testing.assert_allclose(warp, np.exp(sign * 2j * np.pi * 32 * np.arange(n // 32) / n),
+                                       atol=1e-7)
+            pc, ps = cuda_fft._pass_roots_np(q, sign)
+            np.testing.assert_array_equal(w[32 * c + n // 32:], pc + 1j * ps)
+            b, k2 = np.arange(c)[:, None], np.arange(q)[None, :]
+            np.testing.assert_allclose(warp[(k2 // 32) * b] * w[b * 32 + k2 % 32],
+                                       np.exp(sign * 2j * np.pi * b * k2 / n), atol=3e-7)
 
 
 @pytest.mark.parametrize("sign,scale", [(-1, None), (1, 1.0 / N), (1, None)])

@@ -308,9 +308,26 @@ def test_bigfft_kernel_matches_plain_and_torch_fft(dev, e, rows, layout):
         assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, (sign, scale)
 
 
+@pytest.mark.parametrize("layout", ["planar", "c64"])
+@pytest.mark.parametrize("rows", [16, 64])
+def test_bigfft_at_2_18_matches_plain_and_torch_fft(dev, rows, layout):
+    # 2^18, clusters of 16 blocks, at row counts of several waves of them
+    n = 1 << 18
+    x = crand(dev, rows, n)
+    kernel, plain = _big_entry(layout)
+    before = bigfft.launches
+    k = kernel(x, -1, None)
+    assert bigfft.launches == before + 1
+    assert rel_l2(k, plain(x, -1, None)) < TOL and rel_l2(k, torch.fft.fft(x)) < TOL
+
+
 @pytest.mark.parametrize("rows,n,route", [(2, 1 << 15, "big"), (256, 1 << 16, "big"),
                                           (1, 1 << 19, "two_pass"),
-                                          (1, 1 << 22, "two_pass")])
+                                          (1, 1 << 22, "two_pass"),
+                                          # each side of the static route's crossover
+                                          # (bigfft.TWO_PASS_FROM, complex64)
+                                          (64, 1 << 17, "big"), (256, 1 << 17, "two_pass"),
+                                          (16, 1 << 18, "big"), (64, 1 << 18, "two_pass")])
 def test_large_n_routes(dev, rows, n, route):
     x = crand(dev, rows, n)
     counts = lambda: (cuda_fft.launches, cuda_fft.ax0_launches,  # noqa: E731
@@ -324,6 +341,21 @@ def test_large_n_routes(dev, rows, n, route):
     assert rel_l2(X, torch.fft.fft(x)) < TOL
     assert rel_l2(p.inverse(X), x) < TOL
     assert rel_l2(p.normalize(p.inverse_unnormalized(X)), x) < TOL
+
+
+@pytest.mark.parametrize("rows,n,route", [(256, 1 << 17, "big"), (16, 1 << 18, "big"),
+                                          (64, 1 << 18, "two_pass")])
+def test_large_n_planar_routes(dev, rows, n, route):
+    # the planes' side of the crossover (bigfft.TWO_PASS_FROM, planar)
+    x = crand(dev, rows, n)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    counts = lambda: (cuda_fft.launches, cuda_fft.ax0_launches,  # noqa: E731
+                      cuda_fft.rows_t_launches, bigfft.launches)
+    before = counts()
+    Xr, Xi = ft.plan(n).forward_split(re, im)
+    delta = tuple(a - b for a, b in zip(counts(), before))
+    assert delta == ((0, 0, 0, 1) if route == "big" else (0, 1, 1, 0))
+    assert rel_l2(torch.complex(Xr, Xi), torch.fft.fft(x)) < TOL
 
 
 def test_axis0_route_through_plan(dev):

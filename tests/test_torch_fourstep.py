@@ -106,13 +106,29 @@ def test_routing_on_the_card():
         n = 1 << e
         n1, n2 = fourstep.choose_factors(n)
         for rows in (1, 4, 256):
-            if bigfft._supported(n, rows):
+            if bigfft.takes(n, rows):
                 continue  # one launch of the whole-row kernel
             # else the axis(-2) kernel then the transposed-rows kernel: no
             # pow2 n > 16384 on the card reaches the mixed-radix path
             assert cuda_fft._ax0_supported(n1) and cuda_fft._supported(n2), n
     assert [e for e in range(15, 27) if bigfft._supported(1 << e, 256)] \
         == [15, 16, 17, 18]
+    # the static route's crossover to the two passes (bigfft.takes, the
+    # card's counterpart of the JAX package's BATCHED_MAX_N): the whole-row
+    # kernel below it, at every row count of 2^15 and 2^16 and of planar
+    # 2^17; the envelope itself keeps every row count
+    for rows in (1, 4, 16, 64, 256, 1024):
+        for c64 in (False, True):
+            assert bigfft.takes(1 << 15, rows, c64) and bigfft.takes(1 << 16, rows, c64)
+        assert bigfft.takes(1 << 17, rows, c64=False)
+    assert bigfft.takes(1 << 17, 64, c64=True) and not bigfft.takes(1 << 17, 256, c64=True)
+    for c64 in (False, True):
+        assert bigfft.takes(1 << 18, 16, c64) and not bigfft.takes(1 << 18, 64, c64)
+        assert not bigfft.takes(1 << 18, 1024, c64) and bigfft._supported(1 << 18, 1024)
+        assert not bigfft.takes(1 << 19, 1, c64)
+    for (n, c64), rows in bigfft.TWO_PASS_FROM.items():
+        assert bigfft.takes(n, rows - 1, c64) and not bigfft.takes(n, rows, c64)
+        assert fourstep.c64_supported(n)  # the two passes take every n the rule sends them
     assert fourstep.choose_factors(1 << 22) == (1024, 4096)  # BASELINE config 3
     assert fourstep.choose_factors(1 << 20) == (1024, 1024)
     # beyond 2^26, pass 1's n1 > 16384 recurses through the plan's fourstep
