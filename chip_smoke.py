@@ -61,7 +61,7 @@ non-zero without a result line:
              its planar and complex64 entries (fft2f_fft_c64, also in
              place) against the plain version of its own passes
              (cuda_fft._fft2f_passes); r2c_fft and c2r_fft
-             for every n at rows 3 and 1000, ragged and padded, and at
+             for every n at rows 1, 3 and 1000, ragged and padded, and at
              4096 x 4096, r2c_fft's complex64 sink (r2c_fft_c64) and
              c2r_fft's complex64 source (c2r_fft_c64) at the same shapes,
              c2r_fft in both sources also against the plain version of its
@@ -94,9 +94,11 @@ non-zero without a result line:
              2048, also against the plain version of its own passes
              (cuda_fft._c2r_prod_passes); ax0_gen at every composite n at
              m = 7 and 1000, and at 16 x 1080 x 1920, and the axis(-3)
-             pass at [2, 1000, 7, 130];
+             pass at [2, 1000, 7, 130] and [1080, 8, 24];
              ax0_gen again against the plain version of its own passes
-             (cuda_fft._mixed_radix_axis) at every n, m = 7 and 1000;
+             (cuda_fft._mixed_radix_axis) at every n, m = 7 and 1000, and
+             in place at 646, 1004, 1080, 2047 and 16383 (m = 1925),
+             bit-equal to its out-of-place call;
              the segment-spectrum kernels welch, psd (spec_fft's
              psd_pairs, also against the plain version of its passes and
              epilogue, cuda_welch._psd_passes), csd, coh, c2c (the
@@ -3185,7 +3187,7 @@ def main() -> int:
     big_checks(bigfft, dev, gen, sweep, c64, oracle)
     sweep("ax3_fft",
           [((2, n, 7, 130), None) for n in (128, 1000, 1024, 16384)]
-          + [((256, 256, 256), None)],
+          + [((256, 256, 256), None), ((1080, 8, 24), None)],
           lambda re, im, s, sc, _: cuda_fft._ax3_launch(re, im, s, sc),
           lambda re, im, s, sc, _: cuda_fft.fft_axis3_split_reference(re, im, s, sc),
           lambda x, s, sc, _: oracle(x, s, sc, dim=-3), dim=-3)
@@ -3228,7 +3230,7 @@ def main() -> int:
         imaginary DC and Nyquist parts and, padded, garbage pad columns,
         which it must not read."""
         worst, cases = 0.0, 0
-        for rows, n in [(rows, 1 << e) for e in range(7, 15) for rows in (3, 1000)] \
+        for rows, n in [(rows, 1 << e) for e in range(7, 15) for rows in (1, 3, 1000)] \
                 + [(4096, 4096)]:
             x = torch.randn(rows, n, device=dev, generator=gen)
             mp = n // 2 + 1
@@ -3572,6 +3574,13 @@ def main() -> int:
               f"{worst:.3e}", flush=True)
 
     ax0_gen_passes_sweep()
+    for n in (646, 1004, 1080, 2047, 16383):  # B2c in place: the output over its input
+        re, im = planes(crand(2, n, 1925))
+        want = cuda_fft._ax0_launch(re, im, 1, 0.5)
+        check(cuda_fft._ax0_launch(re, im, 1, 0.5, out=(re, im))[0] is re
+              and torch.equal(re, want[0]) and torch.equal(im, want[1]),
+              f"ax0_gen in place {n} x 1925: not the bits of the out-of-place call")
+    print("kernel ax0_gen in place: 5 lengths ok, the same bits as out of place", flush=True)
 
     # the segment-spectrum kernels: B16 (welch), B19 (psd), B17 (csd), B18
     # (coh), B21 (c2c: y is the imaginary plane; c2c_c64: x complex64, or

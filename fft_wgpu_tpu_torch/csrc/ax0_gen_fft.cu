@@ -23,16 +23,25 @@
 // What bounds it: device memory, 16 bytes a point read and written (0.158 ms
 // for 16 x 1080 x 1920 at 3.35 TB/s), and the access pattern: a column is
 // strided by m.  A block takes a tile of TM neighbouring columns, T threads
-// each (threadIdx.x; the column is threadIdx.y), T from the passes'
-// butterflies a thread (mixed_shape's rule), and holds the tile in shared
-// memory, column-major at an odd column stride so the transposing accesses
-// hit distinct banks.  The tile's load and store move runs of TM contiguous
-// floats of one row of the plane; TM is a multiple of 8 where 1024 threads
-// and the shared memory allow it (8 at n = 1080), so every run covers whole
-// 32-byte sectors.  There the blocks are persistent and hold two tiles:
-// the next tile is fetched by cp.async (no register holds a load) while
-// this one runs its passes and is stored, so the strided loads overlap the
-// passes.  Where a block
+// each, T from the passes' butterflies a thread (mixed_shape's rule), and
+// holds the tile in shared memory, so that every access to device memory
+// moves runs of TM contiguous floats of one row of the plane; TM is a
+// multiple of 8 where 1024 threads and the shared memory allow it (8 at
+// n = 1080), so every run covers whole 32-byte sectors.  Where two tiles
+// fit in shared memory (n up to about 1800) the blocks are persistent and
+// hold two: the next tile is fetched by cp.async, 16 bytes (four columns of
+// a row) a copy where the rows allow it, while this one runs its passes, so
+// the loads overlap the passes and no register holds a load.  There the
+// tile is row-major (point k of column c at k*TM + c) and the lanes of a
+// warp span its columns (column = thread % TM, thread / TM its index among
+// the column's T threads, T not rounded to a warp), so a pass's accesses to
+// consecutive points of the warp's columns hit distinct banks, and the last
+// pass stores each column's outputs from registers straight to device
+// memory with the scale folded in, runs of TM floats a row, as ax0_fft.cu's
+// last pass does: no store phase and no second pass over shared memory.
+// Elsewhere a block's columns are threadIdx.y, its tile column-major at an
+// odd column stride so that the transposing accesses hit distinct banks,
+// and the tile is moved by col_move.  Where a block
 // holds fewer than 8 columns (n above about 2000), it takes one column, and
 // a cluster of C = 4 or 8 blocks on neighbouring columns splits the load
 // and store of its C columns by rows through distributed shared memory:
@@ -105,6 +114,7 @@ struct Ax0Args {
   long long tiles;  // column tiles of a plane, C*TM columns each
   MixedPlan plan;
   int ld;           // floats between two columns of the tile (odd)
+  int cols;         // columns of a pipelined tile (its row stride in floats)
   float scale;
 };
 
@@ -210,61 +220,118 @@ __device__ __forceinline__ void cluster_move(const Ax0Args& g, cg::cluster_group
   }
 }
 
-// Tile t (TM columns; t counts the tiles of all planes) into the shared
+// Column c of a pipelined tile in shared memory, row-major: point k at
+// k*cols + c of each plane.
+struct TileShared {
+  float* r;
+  float* i;
+  int cols;
+  static constexpr bool kShared = true;
+  __device__ __forceinline__ void load(int k, float& a, float& b) const {
+    a = r[k * cols];
+    b = i[k * cols];
+  }
+  __device__ __forceinline__ void store(int k, float a, float b) const {
+    r[k * cols] = a;
+    i[k * cols] = b;
+  }
+};
+
+// This thread's column of a pipelined tile (thread % cols; its index among
+// the column's threads is thread / cols): the tile in buffer `buf` (floats
+// into shared memory; the staged roots follow both buffers), and its
+// column of device memory (`off`: the first point), written by the last
+// pass.
+struct Ax0Tile {
+  const Ax0Args& g;
+  size_t off;
+  bool valid;
+  int buf;
+  __device__ __forceinline__ int2 lanes() const {
+    return make_int2(static_cast<int>(blockDim.x) / g.cols,
+                     static_cast<int>(threadIdx.x) / g.cols);
+  }
+  __device__ __forceinline__ TileShared shared() const {
+    extern __shared__ float smem[];
+    float* sr = smem + buf + threadIdx.x % g.cols;
+    return TileShared{sr, sr + g.plan.n * g.cols, g.cols};
+  }
+  __device__ __forceinline__ float2* roots() const {
+    extern __shared__ float smem[];
+    return reinterpret_cast<float2*>(smem + 4 * g.plan.n * g.cols);
+  }
+  __device__ __forceinline__ TileShared src() const { return shared(); }
+  __device__ __forceinline__ ColOut dst() const {
+    return ColOut{g.out_re + off, g.out_im + off, g.m, g.scale, valid};
+  }
+};
+
+// Tile t (cols columns; t counts the tiles of all planes) into the shared
 // buffer `buf` by cp.async, so no register holds a load and every load of
-// the tile is in flight at once; columns past m are zero-filled.  Commits
-// one pipeline group.
-__device__ __forceinline__ void tile_fetch(const Ax0Args& g, float* buf, long long t) {
-  const int TM = blockDim.y;
+// the tile is in flight at once; columns past m are zero-filled.  Each
+// copy moves four columns of a row (16 bytes) where every row's run is
+// 16-byte aligned (m a multiple of 4, both planes aligned), else one.
+// Commits one pipeline group.
+__device__ __forceinline__ void tile_fetch(const Ax0Args& g, float* buf, long long t, bool wide) {
+  const int TM = g.cols;
   const int n = g.plan.n;
+  const int rows = blockDim.x / TM;  // a sweep of the block: 4*rows rows when wide
   const long long c0 = (t % g.tiles) * TM;
-  const int flat = threadIdx.y * blockDim.x + threadIdx.x;
-  const int c = flat % TM;
-  const bool in = c0 + c < g.m;
-  float* br = buf + c * g.ld;
-  float* bi = br + TM * g.ld;
-  const size_t gstep = static_cast<size_t>(blockDim.x) * g.m;
-  size_t gi = static_cast<size_t>(t / g.tiles) * n * g.m + c0 + c +
-              static_cast<size_t>(flat / TM) * g.m;
-  for (int i = flat / TM; i < n; i += blockDim.x, gi += gstep) {
-    const size_t src = in ? gi : 0;
-    __pipeline_memcpy_async(&br[i], &g.in_re[src], sizeof(float), in ? 0 : sizeof(float));
-    __pipeline_memcpy_async(&bi[i], &g.in_im[src], sizeof(float), in ? 0 : sizeof(float));
+  const size_t base = static_cast<size_t>(t / g.tiles) * n * g.m + c0;
+  float* bi = buf + n * TM;
+  if (wide) {
+    const int W = TM / 4;  // 16-byte runs of a row
+    const int cc = threadIdx.x % W * 4;
+    const bool in = c0 + cc < g.m;
+    const int step = 4 * rows;
+    for (int i = threadIdx.x / W; i < n; i += step) {
+      const size_t src = in ? base + static_cast<size_t>(i) * g.m + cc : 0;
+      __pipeline_memcpy_async(&buf[i * TM + cc], &g.in_re[src], 16, in ? 0 : 16);
+      __pipeline_memcpy_async(&bi[i * TM + cc], &g.in_im[src], 16, in ? 0 : 16);
+    }
+  } else {
+    const int c = threadIdx.x % TM;
+    const bool in = c0 + c < g.m;
+    for (int i = threadIdx.x / TM; i < n; i += rows) {
+      const size_t src = in ? base + static_cast<size_t>(i) * g.m + c : 0;
+      __pipeline_memcpy_async(&buf[i * TM + c], &g.in_re[src], sizeof(float),
+                              in ? 0 : sizeof(float));
+      __pipeline_memcpy_async(&bi[i * TM + c], &g.in_im[src], sizeof(float),
+                              in ? 0 : sizeof(float));
+    }
   }
   __pipeline_commit();
 }
 
 // Persistent blocks over all tiles, two shared buffers: the tile after this
-// one is fetched (cp.async) while this one is transformed and stored, so the
-// loads overlap the passes.  Every kernel of this file is named
-// ax0_gen_fft_kernel, so that a profile counts them as one.
+// one is fetched (cp.async) while this one runs its passes, the last of
+// which stores it.  Every kernel of this file is named ax0_gen_fft_kernel,
+// so that a profile counts them as one.
 template <int SIGN>
 __global__ void __launch_bounds__(kMixMaxThreads)
 ax0_gen_fft_kernel(const __grid_constant__ Ax0Args g, long long tiles_all) {
   extern __shared__ float smem[];
-  const int TM = blockDim.y;
+  const int TM = g.cols;
   const int n = g.plan.n;
-  const int tile = 2 * TM * g.ld;
-  const int flat = threadIdx.y * blockDim.x + threadIdx.x;
-  const int c = flat % TM;
+  const int tile = 2 * TM * n;
+  const int c = threadIdx.x % TM;
+  const bool wide = g.m % 4 == 0 && reinterpret_cast<size_t>(g.in_re) % 16 == 0 &&
+                    reinterpret_cast<size_t>(g.in_im) % 16 == 0;
   long long t = blockIdx.x;
-  tile_fetch(g, smem, t);
+  tile_fetch(g, smem, t, wide);
   for (int cur = 0; t < tiles_all; t += gridDim.x, cur ^= 1) {
     if (t + gridDim.x < tiles_all) {
-      tile_fetch(g, smem + (cur ^ 1) * tile, t + gridDim.x);
+      tile_fetch(g, smem + (cur ^ 1) * tile, t + gridDim.x, wide);
     } else {
       __pipeline_commit();  // an empty group, so the wait below is for tile t
     }
     __pipeline_wait_prior(1);
     __syncthreads();  // tile t is in buffer cur
-    mixed_fft<SIGN>(Ax0Col<false>{g, 0, true, cur * tile, 2}, g.plan, g.tw, 1);
     const long long c0 = (t % g.tiles) * TM;
-    float* br = smem + cur * tile + c * g.ld;
-    col_move<false>(g, br, br + TM * g.ld, c0 + c < g.m,
-                    static_cast<size_t>(t / g.tiles) * n * g.m + c0 + c +
-                        static_cast<size_t>(flat / TM) * g.m,
-                    flat / TM, n, blockDim.x);
-    __syncthreads();  // buffer cur is stored before the fetch of tile t + 2*grid
+    const bool valid = c0 + c < g.m;
+    const size_t off = static_cast<size_t>(t / g.tiles) * n * g.m + (valid ? c0 + c : 0);
+    mixed_fft<SIGN>(Ax0Tile{g, off, valid, cur * tile}, g.plan, g.tw, 1);
+    __syncthreads();  // buffer cur is read before the fetch of tile t + 2*grid
   }
 }
 
@@ -310,13 +377,17 @@ struct Ax0Shape {
 
 // Threads of a column as mixed_shape gives them for a row (about 16 points
 // a thread, every held generic pass in one round); a generic pass of more
-// units than 1024 threads makes the plan stream.  Columns: as many as 1024
+// units than 1024 threads makes the plan stream.  Where two tiles of at
+// least 8 columns fit 1024 threads and the shared memory, the tiles are
+// pipelined: the lanes span the tile's columns, so a column's threads are
+// rounded up to 4 (a warp's worth with 8 columns), not 32, and its columns
+// as many as fit, at most 32, rounded down to a multiple of 8.  Elsewhere
+// a column's threads are whole warps and its columns as many as 1024
 // threads and the shared memory allow, at most 32, rounded down to a
-// multiple of 8 where at least 8 fit; then, where two tiles fit in shared
-// memory, the tiles are pipelined.  Where fewer than 8 fit, one column a
-// block in a cluster of 4 blocks (8 where a block takes more than 512
-// threads, so one block fills an SM): the shapes that measured fastest on
-// an H100 at 2047, 4095 and 12288 (scripts/time_ax0_gen_shapes.py).
+// multiple of 8 where at least 8 fit (one tile a block).  Where fewer than
+// 8 fit, one column a block in a cluster of 4 blocks (8 where a block takes
+// more than 512 threads, so one block fills an SM): the shapes that measured
+// fastest on an H100 at 2047, 4095 and 12288 (scripts/time_ax0_gen_shapes.py).
 Ax0Shape ax0_shape(const MixedPlan& plan) {
   const int n = plan.n;
   int need = (n + 15) / 16;
@@ -332,6 +403,16 @@ Ax0Shape ax0_shape(const MixedPlan& plan) {
       need = need > generic_units(n, r) ? need : generic_units(n, r);
     }
   }
+  const int tile_col = 2 * n * static_cast<int>(sizeof(float));  // a pipelined tile's column
+  int tp = (need + 3) / 4 * 4;
+  tp = tp < kMixMaxThreads ? tp : kMixMaxThreads;
+  int cp = kMixMaxThreads / tp;
+  cp = cp < 32 ? cp : 32;
+  cp = cp < (kSmemMax - kRootBytes) / (2 * tile_col) ? cp : (kSmemMax - kRootBytes) / (2 * tile_col);
+  if (!stream && cp >= 8) {
+    cp -= cp % 8;
+    return Ax0Shape{tp, cp, 1, 2 * cp * tile_col + kRootBytes, false, true};
+  }
   int T = (need + 31) / 32 * 32;
   if (T > kMixMaxThreads) T = kMixMaxThreads;
   const int per_col = 2 * (n | 1) * static_cast<int>(sizeof(float));
@@ -345,8 +426,7 @@ Ax0Shape ax0_shape(const MixedPlan& plan) {
     tm = 1;
     C = T > 512 ? 8 : 4;
   }
-  const bool pipe = tm >= 8 && 2 * tm * per_col + kRootBytes <= kSmemMax;
-  return Ax0Shape{T, tm, C, (pipe ? 2 : 1) * tm * per_col + kRootBytes, stream, pipe};
+  return Ax0Shape{T, tm, C, tm * per_col + kRootBytes, stream, false};
 }
 
 template <class Kernel>
@@ -397,8 +477,7 @@ cudaError_t launch_pipe(const Ax0Args& g, const Ax0Shape& s, long long planes,
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long tiles_all = planes * g.tiles;
   const long long grid = tiles_all < 1LL * sms * per_sm ? tiles_all : 1LL * sms * per_sm;
-  kernel<<<static_cast<unsigned>(grid), dim3(s.threads, s.cols), s.smem, stream>>>(
-      g, tiles_all);
+  kernel<<<static_cast<unsigned>(grid), s.threads * s.cols, s.smem, stream>>>(g, tiles_all);
   return cudaGetLastError();
 }
 
@@ -416,12 +495,13 @@ int ax0_gen_fft_f32(const void* in_re, const void* in_im, void* out_re, void* ou
                     void* stream) {
   Ax0Args g{static_cast<const float*>(in_re), static_cast<const float*>(in_im),
             static_cast<float*>(out_re), static_cast<float*>(out_im),
-            static_cast<const float2*>(tw), m, 0, {}, n | 1, scale};
+            static_cast<const float2*>(tw), m, 0, {}, n | 1, 0, scale};
   if (planes < 1 || m < 1 || n > 16384 || (sign != -1 && sign != 1) ||
       !mixed_plan_make(radix, np, n, &g.plan)) {
     return cudaErrorInvalidValue;
   }
   const Ax0Shape s = ax0_shape(g.plan);
+  g.cols = s.cols;
   const long long ct = static_cast<long long>(s.cols) * s.cluster;
   g.tiles = (m + ct - 1) / ct;
   if (planes * g.tiles * s.cluster > 2147483647LL) return cudaErrorInvalidValue;

@@ -581,6 +581,19 @@ __device__ __forceinline__ void mixed_pass(int R, const Src& src, const Dst& dst
   }
 }
 
+// The threads of a row and this thread's index among them: blockDim.x and
+// threadIdx.x, unless the row's type says otherwise with a member lanes()
+// (a block whose rows interleave across the lanes of a warp: ax0_fft.cu,
+// ax0_gen_fft.cu's pipelined tiles).
+template <class Row>
+__device__ __forceinline__ auto row_lanes(const Row& row, int) -> decltype(row.lanes()) {
+  return row.lanes();
+}
+template <class Row>
+__device__ __forceinline__ int2 row_lanes(const Row&, long) {
+  return make_int2(static_cast<int>(blockDim.x), static_cast<int>(threadIdx.x));
+}
+
 // Every pass of the plan: row.src() -> row.shared() -> ... -> row.dst().
 // `row` builds each source, sink and buffer when a pass needs it (a kernel
 // hands in accessors of its __grid_constant__ arguments), so that nothing
@@ -591,10 +604,10 @@ __device__ __forceinline__ void mixed_pass(int R, const Src& src, const Dst& dst
 template <int SIGN, class Row>
 __device__ __forceinline__ void mixed_fft(const Row& row, const MixedPlan& plan,
                                           const float2* __restrict__ tw, int tws) {
+  const int2 l = row_lanes(row, 0);
   int ns = 1;
   for (int p = 0; p < plan.np; ++p) {
-    const MixStep a{plan.n, ns, static_cast<int>(blockDim.x),
-                    static_cast<int>(threadIdx.x), tws};
+    const MixStep a{plan.n, ns, l.x, l.y, tws};
     const int R = plan.radix[p];
     if (p == 0) {
       mixed_pass<SIGN>(R, row.src(), row.shared(), a, tw, row.roots());
@@ -605,18 +618,6 @@ __device__ __forceinline__ void mixed_fft(const Row& row, const MixedPlan& plan,
     }
     ns *= R;
   }
-}
-
-// The threads of a row and this thread's index among them: blockDim.x and
-// threadIdx.x, unless the row's type says otherwise with a member lanes()
-// (a block whose rows interleave across the lanes of a warp, ax0_fft.cu).
-template <class Row>
-__device__ __forceinline__ auto row_lanes(const Row& row, int) -> decltype(row.lanes()) {
-  return row.lanes();
-}
-template <class Row>
-__device__ __forceinline__ int2 row_lanes(const Row&, long) {
-  return make_int2(static_cast<int>(blockDim.x), static_cast<int>(threadIdx.x));
 }
 
 // The passes of a plan fixed at compile time, radices R, RS... (2, 4, 8 or

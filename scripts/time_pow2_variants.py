@@ -7,7 +7,7 @@ card, each beside the kernel as it is.
 
     python3 scripts/time_pow2_variants.py
         [--lib rows_fft|big_fft|ax0_fft|fft2f_fft|spec_fft|filt_fft|spec_c2c_fft|
-               welch_acc_fft|c2r_fft|rows_t_fft]
+               welch_acc_fft|c2r_fft|rows_t_fft|r2c_fft|ax0_gen_fft|gen_fft]
         [--parent DIR] [--out FILE]
 
 Variants: rows_fft with every launch bound at 64 registers (1024 threads an
@@ -88,7 +88,31 @@ staged, with the transposed store pushed (each block writes its row's
 points into their owner block's tile through distributed shared memory,
 the owner stores from its own; the kernel: each block reads its peers'
 rows), and, diagnostics whose output is not checked, with each row stored
-untransposed, as a row kernel would, in clusters and with none.
+untransposed, as a row kernel would, in clusters and with none;
+r2c_fft (B6, through both of its sinks, at 4096 x 4096, at every pow2 n
+of 128..16384 over 2^24 points, and at 4096-point rows filling four and
+six waves of the card's blocks, beside torch.fft.rfft's device time) with
+a pair of bins a thread after the passes at every n, with a bin a thread
+after the passes at every n, with the last pass fused with the store
+wherever it can be (n = 1024, 2048, 4096, 16384; the kernel: r2c_store's
+choice for each n among the three) and with the launch bound at 64
+registers (eight blocks of 128 threads an SM) and at seven blocks of 128
+threads an SM (72 registers; the kernel: R2cShape's, six); ax0_gen_fft
+(B2c, planar, at 16 x n x 512 for every composite n of chip_smoke.py's
+list, 16 of the lengths whose columns stream and four that take one column
+a block in a cluster, and at 16 x 1080 x 1920, beside
+torch.fft.fft's device time) with one 4-byte copy a point into the tile
+(the kernel: 16 bytes, four columns of a row, where the rows allow) and
+with whole warps a column (the kernel: threads a column rounded to 4), and,
+diagnostics whose output is not checked, with only the tiles' fetch (no
+passes, so no store), without the fetch, and without the fetch and the
+store (the passes alone); and with ``--parent DIR`` each of the two as that
+checkout has it (the parent's source, built with its own headers), for
+ax0_gen_fft also without its passes and without its store phase; gen_fft
+(B13, on the same run-time passes, at the non-pow2 path's rows and the
+1080p frames' rows, beside torch.fft.fft's device time, and torch.fft.rfft's
+at B14's 1024 x 4095), as it is.  ptxas's registers, stack and spills of
+every instantiation of r2c_fft's and ax0_gen_fft's variants are printed.
 Each variant is
 the kernel's source with a line or two rewritten, compiled with the port's
 nvcc flags into ``fft_wgpu_tpu_torch/_build/variants/`` (all at once;
@@ -1074,9 +1098,68 @@ TWO_CROSSING = {
 }
 VARIANTS.update({("big_fft", name): edit for name, edit in TWO_CROSSING.items()})
 
+# B6 and B2c, and the parent's (--parent): the parent's source as it is,
+# for B2c also without its passes and without its store phase
+R2C_STORE = "  constexpr int t[8] = {2, 2, 1, 1, 1, 0, 1, 0};\n"
+R2C_BOUND = ("  static constexpr int kMinBlocks = kBlock <= 128 ? 6 : kBlock == 256 ? 3 : "
+             "1024 / kBlock;\n")
+AX0G_WIDE = "  const bool wide = g.m % 4 == 0 && "
+
+AX0G_THREADS = "  int tp = (need + 3) / 4 * 4;\n"
+AX0G_PASSES = "    mixed_fft<SIGN>(Ax0Tile{g, off, valid, cur * tile}, g.plan, g.tw, 1);\n"
+AX0G_NO_FETCH = (("  tile_fetch(g, smem, t, wide);\n", "  __pipeline_commit();\n"),
+                 ("      tile_fetch(g, smem + (cur ^ 1) * tile, t + gridDim.x, wide);\n",
+                  "      __pipeline_commit();\n"))
+AX0G_NO_STORE = ("    const bool valid = c0 + c < g.m;\n", "    const bool valid = false;\n")
+PARENT_AX0G_PASSES = ("    mixed_fft<SIGN>(Ax0Col<false>{g, 0, true, cur * tile, 2}, g.plan, g.tw, "
+                      "1);\n")
+PARENT_AX0G_STORE = """    col_move<false>(g, br, br + TM * g.ld, c0 + c < g.m,
+                    static_cast<size_t>(t / g.tiles) * n * g.m + c0 + c +
+                        static_cast<size_t>(flat / TM) * g.m,
+                    flat / TM, n, blockDim.x);
+"""
+PARENT = {
+    ("r2c_fft", "parent"): None,
+    ("ax0_gen_fft", "parent"): None,
+    ("ax0_gen_fft", "parent: no passes (diagnostic)"): (PARENT_AX0G_PASSES, ""),
+    ("ax0_gen_fft", "parent: no store (diagnostic)"): (PARENT_AX0G_STORE, ""),
+}
+VARIANTS.update({
+    ("r2c_fft", "kernel"): None,
+    ("r2c_fft", "pairs at every n"): (
+        R2C_STORE, "  constexpr int t[8] = {1, 1, 1, 1, 1, 1, 1, 1};\n"),
+    ("r2c_fft", "a bin a thread at every n"): (
+        R2C_STORE, "  constexpr int t[8] = {2, 2, 2, 2, 2, 2, 2, 2};\n"),
+    ("r2c_fft", "the last pass fused wherever it can"): (
+        R2C_STORE, "  constexpr int t[8] = {2, 2, 1, 0, 0, 0, 1, 0};\n"),
+    ("r2c_fft", "64 registers"): (R2C_BOUND, "  static constexpr int kMinBlocks = 1024 / kBlock;\n"),
+    ("r2c_fft", "seven blocks of 128 threads an SM"): (
+        R2C_BOUND, R2C_BOUND.replace("kBlock <= 128 ? 6", "kBlock <= 128 ? 7")),
+    ("ax0_gen_fft", "kernel"): None,
+    ("gen_fft", "kernel"): None,
+    ("ax0_gen_fft", "4-byte copies"): (AX0G_WIDE, "  const bool wide = false && g.m % 4 == 0 && "),
+    ("ax0_gen_fft", "whole warps a column"): (AX0G_THREADS, "  int tp = (need + 31) / 32 * 32;\n"),
+    ("ax0_gen_fft", "fetch only (diagnostic)"): (AX0G_PASSES, ""),
+    ("ax0_gen_fft", "no fetch (diagnostic)"): AX0G_NO_FETCH,
+    ("ax0_gen_fft", "passes only (diagnostic)"): AX0G_NO_FETCH + (AX0G_NO_STORE,),
+})
+VARIANTS.update(PARENT)
+# the composite lengths of chip_smoke.py's sweep (GEN_NS), B2c at 16 x n x 512;
+# then 16 of the 1,042 lengths whose columns stream (a generic pass of more
+# than 1024 units: 8721..16383), evenly spaced among them, and four that take
+# one column a block in a cluster (1105..16380)
+AX0G_NS = (640, 1000, 1005, 2047, 4095, 4097, 6561, 10000, 16383, 1920, 3072, 12288, 2197,
+           2401, 14641, 15625, 1004, 16129, 14406, 16224, 646, 1080)
+AX0G_STREAM_NS = (8721, 10089, 11001, 11845, 12512, 13110, 13680, 14195, 14586, 14940, 15225,
+                  15498, 15747, 15960, 16184, 16383)
+AX0G_CLUSTER_NS = (2002, 3510, 5005, 7007)
+# B13 (gen_fft) on the same run-time passes: the non-pow2 path's rows and the
+# 1080p frames' rows
+GEN_SHAPES = ((1024, 4095), (2048, 1000), (1024, 4097), (17280, 1920), (1024, 16383))
+
 # variants whose output is not the transform (timed, not checked)
 UNCHECKED = {"untransposed (diagnostic)", "untransposed, no cluster (diagnostic)"} | {
-    name for lib, name in VARIANTS if lib == "big_fft" and "diagnostic" in name}
+    name for lib, name in VARIANTS if lib in ("big_fft", "ax0_gen_fft") and "diagnostic" in name}
 # B4's shapes: the 2^22 four-step's pass 2 and the other splits of 2^22
 ROWS_T_SHAPES = ((1024, 4096), (4096, 1024), (8192, 512), (16384, 256), (2048, 2048),
                  (512, 8192), (256, 16384))
@@ -1116,8 +1199,9 @@ def _rows_roots_np(n: int, sign: int, rows: int):
 
 
 def build_variants(parent=None):
-    """Build every variant at once; a TWO_CROSSING one from ``parent``'s
-    sources (a checkout whose big_fft.cu has that design)."""
+    """Build every variant at once; a TWO_CROSSING or PARENT one from
+    ``parent``'s sources (a checkout whose big_fft.cu has that design; the
+    parent commit's r2c_fft.cu and ax0_gen_fft.cu)."""
     from fft_wgpu_tpu_torch.utils import build
 
     out_dir = build.BUILD_DIR / "variants"
@@ -1125,8 +1209,8 @@ def build_variants(parent=None):
 
     def one(item):
         i, ((lib_name, name), edit) = item
-        csrc = (Path(parent) / "fft_wgpu_tpu_torch" / "csrc" if name in TWO_CROSSING
-                else build.CSRC)
+        csrc = (Path(parent) / "fft_wgpu_tpu_torch" / "csrc"
+                if name in TWO_CROSSING or (lib_name, name) in PARENT else build.CSRC)
         src = (csrc / f"{lib_name}.cu").read_text()
         edits = () if edit is None else (edit,) if isinstance(edit[0], str) else edit
         for line, repl in edits:
@@ -1153,15 +1237,18 @@ def main() -> int:
     ap.add_argument("--lib", default=None,
                     choices=("rows_fft", "big_fft", "ax0_fft", "fft2f_fft", "spec_fft",
                              "filt_fft", "spec_c2c_fft", "welch_acc_fft", "c2r_fft",
-                             "rows_t_fft"),
+                             "rows_t_fft", "r2c_fft", "ax0_gen_fft", "gen_fft"),
                     help="only this kernel's variants")
     ap.add_argument("--parent", default=None,
-                    help="a checkout whose big_fft.cu has the two-crossing design: its "
-                         "variants are timed in turns with big_fft's")
+                    help="a checkout whose big_fft.cu has the two-crossing design, or the "
+                         "parent commit's r2c_fft.cu and ax0_gen_fft.cu: its variants are "
+                         "timed in turns with the kernel's")
     args = ap.parse_args()
     if args.parent is None:
         for name in TWO_CROSSING:
             del VARIANTS["big_fft", name]
+        for key in PARENT:
+            del VARIANTS[key]
     if args.lib:
         for key in [k for k in VARIANTS if k[0] != args.lib]:
             del VARIANTS[key]
@@ -1180,7 +1267,30 @@ def main() -> int:
     P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     fns = {}
     built = build_variants(args.parent)
+    import chip_smoke
+
     for (lib_name, name), lib in built.items():
+        if lib_name in ("r2c_fft", "ax0_gen_fft"):  # registers, stack and spills
+            print(f"ptxas: {lib_name} {name} | " + "; ".join(chip_smoke.ptxas_summary(
+                Path(lib).with_suffix(".log").read_text())), flush=True)
+        if lib_name == "r2c_fft":  # both sinks
+            f = ctypes.CDLL(lib).r2c_fft_c64
+            f.argtypes, f.restype = [P, P, P, P, LL, I, F, P], I
+            fns[lib_name, name] = f
+            f = ctypes.CDLL(lib).r2c_fft_f32
+            f.argtypes, f.restype = [P, P, P, P, P, LL, I, I, F, P], I
+            fns["r2c_fft_f32", name] = f
+            continue
+        if lib_name == "ax0_gen_fft":  # planar only
+            f = ctypes.CDLL(lib).ax0_gen_fft_f32
+            f.argtypes, f.restype = [P, P, P, P, P, LL, LL, I, P, I, I, F, P], I
+            fns[lib_name, name] = f
+            continue
+        if lib_name == "gen_fft":
+            f = ctypes.CDLL(lib).gen_fft_f32
+            f.argtypes, f.restype = [P, P, P, P, P, LL, I, P, I, I, F, P], I
+            fns[lib_name, name] = f
+            continue
         if lib_name == "welch_acc_fft":  # its launch and its shape
             f, shape = ctypes.CDLL(lib).welch_acc_f32, ctypes.CDLL(lib).welch_acc_shape
             f.argtypes, shape.argtypes = cuda_welch._ACC_ARGTYPES, cuda_welch._ACC_SHAPE_ARGTYPES
@@ -1679,6 +1789,101 @@ def main() -> int:
                 {name: rows_t_call(name, f, x, out, c64) for (lb, name), f in fns.items()
                  if lb == lib}, "rows_t_fft_kernel")
         del x, out
+    def r2c_call(name, f, x, out, c64):
+        n = x.shape[-1]
+        tabs = tuple(t.data_ptr() for t in (
+            cuda_fft._twiddle_table(n // 2, -1, dev, cuda_fft._pass_roots_np),
+            cuda_fft._halfcomplex_table(n, -1, dev)))
+        outs = (out,) if c64 else out
+
+        def call():
+            args = (x.data_ptr(), *(o.data_ptr() for o in outs), *tabs, x.shape[0],
+                    n.bit_length() - 2)
+            err = f(*args, 1.0, stream) if c64 else f(*args, n // 2 + 1, 1.0, stream)
+            if err:
+                raise RuntimeError(f"r2c_fft variant {name!r}: CUDA error {err}")
+            return out if c64 else torch.complex(*out)
+        return call
+
+    # 4096 x 4096, every n over 2^24 points, and 4096-point rows filling four
+    # and six waves of 792 blocks (132 SMs, 6 blocks of one row each)
+    r2c_shapes = ((4096, 4096),) + tuple((1 << (24 - e), 1 << e) for e in range(7, 15)) + (
+        (3168, 4096), (4752, 4096))
+    for rows, n in r2c_shapes if ("r2c_fft", "kernel") in VARIANTS else ():
+        x = torch.randn(rows, n, device=dev, generator=gen)
+        want = torch.fft.rfft(x.double())
+        for lib, c64 in (("r2c_fft", True), ("r2c_fft_f32", False)):
+            out = (torch.empty(rows, n // 2 + 1, dtype=torch.complex64, device=dev) if c64
+                   else (torch.empty(rows, n // 2 + 1, device=dev),
+                         torch.empty(rows, n // 2 + 1, device=dev)))
+            calls = {name: r2c_call(name, f, x, out, c64) for (lb, name), f in fns.items()
+                     if lb == lib and (name in ("kernel", "parent") or rows * n == 1 << 24)}
+            run(f"{lib} {rows}x{n}", x, want, calls, "r2c_fft_kernel")
+        run(f"torch.fft.rfft {rows}x{n}", x, want, {"torch.fft": lambda: torch.fft.rfft(x)},
+            r"\w+")
+        del x, out
+
+    def ax0g_call(name, f, re_, im_, out, n):
+        plan = cuda_fft._mixed_radix_plan(n)
+        radix = cuda_fft._radix_arg(plan)
+        tw = cuda_fft._twiddle_table(n, -1, dev)
+
+        def call():
+            err = f(re_.data_ptr(), im_.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                    tw.data_ptr(), re_.shape[0], re_.shape[-1], n, ctypes.cast(radix, P),
+                    len(plan), -1, 1.0, stream)
+            if err:
+                raise RuntimeError(f"ax0_gen_fft variant {name!r}: CUDA error {err}")
+            return torch.complex(*out)
+        return call
+
+    ax0g_shapes = ((16, 1080, 1920),) + tuple(
+        (16, n, 512) for n in AX0G_NS + AX0G_STREAM_NS[:-1] + AX0G_CLUSTER_NS)
+    for shape in ax0g_shapes if ("ax0_gen_fft", "kernel") in VARIANTS else ():
+        n = shape[1]
+        x = torch.complex(torch.randn(shape, device=dev, generator=gen),
+                          torch.randn(shape, device=dev, generator=gen))
+        re_, im_ = x.real.contiguous(), x.imag.contiguous()
+        out = (torch.empty_like(re_), torch.empty_like(im_))
+        want = torch.fft.fft(x.to(torch.complex128), dim=-2)
+        headline = shape == (16, 1080, 1920)
+        calls = {name: ax0g_call(name, f, re_, im_, out, n) for (lb, name), f in fns.items()
+                 if lb == "ax0_gen_fft" and (name in ("kernel", "parent") or headline)}
+        run("ax0_gen_fft " + "x".join(map(str, shape)), x, want, calls, "ax0_gen_fft_kernel")
+        if headline or n in (2047, 4095, 12288):
+            run("torch.fft.fft dim=-2 " + "x".join(map(str, shape)), x, want,
+                {"torch.fft": lambda: torch.fft.fft(x, dim=-2)}, r"\w+")
+        del x, re_, im_, out, want
+    for rows, n in GEN_SHAPES if ("gen_fft", "kernel") in VARIANTS else ():
+        x = torch.complex(torch.randn(rows, n, device=dev, generator=gen),
+                          torch.randn(rows, n, device=dev, generator=gen))
+        re_, im_ = x.real.contiguous(), x.imag.contiguous()
+        out = (torch.empty_like(re_), torch.empty_like(im_))
+        plan = cuda_fft._mixed_radix_plan(n)
+        radix = cuda_fft._radix_arg(plan)
+        tw = cuda_fft._twiddle_table(n, -1, dev)
+
+        def gen_call(name, f):
+            def call():
+                err = f(re_.data_ptr(), im_.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                        tw.data_ptr(), rows, n, ctypes.cast(radix, P), len(plan), -1, 1.0,
+                        stream)
+                if err:
+                    raise RuntimeError(f"gen_fft variant {name!r}: CUDA error {err}")
+                return torch.complex(*out)
+            return call
+
+        want = torch.fft.fft(x.to(torch.complex128))
+        run(f"gen_fft {rows}x{n}", x, want,
+            {name: gen_call(name, f) for (lb, name), f in fns.items() if lb == "gen_fft"},
+            "gen_fft_kernel")
+        run(f"torch.fft.fft {rows}x{n}", x, want, {"torch.fft": lambda: torch.fft.fft(x)},
+            r"\w+")
+        if (rows, n) == (1024, 4095):  # B14's shape: torch.fft.rfft of the real rows
+            xr = re_.clone()
+            run(f"torch.fft.rfft {rows}x{n}", xr, torch.fft.rfft(xr.double()),
+                {"torch.fft": lambda: torch.fft.rfft(xr)}, r"\w+")
+        del x, re_, im_, out, want
     line = json.dumps(result)
     if args.out:
         with open(args.out, "a") as f:

@@ -5,6 +5,9 @@ Each test feeds the same numpy inputs to ``fft_wgpu_tpu`` and to
 since both packages compute the same transform from the same constants.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +21,10 @@ from fft_wgpu_tpu_torch.core import factor as t_factor
 from fft_wgpu_tpu_torch.core import reference as t_ref
 from fft_wgpu_tpu_torch.core import twiddle as t_tw
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_jax_native as jnat  # noqa: E402
+from torch_jax_native import jax_native  # noqa: E402,F401  (the fixture)
+
 torch.set_num_threads(1)
 
 
@@ -28,8 +35,11 @@ def _same(a, b):
 
 @pytest.mark.parametrize("n", [1, 2, 3, 8, 100, 120, 128, 255, 1000])
 @pytest.mark.parametrize("sign", [-1, 1])
-def test_dft_matrix_equals_jax(n, sign):
-    assert _same(t_tw.dft_matrix_np(n, sign), j_tw.dft_matrix_np(n, sign))
+def test_dft_matrix_equals_jax(n, sign, jax_native):
+    # the JAX package's table with its native core loaded (built for this
+    # process alone: tests/torch_jax_native.py), not whatever its module
+    # holds after a race with another worker's build of the shared library
+    assert _same(t_tw.dft_matrix_np(n, sign), jnat.dft_matrix_np(jax_native, n, sign))
 
 
 @pytest.mark.parametrize("n1,n2", [(2, 4), (8, 16), (25, 40), (64, 64),

@@ -3078,3 +3078,104 @@ def test_edges_raise_before_any_launch(dev):
         torch.cuda.synchronize()
         delta = {k: v - before[k] for k, v in _launch_counts().items() if v != before[k]}
         assert not delta, f"{what}: launched {delta}"
+
+
+# ---------------------------------------------------------------------- #
+# B6 (r2c_fft) with its last pass of radix 8 fused with the store (n =
+# 1024, 2048, 4096, 16384; the others store a pair of bins a thread after
+# the passes), and B2c (ax0_gen_fft) with its pipelined tile row-major, the
+# lanes across its columns and the last pass storing from registers: each
+# held against its plain version and float64 torch.fft
+# ---------------------------------------------------------------------- #
+def _r2c_both_sinks(x, scale, pad):
+    """B6 through its complex64 sink and its planar one (padded or not)."""
+    k = _through(lambda: cuda_fft.rfft_rows_c64(x, scale), r2c_fft=1)
+    kr, ki = _through(lambda: cuda_fft.rfft_rows_split(x, scale, pad_out=pad), r2c_fft=1)
+    return k, kr, ki
+
+
+@pytest.mark.parametrize("n", POW2)
+@pytest.mark.parametrize("rows", [(1,), (33,), (5,), (3, 3)])
+def test_r2c_redesign_matches_plain_and_float64(dev, n, rows):
+    # one row, and row counts that are not a multiple of a block's rows (32,
+    # 16 and 8 rows of 128, 256 and 512 points; 4 of 1024)
+    x = rrand(dev, *rows, n, seed=3)
+    X64 = torch.fft.rfft(x.double())
+    mp = n // 2 + 1
+    for scale, pad in ((None, False), (1.0 / n, True), (n ** -0.5, False)):
+        k, kr, ki = _r2c_both_sinks(x, scale, pad)
+        s = 1.0 if scale is None else scale
+        assert k.shape == (*rows, mp) and kr.shape[-1] == (cuda_fft.pad_bins(n) if pad else mp)
+        assert rel_l2(k, cuda_fft.rfft_rows_c64_reference(x, scale)) < TOL
+        assert rel_l2(k, X64 * s) < TOL
+        p = torch.complex(*cuda_fft.rfft_rows_split_reference(x, scale, pad_out=pad))
+        got = torch.complex(kr, ki)
+        assert rel_l2(got, p) < TOL and rel_l2(got[..., :mp], X64 * s) < TOL
+        assert torch.equal(got[..., :mp], k), "both sinks of one kernel template"
+        assert not kr[..., mp:].any() and not ki[..., mp:].any(), "pad bins are exact zeros"
+
+
+@pytest.mark.parametrize("n", [1024, 4096, 8192])
+def test_r2c_redesign_reads_an_8_byte_aligned_view(dev, n):
+    # a row view 8 bytes past a 16-byte boundary: read in place, no copy
+    x = rrand(dev, 4 * n + 2, seed=4)[2:].view(4, n)
+    assert x.data_ptr() % 16 == 8
+    k, kr, ki = _r2c_both_sinks(x, None, False)
+    X64 = torch.fft.rfft(x.double())
+    assert rel_l2(k, X64) < TOL and rel_l2(torch.complex(kr, ki), X64) < TOL
+
+
+@pytest.mark.parametrize("n", [1024, 4096, 8192])
+@pytest.mark.parametrize("sink", ["c64", "planar"])
+def test_grad_rfft_redesign_matches_plain(dev, n, sink):
+    # forward B6, backward the +sign row kernel on the zero-padded cotangent
+    x = rrand(dev, 6, n, seed=5)
+
+    def grad(f):
+        t = x.clone().requires_grad_()
+        y = f(t)
+        y = y if isinstance(y, torch.Tensor) else torch.complex(*y)
+        w = torch.linspace(0.5, 1.5, y.numel(), device=dev).reshape(y.shape)
+        (w * y.abs() ** 2).sum().backward()
+        return t.grad
+
+    if sink == "c64":
+        kernel, plain = cuda_fft.rfft_rows_c64, cuda_fft.rfft_rows_c64_reference
+        gk = _through(lambda: grad(lambda t: kernel(t, n ** -0.5)), r2c_fft=1, rows_fft=1)
+    else:
+        kernel, plain = cuda_fft.rfft_rows_split, cuda_fft.rfft_rows_split_reference
+        gk = _through(lambda: grad(lambda t: kernel(t, n ** -0.5)), r2c_fft=1, rows_fft=1)
+    gp = grad(lambda t: plain(t, n ** -0.5))
+    assert rel_l2(gk, gp) < TOL
+
+
+@pytest.mark.parametrize("n,m", [(1080, 1925), (1080, 1924), (640, 9), (1004, 12),
+                                 (646, 20), (16383, 3)])
+def test_ax0_gen_redesign_ragged_streaming_and_in_place(dev, n, m):
+    # a ragged last tile (1925 columns: 4-byte copies; 1924: 16-byte copies,
+    # four columns left over), generic passes first and last (1004 = 251 * 4,
+    # 646 = 17 * 2 * 19), a streaming length (16383 = 43 * 3 * 127), and the
+    # output written over the input
+    x = crand(dev, 2, n, m, seed=6)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    for sign, scale in ((-1, None), (1, 1.0 / n)):
+        k = torch.complex(*_through(lambda: cuda_fft.fft_axis0_split(re, im, sign, scale),
+                                    ax0_gen=1))
+        p = torch.complex(*cuda_fft._mixed_radix_axis(re, im, sign, scale))
+        o = torch.fft.fft(x.to(torch.complex128), dim=-2) if sign < 0 else \
+            torch.fft.ifft(x.to(torch.complex128), dim=-2)
+        assert rel_l2(k, p) < TOL and rel_l2(k, o) < TOL, (sign, scale)
+        a, b = re.clone(), im.clone()
+        out = _through(lambda: cuda_fft.fft_axis0_split(a, b, sign, scale, out=(a, b)),
+                       ax0_gen=1)
+        assert out[0] is a and out[1] is b
+        assert torch.equal(torch.complex(a, b), k), "in place: the same bits"
+
+
+@pytest.mark.parametrize("shape", [(1080, 8, 24), (2, 640, 3, 5)])
+def test_ax0_gen_redesign_on_the_axis3_view(dev, shape):
+    x = crand(dev, *shape, seed=7)
+    re, im = x.real.contiguous(), x.imag.contiguous()
+    k = torch.complex(*_through(lambda: cuda_fft.fft_axis3_split(re, im, -1, None), ax3=1))
+    p = torch.complex(*cuda_fft.fft_axis3_split_reference(re, im, -1, None))
+    assert rel_l2(k, p) < TOL and rel_l2(k, torch.fft.fft(x.to(torch.complex128), dim=-3)) < TOL

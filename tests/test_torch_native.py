@@ -13,29 +13,42 @@ from), the four-step's inter-factor twiddles at its splits of 2^15..2^22,
 and the DFT matrices of the plain path's direct lengths.
 """
 
+import os
 import shutil
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from fft_wgpu_tpu.utils import native as jn
 from fft_wgpu_tpu_torch.core import twiddle as tw
 from fft_wgpu_tpu_torch.ops import cuda_fft, fourstep
 from fft_wgpu_tpu_torch.utils import build
 from fft_wgpu_tpu_torch.utils import native
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_jax_native as jnat  # noqa: E402
+from torch_jax_native import jax_native  # noqa: E402,F401  (the fixture)
+
 torch.set_num_threads(1)
 
 
-def _jax_lib():
-    if jn.get_lib() is None:  # the JAX module's None: no toolchain
-        pytest.fail("the JAX package's native core did not build")
+@pytest.fixture
+def jn(jax_native):
+    """The JAX package's ``utils/native`` module with its library built for
+    this process alone (``tests/torch_jax_native.py``): the shared
+    ``fft_wgpu_tpu/native/libfftcore.so`` may be half written by another
+    worker when this one loads it."""
+    return jax_native
+
+
+def _jax_lib(jn):
+    jnat.require(jn)
 
 
 @pytest.mark.parametrize("n", [1, 2, 16, 60, 97])
-def test_dft_matrix_matches_jax_and_numpy(n):
-    _jax_lib()
+def test_dft_matrix_matches_jax_and_numpy(n, jn):
+    _jax_lib(jn)
     k = np.arange(n)
     for sign in (-1, 1):
         wr, wi = native.dft_matrix_f64(n, sign)
@@ -47,8 +60,8 @@ def test_dft_matrix_matches_jax_and_numpy(n):
 
 
 @pytest.mark.parametrize("n1,n2", [(4, 8), (16, 64), (1, 7), (32, 1024)])
-def test_twiddle_matches_jax_and_numpy(n1, n2):
-    _jax_lib()
+def test_twiddle_matches_jax_and_numpy(n1, n2, jn):
+    _jax_lib(jn)
     for sign in (-1, 1):
         wr, wi = native.twiddle_f64(n1, n2, sign)
         jr, ji = jn.twiddle_f64(n1, n2, sign)
@@ -58,8 +71,8 @@ def test_twiddle_matches_jax_and_numpy(n1, n2):
         assert np.abs(wr + 1j * wi - ref).max() < 1e-14
 
 
-def test_roots_are_row_one_of_the_dft_matrix():
-    _jax_lib()
+def test_roots_are_row_one_of_the_dft_matrix(jn):
+    _jax_lib(jn)
     for n in (1, 8, 12, 97, 256):
         for sign in (-1, 1):
             rr, ri = native.roots_f64(n, sign)
@@ -68,8 +81,8 @@ def test_roots_are_row_one_of_the_dft_matrix():
             np.testing.assert_array_equal(ri, ji[min(1, n - 1)] if n > 1 else ji[0])
 
 
-def test_factorize_matches_jax():
-    _jax_lib()
+def test_factorize_matches_jax(jn):
+    _jax_lib(jn)
     assert native.factorize(4096, 128) == [128, 32]
     assert native.factorize(262, 128) is None  # 2 * 131
     assert native.factorize(1, 128) is None
@@ -78,8 +91,8 @@ def test_factorize_matches_jax():
             assert native.factorize(n, radix) == jn.factorize(n, radix), (n, radix)
 
 
-def test_plan_choice_matches_jax():
-    _jax_lib()
+def test_plan_choice_matches_jax(jn):
+    _jax_lib(jn)
     # the JAX test's decisions
     assert native.plan_choice(64, 128, 128, 8192, 512) == ("direct", 1, 64)
     assert native.plan_choice(4096, 128, 128, 8192, 512) == ("pallas", 32, 128)
@@ -92,8 +105,8 @@ def test_plan_choice_matches_jax():
 
 
 @pytest.mark.parametrize("shape", [(37, 129), (1 << 21,)], ids=["one pass", "threaded"])
-def test_host_codec_matches_jax_and_numpy(shape):
-    _jax_lib()
+def test_host_codec_matches_jax_and_numpy(shape, jn):
+    _jax_lib(jn)
     rng = np.random.default_rng(0)
     for dtype in (np.complex64, np.complex128):
         z = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(dtype)
